@@ -1,0 +1,22 @@
+"""predictionio_tpu_torch: the PyTorch and CUDA port of predictionio_tpu.
+
+A second package beside the JAX one, which stays the reference: each
+module here mirrors the path and names of its counterpart there
+(``ops/mips.py`` pairs with ``predictionio_tpu/ops/mips.py``), and the
+``tests/test_torch_*.py`` files hold the two to the same outputs. The
+port imports ``torch``, never ``jax`` and nothing of ``predictionio_tpu``:
+what it needs from a framework-free module there it keeps as its own copy.
+
+Every TPU kernel on a ported path is a kernel written by hand for Hopper
+(``csrc/``, built at first use by ``_kernels``). Entry points run on the
+card unless the caller passes ``device="cpu"``; nothing falls back.
+
+What is ported so far is the recommendation template's serving half:
+``tools/cli.py deploy`` -> ``workflow/create_server`` ->
+``models/recommendation/engine`` -> ``models/_als_common`` ->
+``ops/mips`` (kernel ``csrc/mips_topk.cu``).
+"""
+
+__version__ = "0.1.0"
+
+__all__ = ["__version__"]

@@ -1,0 +1,274 @@
+"""Shared serving pieces of the ALS-backed templates.
+
+Port of the serving half of ``predictionio_tpu/models/_als_common.py``:
+the seen-items map, the mips ``Shortlist`` view and its retrieval index,
+the known-user / similar-items scorers and the rank+format tail of the
+``itemScores`` responses (predict and the vectorized batch path must rank
+identically). The training half (CSR packing, checkpointed fit) comes
+with the training slice.
+
+Only the stage-1 search runs on the device. Every response score is
+computed on the host with the same ``np.einsum`` row arithmetic as the
+scan path, so mips responses are byte-identical to scan responses
+whenever the shortlist holds the true top-k.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from predictionio_tpu_torch.ops.mips import RetrievalConfig, RetrievalIndex
+from predictionio_tpu_torch.parallel.als import ALSModel
+from predictionio_tpu_torch.utils.device import resolve_device
+
+
+def build_seen(users: np.ndarray, items: np.ndarray) -> dict[int, set[int]]:
+    """user index -> set of interacted item indices (serving-time filter).
+
+    Sorted-split construction: one stable argsort + one ``np.unique``
+    boundary scan, so interpreter time is O(distinct users), not
+    O(events)."""
+    users = np.asarray(users)
+    if users.size == 0:
+        return {}
+    order = np.argsort(users, kind="stable")
+    sorted_users = users[order]
+    sorted_items = np.asarray(items)[order]
+    uniq, starts = np.unique(sorted_users, return_index=True)
+    bounds = np.append(starts[1:], sorted_users.size)
+    return {
+        int(u): set(sorted_items[s:e].tolist())
+        for u, s, e in zip(uniq.tolist(), starts.tolist(), bounds.tolist())
+    }
+
+
+def score_buffer_rows(num_items: int, floor: int = 64) -> int:
+    """Rows per batch-predict slice so the host [rows, items] score buffer
+    stays ~200 MB f32 regardless of catalog size."""
+    return max(floor, 50_000_000 // max(num_items, 1))
+
+
+def partition_user_queries(user_index: dict[str, int], queries):
+    """Split (qid, query) pairs into known-user rows [(qid, q, user_idx)]
+    and fallback pairs [(qid, q)] -- the shared head of batch_predict."""
+    user_rows, fallback = [], []
+    for qid, q in queries:
+        user_idx = (
+            user_index.get(str(q["user"]))
+            if isinstance(q, dict) and "user" in q
+            else None
+        )
+        if user_idx is None:
+            fallback.append((qid, q))
+        else:
+            user_rows.append((qid, q, user_idx))
+    return user_rows, fallback
+
+
+class Shortlist:
+    """Compact view of one request's score vector: the stage-2 contract
+    of the two-stage MIPS retrieval path (``ops/mips``).
+
+    ``indices`` are ascending catalog indices, ``scores`` their EXACT f32
+    re-ranked scores (writable copy -- the seen/blackList filters write
+    -inf through ``__setitem__``). The ascending order is load-bearing:
+    ``topk_order``'s stable sort over the compact array then breaks score
+    ties by global catalog index, byte-matching the full scan. Items
+    outside the shortlist silently absorb filter writes.
+    """
+
+    __slots__ = ("indices", "scores", "num_items")
+
+    def __init__(self, indices: np.ndarray, scores: np.ndarray, num_items: int):
+        self.indices = np.asarray(indices)
+        self.scores = np.array(scores)  # writable copy: filters mutate it
+        self.num_items = num_items
+
+    def __setitem__(self, idx: int, value) -> None:
+        pos = int(np.searchsorted(self.indices, idx))
+        if pos < self.indices.size and self.indices[pos] == idx:
+            self.scores[pos] = value
+
+
+def resolve_retrieval(params) -> RetrievalConfig:
+    """Parse the algorithm-params ``"retrieval"`` block (raising on
+    unknown modes/knobs)."""
+    return RetrievalConfig.from_params(params.get_or("retrieval", None))
+
+
+def retrieval_index(als_model: ALSModel, retrieval, kind: str = "dot", device=None):
+    """The lazily-built, model-cached ``RetrievalIndex`` on ``device``
+    for mips mode, or None for scan mode. ``kind="cosine"`` indexes the
+    norm-normalized item factors, so similar-items queries run as MIPS
+    over unit vectors (sum of anchor cosines == dot with the summed
+    normalized anchors). The cache lives on the model object and never
+    serializes."""
+    if retrieval is None or retrieval.mode != "mips":
+        return None
+    device = resolve_device(device)
+    cache = als_model._retrieval_cache
+    if cache is None:
+        cache = {}
+        als_model._retrieval_cache = cache
+    key = (kind, retrieval, str(device))
+    index = cache.get(key)
+    if index is None:
+        if kind == "cosine":
+            norms = np.maximum(als_model.item_norms, 1e-12)
+            table = als_model.item_factors / norms[:, None]
+        else:
+            table = als_model.item_factors
+        index = RetrievalIndex(table, retrieval, device=device)
+        cache[key] = index
+    return index
+
+
+def score_known_user(als_model: ALSModel, user_idx: int, retrieval=None, device=None):
+    """One user's item scores: the dense vector (scan) or the stage-2
+    ``Shortlist`` (mips), re-ranked on the host."""
+    index = retrieval_index(als_model, retrieval, device=device)
+    if index is None:
+        return als_model.score_items_for_user(user_idx)
+    idx, _ = index.search(als_model.user_factors[user_idx][None, :])
+    return _host_rerank(als_model, idx[0], user_idx)
+
+
+def _host_rerank(als_model: ALSModel, short: np.ndarray, user_idx: int) -> Shortlist:
+    """Exact scores for one user's shortlist, as the scan path computes
+    them: a gathered-row f32 matvec, bitwise equal to
+    ``score_items_for_user`` at the shortlisted rows. Sentinel slots stay
+    -inf and drop in the format tail."""
+    num_items = als_model.item_factors.shape[0]
+    in_range = short < num_items
+    vals = np.einsum(
+        "ik,k->i",
+        als_model.item_factors[short[in_range]],
+        als_model.user_factors[user_idx],
+    )
+    scores = np.full(short.shape, -np.inf, vals.dtype)
+    scores[in_range] = vals
+    return Shortlist(short, scores, num_items)
+
+
+def similar_item_scores(als_model: ALSModel, anchors: list[int], retrieval=None, device=None):
+    """Summed cosine similarity of all items against the anchors: dense
+    (scan) or a ``Shortlist`` through the cosine index (mips), whose
+    stage-1 query is the sum of the anchors' unit vectors. The shortlist
+    re-ranks on the host by replaying the scan's per-anchor arithmetic,
+    summed in anchor order."""
+    index = retrieval_index(als_model, retrieval, kind="cosine", device=device)
+    if index is None:
+        sims = None
+        for idx in anchors:
+            s = als_model.similar_items(idx)
+            sims = s if sims is None else sims + s
+        return sims
+    norms = np.maximum(als_model.item_norms[anchors], 1e-12)
+    query = (als_model.item_factors[anchors] / norms[:, None]).sum(axis=0)
+    idx, _ = index.search(query[None, :])
+    short = idx[0]
+    num_items = als_model.item_factors.shape[0]
+    in_range = short < num_items
+    rows = short[in_range]
+    sims = None
+    for a in anchors:
+        v = als_model.item_factors[a]
+        row_norms = als_model.item_norms[rows] * (als_model.item_norms[a] + 1e-12)
+        s = np.einsum("ik,k->i", als_model.item_factors[rows], v) / np.maximum(
+            row_norms, 1e-12
+        )
+        sims = s if sims is None else sims + s
+    scores = np.full(short.shape, -np.inf, sims.dtype if sims is not None else np.float32)
+    if sims is not None:
+        scores[in_range] = sims
+    return Shortlist(short, scores, num_items)
+
+
+def batch_score_known_users(
+    als_model: ALSModel, user_rows, respond, *, retrieval=None, device=None
+) -> list:
+    """Score known users in bounded slices; ``respond(scores_row, qid,
+    query, user_idx)`` builds each response. Mips mode runs one device
+    search per slice and hands ``respond`` a host re-ranked ``Shortlist``
+    per row (the single-query matvec shape, so batched responses stay
+    bitwise equal to unbatched ones)."""
+    out = []
+    index = retrieval_index(als_model, retrieval, device=device)
+    if index is not None:
+        rows_per_slice = score_buffer_rows(index.config.shortlist)
+        for start in range(0, len(user_rows), rows_per_slice):
+            part = user_rows[start : start + rows_per_slice]
+            idxs = np.fromiter((u for _, _, u in part), dtype=np.int64)
+            short_idx, _ = index.search(als_model.user_factors[idxs])
+            out.extend(
+                respond(
+                    _host_rerank(als_model, short_idx[row], user_idx),
+                    qid, q, user_idx,
+                )
+                for row, (qid, q, user_idx) in enumerate(part)
+            )
+        return out
+    rows_per_slice = score_buffer_rows(als_model.item_factors.shape[0])
+    for start in range(0, len(user_rows), rows_per_slice):
+        part = user_rows[start : start + rows_per_slice]
+        idxs = np.fromiter((u for _, _, u in part), dtype=np.int64)
+        # einsum, not sgemm: the per-row reduction keeps every scoring
+        # path (scan/mips, batched/unbatched) bitwise equal
+        scores = np.einsum(
+            "bk,ik->bi", als_model.user_factors[idxs], als_model.item_factors
+        )
+        out.extend(
+            respond(scores[row], qid, q, user_idx)
+            for row, (qid, q, user_idx) in enumerate(part)
+        )
+    return out
+
+
+def topk_order(scores: np.ndarray, num: int) -> np.ndarray:
+    """Indices of the top-``num`` scores, descending, ties by ascending
+    position -- a pure function of the (score, position) multiset.
+
+    O(items) argpartition + O(num log num) sort; threshold ties are
+    re-selected by position explicitly so a dense vector and a mips
+    ``Shortlist`` holding the same values order identically. NaN/-inf
+    sentinels rank after every finite score."""
+    n = scores.shape[0]
+    if 0 < num < n:
+        cand = np.argpartition(-scores, num - 1)[:num]
+        vals = scores[cand]
+        if not np.isnan(vals).any():
+            t = vals.min()
+            head = np.flatnonzero(scores > t)
+            # lowest positions among scores == t fill the remaining slots
+            ties = np.flatnonzero(scores == t)[: num - head.size]
+            cand = np.concatenate([head, ties])
+            return cand[np.lexsort((cand, -scores[cand]))]
+        # NaN reached the top slice: fall through to the full stable sort
+    return np.argsort(-scores, kind="stable")[:num]
+
+
+def topk_item_scores(item_ids: list[str], scores, num: int) -> dict:
+    """Rank + format tail shared by every response: descending
+    top-``num``, excluded entries carried as -inf and dropped here. A
+    ``Shortlist`` ranks over its compact arrays with the same
+    ``topk_order``."""
+    if isinstance(scores, Shortlist):
+        order = topk_order(scores.scores, num)
+        finite = np.isfinite(scores.scores[order])
+        return {
+            "itemScores": [
+                {"item": item_ids[int(scores.indices[j])],
+                 "score": float(scores.scores[j])}
+                for j, ok in zip(order, finite)
+                if ok
+            ]
+        }
+    order = topk_order(scores, num)
+    finite = np.isfinite(scores[order])
+    return {
+        "itemScores": [
+            {"item": item_ids[j], "score": float(scores[j])}
+            for j, ok in zip(order, finite)
+            if ok
+        ]
+    }

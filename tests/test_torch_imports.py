@@ -1,0 +1,90 @@
+"""The port stands alone: no JAX, nothing of the JAX package, the card
+by default.
+
+Every module of ``predictionio_tpu_torch`` is imported in a fresh
+interpreter where ``import jax`` fails and a meta-path finder refuses the
+EXACT top-level name ``predictionio_tpu`` (a prefix match would also
+refuse ``predictionio_tpu_torch`` and prove nothing).
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+class RefuseReference(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "predictionio_tpu":
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, RefuseReference())
+sys.modules["jax"] = None
+import predictionio_tpu_torch as pkg
+
+names = [pkg.__name__] + [
+    m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "predictionio_tpu", "triton")
+    and sys.modules[m] is not None
+)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    # every module of the slice was walked, not just the package root
+    assert int(out.stdout.strip()) >= 18
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    from predictionio_tpu_torch.models.recommendation import ALSAlgorithm
+    from predictionio_tpu_torch.ops.mips import RetrievalConfig, RetrievalIndex
+    from predictionio_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ALSAlgorithm({})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RetrievalIndex([[1.0, 2.0]], RetrievalConfig(mode="mips"))
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("mps")
+
+
+def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
+    """A non-CPU tensor launches the kernel or raises: the wrapper has
+    no path that quietly computes the plain version instead."""
+    from predictionio_tpu_torch.ops import mips
+
+    monkeypatch.setattr(
+        mips, "mips_block_topk_plain",
+        lambda *a, **k: pytest.fail("plain version taken for a device tensor"),
+    )
+    meta = [
+        torch.empty((8, 16), dtype=torch.float32, device="meta"),
+        torch.empty((512, 16), dtype=torch.int8, device="meta"),
+        torch.empty((1, 1), dtype=torch.float32, device="meta"),
+    ]
+    with pytest.raises(ValueError, match="no stage-1 kernel"):
+        mips.mips_block_topk(*meta, block_topk=16, num_items=500)
