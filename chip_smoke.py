@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one card: build, check, time, serve.
+"""Drive the PyTorch/CUDA port on one card: build, check, time, serve, train.
 
     python3 chip_smoke.py [--seed N]
 
@@ -11,17 +11,17 @@ script exits non-zero and prints no result):
    gives them.
 2. build   -- compiles every kernel of ``predictionio_tpu_torch/csrc``
    (one ``nvcc`` each, started together) and reports ptxas's summary.
-3. check   -- each kernel against its plain torch twin on the card, at
-   the main path's shapes (1,000,000 items x rank 16, 512-item tiles,
-   R=16, batches of 8, 16 and 256) plus small tie and padding cases.
-   Tolerance: per (query, tile) the sorted scores agree within
-   rtol=atol=1e-5, and the index sets are equal except entries whose
-   score lies within that tolerance of the R-th score (the kernel and
-   the plain version sum the K products in different orders).
-4. time    -- kernel and plain version, median of CUDA-event timed runs
+3. check   -- kernel B2 (``mips_topk.cu``) against its plain torch twin
+   on the card, at the serving path's shapes (1,000,000 items x rank 16,
+   512-item tiles, R=16, batches of 8, 16 and 256) plus small tie and
+   padding cases. Tolerance: per (query, tile) the sorted scores agree
+   within rtol=atol=1e-5, and the index sets are equal except entries
+   whose score lies within that tolerance of the R-th score (the kernel
+   and the plain version sum the K products in different orders).
+4. time    -- B2 and its plain version, median of CUDA-event timed runs
    after warm-up, beside the bound: the larger of bytes / 3.35 TB/s and
    f32 operations / 67 TFLOP/s (H100 SXM data sheet).
-5. serve   -- the main path: a recommendation model of 138,000 users x
+5. serve   -- the serving path: a recommendation model of 138,000 users x
    1,000,000 items x rank 16 made from ``--seed``, saved with
    ``save_model``, deployed through the ``deploy`` code path on cuda
    with ``"retrieval": {"mode": "mips"}``, answering POST /queries.json
@@ -30,14 +30,43 @@ script exits non-zero and prints no result):
    just before and read just after. Checks: every kernel of the path
    launched, batch_predict equals per-query predict, and recall@10 of
    the served lists against the exact f32 scan is at least 0.99.
+6. train   -- the training path at full width: the template's engine.json
+   (rank 16, 10 iterations, lambda 0.1, seed 3, f32, explicit) with
+   ``maxEventsPerUser`` 256 on 138,000 users x 27,000 items x 20,000,000
+   ratings made from ``--seed`` by the bench's MovieLens-20M recipe,
+   through RecommendationPreparator -> ALSAlgorithm.train on cuda, the
+   generated arrays standing where the events reader's would. B1 launch
+   counts are zeroed just before and read just after (20 expected).
+   Checks: no NaN; the training RMSE on 100,000 sampled ratings falls
+   from iteration 1 to 2 to 10; a 2-iteration fit through B1 equals the
+   unfused "xla" path on the card within 1e-4 (the reference's f32
+   solver-parity bar).
+7. check_b1 -- kernel B1 (``als_gram.cu``) against its plain version on
+   the two half-step blocks of that fit (138,000 x 200 and 27,000 x 256,
+   trained factors), explicit/implicit x f32/bf16, plus small cases:
+   ranks 8, 16, 32, 64, a ragged row count, all-padding rows (exactly
+   zero) and the last real row. Tolerance, elementwise: 2 (L + 2) 2^-24
+   times the same sums over absolute values (the worst case of two f32
+   recursive sums of L products in different orders); per Gram row the
+   same factor of its max|gram|.
+8. time_b1 -- B1, its plain version, the ridge + solve and the whole
+   half-step at both block shapes in f32 and bf16, beside the bound (the
+   reference's fused bytes model over 3.35 TB/s, or the f32 operations).
+9. foldin  -- ``fold_in_users`` of 1,000 users' histories against the
+   trained item factors, through B1 and through the plain path.
+10. train_verb_and_serve -- the ``train`` verb on a 3,000-event JSON-lines
+   file and ``deploy`` of what it wrote; then the full-width model of
+   phase 6 saved, deployed with mips and queried over HTTP: B2 launches
+   and recall@10 >= 0.99 against the exact scan.
 
-Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
-{...}}``.
+Then one line ``{"kernels": [...]}``, the card's line again and, last,
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import http.client
 import json
 import os
@@ -58,6 +87,16 @@ NUM_USERS, NUM_ITEMS, RANK = 138_000, 1_000_000, 16
 BLOCK_ITEMS, BLOCK_TOPK = 512, 16
 BATCHES = (8, 16, 256)
 TIMED_RUNS = 30
+
+#: the training configuration: the template's engine.json (rank 16, 10
+#: iterations, lambda 0.1, seed 3, f32 factors, explicit) on the bench's
+#: stand-in for MovieLens-20M, with its 256-event history cap
+TRAIN_USERS, TRAIN_ITEMS, TRAIN_EDGES, TRAIN_CAP = 138_000, 27_000, 20_000_000, 256
+RMSE_SAMPLE = 100_000
+FOLDIN_USERS = 1_000
+SMALL_EVENTS = 3_000
+#: the reference's f32 solver-parity bar (tests/test_als_gram.py:198)
+FIT_ATOL = 1e-4
 
 
 def emit(obj: dict) -> None:
@@ -248,9 +287,38 @@ def get_status(conn: http.client.HTTPConnection) -> dict:
     return body
 
 
+def recall_against_scan(params: dict, deployed, queries, served) -> tuple[float, int]:
+    """recall@10 of the served responses against the exact f32 scan of
+    the same model, and how many responses equal the scan's. Raises
+    below 0.99, on a non-finite score, or on a length mismatch."""
+    from predictionio_tpu_torch.models.recommendation import ALSAlgorithm
+
+    scan = ALSAlgorithm(
+        {k: v for k, v in params.items() if k != "retrieval"}, device="cuda"
+    )
+    hits = total = identical = 0
+    for q, body in zip(queries, served):
+        exact = scan.predict(deployed, q)
+        want = [s["item"] for s in exact["itemScores"]][:10]
+        got = {s["item"] for s in body["itemScores"]}
+        hits += len(got & set(want))
+        total += len(want)
+        identical += body == exact
+        for s in body["itemScores"]:
+            if not np.isfinite(s["score"]):
+                raise AssertionError(f"non-finite score in {body}")
+        if len(body["itemScores"]) != len(exact["itemScores"]):
+            raise AssertionError(f"{q}: {len(body['itemScores'])} items served, "
+                                 f"{len(exact['itemScores'])} in the scan")
+    recall = hits / max(total, 1)
+    if recall < 0.99:
+        raise AssertionError(f"recall@10 {recall} < 0.99 against the exact scan")
+    return recall, identical
+
+
 def phase_serve(rng: np.random.Generator, workdir: str) -> dict:
     from predictionio_tpu_torch.models._als_common import retrieval_index
-    from predictionio_tpu_torch.models.recommendation import ALSAlgorithm, save_model
+    from predictionio_tpu_torch.models.recommendation import save_model
     from predictionio_tpu_torch.ops import mips
     from predictionio_tpu_torch.tools.cli import build_query_server
 
@@ -321,28 +389,9 @@ def phase_serve(rng: np.random.Generator, workdir: str) -> dict:
         raise AssertionError("batch_predict differs from per-query predict")
     if served[-2] != {"itemScores": []} or served[-1] != {"itemScores": []}:
         raise AssertionError("cold user / unknown items must answer empty lists")
-    # recall@10 against the exact f32 scan of the same model
-    scan = ALSAlgorithm(
-        {k: v for k, v in variant["algorithms"][0]["params"].items() if k != "retrieval"},
-        device="cuda",
+    recall, identical = recall_against_scan(
+        variant["algorithms"][0]["params"], deployed, queries, served
     )
-    hits = total = identical = 0
-    for q, body in zip(queries, served):
-        exact = scan.predict(deployed, q)
-        want = [s["item"] for s in exact["itemScores"]][:10]
-        got = {s["item"] for s in body["itemScores"]}
-        hits += len(got & set(want))
-        total += len(want)
-        identical += body == exact
-        for s in body["itemScores"]:
-            if not np.isfinite(s["score"]):
-                raise AssertionError(f"non-finite score in {body}")
-        if len(body["itemScores"]) != len(exact["itemScores"]):
-            raise AssertionError(f"{q}: {len(body['itemScores'])} items served, "
-                                 f"{len(exact['itemScores'])} in the scan")
-    recall = hits / max(total, 1)
-    if recall < 0.99:
-        raise AssertionError(f"recall@10 {recall} < 0.99 against the exact scan")
     # the same query without HTTP: the device search alone (it ends in a
     # copy to the host, which waits for the device) and the whole predict
     # (search + numpy re-rank + filter + format)
@@ -362,6 +411,470 @@ def phase_serve(rng: np.random.Generator, workdir: str) -> dict:
         "identical_to_scan": identical,
     }
     emit({"phase": "serve", **result})
+    return result
+
+
+# --------------------------------------------------------------------------
+# training: kernel B1 (csrc/als_gram.cu) on the recommendation template
+# --------------------------------------------------------------------------
+
+
+class StepTimes:
+    """``telemetry`` for ``als_fit``: wall seconds of each iteration."""
+
+    def __init__(self):
+        self.seconds: list[float] = []
+
+    def record_step(self, iteration: int, seconds: float) -> None:
+        self.seconds.append(seconds)
+
+
+def make_ratings(rng: np.random.Generator):
+    """The bench's stand-in for MovieLens-20M (``bench.py:68-78``): users
+    uniform, item popularity a squared-uniform Zipf (u^2.2), integer
+    ratings 1-5; event i happens at second i."""
+    users = rng.integers(0, TRAIN_USERS, size=TRAIN_EDGES, dtype=np.int64)
+    items = (
+        np.minimum(rng.random(TRAIN_EDGES) ** 2.2, 0.999999) * TRAIN_ITEMS
+    ).astype(np.int64)
+    ratings = rng.integers(1, 6, size=TRAIN_EDGES).astype(np.float32)
+    times = np.arange(TRAIN_EDGES, dtype=np.float64)
+    return users, items, ratings, times
+
+
+def template_params(repo: str) -> tuple[dict, dict]:
+    """(algorithm params, preparator params) of the template's engine.json,
+    with the history cap of ``bench.py:1102``. Without the cap the most
+    popular item has ~194,000 ratings: its padded item block would be
+    27,000 x ~194,000 slots x 8 B ~ 42 GB, and the unfused gather
+    several times that."""
+    with open(os.path.join(repo, "examples", "recommendation", "engine.json")) as f:
+        variant = json.load(f)
+    return variant["algorithms"][0]["params"], {"maxEventsPerUser": TRAIN_CAP}
+
+
+def rmse(model, users, items, ratings) -> float:
+    pred = np.einsum("nk,nk->n", model.user_factors[users], model.item_factors[items])
+    return float(np.sqrt(np.mean((pred - ratings) ** 2)))
+
+
+def phase_train(rng: np.random.Generator, repo: str) -> dict:
+    """The main training path at full width: DataSource-shaped arrays ->
+    RecommendationPreparator -> ALSAlgorithm.train on cuda, counted."""
+    import torch
+
+    from predictionio_tpu_torch.controller.base import TrainContext
+    from predictionio_tpu_torch.models.recommendation import (
+        ALSAlgorithm,
+        RatingsData,
+        RecommendationPreparator,
+    )
+    from predictionio_tpu_torch.ops import als_gram
+    from predictionio_tpu_torch.parallel.als import ALSModel, als_fit
+
+    t0 = time.perf_counter()
+    users, items, ratings, times = make_ratings(rng)
+    data = RatingsData(
+        users=users, items=items, ratings=ratings, times=times,
+        user_ids=[f"u{u}" for u in range(TRAIN_USERS)],
+        item_ids=[f"i{i}" for i in range(TRAIN_ITEMS)],
+    )
+    data.sanity_check()
+    generate_s = time.perf_counter() - t0
+    algo_params, prep_params = template_params(repo)
+    algorithm = ALSAlgorithm(algo_params, device="cuda")
+    steps = StepTimes()
+    ctx = TrainContext(device="cuda", telemetry=steps)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    als_gram.gram_rhs.launches = 0           # counts start at 0 here
+    t0 = time.perf_counter()
+    prepared = RecommendationPreparator(prep_params).prepare(ctx, data)
+    pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = algorithm.train(ctx, prepared)
+    train_s = time.perf_counter() - t0
+    launches = {"gram_rhs": als_gram.gram_rhs.launches}  # read here
+    peak_bytes = torch.cuda.max_memory_allocated()
+    _, als_data = prepared
+    config = algorithm._config()
+    one_card = dataclasses.replace(config, factor_sharding="replicated")
+    # the fit alone, after the counts were read: the same 10 iterations
+    # again with init, the blocks' transfer and the copy back
+    t0 = time.perf_counter()
+    refit = als_fit(als_data, one_card, "cuda")
+    fit_s = time.perf_counter() - t0
+
+    if launches["gram_rhs"] != 2 * config.iterations:
+        raise AssertionError(
+            f"{launches['gram_rhs']} B1 launches, expected {2 * config.iterations}"
+        )
+    for name in ("user_factors", "item_factors"):
+        if not np.isfinite(getattr(model.als, name)).all():
+            raise AssertionError(f"non-finite {name} after training")
+    # quality: training RMSE on a fixed sample falls from iteration 1 to
+    # 10, and a 2-iteration fit through the kernel equals the unfused
+    # "xla" path on the card within the reference's f32 solver-parity bar
+    sample = rng.choice(TRAIN_EDGES, size=RMSE_SAMPLE, replace=False)
+    su, si, sr = users[sample], items[sample], ratings[sample]
+    two = dataclasses.replace(one_card, iterations=2)
+    first = {}
+    fused2 = als_fit(als_data, two, "cuda",
+                     callback=lambda it, u, v: first.setdefault(it, (u, v)))
+    xla2 = als_fit(als_data, dataclasses.replace(two, solver="xla"), "cuda")
+    it1 = ALSModel(user_factors=first[0][0], item_factors=first[0][1])
+    curve = {1: rmse(it1, su, si, sr), 2: rmse(fused2, su, si, sr),
+             10: rmse(model.als, su, si, sr)}
+    if not curve[1] > curve[2] > curve[10]:
+        raise AssertionError(f"training RMSE does not fall: {curve}")
+    xla_diff = max(
+        float(np.abs(fused2.user_factors - xla2.user_factors).max()),
+        float(np.abs(fused2.item_factors - xla2.item_factors).max()),
+    )
+    if xla_diff > FIT_ATOL:
+        raise AssertionError(
+            f"2-iteration fit through the kernel differs from the xla path "
+            f"by {xla_diff} > {FIT_ATOL}"
+        )
+    result = {
+        "users": TRAIN_USERS, "items": TRAIN_ITEMS, "edges": TRAIN_EDGES,
+        "rank": config.rank, "iterations": config.iterations,
+        "max_events_per_user": TRAIN_CAP,
+        "user_block": list(als_data.by_row.blocks[0].indices.shape),
+        "item_block": list(als_data.by_col.blocks[0].indices.shape),
+        "truncated": als_data.by_col.truncated + als_data.by_row.truncated,
+        "generate_s": generate_s, "pack_s": pack_s, "train_s": train_s,
+        "fit_s": fit_s,
+        "refit_identical": bool(
+            np.array_equal(refit.user_factors, model.als.user_factors)
+            and np.array_equal(refit.item_factors, model.als.item_factors)
+        ),
+        "iteration_s": steps.seconds,
+        "iteration_s_median": statistics.median(steps.seconds),
+        "iterations_s_total": sum(steps.seconds),
+        # the rest of train_s is host work around the fit, chiefly the
+        # seen map the model carries
+        "train_s_outside_fit": train_s - fit_s,
+        "peak_device_bytes": peak_bytes, "launches": launches,
+        "rmse": curve, "xla_max_abs_diff_at_2": xla_diff,
+    }
+    emit({"phase": "train", **result})
+    return {"result": result, "model": model, "als_data": als_data,
+            "config": config, "ratings": (users, items, ratings, times)}
+
+
+def b1_bound(rows: int, pad_len: int, table_rows: int, rank: int,
+             itemsize: int) -> tuple[float, str, float, float]:
+    """(bound ms, what bounds it, bytes, operations) of one B1 call. Bytes:
+    what the function must move, each input read once and each output
+    written once: indices (i32) and values (f32), the gather table once
+    (a factor table fits the 50 MB L2, so its repeated reads by the
+    gather need not reach device memory), Gram and rhs (f32). Operations:
+    2*R*L*K^2 + 2*R*L*K f32, the full K x K Gram the kernel computes (the
+    symmetric upper triangle alone would take about half). The larger of
+    bytes over the memory rate and operations over the f32 rate."""
+    nbytes = (rows * pad_len * (4 + 4) + table_rows * rank * itemsize
+              + rows * (rank * rank + rank) * 4)
+    ops = 2.0 * rows * pad_len * rank * rank + 2.0 * rows * pad_len * rank
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def compare_b1(idx, val, table, alpha: float, implicit: bool) -> tuple[float, float]:
+    """Kernel vs plain on the same inputs. Tolerance, elementwise: the
+    worst-case error of f32 recursive summation of L products is
+    (L + 2) * 2^-24 * sum|terms| for each of the two sums, which run in
+    different orders, so |kernel - plain| <= 2 (L + 2) 2^-24 S with S the
+    same sums over absolute values (computed by the plain version on
+    |values| and |table|). With non-negative weights S_ij <= max_k
+    gram_kk (Cauchy-Schwarz), so each Gram row also stays within that
+    factor of its max|gram|, which is checked too. Returns the max abs
+    error and the largest per-row error relative to max|gram|."""
+    import torch
+
+    from predictionio_tpu_torch.ops.als_gram import gram_rhs, gram_rhs_plain
+
+    gram, rhs = gram_rhs(idx, val, table, alpha, implicit=implicit)
+    torch.cuda.synchronize()
+    p_gram, p_rhs = gram_rhs_plain(idx, val, table, alpha, implicit=implicit)
+    s_gram, s_rhs = gram_rhs_plain(idx, val.abs(), table.abs(), abs(alpha), implicit=implicit)
+    tol = 2.0 * (idx.shape[1] + 2) * 2.0 ** -24
+    worst = 0.0
+    for what, got, want, scale in (("gram", gram, p_gram, s_gram), ("rhs", rhs, p_rhs, s_rhs)):
+        err = (got - want).abs()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"non-finite {what} from the kernel")
+        if bool((err > tol * scale + 1e-30).any()):
+            ratio = float((err / (scale + 1e-30)).max())
+            raise AssertionError(
+                f"B1 {what} differs from the plain version: {ratio} of the "
+                f"absolute sum, over the bound {tol}"
+            )
+        worst = max(worst, float(err.max()))
+    row_err = (gram - p_gram).abs().amax(dim=(1, 2))
+    row_rel = float((row_err / p_gram.abs().amax(dim=(1, 2)).clamp(min=1e-30)).max())
+    if row_rel > tol:
+        raise AssertionError(f"B1 Gram row error {row_rel} of max|gram| over {tol}")
+    return worst, row_rel
+
+
+def slot_table(side, factors: np.ndarray) -> np.ndarray:
+    """A side's factors (original entity order) as the gather table the
+    opposite side's block indexes: slot order, ``[total_slots + 1, K]``
+    f32, padding slots and the sentinel row zero."""
+    table = np.zeros((side.total_slots + 1, factors.shape[1]), np.float32)
+    table[side.slot_of] = factors
+    return table
+
+
+def phase_check_b1(rng: np.random.Generator, trained: dict) -> dict:
+    """Kernel B1 against its plain version on the card: the two half-step
+    blocks of the full-width fit (real indices, trained factors) in both
+    modes and dtypes, plus small cases."""
+    import torch
+
+    from predictionio_tpu_torch.ops.als_gram import gram_rhs
+
+    data, model = trained["als_data"], trained["model"]
+    sides = {
+        "users": (data.by_row.blocks[0], slot_table(data.by_col, model.als.item_factors)),
+        "items": (data.by_col.blocks[0], slot_table(data.by_row, model.als.user_factors)),
+    }
+    worst = {}
+    for side, (block, table) in sides.items():
+        idx = torch.from_numpy(block.indices).cuda()
+        val = torch.from_numpy(block.values).cuda()
+        table32 = torch.from_numpy(table).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            for implicit in (False, True):
+                err, row_rel = compare_b1(idx, val, table32.to(dtype), 40.0, implicit)
+                worst[side] = max(worst.get(side, 0.0), err)
+                emit({"phase": "check_b1", "case": side, "shape": list(block.indices.shape),
+                      "dtype": str(dtype).split(".")[-1], "implicit": implicit,
+                      "max_abs_err": err, "max_row_rel_err": row_rel})
+        del idx, val, table32
+        torch.cuda.empty_cache()
+    # small cases: every rank size class, a ragged row count, all-padding
+    # rows (exactly zero), and indices hitting the last real row
+    for k in (8, 16, 32, 64):
+        s, l, r = 500, 40, 1001
+        table = np.concatenate([rng.standard_normal((s, k)), np.zeros((1, k))]).astype(np.float32)
+        idx = rng.integers(0, s, (r, l)).astype(np.int32)
+        idx[:, -3:] = s                  # padding tail on every row
+        idx[5, :] = s                    # an all-padding row
+        idx[7, :] = s - 1                # the last real row, every slot
+        val = rng.integers(1, 6, (r, l)).astype(np.float32)
+        args = [torch.from_numpy(a).cuda() for a in (idx, val)]
+        for dtype in (torch.float32, torch.bfloat16):
+            t = torch.from_numpy(table).cuda().to(dtype)
+            for implicit in (False, True):
+                err, row_rel = compare_b1(*args, t, 2.5, implicit)
+                gram, rhs = gram_rhs(*args, t, 2.5, implicit=implicit)
+                if bool(gram[5].any()) or bool(rhs[5].any()):
+                    raise AssertionError("an all-padding row has a non-zero Gram/rhs")
+                emit({"phase": "check_b1", "case": f"small_k{k}", "shape": [r, l],
+                      "dtype": str(dtype).split(".")[-1], "implicit": implicit,
+                      "max_abs_err": err, "max_row_rel_err": row_rel})
+    return {"max_abs_err": max(worst.values())}
+
+
+def phase_time_b1(trained: dict) -> dict:
+    """B1 and its plain version timed at both half-step shapes of the fit,
+    f32 and bf16 tables, explicit mode (the template's), beside the bound;
+    and the parts of one half-step: B1, the ridge + solve, the whole
+    ``solve_rows``, and the host-to-device transfer of the blocks."""
+    import torch
+
+    from predictionio_tpu_torch.ops.als_gram import gram_rhs, gram_rhs_plain, half_step_bytes
+    from predictionio_tpu_torch.parallel.als import (
+        _finish_explicit,
+        device_blocks,
+        solve_rows,
+    )
+
+    data, model, config = trained["als_data"], trained["model"], trained["config"]
+    t0 = time.perf_counter()
+    blocks = {"users": device_blocks(data.by_row, "cuda")[0],
+              "items": device_blocks(data.by_col, "cuda")[0]}
+    torch.cuda.synchronize()
+    transfer_s = time.perf_counter() - t0
+    opp = {"users": slot_table(data.by_col, model.als.item_factors),
+           "items": slot_table(data.by_row, model.als.user_factors)}
+    shapes = []
+    for side, block in blocks.items():
+        idx, val, n_obs = block
+        table32 = torch.from_numpy(opp[side]).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            table = table32.to(dtype)
+            ms = cuda_ms(lambda: gram_rhs(idx, val, table))
+            plain_ms = cuda_ms(lambda: gram_rhs_plain(idx, val, table))
+            gram, rhs = gram_rhs(idx, val, table)
+            finish_ms = cuda_ms(lambda: _finish_explicit(
+                gram, rhs, n_obs, config.reg, config.rank, dtype))
+            zero = torch.zeros((config.rank, config.rank), device="cuda")
+            step_ms = cuda_ms(lambda: solve_rows(
+                gram_rhs, block, table, zero, config, dtype))
+            rows, pad_len = idx.shape
+            itemsize = 2 if dtype == torch.bfloat16 else 4
+            bound_ms, bound_by, nbytes, ops = b1_bound(
+                rows, pad_len, table.shape[0], config.rank, itemsize)
+            # the reference's fused bytes model counts every gathered row
+            # as a device-memory read; kept beside the bound, not in it
+            ref_bytes = half_step_bytes(rows, pad_len, config.rank, itemsize, fused=True)
+            row = {
+                "side": side, "rows": rows, "pad_len": pad_len, "rank": config.rank,
+                "dtype": str(dtype).split(".")[-1], "ms": ms, "plain_ms": plain_ms,
+                "finish_ms": finish_ms, "half_step_ms": step_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes": nbytes, "operations": ops,
+                "reference_bytes_model": ref_bytes,
+                "reference_bytes_model_ms": ref_bytes / HBM_BYTES_PER_S * 1e3,
+                "fraction_of_bound": bound_ms / ms,
+            }
+            emit({"phase": "time_b1", **row})
+            shapes.append(row)
+        del table32, table
+        torch.cuda.empty_cache()
+    return {"shapes": shapes, "transfer_s": transfer_s}
+
+
+def phase_foldin(rng: np.random.Generator, trained: dict) -> dict:
+    """``fold_in_users`` of 1,000 users' full histories against the
+    trained item factors, through the kernel and through the plain path
+    on the card."""
+    import torch
+
+    from predictionio_tpu_torch.online.foldin import fold_in_users
+    from predictionio_tpu_torch.ops import als_gram
+
+    users, items, ratings, times = trained["ratings"]
+    config = dataclasses.replace(trained["config"], max_len=TRAIN_CAP)
+    picked = np.sort(rng.choice(TRAIN_USERS, size=FOLDIN_USERS, replace=False))
+    hist = np.isin(users, picked)
+    rows = np.searchsorted(picked, users[hist])
+    item_factors = trained["model"].als.item_factors
+    args = (item_factors, rows, items[hist], ratings[hist], FOLDIN_USERS)
+    before = als_gram.gram_rhs.launches
+    t0 = time.perf_counter()
+    fused = fold_in_users(*args, config, times=times[hist], device="cuda")
+    foldin_s = time.perf_counter() - t0
+    launches = als_gram.gram_rhs.launches - before
+    plain = fold_in_users(*args, dataclasses.replace(config, solver="xla"),
+                          times=times[hist], device="cuda")
+    torch.cuda.synchronize()
+    if launches < 1:
+        raise AssertionError("fold_in_users did not launch B1")
+    err = float(np.abs(fused - plain).max())
+    if not np.isfinite(fused).all() or err > FIT_ATOL:
+        raise AssertionError(f"fold-in differs from the plain path by {err}")
+    result = {"users": FOLDIN_USERS, "edges": int(hist.sum()), "foldin_s": foldin_s,
+              "launches": launches, "max_abs_err": err}
+    emit({"phase": "foldin", **result})
+    return result
+
+
+def small_events(rng: np.random.Generator, path: str) -> tuple[int, str]:
+    """A few thousand rate events in the quickstart's wire shape; returns
+    their count and the first event's user."""
+    base = 1_700_000_000
+    n = SMALL_EVENTS
+    users = rng.integers(0, 300, n)
+    items = (np.minimum(rng.random(n) ** 2.2, 0.999999) * 200).astype(np.int64)
+    stars = rng.integers(1, 6, n)
+    with open(path, "w") as f:
+        for e in range(n):
+            when = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(base + e))
+            f.write(json.dumps({
+                "event": "rate", "entityType": "user", "entityId": f"u{users[e]}",
+                "targetEntityType": "item", "targetEntityId": f"i{items[e]}",
+                "properties": {"rating": int(stars[e])}, "eventTime": when,
+            }) + "\n")
+    return n, f"u{users[0]}"
+
+
+def serve_model(engine_json: str, model_dir: str, queries: list[dict]):
+    """Deploy ``model_dir`` through the ``deploy`` code path on cuda and
+    POST each query over one kept-alive connection; returns
+    ``(responses, deployed model, deploy seconds)``."""
+    from predictionio_tpu_torch.tools.cli import build_query_server
+
+    t0 = time.perf_counter()
+    server, service = build_query_server(engine_json, model_dir, port=0, device="cuda")
+    deploy_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=120)
+    try:
+        served = [post(conn, q)[0] for q in queries]
+    finally:
+        conn.close()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("query server thread did not stop")
+    return served, service.models[0], deploy_s
+
+
+def phase_train_verb_and_serve(rng: np.random.Generator, trained: dict, repo: str,
+                               workdir: str) -> dict:
+    """The ``train`` verb on a small events file, the model it writes
+    served by ``deploy``; then the full-width model of the train phase
+    saved, deployed with mips and queried over HTTP."""
+    from predictionio_tpu_torch.models.recommendation import load_model, save_model
+    from predictionio_tpu_torch.ops import als_gram, mips
+    from predictionio_tpu_torch.tools import cli
+
+    engine_json = os.path.join(repo, "examples", "recommendation", "engine.json")
+    events = os.path.join(workdir, "events.jsonl")
+    n_events, user = small_events(rng, events)
+    small_dir = os.path.join(workdir, "small_model")
+    before = als_gram.gram_rhs.launches
+    t0 = time.perf_counter()
+    if cli.main(["train", "--engine-json", engine_json, "--events", events,
+                 "--model-out", small_dir, "--device", "cuda"]) != 0:
+        raise AssertionError("the train verb failed")
+    verb_s = time.perf_counter() - t0
+    verb_launches = als_gram.gram_rhs.launches - before
+    if verb_launches < 1:
+        raise AssertionError("the train verb did not launch B1")
+    served, small, _ = serve_model(engine_json, small_dir, [{"user": user, "num": 5}])
+    if len(served[0]["itemScores"]) != 5 or user not in small.user_index:
+        raise AssertionError(f"the trained small model answered {served[0]}")
+
+    model = trained["model"]
+    full_dir = os.path.join(workdir, "full_model")
+    t0 = time.perf_counter()
+    save_model(model, full_dir)
+    save_s = time.perf_counter() - t0
+    algo_params, _ = template_params(repo)
+    mips_params = dict(algo_params, retrieval={"mode": "mips"})
+    mips_json = os.path.join(workdir, "engine_mips.json")
+    with open(mips_json, "w") as f:
+        json.dump({"algorithms": [{"name": "als", "params": mips_params}]}, f)
+    picked = rng.choice(TRAIN_USERS, size=10, replace=False)
+    queries = (
+        [{"user": f"u{u}", "num": 10} for u in picked]
+        + [{"user": f"u{picked[0]}", "num": 10, "unseenOnly": False},
+           {"items": ["i0"], "num": 10},
+           {"items": ["i100", "i26999"], "num": 10}]
+    )
+    mips.mips_block_topk.launches = 0
+    served, deployed, deploy_s = serve_model(mips_json, full_dir, queries)
+    b2_launches = mips.mips_block_topk.launches
+    if b2_launches < 1:
+        raise AssertionError("serving the trained model did not launch B2")
+    recall, identical = recall_against_scan(mips_params, deployed, queries, served)
+    t0 = time.perf_counter()
+    load_model(full_dir)  # the part of deploy_s that reads the model
+    load_s = time.perf_counter() - t0
+    result = {"events": n_events, "train_verb_s": verb_s, "train_verb_b1_launches": verb_launches,
+              "save_s": save_s, "deploy_s": deploy_s, "load_model_s": load_s,
+              "queries": len(queries),
+              "b2_launches": b2_launches, "recall_at_10": recall,
+              "identical_to_scan": identical}
+    emit({"phase": "train_verb_and_serve", **result})
     return result
 
 
@@ -393,12 +906,22 @@ def main(argv: list[str] | None = None) -> int:
     ]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
+    repo = os.path.dirname(os.path.abspath(__file__))
     rng = np.random.default_rng(args.seed)
     stage1 = phase_check_and_time(rng)
     with tempfile.TemporaryDirectory() as workdir:
         serve = phase_serve(rng, workdir)
+    trained = phase_train(rng, repo)
+    b1_check = phase_check_b1(rng, trained)
+    b1_time = phase_time_b1(trained)
+    emit({"phase": "half_step_transfer", "transfer_s": b1_time["transfer_s"]})
+    phase_foldin(rng, trained)
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_train_verb_and_serve(rng, trained, repo, workdir)
 
     main_shape = next(s for s in stage1["shapes"] if s["batch"] == 256)
+    b1_main = next(s for s in b1_time["shapes"]
+                   if s["side"] == "users" and s["dtype"] == "float32")
     emit({"kernels": [{
         "name": "mips_block_topk",
         "route": "cuda",
@@ -414,6 +937,26 @@ def main(argv: list[str] | None = None) -> int:
         "library_note": "no single PyTorch call computes a per-tile top-R "
                         "of an int8-dequantized product",
         "shape": {k: main_shape[k] for k in ("batch", "items", "rank", "block_items", "block_topk")},
+    }, {
+        "name": "gram_rhs",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/als_gram.cu",
+        "replaces": "predictionio_tpu/ops/als_gram.py:86",
+        "launches": trained["result"]["launches"]["gram_rhs"],
+        "max_abs_err": b1_check["max_abs_err"],
+        "ms": b1_main["ms"],
+        "plain_ms": b1_main["plain_ms"],
+        "bound_ms": b1_main["bound_ms"],
+        "bound_by": b1_main["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a per-row Gram and "
+                        "rhs of gathered rows: the nearest is a gather "
+                        "followed by bmm, the unfused plain version",
+        "shape": {k: b1_main[k] for k in ("side", "rows", "pad_len", "rank", "dtype")},
+        "other_shapes": [
+            {k: s[k] for k in ("side", "dtype", "ms", "plain_ms", "bound_ms", "bound_by")}
+            for s in b1_time["shapes"] if s is not b1_main
+        ],
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {

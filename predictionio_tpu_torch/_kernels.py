@@ -13,6 +13,7 @@ port on a host with no ``nvcc`` and no card.
 
     build_all()          # compile every source at once, one nvcc each
     library("mips_topk") # the loaded ctypes.CDLL, built if needed
+    library("als_gram")
 """
 
 from __future__ import annotations
@@ -43,6 +44,14 @@ KERNELS = {
                 _INT, [_VP, _VP, _VP, _VP, _VP] + [_INT] * 6 + [_VP]
             ),
             "mips_block_topk_smem_bytes": (_INT, [_INT, _INT]),
+        },
+    ),
+    "als_gram": (
+        "als_gram.cu",
+        {
+            "als_gram_rhs_launch": (
+                _INT, [_VP] * 5 + [_INT] * 3 + [ctypes.c_float] + [_INT] * 2 + [_VP]
+            ),
         },
     ),
 }

@@ -1,6 +1,23 @@
-"""DASE controller API of the port (serving half)."""
+"""DASE controller API of the port."""
 
-from predictionio_tpu_torch.controller.base import Algorithm, Params, Serving
+from predictionio_tpu_torch.controller.base import (
+    Algorithm,
+    DataSource,
+    Params,
+    Preparator,
+    SanityCheck,
+    Serving,
+    TrainContext,
+)
 from predictionio_tpu_torch.controller.serving import FirstServing
 
-__all__ = ["Algorithm", "FirstServing", "Params", "Serving"]
+__all__ = [
+    "Algorithm",
+    "DataSource",
+    "FirstServing",
+    "Params",
+    "Preparator",
+    "SanityCheck",
+    "Serving",
+    "TrainContext",
+]

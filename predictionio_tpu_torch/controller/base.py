@@ -1,14 +1,20 @@
-"""DASE component base classes, serving half.
+"""DASE component base classes.
 
 Port of the parts of ``predictionio_tpu/controller/base.py`` that the
-query server needs: ``Params``, the ``Algorithm`` contract (predict,
-batch_predict, warm_up and the wire serde) and ``Serving``. The
-DataSource/Preparator/train side comes with the training slice.
+train and deploy paths need: ``Params``, ``SanityCheck``, ``DataSource``
+(``read_training``), ``Preparator``, the ``Algorithm`` contract (train,
+predict, batch_predict, warm_up and the wire serde) and ``Serving``;
+plus ``TrainContext``, the port's small stand-in for the reference's
+``RuntimeContext`` on the train path (device, checkpoint directory,
+resume). Evaluation (``read_eval``), fold-in and model sharding are not
+ported.
 """
 
 from __future__ import annotations
 
 import abc
+import os
+from dataclasses import dataclass
 from typing import Any, Mapping, Sequence
 
 
@@ -33,8 +39,57 @@ class Component:
         self.params = params if isinstance(params, Params) else Params(params or {})
 
 
+class SanityCheck(abc.ABC):
+    """Optional post-stage hook (reference SanityCheck trait): raise to abort."""
+
+    @abc.abstractmethod
+    def sanity_check(self) -> None: ...
+
+
+class DataSource(Component, abc.ABC):
+    """Reads TrainingData (reference ``PDataSource.readTraining``)."""
+
+    @abc.abstractmethod
+    def read_training(self, ctx): ...
+
+
+class Preparator(Component, abc.ABC):
+    @abc.abstractmethod
+    def prepare(self, ctx, training_data): ...
+
+
+@dataclass
+class TrainContext:
+    """What the train path needs from its caller: the ``device`` the fit
+    runs on (``cuda`` unless ``"cpu"`` is named), a ``checkpoint_dir``
+    for step checkpoints (None disables them) and ``resume``: continue
+    from the checkpoints found there instead of discarding them.
+    ``telemetry`` (any object with ``record_step(iteration, seconds)``)
+    receives each ALS iteration's wall time."""
+
+    device: Any = None
+    checkpoint_dir: str | None = None
+    resume: bool = False
+    telemetry: Any = None
+
+    def checkpoint_manager(self, name: str):
+        """The step-checkpoint manager of one algorithm, or None when the
+        context has no checkpoint directory. A non-resume run discards
+        whatever an earlier run left under the name."""
+        if self.checkpoint_dir is None:
+            return None
+        from predictionio_tpu_torch.workflow.checkpoint import CheckpointManager
+
+        return CheckpointManager(
+            os.path.join(self.checkpoint_dir, name), fresh=not self.resume
+        )
+
+
 class Algorithm(Component, abc.ABC):
-    """Algorithm contract on the serving path: answer queries."""
+    """Algorithm contract: train on prepared data, answer queries."""
+
+    @abc.abstractmethod
+    def train(self, ctx: TrainContext, prepared_data): ...
 
     @abc.abstractmethod
     def predict(self, model, query): ...

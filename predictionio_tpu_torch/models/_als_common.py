@@ -1,11 +1,16 @@
-"""Shared serving pieces of the ALS-backed templates.
+"""Shared pieces of the ALS-backed templates.
 
-Port of the serving half of ``predictionio_tpu/models/_als_common.py``:
-the seen-items map, the mips ``Shortlist`` view and its retrieval index,
-the known-user / similar-items scorers and the rank+format tail of the
-``itemScores`` responses (predict and the vectorized batch path must rank
-identically). The training half (CSR packing, checkpointed fit) comes
-with the training slice.
+Port of ``predictionio_tpu/models/_als_common.py``. The training half:
+CSR packing from the preparator's params (``prepare_als_data``), the
+warning for packing knobs put in the algorithm block, and ``als_fit``
+wrapped in fingerprinted step checkpoints (``fit_with_checkpoint``). The
+serving half: the seen-items map, the mips ``Shortlist`` view and its
+retrieval index, the known-user / similar-items scorers and the
+rank+format tail of the ``itemScores`` responses (predict and the
+vectorized batch path must rank identically).
+
+Not ported yet: the profile telemetry journal, the streamed fit
+(``als_fit_streamed``, ``alsFeed: "streamed"``) and multi-device meshes.
 
 Only the stage-1 search runs on the device. Every response score is
 computed on the host with the same ``np.einsum`` row arithmetic as the
@@ -15,11 +20,165 @@ whenever the shortlist holds the true top-k.
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import logging
+
 import numpy as np
 
 from predictionio_tpu_torch.ops.mips import RetrievalConfig, RetrievalIndex
-from predictionio_tpu_torch.parallel.als import ALSModel
+from predictionio_tpu_torch.parallel.als import (
+    ALSConfig,
+    ALSModel,
+    als_fit,
+    build_als_data,
+)
 from predictionio_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger("pio.torch.als")
+
+
+def prepare_als_data(
+    ctx,
+    params,
+    users: np.ndarray,
+    items: np.ndarray,
+    values: np.ndarray,
+    num_users: int,
+    num_items: int,
+    times: np.ndarray,
+):
+    """Pack COO interactions into padded CSR blocks per the preparator's
+    params: ``maxEventsPerUser`` (history cap, most recent kept) and
+    ``buckets`` (length-bucketed packing, default 1). One card: rows pad
+    to multiples of 8."""
+    feed = params.get_or("alsFeed", "resident")
+    if feed == "streamed":
+        raise NotImplementedError(
+            'alsFeed "streamed" trains from an on-disk block store, which '
+            'the port does not have yet; use "resident"'
+        )
+    if feed != "resident":
+        raise ValueError(f"alsFeed must be 'resident' or 'streamed', got {feed!r}")
+    config = ALSConfig(
+        max_len=params.get_or("maxEventsPerUser", None),
+        buckets=params.get_or("buckets", 1),
+    )
+    return build_als_data(
+        users, items, values, num_users, num_items, config, times=times
+    )
+
+
+#: packing knobs the PREPARATOR consumes; a natural mistake is putting
+#: them in the algorithm block, where they would be silently ignored
+PACKING_PARAM_KEYS = ("maxEventsPerUser", "buckets")
+
+
+def warn_misplaced_packing_params(algo_params, template: str) -> None:
+    misplaced = [
+        k for k in PACKING_PARAM_KEYS
+        if algo_params.get_or(k, None) is not None
+    ]
+    if misplaced:
+        logger.warning(
+            "%s: %s configure the PREPARATOR (put them under "
+            '"preparator": {"params": {...}} in engine.json); they are '
+            "ignored in the algorithm block",
+            template, ", ".join(misplaced),
+        )
+
+
+def resolve_factor_sharding(config: ALSConfig) -> ALSConfig:
+    """Resolve ``factor_sharding="auto"``: the reference picks "model"
+    when its mesh has a model axis, and one card has none, so "auto" is
+    "replicated" here. Explicit values pass through (``als_fit`` refuses
+    "model")."""
+    if config.factor_sharding != "auto":
+        return config
+    return dataclasses.replace(config, factor_sharding="replicated")
+
+
+def _vocab_hash(ids: list[str]) -> str:
+    h = hashlib.sha256()
+    for s in ids:
+        h.update(s.encode())
+        h.update(b"\x00")
+    return h.hexdigest()[:16]
+
+
+def fit_with_checkpoint(
+    ctx,
+    als_data,
+    config: ALSConfig,
+    *,
+    user_ids: list[str],
+    item_ids: list[str],
+    interval: int,
+    name: str = "als",
+) -> ALSModel:
+    """``als_fit`` on ``ctx.device`` wrapped in fingerprinted step
+    checkpoints (``ctx.checkpoint_manager``).
+
+    Checkpointed factors are only meaningful against the id vocabularies
+    they were trained on: events that changed between crash and resume
+    would misalign factor rows. Counts alone are not enough (delete one
+    user + add another keeps the count but renumbers rows), so the
+    vocabularies themselves are hashed too. A mismatch discards the
+    checkpoints and trains fresh with a warning. ``interval`` <= 0
+    disables checkpointing."""
+    config = resolve_factor_sharding(config)
+    checkpoint = ctx.checkpoint_manager(name) if interval > 0 else None
+    init, start_iteration, callback = None, 0, None
+    if checkpoint is not None:
+        num_users, num_items = len(user_ids), len(item_ids)
+        fingerprint = {
+            "num_users": num_users,
+            "num_items": num_items,
+            "user_vocab": _vocab_hash(user_ids),
+            "item_vocab": _vocab_hash(item_ids),
+            "rank": config.rank,
+        }
+        latest = checkpoint.latest_step()
+        if latest is not None:  # only a resume run can see a step here
+            meta = checkpoint.read_meta()
+            if meta != fingerprint:
+                logger.warning(
+                    "%s checkpoint fingerprint %s does not match current"
+                    " dataset %s (events changed between crash and resume?);"
+                    " discarding checkpoints and training fresh",
+                    name, meta, fingerprint,
+                )
+                checkpoint.reset()
+            else:
+                state = checkpoint.restore(
+                    {
+                        "users": np.zeros((num_users, config.rank), np.float32),
+                        "items": np.zeros((num_items, config.rank), np.float32),
+                        "iteration": 0,
+                    }
+                )
+                init = (state["users"], state["items"])
+                start_iteration = int(state["iteration"]) + 1
+        checkpoint.write_meta(fingerprint)
+
+        def callback(it, users_np, items_np):
+            checkpoint.save(
+                it, {"users": users_np, "items": items_np, "iteration": it}
+            )
+
+    model = als_fit(
+        als_data,
+        config,
+        ctx.device,
+        callback=callback,
+        callback_interval=interval,
+        init=init,
+        start_iteration=start_iteration,
+        telemetry=ctx.telemetry,
+    )
+    if checkpoint is not None:
+        checkpoint.close()
+    return model
 
 
 def build_seen(users: np.ndarray, items: np.ndarray) -> dict[int, set[int]]:

@@ -1,8 +1,9 @@
-"""Recommendation template of the port: ALS serving with mips retrieval.
+"""Recommendation template of the port: ALS training on the card, and
+serving with mips retrieval.
 
-The math of scoring lives in ``predictionio_tpu_torch.models._als_common``
-and ``ops/mips``; this package is the DASE packaging and the model's
-pickle-free persistence (``convert``).
+The math lives in ``predictionio_tpu_torch.models._als_common``,
+``parallel/als`` and ``ops/``; this package is the DASE packaging and the
+model's pickle-free persistence (``convert``).
 """
 
 from predictionio_tpu_torch.models.recommendation.convert import (
@@ -12,12 +13,18 @@ from predictionio_tpu_torch.models.recommendation.convert import (
 )
 from predictionio_tpu_torch.models.recommendation.engine import (
     ALSAlgorithm,
+    RatingsData,
+    RecommendationDataSource,
     RecommendationModel,
+    RecommendationPreparator,
 )
 
 __all__ = [
     "ALSAlgorithm",
+    "RatingsData",
+    "RecommendationDataSource",
     "RecommendationModel",
+    "RecommendationPreparator",
     "load_model",
     "model_from_arrays",
     "save_model",

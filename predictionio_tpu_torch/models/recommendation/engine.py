@@ -1,7 +1,12 @@
-"""DASE components of the recommendation template, serving half.
+"""DASE components of the recommendation template.
 
-Port of ``predictionio_tpu/models/recommendation/engine.py``:
-``RecommendationModel`` and the query side of ``ALSAlgorithm``.
+Port of ``predictionio_tpu/models/recommendation/engine.py``: the
+training half (``RatingsData``, ``RecommendationDataSource``,
+``RecommendationPreparator``, ``ALSAlgorithm.train``) and the serving
+half (``RecommendationModel``, the query side of ``ALSAlgorithm``).
+
+The DataSource reads a JSON-lines events file (``data/store.py``) where
+the reference reads its event store: the port has no store yet.
 
 Query contract (reference template quickstart):
 ``{"user": "u1", "num": 4}`` -> ``{"itemScores": [{"item": ..., "score": ...}]}``
@@ -14,22 +19,121 @@ port, and is refused when the algorithm is built.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
-from predictionio_tpu_torch.controller.base import Algorithm
+from predictionio_tpu_torch.controller.base import (
+    Algorithm,
+    DataSource,
+    Preparator,
+    SanityCheck,
+)
+from predictionio_tpu_torch.data.store import read_events_file
 from predictionio_tpu_torch.models._als_common import (
     batch_score_known_users,
+    build_seen,
+    fit_with_checkpoint,
     partition_user_queries,
+    prepare_als_data,
     resolve_retrieval,
     retrieval_index,
     score_known_user,
     similar_item_scores,
     topk_item_scores,
+    warn_misplaced_packing_params,
 )
-from predictionio_tpu_torch.parallel.als import ALSModel
+from predictionio_tpu_torch.parallel.als import ALSConfig, ALSModel
 from predictionio_tpu_torch.utils.device import resolve_device
+
+
+@dataclass
+class RatingsData(SanityCheck):
+    """COO interactions + id vocabularies."""
+
+    users: np.ndarray       # int indices
+    items: np.ndarray
+    ratings: np.ndarray     # float32
+    times: np.ndarray       # float64 epoch seconds
+    user_ids: list[str]
+    item_ids: list[str]
+    app_name: str = ""
+    event_names: list[str] = field(default_factory=list)
+
+    def sanity_check(self) -> None:
+        if self.users.size == 0:
+            raise ValueError(
+                "no rating events found -- check the events file and eventNames"
+            )
+
+    @property
+    def num_users(self) -> int:
+        return len(self.user_ids)
+
+    @property
+    def num_items(self) -> int:
+        return len(self.item_ids)
+
+
+class RecommendationDataSource(DataSource):
+    """Reads rating-like events into COO form.
+
+    Params: ``appName``, ``eventNames`` (default ["rate", "buy"]),
+    ``ratingKey`` (property holding the rating; "buy"-style events without
+    it score 1.0). ``events_path`` is the JSON-lines events file the port
+    reads in place of the reference's event store. ``"reader":
+    "streaming"`` (the reference's sharded reader) is not ported.
+    """
+
+    def __init__(self, params=None, *, events_path: str):
+        super().__init__(params)
+        self.events_path = events_path
+        if self.params.get_or("reader", "materialized") == "streaming":
+            raise NotImplementedError(
+                'datasource "reader": "streaming" reads the event store in '
+                "shards, which the port does not have yet; leave it out"
+            )
+
+    def read_training(self, ctx) -> RatingsData:
+        event_names = self.params.get_or("eventNames", ["rate", "buy"])
+        ds = read_events_file(
+            self.events_path,
+            event_names=event_names,
+            target_entity_type="item",
+            rating_key=self.params.get_or("ratingKey", "rating"),
+        )
+        ratings = np.nan_to_num(ds.ratings, nan=1.0)  # implicit events -> 1.0
+        valid = ds.target_entity_ids >= 0
+        return RatingsData(
+            users=ds.entity_ids[valid],
+            items=ds.target_entity_ids[valid],
+            ratings=ratings[valid],
+            times=ds.event_times[valid],
+            user_ids=ds.entity_id_vocab,
+            item_ids=ds.target_entity_id_vocab,
+            app_name=self.params.get_or("appName", ""),
+            event_names=list(event_names),
+        )
+
+
+class RecommendationPreparator(Preparator):
+    """Packs COO ratings into padded CSR blocks.
+
+    Preparator params: ``buckets`` (length-bucketed packing),
+    ``maxEventsPerUser`` (history cap, most recent kept)."""
+
+    def prepare(self, ctx, training_data: RatingsData):
+        als_data = prepare_als_data(
+            ctx,
+            self.params,
+            training_data.users,
+            training_data.items,
+            training_data.ratings,
+            training_data.num_users,
+            training_data.num_items,
+            times=training_data.times,
+        )
+        return training_data, als_data
 
 
 @dataclass
@@ -46,8 +150,13 @@ class RecommendationModel:
 
 
 class ALSAlgorithm(Algorithm):
-    """ALS serving: scan (host einsum) or mips (the two-stage device
-    retrieval of ``ops/mips``) per the ``retrieval`` param.
+    """ALS training (``train``: ``als_fit`` on ``ctx.device``) and serving:
+    scan (host einsum) or mips (the two-stage device retrieval of
+    ``ops/mips``) per the ``retrieval`` param.
+
+    Params: rank, numIterations, lambda, alpha, implicitPrefs, seed,
+    factorDtype, factorSharding, alsSolver, checkpointInterval
+    (iterations between step checkpoints; 0 disables) and retrieval.
 
     ``device`` is where the retrieval index lives: ``cuda`` unless the
     caller names ``"cpu"``; without a card and without an explicit CPU
@@ -69,6 +178,41 @@ class ALSAlgorithm(Algorithm):
             )
         # a retrieval typo fails the deploy, not the first query
         self._retrieval = resolve_retrieval(self.params)
+
+    def _config(self) -> ALSConfig:
+        p = self.params
+        return ALSConfig(
+            rank=p.get_or("rank", 16),
+            iterations=p.get_or("numIterations", 10),
+            reg=p.get_or("lambda", 0.1),
+            alpha=p.get_or("alpha", 40.0),
+            implicit=p.get_or("implicitPrefs", False),
+            seed=p.get_or("seed", 0),
+            dtype=p.get_or("factorDtype", "float32"),
+            factor_sharding=p.get_or("factorSharding", "auto"),
+            # "auto"/"pallas": the fused gather->Gram kernel; "xla": the
+            # unfused gather + products
+            solver=p.get_or("alsSolver", "auto"),
+        )
+
+    def train(self, ctx, prepared) -> RecommendationModel:
+        ratings_data, als_data = prepared
+        warn_misplaced_packing_params(self.params, "recommendation")
+        model = fit_with_checkpoint(
+            ctx,
+            als_data,
+            self._config(),
+            user_ids=ratings_data.user_ids,
+            item_ids=ratings_data.item_ids,
+            interval=self.params.get_or("checkpointInterval", 5),
+        )
+        return RecommendationModel(
+            als=model,
+            user_index={uid: idx for idx, uid in enumerate(ratings_data.user_ids)},
+            item_ids=list(ratings_data.item_ids),
+            item_index={iid: idx for idx, iid in enumerate(ratings_data.item_ids)},
+            seen=build_seen(ratings_data.users, ratings_data.items),
+        )
 
     def warm_up(self, model: RecommendationModel) -> None:
         model.als.item_norms  # build the similar-items norm cache at deploy

@@ -1,0 +1,124 @@
+"""Ragged -> padded-block layout: the host-side packing step.
+
+Copy of ``predictionio_tpu/ops/ragged.py`` (framework-free numpy): COO
+interaction triples become padded CSR blocks of static shape, the layout
+the ALS half-step kernel (``ops/als_gram``) gathers from. Only the numpy
+path is kept; the reference's native C++ packer produces the same arrays
+(its own tests hold the two equal) and only packs faster on the host.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+
+@dataclass
+class PaddedCSR:
+    """Padded row-major interactions.
+
+    ``indices[r, l]`` is the column id of row ``r``'s ``l``-th interaction,
+    ``values[r, l]`` its value; ``mask`` marks real entries. Rows with more
+    than ``max_len`` interactions are truncated (most recent kept if
+    timestamps were provided). ``indices`` of padding slots point at column
+    ``num_cols`` -- callers append a zero row to factor matrices so gathers
+    stay in-bounds without branching.
+    """
+
+    indices: np.ndarray  # int32 [rows, L]
+    values: np.ndarray   # float32 [rows, L]
+    mask: np.ndarray     # float32 [rows, L] (1.0 real, 0.0 pad)
+    num_rows: int
+    num_cols: int
+    truncated: int       # number of interactions dropped by the cap
+
+    @property
+    def max_len(self) -> int:
+        return self.indices.shape[1]
+
+
+def round_up(n: int, multiple: int) -> int:
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+def pack_padded_csr(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    num_rows: int,
+    num_cols: int,
+    max_len: int | None = None,
+    times: np.ndarray | None = None,
+    len_multiple: int = 8,
+    row_multiple: int = 8,
+    pad_len: int | None = None,
+) -> PaddedCSR:
+    """COO (rows, cols, vals) -> PaddedCSR.
+
+    - ``max_len`` caps per-row history (None = longest row).
+    - ``times`` (same length) lets truncation keep the most recent entries.
+    - lengths round up to ``len_multiple`` and rows to ``row_multiple`` so
+      the arrays tile cleanly.
+    - ``pad_len`` forces the padded length instead of deriving it from the
+      data (every bucket of a side agrees on its block shape).
+    """
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    vals = np.asarray(vals, dtype=np.float32)
+    if rows.size == 0:
+        padded_rows = max(round_up(max(num_rows, 1), row_multiple), row_multiple)
+        length = pad_len or len_multiple
+        return PaddedCSR(
+            indices=np.full((padded_rows, length), num_cols, dtype=np.int32),
+            values=np.zeros((padded_rows, length), dtype=np.float32),
+            mask=np.zeros((padded_rows, length), dtype=np.float32),
+            num_rows=num_rows,
+            num_cols=num_cols,
+            truncated=0,
+        )
+
+    counts = np.bincount(rows, minlength=num_rows)
+    natural_max = int(counts.max())
+    if pad_len is not None:
+        if natural_max > pad_len and not max_len:
+            raise ValueError(
+                f"pad_len={pad_len} is shorter than the longest row "
+                f"({natural_max}) and no max_len truncation was requested"
+            )
+        length = pad_len
+    else:
+        length = min(natural_max, max_len) if max_len else natural_max
+        length = max(round_up(length, len_multiple), len_multiple)
+
+    padded_rows = max(round_up(num_rows, row_multiple), row_multiple)
+    indices = np.full((padded_rows, length), num_cols, dtype=np.int32)
+    values = np.zeros((padded_rows, length), dtype=np.float32)
+    mask = np.zeros((padded_rows, length), dtype=np.float32)
+
+    order = np.lexsort(
+        (times if times is not None else np.zeros_like(rows), rows)
+    )
+    rows, cols, vals = rows[order], cols[order], vals[order]
+
+    # within-row position of each (already row-sorted, time-ascending) entry
+    row_starts = np.zeros(num_rows + 1, dtype=np.int64)
+    np.cumsum(counts, out=row_starts[1:])
+    pos_in_row = np.arange(rows.size) - row_starts[rows]
+    # truncation keeps the LAST (most recent) `length` entries of each row
+    keep_from = np.maximum(counts[rows] - length, 0)
+    keep = pos_in_row >= keep_from
+    slot = (pos_in_row - keep_from)[keep]
+    r_kept, c_kept, v_kept = rows[keep], cols[keep], vals[keep]
+    indices[r_kept, slot] = c_kept.astype(np.int32)
+    values[r_kept, slot] = v_kept
+    mask[r_kept, slot] = 1.0
+
+    return PaddedCSR(
+        indices=indices,
+        values=values,
+        mask=mask,
+        num_rows=num_rows,
+        num_cols=num_cols,
+        truncated=int(rows.size - keep.sum()),
+    )

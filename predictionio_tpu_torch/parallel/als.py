@@ -1,8 +1,33 @@
-"""ALS factor model: the serving half of ``predictionio_tpu/parallel/als.py``.
+"""Alternating Least Squares on one card.
 
-Holds ``ALSModel`` only for now (reference ``parallel/als.py:791-837``);
-``als_fit`` and its half-step kernel come with the training slice. The
-factors stay host numpy arrays and the per-user scoring stays
+Port of ``predictionio_tpu/parallel/als.py`` for a single device:
+
+- interactions live as padded CSR blocks (``ops.ragged``), optionally
+  LENGTH-BUCKETED per side (``_plan_buckets``): each side's entities are
+  relabeled into length-sorted factor slots and split into a few
+  buckets, each its own padded block. The opposite side's column ids are
+  slot-mapped at pack time; ``slot_of`` maps factors back to original
+  entity order at the host boundary only. The host half (``ALSConfig``
+  to ``build_als_data``, the initial factors) stays numpy and produces
+  the reference's arrays byte for byte.
+- each half-step runs, per bucket, the gather->Gram/rhs of
+  ``ops.als_gram`` (the CUDA kernel on the card, its plain version on the
+  CPU or with ``solver="xla"``), then adds the ALS-WR ridge (explicit) or
+  YtY + reg*I (implicit, Hu-Koren-Volinsky with the YtY trick) and solves
+  every row's K x K system at once (``ops.linalg.batched_spd_solve``).
+- factors live on the device in slot order, each side as one ``[S + 1,
+  K]`` buffer whose last row stays zero (the padding sentinel's gather
+  target). A half-step writes its solved rows into its own side's buffer
+  in place: it never reads that side, so the update is exact, and no
+  per-iteration concatenation or zero-row append is needed.
+
+Multi-device factor sharding (``factor_sharding="model"``) is not ported.
+
+Explicit objective:  sum_obs (r - u.v)^2 + lam * (|U|^2 + |V|^2)
+Implicit objective (Hu-Koren-Volinsky): confidence c = 1 + alpha*r on
+observed pairs, preference p = 1; unobserved pairs have c = 1, p = 0.
+
+``ALSModel`` keeps its factors as host numpy arrays and scores with
 ``np.einsum``: the mips shortlist's host re-rank
 (``models/_als_common._host_rerank``) replays exactly this arithmetic, so
 a shortlist holding the true top-k gives a response byte-identical to
@@ -11,9 +36,315 @@ the scan's.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
+
+from predictionio_tpu_torch.ops.als_gram import gram_rhs, gram_rhs_plain, half_step_bytes
+from predictionio_tpu_torch.ops.linalg import batched_spd_solve
+from predictionio_tpu_torch.ops.ragged import PaddedCSR, pack_padded_csr, round_up
+from predictionio_tpu_torch.utils.device import resolve_device
+
+
+@dataclass
+class ALSConfig:
+    rank: int = 16
+    iterations: int = 10
+    reg: float = 0.1           # lambda (MLlib: lambda_)
+    alpha: float = 40.0        # implicit confidence scale
+    implicit: bool = False
+    seed: int = 0
+    max_len: int | None = None  # per-row history cap
+    dtype: str = "float32"     # factor dtype; Grams always accumulate f32
+    buckets: int = 1           # length buckets per side (1 = single block)
+    #: "replicated": one device holds both factor tables. "model" (ALX
+    #: factor sharding over several devices) is not ported and raises.
+    #: The template's "auto" resolves to "replicated" on one card.
+    factor_sharding: str = "replicated"
+    #: half-step tail: "auto" and "pallas" run the fused gather->Gram
+    #: kernel (``ops.als_gram.gram_rhs``: CUDA on the card, its plain
+    #: version on the CPU); "xla" runs the unfused gather + products
+    #: (``gram_rhs_plain``) on whatever device the fit runs on.
+    solver: str = "auto"
+
+
+@dataclass
+class BucketedCSR:
+    """One side's interactions as length-bucketed padded CSR blocks.
+
+    Block ``b`` covers factor-matrix slots ``[offset_b, offset_b +
+    padded_rows_b)``; real rows are deterministically SCATTERED across the
+    block's padded range (see _plan_buckets), padding rows carry zero mask
+    wherever they fall. ``slot_of[original_id]`` is the factor row the
+    entity occupies; built with ``buckets=1`` the slot map is the identity
+    and ``blocks`` holds one block.
+    ``indices`` entries are the OPPOSITE side's slots; padding slots carry
+    the sentinel ``opposite.total_slots`` (the zero row appended to the
+    gathered factor matrix).
+    """
+
+    blocks: tuple[PaddedCSR, ...]
+    slot_of: np.ndarray  # int64 [num_rows]: original row id -> factor slot
+    num_rows: int        # real (original) row count
+    total_slots: int     # sum of the blocks' padded row counts
+
+    @property
+    def truncated(self) -> int:
+        return sum(b.truncated for b in self.blocks)
+
+
+@dataclass
+class ALSData:
+    """Both orientations of the interaction matrix."""
+
+    by_row: BucketedCSR  # users x items
+    by_col: BucketedCSR  # items x users
+
+
+@dataclass
+class _BucketPlan:
+    order: np.ndarray      # original ids in slot order (real rows only)
+    sizes: list[int]       # real rows per bucket
+    offsets: list[int]     # first slot of each bucket
+    slot_of: np.ndarray    # [num_rows]
+    total_slots: int
+    lengths: list[int]     # padded L per bucket
+
+    @property
+    def padded_rows(self) -> list[int]:
+        ends = self.offsets[1:] + [self.total_slots]
+        return [e - o for o, e in zip(self.offsets, ends)]
+
+
+def _plan_buckets(
+    counts: np.ndarray,
+    cap: int | None,
+    n_buckets: int,
+    row_multiple: int,
+    len_multiple: int = 8,
+) -> _BucketPlan:
+    """Partition rows into <=``n_buckets`` length buckets minimizing the
+    total padded slot count sum_b padded_rows_b * padded_len_b.
+
+    Rows are sorted by (capped) length descending; candidate cut points
+    are the positions where the 8-rounded length drops, so the exact DP
+    over candidates is tiny. Using FEWER buckets than allowed is
+    considered too: each bucket pays a row-roundup tax.
+    """
+    n = counts.size
+
+    def padded_len(raw: int) -> int:
+        capped_max = min(raw, cap) if cap else raw
+        return max(round_up(capped_max, len_multiple), len_multiple)
+
+    if n_buckets <= 1 or n <= 1:
+        total = max(round_up(max(n, 1), row_multiple), row_multiple)
+        return _BucketPlan(
+            order=np.arange(n, dtype=np.int64),
+            sizes=[n],
+            offsets=[0],
+            slot_of=np.arange(n, dtype=np.int64),
+            total_slots=total,
+            lengths=[padded_len(int(counts.max()) if n else 0)],
+        )
+
+    capped = np.minimum(counts, cap) if cap else counts
+    order = np.argsort(-capped, kind="stable").astype(np.int64)
+    rounded = np.maximum(
+        ((capped[order] + len_multiple - 1) // len_multiple) * len_multiple,
+        len_multiple,
+    )
+    cuts = list(np.nonzero(np.diff(rounded) != 0)[0] + 1)
+    cand = [0] + cuts + [n]
+    if len(cand) > 66:  # cap DP size for absurd max_len; keep ends exact
+        step = (len(cand) - 2) // 64 + 1
+        cand = [0] + cand[1:-1][::step] + [n]
+
+    def seg_cost(i: int, j: int) -> int:
+        rows = cand[j] - cand[i]
+        return round_up(rows, row_multiple) * int(rounded[cand[i]])
+
+    m = len(cand) - 1
+    inf = float("inf")
+    dp = [[inf] * (m + 1) for _ in range(n_buckets + 1)]
+    back: list[list[int]] = [[0] * (m + 1) for _ in range(n_buckets + 1)]
+    dp[0][0] = 0.0
+    for b in range(1, n_buckets + 1):
+        for j in range(1, m + 1):
+            for i in range(j):
+                if dp[b - 1][i] == inf:
+                    continue
+                cost = dp[b - 1][i] + seg_cost(i, j)
+                if cost < dp[b][j]:
+                    dp[b][j] = cost
+                    back[b][j] = i
+    b_best = min(range(1, n_buckets + 1), key=lambda b: dp[b][m])
+    bounds = [m]
+    b, j = b_best, m
+    while b > 0:
+        j = back[b][j]
+        bounds.append(j)
+        b -= 1
+    bounds.reverse()  # candidate indices 0 = start .. m = end
+
+    sizes, offsets, lengths = [], [], []
+    slot_of = np.empty(n, dtype=np.int64)
+    off = 0
+    for b, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+        size = cand[hi] - cand[lo]
+        sizes.append(size)
+        offsets.append(off)
+        lengths.append(int(rounded[cand[lo]]))
+        # deterministic scatter over the bucket's whole padded range (the
+        # reference balances multi-host shards with it; kept so the slot
+        # map, and with it every packed array, equals the reference's)
+        padded_b = max(round_up(size, row_multiple), row_multiple)
+        perm = np.random.default_rng(0x5EED + b).permutation(padded_b)[:size]
+        slot_of[order[cand[lo] : cand[hi]]] = off + perm
+        off += padded_b
+    return _BucketPlan(
+        order=order, sizes=sizes, offsets=offsets, slot_of=slot_of,
+        total_slots=off, lengths=lengths,
+    )
+
+
+def _pack_side(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    times: np.ndarray | None,
+    plan: _BucketPlan,
+    opp_total_slots: int,
+    opp_slot_of: np.ndarray,
+    cap: int | None,
+    row_multiple: int,
+) -> BucketedCSR:
+    """Pack one orientation into its bucket blocks (slot-mapped columns)."""
+    row_slots = plan.slot_of[rows]
+    cols_slotted = opp_slot_of[cols]
+    blocks = []
+    for off, padded, length in zip(
+        plan.offsets, plan.padded_rows, plan.lengths
+    ):
+        sel = (row_slots >= off) & (row_slots < off + padded)
+        blocks.append(
+            pack_padded_csr(
+                row_slots[sel] - off,
+                cols_slotted[sel],
+                vals[sel],
+                num_rows=padded,
+                num_cols=opp_total_slots,
+                max_len=cap,
+                times=None if times is None else times[sel],
+                row_multiple=row_multiple,
+                pad_len=length,
+            )
+        )
+    return BucketedCSR(
+        blocks=tuple(blocks),
+        slot_of=plan.slot_of,
+        num_rows=int(plan.slot_of.shape[0]),
+        total_slots=plan.total_slots,
+    )
+
+
+def build_als_data(
+    users: np.ndarray,
+    items: np.ndarray,
+    ratings: np.ndarray,
+    num_users: int,
+    num_items: int,
+    config: ALSConfig,
+    times: np.ndarray | None = None,
+    num_shards: int = 1,
+    model_shards: int = 1,
+) -> ALSData:
+    """Pack COO interactions into both (bucketed) CSR orientations.
+
+    Every bucket's row count is padded to a multiple of 8 * num_shards *
+    model_shards (the reference's shard arithmetic; one card uses 1 and
+    1). With ``config.buckets == 1`` the layout is the single-block one.
+    """
+    users = np.asarray(users, dtype=np.int64)
+    items = np.asarray(items, dtype=np.int64)
+    ratings = np.asarray(ratings, dtype=np.float32)
+    # ids beyond the declared catalog are an encoder/count mismatch; fail
+    # HERE (np.bincount would silently grow the entity universe)
+    for ids, declared, what in ((users, num_users, "user"),
+                                (items, num_items, "item")):
+        if ids.size and int(ids.max()) >= declared:
+            raise ValueError(
+                f"{what} id {int(ids.max())} out of range for "
+                f"num_{what}s={declared}"
+            )
+    rm = 8 * max(num_shards, 1) * max(model_shards, 1)
+    nb = max(int(config.buckets), 1)
+    plan_u = _plan_buckets(
+        np.bincount(users, minlength=num_users), config.max_len, nb, rm
+    )
+    plan_i = _plan_buckets(
+        np.bincount(items, minlength=num_items), config.max_len, nb, rm
+    )
+    by_row = _pack_side(
+        users, items, ratings, times, plan_u,
+        plan_i.total_slots, plan_i.slot_of, config.max_len, rm,
+    )
+    by_col = _pack_side(
+        items, users, ratings, times, plan_i,
+        plan_u.total_slots, plan_u.slot_of, config.max_len, rm,
+    )
+    return ALSData(by_row=by_row, by_col=by_col)
+
+
+def _eye(rank: int, device) -> torch.Tensor:
+    return torch.eye(rank, dtype=torch.float32, device=device)
+
+
+def _finish_explicit(gram, rhs, n_obs, reg: float, rank: int, out_dtype):
+    """ALS-WR ridge + batched solve over precomputed Gram/rhs: the tail the
+    fused kernel and the unfused path share, so solver parity reduces to
+    Gram/rhs parity (reference ``parallel/als.py:363``)."""
+    ridge = reg * torch.clamp(n_obs, min=1.0)
+    gram = gram + ridge[:, None, None] * _eye(rank, gram.device)
+    return batched_spd_solve(gram, rhs).to(out_dtype)
+
+
+def _finish_implicit(gram_fix, rhs, yty, reg: float, rank: int, out_dtype):
+    """YtY + per-row correction + constant ridge + solve (reference
+    ``parallel/als.py:374``). ``gram_fix`` holds only the observed-entry
+    corrections sum_obs (c-1) y y^T."""
+    gram = yty[None] + gram_fix + reg * _eye(rank, yty.device)
+    return batched_spd_solve(gram, rhs).to(out_dtype)
+
+
+def _factors_yty(factors: torch.Tensor) -> torch.Tensor:
+    """f32 K x K Gram of a factor matrix (implicit mode's global term)."""
+    f = factors.to(torch.float32)
+    return f.T @ f
+
+
+def half_step_fn(solver: str):
+    """The gather->Gram/rhs an ``ALSConfig.solver`` names: the fused
+    kernel's wrapper for "auto" and "pallas", the unfused products for
+    "xla"."""
+    if solver not in ("auto", "xla", "pallas"):
+        raise ValueError(
+            "ALSConfig.solver must be 'auto', 'xla' or 'pallas', "
+            f"got {solver!r}"
+        )
+    return gram_rhs_plain if solver == "xla" else gram_rhs
+
+
+def solve_rows(gram_fn, block, opp_full, yty, config: ALSConfig, out_dtype):
+    """One bucket's half-step: Gram/rhs of its rows against ``opp_full``
+    ([S + 1, K], zero row last), then the shared tail."""
+    idx, val, n_obs = block
+    gram, rhs = gram_fn(idx, val, opp_full, config.alpha, implicit=config.implicit)
+    if config.implicit:
+        return _finish_implicit(gram, rhs, yty, config.reg, config.rank, out_dtype)
+    return _finish_explicit(gram, rhs, n_obs, config.reg, config.rank, out_dtype)
 
 
 @dataclass
@@ -60,3 +391,165 @@ class ALSModel:
         v = self.item_factors[item_index]
         norms = self.item_norms * (self.item_norms[item_index] + 1e-12)
         return np.einsum("ik,k->i", self.item_factors, v) / np.maximum(norms, 1e-12)
+
+
+def modeled_bytes_per_iteration(
+    data: ALSData, rank: int, itemsize: int, fused: bool
+) -> float:
+    """Device bytes one full ALS iteration moves through its half-step
+    tails (``ops.als_gram.half_step_bytes`` summed over both sides'
+    buckets)."""
+    return sum(
+        half_step_bytes(*block.indices.shape, rank, itemsize, fused)
+        for side in (data.by_row, data.by_col)
+        for block in side.blocks
+    )
+
+
+def real_edges(data: ALSData) -> int:
+    """Real (unpadded) observations -- the edges/sec denominator."""
+    return int(sum(b.mask.sum() for b in data.by_row.blocks))
+
+
+def _initial_side_factors(side, rank: int, seed: int) -> np.ndarray:
+    """Seeded N(0, 1/sqrt(K)) init for one side, drawn in ORIGINAL entity
+    order and scattered into factor slots: invariant to the bucket plan
+    and to shard-count padding; phantom rows stay zero (invisible to the
+    implicit-mode global Gram)."""
+    rng = np.random.default_rng(seed)
+    scale = 1.0 / np.sqrt(rank)
+    real = rng.normal(size=(side.num_rows, rank)) * scale
+    out = np.zeros((side.total_slots, rank))
+    out[side.slot_of] = real
+    return out
+
+
+def _scatter_side_init(side, host: np.ndarray) -> np.ndarray:
+    """Checkpointed factors (original entity order) -> slot order."""
+    out = np.zeros((side.total_slots, host.shape[1]), dtype=np.float64)
+    out[side.slot_of] = np.asarray(host)[: side.num_rows]
+    return out
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def device_blocks(side: BucketedCSR, device) -> list[tuple]:
+    """Each bucket block as its device triple (indices i32, values f32,
+    n_obs f32). The ``[R, L]`` mask never crosses to the device: the
+    padding invariant reduces it to the per-row observation count."""
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return [
+        (put(b.indices), put(b.values), put(b.mask.sum(axis=1)))
+        for b in side.blocks
+    ]
+
+
+def _side_buffer(slot_factors: np.ndarray, dtype, device) -> torch.Tensor:
+    """``[S + 1, K]`` device buffer of one side in slot order, zero row
+    last (the padding sentinel's gather target)."""
+    host = np.concatenate(
+        [slot_factors, np.zeros((1, slot_factors.shape[1]))], axis=0
+    )
+    # float64 -> float32 -> dtype: the reference casts the float64 init
+    # straight to the factor dtype, which rounds the same way for f32 and,
+    # through float32, for bf16
+    return torch.from_numpy(host.astype(np.float32)).to(device=device, dtype=dtype)
+
+
+def als_fit(
+    data: ALSData,
+    config: ALSConfig,
+    device=None,
+    callback=None,
+    callback_interval: int = 1,
+    init: tuple[np.ndarray, np.ndarray] | None = None,
+    start_iteration: int = 0,
+    telemetry=None,
+) -> ALSModel:
+    """Run ALS for ``config.iterations``; returns host-side f32 factors in
+    original entity order.
+
+    ``device`` is ``cuda`` unless the caller names ``"cpu"``.
+    ``callback(iteration, user_factors, item_factors)`` runs every
+    ``callback_interval`` iterations (skipping the final one, whose result
+    als_fit returns anyway) with HOST numpy copies in ORIGINAL entity
+    order (the checkpointing hook). ``init``/``start_iteration`` resume
+    from checkpointed factors (original order): the remaining iterations
+    run, which is exact for ALS (each iteration depends only on the
+    previous factors). Factors are stored in ``config.dtype`` (f32 or
+    bf16) on the device; Gram and solve run in f32.
+
+    ``telemetry`` (any object with ``record_step(iteration, seconds)``)
+    gets each iteration's wall time; it synchronizes the device after
+    every iteration, so it is paid only when asked for.
+    """
+    device = resolve_device(device)
+    if config.dtype not in _DTYPES:
+        # e.g. an integer dtype would truncate the N(0, 1/sqrt(K)) init to
+        # all zeros -- a fixed point of the update
+        raise ValueError(
+            f"ALSConfig.dtype must be 'float32' or 'bfloat16', got"
+            f" {config.dtype!r}"
+        )
+    if config.factor_sharding == "model":
+        raise NotImplementedError(
+            "factor_sharding='model' shards factors over several devices, "
+            "which the port does not do yet; use 'replicated'"
+        )
+    if config.factor_sharding != "replicated":
+        raise ValueError(
+            "ALSConfig.factor_sharding must be 'replicated' or 'model', "
+            f"got {config.factor_sharding!r} (the template resolves 'auto')"
+        )
+    gram_fn = half_step_fn(config.solver)
+    dtype = _DTYPES[config.dtype]
+
+    if init is not None:
+        users0 = _scatter_side_init(data.by_row, init[0])
+        items0 = _scatter_side_init(data.by_col, init[1])
+    else:
+        users0 = _initial_side_factors(data.by_row, config.rank, config.seed)
+        items0 = _initial_side_factors(data.by_col, config.rank, config.seed + 1)
+
+    u_blocks = device_blocks(data.by_row, device)
+    i_blocks = device_blocks(data.by_col, device)
+    users = _side_buffer(users0, dtype, device)
+    items = _side_buffer(items0, dtype, device)
+    zero_yty = torch.zeros((config.rank, config.rank), device=device)
+
+    def solve_side(blocks, buf, opp):
+        # the global Gram excludes the zero row; phantom rows are zero too
+        yty = _factors_yty(opp[:-1]) if config.implicit else zero_yty
+        off = 0
+        for block in blocks:
+            rows = solve_rows(gram_fn, block, opp, yty, config, dtype)
+            buf[off : off + rows.shape[0]] = rows
+            off += rows.shape[0]
+
+    def to_host(buf, side: BucketedCSR) -> np.ndarray:
+        # f32 on the host regardless of the device dtype: checkpoints and
+        # serving stay dtype-stable across bf16 runs
+        return buf[:-1].to(torch.float32).cpu().numpy()[side.slot_of]
+
+    for it in range(start_iteration, config.iterations):
+        t0 = time.perf_counter()
+        solve_side(u_blocks, users, items)
+        solve_side(i_blocks, items, users)
+        if telemetry is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            telemetry.record_step(it, time.perf_counter() - t0)
+        if (
+            callback is not None
+            and (it + 1) % callback_interval == 0
+            and it + 1 < config.iterations
+        ):
+            callback(it, to_host(users, data.by_row), to_host(items, data.by_col))
+
+    # the serving model is always f32 on the host (the dtype knob is a
+    # TRAINING layout)
+    return ALSModel(
+        user_factors=to_host(users, data.by_row),
+        item_factors=to_host(items, data.by_col),
+    )

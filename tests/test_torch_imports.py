@@ -52,12 +52,17 @@ def test_port_imports_no_jax_and_no_reference_package():
     )
     assert out.returncode == 0, out.stderr
     # every module of the slice was walked, not just the package root
-    assert int(out.stdout.strip()) >= 18
+    assert int(out.stdout.strip()) >= 31
 
 
-def test_default_device_without_cuda_raises(monkeypatch):
+def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
+    import numpy as np
+
     from predictionio_tpu_torch.models.recommendation import ALSAlgorithm
+    from predictionio_tpu_torch.online.foldin import fold_in_users
     from predictionio_tpu_torch.ops.mips import RetrievalConfig, RetrievalIndex
+    from predictionio_tpu_torch.parallel.als import ALSConfig, als_fit, build_als_data
+    from predictionio_tpu_torch.tools.cli import build_trainer
     from predictionio_tpu_torch.utils.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -67,6 +72,15 @@ def test_default_device_without_cuda_raises(monkeypatch):
         ALSAlgorithm({})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         RetrievalIndex([[1.0, 2.0]], RetrievalConfig(mode="mips"))
+    config = ALSConfig(rank=4, iterations=1)
+    data = build_als_data([0, 1], [1, 0], [5.0, 3.0], 2, 2, config)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        als_fit(data, config)
+    engine_json = os.path.join(REPO, "examples", "recommendation", "engine.json")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_trainer(engine_json, str(tmp_path / "events.jsonl"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fold_in_users(np.ones((2, 4), np.float32), [0], [1], [5.0], 1, config)
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("mps")
@@ -88,3 +102,20 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     ]
     with pytest.raises(ValueError, match="no stage-1 kernel"):
         mips.mips_block_topk(*meta, block_topk=16, num_items=500)
+
+
+def test_gram_rhs_device_tensor_never_takes_the_plain_path(monkeypatch):
+    """The ALS kernel's wrapper: a non-CPU tensor launches or raises."""
+    from predictionio_tpu_torch.ops import als_gram
+
+    monkeypatch.setattr(
+        als_gram, "gram_rhs_plain",
+        lambda *a, **k: pytest.fail("plain version taken for a device tensor"),
+    )
+    meta = [
+        torch.empty((8, 16), dtype=torch.int32, device="meta"),
+        torch.empty((8, 16), dtype=torch.float32, device="meta"),
+        torch.empty((33, 16), dtype=torch.float32, device="meta"),
+    ]
+    with pytest.raises(ValueError, match="no gram_rhs kernel"):
+        als_gram.gram_rhs(*meta, 0.5, implicit=True)
