@@ -58,6 +58,33 @@ script exits non-zero and prints no result):
    file and ``deploy`` of what it wrote; then the full-width model of
    phase 6 saved, deployed with mips and queried over HTTP: B2 launches
    and recall@10 >= 0.99 against the exact scan.
+11. check_b3 -- kernel B3 (``ncf_score.cu``) against its plain version
+   on the card at the NCF template's widths (E=32, hidden 64, 32) over
+   1,000,000 items for five users (the last one included), over 1, 1023,
+   1025 and 27,000 items, and at widths 8/(16, 8), 5/(12, 7) and
+   64/(128, 64). Tolerance, elementwise: 2 (3E + H0 + H1 + 6) 2^-24
+   times S, the same head run on the absolute values of every input
+   (the worst case of two f32 evaluations that sum each layer in
+   different orders; ``b3_tolerance``).
+12. time_b3 -- B3 and its plain version at 1,000,000 and 27,000 items,
+   beside the bound (the larger of bytes / 3.35 TB/s and f32
+   operations / 67 TFLOP/s).
+13. train_ncf -- the NCF training path: ``examples/ncf/engine.json``
+   (E=32, hidden 64, 32, batch 4096, lr 0.01, implicit, 4 negatives) on
+   phase 6's 20,000,000 ratings, through NCFPreparator ->
+   NCFAlgorithm.train on cuda, epochs cut 5 -> 1. Checks: the step count,
+   no NaN, the mean loss of the last 100 steps below the first 100's,
+   and fresh pairs of the data's recipe scoring above uniform ones.
+14. serve_ncf -- that model saved, deployed through the ``deploy`` code
+   path on cuda and queried over HTTP (known users, blackList,
+   unseenOnly=false, num 20, a cold user) and by a 256-user
+   ``batch_predict``. B3 launches counted from 0 before the queries must
+   equal the known-user queries; every served list and every batch
+   answer agrees with the plain head on the card (scores within the B3
+   tolerance; items the plain top-k up to near-ties), and each batch
+   answer's scores agree with ``predict``'s (B3) within that tolerance.
+15. train_verb_ncf -- the ``train`` verb with the NCF engine.json on a
+   3,000-event file, and ``deploy`` of what it wrote (B3 serves it).
 
 Then one line ``{"kernels": [...]}``, the card's line again and, last,
 ``{"ok": true, "device": {...}}``.
@@ -97,6 +124,15 @@ FOLDIN_USERS = 1_000
 SMALL_EVENTS = 3_000
 #: the reference's f32 solver-parity bar (tests/test_als_gram.py:198)
 FIT_ATOL = 1e-4
+
+#: the NCF template's widths (examples/ncf/engine.json); B3 is checked at
+#: the serving catalog of B2's check and on the training stand-in's
+NCF_E, NCF_HIDDEN = 32, (64, 32)
+NCF_SERVE_USERS, NCF_SERVE_ITEMS = NUM_USERS, NUM_ITEMS
+NCF_TRAIN_ITEMS = TRAIN_ITEMS
+NCF_SMALL_ITEMS = (1, 1023, 1025, 27_000)
+NCF_EPOCHS = 1          # the one cut of the NCF training phase: 5 -> 1
+NCF_HOLDOUT = 100_000
 
 
 def emit(obj: dict) -> None:
@@ -878,6 +914,428 @@ def phase_train_verb_and_serve(rng: np.random.Generator, trained: dict, repo: st
     return result
 
 
+# --------------------------------------------------------------------------
+# Neural-CF: kernel B3 (csrc/ncf_score.cu) on the NCF template
+# --------------------------------------------------------------------------
+
+
+def random_ncf_state(num_users: int, num_items: int, embed: int, hidden, seed: int):
+    """A ``NeuMF`` state dict at the given widths from ``seed``: flax's
+    default init, then the biases drawn too (the init zeroes them, which
+    would leave the kernel's bias paths unchecked)."""
+    import torch
+
+    from predictionio_tpu_torch.models.ncf.model import NCFConfig, init_model
+
+    model = init_model(NCFConfig(num_users, num_items, embed, tuple(hidden), seed=seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    state = model.state_dict()
+    for name, value in state.items():
+        if name.endswith(".bias"):
+            value.copy_(0.1 * torch.randn(value.shape, generator=gen))
+    return state
+
+
+def b3_tolerance(e: int, h0: int, h1: int) -> float:
+    """B3 and its plain version sum the products of each layer in
+    different orders. Each f32 sum of n terms is within (n - 1) 2^-24
+    of its sum over absolute values, and relu passes a layer's error on
+    unamplified, so each version is within (3E + H0 + H1 + 6) 2^-24 of
+    the exact score in units of S, the same head run on the absolute
+    values of every input (the gmf product and its weight, the 2E + 1
+    terms of the first layer, the H0 + 1 of the second, the E + H1 + 1
+    of the output, one rounding each). Twice that bounds the difference
+    of the two."""
+    return 2.0 * (3 * e + h0 + h1 + 6) * 2.0 ** -24
+
+
+def compare_b3(gmf_users, mlp_users, head, users) -> tuple[float, float]:
+    """B3 against ``ncf_score_plain`` on the card for each user row;
+    elementwise |kernel - plain| <= tol * S (``b3_tolerance``). Returns
+    the max abs error and the max of |kernel - plain| / (tol * S)."""
+    import torch
+
+    from predictionio_tpu_torch.models.ncf.kernel import ncf_score_all_items, ncf_score_plain
+
+    gi, mi, kernels, biases, out_k, out_b = head
+    e = gi.shape[1]
+    tol = b3_tolerance(e, kernels[0].shape[1], kernels[1].shape[1])
+    abs_head = (gi.abs(), mi.abs(), [k.abs() for k in kernels], [b.abs() for b in biases],
+                out_k.abs(), out_b.abs())
+    worst = worst_ratio = 0.0
+    for u in users:
+        got = ncf_score_all_items(gi, mi, gmf_users[u], mlp_users[u], kernels, biases, out_k, out_b)
+        torch.cuda.synchronize()
+        if got.shape != (gi.shape[0],) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"B3 gave shape {tuple(got.shape)} or a non-finite score")
+        want = ncf_score_plain(gi, mi, gmf_users[u], mlp_users[u], kernels, biases, out_k, out_b)
+        scale = ncf_score_plain(abs_head[0], abs_head[1], gmf_users[u].abs(),
+                                mlp_users[u].abs(), *abs_head[2:])
+        err = (got - want).abs()
+        ratio = float((err / (tol * scale + 1e-30)).max())
+        if ratio > 1.0:
+            raise AssertionError(
+                f"B3 differs from the plain version for user {u}: {ratio} of the "
+                f"bound {tol} x S"
+            )
+        worst, worst_ratio = max(worst, float(err.max())), max(worst_ratio, ratio)
+    return worst, worst_ratio
+
+
+def b3_bound(items: int, e: int, h0: int, h1: int) -> tuple[float, str, float, float]:
+    """(bound ms, what bounds it, bytes, operations) of one B3 call. Bytes:
+    the two item tables read once and the scores written once (the user
+    rows and the ~17 KB of weights are noise). Operations per item:
+    2 E H0 + 2 H0 H1 (the two dense layers' multiply-adds, each sum of
+    products started from its bias), 3E (the gmf products, their weights
+    and sum), 2 H1 (the output dot, started from the gmf sum and the
+    output bias) and H0 + H1 relus; per call once more 2 E H0 + H0 for
+    the user's half of the first layer."""
+    nbytes = 2.0 * items * e * 4 + items * 4 + (2 * e + 2 * e * h0 + h0 * h1) * 4
+    per_item = 2 * e * h0 + 2 * h0 * h1 + 3 * e + 2 * h1 + h0 + h1
+    ops = float(items * per_item + 2 * e * h0 + h0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def phase_check_b3(seed: int) -> dict:
+    """Kernel B3 against its plain version on the card: the template's
+    widths (E=32, hidden 64, 32) at 1,000,000 items for several users
+    (the last one included), the small catalogs 1, 1023, 1025 and 27,000,
+    and widths that are not multiples of the kernel's 8-column chunks."""
+    import torch
+
+    from predictionio_tpu_torch.models.ncf.kernel import head_tensors
+
+    cases = [(NCF_SERVE_USERS, NCF_SERVE_ITEMS, NCF_E, NCF_HIDDEN)]
+    cases += [(64, n, NCF_E, NCF_HIDDEN) for n in NCF_SMALL_ITEMS]
+    cases += [(64, 3001, 8, (16, 8)), (64, 3001, 5, (12, 7)), (64, 2049, 64, (128, 64))]
+    worst = worst_ratio = 0.0
+    for users, items, e, hidden in cases:
+        state = random_ncf_state(users, items, e, hidden, seed)
+        gmf_users, mlp_users, head = head_tensors(state, items, "cuda")
+        picked = sorted({0, 1, users // 2, users - 2, users - 1})
+        err, ratio = compare_b3(gmf_users, mlp_users, head, picked)
+        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+        emit({"phase": "check_b3", "items": items, "embed": e, "hidden": list(hidden),
+              "users_checked": picked, "max_abs_err": err,
+              "max_err_over_bound": ratio, "tolerance": b3_tolerance(e, *hidden)})
+        del gmf_users, mlp_users, head, state
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "max_err_over_bound": worst_ratio}
+
+
+def phase_time_b3(seed: int) -> dict:
+    """B3 and its plain version, CUDA-event medians, at 1,000,000 and at
+    27,000 items (the template's widths), beside the bound."""
+    import torch
+
+    from predictionio_tpu_torch.models.ncf.kernel import (
+        head_tensors,
+        ncf_score_all_items,
+        ncf_score_plain,
+    )
+
+    shapes = []
+    for items in (NCF_SERVE_ITEMS, NCF_TRAIN_ITEMS):
+        state = random_ncf_state(64, items, NCF_E, NCF_HIDDEN, seed)
+        gmf_users, mlp_users, (gi, mi, kernels, biases, out_k, out_b) = head_tensors(
+            state, items, "cuda")
+        args = (gi, mi, gmf_users[7], mlp_users[7], kernels, biases, out_k, out_b)
+        ms = cuda_ms(lambda: ncf_score_all_items(*args))
+        plain_ms = cuda_ms(lambda: ncf_score_plain(*args))
+        bound_ms, bound_by, nbytes, ops = b3_bound(items, NCF_E, *NCF_HIDDEN)
+        row = {"items": items, "embed": NCF_E, "hidden": list(NCF_HIDDEN),
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": nbytes, "operations": ops,
+               "fraction_of_bound": bound_ms / ms}
+        emit({"phase": "time_b3", **row})
+        shapes.append(row)
+        del gmf_users, mlp_users, gi, mi, args, state
+        torch.cuda.empty_cache()
+    return {"shapes": shapes}
+
+
+class EpochLog:
+    """``telemetry`` for ``NCFAlgorithm.train``: each epoch's wall seconds,
+    every step's loss, and the seconds and rows of the negative sampling
+    and of each epoch's permutation (seconds summed over epochs)."""
+
+    def __init__(self):
+        self.seconds: list[float] = []
+        self.losses: list[float] = []
+        self.phase_s: dict[str, float] = {}
+        self.phase_rows: dict[str, int] = {}
+
+    def record_epoch(self, epoch: int, seconds: float, losses: list[float]) -> None:
+        self.seconds.append(seconds)
+        self.losses.extend(losses)
+
+    def record_phase(self, name: str, seconds: float, rows: int) -> None:
+        self.phase_s[name] = self.phase_s.get(name, 0.0) + seconds
+        self.phase_rows[name] = rows
+
+
+def ncf_engine(repo: str) -> tuple[str, dict]:
+    """(path, algorithm params) of the NCF template's engine.json."""
+    path = os.path.join(repo, "examples", "ncf", "engine.json")
+    with open(path) as f:
+        return path, json.load(f)["algorithms"][0]["params"]
+
+
+def heldout_pairs(rng: np.random.Generator, n: int):
+    """``n`` fresh pairs by the stand-in's recipe (``make_ratings``: uniform
+    users, squared-uniform Zipf items) and ``n`` uniform random pairs."""
+    pos_u = rng.integers(0, TRAIN_USERS, n)
+    pos_i = (np.minimum(rng.random(n) ** 2.2, 0.999999) * TRAIN_ITEMS).astype(np.int64)
+    return (pos_u, pos_i), (rng.integers(0, TRAIN_USERS, n), rng.integers(0, TRAIN_ITEMS, n))
+
+
+def phase_train_ncf(rng: np.random.Generator, ratings, repo: str) -> dict:
+    """The NCF training path at full width: the template's engine.json
+    (E=32, hidden 64, 32, batch 4096, lr 0.01, implicit, 4 negatives) on
+    the ALS phase's 20M ratings, through NCFPreparator ->
+    NCFAlgorithm.train on cuda; one cut, epochs 5 -> 1."""
+    import torch
+
+    from predictionio_tpu_torch.controller.base import TrainContext
+    from predictionio_tpu_torch.models.ncf import NCFAlgorithm, NCFPreparator
+    from predictionio_tpu_torch.models.ncf.model import NeuMF
+    from predictionio_tpu_torch.models.recommendation import RatingsData
+
+    users, items, values, times = ratings
+    data = RatingsData(
+        users=users, items=items, ratings=values, times=times,
+        user_ids=[f"u{u}" for u in range(TRAIN_USERS)],
+        item_ids=[f"i{i}" for i in range(TRAIN_ITEMS)],
+    )
+    _, params = ncf_engine(repo)
+    params = dict(params, epochs=NCF_EPOCHS)
+    algorithm = NCFAlgorithm(params, device="cuda")
+    config = algorithm._config(data)
+    log = EpochLog()
+    ctx = TrainContext(device="cuda", telemetry=log, mesh_shape=[-1, 1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = algorithm.train(ctx, NCFPreparator().prepare(ctx, data))
+    train_s = time.perf_counter() - t0
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    steps = len(log.losses)
+    examples = log.phase_rows["negative_sampling"]
+    if log.phase_rows["permutation"] != examples:
+        raise AssertionError(f"{examples} examples sampled, "
+                             f"{log.phase_rows['permutation']} permuted")
+    expected = config.epochs * -(-examples // config.batch_size)
+    if steps != expected:
+        raise AssertionError(f"{steps} training steps, expected {expected}")
+    for name, value in model.state.items():
+        if not bool(torch.isfinite(value).all()):
+            raise AssertionError(f"non-finite {name} after training")
+    losses = np.asarray(log.losses)
+    if not np.isfinite(losses).all():
+        raise AssertionError("a NaN or infinite training loss")
+    first, last = float(losses[:100].mean()), float(losses[-100:].mean())
+    if not last < first:
+        raise AssertionError(f"the training loss does not fall: {first} -> {last}")
+    # held out: fresh pairs by the data's recipe score above uniform ones
+    net = NeuMF(model.config)
+    net.load_state_dict(model.state)
+    net.to("cuda").eval()
+    (pu, pi), (nu, ni) = heldout_pairs(rng, NCF_HOLDOUT)
+    with torch.no_grad():
+        pos = net(torch.from_numpy(pu).cuda(), torch.from_numpy(pi).cuda()).mean().item()
+        neg = net(torch.from_numpy(nu).cuda(), torch.from_numpy(ni).cuda()).mean().item()
+    if not pos > neg:
+        raise AssertionError(f"held-out positives {pos} do not score above negatives {neg}")
+    epoch_s = sum(log.seconds)
+    result = {
+        "users": TRAIN_USERS, "items": TRAIN_ITEMS, "positives": int(users.size),
+        "examples": examples, "embed": config.embed_dim, "hidden": list(config.hidden),
+        "batch_size": config.batch_size, "epochs": config.epochs, "steps": steps,
+        "negative_sampling_s": log.phase_s["negative_sampling"],
+        "permutation_s": log.phase_s["permutation"],
+        "epoch_s": log.seconds, "steps_per_s": steps / epoch_s,
+        "steps_per_s_without_permutation": steps / (epoch_s - log.phase_s["permutation"]),
+        "train_s": train_s, "train_s_outside_epochs": train_s - epoch_s,
+        "peak_device_bytes": peak_bytes,
+        "loss_first_100": first, "loss_last_100": last,
+        "heldout_positive_mean": pos, "heldout_negative_mean": neg,
+    }
+    emit({"phase": "train_ncf", **result})
+    return {"result": result, "model": model}
+
+
+def check_against_plain(served: dict, plain: np.ndarray, scale: np.ndarray, tol: float) -> None:
+    """A served ``itemScores`` list against the plain head's scores of
+    the same user (excluded items at -inf): each score within ``tol``
+    times its item's S of the plain score, and the items are the plain
+    top-k up to items whose plain score lies within twice the largest
+    such bound of the k-th."""
+    got = [(int(s["item"][1:]), s["score"]) for s in served["itemScores"]]
+    k = len(got)
+    if k == 0:
+        raise AssertionError("a known user was served no items")
+    for j, score in got:
+        if not abs(score - plain[j]) <= tol * scale[j] + 1e-30:
+            raise AssertionError(f"item i{j}: served {score}, plain {plain[j]}")
+    order = np.argsort(-plain, kind="stable")
+    kth = plain[order[k - 1]]
+    slack = 2 * tol * float(scale[np.isfinite(plain)].max())
+    top = set(order[:k].tolist())
+    mine = {j for j, _ in got}
+    for j in top ^ mine:
+        if not abs(plain[j] - kth) <= slack:
+            raise AssertionError(f"item i{j} is in one top-{k} only, {plain[j]} vs {kth}")
+
+
+def phase_serve_ncf(rng: np.random.Generator, trained: dict, repo: str, workdir: str) -> dict:
+    """The trained NCF model saved, deployed through the ``deploy`` code
+    path on cuda and queried over HTTP; B3 launches counted from 0
+    before the queries; the served top-10 held to the plain head on the
+    card, and ``batch_predict`` (plain batch scorer) to both."""
+    import torch
+
+    from predictionio_tpu_torch.models.ncf import save_model
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+    from predictionio_tpu_torch.models.ncf.kernel import head_tensors, ncf_score_plain
+    from predictionio_tpu_torch.tools.cli import build_query_server
+
+    model = trained["model"]
+    model_dir = os.path.join(workdir, "ncf_model")
+    t0 = time.perf_counter()
+    save_model(model, model_dir)
+    save_s = time.perf_counter() - t0
+    engine_json, _ = ncf_engine(repo)
+    picked = rng.choice(TRAIN_USERS, size=256 + 10, replace=False)
+    users = [f"u{u}" for u in picked[:10]]
+    queries = (
+        [{"user": u, "num": 10} for u in users[:6]]
+        + [{"user": users[6], "num": 10, "blackList": ["i0", "i1", "i2", "i3"]},
+           {"user": users[7], "num": 10, "unseenOnly": False},
+           {"user": users[8], "num": 20, "unseenOnly": False},
+           {"user": users[9], "num": 10},
+           {"user": "cold-user", "num": 10}]
+    )
+    known = sum(1 for q in queries if q["user"] != "cold-user")
+    batch = [(qid, {"user": f"u{u}", "num": 10}) for qid, u in enumerate(picked[10:])]
+
+    t0 = time.perf_counter()
+    server, service = build_query_server(engine_json, model_dir, port=0, device="cuda")
+    deploy_s = time.perf_counter() - t0
+    algo, deployed = service.algorithms[0], service.models[0]
+    if not algo.use_kernel:
+        raise AssertionError("usePallas is off on cuda: B3 would not serve")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=120)
+    try:
+        ncf_kernel.ncf_score_all_items.launches = 0   # counts start at 0 here
+        served, latencies = [], []
+        for q in queries:
+            body, ms = post(conn, q)
+            served.append(body)
+            latencies.append(ms)
+        launches = ncf_kernel.ncf_score_all_items.launches  # read here
+        t0 = time.perf_counter()
+        batched = dict(algo.batch_predict(deployed, batch))
+        batch_s = time.perf_counter() - t0
+        http_query_ms = host_ms(lambda: post(conn, queries[0]))
+    finally:
+        conn.close()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("query server thread did not stop")
+    if launches != known:
+        raise AssertionError(f"{launches} B3 launches for {known} known-user queries")
+    if served[-1] != {"itemScores": []}:
+        raise AssertionError(f"the cold user was answered {served[-1]}")
+
+    gmf_users, mlp_users, head = head_tensors(deployed.state, len(deployed.item_ids), "cuda")
+    gi, mi, kernels, biases, out_k, out_b = head
+    abs_head = (gi.abs(), mi.abs(), [k.abs() for k in kernels], [b.abs() for b in biases],
+                out_k.abs(), out_b.abs())
+    tol = b3_tolerance(gi.shape[1], kernels[0].shape[1], kernels[1].shape[1])
+
+    def plain_for(query) -> tuple[np.ndarray, np.ndarray]:
+        u = deployed.user_index[query["user"]]
+        plain = ncf_score_plain(gi, mi, gmf_users[u], mlp_users[u], kernels, biases,
+                                out_k, out_b).double().cpu().numpy()
+        scale = ncf_score_plain(abs_head[0], abs_head[1], gmf_users[u].abs(),
+                                mlp_users[u].abs(), *abs_head[2:]).double().cpu().numpy()
+        exclude = {deployed.item_index[b] for b in query.get("blackList") or []}
+        if query.get("unseenOnly", True):
+            exclude |= deployed.seen.get(u, set())
+        plain[list(exclude)] = -np.inf
+        return plain, scale
+
+    for q, body in zip(queries[:-1], served[:-1]):
+        check_against_plain(body, *plain_for(q), tol)
+    batch_diff = 0.0
+    for qid, q in batch:
+        plain, scale = plain_for(q)
+        check_against_plain(batched[qid], plain, scale, tol)
+        single = algo.predict(deployed, q)
+        check_against_plain(single, plain, scale, tol)
+        # batch_predict (plain batch scorer) against predict (B3), item by item
+        by_item = {s["item"]: s["score"] for s in single["itemScores"]}
+        for s in batched[qid]["itemScores"]:
+            if s["item"] in by_item:
+                diff = abs(s["score"] - by_item[s["item"]])
+                if not diff <= tol * scale[deployed.item_index[s["item"]]] + 1e-30:
+                    raise AssertionError(f"{s['item']}: batch {s['score']}, "
+                                         f"predict {by_item[s['item']]}")
+                batch_diff = max(batch_diff, diff)
+    # where a query's time goes, host clock, after the counts were read
+    u0 = deployed.user_index[queries[0]["user"]]
+    scorer = deployed.scorer(algo.device, True)
+    scores = scorer(u0)
+    result = {
+        "users": TRAIN_USERS, "items": len(deployed.item_ids), "queries": len(queries),
+        "known_user_queries": known, "launches": {"ncf_score_all_items": launches},
+        "save_s": save_s, "deploy_s": deploy_s,
+        "query_ms_p50": statistics.median(latencies), "query_ms_max": max(latencies),
+        "http_query_ms_p50": http_query_ms,
+        "predict_ms_p50": host_ms(lambda: algo.predict(deployed, queries[0])),
+        "scorer_ms_p50": host_ms(lambda: scorer(u0)),
+        "topk_ms_p50": host_ms(lambda: algo._topk_response(deployed, scores, queries[0], u0)),
+        "batch_predict_users": len(batch), "batch_predict_s": batch_s,
+        "batch_vs_predict_max_abs_diff": batch_diff,
+    }
+    emit({"phase": "serve_ncf", **result})
+    return result
+
+
+def phase_train_verb_ncf(rng: np.random.Generator, repo: str, workdir: str) -> dict:
+    """The ``train`` verb with the NCF template's engine.json on a small
+    events file, and ``deploy`` of the model it wrote."""
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+    from predictionio_tpu_torch.tools import cli
+
+    engine_json, _ = ncf_engine(repo)
+    events = os.path.join(workdir, "ncf_events.jsonl")
+    n_events, user = small_events(rng, events)
+    model_dir = os.path.join(workdir, "ncf_small")
+    t0 = time.perf_counter()
+    if cli.main(["train", "--engine-json", engine_json, "--events", events,
+                 "--model-out", model_dir, "--device", "cuda"]) != 0:
+        raise AssertionError("the train verb failed")
+    verb_s = time.perf_counter() - t0
+    before = ncf_kernel.ncf_score_all_items.launches
+    served, small, _ = serve_model(engine_json, model_dir, [{"user": user, "num": 5}])
+    launches = ncf_kernel.ncf_score_all_items.launches - before
+    if len(served[0]["itemScores"]) != 5 or user not in small.user_index or launches < 2:
+        raise AssertionError(f"the trained small NCF model answered {served[0]} "
+                             f"with {launches} B3 launches (warm-up and query)")
+    result = {"events": n_events, "train_verb_s": verb_s, "b3_launches": launches,
+              "epochs": small.config.epochs}
+    emit({"phase": "train_verb_ncf", **result})
+    return result
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -918,10 +1376,21 @@ def main(argv: list[str] | None = None) -> int:
     phase_foldin(rng, trained)
     with tempfile.TemporaryDirectory() as workdir:
         phase_train_verb_and_serve(rng, trained, repo, workdir)
+    b1_launches = trained["result"]["launches"]["gram_rhs"]
+    ratings = trained["ratings"]
+    del trained
+
+    b3_check = phase_check_b3(args.seed)
+    b3_time = phase_time_b3(args.seed)
+    ncf_trained = phase_train_ncf(rng, ratings, repo)
+    with tempfile.TemporaryDirectory() as workdir:
+        ncf_serve = phase_serve_ncf(rng, ncf_trained, repo, workdir)
+        phase_train_verb_ncf(rng, repo, workdir)
 
     main_shape = next(s for s in stage1["shapes"] if s["batch"] == 256)
     b1_main = next(s for s in b1_time["shapes"]
                    if s["side"] == "users" and s["dtype"] == "float32")
+    b3_main = next(s for s in b3_time["shapes"] if s["items"] == NCF_SERVE_ITEMS)
     emit({"kernels": [{
         "name": "mips_block_topk",
         "route": "cuda",
@@ -942,7 +1411,7 @@ def main(argv: list[str] | None = None) -> int:
         "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/als_gram.cu",
         "replaces": "predictionio_tpu/ops/als_gram.py:86",
-        "launches": trained["result"]["launches"]["gram_rhs"],
+        "launches": b1_launches,
         "max_abs_err": b1_check["max_abs_err"],
         "ms": b1_main["ms"],
         "plain_ms": b1_main["plain_ms"],
@@ -956,6 +1425,27 @@ def main(argv: list[str] | None = None) -> int:
         "other_shapes": [
             {k: s[k] for k in ("side", "dtype", "ms", "plain_ms", "bound_ms", "bound_by")}
             for s in b1_time["shapes"] if s is not b1_main
+        ],
+    }, {
+        "name": "ncf_score_all_items",
+        "route": "cuda",
+        "source": "predictionio_tpu_torch/csrc/ncf_score.cu",
+        "replaces": "predictionio_tpu/models/ncf/kernel.py:32",
+        "launches": ncf_serve["launches"]["ncf_score_all_items"],
+        "max_abs_err": b3_check["max_abs_err"],
+        "ms": b3_main["ms"],
+        "plain_ms": b3_main["plain_ms"],
+        "bound_ms": b3_main["bound_ms"],
+        "bound_by": b3_main["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the fused NeuMF head "
+                        "(two embedding branches, two dense layers and the "
+                        "output projection); the nearest is the plain version's "
+                        "chain of matmuls",
+        "shape": {k: b3_main[k] for k in ("items", "embed", "hidden")},
+        "other_shapes": [
+            {k: s[k] for k in ("items", "ms", "plain_ms", "bound_ms", "bound_by")}
+            for s in b3_time["shapes"] if s is not b3_main
         ],
     }]})
     print(card, flush=True)

@@ -14,6 +14,7 @@ port on a host with no ``nvcc`` and no card.
     build_all()          # compile every source at once, one nvcc each
     library("mips_topk") # the loaded ctypes.CDLL, built if needed
     library("als_gram")
+    library("ncf_score")
 """
 
 from __future__ import annotations
@@ -34,6 +35,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: shared memory one block may use on Hopper (227 KB); the wrappers
+#: refuse widths whose block needs more before they launch
+MAX_SMEM_BYTES = 232_448
+
 #: kernel name -> (source under csrc/, {C function: (restype, argtypes)})
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
@@ -52,6 +57,13 @@ KERNELS = {
             "als_gram_rhs_launch": (
                 _INT, [_VP] * 5 + [_INT] * 3 + [ctypes.c_float] + [_INT] * 2 + [_VP]
             ),
+        },
+    ),
+    "ncf_score": (
+        "ncf_score.cu",
+        {
+            "ncf_score_launch": (_INT, [_VP] * 13 + [_INT] * 4 + [_VP]),
+            "ncf_score_smem_bytes": (_INT, [_INT] * 3),
         },
     ),
 }

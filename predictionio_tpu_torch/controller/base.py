@@ -64,13 +64,20 @@ class TrainContext:
     runs on (``cuda`` unless ``"cpu"`` is named), a ``checkpoint_dir``
     for step checkpoints (None disables them) and ``resume``: continue
     from the checkpoints found there instead of discarding them.
-    ``telemetry`` (any object with ``record_step(iteration, seconds)``)
-    receives each ALS iteration's wall time."""
+    ``telemetry`` receives each ALS iteration's wall time
+    (``record_step(iteration, seconds)``), each NCF epoch's wall time
+    and step losses (``record_epoch(epoch, seconds, losses)``) and the
+    seconds of NCF's negative sampling and epoch permutations with the
+    examples they produce or permute (``record_phase(name, seconds,
+    rows)``).
+    ``mesh_shape`` is the engine.json's ``sparkConf["pio.mesh_shape"]``
+    (the port trains on one device; NCF refuses an axis above 1)."""
 
     device: Any = None
     checkpoint_dir: str | None = None
     resume: bool = False
     telemetry: Any = None
+    mesh_shape: Any = None
 
     def checkpoint_manager(self, name: str):
         """The step-checkpoint manager of one algorithm, or None when the

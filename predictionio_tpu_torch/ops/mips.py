@@ -44,8 +44,6 @@ _SEL = -2e30
 
 #: grid.y of the kernel is B / BLOCK_QUERIES and CUDA caps it at 65535
 _MAX_BATCH = 65535 * BLOCK_QUERIES
-#: shared memory one block may use on Hopper (227 KB)
-_MAX_SMEM = 232448
 
 
 def _check_stage1(queries, q_table, scales, block_topk: int, num_items: int):
@@ -149,10 +147,10 @@ def mips_block_topk(
 
     lib = _kernels.library("mips_topk")
     smem = lib.mips_block_topk_smem_bytes(k, bi)
-    if smem > _MAX_SMEM:
+    if smem > _kernels.MAX_SMEM_BYTES:
         raise ValueError(
             f"a [{bi}, {k}] tile needs {smem} bytes of shared memory, over "
-            f"the {_MAX_SMEM} a block may use; use smaller blockItems"
+            f"the {_kernels.MAX_SMEM_BYTES} a block may use; use smaller blockItems"
         )
     scores = torch.empty((b, nb, block_topk), dtype=torch.float32, device=queries.device)
     idx = torch.empty((b, nb, block_topk), dtype=torch.int32, device=queries.device)

@@ -5,23 +5,34 @@
         --events events.jsonl --model-out MODEL_DIR [--resume] [--device cuda|cpu]
 
     python -m predictionio_tpu_torch.tools.cli deploy \\
-        --engine-json examples/recommendation/engine.json \\
+        --engine-json examples/ncf/engine.json \\
         --model MODEL_DIR --port 8000 [--ip 0.0.0.0] [--device cuda|cpu]
 
-``--engine-json`` is an unchanged ``engine.json`` of the recommendation
-template: the datasource, preparator and first algorithm's ``params``
-configure training, and the algorithm's ``params`` configure serving
-(including ``"retrieval": {"mode": "mips"}``).
+``--engine-json`` is an unchanged ``engine.json`` of one of the ported
+templates, picked by its ``engineFactory`` (the reference's factory
+path) or, without one, by its first algorithm's name:
+
+- the recommendation template (``als``): ALS training, serving by scan
+  or ``"retrieval": {"mode": "mips"}``;
+- the Neural-CF template (``ncf``): NeuMF training, serving through the
+  fused scorer kernel.
+
+The datasource, preparator and first algorithm's ``params`` configure
+training, and the algorithm's ``params`` configure serving. A
+``sparkConf["pio.mesh_shape"]`` reaches training (the port runs on one
+device).
 
 ``train`` reads ``--events`` (JSON lines in the ``pio import`` wire
 shape; the port's stand-in for the event store), runs DataSource ->
-Preparator -> ``ALSAlgorithm.train`` and writes the model directory with
-``save_model``. Step checkpoints go to ``MODEL_DIR/checkpoints`` while
-it runs (every ``checkpointInterval`` iterations); ``--resume`` continues
-from them after a crash, and a completed train removes them.
+Preparator -> ``Algorithm.train`` and writes the model directory with
+the template's ``save_model``. Checkpoints go to ``MODEL_DIR/checkpoints``
+while it runs (ALS: every ``checkpointInterval`` iterations; NCF: every
+epoch); ``--resume`` continues from them after a crash, and a completed
+train removes them.
 
-``deploy`` serves a model directory: it warms the retrieval indexes up
-before it answers. Both verbs run on the card unless ``--device cpu``.
+``deploy`` serves a model directory: it warms the template's device
+state up before it answers. Both verbs run on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -31,76 +42,114 @@ import json
 import os
 import shutil
 import sys
+from dataclasses import dataclass
+from typing import Callable
 
-from predictionio_tpu_torch.controller.base import TrainContext
+from predictionio_tpu_torch.controller.base import Algorithm, Preparator, TrainContext
 from predictionio_tpu_torch.controller.serving import FirstServing
-from predictionio_tpu_torch.models.recommendation import (
-    ALSAlgorithm,
-    RecommendationDataSource,
-    RecommendationModel,
-    RecommendationPreparator,
-    load_model,
-    save_model,
-)
+from predictionio_tpu_torch.models import ncf, recommendation
+from predictionio_tpu_torch.models.recommendation import RecommendationDataSource
 from predictionio_tpu_torch.workflow.create_server import (
     QueryService,
     create_query_server,
 )
 
 
-def load_variant(engine_json: str) -> dict:
-    """The engine.json object, checked to name the template's one
-    algorithm, ``als``."""
+@dataclass(frozen=True)
+class Template:
+    """What the verbs need of one ported template."""
+
+    algorithm: str                      # the engine.json algorithm name
+    algorithm_class: type[Algorithm]
+    preparator_class: type[Preparator]
+    save_model: Callable
+    load_model: Callable
+
+
+TEMPLATES = {
+    "recommendation": Template(
+        "als", recommendation.ALSAlgorithm, recommendation.RecommendationPreparator,
+        recommendation.save_model, recommendation.load_model,
+    ),
+    "ncf": Template(
+        "ncf", ncf.NCFAlgorithm, ncf.NCFPreparator, ncf.save_model, ncf.load_model,
+    ),
+}
+
+
+def load_variant(engine_json: str) -> tuple[dict, Template]:
+    """The engine.json object and its template: by ``engineFactory``
+    (``predictionio_tpu.models.<template>.engine_factory``) when it names
+    one, else by the first algorithm's name. The first algorithm must be
+    the template's."""
     with open(engine_json) as f:
         variant = json.load(f)
     algorithms = variant.get("algorithms") or []
     if not algorithms:
         raise ValueError(f"{engine_json} names no algorithms")
-    if algorithms[0].get("name", "als") != "als":
+    name = algorithms[0].get("name", "als")
+    factory = variant.get("engineFactory")
+    if factory:
+        parts = factory.split(".")
+        key = parts[-2] if len(parts) >= 2 and parts[-1] == "engine_factory" else None
+        if key not in TEMPLATES:
+            raise ValueError(
+                f"engineFactory {factory!r} is not a ported template; the port "
+                f"serves {sorted(TEMPLATES)}"
+            )
+        template = TEMPLATES[key]
+    else:
+        template = next((t for t in TEMPLATES.values() if t.algorithm == name), None)
+        if template is None:
+            raise ValueError(
+                f"algorithm {name!r} is not a ported template's; the port "
+                f"serves {sorted(t.algorithm for t in TEMPLATES.values())}"
+            )
+    if name != template.algorithm:
         raise ValueError(
-            f"the port serves the recommendation template's 'als' "
-            f"algorithm, got {algorithms[0].get('name')!r}"
+            f"the template's algorithm is {template.algorithm!r}, got {name!r}"
         )
-    return variant
+    return variant, template
 
 
-def algorithm_params(engine_json: str) -> dict:
-    """``algorithms[0].params`` of an engine.json."""
-    return load_variant(engine_json)["algorithms"][0].get("params") or {}
+def _algorithm(variant: dict, template: Template, device):
+    params = variant["algorithms"][0].get("params") or {}
+    return template.algorithm_class(params, device=device)
 
 
 def build_trainer(engine_json: str, events_path: str, *, device: str | None = None):
-    """The template's train-path components from an engine.json:
-    ``(datasource, preparator, algorithm)``. The algorithm resolves the
-    device, so without a card and without ``device="cpu"`` this raises."""
-    variant = load_variant(engine_json)
-    algorithm = ALSAlgorithm(algorithm_params(engine_json), device=device)
+    """The engine.json, read once, and its template's train-path
+    components: ``(variant, template, datasource, preparator,
+    algorithm)``. The algorithm resolves the device, so without a card
+    and without ``device="cpu"`` this raises."""
+    variant, template = load_variant(engine_json)
+    algorithm = _algorithm(variant, template, device)
     datasource = RecommendationDataSource(
         (variant.get("datasource") or {}).get("params"), events_path=events_path
     )
-    preparator = RecommendationPreparator(
+    preparator = template.preparator_class(
         (variant.get("preparator") or {}).get("params")
     )
-    return datasource, preparator, algorithm
+    return variant, template, datasource, preparator, algorithm
 
 
 def train(engine_json: str, events_path: str, model_out: str, *,
-          resume: bool = False, device: str | None = None) -> RecommendationModel:
+          resume: bool = False, device: str | None = None):
     """Everything ``train`` does: read, prepare, fit, save; returns the
     trained model."""
-    datasource, preparator, algorithm = build_trainer(
+    variant, template, datasource, preparator, algorithm = build_trainer(
         engine_json, events_path, device=device
     )
     checkpoint_dir = os.path.join(model_out, "checkpoints")
     ctx = TrainContext(
-        device=algorithm.device, checkpoint_dir=checkpoint_dir, resume=resume
+        device=algorithm.device, checkpoint_dir=checkpoint_dir, resume=resume,
+        mesh_shape=(variant.get("sparkConf") or {}).get("pio.mesh_shape"),
     )
     data = datasource.read_training(ctx)
     data.sanity_check()
     model = algorithm.train(ctx, preparator.prepare(ctx, data))
-    save_model(model, model_out)
-    # a completed train's step checkpoints must not be resumable into a
-    # later one
+    template.save_model(model, model_out)
+    # a completed train's checkpoints must not be resumable into a later one
     shutil.rmtree(checkpoint_dir, ignore_errors=True)
     return model
 
@@ -109,8 +158,9 @@ def build_query_server(engine_json: str, model_path: str, *, ip: str = "127.0.0.
                        port: int = 8000, device: str | None = None):
     """Everything ``deploy`` does short of serving: load, warm up, bind.
     Returns ``(server, service)``."""
-    algorithm = ALSAlgorithm(algorithm_params(engine_json), device=device)
-    model = load_model(model_path)
+    variant, template = load_variant(engine_json)
+    algorithm = _algorithm(variant, template, device)
+    model = template.load_model(model_path)
     algorithm.warm_up(model)
     service = QueryService([algorithm], [model], FirstServing())
     return create_query_server(service, ip, port), service

@@ -40,7 +40,7 @@ leaked = sorted(
     and sys.modules[m] is not None
 )
 assert not leaked, leaked
-print(len(names))
+print(len(names), " ".join(names))
 """
 
 
@@ -51,8 +51,11 @@ def test_port_imports_no_jax_and_no_reference_package():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # every module of the slice was walked, not just the package root
-    assert int(out.stdout.strip()) >= 31
+    count, *walked = out.stdout.split()
+    # every module of the slices was walked, not just the package root
+    assert int(count) >= 36
+    for module in ("__init__", "model", "kernel", "engine", "convert"):
+        assert f"predictionio_tpu_torch.models.ncf.{module}".removesuffix(".__init__") in walked
 
 
 def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
@@ -119,3 +122,26 @@ def test_gram_rhs_device_tensor_never_takes_the_plain_path(monkeypatch):
     ]
     with pytest.raises(ValueError, match="no gram_rhs kernel"):
         als_gram.gram_rhs(*meta, 0.5, implicit=True)
+
+
+def test_ncf_scorer_device_tensor_never_takes_the_plain_path(monkeypatch):
+    """The NCF scorer's wrapper: a non-CPU tensor launches B3 or raises,
+    at any depth; a launch the card refuses raises too."""
+    from predictionio_tpu_torch import _kernels
+    from predictionio_tpu_torch.models.ncf import kernel
+
+    monkeypatch.setattr(
+        kernel, "ncf_score_plain",
+        lambda *a, **k: pytest.fail("plain version taken for a device tensor"),
+    )
+    for hidden in ((64, 32), (64, 32, 16)):
+        meta = lambda *shape: torch.empty(shape, dtype=torch.float32, device="meta")
+        widths = (64,) + hidden
+        kernels = [meta(a, b) for a, b in zip(widths, widths[1:])]
+        with pytest.raises(ValueError, match="no NCF scorer kernel"):
+            kernel.ncf_score_all_items(
+                meta(1000, 32), meta(1000, 32), meta(32), meta(32), kernels,
+                [meta(h) for h in hidden], meta(32 + hidden[-1], 1), meta(1),
+            )
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        _kernels.check(700, "ncf_score launch")
