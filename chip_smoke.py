@@ -85,6 +85,46 @@ script exits non-zero and prints no result):
    answer's scores agree with ``predict``'s (B3) within that tolerance.
 15. train_verb_ncf -- the ``train`` verb with the NCF engine.json on a
    3,000-event file, and ``deploy`` of what it wrote (B3 serves it).
+16. seq_data -- phase 6's 20M ratings as sequence events (event i at
+   second i) grouped per user in time order (``group_sequences``, the
+   DataSource's grouping), each user's last item held out, the rest
+   packed by SequencePreparator to [138,000, 64].
+17. check_flash -- kernels B4, B5, B6 (``flash_attention.cu``) against
+   their plain versions on the card: the training shape (B=256, H=2,
+   T=64, D=16) with the packed rows' masks, with random right padding
+   and with left padding; and T in {1, 65, 200, 1024} x D in {8, 16, 32,
+   64}, causal and not, each with a fully-masked batch row and
+   left-padded rows. Tolerance, elementwise: 2e-5 times max(1, max|plain|)
+   of each output (f32 sums of at most T + D terms in other orders; the
+   reference's own forward bar is 2e-5 on unit inputs). Rows with no
+   valid key: out, dq, dk, dv exactly 0, lse <= -1e29, no NaN anywhere.
+18. time_flash -- B4, B5, B6 and their plain versions at the training
+   shape and at B=16, H=2, T=1024, D=16, beside the bound (the larger of
+   bytes / 3.35 TB/s and the causal pairs' f32 operations / 67 TFLOP/s)
+   and beside ``scaled_dot_product_attention`` with the same boolean mask
+   (forward for B4; its backward for B5 + B6), with the SDPA backend
+   PyTorch chose. Times are device times from a ``torch.profiler``
+   trace (the sum of the call's kernels), with the CUDA-event time of
+   one call beside: at these sizes the host's launch overhead, which
+   events count, is larger than the kernels.
+19. train_seq -- ``examples/sequence/engine.json`` unchanged (E=32, 2
+   heads, 2 blocks, ffn 64, maxLen 64, batch 256, lr 1e-3, 10 epochs)
+   through SASRecAlgorithm.train on cuda. B4/B5/B6 counts are zeroed
+   just before and read just after: each must be 2 x steps. Checks: no
+   NaN, the mean loss of the last 100 steps below the first 100's,
+   hit@10 of the held-out last items above the uniform 10/27,000, and 20
+   steps through the kernels equal the same 20 steps through the plain
+   versions on the card (losses within 1e-4); the kernel run of those 20
+   steps is traced: device ms a step, the card's busy share, top kernels.
+20. serve_seq -- that model saved, deployed through the ``deploy`` code
+   path on cuda and queried over HTTP (users, sessions of 1-10 items,
+   blackList, unseenOnly=false, a cold user) and by a 256-user
+   ``batch_predict``: B4 launches counted from 0 must be 2 per forward;
+   every list agrees with the plain path on the card (scores within 1e-4
+   times max(1, max|score|), items up to near-ties), and batch with
+   predict.
+21. train_verb_seq -- the ``train`` verb with the sequence engine.json on
+   a 3,000-event file, and ``deploy`` of what it wrote (B4 serves it).
 
 Then one line ``{"kernels": [...]}``, the card's line again and, last,
 ``{"ok": true, "device": {...}}``.
@@ -93,6 +133,7 @@ Then one line ``{"kernels": [...]}``, the card's line again and, last,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import http.client
 import json
@@ -133,6 +174,17 @@ NCF_TRAIN_ITEMS = TRAIN_ITEMS
 NCF_SMALL_ITEMS = (1, 1023, 1025, 27_000)
 NCF_EPOCHS = 1          # the one cut of the NCF training phase: 5 -> 1
 NCF_HOLDOUT = 100_000
+
+#: the flash-attention checks and timings: the sequence template's
+#: training shape (batch 256, 2 heads of 16, maxLen 64) and a long one
+SEQ_TRAIN_SHAPE = (256, 2, 64, 16)      # B, H, T, D
+SEQ_LONG_SHAPE = (16, 2, 1024, 16)
+FLASH_CHECK_T = (1, 65, 200, 1024)
+FLASH_CHECK_D = (8, 16, 32, 64)
+FLASH_TOL = 2e-5
+SEQ_PLAIN_STEPS = 20
+SEQ_SCORE_TOL = 1e-4
+SEQ_HIT_BATCH = 4096
 
 
 def emit(obj: dict) -> None:
@@ -177,6 +229,48 @@ def host_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def device_trace(fn, runs: int):
+    """``{kernel name: device ms per call}`` of ``fn()`` from a
+    ``torch.profiler`` (CUPTI) trace of ``runs`` calls, and the host
+    seconds of those calls (device synced at the end)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    per_name = {}
+    for event in prof.key_averages():
+        us = event.self_device_time_total
+        if us > 0:
+            per_name[event.key[:120]] = us / runs / 1e3
+    return per_name, wall_s
+
+
+def device_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3):
+    """Device time of one ``fn()`` in ms: the summed duration of every
+    kernel and copy it runs on the card (``device_trace``). CUDA events
+    around a call whose kernels take microseconds also count the host's
+    launch overhead, during which the card idles; this leaves it out.
+    None when the trace shows no device time."""
+    for _ in range(warmup):
+        fn()
+    per_name, _ = device_trace(fn, runs)
+    total = sum(per_name.values())
+    return total if total > 0 else None
+
+
+def timed_pair(fn) -> tuple[float, float]:
+    """``(device ms, CUDA-event ms)`` of one ``fn()``; the device time is
+    the event time when the trace shows no device time."""
+    call_ms = cuda_ms(fn)
+    return device_ms(fn) or call_ms, call_ms
 
 
 def stage1_inputs(factors: np.ndarray, queries: np.ndarray, block_items: int):
@@ -1336,6 +1430,591 @@ def phase_train_verb_ncf(rng: np.random.Generator, repo: str, workdir: str) -> d
     return result
 
 
+# --------------------------------------------------------------------------
+# the sequence template: kernels B4-B6 (csrc/flash_attention.cu)
+# --------------------------------------------------------------------------
+
+
+def flash_counts() -> dict:
+    from predictionio_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_forward": fa.flash_forward.launches, "flash_dq": fa.flash_dq.launches,
+            "flash_dkv": fa.flash_dkv.launches}
+
+
+def zero_flash_counts() -> None:
+    from predictionio_tpu_torch.ops import flash_attention as fa
+
+    fa.flash_forward.launches = fa.flash_dq.launches = fa.flash_dkv.launches = 0
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """Route the flash-attention Function, and so SASRec's attention on
+    cuda, through the kernels' plain versions: the comparison path of
+    ``train_seq`` and ``serve_seq``."""
+    from predictionio_tpu_torch.ops import flash_attention as fa
+
+    kernels = fa.flash_forward, fa.flash_dq, fa.flash_dkv
+    fa.flash_forward, fa.flash_dq, fa.flash_dkv = (
+        fa.flash_forward_plain, fa.flash_dq_plain, fa.flash_dkv_plain)
+    try:
+        yield
+    finally:
+        fa.flash_forward, fa.flash_dq, fa.flash_dkv = kernels
+
+
+def sequence_engine(repo: str) -> tuple[str, dict]:
+    """(path, engine.json object) of the sequence template."""
+    path = os.path.join(repo, "examples", "sequence", "engine.json")
+    with open(path) as f:
+        return path, json.load(f)
+
+
+def phase_seq_data(ratings, repo: str) -> dict:
+    """The 20M ratings as view events, grouped per user in time order by
+    the DataSource's ``group_sequences``; each user's last item held out,
+    the rest packed by SequencePreparator."""
+    from predictionio_tpu_torch.controller.base import TrainContext
+    from predictionio_tpu_torch.models.sequence import SequencePreparator, SequencesData
+    from predictionio_tpu_torch.models.sequence.engine import group_sequences
+
+    users, items, _, times = ratings
+    _, variant = sequence_engine(repo)
+    t0 = time.perf_counter()
+    sequences, user_ids = group_sequences(
+        users, items, times, [f"u{u}" for u in range(TRAIN_USERS)],
+        variant["datasource"]["params"].get("minSeqLen", 2))
+    group_s = time.perf_counter() - t0
+    held = np.fromiter((s[-1] for s in sequences), np.int64, len(sequences))
+    data = SequencesData([s[:-1] for s in sequences], user_ids,
+                         [f"i{i}" for i in range(TRAIN_ITEMS)])
+    data.sanity_check()
+    t0 = time.perf_counter()
+    prepared = SequencePreparator(variant["preparator"]["params"]).prepare(
+        TrainContext(device="cuda"), data)
+    pack_s = time.perf_counter() - t0
+    lengths = np.fromiter((len(s) for s in data.sequences), np.int64, len(data.sequences))
+    result = {"users": len(user_ids), "events": int(users.size),
+              "matrix": list(prepared.matrix.shape), "group_s": group_s, "pack_s": pack_s,
+              "history_len_min": int(lengths.min()), "history_len_median": float(np.median(lengths)),
+              "padded_fraction": float((prepared.matrix == 0).mean())}
+    emit({"phase": "seq_data", **result})
+    return {"result": result, "prepared": prepared, "held_out": held, "variant": variant}
+
+
+def flash_inputs(gen, b: int, h: int, t: int, d: int, mask):
+    import torch
+
+    q, k, v, do = (torch.randn((b, t, h, d), device="cuda", generator=gen) for _ in range(4))
+    return q, k, v, mask.cuda() if mask is not None else None, do
+
+
+def compare_flash(q, k, v, mask, do, causal: bool, dead_rows=()) -> dict:
+    """B4, B5, B6 against their plain versions on the same inputs (the
+    backward kernels from the plain forward's lse and delta); raises
+    beyond FLASH_TOL x max(1, max|plain|) per output, on a NaN, or on a
+    row with no valid key that is not exactly 0. Returns the max abs
+    error per kernel."""
+    import torch
+
+    from predictionio_tpu_torch.ops import flash_attention as fa
+
+    out, lse = fa.flash_forward(q, k, v, mask, causal)
+    p_out, p_lse = fa.flash_forward_plain(q, k, v, mask, causal)
+    delta = torch.einsum("bthd,bthd->bht", do, p_out)
+    dq = fa.flash_dq(q, k, v, mask, do, p_lse, delta, causal)
+    dk, dv = fa.flash_dkv(q, k, v, mask, do, p_lse, delta, causal)
+    torch.cuda.synchronize()
+    p_dq = fa.flash_dq_plain(q, k, v, mask, do, p_lse, delta, causal)
+    p_dk, p_dv = fa.flash_dkv_plain(q, k, v, mask, do, p_lse, delta, causal)
+    errs = {}
+    for name, got, want in (("flash_forward", out, p_out), ("lse", lse, p_lse),
+                            ("flash_dq", dq, p_dq), ("flash_dk", dk, p_dk), ("flash_dv", dv, p_dv)):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: a non-finite value from the kernel")
+        live = want[want > -1e29]
+        scale = max(1.0, float(live.abs().max())) if live.numel() else 1.0
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        if err > FLASH_TOL * scale:
+            raise AssertionError(f"{name} differs from the plain version by {err} "
+                                 f"> {FLASH_TOL} x {scale}")
+        errs[name] = err
+    for b, rows in dead_rows:
+        if out[b, :rows].any() or dq[b, :rows].any() or bool((lse[b, :, :rows] > -1e29).any()):
+            raise AssertionError(f"batch row {b}: a query with no valid key is not 0")
+    return {"flash_forward": max(errs["flash_forward"], errs["lse"]), "flash_dq": errs["flash_dq"],
+            "flash_dkv": max(errs["flash_dk"], errs["flash_dv"])}
+
+
+def phase_check_flash(seed: int, seq: dict) -> dict:
+    """B4-B6 against their plain versions on the card: the training shape
+    with the packed rows' own masks, with random right padding (serving's
+    prefixes) and with left padding; then every listed T x D, causal and
+    not, with a fully-masked batch row and left-padded rows."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    b, h, t, d = SEQ_TRAIN_SHAPE
+    rows = torch.from_numpy(seq["prepared"].matrix[:b] > 0)
+    lengths = rng.integers(1, t + 1, b)
+    masks = {
+        "packed_rows": (rows, ()),
+        "right_padded": (torch.from_numpy(np.arange(t)[None] < lengths[:, None]), ()),
+        "left_padded": (torch.from_numpy(np.arange(t)[None] >= (t - lengths)[:, None]),
+                        [(i, int(t - n)) for i, n in enumerate(lengths[:8])]),
+    }
+    worst: dict = {}
+    cases = 0
+    for name, (mask, dead) in masks.items():
+        for causal in (True, False):
+            errs = compare_flash(*flash_inputs(gen, b, h, t, d, mask), causal,
+                                 dead if causal else ())
+            cases += 1
+            emit({"phase": "check_flash", "case": name, "shape": [b, t, h, d],
+                  "causal": causal, "max_abs_err": errs})
+            for k, e in errs.items():
+                worst[k] = max(worst.get(k, 0.0), e)
+    for t in FLASH_CHECK_T:
+        for d in FLASH_CHECK_D:
+            pads = (0, t // 3, t)  # batch row 2: every key masked
+            mask = torch.from_numpy(np.arange(t)[None] >= np.asarray(pads)[:, None])
+            for causal in (True, False):
+                dead = [(1, t // 3), (2, t)] if causal else [(2, t)]
+                errs = compare_flash(*flash_inputs(gen, 3, 2, t, d, mask), causal, dead)
+                cases += 1
+                for k, e in errs.items():
+                    worst[k] = max(worst.get(k, 0.0), e)
+            emit({"phase": "check_flash", "case": "sizes", "shape": [3, t, 2, d],
+                  "max_abs_err_so_far": dict(worst)})
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "cases": cases}
+
+
+def causal_pairs(mask) -> int:
+    """(query, key) pairs a causal pass over ``mask`` [B, T] needs per
+    head: valid keys at or before each query."""
+    t = mask.shape[1]
+    return int((mask.astype(np.int64) * (t - np.arange(t))[None]).sum())
+
+
+def flash_bound(kernel: str, b: int, h: int, t: int, d: int, pairs: int):
+    """(bound ms, what bounds it, bytes, operations) of one call: inputs
+    read once, outputs written once (f32 tensors of B T H D, [B, T] mask
+    bytes, [B, H, T] lse/delta); operations on the causal valid pairs
+    only: per pair 2D for q.k and 2D for each further product (B4: P V;
+    B5: dO.v, dS k; B6: P dO, dO.v, dS q)."""
+    n, rows = b * t * h * d * 4, b * h * t * 4
+    nbytes, per_pair = {
+        "flash_forward": (3 * n + b * t + n + rows, 4 * d),
+        "flash_dq": (4 * n + b * t + 2 * rows + n, 6 * d),
+        "flash_dkv": (4 * n + b * t + 2 * rows + 2 * n, 8 * d),
+    }[kernel]
+    ops = float(per_pair * pairs * h)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def sdpa_backend(q, k, v, attn_mask) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these
+    inputs, as PyTorch reports it."""
+    import torch
+
+    try:
+        from torch.nn.attention import SDPBackend
+
+        choice = torch._fused_sdp_choice(q, k, v, attn_mask, 0.0, False)
+        return SDPBackend(choice).name
+    except (AttributeError, RuntimeError, ValueError) as exc:
+        return f"unknown ({type(exc).__name__})"
+
+
+def phase_time_flash(seed: int, seq: dict) -> dict:
+    """B4, B5, B6, their plain versions and SDPA (forward; backward for
+    B5 + B6) at the training shape, with the packed rows' masks, and at
+    the long shape, all keys valid; beside each kernel's bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from predictionio_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = []
+    for name, (b, h, t, d) in (("train", SEQ_TRAIN_SHAPE), ("long", SEQ_LONG_SHAPE)):
+        if name == "train":
+            mask = torch.from_numpy(seq["prepared"].matrix[:b] > 0)
+        else:
+            mask = torch.ones((b, t), dtype=torch.bool)
+        pairs = causal_pairs(mask.numpy())
+        q, k, v, mask, do = flash_inputs(gen, b, h, t, d, mask)
+        out, lse = fa.flash_forward(q, k, v, mask)
+        delta = torch.einsum("bthd,bthd->bht", do, out)
+        calls = {
+            "flash_forward": (lambda: fa.flash_forward(q, k, v, mask),
+                              lambda: fa.flash_forward_plain(q, k, v, mask)),
+            "flash_dq": (lambda: fa.flash_dq(q, k, v, mask, do, lse, delta),
+                         lambda: fa.flash_dq_plain(q, k, v, mask, do, lse, delta)),
+            "flash_dkv": (lambda: fa.flash_dkv(q, k, v, mask, do, lse, delta),
+                          lambda: fa.flash_dkv_plain(q, k, v, mask, do, lse, delta)),
+        }
+        # the library yardstick: SDPA in its own [B, H, T, D] layout with
+        # the same boolean mask (causal and key validity in one)
+        bh = [x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v)]
+        causal = torch.ones((t, t), dtype=torch.bool, device="cuda").tril()
+        attn_mask = (causal[None, None] & mask[:, None, None, :]).contiguous()
+        backend = sdpa_backend(*bh, attn_mask)
+        sdpa_out = F.scaled_dot_product_attention(*bh, attn_mask=attn_mask)
+        g = do.transpose(1, 2).contiguous()
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(*bh, attn_mask=attn_mask)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(sdpa_out, bh, g, retain_graph=True)
+
+        # "ms" is device time (profiler); "call_ms" the CUDA-event time of
+        # one call, which also holds the host's launch overhead
+        library = {"fwd": timed_pair(sdpa_fwd), "bwd": timed_pair(sdpa_bwd)}
+        sdpa_err = float((sdpa_out.detach().transpose(1, 2) - out).abs().max())
+        row = {"shape": name, "batch": b, "heads": h, "t": t, "d": d, "causal_pairs": pairs * h,
+               "sdpa_backend": backend, "sdpa_fwd_ms": library["fwd"][0],
+               "sdpa_fwd_call_ms": library["fwd"][1], "sdpa_bwd_ms": library["bwd"][0],
+               "sdpa_bwd_call_ms": library["bwd"][1], "sdpa_max_abs_diff": sdpa_err,
+               "kernels": {}}
+        for kernel, (fn, plain) in calls.items():
+            (ms, call_ms), (plain_ms, plain_call_ms) = timed_pair(fn), timed_pair(plain)
+            bound_ms, bound_by, nbytes, ops = flash_bound(kernel, b, h, t, d, pairs)
+            lib_ms, lib_call_ms = library["fwd" if kernel == "flash_forward" else "bwd"]
+            row["kernels"][kernel] = {
+                "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                "plain_call_ms": plain_call_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes": nbytes, "operations": ops, "fraction_of_bound": bound_ms / ms,
+                "library_ms": lib_ms, "library_call_ms": lib_call_ms,
+            }
+        emit({"phase": "time_flash", **row})
+        shapes.append(row)
+        del q, k, v, do, bh, sdpa_out, out, lse, delta
+        torch.cuda.empty_cache()
+    return {"shapes": shapes}
+
+
+def hit_at_10(model, held_out: np.ndarray) -> float:
+    """Share of users whose held-out last item is in the top 10 of the
+    next-item scores after their trained-in history (no exclusions)."""
+    import torch
+
+    from predictionio_tpu_torch.models.sequence.model import next_item_scores, pack_prefixes
+
+    net = model.network("cuda")
+    users = list(model.histories)
+    index = {u: j for j, u in enumerate(model.histories)}
+    hits = 0
+    for start in range(0, len(users), SEQ_HIT_BATCH):
+        part = users[start : start + SEQ_HIT_BATCH]
+        seqs, last = pack_prefixes([model.histories[u] for u in part], model.config.max_len)
+        scores = next_item_scores(net, torch.from_numpy(seqs).cuda(), torch.from_numpy(last).cuda())
+        top = scores[:, 1:].topk(10, dim=1).indices.cpu().numpy()
+        want = held_out[[index[u] for u in part]]
+        hits += int((top == want[:, None]).any(axis=1).sum())
+    return hits / len(users)
+
+
+def phase_train_seq(seq: dict) -> dict:
+    """The sequence template's training path at full width: the packed
+    20M-event sequences through SASRecAlgorithm.train on cuda, B4-B6
+    counted; then the quality and kernel-against-plain checks."""
+    import torch
+
+    from predictionio_tpu_torch.controller.base import TrainContext
+    from predictionio_tpu_torch.models.sequence import SASRecAlgorithm
+    from predictionio_tpu_torch.models.sequence.model import train_sasrec
+
+    variant, prepared = seq["variant"], seq["prepared"]
+    algorithm = SASRecAlgorithm(variant["algorithms"][0]["params"], device="cuda")
+    log = EpochLog()
+    ctx = TrainContext(device="cuda", telemetry=log,
+                       mesh_shape=variant["sparkConf"]["pio.mesh_shape"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_counts()                       # counts start at 0 here
+    t0 = time.perf_counter()
+    model = algorithm.train(ctx, prepared)
+    train_s = time.perf_counter() - t0
+    launches = flash_counts()                 # read here
+    peak_bytes = torch.cuda.max_memory_allocated()
+    config = model.config
+
+    steps = len(log.losses)
+    expected = config.epochs * -(-prepared.matrix.shape[0] // config.batch_size)
+    if steps != expected:
+        raise AssertionError(f"{steps} training steps, expected {expected}")
+    for name, n in launches.items():
+        if n != config.num_blocks * steps:
+            raise AssertionError(f"{n} {name} launches for {steps} steps of "
+                                 f"{config.num_blocks} blocks")
+    for name, value in model.state.items():
+        if not bool(torch.isfinite(value).all()):
+            raise AssertionError(f"non-finite {name} after training")
+    losses = np.asarray(log.losses)
+    if not np.isfinite(losses).all():
+        raise AssertionError("a NaN or infinite training loss")
+    first, last = float(losses[:100].mean()), float(losses[-100:].mean())
+    if not last < first:
+        raise AssertionError(f"the training loss does not fall: {first} -> {last}")
+    t0 = time.perf_counter()
+    hit = hit_at_10(model, seq["held_out"])
+    hit_s = time.perf_counter() - t0
+    uniform = 10 / config.num_items
+    if not hit > uniform:
+        raise AssertionError(f"hit@10 {hit} is not above uniform {uniform}")
+    # the same first steps through the kernels and through their plain
+    # versions on the card: a 20-batch slice of the packed rows, one epoch
+    part = prepared.matrix[: SEQ_PLAIN_STEPS * config.batch_size]
+    few = dataclasses.replace(config, epochs=1)
+    before = flash_counts()
+    kernel_losses = []
+    # the kernel run is traced: where a step's device time goes, and the
+    # card's busy share of the run's wall time
+    trace, trace_wall_s = device_trace(
+        lambda: kernel_losses.extend(train_sasrec(few, part, "cuda", log_every=1)[1]), 1)
+    if flash_counts()["flash_dkv"] - before["flash_dkv"] != config.num_blocks * SEQ_PLAIN_STEPS:
+        raise AssertionError("the kernel run of the comparison did not launch B6 every step")
+    step_device_ms = sum(trace.values()) / SEQ_PLAIN_STEPS
+    top = sorted(trace.items(), key=lambda kv: -kv[1])[:8]
+    before = flash_counts()
+    with plain_flash():
+        _, plain_losses = train_sasrec(few, part, "cuda", log_every=1)
+    if flash_counts() != before:
+        raise AssertionError("the plain run of the comparison launched a kernel")
+    plain_diff = float(np.abs(np.asarray(kernel_losses) - np.asarray(plain_losses)).max())
+    if len(kernel_losses) != SEQ_PLAIN_STEPS or plain_diff > 1e-4:
+        raise AssertionError(f"{len(kernel_losses)} steps through the kernels differ from "
+                             f"the plain versions by {plain_diff} > 1e-4")
+    epoch_s = sum(log.seconds)
+    result = {
+        "users": len(model.histories), "items": config.num_items,
+        "sequences": list(prepared.matrix.shape), "embed": config.embed_dim,
+        "heads": config.num_heads, "blocks": config.num_blocks, "ffn": config.ffn_dim,
+        "batch_size": config.batch_size, "epochs": config.epochs, "steps": steps,
+        "launches": launches, "epoch_s": log.seconds, "steps_per_s": steps / epoch_s,
+        "train_s": train_s, "train_s_outside_epochs": train_s - epoch_s,
+        "peak_device_bytes": peak_bytes,
+        "loss_first_100": first, "loss_last_100": last, "loss_last": float(losses[-1]),
+        "hit_at_10": hit, "hit_at_10_uniform": uniform, "hit_at_10_s": hit_s,
+        "kernel_vs_plain_steps": SEQ_PLAIN_STEPS, "kernel_vs_plain_max_loss_diff": plain_diff,
+        "traced_steps": SEQ_PLAIN_STEPS, "traced_wall_s": trace_wall_s,
+        "traced_device_ms_per_step": step_device_ms,
+        "traced_device_busy_share": step_device_ms * SEQ_PLAIN_STEPS / 1e3 / trace_wall_s,
+        "traced_top_kernels_ms_per_step": {k: v / SEQ_PLAIN_STEPS for k, v in top},
+    }
+    emit({"phase": "train_seq", **result})
+    return {"result": result, "model": model}
+
+
+def check_seq_list(served: dict, plain: np.ndarray, tol: float) -> None:
+    """A served ``itemScores`` list against the plain path's scores
+    (excluded items at -inf): each score within ``tol`` of the plain one,
+    and the items the plain top-k up to items within 2 ``tol`` of the
+    k-th score."""
+    got = [(int(s["item"][1:]), s["score"]) for s in served["itemScores"]]
+    k = len(got)
+    if k == 0:
+        raise AssertionError("a known prefix was served no items")
+    for j, score in got:
+        if not abs(score - plain[j]) <= tol:
+            raise AssertionError(f"item i{j}: served {score}, plain {plain[j]}")
+    order = np.argsort(-plain, kind="stable")
+    kth = plain[order[k - 1]]
+    for j in set(order[:k].tolist()) ^ {j for j, _ in got}:
+        if not abs(plain[j] - kth) <= 2 * tol:
+            raise AssertionError(f"item i{j} is in one top-{k} only, {plain[j]} vs {kth}")
+
+
+def phase_serve_seq(rng: np.random.Generator, trained: dict, repo: str, workdir: str) -> dict:
+    """The trained SASRec saved, deployed through the ``deploy`` code path
+    on cuda and queried over HTTP; B4 launches counted from 0 before the
+    queries; every list held to the plain path on the card, and the
+    256-user ``batch_predict`` to predict."""
+    from predictionio_tpu_torch.models.sequence import save_model
+    from predictionio_tpu_torch.models.sequence.model import score_next_items
+    from predictionio_tpu_torch.tools.cli import build_query_server
+
+    model = trained["model"]
+    model_dir = os.path.join(workdir, "seq_model")
+    t0 = time.perf_counter()
+    save_model(model, model_dir)
+    save_s = time.perf_counter() - t0
+    engine_json, _ = sequence_engine(repo)
+    picked = rng.choice(TRAIN_USERS, size=256 + 8, replace=False)
+    users = [f"u{u}" for u in picked[:8]]
+    session = lambda n: [f"i{i}" for i in rng.choice(TRAIN_ITEMS, size=n, replace=False)]
+    queries = (
+        [{"user": u, "num": 10} for u in users[:4]]
+        + [{"user": users[4], "num": 10, "blackList": ["i0", "i1", "i2", "i3"]},
+           {"user": users[5], "num": 20, "unseenOnly": False},
+           {"items": session(1), "num": 10},
+           {"items": session(3), "num": 10, "unseenOnly": False},
+           {"items": session(10), "num": 10, "blackList": ["i0"]},
+           {"items": session(5) + ["no-such-item"], "num": 15},
+           {"user": "cold-user", "num": 10},
+           {"items": ["no-such-item"], "num": 10}]
+    )
+    batch = [(qid, {"user": f"u{u}", "num": 10}) for qid, u in enumerate(picked[8:])]
+
+    t0 = time.perf_counter()
+    server, service = build_query_server(engine_json, model_dir, port=0, device="cuda")
+    deploy_s = time.perf_counter() - t0
+    algo, deployed = service.algorithms[0], service.models[0]
+    forwards = sum(1 for q in queries if algo._resolve_prefix(deployed, q) is not None
+                   and len(algo._resolve_prefix(deployed, q))) + 1   # + the one batch slice
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=120)
+    try:
+        zero_flash_counts()                   # counts start at 0 here
+        served, latencies = [], []
+        for q in queries:
+            body, ms = post(conn, q)
+            served.append(body)
+            latencies.append(ms)
+        t0 = time.perf_counter()
+        batched = dict(algo.batch_predict(deployed, batch))
+        batch_s = time.perf_counter() - t0
+        launches = flash_counts()["flash_forward"]   # read here
+        http_query_ms = host_ms(lambda: post(conn, queries[0]))
+    finally:
+        conn.close()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("query server thread did not stop")
+    blocks = deployed.config.num_blocks
+    if launches != blocks * forwards:
+        raise AssertionError(f"{launches} B4 launches for {forwards} forwards of {blocks} blocks")
+    if served[-2] != {"itemScores": []} or served[-1] != {"itemScores": []}:
+        raise AssertionError("the cold user / unknown items must answer empty lists")
+
+    net = deployed.network("cuda")
+
+    def plain_for(query) -> np.ndarray:
+        prefix = algo._resolve_prefix(deployed, query)
+        with plain_flash():
+            scores = score_next_items(net, prefix).astype(np.float64)
+        exclude = {int(i) - 1 for i in prefix} if query.get("unseenOnly", True) else set()
+        exclude |= {deployed.item_index[b] for b in query.get("blackList") or []}
+        scores[list(exclude)] = -np.inf
+        return scores
+
+    def tol_for(plain):
+        return SEQ_SCORE_TOL * max(1.0, float(np.abs(plain[np.isfinite(plain)]).max()))
+
+    for q, body in zip(queries[:-2], served[:-2]):
+        plain = plain_for(q)
+        check_seq_list(body, plain, tol_for(plain))
+    batch_diff = 0.0
+    for qid, q in batch:
+        plain = plain_for(q)
+        tol = tol_for(plain)
+        check_seq_list(batched[qid], plain, tol)
+        single = algo.predict(deployed, q)
+        check_seq_list(single, plain, tol)
+        by_item = {s["item"]: s["score"] for s in single["itemScores"]}
+        for s in batched[qid]["itemScores"]:
+            if s["item"] in by_item:
+                diff = abs(s["score"] - by_item[s["item"]])
+                if not diff <= tol:
+                    raise AssertionError(f"{s['item']}: batch {s['score']}, predict "
+                                         f"{by_item[s['item']]}")
+                batch_diff = max(batch_diff, diff)
+    prefix = algo._resolve_prefix(deployed, queries[0])
+    result = {
+        "users": len(deployed.histories), "items": len(deployed.item_ids),
+        "queries": len(queries), "forwards": forwards,
+        "launches": {"flash_forward": launches}, "save_s": save_s, "deploy_s": deploy_s,
+        "query_ms_p50": statistics.median(latencies), "query_ms_max": max(latencies),
+        "http_query_ms_p50": http_query_ms,
+        "predict_ms_p50": host_ms(lambda: algo.predict(deployed, queries[0])),
+        "forward_ms_p50": host_ms(lambda: score_next_items(net, prefix)),
+        "batch_predict_users": len(batch), "batch_predict_s": batch_s,
+        "batch_vs_predict_max_abs_diff": batch_diff,
+    }
+    emit({"phase": "serve_seq", **result})
+    return result
+
+
+def phase_train_verb_seq(rng: np.random.Generator, repo: str, workdir: str) -> dict:
+    """The ``train`` verb with the sequence template's engine.json on a
+    small events file, and ``deploy`` of the model it wrote."""
+    from predictionio_tpu_torch.tools import cli
+
+    engine_json, _ = sequence_engine(repo)
+    events = os.path.join(workdir, "seq_events.jsonl")
+    n_events, user = small_events(rng, events)
+    model_dir = os.path.join(workdir, "seq_small")
+    before = flash_counts()
+    t0 = time.perf_counter()
+    if cli.main(["train", "--engine-json", engine_json, "--events", events,
+                 "--model-out", model_dir, "--device", "cuda"]) != 0:
+        raise AssertionError("the train verb failed")
+    verb_s = time.perf_counter() - t0
+    trained = {k: n - before[k] for k, n in flash_counts().items()}
+    if min(trained.values()) < 1:
+        raise AssertionError(f"the train verb did not launch every flash kernel: {trained}")
+    before = flash_counts()["flash_forward"]
+    served, small, _ = serve_model(engine_json, model_dir, [{"user": user, "num": 5}])
+    launches = flash_counts()["flash_forward"] - before
+    if len(served[0]["itemScores"]) != 5 or user not in small.histories or launches < 4:
+        raise AssertionError(f"the trained small SASRec model answered {served[0]} "
+                             f"with {launches} B4 launches (warm-up and query)")
+    result = {"events": n_events, "users": len(small.histories), "train_verb_s": verb_s,
+              "train_launches": trained, "serve_b4_launches": launches,
+              "epochs": small.config.epochs}
+    emit({"phase": "train_verb_seq", **result})
+    return result
+
+
+def flash_rows(check: dict, timed: dict, train_launches: dict, serve_launches: int) -> list:
+    """The ``{"kernels": [...]}`` rows of B4, B5 and B6: times at the
+    training shape, the long shape beside them; launches on the training
+    path (B4 also on the serving path)."""
+    main_shape, long_shape = timed["shapes"]
+    rows = []
+    for name, line, what in (
+        ("flash_forward", 58, "forward"),
+        ("flash_dq", 106, "backward (dq, dk and dv: B5 and B6 together)"),
+        ("flash_dkv", 148, "backward (dq, dk and dv: B5 and B6 together)"),
+    ):
+        k = main_shape["kernels"][name]
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "predictionio_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"predictionio_tpu/ops/flash_attention.py:{line}",
+            "launches": train_launches[name],
+            "max_abs_err": check["max_abs_err"][name],
+            "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"],
+            "timing": "ms, plain_ms, library_ms: device time from a torch.profiler trace "
+                      "(CUDA events where it shows none); call_ms: CUDA events around one "
+                      "call, the host's launch included",
+            "call_ms": k["call_ms"], "plain_call_ms": k["plain_call_ms"],
+            "library_call_ms": k["library_call_ms"],
+            "library_note": f"scaled_dot_product_attention {what}, the same boolean "
+                            f"mask, {main_shape['sdpa_backend']} backend",
+            "shape": {x: main_shape[x] for x in ("batch", "heads", "t", "d")},
+            "other_shapes": [{"t": long_shape["t"], "batch": long_shape["batch"],
+                              **{x: long_shape["kernels"][name][x] for x in
+                                 ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}}],
+        })
+    rows[0]["serve_launches"] = serve_launches
+    return rows
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1386,6 +2065,16 @@ def main(argv: list[str] | None = None) -> int:
     with tempfile.TemporaryDirectory() as workdir:
         ncf_serve = phase_serve_ncf(rng, ncf_trained, repo, workdir)
         phase_train_verb_ncf(rng, repo, workdir)
+    del ncf_trained
+
+    seq = phase_seq_data(ratings, repo)
+    del ratings
+    flash_check = phase_check_flash(args.seed, seq)
+    flash_time = phase_time_flash(args.seed, seq)
+    seq_trained = phase_train_seq(seq)
+    with tempfile.TemporaryDirectory() as workdir:
+        seq_serve = phase_serve_seq(rng, seq_trained, repo, workdir)
+        phase_train_verb_seq(rng, repo, workdir)
 
     main_shape = next(s for s in stage1["shapes"] if s["batch"] == 256)
     b1_main = next(s for s in b1_time["shapes"]
@@ -1447,7 +2136,8 @@ def main(argv: list[str] | None = None) -> int:
             {k: s[k] for k in ("items", "ms", "plain_ms", "bound_ms", "bound_by")}
             for s in b3_time["shapes"] if s is not b3_main
         ],
-    }]})
+    }] + flash_rows(flash_check, flash_time, seq_trained["result"]["launches"],
+                    seq_serve["launches"]["flash_forward"])})
     print(card, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu",

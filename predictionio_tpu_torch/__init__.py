@@ -11,10 +11,11 @@ Every TPU kernel on a ported path is a kernel written by hand for Hopper
 (``csrc/``, built at first use by ``_kernels``). Entry points run on the
 card unless the caller passes ``device="cpu"``; nothing falls back.
 
-What is ported so far is the recommendation template's serving half:
-``tools/cli.py deploy`` -> ``workflow/create_server`` ->
-``models/recommendation/engine`` -> ``models/_als_common`` ->
-``ops/mips`` (kernel ``csrc/mips_topk.cu``).
+What is ported so far: the ``train`` and ``deploy`` verbs
+(``tools/cli.py``) of three templates, the recommendation template (ALS,
+kernels ``csrc/als_gram.cu`` and ``csrc/mips_topk.cu``), Neural-CF
+(``csrc/ncf_score.cu``) and the sequence template (SASRec,
+``csrc/flash_attention.cu``).
 """
 
 __version__ = "0.1.0"

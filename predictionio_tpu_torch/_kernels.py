@@ -15,6 +15,7 @@ port on a host with no ``nvcc`` and no card.
     library("mips_topk") # the loaded ctypes.CDLL, built if needed
     library("als_gram")
     library("ncf_score")
+    library("flash_attention")
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ MAX_SMEM_BYTES = 232_448
 
 #: kernel name -> (source under csrc/, {C function: (restype, argtypes)})
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
+#: B, T, H, D, the batch and time strides, scale, causal, stream
+_FLASH_TAIL = [_INT] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_float, _INT, _VP]
 KERNELS = {
     "mips_topk": (
         "mips_topk.cu",
@@ -64,6 +67,14 @@ KERNELS = {
         {
             "ncf_score_launch": (_INT, [_VP] * 13 + [_INT] * 4 + [_VP]),
             "ncf_score_smem_bytes": (_INT, [_INT] * 3),
+        },
+    ),
+    "flash_attention": (
+        "flash_attention.cu",
+        {
+            "flash_fwd_launch": (_INT, [_VP] * 6 + _FLASH_TAIL),
+            "flash_dq_launch": (_INT, [_VP] * 8 + _FLASH_TAIL),
+            "flash_dkv_launch": (_INT, [_VP] * 9 + _FLASH_TAIL),
         },
     ),
 }

@@ -201,10 +201,12 @@ def build_seen(users: np.ndarray, items: np.ndarray) -> dict[int, set[int]]:
     }
 
 
-def score_buffer_rows(num_items: int, floor: int = 64) -> int:
+def score_buffer_rows(num_items: int, floor: int = 64, cap: int | None = None) -> int:
     """Rows per batch-predict slice so the host [rows, items] score buffer
-    stays ~200 MB f32 regardless of catalog size."""
-    return max(floor, 50_000_000 // max(num_items, 1))
+    stays ~200 MB f32 regardless of catalog size, at most ``cap`` rows
+    when given. One definition for every template's batch path."""
+    rows = max(floor, 50_000_000 // max(num_items, 1))
+    return min(rows, cap) if cap else rows
 
 
 def partition_user_queries(user_index: dict[str, int], queries):

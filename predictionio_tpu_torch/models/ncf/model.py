@@ -24,7 +24,6 @@ Port of ``predictionio_tpu/models/ncf/model.py``:
 
 from __future__ import annotations
 
-import math
 import time
 from dataclasses import dataclass
 from typing import Mapping
@@ -34,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from predictionio_tpu_torch.models._flax_init import embed_normal_, f32, lecun_normal_
 from predictionio_tpu_torch.utils.device import resolve_device
 
 
@@ -78,11 +78,10 @@ class NeuMF(nn.Module):
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         """flax's default initializers, drawn from ``generator``."""
         for table in (self.gmf_user, self.gmf_item, self.mlp_user, self.mlp_item):
-            nn.init.normal_(table.weight, 0.0, 1.0 / math.sqrt(self.config.embed_dim),
-                            generator=generator)
+            embed_normal_(table, generator)
         for i in range(self.depth):
-            _lecun_normal(getattr(self, f"mlp_{i}"), generator)
-        _lecun_normal(self.out, generator)
+            lecun_normal_(getattr(self, f"mlp_{i}"), generator)
+        lecun_normal_(self.out, generator)
 
     def forward(self, user_ids: torch.Tensor, item_ids: torch.Tensor) -> torch.Tensor:
         gmf = self.gmf_user(user_ids) * self.gmf_item(item_ids)
@@ -90,18 +89,6 @@ class NeuMF(nn.Module):
         for i in range(self.depth):
             h = F.relu(getattr(self, f"mlp_{i}")(h))
         return self.out(torch.cat([gmf, h], dim=-1))[..., 0]
-
-
-#: std of a standard normal truncated to [-2, 2] (flax's lecun_normal
-#: divides by it so the truncated draw has the intended std)
-_TRUNC_STD = 0.87962566103423978
-
-
-def _lecun_normal(layer: nn.Linear, generator) -> None:
-    std = 1.0 / math.sqrt(layer.in_features) / _TRUNC_STD
-    nn.init.trunc_normal_(layer.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                          generator=generator)
-    nn.init.zeros_(layer.bias)
 
 
 def init_model(config: NCFConfig) -> NeuMF:
@@ -125,15 +112,11 @@ def params_from_flax(tree: Mapping[str, Mapping[str, object]]) -> dict[str, torc
     state = {}
     for name, leaves in tree.items():
         if "embedding" in leaves:
-            state[f"{name}.weight"] = _f32(leaves["embedding"])
+            state[f"{name}.weight"] = f32(leaves["embedding"])
         else:
-            state[f"{name}.weight"] = _f32(leaves["kernel"]).T.contiguous()
-            state[f"{name}.bias"] = _f32(leaves["bias"])
+            state[f"{name}.weight"] = f32(leaves["kernel"]).T.contiguous()
+            state[f"{name}.bias"] = f32(leaves["bias"])
     return state
-
-
-def _f32(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
 def config_from_state(state: Mapping[str, torch.Tensor], **fields) -> NCFConfig:

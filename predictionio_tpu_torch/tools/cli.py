@@ -15,7 +15,9 @@ path) or, without one, by its first algorithm's name:
 - the recommendation template (``als``): ALS training, serving by scan
   or ``"retrieval": {"mode": "mips"}``;
 - the Neural-CF template (``ncf``): NeuMF training, serving through the
-  fused scorer kernel.
+  fused scorer kernel;
+- the sequence template (``sasrec``): SASRec training and serving through
+  the flash-attention kernels.
 
 The datasource, preparator and first algorithm's ``params`` configure
 training, and the algorithm's ``params`` configure serving. A
@@ -27,8 +29,8 @@ shape; the port's stand-in for the event store), runs DataSource ->
 Preparator -> ``Algorithm.train`` and writes the model directory with
 the template's ``save_model``. Checkpoints go to ``MODEL_DIR/checkpoints``
 while it runs (ALS: every ``checkpointInterval`` iterations; NCF: every
-epoch); ``--resume`` continues from them after a crash, and a completed
-train removes them.
+epoch; SASRec keeps none); ``--resume`` continues from them after a
+crash, and a completed train removes them.
 
 ``deploy`` serves a model directory: it warms the template's device
 state up before it answers. Both verbs run on the card unless
@@ -45,9 +47,14 @@ import sys
 from dataclasses import dataclass
 from typing import Callable
 
-from predictionio_tpu_torch.controller.base import Algorithm, Preparator, TrainContext
+from predictionio_tpu_torch.controller.base import (
+    Algorithm,
+    DataSource,
+    Preparator,
+    TrainContext,
+)
 from predictionio_tpu_torch.controller.serving import FirstServing
-from predictionio_tpu_torch.models import ncf, recommendation
+from predictionio_tpu_torch.models import ncf, recommendation, sequence
 from predictionio_tpu_torch.models.recommendation import RecommendationDataSource
 from predictionio_tpu_torch.workflow.create_server import (
     QueryService,
@@ -64,15 +71,21 @@ class Template:
     preparator_class: type[Preparator]
     save_model: Callable
     load_model: Callable
+    datasource_class: type[DataSource]  # built with ``events_path=``
 
 
 TEMPLATES = {
     "recommendation": Template(
         "als", recommendation.ALSAlgorithm, recommendation.RecommendationPreparator,
-        recommendation.save_model, recommendation.load_model,
+        recommendation.save_model, recommendation.load_model, RecommendationDataSource,
     ),
     "ncf": Template(
         "ncf", ncf.NCFAlgorithm, ncf.NCFPreparator, ncf.save_model, ncf.load_model,
+        RecommendationDataSource,
+    ),
+    "sequence": Template(
+        "sasrec", sequence.SASRecAlgorithm, sequence.SequencePreparator,
+        sequence.save_model, sequence.load_model, sequence.SequenceDataSource,
     ),
 }
 
@@ -124,7 +137,7 @@ def build_trainer(engine_json: str, events_path: str, *, device: str | None = No
     and without ``device="cpu"`` this raises."""
     variant, template = load_variant(engine_json)
     algorithm = _algorithm(variant, template, device)
-    datasource = RecommendationDataSource(
+    datasource = template.datasource_class(
         (variant.get("datasource") or {}).get("params"), events_path=events_path
     )
     preparator = template.preparator_class(
@@ -186,8 +199,8 @@ def main(argv: list[str] | None = None) -> int:
     if args.verb == "train":
         model = train(args.engine_json, args.events, args.model_out,
                       resume=args.resume, device=args.device)
-        print(f"trained {len(model.user_index)} users x {len(model.item_ids)} "
-              f"items into {args.model_out} ({args.device})", flush=True)
+        print(f"trained a model of {len(model.item_ids)} items into "
+              f"{args.model_out} ({args.device})", flush=True)
         return 0
     server, _ = build_query_server(
         args.engine_json, args.model, ip=args.ip, port=args.port, device=args.device

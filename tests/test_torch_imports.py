@@ -53,9 +53,13 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert out.returncode == 0, out.stderr
     count, *walked = out.stdout.split()
     # every module of the slices was walked, not just the package root
-    assert int(count) >= 36
+    assert int(count) >= 43
     for module in ("__init__", "model", "kernel", "engine", "convert"):
         assert f"predictionio_tpu_torch.models.ncf.{module}".removesuffix(".__init__") in walked
+    for module in ("models.sequence", "models.sequence.model", "models.sequence.engine",
+                   "models.sequence.convert", "ops.flash_attention",
+                   "parallel.ring_attention", "models._flax_init"):
+        assert f"predictionio_tpu_torch.{module}" in walked
 
 
 def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
@@ -145,3 +149,30 @@ def test_ncf_scorer_device_tensor_never_takes_the_plain_path(monkeypatch):
             )
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         _kernels.check(700, "ncf_score launch")
+
+
+def test_flash_attention_device_tensor_never_takes_the_plain_path(monkeypatch):
+    """The sequence template's kernels: a non-CPU tensor launches B4, B5
+    or B6 or raises, through the wrappers and the autograd Function, and
+    a head dim the kernels are not built for raises before any launch."""
+    from predictionio_tpu_torch.ops import flash_attention as fa
+
+    for name in ("flash_forward_plain", "flash_dq_plain", "flash_dkv_plain"):
+        monkeypatch.setattr(
+            fa, name, lambda *a, **k: pytest.fail("plain version taken for a device tensor"))
+    meta = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
+    q, k, v, do = (meta(2, 64, 2, 16) for _ in range(4))
+    mask = meta(2, 64, dtype=torch.bool)
+    lse, delta = meta(2, 2, 64), meta(2, 2, 64)
+    with pytest.raises(ValueError, match="no flash-attention kernel"):
+        fa.flash_forward(q, k, v, mask)
+    with pytest.raises(ValueError, match="no flash-attention kernel"):
+        fa.flash_dq(q, k, v, mask, do, lse, delta)
+    with pytest.raises(ValueError, match="no flash-attention kernel"):
+        fa.flash_dkv(q, k, v, mask, do, lse, delta)
+    with pytest.raises(ValueError, match="no flash-attention kernel"):
+        fa.flash_attention(q, k, v, mask)
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda")))
+    odd = meta(2, 64, 2, 12)
+    with pytest.raises(ValueError, match="head dim 12"):
+        fa.flash_forward(odd, odd, odd)

@@ -359,9 +359,9 @@ def test_template_dispatch(tmp_path):
         path = os.path.join(repo, "examples", example, "engine.json")
         assert cli.load_variant(path)[1].algorithm == name
     for bad, match in (
-        ({"engineFactory": "predictionio_tpu.models.sequence.engine_factory",
-          "algorithms": [{"name": "sasrec"}]}, "not a ported template"),
-        ({"algorithms": [{"name": "sasrec"}]}, "not a ported template"),
+        ({"engineFactory": "predictionio_tpu.models.ecommerce.engine_factory",
+          "algorithms": [{"name": "ecomm"}]}, "not a ported template"),
+        ({"algorithms": [{"name": "ecomm"}]}, "not a ported template"),
         ({"engineFactory": "predictionio_tpu.models.ncf.engine_factory",
           "algorithms": [{"name": "als"}]}, "algorithm is 'ncf'"),
     ):
