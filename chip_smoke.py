@@ -89,33 +89,43 @@ script exits non-zero and prints no result):
    second i) grouped per user in time order (``group_sequences``, the
    DataSource's grouping), each user's last item held out, the rest
    packed by SequencePreparator to [138,000, 64].
-17. check_flash -- kernels B4, B5, B6 (``flash_attention.cu``) against
-   their plain versions on the card: the training shape (B=256, H=2,
-   T=64, D=16) with the packed rows' masks, with random right padding
-   and with left padding; and T in {1, 65, 200, 1024} x D in {8, 16, 32,
-   64}, causal and not, each with a fully-masked batch row and
-   left-padded rows. Tolerance, elementwise: 2e-5 times max(1, max|plain|)
-   of each output (f32 sums of at most T + D terms in other orders; the
-   reference's own forward bar is 2e-5 on unit inputs). Rows with no
-   valid key: out, dq, dk, dv exactly 0, lse <= -1e29, no NaN anywhere.
-18. time_flash -- B4, B5, B6 and their plain versions at the training
-   shape and at B=16, H=2, T=1024, D=16, beside the bound (the larger of
-   bytes / 3.35 TB/s and the causal pairs' f32 operations / 67 TFLOP/s)
-   and beside ``scaled_dot_product_attention`` with the same boolean mask
-   (forward for B4; its backward for B5 + B6), with the SDPA backend
+17. check_flash -- kernels B4, B5, B6 (``flash_attention.cu``) and the
+   fused backward (``flash_backward.cu``) against their plain versions
+   on the card: the training shape (B=256, H=2, T=64, D=16) with the
+   packed rows' masks, with random right padding and with left padding;
+   and T in {1, 65, 200, 1024} x D in {8, 16, 32, 64}, causal and not,
+   each with a fully-masked batch row and left-padded rows (T above 64
+   takes the fused kernel's atomic dq path). Tolerance, elementwise:
+   2e-5 times max(1, max|plain|) of each output (f32 sums of at most
+   T + D terms in other orders; the fused kernel's products are 3xTF32;
+   the reference's own forward bar is 2e-5 on unit inputs). Rows with no
+   valid key: out, dq, dk, dv exactly 0, lse <= -1e29; masked keys: dk,
+   dv exactly 0; no NaN anywhere.
+18. time_flash -- B4, B5, B6, the fused backward and their plain
+   versions at the training shape and at B=16, H=2, T=1024, D=16,
+   beside the bound (the larger of bytes / 3.35 TB/s and the causal
+   pairs' f32 operations / 67 TFLOP/s, or / 165 TFLOP/s, 3xTF32 on the
+   tensor cores, for the fused backward's products) and beside
+   ``scaled_dot_product_attention`` with the same boolean mask (forward
+   for B4; its backward for the backward kernels), with the SDPA backend
    PyTorch chose. Times are device times from a ``torch.profiler``
    trace (the sum of the call's kernels), with the CUDA-event time of
    one call beside: at these sizes the host's launch overhead, which
-   events count, is larger than the kernels.
+   events count, is larger than the kernels. Then three backwards in
+   turns on the card (fused, the two-kernel backward with its delta
+   einsum, SDPA's backward, the two-kernel one, fused), while a thread
+   samples ``nvidia-smi`` (SM clock, power draw and limit).
 19. train_seq -- ``examples/sequence/engine.json`` unchanged (E=32, 2
    heads, 2 blocks, ffn 64, maxLen 64, batch 256, lr 1e-3, 10 epochs)
-   through SASRecAlgorithm.train on cuda. B4/B5/B6 counts are zeroed
-   just before and read just after: each must be 2 x steps. Checks: no
+   through SASRecAlgorithm.train on cuda. Flash counts are zeroed just
+   before and read just after: B4 and the fused backward must each be
+   2 x steps, B5 and B6 0. Checks: no
    NaN, the mean loss of the last 100 steps below the first 100's,
    hit@10 of the held-out last items above the uniform 10/27,000, and 20
    steps through the kernels equal the same 20 steps through the plain
    versions on the card (losses within 1e-4); the kernel run of those 20
-   steps is traced: device ms a step, the card's busy share, top kernels.
+   steps is traced: device ms a step, the card's busy share, top kernels
+   and the flash kernels' own ms a step.
 20. serve_seq -- that model saved, deployed through the ``deploy`` code
    path on cuda and queried over HTTP (users, sessions of 1-10 items,
    blackList, unseenOnly=false, a cold user) and by a 256-user
@@ -149,6 +159,10 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, data sheet
 F32_OPS_PER_S = 67e12           # H100 SXM, f32 outside the tensor cores
+TF32_MMA_OPS_PER_S = 495e12     # H100 SXM, TF32 on the tensor cores, dense
+#: f32 products as 3xTF32 (three TF32 mma each) reach a third of that: the
+#: roof of a kernel that does its f32 products on the tensor cores
+F32_3XTF32_OPS_PER_S = TF32_MMA_OPS_PER_S / 3
 TOL = 1e-5
 
 NUM_USERS, NUM_ITEMS, RANK = 138_000, 1_000_000, 16
@@ -197,6 +211,50 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+class SmiSampler:
+    """Samples the card's SM clock, power draw and power limit with
+    ``nvidia-smi`` every ``period`` seconds, from a thread, while the
+    ``with`` block runs; ``summary()`` gives their range."""
+
+    FIELDS = ("clocks.sm", "power.draw", "power.limit")
+
+    def __init__(self, period: float = 0.1):
+        self.period, self.samples = period, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        while True:
+            out = subprocess.run(
+                ["nvidia-smi", f"--query-gpu={','.join(self.FIELDS)}",
+                 "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, timeout=60,
+            )
+            fields = out.stdout.strip().splitlines()[0].split(",") if out.returncode == 0 else []
+            try:
+                self.samples.append([float(x) for x in fields])
+            except ValueError:  # "[N/A]"
+                pass
+            if self._stop.wait(self.period):
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=120)
+
+    def summary(self) -> dict:
+        if not self.samples:
+            return {"samples": 0}
+        sm, draw, limit = zip(*self.samples)
+        return {"samples": len(self.samples), "sm_mhz_min": min(sm), "sm_mhz_max": max(sm),
+                "sm_mhz_median": statistics.median(sm), "power_w_max": max(draw),
+                "power_w_median": statistics.median(draw), "power_limit_w": max(limit)}
 
 
 def cuda_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
@@ -1435,17 +1493,20 @@ def phase_train_verb_ncf(rng: np.random.Generator, repo: str, workdir: str) -> d
 # --------------------------------------------------------------------------
 
 
+FLASH_KERNELS = ("flash_forward", "flash_backward", "flash_dq", "flash_dkv")
+
+
 def flash_counts() -> dict:
     from predictionio_tpu_torch.ops import flash_attention as fa
 
-    return {"flash_forward": fa.flash_forward.launches, "flash_dq": fa.flash_dq.launches,
-            "flash_dkv": fa.flash_dkv.launches}
+    return {name: getattr(fa, name).launches for name in FLASH_KERNELS}
 
 
 def zero_flash_counts() -> None:
     from predictionio_tpu_torch.ops import flash_attention as fa
 
-    fa.flash_forward.launches = fa.flash_dq.launches = fa.flash_dkv.launches = 0
+    for name in FLASH_KERNELS:
+        getattr(fa, name).launches = 0
 
 
 @contextlib.contextmanager
@@ -1455,13 +1516,14 @@ def plain_flash():
     ``train_seq`` and ``serve_seq``."""
     from predictionio_tpu_torch.ops import flash_attention as fa
 
-    kernels = fa.flash_forward, fa.flash_dq, fa.flash_dkv
-    fa.flash_forward, fa.flash_dq, fa.flash_dkv = (
-        fa.flash_forward_plain, fa.flash_dq_plain, fa.flash_dkv_plain)
+    kernels = {name: getattr(fa, name) for name in FLASH_KERNELS}
+    for name in FLASH_KERNELS:
+        setattr(fa, name, getattr(fa, f"{name}_plain"))
     try:
         yield
     finally:
-        fa.flash_forward, fa.flash_dq, fa.flash_dkv = kernels
+        for name, fn in kernels.items():
+            setattr(fa, name, fn)
 
 
 def sequence_engine(repo: str) -> tuple[str, dict]:
@@ -1511,11 +1573,11 @@ def flash_inputs(gen, b: int, h: int, t: int, d: int, mask):
 
 
 def compare_flash(q, k, v, mask, do, causal: bool, dead_rows=()) -> dict:
-    """B4, B5, B6 against their plain versions on the same inputs (the
-    backward kernels from the plain forward's lse and delta); raises
-    beyond FLASH_TOL x max(1, max|plain|) per output, on a NaN, or on a
-    row with no valid key that is not exactly 0. Returns the max abs
-    error per kernel."""
+    """B4, B5, B6 and the fused backward against their plain versions on
+    the same inputs (the backward kernels from the plain forward's out,
+    lse and delta); raises beyond FLASH_TOL x max(1, max|plain|) per
+    output, on a NaN, on a row with no valid key or a masked key whose
+    gradient is not exactly 0. Returns the max abs error per kernel."""
     import torch
 
     from predictionio_tpu_torch.ops import flash_attention as fa
@@ -1525,12 +1587,15 @@ def compare_flash(q, k, v, mask, do, causal: bool, dead_rows=()) -> dict:
     delta = torch.einsum("bthd,bthd->bht", do, p_out)
     dq = fa.flash_dq(q, k, v, mask, do, p_lse, delta, causal)
     dk, dv = fa.flash_dkv(q, k, v, mask, do, p_lse, delta, causal)
+    fused = fa.flash_backward(q, k, v, mask, do, p_out, p_lse, causal)
     torch.cuda.synchronize()
     p_dq = fa.flash_dq_plain(q, k, v, mask, do, p_lse, delta, causal)
     p_dk, p_dv = fa.flash_dkv_plain(q, k, v, mask, do, p_lse, delta, causal)
+    p_fused = fa.flash_backward_plain(q, k, v, mask, do, p_out, p_lse, causal)
     errs = {}
     for name, got, want in (("flash_forward", out, p_out), ("lse", lse, p_lse),
-                            ("flash_dq", dq, p_dq), ("flash_dk", dk, p_dk), ("flash_dv", dv, p_dv)):
+                            ("flash_dq", dq, p_dq), ("flash_dk", dk, p_dk), ("flash_dv", dv, p_dv),
+                            *zip(("fused_dq", "fused_dk", "fused_dv"), fused, p_fused)):
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"{name}: a non-finite value from the kernel")
         live = want[want > -1e29]
@@ -1541,10 +1606,17 @@ def compare_flash(q, k, v, mask, do, causal: bool, dead_rows=()) -> dict:
                                  f"> {FLASH_TOL} x {scale}")
         errs[name] = err
     for b, rows in dead_rows:
-        if out[b, :rows].any() or dq[b, :rows].any() or bool((lse[b, :, :rows] > -1e29).any()):
+        if (out[b, :rows].any() or dq[b, :rows].any() or fused[0][b, :rows].any()
+                or bool((lse[b, :, :rows] > -1e29).any())):
             raise AssertionError(f"batch row {b}: a query with no valid key is not 0")
+    if mask is not None:
+        for name, grad in (("flash_dk", dk), ("flash_dv", dv), ("fused_dk", fused[1]),
+                           ("fused_dv", fused[2])):
+            if grad[~mask].any():
+                raise AssertionError(f"{name}: a masked key's gradient is not 0")
     return {"flash_forward": max(errs["flash_forward"], errs["lse"]), "flash_dq": errs["flash_dq"],
-            "flash_dkv": max(errs["flash_dk"], errs["flash_dv"])}
+            "flash_dkv": max(errs["flash_dk"], errs["flash_dv"]),
+            "flash_backward": max(errs["fused_dq"], errs["fused_dk"], errs["fused_dv"])}
 
 
 def phase_check_flash(seed: int, seq: dict) -> dict:
@@ -1604,15 +1676,22 @@ def flash_bound(kernel: str, b: int, h: int, t: int, d: int, pairs: int):
     read once, outputs written once (f32 tensors of B T H D, [B, T] mask
     bytes, [B, H, T] lse/delta); operations on the causal valid pairs
     only: per pair 2D for q.k and 2D for each further product (B4: P V;
-    B5: dO.v, dS k; B6: P dO, dO.v, dS q)."""
+    B5: dO.v, dS k; B6: P dO, dO.v, dS q; the fused backward: dO.v,
+    P dO, dS q, dS k), plus 2D a row for the fused backward's delta.
+    The pairs' products count at the rate of the units that run them:
+    the f32 units for B4-B6, 3xTF32 on the tensor cores for the fused
+    backward; its delta rows at the f32 units' rate."""
     n, rows = b * t * h * d * 4, b * h * t * 4
-    nbytes, per_pair = {
-        "flash_forward": (3 * n + b * t + n + rows, 4 * d),
-        "flash_dq": (4 * n + b * t + 2 * rows + n, 6 * d),
-        "flash_dkv": (4 * n + b * t + 2 * rows + 2 * n, 8 * d),
+    nbytes, per_pair, pair_rate, per_row = {
+        "flash_forward": (3 * n + b * t + n + rows, 4 * d, F32_OPS_PER_S, 0),
+        "flash_dq": (4 * n + b * t + 2 * rows + n, 6 * d, F32_OPS_PER_S, 0),
+        "flash_dkv": (4 * n + b * t + 2 * rows + 2 * n, 8 * d, F32_OPS_PER_S, 0),
+        "flash_backward": (5 * n + b * t + rows + 3 * n, 10 * d, F32_3XTF32_OPS_PER_S, 2 * d),
     }[kernel]
-    ops = float(per_pair * pairs * h)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    pair_ops, row_ops = float(per_pair * pairs * h), float(per_row * b * h * t)
+    ops = pair_ops + row_ops
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = pair_ops / pair_rate + row_ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
@@ -1631,9 +1710,11 @@ def sdpa_backend(q, k, v, attn_mask) -> str:
 
 
 def phase_time_flash(seed: int, seq: dict) -> dict:
-    """B4, B5, B6, their plain versions and SDPA (forward; backward for
-    B5 + B6) at the training shape, with the packed rows' masks, and at
-    the long shape, all keys valid; beside each kernel's bound."""
+    """B4, B5, B6, the fused backward, their plain versions and SDPA
+    (forward; backward for the backward kernels) at the training shape,
+    with the packed rows' masks, and at the long shape, all keys valid;
+    beside each kernel's bound. Then the three backwards in turns, the
+    card's clocks sampled beside."""
     import torch
     import torch.nn.functional as F
 
@@ -1650,9 +1731,18 @@ def phase_time_flash(seed: int, seq: dict) -> dict:
         q, k, v, mask, do = flash_inputs(gen, b, h, t, d, mask)
         out, lse = fa.flash_forward(q, k, v, mask)
         delta = torch.einsum("bthd,bthd->bht", do, out)
+
+        def two_kernel_backward():
+            # the autograd Function's backward before the fused kernel
+            delta = torch.einsum("bthd,bthd->bht", do, out)
+            return (fa.flash_dq(q, k, v, mask, do, lse, delta),
+                    fa.flash_dkv(q, k, v, mask, do, lse, delta))
+
         calls = {
             "flash_forward": (lambda: fa.flash_forward(q, k, v, mask),
                               lambda: fa.flash_forward_plain(q, k, v, mask)),
+            "flash_backward": (lambda: fa.flash_backward(q, k, v, mask, do, out, lse),
+                               lambda: fa.flash_backward_plain(q, k, v, mask, do, out, lse)),
             "flash_dq": (lambda: fa.flash_dq(q, k, v, mask, do, lse, delta),
                          lambda: fa.flash_dq_plain(q, k, v, mask, do, lse, delta)),
             "flash_dkv": (lambda: fa.flash_dkv(q, k, v, mask, do, lse, delta),
@@ -1693,6 +1783,17 @@ def phase_time_flash(seed: int, seq: dict) -> dict:
                 "bytes": nbytes, "operations": ops, "fraction_of_bound": bound_ms / ms,
                 "library_ms": lib_ms, "library_call_ms": lib_call_ms,
             }
+        # the three backwards in turns on one card, (device ms, event ms),
+        # the card's clocks sampled beside them only
+        with SmiSampler() as smi:
+            turns = [(what, *timed_pair(fn)) for what, fn in (
+                ("fused", calls["flash_backward"][0]), ("two_kernel", two_kernel_backward),
+                ("sdpa", sdpa_bwd), ("two_kernel", two_kernel_backward),
+                ("fused", calls["flash_backward"][0]))]
+        row["backward_turns"] = [{"what": w, "ms": ms, "call_ms": c} for w, ms, c in turns]
+        for what in ("fused", "two_kernel", "sdpa"):
+            row[f"backward_{what}_ms"] = statistics.mean(ms for w, ms, _ in turns if w == what)
+        row["smi"] = smi.summary()
         emit({"phase": "time_flash", **row})
         shapes.append(row)
         del q, k, v, do, bh, sdpa_out, out, lse, delta
@@ -1723,8 +1824,9 @@ def hit_at_10(model, held_out: np.ndarray) -> float:
 
 def phase_train_seq(seq: dict) -> dict:
     """The sequence template's training path at full width: the packed
-    20M-event sequences through SASRecAlgorithm.train on cuda, B4-B6
-    counted; then the quality and kernel-against-plain checks."""
+    20M-event sequences through SASRecAlgorithm.train on cuda, B4 and the
+    fused backward counted (B5 and B6 must not launch); then the quality
+    and kernel-against-plain checks."""
     import torch
 
     from predictionio_tpu_torch.controller.base import TrainContext
@@ -1751,9 +1853,10 @@ def phase_train_seq(seq: dict) -> dict:
     if steps != expected:
         raise AssertionError(f"{steps} training steps, expected {expected}")
     for name, n in launches.items():
-        if n != config.num_blocks * steps:
+        want = config.num_blocks * steps if name in ("flash_forward", "flash_backward") else 0
+        if n != want:
             raise AssertionError(f"{n} {name} launches for {steps} steps of "
-                                 f"{config.num_blocks} blocks")
+                                 f"{config.num_blocks} blocks, expected {want}")
     for name, value in model.state.items():
         if not bool(torch.isfinite(value).all()):
             raise AssertionError(f"non-finite {name} after training")
@@ -1779,8 +1882,10 @@ def phase_train_seq(seq: dict) -> dict:
     # card's busy share of the run's wall time
     trace, trace_wall_s = device_trace(
         lambda: kernel_losses.extend(train_sasrec(few, part, "cuda", log_every=1)[1]), 1)
-    if flash_counts()["flash_dkv"] - before["flash_dkv"] != config.num_blocks * SEQ_PLAIN_STEPS:
-        raise AssertionError("the kernel run of the comparison did not launch B6 every step")
+    if (flash_counts()["flash_backward"] - before["flash_backward"]
+            != config.num_blocks * SEQ_PLAIN_STEPS):
+        raise AssertionError("the kernel run of the comparison did not launch the fused "
+                             "backward every step")
     step_device_ms = sum(trace.values()) / SEQ_PLAIN_STEPS
     top = sorted(trace.items(), key=lambda kv: -kv[1])[:8]
     before = flash_counts()
@@ -1808,6 +1913,8 @@ def phase_train_seq(seq: dict) -> dict:
         "traced_device_ms_per_step": step_device_ms,
         "traced_device_busy_share": step_device_ms * SEQ_PLAIN_STEPS / 1e3 / trace_wall_s,
         "traced_top_kernels_ms_per_step": {k: v / SEQ_PLAIN_STEPS for k, v in top},
+        "traced_flash_ms_per_step": {k: v / SEQ_PLAIN_STEPS for k, v in trace.items()
+                                     if "flash_" in k},
     }
     emit({"phase": "train_seq", **result})
     return {"result": result, "model": model}
@@ -1961,8 +2068,10 @@ def phase_train_verb_seq(rng: np.random.Generator, repo: str, workdir: str) -> d
         raise AssertionError("the train verb failed")
     verb_s = time.perf_counter() - t0
     trained = {k: n - before[k] for k, n in flash_counts().items()}
-    if min(trained.values()) < 1:
-        raise AssertionError(f"the train verb did not launch every flash kernel: {trained}")
+    if (min(trained["flash_forward"], trained["flash_backward"]) < 1
+            or trained["flash_dq"] or trained["flash_dkv"]):
+        raise AssertionError(f"the train verb's flash launches: {trained}; B4 and the fused "
+                             "backward must launch, B5 and B6 not")
     before = flash_counts()["flash_forward"]
     served, small, _ = serve_model(engine_json, model_dir, [{"user": user, "num": 5}])
     launches = flash_counts()["flash_forward"] - before
@@ -1977,21 +2086,23 @@ def phase_train_verb_seq(rng: np.random.Generator, repo: str, workdir: str) -> d
 
 
 def flash_rows(check: dict, timed: dict, train_launches: dict, serve_launches: int) -> list:
-    """The ``{"kernels": [...]}`` rows of B4, B5 and B6: times at the
-    training shape, the long shape beside them; launches on the training
-    path (B4 also on the serving path)."""
+    """The ``{"kernels": [...]}`` rows of B4, the fused backward, B5 and
+    B6: times at the training shape, the long shape beside them; launches
+    on the training path (B4 also on the serving path; B5 and B6 are off
+    it, timed beside the fused kernel that replaced them there)."""
     main_shape, long_shape = timed["shapes"]
     rows = []
-    for name, line, what in (
-        ("flash_forward", 58, "forward"),
-        ("flash_dq", 106, "backward (dq, dk and dv: B5 and B6 together)"),
-        ("flash_dkv", 148, "backward (dq, dk and dv: B5 and B6 together)"),
+    for name, source, line, what in (
+        ("flash_forward", "flash_attention", 58, "forward"),
+        ("flash_backward", "flash_backward", 106, "backward (dq, dk and dv)"),
+        ("flash_dq", "flash_attention", 106, "backward (dq, dk and dv: B5 and B6 together)"),
+        ("flash_dkv", "flash_attention", 148, "backward (dq, dk and dv: B5 and B6 together)"),
     ):
         k = main_shape["kernels"][name]
         rows.append({
             "name": name,
             "route": "cuda",
-            "source": "predictionio_tpu_torch/csrc/flash_attention.cu",
+            "source": f"predictionio_tpu_torch/csrc/{source}.cu",
             "replaces": f"predictionio_tpu/ops/flash_attention.py:{line}",
             "launches": train_launches[name],
             "max_abs_err": check["max_abs_err"][name],
@@ -2012,6 +2123,12 @@ def flash_rows(check: dict, timed: dict, train_launches: dict, serve_launches: i
                                   "library_ms")}}],
         })
     rows[0]["serve_launches"] = serve_launches
+    rows[1]["also_replaces"] = "predictionio_tpu/ops/flash_attention.py:148"
+    rows[1]["backward_turns"] = {
+        s["shape"]: {x: s[f"backward_{x}_ms"] for x in ("fused", "two_kernel", "sdpa")}
+        for s in (main_shape, long_shape)}
+    for row in rows[2:]:
+        row["on_main_path"] = False
     return rows
 
 
@@ -2038,8 +2155,8 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.perf_counter()
     _kernels.build_all()
     ptxas = [
-        line.strip() for log in _kernels.build_logs.values()
-        for line in log.splitlines() if "registers" in line or "spill" in line
+        line.strip() for log in _kernels.build_logs.values() for line in log.splitlines()
+        if any(x in line for x in ("registers", "spill", "entry function"))
     ]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 

@@ -16,6 +16,7 @@ port on a host with no ``nvcc`` and no card.
     library("als_gram")
     library("ncf_score")
     library("flash_attention")
+    library("flash_backward")
 """
 
 from __future__ import annotations
@@ -76,6 +77,10 @@ KERNELS = {
             "flash_dq_launch": (_INT, [_VP] * 8 + _FLASH_TAIL),
             "flash_dkv_launch": (_INT, [_VP] * 9 + _FLASH_TAIL),
         },
+    ),
+    "flash_backward": (
+        "flash_backward.cu",
+        {"flash_bwd_launch": (_INT, [_VP] * 10 + _FLASH_TAIL)},
     ),
 }
 

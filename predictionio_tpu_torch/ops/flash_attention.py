@@ -9,14 +9,19 @@ reference's convention, ``:232-235``), where ``plain_attention`` would
 return the uniform average of the values. ``lse`` is ``[B, H, T]``: the
 reference's ``[B*H, 1, T_padded]`` without its Mosaic padding.
 
-Three kernels, each with its plain torch twin that computes exactly what
+Four kernels, each with its plain torch twin that computes exactly what
 the kernel computes (the recomputation form: P is rebuilt from the saved
 ``lse``, never stored):
 
 - ``flash_forward`` (kernel B4, ``csrc/flash_attention.cu``) and
   ``flash_forward_plain`` -> ``(out, lse)``;
-- ``flash_dq`` (B5) and ``flash_dq_plain`` -> ``dq``;
-- ``flash_dkv`` (B6) and ``flash_dkv_plain`` -> ``(dk, dv)``.
+- ``flash_backward`` (B5 + B6 fused, ``csrc/flash_backward.cu``) and
+  ``flash_backward_plain`` -> ``(dq, dk, dv)`` from ``dO``, ``out`` and
+  ``lse``, ``delta = rowsum(dO o O)`` included;
+- ``flash_dq`` (B5) and ``flash_dq_plain`` -> ``dq``, and ``flash_dkv``
+  (B6) and ``flash_dkv_plain`` -> ``(dk, dv)``, from a given ``delta``:
+  the two-kernel backward, off the autograd path, kept as the fused
+  kernel's yardstick on the card.
 
 A CUDA tensor launches the kernel (and counts it in the wrapper's
 ``launches``) or raises: the kernels take f32, head dims 8, 16, 32 and 64,
@@ -25,9 +30,9 @@ batch and time stride (the thirds of one ``[B, T, 3 H D]`` projection
 qualify). A CPU tensor takes the plain version.
 
 ``flash_attention`` is the ``torch.autograd.Function`` twin of the
-reference's ``custom_vjp`` (``:228``, ``:349``): B4 forward; backward
-computes ``delta = rowsum(dO o O)`` in torch, as the reference does
-outside Pallas (``:297``), then B5 and B6.
+reference's ``custom_vjp`` (``:228``, ``:349``): B4 forward, one fused
+backward launch (the reference computes delta outside Pallas, ``:297``,
+and runs two backward kernels).
 """
 
 from __future__ import annotations
@@ -39,6 +44,10 @@ NEG = -1e30
 
 #: head dims the kernels are compiled for (a template parameter)
 HEAD_DIMS = (8, 16, 32, 64)
+
+#: keys one block of the fused backward owns (``kTile`` in
+#: ``csrc/flash_backward.cu``); past one such tile blocks add into dq
+KEY_TILE = 64
 
 
 def _check(q, k, v, mask):
@@ -121,6 +130,14 @@ def flash_dkv_plain(q, k, v, mask, do, lse, delta, causal=True, sm_scale=None):
             torch.einsum("bhqk,bqhd->bkhd", p, do))
 
 
+def flash_backward_plain(q, k, v, mask, do, out, lse, causal=True, sm_scale=None):
+    """``(dq, dk, dv)`` in plain torch: ``delta = rowsum(dO o O)``, then
+    ``flash_dq_plain`` and ``flash_dkv_plain``."""
+    delta = torch.einsum("bthd,bthd->bht", do, out)
+    dq = flash_dq_plain(q, k, v, mask, do, lse, delta, causal, sm_scale)
+    return (dq, *flash_dkv_plain(q, k, v, mask, do, lse, delta, causal, sm_scale))
+
+
 def _launch_args(q, k, v):
     """What every kernel needs of the inputs on the card: ``(B, T, H, D,
     batch stride, time stride)``; raises on what the kernels do not
@@ -144,10 +161,10 @@ def _mask_ptr(mask):
     return None if mask is None else mask.data_ptr()
 
 
-def _call(fn: str, *args) -> None:
+def _call(fn: str, *args, source: str = "flash_attention") -> None:
     from predictionio_tpu_torch import _kernels
 
-    lib = _kernels.library("flash_attention")
+    lib = _kernels.library(source)
     stream = torch.cuda.current_stream().cuda_stream
     _kernels.check(getattr(lib, fn)(*args, stream), fn)
 
@@ -172,14 +189,20 @@ def flash_forward(q, k, v, mask=None, causal=True, sm_scale=None):
     return out, lse
 
 
-def _backward_operands(q, k, v, mask, do, lse, delta):
+def _backward_operands(q, full: dict, rows: dict) -> list:
+    """Contiguous copies of the backward's extra inputs, ``full`` ones
+    (dO, out) shaped like q and ``rows`` ones (lse, delta) ``[B, H, T]``,
+    all f32 on q's device; raises on anything else."""
     b, t, h, _ = q.shape
-    if do.shape != q.shape or do.dtype != torch.float32:
-        raise ValueError(f"dO must be f32 {tuple(q.shape)}, got {do.dtype} {tuple(do.shape)}")
-    for name, x in (("lse", lse), ("delta", delta)):
-        if tuple(x.shape) != (b, h, t) or x.dtype != torch.float32:
-            raise ValueError(f"{name} must be f32 [{b}, {h}, {t}], got {x.dtype} {tuple(x.shape)}")
-    return do.contiguous(), lse.contiguous(), delta.contiguous()
+    checked = []
+    for name, x in (*full.items(), *rows.items()):
+        shape = tuple(q.shape) if name in full else (b, h, t)
+        if tuple(x.shape) != shape or x.dtype != torch.float32:
+            raise ValueError(f"{name} must be f32 {list(shape)}, got {x.dtype} {tuple(x.shape)}")
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        checked.append(x.contiguous())
+    return checked
 
 
 def flash_dq(q, k, v, mask, do, lse, delta, causal=True, sm_scale=None):
@@ -187,7 +210,7 @@ def flash_dq(q, k, v, mask, do, lse, delta, causal=True, sm_scale=None):
     in ``flash_dq.launches``) or raise; CPU tensors take the plain
     version."""
     _check(q, k, v, mask)
-    do, lse, delta = _backward_operands(q, k, v, mask, do, lse, delta)
+    do, lse, delta = _backward_operands(q, {"dO": do}, {"lse": lse, "delta": delta})
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, mask, do, lse, delta, causal, sm_scale)
     b, t, h, d, sb, st = _launch_args(q, k, v)
@@ -208,7 +231,7 @@ def flash_dkv(q, k, v, mask, do, lse, delta, causal=True, sm_scale=None):
     (counted in ``flash_dkv.launches``) or raise; CPU tensors take the
     plain version."""
     _check(q, k, v, mask)
-    do, lse, delta = _backward_operands(q, k, v, mask, do, lse, delta)
+    do, lse, delta = _backward_operands(q, {"dO": do}, {"lse": lse, "delta": delta})
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, mask, do, lse, delta, causal, sm_scale)
     b, t, h, d, sb, st = _launch_args(q, k, v)
@@ -225,15 +248,42 @@ def flash_dkv(q, k, v, mask, do, lse, delta, causal=True, sm_scale=None):
     return dk, dv
 
 
+def flash_backward(q, k, v, mask, do, out, lse, causal=True, sm_scale=None):
+    """``flash_backward_plain``'s ``(dq, dk, dv)`` from the forward's
+    ``out`` and ``lse`` and the gradient ``do``. CUDA tensors launch the
+    fused kernel (counted in ``flash_backward.launches``) or raise; CPU
+    tensors take the plain version. Beyond one 64-key tile (T > 64) the
+    kernel adds dq up with atomics, so its last bits vary run to run."""
+    _check(q, k, v, mask)
+    do, out, lse = _backward_operands(q, {"dO": do, "out": out}, {"lse": lse})
+    if q.device.type == "cpu":
+        return flash_backward_plain(q, k, v, mask, do, out, lse, causal, sm_scale)
+    b, t, h, d, sb, st = _launch_args(q, k, v)
+    mask = None if mask is None else mask.contiguous()
+    zeros_or_empty = torch.zeros if t > KEY_TILE else torch.empty
+    dq = zeros_or_empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty_like(dq)
+    dv = torch.empty_like(dq)
+    if dq.numel():
+        with torch.cuda.device(q.device):
+            _call("flash_bwd_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  _mask_ptr(mask), do.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  b, t, h, d, sb, st, _scale(d, sm_scale), int(causal), source="flash_backward")
+        flash_backward.launches += 1
+    return dq, dk, dv
+
+
 #: kernel launches since the last reset (``chip_smoke.py`` reads them to
 #: show the training and serving paths went through the kernels)
 flash_forward.launches = 0
+flash_backward.launches = 0
 flash_dq.launches = 0
 flash_dkv.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """B4 forward; B5 and B6 backward over the saved ``(q, k, v, mask,
+    """B4 forward; the fused backward over the saved ``(q, k, v, mask,
     out, lse)``. The module's wrappers are looked up at call time."""
 
     @staticmethod
@@ -246,10 +296,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, mask, out, lse = ctx.saved_tensors
-        # delta[b, h, i] = rowsum(dO o O): the softmax Jacobian's correction
-        delta = torch.einsum("bthd,bthd->bht", g, out)
-        dq = flash_dq(q, k, v, mask, g, lse, delta, ctx.causal, ctx.sm_scale)
-        dk, dv = flash_dkv(q, k, v, mask, g, lse, delta, ctx.causal, ctx.sm_scale)
+        dq, dk, dv = flash_backward(q, k, v, mask, g, out, lse, ctx.causal, ctx.sm_scale)
         return dq, dk, dv, None, None, None
 
 
@@ -265,6 +312,8 @@ __all__ = [
     "HEAD_DIMS",
     "NEG",
     "flash_attention",
+    "flash_backward",
+    "flash_backward_plain",
     "flash_dkv",
     "flash_dkv_plain",
     "flash_dq",

@@ -129,10 +129,12 @@ def test_fully_masked_rows_get_zero_and_no_nan():
 
 
 def test_backward_runs_the_two_backward_wrappers(monkeypatch):
-    """The autograd Function calls B4 forward and B5, B6 backward through
-    the module's wrappers, with delta = rowsum(dO o O)."""
+    """The autograd Function calls B4 forward and the fused backward
+    (B5 + B6 in one launch) through the module's wrappers, and no other:
+    its gradients are ``flash_backward_plain``'s, delta = rowsum(dO o O)
+    included."""
     calls = []
-    for name in ("flash_forward", "flash_dq", "flash_dkv"):
+    for name in ("flash_forward", "flash_backward", "flash_dq", "flash_dkv"):
         real = getattr(fa, name)
         monkeypatch.setattr(fa, name, lambda *a, _r=real, _n=name, **k: calls.append(_n) or _r(*a, **k))
     q, k, v, mask = inputs(t=12, pads=(0, 2))
@@ -141,10 +143,68 @@ def test_backward_runs_the_two_backward_wrappers(monkeypatch):
     out = fa.flash_attention(*leaves, tm)
     g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
     out.backward(g)
-    assert calls == ["flash_forward", "flash_dq", "flash_dkv"]
+    assert calls == ["flash_forward", "flash_backward"]
     _, lse = fa.flash_forward_plain(tq, tk, tv, tm)
-    delta = torch.einsum("bthd,bthd->bht", g, out.detach())
-    torch.testing.assert_close(leaves[0].grad, fa.flash_dq_plain(tq, tk, tv, tm, g, lse, delta))
+    want = fa.flash_backward_plain(tq, tk, tv, tm, g, out.detach(), lse)
+    for leaf, grad in zip(leaves, want):
+        torch.testing.assert_close(leaf.grad, grad)
+
+
+def fused_grads(q, k, v, mask, w, causal):
+    """``flash_backward``'s ``(dq, dk, dv)`` on the CPU (its plain
+    version) for the cotangent ``w``, from ``flash_forward``'s out, lse."""
+    (tq, tk, tv), tm = torch_args(q, k, v, mask)
+    out, lse = fa.flash_forward(tq, tk, tv, tm, causal)
+    grads = fa.flash_backward(tq, tk, tv, tm, torch.from_numpy(w), out, lse, causal)
+    return [x.numpy() for x in grads]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_fused_backward_matches_the_reference(causal):
+    """The fused backward's CPU path against ``jax.grad`` through the
+    reference's Pallas kernels (interpret mode), the same cotangent."""
+    q, k, v, mask = inputs(b=2, t=40, pads=(0, 6), seed=4)
+    w = np.random.default_rng(5).normal(size=q.shape).astype(np.float32)
+    for got, want, name in zip(fused_grads(q, k, v, mask, w, causal),
+                               jax_grads(q, k, v, mask, w, causal), "qkv"):
+        np.testing.assert_allclose(got, want, atol=5e-5, err_msg=f"d{name}")
+
+
+def test_fused_backward_matches_the_reference_across_tiles():
+    q, k, v, _ = inputs(b=1, t=256, h=1, seed=6)
+    w = np.random.default_rng(7).normal(size=q.shape).astype(np.float32)
+    for got, want, name in zip(fused_grads(q, k, v, None, w, True),
+                               jax_grads(q, k, v, None, w, True), "qkv"):
+        np.testing.assert_allclose(got, want, atol=1e-4, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_fused_backward_gives_dead_rows_and_masked_keys_zero(causal):
+    """Batch row 1 masks every key; row 0 its first 5: those queries (with
+    causal masking) and those keys get exactly 0 gradient, no NaN."""
+    q, k, v, mask = inputs(b=2, t=20, pads=(5, 20), seed=8)
+    w = np.random.default_rng(9).normal(size=q.shape).astype(np.float32)
+    dq, dk, dv = fused_grads(q, k, v, mask, w, causal)
+    for g in (dq, dk, dv):
+        assert np.isfinite(g).all()
+        assert not g[1].any()
+    assert not dk[0, :5].any() and not dv[0, :5].any()
+    if causal:
+        assert not dq[0, :5].any()
+    assert dq[0, 5:].any() and dk[0, 5:].any() and dv[0, 5:].any()
+
+
+def test_fused_backward_checks_its_operands():
+    q, k, v, mask = inputs(t=10, pads=(0, 3))
+    (tq, tk, tv), tm = torch_args(q, k, v, mask)
+    out, lse = fa.flash_forward(tq, tk, tv, tm)
+    do = torch.ones_like(out)
+    fa.flash_backward(tq, tk, tv, tm, do, out, lse)
+    for bad in ({"do": do.double()}, {"do": do[:, :9]}, {"out": out.double()},
+                {"out": out[..., :4]}, {"lse": lse.double()}, {"lse": lse[:, :1]}):
+        args = {"do": do, "out": out, "lse": lse, **bad}
+        with pytest.raises(ValueError, match=r"(dO|out|lse) must be f32"):
+            fa.flash_backward(tq, tk, tv, tm, args["do"], args["out"], args["lse"])
 
 
 def test_checks_and_scale():
@@ -162,7 +222,8 @@ def test_checks_and_scale():
 
 
 # --------------------------------------------------------------------------
-# kernels B4-B6 against their plain versions (need a card)
+# kernels B4-B6 and the fused backward against their plain versions (need
+# a card)
 # --------------------------------------------------------------------------
 
 
@@ -196,3 +257,35 @@ def test_kernels_match_plain_on_card(t, d, causal):
         scale = ref[ref > -1e29].abs().max().clamp_min(1.0)
         assert float((got - ref).abs().max()) <= 1e-5 * float(scale)
     assert not out[2].any() and not dq[2].any() and not dk[2].any() and not dv[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d", [(64, 16), (1, 8), (65, 32), (200, 64), (1024, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fused_backward_matches_plain_on_card(t, d, causal):
+    """The fused backward against ``flash_backward_plain`` on the card,
+    with a fully-masked batch row and left padding; elementwise within
+    1e-5 of each output's scale (f32 sums in other orders; past one 64-key
+    tile dq is summed with atomics in an order that varies). Dead rows
+    and masked keys exactly 0; one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v, mask = inputs(b=3, t=t, h=2, d=d, pads=(0, t // 3, t))
+    do = np.random.default_rng(5).normal(size=q.shape).astype(np.float32)
+    (tq, tk, tv), tm = torch_args(q, k, v, mask)
+    args = [x.cuda() for x in (tq, tk, tv)] + [tm.cuda()]
+    gd = torch.from_numpy(do).cuda()
+    out, lse = fa.flash_forward_plain(*args, causal)
+    before = fa.flash_backward.launches
+    got = fa.flash_backward(*args, gd, out, lse, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_backward.launches == before + 1
+    for g, ref in zip(got, fa.flash_backward_plain(*args, gd, out, lse, causal)):
+        assert bool(torch.isfinite(g).all())
+        scale = ref.abs().max().clamp_min(1.0)
+        assert float((g - ref).abs().max()) <= 1e-5 * float(scale)
+    dq, dk, dv = got
+    assert not dq[2].any() and not dk[2].any() and not dv[2].any()
+    assert not dk[1, : t // 3].any() and not dv[1, : t // 3].any()
+    if causal:
+        assert not dq[1, : t // 3].any()

@@ -152,12 +152,14 @@ def test_ncf_scorer_device_tensor_never_takes_the_plain_path(monkeypatch):
 
 
 def test_flash_attention_device_tensor_never_takes_the_plain_path(monkeypatch):
-    """The sequence template's kernels: a non-CPU tensor launches B4, B5
-    or B6 or raises, through the wrappers and the autograd Function, and
-    a head dim the kernels are not built for raises before any launch."""
+    """The sequence template's kernels: a non-CPU tensor launches B4, the
+    fused backward, B5 or B6 or raises, through the wrappers and the
+    autograd Function, and a head dim the kernels are not built for
+    raises before any launch."""
     from predictionio_tpu_torch.ops import flash_attention as fa
 
-    for name in ("flash_forward_plain", "flash_dq_plain", "flash_dkv_plain"):
+    for name in ("flash_forward_plain", "flash_backward_plain", "flash_dq_plain",
+                 "flash_dkv_plain"):
         monkeypatch.setattr(
             fa, name, lambda *a, **k: pytest.fail("plain version taken for a device tensor"))
     meta = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
@@ -170,6 +172,8 @@ def test_flash_attention_device_tensor_never_takes_the_plain_path(monkeypatch):
         fa.flash_dq(q, k, v, mask, do, lse, delta)
     with pytest.raises(ValueError, match="no flash-attention kernel"):
         fa.flash_dkv(q, k, v, mask, do, lse, delta)
+    with pytest.raises(ValueError, match="no flash-attention kernel"):
+        fa.flash_backward(q, k, v, mask, do, q, lse)
     with pytest.raises(ValueError, match="no flash-attention kernel"):
         fa.flash_attention(q, k, v, mask)
     monkeypatch.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda")))
