@@ -45,10 +45,15 @@ script exits non-zero and prints no result):
    the two half-step blocks of that fit (138,000 x 200 and 27,000 x 256,
    trained factors), explicit/implicit x f32/bf16, plus small cases:
    ranks 8, 16, 32, 64, a ragged row count, all-padding rows (exactly
-   zero) and the last real row. Tolerance, elementwise: 2 (L + 2) 2^-24
-   times the same sums over absolute values (the worst case of two f32
-   recursive sums of L products in different orders); per Gram row the
-   same factor of its max|gram|.
+   zero) and the last real row; ranks 65, 128 and 200 (entries split
+   into groups of blocks) on 2,000 x 48 blocks in both modes and dtypes;
+   ranks 128 and 200 at 1, 2, 5 and 8 rows (all groups of a row run at
+   once), each launch repeated and equal bit for bit.
+   Tolerance, elementwise: 2 (L + 2) 2^-24 times the same sums over
+   absolute values (the worst case of two f32 recursive sums of L
+   products in different orders); per Gram row the same factor of its
+   max|gram|. Then a 2-iteration fit of phase 6's data at rank 128
+   through B1 equals the "xla" path within 1e-4.
 8. time_b1 -- B1, its plain version, the ridge + solve and the whole
    half-step at both block shapes in f32 and bf16, beside the bound (the
    reference's fused bytes model over 3.35 TB/s, or the f32 operations).
@@ -62,13 +67,16 @@ script exits non-zero and prints no result):
    on the card at the NCF template's widths (E=32, hidden 64, 32) over
    1,000,000 items for five users (the last one included), over 1, 1023,
    1025 and 27,000 items, and at widths 8/(16, 8), 5/(12, 7) and
-   64/(128, 64). Tolerance, elementwise: 2 (3E + H0 + H1 + 6) 2^-24
-   times S, the same head run on the absolute values of every input
+   64/(128, 64), and 64/(256, 128) and 128/(512, 256) over 27,000 items
+   and 40/(300, 130) and 100/(200, 70) over 3,001 and 2,047 (the wide
+   layout: weights streamed through shared-memory windows). Tolerance,
+   elementwise: 2 (3E + H0 + H1 + 6) 2^-24 times S, the same head run on
+   the absolute values of every input
    (the worst case of two f32 evaluations that sum each layer in
    different orders; ``b3_tolerance``).
 12. time_b3 -- B3 and its plain version at 1,000,000 and 27,000 items,
-   beside the bound (the larger of bytes / 3.35 TB/s and f32
-   operations / 67 TFLOP/s).
+   and the wide towers at 27,000 items, beside the bound (the larger of
+   bytes / 3.35 TB/s and f32 operations / 67 TFLOP/s).
 13. train_ncf -- the NCF training path: ``examples/ncf/engine.json``
    (E=32, hidden 64, 32, batch 4096, lr 0.01, implicit, 4 negatives) on
    phase 6's 20,000,000 ratings, through NCFPreparator ->
@@ -83,43 +91,49 @@ script exits non-zero and prints no result):
    answer agrees with the plain head on the card (scores within the B3
    tolerance; items the plain top-k up to near-ties), and each batch
    answer's scores agree with ``predict``'s (B3) within that tolerance.
+   serve_ncf_wide -- a random 64/(256, 128) model over 27,000 items
+   deployed with an engine.json of that width: 3 known-user queries, each
+   200 through B3 (3 launches) and held to the plain head as above.
 15. train_verb_ncf -- the ``train`` verb with the NCF engine.json on a
    3,000-event file, and ``deploy`` of what it wrote (B3 serves it).
 16. seq_data -- phase 6's 20M ratings as sequence events (event i at
    second i) grouped per user in time order (``group_sequences``, the
    DataSource's grouping), each user's last item held out, the rest
    packed by SequencePreparator to [138,000, 64].
-17. check_flash -- kernels B4, B5, B6 (``flash_attention.cu``) and the
-   fused backward (``flash_backward.cu``) against their plain versions
-   on the card: the training shape (B=256, H=2, T=64, D=16) with the
-   packed rows' masks, with random right padding and with left padding;
-   and T in {1, 65, 200, 1024} x D in {8, 16, 32, 64}, causal and not,
-   each with a fully-masked batch row and left-padded rows (T above 64
-   takes the fused kernel's atomic dq path). Tolerance, elementwise:
-   2e-5 times max(1, max|plain|) of each output (f32 sums of at most
-   T + D terms in other orders; the fused kernel's products are 3xTF32;
-   the reference's own forward bar is 2e-5 on unit inputs). Rows with no
-   valid key: out, dq, dk, dv exactly 0, lse <= -1e29; masked keys: dk,
-   dv exactly 0; no NaN anywhere.
-18. time_flash -- B4, B5, B6, the fused backward and their plain
-   versions at the training shape and at B=16, H=2, T=1024, D=16,
-   beside the bound (the larger of bytes / 3.35 TB/s and the causal
-   pairs' f32 operations / 67 TFLOP/s, or / 165 TFLOP/s, 3xTF32 on the
-   tensor cores, for the fused backward's products) and beside
-   ``scaled_dot_product_attention`` with the same boolean mask (forward
-   for B4; its backward for the backward kernels), with the SDPA backend
-   PyTorch chose. Times are device times from a ``torch.profiler``
-   trace (the sum of the call's kernels), with the CUDA-event time of
-   one call beside: at these sizes the host's launch overhead, which
-   events count, is larger than the kernels. Then three backwards in
-   turns on the card (fused, the two-kernel backward with its delta
-   einsum, SDPA's backward, the two-kernel one, fused), while a thread
-   samples ``nvidia-smi`` (SM clock, power draw and limit).
+17. check_flash -- kernel B4 (``flash_attention.cu``) and the fused
+   backward (``flash_backward.cu``) against their plain versions on the
+   card: the training shape (B=256, H=2, T=64, D=16) with the packed
+   rows' masks, with random right padding and with left padding; T in
+   {1, 65, 200, 1024} x D in {8, 16, 32, 64}, causal and not, each with a
+   fully-masked batch row and left-padded rows (T above 64 takes the
+   fused kernel's atomic dq path); and D in {24, 128} at T in {64, 1024}
+   (24 through the wrappers' zero-padding to 32, held to the plain
+   versions at D = 24). Tolerance, elementwise: 2e-5 times max(1,
+   max|plain|) of each output (f32 sums of at most T + D terms in other
+   orders; the kernels' products are 3xTF32; the reference's own forward
+   bar is 2e-5 on unit inputs). Rows with no valid key: out, dq, dk, dv
+   exactly 0, lse <= -1e29; masked keys: dk, dv exactly 0; no NaN
+   anywhere. Then 20 SASRec steps at embedDim 48 / 2 heads (D = 24)
+   through the kernels equal the same steps through the plain versions
+   (losses within 1e-4).
+18. time_flash -- B4, the fused backward and their plain versions at the
+   training shape and at B=16, H=2, T=1024, D=16, and again at the
+   training shape with D=24 (the wrappers' padding copies timed with the
+   call) and the long one with D=128, beside the bound (the
+   larger of bytes / 3.35 TB/s and the causal pairs' operations / 165
+   TFLOP/s, 3xTF32 on the tensor cores; the backward's delta rows at the
+   f32 units' 67 TFLOP/s) and beside ``scaled_dot_product_attention``
+   with the same boolean mask (its forward for B4, its backward for the
+   fused kernel), with the SDPA backend PyTorch chose. Times are device
+   times from a ``torch.profiler`` trace (the sum of the call's
+   kernels), with the CUDA-event time of one call beside: at these sizes
+   the host's launch overhead, which events count, is larger than the
+   kernels.
 19. train_seq -- ``examples/sequence/engine.json`` unchanged (E=32, 2
    heads, 2 blocks, ffn 64, maxLen 64, batch 256, lr 1e-3, 10 epochs)
    through SASRecAlgorithm.train on cuda. Flash counts are zeroed just
    before and read just after: B4 and the fused backward must each be
-   2 x steps, B5 and B6 0. Checks: no
+   2 x steps. Checks: no
    NaN, the mean loss of the last 100 steps below the first 100's,
    hit@10 of the held-out last items above the uniform 10/27,000, and 20
    steps through the kernels equal the same 20 steps through the plain
@@ -179,10 +193,21 @@ FOLDIN_USERS = 1_000
 SMALL_EVENTS = 3_000
 #: the reference's f32 solver-parity bar (tests/test_als_gram.py:198)
 FIT_ATOL = 1e-4
+#: ranks past the 5 x 1,024 entries one B1 block holds (its entries split
+#: into groups), checked on small blocks; the 2-iteration fit runs at the
+#: middle one on the full training data
+B1_WIDE_RANKS, B1_WIDE_ROWS, B1_FIT_RANK = (65, 128, 200), 2_000, 128
+#: few-row blocks at the grouped ranks, each launch repeated
+B1_FEW_ROWS, B1_FEW_REPEATS = (1, 2, 5, 8), 4
 
 #: the NCF template's widths (examples/ncf/engine.json); B3 is checked at
 #: the serving catalog of B2's check and on the training stand-in's
 NCF_E, NCF_HIDDEN = 32, (64, 32)
+#: wider towers whose weights no longer fit shared memory beside the item
+#: tile (B3 streams them through shared-memory windows); the first one is
+#: also served
+NCF_WIDE = ((64, (256, 128)), (128, (512, 256)))
+NCF_WIDE_USERS, NCF_WIDE_QUERIES = 2_000, 3
 NCF_SERVE_USERS, NCF_SERVE_ITEMS = NUM_USERS, NUM_ITEMS
 NCF_TRAIN_ITEMS = TRAIN_ITEMS
 NCF_SMALL_ITEMS = (1, 1023, 1025, 27_000)
@@ -193,8 +218,18 @@ NCF_HOLDOUT = 100_000
 #: training shape (batch 256, 2 heads of 16, maxLen 64) and a long one
 SEQ_TRAIN_SHAPE = (256, 2, 64, 16)      # B, H, T, D
 SEQ_LONG_SHAPE = (16, 2, 1024, 16)
+#: timed besides: the training shape at head dim 24 (zero-padded to 32 by
+#: the wrappers, the copies timed with the call) and the long one at 128
+SEQ_TRAIN24_SHAPE = (256, 2, 64, 24)
+SEQ_LONG128_SHAPE = (16, 2, 1024, 128)
 FLASH_CHECK_T = (1, 65, 200, 1024)
 FLASH_CHECK_D = (8, 16, 32, 64)
+#: head dims the kernels are not built for (zero-padded to 32) or the
+#: largest built one, at the training and the long T
+FLASH_PADDED_T = (64, 1024)
+FLASH_PADDED_D = (24, 128)
+#: the SASRec width whose head dim (48 / 2 = 24) goes through the padding
+SEQ_PADDED_EMBED, SEQ_PADDED_HEADS = 48, 2
 FLASH_TOL = 2e-5
 SEQ_PLAIN_STEPS = 20
 SEQ_SCORE_TOL = 1e-4
@@ -211,50 +246,6 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-class SmiSampler:
-    """Samples the card's SM clock, power draw and power limit with
-    ``nvidia-smi`` every ``period`` seconds, from a thread, while the
-    ``with`` block runs; ``summary()`` gives their range."""
-
-    FIELDS = ("clocks.sm", "power.draw", "power.limit")
-
-    def __init__(self, period: float = 0.1):
-        self.period, self.samples = period, []
-        self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True)
-
-    def _run(self) -> None:
-        while True:
-            out = subprocess.run(
-                ["nvidia-smi", f"--query-gpu={','.join(self.FIELDS)}",
-                 "--format=csv,noheader,nounits"],
-                capture_output=True, text=True, timeout=60,
-            )
-            fields = out.stdout.strip().splitlines()[0].split(",") if out.returncode == 0 else []
-            try:
-                self.samples.append([float(x) for x in fields])
-            except ValueError:  # "[N/A]"
-                pass
-            if self._stop.wait(self.period):
-                return
-
-    def __enter__(self):
-        self._thread.start()
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self._stop.set()
-        self._thread.join(timeout=120)
-
-    def summary(self) -> dict:
-        if not self.samples:
-            return {"samples": 0}
-        sm, draw, limit = zip(*self.samples)
-        return {"samples": len(self.samples), "sm_mhz_min": min(sm), "sm_mhz_max": max(sm),
-                "sm_mhz_median": statistics.median(sm), "power_w_max": max(draw),
-                "power_w_median": statistics.median(draw), "power_limit_w": max(limit)}
 
 
 def cuda_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
@@ -819,10 +810,14 @@ def slot_table(side, factors: np.ndarray) -> np.ndarray:
 def phase_check_b1(rng: np.random.Generator, trained: dict) -> dict:
     """Kernel B1 against its plain version on the card: the two half-step
     blocks of the full-width fit (real indices, trained factors) in both
-    modes and dtypes, plus small cases."""
+    modes and dtypes, small cases, ranks past one block's entries (also
+    at a few rows, repeated); then a 2-iteration fit at rank 128 through
+    B1 against the "xla" path."""
     import torch
 
+    from predictionio_tpu_torch.ops import als_gram
     from predictionio_tpu_torch.ops.als_gram import gram_rhs
+    from predictionio_tpu_torch.parallel.als import als_fit
 
     data, model = trained["als_data"], trained["model"]
     sides = {
@@ -864,7 +859,78 @@ def phase_check_b1(rng: np.random.Generator, trained: dict) -> dict:
                 emit({"phase": "check_b1", "case": f"small_k{k}", "shape": [r, l],
                       "dtype": str(dtype).split(".")[-1], "implicit": implicit,
                       "max_abs_err": err, "max_row_rel_err": row_rel})
-    return {"max_abs_err": max(worst.values())}
+    # ranks whose K (K + 1) entries split into groups of blocks, and whose
+    # chunk of gathered slots needs shared memory past the 48 KB default
+    for k in B1_WIDE_RANKS:
+        s, l, r = 3000, 48, B1_WIDE_ROWS
+        table = np.concatenate([rng.standard_normal((s, k)), np.zeros((1, k))]).astype(np.float32)
+        idx = rng.integers(0, s + 1, (r, l)).astype(np.int32)
+        idx[5, :] = s                    # an all-padding row
+        val = rng.integers(1, 6, (r, l)).astype(np.float32)
+        args = [torch.from_numpy(a).cuda() for a in (idx, val)]
+        case = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            t = torch.from_numpy(table).cuda().to(dtype)
+            for implicit in (False, True):
+                err, row_rel = compare_b1(*args, t, 2.5, implicit)
+                gram, rhs = gram_rhs(*args, t, 2.5, implicit=implicit)
+                if bool(gram[5].any()) or bool(rhs[5].any()):
+                    raise AssertionError("an all-padding row has a non-zero Gram/rhs")
+                case = max(case, err)
+                worst[f"k{k}"] = max(worst.get(f"k{k}", 0.0), err)
+        emit({"phase": "check_b1", "case": f"wide_k{k}", "shape": [r, l],
+              "dtypes": ["float32", "bfloat16"], "modes": ["explicit", "implicit"],
+              "max_abs_err": case})
+    # few rows at those ranks: every group's block of a row runs at once,
+    # so a block that stored into the next group's entries would race it.
+    # One thread sums each entry in slot order: repeats agree bit for bit.
+    for k in B1_WIDE_RANKS[1:]:
+        for r in B1_FEW_ROWS:
+            s, l = 500, 48
+            table = np.concatenate([rng.standard_normal((s, k)),
+                                    np.zeros((1, k))]).astype(np.float32)
+            idx = rng.integers(0, s + 1, (r, l)).astype(np.int32)
+            val = rng.integers(1, 6, (r, l)).astype(np.float32)
+            args = [torch.from_numpy(a).cuda() for a in (idx, val)]
+            t = torch.from_numpy(table).cuda()
+            case = 0.0
+            for implicit in (False, True):
+                first = gram_rhs(*args, t, 2.5, implicit=implicit)
+                for _ in range(B1_FEW_REPEATS):
+                    err, _ = compare_b1(*args, t, 2.5, implicit)
+                    again = gram_rhs(*args, t, 2.5, implicit=implicit)
+                    if not (torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])):
+                        raise AssertionError(f"B1 at rank {k}, {r} rows: repeated launches differ")
+                    case = max(case, err)
+            worst[f"k{k}"] = max(worst[f"k{k}"], case)
+            emit({"phase": "check_b1", "case": f"few_rows_k{k}", "shape": [r, l],
+                  "repeats": B1_FEW_REPEATS, "max_abs_err": case})
+    # the template's fit at rank 128 through B1 and through the unfused
+    # "xla" path, 2 iterations, on the full training data
+    data = trained["als_data"]
+    fit = dataclasses.replace(trained["config"], factor_sharding="replicated",
+                              rank=B1_FIT_RANK, iterations=2)
+    before = als_gram.gram_rhs.launches
+    t0 = time.perf_counter()
+    fused = als_fit(data, fit, "cuda")
+    fused_s = time.perf_counter() - t0
+    launches = als_gram.gram_rhs.launches - before
+    t0 = time.perf_counter()
+    xla = als_fit(data, dataclasses.replace(fit, solver="xla"), "cuda")
+    xla_s = time.perf_counter() - t0
+    fit_diff = max(float(np.abs(fused.user_factors - xla.user_factors).max()),
+                   float(np.abs(fused.item_factors - xla.item_factors).max()))
+    if launches != 2 * fit.iterations or not np.isfinite(fused.user_factors).all():
+        raise AssertionError(f"rank-{B1_FIT_RANK} fit: {launches} B1 launches or non-finite factors")
+    if fit_diff > FIT_ATOL:
+        raise AssertionError(f"rank-{B1_FIT_RANK} fit through B1 differs from the xla path "
+                             f"by {fit_diff} > {FIT_ATOL}")
+    emit({"phase": "check_b1", "case": f"fit_rank{B1_FIT_RANK}", "iterations": fit.iterations,
+          "b1_launches": launches, "fused_s": fused_s, "xla_s": xla_s,
+          "xla_max_abs_diff": fit_diff})
+    del fused, xla
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(worst.values()), "fit_rank_diff": fit_diff}
 
 
 def phase_time_b1(trained: dict) -> dict:
@@ -1154,7 +1220,9 @@ def phase_check_b3(seed: int) -> dict:
     """Kernel B3 against its plain version on the card: the template's
     widths (E=32, hidden 64, 32) at 1,000,000 items for several users
     (the last one included), the small catalogs 1, 1023, 1025 and 27,000,
-    and widths that are not multiples of the kernel's 8-column chunks."""
+    widths that are not multiples of the kernel's 8-column chunks, and
+    the wide towers (the wide layout, weights streamed through windows)
+    over 27,000 items and at odd wide widths."""
     import torch
 
     from predictionio_tpu_torch.models.ncf.kernel import head_tensors
@@ -1162,6 +1230,8 @@ def phase_check_b3(seed: int) -> dict:
     cases = [(NCF_SERVE_USERS, NCF_SERVE_ITEMS, NCF_E, NCF_HIDDEN)]
     cases += [(64, n, NCF_E, NCF_HIDDEN) for n in NCF_SMALL_ITEMS]
     cases += [(64, 3001, 8, (16, 8)), (64, 3001, 5, (12, 7)), (64, 2049, 64, (128, 64))]
+    cases += [(64, NCF_TRAIN_ITEMS, e, hidden) for e, hidden in NCF_WIDE]
+    cases += [(64, 3001, 40, (300, 130)), (64, 2047, 100, (200, 70))]
     worst = worst_ratio = 0.0
     for users, items, e, hidden in cases:
         state = random_ncf_state(users, items, e, hidden, seed)
@@ -1179,7 +1249,8 @@ def phase_check_b3(seed: int) -> dict:
 
 def phase_time_b3(seed: int) -> dict:
     """B3 and its plain version, CUDA-event medians, at 1,000,000 and at
-    27,000 items (the template's widths), beside the bound."""
+    27,000 items (the template's widths) and at the wide towers over
+    27,000 items, beside the bound."""
     import torch
 
     from predictionio_tpu_torch.models.ncf.kernel import (
@@ -1189,15 +1260,17 @@ def phase_time_b3(seed: int) -> dict:
     )
 
     shapes = []
-    for items in (NCF_SERVE_ITEMS, NCF_TRAIN_ITEMS):
-        state = random_ncf_state(64, items, NCF_E, NCF_HIDDEN, seed)
+    cases = [(NCF_SERVE_ITEMS, NCF_E, NCF_HIDDEN), (NCF_TRAIN_ITEMS, NCF_E, NCF_HIDDEN)]
+    cases += [(NCF_TRAIN_ITEMS, e, hidden) for e, hidden in NCF_WIDE]
+    for items, embed, hidden in cases:
+        state = random_ncf_state(64, items, embed, hidden, seed)
         gmf_users, mlp_users, (gi, mi, kernels, biases, out_k, out_b) = head_tensors(
             state, items, "cuda")
         args = (gi, mi, gmf_users[7], mlp_users[7], kernels, biases, out_k, out_b)
         ms = cuda_ms(lambda: ncf_score_all_items(*args))
         plain_ms = cuda_ms(lambda: ncf_score_plain(*args))
-        bound_ms, bound_by, nbytes, ops = b3_bound(items, NCF_E, *NCF_HIDDEN)
-        row = {"items": items, "embed": NCF_E, "hidden": list(NCF_HIDDEN),
+        bound_ms, bound_by, nbytes, ops = b3_bound(items, embed, *hidden)
+        row = {"items": items, "embed": embed, "hidden": list(hidden),
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "bytes": nbytes, "operations": ops,
                "fraction_of_bound": bound_ms / ms}
@@ -1461,6 +1534,60 @@ def phase_serve_ncf(rng: np.random.Generator, trained: dict, repo: str, workdir:
     return result
 
 
+def phase_serve_ncf_wide(rng: np.random.Generator, seed: int, repo: str, workdir: str) -> dict:
+    """A NeuMF model at the first wide width (E=64, hidden 256, 128; random
+    weights from ``seed``, 27,000 items) saved, deployed through the
+    ``deploy`` code path on cuda with an engine.json of that width, and
+    asked for the top 10 of known users over HTTP: each answer 200 through
+    B3 (launches counted from 0 before the queries) and each list the
+    plain head's on the card up to near-ties."""
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+    from predictionio_tpu_torch.models.ncf import model_from_state, save_model
+    from predictionio_tpu_torch.models.ncf.kernel import head_tensors, ncf_score_plain
+
+    embed, hidden = NCF_WIDE[0]
+    items = NCF_TRAIN_ITEMS
+    state = random_ncf_state(NCF_WIDE_USERS, items, embed, hidden, seed)
+    seen_users = np.repeat(np.arange(NCF_WIDE_USERS), 20)
+    seen_items = rng.integers(0, items, seen_users.size)
+    model = model_from_state(state, [f"u{u}" for u in range(NCF_WIDE_USERS)],
+                             [f"i{i}" for i in range(items)], seen_users, seen_items)
+    model_dir = os.path.join(workdir, "ncf_wide")
+    save_model(model, model_dir)
+    with open(ncf_engine(repo)[0]) as f:
+        variant = json.load(f)
+    variant["algorithms"][0]["params"].update({"embedDim": embed, "hidden": list(hidden)})
+    engine_json = os.path.join(workdir, "ncf_wide_engine.json")
+    with open(engine_json, "w") as f:
+        json.dump(variant, f)
+    picked = rng.choice(NCF_WIDE_USERS, size=NCF_WIDE_QUERIES, replace=False)
+    queries = [{"user": f"u{u}", "num": 10} for u in picked]
+    before = ncf_kernel.ncf_score_all_items.launches     # counts start here
+    served, deployed, deploy_s = serve_model(engine_json, model_dir, queries)
+    launches = ncf_kernel.ncf_score_all_items.launches - before - 1  # less the warm-up's
+    if launches != len(queries):
+        raise AssertionError(f"{launches} B3 launches for {len(queries)} wide-model queries")
+
+    gmf_users, mlp_users, head = head_tensors(deployed.state, items, "cuda")
+    gi, mi, kernels, biases, out_k, out_b = head
+    abs_head = (gi.abs(), mi.abs(), [k.abs() for k in kernels], [b.abs() for b in biases],
+                out_k.abs(), out_b.abs())
+    tol = b3_tolerance(embed, *hidden)
+    for q, body in zip(queries, served):
+        u = deployed.user_index[q["user"]]
+        plain = ncf_score_plain(gi, mi, gmf_users[u], mlp_users[u], kernels, biases,
+                                out_k, out_b).double().cpu().numpy()
+        scale = ncf_score_plain(abs_head[0], abs_head[1], gmf_users[u].abs(),
+                                mlp_users[u].abs(), *abs_head[2:]).double().cpu().numpy()
+        plain[list(deployed.seen.get(u, set()))] = -np.inf
+        check_against_plain(body, plain, scale, tol)
+    result = {"embed": embed, "hidden": list(hidden), "users": NCF_WIDE_USERS, "items": items,
+              "queries": len(queries), "launches": {"ncf_score_all_items": launches},
+              "deploy_s": deploy_s}
+    emit({"phase": "serve_ncf_wide", **result})
+    return result
+
+
 def phase_train_verb_ncf(rng: np.random.Generator, repo: str, workdir: str) -> dict:
     """The ``train`` verb with the NCF template's engine.json on a small
     events file, and ``deploy`` of the model it wrote."""
@@ -1489,11 +1616,12 @@ def phase_train_verb_ncf(rng: np.random.Generator, repo: str, workdir: str) -> d
 
 
 # --------------------------------------------------------------------------
-# the sequence template: kernels B4-B6 (csrc/flash_attention.cu)
+# the sequence template: kernel B4 (csrc/flash_attention.cu) and the fused
+# backward (csrc/flash_backward.cu)
 # --------------------------------------------------------------------------
 
 
-FLASH_KERNELS = ("flash_forward", "flash_backward", "flash_dq", "flash_dkv")
+FLASH_KERNELS = ("flash_forward", "flash_backward")
 
 
 def flash_counts() -> dict:
@@ -1573,31 +1701,28 @@ def flash_inputs(gen, b: int, h: int, t: int, d: int, mask):
 
 
 def compare_flash(q, k, v, mask, do, causal: bool, dead_rows=()) -> dict:
-    """B4, B5, B6 and the fused backward against their plain versions on
-    the same inputs (the backward kernels from the plain forward's out,
-    lse and delta); raises beyond FLASH_TOL x max(1, max|plain|) per
-    output, on a NaN, on a row with no valid key or a masked key whose
-    gradient is not exactly 0. Returns the max abs error per kernel."""
+    """B4 and the fused backward against their plain versions on the same
+    inputs (the backward from the plain forward's out and lse), through
+    the wrappers (a head dim the kernels are not built for goes through
+    the padding, held to the plain versions at the caller's D); raises
+    beyond FLASH_TOL x max(1, max|plain|) per output, on a NaN, on a row
+    with no valid key or a masked key whose output or gradient is not
+    exactly 0. Returns the max abs error per kernel."""
     import torch
 
     from predictionio_tpu_torch.ops import flash_attention as fa
 
     out, lse = fa.flash_forward(q, k, v, mask, causal)
     p_out, p_lse = fa.flash_forward_plain(q, k, v, mask, causal)
-    delta = torch.einsum("bthd,bthd->bht", do, p_out)
-    dq = fa.flash_dq(q, k, v, mask, do, p_lse, delta, causal)
-    dk, dv = fa.flash_dkv(q, k, v, mask, do, p_lse, delta, causal)
     fused = fa.flash_backward(q, k, v, mask, do, p_out, p_lse, causal)
     torch.cuda.synchronize()
-    p_dq = fa.flash_dq_plain(q, k, v, mask, do, p_lse, delta, causal)
-    p_dk, p_dv = fa.flash_dkv_plain(q, k, v, mask, do, p_lse, delta, causal)
     p_fused = fa.flash_backward_plain(q, k, v, mask, do, p_out, p_lse, causal)
     errs = {}
     for name, got, want in (("flash_forward", out, p_out), ("lse", lse, p_lse),
-                            ("flash_dq", dq, p_dq), ("flash_dk", dk, p_dk), ("flash_dv", dv, p_dv),
                             *zip(("fused_dq", "fused_dk", "fused_dv"), fused, p_fused)):
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"{name}: a non-finite value from the kernel")
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: shape {tuple(got.shape)} or a non-finite value "
+                                 "from the kernel")
         live = want[want > -1e29]
         scale = max(1.0, float(live.abs().max())) if live.numel() else 1.0
         err = float((got - want).abs().max()) if got.numel() else 0.0
@@ -1606,25 +1731,28 @@ def compare_flash(q, k, v, mask, do, causal: bool, dead_rows=()) -> dict:
                                  f"> {FLASH_TOL} x {scale}")
         errs[name] = err
     for b, rows in dead_rows:
-        if (out[b, :rows].any() or dq[b, :rows].any() or fused[0][b, :rows].any()
+        if (out[b, :rows].any() or fused[0][b, :rows].any()
                 or bool((lse[b, :, :rows] > -1e29).any())):
             raise AssertionError(f"batch row {b}: a query with no valid key is not 0")
     if mask is not None:
-        for name, grad in (("flash_dk", dk), ("flash_dv", dv), ("fused_dk", fused[1]),
-                           ("fused_dv", fused[2])):
+        for name, grad in (("fused_dk", fused[1]), ("fused_dv", fused[2])):
             if grad[~mask].any():
                 raise AssertionError(f"{name}: a masked key's gradient is not 0")
-    return {"flash_forward": max(errs["flash_forward"], errs["lse"]), "flash_dq": errs["flash_dq"],
-            "flash_dkv": max(errs["flash_dk"], errs["flash_dv"]),
+    return {"flash_forward": max(errs["flash_forward"], errs["lse"]),
             "flash_backward": max(errs["fused_dq"], errs["fused_dk"], errs["fused_dv"])}
 
 
 def phase_check_flash(seed: int, seq: dict) -> dict:
-    """B4-B6 against their plain versions on the card: the training shape
-    with the packed rows' own masks, with random right padding (serving's
-    prefixes) and with left padding; then every listed T x D, causal and
-    not, with a fully-masked batch row and left-padded rows."""
+    """B4 and the fused backward against their plain versions on the card:
+    the training shape with the packed rows' own masks, with random right
+    padding (serving's prefixes) and with left padding; every listed
+    T x D, causal and not, with a fully-masked batch row and left-padded
+    rows; head dims 24 (padded) and 128 at T 64 and 1024; then 20 SASRec
+    steps at embedDim 48 / 2 heads (D = 24) through the kernels against
+    the same steps through the plain versions."""
     import torch
+
+    from predictionio_tpu_torch.models.sequence.model import SASRecConfig, train_sasrec
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rng = np.random.default_rng(seed)
@@ -1661,7 +1789,48 @@ def phase_check_flash(seed: int, seq: dict) -> dict:
             emit({"phase": "check_flash", "case": "sizes", "shape": [3, t, 2, d],
                   "max_abs_err_so_far": dict(worst)})
         torch.cuda.empty_cache()
-    return {"max_abs_err": worst, "cases": cases}
+    padded: dict = {}
+    for t in FLASH_PADDED_T:
+        pads = (0, t // 3, t)
+        mask = torch.from_numpy(np.arange(t)[None] >= np.asarray(pads)[:, None])
+        for d in FLASH_PADDED_D:
+            for causal in (True, False):
+                dead = [(1, t // 3), (2, t)] if causal else [(2, t)]
+                errs = compare_flash(*flash_inputs(gen, 3, 2, t, d, mask), causal, dead)
+                cases += 1
+                for k, e in errs.items():
+                    worst[k] = max(worst.get(k, 0.0), e)
+                    padded[f"{k}_d{d}"] = max(padded.get(f"{k}_d{d}", 0.0), e)
+        torch.cuda.empty_cache()
+    emit({"phase": "check_flash", "case": "head_dims", "t": list(FLASH_PADDED_T),
+          "d": list(FLASH_PADDED_D), "max_abs_err": padded})
+    # SASRec at a head dim of 24 (embedDim 48, 2 heads): 20 steps through
+    # B4 and the fused backward (zero-padded to 32) against the plain
+    # versions, from the same seeded init
+    params = seq["variant"]["algorithms"][0]["params"]
+    prepared = seq["prepared"]
+    config = SASRecConfig(
+        num_items=TRAIN_ITEMS, max_len=prepared.matrix.shape[1], embed_dim=SEQ_PADDED_EMBED,
+        num_heads=SEQ_PADDED_HEADS, num_blocks=params.get("numBlocks", 2),
+        ffn_dim=params.get("ffnDim", 64), learning_rate=params.get("learningRate", 1e-3),
+        batch_size=params.get("batchSize", 256), epochs=1, seed=params.get("seed", 0))
+    part = prepared.matrix[: SEQ_PLAIN_STEPS * config.batch_size]
+    before = flash_counts()
+    _, kernel_losses = train_sasrec(config, part, "cuda", log_every=1)
+    launched = {k: n - before[k] for k, n in flash_counts().items()}
+    if launched != {k: config.num_blocks * SEQ_PLAIN_STEPS for k in FLASH_KERNELS}:
+        raise AssertionError(f"head dim 24 steps launched {launched}")
+    with plain_flash():
+        _, plain_losses = train_sasrec(config, part, "cuda", log_every=1)
+    d24_diff = float(np.abs(np.asarray(kernel_losses) - np.asarray(plain_losses)).max())
+    if len(kernel_losses) != SEQ_PLAIN_STEPS or d24_diff > 1e-4:
+        raise AssertionError(f"{len(kernel_losses)} head-dim-24 steps through the kernels "
+                             f"differ from the plain versions by {d24_diff} > 1e-4")
+    emit({"phase": "check_flash", "case": "sasrec_head_dim_24", "embed": config.embed_dim,
+          "heads": config.num_heads, "steps": SEQ_PLAIN_STEPS, "launches": launched,
+          "kernel_vs_plain_max_loss_diff": d24_diff})
+    return {"max_abs_err": worst, "cases": cases, "padded_max_abs_err": padded,
+            "sasrec_d24_loss_diff": d24_diff}
 
 
 def causal_pairs(mask) -> int:
@@ -1674,24 +1843,21 @@ def causal_pairs(mask) -> int:
 def flash_bound(kernel: str, b: int, h: int, t: int, d: int, pairs: int):
     """(bound ms, what bounds it, bytes, operations) of one call: inputs
     read once, outputs written once (f32 tensors of B T H D, [B, T] mask
-    bytes, [B, H, T] lse/delta); operations on the causal valid pairs
-    only: per pair 2D for q.k and 2D for each further product (B4: P V;
-    B5: dO.v, dS k; B6: P dO, dO.v, dS q; the fused backward: dO.v,
-    P dO, dS q, dS k), plus 2D a row for the fused backward's delta.
-    The pairs' products count at the rate of the units that run them:
-    the f32 units for B4-B6, 3xTF32 on the tensor cores for the fused
-    backward; its delta rows at the f32 units' rate."""
+    bytes, [B, H, T] lse); operations on the causal valid pairs only: per
+    pair 2D for q.k and 2D for each further product (B4: P V; the fused
+    backward: dO.v, P dO, dS q, dS k), plus 2D a row for the fused
+    backward's delta. Both kernels run the pairs' products on the tensor
+    cores in 3xTF32, so they count at F32_3XTF32_OPS_PER_S; the delta rows
+    at the f32 units' rate."""
     n, rows = b * t * h * d * 4, b * h * t * 4
-    nbytes, per_pair, pair_rate, per_row = {
-        "flash_forward": (3 * n + b * t + n + rows, 4 * d, F32_OPS_PER_S, 0),
-        "flash_dq": (4 * n + b * t + 2 * rows + n, 6 * d, F32_OPS_PER_S, 0),
-        "flash_dkv": (4 * n + b * t + 2 * rows + 2 * n, 8 * d, F32_OPS_PER_S, 0),
-        "flash_backward": (5 * n + b * t + rows + 3 * n, 10 * d, F32_3XTF32_OPS_PER_S, 2 * d),
+    nbytes, per_pair, per_row = {
+        "flash_forward": (3 * n + b * t + n + rows, 4 * d, 0),
+        "flash_backward": (5 * n + b * t + rows + 3 * n, 10 * d, 2 * d),
     }[kernel]
     pair_ops, row_ops = float(per_pair * pairs * h), float(per_row * b * h * t)
     ops = pair_ops + row_ops
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = pair_ops / pair_rate + row_ops / F32_OPS_PER_S
+    t_ops = pair_ops / F32_3XTF32_OPS_PER_S + row_ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
@@ -1710,11 +1876,10 @@ def sdpa_backend(q, k, v, attn_mask) -> str:
 
 
 def phase_time_flash(seed: int, seq: dict) -> dict:
-    """B4, B5, B6, the fused backward, their plain versions and SDPA
-    (forward; backward for the backward kernels) at the training shape,
-    with the packed rows' masks, and at the long shape, all keys valid;
-    beside each kernel's bound. Then the three backwards in turns, the
-    card's clocks sampled beside."""
+    """B4, the fused backward, their plain versions and SDPA (forward, and
+    its backward beside the fused kernel) at the training shape, with the
+    packed rows' masks, and at the long shape, all keys valid; then both
+    again at head dims 24 (padded) and 128; beside each kernel's bound."""
     import torch
     import torch.nn.functional as F
 
@@ -1722,31 +1887,21 @@ def phase_time_flash(seed: int, seq: dict) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     shapes = []
-    for name, (b, h, t, d) in (("train", SEQ_TRAIN_SHAPE), ("long", SEQ_LONG_SHAPE)):
-        if name == "train":
+    for name, (b, h, t, d) in (("train", SEQ_TRAIN_SHAPE), ("long", SEQ_LONG_SHAPE),
+                               ("train_d24", SEQ_TRAIN24_SHAPE),
+                               ("long_d128", SEQ_LONG128_SHAPE)):
+        if name.startswith("train"):
             mask = torch.from_numpy(seq["prepared"].matrix[:b] > 0)
         else:
             mask = torch.ones((b, t), dtype=torch.bool)
         pairs = causal_pairs(mask.numpy())
         q, k, v, mask, do = flash_inputs(gen, b, h, t, d, mask)
         out, lse = fa.flash_forward(q, k, v, mask)
-        delta = torch.einsum("bthd,bthd->bht", do, out)
-
-        def two_kernel_backward():
-            # the autograd Function's backward before the fused kernel
-            delta = torch.einsum("bthd,bthd->bht", do, out)
-            return (fa.flash_dq(q, k, v, mask, do, lse, delta),
-                    fa.flash_dkv(q, k, v, mask, do, lse, delta))
-
         calls = {
             "flash_forward": (lambda: fa.flash_forward(q, k, v, mask),
                               lambda: fa.flash_forward_plain(q, k, v, mask)),
             "flash_backward": (lambda: fa.flash_backward(q, k, v, mask, do, out, lse),
                                lambda: fa.flash_backward_plain(q, k, v, mask, do, out, lse)),
-            "flash_dq": (lambda: fa.flash_dq(q, k, v, mask, do, lse, delta),
-                         lambda: fa.flash_dq_plain(q, k, v, mask, do, lse, delta)),
-            "flash_dkv": (lambda: fa.flash_dkv(q, k, v, mask, do, lse, delta),
-                          lambda: fa.flash_dkv_plain(q, k, v, mask, do, lse, delta)),
         }
         # the library yardstick: SDPA in its own [B, H, T, D] layout with
         # the same boolean mask (causal and key validity in one)
@@ -1783,20 +1938,9 @@ def phase_time_flash(seed: int, seq: dict) -> dict:
                 "bytes": nbytes, "operations": ops, "fraction_of_bound": bound_ms / ms,
                 "library_ms": lib_ms, "library_call_ms": lib_call_ms,
             }
-        # the three backwards in turns on one card, (device ms, event ms),
-        # the card's clocks sampled beside them only
-        with SmiSampler() as smi:
-            turns = [(what, *timed_pair(fn)) for what, fn in (
-                ("fused", calls["flash_backward"][0]), ("two_kernel", two_kernel_backward),
-                ("sdpa", sdpa_bwd), ("two_kernel", two_kernel_backward),
-                ("fused", calls["flash_backward"][0]))]
-        row["backward_turns"] = [{"what": w, "ms": ms, "call_ms": c} for w, ms, c in turns]
-        for what in ("fused", "two_kernel", "sdpa"):
-            row[f"backward_{what}_ms"] = statistics.mean(ms for w, ms, _ in turns if w == what)
-        row["smi"] = smi.summary()
         emit({"phase": "time_flash", **row})
         shapes.append(row)
-        del q, k, v, do, bh, sdpa_out, out, lse, delta
+        del q, k, v, do, bh, sdpa_out, out, lse
         torch.cuda.empty_cache()
     return {"shapes": shapes}
 
@@ -1825,8 +1969,8 @@ def hit_at_10(model, held_out: np.ndarray) -> float:
 def phase_train_seq(seq: dict) -> dict:
     """The sequence template's training path at full width: the packed
     20M-event sequences through SASRecAlgorithm.train on cuda, B4 and the
-    fused backward counted (B5 and B6 must not launch); then the quality
-    and kernel-against-plain checks."""
+    fused backward counted; then the quality and kernel-against-plain
+    checks."""
     import torch
 
     from predictionio_tpu_torch.controller.base import TrainContext
@@ -1853,7 +1997,7 @@ def phase_train_seq(seq: dict) -> dict:
     if steps != expected:
         raise AssertionError(f"{steps} training steps, expected {expected}")
     for name, n in launches.items():
-        want = config.num_blocks * steps if name in ("flash_forward", "flash_backward") else 0
+        want = config.num_blocks * steps
         if n != want:
             raise AssertionError(f"{n} {name} launches for {steps} steps of "
                                  f"{config.num_blocks} blocks, expected {want}")
@@ -2068,10 +2212,9 @@ def phase_train_verb_seq(rng: np.random.Generator, repo: str, workdir: str) -> d
         raise AssertionError("the train verb failed")
     verb_s = time.perf_counter() - t0
     trained = {k: n - before[k] for k, n in flash_counts().items()}
-    if (min(trained["flash_forward"], trained["flash_backward"]) < 1
-            or trained["flash_dq"] or trained["flash_dkv"]):
+    if min(trained["flash_forward"], trained["flash_backward"]) < 1:
         raise AssertionError(f"the train verb's flash launches: {trained}; B4 and the fused "
-                             "backward must launch, B5 and B6 not")
+                             "backward must launch")
     before = flash_counts()["flash_forward"]
     served, small, _ = serve_model(engine_json, model_dir, [{"user": user, "num": 5}])
     launches = flash_counts()["flash_forward"] - before
@@ -2086,17 +2229,14 @@ def phase_train_verb_seq(rng: np.random.Generator, repo: str, workdir: str) -> d
 
 
 def flash_rows(check: dict, timed: dict, train_launches: dict, serve_launches: int) -> list:
-    """The ``{"kernels": [...]}`` rows of B4, the fused backward, B5 and
-    B6: times at the training shape, the long shape beside them; launches
-    on the training path (B4 also on the serving path; B5 and B6 are off
-    it, timed beside the fused kernel that replaced them there)."""
-    main_shape, long_shape = timed["shapes"]
+    """The ``{"kernels": [...]}`` rows of B4 and the fused backward: times
+    at the training shape, the other timed shapes beside them; launches on the
+    training path (B4 also on the serving path)."""
+    main_shape, *other = timed["shapes"]
     rows = []
     for name, source, line, what in (
         ("flash_forward", "flash_attention", 58, "forward"),
         ("flash_backward", "flash_backward", 106, "backward (dq, dk and dv)"),
-        ("flash_dq", "flash_attention", 106, "backward (dq, dk and dv: B5 and B6 together)"),
-        ("flash_dkv", "flash_attention", 148, "backward (dq, dk and dv: B5 and B6 together)"),
     ):
         k = main_shape["kernels"][name]
         rows.append({
@@ -2117,18 +2257,13 @@ def flash_rows(check: dict, timed: dict, train_launches: dict, serve_launches: i
             "library_note": f"scaled_dot_product_attention {what}, the same boolean "
                             f"mask, {main_shape['sdpa_backend']} backend",
             "shape": {x: main_shape[x] for x in ("batch", "heads", "t", "d")},
-            "other_shapes": [{"t": long_shape["t"], "batch": long_shape["batch"],
-                              **{x: long_shape["kernels"][name][x] for x in
+            "other_shapes": [{**{x: o[x] for x in ("batch", "heads", "t", "d")},
+                              **{x: o["kernels"][name][x] for x in
                                  ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms")}}],
+                                  "library_ms")}} for o in other],
         })
     rows[0]["serve_launches"] = serve_launches
     rows[1]["also_replaces"] = "predictionio_tpu/ops/flash_attention.py:148"
-    rows[1]["backward_turns"] = {
-        s["shape"]: {x: s[f"backward_{x}_ms"] for x in ("fused", "two_kernel", "sdpa")}
-        for s in (main_shape, long_shape)}
-    for row in rows[2:]:
-        row["on_main_path"] = False
     return rows
 
 
@@ -2181,6 +2316,7 @@ def main(argv: list[str] | None = None) -> int:
     ncf_trained = phase_train_ncf(rng, ratings, repo)
     with tempfile.TemporaryDirectory() as workdir:
         ncf_serve = phase_serve_ncf(rng, ncf_trained, repo, workdir)
+        phase_serve_ncf_wide(rng, args.seed, repo, workdir)
         phase_train_verb_ncf(rng, repo, workdir)
     del ncf_trained
 
@@ -2250,7 +2386,8 @@ def main(argv: list[str] | None = None) -> int:
                         "chain of matmuls",
         "shape": {k: b3_main[k] for k in ("items", "embed", "hidden")},
         "other_shapes": [
-            {k: s[k] for k in ("items", "ms", "plain_ms", "bound_ms", "bound_by")}
+            {k: s[k] for k in ("items", "embed", "hidden", "ms", "plain_ms", "bound_ms",
+                               "bound_by")}
             for s in b3_time["shapes"] if s is not b3_main
         ],
     }] + flash_rows(flash_check, flash_time, seq_trained["result"]["launches"],

@@ -3,10 +3,11 @@
 Each source under ``csrc/`` has a plain C interface and is compiled on
 first use with ``nvcc`` for Hopper (``sm_90a``) into a shared library
 under ``_build/`` (a directory git ignores), named by a hash of the
-source and the flags so an edited kernel rebuilds and an unchanged one
-loads at once. Libraries load with ``ctypes``; every pointer and the
-stream are declared ``c_void_p`` (ctypes would otherwise pass a 32-bit
-int and cut the pointer).
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+kernel or header rebuilds and an unchanged one loads at once. Libraries
+load with ``ctypes``; every pointer and the stream are declared
+``c_void_p`` (ctypes would otherwise pass a 32-bit int and cut the
+pointer).
 
 Nothing here runs at import: the CPU tests import every module of the
 port on a host with no ``nvcc`` and no card.
@@ -74,8 +75,6 @@ KERNELS = {
         "flash_attention.cu",
         {
             "flash_fwd_launch": (_INT, [_VP] * 6 + _FLASH_TAIL),
-            "flash_dq_launch": (_INT, [_VP] * 8 + _FLASH_TAIL),
-            "flash_dkv_launch": (_INT, [_VP] * 9 + _FLASH_TAIL),
         },
     ),
     "flash_backward": (
@@ -105,9 +104,15 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[str, str]:
+    """``(source, library path)``: the path names a hash of the source,
+    of every header under ``csrc/`` (a source may include any of them)
+    and of the flags, so an edited header rebuilds its includers too."""
     source = os.path.join(_CSRC, KERNELS[name][0])
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source] + [os.path.join(_CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return source, os.path.join(_BUILD, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -35,8 +35,18 @@
 // It is the simple kernel: tensor cores, cp.async/TMA pipelining of the
 // next chunk and several rows per block are later work.
 //
-// Layout: grid (R), T threads (a multiple of 32, at most 1024), dynamic
-// shared memory C * (2K + 1) floats.
+// Any rank. Past 5 * 1024 entries (K > 71) the entries split into
+// gridDim.y groups of at most that many, one block each: every group
+// re-stages the chunk's gathered rows (they come from L2, where the
+// table sits) and folds only its own entries. A chunk holds C slots:
+// 64 while C * (2K + 1) floats fit the 227 KB a block may use (K <= 453),
+// fewer beyond. Dynamic shared memory above 48 KB (K >= 96) is opted into
+// with cudaFuncSetAttribute. The groups must fit the grid's 65,535 rows
+// of blocks (K <= 18,317, ops/als_gram.py MAX_RANK; one slot a chunk
+// there still fits); past that the launch returns cudaErrorInvalidValue.
+//
+// Layout: grid (R, groups), T threads (a multiple of 32, at most 1024),
+// dynamic shared memory C * (2K + 1) floats.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,9 +54,12 @@
 
 namespace {
 
-constexpr int kChunk = 64;     // slots of L staged per pass
-constexpr int kMaxRank = 64;   // K(K+1) <= 5 * 1024 entries; ops/als_gram.py MAX_RANK
+constexpr int kChunk = 64;     // slots of L staged per pass, while they fit
 constexpr int kMaxThreads = 1024;
+constexpr int kMaxPer = 5;     // entries a thread holds in registers
+constexpr int kGroup = kMaxThreads * kMaxPer;  // entries one block owns at most
+constexpr size_t kMaxSmemBytes = 232448;       // what one block may use on Hopper
+constexpr int kMaxGroups = 65535;              // gridDim.y
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -58,16 +71,18 @@ __global__ void gram_rhs_kernel(
     const T* __restrict__ factors,        // [S + 1, K]
     float* __restrict__ gram,             // [R, K, K]
     float* __restrict__ rhs,              // [R, K]
-    int L, int K, float alpha) {
+    int L, int K, float alpha, int chunk, int group) {
   extern __shared__ __align__(16) float smem[];
   const int ka = K + 1;
-  float* a_s = smem;                 // [kChunk, K + 1]: y * w_gram | w_rhs
-  float* g_s = smem + kChunk * ka;   // [kChunk, K]: y
+  float* a_s = smem;                 // [chunk, K + 1]: y * w_gram | w_rhs
+  float* g_s = smem + chunk * ka;    // [chunk, K]: y
 
   const long long row = blockIdx.x;
   const int32_t* ridx = indices + row * L;
   const float* rval = values + row * L;
   const int entries = K * ka;
+  const int e0 = blockIdx.y * group;                 // this block's entries
+  const int e1 = min(entries, e0 + group);
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
 
@@ -75,15 +90,15 @@ __global__ void gram_rhs_kernel(
   float acc[kPer];
 #pragma unroll
   for (int p = 0; p < kPer; ++p) {
-    const int e = tid + p * nthreads;
-    const int ec = e < entries ? e : 0;  // idle slots read a valid cell
+    const int e = e0 + tid + p * nthreads;
+    const int ec = e < e1 ? e : e0;  // idle slots read a valid cell
     ea[p] = ec / K;
     eb[p] = ec - ea[p] * K;
     acc[p] = 0.0f;
   }
 
-  for (int c0 = 0; c0 < L; c0 += kChunk) {
-    const int n = min(kChunk, L - c0);
+  for (int c0 = 0; c0 < L; c0 += chunk) {
+    const int n = min(chunk, L - c0);
     __syncthreads();  // the previous chunk's folds are done with smem
     for (int i = tid; i < n * K; i += nthreads) {
       const int l = i / K;
@@ -116,47 +131,68 @@ __global__ void gram_rhs_kernel(
   const int kk = K * K;
 #pragma unroll
   for (int p = 0; p < kPer; ++p) {
-    const int e = tid + p * nthreads;
+    const int e = e0 + tid + p * nthreads;
+    if (e >= e1) continue;  // an idle slot: e belongs to the next group's block
     if (e < kk) {
       gram[row * kk + e] = acc[p];
-    } else if (e < entries) {
+    } else {
       rhs[row * K + (e - kk)] = acc[p];
     }
   }
 }
 
-int per_thread(int K) {
-  const int entries = K * (K + 1);
-  return (entries + kMaxThreads - 1) / kMaxThreads;
+// The K (K + 1) entries (the Gram and, as row K, the rhs) in groups of at
+// most kGroup, split evenly; each group's block holds `per` entries a
+// thread over `threads` threads.
+struct Plan {
+  int groups, group, per, threads, chunk;
+  size_t smem;
+};
+
+bool plan_for(int K, Plan* p) {
+  const long long entries = static_cast<long long>(K) * (K + 1);
+  p->groups = static_cast<int>((entries + kGroup - 1) / kGroup);
+  p->group = static_cast<int>((entries + p->groups - 1) / p->groups);
+  p->per = (p->group + kMaxThreads - 1) / kMaxThreads;
+  const int t = (p->group + p->per - 1) / p->per;
+  p->threads = (t + 31) / 32 * 32;
+  const size_t slot_bytes = static_cast<size_t>(2 * K + 1) * sizeof(float);
+  p->chunk = static_cast<int>(kMaxSmemBytes / slot_bytes < kChunk ? kMaxSmemBytes / slot_bytes
+                                                                   : kChunk);
+  p->smem = p->chunk * slot_bytes;
+  return p->chunk >= 1 && p->groups <= kMaxGroups;
 }
 
-int threads_for(int K) {
-  const int entries = K * (K + 1);
-  const int per = per_thread(K);
-  const int t = (entries + per - 1) / per;
-  return (t + 31) / 32 * 32;
+template <typename T, bool kImplicit, int kPer>
+int launch_per(const Plan& p, const void* indices, const void* values, const void* factors,
+               void* gram, void* rhs, int R, int L, int K, float alpha, cudaStream_t stream) {
+  auto kernel = gram_rhs_kernel<T, kImplicit, kPer>;
+  if (p.smem > 48 * 1024) {  // above the static limit only after an opt-in
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p.smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<dim3(R, p.groups), p.threads, p.smem, stream>>>(
+      static_cast<const int32_t*>(indices), static_cast<const float*>(values),
+      static_cast<const T*>(factors), static_cast<float*>(gram), static_cast<float*>(rhs),
+      L, K, alpha, p.chunk, p.group);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool kImplicit>
 int launch_typed(const void* indices, const void* values, const void* factors,
                  void* gram, void* rhs, int R, int L, int K, float alpha,
                  cudaStream_t stream) {
-  const int threads = threads_for(K);
-  const size_t smem = static_cast<size_t>(kChunk) * (2 * K + 1) * sizeof(float);
-  const int32_t* idx = static_cast<const int32_t*>(indices);
-  const float* val = static_cast<const float*>(values);
-  const T* fac = static_cast<const T*>(factors);
-  float* g = static_cast<float*>(gram);
-  float* r = static_cast<float*>(rhs);
-  switch (per_thread(K)) {
-    case 1: gram_rhs_kernel<T, kImplicit, 1><<<R, threads, smem, stream>>>(idx, val, fac, g, r, L, K, alpha); break;
-    case 2: gram_rhs_kernel<T, kImplicit, 2><<<R, threads, smem, stream>>>(idx, val, fac, g, r, L, K, alpha); break;
-    case 3: gram_rhs_kernel<T, kImplicit, 3><<<R, threads, smem, stream>>>(idx, val, fac, g, r, L, K, alpha); break;
-    case 4: gram_rhs_kernel<T, kImplicit, 4><<<R, threads, smem, stream>>>(idx, val, fac, g, r, L, K, alpha); break;
-    case 5: gram_rhs_kernel<T, kImplicit, 5><<<R, threads, smem, stream>>>(idx, val, fac, g, r, L, K, alpha); break;
+  Plan p;
+  if (!plan_for(K, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (p.per) {
+    case 1: return launch_per<T, kImplicit, 1>(p, indices, values, factors, gram, rhs, R, L, K, alpha, stream);
+    case 2: return launch_per<T, kImplicit, 2>(p, indices, values, factors, gram, rhs, R, L, K, alpha, stream);
+    case 3: return launch_per<T, kImplicit, 3>(p, indices, values, factors, gram, rhs, R, L, K, alpha, stream);
+    case 4: return launch_per<T, kImplicit, 4>(p, indices, values, factors, gram, rhs, R, L, K, alpha, stream);
+    case 5: return launch_per<T, kImplicit, 5>(p, indices, values, factors, gram, rhs, R, L, K, alpha, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -169,7 +205,7 @@ extern "C" int als_gram_rhs_launch(
     const void* indices, const void* values, const void* factors,
     void* gram, void* rhs, int R, int L, int K, float alpha,
     int implicit, int bf16, void* stream) {
-  if (K < 1 || K > kMaxRank || L < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (K < 1 || L < 1 || R < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {

@@ -1,308 +1,351 @@
-// Flash attention: the online-softmax forward (B4) and its two backward
-// kernels (B5: dQ, B6: dK and dV), f32 in and out, f32 accumulation.
+// Flash attention's forward (B4): the online-softmax attention of one
+// (batch, head, 64-query tile) per block, its two tile products on the
+// tensor cores in 3xTF32, f32 in and out.
 //
-// Replaces the TPU kernels of predictionio_tpu/ops/flash_attention.py:
-//   B4 _fwd_kernel (:58, pallas_call :253): out = softmax(s) V and
-//      lse = m + log l per query row, s = (q . k) * scale over the keys
-//      that are valid (mask) and, with `causal`, not after the query;
-//   B5 _dq_kernel (:106, :313): dq = sum_k P (dP - delta) * scale * k,
-//      P = exp(s - lse) rebuilt from the saved lse, dP = dO . v;
-//   B6 _dkv_kernel (:148, :326): dv = sum_q P dO, dk = sum_q P (dP - delta)
-//      * scale * q.
-// delta = rowsum(dO o O) is computed outside, as the reference does.
-// A query row with no valid key comes out as exactly 0 with lse about
-// -1e30, and gets no gradient (P is 0 wherever a key is invalid).
+// Replaces the TPU kernel predictionio_tpu/ops/flash_attention.py::
+// _fwd_kernel (:58, pallas_call :253): out = softmax(s) V and lse = m +
+// log l per query row, s = (q . k) * scale over the keys that are valid
+// (mask) and, with `causal`, not after the query. A query row with no
+// valid key comes out as exactly 0 with lse about -1e30.
 //
 // Layout. q, k and v are the public [B, T, H, D] tensors, read through
 // their batch and time strides (sb, st; heads D apart, features
-// contiguous), so the q/k/v thirds of one projection need no copy; dO and
-// every output are contiguous [B, T, H, D], lse and delta [B, H, T]. The
-// mask is [B, T] bytes (0 = invalid key) or null for all-valid. Nothing is
-// padded: rows past T are bounds-checked, where the reference pads T to
-// 128 and transposes to [B, H, T, D] for Mosaic.
+// contiguous), so the q/k/v thirds of one projection need no copy; out is
+// contiguous [B, T, H, D] and lse [B, H, T]. The mask is [B, T] bytes
+// (0 = invalid key) or null for all-valid. Nothing is padded in memory:
+// rows past T are zero-filled in shared memory and never written, where
+// the reference pads T to 128 and transposes to [B, H, T, D] for Mosaic.
 //
-// What bounds them on an H100. Per (b, h) the forward reads q, k, v once
-// and writes out and lse: 16 T D + 4 T bytes; with causal masking it
-// does 4 D operations for each of the T (T + 1) / 2 (query, key) pairs
-// (q . k and the P V product). At the sequence template's B=256, H=2,
-// T=64, D=16 that is 8.5 MB (2.5 us at 3.35 TB/s) against 0.068 GFLOP
-// (1.0 us at 67 TFLOP/s): bytes. At B=16, T=1024 the same 8.5 MB meets
-// 1.07 GFLOP (16 us): operations, a roof tensor cores would lift 15x.
-// B5 and B6 read dO, lse and delta too and do 6 D and 8 D operations a
-// pair.
+// What bounds it on an H100. Per (b, h) it reads q, k, v once and writes
+// out and lse: 16 T D + 4 T bytes; with causal masking it does 4 D
+// operations for each of the T (T + 1) / 2 (query, key) pairs (S = Q K^T
+// and O = P V). At the sequence template's B=256, H=2, T=64, D=16 that is
+// 8.5 MB, 2.5 us at 3.35 TB/s, against 0.068 GFLOP: bytes. At B=16,
+// T=1024 the same 8.5 MB meets 1.07 GFLOP, 6.5 us at 3xTF32's 165 TFLOP/s
+// (a third of the tensor cores' 495 TF32 rate): operations.
 //
-// Design: the simple kernel. One thread owns one query row (B4, B5) or
-// one key row (B6) of a 64-row block: its q (or k and v) row, its running
-// max and sum and its D accumulators live in registers (D is a template
-// parameter: 8, 16, 32 or 64). The other side streams through shared
-// memory in 64-row tiles, staged with coalesced loads and zero-filled past
-// T; every thread reads the same staged row at the same time (a broadcast,
-// no bank conflicts), four floats per load. B4 folds keys into the online
-// softmax 8 at a time (one rescale of the accumulators per 8 keys). With
-// causal masking B4 and B5 stop at the block's last query row and B6
-// starts at the block's first key row, so the tiles above the diagonal
-// are never staged. Tensor cores (wgmma), several rows per thread and
-// TMA staging are later work.
+// Design: FlashAttention-2's forward on mma.sync m16n8k8 (mma_tf32.cuh).
+// One block per (b, h, 64-query tile), 4 warps; each warp owns 16 query
+// rows, one m16 fragment. The Q tile is staged once; at D <= 32 its A
+// fragments (hi and lo halves) are formed once and stay in registers, at
+// D >= 64 they are re-read from shared memory for each key tile. K and V
+// stream through shared memory in 64-key tiles with row stride D + 4 (no
+// bank conflicts on fragment reads), copied with cp.async (synchronous
+// loads when an input is not 16-byte aligned). Double-buffered, the next
+// tile's copy flying while the warps work on this one, where that still
+// leaves two blocks an SM (D <= 64); at D = 128 two buffers would take
+// 169 KB and hold the SM to one block, so there one buffer serves (101 KB,
+// two blocks an SM) and each tile's copy is waited for. With causal
+// masking the key tiles past the block's last query are never staged. Per key tile a warp forms
+// S = Q K^T, 16 x 64 (8 fragments, 32 floats a thread), then in registers:
+// the scale, the key flags and the causal test (an invalid pair's score
+// becomes -inf, so its P is exactly 0), the row max and sum across the
+// quad of lanes that share a row (shuffles 1 and 2), and the online-
+// softmax rescale of l and of the O accumulators once per 64-key tile.
+// O += P V takes P straight from the S accumulators as A fragments, with
+// the k index permuted (A column t <-> key 2t, column t + 4 <-> key
+// 2t + 1) and V's rows loaded to match, so P never reaches shared memory.
+// Fragments wholly above the diagonal are skipped warp-uniformly. The
+// epilogue writes out = O / max(l, 1e-20) and lse = m + log(max(l,
+// 1e-20)). Every product is 3xTF32 with f32 adds into the running sums.
+//
+// Left: wgmma and TMA staging.
+//
+// Head dims 8, 16, 32, 64 and 128 are built (the wrapper zero-pads any
+// other D up to 128 to the next of them and passes the caller's scale).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
-constexpr int kRows = 64;    // rows a block owns, one per thread
-constexpr int kTile = 64;    // rows of the other side staged per pass
-constexpr int kChunk = 8;    // keys per online-softmax update (B4)
-constexpr float kNeg = -1e30f;  // the reference's finite masked score
+using tf32x3::FragA;
+using tf32x3::frag_a;
+using tf32x3::mma3;
+using tf32x3::stage_rows;
 
-struct Coords {
-  int b, h, first;  // batch, head, first row of the block
-};
+constexpr int kTile = 64;                  // queries a block owns; keys staged per pass
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kWarpRows = kTile / kWarps;  // 16: one m16 fragment of queries
+constexpr int kSteps = kTile / 8;          // 8-key fragments across a key tile
+constexpr float kNeg = -1e30f;             // the reference's finite masked score
 
-__device__ __forceinline__ Coords block_coords(int T, int H) {
-  const int tiles = (T + kRows - 1) / kRows;
-  const int tile = blockIdx.x % tiles;
-  const int bh = blockIdx.x / tiles;
-  return {bh / H, bh % H, tile * kRows};
+constexpr int kSmemPerSm = 233472;         // an H100 SM's shared memory
+constexpr int kSmemReserved = 1024;        // what the runtime keeps per block
+
+// shared memory of one block with `stages` K, V buffers: the Q tile and
+// `stages` K, V tile pairs [64][D + 4], `stages` rows of key flags [64]
+template <int D>
+__host__ __device__ constexpr int smem_bytes_for(int stages) {
+  return (1 + 2 * stages) * kTile * (D + 4) * 4 + stages * kTile;
+}
+
+// two K, V buffers while two blocks still fit an SM with them, else one
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return 2 * (smem_bytes_for<D>(2) + kSmemReserved) <= kSmemPerSm ? 2 : 1;
 }
 
 template <int D>
-__device__ __forceinline__ float dot(const float (&a)[D], const float* s) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(s + d);
-    acc = fmaf(a[d], x.x, acc);
-    acc = fmaf(a[d + 1], x.y, acc);
-    acc = fmaf(a[d + 2], x.z, acc);
-    acc = fmaf(a[d + 3], x.w, acc);
+__host__ __device__ constexpr int smem_bytes() {
+  return smem_bytes_for<D>(stages<D>());
+}
+
+// 16 bytes global -> shared without passing through registers; 0 bytes
+// read (zero-filled) when not `valid`
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr), "l"(src), "r"(bytes));
+}
+
+// rows [first, first + 64) -> dst [64][D + 4], zeros past T: cp.async
+// copies when `vec` (the caller commits and waits), else `stage_rows`
+template <int D>
+__device__ __forceinline__ void stage_async(float* dst, const float* __restrict__ src,
+                                            long long stride, int first, int T, bool vec) {
+  if (!vec) {
+    stage_rows<D, kTile, kThreads>(dst, src, stride, first, T, vec);
+    return;
   }
-  return acc;
-}
-
-template <int D>
-__device__ __forceinline__ void axpy(float (&acc)[D], float w, const float* s) {
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(s + d);
-    acc[d] = fmaf(w, x.x, acc[d]);
-    acc[d + 1] = fmaf(w, x.y, acc[d + 1]);
-    acc[d + 2] = fmaf(w, x.z, acc[d + 2]);
-    acc[d + 3] = fmaf(w, x.w, acc[d + 3]);
-  }
-}
-
-// rows [first, first + n) of one (b, h) slice -> dst [kTile][D], zeros past n
-template <int D>
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
-                                      long long row_stride, int first, int n) {
-  for (int e = threadIdx.x; e < kTile * D; e += kRows) {
-    const int r = e / D, c = e % D;
-    dst[e] = r < n ? src[static_cast<long long>(first + r) * row_stride + c] : 0.0f;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void load_row(float (&dst)[D], const float* __restrict__ src, bool live) {
-#pragma unroll
-  for (int d = 0; d < D; ++d) dst[d] = live ? src[d] : 0.0f;
-}
-
-// keys [k0, k0 + n) of batch row b that are valid, zero past n
-__device__ __forceinline__ void stage_mask(unsigned char* dst, const unsigned char* __restrict__ mask,
-                                           int b, int T, int k0, int n) {
-  for (int j = threadIdx.x; j < kTile; j += kRows) {
-    dst[j] = j < n && (mask == nullptr || mask[static_cast<long long>(b) * T + k0 + j]) ? 1 : 0;
+  constexpr int kVecs = D / 4;
+  for (int e = threadIdx.x; e < kTile * kVecs; e += kThreads) {
+    const int r = e / kVecs, c = (e % kVecs) * 4;
+    const bool valid = first + r < T;
+    cp_async16(dst + r * (D + 4) + c, valid ? src + (first + r) * stride + c : src, valid);
   }
 }
 
+// the A fragment of Q's columns [kk, kk + 8) for tile rows qr and qr + 8
 template <int D>
-__global__ void __launch_bounds__(kRows) flash_fwd_kernel(
+__device__ __forceinline__ FragA q_frag(const float* q_s, int qr, int kk, int t) {
+  constexpr int S = D + 4;
+  const float* x = q_s + qr * S + kk + t;
+  return frag_a(x[0], x[8 * S], x[4], x[8 * S + 4]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const unsigned char* __restrict__ mask, float* __restrict__ out, float* __restrict__ lse,
-    int T, int H, long long sb, long long st, float scale, int causal) {
-  __shared__ __align__(16) float k_s[kTile * D];
-  __shared__ __align__(16) float v_s[kTile * D];
-  __shared__ unsigned char ok_s[kTile];
-  const Coords at = block_coords(T, H);
-  const int row = at.first + threadIdx.x;
-  const bool live = row < T;
-  const long long base = at.b * sb + static_cast<long long>(at.h) * D;
-  float qr[D], acc[D];
-  load_row<D>(qr, q + base + row * st, live);
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.0f;
-  float m = kNeg, l = 0.0f;
+    int T, int H, long long sb, long long st, float scale, int causal, int vec) {
+  constexpr int S = D + 4;      // row stride of the Q, K and V tiles
+  constexpr int ND = D / 8;     // 8-wide fragments across D
+  constexpr bool kQInRegs = D <= 32;
+  constexpr int kStages = stages<D>();
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;
+  float* kv_s = q_s + kTile * S;   // [kStages][K, V] tiles
+  unsigned char* ok2 = reinterpret_cast<unsigned char*>(kv_s + 2 * kStages * kTile * S);
 
-  const int kend = causal ? min(T, at.first + kRows) : T;
-  for (int k0 = 0; k0 < kend; k0 += kTile) {
-    const int n = min(kTile, kend - k0);
-    __syncthreads();  // the last tile's reads are done
-    stage<D>(k_s, k + base, st, k0, n);
-    stage<D>(v_s, v + base, st, k0, n);
-    stage_mask(ok_s, mask, at.b, T, k0, n);
+  // tile-major order, last query tiles first: with causal masking they
+  // walk the most key tiles
+  const int tiles = (T + kTile - 1) / kTile;
+  const int slices = gridDim.x / tiles;
+  const int bh = blockIdx.x % slices;
+  const int b = bh / H, h = bh % H;
+  const int q0 = (tiles - 1 - blockIdx.x / slices) * kTile;
+  const long long in_base = b * sb + static_cast<long long>(h) * D;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // the fragment's row group and column
+  const int qr = kWarpRows * warp + g;    // tile rows of this thread's queries: qr, qr + 8
+  const int qw = q0 + kWarpRows * warp;   // the warp's first query
+  const int row_lo = q0 + qr, row_hi = row_lo + 8;
+
+  stage_rows<D, kTile, kThreads>(q_s, q + in_base, st, q0, T, vec);
+  __syncthreads();
+  FragA qa[kQInRegs ? ND : 1];
+  if constexpr (kQInRegs) {
+#pragma unroll
+    for (int n = 0; n < ND; ++n) qa[n] = q_frag<D>(q_s, qr, 8 * n, t);
+  }
+
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  }
+  float m_lo = kNeg, m_hi = kNeg, l_lo = 0.0f, l_hi = 0.0f;
+
+  const int kend = causal ? min(T, q0 + kTile) : T;
+  // start copying the K and V tiles at `k0` into buffer `buf`; store their
+  // key flags
+  auto fetch = [&](int k0, int buf) {
+    stage_async<D>(kv_s + 2 * buf * kTile * S, k + in_base, st, k0, T, vec);
+    stage_async<D>(kv_s + (2 * buf + 1) * kTile * S, v + in_base, st, k0, T, vec);
+    asm volatile("cp.async.commit_group;\n" ::);
+    if (threadIdx.x < kTile) {
+      const int key = k0 + threadIdx.x;
+      ok2[buf * kTile + threadIdx.x] =
+          key < T && (mask == nullptr || mask[static_cast<long long>(b) * T + key]);
+    }
+  };
+  if constexpr (kStages == 2) fetch(0, 0);
+  int buf = 0;
+  for (int k0 = 0; k0 < kend; k0 += kTile, buf ^= kStages - 1) {
+    __syncthreads();  // the last tile's reads of the buffer fetched next are done
+    if constexpr (kStages == 2) {
+      if (k0 + kTile < kend) {  // the next tile flies while this one is used
+        fetch(k0 + kTile, buf ^ 1);
+        asm volatile("cp.async.wait_group 1;\n" ::);
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::);
+      }
+    } else {
+      fetch(k0, 0);
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
     __syncthreads();
-    for (int c = 0; c < n; c += kChunk) {
-      float s[kChunk];
-      bool ok[kChunk];
-      float cmax = kNeg;
+    const float* k_s = kv_s + 2 * buf * kTile * S;
+    const float* v_s = k_s + kTile * S;
+    const unsigned char* ok_s = ok2 + buf * kTile;
+    if (qw >= T) continue;  // the whole warp lies past T (block-uniform barriers above)
+
+    // key fragment j (8 keys) has a valid pair for this warp's queries
+    auto live = [&](int j) {
+      const int first = k0 + 8 * j;
+      return first < T && !(causal && first > qw + kWarpRows - 1);
+    };
+
+    // S = Q K^T: 16 queries x 64 keys per warp
+    float s[kSteps][4];
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const int kj = c + j;  // < kTile: zero-filled and invalid past n
-        ok[j] = ok_s[kj] && (!causal || k0 + kj <= row);
-        const float score = dot<D>(qr, k_s + kj * D) * scale;
-        s[j] = ok[j] ? score : kNeg;
-        cmax = fmaxf(cmax, s[j]);
+    for (int j = 0; j < kSteps; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      FragA a;
+      if constexpr (kQInRegs) {
+        a = qa[n];
+      } else {
+        a = q_frag<D>(q_s, qr, 8 * n, t);
       }
-      const float m_new = fmaxf(m, cmax);
-      const float corr = expf(m - m_new);
-      l *= corr;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float p = ok[j] ? expf(s[j] - m_new) : 0.0f;
-        l += p;
-        axpy<D>(acc, p, v_s + (c + j) * D);
+      for (int j = 0; j < kSteps; ++j) {
+        if (!live(j)) continue;
+        const float* kx = k_s + (8 * j + g) * S + 8 * n + t;
+        mma3(s[j], a, kx[0], kx[4]);
       }
-      m = m_new;
+    }
+
+    // scale and validity; the tile's row max across the quad. Element e of
+    // fragment j: query row_lo (e < 2) or row_hi, key k0 + 8 j + 2 t + (e & 1).
+    float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kl = 8 * j + 2 * t + (e & 1);
+        const int row = e < 2 ? row_lo : row_hi;
+        const bool valid = ok_s[kl] && (!causal || k0 + kl <= row);
+        s[j][e] = valid ? s[j][e] * scale : -__int_as_float(0x7f800000);
+      }
+      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    }
+    // the running max stays finite (kNeg), so corr is never NaN and an
+    // invalid pair's exp(-inf) is exactly 0
+    const float corr_lo = expf(m_lo - mx_lo), corr_hi = expf(m_hi - mx_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    l_lo *= corr_lo;
+    l_hi *= corr_hi;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][0] *= corr_lo;
+      o[n][1] *= corr_lo;
+      o[n][2] *= corr_hi;
+      o[n][3] *= corr_hi;
+    }
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      s[j][0] = expf(s[j][0] - m_lo);
+      s[j][1] = expf(s[j][1] - m_lo);
+      s[j][2] = expf(s[j][2] - m_hi);
+      s[j][3] = expf(s[j][3] - m_hi);
+      l_lo += s[j][0] + s[j][1];
+      l_hi += s[j][2] + s[j][3];
+    }
+
+    // O += P V, A from the registers above with the k index permuted: A
+    // column t is key 2 t, column t + 4 key 2 t + 1, V's rows to match
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      if (!live(j)) continue;
+      const FragA pa = frag_a(s[j][0], s[j][2], s[j][1], s[j][3]);
+      const float* vx = v_s + (8 * j + 2 * t) * S + g;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) mma3(o[n], pa, vx[8 * n], vx[S + 8 * n]);
     }
   }
-  if (live) {
-    const float lc = fmaxf(l, 1e-20f);
-    float* o = out + ((static_cast<long long>(at.b) * T + row) * H + at.h) * D;
+
+  // each lane summed its own keys of a row: the row's l across the quad
 #pragma unroll
-    for (int d = 0; d < D; ++d) o[d] = acc[d] / lc;
-    lse[(static_cast<long long>(at.b) * H + at.h) * T + row] = m + logf(lc);
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  const float lc_lo = fmaxf(l_lo, 1e-20f), lc_hi = fmaxf(l_hi, 1e-20f);
+  const long long lse_base = (static_cast<long long>(b) * H + h) * T;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row_hi : row_lo;
+    if (row >= T) continue;
+    const float lc = half ? lc_hi : lc_lo;
+    float* dst = out + ((static_cast<long long>(b) * T + row) * H + h) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(o[n][2 * half] / lc, o[n][2 * half + 1] / lc);
+    }
+    if (t == 0) lse[lse_base + row] = (half ? m_hi : m_lo) + logf(lc);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kRows) flash_dq_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const unsigned char* __restrict__ mask, const float* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq,
-    int T, int H, long long sb, long long st, float scale, int causal) {
-  __shared__ __align__(16) float k_s[kTile * D];
-  __shared__ __align__(16) float v_s[kTile * D];
-  __shared__ unsigned char ok_s[kTile];
-  const Coords at = block_coords(T, H);
-  const int row = at.first + threadIdx.x;
-  const bool live = row < T;
-  const long long base = at.b * sb + static_cast<long long>(at.h) * D;
-  const long long out_at = ((static_cast<long long>(at.b) * T + row) * H + at.h) * D;
-  const long long row_at = (static_cast<long long>(at.b) * H + at.h) * T + row;
-  float qr[D], dor[D], acc[D];
-  load_row<D>(qr, q + base + row * st, live);
-  load_row<D>(dor, dout + out_at, live);
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.0f;
-  const float lse_r = live ? lse[row_at] : 0.0f;
-  const float delta_r = live ? delta[row_at] : 0.0f;
-
-  const int kend = causal ? min(T, at.first + kRows) : T;
-  for (int k0 = 0; k0 < kend; k0 += kTile) {
-    const int n = min(kTile, kend - k0);
-    __syncthreads();
-    stage<D>(k_s, k + base, st, k0, n);
-    stage<D>(v_s, v + base, st, k0, n);
-    stage_mask(ok_s, mask, at.b, T, k0, n);
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      if (!ok_s[j] || (causal && k0 + j > row)) continue;
-      const float p = expf(dot<D>(qr, k_s + j * D) * scale - lse_r);
-      const float dp = dot<D>(dor, v_s + j * D);
-      axpy<D>(acc, p * (dp - delta_r) * scale, k_s + j * D);
-    }
+int launch(dim3 grid, cudaStream_t s, const float* q, const float* k, const float* v,
+           const unsigned char* mask, float* out, float* lse, int T, int H, long long sb,
+           long long st, float scale, int causal, int vec) {
+  constexpr int bytes = smem_bytes<D>();
+  if (bytes > 48 * 1024) {  // above the static limit only after an opt-in
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (live) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) dq[out_at + d] = acc[d];
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kRows) flash_dkv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const unsigned char* __restrict__ mask, const float* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv,
-    int T, int H, long long sb, long long st, float scale, int causal) {
-  __shared__ __align__(16) float q_s[kTile * D];
-  __shared__ __align__(16) float do_s[kTile * D];
-  __shared__ float lse_s[kTile];
-  __shared__ float delta_s[kTile];
-  const Coords at = block_coords(T, H);
-  const int col = at.first + threadIdx.x;  // this thread's key row
-  const bool live = col < T;
-  const bool key_ok = live && (mask == nullptr || mask[static_cast<long long>(at.b) * T + col]);
-  const long long base = at.b * sb + static_cast<long long>(at.h) * D;
-  const long long do_base = static_cast<long long>(at.b) * T * H * D + static_cast<long long>(at.h) * D;
-  const long long row_base = (static_cast<long long>(at.b) * H + at.h) * T;
-  float kr[D], vr[D], dk_acc[D], dv_acc[D];
-  load_row<D>(kr, k + base + col * st, live);
-  load_row<D>(vr, v + base + col * st, live);
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    dk_acc[d] = 0.0f;
-    dv_acc[d] = 0.0f;
-  }
-
-  for (int q0 = causal ? at.first : 0; q0 < T; q0 += kTile) {
-    const int n = min(kTile, T - q0);
-    __syncthreads();
-    stage<D>(q_s, q + base, st, q0, n);
-    stage<D>(do_s, dout + do_base, static_cast<long long>(H) * D, q0, n);
-    for (int i = threadIdx.x; i < kTile; i += kRows) {
-      lse_s[i] = i < n ? lse[row_base + q0 + i] : 0.0f;
-      delta_s[i] = i < n ? delta[row_base + q0 + i] : 0.0f;
-    }
-    __syncthreads();
-    if (!key_ok) continue;
-    // with causal masking only queries at or after this key see it; a
-    // query row that sees a valid key has a finite lse, so P <= 1
-    for (int i = causal ? max(col - q0, 0) : 0; i < n; ++i) {
-      const float p = expf(dot<D>(kr, q_s + i * D) * scale - lse_s[i]);
-      axpy<D>(dv_acc, p, do_s + i * D);
-      const float dp = dot<D>(vr, do_s + i * D);
-      axpy<D>(dk_acc, p * (dp - delta_s[i]) * scale, q_s + i * D);
-    }
-  }
-  if (live) {
-    const long long at_out = ((static_cast<long long>(at.b) * T + col) * H + at.h) * D;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      dk[at_out + d] = dk_acc[d];
-      dv[at_out + d] = dv_acc[d];
-    }
-  }
-}
-
-// grid: one block per (b, h, 64-row tile); 0 when there is nothing to do
-bool grid_for(int B, int T, int H, dim3* grid) {
-  const long long blocks = static_cast<long long>(B) * H * ((T + kRows - 1) / kRows);
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return false;
-  *grid = dim3(static_cast<unsigned>(blocks));
-  return true;
-}
-
-bool bad_args(int B, int T, int H, long long sb, long long st) {
-  return B < 0 || T < 0 || H < 1 || sb < 0 || st < 0;
+  flash_fwd_kernel<D><<<grid, kThreads, bytes, s>>>(q, k, v, mask, out, lse, T, H, sb, st, scale,
+                                                    causal, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Each entry launches on `stream` and returns cudaGetLastError() (0 on
-// success), so a refused launch reaches the caller; a head dim other than
-// 8, 16, 32 or 64 returns cudaErrorInvalidValue and launches nothing.
-// sb and st are q/k/v's batch and time strides in floats.
-
-extern "C" int flash_fwd_launch(
-    const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
-    int B, int T, int H, int D, long long sb, long long st, float scale, int causal,
-    void* stream) {
-  if (bad_args(B, T, H, sb, st)) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid;
-  if (!grid_for(B, T, H, &grid)) return B == 0 || T == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+// Launches on `stream` and returns cudaGetLastError() (0 on success), so a
+// refused launch reaches the caller. sb and st are q/k/v's batch and time
+// strides in floats. A head dim other than 8, 16, 32, 64 or 128 returns
+// cudaErrorInvalidValue and launches nothing.
+extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, const void* mask,
+                                void* out, void* lse, int B, int T, int H, int D, long long sb,
+                                long long st, float scale, int causal, void* stream) {
+  if (B < 0 || T < 0 || H < 1 || sb < 0 || st < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || T == 0) return 0;
+  const long long blocks = static_cast<long long>(B) * H * ((T + kTile - 1) / kTile);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v);
+  const int vec = (addr & 15) == 0 && sb % 4 == 0 && st % 4 == 0;  // float4 loads allowed
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
@@ -311,66 +354,11 @@ extern "C" int flash_fwd_launch(
   auto* of = static_cast<float*>(out);
   auto* lf = static_cast<float*>(lse);
   switch (D) {
-    case 8: flash_fwd_kernel<8><<<grid, kRows, 0, s>>>(qf, kf, vf, mk, of, lf, T, H, sb, st, scale, causal); break;
-    case 16: flash_fwd_kernel<16><<<grid, kRows, 0, s>>>(qf, kf, vf, mk, of, lf, T, H, sb, st, scale, causal); break;
-    case 32: flash_fwd_kernel<32><<<grid, kRows, 0, s>>>(qf, kf, vf, mk, of, lf, T, H, sb, st, scale, causal); break;
-    case 64: flash_fwd_kernel<64><<<grid, kRows, 0, s>>>(qf, kf, vf, mk, of, lf, T, H, sb, st, scale, causal); break;
+    case 8: return launch<8>(grid, s, qf, kf, vf, mk, of, lf, T, H, sb, st, scale, causal, vec);
+    case 16: return launch<16>(grid, s, qf, kf, vf, mk, of, lf, T, H, sb, st, scale, causal, vec);
+    case 32: return launch<32>(grid, s, qf, kf, vf, mk, of, lf, T, H, sb, st, scale, causal, vec);
+    case 64: return launch<64>(grid, s, qf, kf, vf, mk, of, lf, T, H, sb, st, scale, causal, vec);
+    case 128: return launch<128>(grid, s, qf, kf, vf, mk, of, lf, T, H, sb, st, scale, causal, vec);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int flash_dq_launch(
-    const void* q, const void* k, const void* v, const void* mask, const void* dout,
-    const void* lse, const void* delta, void* dq,
-    int B, int T, int H, int D, long long sb, long long st, float scale, int causal,
-    void* stream) {
-  if (bad_args(B, T, H, sb, st)) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid;
-  if (!grid_for(B, T, H, &grid)) return B == 0 || T == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  const auto* mk = static_cast<const unsigned char*>(mask);
-  const auto* gf = static_cast<const float*>(dout);
-  const auto* lf = static_cast<const float*>(lse);
-  const auto* df = static_cast<const float*>(delta);
-  auto* of = static_cast<float*>(dq);
-  switch (D) {
-    case 8: flash_dq_kernel<8><<<grid, kRows, 0, s>>>(qf, kf, vf, mk, gf, lf, df, of, T, H, sb, st, scale, causal); break;
-    case 16: flash_dq_kernel<16><<<grid, kRows, 0, s>>>(qf, kf, vf, mk, gf, lf, df, of, T, H, sb, st, scale, causal); break;
-    case 32: flash_dq_kernel<32><<<grid, kRows, 0, s>>>(qf, kf, vf, mk, gf, lf, df, of, T, H, sb, st, scale, causal); break;
-    case 64: flash_dq_kernel<64><<<grid, kRows, 0, s>>>(qf, kf, vf, mk, gf, lf, df, of, T, H, sb, st, scale, causal); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int flash_dkv_launch(
-    const void* q, const void* k, const void* v, const void* mask, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv,
-    int B, int T, int H, int D, long long sb, long long st, float scale, int causal,
-    void* stream) {
-  if (bad_args(B, T, H, sb, st)) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid;
-  if (!grid_for(B, T, H, &grid)) return B == 0 || T == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  const auto* mk = static_cast<const unsigned char*>(mask);
-  const auto* gf = static_cast<const float*>(dout);
-  const auto* lf = static_cast<const float*>(lse);
-  const auto* df = static_cast<const float*>(delta);
-  auto* kk = static_cast<float*>(dk);
-  auto* vv = static_cast<float*>(dv);
-  switch (D) {
-    case 8: flash_dkv_kernel<8><<<grid, kRows, 0, s>>>(qf, kf, vf, mk, gf, lf, df, kk, vv, T, H, sb, st, scale, causal); break;
-    case 16: flash_dkv_kernel<16><<<grid, kRows, 0, s>>>(qf, kf, vf, mk, gf, lf, df, kk, vv, T, H, sb, st, scale, causal); break;
-    case 32: flash_dkv_kernel<32><<<grid, kRows, 0, s>>>(qf, kf, vf, mk, gf, lf, df, kk, vv, T, H, sb, st, scale, causal); break;
-    case 64: flash_dkv_kernel<64><<<grid, kRows, 0, s>>>(qf, kf, vf, mk, gf, lf, df, kk, vv, T, H, sb, st, scale, causal); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -46,18 +46,13 @@
 // order from run to run, within the same tolerance. dK and dV are written
 // once at the end.
 //
-// Precision. Each operand x splits into hi = tf32(x) and lo = tf32(x - hi);
-// a product accumulates a_lo b_hi + a_hi b_lo + a_hi b_hi in f32 (3xTF32):
-// about 2^-21 of each product is lost (the dropped a_lo b_lo and lo's
-// rounding), near f32's 2^-24, where one TF32 product keeps about 3
-// decimal digits and would miss the 2e-5 tolerance the kernel is held to.
-// Each 3xTF32 step sums into zeroed accumulators and reaches the running
-// sum by an f32 add (`mma3`): the tensor core truncates its sums, so a
-// running sum fed back through it drifts by an ulp of itself per step.
+// Precision: every product is 3xTF32 with f32 adds into the running sums
+// (mma_tf32.cuh), where one TF32 product would miss the 2e-5 tolerance the
+// kernel is held to.
 //
-// Against what held the two earlier kernels (B5, B6 in flash_attention.cu)
-// back: (1) s, P and dP are formed once per pair, not once in each kernel,
-// and delta needs no launch of its own; (2) 4-warp blocks of tensor-core
+// Against the two one-thread-per-row kernels (a dq one and a dk, dv one)
+// that it replaced: (1) s, P and dP are formed once per pair, not once in
+// each kernel, and delta needs no launch of its own; (2) 4-warp blocks of tensor-core
 // fragments replace one thread per row and its serial FMA chain of D, and
 // the query tile's two passes keep 4 such blocks resident on an SM; (3)
 // causal masking skips whole 16 x 8 fragments that lie above the diagonal,
@@ -66,11 +61,24 @@
 // aligned), row strides padded to D + 4 and 72 so fragment reads are free
 // of bank conflicts; (5) all five products run on the tensor cores.
 // wgmma and TMA are later work: at D = 16 a tile is 4 KB.
+//
+// Head dims 8, 16, 32, 64 and 128 are built (the wrapper zero-pads any
+// other D up to 128 to the next of them). At D = 128 a block holds 154,176
+// bytes of shared memory and dK, dV take 128 accumulator registers a
+// thread, so that instance runs one block an SM and may spill.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
+
+using tf32x3::FragA;
+using tf32x3::frag_a;
+using tf32x3::load4;
+using tf32x3::mma3;
+using tf32x3::stage_rows;
 
 constexpr int kTile = 64;                 // keys a block owns; queries per pass
 constexpr int kWarps = 4;
@@ -92,75 +100,7 @@ constexpr int smem_bytes() {
   return (4 * kTile * (D + 4) + kTile * kDsStride + 2 * kTile) * 4 + kTile;
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// c += a b, one m16n8k8 TF32 product with f32 accumulation
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// a 16 x 8 A fragment in its hi and lo halves: x0 = (row g, col t),
-// x1 = (g + 8, t), x2 = (g, t + 4), x3 = (g + 8, t + 4)
-struct FragA {
-  uint32_t hi[4], lo[4];
-};
-
-__device__ __forceinline__ FragA frag_a(float x0, float x1, float x2, float x3) {
-  FragA f;
-  split(x0, f.hi[0], f.lo[0]);
-  split(x1, f.hi[1], f.lo[1]);
-  split(x2, f.hi[2], f.lo[2]);
-  split(x3, f.hi[3], f.lo[3]);
-  return f;
-}
-
-// c += a b in 3xTF32, b given as its two elements (k = t and k = t + 4 of
-// column g): the small and large terms go to zeroed accumulators
-// (independent products) and reach c by f32 adds, rounded to nearest.
-__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, float b0, float b1) {
-  uint32_t h0, l0, h1, l1;
-  split(b0, h0, l0);
-  split(b1, h1, l1);
-  float big[4] = {0.0f, 0.0f, 0.0f, 0.0f}, small[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma_tf32(small, a.lo, h0, h1);
-  mma_tf32(big, a.hi, h0, h1);
-  mma_tf32(small, a.hi, l0, l1);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += big[e] + small[e];
-}
-
-__device__ __forceinline__ float4 load4(const float* __restrict__ p, bool vec) {
-  if (vec) return __ldg(reinterpret_cast<const float4*>(p));
-  return make_float4(p[0], p[1], p[2], p[3]);
-}
-
-// rows [first, first + 64) of one (b, h) slice -> dst [64][D + 4], zeros past T
-template <int D>
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, long long stride,
-                                      int first, int T, bool vec) {
-  constexpr int kVecs = D / 4;
-  for (int e = threadIdx.x; e < kTile * kVecs; e += kThreads) {
-    const int r = e / kVecs, c = (e % kVecs) * 4;
-    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (first + r < T) x = load4(src + (first + r) * stride + c, vec);
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + c) = x;
-  }
-}
-
-// dO rows -> dst as `stage` does, and delta[r] = rowsum(dO o O) of each row
+// dO rows -> dst as `stage_rows` does, and delta[r] = rowsum(dO o O) of each row
 // (0 past T). Every lane makes D / 8 passes; the D / 4 lanes of a row are
 // neighbours in one warp and sum by shuffles.
 template <int D>
@@ -215,8 +155,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
   const long long io_stride = static_cast<long long>(H) * D;
   const float* lse_row = lse + (static_cast<long long>(b) * H + h) * T;
 
-  stage<D>(k_s, k + in_base, st, k0, T, vec);
-  stage<D>(v_s, v + in_base, st, k0, T, vec);
+  stage_rows<D, kTile, kThreads>(k_s, k + in_base, st, k0, T, vec);
+  stage_rows<D, kTile, kThreads>(v_s, v + in_base, st, k0, T, vec);
   if (threadIdx.x < kTile) {
     const int key = k0 + threadIdx.x;
     ok_s[threadIdx.x] = key < T && (mask == nullptr || mask[static_cast<long long>(b) * T + key]);
@@ -236,7 +176,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
 
   for (int q0 = causal ? k0 : 0; q0 < T; q0 += kTile) {
     __syncthreads();  // the last pass's reads of q_s, do_s and ds_s are done
-    stage<D>(q_s, q + in_base, st, q0, T, vec);
+    stage_rows<D, kTile, kThreads>(q_s, q + in_base, st, q0, T, vec);
     stage_do_delta<D>(do_s, delta_s, dout + io_base, out + io_base, io_stride, q0, T, vec);
     if (threadIdx.x < kTile) {
       lse_s[threadIdx.x] = q0 + threadIdx.x < T ? lse_row[q0 + threadIdx.x] : 0.0f;
@@ -387,7 +327,7 @@ int launch(dim3 grid, cudaStream_t s, const float* q, const float* k, const floa
 // Launches on `stream` and returns cudaGetLastError() (0 on success). sb
 // and st are q/k/v's batch and time strides in floats. With T > 64 dq must
 // come zeroed (the blocks add into it); with T <= 64 it is written whole.
-// A head dim other than 8, 16, 32 or 64 returns cudaErrorInvalidValue and
+// A head dim other than 8, 16, 32, 64 or 128 returns cudaErrorInvalidValue and
 // launches nothing.
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, const void* mask,
                                 const void* dout, const void* out, const void* lse, void* dq,
@@ -418,6 +358,7 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v, con
     case 16: return launch<16>(grid, s, qf, kf, vf, mk, gf, of, lf, dqf, dkf, dvf, T, H, sb, st, scale, causal, vec);
     case 32: return launch<32>(grid, s, qf, kf, vf, mk, gf, of, lf, dqf, dkf, dvf, T, H, sb, st, scale, causal, vec);
     case 64: return launch<64>(grid, s, qf, kf, vf, mk, gf, of, lf, dqf, dkf, dvf, T, H, sb, st, scale, causal, vec);
+    case 128: return launch<128>(grid, s, qf, kf, vf, mk, gf, of, lf, dqf, dkf, dvf, T, H, sb, st, scale, causal, vec);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

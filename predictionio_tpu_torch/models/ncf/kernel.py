@@ -121,8 +121,11 @@ def ncf_score_all_items(
 
     CUDA tensors launch ``csrc/ncf_score.cu`` (and count the launch in
     ``ncf_score_all_items.launches``) or raise: the kernel takes the
-    depth-2 tower, contiguous tensors and widths whose block fits the
-    card's shared memory. CPU tensors take ``ncf_score_plain``."""
+    depth-2 tower and contiguous tensors, at any width whose item tile and
+    first hidden layer for 32 items fit a block's shared memory (H0 up to
+    about 1,500 at E=64 with H1 = H0 / 2; the weights stay in shared
+    memory while they fit, else they stream through it in windows). CPU
+    tensors take ``ncf_score_plain``."""
     n, e = _check(gmf_items, mlp_items, gmf_u, mlp_u, kernels, biases, out_kernel, out_bias)
     if gmf_items.device.type == "cpu":
         return ncf_score_plain(gmf_items, mlp_items, gmf_u, mlp_u,
@@ -143,11 +146,11 @@ def ncf_score_all_items(
     from predictionio_tpu_torch import _kernels
 
     lib = _kernels.library("ncf_score")
-    smem = lib.ncf_score_smem_bytes(e, h0, h1)
-    if smem > _kernels.MAX_SMEM_BYTES:
+    if lib.ncf_score_smem_bytes(e, h0, h1) < 0:
         raise ValueError(
-            f"widths E={e}, H0={h0}, H1={h1} need {smem} bytes of shared "
-            f"memory a block, over the card's {_kernels.MAX_SMEM_BYTES}"
+            f"widths E={e}, H0={h0}, H1={h1}: a block of 32 items with its tile and "
+            f"first hidden layer needs more than the card's {_kernels.MAX_SMEM_BYTES} "
+            "bytes of shared memory"
         )
     out = torch.empty(n, dtype=torch.float32, device=gmf_items.device)
     if n == 0:

@@ -9,7 +9,7 @@ Port of ``predictionio_tpu/models/sequence/model.py``:
   initialized from a ``torch.Generator`` with flax's default
   distributions (``models/_flax_init``; LayerNorm eps 1e-6 as flax's).
   ``attention``: ``"auto"`` is the flash kernels (``ops/flash_attention``,
-  B4 forward, B5/B6 backward) on ``cuda`` and ``plain_attention`` on the
+  B4 forward, the fused backward) on ``cuda`` and ``plain_attention`` on the
   CPU, as the reference is flash on the TPU and plain elsewhere;
   ``"flash"`` and ``"plain"`` force one.
 - The tied output head (``logits``) and the scorer are ``torch.matmul``:

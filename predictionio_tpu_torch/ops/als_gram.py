@@ -27,12 +27,16 @@ from __future__ import annotations
 
 import torch
 
+from predictionio_tpu_torch import _kernels
+
 #: the padded length must be a multiple of this (``pack_padded_csr``'s
 #: ``len_multiple``; the reference's chunk picker needs it too)
 LEN_MULTIPLE = 8
 
-#: the largest rank ``csrc/als_gram.cu`` takes (its ``kMaxRank``)
-MAX_RANK = 64
+#: the largest rank ``csrc/als_gram.cu`` takes: its K (K + 1) Gram and rhs
+#: entries, in groups of 5 x 1,024 a block, must fit the grid's 65,535
+#: rows of blocks
+MAX_RANK = 18_317
 
 _FACTOR_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -109,7 +113,8 @@ def gram_rhs(
     or YtY and solves (``ops.linalg.batched_spd_solve``).
 
     CUDA tensors launch ``csrc/als_gram.cu`` (and count the launch in
-    ``gram_rhs.launches``) or raise; CPU tensors take ``gram_rhs_plain``."""
+    ``gram_rhs.launches``) or raise; CPU tensors take ``gram_rhs_plain``.
+    The kernel takes any rank up to ``MAX_RANK`` (18,317)."""
     r, pad_len, k = _check(indices, values, factors)
     if indices.device.type == "cpu":
         return gram_rhs_plain(indices, values, factors, alpha, implicit=implicit)
@@ -119,8 +124,6 @@ def gram_rhs(
         raise ValueError("gram_rhs needs contiguous tensors")
     if k > MAX_RANK:
         raise ValueError(f"rank {k} exceeds the kernel's largest rank {MAX_RANK}")
-    from predictionio_tpu_torch import _kernels
-
     lib = _kernels.library("als_gram")
     gram = torch.empty((r, k, k), dtype=torch.float32, device=indices.device)
     rhs = torch.empty((r, k), dtype=torch.float32, device=indices.device)

@@ -9,25 +9,24 @@ reference's convention, ``:232-235``), where ``plain_attention`` would
 return the uniform average of the values. ``lse`` is ``[B, H, T]``: the
 reference's ``[B*H, 1, T_padded]`` without its Mosaic padding.
 
-Four kernels, each with its plain torch twin that computes exactly what
+Two kernels, each with its plain torch twin that computes exactly what
 the kernel computes (the recomputation form: P is rebuilt from the saved
 ``lse``, never stored):
 
 - ``flash_forward`` (kernel B4, ``csrc/flash_attention.cu``) and
   ``flash_forward_plain`` -> ``(out, lse)``;
-- ``flash_backward`` (B5 + B6 fused, ``csrc/flash_backward.cu``) and
-  ``flash_backward_plain`` -> ``(dq, dk, dv)`` from ``dO``, ``out`` and
-  ``lse``, ``delta = rowsum(dO o O)`` included;
-- ``flash_dq`` (B5) and ``flash_dq_plain`` -> ``dq``, and ``flash_dkv``
-  (B6) and ``flash_dkv_plain`` -> ``(dk, dv)``, from a given ``delta``:
-  the two-kernel backward, off the autograd path, kept as the fused
-  kernel's yardstick on the card.
+- ``flash_backward`` (the reference's two backward kernels fused,
+  ``csrc/flash_backward.cu``) and ``flash_backward_plain`` -> ``(dq,
+  dk, dv)`` from ``dO``, ``out`` and ``lse``, ``delta = rowsum(dO o O)``
+  included; ``flash_dq_plain`` and ``flash_dkv_plain`` are its parts.
 
 A CUDA tensor launches the kernel (and counts it in the wrapper's
-``launches``) or raises: the kernels take f32, head dims 8, 16, 32 and 64,
-and q, k, v whose heads and features are contiguous with one shared
-batch and time stride (the thirds of one ``[B, T, 3 H D]`` projection
-qualify). A CPU tensor takes the plain version.
+``launches``) or raises: the kernels take f32 and q, k, v whose heads and
+features are contiguous with one shared batch and time stride (the thirds
+of one ``[B, T, 3 H D]`` projection qualify). They are built for head
+dims 8, 16, 32, 64 and 128; any other D up to 128 is zero-padded to the
+next of them (``padded_forward``, ``padded_backward``), and a D above 128
+raises. A CPU tensor takes the plain version.
 
 ``flash_attention`` is the ``torch.autograd.Function`` twin of the
 reference's ``custom_vjp`` (``:228``, ``:349``): B4 forward, one fused
@@ -42,8 +41,9 @@ import torch
 #: the reference's finite masked score (keeps exp() NaN-free)
 NEG = -1e30
 
-#: head dims the kernels are compiled for (a template parameter)
-HEAD_DIMS = (8, 16, 32, 64)
+#: head dims the kernels are compiled for (a template parameter); the
+#: wrappers zero-pad any other D up to the last of them
+HEAD_DIMS = (8, 16, 32, 64, 128)
 
 #: keys one block of the fused backward owns (``kTile`` in
 #: ``csrc/flash_backward.cu``); past one such tile blocks add into dq
@@ -145,8 +145,6 @@ def _launch_args(q, k, v):
     b, t, h, d = q.shape
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the kernels are built for {HEAD_DIMS}")
     strides = {x.stride() for x in (q, k, v)}
     sb, st, sh, sd = q.stride()
     if len(strides) != 1 or sd != 1 or sh != d:
@@ -155,6 +153,48 @@ def _launch_args(q, k, v):
             f"stride, got strides {sorted(strides)}"
         )
     return b, t, h, d, sb, st
+
+
+def built_head_dim(d: int) -> int:
+    """The smallest head dim the kernels are built for that holds ``d``;
+    raises past the largest."""
+    for size in HEAD_DIMS:
+        if d <= size:
+            return size
+    raise ValueError(
+        f"head dim {d}: the flash-attention kernels take head dims up to "
+        f"{HEAD_DIMS[-1]} (built for {HEAD_DIMS}; others are zero-padded)"
+    )
+
+
+def _pad(x, dp: int):
+    d = x.shape[-1]
+    return x if d == dp else torch.nn.functional.pad(x, (0, dp - d))
+
+
+def padded_forward(forward, q, k, v, mask=None, causal=True, sm_scale=None):
+    """``forward`` (``flash_forward`` or its plain version) at the built
+    head dim ``built_head_dim(D)``: q, k and v zero-padded along D, the
+    caller's scale (``1/sqrt(D)`` of the unpadded D unless given), ``out``
+    sliced back to D. Zero columns leave every q.k unchanged and give
+    ``out`` zero columns, which are dropped; ``lse`` is unchanged."""
+    d = q.shape[-1]
+    dp = built_head_dim(d)
+    out, lse = forward(_pad(q, dp), _pad(k, dp), _pad(v, dp), mask, causal, _scale(d, sm_scale))
+    return out[..., :d].contiguous(), lse
+
+
+def padded_backward(backward, q, k, v, mask, do, out, lse, causal=True, sm_scale=None):
+    """``backward`` (``flash_backward`` or its plain version) at the built
+    head dim, as ``padded_forward``: q, k, v, ``do`` and ``out`` zero-padded
+    along D, the caller's scale, dq, dk and dv sliced back to D. The zero
+    columns leave delta = rowsum(dO o O) and every gradient column below D
+    unchanged; theirs come out 0 and are dropped."""
+    d = q.shape[-1]
+    dp = built_head_dim(d)
+    grads = backward(_pad(q, dp), _pad(k, dp), _pad(v, dp), mask, _pad(do, dp), _pad(out, dp),
+                     lse, causal, _scale(d, sm_scale))
+    return tuple(g[..., :d].contiguous() for g in grads)
 
 
 def _mask_ptr(mask):
@@ -171,11 +211,14 @@ def _call(fn: str, *args, source: str = "flash_attention") -> None:
 
 def flash_forward(q, k, v, mask=None, causal=True, sm_scale=None):
     """``flash_forward_plain``'s ``(out, lse)``. CUDA tensors launch kernel
-    B4 (counted in ``flash_forward.launches``) or raise; CPU tensors take
-    the plain version."""
+    B4 (counted in ``flash_forward.launches``; a head dim it is not built
+    for through ``padded_forward``) or raise; CPU tensors take the plain
+    version."""
     _check(q, k, v, mask)
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, mask, causal, sm_scale)
+    if q.shape[-1] not in HEAD_DIMS:
+        return padded_forward(flash_forward, q, k, v, mask, causal, sm_scale)
     b, t, h, d, sb, st = _launch_args(q, k, v)
     mask = None if mask is None else mask.contiguous()
     out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
@@ -191,7 +234,7 @@ def flash_forward(q, k, v, mask=None, causal=True, sm_scale=None):
 
 def _backward_operands(q, full: dict, rows: dict) -> list:
     """Contiguous copies of the backward's extra inputs, ``full`` ones
-    (dO, out) shaped like q and ``rows`` ones (lse, delta) ``[B, H, T]``,
+    (dO, out) shaped like q and ``rows`` ones (lse) ``[B, H, T]``,
     all f32 on q's device; raises on anything else."""
     b, t, h, _ = q.shape
     checked = []
@@ -205,59 +248,19 @@ def _backward_operands(q, full: dict, rows: dict) -> list:
     return checked
 
 
-def flash_dq(q, k, v, mask, do, lse, delta, causal=True, sm_scale=None):
-    """``flash_dq_plain``'s ``dq``. CUDA tensors launch kernel B5 (counted
-    in ``flash_dq.launches``) or raise; CPU tensors take the plain
-    version."""
-    _check(q, k, v, mask)
-    do, lse, delta = _backward_operands(q, {"dO": do}, {"lse": lse, "delta": delta})
-    if q.device.type == "cpu":
-        return flash_dq_plain(q, k, v, mask, do, lse, delta, causal, sm_scale)
-    b, t, h, d, sb, st = _launch_args(q, k, v)
-    mask = None if mask is None else mask.contiguous()
-    dq = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
-    if dq.numel():
-        with torch.cuda.device(q.device):
-            _call("flash_dq_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  _mask_ptr(mask), do.data_ptr(),
-                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                  b, t, h, d, sb, st, _scale(d, sm_scale), int(causal))
-        flash_dq.launches += 1
-    return dq
-
-
-def flash_dkv(q, k, v, mask, do, lse, delta, causal=True, sm_scale=None):
-    """``flash_dkv_plain``'s ``(dk, dv)``. CUDA tensors launch kernel B6
-    (counted in ``flash_dkv.launches``) or raise; CPU tensors take the
-    plain version."""
-    _check(q, k, v, mask)
-    do, lse, delta = _backward_operands(q, {"dO": do}, {"lse": lse, "delta": delta})
-    if q.device.type == "cpu":
-        return flash_dkv_plain(q, k, v, mask, do, lse, delta, causal, sm_scale)
-    b, t, h, d, sb, st = _launch_args(q, k, v)
-    mask = None if mask is None else mask.contiguous()
-    dk = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
-    dv = torch.empty_like(dk)
-    if dk.numel():
-        with torch.cuda.device(q.device):
-            _call("flash_dkv_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  _mask_ptr(mask), do.data_ptr(),
-                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  b, t, h, d, sb, st, _scale(d, sm_scale), int(causal))
-        flash_dkv.launches += 1
-    return dk, dv
-
-
 def flash_backward(q, k, v, mask, do, out, lse, causal=True, sm_scale=None):
     """``flash_backward_plain``'s ``(dq, dk, dv)`` from the forward's
     ``out`` and ``lse`` and the gradient ``do``. CUDA tensors launch the
-    fused kernel (counted in ``flash_backward.launches``) or raise; CPU
-    tensors take the plain version. Beyond one 64-key tile (T > 64) the
-    kernel adds dq up with atomics, so its last bits vary run to run."""
+    fused kernel (counted in ``flash_backward.launches``; a head dim it is
+    not built for through ``padded_backward``) or raise; CPU tensors take
+    the plain version. Beyond one 64-key tile (T > 64) the kernel adds dq
+    up with atomics, so its last bits vary run to run."""
     _check(q, k, v, mask)
     do, out, lse = _backward_operands(q, {"dO": do, "out": out}, {"lse": lse})
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, mask, do, out, lse, causal, sm_scale)
+    if q.shape[-1] not in HEAD_DIMS:
+        return padded_backward(flash_backward, q, k, v, mask, do, out, lse, causal, sm_scale)
     b, t, h, d, sb, st = _launch_args(q, k, v)
     mask = None if mask is None else mask.contiguous()
     zeros_or_empty = torch.zeros if t > KEY_TILE else torch.empty
@@ -278,8 +281,6 @@ def flash_backward(q, k, v, mask, do, out, lse, causal=True, sm_scale=None):
 #: show the training and serving paths went through the kernels)
 flash_forward.launches = 0
 flash_backward.launches = 0
-flash_dq.launches = 0
-flash_dkv.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -311,13 +312,14 @@ def flash_attention(q, k, v, mask=None, causal=True, sm_scale=None):
 __all__ = [
     "HEAD_DIMS",
     "NEG",
+    "built_head_dim",
     "flash_attention",
     "flash_backward",
     "flash_backward_plain",
-    "flash_dkv",
     "flash_dkv_plain",
-    "flash_dq",
     "flash_dq_plain",
     "flash_forward",
     "flash_forward_plain",
+    "padded_backward",
+    "padded_forward",
 ]

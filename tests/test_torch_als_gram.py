@@ -117,6 +117,26 @@ def test_half_step_bytes_matches_reference(shape, fused):
     )
 
 
+@pytest.mark.parametrize("implicit", [False, True])
+def test_matches_jax_kernel_at_rank_128(implicit):
+    """A rank past the 5 x 1,024 entries one CUDA block holds (the kernel
+    splits the K (K + 1) entries into groups there): the plain version
+    the kernel is held to against the reference's Pallas kernel at
+    K = 128, padding slots and an all-padding row included."""
+    rng = np.random.default_rng(128)
+    s, k, l, r = 60, 128, 16, 9
+    table = np.concatenate([rng.normal(size=(s, k)), np.zeros((1, k))])
+    idx = rng.integers(0, s, size=(r, l)).astype(np.int32)
+    idx[:, -3:] = s
+    idx[4] = s
+    val = rng.integers(1, 6, size=(r, l)).astype(np.float32)
+    gram, rhs, j_gram, j_rhs = _both(idx, val, table, 2.5, implicit)
+    assert gram.shape == (r, k, k) and rhs.shape == (r, k)
+    assert not gram[4].any() and not rhs[4].any()
+    np.testing.assert_allclose(gram, j_gram, atol=1e-4)
+    np.testing.assert_allclose(rhs, j_rhs, atol=1e-4)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     idx = torch.zeros((8, 8), dtype=torch.int32)
     val = torch.zeros((8, 8), dtype=torch.float32)
@@ -132,15 +152,18 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 65, 128, 200])
 @pytest.mark.parametrize("implicit", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_on_card(implicit, dtype):
+def test_kernel_matches_plain_on_card(k, implicit, dtype):
     """The CUDA kernel against its plain version on the card, per row
-    relative to max|gram| (the two sum over L in different orders)."""
+    relative to max|gram| (the two sum over L in different orders), at
+    the template's rank and at ranks whose entries split into several
+    groups (65, 128, 200)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     rng = np.random.default_rng(5)
-    s, k, l, r = 3000, 16, 200, 1001
+    s, l, r = 3000, 200, 1001
     table = torch.from_numpy(
         np.concatenate([rng.normal(size=(s, k)), np.zeros((1, k))]).astype(np.float32)
     ).to("cuda", dtype)
@@ -151,6 +174,38 @@ def test_kernel_matches_plain_on_card(implicit, dtype):
     torch.cuda.synchronize()
     assert als_gram.gram_rhs.launches == before + 1
     p_gram, p_rhs = als_gram.gram_rhs_plain(idx, val, table, 0.5, implicit=implicit)
+    scale = p_gram.abs().amax(dim=(1, 2)).clamp(min=1e-30)
+    assert float(((gram - p_gram).abs().amax(dim=(1, 2)) / scale).max()) < 1e-5
+    scale = p_rhs.abs().amax(dim=1).clamp(min=1e-30)
+    assert float(((rhs - p_rhs).abs().amax(dim=1) / scale).max()) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [72, 128, 200])
+@pytest.mark.parametrize("rows", [1, 3, 8])
+def test_kernel_few_rows_on_card(k, rows):
+    """Few rows at ranks whose entries split into groups, so every group's
+    block of a row runs at the same time: no block may store into the
+    entries of the next group. Each entry is summed by one thread in slot
+    order, so repeated launches must agree bit for bit, and each must
+    match the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(k + rows)
+    s, l = 500, 64
+    table = torch.from_numpy(
+        np.concatenate([rng.normal(size=(s, k)), np.zeros((1, k))]).astype(np.float32)
+    ).cuda()
+    idx = torch.from_numpy(rng.integers(0, s + 1, (rows, l)).astype(np.int32)).cuda()
+    val = torch.from_numpy(rng.integers(1, 6, (rows, l)).astype(np.float32)).cuda()
+    p_gram, p_rhs = als_gram.gram_rhs_plain(idx, val, table, 0.5, implicit=True)
+    first = None
+    for _ in range(8):
+        gram, rhs = als_gram.gram_rhs(idx, val, table, 0.5, implicit=True)
+        torch.cuda.synchronize()
+        if first is None:
+            first = (gram.clone(), rhs.clone())
+        assert torch.equal(gram, first[0]) and torch.equal(rhs, first[1])
     scale = p_gram.abs().amax(dim=(1, 2)).clamp(min=1e-30)
     assert float(((gram - p_gram).abs().amax(dim=(1, 2)) / scale).max()) < 1e-5
     scale = p_rhs.abs().amax(dim=1).clamp(min=1e-30)

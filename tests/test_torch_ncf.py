@@ -97,6 +97,19 @@ def test_plain_head_matches_the_reference_head_at_other_depths(hidden):
         np.testing.assert_allclose(scorer(user), want, rtol=2e-4, atol=2e-5)
 
 
+def test_plain_head_matches_the_pallas_kernel_at_wide_widths():
+    """E=64 with hidden (256, 128), whose weights no longer fit a CUDA
+    block's shared memory beside its item tile (the kernel then streams
+    them through windows of it): the plain head the kernel is held to
+    against the reference's Pallas kernel in interpret mode."""
+    tree = flax_params(4, 300, 64, (256, 128), seed=6)
+    state = params_from_flax(tree)
+    for user in (0, 3):
+        want = jax_score_all_items(tree, user, 300, interpret=True)
+        got = kernel.ncf_score_plain(*head_args(state, 300, user)).numpy()
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
 def test_all_items_scorer_matches_the_jax_kernel(tiny):
     tree, state = tiny
     scorer = kernel.make_all_items_scorer(state, 1500, "cpu")
@@ -182,18 +195,22 @@ def test_implicit_batches_are_byte_identical(seed, num_users, num_items, negativ
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("embed,hidden", [(32, (64, 32)), (64, (256, 128)), (128, (512, 256)),
+                                          (100, (200, 70))])
+def test_kernel_matches_plain_on_card(embed, hidden):
     """Kernel B3 against its plain version on the card at the template's
-    widths, with a ragged tile, elementwise within the summation-order
-    bound of ``chip_smoke.b3_tolerance``."""
+    widths (weights in shared memory) and at wide ones (the wide layout,
+    weights streamed through windows; 100/(200, 70) with ragged windows),
+    with a ragged tile, elementwise within the summation-order bound of
+    ``chip_smoke.b3_tolerance``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    tree = flax_params(20, 5003, 32, (64, 32), seed=4)
+    tree = flax_params(20, 5003, embed, hidden, seed=4)
     gmf_users, mlp_users, head = kernel.head_tensors(params_from_flax(tree), 5003, "cuda")
     gi, mi, kernels, biases, out_k, out_b = head
     abs_head = (gi.abs(), mi.abs(), [k.abs() for k in kernels], [b.abs() for b in biases],
                 out_k.abs(), out_b.abs())
-    tol = 2.0 * (3 * 32 + 64 + 32 + 6) * 2.0 ** -24
+    tol = 2.0 * (3 * embed + hidden[0] + hidden[1] + 6) * 2.0 ** -24
     for u in (0, 19):
         args = (gi, mi, gmf_users[u], mlp_users[u], kernels, biases, out_k, out_b)
         before = kernel.ncf_score_all_items.launches
@@ -205,3 +222,20 @@ def test_kernel_matches_plain_on_card():
                                        mlp_users[u].abs(), *abs_head[2:])
         assert got.shape == (5003,)
         assert bool(((got - want).abs() <= tol * scale).all())
+
+
+@pytest.mark.cuda
+def test_widths_past_the_wide_layout_raise_on_card():
+    """B3's one remaining limit: a first hidden layer too wide for a block
+    of 32 items (here H0 = 1,600 at E = 64) raises before any launch; the
+    reference's scorer takes it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    tree = flax_params(4, 100, 64, (1600, 800), seed=5)
+    gmf_users, mlp_users, head = kernel.head_tensors(params_from_flax(tree), 100, "cuda")
+    gi, mi, kernels, biases, out_k, out_b = head
+    before = kernel.ncf_score_all_items.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.ncf_score_all_items(gi, mi, gmf_users[0], mlp_users[0], kernels, biases,
+                                   out_k, out_b)
+    assert kernel.ncf_score_all_items.launches == before
