@@ -20,7 +20,13 @@ script exits non-zero and prints no result):
    and the plain version sum the K products in different orders).
 4. time    -- B2 and its plain version, median of CUDA-event timed runs
    after warm-up, beside the bound: the larger of bytes / 3.35 TB/s and
-   f32 operations / 67 TFLOP/s (H100 SXM data sheet).
+   f32 operations / 67 TFLOP/s (H100 SXM data sheet). Then B2 past one
+   shared-memory stage, over the same 1,000,000 items at B=256: rank 400
+   at 512-item tiles (the tile staged in passes over K) and rank 16 at
+   8,192-item tiles (score rows in a global scratch), each held to its
+   plain version as above, timed, and served: ``RetrievalIndex.search``
+   of 64 of the queries launches B2 once and reaches recall@10 >= 0.99
+   against the exact f32 scan.
 5. serve   -- the serving path: a recommendation model of 138,000 users x
    1,000,000 items x rank 16 made from ``--seed``, saved with
    ``save_model``, deployed through the ``deploy`` code path on cuda
@@ -69,13 +75,16 @@ script exits non-zero and prints no result):
    1025 and 27,000 items, and at widths 8/(16, 8), 5/(12, 7) and
    64/(128, 64), and 64/(256, 128) and 128/(512, 256) over 27,000 items
    and 40/(300, 130) and 100/(200, 70) over 3,001 and 2,047 (the wide
-   layout: weights streamed through shared-memory windows). Tolerance,
+   layout: weights streamed through shared-memory windows), and 64/(1600,
+   800), 64/(4096, 2048) and 1536/(64, 32) over 27,000 items (past the
+   wide layout's shared memory: its tile and first hidden layer in a
+   global scratch). Tolerance,
    elementwise: 2 (3E + H0 + H1 + 6) 2^-24 times S, the same head run on
    the absolute values of every input
    (the worst case of two f32 evaluations that sum each layer in
    different orders; ``b3_tolerance``).
 12. time_b3 -- B3 and its plain version at 1,000,000 and 27,000 items,
-   and the wide towers at 27,000 items, beside the bound (the larger of
+   and the wide and scratch widths at 27,000 items, beside the bound (the larger of
    bytes / 3.35 TB/s and f32 operations / 67 TFLOP/s).
 13. train_ncf -- the NCF training path: ``examples/ncf/engine.json``
    (E=32, hidden 64, 32, batch 4096, lr 0.01, implicit, 4 negatives) on
@@ -91,9 +100,10 @@ script exits non-zero and prints no result):
    answer agrees with the plain head on the card (scores within the B3
    tolerance; items the plain top-k up to near-ties), and each batch
    answer's scores agree with ``predict``'s (B3) within that tolerance.
-   serve_ncf_wide -- a random 64/(256, 128) model over 27,000 items
-   deployed with an engine.json of that width: 3 known-user queries, each
-   200 through B3 (3 launches) and held to the plain head as above.
+   serve_ncf_wide -- random 64/(256, 128) and 64/(1600, 800) models over
+   27,000 items, each deployed with an engine.json of its width: 3
+   known-user queries each, each 200 through B3 (3 launches a model) and
+   held to the plain head as above.
 15. train_verb_ncf -- the ``train`` verb with the NCF engine.json on a
    3,000-event file, and ``deploy`` of what it wrote (B3 serves it).
 16. seq_data -- phase 6's 20M ratings as sequence events (event i at
@@ -106,20 +116,23 @@ script exits non-zero and prints no result):
    rows' masks, with random right padding and with left padding; T in
    {1, 65, 200, 1024} x D in {8, 16, 32, 64}, causal and not, each with a
    fully-masked batch row and left-padded rows (T above 64 takes the
-   fused kernel's atomic dq path); and D in {24, 128} at T in {64, 1024}
-   (24 through the wrappers' zero-padding to 32, held to the plain
-   versions at D = 24). Tolerance, elementwise: 2e-5 times max(1,
+   fused kernel's atomic dq path); D in {24, 128, 136, 256} at T in {64,
+   1024} and D 512 at T 200 (24 and 136 through the wrappers'
+   zero-padding to 32 and 192, held to the plain versions at the caller's
+   D; past 128 the chunked instances). Tolerance, elementwise: 2e-5 times max(1,
    max|plain|) of each output (f32 sums of at most T + D terms in other
    orders; the kernels' products are 3xTF32; the reference's own forward
    bar is 2e-5 on unit inputs). Rows with no valid key: out, dq, dk, dv
    exactly 0, lse <= -1e29; masked keys: dk, dv exactly 0; no NaN
-   anywhere. Then 20 SASRec steps at embedDim 48 / 2 heads (D = 24)
-   through the kernels equal the same steps through the plain versions
-   (losses within 1e-4).
+   anywhere. Then 20 SASRec steps at embedDim 48 / 2 heads (D = 24) and
+   at 256 / 1 head (D = 256) through the kernels equal the same steps
+   through the plain versions (losses within 1e-4).
 18. time_flash -- B4, the fused backward and their plain versions at the
    training shape and at B=16, H=2, T=1024, D=16, and again at the
    training shape with D=24 (the wrappers' padding copies timed with the
-   call) and the long one with D=128, beside the bound (the
+   call) and the long one with D=128 and D=256 (the chunked instances,
+   their recomputed S, dP and delta counted beside the bound as
+   ``chunked_extra_operations``), beside the bound (the
    larger of bytes / 3.35 TB/s and the causal pairs' operations / 165
    TFLOP/s, 3xTF32 on the tensor cores; the backward's delta rows at the
    f32 units' 67 TFLOP/s) and beside ``scaled_dot_product_attention``
@@ -147,6 +160,10 @@ script exits non-zero and prints no result):
    every list agrees with the plain path on the card (scores within 1e-4
    times max(1, max|score|), items up to near-ties), and batch with
    predict.
+   serve_seq_wide -- a random SASRec at embedDim 256 / 1 head (head dim
+   256) over 27,000 items deployed with an engine.json of that width: 3
+   user queries, each 200 through B4 (2 launches a query) and each list
+   the plain path's on the card up to near-ties.
 21. train_verb_seq -- the ``train`` verb with the sequence engine.json on
    a 3,000-event file, and ``deploy`` of what it wrote (B4 serves it).
 
@@ -183,6 +200,11 @@ NUM_USERS, NUM_ITEMS, RANK = 138_000, 1_000_000, 16
 BLOCK_ITEMS, BLOCK_TOPK = 512, 16
 BATCHES = (8, 16, 256)
 TIMED_RUNS = 30
+#: (rank, blockItems) past one shared-memory stage of B2: rank 400 (K
+#: passes) and 8,192-item tiles (global score rows), over the same catalog
+#: at B=256; the served recall is checked on MIPS_WIDE_QUERIES of the batch
+MIPS_WIDE = ((400, 512), (16, 8192))
+MIPS_WIDE_BATCH, MIPS_WIDE_QUERIES = 256, 64
 
 #: the training configuration: the template's engine.json (rank 16, 10
 #: iterations, lambda 0.1, seed 3, f32 factors, explicit) on the bench's
@@ -207,6 +229,9 @@ NCF_E, NCF_HIDDEN = 32, (64, 32)
 #: tile (B3 streams them through shared-memory windows); the first one is
 #: also served
 NCF_WIDE = ((64, (256, 128)), (128, (512, 256)))
+#: widths past the wide layout's shared memory (B3 then keeps the tile
+#: and first hidden layer in a global scratch); the first one is also served
+NCF_SCRATCH = ((64, (1600, 800)), (64, (4096, 2048)), (1536, (64, 32)))
 NCF_WIDE_USERS, NCF_WIDE_QUERIES = 2_000, 3
 NCF_SERVE_USERS, NCF_SERVE_ITEMS = NUM_USERS, NUM_ITEMS
 NCF_TRAIN_ITEMS = TRAIN_ITEMS
@@ -222,14 +247,21 @@ SEQ_LONG_SHAPE = (16, 2, 1024, 16)
 #: the wrappers, the copies timed with the call) and the long one at 128
 SEQ_TRAIN24_SHAPE = (256, 2, 64, 24)
 SEQ_LONG128_SHAPE = (16, 2, 1024, 128)
+#: the long shape at a head dim past 128 (the chunked instances)
+SEQ_LONG256_SHAPE = (16, 2, 1024, 256)
 FLASH_CHECK_T = (1, 65, 200, 1024)
 FLASH_CHECK_D = (8, 16, 32, 64)
-#: head dims the kernels are not built for (zero-padded to 32) or the
-#: largest built one, at the training and the long T
+#: head dims the kernels are not built for (24 zero-padded to 32, 136 to
+#: 192), the largest instance below the chunked ones (128) and one of
+#: theirs (256), at the training and the long T; and 512 at T 200
 FLASH_PADDED_T = (64, 1024)
-FLASH_PADDED_D = (24, 128)
-#: the SASRec width whose head dim (48 / 2 = 24) goes through the padding
-SEQ_PADDED_EMBED, SEQ_PADDED_HEADS = 48, 2
+FLASH_PADDED_D = (24, 128, 136, 256)
+FLASH_WIDE_T, FLASH_WIDE_D = 200, 512
+#: SASRec widths whose head dims go through the padding (48 / 2 = 24) and
+#: through the chunked instances (256 / 1), each 20 steps kernel vs plain
+SEQ_PADDED_WIDTHS = ((48, 2), (256, 1))
+#: the random SASRec served at head dim 256 (serve_seq_wide)
+SEQ_WIDE_USERS, SEQ_WIDE_QUERIES = 2_000, 3
 FLASH_TOL = 2e-5
 SEQ_PLAIN_STEPS = 20
 SEQ_SCORE_TOL = 1e-4
@@ -423,7 +455,69 @@ def phase_check_and_time(rng: np.random.Generator) -> dict:
         shapes.append(row)
         del args
         torch.cuda.empty_cache()
-    return {"shapes": shapes, "max_abs_err": worst}
+    wide = []
+    for rank, block_items in MIPS_WIDE:
+        # a generator of their own: the later phases keep the data they had
+        row = mips_wide(np.random.default_rng([rank, block_items]), rank, block_items)
+        worst = max(worst, row["max_abs_err"])
+        emit({"phase": "time", **row})
+        wide.append(row)
+    return {"shapes": shapes, "wide_shapes": wide, "max_abs_err": worst}
+
+
+def mips_wide(rng: np.random.Generator, rank: int, block_items: int) -> dict:
+    """B2 at a rank or tile size past one shared-memory stage, over the 1M
+    catalog at B=256: against its plain version (indices equal up to
+    near-ties, as ``compare_stage1``), timed beside its bound, and the
+    serving search (``RetrievalIndex.search``, stage 1 through B2) held
+    to recall@10 >= 0.99 against the exact f32 scan."""
+    import torch
+
+    from predictionio_tpu_torch import _kernels
+    from predictionio_tpu_torch.ops.mips import (
+        RetrievalConfig,
+        RetrievalIndex,
+        mips_block_topk,
+        mips_block_topk_plain,
+    )
+
+    factors = rng.standard_normal((NUM_ITEMS, rank)).astype(np.float32)
+    queries = rng.standard_normal((MIPS_WIDE_BATCH, rank)).astype(np.float32)
+    args = stage1_inputs(factors, queries, block_items)
+    padded, nb = args[1].shape[0], args[2].shape[0]
+    lib = _kernels.library("mips_topk")
+    err = compare_stage1(args, BLOCK_TOPK, NUM_ITEMS, exact=False)
+    call = dict(block_topk=BLOCK_TOPK, num_items=NUM_ITEMS)
+    ms = cuda_ms(lambda: mips_block_topk(*args, **call))
+    plain_ms = cuda_ms(lambda: mips_block_topk_plain(*args, **call))
+    bound_ms, bound_by, nbytes, ops = stage1_bound(MIPS_WIDE_BATCH, padded, rank, nb, BLOCK_TOPK)
+    scratch = lib.mips_block_topk_scratch_floats(MIPS_WIDE_BATCH, rank, block_items, nb)
+    del args
+    torch.cuda.empty_cache()
+
+    config = RetrievalConfig(mode="mips", block_items=block_items, block_topk=BLOCK_TOPK)
+    index = RetrievalIndex(factors, config, device="cuda")
+    picked = queries[:MIPS_WIDE_QUERIES]
+    before = mips_block_topk.launches
+    idx, scores = index.search(picked)
+    launches = mips_block_topk.launches - before
+    exact = torch.from_numpy(picked).cuda() @ index._table.T          # [Q, items]
+    want = torch.topk(exact, 10, dim=1).indices.cpu().numpy()
+    order = np.argsort(-scores, axis=1, kind="stable")[:, :10]
+    got = np.take_along_axis(idx, order, axis=1)
+    recall = float(np.mean([len(set(g) & set(w)) / 10 for g, w in zip(got, want)]))
+    if launches != 1 or recall < 0.99:
+        raise AssertionError(f"rank {rank}, blockItems {block_items}: {launches} B2 launches, "
+                             f"recall@10 {recall} against the exact scan")
+    del index, exact
+    torch.cuda.empty_cache()
+    return {"batch": MIPS_WIDE_BATCH, "items": NUM_ITEMS, "rank": rank,
+            "block_items": block_items, "block_topk": BLOCK_TOPK, "max_abs_err": err,
+            "smem_bytes": lib.mips_block_topk_smem_bytes(rank, block_items),
+            "scratch_bytes": 4 * scratch, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "operations": ops,
+            "fraction_of_bound": bound_ms / ms, "search_queries": len(picked),
+            "search_launches": launches, "search_recall_at_10": recall}
 
 
 def make_model(rng: np.random.Generator, queried_users: np.ndarray):
@@ -1222,9 +1316,12 @@ def phase_check_b3(seed: int) -> dict:
     (the last one included), the small catalogs 1, 1023, 1025 and 27,000,
     widths that are not multiples of the kernel's 8-column chunks, and
     the wide towers (the wide layout, weights streamed through windows)
-    over 27,000 items and at odd wide widths."""
+    over 27,000 items and at odd wide widths, and the widths past the
+    wide layout's shared memory (its tile and first hidden layer in a
+    global scratch) over 27,000 items."""
     import torch
 
+    from predictionio_tpu_torch import _kernels
     from predictionio_tpu_torch.models.ncf.kernel import head_tensors
 
     cases = [(NCF_SERVE_USERS, NCF_SERVE_ITEMS, NCF_E, NCF_HIDDEN)]
@@ -1232,6 +1329,8 @@ def phase_check_b3(seed: int) -> dict:
     cases += [(64, 3001, 8, (16, 8)), (64, 3001, 5, (12, 7)), (64, 2049, 64, (128, 64))]
     cases += [(64, NCF_TRAIN_ITEMS, e, hidden) for e, hidden in NCF_WIDE]
     cases += [(64, 3001, 40, (300, 130)), (64, 2047, 100, (200, 70))]
+    cases += [(64, NCF_TRAIN_ITEMS, e, hidden) for e, hidden in NCF_SCRATCH]
+    lib = _kernels.library("ncf_score")
     worst = worst_ratio = 0.0
     for users, items, e, hidden in cases:
         state = random_ncf_state(users, items, e, hidden, seed)
@@ -1241,7 +1340,9 @@ def phase_check_b3(seed: int) -> dict:
         worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
         emit({"phase": "check_b3", "items": items, "embed": e, "hidden": list(hidden),
               "users_checked": picked, "max_abs_err": err,
-              "max_err_over_bound": ratio, "tolerance": b3_tolerance(e, *hidden)})
+              "max_err_over_bound": ratio, "tolerance": b3_tolerance(e, *hidden),
+              "smem_bytes": lib.ncf_score_smem_bytes(e, *hidden),
+              "scratch_bytes": 4 * lib.ncf_score_scratch_floats(items, e, *hidden)})
         del gmf_users, mlp_users, head, state
         torch.cuda.empty_cache()
     return {"max_abs_err": worst, "max_err_over_bound": worst_ratio}
@@ -1249,8 +1350,9 @@ def phase_check_b3(seed: int) -> dict:
 
 def phase_time_b3(seed: int) -> dict:
     """B3 and its plain version, CUDA-event medians, at 1,000,000 and at
-    27,000 items (the template's widths) and at the wide towers over
-    27,000 items, beside the bound."""
+    27,000 items (the template's widths) and at the wide towers and the
+    widths past the wide layout's shared memory over 27,000 items,
+    beside the bound."""
     import torch
 
     from predictionio_tpu_torch.models.ncf.kernel import (
@@ -1261,7 +1363,7 @@ def phase_time_b3(seed: int) -> dict:
 
     shapes = []
     cases = [(NCF_SERVE_ITEMS, NCF_E, NCF_HIDDEN), (NCF_TRAIN_ITEMS, NCF_E, NCF_HIDDEN)]
-    cases += [(NCF_TRAIN_ITEMS, e, hidden) for e, hidden in NCF_WIDE]
+    cases += [(NCF_TRAIN_ITEMS, e, hidden) for e, hidden in NCF_WIDE + NCF_SCRATCH]
     for items, embed, hidden in cases:
         state = random_ncf_state(64, items, embed, hidden, seed)
         gmf_users, mlp_users, (gi, mi, kernels, biases, out_k, out_b) = head_tensors(
@@ -1534,30 +1636,36 @@ def phase_serve_ncf(rng: np.random.Generator, trained: dict, repo: str, workdir:
     return result
 
 
-def phase_serve_ncf_wide(rng: np.random.Generator, seed: int, repo: str, workdir: str) -> dict:
-    """A NeuMF model at the first wide width (E=64, hidden 256, 128; random
-    weights from ``seed``, 27,000 items) saved, deployed through the
-    ``deploy`` code path on cuda with an engine.json of that width, and
-    asked for the top 10 of known users over HTTP: each answer 200 through
-    B3 (launches counted from 0 before the queries) and each list the
-    plain head's on the card up to near-ties."""
+def phase_serve_ncf_wide(rng: np.random.Generator, seed: int, repo: str, workdir: str) -> list:
+    """NeuMF models at the first wide width (E=64, hidden 256, 128) and
+    the first one past the wide layout's shared memory (E=64, hidden
+    1600, 800), random weights from ``seed``, 27,000 items, each saved,
+    deployed through the ``deploy`` code path on cuda with an engine.json
+    of its width, and asked for the top 10 of known users over HTTP: each
+    answer 200 through B3 (launches counted from 0 before the queries) and
+    each list the plain head's on the card up to near-ties."""
+    return [serve_ncf_width(rng, seed, repo, workdir, embed, hidden)
+            for embed, hidden in (NCF_WIDE[0], NCF_SCRATCH[0])]
+
+
+def serve_ncf_width(rng: np.random.Generator, seed: int, repo: str, workdir: str,
+                    embed: int, hidden) -> dict:
     from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
     from predictionio_tpu_torch.models.ncf import model_from_state, save_model
     from predictionio_tpu_torch.models.ncf.kernel import head_tensors, ncf_score_plain
 
-    embed, hidden = NCF_WIDE[0]
     items = NCF_TRAIN_ITEMS
     state = random_ncf_state(NCF_WIDE_USERS, items, embed, hidden, seed)
     seen_users = np.repeat(np.arange(NCF_WIDE_USERS), 20)
     seen_items = rng.integers(0, items, seen_users.size)
     model = model_from_state(state, [f"u{u}" for u in range(NCF_WIDE_USERS)],
                              [f"i{i}" for i in range(items)], seen_users, seen_items)
-    model_dir = os.path.join(workdir, "ncf_wide")
+    model_dir = os.path.join(workdir, f"ncf_wide_{embed}_{hidden[0]}")
     save_model(model, model_dir)
     with open(ncf_engine(repo)[0]) as f:
         variant = json.load(f)
     variant["algorithms"][0]["params"].update({"embedDim": embed, "hidden": list(hidden)})
-    engine_json = os.path.join(workdir, "ncf_wide_engine.json")
+    engine_json = os.path.join(workdir, f"ncf_wide_{embed}_{hidden[0]}_engine.json")
     with open(engine_json, "w") as f:
         json.dump(variant, f)
     picked = rng.choice(NCF_WIDE_USERS, size=NCF_WIDE_QUERIES, replace=False)
@@ -1747,9 +1855,10 @@ def phase_check_flash(seed: int, seq: dict) -> dict:
     the training shape with the packed rows' own masks, with random right
     padding (serving's prefixes) and with left padding; every listed
     T x D, causal and not, with a fully-masked batch row and left-padded
-    rows; head dims 24 (padded) and 128 at T 64 and 1024; then 20 SASRec
-    steps at embedDim 48 / 2 heads (D = 24) through the kernels against
-    the same steps through the plain versions."""
+    rows; head dims 24 and 136 (padded), 128 and 256 at T 64 and 1024,
+    and 512 at T 200; then 20 SASRec steps at embedDim 48 / 2 heads (D =
+    24) and at 256 / 1 (D = 256) through the kernels against the same
+    steps through the plain versions."""
     import torch
 
     from predictionio_tpu_torch.models.sequence.model import SASRecConfig, train_sasrec
@@ -1790,47 +1899,53 @@ def phase_check_flash(seed: int, seq: dict) -> dict:
                   "max_abs_err_so_far": dict(worst)})
         torch.cuda.empty_cache()
     padded: dict = {}
-    for t in FLASH_PADDED_T:
+    shapes = [(t, d) for t in FLASH_PADDED_T for d in FLASH_PADDED_D]
+    for t, d in shapes + [(FLASH_WIDE_T, FLASH_WIDE_D)]:
         pads = (0, t // 3, t)
         mask = torch.from_numpy(np.arange(t)[None] >= np.asarray(pads)[:, None])
-        for d in FLASH_PADDED_D:
-            for causal in (True, False):
-                dead = [(1, t // 3), (2, t)] if causal else [(2, t)]
-                errs = compare_flash(*flash_inputs(gen, 3, 2, t, d, mask), causal, dead)
-                cases += 1
-                for k, e in errs.items():
-                    worst[k] = max(worst.get(k, 0.0), e)
-                    padded[f"{k}_d{d}"] = max(padded.get(f"{k}_d{d}", 0.0), e)
+        for causal in (True, False):
+            dead = [(1, t // 3), (2, t)] if causal else [(2, t)]
+            errs = compare_flash(*flash_inputs(gen, 3, 2, t, d, mask), causal, dead)
+            cases += 1
+            for k, e in errs.items():
+                worst[k] = max(worst.get(k, 0.0), e)
+                padded[f"{k}_d{d}"] = max(padded.get(f"{k}_d{d}", 0.0), e)
         torch.cuda.empty_cache()
     emit({"phase": "check_flash", "case": "head_dims", "t": list(FLASH_PADDED_T),
-          "d": list(FLASH_PADDED_D), "max_abs_err": padded})
-    # SASRec at a head dim of 24 (embedDim 48, 2 heads): 20 steps through
-    # B4 and the fused backward (zero-padded to 32) against the plain
-    # versions, from the same seeded init
+          "d": list(FLASH_PADDED_D), "wide": [FLASH_WIDE_T, FLASH_WIDE_D],
+          "max_abs_err": padded})
+    # SASRec at head dims 24 (embedDim 48, 2 heads; zero-padded to 32) and
+    # 256 (embedDim 256, 1 head; the chunked instances): 20 steps through
+    # B4 and the fused backward against the plain versions, from the same
+    # seeded init
     params = seq["variant"]["algorithms"][0]["params"]
     prepared = seq["prepared"]
-    config = SASRecConfig(
-        num_items=TRAIN_ITEMS, max_len=prepared.matrix.shape[1], embed_dim=SEQ_PADDED_EMBED,
-        num_heads=SEQ_PADDED_HEADS, num_blocks=params.get("numBlocks", 2),
-        ffn_dim=params.get("ffnDim", 64), learning_rate=params.get("learningRate", 1e-3),
-        batch_size=params.get("batchSize", 256), epochs=1, seed=params.get("seed", 0))
-    part = prepared.matrix[: SEQ_PLAIN_STEPS * config.batch_size]
-    before = flash_counts()
-    _, kernel_losses = train_sasrec(config, part, "cuda", log_every=1)
-    launched = {k: n - before[k] for k, n in flash_counts().items()}
-    if launched != {k: config.num_blocks * SEQ_PLAIN_STEPS for k in FLASH_KERNELS}:
-        raise AssertionError(f"head dim 24 steps launched {launched}")
-    with plain_flash():
-        _, plain_losses = train_sasrec(config, part, "cuda", log_every=1)
-    d24_diff = float(np.abs(np.asarray(kernel_losses) - np.asarray(plain_losses)).max())
-    if len(kernel_losses) != SEQ_PLAIN_STEPS or d24_diff > 1e-4:
-        raise AssertionError(f"{len(kernel_losses)} head-dim-24 steps through the kernels "
-                             f"differ from the plain versions by {d24_diff} > 1e-4")
-    emit({"phase": "check_flash", "case": "sasrec_head_dim_24", "embed": config.embed_dim,
-          "heads": config.num_heads, "steps": SEQ_PLAIN_STEPS, "launches": launched,
-          "kernel_vs_plain_max_loss_diff": d24_diff})
+    loss_diffs = {}
+    for embed, heads in SEQ_PADDED_WIDTHS:
+        config = SASRecConfig(
+            num_items=TRAIN_ITEMS, max_len=prepared.matrix.shape[1], embed_dim=embed,
+            num_heads=heads, num_blocks=params.get("numBlocks", 2),
+            ffn_dim=params.get("ffnDim", 64), learning_rate=params.get("learningRate", 1e-3),
+            batch_size=params.get("batchSize", 256), epochs=1, seed=params.get("seed", 0))
+        part = prepared.matrix[: SEQ_PLAIN_STEPS * config.batch_size]
+        before = flash_counts()
+        _, kernel_losses = train_sasrec(config, part, "cuda", log_every=1)
+        launched = {k: n - before[k] for k, n in flash_counts().items()}
+        head_dim = embed // heads
+        if launched != {k: config.num_blocks * SEQ_PLAIN_STEPS for k in FLASH_KERNELS}:
+            raise AssertionError(f"head dim {head_dim} steps launched {launched}")
+        with plain_flash():
+            _, plain_losses = train_sasrec(config, part, "cuda", log_every=1)
+        diff = float(np.abs(np.asarray(kernel_losses) - np.asarray(plain_losses)).max())
+        if len(kernel_losses) != SEQ_PLAIN_STEPS or diff > 1e-4:
+            raise AssertionError(f"{len(kernel_losses)} head-dim-{head_dim} steps through the "
+                                 f"kernels differ from the plain versions by {diff} > 1e-4")
+        emit({"phase": "check_flash", "case": f"sasrec_head_dim_{head_dim}", "embed": embed,
+              "heads": heads, "steps": SEQ_PLAIN_STEPS, "launches": launched,
+              "kernel_vs_plain_max_loss_diff": diff})
+        loss_diffs[f"d{head_dim}"] = diff
     return {"max_abs_err": worst, "cases": cases, "padded_max_abs_err": padded,
-            "sasrec_d24_loss_diff": d24_diff}
+            "sasrec_loss_diff": loss_diffs}
 
 
 def causal_pairs(mask) -> int:
@@ -1861,6 +1976,23 @@ def flash_bound(kernel: str, b: int, h: int, t: int, d: int, pairs: int):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
+def chunked_extra_ops(kernel: str, b: int, h: int, t: int, d: int, pairs: int) -> float:
+    """Operations the chunked instances (head dims past 128) do beyond
+    ``flash_bound``'s count: each of the D / 64 chunk blocks of a tile
+    forms the whole S (B4) or S, dP and delta (the fused backward), so
+    every further chunk adds 2 D a pair (B4), 4 D a pair and 2 D a row
+    (the backward), D the padded head dim. 0 at D <= 128."""
+    from predictionio_tpu_torch.ops.flash_attention import HEAD_DIM_CHUNK, built_head_dim
+
+    dp = built_head_dim(d)
+    if dp <= 128:
+        return 0.0
+    further = dp // HEAD_DIM_CHUNK - 1
+    if kernel == "flash_forward":
+        return float(further * 2 * dp * pairs * h)
+    return float(further * (4 * dp * pairs * h + 2 * dp * b * h * t))
+
+
 def sdpa_backend(q, k, v, attn_mask) -> str:
     """The backend ``scaled_dot_product_attention`` picks for these
     inputs, as PyTorch reports it."""
@@ -1879,7 +2011,8 @@ def phase_time_flash(seed: int, seq: dict) -> dict:
     """B4, the fused backward, their plain versions and SDPA (forward, and
     its backward beside the fused kernel) at the training shape, with the
     packed rows' masks, and at the long shape, all keys valid; then both
-    again at head dims 24 (padded) and 128; beside each kernel's bound."""
+    again at head dims 24 (padded), 128 and 256 (the chunked instances,
+    their extra operations beside); beside each kernel's bound."""
     import torch
     import torch.nn.functional as F
 
@@ -1889,7 +2022,8 @@ def phase_time_flash(seed: int, seq: dict) -> dict:
     shapes = []
     for name, (b, h, t, d) in (("train", SEQ_TRAIN_SHAPE), ("long", SEQ_LONG_SHAPE),
                                ("train_d24", SEQ_TRAIN24_SHAPE),
-                               ("long_d128", SEQ_LONG128_SHAPE)):
+                               ("long_d128", SEQ_LONG128_SHAPE),
+                               ("long_d256", SEQ_LONG256_SHAPE)):
         if name.startswith("train"):
             mask = torch.from_numpy(seq["prepared"].matrix[:b] > 0)
         else:
@@ -1931,12 +2065,16 @@ def phase_time_flash(seed: int, seq: dict) -> dict:
         for kernel, (fn, plain) in calls.items():
             (ms, call_ms), (plain_ms, plain_call_ms) = timed_pair(fn), timed_pair(plain)
             bound_ms, bound_by, nbytes, ops = flash_bound(kernel, b, h, t, d, pairs)
+            extra = chunked_extra_ops(kernel, b, h, t, d, pairs)
             lib_ms, lib_call_ms = library["fwd" if kernel == "flash_forward" else "bwd"]
             row["kernels"][kernel] = {
                 "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
                 "plain_call_ms": plain_call_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "bytes": nbytes, "operations": ops, "fraction_of_bound": bound_ms / ms,
                 "library_ms": lib_ms, "library_call_ms": lib_call_ms,
+                # the chunked instances' recomputed S (and dP, delta), not in the bound
+                "chunked_extra_operations": extra,
+                "chunked_extra_ms_at_roof": extra / F32_3XTF32_OPS_PER_S * 1e3,
             }
         emit({"phase": "time_flash", **row})
         shapes.append(row)
@@ -2196,6 +2334,64 @@ def phase_serve_seq(rng: np.random.Generator, trained: dict, repo: str, workdir:
     return result
 
 
+def phase_serve_seq_wide(seed: int, repo: str, workdir: str) -> dict:
+    """A random SASRec at embedDim 256 / 1 head (head dim 256: B4's
+    chunked instance) over the 27,000 items, its init from ``seed`` and
+    random histories, saved, deployed through the ``deploy`` code path on
+    cuda with an engine.json of that width and asked for the top 10 of
+    known users over HTTP: each answer 200 through B4 (launches counted
+    from 0 before the queries, less the deploy's warm-up: numBlocks a
+    query) and each list the plain path's on the card up to near-ties."""
+    from predictionio_tpu_torch.models.sequence import (
+        SASRecConfig,
+        model_from_state,
+        save_model,
+        score_next_items,
+    )
+    from predictionio_tpu_torch.models.sequence.model import init_model
+
+    rng = np.random.default_rng(seed)
+    _, variant = sequence_engine(repo)
+    params = variant["algorithms"][0]["params"]
+    embed, heads = SEQ_PADDED_WIDTHS[-1]
+    config = SASRecConfig(num_items=TRAIN_ITEMS, max_len=variant["preparator"]["params"]["maxLen"],
+                          embed_dim=embed, num_heads=heads,
+                          num_blocks=params.get("numBlocks", 2), ffn_dim=params.get("ffnDim", 64),
+                          seed=seed)
+    state = init_model(config).state_dict()
+    lengths = rng.integers(2, config.max_len + 1, SEQ_WIDE_USERS)
+    histories = {f"u{u}": rng.integers(1, TRAIN_ITEMS + 1, n) for u, n in enumerate(lengths)}
+    model = model_from_state(state, config, [f"i{i}" for i in range(TRAIN_ITEMS)], histories)
+    model_dir = os.path.join(workdir, "seq_wide")
+    save_model(model, model_dir)
+    variant["algorithms"][0]["params"].update({"embedDim": embed, "numHeads": heads})
+    engine_json = os.path.join(workdir, "seq_wide_engine.json")
+    with open(engine_json, "w") as f:
+        json.dump(variant, f)
+    picked = rng.choice(SEQ_WIDE_USERS, size=SEQ_WIDE_QUERIES, replace=False)
+    queries = [{"user": f"u{u}", "num": 10} for u in picked]
+    before = flash_counts()["flash_forward"]            # counts start here
+    served, deployed, deploy_s = serve_model(engine_json, model_dir, queries)
+    blocks = deployed.config.num_blocks
+    launches = flash_counts()["flash_forward"] - before - blocks  # less the warm-up's
+    if launches != blocks * len(queries):
+        raise AssertionError(f"{launches} B4 launches for {len(queries)} head-dim-{embed} "
+                             f"queries of {blocks} blocks")
+    net = deployed.network("cuda")
+    for q, body in zip(queries, served):
+        prefix = deployed.histories[q["user"]]
+        with plain_flash():
+            plain = score_next_items(net, prefix).astype(np.float64)
+        plain[list({int(i) - 1 for i in prefix})] = -np.inf
+        check_seq_list(body, plain,
+                       SEQ_SCORE_TOL * max(1.0, float(np.abs(plain[np.isfinite(plain)]).max())))
+    result = {"embed": embed, "heads": heads, "head_dim": embed // heads,
+              "users": SEQ_WIDE_USERS, "items": TRAIN_ITEMS, "queries": len(queries),
+              "launches": {"flash_forward": launches}, "deploy_s": deploy_s}
+    emit({"phase": "serve_seq_wide", **result})
+    return result
+
+
 def phase_train_verb_seq(rng: np.random.Generator, repo: str, workdir: str) -> dict:
     """The ``train`` verb with the sequence template's engine.json on a
     small events file, and ``deploy`` of the model it wrote."""
@@ -2260,7 +2456,8 @@ def flash_rows(check: dict, timed: dict, train_launches: dict, serve_launches: i
             "other_shapes": [{**{x: o[x] for x in ("batch", "heads", "t", "d")},
                               **{x: o["kernels"][name][x] for x in
                                  ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms")}} for o in other],
+                                  "library_ms", "chunked_extra_operations",
+                                  "chunked_extra_ms_at_roof")}} for o in other],
         })
     rows[0]["serve_launches"] = serve_launches
     rows[1]["also_replaces"] = "predictionio_tpu/ops/flash_attention.py:148"
@@ -2327,6 +2524,7 @@ def main(argv: list[str] | None = None) -> int:
     seq_trained = phase_train_seq(seq)
     with tempfile.TemporaryDirectory() as workdir:
         seq_serve = phase_serve_seq(rng, seq_trained, repo, workdir)
+        phase_serve_seq_wide(args.seed, repo, workdir)
         phase_train_verb_seq(rng, repo, workdir)
 
     main_shape = next(s for s in stage1["shapes"] if s["batch"] == 256)
@@ -2348,6 +2546,11 @@ def main(argv: list[str] | None = None) -> int:
         "library_note": "no single PyTorch call computes a per-tile top-R "
                         "of an int8-dequantized product",
         "shape": {k: main_shape[k] for k in ("batch", "items", "rank", "block_items", "block_topk")},
+        "other_shapes": [
+            {k: s[k] for k in ("batch", "rank", "block_items", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "search_recall_at_10") if k in s}
+            for s in stage1["shapes"] + stage1["wide_shapes"] if s is not main_shape
+        ],
     }, {
         "name": "gram_rhs",
         "route": "cuda",

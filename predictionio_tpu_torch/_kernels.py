@@ -38,9 +38,6 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: shared memory one block may use on Hopper (227 KB); the wrappers
-#: refuse widths whose block needs more before they launch
-MAX_SMEM_BYTES = 232_448
 
 #: kernel name -> (source under csrc/, {C function: (restype, argtypes)})
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
@@ -50,10 +47,9 @@ KERNELS = {
     "mips_topk": (
         "mips_topk.cu",
         {
-            "mips_block_topk_launch": (
-                _INT, [_VP, _VP, _VP, _VP, _VP] + [_INT] * 6 + [_VP]
-            ),
+            "mips_block_topk_launch": (_INT, [_VP] * 6 + [_INT] * 6 + [_VP]),
             "mips_block_topk_smem_bytes": (_INT, [_INT, _INT]),
+            "mips_block_topk_scratch_floats": (ctypes.c_longlong, [_INT] * 4),
         },
     ),
     "als_gram": (
@@ -67,8 +63,9 @@ KERNELS = {
     "ncf_score": (
         "ncf_score.cu",
         {
-            "ncf_score_launch": (_INT, [_VP] * 13 + [_INT] * 4 + [_VP]),
+            "ncf_score_launch": (_INT, [_VP] * 14 + [_INT] * 4 + [_VP]),
             "ncf_score_smem_bytes": (_INT, [_INT] * 3),
+            "ncf_score_scratch_floats": (ctypes.c_longlong, [_INT] * 4),
         },
     ),
     "flash_attention": (
@@ -180,6 +177,23 @@ def library(name: str) -> ctypes.CDLL:
                 _finish(name, job)
             _load(name)
         return _loaded[name]
+
+
+def scratch(floats: int, device, what: str):
+    """A kernel's global scratch of ``floats`` f32 on ``device`` (None for
+    0), its size from the kernel's own query (-1 there is a CUDA error).
+    Raises where the card's memory cannot hold it."""
+    import torch
+
+    if floats < 0:
+        raise RuntimeError(f"{what}: the scratch size query failed")
+    if floats == 0:
+        return None
+    total = torch.cuda.get_device_properties(device).total_memory
+    if 4 * floats > total:
+        raise ValueError(f"{what} needs {4 * floats} bytes of scratch, more than the "
+                         f"card's {total} bytes of memory")
+    return torch.empty(floats, dtype=torch.float32, device=device)
 
 
 def check(status: int, what: str) -> None:

@@ -53,6 +53,19 @@
 //
 // Head dims 8, 16, 32, 64 and 128 are built (the wrapper zero-pads any
 // other D up to 128 to the next of them and passes the caller's scale).
+//
+// Head dims past 128, a multiple of 64 (the wrapper zero-pads others up
+// to one), run the chunked instance: the D = 64 instance's fragments and
+// staging over 64-column chunks of D, so neither registers nor shared
+// memory grow with D. A grid dimension runs over the D / 64 output
+// chunks. Block (b, h, query tile, chunk c) forms each key tile's
+// S = sum over chunks c' of Q_c' K_c'^T, the Q_c' and K_c' tiles staged
+// chunk by chunk with cp.async (V_c's copy flying meanwhile), runs the
+// same online softmax and adds P V_c into its 64 columns of O. Every chunk
+// block of a tile forms the same S in the same order, so the same m, l
+// and lse; chunk 0 alone stores lse. S is formed D / 64 times over: 2 D
+// operations a pair for each further chunk, the price of a design whose
+// registers and 52,288 bytes of shared memory do not grow with D.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -125,6 +138,112 @@ __device__ __forceinline__ FragA q_frag(const float* q_s, int qr, int kk, int t)
   constexpr int S = D + 4;
   const float* x = q_s + qr * S + kk + t;
   return frag_a(x[0], x[8 * S], x[4], x[8 * S + 4]);
+}
+
+// key fragment `first` .. first + 7 has a valid pair for the warp whose
+// first query is qw: inside T and, with causal masking, not wholly after
+// the warp's last query
+__device__ __forceinline__ bool key_frag_live(int first, int T, int qw, int causal) {
+  return first < T && !(causal && first > qw + kWarpRows - 1);
+}
+
+// One key tile's online-softmax step on a warp's S = Q K^T fragments: the
+// scale and validity (an invalid pair's score becomes -inf), the tile's
+// row max across the quad, the rescale of l and of the O accumulators,
+// then P = exp(s - m) in place and its row sums into l. Element e of
+// fragment j: query row_lo (e < 2) or row_hi, key k0 + 8 j + 2 t + (e & 1).
+template <int ND>
+__device__ __forceinline__ void softmax_step(float (&s)[kSteps][4], float (&o)[ND][4],
+                                             float& m_lo, float& m_hi, float& l_lo, float& l_hi,
+                                             const unsigned char* ok_s, int k0, int row_lo,
+                                             int row_hi, int t, float scale, int causal) {
+  float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kl = 8 * j + 2 * t + (e & 1);
+      const int row = e < 2 ? row_lo : row_hi;
+      const bool valid = ok_s[kl] && (!causal || k0 + kl <= row);
+      s[j][e] = valid ? s[j][e] * scale : -__int_as_float(0x7f800000);
+    }
+    mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+  }
+  // the running max stays finite (kNeg), so corr is never NaN and an
+  // invalid pair's exp(-inf) is exactly 0
+  const float corr_lo = expf(m_lo - mx_lo), corr_hi = expf(m_hi - mx_hi);
+  m_lo = mx_lo;
+  m_hi = mx_hi;
+  l_lo *= corr_lo;
+  l_hi *= corr_hi;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    o[n][0] *= corr_lo;
+    o[n][1] *= corr_lo;
+    o[n][2] *= corr_hi;
+    o[n][3] *= corr_hi;
+  }
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j) {
+    s[j][0] = expf(s[j][0] - m_lo);
+    s[j][1] = expf(s[j][1] - m_lo);
+    s[j][2] = expf(s[j][2] - m_hi);
+    s[j][3] = expf(s[j][3] - m_hi);
+    l_lo += s[j][0] + s[j][1];
+    l_hi += s[j][2] + s[j][3];
+  }
+}
+
+// O += P V, A from the P registers with the k index permuted: A column t
+// is key 2 t, column t + 4 key 2 t + 1, V's rows (stride S) to match
+template <int ND, int S>
+__device__ __forceinline__ void add_pv(float (&o)[ND][4], const float (&s)[kSteps][4],
+                                       const float* v_s, int k0, int T, int qw, int causal,
+                                       int g, int t) {
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j) {
+    if (!key_frag_live(k0 + 8 * j, T, qw, causal)) continue;
+    const FragA pa = frag_a(s[j][0], s[j][2], s[j][1], s[j][3]);
+    const float* vx = v_s + (8 * j + 2 * t) * S + g;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) mma3(o[n], pa, vx[8 * n], vx[S + 8 * n]);
+  }
+}
+
+// The epilogue: l summed across the quad (each lane summed its own keys),
+// out = O / max(l, 1e-20) into columns [col0, col0 + 8 ND) of the rows of
+// a D-wide out, and lse = m + log(max(l, 1e-20)) when `store_lse`.
+template <int ND>
+__device__ __forceinline__ void store_out(const float (&o)[ND][4], float m_lo, float m_hi,
+                                          float l_lo, float l_hi, float* __restrict__ out,
+                                          float* __restrict__ lse, int b, int h, int T, int H,
+                                          int D, int col0, bool store_lse, int row_lo, int t) {
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  const float lc_lo = fmaxf(l_lo, 1e-20f), lc_hi = fmaxf(l_hi, 1e-20f);
+  const long long lse_base = (static_cast<long long>(b) * H + h) * T;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_lo + 8 * half;
+    if (row >= T) continue;
+    const float lc = half ? lc_hi : lc_lo;
+    float* dst = out + ((static_cast<long long>(b) * T + row) * H + h) * D + col0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(o[n][2 * half] / lc, o[n][2 * half + 1] / lc);
+    }
+    if (store_lse && t == 0) lse[lse_base + row] = (half ? m_hi : m_lo) + logf(lc);
+  }
 }
 
 template <int D>
@@ -206,12 +325,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const unsigned char* ok_s = ok2 + buf * kTile;
     if (qw >= T) continue;  // the whole warp lies past T (block-uniform barriers above)
 
-    // key fragment j (8 keys) has a valid pair for this warp's queries
-    auto live = [&](int j) {
-      const int first = k0 + 8 * j;
-      return first < T && !(causal && first > qw + kWarpRows - 1);
-    };
-
     // S = Q K^T: 16 queries x 64 keys per warp
     float s[kSteps][4];
 #pragma unroll
@@ -229,89 +342,114 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       }
 #pragma unroll
       for (int j = 0; j < kSteps; ++j) {
-        if (!live(j)) continue;
+        if (!key_frag_live(k0 + 8 * j, T, qw, causal)) continue;
         const float* kx = k_s + (8 * j + g) * S + 8 * n + t;
         mma3(s[j], a, kx[0], kx[4]);
       }
     }
+    softmax_step<ND>(s, o, m_lo, m_hi, l_lo, l_hi, ok_s, k0, row_lo, row_hi, t, scale, causal);
+    add_pv<ND, S>(o, s, v_s, k0, T, qw, causal, g, t);
+  }
+  store_out<ND>(o, m_lo, m_hi, l_lo, l_hi, out, lse, b, h, T, H, D, 0, true, row_lo, t);
+}
 
-    // scale and validity; the tile's row max across the quad. Element e of
-    // fragment j: query row_lo (e < 2) or row_hi, key k0 + 8 j + 2 t + (e & 1).
-    float mx_lo = m_lo, mx_hi = m_hi;
+// The chunked forward for head dims past 128 (D a multiple of kDC): block
+// (b, h, query tile, blockIdx.y = output chunk c), as the header says.
+constexpr int kDC = 64;  // head-dim chunk
+constexpr int kChunkedSmem = 3 * kTile * (kDC + 4) * 4 + kTile;  // Q_c', K_c', V_c; key flags
+
+__global__ void __launch_bounds__(kThreads) flash_fwd_chunked_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const unsigned char* __restrict__ mask, float* __restrict__ out, float* __restrict__ lse,
+    int T, int H, int D, long long sb, long long st, float scale, int causal, int vec) {
+  constexpr int S = kDC + 4;    // row stride of the tiles
+  constexpr int ND = kDC / 8;   // 8-wide fragments across a chunk
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;
+  float* k_s = q_s + kTile * S;
+  float* v_s = k_s + kTile * S;
+  unsigned char* ok_s = reinterpret_cast<unsigned char*>(v_s + kTile * S);
+
+  const int chunks = D / kDC;
+  const int c = blockIdx.y;  // this block's output columns: [kDC c, kDC c + kDC)
+  const int tiles = (T + kTile - 1) / kTile;
+  const int slices = gridDim.x / tiles;
+  const int bh = blockIdx.x % slices;
+  const int b = bh / H, h = bh % H;
+  const int q0 = (tiles - 1 - blockIdx.x / slices) * kTile;
+  const long long in_base = b * sb + static_cast<long long>(h) * D;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qr = kWarpRows * warp + g;
+  const int qw = q0 + kWarpRows * warp;
+  const int row_lo = q0 + qr, row_hi = row_lo + 8;
+
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  }
+  float m_lo = kNeg, m_hi = kNeg, l_lo = 0.0f, l_hi = 0.0f;
+
+  const int kend = causal ? min(T, q0 + kTile) : T;
+  for (int k0 = 0; k0 < kend; k0 += kTile) {
+    // S = sum over chunks of Q_c' K_c'^T: 16 queries x 64 keys per warp
+    float s[kSteps][4];
 #pragma unroll
     for (int j = 0; j < kSteps; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kl = 8 * j + 2 * t + (e & 1);
-        const int row = e < 2 ? row_lo : row_hi;
-        const bool valid = ok_s[kl] && (!causal || k0 + kl <= row);
-        s[j][e] = valid ? s[j][e] * scale : -__int_as_float(0x7f800000);
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+    }
+    for (int cc = 0; cc < chunks; ++cc) {
+      __syncthreads();  // the last reads of q_s and k_s (at cc = 0 of v_s and ok_s) are done
+      stage_async<kDC>(q_s, q + in_base + cc * kDC, st, q0, T, vec);
+      stage_async<kDC>(k_s, k + in_base + cc * kDC, st, k0, T, vec);
+      asm volatile("cp.async.commit_group;\n" ::);
+      if (cc == 0) {  // V_c flies while S is formed
+        stage_async<kDC>(v_s, v + in_base + c * kDC, st, k0, T, vec);
+        asm volatile("cp.async.commit_group;\n" ::);
+        if (threadIdx.x < kTile) {
+          const int key = k0 + threadIdx.x;
+          ok_s[threadIdx.x] = key < T && (mask == nullptr || mask[static_cast<long long>(b) * T + key]);
+        }
       }
-      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
-    }
+      if (cc == 0 && chunks > 1) {
+        asm volatile("cp.async.wait_group 1;\n" ::);  // Q_0 and K_0 are in; V_c may fly on
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::);
+      }
+      __syncthreads();
+      if (qw < T) {
 #pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-    }
-    // the running max stays finite (kNeg), so corr is never NaN and an
-    // invalid pair's exp(-inf) is exactly 0
-    const float corr_lo = expf(m_lo - mx_lo), corr_hi = expf(m_hi - mx_hi);
-    m_lo = mx_lo;
-    m_hi = mx_hi;
-    l_lo *= corr_lo;
-    l_hi *= corr_hi;
+        for (int n = 0; n < ND; ++n) {
+          const FragA a = q_frag<kDC>(q_s, qr, 8 * n, t);
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      o[n][0] *= corr_lo;
-      o[n][1] *= corr_lo;
-      o[n][2] *= corr_hi;
-      o[n][3] *= corr_hi;
+          for (int j = 0; j < kSteps; ++j) {
+            if (!key_frag_live(k0 + 8 * j, T, qw, causal)) continue;
+            const float* kx = k_s + (8 * j + g) * S + 8 * n + t;
+            mma3(s[j], a, kx[0], kx[4]);
+          }
+        }
+      }
     }
-#pragma unroll
-    for (int j = 0; j < kSteps; ++j) {
-      s[j][0] = expf(s[j][0] - m_lo);
-      s[j][1] = expf(s[j][1] - m_lo);
-      s[j][2] = expf(s[j][2] - m_hi);
-      s[j][3] = expf(s[j][3] - m_hi);
-      l_lo += s[j][0] + s[j][1];
-      l_hi += s[j][2] + s[j][3];
-    }
+    if (qw >= T) continue;  // the whole warp lies past T (block-uniform barriers above)
+    softmax_step<ND>(s, o, m_lo, m_hi, l_lo, l_hi, ok_s, k0, row_lo, row_hi, t, scale, causal);
+    add_pv<ND, S>(o, s, v_s, k0, T, qw, causal, g, t);
+  }
+  store_out<ND>(o, m_lo, m_hi, l_lo, l_hi, out, lse, b, h, T, H, D, c * kDC, c == 0, row_lo, t);
+}
 
-    // O += P V, A from the registers above with the k index permuted: A
-    // column t is key 2 t, column t + 4 key 2 t + 1, V's rows to match
-#pragma unroll
-    for (int j = 0; j < kSteps; ++j) {
-      if (!live(j)) continue;
-      const FragA pa = frag_a(s[j][0], s[j][2], s[j][1], s[j][3]);
-      const float* vx = v_s + (8 * j + 2 * t) * S + g;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) mma3(o[n], pa, vx[8 * n], vx[S + 8 * n]);
-    }
-  }
-
-  // each lane summed its own keys of a row: the row's l across the quad
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const float lc_lo = fmaxf(l_lo, 1e-20f), lc_hi = fmaxf(l_hi, 1e-20f);
-  const long long lse_base = (static_cast<long long>(b) * H + h) * T;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = half ? row_hi : row_lo;
-    if (row >= T) continue;
-    const float lc = half ? lc_hi : lc_lo;
-    float* dst = out + ((static_cast<long long>(b) * T + row) * H + h) * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<float2*>(dst + 8 * n) =
-          make_float2(o[n][2 * half] / lc, o[n][2 * half + 1] / lc);
-    }
-    if (t == 0) lse[lse_base + row] = (half ? m_hi : m_lo) + logf(lc);
-  }
+int launch_chunked(dim3 grid, cudaStream_t s, const float* q, const float* k, const float* v,
+                   const unsigned char* mask, float* out, float* lse, int T, int H, int D,
+                   long long sb, long long st, float scale, int causal, int vec) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_chunked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kChunkedSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_fwd_chunked_kernel<<<grid, kThreads, kChunkedSmem, s>>>(q, k, v, mask, out, lse, T, H, D,
+                                                                 sb, st, scale, causal, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -333,8 +471,9 @@ int launch(dim3 grid, cudaStream_t s, const float* q, const float* k, const floa
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), so a
 // refused launch reaches the caller. sb and st are q/k/v's batch and time
-// strides in floats. A head dim other than 8, 16, 32, 64 or 128 returns
-// cudaErrorInvalidValue and launches nothing.
+// strides in floats. A head dim other than 8, 16, 32, 64, 128 or a
+// multiple of 64 past 128 returns cudaErrorInvalidValue and launches
+// nothing.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, const void* mask,
                                 void* out, void* lse, int B, int T, int H, int D, long long sb,
                                 long long st, float scale, int causal, void* stream) {
@@ -359,6 +498,9 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, con
     case 32: return launch<32>(grid, s, qf, kf, vf, mk, of, lf, T, H, sb, st, scale, causal, vec);
     case 64: return launch<64>(grid, s, qf, kf, vf, mk, of, lf, T, H, sb, st, scale, causal, vec);
     case 128: return launch<128>(grid, s, qf, kf, vf, mk, of, lf, T, H, sb, st, scale, causal, vec);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      if (D <= 128 || D % kDC != 0 || D / kDC > 65535) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_chunked(dim3(grid.x, D / kDC), s, qf, kf, vf, mk, of, lf, T, H, D, sb, st,
+                            scale, causal, vec);
   }
 }

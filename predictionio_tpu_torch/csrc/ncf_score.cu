@@ -49,15 +49,20 @@
 // memory, [H0p][32], and feeds the second, whose outputs fold into each
 // warp's share of the score; the 8 shares are added in warp order. The
 // wide layout holds the transposed tile, E (32 + 1) floats, and that
-// first hidden layer, 32 H0p: widths past what a block's 227 KB holds
-// (H0 about 1,500 at E=64, with H1 = H0 / 2) are refused, the launch
-// returning cudaErrorInvalidValue and ncf_score_smem_bytes -1.
+// first hidden layer, 32 H0p, in shared memory while they fit a block's
+// 227 KB. Past that (H0 about 1,500 at E=64 with H1 = H0 / 2, or E about
+// 1,470 at hidden 64, 32) the same kernel keeps everything but the weight
+// window in a global scratch slice of its block ("wide, scratch"): the
+// vectors, the score shares, the transposed tile and the first hidden
+// layer, (H0p + 2 H1p + 2E + 256 + E (32 + 1) + 32 H0p) floats a block,
+// the grid one block a resident slot. Those reads and writes then come
+// from L1 and L2: slower, and shared memory no longer bounds any width.
 //
 // Layout, resident: grid min(tiles, resident blocks), 128 threads, dynamic
 // shared memory (E H0p + H0p H1p + H0p + 2 H1p + 2E + E (128 + 1) +
 // 128 H0p) floats, H0p and H1p rounded up to 8 (66,432 bytes at 32/64/32).
 // Wide: 256 threads, (64 * 64 + H0p + 2 H1p + 2E + 256 + E (32 + 1) +
-// 32 H0p) floats.
+// 32 H0p) floats; wide, scratch: 64 * 64 floats, the rest in scratch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,11 +96,17 @@ __host__ __device__ __forceinline__ size_t resident_floats(int E, int H0, int H1
        + (size_t)E * kStride + (size_t)kThreads * h0p;
 }
 
+// floats of the wide layout past its weight window: the vectors, the
+// score shares, the transposed tile and the first hidden layer
+__host__ __device__ __forceinline__ size_t wide_rest_floats(int E, int H0, int H1) {
+  const size_t h0p = round_up(H0, kChunk), h1p = round_up(H1, kChunk);
+  return h0p + 2 * h1p + 2 * (size_t)E + kWideThreads
+       + (size_t)E * kWideStride + (size_t)kWideItems * h0p;
+}
+
 // floats of shared memory of the wide layout
 __host__ __device__ __forceinline__ size_t wide_floats(int E, int H0, int H1) {
-  const size_t h0p = round_up(H0, kChunk), h1p = round_up(H1, kChunk);
-  return kWinRows * kWinCols + h0p + 2 * h1p + 2 * (size_t)E + kWideThreads
-       + (size_t)E * kWideStride + (size_t)kWideItems * h0p;
+  return kWinRows * kWinCols + wide_rest_floats(E, H0, H1);
 }
 
 // 8 weights of a zero-padded shared row from column jc (float4 loads)
@@ -247,6 +258,9 @@ __device__ __forceinline__ void stage_window(float* win_s, const float* __restri
   }
 }
 
+// kScratch: everything past the weight window lives in the block's slice
+// of `scratch` (wide_rest_floats each) instead of shared memory
+template <bool kScratch>
 __global__ void __launch_bounds__(kWideThreads) ncf_score_wide_kernel(
     const float* __restrict__ gmf_item, const float* __restrict__ mlp_item,
     const float* __restrict__ gmf_u, const float* __restrict__ mlp_u,
@@ -254,12 +268,14 @@ __global__ void __launch_bounds__(kWideThreads) ncf_score_wide_kernel(
     const float* __restrict__ b0, const float* __restrict__ w1,
     const float* __restrict__ b1, const float* __restrict__ wog,
     const float* __restrict__ woh, const float* __restrict__ bo,
-    float* __restrict__ out, int I, int E, int H0, int H1) {
+    float* __restrict__ out, int I, int E, int H0, int H1, float* __restrict__ scratch) {
   extern __shared__ __align__(16) float smem[];
   const int h0p = round_up(H0, kChunk);
   const int h1p = round_up(H1, kChunk);
   float* win_s = smem;                          // [kWinRows][kWinCols]  weights
-  float* c0_s = win_s + kWinRows * kWinCols;    // [h0p]
+  float* c0_s = kScratch                        // [h0p]
+      ? scratch + static_cast<long long>(blockIdx.x) * wide_rest_floats(E, H0, H1)
+      : win_s + kWinRows * kWinCols;
   float* b1_s = c0_s + h0p;                     // [h1p]
   float* woh_s = b1_s + h1p;                    // [h1p]
   float* gu_s = woh_s + h1p;                    // [E]
@@ -365,46 +381,53 @@ __global__ void __launch_bounds__(kWideThreads) ncf_score_wide_kernel(
 // The block layout for these widths: resident when W0i and W1 fit beside
 // a 128-item tile with room for two such blocks an SM (one block of 4
 // warps leaves the SM mostly idle), else wide when its tile and first
-// hidden layer fit.
+// hidden layer fit, else wide with those in the global scratch.
+enum class Layout { kResident, kWide, kWideScratch };
+
 struct Plan {
-  bool resident;
+  Layout layout;
   size_t smem;
 };
 
-bool plan_for(int E, int H0, int H1, Plan* p) {
+Plan plan_for(int E, int H0, int H1) {
   constexpr size_t kMaxFloats = kMaxSmemBytes / sizeof(float);
   if (2 * (resident_floats(E, H0, H1) * sizeof(float) + kSmemReserved) <= kSmemPerSm) {
-    *p = {true, resident_floats(E, H0, H1) * sizeof(float)};
-    return true;
+    return {Layout::kResident, resident_floats(E, H0, H1) * sizeof(float)};
   }
   if (wide_floats(E, H0, H1) <= kMaxFloats) {
-    *p = {false, wide_floats(E, H0, H1) * sizeof(float)};
-    return true;
+    return {Layout::kWide, wide_floats(E, H0, H1) * sizeof(float)};
   }
-  return false;
+  return {Layout::kWideScratch, kWinRows * kWinCols * sizeof(float)};
 }
 
+// Blocks of a grid-stride launch of `kernel` over `tiles` tiles: at most
+// as many as stay resident. 0 on a CUDA error, returned in `err`.
 template <typename Kernel>
+int grid_for(Kernel kernel, int threads, size_t smem, long long tiles, cudaError_t* err) {
+  *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+  int device = 0, sms = 0, per_sm = 0;
+  if (*err == cudaSuccess) *err = cudaGetDevice(&device);
+  if (*err == cudaSuccess) *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (*err == cudaSuccess) {
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  }
+  if (*err != cudaSuccess) return 0;
+  const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  return static_cast<int>(tiles < resident ? tiles : resident);
+}
+
+long long wide_tiles(int I) { return (static_cast<long long>(I) + kWideItems - 1) / kWideItems; }
+
+template <typename Kernel, typename... Tail>
 int launch(Kernel kernel, int threads, int items, const Plan& p, const void* gmf_item,
            const void* mlp_item, const void* gmf_u, const void* mlp_u, const void* w0u,
            const void* w0i, const void* b0, const void* w1, const void* b1, const void* wog,
            const void* woh, const void* bo, void* out, int I, int E, int H0, int H1,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p.smem));
+           cudaStream_t stream, Tail... tail) {
+  cudaError_t err;
+  const int grid = grid_for(kernel, threads, p.smem, (static_cast<long long>(I) + items - 1) / items, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, p.smem)) !=
-      cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  const long long tiles = (static_cast<long long>(I) + items - 1) / items;
-  const long long resident = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  const int grid = static_cast<int>(tiles < resident ? tiles : resident);
   kernel<<<grid, threads, p.smem, stream>>>(
       static_cast<const float*>(gmf_item), static_cast<const float*>(mlp_item),
       static_cast<const float*>(gmf_u), static_cast<const float*>(mlp_u),
@@ -412,35 +435,56 @@ int launch(Kernel kernel, int threads, int items, const Plan& p, const void* gmf
       static_cast<const float*>(b0), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(wog),
       static_cast<const float*>(woh), static_cast<const float*>(bo),
-      static_cast<float*>(out), I, E, H0, H1);
+      static_cast<float*>(out), I, E, H0, H1, tail...);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Bytes of dynamic shared memory a launch at these widths uses, or -1 when
-// no layout fits the card's 227 KB a block (the wrapper refuses those).
+// Bytes of dynamic shared memory a launch at these widths uses; -1 for
+// widths below 1.
 extern "C" int ncf_score_smem_bytes(int E, int H0, int H1) {
-  Plan p;
-  return plan_for(E, H0, H1, &p) ? static_cast<int>(p.smem) : -1;
+  if (E < 1 || H0 < 1 || H1 < 1) return -1;
+  return static_cast<int>(plan_for(E, H0, H1).smem);
+}
+
+// Floats of global scratch a launch over I items needs: 0 unless the
+// widths take the wide layout's scratch form, then wide_rest_floats for
+// each block of its grid; -1 on a CUDA error or widths below 1.
+extern "C" long long ncf_score_scratch_floats(int I, int E, int H0, int H1) {
+  if (I < 0 || E < 1 || H0 < 1 || H1 < 1) return -1;
+  const Plan p = plan_for(E, H0, H1);
+  if (p.layout != Layout::kWideScratch || I == 0) return 0;
+  cudaError_t err;
+  const int grid = grid_for(ncf_score_wide_kernel<true>, kWideThreads, p.smem, wide_tiles(I), &err);
+  if (err != cudaSuccess) return -1;
+  return static_cast<long long>(grid) * static_cast<long long>(wide_rest_floats(E, H0, H1));
 }
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success), so a
-// refused launch reaches the caller. I = 0 launches nothing.
+// refused launch reaches the caller. I = 0 launches nothing. `scratch`
+// holds ncf_score_scratch_floats(I, E, H0, H1) floats (null when 0).
 extern "C" int ncf_score_launch(
     const void* gmf_item, const void* mlp_item, const void* gmf_u, const void* mlp_u,
     const void* w0u, const void* w0i, const void* b0, const void* w1, const void* b1,
-    const void* wog, const void* woh, const void* bo, void* out,
+    const void* wog, const void* woh, const void* bo, void* out, void* scratch,
     int I, int E, int H0, int H1, void* stream) {
   if (I < 0 || E < 1 || H0 < 1 || H1 < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (I == 0) return 0;
-  Plan p;
-  if (!plan_for(E, H0, H1, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = plan_for(E, H0, H1);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.resident) {
-    return launch(ncf_score_kernel, kThreads, kThreads, p, gmf_item, mlp_item, gmf_u, mlp_u,
-                  w0u, w0i, b0, w1, b1, wog, woh, bo, out, I, E, H0, H1, s);
+  switch (p.layout) {
+    case Layout::kResident:
+      return launch(ncf_score_kernel, kThreads, kThreads, p, gmf_item, mlp_item, gmf_u, mlp_u,
+                    w0u, w0i, b0, w1, b1, wog, woh, bo, out, I, E, H0, H1, s);
+    case Layout::kWide:
+      return launch(ncf_score_wide_kernel<false>, kWideThreads, kWideItems, p, gmf_item,
+                    mlp_item, gmf_u, mlp_u, w0u, w0i, b0, w1, b1, wog, woh, bo, out, I, E, H0,
+                    H1, s, static_cast<float*>(nullptr));
+    default:
+      if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      return launch(ncf_score_wide_kernel<true>, kWideThreads, kWideItems, p, gmf_item,
+                    mlp_item, gmf_u, mlp_u, w0u, w0i, b0, w1, b1, wog, woh, bo, out, I, E, H0,
+                    H1, s, static_cast<float*>(scratch));
   }
-  return launch(ncf_score_wide_kernel, kWideThreads, kWideItems, p, gmf_item, mlp_item, gmf_u,
-                mlp_u, w0u, w0i, b0, w1, b1, wog, woh, bo, out, I, E, H0, H1, s);
 }

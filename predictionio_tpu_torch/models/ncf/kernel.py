@@ -121,11 +121,11 @@ def ncf_score_all_items(
 
     CUDA tensors launch ``csrc/ncf_score.cu`` (and count the launch in
     ``ncf_score_all_items.launches``) or raise: the kernel takes the
-    depth-2 tower and contiguous tensors, at any width whose item tile and
-    first hidden layer for 32 items fit a block's shared memory (H0 up to
-    about 1,500 at E=64 with H1 = H0 / 2; the weights stay in shared
-    memory while they fit, else they stream through it in windows). CPU
-    tensors take ``ncf_score_plain``."""
+    depth-2 tower and contiguous tensors at any width (the weights stay
+    in shared memory while they fit, else they stream through it in
+    windows; past H0 about 1,500 or E about 1,470 a block's tile and
+    first hidden layer go to a global scratch this wrapper allocates).
+    CPU tensors take ``ncf_score_plain``."""
     n, e = _check(gmf_items, mlp_items, gmf_u, mlp_u, kernels, biases, out_kernel, out_bias)
     if gmf_items.device.type == "cpu":
         return ncf_score_plain(gmf_items, mlp_items, gmf_u, mlp_u,
@@ -146,23 +146,20 @@ def ncf_score_all_items(
     from predictionio_tpu_torch import _kernels
 
     lib = _kernels.library("ncf_score")
-    if lib.ncf_score_smem_bytes(e, h0, h1) < 0:
-        raise ValueError(
-            f"widths E={e}, H0={h0}, H1={h1}: a block of 32 items with its tile and "
-            f"first hidden layer needs more than the card's {_kernels.MAX_SMEM_BYTES} "
-            "bytes of shared memory"
-        )
     out = torch.empty(n, dtype=torch.float32, device=gmf_items.device)
     if n == 0:
         return out
     out_w = out_kernel.reshape(-1)
     with torch.cuda.device(gmf_items.device):
+        scratch = _kernels.scratch(lib.ncf_score_scratch_floats(n, e, h0, h1),
+                                   gmf_items.device, "ncf_score_all_items")
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.ncf_score_launch(
             gmf_items.data_ptr(), mlp_items.data_ptr(), gmf_u.data_ptr(), mlp_u.data_ptr(),
             w0[:e].data_ptr(), w0[e:].data_ptr(), b0.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), out_w[:e].data_ptr(), out_w[e:].data_ptr(),
-            out_bias.data_ptr(), out.data_ptr(), n, e, h0, h1, stream,
+            out_bias.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            n, e, h0, h1, stream,
         )
     _kernels.check(status, "ncf_score launch")
     ncf_score_all_items.launches += 1

@@ -24,9 +24,10 @@ A CUDA tensor launches the kernel (and counts it in the wrapper's
 ``launches``) or raises: the kernels take f32 and q, k, v whose heads and
 features are contiguous with one shared batch and time stride (the thirds
 of one ``[B, T, 3 H D]`` projection qualify). They are built for head
-dims 8, 16, 32, 64 and 128; any other D up to 128 is zero-padded to the
-next of them (``padded_forward``, ``padded_backward``), and a D above 128
-raises. A CPU tensor takes the plain version.
+dims 8, 16, 32, 64 and 128, and past 128 for every multiple of 64 (one
+instance that walks D in 64-column chunks); any other D is zero-padded
+to the next of those (``padded_forward``, ``padded_backward``). A CPU
+tensor takes the plain version.
 
 ``flash_attention`` is the ``torch.autograd.Function`` twin of the
 reference's ``custom_vjp`` (``:228``, ``:349``): B4 forward, one fused
@@ -41,9 +42,10 @@ import torch
 #: the reference's finite masked score (keeps exp() NaN-free)
 NEG = -1e30
 
-#: head dims the kernels are compiled for (a template parameter); the
-#: wrappers zero-pad any other D up to the last of them
+#: head dims the kernels are compiled for (a template parameter) up to
+#: 128; past it one instance takes every multiple of HEAD_DIM_CHUNK
 HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIM_CHUNK = 64
 
 #: keys one block of the fused backward owns (``kTile`` in
 #: ``csrc/flash_backward.cu``); past one such tile blocks add into dq
@@ -156,15 +158,13 @@ def _launch_args(q, k, v):
 
 
 def built_head_dim(d: int) -> int:
-    """The smallest head dim the kernels are built for that holds ``d``;
-    raises past the largest."""
+    """The smallest head dim the kernels are built for that holds ``d``:
+    the next of ``HEAD_DIMS`` up to 128, past it the next multiple of
+    ``HEAD_DIM_CHUNK`` (129 -> 192, 256 -> 256, 300 -> 320)."""
     for size in HEAD_DIMS:
         if d <= size:
             return size
-    raise ValueError(
-        f"head dim {d}: the flash-attention kernels take head dims up to "
-        f"{HEAD_DIMS[-1]} (built for {HEAD_DIMS}; others are zero-padded)"
-    )
+    return -(-d // HEAD_DIM_CHUNK) * HEAD_DIM_CHUNK
 
 
 def _pad(x, dp: int):
@@ -217,7 +217,7 @@ def flash_forward(q, k, v, mask=None, causal=True, sm_scale=None):
     _check(q, k, v, mask)
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, mask, causal, sm_scale)
-    if q.shape[-1] not in HEAD_DIMS:
+    if built_head_dim(q.shape[-1]) != q.shape[-1]:
         return padded_forward(flash_forward, q, k, v, mask, causal, sm_scale)
     b, t, h, d, sb, st = _launch_args(q, k, v)
     mask = None if mask is None else mask.contiguous()
@@ -259,7 +259,7 @@ def flash_backward(q, k, v, mask, do, out, lse, causal=True, sm_scale=None):
     do, out, lse = _backward_operands(q, {"dO": do, "out": out}, {"lse": lse})
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, mask, do, out, lse, causal, sm_scale)
-    if q.shape[-1] not in HEAD_DIMS:
+    if built_head_dim(q.shape[-1]) != q.shape[-1]:
         return padded_backward(flash_backward, q, k, v, mask, do, out, lse, causal, sm_scale)
     b, t, h, d, sb, st = _launch_args(q, k, v)
     mask = None if mask is None else mask.contiguous()
@@ -311,6 +311,7 @@ def flash_attention(q, k, v, mask=None, causal=True, sm_scale=None):
 
 __all__ = [
     "HEAD_DIMS",
+    "HEAD_DIM_CHUNK",
     "NEG",
     "built_head_dim",
     "flash_attention",

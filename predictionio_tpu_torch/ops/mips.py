@@ -131,7 +131,10 @@ def mips_block_topk(
 
     CUDA tensors launch ``csrc/mips_topk.cu`` (and count the launch in
     ``mips_block_topk.launches``) or raise; CPU tensors take
-    ``mips_block_topk_plain``."""
+    ``mips_block_topk_plain``. Any rank and tile size launch: past what
+    a block's shared memory holds the kernel stages the tile in passes
+    and keeps the score rows in a global scratch this wrapper
+    allocates."""
     b, k, nb, bi = _check_stage1(queries, q_table, scales, block_topk, num_items)
     if queries.device.type == "cpu":
         return mips_block_topk_plain(
@@ -146,19 +149,16 @@ def mips_block_topk(
     from predictionio_tpu_torch import _kernels
 
     lib = _kernels.library("mips_topk")
-    smem = lib.mips_block_topk_smem_bytes(k, bi)
-    if smem > _kernels.MAX_SMEM_BYTES:
-        raise ValueError(
-            f"a [{bi}, {k}] tile needs {smem} bytes of shared memory, over "
-            f"the {_kernels.MAX_SMEM_BYTES} a block may use; use smaller blockItems"
-        )
     scores = torch.empty((b, nb, block_topk), dtype=torch.float32, device=queries.device)
     idx = torch.empty((b, nb, block_topk), dtype=torch.int32, device=queries.device)
     with torch.cuda.device(queries.device):
+        scratch = _kernels.scratch(lib.mips_block_topk_scratch_floats(b, k, bi, nb),
+                                   queries.device, "mips_block_topk")
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.mips_block_topk_launch(
             queries.data_ptr(), q_table.data_ptr(), scales.data_ptr(),
             scores.data_ptr(), idx.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             b, k, bi, block_topk, num_items, nb, stream,
         )
     _kernels.check(status, "mips_block_topk launch")

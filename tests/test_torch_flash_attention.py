@@ -223,7 +223,7 @@ def test_checks_and_scale():
         fa.flash_forward(tq, tk[:, :5], tv)
 
 
-@pytest.mark.parametrize("d", [12, 24, 128])
+@pytest.mark.parametrize("d", [12, 24, 128, 136, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_padded_head_dim_matches_the_reference(d, causal):
     """The head-dim padding the CUDA wrappers use for a D the kernels are
@@ -239,7 +239,7 @@ def test_padded_head_dim_matches_the_reference(d, causal):
         *map(jnp.asarray, (q, k, v)))
     want_grads = vjp(jnp.asarray(w))
     (tq, tk, tv), tm = torch_args(q, k, v, mask)
-    assert fa.built_head_dim(d) == {12: 16, 24: 32, 128: 128}[d]
+    assert fa.built_head_dim(d) == {12: 16, 24: 32, 128: 128, 136: 192, 256: 256}[d]
     out, lse = fa.padded_forward(fa.flash_forward_plain, tq, tk, tv, tm, causal)
     assert out.shape == q.shape and out.is_contiguous()
     np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=2e-5)
@@ -270,24 +270,37 @@ def test_padding_keeps_lse_and_zero_columns():
 
 
 def test_head_dims_past_the_largest_built_raise():
+    """No head dim raises any more: up to 128 the next of the built
+    ``HEAD_DIMS``, past it the next multiple of 64 (the chunked
+    instance), and the padding takes a D past 128 like any other."""
     assert [fa.built_head_dim(d) for d in (1, 8, 9, 33, 64, 65, 128)] == [
         8, 8, 16, 64, 64, 128, 128]
-    with pytest.raises(ValueError, match="head dim 129"):
-        fa.built_head_dim(129)
+    assert [fa.built_head_dim(d) for d in (129, 136, 192, 193, 256, 300, 320, 512)] == [
+        192, 192, 192, 256, 256, 320, 320, 512]
     q, k, v, _ = inputs(t=4, d=136)
     (tq, tk, tv), _ = torch_args(q, k, v, None)
-    with pytest.raises(ValueError, match="head dim 136"):
-        fa.padded_forward(fa.flash_forward_plain, tq, tk, tv)
+    seen = {}
+
+    def forward(*args):
+        seen["d"] = args[0].shape[-1]
+        return fa.flash_forward_plain(*args)
+
+    out, lse = fa.padded_forward(forward, tq, tk, tv)
+    want_out, want_lse = fa.flash_forward_plain(tq, tk, tv)
+    assert seen["d"] == 192 and out.shape == tq.shape
+    torch.testing.assert_close(out, want_out, atol=2e-6, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=2e-6, rtol=0)
 
 
 # --------------------------------------------------------------------------
 # kernel B4 and the fused backward against their plain versions (need a
-# card); head dims 24 and 12 go through the padding
+# card); head dims 24, 12 and 136 go through the padding, 136, 256 and 512
+# through the chunked instances
 # --------------------------------------------------------------------------
 
 
 CARD_CASES = [(64, 16), (1, 8), (65, 32), (200, 64), (1024, 16), (64, 128), (1024, 128),
-              (64, 24), (200, 24), (65, 12)]
+              (64, 24), (200, 24), (65, 12), (64, 136), (200, 256), (200, 512)]
 
 
 @pytest.mark.cuda

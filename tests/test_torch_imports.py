@@ -154,8 +154,11 @@ def test_ncf_scorer_device_tensor_never_takes_the_plain_path(monkeypatch):
 def test_flash_attention_device_tensor_never_takes_the_plain_path(monkeypatch):
     """The sequence template's kernels: a non-CPU tensor launches B4 or
     the fused backward or raises, through the wrappers and the autograd
-    Function, and a head dim past the largest the kernels take (128)
-    raises before any launch."""
+    Function; a head dim past 128 (here 136) reaches the launchers
+    zero-padded to the chunked instance's 192, with the caller's scale,
+    and never a plain version."""
+    import contextlib
+
     from predictionio_tpu_torch.ops import flash_attention as fa
 
     for name in ("flash_forward_plain", "flash_backward_plain", "flash_dq_plain",
@@ -172,7 +175,21 @@ def test_flash_attention_device_tensor_never_takes_the_plain_path(monkeypatch):
         fa.flash_backward(q, k, v, mask, do, q, lse)
     with pytest.raises(ValueError, match="no flash-attention kernel"):
         fa.flash_attention(q, k, v, mask)
+    # every tensor reads as a card's; what the wrappers allocate stays on
+    # "meta", and the launchers record their arguments instead of launching
+    wide, wide_do = meta(2, 64, 2, 136), meta(2, 64, 2, 136)
+    for name in ("empty", "zeros", "empty_like"):
+        real = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, real=real, **kw: real(*a, **{**kw, "device": "meta"}))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    calls = []
+    monkeypatch.setattr(fa, "_call", lambda fn, *args, **kw: calls.append((fn, args)))
     monkeypatch.setattr(torch.Tensor, "device", property(lambda t: torch.device("cuda")))
-    wide = meta(2, 64, 2, 136)
-    with pytest.raises(ValueError, match="head dim 136"):
-        fa.flash_forward(wide, wide, wide)
+    out, _ = fa.flash_forward(wide, wide, wide)
+    grads = fa.flash_backward(wide, wide, wide, None, wide_do, wide, lse)
+    assert [fn for fn, _ in calls] == ["flash_fwd_launch", "flash_bwd_launch"]
+    for (_, args), first in zip(calls, (6, 10)):  # B, T, H, D after the pointers
+        b, t, h, d, _, _, scale, causal = args[first:]
+        assert (b, t, h, d, causal) == (2, 64, 2, 192, 1) and scale == pytest.approx(136 ** -0.5)
+    assert tuple(out.shape) == (2, 64, 2, 136)
+    assert [tuple(g.shape) for g in grads] == [(2, 64, 2, 136)] * 3

@@ -62,6 +62,22 @@ def test_stage1_random_tiles_match_reference():
     np.testing.assert_allclose(ts, js, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("num_items,k,block_items", [(1100, 400, 512), (9000, 16, 8192)])
+def test_stage1_wide_tiles_match_reference(num_items, k, block_items):
+    """Rank 400 at 512-item tiles and 8,192-item tiles at rank 16: tiles
+    whose int8 rows or score rows pass a CUDA block's shared memory (the
+    kernel then stages them in passes and keeps the scores in a global
+    scratch). The plain stage 1 the kernel is held to gives the
+    reference's candidates index for index."""
+    f = _factors(num_items, k=k, seed=k)
+    q = _factors(8, k=k, seed=k + 1)
+    (js, ji), (ts, ti) = _stage1_both(f, q, block_items, 16)
+    nb = -(-num_items // block_items)
+    assert ti.shape == ji.shape == (8, nb * 16)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(ts, js, rtol=1e-5, atol=1e-5)
+
+
 def test_stage1_ties_break_to_lowest_index():
     f = np.ones((32, 8), np.float32)  # every row ties inside both tiles
     q = np.ones((8, 8), np.float32)
@@ -215,3 +231,29 @@ def test_kernel_matches_plain_on_card():
     ps, pi = torch_mips.mips_block_topk_plain(*args, block_topk=16, num_items=3000)
     assert torch.equal(ki, pi)
     torch.testing.assert_close(ks, ps, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_items,k,block_items", [(3001, 400, 512), (20_000, 16, 8192)])
+def test_kernel_matches_plain_on_card_at_wide_tiles(num_items, k, block_items):
+    """The kernel's passes over K and its global score rows: rank 400 at
+    512-item tiles and 8,192-item tiles at rank 16 against the plain
+    twin on the card, one launch each; indices equal except where two
+    scores lie within the sums' rounding of the R-th (the two sum the K
+    products in different orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    packed = torch_quantize.pack_int8_blockwise(_factors(num_items, k=k, seed=16), block_items)
+    args = [
+        torch.from_numpy(x).cuda()
+        for x in (_factors(16, k=k, seed=17), packed.q, packed.scales)
+    ]
+    before = torch_mips.mips_block_topk.launches
+    ks, ki = torch_mips.mips_block_topk(*args, block_topk=16, num_items=num_items)
+    torch.cuda.synchronize()
+    assert torch_mips.mips_block_topk.launches == before + 1
+    ps, pi = torch_mips.mips_block_topk_plain(*args, block_topk=16, num_items=num_items)
+    torch.testing.assert_close(ks, ps, rtol=1e-5, atol=1e-5)
+    kth = ps.reshape(16, -1, 16)[:, :, -1:]
+    near = ((ks.reshape(16, -1, 16) - kth).abs() <= 1e-5 * (1 + kth.abs())).reshape(ks.shape)
+    assert bool(((ki == pi) | near).all())

@@ -80,6 +80,21 @@ def test_forward_matches_flax_apply(attention):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
 
 
+@pytest.mark.parametrize("attention", ["plain", "flash"])
+def test_forward_matches_flax_apply_at_head_dim_136(attention):
+    """One head of 136: past the attention kernels' 128, where on the card
+    the chunked instances take it, zero-padded to 192."""
+    kw = dict(BASE, embed_dim=136, num_heads=1, num_blocks=1, ffn_dim=32, attention=attention)
+    params = flax_params(kw, seed=5)
+    rng = np.random.default_rng(2)
+    seqs = np.concatenate([left_padded(rng), rng.integers(1, 21, size=(2, 12))])
+    want = JaxSASRec(JaxSASRecConfig(**kw)).apply({"params": params}, jnp.asarray(seqs, jnp.int32))
+    net = network(params_from_flax(params), SASRecConfig(**kw), "cpu")
+    with torch.no_grad():
+        got = net(torch.from_numpy(seqs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
+
+
 def test_flash_and_plain_agree_on_real_positions():
     """The two attention modes differ only on fully-masked padding rows,
     which the model zeroes; and the loss and its gradients agree."""
