@@ -50,19 +50,23 @@ script exits non-zero and prints no result):
 7. check_b1 -- kernel B1 (``als_gram.cu``) against its plain version on
    the two half-step blocks of that fit (138,000 x 200 and 27,000 x 256,
    trained factors), explicit/implicit x f32/bf16, plus small cases:
-   ranks 8, 16, 32, 64, a ragged row count, all-padding rows (exactly
-   zero) and the last real row; ranks 65, 128 and 200 (entries split
-   into groups of blocks) on 2,000 x 48 blocks in both modes and dtypes;
-   ranks 128 and 200 at 1, 2, 5 and 8 rows (all groups of a row run at
-   once), each launch repeated and equal bit for bit.
+   ranks 8, 16, 17, 24, 32, 33, 64 (ragged tensor-core tiles among
+   them), a ragged row count, all-padding rows (exactly zero) and the
+   last real row; ranks 65, 128, 200, 256, 512 (a row's tiles over warps
+   and groups of blocks) and 513 (the SIMT instance past the tensor-core
+   one) on 2,000 x 48 blocks in both modes and dtypes; ranks 16, 128,
+   200, 512 and 513 at 1, 2, 5 and 8 rows, each launch repeated and
+   equal bit for bit; the tensor-core instance's Gram exactly symmetric.
    Tolerance, elementwise: 2 (L + 2) 2^-24 times the same sums over
-   absolute values (the worst case of two f32 recursive sums of L
-   products in different orders); per Gram row the same factor of its
+   absolute values (``compare_b1``); per Gram row the same factor of its
    max|gram|. Then a 2-iteration fit of phase 6's data at rank 128
    through B1 equals the "xla" path within 1e-4.
 8. time_b1 -- B1, its plain version, the ridge + solve and the whole
    half-step at both block shapes in f32 and bf16, beside the bound (the
-   reference's fused bytes model over 3.35 TB/s, or the f32 operations).
+   bytes once over 3.35 TB/s, or the products at 3xTF32's rate) and the
+   gather's L2 bytes; B1 and its plain version at ranks 128, 200, 320,
+   512 and 640 (the SIMT instance) on 2,000 x 48 blocks; the rank-128 fit's seconds
+   through B1 and through "xla".
 9. foldin  -- ``fold_in_users`` of 1,000 users' histories against the
    trained item factors, through B1 and through the plain path.
 10. train_verb_and_serve -- the ``train`` verb on a 3,000-event JSON-lines
@@ -215,12 +219,18 @@ FOLDIN_USERS = 1_000
 SMALL_EVENTS = 3_000
 #: the reference's f32 solver-parity bar (tests/test_als_gram.py:198)
 FIT_ATOL = 1e-4
-#: ranks past the 5 x 1,024 entries one B1 block holds (its entries split
-#: into groups), checked on small blocks; the 2-iteration fit runs at the
-#: middle one on the full training data
-B1_WIDE_RANKS, B1_WIDE_ROWS, B1_FIT_RANK = (65, 128, 200), 2_000, 128
-#: few-row blocks at the grouped ranks, each launch repeated
-B1_FEW_ROWS, B1_FEW_REPEATS = (1, 2, 5, 8), 4
+#: ranks whose tiles spread over a block's warps and over groups of blocks,
+#: up to the tensor-core instance's last (512) and the SIMT one's first
+#: (513), checked on small blocks; the 2-iteration fit runs at 128 on the
+#: full training data
+B1_WIDE_RANKS, B1_WIDE_ROWS, B1_FIT_RANK = (65, 128, 200, 256, 512, 513), 2_000, 128
+#: ranks with ragged tensor-core tiles among the small cases
+B1_SMALL_RANKS = (8, 16, 17, 24, 32, 33, 64)
+#: few-row blocks (fewer than rank 16's 8 rows a block; every group of a
+#: wide row at once), each launch repeated
+B1_FEW_RANKS, B1_FEW_ROWS, B1_FEW_REPEATS = (16, 128, 200, 512, 513), (1, 2, 5, 8), 4
+#: ranks timed on the wide checks' 2,000 x 48 blocks (640: the SIMT instance)
+B1_TIME_RANKS = (128, 200, 320, 512, 640)
 
 #: the NCF template's widths (examples/ncf/engine.json); B3 is checked at
 #: the serving catalog of B2's check and on the training stand-in's
@@ -844,13 +854,15 @@ def b1_bound(rows: int, pad_len: int, table_rows: int, rank: int,
     written once: indices (i32) and values (f32), the gather table once
     (a factor table fits the 50 MB L2, so its repeated reads by the
     gather need not reach device memory), Gram and rhs (f32). Operations:
-    2*R*L*K^2 + 2*R*L*K f32, the full K x K Gram the kernel computes (the
-    symmetric upper triangle alone would take about half). The larger of
-    bytes over the memory rate and operations over the f32 rate."""
+    2*R*L*K^2 + 2*R*L*K, the full K x K Gram and the rhs, counted at
+    3xTF32's rate on the tensor cores (as ``flash_bound`` counts the
+    attention products): the card can do these f32 products there, and
+    the kernel does. The larger of bytes over the memory rate and
+    operations over that rate."""
     nbytes = (rows * pad_len * (4 + 4) + table_rows * rank * itemsize
               + rows * (rank * rank + rank) * 4)
     ops = 2.0 * rows * pad_len * rank * rank + 2.0 * rows * pad_len * rank
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_3XTF32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
@@ -863,7 +875,18 @@ def compare_b1(idx, val, table, alpha: float, implicit: bool) -> tuple[float, fl
     |values| and |table|). With non-negative weights S_ij <= max_k
     gram_kk (Cauchy-Schwarz), so each Gram row also stays within that
     factor of its max|gram|, which is checked too. Returns the max abs
-    error and the largest per-row error relative to max|gram|."""
+    error and the largest per-row error relative to max|gram|.
+
+    The tensor-core instance computes in 3xTF32 (``mma_tf32.cuh``): each
+    operand splits into a TF32 hi rounded to nearest and the exact f32
+    rest, which the tensor core reads truncated, so each product loses at
+    most about 1.5 2^-21 = 12 2^-24 of itself (the rest's truncation and
+    the dropped lo*lo term); an 8-slot step's sum, truncated by the
+    tensor core, adds about 2 2^-24 of the step's absolute sum, and the f32
+    adds of the steps L/8 2^-24 of the total. Its own error is then at
+    most about (14 + L/8) 2^-24 S, within the plain version's (L + 2)
+    2^-24 S allowance at every L the checks run (40 and up). A case that
+    fails is the kernel's fault, not the bound's."""
     import torch
 
     from predictionio_tpu_torch.ops.als_gram import gram_rhs, gram_rhs_plain
@@ -934,7 +957,7 @@ def phase_check_b1(rng: np.random.Generator, trained: dict) -> dict:
         torch.cuda.empty_cache()
     # small cases: every rank size class, a ragged row count, all-padding
     # rows (exactly zero), and indices hitting the last real row
-    for k in (8, 16, 32, 64):
+    for k in B1_SMALL_RANKS:
         s, l, r = 500, 40, 1001
         table = np.concatenate([rng.standard_normal((s, k)), np.zeros((1, k))]).astype(np.float32)
         idx = rng.integers(0, s, (r, l)).astype(np.int32)
@@ -950,6 +973,8 @@ def phase_check_b1(rng: np.random.Generator, trained: dict) -> dict:
                 gram, rhs = gram_rhs(*args, t, 2.5, implicit=implicit)
                 if bool(gram[5].any()) or bool(rhs[5].any()):
                     raise AssertionError("an all-padding row has a non-zero Gram/rhs")
+                if not torch.equal(gram, gram.transpose(1, 2)):
+                    raise AssertionError(f"B1 at rank {k}: the Gram is not exactly symmetric")
                 emit({"phase": "check_b1", "case": f"small_k{k}", "shape": [r, l],
                       "dtype": str(dtype).split(".")[-1], "implicit": implicit,
                       "max_abs_err": err, "max_row_rel_err": row_rel})
@@ -970,15 +995,19 @@ def phase_check_b1(rng: np.random.Generator, trained: dict) -> dict:
                 gram, rhs = gram_rhs(*args, t, 2.5, implicit=implicit)
                 if bool(gram[5].any()) or bool(rhs[5].any()):
                     raise AssertionError("an all-padding row has a non-zero Gram/rhs")
+                if (als_gram.gram_instance(k) == "mma"
+                        and not torch.equal(gram, gram.transpose(1, 2))):
+                    raise AssertionError(f"B1 at rank {k}: the Gram is not exactly symmetric")
                 case = max(case, err)
                 worst[f"k{k}"] = max(worst.get(f"k{k}", 0.0), err)
         emit({"phase": "check_b1", "case": f"wide_k{k}", "shape": [r, l],
               "dtypes": ["float32", "bfloat16"], "modes": ["explicit", "implicit"],
               "max_abs_err": case})
-    # few rows at those ranks: every group's block of a row runs at once,
-    # so a block that stored into the next group's entries would race it.
-    # One thread sums each entry in slot order: repeats agree bit for bit.
-    for k in B1_WIDE_RANKS[1:]:
+    # few rows: fewer than rank 16's 8 rows a block, and at the wide ranks
+    # every group's block of a row at once, so a block that stored into
+    # another's entries would race it. Each entry has one owner that sums
+    # it in a fixed order: repeats agree bit for bit.
+    for k in B1_FEW_RANKS:
         for r in B1_FEW_ROWS:
             s, l = 500, 48
             table = np.concatenate([rng.standard_normal((s, k)),
@@ -996,7 +1025,7 @@ def phase_check_b1(rng: np.random.Generator, trained: dict) -> dict:
                     if not (torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])):
                         raise AssertionError(f"B1 at rank {k}, {r} rows: repeated launches differ")
                     case = max(case, err)
-            worst[f"k{k}"] = max(worst[f"k{k}"], case)
+            worst[f"k{k}"] = max(worst.get(f"k{k}", 0.0), case)
             emit({"phase": "check_b1", "case": f"few_rows_k{k}", "shape": [r, l],
                   "repeats": B1_FEW_REPEATS, "max_abs_err": case})
     # the template's fit at rank 128 through B1 and through the unfused
@@ -1024,17 +1053,25 @@ def phase_check_b1(rng: np.random.Generator, trained: dict) -> dict:
           "xla_max_abs_diff": fit_diff})
     del fused, xla
     torch.cuda.empty_cache()
-    return {"max_abs_err": max(worst.values()), "fit_rank_diff": fit_diff}
+    return {"max_abs_err": max(worst.values()), "fit_rank_diff": fit_diff,
+            "fit_fused_s": fused_s, "fit_xla_s": xla_s}
 
 
-def phase_time_b1(trained: dict) -> dict:
+def phase_time_b1(rng: np.random.Generator, trained: dict, b1_check: dict) -> dict:
     """B1 and its plain version timed at both half-step shapes of the fit,
-    f32 and bf16 tables, explicit mode (the template's), beside the bound;
-    and the parts of one half-step: B1, the ridge + solve, the whole
-    ``solve_rows``, and the host-to-device transfer of the blocks."""
+    f32 and bf16 tables, explicit mode (the template's), beside the bound
+    and the gather's L2 bytes; and the parts of one half-step: B1, the
+    ridge + solve, the whole ``solve_rows``, and the host-to-device
+    transfer of the blocks. Then B1 at the wide ranks on random 2,000 x 48
+    blocks, and the rank-128 fit's seconds from ``check_b1``."""
     import torch
 
-    from predictionio_tpu_torch.ops.als_gram import gram_rhs, gram_rhs_plain, half_step_bytes
+    from predictionio_tpu_torch.ops.als_gram import (
+        gram_instance,
+        gram_rhs,
+        gram_rhs_plain,
+        half_step_bytes,
+    )
     from predictionio_tpu_torch.parallel.als import (
         _finish_explicit,
         device_blocks,
@@ -1076,6 +1113,9 @@ def phase_time_b1(trained: dict) -> dict:
                 "finish_ms": finish_ms, "half_step_ms": step_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "bytes": nbytes, "operations": ops,
+                # the gather's reads of table rows, served from L2 (the
+                # table fits it): outside the bound, likely the floor
+                "gather_l2_bytes": rows * pad_len * config.rank * itemsize,
                 "reference_bytes_model": ref_bytes,
                 "reference_bytes_model_ms": ref_bytes / HBM_BYTES_PER_S * 1e3,
                 "fraction_of_bound": bound_ms / ms,
@@ -1084,7 +1124,27 @@ def phase_time_b1(trained: dict) -> dict:
             shapes.append(row)
         del table32, table
         torch.cuda.empty_cache()
-    return {"shapes": shapes, "transfer_s": transfer_s}
+    wide = []
+    for k in B1_TIME_RANKS:
+        s, l, r = 3000, 48, B1_WIDE_ROWS
+        table = torch.from_numpy(np.concatenate(
+            [rng.standard_normal((s, k)), np.zeros((1, k))]).astype(np.float32)).cuda()
+        idx = torch.from_numpy(rng.integers(0, s + 1, (r, l)).astype(np.int32)).cuda()
+        val = torch.from_numpy(rng.integers(1, 6, (r, l)).astype(np.float32)).cuda()
+        bound_ms, bound_by, nbytes, ops = b1_bound(r, l, s + 1, k, 4)
+        row = {"side": "random", "rows": r, "pad_len": l, "rank": k, "dtype": "float32",
+               "instance": gram_instance(k),
+               "ms": cuda_ms(lambda: gram_rhs(idx, val, table)),
+               "plain_ms": cuda_ms(lambda: gram_rhs_plain(idx, val, table)),
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "operations": ops, "gather_l2_bytes": r * l * k * 4}
+        row["fraction_of_bound"] = bound_ms / row["ms"]
+        emit({"phase": "time_b1", **row})
+        wide.append(row)
+    fit = {"rank": B1_FIT_RANK, "iterations": 2, "fused_s": b1_check["fit_fused_s"],
+           "xla_s": b1_check["fit_xla_s"]}
+    emit({"phase": "time_b1", "case": f"fit_rank{B1_FIT_RANK}", **fit})
+    return {"shapes": shapes, "wide_shapes": wide, "fit": fit, "transfer_s": transfer_s}
 
 
 def phase_foldin(rng: np.random.Generator, trained: dict) -> dict:
@@ -2499,7 +2559,7 @@ def main(argv: list[str] | None = None) -> int:
         serve = phase_serve(rng, workdir)
     trained = phase_train(rng, repo)
     b1_check = phase_check_b1(rng, trained)
-    b1_time = phase_time_b1(trained)
+    b1_time = phase_time_b1(rng, trained, b1_check)
     emit({"phase": "half_step_transfer", "transfer_s": b1_time["transfer_s"]})
     phase_foldin(rng, trained)
     with tempfile.TemporaryDirectory() as workdir:
@@ -2567,10 +2627,12 @@ def main(argv: list[str] | None = None) -> int:
                         "rhs of gathered rows: the nearest is a gather "
                         "followed by bmm, the unfused plain version",
         "shape": {k: b1_main[k] for k in ("side", "rows", "pad_len", "rank", "dtype")},
+        "gather_l2_bytes": b1_main["gather_l2_bytes"],
         "other_shapes": [
-            {k: s[k] for k in ("side", "dtype", "ms", "plain_ms", "bound_ms", "bound_by")}
-            for s in b1_time["shapes"] if s is not b1_main
+            {k: s[k] for k in ("side", "rank", "dtype", "ms", "plain_ms", "bound_ms", "bound_by")}
+            for s in b1_time["shapes"] + b1_time["wide_shapes"] if s is not b1_main
         ],
+        "fit_rank128_s": {"fused": b1_time["fit"]["fused_s"], "xla": b1_time["fit"]["xla_s"]},
     }, {
         "name": "ncf_score_all_items",
         "route": "cuda",

@@ -56,8 +56,9 @@ KERNELS = {
         "als_gram.cu",
         {
             "als_gram_rhs_launch": (
-                _INT, [_VP] * 5 + [_INT] * 3 + [ctypes.c_float] + [_INT] * 2 + [_VP]
+                _INT, [_VP] * 5 + [_INT] * 4 + [ctypes.c_float] + [_INT] * 2 + [_VP]
             ),
+            "als_gram_instance": (_INT, [_INT]),
         },
     ),
     "ncf_score": (

@@ -1,6 +1,6 @@
 // f32 products on Hopper's tensor cores in 3xTF32, and the tile staging,
 // shared by the flash-attention forward (flash_attention.cu) and backward
-// (flash_backward.cu).
+// (flash_backward.cu) and the ALS Gram kernel (als_gram.cu).
 //
 // mma.sync m16n8k8 with TF32 operands and f32 accumulators. Fragment
 // layout (g = lane / 4, t = lane % 4): A (16 x 8, row-major) holds

@@ -6,7 +6,9 @@ gathered opposite-side factors as a ``[rows, L, K]`` device intermediate
 (one write and two read passes) before reducing it to a ``[K, K]`` Gram
 and a ``[K]`` rhs per row. On a CUDA tensor ``gram_rhs`` launches the
 hand-written kernel ``csrc/als_gram.cu``, which gathers each row's factor
-rows into shared memory and accumulates in registers, so the intermediate
+rows into shared memory (``cp.async``, double-buffered) and accumulates
+there the Gram and rhs on the tensor cores (3xTF32 ``mma.sync``, up to
+rank ``MMA_MAX_RANK``) or, past it, on the f32 units, so the intermediate
 never reaches device memory; on a CPU tensor it takes the plain version
 ``gram_rhs_plain``.
 
@@ -33,12 +35,26 @@ from predictionio_tpu_torch import _kernels
 #: ``len_multiple``; the reference's chunk picker needs it too)
 LEN_MULTIPLE = 8
 
-#: the largest rank ``csrc/als_gram.cu`` takes: its K (K + 1) Gram and rhs
-#: entries, in groups of 5 x 1,024 a block, must fit the grid's 65,535
-#: rows of blocks
+#: the largest rank ``csrc/als_gram.cu`` takes: past ``MMA_MAX_RANK`` its
+#: K (K + 1) Gram and rhs entries, in groups of 5 x 1,024 a block, must fit
+#: the grid's 65,535 rows of blocks
 MAX_RANK = 18_317
 
+#: the largest rank the kernel's tensor-core instance takes; past it the
+#: grouped SIMT instance runs
+MMA_MAX_RANK = 512
+
 _FACTOR_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def gram_instance(k: int) -> str:
+    """Which instance of ``csrc/als_gram.cu`` runs rank ``k``: ``"mma"``
+    (tensor cores, 1 <= k <= ``MMA_MAX_RANK``) or ``"simt"`` (up to
+    ``MAX_RANK``); the kernel's ``als_gram_instance`` agrees. Raises for a
+    rank no instance takes."""
+    if not 1 <= k <= MAX_RANK:
+        raise ValueError(f"rank {k} is outside the kernel's ranks 1..{MAX_RANK}")
+    return "mma" if k <= MMA_MAX_RANK else "simt"
 
 
 def _check(indices: torch.Tensor, values: torch.Tensor, factors: torch.Tensor):
@@ -114,7 +130,9 @@ def gram_rhs(
 
     CUDA tensors launch ``csrc/als_gram.cu`` (and count the launch in
     ``gram_rhs.launches``) or raise; CPU tensors take ``gram_rhs_plain``.
-    The kernel takes any rank up to ``MAX_RANK`` (18,317)."""
+    The kernel takes any rank up to ``MAX_RANK`` (18,317), on the
+    instance ``gram_instance(k)`` names; the tensor-core one returns
+    ``gram`` exactly symmetric."""
     r, pad_len, k = _check(indices, values, factors)
     if indices.device.type == "cpu":
         return gram_rhs_plain(indices, values, factors, alpha, implicit=implicit)
@@ -122,8 +140,7 @@ def gram_rhs(
         raise ValueError(f"no gram_rhs kernel for device {indices.device}")
     if not (indices.is_contiguous() and values.is_contiguous() and factors.is_contiguous()):
         raise ValueError("gram_rhs needs contiguous tensors")
-    if k > MAX_RANK:
-        raise ValueError(f"rank {k} exceeds the kernel's largest rank {MAX_RANK}")
+    gram_instance(k)
     lib = _kernels.library("als_gram")
     gram = torch.empty((r, k, k), dtype=torch.float32, device=indices.device)
     rhs = torch.empty((r, k), dtype=torch.float32, device=indices.device)
@@ -134,7 +151,7 @@ def gram_rhs(
         status = lib.als_gram_rhs_launch(
             indices.data_ptr(), values.data_ptr(), factors.data_ptr(),
             gram.data_ptr(), rhs.data_ptr(),
-            r, pad_len, k, float(alpha), int(bool(implicit)),
+            r, pad_len, k, factors.shape[0], float(alpha), int(bool(implicit)),
             int(factors.dtype == torch.bfloat16), stream,
         )
     _kernels.check(status, "als_gram_rhs launch")
