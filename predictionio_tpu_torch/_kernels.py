@@ -48,8 +48,9 @@ KERNELS = {
         "mips_topk.cu",
         {
             "mips_block_topk_launch": (_INT, [_VP] * 6 + [_INT] * 6 + [_VP]),
-            "mips_block_topk_smem_bytes": (_INT, [_INT, _INT]),
-            "mips_block_topk_scratch_floats": (ctypes.c_longlong, [_INT] * 4),
+            "mips_block_topk_instance": (_INT, [_INT] * 3),
+            "mips_block_topk_smem_bytes": (_INT, [_INT] * 4),
+            "mips_block_topk_scratch_floats": (ctypes.c_longlong, [_INT] * 5),
         },
     ),
     "als_gram": (

@@ -32,7 +32,8 @@ from predictionio_tpu_torch.ops.quantize import BLOCK_ITEMS, pack_int8_blockwise
 from predictionio_tpu_torch.utils.device import resolve_device
 
 #: query rows per kernel block (the reference's f32 sublane multiple; here
-#: one warp per query row in an 8-warp block)
+#: the n = 8 of a tensor-core product, or one warp per query row in the
+#: SIMT instance's 8-warp block)
 BLOCK_QUERIES = 8
 
 #: padding rows mask to _NEG before selection; already-selected columns
@@ -42,8 +43,26 @@ BLOCK_QUERIES = 8
 _NEG = -1e30
 _SEL = -2e30
 
-#: grid.y of the kernel is B / BLOCK_QUERIES and CUDA caps it at 65535
+#: grid.y of the kernel's SIMT passes instance is B / BLOCK_QUERIES and
+#: CUDA caps it at 65535
 _MAX_BATCH = 65535 * BLOCK_QUERIES
+
+#: the largest per-tile top-R and rank the kernel's tensor-core instance
+#: takes; past either the SIMT passes instance runs
+MMA_MAX_TOPK = 64
+MMA_MAX_RANK = 2048
+
+
+def mips_instance(k: int, bi: int, r: int) -> str:
+    """Which instance of ``csrc/mips_topk.cu`` runs rank ``k``, tiles of
+    ``bi`` items and ``r`` candidates a tile: ``"mma"`` (bf16 tensor
+    cores with exact operands, a threshold selection; ``r <=
+    MMA_MAX_TOPK`` and ``k <= MMA_MAX_RANK``, any tile) or ``"passes"``
+    (the SIMT form). The kernel's ``mips_block_topk_instance`` agrees.
+    Raises for arguments no launch takes."""
+    if k < 1 or bi < 1 or not 0 < r <= bi:
+        raise ValueError(f"no stage-1 instance for rank {k}, tile {bi}, block_topk {r}")
+    return "mma" if r <= MMA_MAX_TOPK and k <= MMA_MAX_RANK else "passes"
 
 
 def _check_stage1(queries, q_table, scales, block_topk: int, num_items: int):
@@ -131,10 +150,10 @@ def mips_block_topk(
 
     CUDA tensors launch ``csrc/mips_topk.cu`` (and count the launch in
     ``mips_block_topk.launches``) or raise; CPU tensors take
-    ``mips_block_topk_plain``. Any rank and tile size launch: past what
-    a block's shared memory holds the kernel stages the tile in passes
-    and keeps the score rows in a global scratch this wrapper
-    allocates."""
+    ``mips_block_topk_plain``. Any rank and tile size launch, through
+    the instance ``mips_instance`` names; the SIMT passes instance keeps
+    the score rows of tiles past 2,048 items in a global scratch this
+    wrapper allocates."""
     b, k, nb, bi = _check_stage1(queries, q_table, scales, block_topk, num_items)
     if queries.device.type == "cpu":
         return mips_block_topk_plain(
@@ -152,8 +171,10 @@ def mips_block_topk(
     scores = torch.empty((b, nb, block_topk), dtype=torch.float32, device=queries.device)
     idx = torch.empty((b, nb, block_topk), dtype=torch.int32, device=queries.device)
     with torch.cuda.device(queries.device):
-        scratch = _kernels.scratch(lib.mips_block_topk_scratch_floats(b, k, bi, nb),
-                                   queries.device, "mips_block_topk")
+        scratch = _kernels.scratch(
+            lib.mips_block_topk_scratch_floats(b, k, bi, block_topk, nb),
+            queries.device, "mips_block_topk",
+        )
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.mips_block_topk_launch(
             queries.data_ptr(), q_table.data_ptr(), scales.data_ptr(),

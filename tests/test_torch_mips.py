@@ -23,6 +23,33 @@ def _factors(n, k=16, seed=0):
     return np.random.default_rng(seed).standard_normal((n, k)).astype(np.float32)
 
 
+def _raw_table(nb, bi, k, seed):
+    """An int8 table of ``nb`` tiles of ``bi`` rows and its f32 scales,
+    made directly: ``pack_int8_blockwise`` takes only multiples of 8."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-127, 128, (nb * bi, k)).astype(np.int8)
+    return q, rng.uniform(0.01, 0.05, (nb, 1)).astype(np.float32)
+
+
+def _integer_table(n, k, block_items, seed):
+    """Factors in {-127, 0, 127}: every tile's scale is exactly 1.0, so
+    with small integer queries every score is an exact integer in any
+    summation order and ties abound."""
+    f = 127 * np.random.default_rng(seed).integers(-1, 2, (n, k))
+    return torch_quantize.pack_int8_blockwise(f.astype(np.float32), block_items)
+
+
+def _stage1_both_raw(q, q_table, scales, r, num_items):
+    js, ji = jax_mips.mips_block_topk(
+        q, q_table, scales, block_topk=r, num_items=num_items, interpret=True,
+    )
+    ts, ti = torch_mips.mips_block_topk(
+        torch.from_numpy(q), torch.from_numpy(q_table), torch.from_numpy(scales),
+        block_topk=r, num_items=num_items,
+    )
+    return (np.asarray(js), np.asarray(ji)), (ts.numpy(), ti.numpy())
+
+
 def _stage1_both(f, q, block_items, r, num_items=None):
     num_items = f.shape[0] if num_items is None else num_items
     packed = jax_quantize.pack_int8_blockwise(f, block_items)
@@ -76,6 +103,59 @@ def test_stage1_wide_tiles_match_reference(num_items, k, block_items):
     assert ti.shape == ji.shape == (8, nb * 16)
     np.testing.assert_array_equal(ti, ji)
     np.testing.assert_allclose(ts, js, rtol=1e-5, atol=1e-5)
+
+
+#: odd ranks (5: one partial 16-column step; 17, 33: partial 32-column
+#: chunks) and odd tiles (100 items: a partial tensor-core tile; 1,000: two
+#: sub-tiles of the kernel's 512); R = BI at 1,000 only at rank 5, since
+#: the reference's interpret mode unrolls R passes (about a minute there)
+ODD_STAGE1 = [
+    (k, bi, r)
+    for k in (5, 17, 33)
+    for bi in (100, 1000)
+    for r in (1, 16, bi)
+    if not (bi == 1000 and r == bi and k != 5)
+]
+
+
+@pytest.mark.parametrize("k,bi,r", ODD_STAGE1)
+def test_stage1_odd_ranks_and_tiles_match_reference(k, bi, r):
+    """Stage 1 at ranks and tiles that are not multiples of the kernel's
+    steps, the last tile part padding: the plain version gives the
+    reference's candidates index for index."""
+    q_table, scales = _raw_table(3, bi, k, seed=k * bi)
+    q = _factors(8, k=k, seed=k + bi)
+    num_items = 3 * bi - 7
+    (js, ji), (ts, ti) = _stage1_both_raw(q, q_table, scales, r, num_items)
+    assert ti.shape == ji.shape == (8, 3 * r) and ti.dtype == np.int32
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(ts, js, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("r", [1, 16, 32])
+@pytest.mark.parametrize("bi", [16, 100, 512, 8192])
+@pytest.mark.parametrize("k", [1, 5, 16, 17, 33, 400])
+def test_mips_instance(k, bi, r):
+    """Every rank and tile of the grid runs the tensor-core instance at
+    R <= 32; an R past the tile is refused, as the wrapper refuses it."""
+    if r > bi:
+        with pytest.raises(ValueError):
+            torch_mips.mips_instance(k, bi, r)
+    else:
+        assert torch_mips.mips_instance(k, bi, r) == "mma"
+
+
+@pytest.mark.parametrize(
+    "k,bi,r,instance",
+    [(16, 512, 64, "mma"), (16, 512, 65, "passes"), (2048, 512, 16, "mma"),
+     (2049, 512, 16, "passes"), (400, 8192, 48, "mma"), (16, 8192, 512, "passes")],
+)
+def test_mips_instance_limits(k, bi, r, instance):
+    """Past R = 64 or rank 2,048 the SIMT passes instance runs."""
+    assert torch_mips.mips_instance(k, bi, r) == instance
+    for bad in ((0, bi, r), (k, 0, 1), (k, bi, 0)):
+        with pytest.raises(ValueError):
+            torch_mips.mips_instance(*bad)
 
 
 def test_stage1_ties_break_to_lowest_index():
@@ -257,3 +337,67 @@ def test_kernel_matches_plain_on_card_at_wide_tiles(num_items, k, block_items):
     kth = ps.reshape(16, -1, 16)[:, :, -1:]
     near = ((ks.reshape(16, -1, 16) - kth).abs() <= 1e-5 * (1 + kth.abs())).reshape(ks.shape)
     assert bool(((ki == pi) | near).all())
+
+
+def _stage1_card(args, r, num_items, exact):
+    """One launch of the kernel against the plain version on the card:
+    indices equal (``exact``), or else, per (query, tile), the sorted
+    scores within 1e-5 and the index sets equal except entries whose
+    score lies within that of the R-th (the two sum the K products in
+    different orders, so near-equal scores may swap places)."""
+    before = torch_mips.mips_block_topk.launches
+    ks, ki = torch_mips.mips_block_topk(*args, block_topk=r, num_items=num_items)
+    torch.cuda.synchronize()
+    assert torch_mips.mips_block_topk.launches == before + 1
+    ps, pi = torch_mips.mips_block_topk_plain(*args, block_topk=r, num_items=num_items)
+    if exact:
+        torch.testing.assert_close(ks, ps, rtol=1e-5, atol=1e-5)
+        assert torch.equal(ki, pi)
+        return
+    b = args[0].shape[0]
+    ks, ki, ps, pi = (x.reshape(b, -1, r) for x in (ks, ki, ps, pi))
+    torch.testing.assert_close(torch.sort(ks, dim=2, descending=True).values, ps,
+                               rtol=1e-5, atol=1e-5)
+    kth = ps[:, :, -1:]
+    near_k = (ks - kth).abs() <= 1e-5 * (1 + kth.abs())
+    near_p = (ps - kth).abs() <= 1e-5 * (1 + kth.abs())
+    k_in_p = (ki[..., :, None] == pi[..., None, :]).any(-1)
+    p_in_k = (pi[..., :, None] == ki[..., None, :]).any(-1)
+    assert bool((k_in_p | near_k).all()) and bool((p_in_k | near_p).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,bi,r", ODD_STAGE1)
+def test_kernel_matches_plain_on_card_at_odd_ranks_and_tiles(k, bi, r):
+    """The odd ranks and tiles of the CPU cases on the card (R = 1,000
+    runs the passes instance)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q_table, scales = _raw_table(40, bi, k, seed=k * bi)
+    args = [torch.from_numpy(x).cuda() for x in (_factors(24, k=k, seed=k), q_table, scales)]
+    _stage1_card(args, r, 40 * bi - 7, exact=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case,num_items,k,block_items,r",
+    [("all_equal", 2048, 16, 512, 16),          # every score ties: past the survivor buffer
+     ("ties_across_subtiles", 20_000, 16, 8192, 16),
+     ("ties_r32", 5000, 33, 1000, 32),
+     ("ties_r48", 5000, 16, 512, 48),           # R > 32: register passes
+     ("ties_r100", 5000, 16, 512, 100)],        # R > 64: the passes instance
+)
+def test_kernel_ties_match_plain_on_card(case, num_items, k, block_items, r):
+    """Exact scores (integer factors at scale 1.0, integer queries) with
+    ties everywhere, within and across the kernel's 512-column sub-tiles:
+    the kernel's indices equal the plain version's, lowest index first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    if case == "all_equal":
+        packed = torch_quantize.pack_int8_blockwise(
+            np.ones((num_items, k), np.float32), block_items)
+    else:
+        packed = _integer_table(num_items, k, block_items, seed=num_items + k)
+    q = np.random.default_rng(k).integers(-3, 4, (16, k)).astype(np.float32)
+    args = [torch.from_numpy(x).cuda() for x in (q, packed.q, packed.scales)]
+    _stage1_card(args, r, num_items, exact=True)
