@@ -87,21 +87,30 @@ script exits non-zero and prints no result):
    and recall@10 >= 0.99 against the exact scan.
 11. check_b3 -- kernel B3 (``ncf_score.cu``) against its plain version
    on the card at the NCF template's widths (E=32, hidden 64, 32) over
-   1,000,000 items for five users (the last one included), over 1, 1023,
-   1025 and 27,000 items, and at widths 8/(16, 8), 5/(12, 7) and
-   64/(128, 64), and 64/(256, 128) and 128/(512, 256) over 27,000 items
-   and 40/(300, 130) and 100/(200, 70) over 3,001 and 2,047 (the wide
-   layout: weights streamed through shared-memory windows), and 64/(1600,
-   800), 64/(4096, 2048) and 1536/(64, 32) over 27,000 items (past the
-   wide layout's shared memory: its tile and first hidden layer in a
-   global scratch). Tolerance,
+   1,000,000 items for five users (the last one included); over 1, 15,
+   16, 17, 127, 128, 129, 255, 256, 257, 1023, 1025, 5,003 and 27,000
+   items (the edges of the 16-row m-tiles and of the 128-item tiles);
+   at odd widths 8/(16, 8), 5/(12, 7), 64/(128, 64), 33/(100, 45) (E not
+   a multiple of 4: 4-byte copies), 5/(130, 9), 100/(8, 70), 3/(1, 1),
+   40/(300, 130) and 100/(200, 70); 64/(256, 128) over 255, 256 and 257
+   items (the 256-item tiles past H1 = 32); 8/(60,000, 8) (c0 recomputed per
+   H0 chunk: too wide for shared memory); and at the five wide
+   widths over 27,000 items (64/(256, 128), 128/(512, 256), 64/(1600,
+   800), 64/(4096, 2048), 1536/(64, 32): weights staged a chunk per use,
+   the ring in E chunks at E = 1536). Each case emits its staging layout
+   (``ncf_score_layout``), grid and shared memory. Tolerance,
    elementwise: 2 (3E + H0 + H1 + 6) 2^-24 times S, the same head run on
    the absolute values of every input
    (the worst case of two f32 evaluations that sum each layer in
    different orders; ``b3_tolerance``).
-12. time_b3 -- B3 and its plain version at 1,000,000 and 27,000 items,
-   and the wide and scratch widths at 27,000 items, beside the bound (the larger of
-   bytes / 3.35 TB/s and f32 operations / 67 TFLOP/s).
+12. time_b3 -- B3 and its plain version at 1,000,000 and 27,000 items
+   and the five wide widths at 27,000 items: CUDA-event medians and
+   profiler device times of each, beside the bound (the larger of bytes
+   / 3.35 TB/s and the dense layers' products at 3xTF32's 165 TFLOP/s
+   plus the rest at f32's 67 TFLOP/s) and the f32 bound of earlier runs
+   (every operation at 67 TFLOP/s, ``bound_f32_ms``). The template's
+   27,000-item row reports its device time: its CUDA-event pair brackets
+   the wrapper's host work, during which the card idles.
 13. train_ncf -- the NCF training path: ``examples/ncf/engine.json``
    (E=32, hidden 64, 32, batch 4096, lr 0.01, implicit, 4 negatives) on
    phase 6's 20,000,000 ratings, through NCFPreparator ->
@@ -254,17 +263,28 @@ B1_TIME_RANKS = (128, 200, 320, 512, 640)
 #: the NCF template's widths (examples/ncf/engine.json); B3 is checked at
 #: the serving catalog of B2's check and on the training stand-in's
 NCF_E, NCF_HIDDEN = 32, (64, 32)
-#: wider towers whose weights no longer fit shared memory beside the item
-#: tile (B3 streams them through shared-memory windows); the first one is
-#: also served
-NCF_WIDE = ((64, (256, 128)), (128, (512, 256)))
-#: widths past the wide layout's shared memory (B3 then keeps the tile
-#: and first hidden layer in a global scratch); the first one is also served
-NCF_SCRATCH = ((64, (1600, 800)), (64, (4096, 2048)), (1536, (64, 32)))
+#: wider towers, checked and timed over 27,000 items: their weights no
+#: longer fit shared memory beside the item tiles, so B3 stages them a
+#: chunk per use and computes layer 1 once per 64 columns of H1 (at E =
+#: 1536 its ring also holds E in chunks); the first and third are served
+NCF_WIDE = ((64, (256, 128)), (128, (512, 256)), (64, (1600, 800)), (64, (4096, 2048)),
+            (1536, (64, 32)))
+NCF_SERVED_WIDE = (NCF_WIDE[0], NCF_WIDE[2])
 NCF_WIDE_USERS, NCF_WIDE_QUERIES = 2_000, 3
 NCF_SERVE_USERS, NCF_SERVE_ITEMS = NUM_USERS, NUM_ITEMS
 NCF_TRAIN_ITEMS = TRAIN_ITEMS
-NCF_SMALL_ITEMS = (1, 1023, 1025, 27_000)
+#: catalogs at the template's widths: the edges of B3's 16-row m-tiles and
+#: of its 128-item tiles (H1 <= 32), a ragged tile and the training catalog
+NCF_SMALL_ITEMS = (1, 15, 16, 17, 127, 128, 129, 255, 256, 257, 1023, 1025, 5003, 27_000)
+#: (items, E, (H0, H1)): widths that are not multiples of B3's 8-column
+#: tiles, E not a multiple of 4 (4-byte copies), H0 past one 64-column
+#: chunk and H1 past one 32-column chunk, a single hidden unit, the
+#: 256-item tile edges of the instance past H1 = 32, and an H0 whose c0
+#: does not fit shared memory beside the rest (recomputed per chunk)
+NCF_ODD = ((3001, 8, (16, 8)), (3001, 5, (12, 7)), (2049, 64, (128, 64)), (2049, 33, (100, 45)),
+           (1003, 5, (130, 9)), (1003, 100, (8, 70)), (517, 3, (1, 1)), (3001, 40, (300, 130)),
+           (2047, 100, (200, 70)), (255, 64, (256, 128)), (256, 64, (256, 128)),
+           (257, 64, (256, 128)), (300, 8, (60_000, 8)))
 NCF_EPOCHS = 1          # the one cut of the NCF training phase: 5 -> 1
 NCF_HOLDOUT = 100_000
 
@@ -1459,31 +1479,43 @@ def compare_b3(gmf_users, mlp_users, head, users) -> tuple[float, float]:
     return worst, worst_ratio
 
 
-def b3_bound(items: int, e: int, h0: int, h1: int) -> tuple[float, str, float, float]:
-    """(bound ms, what bounds it, bytes, operations) of one B3 call. Bytes:
-    the two item tables read once and the scores written once (the user
-    rows and the ~17 KB of weights are noise). Operations per item:
-    2 E H0 + 2 H0 H1 (the two dense layers' multiply-adds, each sum of
-    products started from its bias), 3E (the gmf products, their weights
-    and sum), 2 H1 (the output dot, started from the gmf sum and the
-    output bias) and H0 + H1 relus; per call once more 2 E H0 + H0 for
-    the user's half of the first layer."""
+def b3_bound(items: int, e: int, h0: int, h1: int) -> tuple[float, str, float, float, float]:
+    """(bound ms, what bounds it, bytes, operations, f32 bound ms) of one
+    B3 call. Bytes: the two item tables read once and the scores written
+    once, with the user rows and the weights (noise at the template's
+    widths). Operations per item: 2 E H0 + 2 H0 H1 in the two dense
+    layers' products, on the tensor cores in 3xTF32 (F32_3XTF32_OPS_PER_S);
+    outside them in f32 3E (the gmf products, their weights and sum), 2 H1
+    (the output dot) and H0 + H1 relus; per call once more 2 E H0 + H0 for
+    the user's half of the first layer, in f32. The f32 bound counts every
+    operation at F32_OPS_PER_S, as runs before the tensor-core kernel did."""
     nbytes = 2.0 * items * e * 4 + items * 4 + (2 * e + 2 * e * h0 + h0 * h1) * 4
-    per_item = 2 * e * h0 + 2 * h0 * h1 + 3 * e + 2 * h1 + h0 + h1
-    ops = float(items * per_item + 2 * e * h0 + h0)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+    dense = float(items) * (2 * e * h0 + 2 * h0 * h1)
+    rest = float(items * (3 * e + 2 * h1 + h0 + h1) + 2 * e * h0 + h0)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = dense / F32_3XTF32_OPS_PER_S + rest / F32_OPS_PER_S
+    bound_f32_ms = max(t_bytes, (dense + rest) / F32_OPS_PER_S) * 1e3
+    return (max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes,
+            dense + rest, bound_f32_ms)
+
+
+def b3_layout(lib, e: int, h0: int, h1: int) -> dict:
+    """B3's staging at these widths, decoded from ``ncf_score_layout``."""
+    code = lib.ncf_score_layout(e, h0, h1)
+    def held(bit):
+        return "resident" if code >> bit & 1 else "chunked"
+    return {"w0i": held(0), "w1": held(1), "c0": held(2),
+            "ring_stages": 2 if code >> 3 & 1 else 1,
+            "h1_chunk": 32 if code >> 4 & 1 else 64, "ring_e_chunks": code >> 5}
 
 
 def phase_check_b3(seed: int) -> dict:
     """Kernel B3 against its plain version on the card: the template's
     widths (E=32, hidden 64, 32) at 1,000,000 items for several users
-    (the last one included), the small catalogs 1, 1023, 1025 and 27,000,
-    widths that are not multiples of the kernel's 8-column chunks, and
-    the wide towers (the wide layout, weights streamed through windows)
-    over 27,000 items and at odd wide widths, and the widths past the
-    wide layout's shared memory (its tile and first hidden layer in a
-    global scratch) over 27,000 items."""
+    (the last one included) and over the small catalogs at the edges of
+    its tiles, the odd widths (``NCF_ODD``) and the wide towers over
+    27,000 items; each case's staging layout, grid and shared memory
+    emitted beside its error."""
     import torch
 
     from predictionio_tpu_torch import _kernels
@@ -1491,10 +1523,8 @@ def phase_check_b3(seed: int) -> dict:
 
     cases = [(NCF_SERVE_USERS, NCF_SERVE_ITEMS, NCF_E, NCF_HIDDEN)]
     cases += [(64, n, NCF_E, NCF_HIDDEN) for n in NCF_SMALL_ITEMS]
-    cases += [(64, 3001, 8, (16, 8)), (64, 3001, 5, (12, 7)), (64, 2049, 64, (128, 64))]
+    cases += [(64, n, e, hidden) for n, e, hidden in NCF_ODD]
     cases += [(64, NCF_TRAIN_ITEMS, e, hidden) for e, hidden in NCF_WIDE]
-    cases += [(64, 3001, 40, (300, 130)), (64, 2047, 100, (200, 70))]
-    cases += [(64, NCF_TRAIN_ITEMS, e, hidden) for e, hidden in NCF_SCRATCH]
     lib = _kernels.library("ncf_score")
     worst = worst_ratio = 0.0
     for users, items, e, hidden in cases:
@@ -1506,18 +1536,22 @@ def phase_check_b3(seed: int) -> dict:
         emit({"phase": "check_b3", "items": items, "embed": e, "hidden": list(hidden),
               "users_checked": picked, "max_abs_err": err,
               "max_err_over_bound": ratio, "tolerance": b3_tolerance(e, *hidden),
-              "smem_bytes": lib.ncf_score_smem_bytes(e, *hidden),
-              "scratch_bytes": 4 * lib.ncf_score_scratch_floats(items, e, *hidden)})
+              "layout": b3_layout(lib, e, *hidden),
+              "grid": lib.ncf_score_grid(items, e, *hidden),
+              "smem_bytes": lib.ncf_score_smem_bytes(e, *hidden)})
         del gmf_users, mlp_users, head, state
         torch.cuda.empty_cache()
-    return {"max_abs_err": worst, "max_err_over_bound": worst_ratio}
+    return {"max_abs_err": worst, "max_err_over_bound": worst_ratio, "cases": len(cases)}
 
 
 def phase_time_b3(seed: int) -> dict:
-    """B3 and its plain version, CUDA-event medians, at 1,000,000 and at
-    27,000 items (the template's widths) and at the wide towers and the
-    widths past the wide layout's shared memory over 27,000 items,
-    beside the bound."""
+    """B3 and its plain version at 1,000,000 and at 27,000 items (the
+    template's widths) and at the wide towers over 27,000 items: the
+    CUDA-event median (``ms``) and the profiler's device time
+    (``device_ms``) of each, beside the bound and the f32 bound. A row's
+    ``reported`` names the time PERF.md quotes: the device time for the
+    template's 27,000 items, whose event pair brackets the wrapper's host
+    work, the event time elsewhere."""
     import torch
 
     from predictionio_tpu_torch.models.ncf.kernel import (
@@ -1528,19 +1562,23 @@ def phase_time_b3(seed: int) -> dict:
 
     shapes = []
     cases = [(NCF_SERVE_ITEMS, NCF_E, NCF_HIDDEN), (NCF_TRAIN_ITEMS, NCF_E, NCF_HIDDEN)]
-    cases += [(NCF_TRAIN_ITEMS, e, hidden) for e, hidden in NCF_WIDE + NCF_SCRATCH]
+    cases += [(NCF_TRAIN_ITEMS, e, hidden) for e, hidden in NCF_WIDE]
     for items, embed, hidden in cases:
         state = random_ncf_state(64, items, embed, hidden, seed)
         gmf_users, mlp_users, (gi, mi, kernels, biases, out_k, out_b) = head_tensors(
             state, items, "cuda")
         args = (gi, mi, gmf_users[7], mlp_users[7], kernels, biases, out_k, out_b)
-        ms = cuda_ms(lambda: ncf_score_all_items(*args))
-        plain_ms = cuda_ms(lambda: ncf_score_plain(*args))
-        bound_ms, bound_by, nbytes, ops = b3_bound(items, embed, *hidden)
+        device, ms = timed_pair(lambda: ncf_score_all_items(*args))
+        plain_device, plain_ms = timed_pair(lambda: ncf_score_plain(*args))
+        bound_ms, bound_by, nbytes, ops, bound_f32_ms = b3_bound(items, embed, *hidden)
+        reported = "device_ms" if (items, embed, tuple(hidden)) == (
+            NCF_TRAIN_ITEMS, NCF_E, NCF_HIDDEN) else "ms"
         row = {"items": items, "embed": embed, "hidden": list(hidden),
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "bytes": nbytes, "operations": ops,
-               "fraction_of_bound": bound_ms / ms}
+               "ms": ms, "device_ms": device, "plain_ms": plain_ms,
+               "plain_device_ms": plain_device, "reported": reported,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bound_f32_ms": bound_f32_ms,
+               "bytes": nbytes, "operations": ops,
+               "fraction_of_bound": bound_ms / (device if reported == "device_ms" else ms)}
         emit({"phase": "time_b3", **row})
         shapes.append(row)
         del gmf_users, mlp_users, gi, mi, args, state
@@ -1802,15 +1840,14 @@ def phase_serve_ncf(rng: np.random.Generator, trained: dict, repo: str, workdir:
 
 
 def phase_serve_ncf_wide(rng: np.random.Generator, seed: int, repo: str, workdir: str) -> list:
-    """NeuMF models at the first wide width (E=64, hidden 256, 128) and
-    the first one past the wide layout's shared memory (E=64, hidden
-    1600, 800), random weights from ``seed``, 27,000 items, each saved,
+    """NeuMF models at two wide widths (E=64, hidden 256, 128 and 1600,
+    800), random weights from ``seed``, 27,000 items, each saved,
     deployed through the ``deploy`` code path on cuda with an engine.json
     of its width, and asked for the top 10 of known users over HTTP: each
     answer 200 through B3 (launches counted from 0 before the queries) and
     each list the plain head's on the card up to near-ties."""
     return [serve_ncf_width(rng, seed, repo, workdir, embed, hidden)
-            for embed, hidden in (NCF_WIDE[0], NCF_SCRATCH[0])]
+            for embed, hidden in NCF_SERVED_WIDE]
 
 
 def serve_ncf_width(rng: np.random.Generator, seed: int, repo: str, workdir: str,
@@ -2761,9 +2798,12 @@ def main(argv: list[str] | None = None) -> int:
                         "output projection); the nearest is the plain version's "
                         "chain of matmuls",
         "shape": {k: b3_main[k] for k in ("items", "embed", "hidden")},
+        "device_ms": b3_main["device_ms"],
+        "bound_f32_ms": b3_main["bound_f32_ms"],
         "other_shapes": [
-            {k: s[k] for k in ("items", "embed", "hidden", "ms", "plain_ms", "bound_ms",
-                               "bound_by")}
+            {k: s[k] for k in ("items", "embed", "hidden", "ms", "device_ms", "reported",
+                               "plain_ms", "plain_device_ms", "bound_ms", "bound_by",
+                               "bound_f32_ms")}
             for s in b3_time["shapes"] if s is not b3_main
         ],
     }] + flash_rows(flash_check, flash_time, seq_trained["result"]["launches"],

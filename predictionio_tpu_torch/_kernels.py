@@ -65,9 +65,10 @@ KERNELS = {
     "ncf_score": (
         "ncf_score.cu",
         {
-            "ncf_score_launch": (_INT, [_VP] * 14 + [_INT] * 4 + [_VP]),
+            "ncf_score_launch": (_INT, [_VP] * 13 + [_INT] * 4 + [_VP]),
             "ncf_score_smem_bytes": (_INT, [_INT] * 3),
-            "ncf_score_scratch_floats": (ctypes.c_longlong, [_INT] * 4),
+            "ncf_score_layout": (_INT, [_INT] * 3),
+            "ncf_score_grid": (_INT, [_INT] * 4),
         },
     ),
     "flash_attention": (

@@ -1,6 +1,7 @@
 // f32 products on Hopper's tensor cores in 3xTF32, and the tile staging,
 // shared by the flash-attention forward (flash_attention.cu) and backward
-// (flash_backward.cu) and the ALS Gram kernel (als_gram.cu).
+// (flash_backward.cu), the ALS Gram kernel (als_gram.cu) and the NeuMF
+// scorer (ncf_score.cu).
 //
 // mma.sync m16n8k8 with TF32 operands and f32 accumulators. Fragment
 // layout (g = lane / 4, t = lane % 4): A (16 x 8, row-major) holds
@@ -18,6 +19,10 @@
 // Each 3xTF32 step sums into zeroed accumulators and reaches the running
 // sum by an f32 add (`mma3`): the tensor core truncates its sums, so a
 // running sum fed back through it drifts by an ulp of itself per step.
+// `mma3_acc` chains the products into the running sum all the same, for a
+// bound that allows that drift (the NeuMF scorer's); `frag_b` splits a B
+// operand once, where it is staged, and `split_fast` an A operand in
+// fewer instructions.
 
 #pragma once
 
@@ -74,6 +79,50 @@ __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, float b0, fl
   mma_tf32(small, a.hi, l0, l1);
 #pragma unroll
   for (int e = 0; e < 4; ++e) c[e] += big[e] + small[e];
+}
+
+// x as an A operand's hi and lo words, in 3 instructions where `split`
+// takes about 11: hi rounds x to nearest TF32 by an integer add (x
+// finite; a NaN still reaches lo), lo = x - hi exactly, and the tensor
+// core truncates lo to TF32 itself (mma reads only the top 19 bits of a
+// TF32 operand). That costs up to 2^-21 of x, twice `split`'s rounding.
+__device__ __forceinline__ void split_fast(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// frag_a through split_fast
+__device__ __forceinline__ FragA frag_a_fast(float x0, float x1, float x2, float x3) {
+  FragA f;
+  split_fast(x0, f.hi[0], f.lo[0]);
+  split_fast(x1, f.hi[1], f.lo[1]);
+  split_fast(x2, f.hi[2], f.lo[2]);
+  split_fast(x3, f.hi[3], f.lo[3]);
+  return f;
+}
+
+// A B fragment split ahead of its use, for a kernel that stages its B
+// operand once and reads it many times: the elements k = t and k = t + 4
+// of column g as (hi(b0), hi(b1), lo(b0), lo(b1)), so a lane's fragment is
+// one 16-byte shared load when 32 of them are stored lane by lane
+// ("fragment order").
+__device__ __forceinline__ uint4 frag_b(float b0, float b1) {
+  uint4 f;
+  split(b0, f.x, f.z);
+  split(b1, f.y, f.w);
+  return f;
+}
+
+// c += a b in 3xTF32 with b from frag_b, accumulated in the tensor core:
+// three products chained into c, no f32 adds. Each product's sum is
+// truncated to c's precision, so a running sum of n products drifts by
+// up to 3n/8 ulps of itself. That fits a bound that allows an ulp per
+// term of a sum (ncf_score.cu's), not the attention kernels' 2e-5 of
+// the largest output, which is why those use `mma3`.
+__device__ __forceinline__ void mma3_acc(float (&c)[4], const FragA& a, uint4 b) {
+  mma_tf32(c, a.lo, b.x, b.y);
+  mma_tf32(c, a.hi, b.z, b.w);
+  mma_tf32(c, a.hi, b.x, b.y);
 }
 
 // four floats from global memory: one 16-byte load when `vec` (the

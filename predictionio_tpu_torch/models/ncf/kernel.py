@@ -121,11 +121,10 @@ def ncf_score_all_items(
 
     CUDA tensors launch ``csrc/ncf_score.cu`` (and count the launch in
     ``ncf_score_all_items.launches``) or raise: the kernel takes the
-    depth-2 tower and contiguous tensors at any width (the weights stay
-    in shared memory while they fit, else they stream through it in
-    windows; past H0 about 1,500 or E about 1,470 a block's tile and
-    first hidden layer go to a global scratch this wrapper allocates).
-    CPU tensors take ``ncf_score_plain``."""
+    depth-2 tower and contiguous tensors at any width (both dense layers
+    on the tensor cores in 3xTF32; the weights held in shared memory
+    while they fit, else staged there a chunk at a time). CPU tensors
+    take ``ncf_score_plain``."""
     n, e = _check(gmf_items, mlp_items, gmf_u, mlp_u, kernels, biases, out_kernel, out_bias)
     if gmf_items.device.type == "cpu":
         return ncf_score_plain(gmf_items, mlp_items, gmf_u, mlp_u,
@@ -151,15 +150,12 @@ def ncf_score_all_items(
         return out
     out_w = out_kernel.reshape(-1)
     with torch.cuda.device(gmf_items.device):
-        scratch = _kernels.scratch(lib.ncf_score_scratch_floats(n, e, h0, h1),
-                                   gmf_items.device, "ncf_score_all_items")
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.ncf_score_launch(
             gmf_items.data_ptr(), mlp_items.data_ptr(), gmf_u.data_ptr(), mlp_u.data_ptr(),
             w0[:e].data_ptr(), w0[e:].data_ptr(), b0.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), out_w[:e].data_ptr(), out_w[e:].data_ptr(),
-            out_bias.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            n, e, h0, h1, stream,
+            out_bias.data_ptr(), out.data_ptr(), n, e, h0, h1, stream,
         )
     _kernels.check(status, "ncf_score launch")
     ncf_score_all_items.launches += 1

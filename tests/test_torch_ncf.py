@@ -99,9 +99,9 @@ def test_plain_head_matches_the_reference_head_at_other_depths(hidden):
 
 def test_plain_head_matches_the_pallas_kernel_at_wide_widths():
     """E=64 with hidden (256, 128), whose weights no longer fit a CUDA
-    block's shared memory beside its item tile (the kernel then streams
-    them through windows of it): the plain head the kernel is held to
-    against the reference's Pallas kernel in interpret mode."""
+    block's shared memory beside its item tiles (the kernel then stages
+    them a chunk per use): the plain head the kernel is held to against
+    the reference's Pallas kernel in interpret mode."""
     tree = flax_params(4, 300, 64, (256, 128), seed=6)
     state = params_from_flax(tree)
     for user in (0, 3):
@@ -112,11 +112,12 @@ def test_plain_head_matches_the_pallas_kernel_at_wide_widths():
 
 @pytest.mark.parametrize("embed,hidden", [(64, (1600, 800)), (1536, (64, 32))])
 def test_plain_head_matches_the_pallas_kernel_past_the_wide_layout(embed, hidden):
-    """A first hidden layer of 1,600 and an embedding of 1,536: the widths
-    whose item tile or first hidden layer no longer fit a CUDA block's
-    shared memory (the kernel then keeps them in a global scratch). The
-    plain head the kernel is held to, against the reference's
-    ``make_all_items_scorer`` with its Pallas kernel in interpret mode."""
+    """A first hidden layer of 1,600 and an embedding of 1,536: widths
+    whose weights no longer fit a CUDA block's shared memory (the kernel
+    stages them a chunk per use, and at E = 1,536 holds the item rows in
+    32-column chunks). The plain head the kernel is held to, against the
+    reference's ``make_all_items_scorer`` with its Pallas kernel in
+    interpret mode."""
     from predictionio_tpu.models.ncf.kernel import make_all_items_scorer as jax_scorer
 
     tree = flax_params(4, 300, embed, hidden, seed=7)
@@ -124,6 +125,22 @@ def test_plain_head_matches_the_pallas_kernel_past_the_wide_layout(embed, hidden
     score = jax_scorer(tree, 300, interpret=True)
     for user in (0, 3):
         want = np.asarray(score(user))
+        got = kernel.ncf_score_plain(*head_args(state, 300, user)).numpy()
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("embed,hidden", [(5, (130, 9)), (33, (100, 45)), (100, (8, 70)),
+                                          (3, (1, 1))])
+def test_plain_head_matches_the_pallas_kernel_at_odd_widths(embed, hidden):
+    """Widths the CUDA kernel pads: E not a multiple of 8 (nor of 4 at 5,
+    33 and 3, where it copies the tables in 4-byte pieces), H0 past one
+    64-column chunk, H1 past one 32-column chunk, a single hidden unit.
+    The plain head against the reference's Pallas kernel in interpret
+    mode over a ragged 300-item catalog."""
+    tree = flax_params(4, 300, embed, hidden, seed=8)
+    state = params_from_flax(tree)
+    for user in (0, 3):
+        want = jax_score_all_items(tree, user, 300, interpret=True)
         got = kernel.ncf_score_plain(*head_args(state, 300, user)).numpy()
         np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
 
@@ -212,48 +229,44 @@ def test_implicit_batches_are_byte_identical(seed, num_users, num_items, negativ
         assert g.tobytes() == w.tobytes()
 
 
+def card_head(num_items, embed, hidden, seed):
+    """Random ``NeuMF`` head tensors on the card from ``seed``: the port's
+    own init, so the test needs no JAX, and biases drawn with numpy so the
+    kernel's bias paths are exercised."""
+    state = init_model(NCFConfig(num_users=4, num_items=num_items, embed_dim=embed,
+                                 hidden=tuple(hidden), seed=seed)).state_dict()
+    rng = np.random.default_rng(seed)
+    for name, value in state.items():
+        if name.endswith(".bias"):
+            value.copy_(torch.from_numpy(0.1 * rng.standard_normal(value.shape).astype(np.float32)))
+    return kernel.head_tensors(state, num_items, "cuda")
+
+
+#: (items, E, (H0, H1)): the template's widths at the edges of the kernel's
+#: 16-row m-tiles and 128-item tiles and a ragged catalog; widths it pads
+#: (E 5, 8, 33, 100; H0 and H1 not multiples of 8, past one 64-column H0
+#: chunk and one 32-column H1 chunk), 64/(256, 128) at the tile edges of
+#: its instance past H1 = 32 and an H0 whose c0 is recomputed per chunk;
+#: and every width chip_smoke.py times, over a ragged catalog
+CARD_CASES = (
+    [(n, 32, (64, 32)) for n in (1, 15, 16, 17, 127, 128, 129, 255, 256, 257, 5003)]
+    + [(3001, 5, (12, 7)), (3001, 8, (16, 8)), (2049, 33, (100, 45)), (2047, 100, (200, 70)),
+       (3001, 40, (300, 130)), (1003, 5, (130, 9)), (1003, 100, (8, 70)), (517, 3, (1, 1))]
+    + [(n, 64, (256, 128)) for n in (255, 256, 257)] + [(300, 8, (60_000, 8))]
+    + [(27_000, 32, (64, 32)), (5003, 64, (256, 128)), (5003, 128, (512, 256)),
+       (5003, 64, (1600, 800)), (1003, 64, (4096, 2048)), (5003, 1536, (64, 32))]
+)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("embed,hidden", [(32, (64, 32)), (64, (256, 128)), (128, (512, 256)),
-                                          (100, (200, 70))])
-def test_kernel_matches_plain_on_card(embed, hidden):
-    """Kernel B3 against its plain version on the card at the template's
-    widths (weights in shared memory) and at wide ones (the wide layout,
-    weights streamed through windows; 100/(200, 70) with ragged windows),
-    with a ragged tile, elementwise within the summation-order bound of
+@pytest.mark.parametrize("items,embed,hidden", CARD_CASES)
+def test_kernel_matches_plain_on_card(items, embed, hidden):
+    """Kernel B3 against its plain version on the card, one launch a user,
+    elementwise within the summation-order bound of
     ``chip_smoke.b3_tolerance``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    tree = flax_params(20, 5003, embed, hidden, seed=4)
-    gmf_users, mlp_users, head = kernel.head_tensors(params_from_flax(tree), 5003, "cuda")
-    gi, mi, kernels, biases, out_k, out_b = head
-    abs_head = (gi.abs(), mi.abs(), [k.abs() for k in kernels], [b.abs() for b in biases],
-                out_k.abs(), out_b.abs())
-    tol = 2.0 * (3 * embed + hidden[0] + hidden[1] + 6) * 2.0 ** -24
-    for u in (0, 19):
-        args = (gi, mi, gmf_users[u], mlp_users[u], kernels, biases, out_k, out_b)
-        before = kernel.ncf_score_all_items.launches
-        got = kernel.ncf_score_all_items(*args)
-        torch.cuda.synchronize()
-        assert kernel.ncf_score_all_items.launches == before + 1
-        want = kernel.ncf_score_plain(*args)
-        scale = kernel.ncf_score_plain(abs_head[0], abs_head[1], gmf_users[u].abs(),
-                                       mlp_users[u].abs(), *abs_head[2:])
-        assert got.shape == (5003,)
-        assert bool(((got - want).abs() <= tol * scale).all())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("embed,hidden", [(64, (1600, 800)), (1536, (64, 32))])
-def test_widths_past_the_wide_layout_raise_on_card(embed, hidden):
-    """Widths past what the wide layout holds in shared memory (a first
-    hidden layer of 1,600 at E = 64; E = 1,536) no longer raise: B3 keeps
-    the tile and first hidden layer in a global scratch, launches once
-    and matches the plain version within ``chip_smoke.b3_tolerance``'s
-    bound, over a ragged tile of items."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    tree = flax_params(4, 1003, embed, hidden, seed=5)
-    gmf_users, mlp_users, head = kernel.head_tensors(params_from_flax(tree), 1003, "cuda")
+    gmf_users, mlp_users, head = card_head(items, embed, hidden, seed=4)
     gi, mi, kernels, biases, out_k, out_b = head
     abs_head = (gi.abs(), mi.abs(), [k.abs() for k in kernels], [b.abs() for b in biases],
                 out_k.abs(), out_b.abs())
@@ -267,5 +280,6 @@ def test_widths_past_the_wide_layout_raise_on_card(embed, hidden):
         want = kernel.ncf_score_plain(*args)
         scale = kernel.ncf_score_plain(abs_head[0], abs_head[1], gmf_users[u].abs(),
                                        mlp_users[u].abs(), *abs_head[2:])
-        assert got.shape == (1003,)
+        assert got.shape == (items,)
+        assert bool(torch.isfinite(got).all())
         assert bool(((got - want).abs() <= tol * scale).all())
