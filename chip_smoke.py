@@ -85,7 +85,24 @@ script exits non-zero and prints no result):
    file and ``deploy`` of what it wrote; then the full-width model of
    phase 6 saved, deployed with mips and queried over HTTP: B2 launches
    and recall@10 >= 0.99 against the exact scan.
-11. check_b3 -- kernel B3 (``ncf_score.cu``) against its plain version
+11. store_path -- the store path in a fresh ``PIO_FS_BASEDIR``: ``app new``
+   and ``accesskey new`` through the port's CLI; the event server on
+   port 0 in a thread takes 40 batches of 50 and 20 single "view" events,
+   reads them back, answers a bad request 400 and a wrong key 401 (p50
+   of a batch's round trip); ``pio import`` of 1,000,209 "rate" events
+   in the quickstart wire shape (MovieLens-1M's size: 6,040 users, 3,706
+   items of squared-uniform popularity, ratings 1-5, one second apart);
+   ``pio train`` with ``examples/recommendation/engine.json`` unchanged
+   but for its ``appName``: B1 launches, the columnar fast scan served
+   the read (its calls counted), a COMPLETED engine instance and its
+   model blob in the model repository; the same events trained from a
+   file give factors within 1e-4 of the store's; ``pio deploy`` of the
+   instance (no model directory) with ``"retrieval": {"mode":
+   "mips"}``: 10 known-user queries and a cold user, B2 launches,
+   recall@10 >= 0.99 against the exact scan; then a new "buy" event for
+   a queried user and a deploy with ``seenFilter: "live"``: the item
+   leaves the user's list.
+12. check_b3 -- kernel B3 (``ncf_score.cu``) against its plain version
    on the card at the NCF template's widths (E=32, hidden 64, 32) over
    1,000,000 items for five users (the last one included); over 1, 15,
    16, 17, 127, 128, 129, 255, 256, 257, 1023, 1025, 5,003 and 27,000
@@ -103,7 +120,7 @@ script exits non-zero and prints no result):
    the absolute values of every input
    (the worst case of two f32 evaluations that sum each layer in
    different orders; ``b3_tolerance``).
-12. time_b3 -- B3 and its plain version at 1,000,000 and 27,000 items
+13. time_b3 -- B3 and its plain version at 1,000,000 and 27,000 items
    and the five wide widths at 27,000 items: CUDA-event medians and
    profiler device times of each, beside the bound (the larger of bytes
    / 3.35 TB/s and the dense layers' products at 3xTF32's 165 TFLOP/s
@@ -111,13 +128,13 @@ script exits non-zero and prints no result):
    (every operation at 67 TFLOP/s, ``bound_f32_ms``). The template's
    27,000-item row reports its device time: its CUDA-event pair brackets
    the wrapper's host work, during which the card idles.
-13. train_ncf -- the NCF training path: ``examples/ncf/engine.json``
+14. train_ncf -- the NCF training path: ``examples/ncf/engine.json``
    (E=32, hidden 64, 32, batch 4096, lr 0.01, implicit, 4 negatives) on
    phase 6's 20,000,000 ratings, through NCFPreparator ->
    NCFAlgorithm.train on cuda, epochs cut 5 -> 1. Checks: the step count,
    no NaN, the mean loss of the last 100 steps below the first 100's,
    and fresh pairs of the data's recipe scoring above uniform ones.
-14. serve_ncf -- that model saved, deployed through the ``deploy`` code
+15. serve_ncf -- that model saved, deployed through the ``deploy`` code
    path on cuda and queried over HTTP (known users, blackList,
    unseenOnly=false, num 20, a cold user) and by a 256-user
    ``batch_predict``. B3 launches counted from 0 before the queries must
@@ -129,13 +146,14 @@ script exits non-zero and prints no result):
    27,000 items, each deployed with an engine.json of its width: 3
    known-user queries each, each 200 through B3 (3 launches a model) and
    held to the plain head as above.
-15. train_verb_ncf -- the ``train`` verb with the NCF engine.json on a
-   3,000-event file, and ``deploy`` of what it wrote (B3 serves it).
-16. seq_data -- phase 6's 20M ratings as sequence events (event i at
+16. train_verb_ncf -- a 3,000-event file imported into a fresh store,
+   the ``train`` verb with the NCF engine.json reading the store, and
+   ``deploy`` of the engine instance it recorded (B3 serves it).
+17. seq_data -- phase 6's 20M ratings as sequence events (event i at
    second i) grouped per user in time order (``group_sequences``, the
    DataSource's grouping), each user's last item held out, the rest
    packed by SequencePreparator to [138,000, 64].
-17. check_flash -- kernel B4 (``flash_attention.cu``) and the fused
+18. check_flash -- kernel B4 (``flash_attention.cu``) and the fused
    backward (``flash_backward.cu``) against their plain versions on the
    card: the training shape (B=256, H=2, T=64, D=16) with the packed
    rows' masks, with random right padding and with left padding; T in
@@ -152,7 +170,7 @@ script exits non-zero and prints no result):
    anywhere. Then 20 SASRec steps at embedDim 48 / 2 heads (D = 24) and
    at 256 / 1 head (D = 256) through the kernels equal the same steps
    through the plain versions (losses within 1e-4).
-18. time_flash -- B4, the fused backward and their plain versions at the
+19. time_flash -- B4, the fused backward and their plain versions at the
    training shape and at B=16, H=2, T=1024, D=16, and again at the
    training shape with D=24 (the wrappers' padding copies timed with the
    call) and the long one with D=128 and D=256 (the chunked instances,
@@ -167,7 +185,7 @@ script exits non-zero and prints no result):
    kernels), with the CUDA-event time of one call beside: at these sizes
    the host's launch overhead, which events count, is larger than the
    kernels.
-19. train_seq -- ``examples/sequence/engine.json`` unchanged (E=32, 2
+20. train_seq -- ``examples/sequence/engine.json`` unchanged (E=32, 2
    heads, 2 blocks, ffn 64, maxLen 64, batch 256, lr 1e-3, 10 epochs)
    through SASRecAlgorithm.train on cuda. Flash counts are zeroed just
    before and read just after: B4 and the fused backward must each be
@@ -178,7 +196,7 @@ script exits non-zero and prints no result):
    versions on the card (losses within 1e-4); the kernel run of those 20
    steps is traced: device ms a step, the card's busy share, top kernels
    and the flash kernels' own ms a step.
-20. serve_seq -- that model saved, deployed through the ``deploy`` code
+21. serve_seq -- that model saved, deployed through the ``deploy`` code
    path on cuda and queried over HTTP (users, sessions of 1-10 items,
    blackList, unseenOnly=false, a cold user) and by a 256-user
    ``batch_predict``: B4 launches counted from 0 must be 2 per forward;
@@ -189,8 +207,8 @@ script exits non-zero and prints no result):
    256) over 27,000 items deployed with an engine.json of that width: 3
    user queries, each 200 through B4 (2 launches a query) and each list
    the plain path's on the card up to near-ties.
-21. train_verb_seq -- the ``train`` verb with the sequence engine.json on
-   a 3,000-event file, and ``deploy`` of what it wrote (B4 serves it).
+22. train_verb_seq -- the same with the sequence engine.json (B4 and the
+   fused backward train it, B4 serves it).
 
 Then one line ``{"kernels": [...]}``, the card's line again and, last,
 ``{"ok": true, "device": {...}}``.
@@ -245,6 +263,14 @@ TRAIN_USERS, TRAIN_ITEMS, TRAIN_EDGES, TRAIN_CAP = 138_000, 27_000, 20_000_000, 
 RMSE_SAMPLE = 100_000
 FOLDIN_USERS = 1_000
 SMALL_EVENTS = 3_000
+#: the store path at MovieLens-1M's published size: 1,000,209 ratings by
+#: 6,040 users of 3,706 items, imported through ``pio import``; before it
+#: 40 batches of 50 and 20 single "view" events go through the event
+#: server (outside the template's eventNames, so the training read and
+#: the events file hold the same ratings)
+STORE_EVENTS, STORE_USERS, STORE_ITEMS = 1_000_209, 6_040, 3_706
+STORE_BATCHES, STORE_BATCH, STORE_SINGLES = 40, 50, 20
+STORE_QUERIES = 10
 #: the reference's f32 solver-parity bar (tests/test_als_gram.py:198)
 FIT_ATOL = 1e-4
 #: ranks whose tiles spread over a block's warps and over groups of blocks,
@@ -1326,10 +1352,13 @@ def small_events(rng: np.random.Generator, path: str) -> tuple[int, str]:
     return n, f"u{users[0]}"
 
 
-def serve_model(engine_json: str, model_dir: str, queries: list[dict]):
-    """Deploy ``model_dir`` through the ``deploy`` code path on cuda and
-    POST each query over one kept-alive connection; returns
-    ``(responses, deployed model, deploy seconds)``."""
+def serve_model(engine_json: str, model_dir: str | None, queries: list[dict],
+                times: list | None = None):
+    """Deploy ``model_dir`` (None: the latest COMPLETED engine instance of
+    the variant, from the store) through the ``deploy`` code path on cuda
+    and POST each query over one kept-alive connection; returns
+    ``(responses, deployed model, deploy seconds)``; each round trip's
+    ms goes to ``times`` when given."""
     from predictionio_tpu_torch.tools.cli import build_query_server
 
     t0 = time.perf_counter()
@@ -1339,7 +1368,12 @@ def serve_model(engine_json: str, model_dir: str, queries: list[dict]):
     thread.start()
     conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=120)
     try:
-        served = [post(conn, q)[0] for q in queries]
+        served = []
+        for q in queries:
+            body, ms = post(conn, q)
+            served.append(body)
+            if times is not None:
+                times.append(ms)
     finally:
         conn.close()
         server.shutdown()
@@ -1408,6 +1442,271 @@ def phase_train_verb_and_serve(rng: np.random.Generator, trained: dict, repo: st
               "b2_launches": b2_launches, "recall_at_10": recall,
               "identical_to_scan": identical}
     emit({"phase": "train_verb_and_serve", **result})
+    return result
+
+
+# --------------------------------------------------------------------------
+# the store path: app -> event server -> pio import -> sqlite store ->
+# pio train (B1) -> engine instance + model blob -> pio deploy (B2)
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def fresh_store(workdir: str, name: str):
+    """The port's storage pointed at a new sqlite store under
+    ``workdir/name`` (``PIO_FS_BASEDIR``) for the block; restored after."""
+    from predictionio_tpu_torch.data import storage
+
+    before = os.environ.get("PIO_FS_BASEDIR")
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(workdir, name)
+    storage.reset()
+    try:
+        yield os.environ["PIO_FS_BASEDIR"]
+    finally:
+        storage.reset()
+        if before is None:
+            os.environ.pop("PIO_FS_BASEDIR")
+        else:
+            os.environ["PIO_FS_BASEDIR"] = before
+
+
+def cli_out(args: list[str]) -> str:
+    """Run a verb of the port's CLI; its standard output (a verb that
+    fails raises)."""
+    import io
+
+    from predictionio_tpu_torch.tools import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    if rc != 0:
+        raise AssertionError(f"{args} exited {rc}: {buf.getvalue()}")
+    return buf.getvalue()
+
+
+def said(text: str, label: str) -> str:
+    return text.split(f"{label}: ", 1)[1].split()[0]
+
+
+def store_variant(src: str, app_name: str, path: str, **algorithm_params) -> str:
+    """``src``'s engine.json written to ``path`` with its datasource's
+    ``appName`` set (and algorithm params added); the same path keeps the
+    variant's identity across rewrites."""
+    with open(src) as f:
+        variant = json.load(f)
+    variant.setdefault("datasource", {}).setdefault("params", {})["appName"] = app_name
+    variant["algorithms"][0].setdefault("params", {}).update(algorithm_params)
+    with open(path, "w") as f:
+        json.dump(variant, f)
+    return path
+
+
+def store_train(app_name: str, engine_json: str, events: str, variant_path: str) -> tuple:
+    """``app new`` + ``import`` of ``events`` + ``train`` from the store
+    through the port's CLI; returns (variant path, engine instance id)."""
+    app_id = said(cli_out(["app", "new", app_name]), "ID")
+    cli_out(["import", "--appid", app_id, "--input", events])
+    store_variant(engine_json, app_name, variant_path)
+    out = cli_out(["train", "--variant", variant_path, "--device", "cuda"])
+    return variant_path, said(out, "Engine instance ID")
+
+
+def store_rate_events(rng: np.random.Generator, path: str):
+    """MovieLens-1M's published size in the quickstart wire shape: users
+    uniform, items by the squared-uniform popularity of ``small_events``,
+    ratings 1-5, one second apart (no time ties). Returns the arrays."""
+    n = STORE_EVENTS
+    users = rng.integers(0, STORE_USERS, n)
+    items = (np.minimum(rng.random(n) ** 2.2, 0.999999) * STORE_ITEMS).astype(np.int64)
+    stars = rng.integers(1, 6, n)
+    base = 956_703_932  # MovieLens-1M's first rating time
+    with open(path, "w") as f:
+        for e in range(n):
+            when = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(base + e))
+            f.write(
+                '{"event": "rate", "entityType": "user", "entityId": "u%d", '
+                '"targetEntityType": "item", "targetEntityId": "i%d", '
+                '"properties": {"rating": %d}, "eventTime": "%s"}\n'
+                % (users[e], items[e], stars[e], when))
+    return users, items, stars
+
+
+def es_request(conn, method: str, path: str, body=None) -> tuple[int, object, float]:
+    """One event-server request on a kept-alive connection: (status,
+    JSON body, round trip ms)."""
+    t0 = time.perf_counter()
+    data = None if body is None else (body if isinstance(body, bytes) else
+                                      json.dumps(body).encode())
+    conn.request(method, path, body=data, headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    payload = json.loads(resp.read() or b"null")
+    return resp.status, payload, (time.perf_counter() - t0) * 1e3
+
+
+def phase_eventserver(rng: np.random.Generator, key: str) -> dict:
+    """The port's event server on port 0 in a thread: 40 batches of 50
+    and 20 single "view" events, a read back, a bad request (400) and a
+    wrong key (401)."""
+    from predictionio_tpu_torch.data.api.eventserver import create_event_server
+
+    svc = create_event_server(host="127.0.0.1", port=0).start()
+    conn = http.client.HTTPConnection("127.0.0.1", svc.port, timeout=120)
+    q = f"?accessKey={key}"
+    view = lambda n: {"event": "view", "entityType": "user", "entityId": f"u{n % STORE_USERS}",
+                      "targetEntityType": "item", "targetEntityId": f"i{n % STORE_ITEMS}",
+                      "eventTime": "2001-01-01T00:00:00Z"}
+    try:
+        batch_ms = []
+        for b in range(STORE_BATCHES):
+            body = [view(int(x)) for x in rng.integers(0, 10**6, STORE_BATCH)]
+            status, out, ms = es_request(conn, "POST", "/batch/events.json" + q, body)
+            if status != 200 or [r["status"] for r in out] != [201] * STORE_BATCH:
+                raise AssertionError(f"batch {b} answered {status}: {out}")
+            batch_ms.append(ms)
+        for n in range(STORE_SINGLES):
+            status, out, _ = es_request(conn, "POST", "/events.json" + q,
+                                        dict(view(n), entityId="u-es"))
+            if status != 201 or "eventId" not in out:
+                raise AssertionError(f"single post answered {status}: {out}")
+        status, found, _ = es_request(
+            conn, "GET", f"/events.json{q}&entityType=user&entityId=u-es&limit=-1")
+        if status != 200 or len(found) != STORE_SINGLES:
+            raise AssertionError(f"read back {status}: {len(found)} events")
+        bad, _, _ = es_request(conn, "POST", "/events.json" + q,
+                               {"event": "$bogus", "entityType": "user", "entityId": "x"})
+        wrong, _, _ = es_request(conn, "POST", "/events.json?accessKey=wrong", view(0))
+        if (bad, wrong) != (400, 401):
+            raise AssertionError(f"bad request {bad}, wrong key {wrong}; want 400, 401")
+    finally:
+        conn.close()
+        svc.stop()
+    return {"batches": STORE_BATCHES, "batch_events": STORE_BATCH, "singles": STORE_SINGLES,
+            "batch_p50_ms": statistics.median(batch_ms), "read_back": len(found),
+            "bad_request_status": bad, "wrong_key_status": wrong}
+
+
+def phase_store_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
+    """app -> event server -> ``pio import`` of MovieLens-1M's size ->
+    ``pio train`` from the store (B1) -> engine instance and model blob
+    -> the same events trained from a file (factors within 1e-4) ->
+    ``pio deploy`` of the instance with mips (B2), recall@10 against the
+    exact scan, and a live seen filter that drops a newly posted item."""
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage import sql_common
+    from predictionio_tpu_torch.ops import als_gram, mips
+    from predictionio_tpu_torch.tools import cli
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model, run_train
+    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+
+    engine_json = os.path.join(repo, "examples", "recommendation", "engine.json")
+    with fresh_store(workdir, "store"):
+        out = cli_out(["app", "new", "MLApp"])
+        app_id = int(said(out, "ID"))
+        key = said(cli_out(["accesskey", "new", "MLApp"]), "Access Key")
+        result = {"eventserver": phase_eventserver(rng, key)}
+
+        events = os.path.join(workdir, "ml1m.jsonl")
+        t0 = time.perf_counter()
+        store_rate_events(rng, events)
+        result["write_file_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        said_import = cli_out(["import", "--appid", str(app_id), "--input", events])
+        import_s = time.perf_counter() - t0
+        imported = storage.get_l_events().count_interactions(app_id, event_names=["rate"])
+        if imported != STORE_EVENTS or f"Imported {STORE_EVENTS} events." not in said_import:
+            raise AssertionError(f"import stored {imported} rate events: {said_import}")
+        result.update(events_imported=imported, import_s=import_s,
+                      import_events_per_s=imported / import_s)
+
+        variant_path = store_variant(engine_json, "MLApp", os.path.join(workdir, "ml1m.json"))
+        fast_scans = []
+        real_scan = sql_common.SQLLEvents.scan_interactions
+
+        def counted_scan(*args, **kwargs):
+            cols = real_scan(*args, **kwargs)
+            fast_scans.append(len(cols[0]))  # counted only when it served the read
+            return cols
+
+        sql_common.SQLLEvents.scan_interactions = counted_scan
+        timings = {}
+        als_gram.gram_rhs.launches = 0
+        try:
+            t0 = time.perf_counter()
+            instance = run_train(load_engine_variant(variant_path), device="cuda",
+                                 timings=timings)
+            train_verb_s = time.perf_counter() - t0
+        finally:
+            sql_common.SQLLEvents.scan_interactions = real_scan
+        b1_launches = als_gram.gram_rhs.launches
+        recorded = storage.get_meta_data_engine_instances().get(instance.id)
+        blob = storage.get_model_data_models().get(instance.id)
+        if b1_launches < 1:
+            raise AssertionError("pio train from the store did not launch B1")
+        if fast_scans != [STORE_EVENTS]:
+            raise AssertionError(f"the columnar fast scan did not serve the read: {fast_scans}")
+        if recorded is None or recorded.status != "COMPLETED" or blob is None:
+            raise AssertionError(f"instance {instance.id}: {recorded}, blob {blob is not None}")
+        result.update(fast_scan_rows=fast_scans, b1_launches=b1_launches,
+                      instance_status=recorded.status, blob_bytes=len(blob.models),
+                      train_verb_s=train_verb_s,
+                      **{k: timings[k] for k in ("read_s", "prepare_s", "train_s", "persist_s")})
+
+        # the same events through the events-file stand-in (no time ties,
+        # so both reads encode alike): factors within the f32 bar
+        t0 = time.perf_counter()
+        file_model = cli.train(variant_path, events, os.path.join(workdir, "ml1m_file"),
+                               device="cuda")
+        result["file_train_s"] = time.perf_counter() - t0
+        _, store_model = load_instance_model(load_engine_variant(variant_path))
+        if store_model.user_index != file_model.user_index or (
+                store_model.item_ids != file_model.item_ids):
+            raise AssertionError("the store and the file encode users or items differently")
+        err = max(float(np.abs(store_model.als.user_factors - file_model.als.user_factors).max()),
+                  float(np.abs(store_model.als.item_factors - file_model.als.item_factors).max()))
+        if not err <= FIT_ATOL:
+            raise AssertionError(f"store vs file factors differ by {err} > {FIT_ATOL}")
+        result.update(users=len(store_model.user_index), items=len(store_model.item_ids),
+                      factors_max_abs_err_vs_file=err)
+        del file_model
+
+        # deploy the instance with mips: the variant's path keeps its identity
+        algo_params, _ = template_params(repo)
+        mips_params = dict(algo_params, retrieval={"mode": "mips"})
+        store_variant(engine_json, "MLApp", variant_path, retrieval={"mode": "mips"})
+        picked = rng.choice(STORE_USERS, size=STORE_QUERIES, replace=False)
+        queries = [{"user": f"u{u}", "num": 10} for u in picked] + [
+            {"user": "cold-user", "num": 10}]
+        query_ms = []
+        mips.mips_block_topk.launches = 0
+        served, deployed, deploy_s = serve_model(variant_path, None, queries, query_ms)
+        b2_launches = mips.mips_block_topk.launches
+        if b2_launches < 1:
+            raise AssertionError("deploying the instance with mips did not launch B2")
+        if served[-1] != {"itemScores": []}:
+            raise AssertionError(f"the cold user answered {served[-1]}")
+        recall, identical = recall_against_scan(mips_params, deployed, queries, served)
+        result.update(deploy_s=deploy_s, query_p50_ms=statistics.median(query_ms[:-1]),
+                      queries=len(queries), b2_launches=b2_launches, recall_at_10=recall,
+                      identical_to_scan=identical)
+
+        # a new event for a queried user; deployed with seenFilter "live",
+        # the user's list drops that item at once
+        user, top = queries[0]["user"], served[0]["itemScores"][0]["item"]
+        storage.get_l_events().insert(Event(
+            event="buy", entity_type="user", entity_id=user, target_entity_type="item",
+            target_entity_id=top), app_id)
+        store_variant(engine_json, "MLApp", variant_path, retrieval={"mode": "mips"},
+                      seenFilter="live")
+        live_ms = []
+        before = mips.mips_block_topk.launches
+        live, _, _ = serve_model(variant_path, None, [{"user": user, "num": 10}], live_ms)
+        listed = [s["item"] for s in live[0]["itemScores"]]
+        if top in listed or len(listed) != 10 or mips.mips_block_topk.launches <= before:
+            raise AssertionError(f"the live filter kept {top}: {listed}")
+        result.update(live_filter_dropped=top, live_query_ms=live_ms[0])
+    emit({"phase": "store_path", **result})
     return result
 
 
@@ -1900,27 +2199,26 @@ def serve_ncf_width(rng: np.random.Generator, seed: int, repo: str, workdir: str
 
 def phase_train_verb_ncf(rng: np.random.Generator, repo: str, workdir: str) -> dict:
     """The ``train`` verb with the NCF template's engine.json on a small
-    events file, and ``deploy`` of the model it wrote."""
+    event set read from the store (``import``ed into an app of a fresh
+    store), and ``deploy`` of the engine instance it recorded."""
     from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
-    from predictionio_tpu_torch.tools import cli
 
     engine_json, _ = ncf_engine(repo)
     events = os.path.join(workdir, "ncf_events.jsonl")
     n_events, user = small_events(rng, events)
-    model_dir = os.path.join(workdir, "ncf_small")
-    t0 = time.perf_counter()
-    if cli.main(["train", "--engine-json", engine_json, "--events", events,
-                 "--model-out", model_dir, "--device", "cuda"]) != 0:
-        raise AssertionError("the train verb failed")
-    verb_s = time.perf_counter() - t0
-    before = ncf_kernel.ncf_score_all_items.launches
-    served, small, _ = serve_model(engine_json, model_dir, [{"user": user, "num": 5}])
+    with fresh_store(workdir, "ncf_store"):
+        t0 = time.perf_counter()
+        variant, _ = store_train("NcfApp", engine_json, events,
+                                 os.path.join(workdir, "ncf_small.json"))
+        verb_s = time.perf_counter() - t0
+        before = ncf_kernel.ncf_score_all_items.launches
+        served, small, _ = serve_model(variant, None, [{"user": user, "num": 5}])
     launches = ncf_kernel.ncf_score_all_items.launches - before
     if len(served[0]["itemScores"]) != 5 or user not in small.user_index or launches < 2:
         raise AssertionError(f"the trained small NCF model answered {served[0]} "
                              f"with {launches} B3 launches (warm-up and query)")
-    result = {"events": n_events, "train_verb_s": verb_s, "b3_launches": launches,
-              "epochs": small.config.epochs}
+    result = {"events": n_events, "read_from": "store", "train_verb_s": verb_s,
+              "b3_launches": launches, "epochs": small.config.epochs}
     emit({"phase": "train_verb_ncf", **result})
     return result
 
@@ -2596,30 +2894,29 @@ def phase_serve_seq_wide(seed: int, repo: str, workdir: str) -> dict:
 
 def phase_train_verb_seq(rng: np.random.Generator, repo: str, workdir: str) -> dict:
     """The ``train`` verb with the sequence template's engine.json on a
-    small events file, and ``deploy`` of the model it wrote."""
-    from predictionio_tpu_torch.tools import cli
-
+    small event set read from the store, and ``deploy`` of the engine
+    instance it recorded."""
     engine_json, _ = sequence_engine(repo)
     events = os.path.join(workdir, "seq_events.jsonl")
     n_events, user = small_events(rng, events)
-    model_dir = os.path.join(workdir, "seq_small")
-    before = flash_counts()
-    t0 = time.perf_counter()
-    if cli.main(["train", "--engine-json", engine_json, "--events", events,
-                 "--model-out", model_dir, "--device", "cuda"]) != 0:
-        raise AssertionError("the train verb failed")
-    verb_s = time.perf_counter() - t0
-    trained = {k: n - before[k] for k, n in flash_counts().items()}
-    if min(trained["flash_forward"], trained["flash_backward"]) < 1:
-        raise AssertionError(f"the train verb's flash launches: {trained}; B4 and the fused "
-                             "backward must launch")
-    before = flash_counts()["flash_forward"]
-    served, small, _ = serve_model(engine_json, model_dir, [{"user": user, "num": 5}])
+    with fresh_store(workdir, "seq_store"):
+        before = flash_counts()
+        t0 = time.perf_counter()
+        variant, _ = store_train("SeqApp", engine_json, events,
+                                 os.path.join(workdir, "seq_small.json"))
+        verb_s = time.perf_counter() - t0
+        trained = {k: n - before[k] for k, n in flash_counts().items()}
+        if min(trained["flash_forward"], trained["flash_backward"]) < 1:
+            raise AssertionError(f"the train verb's flash launches: {trained}; B4 and the "
+                                 "fused backward must launch")
+        before = flash_counts()["flash_forward"]
+        served, small, _ = serve_model(variant, None, [{"user": user, "num": 5}])
     launches = flash_counts()["flash_forward"] - before
     if len(served[0]["itemScores"]) != 5 or user not in small.histories or launches < 4:
         raise AssertionError(f"the trained small SASRec model answered {served[0]} "
                              f"with {launches} B4 launches (warm-up and query)")
-    result = {"events": n_events, "users": len(small.histories), "train_verb_s": verb_s,
+    result = {"events": n_events, "read_from": "store", "users": len(small.histories),
+              "train_verb_s": verb_s,
               "train_launches": trained, "serve_b4_launches": launches,
               "epochs": small.config.epochs}
     emit({"phase": "train_verb_seq", **result})
@@ -2706,6 +3003,8 @@ def main(argv: list[str] | None = None) -> int:
     phase_foldin(rng, trained)
     with tempfile.TemporaryDirectory() as workdir:
         phase_train_verb_and_serve(rng, trained, repo, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        store = phase_store_path(rng, repo, workdir)
     b1_launches = trained["result"]["launches"]["gram_rhs"]
     ratings = trained["ratings"]
     del trained
@@ -2740,6 +3039,7 @@ def main(argv: list[str] | None = None) -> int:
         "source": "predictionio_tpu_torch/csrc/mips_topk.cu",
         "replaces": "predictionio_tpu/ops/mips.py:129",
         "launches": serve["launches"]["mips_block_topk"],
+        "store_path_launches": store["b2_launches"],
         "max_abs_err": stage1["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -2765,6 +3065,7 @@ def main(argv: list[str] | None = None) -> int:
         "source": "predictionio_tpu_torch/csrc/als_gram.cu",
         "replaces": "predictionio_tpu/ops/als_gram.py:86",
         "launches": b1_launches,
+        "store_path_launches": store["b1_launches"],
         "max_abs_err": b1_check["max_abs_err"],
         "ms": b1_main["ms"],
         "plain_ms": b1_main["plain_ms"],

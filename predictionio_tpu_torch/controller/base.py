@@ -13,9 +13,21 @@ ported.
 from __future__ import annotations
 
 import abc
+import io
 import os
+import zipfile
 from dataclasses import dataclass
 from typing import Any, Mapping, Sequence
+
+
+def open_model_file(source, name: str):
+    """One file of a saved model, opened for binary reading: ``source``
+    is the directory a template's ``save_model`` wrote, or an open
+    ``zipfile.ZipFile`` of a model blob (``controller/engine.py``), read
+    without unpacking it to disk."""
+    if isinstance(source, zipfile.ZipFile):
+        return io.BytesIO(source.read(name))
+    return open(os.path.join(source, name), "rb")
 
 
 class Params(dict):
@@ -71,13 +83,17 @@ class TrainContext:
     examples they produce or permute (``record_phase(name, seconds,
     rows)``).
     ``mesh_shape`` is the engine.json's ``sparkConf["pio.mesh_shape"]``
-    (the port trains on one device; NCF refuses an axis above 1)."""
+    (the port trains on one device; NCF refuses an axis above 1).
+    ``run_key`` (a train from the store) keys the checkpoints by run, as
+    the reference's ``RuntimeContext.checkpoint_manager`` does: an
+    algorithm's go to ``checkpoint_dir/<name>-<run_key>``."""
 
     device: Any = None
     checkpoint_dir: str | None = None
     resume: bool = False
     telemetry: Any = None
     mesh_shape: Any = None
+    run_key: str | None = None
 
     def checkpoint_manager(self, name: str):
         """The step-checkpoint manager of one algorithm, or None when the
@@ -87,8 +103,9 @@ class TrainContext:
             return None
         from predictionio_tpu_torch.workflow.checkpoint import CheckpointManager
 
+        key = name if self.run_key is None else f"{name}-{self.run_key}"
         return CheckpointManager(
-            os.path.join(self.checkpoint_dir, name), fresh=not self.resume
+            os.path.join(self.checkpoint_dir, key), fresh=not self.resume
         )
 
 

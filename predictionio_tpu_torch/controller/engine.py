@@ -1,0 +1,173 @@
+"""Engine parameters, the ported templates, and the model blob.
+
+Counterpart of ``predictionio_tpu/controller/engine.py``:
+
+- ``EngineParams`` is a copy of the reference's ``from_json_obj`` side:
+  the engine.json parameter block, also rebuilt from what an engine
+  instance records (``workflow/core_workflow.py``).
+- ``Template`` and ``TEMPLATES`` stand where the reference's ``Engine``
+  and its ``engineFactory`` callables stand: the port binds each ported
+  template's DASE classes and its pickle-free ``save_model`` /
+  ``load_model`` here, and ``template_for`` maps an ``engineFactory``
+  path of the JAX package (or, without one, the first algorithm's name)
+  to it. No factory is ever imported.
+- ``serialize_model`` / ``deserialize_model`` are the counterpart of
+  ``Engine.serialize_models`` / ``prepare_deploy`` (reference
+  ``:154-234``). The reference pickles its models; the port's blob is a
+  stored (uncompressed) zip of exactly the files the template's
+  ``save_model`` writes, plus ``manifest.json`` naming the template and
+  the algorithm. A pickled blob (first byte ``0x80``: one the JAX package
+  wrote) is refused with an error and never unpickled.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import tempfile
+import zipfile
+from dataclasses import dataclass, field
+from typing import Any, Callable, Mapping
+
+from predictionio_tpu_torch.controller.base import (
+    Algorithm,
+    DataSource,
+    Params,
+    Preparator,
+)
+from predictionio_tpu_torch.models import ncf, recommendation, sequence
+
+
+@dataclass
+class EngineParams:
+    """Deserialized engine.json parameter block (reference EngineParams)."""
+
+    data_source_params: Params = field(default_factory=Params)
+    preparator_params: Params = field(default_factory=Params)
+    algorithm_params_list: list[tuple[str, Params]] = field(default_factory=list)
+    serving_params: Params = field(default_factory=Params)
+
+    @classmethod
+    def from_json_obj(cls, obj: Mapping[str, Any]) -> "EngineParams":
+        algorithms = [
+            (a.get("name", "default"), Params(a.get("params", {})))
+            for a in obj.get("algorithms", [{"name": "default", "params": {}}])
+        ]
+        return cls(
+            data_source_params=Params(obj.get("datasource", {}).get("params", {})),
+            preparator_params=Params(obj.get("preparator", {}).get("params", {})),
+            algorithm_params_list=algorithms,
+            serving_params=Params(obj.get("serving", {}).get("params", {})),
+        )
+
+
+@dataclass(frozen=True)
+class Template:
+    """What the verbs need of one ported template."""
+
+    name: str                           # TEMPLATES key, recorded in the blob
+    algorithm: str                      # the engine.json algorithm name
+    algorithm_class: type[Algorithm]
+    preparator_class: type[Preparator]
+    save_model: Callable
+    load_model: Callable                # a directory path or an open ZipFile
+    datasource_class: type[DataSource]  # reads the store, or ``events_path=``
+
+
+TEMPLATES = {
+    "recommendation": Template(
+        "recommendation", "als", recommendation.ALSAlgorithm,
+        recommendation.RecommendationPreparator, recommendation.save_model,
+        recommendation.load_model, recommendation.RecommendationDataSource,
+    ),
+    "ncf": Template(
+        "ncf", "ncf", ncf.NCFAlgorithm, ncf.NCFPreparator, ncf.save_model,
+        ncf.load_model, recommendation.RecommendationDataSource,
+    ),
+    "sequence": Template(
+        "sequence", "sasrec", sequence.SASRecAlgorithm, sequence.SequencePreparator,
+        sequence.save_model, sequence.load_model, sequence.SequenceDataSource,
+    ),
+}
+
+
+def template_for(engine_factory: str, algorithm_name: str) -> Template:
+    """The template of an engine.json: by ``engineFactory``
+    (``predictionio_tpu.models.<template>.engine_factory``) when it names
+    one, else by the first algorithm's name, which must be the
+    template's."""
+    if engine_factory:
+        parts = engine_factory.split(".")
+        key = parts[-2] if len(parts) >= 2 and parts[-1] == "engine_factory" else None
+        if key not in TEMPLATES:
+            raise ValueError(
+                f"engineFactory {engine_factory!r} is not a ported template; the "
+                f"port serves {sorted(TEMPLATES)}"
+            )
+        template = TEMPLATES[key]
+    else:
+        template = next((t for t in TEMPLATES.values() if t.algorithm == algorithm_name), None)
+        if template is None:
+            raise ValueError(
+                f"algorithm {algorithm_name!r} is not a ported template's; the port "
+                f"serves {sorted(t.algorithm for t in TEMPLATES.values())}"
+            )
+    if algorithm_name != template.algorithm:
+        raise ValueError(
+            f"the template's algorithm is {template.algorithm!r}, got {algorithm_name!r}"
+        )
+    return template
+
+
+MANIFEST = "manifest.json"
+BLOB_FORMAT = "predictionio_tpu_torch.model-zip"
+
+
+class ModelBlobError(ValueError):
+    """A model blob the port cannot deploy."""
+
+
+def serialize_model(template: Template, model) -> bytes:
+    """The model blob of one trained model: ``template.save_model``'s
+    files, stored uncompressed, and ``manifest.json``."""
+    with tempfile.TemporaryDirectory(prefix="pio-model-") as tmp:
+        template.save_model(model, tmp)
+        names = sorted(os.listdir(tmp))
+        buf = io.BytesIO()
+        with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as zf:
+            zf.writestr(MANIFEST, json.dumps({
+                "format": BLOB_FORMAT, "version": 1, "template": template.name,
+                "algorithm": template.algorithm, "files": names,
+            }))
+            for name in names:
+                zf.write(os.path.join(tmp, name), name)
+    return buf.getvalue()
+
+
+def deserialize_model(template: Template, blob: bytes):
+    """``template.load_model`` straight off the blob (no temporary
+    directory); raises ``ModelBlobError`` for a pickled blob, a blob of
+    another template, or one that is not the port's."""
+    if blob[:1] == b"\x80":
+        raise ModelBlobError(
+            "this model blob is a pickle, written by the JAX package "
+            "(predictionio_tpu); the port never unpickles a blob. Retrain it "
+            "with the port's `train`, or carry its weights across with the "
+            "template's convert.py (model_from_arrays / model_from_flax) and "
+            "deploy the directory with --model"
+        )
+    try:
+        zf = zipfile.ZipFile(io.BytesIO(blob))
+        manifest = json.loads(zf.read(MANIFEST))
+    except (zipfile.BadZipFile, KeyError, ValueError) as exc:
+        raise ModelBlobError(f"not a model blob of the port: {exc}") from None
+    if manifest.get("format") != BLOB_FORMAT:
+        raise ModelBlobError(f"unknown model blob format {manifest.get('format')!r}")
+    if manifest.get("template") != template.name:
+        raise ModelBlobError(
+            f"the blob holds a {manifest.get('template')!r} model; the engine.json "
+            f"names the {template.name!r} template"
+        )
+    with zf:
+        return template.load_model(zf)

@@ -1,15 +1,18 @@
 """Event model: the append-only record everything else is built on.
 
-Copy of ``predictionio_tpu/data/event.py`` (framework-free): the field
-set, the name validation rules, the reserved ``$set/$unset/$delete``
-semantics and the JSON wire shape (``Event.from_json_obj``), which the
-port's events-file reader (``data/store.py``) parses.
+Copy of ``predictionio_tpu/data/event.py`` (framework-free), whole: the
+field set, the name validation rules, the reserved ``$set/$unset/$delete``
+semantics, the JSON wire shape in both directions (``Event.from_json_obj``,
+``Event.to_json_obj``, ISO times to the millisecond) and event ids
+(``with_id``), which the event store, the event server and ``pio
+import``/``export`` share.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
-from dataclasses import dataclass, field
+import uuid
+from dataclasses import dataclass, field, replace
 from typing import Any, Mapping
 
 from predictionio_tpu_torch.data.datamap import DataMap
@@ -19,9 +22,6 @@ SET_EVENT = "$set"
 UNSET_EVENT = "$unset"
 DELETE_EVENT = "$delete"
 SPECIAL_EVENTS = frozenset({SET_EVENT, UNSET_EVENT, DELETE_EVENT})
-
-#: reserved entity types the framework itself writes (feedback loop)
-INTERNAL_ENTITY_TYPES = frozenset({"pio_pr"})
 
 
 class EventValidationError(ValueError):
@@ -35,7 +35,7 @@ def _require(cond: bool, msg: str) -> None:
 
 def validate_event_name(name: str) -> None:
     """Reserved-prefix rules: ``$``-events other than set/unset/delete and any
-    ``pio_``-prefixed name are rejected."""
+    ``pio_``-prefixed name are rejected (SURVEY.md Appendix A)."""
     _require(bool(name), "event name must not be empty")
     if name.startswith("$"):
         _require(name in SPECIAL_EVENTS, f"unsupported reserved event {name!r}")
@@ -43,9 +43,15 @@ def validate_event_name(name: str) -> None:
         _require(not name.startswith("pio_"), f"event name {name!r}: prefix 'pio_' is reserved")
 
 
+#: reserved entity types the framework itself writes (feedback loop)
+INTERNAL_ENTITY_TYPES = frozenset({"pio_pr"})
+
+
 def validate_entity(kind: str, value: str) -> None:
     _require(isinstance(value, str), f"{kind} must be a string, got {type(value).__name__}")
     _require(bool(value), f"{kind} must not be empty")
+    # the pio_pr exemption is for entity *types* (feedback loop); ids keep the
+    # full reserved-prefix rule
     exempt = kind in ("entityType", "targetEntityType") and value in INTERNAL_ENTITY_TYPES
     _require(
         not value.startswith("pio_") or exempt,
@@ -57,6 +63,7 @@ def parse_event_time(value: str) -> _dt.datetime:
     """Parse an ISO-8601 timestamp; naive times are taken as UTC."""
     _require(isinstance(value, str), f"eventTime must be a string, got {type(value).__name__}")
     try:
+        # Accept the trailing-Z form the SDKs emit.
         ts = _dt.datetime.fromisoformat(value.replace("Z", "+00:00"))
     except ValueError as exc:
         raise EventValidationError(f"cannot parse eventTime {value!r}: {exc}") from None
@@ -65,13 +72,19 @@ def parse_event_time(value: str) -> _dt.datetime:
     return ts
 
 
+def format_event_time(ts: _dt.datetime) -> str:
+    if ts.tzinfo is None:
+        ts = ts.replace(tzinfo=_dt.timezone.utc)
+    return ts.isoformat(timespec="milliseconds")
+
+
 def _utcnow() -> _dt.datetime:
     return _dt.datetime.now(_dt.timezone.utc)
 
 
 @dataclass(frozen=True)
 class Event:
-    """One immutable event record."""
+    """One immutable event record (wire contract: SURVEY.md Appendix A)."""
 
     event: str
     entity_type: str
@@ -85,7 +98,8 @@ class Event:
     creation_time: _dt.datetime = field(default_factory=_utcnow)
 
     def __post_init__(self):
-        # normalize naive datetimes to UTC (frozen: use object.__setattr__)
+        # normalize naive datetimes to UTC so mixed-source events compare/sort
+        # and serialize consistently (frozen dataclass: use object.__setattr__)
         if self.event_time.tzinfo is None:
             object.__setattr__(
                 self, "event_time", self.event_time.replace(tzinfo=_dt.timezone.utc)
@@ -117,6 +131,7 @@ class Event:
                 f"{self.event} event must not have a target entity",
             )
 
+    # -- JSON wire serde ----------------------------------------------------
     @classmethod
     def from_json_obj(cls, obj: Mapping[str, Any]) -> "Event":
         _require(isinstance(obj, Mapping), "event body must be a JSON object")
@@ -147,3 +162,23 @@ class Event:
                 else {}
             ),
         )
+
+    def to_json_obj(self) -> dict[str, Any]:
+        out: dict[str, Any] = {
+            "eventId": self.event_id,
+            "event": self.event,
+            "entityType": self.entity_type,
+            "entityId": self.entity_id,
+        }
+        if self.target_entity_type is not None:
+            out["targetEntityType"] = self.target_entity_type
+            out["targetEntityId"] = self.target_entity_id
+        out["properties"] = self.properties.to_dict()
+        out["eventTime"] = format_event_time(self.event_time)
+        if self.pr_id is not None:
+            out["prId"] = self.pr_id
+        out["creationTime"] = format_event_time(self.creation_time)
+        return out
+
+    def with_id(self, event_id: str | None = None) -> "Event":
+        return replace(self, event_id=event_id or uuid.uuid4().hex)

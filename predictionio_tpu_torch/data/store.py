@@ -1,25 +1,80 @@
-"""Columnar training read of the port: an events file -> ``EventDataset``.
+"""Event store facades: the API engine templates call, and the events file.
 
-``EventDataset`` and its ``from_events`` are a copy of
-``predictionio_tpu/data/store.py:80-110`` (framework-free numpy): string
-columns dictionary-encoded in first-appearance order, numeric columns
-dense. ``read_events_file`` stands in for ``pio import`` + the event
-store + ``PEventStore.dataset`` until the port has a store of its own:
-it reads a JSON-lines file in the ``pio import`` wire shape (one event
-object per line, ``docs/quickstart-recommendation.md``), keeps the events
-the store's query would return -- names in ``event_names``, target type
-``target_entity_type`` -- in the store's scan order (event time
-ascending, ties in file order), and encodes them.
+Copy of ``predictionio_tpu/data/store.py`` (framework-free numpy):
+
+- ``resolve_app_channel``: appName (+ channel) -> (appId, channelId);
+- ``EventDataset``: the columnar view of a query result, built from
+  events (``from_events``) or from a backend's columnar fast scan
+  (``from_columns``, no Event per row);
+- ``LEventStore``: blocking serving-time reads by app name (the live
+  seen filters of ``models/_streaming.py`` read through it);
+- ``PEventStore``: the training reads, ``find``, ``dataset`` (the
+  columnar scan when the backend has ``scan_interactions`` and the
+  filters allow it, else the row path; a failed fast scan falls back to
+  the row path with a warning, as the reference's does) and
+  ``aggregate_properties``.
+
+Training snapshots (``snapshot_mode`` / ``PIO_SNAPSHOT_MODE`` other than
+``off``) are ROADMAP.md Queue A item 3 and raise ``NotImplementedError``.
+
+``read_events_file`` is the port's stand-in for ``pio import`` + the
+store + ``PEventStore.dataset`` over a JSON-lines file in the ``pio
+import`` wire shape (one event object per line,
+``docs/quickstart-recommendation.md``): it keeps the events the store's
+query would return -- names in ``event_names``, target type
+``target_entity_type`` -- in event-time order at the store's millisecond
+resolution, ties in file order, and encodes them. The store's columnar
+scan breaks ties by event id instead, so only events without time ties
+encode alike through both.
 """
 
 from __future__ import annotations
 
+import datetime as _dt
 import json
+import logging
+import os
 from dataclasses import dataclass
+from typing import Iterator
 
 import numpy as np
 
+from predictionio_tpu_torch.data import storage as storage_registry
+from predictionio_tpu_torch.data.datamap import PropertyMap
 from predictionio_tpu_torch.data.event import Event
+
+logger = logging.getLogger("pio.store")
+
+#: modulus (ms per day) of the per-row event-time checksum of
+#: ``sql_common.interaction_digest`` (copy of
+#: ``predictionio_tpu/data/snapshot.py:75``; the snapshot module itself
+#: is not ported)
+TIME_DIGEST_MOD = 86_400_000
+
+
+class AppNotFoundError(LookupError):
+    pass
+
+
+class ChannelNotFoundError(LookupError):
+    pass
+
+
+def resolve_app_channel(
+    app_name: str, channel_name: str | None = None
+) -> tuple[int, int | None]:
+    """appName (+channel) -> (appId, channelId), as LEventStore/Common does."""
+    apps = storage_registry.get_meta_data_apps()
+    app = apps.get_by_name(app_name)
+    if app is None:
+        raise AppNotFoundError(f"app {app_name!r} not found")
+    if channel_name is None:
+        return app.id, None
+    channels = storage_registry.get_meta_data_channels()
+    for ch in channels.get_by_app(app.id):
+        if ch.name == channel_name:
+            return app.id, ch.id
+    raise ChannelNotFoundError(f"channel {channel_name!r} not found in app {app_name!r}")
 
 
 @dataclass
@@ -28,6 +83,9 @@ class EventDataset:
 
     String-valued columns are dictionary-encoded: ``entity_ids[i]`` indexes
     into ``entity_id_vocab``. Numeric columns are dense numpy arrays.
+    ``events`` retains the row objects -- it is EMPTY when the dataset
+    came through a backend's columnar fast scan (``from_columns``), which
+    skips Event construction entirely.
     """
 
     events: list[Event]
@@ -73,6 +131,247 @@ class EventDataset:
             event_names=names,
             event_times=times,
             ratings=ratings,
+        )
+
+    @classmethod
+    def from_columns(
+        cls, entity_ids, target_entity_ids, event_names, event_times_iso, ratings_raw
+    ) -> "EventDataset":
+        """Build from a backend columnar scan (``scan_interactions``) --
+        no Event objects, no per-row JSON parse. Matches ``from_events``
+        output exactly: first-appearance vocabulary order (None targets ->
+        the -1 sentinel), microsecond-precision timestamps from the stored
+        ISO strings, and ratings pre-filtered to JSON numbers by the
+        backend. pandas accelerates the encoding when present (it is not a
+        declared dependency); pure-python fallbacks match it bit-for-bit.
+        """
+        try:
+            import pandas as pd
+        except ImportError:
+            pd = None
+
+        def encode(values) -> tuple[np.ndarray, list[str]]:
+            if pd is not None:
+                codes, vocab = pd.factorize(np.asarray(values, dtype=object))
+                return codes.astype(np.int32), [str(v) for v in vocab]
+            vocab_map: dict[str, int] = {}
+            codes = np.empty(len(values), dtype=np.int32)
+            for i, v in enumerate(values):
+                codes[i] = (
+                    -1 if v is None else vocab_map.setdefault(v, len(vocab_map))
+                )
+            return codes, list(vocab_map)
+
+        ent, ent_vocab = encode(entity_ids)
+        tgt, tgt_vocab = encode(target_entity_ids)
+        names, name_vocab = encode(event_names)
+
+        n = len(entity_ids)
+        times = None
+        if pd is not None:
+            try:
+                # as_unit("ns"): pandas 2 may parse into us/ms resolution,
+                # and asi8 reports in whatever unit the index landed in.
+                # format="ISO8601" and as_unit are pandas>=2 API -- any
+                # older-pandas failure drops to the stdlib loop below
+                times = (
+                    pd.DatetimeIndex(
+                        pd.to_datetime(event_times_iso, utc=True, format="ISO8601")
+                    )
+                    .as_unit("ns")
+                    .asi8
+                    / 1e9
+                )
+            except Exception:
+                times = None
+        if times is None:
+            times = np.fromiter(
+                (_dt.datetime.fromisoformat(s).timestamp() for s in event_times_iso),
+                dtype=np.float64,
+                count=n,
+            )
+
+        def to_float(v) -> float:
+            if v is None:
+                return np.nan
+            try:
+                return float(v)  # drivers may hand numbers back as str/Decimal
+            except (TypeError, ValueError):
+                return np.nan
+
+        ratings = np.fromiter(
+            (to_float(v) for v in ratings_raw), dtype=np.float32, count=n
+        )
+        return cls(
+            events=[],
+            entity_id_vocab=ent_vocab,
+            target_entity_id_vocab=tgt_vocab,
+            event_name_vocab=name_vocab,
+            entity_ids=ent,
+            target_entity_ids=tgt,
+            event_names=names,
+            event_times=np.asarray(times, np.float64),
+            ratings=ratings,
+        )
+
+
+class LEventStore:
+    """Blocking serving-time event reads, resolved by app name."""
+
+    @staticmethod
+    def find(
+        app_name: str,
+        entity_type: str | None = None,
+        entity_id: str | None = None,
+        channel_name: str | None = None,
+        event_names: list[str] | None = None,
+        target_entity_type=...,
+        target_entity_id=...,
+        start_time: _dt.datetime | None = None,
+        until_time: _dt.datetime | None = None,
+        limit: int | None = None,
+        latest: bool = True,
+    ) -> Iterator[Event]:
+        app_id, channel_id = resolve_app_channel(app_name, channel_name)
+        return storage_registry.get_l_events().find(
+            app_id=app_id,
+            channel_id=channel_id,
+            start_time=start_time,
+            until_time=until_time,
+            entity_type=entity_type,
+            entity_id=entity_id,
+            event_names=event_names,
+            target_entity_type=target_entity_type,
+            target_entity_id=target_entity_id,
+            limit=limit,
+            reversed=latest,
+        )
+
+    @staticmethod
+    def find_by_entity(
+        app_name: str,
+        entity_type: str,
+        entity_id: str,
+        channel_name: str | None = None,
+        **kwargs,
+    ) -> Iterator[Event]:
+        return LEventStore.find(
+            app_name,
+            entity_type=entity_type,
+            entity_id=entity_id,
+            channel_name=channel_name,
+            **kwargs,
+        )
+
+
+def _snapshot_mode(snapshot_mode: str | None) -> str:
+    """The training-snapshot mode the reference's ``snapshot_settings``
+    resolves (explicit argument > ``PIO_SNAPSHOT_MODE`` > off)."""
+    mode = snapshot_mode or os.environ.get("PIO_SNAPSHOT_MODE") or "off"
+    if mode not in ("off", "use", "refresh"):
+        raise ValueError(f"snapshot mode must be off|use|refresh, got {mode!r}")
+    return mode
+
+
+class PEventStore:
+    """Training-time bulk reads -> columnar EventDataset."""
+
+    @staticmethod
+    def find(
+        app_name: str,
+        channel_name: str | None = None,
+        start_time: _dt.datetime | None = None,
+        until_time: _dt.datetime | None = None,
+        entity_type: str | None = None,
+        entity_id: str | None = None,
+        event_names: list[str] | None = None,
+        target_entity_type=...,
+        target_entity_id=...,
+    ) -> list[Event]:
+        app_id, channel_id = resolve_app_channel(app_name, channel_name)
+        return list(
+            storage_registry.get_l_events().find(
+                app_id=app_id,
+                channel_id=channel_id,
+                start_time=start_time,
+                until_time=until_time,
+                entity_type=entity_type,
+                entity_id=entity_id,
+                event_names=event_names,
+                target_entity_type=target_entity_type,
+                target_entity_id=target_entity_id,
+            )
+        )
+
+    #: dataset() filters the columnar fast scan understands; anything else
+    #: (entity filters, exotic target matching) falls back to the row path
+    _FAST_SCAN_FILTERS = frozenset(
+        {"event_names", "target_entity_type", "start_time", "until_time"}
+    )
+
+    @staticmethod
+    def dataset(
+        app_name: str,
+        rating_key: str = "rating",
+        channel_name: str | None = None,
+        snapshot_mode: str | None = None,
+        snapshot_dir: str | None = None,
+        **kwargs,
+    ) -> EventDataset:
+        """Columnar training read: the backend's fast scan when it has
+        one and the filters allow it, else (or when the fast scan fails)
+        the row path. A snapshot mode other than ``off`` raises."""
+        mode = _snapshot_mode(snapshot_mode)
+        if mode != "off":
+            raise NotImplementedError(
+                f"training snapshots (snapshot mode {mode!r}) are not ported"
+                " yet (ROADMAP.md Queue A item 3); unset PIO_SNAPSHOT_MODE"
+            )
+        le = storage_registry.get_l_events()
+        if (
+            hasattr(le, "scan_interactions")
+            and set(kwargs) <= PEventStore._FAST_SCAN_FILTERS
+        ):
+            app_id, channel_id = resolve_app_channel(app_name, channel_name)
+            try:
+                return EventDataset.from_columns(
+                    *le.scan_interactions(
+                        app_id, channel_id, rating_key=rating_key, **kwargs
+                    )
+                )
+            except Exception:
+                # e.g. a stored properties blob the DB's JSON functions
+                # reject (python's json accepts NaN, SQL JSON does not):
+                # the row path parses it fine, so degrade instead of
+                # failing training for the whole app
+                logger.warning(
+                    "columnar fast scan failed for app %r; falling back to"
+                    " the row path",
+                    app_name,
+                    exc_info=True,
+                )
+        return EventDataset.from_events(
+            PEventStore.find(app_name, channel_name=channel_name, **kwargs),
+            rating_key=rating_key,
+        )
+
+    @staticmethod
+    def aggregate_properties(
+        app_name: str,
+        entity_type: str,
+        channel_name: str | None = None,
+        start_time: _dt.datetime | None = None,
+        until_time: _dt.datetime | None = None,
+        required: list[str] | None = None,
+    ) -> dict[str, PropertyMap]:
+        app_id, channel_id = resolve_app_channel(app_name, channel_name)
+        return storage_registry.get_l_events().aggregate_properties(
+            app_id=app_id,
+            entity_type=entity_type,
+            channel_id=channel_id,
+            start_time=start_time,
+            until_time=until_time,
+            required=required,
         )
 
 

@@ -12,7 +12,9 @@ On disk a model is a directory of two pickle-free files:
   seen map as ``seen_users`` / ``seen_items`` int64 (20M pairs are
   arrays, not JSON); loaded with ``allow_pickle=False``;
 - ``model.json``: ``{"user_ids": [...], "item_ids": [...], "config":
-  {NCFConfig fields}}``.
+  {NCFConfig fields}}``, and the seen filter's ``seen_mode`` with the
+  ``app_name`` and ``event_names`` a live filter reads (absent in older
+  directories: ``"model"``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import os
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.controller.base import open_model_file
 from predictionio_tpu_torch.models._als_common import build_seen
 from predictionio_tpu_torch.models.ncf.engine import NCFModel
 from predictionio_tpu_torch.models.ncf.model import (
@@ -42,6 +45,9 @@ def model_from_state(
     seen_users: np.ndarray,
     seen_items: np.ndarray,
     config: NCFConfig | None = None,
+    seen_mode: str = "model",
+    app_name: str = "",
+    event_names: list[str] | None = None,
 ) -> NCFModel:
     """The port's ``NCFModel`` from a ``NeuMF`` state dict: table row
     ``r`` belongs to ``user_ids[r]`` / ``item_ids[r]``, and ``(seen_users[e],
@@ -66,6 +72,9 @@ def model_from_state(
         item_index={iid: j for j, iid in enumerate(item_ids)},
         seen=build_seen(seen_users, seen_items),
         config=config if config is not None else arch,
+        seen_mode=seen_mode,
+        app_name=app_name,
+        event_names=event_names,
     )
 
 
@@ -94,18 +103,21 @@ def save_model(model: NCFModel, path: str) -> None:
     config["hidden"] = list(config["hidden"])
     with open(os.path.join(path, "model.json"), "w") as f:
         json.dump({"user_ids": user_ids, "item_ids": list(model.item_ids),
-                   "config": config}, f)
+                   "config": config, "seen_mode": model.seen_mode,
+                   "app_name": model.app_name, "event_names": model.event_names}, f)
 
 
 def load_model(path: str) -> NCFModel:
-    """Read a model directory written by ``save_model``."""
-    with np.load(os.path.join(path, "params.npz"), allow_pickle=False) as z:
+    """Read a model written by ``save_model``: its directory, or an open
+    ``zipfile.ZipFile`` of a model blob."""
+    with open_model_file(path, "params.npz") as f, np.load(f, allow_pickle=False) as z:
         arrays = {name: z[name] for name in z.files}
-    with open(os.path.join(path, "model.json")) as f:
+    with open_model_file(path, "model.json") as f:
         meta = json.load(f)
     config = dict(meta["config"])
     config["hidden"] = tuple(config["hidden"])
     state = {k: torch.from_numpy(v) for k, v in arrays.items() if k not in _SEEN}
     return model_from_state(state, meta["user_ids"], meta["item_ids"],
                             arrays["seen_users"], arrays["seen_items"],
-                            NCFConfig(**config))
+                            NCFConfig(**config), meta.get("seen_mode", "model"),
+                            meta.get("app_name", ""), meta.get("event_names"))

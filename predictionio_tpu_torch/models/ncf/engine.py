@@ -15,8 +15,9 @@ the recommendation template: ``{"user": "u1", "num": 4}`` ->
 
 The reference's ``_pallas_with_fallback`` and its numpy fallback are not
 ported: a model served on the card launches B3 or raises.
-``seenFilter: "live"`` (a per-query event-store read) is refused when
-the algorithm is built, as in ``ALSAlgorithm``.
+``seenFilter: "live"`` reads the user's events from the store per query
+(``models/_streaming.py``), as in ``ALSAlgorithm``: when the model was
+trained so, or the serving engine.json asks for it.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from predictionio_tpu_torch.models._als_common import (
     score_buffer_rows,
     topk_item_scores,
 )
+from predictionio_tpu_torch.models._streaming import live_seen_indices
 from predictionio_tpu_torch.models.ncf.kernel import (
     all_items_scorer,
     batch_scorer,
@@ -75,6 +77,11 @@ class NCFModel:
     item_index: dict[str, int]
     seen: dict[int, set[int]]
     config: NCFConfig
+    #: "model": the seen map above; "live": per-query event-store read
+    #: (``app_name`` / ``event_names`` say what to read), no seen map
+    seen_mode: str = "model"
+    app_name: str = ""
+    event_names: list[str] = None
     _scorers: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     def _cached(self, key, build):
@@ -121,7 +128,7 @@ class NCFModel:
 class NCFAlgorithm(Algorithm):
     """Params: embedDim, hidden, learningRate, epochs, batchSize,
     implicit, negatives, seed, checkpoint (per-epoch checkpoints,
-    default on), seenFilter ("model" only) and usePallas (serve through
+    default on), seenFilter ("model" or "live") and usePallas (serve through
     kernel B3; default on when the device is ``cuda``).
 
     ``device`` is where training runs and the scorers live: ``cuda``
@@ -131,14 +138,11 @@ class NCFAlgorithm(Algorithm):
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
         self.device = resolve_device(device)
-        seen_mode = self.params.get_or("seenFilter", "model")
-        if seen_mode == "live":
-            raise NotImplementedError(
-                'seenFilter "live" reads the event store per query, which '
-                'this port does not serve yet; train with "seenFilter": "model"'
+        self.seen_mode = self.params.get_or("seenFilter", "model")
+        if self.seen_mode not in ("model", "live"):
+            raise ValueError(
+                f"seenFilter must be 'model' or 'live', got {self.seen_mode!r}"
             )
-        if seen_mode != "model":
-            raise ValueError(f"seenFilter must be 'model' or 'live', got {seen_mode!r}")
         self.use_kernel = bool(self.params.get_or("usePallas", self.device.type == "cuda"))
 
     def _config(self, data: RatingsData) -> NCFConfig:
@@ -181,8 +185,11 @@ class NCFAlgorithm(Algorithm):
             user_index={uid: j for j, uid in enumerate(data.user_ids)},
             item_ids=list(data.item_ids),
             item_index={iid: j for j, iid in enumerate(data.item_ids)},
-            seen=build_seen(data.users, data.items),
+            seen=build_seen(data.users, data.items) if self.seen_mode == "model" else {},
             config=config,
+            seen_mode=self.seen_mode,
+            app_name=data.app_name,
+            event_names=list(data.event_names),
         )
 
     def warm_up(self, model: NCFModel) -> None:
@@ -194,7 +201,14 @@ class NCFAlgorithm(Algorithm):
         model.batch_scorer(self.device)
 
     @staticmethod
-    def _topk_response(model: NCFModel, scores: np.ndarray, query, user_idx) -> dict:
+    def _seen(model: NCFModel, query, user_idx, cache=None, live=False) -> set[int]:
+        if not live and model.seen_mode != "live":
+            return model.seen.get(user_idx, set())
+        return live_seen_indices(model, str(query.get("user")), cache)
+
+    @staticmethod
+    def _topk_response(model: NCFModel, scores: np.ndarray, query, user_idx,
+                       seen_cache=None, live=False) -> dict:
         """Shared exclusion + ranking tail (predict and batch_predict must
         rank identically)."""
         exclude = {
@@ -203,7 +217,7 @@ class NCFAlgorithm(Algorithm):
             if str(b) in model.item_index
         }
         if query.get("unseenOnly", True):
-            exclude |= model.seen.get(user_idx, set())
+            exclude |= NCFAlgorithm._seen(model, query, user_idx, seen_cache, live)
         scores = scores.astype(np.float64)
         for j in exclude:
             scores[j] = -np.inf
@@ -214,7 +228,8 @@ class NCFAlgorithm(Algorithm):
         if user_idx is None:
             return {"itemScores": []}
         scores = model.scorer(self.device, self.use_kernel)(user_idx)
-        return self._topk_response(model, scores, query, user_idx)
+        return self._topk_response(model, scores, query, user_idx,
+                                   live=self.seen_mode == "live")
 
     def batch_predict(self, model: NCFModel, queries):
         """Chunks of known users score against the full catalog through
@@ -227,11 +242,14 @@ class NCFAlgorithm(Algorithm):
             # pair budget caps only the on-device intermediates)
             rows_per_slice = score_buffer_rows(len(model.item_ids))
             scorer = model.batch_scorer(self.device)
+            seen_cache: dict = {}
             for start in range(0, len(user_rows), rows_per_slice):
                 part = user_rows[start : start + rows_per_slice]
                 scores = scorer(np.fromiter((u for _, _, u in part), dtype=np.int64))
                 out.extend(
-                    (qid, self._topk_response(model, scores[row], q, user_idx))
+                    (qid, self._topk_response(model, scores[row], q, user_idx,
+                                              seen_cache=seen_cache,
+                                              live=self.seen_mode == "live"))
                     for row, (qid, q, user_idx) in enumerate(part)
                 )
         out.extend((qid, self.predict(model, q)) for qid, q in fallback)

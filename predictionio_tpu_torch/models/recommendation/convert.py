@@ -11,7 +11,10 @@ On disk a model is a directory of two pickle-free files:
 - ``factors.npz``: ``user_factors`` [U, K] f32, ``item_factors`` [I, K]
   f32, ``seen_users`` / ``seen_items`` int64 (loaded with
   ``allow_pickle=False``);
-- ``vocab.json``: ``{"user_ids": [...], "item_ids": [...]}`` in row order.
+- ``vocab.json``: ``{"user_ids": [...], "item_ids": [...]}`` in row
+  order, and the seen filter's ``seen_mode`` with the ``app_name`` and
+  ``event_names`` a live filter reads (absent in older directories:
+  ``"model"``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import os
 
 import numpy as np
 
+from predictionio_tpu_torch.controller.base import open_model_file
 from predictionio_tpu_torch.models._als_common import build_seen
 from predictionio_tpu_torch.models.recommendation.engine import RecommendationModel
 from predictionio_tpu_torch.parallel.als import ALSModel
@@ -33,10 +37,15 @@ def model_from_arrays(
     item_ids: list[str],
     seen_users: np.ndarray,
     seen_items: np.ndarray,
+    seen_mode: str = "model",
+    app_name: str = "",
+    event_names: list[str] | None = None,
 ) -> RecommendationModel:
     """The port's ``RecommendationModel`` from the reference's arrays:
     factor row ``r`` belongs to ``user_ids[r]`` / ``item_ids[r]``, and
-    ``(seen_users[e], seen_items[e])`` are interacted (row, row) pairs."""
+    ``(seen_users[e], seen_items[e])`` are interacted (row, row) pairs
+    (none in ``seen_mode="live"``, which reads the ``app_name`` app's
+    ``event_names`` events per query instead)."""
     user_factors = np.ascontiguousarray(user_factors, np.float32)
     item_factors = np.ascontiguousarray(item_factors, np.float32)
     user_ids = [str(u) for u in user_ids]
@@ -63,6 +72,9 @@ def model_from_arrays(
         item_ids=item_ids,
         item_index={iid: idx for idx, iid in enumerate(item_ids)},
         seen=build_seen(seen_users, seen_items),
+        seen_mode=seen_mode,
+        app_name=app_name,
+        event_names=event_names,
     )
 
 
@@ -89,17 +101,22 @@ def save_model(model: RecommendationModel, path: str) -> None:
         seen_items=seen_items,
     )
     with open(os.path.join(path, "vocab.json"), "w") as f:
-        json.dump({"user_ids": user_ids, "item_ids": list(model.item_ids)}, f)
+        json.dump({"user_ids": user_ids, "item_ids": list(model.item_ids),
+                   "seen_mode": model.seen_mode, "app_name": model.app_name,
+                   "event_names": model.event_names}, f)
 
 
 def load_model(path: str) -> RecommendationModel:
-    """Read a model directory written by ``save_model``."""
-    with np.load(os.path.join(path, "factors.npz"), allow_pickle=False) as z:
+    """Read a model written by ``save_model``: its directory, or an open
+    ``zipfile.ZipFile`` of a model blob."""
+    with open_model_file(path, "factors.npz") as f, np.load(f, allow_pickle=False) as z:
         arrays = {name: z[name] for name in z.files}
-    with open(os.path.join(path, "vocab.json")) as f:
+    with open_model_file(path, "vocab.json") as f:
         vocab = json.load(f)
     return model_from_arrays(
         arrays["user_factors"], arrays["item_factors"],
         vocab["user_ids"], vocab["item_ids"],
         arrays["seen_users"], arrays["seen_items"],
+        vocab.get("seen_mode", "model"), vocab.get("app_name", ""),
+        vocab.get("event_names"),
     )

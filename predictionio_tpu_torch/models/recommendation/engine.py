@@ -5,16 +5,20 @@ training half (``RatingsData``, ``RecommendationDataSource``,
 ``RecommendationPreparator``, ``ALSAlgorithm.train``) and the serving
 half (``RecommendationModel``, the query side of ``ALSAlgorithm``).
 
-The DataSource reads a JSON-lines events file (``data/store.py``) where
-the reference reads its event store: the port has no store yet.
+The DataSource reads the event store (``PEventStore.dataset`` of the
+``appName`` app, the reference's filters), or a JSON-lines events file
+when it is built with ``events_path=`` (``data/store.py``).
 
 Query contract (reference template quickstart):
 ``{"user": "u1", "num": 4}`` -> ``{"itemScores": [{"item": ..., "score": ...}]}``
 plus item-based queries ``{"items": [...], "num": k}`` for similarity.
 
-Only ``seenFilter: "model"`` (the trained-in seen map) is served here;
-``"live"`` reads the event store per query, which this slice does not
-port, and is refused when the algorithm is built.
+``seenFilter`` is ``"model"`` (the trained-in seen map) or ``"live"``
+(a per-query read of the user's events from the store,
+``models/_streaming.py``; a model trained so keeps no seen map). A
+query filters live when its model was trained live or the serving
+engine.json asks for it: every model names the app and events a live
+read needs.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from predictionio_tpu_torch.controller.base import (
     Preparator,
     SanityCheck,
 )
-from predictionio_tpu_torch.data.store import read_events_file
+from predictionio_tpu_torch.data.store import PEventStore, read_events_file
 from predictionio_tpu_torch.models._als_common import (
     batch_score_known_users,
     build_seen,
@@ -43,6 +47,7 @@ from predictionio_tpu_torch.models._als_common import (
     topk_item_scores,
     warn_misplaced_packing_params,
 )
+from predictionio_tpu_torch.models._streaming import live_seen_indices
 from predictionio_tpu_torch.parallel.als import ALSConfig, ALSModel
 from predictionio_tpu_torch.utils.device import resolve_device
 
@@ -63,7 +68,8 @@ class RatingsData(SanityCheck):
     def sanity_check(self) -> None:
         if self.users.size == 0:
             raise ValueError(
-                "no rating events found -- check the events file and eventNames"
+                "no rating events found -- check appName (or the events file) "
+                "and eventNames"
             )
 
     @property
@@ -78,30 +84,39 @@ class RatingsData(SanityCheck):
 class RecommendationDataSource(DataSource):
     """Reads rating-like events into COO form.
 
-    Params: ``appName``, ``eventNames`` (default ["rate", "buy"]),
-    ``ratingKey`` (property holding the rating; "buy"-style events without
-    it score 1.0). ``events_path`` is the JSON-lines events file the port
-    reads in place of the reference's event store. ``"reader":
+    Params: ``appName`` (required to read the store), ``eventNames``
+    (default ["rate", "buy"]), ``ratingKey`` (property holding the rating;
+    "buy"-style events without it score 1.0). With ``events_path`` the
+    JSON-lines events file is read in place of the store. ``"reader":
     "streaming"`` (the reference's sharded reader) is not ported.
     """
 
-    def __init__(self, params=None, *, events_path: str):
+    def __init__(self, params=None, *, events_path: str | None = None):
         super().__init__(params)
         self.events_path = events_path
         if self.params.get_or("reader", "materialized") == "streaming":
             raise NotImplementedError(
-                'datasource "reader": "streaming" reads the event store in '
-                "shards, which the port does not have yet; leave it out"
+                'datasource "reader": "streaming" (the sharded reader) is not '
+                "ported yet: ROADMAP.md Queue A item 8; leave it out"
             )
 
     def read_training(self, ctx) -> RatingsData:
         event_names = self.params.get_or("eventNames", ["rate", "buy"])
-        ds = read_events_file(
-            self.events_path,
-            event_names=event_names,
-            target_entity_type="item",
-            rating_key=self.params.get_or("ratingKey", "rating"),
-        )
+        rating_key = self.params.get_or("ratingKey", "rating")
+        if self.events_path is None:
+            ds = PEventStore.dataset(
+                self.params.appName,
+                rating_key=rating_key,
+                event_names=event_names,
+                target_entity_type="item",
+            )
+        else:
+            ds = read_events_file(
+                self.events_path,
+                event_names=event_names,
+                target_entity_type="item",
+                rating_key=rating_key,
+            )
         ratings = np.nan_to_num(ds.ratings, nan=1.0)  # implicit events -> 1.0
         valid = ds.target_entity_ids >= 0
         return RatingsData(
@@ -147,6 +162,22 @@ class RecommendationModel:
     item_ids: list[str]
     item_index: dict[str, int]
     seen: dict[int, set[int]]  # user -> rated item indices (for filtering)
+    #: "model": the seen map above; "live": per-query event-store read
+    #: (``app_name`` / ``event_names`` say what to read), no seen map
+    seen_mode: str = "model"
+    app_name: str = ""
+    event_names: list[str] = None
+
+
+def _seen_indices(model: RecommendationModel, query, user_idx: int,
+                  cache: dict | None = None, live: bool = False) -> set[int]:
+    """The user's already-interacted item indices for the unseenOnly
+    filter: the trained-in map, or in "live" mode (the model's, or
+    ``live``) the store's events of the query's user (a store error
+    degrades to nothing seen)."""
+    if not live and model.seen_mode != "live":
+        return model.seen.get(user_idx, set())
+    return live_seen_indices(model, str(query.get("user")), cache)
 
 
 class ALSAlgorithm(Algorithm):
@@ -156,7 +187,9 @@ class ALSAlgorithm(Algorithm):
 
     Params: rank, numIterations, lambda, alpha, implicitPrefs, seed,
     factorDtype, factorSharding, alsSolver, checkpointInterval
-    (iterations between step checkpoints; 0 disables) and retrieval.
+    (iterations between step checkpoints; 0 disables), seenFilter
+    ("model" or "live": kept in the model at training; "live" at deploy
+    reads the store whatever the model holds) and retrieval.
 
     ``device`` is where the retrieval index lives: ``cuda`` unless the
     caller names ``"cpu"``; without a card and without an explicit CPU
@@ -166,15 +199,10 @@ class ALSAlgorithm(Algorithm):
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
         self.device = resolve_device(device)
-        seen_mode = self.params.get_or("seenFilter", "model")
-        if seen_mode == "live":
-            raise NotImplementedError(
-                'seenFilter "live" reads the event store per query, which '
-                'this port does not serve yet; train with "seenFilter": "model"'
-            )
-        if seen_mode != "model":
+        self.seen_mode = self.params.get_or("seenFilter", "model")
+        if self.seen_mode not in ("model", "live"):
             raise ValueError(
-                f"seenFilter must be 'model' or 'live', got {seen_mode!r}"
+                f"seenFilter must be 'model' or 'live', got {self.seen_mode!r}"
             )
         # a retrieval typo fails the deploy, not the first query
         self._retrieval = resolve_retrieval(self.params)
@@ -211,7 +239,14 @@ class ALSAlgorithm(Algorithm):
             user_index={uid: idx for idx, uid in enumerate(ratings_data.user_ids)},
             item_ids=list(ratings_data.item_ids),
             item_index={iid: idx for idx, iid in enumerate(ratings_data.item_ids)},
-            seen=build_seen(ratings_data.users, ratings_data.items),
+            # "live" keeps the serving model O(entities): no seen map
+            seen=(
+                build_seen(ratings_data.users, ratings_data.items)
+                if self.seen_mode == "model" else {}
+            ),
+            seen_mode=self.seen_mode,
+            app_name=ratings_data.app_name,
+            event_names=list(ratings_data.event_names),
         )
 
     def warm_up(self, model: RecommendationModel) -> None:
@@ -240,13 +275,17 @@ class ALSAlgorithm(Algorithm):
         one retrieval search (mips) or one einsum slice (scan); cold users
         and item-similarity queries fall back to predict()."""
         user_rows, fallback = partition_user_queries(model.user_index, queries)
+        # live seen filter: one store read per distinct user of the chunk
+        seen_memo: dict = {}
         out = batch_score_known_users(
             model.als,
             user_rows,
             lambda scores, qid, q, user_idx: (
                 qid,
                 self._topk_response(
-                    model, scores, q, int(q.get("num", 10)), user_idx
+                    model, scores, q, int(q.get("num", 10)), user_idx,
+                    seen=_seen_indices(model, q, user_idx, seen_memo,
+                                       live=self.seen_mode == "live"),
                 ),
             ),
             retrieval=self._retrieval,
@@ -258,10 +297,11 @@ class ALSAlgorithm(Algorithm):
     @staticmethod
     def _topk_response(
         model: RecommendationModel, scores: np.ndarray, query, num: int,
-        user_idx: int,
+        user_idx: int, seen: set | None = None,
     ) -> dict:
         """Shared filter + top-k over one user's item scores (predict and
-        the vectorized batch path must rank identically)."""
+        the vectorized batch path must rank identically). ``seen`` lets
+        the batch path pass a memoized live lookup."""
         # blackList always applies; the seen-items filter is opt-out
         exclude = {
             model.item_index[b]
@@ -269,7 +309,9 @@ class ALSAlgorithm(Algorithm):
             if b in model.item_index
         }
         if query.get("unseenOnly", True):
-            exclude |= model.seen.get(user_idx, set())
+            exclude |= (
+                seen if seen is not None else _seen_indices(model, query, user_idx)
+            )
         for idx in exclude:
             scores[idx] = -np.inf
         return topk_item_scores(model.item_ids, scores, num)
@@ -279,7 +321,8 @@ class ALSAlgorithm(Algorithm):
         if user_idx is None:
             return {"itemScores": []}  # cold user: reference returns empty
         scores = score_known_user(model.als, user_idx, self._retrieval, device=self.device)
-        return self._topk_response(model, scores, query, num, user_idx)
+        seen = _seen_indices(model, query, user_idx, live=self.seen_mode == "live")
+        return self._topk_response(model, scores, query, num, user_idx, seen=seen)
 
     def _similar_items(self, model: RecommendationModel, query, num: int) -> dict:
         anchors = [

@@ -13,7 +13,9 @@ On disk a model is a directory of two pickle-free files:
   ``history_offsets`` int64 ``[users + 1]`` (20M events are arrays, not
   JSON); loaded with ``allow_pickle=False``;
 - ``model.json``: ``{"item_ids": [...], "history_users": [...],
-  "config": {SASRecConfig fields}}``.
+  "config": {SASRecConfig fields}}``, and ``history_mode`` with the
+  ``app_name`` and ``event_names`` a live history reads (absent in older
+  directories: ``"model"``).
 """
 
 from __future__ import annotations
@@ -25,16 +27,21 @@ import os
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.controller.base import open_model_file
 from predictionio_tpu_torch.models.sequence.engine import SASRecModel
 from predictionio_tpu_torch.models.sequence.model import SASRecConfig, params_from_flax
 
 _HISTORY = ("history_items", "history_offsets")
 
 
-def model_from_state(state, config: SASRecConfig, item_ids, histories) -> SASRecModel:
+def model_from_state(state, config: SASRecConfig, item_ids, histories,
+                     history_mode: str = "model", app_name: str = "",
+                     event_names: list[str] | None = None) -> SASRecModel:
     """The port's ``SASRecModel`` from a ``SASRec`` state dict: item id
     ``item_ids[j]`` is vocabulary row ``j + 1``, and ``histories`` maps a
-    user id to its shifted (+1) item-id sequence."""
+    user id to its shifted (+1) item-id sequence (none in
+    ``history_mode="live"``, which reads the ``app_name`` app's
+    ``event_names`` events per query instead)."""
     state = {k: torch.as_tensor(v, dtype=torch.float32).contiguous() for k, v in state.items()}
     item_ids = [str(i) for i in item_ids]
     rows = state["item_embed.weight"].shape[0]
@@ -49,6 +56,9 @@ def model_from_state(state, config: SASRecConfig, item_ids, histories) -> SASRec
         item_ids=item_ids,
         item_index={iid: j for j, iid in enumerate(item_ids)},
         histories={str(u): np.asarray(h) for u, h in histories.items()},
+        history_mode=history_mode,
+        app_name=app_name,
+        event_names=event_names,
     )
 
 
@@ -71,16 +81,21 @@ def save_model(model: SASRecModel, path: str) -> None:
              history_offsets=offsets, **arrays)
     with open(os.path.join(path, "model.json"), "w") as f:
         json.dump({"item_ids": list(model.item_ids), "history_users": users,
-                   "config": dataclasses.asdict(model.config)}, f)
+                   "config": dataclasses.asdict(model.config),
+                   "history_mode": model.history_mode, "app_name": model.app_name,
+                   "event_names": model.event_names}, f)
 
 
 def load_model(path: str) -> SASRecModel:
-    """Read a model directory written by ``save_model``."""
-    with np.load(os.path.join(path, "params.npz"), allow_pickle=False) as z:
+    """Read a model written by ``save_model``: its directory, or an open
+    ``zipfile.ZipFile`` of a model blob."""
+    with open_model_file(path, "params.npz") as f, np.load(f, allow_pickle=False) as z:
         arrays = {name: z[name] for name in z.files}
-    with open(os.path.join(path, "model.json")) as f:
+    with open_model_file(path, "model.json") as f:
         meta = json.load(f)
     items, offsets = arrays["history_items"], arrays["history_offsets"]
     histories = dict(zip(meta["history_users"], np.split(items, offsets[1:-1])))
     state = {k: torch.from_numpy(v) for k, v in arrays.items() if k not in _HISTORY}
-    return model_from_state(state, SASRecConfig(**meta["config"]), meta["item_ids"], histories)
+    return model_from_state(state, SASRecConfig(**meta["config"]), meta["item_ids"], histories,
+                            meta.get("history_mode", "model"), meta.get("app_name", ""),
+                            meta.get("event_names"))

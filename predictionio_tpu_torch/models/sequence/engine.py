@@ -7,9 +7,9 @@ histories -> next-item prediction. Query contracts: ``{"user": "u1",
 explicit prefix), with ``blackList`` and ``unseenOnly``. Response:
 ``{"itemScores": [{"item", "score"}, ...]}``.
 
-- ``SequenceDataSource`` reads a JSON-lines events file
-  (``data/store.py::read_events_file``) where the reference reads its
-  event store, and groups each user's items in event-time order
+- ``SequenceDataSource`` reads the event store (``PEventStore.dataset``
+  of the ``appName`` app), or a JSON-lines events file when built with
+  ``events_path=``, and groups each user's items in event-time order
   (``group_sequences``: one lexsort, then a grouped scan; ``minSeqLen``).
 - ``SequencePreparator`` left-truncates to ``maxLen``, right-pads and
   shifts ids by one (0 = padding).
@@ -18,9 +18,10 @@ explicit prefix), with ``blackList`` and ``unseenOnly``. Response:
   ``batch_predict`` score through the model's network on that device, B4
   in every transformer block.
 
-Not ported: ``historyMode: "live"`` (a per-query event-store read) raises
-when the algorithm is built, as it waits for storage; ``read_eval``
-waits with the eval workflow.
+``historyMode: "live"`` continues the user's events read from the store
+per query (``models/_streaming.py``) instead of the trained-in history:
+when the model was trained so, or the serving engine.json asks for it.
+Not ported: ``read_eval`` waits with the eval workflow.
 """
 
 from __future__ import annotations
@@ -36,8 +37,9 @@ from predictionio_tpu_torch.controller.base import (
     Preparator,
     SanityCheck,
 )
-from predictionio_tpu_torch.data.store import read_events_file
+from predictionio_tpu_torch.data.store import PEventStore, read_events_file
 from predictionio_tpu_torch.models._als_common import score_buffer_rows, topk_item_scores
+from predictionio_tpu_torch.models._streaming import live_target_events
 from predictionio_tpu_torch.models.sequence.model import (
     SASRecConfig,
     network,
@@ -62,10 +64,14 @@ class SequencesData(SanityCheck):
     user_ids: list[str]
     item_ids: list[str]
     app_name: str = ""
+    event_names: list[str] = field(default_factory=list)
 
     def sanity_check(self) -> None:
         if not self.sequences:
-            raise ValueError("no event sequences found -- check the events file and eventNames")
+            raise ValueError(
+                "no event sequences found -- check appName (or the events file) "
+                "and eventNames"
+            )
 
     @property
     def num_items(self) -> int:
@@ -93,20 +99,24 @@ def group_sequences(users, items, times, user_vocab, min_len: int = 2):
 class SequenceDataSource(DataSource):
     """Groups item-interaction events per user, ordered by event time.
 
-    Params: ``appName``, ``eventNames`` (default ``["view", "buy",
-    "rate"]``), ``minSeqLen`` (drop shorter histories, default 2).
-    ``events_path`` is the JSON-lines events file the port reads in place
-    of the reference's event store.
+    Params: ``appName`` (required to read the store), ``eventNames``
+    (default ``["view", "buy", "rate"]``), ``minSeqLen`` (drop shorter
+    histories, default 2). With ``events_path`` the JSON-lines events
+    file is read in place of the store.
     """
 
-    def __init__(self, params=None, *, events_path: str):
+    def __init__(self, params=None, *, events_path: str | None = None):
         super().__init__(params)
         self.events_path = events_path
 
     def read_training(self, ctx) -> SequencesData:
         event_names = self.params.get_or("eventNames", ["view", "buy", "rate"])
-        ds = read_events_file(self.events_path, event_names=event_names,
-                              target_entity_type="item")
+        if self.events_path is None:
+            ds = PEventStore.dataset(self.params.appName, event_names=event_names,
+                                     target_entity_type="item")
+        else:
+            ds = read_events_file(self.events_path, event_names=event_names,
+                                  target_entity_type="item")
         valid = ds.target_entity_ids >= 0
         sequences, user_ids = group_sequences(
             ds.entity_ids[valid], ds.target_entity_ids[valid], ds.event_times[valid],
@@ -117,6 +127,7 @@ class SequenceDataSource(DataSource):
             user_ids=user_ids,
             item_ids=ds.target_entity_id_vocab,
             app_name=self.params.get_or("appName", ""),
+            event_names=list(event_names),
         )
 
 
@@ -157,6 +168,12 @@ class SASRecModel:
     item_ids: list[str]
     item_index: dict[str, int]
     histories: dict[str, np.ndarray]   # user id -> shifted (+1) id sequence
+    #: "model": queries continue the trained-in history above; "live":
+    #: the user's events read from the store per query (``app_name`` /
+    #: ``event_names`` say what to read), no histories kept
+    history_mode: str = "model"
+    app_name: str = ""
+    event_names: list[str] = None
     _networks: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     def network(self, device):
@@ -179,7 +196,8 @@ class SASRecAlgorithm(Algorithm):
     batchSize, epochs, seed, maxLen (must match the preparator's),
     seqParallel (kept in the config; one device runs no sequence
     parallelism), attention ("auto" | "flash" | "plain") and historyMode
-    ("model" only).
+    ("model", or "live": a query continues the user's events read from
+    the store, and the model keeps no histories).
 
     ``device`` is where training runs and the network serves: ``cuda``
     unless the caller names ``"cpu"``; without a card and without an
@@ -188,15 +206,10 @@ class SASRecAlgorithm(Algorithm):
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
         self.device = resolve_device(device)
-        history_mode = self.params.get_or("historyMode", "model")
-        if history_mode == "live":
-            raise NotImplementedError(
-                'historyMode "live" reads the event store per query, which '
-                'this port does not serve yet; train with "historyMode": "model"'
-            )
-        if history_mode != "model":
+        self.history_mode = self.params.get_or("historyMode", "model")
+        if self.history_mode not in ("model", "live"):
             raise ValueError(
-                f"historyMode must be 'model' or 'live', got {history_mode!r}"
+                f"historyMode must be 'model' or 'live', got {self.history_mode!r}"
             )
 
     def train(self, ctx, prepared: PackedSequences) -> SASRecModel:
@@ -231,7 +244,13 @@ class SASRecAlgorithm(Algorithm):
             config=config,
             item_ids=list(data.item_ids),
             item_index={iid: j for j, iid in enumerate(data.item_ids)},
-            histories={uid: seq + 1 for uid, seq in zip(data.user_ids, data.sequences)},
+            # live mode: O(entities) model; queries read fresh histories
+            histories={} if self.history_mode == "live" else {
+                uid: seq + 1 for uid, seq in zip(data.user_ids, data.sequences)
+            },
+            history_mode=self.history_mode,
+            app_name=data.app_name,
+            event_names=list(data.event_names),
         )
 
     def warm_up(self, model: SASRecModel) -> None:
@@ -241,7 +260,7 @@ class SASRecAlgorithm(Algorithm):
         score_next_items(model.network(self.device), np.ones(1, np.int64))
 
     @staticmethod
-    def _resolve_prefix(model: SASRecModel, query):
+    def _resolve_prefix(model: SASRecModel, query, live: bool = False):
         """The sequence to continue: explicit ``items`` anchor or the user's
         training history. None/empty means a cold query (empty response)."""
         if query.get("items"):
@@ -253,7 +272,19 @@ class SASRecAlgorithm(Algorithm):
                 ],
                 np.int64,
             )
-        return model.histories.get(str(query.get("user")))
+        user = str(query.get("user"))
+        if not live and model.history_mode != "live":
+            return model.histories.get(user)
+        # time-ASCENDING: the sequence the model continues
+        events = sorted(live_target_events(model, user), key=lambda e: e.event_time)
+        seq = [
+            model.item_index[e.target_entity_id] + 1
+            for e in events
+            if e.target_entity_id in model.item_index
+        ]
+        # FULL history, untruncated: the unseenOnly exclusion must cover
+        # everything the user saw; the scorer keeps only the max_len tail
+        return np.asarray(seq, np.int64) if seq else None
 
     @staticmethod
     def _topk_response(model: SASRecModel, scores: np.ndarray, query, prefix) -> dict:
@@ -273,7 +304,7 @@ class SASRecAlgorithm(Algorithm):
         return topk_item_scores(model.item_ids, scores, int(query.get("num", 10)))
 
     def predict(self, model: SASRecModel, query) -> dict:
-        prefix = self._resolve_prefix(model, query)
+        prefix = self._resolve_prefix(model, query, self.history_mode == "live")
         if prefix is None or len(prefix) == 0:
             return {"itemScores": []}
         scores = score_next_items(model.network(self.device), prefix)
@@ -285,7 +316,8 @@ class SASRecAlgorithm(Algorithm):
         Cold/malformed queries fall through to predict()."""
         resolved, fallback = [], []
         for qid, q in queries:
-            prefix = self._resolve_prefix(model, q) if isinstance(q, dict) else None
+            prefix = (self._resolve_prefix(model, q, self.history_mode == "live")
+                      if isinstance(q, dict) else None)
             if prefix is None or len(prefix) == 0:
                 fallback.append((qid, q))
             else:

@@ -1,209 +1,192 @@
-"""Command line of the port: the ``train`` and ``deploy`` verbs.
+"""Command line of the port: the ``pio`` verbs of the store path.
 
-    python -m predictionio_tpu_torch.tools.cli train \\
-        --engine-json examples/recommendation/engine.json \\
-        --events events.jsonl --model-out MODEL_DIR [--resume] [--device cuda|cpu]
+    python -m predictionio_tpu_torch.tools.cli app new MyApp
+    python -m predictionio_tpu_torch.tools.cli accesskey new MyApp
+    python -m predictionio_tpu_torch.tools.cli import --appid 1 --input events.jsonl
+    python -m predictionio_tpu_torch.tools.cli eventserver --port 7070
+    python -m predictionio_tpu_torch.tools.cli train --engine-dir ENGINE_DIR \\
+        [--variant engine.json] [--resume] [--device cuda|cpu]
+    python -m predictionio_tpu_torch.tools.cli deploy --engine-dir ENGINE_DIR \\
+        [--engine-instance-id ID] [--port 8000] [--device cuda|cpu]
 
-    python -m predictionio_tpu_torch.tools.cli deploy \\
-        --engine-json examples/ncf/engine.json \\
-        --model MODEL_DIR --port 8000 [--ip 0.0.0.0] [--device cuda|cpu]
+Storage is configured as the reference's is (``PIO_STORAGE_*``; by
+default sqlite under ``$PIO_FS_BASEDIR``), so both packages may share
+one store.
 
-``--engine-json`` is an unchanged ``engine.json`` of one of the ported
-templates, picked by its ``engineFactory`` (the reference's factory
-path) or, without one, by its first algorithm's name:
+- ``app`` / ``accesskey`` (``tools/app_commands.py``), ``import`` /
+  ``export`` (``tools/import_export.py``) and ``eventserver``
+  (``data/api/eventserver.py``) are the reference's verbs.
+- ``train`` reads the variant (``--variant``, default
+  ``ENGINE_DIR/engine.json``; ``--engine-json`` is the same flag): the
+  template's DataSource reads the store, and the run is recorded as an
+  engine instance with its model blob (``workflow/core_workflow.py``).
+  With ``--events FILE --model-out DIR`` it reads a JSON-lines events
+  file instead (the ``pio import`` wire shape) and writes the model
+  directory with the template's ``save_model``, recording nothing;
+  its checkpoints go to ``DIR/checkpoints`` while it runs.
+- ``deploy`` serves the latest COMPLETED instance of the variant (or
+  ``--engine-instance-id``), loading its blob, or with ``--model DIR`` a
+  model directory. It warms the template's device state up before it
+  answers. The engine.json's algorithm params configure serving (so a
+  serving knob such as ``retrieval`` may change after training); the
+  model comes from the instance.
 
-- the recommendation template (``als``): ALS training, serving by scan
-  or ``"retrieval": {"mode": "mips"}``;
-- the Neural-CF template (``ncf``): NeuMF training, serving through the
-  fused scorer kernel;
-- the sequence template (``sasrec``): SASRec training and serving through
-  the flash-attention kernels.
-
-The datasource, preparator and first algorithm's ``params`` configure
-training, and the algorithm's ``params`` configure serving. A
-``sparkConf["pio.mesh_shape"]`` reaches training (the port runs on one
-device).
-
-``train`` reads ``--events`` (JSON lines in the ``pio import`` wire
-shape; the port's stand-in for the event store), runs DataSource ->
-Preparator -> ``Algorithm.train`` and writes the model directory with
-the template's ``save_model``. Checkpoints go to ``MODEL_DIR/checkpoints``
-while it runs (ALS: every ``checkpointInterval`` iterations; NCF: every
-epoch; SASRec keeps none); ``--resume`` continues from them after a
-crash, and a completed train removes them.
-
-``deploy`` serves a model directory: it warms the template's device
-state up before it answers. Both verbs run on the card unless
-``--device cpu``.
+The ported templates are picked by ``engineFactory`` or, without one, by
+the first algorithm's name (``controller/engine.py``): recommendation
+(``als``; B1 in training, B2 with ``"retrieval": {"mode": "mips"}``),
+Neural-CF (``ncf``; B3) and sequence (``sasrec``; B4 and the fused
+backward). ``train`` and ``deploy`` run on the card unless ``--device
+cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
+import importlib
 import os
 import shutil
 import sys
-from dataclasses import dataclass
-from typing import Callable
 
-from predictionio_tpu_torch.controller.base import (
-    Algorithm,
-    DataSource,
-    Preparator,
-    TrainContext,
-)
+from predictionio_tpu_torch.controller.base import TrainContext
+from predictionio_tpu_torch.controller.engine import Template
 from predictionio_tpu_torch.controller.serving import FirstServing
-from predictionio_tpu_torch.models import ncf, recommendation, sequence
-from predictionio_tpu_torch.models.recommendation import RecommendationDataSource
+from predictionio_tpu_torch.tools import app_commands, import_export
+from predictionio_tpu_torch.workflow.core_workflow import (
+    WorkflowParams,
+    build_components,
+    load_instance_model,
+    run_train,
+    train_model,
+)
 from predictionio_tpu_torch.workflow.create_server import (
     QueryService,
     create_query_server,
 )
+from predictionio_tpu_torch.workflow.json_extractor import (
+    EngineVariant,
+    load_engine_variant,
+)
 
 
-@dataclass(frozen=True)
-class Template:
-    """What the verbs need of one ported template."""
-
-    algorithm: str                      # the engine.json algorithm name
-    algorithm_class: type[Algorithm]
-    preparator_class: type[Preparator]
-    save_model: Callable
-    load_model: Callable
-    datasource_class: type[DataSource]  # built with ``events_path=``
+def load_variant(engine_json: str) -> tuple[EngineVariant, Template]:
+    """The parsed engine.json and its template."""
+    variant = load_engine_variant(engine_json)
+    return variant, variant.template
 
 
-TEMPLATES = {
-    "recommendation": Template(
-        "als", recommendation.ALSAlgorithm, recommendation.RecommendationPreparator,
-        recommendation.save_model, recommendation.load_model, RecommendationDataSource,
-    ),
-    "ncf": Template(
-        "ncf", ncf.NCFAlgorithm, ncf.NCFPreparator, ncf.save_model, ncf.load_model,
-        RecommendationDataSource,
-    ),
-    "sequence": Template(
-        "sasrec", sequence.SASRecAlgorithm, sequence.SequencePreparator,
-        sequence.save_model, sequence.load_model, sequence.SequenceDataSource,
-    ),
-}
-
-
-def load_variant(engine_json: str) -> tuple[dict, Template]:
-    """The engine.json object and its template: by ``engineFactory``
-    (``predictionio_tpu.models.<template>.engine_factory``) when it names
-    one, else by the first algorithm's name. The first algorithm must be
-    the template's."""
-    with open(engine_json) as f:
-        variant = json.load(f)
-    algorithms = variant.get("algorithms") or []
-    if not algorithms:
-        raise ValueError(f"{engine_json} names no algorithms")
-    name = algorithms[0].get("name", "als")
-    factory = variant.get("engineFactory")
-    if factory:
-        parts = factory.split(".")
-        key = parts[-2] if len(parts) >= 2 and parts[-1] == "engine_factory" else None
-        if key not in TEMPLATES:
-            raise ValueError(
-                f"engineFactory {factory!r} is not a ported template; the port "
-                f"serves {sorted(TEMPLATES)}"
-            )
-        template = TEMPLATES[key]
-    else:
-        template = next((t for t in TEMPLATES.values() if t.algorithm == name), None)
-        if template is None:
-            raise ValueError(
-                f"algorithm {name!r} is not a ported template's; the port "
-                f"serves {sorted(t.algorithm for t in TEMPLATES.values())}"
-            )
-    if name != template.algorithm:
-        raise ValueError(
-            f"the template's algorithm is {template.algorithm!r}, got {name!r}"
-        )
-    return variant, template
-
-
-def _algorithm(variant: dict, template: Template, device):
-    params = variant["algorithms"][0].get("params") or {}
-    return template.algorithm_class(params, device=device)
-
-
-def build_trainer(engine_json: str, events_path: str, *, device: str | None = None):
+def build_trainer(engine_json: str, events_path: str | None = None, *,
+                  device: str | None = None):
     """The engine.json, read once, and its template's train-path
     components: ``(variant, template, datasource, preparator,
-    algorithm)``. The algorithm resolves the device, so without a card
+    algorithm)``; the DataSource reads ``events_path``, or the store
+    without one. The algorithm resolves the device, so without a card
     and without ``device="cpu"`` this raises."""
-    variant, template = load_variant(engine_json)
-    algorithm = _algorithm(variant, template, device)
-    datasource = template.datasource_class(
-        (variant.get("datasource") or {}).get("params"), events_path=events_path
-    )
-    preparator = template.preparator_class(
-        (variant.get("preparator") or {}).get("params")
-    )
-    return variant, template, datasource, preparator, algorithm
+    variant = load_engine_variant(engine_json)
+    return (variant, *build_components(variant, device=device, events_path=events_path))
 
 
 def train(engine_json: str, events_path: str, model_out: str, *,
           resume: bool = False, device: str | None = None):
-    """Everything ``train`` does: read, prepare, fit, save; returns the
-    trained model."""
+    """``train --events FILE --model-out DIR``: read the file, prepare,
+    fit, save the model directory; returns the trained model."""
     variant, template, datasource, preparator, algorithm = build_trainer(
         engine_json, events_path, device=device
     )
     checkpoint_dir = os.path.join(model_out, "checkpoints")
     ctx = TrainContext(
         device=algorithm.device, checkpoint_dir=checkpoint_dir, resume=resume,
-        mesh_shape=(variant.get("sparkConf") or {}).get("pio.mesh_shape"),
+        mesh_shape=variant.runtime_conf.get("pio.mesh_shape"),
     )
-    data = datasource.read_training(ctx)
-    data.sanity_check()
-    model = algorithm.train(ctx, preparator.prepare(ctx, data))
+    model = train_model(ctx, datasource, preparator, algorithm)
     template.save_model(model, model_out)
     # a completed train's checkpoints must not be resumable into a later one
     shutil.rmtree(checkpoint_dir, ignore_errors=True)
     return model
 
 
-def build_query_server(engine_json: str, model_path: str, *, ip: str = "127.0.0.1",
+def build_query_server(engine_json: str, model_path: str | None = None, *,
+                       engine_instance_id: str | None = None, ip: str = "127.0.0.1",
                        port: int = 8000, device: str | None = None):
-    """Everything ``deploy`` does short of serving: load, warm up, bind.
+    """Everything ``deploy`` does short of serving: load (a model
+    directory, or the resolved engine instance's blob), warm up, bind.
     Returns ``(server, service)``."""
-    variant, template = load_variant(engine_json)
-    algorithm = _algorithm(variant, template, device)
-    model = template.load_model(model_path)
+    variant = load_engine_variant(engine_json)
+    template = variant.template
+    algorithm = template.algorithm_class(
+        variant.engine_params.algorithm_params_list[0][1], device=device
+    )
+    if model_path is not None:
+        model = template.load_model(model_path)
+    else:
+        _, model = load_instance_model(variant, engine_instance_id)
     algorithm.warm_up(model)
     service = QueryService([algorithm], [model], FirstServing())
     return create_query_server(service, ip, port), service
 
 
-def main(argv: list[str] | None = None) -> int:
-    parser = argparse.ArgumentParser(prog="predictionio_tpu_torch.tools.cli")
-    verbs = parser.add_subparsers(dest="verb", required=True)
-    train_p = verbs.add_parser("train", help="train a model from an events file")
-    train_p.add_argument("--engine-json", required=True)
-    train_p.add_argument("--events", required=True, help="JSON-lines events file")
-    train_p.add_argument("--model-out", required=True, help="model directory to write")
-    train_p.add_argument("--resume", action="store_true",
-                         help="continue from the step checkpoints of a run that died")
-    train_p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    deploy = verbs.add_parser("deploy", help="serve /queries.json for a model")
-    deploy.add_argument("--engine-json", required=True)
-    deploy.add_argument("--model", required=True, help="save_model directory")
-    deploy.add_argument("--ip", default="127.0.0.1")
-    deploy.add_argument("--port", type=int, default=8000)
-    deploy.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    args = parser.parse_args(argv)
-    if args.verb == "train":
-        model = train(args.engine_json, args.events, args.model_out,
+def _variant_path(args: argparse.Namespace) -> str:
+    return args.variant or os.path.join(args.engine_dir, "engine.json")
+
+
+def _add_variant_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--engine-dir", default=".",
+                        help="engine directory (holds engine.json)")
+    parser.add_argument("--variant", "--engine-json", dest="variant", default=None,
+                        help="engine variant JSON (default ENGINE_DIR/engine.json)")
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+
+
+def _load_plugins(specs: list[str]) -> list:
+    """Instantiate ``module.path:ClassName`` EventServerPlugin specs."""
+    plugins = []
+    for spec in specs:
+        module_path, sep, class_name = spec.partition(":")
+        if not sep or not module_path or not class_name:
+            raise SystemExit(f"--plugin {spec!r}: expected MODULE:CLASS")
+        try:
+            cls = getattr(importlib.import_module(module_path), class_name)
+        except (ImportError, AttributeError) as exc:
+            raise SystemExit(f"--plugin {spec!r}: {exc}")
+        plugins.append(cls())
+    return plugins
+
+
+def cmd_eventserver(args: argparse.Namespace) -> int:
+    from predictionio_tpu_torch.data.api.eventserver import run_event_server
+
+    run_event_server(
+        host=args.ip, port=args.port, stats=args.stats,
+        ssl_cert=args.ssl_cert, ssl_key=args.ssl_key,
+        plugins=_load_plugins(args.plugin), ingest_mode=args.ingest_mode,
+        tracing=False if args.no_tracing else None,
+        trace_sample=args.trace_sample, frontend_workers=args.frontend_workers,
+    )
+    return 0
+
+
+def cmd_train(args: argparse.Namespace) -> int:
+    if args.events is not None:
+        if args.model_out is None:
+            raise SystemExit("Error: --events needs --model-out")
+        model = train(_variant_path(args), args.events, args.model_out,
                       resume=args.resume, device=args.device)
         print(f"trained a model of {len(model.item_ids)} items into "
               f"{args.model_out} ({args.device})", flush=True)
         return 0
+    instance = run_train(
+        load_engine_variant(_variant_path(args)),
+        WorkflowParams(batch=args.batch, skip_sanity_check=args.skip_sanity_check,
+                       resume=args.resume),
+        device=args.device,
+    )
+    print(f"Training completed. Engine instance ID: {instance.id}", flush=True)
+    return 0
+
+
+def cmd_deploy(args: argparse.Namespace) -> int:
     server, _ = build_query_server(
-        args.engine_json, args.model, ip=args.ip, port=args.port, device=args.device
+        _variant_path(args), args.model, engine_instance_id=args.engine_instance_id,
+        ip=args.ip, port=args.port, device=args.device,
     )
     host, port = server.server_address[:2]
     print(f"serving /queries.json on http://{host}:{port} ({args.device})", flush=True)
@@ -214,6 +197,59 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         server.server_close()
     return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="predictionio_tpu_torch.tools.cli")
+    verbs = parser.add_subparsers(dest="verb", required=True)
+    app_commands.register(verbs)
+    import_export.register(verbs)
+
+    es = verbs.add_parser("eventserver", help="start the Event Server")
+    es.add_argument("--ip", default="0.0.0.0")
+    es.add_argument("--port", type=int, default=7070)
+    es.add_argument("--stats", action="store_true", help="enable /stats.json")
+    es.add_argument("--ssl-cert", default=None, help="PEM cert: serve HTTPS")
+    es.add_argument("--ssl-key", default=None, help="PEM key (if not in cert)")
+    es.add_argument("--plugin", action="append", default=[], metavar="MODULE:CLASS",
+                    help="EventServerPlugin to load (repeatable)")
+    es.add_argument("--ingest-mode", choices=("sync", "wal"), default="sync",
+                    help="sync: one storage commit per event (wal is not ported)")
+    es.add_argument("--frontend-workers", type=int, default=0, metavar="M",
+                    help="multi-process frontends (not ported: 0 only)")
+    es.add_argument("--no-tracing", action="store_true",
+                    help="disable the span tracer (/traces.json reports enabled=false)")
+    es.add_argument("--trace-sample", type=float, default=None, metavar="RATE",
+                    help="head-sampling rate (0..1) for headerless root traces")
+    es.set_defaults(func=cmd_eventserver)
+
+    train_p = verbs.add_parser("train", help="train an engine variant")
+    _add_variant_args(train_p)
+    train_p.add_argument("--batch", default="", help="batch label recorded on the instance")
+    train_p.add_argument("--skip-sanity-check", action="store_true")
+    train_p.add_argument("--resume", action="store_true",
+                         help="continue a crashed run from its step checkpoints")
+    train_p.add_argument("--events", default=None,
+                         help="read this JSON-lines events file instead of the store")
+    train_p.add_argument("--model-out", default=None,
+                         help="with --events: the model directory to write")
+    train_p.set_defaults(func=cmd_train)
+
+    deploy = verbs.add_parser("deploy", help="serve /queries.json for a trained engine")
+    _add_variant_args(deploy)
+    deploy.add_argument("--engine-instance-id", default=None,
+                        help="serve this instance (default: the latest COMPLETED)")
+    deploy.add_argument("--model", default=None,
+                        help="serve this save_model directory instead of an instance")
+    deploy.add_argument("--ip", default="127.0.0.1")
+    deploy.add_argument("--port", type=int, default=8000)
+    deploy.set_defaults(func=cmd_deploy)
+    return parser
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.func(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,327 @@
+"""Dependency-free Prometheus-text metrics.
+
+SURVEY.md section 5.5: the reference had no metrics endpoint (log4j +
+`/stats.json` only); the rebuild plan calls for structured logging "+
+optional Prometheus". This module is that option without a client-library
+dependency: counters and fixed-bucket histograms with the text exposition
+format any Prometheus/OpenMetrics scraper ingests.
+
+Services attach a registry to their Router (per-request method/route/status
+counts + latency histograms are recorded centrally in ``Router.dispatch``)
+and expose ``GET /metrics``.
+
+Copy of ``predictionio_tpu/utils/metrics.py`` (framework-free); its
+``build_info_labels`` labels ``pio_build_info`` with torch's version
+where the reference's labels JAX's.
+"""
+
+from __future__ import annotations
+
+import threading
+from bisect import bisect_left
+from typing import Mapping
+
+#: latency buckets (seconds): sub-ms serving up to slow storage calls
+DEFAULT_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
+    2.5, 5.0, 10.0,
+)
+
+CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+#: span-duration buckets (seconds): spans start well under the request
+#: histograms (queue waits and WAL appends are tens of microseconds)
+SPAN_BUCKETS = (
+    0.00005, 0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+    0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 10.0,
+)
+
+
+def global_registry() -> "MetricsRegistry":
+    """The process-wide registry for instrumentation that does not belong
+    to any one service router (e.g. the training-snapshot cache, which
+    runs inside ``pio train`` AND inside servers that train in-process).
+    ``instrumented_router`` merges it into every ``/metrics`` scrape; the
+    names recorded here must not collide with per-service ones."""
+    return _GLOBAL_REGISTRY
+
+
+def _escape(value: str) -> str:
+    return str(value).replace("\\", "\\\\").replace('"', '\\"')
+
+
+def _fmt_labels(labels: Mapping[str, str]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{_escape(v)}"' for k, v in sorted(labels.items()))
+    return "{" + inner + "}"
+
+
+class MetricsRegistry:
+    """Thread-safe counters + histograms with Prometheus text exposition."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        # name -> help text
+        self._help: dict[str, str] = {}
+        # name -> {sorted-label-tuple -> float}
+        self._counters: dict[str, dict[tuple, float]] = {}
+        # name -> {sorted-label-tuple -> float}; set-to-value semantics
+        self._gauges: dict[str, dict[tuple, float]] = {}
+        # name -> (buckets, {sorted-label-tuple -> [bucket counts..., sum, count]})
+        self._histograms: dict[str, tuple[tuple, dict[tuple, list]]] = {}
+
+    def inc(
+        self,
+        name: str,
+        labels: Mapping[str, str] | None = None,
+        amount: float = 1.0,
+        help: str = "",
+    ) -> None:
+        key = tuple(sorted((labels or {}).items()))
+        with self._lock:
+            if help:
+                self._help.setdefault(name, help)
+            series = self._counters.setdefault(name, {})
+            series[key] = series.get(key, 0.0) + amount
+
+    def set_counter(
+        self,
+        name: str,
+        value: float,
+        labels: Mapping[str, str] | None = None,
+        help: str = "",
+    ) -> None:
+        """Pin a counter to an externally-tracked value (single source of
+        truth lives elsewhere; the registry only exposes it)."""
+        key = tuple(sorted((labels or {}).items()))
+        with self._lock:
+            if help:
+                self._help.setdefault(name, help)
+            self._counters.setdefault(name, {})[key] = float(value)
+
+    def set_gauge(
+        self,
+        name: str,
+        value: float,
+        labels: Mapping[str, str] | None = None,
+        help: str = "",
+    ) -> None:
+        """Point-in-time value (queue depth, pool size): exposed with TYPE
+        gauge so scrapers don't apply rate() to it."""
+        key = tuple(sorted((labels or {}).items()))
+        with self._lock:
+            if help:
+                self._help.setdefault(name, help)
+            self._gauges.setdefault(name, {})[key] = float(value)
+
+    def observe(
+        self,
+        name: str,
+        value: float,
+        labels: Mapping[str, str] | None = None,
+        buckets: tuple = DEFAULT_BUCKETS,
+        help: str = "",
+    ) -> None:
+        key = tuple(sorted((labels or {}).items()))
+        with self._lock:
+            if help:
+                self._help.setdefault(name, help)
+            bucket_spec, series = self._histograms.setdefault(
+                name, (tuple(buckets), {})
+            )
+            row = series.setdefault(key, [0] * (len(bucket_spec) + 1) + [0.0, 0])
+            # rows hold PER-BUCKET (non-cumulative) counts: one bisect +
+            # one increment per observation instead of a walk over every
+            # bucket -- observe sits on the span bridge's per-span path.
+            # Exposition folds the running sum back into Prometheus'
+            # cumulative le semantics.
+            row[bisect_left(bucket_spec, value)] += 1
+            row[-2] += value                  # sum
+            row[-1] += 1                      # count
+
+    def observe_batch(
+        self,
+        name: str,
+        items: "list[tuple[float, tuple]]",
+        buckets: tuple = DEFAULT_BUCKETS,
+        help: str = "",
+    ) -> None:
+        """Fold many ``(value, label_key)`` observations under one lock
+        acquisition; ``label_key`` is the pre-sorted ``(("k", "v"), ...)``
+        series key. The span bridge's path: one call per completed trace
+        instead of one lock round-trip per span."""
+        with self._lock:
+            if help:
+                self._help.setdefault(name, help)
+            bucket_spec, series = self._histograms.setdefault(
+                name, (tuple(buckets), {})
+            )
+            empty = [0] * (len(bucket_spec) + 1) + [0.0, 0]
+            for value, key in items:
+                row = series.get(key)
+                if row is None:
+                    row = series[key] = empty[:]
+                row[bisect_left(bucket_spec, value)] += 1
+                row[-2] += value              # sum
+                row[-1] += 1                  # count
+
+    def snapshot(self) -> dict:
+        """JSON-serializable dump of every series -- the cross-process
+        aggregation format. The multi-process serving tier's frontend
+        workers publish these through their ring's stats region; the
+        scorer merges them (``merge_snapshot``) into one ``/metrics``
+        view at scrape time. Label keys ride as ``[[k, v], ...]`` pairs
+        so the dump survives a JSON round-trip."""
+        with self._lock:
+            return {
+                "help": dict(self._help),
+                "counters": [
+                    [name, [list(kv) for kv in key], value]
+                    for name, series in self._counters.items()
+                    for key, value in series.items()
+                ],
+                "gauges": [
+                    [name, [list(kv) for kv in key], value]
+                    for name, series in self._gauges.items()
+                    for key, value in series.items()
+                ],
+                "histograms": [
+                    [name, list(buckets), [list(kv) for kv in key], list(row)]
+                    for name, (buckets, series) in self._histograms.items()
+                    for key, row in series.items()
+                ],
+            }
+
+    def merge_snapshot(self, snap: dict) -> None:
+        """Fold a ``snapshot()`` dump into this registry: counters and
+        histogram rows ADD (sum across workers), gauges SET (last writer
+        wins -- point-in-time values don't sum meaningfully across
+        label-identical series; per-worker gauges carry a ``worker``
+        label precisely so they never collide). A histogram whose bucket
+        spec disagrees with an existing series is rejected loudly --
+        silent bucket mixing would corrupt every quantile downstream."""
+        with self._lock:
+            for name, text in (snap.get("help") or {}).items():
+                self._help.setdefault(name, text)
+            for name, key, value in snap.get("counters") or ():
+                key = tuple(tuple(kv) for kv in key)
+                series = self._counters.setdefault(name, {})
+                series[key] = series.get(key, 0.0) + float(value)
+            for name, key, value in snap.get("gauges") or ():
+                key = tuple(tuple(kv) for kv in key)
+                self._gauges.setdefault(name, {})[key] = float(value)
+            for name, buckets, key, row in snap.get("histograms") or ():
+                key = tuple(tuple(kv) for kv in key)
+                bucket_spec, series = self._histograms.setdefault(
+                    name, (tuple(buckets), {})
+                )
+                if tuple(buckets) != bucket_spec:
+                    raise ValueError(
+                        f"histogram {name!r}: bucket spec mismatch in merge"
+                    )
+                mine = series.setdefault(
+                    key, [0] * (len(bucket_spec) + 1) + [0.0, 0]
+                )
+                for i, v in enumerate(row):
+                    mine[i] += v
+
+    def exposition(self) -> str:
+        lines: list[str] = []
+        with self._lock:
+            for name, series in sorted(self._counters.items()):
+                if name in self._help:
+                    lines.append(f"# HELP {name} {self._help[name]}")
+                lines.append(f"# TYPE {name} counter")
+                for key, value in sorted(series.items()):
+                    # .17g, not %g: %g rounds to 6 significant digits, which
+                    # freezes large counters between scrapes and breaks rate()
+                    lines.append(f"{name}{_fmt_labels(dict(key))} {value:.17g}")
+            for name, series in sorted(self._gauges.items()):
+                if name in self._help:
+                    lines.append(f"# HELP {name} {self._help[name]}")
+                lines.append(f"# TYPE {name} gauge")
+                for key, value in sorted(series.items()):
+                    lines.append(f"{name}{_fmt_labels(dict(key))} {value:.17g}")
+            for name, (buckets, series) in sorted(self._histograms.items()):
+                if name in self._help:
+                    lines.append(f"# HELP {name} {self._help[name]}")
+                lines.append(f"# TYPE {name} histogram")
+                for key, row in sorted(series.items()):
+                    labels = dict(key)
+                    # rows store per-bucket counts; Prometheus buckets are
+                    # cumulative, so fold the running sum here (scrape
+                    # rate), not in observe (span rate)
+                    cumulative = 0
+                    for i, le in enumerate(buckets):
+                        cumulative += row[i]
+                        lines.append(
+                            f"{name}_bucket"
+                            f"{_fmt_labels({**labels, 'le': f'{le:g}'})}"
+                            f" {cumulative}"
+                        )
+                    lines.append(
+                        f"{name}_bucket{_fmt_labels({**labels, 'le': '+Inf'})}"
+                        f" {cumulative + row[len(buckets)]}"
+                    )
+                    lines.append(f"{name}_sum{_fmt_labels(labels)} {row[-2]:.17g}")
+                    lines.append(f"{name}_count{_fmt_labels(labels)} {row[-1]}")
+        return "\n".join(lines) + "\n"
+
+
+_GLOBAL_REGISTRY = MetricsRegistry()
+
+
+def span_bridge(registry: MetricsRegistry):
+    """Span -> histogram bridge: the batch hook (``obs.trace.Tracer
+    (on_spans=...)``) that folds finished spans into
+    ``pio_span_duration_seconds{op}``, so the aggregate view of the
+    traced stages exists without a second instrumentation layer. Takes a
+    LIST (one completed trace, or standalone records) and folds it under
+    ONE registry lock acquisition -- per-span locking convoyed the
+    serving tier's handler threads. Op cardinality is bounded by
+    construction (route patterns + a fixed set of stage names)."""
+
+    def observe(records) -> None:
+        registry.observe_batch(
+            "pio_span_duration_seconds",
+            [(r.duration_s, (("op", r.op),)) for r in records],
+            buckets=SPAN_BUCKETS,
+            help="Span durations by operation (tracing bridge)",
+        )
+        for r in records:
+            if r.status == "error":
+                registry.inc(
+                    "pio_span_errors_total",
+                    {"op": r.op},
+                    help="Spans finished in error status",
+                )
+
+    return observe
+
+
+def build_info_labels() -> dict[str, str]:
+    """Labels for the ``pio_build_info`` gauge: package version, torch
+    version, the CUDA version torch was built for, and whether this
+    process has brought the card up -- the facts a dashboard or bug
+    report needs to correlate behavior with the runtime underneath.
+
+    Never imports torch or initializes CUDA (a ``/metrics`` scrape of a
+    storage-only service must not): without torch imported both report
+    ``not-imported``; with it imported but no CUDA context yet the
+    backend reports ``uninitialized``.
+    """
+    import sys
+
+    from predictionio_tpu_torch.version import __version__
+
+    labels = {"version": __version__}
+    torchmod = sys.modules.get("torch")
+    if torchmod is None:
+        labels["torch_version"] = "not-imported"
+        labels["backend"] = "not-imported"
+        return labels
+    labels["torch_version"] = str(getattr(torchmod, "__version__", "unknown"))
+    labels["cuda_version"] = str(getattr(torchmod.version, "cuda", None) or "none")
+    labels["backend"] = "cuda" if torchmod.cuda.is_initialized() else "uninitialized"
+    return labels

@@ -13,6 +13,12 @@ write orbax checkpoints of the JAX package.
     ckpt.save(3, {"users": u, "items": v, "iteration": 3})
     ckpt.latest_step()              # 3
     ckpt.restore({"users": u0, "items": v0, "iteration": 0})
+
+``RunLock`` and ``clear_run_checkpoints`` are copies of the reference's
+(``:27-110``, ``:231``): ``pio train`` from the store keys its
+checkpoints by run key under ``$PIO_FS_BASEDIR/checkpoints``
+(``<algorithm>-<run key>``), holds the run key's lock while it trains,
+and clears them once the model blob is recorded.
 """
 
 from __future__ import annotations
@@ -27,6 +33,98 @@ import numpy as np
 
 _STEP = re.compile(r"^step_(\d+)\.npz$")
 KEEP_STEPS = 3  # newest steps kept on disk; older ones are deleted on save
+
+
+def _checkpoint_base(base_dir: str | None = None) -> str:
+    return base_dir or os.path.join(
+        os.environ.get("PIO_FS_BASEDIR", os.path.expanduser("~/.pio_store")),
+        "checkpoints",
+    )
+
+
+
+class RunLockHeld(RuntimeError):
+    """Another live process owns this run's checkpoint namespace."""
+
+    def __init__(self, run_key: str, pid: int):
+        super().__init__(
+            f"run {run_key!r} is locked by live pid {pid}: another train with"
+            " the same variant+params is running. Refusing to start (a fresh"
+            " train would delete its live checkpoints; --resume would adopt a"
+            " RUNNING instance). Wait for it or kill it first."
+        )
+        self.pid = pid
+
+
+class RunLock:
+    """``flock``-based lockfile serializing trains that share one run_key.
+
+    ``run_key`` is a pure function of variant+params (core_workflow), so two
+    concurrent identical trains would share a checkpoint dir: the second's
+    ``fresh`` wipe deletes the first's live checkpoints, and ``--resume``
+    would adopt a still-RUNNING instance.
+
+    Why flock and not a pid file: the kernel drops the lock the instant the
+    holder dies (no stale-pid liveness polling, which is both racy --
+    two waiters can each judge the lock stale and both 'take over' -- and
+    wrong across users, where ``kill(pid, 0)`` raises EPERM for a live
+    process). The pid written into the file is diagnostic only. Single-host
+    by design; multi-host pods isolate via per-host PIO_FS_BASEDIR or run
+    one train per coordinator.
+    """
+
+    def __init__(self, run_key: str, base_dir: str | None = None):
+        base = _checkpoint_base(base_dir)
+        os.makedirs(base, exist_ok=True)
+        self.run_key = run_key
+        self.path = os.path.join(base, f"{run_key}.lock")
+        self._fd: int | None = None
+
+    def acquire(self) -> "RunLock":
+        import fcntl
+
+        while True:
+            fd = os.open(self.path, os.O_CREAT | os.O_RDWR, 0o644)
+            try:
+                fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+            except BlockingIOError:
+                try:
+                    pid = int(os.read(fd, 32).decode().strip() or -1)
+                except (OSError, ValueError):
+                    pid = -1
+                os.close(fd)
+                raise RunLockHeld(self.run_key, pid) from None
+            except BaseException:
+                os.close(fd)
+                raise
+            # release() unlinks the path, so the inode we just locked may
+            # already be orphaned (opened before a concurrent release):
+            # verify fd and path still agree, else retry on the fresh file
+            try:
+                if os.fstat(fd).st_ino == os.stat(self.path).st_ino:
+                    break
+            except FileNotFoundError:
+                pass
+            os.close(fd)
+        os.ftruncate(fd, 0)
+        os.write(fd, str(os.getpid()).encode())
+        self._fd = fd
+        return self
+
+    def release(self) -> None:
+        if self._fd is not None:
+            try:
+                os.unlink(self.path)
+            except FileNotFoundError:
+                pass
+            os.close(self._fd)  # closing the fd drops the flock
+            self._fd = None
+
+    def __enter__(self) -> "RunLock":
+        return self.acquire()
+
+    def __exit__(self, *exc) -> None:
+        self.release()
 
 
 class CheckpointManager:
@@ -109,3 +207,14 @@ class CheckpointManager:
 
     def close(self) -> None:
         """Nothing is buffered: every save is on disk when it returns."""
+
+
+def clear_run_checkpoints(run_key: str, base_dir: str | None = None) -> None:
+    """Delete every algorithm's checkpoints for a run key (called after a
+    COMPLETED train: the model blob is persisted, step checkpoints are dead
+    weight -- and must not be resumable into a later retrain)."""
+    import glob
+
+    base = _checkpoint_base(base_dir)
+    for path in glob.glob(os.path.join(base, f"*-{run_key}")):
+        shutil.rmtree(path, ignore_errors=True)

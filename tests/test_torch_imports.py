@@ -4,10 +4,15 @@ by default.
 Every module of ``predictionio_tpu_torch`` is imported in a fresh
 interpreter where ``import jax`` fails and a meta-path finder refuses the
 EXACT top-level name ``predictionio_tpu`` (a prefix match would also
-refuse ``predictionio_tpu_torch`` and prove nothing).
+refuse ``predictionio_tpu_torch`` and prove nothing). Importing never
+runs a function body, so a static guard walks every source's syntax tree
+too, function bodies included, and the verbatim copies of the JAX
+package's framework-free modules are held to their originals.
 """
 
+import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -193,3 +198,112 @@ def test_flash_attention_device_tensor_never_takes_the_plain_path(monkeypatch):
         assert (b, t, h, d, causal) == (2, 64, 2, 192, 1) and scale == pytest.approx(136 ** -0.5)
     assert tuple(out.shape) == (2, 64, 2, 136)
     assert [tuple(g.shape) for g in grads] == [(2, 64, 2, 136)] * 3
+
+
+#: top-level names the port never imports, anywhere in a source
+_FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "predictionio_tpu"}
+#: a string that names a module of the JAX package (an importlib target)
+_REFERENCE_MODULE = re.compile(r"^predictionio_tpu(\.[A-Za-z_]\w*)+$")
+
+
+def _port_sources() -> list[str]:
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "predictionio_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
+def _forbidden_imports(source: str) -> list[tuple[int, str]]:
+    """(line, name) of every import of a forbidden top-level name, and of
+    every string that names a JAX-package module, at any depth."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module]
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str) and (
+                _REFERENCE_MODULE.match(node.value)):
+            names = ["predictionio_tpu"]
+        else:
+            continue
+        found += [(node.lineno, n) for n in names if n.split(".")[0] in _FORBIDDEN]
+    return found
+
+
+def test_no_port_source_imports_jax_or_the_reference_anywhere():
+    sources = _port_sources()
+    assert len(sources) >= 60
+    leaks = {
+        os.path.relpath(path, REPO): hits
+        for path in sources
+        if (hits := _forbidden_imports(open(path).read()))
+    }
+    assert leaks == {}
+
+
+def test_the_static_guard_sees_function_bodies():
+    """The guard's own check: lazy imports deep in a body, aliased and
+    from-imports, and importlib targets are all caught; the port's own
+    name is not."""
+    probe = (
+        "import os\n"
+        "def f():\n"
+        "    class C:\n"
+        "        def g(self):\n"
+        "            from predictionio_tpu.data import snapshot\n"
+        "            import jax.numpy as jnp\n"
+        "    import optax, flax.linen\n"
+        "    return {'x': 'predictionio_tpu.data.storage.postgres'}\n"
+        "from predictionio_tpu_torch.data import store\n"
+    )
+    assert sorted(n for _, n in _forbidden_imports(probe)) == [
+        "flax.linen", "jax.numpy", "optax", "predictionio_tpu", "predictionio_tpu.data",
+    ]
+
+
+#: verbatim copies -> the lines allowed to differ, as (reference line,
+#: port line) after the package rename
+VERBATIM = {
+    "data/storage/base.py": set(),
+    "data/storage/sql_common.py": {(
+        "        from predictionio_tpu_torch.data.snapshot import TIME_DIGEST_MOD",
+        "        from predictionio_tpu_torch.data.store import TIME_DIGEST_MOD",
+    )},
+    "data/storage/sqlite/client.py": set(),
+    "data/storage/sqlite/__init__.py": set(),
+    "data/storage/memory.py": set(),
+    "data/storage/localfs.py": set(),
+    "data/aggregation.py": set(),
+    "data/datamap.py": set(),
+    "data/event.py": set(),
+    "data/webhooks.py": set(),
+    "obs/trace.py": set(),
+    "tools/app_ops.py": set(),
+    "tools/app_commands.py": set(),
+    "tools/import_export.py": set(),
+}
+
+
+def _split_docstring(source: str) -> tuple[str, list[str]]:
+    tree = ast.parse(source)
+    end = tree.body[0].end_lineno
+    return ast.get_docstring(tree, clean=False), source.splitlines()[end:]
+
+
+@pytest.mark.parametrize("path", sorted(VERBATIM))
+def test_verbatim_copies_equal_their_originals(path):
+    """Each copy is its original with ``predictionio_tpu`` renamed to
+    ``predictionio_tpu_torch``, a module docstring that names the
+    original, and only the listed lines changed."""
+    with open(os.path.join(REPO, "predictionio_tpu", path)) as f:
+        original = re.sub(r"\bpredictionio_tpu\b", "predictionio_tpu_torch", f.read())
+    with open(os.path.join(REPO, "predictionio_tpu_torch", path)) as f:
+        copy = f.read()
+    _, want_body = _split_docstring(original)
+    got_doc, got_body = _split_docstring(copy)
+    assert f"``predictionio_tpu/{path}``" in " ".join(got_doc.split())
+    assert len(got_body) == len(want_body)
+    changed = {(a, b) for a, b in zip(want_body, got_body) if a != b}
+    assert changed == VERBATIM[path]
+

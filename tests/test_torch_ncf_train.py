@@ -136,8 +136,7 @@ def test_telemetry_sees_every_step_and_unported_options_raise():
     assert all(s >= 0 for _, s, _ in log.phases)
     with pytest.raises(NotImplementedError, match="mesh_shape"):
         train_ncf(config, users, items, labels, "cpu", mesh_shape=[-1, 2])
-    with pytest.raises(NotImplementedError, match="live"):
-        NCFAlgorithm({"seenFilter": "live"}, device="cpu")
+    assert NCFAlgorithm({"seenFilter": "live"}, device="cpu").seen_mode == "live"
     with pytest.raises(ValueError, match="seenFilter"):
         NCFAlgorithm({"seenFilter": "sometimes"}, device="cpu")
 
@@ -249,6 +248,39 @@ def test_a_jax_trained_model_answers_the_same_in_the_port(jax_ncf, use_pallas, t
     for qid, query in enumerate(QUERIES):
         same_response(batched[qid], algo.predict(model, query))
     assert batched[4] == {"itemScores": []}
+
+
+def test_live_seen_filter_equals_the_reference(jax_ncf, monkeypatch):
+    """``seenFilter: "live"``: the JAX-trained model and its port read the
+    user's events from one store per query and answer alike, before and
+    after a new event for the user; the new item drops out at once."""
+    import dataclasses
+
+    from predictionio_tpu_torch.data import storage as torch_storage
+    from predictionio_tpu_torch.data.event import Event as TorchEvent
+
+    monkeypatch.setattr(torch_storage, "_registry", torch_storage._Registry())
+    jax_algo, jax_model, _ = jax_ncf
+    live = dict(seen={}, seen_mode="live", app_name="NcfApp", event_names=["rate", "buy"])
+    jax_live = dataclasses.replace(jax_model, **live)
+    model = dataclasses.replace(carried(jax_model), **live)
+    algo = NCFAlgorithm(ALGO, device="cpu")
+    queries = QUERIES + [{"user": f"u{u}", "num": 16} for u in range(24)]
+    for query in queries:
+        same_response(algo.predict(model, query), jax_algo.predict(jax_live, query))
+    batched = dict(algo.batch_predict(model, list(enumerate(queries))))
+    for qid, query in enumerate(queries):
+        same_response(batched[qid], jax_algo.predict(jax_live, query))
+    unseen = {"user": "u0", "num": 16}
+    before = [s["item"] for s in algo.predict(model, unseen)["itemScores"]]
+    app_id = torch_storage.get_meta_data_apps().get_by_name("NcfApp").id
+    torch_storage.get_l_events().insert(TorchEvent(
+        event="buy", entity_type="user", entity_id="u0", target_entity_type="item",
+        target_entity_id=before[0]), app_id)
+    after = algo.predict(model, unseen)
+    assert before[0] not in [s["item"] for s in after["itemScores"]]
+    same_response(after, jax_algo.predict(jax_live, unseen))
+    torch_storage.reset()
 
 
 def test_the_engine_has_no_fallback(jax_ncf, monkeypatch):

@@ -8,6 +8,9 @@ the host with the same ``np.einsum`` arithmetic, and the mips shortlists
 are index-identical (``tests/test_torch_mips.py``).
 """
 
+import dataclasses
+import datetime as dt
+
 import numpy as np
 import pytest
 
@@ -145,8 +148,7 @@ def test_model_from_arrays_validates():
 
 
 def test_seen_filter_modes():
-    with pytest.raises(NotImplementedError, match="live"):
-        ALSAlgorithm({"seenFilter": "live"}, device="cpu")
+    assert ALSAlgorithm({"seenFilter": "live"}, device="cpu").seen_mode == "live"
     with pytest.raises(ValueError):
         ALSAlgorithm({"seenFilter": "sometimes"}, device="cpu")
     with pytest.raises(ValueError, match="unknown retrieval"):
@@ -174,3 +176,47 @@ def test_serving_helpers_match_reference():
     assert torch_common.partition_user_queries(index, qs) == (
         jax_common.partition_user_queries(index, qs)
     )
+
+
+def test_live_seen_filter_equals_the_reference(trained, storage_env, monkeypatch):
+    """``seenFilter: "live"``: both packages read the user's events from
+    one store per query (the port through its own registry) and answer
+    alike, before and after a new event for the user arrives; the new
+    item drops out of the user's list at once."""
+    from predictionio_tpu.data import DataMap, Event
+    from predictionio_tpu.data.storage.base import App
+    from predictionio_tpu_torch.data import storage as torch_storage
+    from predictionio_tpu_torch.data.event import Event as TorchEvent
+
+    monkeypatch.setattr(torch_storage, "_registry", torch_storage._Registry())
+    jax_model, port_model = trained
+    app_id = storage_env.get_meta_data_apps().insert(App(name="LiveApp"))
+    le = storage_env.get_l_events()
+    le.init_channel(app_id)
+    t0 = dt.datetime(2024, 1, 1, tzinfo=dt.timezone.utc)
+    le.batch_insert([
+        Event(event=("rate", "buy", "view")[n % 3], entity_type="user",
+              entity_id=f"u{u}", target_entity_type="item", target_entity_id=f"i{i}",
+              properties=DataMap({"rating": 4}), event_time=t0 + dt.timedelta(seconds=n))
+        for n, (u, items) in enumerate(sorted(jax_model.seen.items())) for i in sorted(items)
+    ], app_id=app_id)
+    live = dict(seen={}, seen_mode="live", app_name="LiveApp", event_names=["rate", "buy"])
+    jax_live = dataclasses.replace(jax_model, **live)
+    port_live = dataclasses.replace(port_model, **live)
+    queries = _queries(jax_model) + [{"user": f"u{u}", "num": 9} for u in range(NUM_USERS)]
+    for mode in ("scan", "mips"):
+        jax_algo, port_algo = _algorithms(mode)
+        for q in queries:
+            assert port_algo.predict(port_live, q) == jax_algo.predict(jax_live, q), q
+        batch = list(enumerate(queries))
+        assert dict(port_algo.batch_predict(port_live, batch)) == dict(
+            jax_algo.batch_predict(jax_live, batch))
+    top = port_algo.predict(port_live, {"user": "u0", "num": 1})["itemScores"][0]["item"]
+    torch_storage.get_l_events().insert(TorchEvent(
+        event="buy", entity_type="user", entity_id="u0", target_entity_type="item",
+        target_entity_id=top), app_id)
+    after = port_algo.predict(port_live, {"user": "u0", "num": 10})
+    assert top not in [s["item"] for s in after["itemScores"]]
+    assert after == jax_algo.predict(jax_live, {"user": "u0", "num": 10})
+    torch_storage.reset()
+

@@ -104,12 +104,78 @@ def test_telemetry_and_unported_options_raise():
         train_sasrec(config, sequences(), "cpu", mesh_shape=[1, 2])
     with pytest.raises(NotImplementedError, match="mesh_shape"):
         train_sasrec(config, sequences(), "cpu", mesh_shape=[2, 1])
-    with pytest.raises(NotImplementedError, match="live"):
-        SASRecAlgorithm({"historyMode": "live"}, device="cpu")
+    assert SASRecAlgorithm({"historyMode": "live"}, device="cpu").history_mode == "live"
     with pytest.raises(ValueError, match="historyMode"):
         SASRecAlgorithm({"historyMode": "sometimes"}, device="cpu")
     with pytest.raises(ValueError, match="attention"):
         SASRecConfig(num_items=3, attention="fast")
+
+
+def test_live_history_equals_the_reference(storage_env, monkeypatch):
+    """``historyMode: "live"``: both packages continue the user's events
+    read from one store per query (no trained-in histories) and answer
+    alike, before and after a new event extends the user's sequence."""
+    import dataclasses
+
+    from predictionio_tpu.controller.engine import EngineParams
+    from predictionio_tpu.data import DataMap, Event
+    from predictionio_tpu.data.storage.base import App
+    from predictionio_tpu.models.sequence import engine_factory
+    from predictionio_tpu.models.sequence.engine import SASRecModel as JaxSASRecModel
+    from predictionio_tpu_torch.data import storage as torch_storage
+    from predictionio_tpu_torch.data.event import Event as TorchEvent
+    from predictionio_tpu_torch.models.sequence import model_from_flax
+
+    monkeypatch.setattr(torch_storage, "_registry", torch_storage._Registry())
+    kw = dict(num_items=12, max_len=8, embed_dim=8, num_heads=2, num_blocks=2, ffn_dim=16,
+              seed=2)
+    params = flax_init(kw, 8)
+    item_ids = [f"i{j}" for j in range(12)]
+    live = dict(history_mode="live", app_name="SeqApp", event_names=["view", "buy"])
+    jax_model = JaxSASRecModel(params=jax.tree_util.tree_map(jnp.asarray, params),
+                               config=JaxSASRecConfig(**kw), item_ids=item_ids,
+                               item_index={i: j for j, i in enumerate(item_ids)},
+                               histories={}, **live)
+    model = dataclasses.replace(model_from_flax(params, SASRecConfig(**kw), item_ids, {}),
+                                **live)
+    app_id = storage_env.get_meta_data_apps().insert(App(name="SeqApp"))
+    le = storage_env.get_l_events()
+    le.init_channel(app_id)
+    t0 = dt.datetime(2024, 1, 1, tzinfo=dt.timezone.utc)
+    rng = np.random.default_rng(6)
+    le.batch_insert([
+        Event(event=("view", "buy", "rate")[n % 3], entity_type="user", entity_id=f"u{u}",
+              target_entity_type="item", target_entity_id=f"i{rng.integers(0, 12)}",
+              properties=DataMap({}), event_time=t0 + dt.timedelta(seconds=10 * n + u))
+        for u in range(6) for n in range(int(rng.integers(1, 11)))
+    ], app_id=app_id)
+    jax_algo = engine_factory()._algorithms(EngineParams.from_json_obj(
+        {"algorithms": [{"name": "sasrec", "params": {}}]}))[0]
+    algo = SASRecAlgorithm({}, device="cpu")
+    queries = [{"user": f"u{u}", "num": 5} for u in range(6)] + [
+        {"user": "u1", "num": 12, "unseenOnly": False}, {"user": "ghost", "num": 3},
+        {"items": ["i3", "i4"], "num": 4}]
+
+    def same(got, want):
+        assert [x["item"] for x in got["itemScores"]] == [x["item"] for x in want["itemScores"]]
+        np.testing.assert_allclose([x["score"] for x in got["itemScores"]],
+                                   [x["score"] for x in want["itemScores"]], atol=2e-4)
+
+    for q in queries:
+        same(algo.predict(model, q), jax_algo.predict(jax_model, q))
+    batched = dict(algo.batch_predict(model, list(enumerate(queries))))
+    for qid, q in enumerate(queries):
+        same(batched[qid], jax_algo.predict(jax_model, q))
+    q = {"user": "u2", "num": 12}
+    before = algo.predict(model, q)
+    torch_storage.get_l_events().insert(TorchEvent(
+        event="view", entity_type="user", entity_id="u2", target_entity_type="item",
+        target_entity_id=before["itemScores"][0]["item"],
+        event_time=t0 + dt.timedelta(days=1)), app_id)
+    after = algo.predict(model, q)
+    assert before["itemScores"][0]["item"] not in [x["item"] for x in after["itemScores"]]
+    same(after, jax_algo.predict(jax_model, q))
+    torch_storage.reset()
 
 
 def test_grouping_is_the_reference_order():
@@ -214,8 +280,8 @@ def test_template_dispatch_and_unported_settings(tmp_path):
         variant = json.load(f)
     for change, error in (({"sparkConf": {"pio.mesh_shape": [1, 2]}}, NotImplementedError),
                           ({"algorithms": [{"name": "sasrec",
-                                            "params": {"historyMode": "live"}}]},
-                           NotImplementedError),
+                                            "params": {"historyMode": "sometimes"}}]},
+                           ValueError),
                           ({"algorithms": [{"name": "sasrec", "params": {"maxLen": 32}}]},
                            ValueError)):
         path = tmp_path / "bad.json"

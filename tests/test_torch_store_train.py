@@ -1,0 +1,399 @@
+"""The port's store path against the JAX package's, on the CPU.
+
+``pio train`` from the event store records an engine instance and a
+model blob; ``pio deploy`` resolves the latest COMPLETED instance and
+loads the blob. The same events go into each package's own store (same
+event ids, so both scans break time ties alike); the JAX package's
+``run_train`` and the port's must record the same instance (ids, times
+and the store's own directory aside) and ALS factors within the f32 bar
+(``atol`` 1e-4, ``tests/test_als_gram.py::test_fit_matches_xla``), and
+the port's deploy must answer as the JAX template predicts. Also: a
+pickled blob (one the JAX package wrote) is refused, ``--resume``
+continues only on equal params, what is not ported raises, and the whole
+walk -- ``app new`` -> ``/batch/events.json`` -> ``import`` -> ``train``
+-> ``deploy`` -- runs through the port's command line alone.
+"""
+
+import datetime as dt
+import http.client
+import json
+import os
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import requests
+
+from predictionio_tpu.controller.engine import EngineParams as JaxEngineParams
+from predictionio_tpu.data import storage as jax_storage
+from predictionio_tpu.data.event import Event as JaxEvent
+from predictionio_tpu.data.storage.base import App as JaxApp
+from predictionio_tpu.workflow.context import WorkflowParams as JaxWorkflowParams
+from predictionio_tpu.workflow.core_workflow import run_train as jax_run_train
+from predictionio_tpu.workflow.json_extractor import (
+    load_engine_variant as jax_load_engine_variant,
+)
+from predictionio_tpu_torch.controller.engine import (
+    TEMPLATES,
+    ModelBlobError,
+    deserialize_model,
+)
+from predictionio_tpu_torch.data import storage
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.storage.base import App
+from predictionio_tpu_torch.models import _als_common as torch_common
+from predictionio_tpu_torch.models.recommendation import ALSAlgorithm
+from predictionio_tpu_torch.tools import cli
+from predictionio_tpu_torch.workflow import checkpoint as torch_checkpoint
+from predictionio_tpu_torch.workflow.core_workflow import (
+    WorkflowParams,
+    engine_params_from_instance,
+    load_instance_model,
+    run_train,
+)
+from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ALGO = {"rank": 8, "numIterations": 6, "lambda": 0.05, "seed": 3,
+        "implicitPrefs": False, "checkpointInterval": 0}
+VARIANT = {
+    "id": "store-rec",
+    "engineFactory": "predictionio_tpu.models.recommendation.engine_factory",
+    "datasource": {"params": {"appName": "StoreApp", "eventNames": ["rate", "buy"]}},
+    "preparator": {"params": {"maxEventsPerUser": 12}},
+    "algorithms": [{"name": "als", "params": ALGO}],
+    "serving": {"params": {}},
+    "sparkConf": {"pio.mesh_shape": [1, 1]},
+}
+
+
+def make_events(users: int = 30, seed: int = 5) -> list[dict]:
+    """Two cliques of users with disjoint tastes, one event a second (no
+    time ties), each with its event id, plus events the read drops."""
+    rng = np.random.default_rng(seed)
+    liked = {0: [f"s{i}" for i in range(12)], 1: [f"r{i}" for i in range(12)]}
+    rows = []
+    for u in range(users):
+        for item in rng.choice(liked[u % 2], size=8, replace=False):
+            rows.append(("rate", f"u{u}", str(item), {"rating": int(rng.integers(4, 6))}))
+        for item in rng.choice(liked[1 - u % 2], size=2, replace=False):
+            rows.append(("rate", f"u{u}", str(item), {"rating": 1}))
+        rows.append(("buy", f"u{u}", str(rng.choice(liked[u % 2])), {}))
+        rows.append(("view", f"u{u}", str(rng.choice(liked[1 - u % 2])), {}))
+    base = dt.datetime(2024, 2, 1, tzinfo=dt.timezone.utc)
+    return [
+        {"eventId": f"ev{i:05d}", "event": name, "entityType": "user", "entityId": user,
+         "targetEntityType": "item", "targetEntityId": item, "properties": props,
+         "eventTime": (base + dt.timedelta(seconds=i)).isoformat()}
+        for i, (name, user, item, props) in enumerate(rows)
+    ]
+
+
+def write_json(path, obj) -> str:
+    with open(path, "w") as f:
+        json.dump(obj, f)
+    return str(path)
+
+
+@pytest.fixture()
+def basedir(tmp_path, monkeypatch):
+    """``use(path)`` points both packages' registries at ``path``."""
+    for key in [k for k in os.environ if k.startswith(("PIO_STORAGE_", "PIO_SNAPSHOT"))]:
+        monkeypatch.delenv(key)
+
+    def use(path) -> str:
+        monkeypatch.setenv("PIO_FS_BASEDIR", str(path))
+        storage.reset()
+        jax_storage.reset()
+        return str(path)
+
+    yield use
+    storage.reset()
+    jax_storage.reset()
+
+
+def fill_store(registry, app_class, event_class, events, app_name="StoreApp") -> int:
+    app_id = registry.get_meta_data_apps().insert(app_class(name=app_name))
+    le = registry.get_l_events()
+    le.init_channel(app_id)
+    le.batch_insert([event_class.from_json_obj(e) for e in events], app_id)
+    return app_id
+
+
+INSTANCE_FIELDS = ("status", "engine_id", "engine_version", "engine_variant",
+                   "engine_factory", "batch", "runtime_conf", "data_source_params",
+                   "preparator_params", "algorithms_params", "serving_params")
+
+
+def _serve(engine_json, queries, **kwargs):
+    import threading
+
+    server, _ = cli.build_query_server(engine_json, port=0, device="cpu", **kwargs)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=60)
+    try:
+        out = []
+        for q in queries:
+            conn.request("POST", "/queries.json", body=json.dumps(q).encode(),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            out.append((resp.status, json.loads(resp.read())))
+        return out
+    finally:
+        conn.close()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
+def test_train_from_the_store_matches_the_jax_run_train(basedir, tmp_path, monkeypatch):
+    events = make_events()
+    engine_json = write_json(tmp_path / "engine.json", VARIANT)
+    monkeypatch.setenv("PIO_TEST_MARK", "same")
+
+    basedir(tmp_path / "jax")
+    fill_store(jax_storage, JaxApp, JaxEvent, events)
+    jax_instance = jax_run_train(jax_load_engine_variant(engine_json),
+                                 JaxWorkflowParams(batch="b1"))
+    jax_blob = jax_storage.get_model_data_models().get(jax_instance.id).models
+    jax_model = pickle.loads(pickle.loads(jax_blob)[0][1])
+
+    basedir(tmp_path / "port")
+    fill_store(storage, App, Event, events)
+    timings = {}
+    instance = run_train(load_engine_variant(engine_json), WorkflowParams(batch="b1"),
+                         device="cpu", timings=timings)
+    assert set(timings) == {"read_s", "prepare_s", "train_s", "persist_s"}
+    recorded = storage.get_meta_data_engine_instances().get(instance.id)
+    for name in INSTANCE_FIELDS:
+        assert getattr(recorded, name) == getattr(jax_instance, name), name
+    assert recorded.status == "COMPLETED" and recorded.end_time >= recorded.start_time
+    strip = lambda env: {k: v for k, v in env.items() if k != "PIO_FS_BASEDIR"}
+    assert strip(recorded.env) == strip(jax_instance.env)
+    assert recorded.env["PIO_TEST_MARK"] == "same"
+    assert engine_params_from_instance(recorded) == load_engine_variant(engine_json).engine_params
+
+    blob = storage.get_model_data_models().get(instance.id).models
+    assert blob[:2] == b"PK"  # a zip, not a pickle
+    model = deserialize_model(TEMPLATES["recommendation"], blob)
+    assert model.user_index == jax_model.user_index
+    assert model.item_ids == jax_model.item_ids
+    assert model.seen == jax_model.seen
+    np.testing.assert_allclose(model.als.user_factors, jax_model.als.user_factors, atol=1e-4)
+    np.testing.assert_allclose(model.als.item_factors, jax_model.als.item_factors, atol=1e-4)
+
+    queries = [{"user": "u0", "num": 5}, {"user": "u7", "num": 10},
+               {"user": "u3", "num": 4, "unseenOnly": False},
+               {"items": ["s3", "r2"], "num": 6}, {"user": "nobody", "num": 3}]
+    from predictionio_tpu.models.recommendation import engine_factory
+
+    jax_algo = engine_factory()._algorithms(JaxEngineParams.from_json_obj(VARIANT))[0]
+    for (status, got), q in zip(_serve(engine_json, queries), queries):
+        want = jax_algo.predict(jax_model, q)
+        assert status == 200
+        assert [s["item"] for s in got["itemScores"]] == [s["item"] for s in want["itemScores"]]
+        np.testing.assert_allclose([s["score"] for s in got["itemScores"]],
+                                   [s["score"] for s in want["itemScores"]], atol=1e-4)
+    # an explicit instance id resolves the same model
+    assert _serve(engine_json, queries[:1], engine_instance_id=instance.id)[0][1] == (
+        _serve(engine_json, queries[:1])[0][1])
+
+    # a deploy of the JAX package's store finds its pickled blob: refused
+    basedir(tmp_path / "jax")
+    with pytest.raises(ModelBlobError, match="pickle, written by the JAX package"):
+        cli.build_query_server(engine_json, port=0, device="cpu")
+    with pytest.raises(ModelBlobError, match="Retrain it"):
+        deserialize_model(TEMPLATES["recommendation"], jax_blob)
+
+
+def test_a_pickled_or_foreign_blob_is_refused():
+    template = TEMPLATES["recommendation"]
+    with pytest.raises(ModelBlobError, match="never unpickles"):
+        deserialize_model(template, pickle.dumps([("pickle", b"x")]))
+    with pytest.raises(ModelBlobError, match="not a model blob"):
+        deserialize_model(template, b"PK-not-a-zip")
+    from predictionio_tpu_torch.controller.engine import serialize_model
+    from predictionio_tpu_torch.models.recommendation import model_from_arrays
+
+    model = model_from_arrays(np.ones((2, 3), np.float32), np.ones((4, 3), np.float32),
+                              ["a", "b"], ["w", "x", "y", "z"], [0, 1], [2, 3])
+    blob = serialize_model(template, model)
+    with pytest.raises(ModelBlobError, match="'recommendation' model"):
+        deserialize_model(TEMPLATES["ncf"], blob)
+    back = deserialize_model(template, blob)
+    assert back.seen == model.seen and back.item_ids == model.item_ids
+
+
+class _Killed(RuntimeError):
+    pass
+
+
+def _die_after(monkeypatch, step: int) -> None:
+    real = torch_checkpoint.CheckpointManager.save
+
+    def save(self, it, state):
+        real(self, it, state)
+        if it == step:
+            raise _Killed(f"killed after iteration {it}")
+
+    monkeypatch.setattr(torch_checkpoint.CheckpointManager, "save", save)
+
+
+def _spy_starts(monkeypatch) -> list:
+    starts = []
+    real = torch_common.als_fit
+
+    def spy(*args, **kwargs):
+        starts.append(kwargs["start_iteration"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch_common, "als_fit", spy)
+    return starts
+
+
+def test_resume_continues_only_on_equal_params(basedir, tmp_path, monkeypatch):
+    base = basedir(tmp_path / "store")
+    fill_store(storage, App, Event, make_events(users=12))
+    variant = dict(VARIANT, algorithms=[
+        {"name": "als", "params": dict(ALGO, checkpointInterval=1)}])
+    engine_json = write_json(tmp_path / "engine.json", variant)
+    straight = run_train(load_engine_variant(engine_json), device="cpu")
+    _, straight_model = load_instance_model(load_engine_variant(engine_json), straight.id)
+
+    with monkeypatch.context() as m:
+        _die_after(m, 3)
+        with pytest.raises(_Killed):
+            run_train(load_engine_variant(engine_json), device="cpu")
+    instances = storage.get_meta_data_engine_instances()
+    failed = instances.get_latest("store-rec", "1", os.path.abspath(engine_json))
+    assert failed.status == "FAILED"
+    ckpt_dirs = os.listdir(os.path.join(base, "checkpoints"))
+    assert [d for d in ckpt_dirs if d.startswith("als-")]  # keyed by run key
+    starts = _spy_starts(monkeypatch)
+    resumed = run_train(load_engine_variant(engine_json), WorkflowParams(resume=True),
+                        device="cpu")
+    assert resumed.id == failed.id and resumed.status == "COMPLETED"
+    assert starts == [4]  # the step after the last checkpoint
+    assert not [d for d in os.listdir(os.path.join(base, "checkpoints"))
+                if d.startswith("als-")]
+    _, model = load_instance_model(load_engine_variant(engine_json))
+    np.testing.assert_array_equal(model.als.user_factors, straight_model.als.user_factors)
+    np.testing.assert_array_equal(model.als.item_factors, straight_model.als.item_factors)
+
+    # params changed since the crash: --resume starts a fresh instance
+    with monkeypatch.context() as m:
+        _die_after(m, 2)
+        with pytest.raises(_Killed):
+            run_train(load_engine_variant(engine_json), device="cpu")
+    crashed = instances.get_latest("store-rec", "1", os.path.abspath(engine_json))
+    changed = dict(variant, algorithms=[
+        {"name": "als", "params": dict(ALGO, checkpointInterval=1, numIterations=4)}])
+    write_json(engine_json, changed)
+    starts.clear()
+    fresh = run_train(load_engine_variant(engine_json), WorkflowParams(resume=True),
+                      device="cpu")
+    assert fresh.id != crashed.id and starts == [0]
+    assert instances.get(crashed.id).status == "FAILED"
+
+
+def test_unported_launch_options_raise(basedir, tmp_path):
+    basedir(tmp_path)
+    for conf, match in (({"pio.process_id": 1}, "item 8"),
+                        ({"pio.profile": str(tmp_path / "prof")}, "item 5")):
+        engine_json = write_json(tmp_path / "engine.json",
+                                 dict(VARIANT, sparkConf=conf))
+        with pytest.raises(NotImplementedError, match=match):
+            run_train(load_engine_variant(engine_json), device="cpu")
+    assert storage.get_meta_data_engine_instances().get_all() == []
+    engine_json = write_json(tmp_path / "engine.json", VARIANT)
+    with pytest.raises(LookupError, match="run `pio train` first"):
+        cli.build_query_server(engine_json, port=0, device="cpu")
+
+
+def _start(args, env):
+    """A verb of the port's CLI in its own process; returns it and the
+    port it printed."""
+    proc = subprocess.Popen([sys.executable, "-m", "predictionio_tpu_torch.tools.cli", *args],
+                            env=env, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()
+    if not line:
+        proc.kill()
+        raise AssertionError(proc.stderr.read())
+    return proc, int(line.split("http://", 1)[1].split()[0].rsplit(":", 1)[1].rstrip(")"))
+
+
+def test_the_cli_walks_app_events_import_train_deploy(basedir, tmp_path, capsys):
+    base = basedir(tmp_path / "store")
+    env = dict(os.environ, PYTHONPATH=REPO, PIO_FS_BASEDIR=base)
+    assert cli.main(["app", "new", "WalkApp"]) == 0
+    said = capsys.readouterr().out
+    app_id = int(said.split("ID: ")[1].split()[0])
+    key = said.split("Access Key: ")[1].split()[0]
+    events = make_events(users=16)
+    posted, imported = events[:300], events[300:]
+    server, port = _start(["eventserver", "--ip", "127.0.0.1", "--port", "0"], env)
+    try:
+        for start in range(0, len(posted), 50):
+            r = requests.post(f"http://127.0.0.1:{port}/batch/events.json",
+                              params={"accessKey": key}, json=posted[start:start + 50],
+                              timeout=30)
+            assert r.status_code == 200 and {x["status"] for x in r.json()} == {201}
+    finally:
+        server.terminate()
+        server.wait(timeout=30)
+    src = tmp_path / "more.jsonl"
+    src.write_text("".join(json.dumps(e) + "\n" for e in imported))
+    assert cli.main(["import", "--appid", str(app_id), "--input", str(src)]) == 0
+    variant = dict(VARIANT, datasource={"params": {"appName": "WalkApp",
+                                                   "eventNames": ["rate", "buy"]}})
+    engine_dir = tmp_path / "engine"
+    engine_dir.mkdir()
+    write_json(engine_dir / "engine.json", variant)
+    assert cli.main(["train", "--engine-dir", str(engine_dir), "--device", "cpu"]) == 0
+    instance_id = capsys.readouterr().out.split("Engine instance ID: ")[1].split()[0]
+    _, model = load_instance_model(load_engine_variant(str(engine_dir / "engine.json")))
+    assert len(model.user_index) == 16
+
+    deploy, port = _start(["deploy", "--engine-dir", str(engine_dir), "--device", "cpu",
+                           "--port", "0"], env)
+    try:
+        algo = ALSAlgorithm(ALGO, device="cpu")
+        for q in ({"user": "u1", "num": 5}, {"items": ["s1"], "num": 3}):
+            got = requests.post(f"http://127.0.0.1:{port}/queries.json", json=q, timeout=30)
+            assert got.status_code == 200 and got.json() == algo.predict(model, q)
+    finally:
+        deploy.terminate()
+        deploy.wait(timeout=30)
+    instance = storage.get_meta_data_engine_instances().get(instance_id)
+    assert instance.status == "COMPLETED"
+    assert cli.main(["export", "--appid", str(app_id), "--output",
+                     str(tmp_path / "out.jsonl")]) == 0
+    assert len((tmp_path / "out.jsonl").read_text().splitlines()) == len(events)
+
+
+def test_deploy_can_turn_the_live_seen_filter_on(basedir, tmp_path):
+    """A model trained with the trained-in seen map is deployed with
+    ``seenFilter: "live"`` at the same variant path:
+    the instance resolves, and an item the user buys after training drops
+    out of the user's list at once."""
+    basedir(tmp_path / "store")
+    app_id = fill_store(storage, App, Event, make_events(users=12))
+    engine_json = write_json(tmp_path / "engine.json", VARIANT)
+    run_train(load_engine_variant(engine_json), device="cpu")
+    query = {"user": "u3", "num": 6}
+    (_, before), = _serve(engine_json, [query])
+    top = before["itemScores"][0]["item"]
+    storage.get_l_events().insert(Event(event="buy", entity_type="user", entity_id="u3",
+                                        target_entity_type="item", target_entity_id=top),
+                                  app_id)
+    (_, unchanged), = _serve(engine_json, [query])
+    assert unchanged == before  # the trained-in map knows nothing of the new event
+    live = dict(ALGO, seenFilter="live")
+    write_json(engine_json, dict(VARIANT, algorithms=[{"name": "als", "params": live}]))
+    (_, after), = _serve(engine_json, [query])
+    items = [s["item"] for s in after["itemScores"]]
+    assert top not in items and items[:5] == [s["item"] for s in before["itemScores"]][1:]
