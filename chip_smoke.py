@@ -102,7 +102,28 @@ script exits non-zero and prints no result):
    recall@10 >= 0.99 against the exact scan; then a new "buy" event for
    a queried user and a deploy with ``seenFilter: "live"``: the item
    leaves the user's list.
-12. check_b3 -- kernel B3 (``ncf_score.cu``) against its plain version
+12. follow_path -- continuous learning on store_path's store (no second
+   import): the event server in a thread with ``ingest_mode="wal"``
+   takes, in batches of 50, 600 known users x 20 "rate" events and 30
+   new users x 10 (10 new items among them); the instance is deployed
+   with ``"retrieval": {"mode": "mips"}``; ``RetrainLoop.run_once``
+   (notifying that server) answers "foldin": the WAL tail, the first
+   snapshot build (~1M rows), one B1 launch, registry version 1, the
+   server swapped to it (``GET /``) and the old epoch released. The
+   folded rows equal ``fold_in_als_model`` with ``solver="xla"`` on the
+   card within 1e-4, untouched rows the base bit for bit, new item rows
+   are zero; 10 touched and 2 new users' lists reach recall@10 >= 0.99
+   against the exact scan of version 1 (B2 launches, new users' lists
+   non-empty). An idle cycle moves neither cursor nor version. 2 events
+   each for 1,300 known users (21.5% > 0.2) answer "full_retrain": 20 B1
+   launches, version 2, swapped, served through B2. A swap back to
+   version 1 answers exactly as before; a swap to a missing version
+   answers 404 and version 1 keeps serving. The line carries the WAL's
+   events/s, batch p50 and fsyncs, the snapshot build and refresh
+   seconds, each cycle's tail/fold/publish/swap seconds, the blob bytes,
+   the lag from the last ack to the swapped model, the full retrain's
+   seconds, the launches and the card memory around the swap.
+13. check_b3 -- kernel B3 (``ncf_score.cu``) against its plain version
    on the card at the NCF template's widths (E=32, hidden 64, 32) over
    1,000,000 items for five users (the last one included); over 1, 15,
    16, 17, 127, 128, 129, 255, 256, 257, 1023, 1025, 5,003 and 27,000
@@ -120,7 +141,7 @@ script exits non-zero and prints no result):
    the absolute values of every input
    (the worst case of two f32 evaluations that sum each layer in
    different orders; ``b3_tolerance``).
-13. time_b3 -- B3 and its plain version at 1,000,000 and 27,000 items
+14. time_b3 -- B3 and its plain version at 1,000,000 and 27,000 items
    and the five wide widths at 27,000 items: CUDA-event medians and
    profiler device times of each, beside the bound (the larger of bytes
    / 3.35 TB/s and the dense layers' products at 3xTF32's 165 TFLOP/s
@@ -128,13 +149,13 @@ script exits non-zero and prints no result):
    (every operation at 67 TFLOP/s, ``bound_f32_ms``). The template's
    27,000-item row reports its device time: its CUDA-event pair brackets
    the wrapper's host work, during which the card idles.
-14. train_ncf -- the NCF training path: ``examples/ncf/engine.json``
+15. train_ncf -- the NCF training path: ``examples/ncf/engine.json``
    (E=32, hidden 64, 32, batch 4096, lr 0.01, implicit, 4 negatives) on
    phase 6's 20,000,000 ratings, through NCFPreparator ->
    NCFAlgorithm.train on cuda, epochs cut 5 -> 1. Checks: the step count,
    no NaN, the mean loss of the last 100 steps below the first 100's,
    and fresh pairs of the data's recipe scoring above uniform ones.
-15. serve_ncf -- that model saved, deployed through the ``deploy`` code
+16. serve_ncf -- that model saved, deployed through the ``deploy`` code
    path on cuda and queried over HTTP (known users, blackList,
    unseenOnly=false, num 20, a cold user) and by a 256-user
    ``batch_predict``. B3 launches counted from 0 before the queries must
@@ -146,14 +167,14 @@ script exits non-zero and prints no result):
    27,000 items, each deployed with an engine.json of its width: 3
    known-user queries each, each 200 through B3 (3 launches a model) and
    held to the plain head as above.
-16. train_verb_ncf -- a 3,000-event file imported into a fresh store,
+17. train_verb_ncf -- a 3,000-event file imported into a fresh store,
    the ``train`` verb with the NCF engine.json reading the store, and
    ``deploy`` of the engine instance it recorded (B3 serves it).
-17. seq_data -- phase 6's 20M ratings as sequence events (event i at
+18. seq_data -- phase 6's 20M ratings as sequence events (event i at
    second i) grouped per user in time order (``group_sequences``, the
    DataSource's grouping), each user's last item held out, the rest
    packed by SequencePreparator to [138,000, 64].
-18. check_flash -- kernel B4 (``flash_attention.cu``) and the fused
+19. check_flash -- kernel B4 (``flash_attention.cu``) and the fused
    backward (``flash_backward.cu``) against their plain versions on the
    card: the training shape (B=256, H=2, T=64, D=16) with the packed
    rows' masks, with random right padding and with left padding; T in
@@ -170,7 +191,7 @@ script exits non-zero and prints no result):
    anywhere. Then 20 SASRec steps at embedDim 48 / 2 heads (D = 24) and
    at 256 / 1 head (D = 256) through the kernels equal the same steps
    through the plain versions (losses within 1e-4).
-19. time_flash -- B4, the fused backward and their plain versions at the
+20. time_flash -- B4, the fused backward and their plain versions at the
    training shape and at B=16, H=2, T=1024, D=16, and again at the
    training shape with D=24 (the wrappers' padding copies timed with the
    call) and the long one with D=128 and D=256 (the chunked instances,
@@ -185,7 +206,7 @@ script exits non-zero and prints no result):
    kernels), with the CUDA-event time of one call beside: at these sizes
    the host's launch overhead, which events count, is larger than the
    kernels.
-20. train_seq -- ``examples/sequence/engine.json`` unchanged (E=32, 2
+21. train_seq -- ``examples/sequence/engine.json`` unchanged (E=32, 2
    heads, 2 blocks, ffn 64, maxLen 64, batch 256, lr 1e-3, 10 epochs)
    through SASRecAlgorithm.train on cuda. Flash counts are zeroed just
    before and read just after: B4 and the fused backward must each be
@@ -196,7 +217,7 @@ script exits non-zero and prints no result):
    versions on the card (losses within 1e-4); the kernel run of those 20
    steps is traced: device ms a step, the card's busy share, top kernels
    and the flash kernels' own ms a step.
-21. serve_seq -- that model saved, deployed through the ``deploy`` code
+22. serve_seq -- that model saved, deployed through the ``deploy`` code
    path on cuda and queried over HTTP (users, sessions of 1-10 items,
    blackList, unseenOnly=false, a cold user) and by a 256-user
    ``batch_predict``: B4 launches counted from 0 must be 2 per forward;
@@ -207,7 +228,7 @@ script exits non-zero and prints no result):
    256) over 27,000 items deployed with an engine.json of that width: 3
    user queries, each 200 through B4 (2 launches a query) and each list
    the plain path's on the card up to near-ties.
-22. train_verb_seq -- the same with the sequence engine.json (B4 and the
+23. train_verb_seq -- the same with the sequence engine.json (B4 and the
    fused backward train it, B4 serves it).
 
 Then one line ``{"kernels": [...]}``, the card's line again and, last,
@@ -271,6 +292,16 @@ SMALL_EVENTS = 3_000
 STORE_EVENTS, STORE_USERS, STORE_ITEMS = 1_000_209, 6_040, 3_706
 STORE_BATCHES, STORE_BATCH, STORE_SINGLES = 40, 50, 20
 STORE_QUERIES = 10
+#: the follow path on store_path's store: a fold-in window of 600 known
+#: users (10% of 6,040, under the staleness budget's 0.2) rating 20 known
+#: items each, plus 30 new users rating 10 items each, one of them among
+#: 10 new items (0.27% item growth, under 0.05); then an escalating
+#: window of 2 events each for 1,300 known users (21.5%, over 0.2)
+FOLLOW_USERS, FOLLOW_EVENTS = 600, 20
+FOLLOW_NEW_USERS, FOLLOW_NEW_EVENTS, FOLLOW_NEW_ITEMS = 30, 10, 10
+FOLLOW_ESCALATE_USERS, FOLLOW_ESCALATE_EVENTS = 1_300, 2
+#: served and checked after each swap: touched known users and new users
+FOLLOW_QUERIES, FOLLOW_NEW_QUERIES = 10, 2
 #: the reference's f32 solver-parity bar (tests/test_als_gram.py:198)
 FIT_ATOL = 1e-4
 #: ranks whose tiles spread over a block's warps and over groups of blocks,
@@ -1710,6 +1741,290 @@ def phase_store_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
     return result
 
 
+def post_event_batches(conn, key: str, events: list) -> tuple[list, float, float]:
+    """``events`` to the event server in ``/batch/events.json`` posts of
+    ``STORE_BATCH``, each answered 201 per event; returns (each post's
+    round trip ms, seconds of all posts, perf_counter of the last ack)."""
+    batch_ms = []
+    t0 = time.perf_counter()
+    for start in range(0, len(events), STORE_BATCH):
+        body = events[start:start + STORE_BATCH]
+        status, out, ms = es_request(conn, "POST", f"/batch/events.json?accessKey={key}",
+                                     body)
+        if status != 200 or [r["status"] for r in out] != [201] * len(body):
+            raise AssertionError(f"batch at {start} answered {status}: {out}")
+        batch_ms.append(ms)
+    acked = time.perf_counter()
+    return batch_ms, acked - t0, acked
+
+
+def wait_flushed(wal_dir: str, records: int, timeout_s: float = 120.0) -> None:
+    """Until the WAL's storage checkpoint covers ``records`` records: an
+    event is acknowledged at its fsync and flushed to the store behind
+    it, and the follower reads only what the store holds."""
+    from predictionio_tpu_torch.data.wal import read_checkpoint
+
+    deadline = time.perf_counter() + timeout_s
+    while read_checkpoint(wal_dir) < records:
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"the WAL checkpoint stalled at {read_checkpoint(wal_dir)}"
+                                 f" of {records} records")
+        time.sleep(0.01)
+
+
+def rate_event(user: str, item: str, stars: int) -> dict:
+    return {"event": "rate", "entityType": "user", "entityId": user,
+            "targetEntityType": "item", "targetEntityId": item,
+            "properties": {"rating": int(stars)}}
+
+
+def query_version(conn, query: dict) -> tuple[dict, str | None]:
+    """One ``/queries.json`` answer and its ``x-pio-model-version``."""
+    conn.request("POST", "/queries.json", body=json.dumps(query).encode(),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    body = json.loads(resp.read())
+    if resp.status != 200:
+        raise AssertionError(f"{query} answered {resp.status}: {body}")
+    return body, resp.getheader("x-pio-model-version")
+
+
+def instrument_loop(loop) -> tuple[dict, dict]:
+    """Time the retrain loop's stages (the WAL tail polls, the snapshot
+    refresh, the fold-in, the registry publish, the swap notify) by
+    wrapping them on the instance, and capture each fold's base model and
+    delta. Returns (stage seconds lists, captured)."""
+    spans = {"tail_s": [], "snapshot_s": [], "fold_s": [], "publish_s": [], "swap_s": []}
+    captured: dict = {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spans[name].append(time.perf_counter() - t0)
+        return run
+
+    for tail in loop.tails:
+        tail.poll = timed("tail_s", tail.poll)
+    loop.snapshots.ensure = timed("snapshot_s", loop.snapshots.ensure)
+    loop.registry.publish = timed("publish_s", loop.registry.publish)
+    loop._notify_swap = timed("swap_s", loop._notify_swap)
+    fold = loop.algorithm.fold_in
+
+    def spy(model, delta):
+        captured.update(base=model, delta=delta)
+        return fold(model, delta)
+
+    loop.algorithm.fold_in = timed("fold_s", spy)
+    return spans, captured
+
+
+def run_cycle(loop, spans: dict, want: str) -> dict:
+    """One ``run_once`` that must answer ``want``: its seconds, each
+    stage's and the B1 launches it made."""
+    from predictionio_tpu_torch.ops import als_gram
+
+    for times in spans.values():
+        times.clear()
+    before = als_gram.gram_rhs.launches
+    t0 = time.perf_counter()
+    got = loop.run_once()
+    row = {"result": got, "cycle_s": time.perf_counter() - t0,
+           "b1_launches": als_gram.gram_rhs.launches - before,
+           **{k: sum(v) for k, v in spans.items()}}
+    if got != want:
+        raise AssertionError(f"the retrain cycle answered {got!r}, want {want!r}: {row}")
+    return row
+
+
+def phase_follow_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
+    """Continuous learning on store_path's store: the event server with
+    ``ingest_mode="wal"`` takes a fold-in window; ``RetrainLoop.run_once``
+    tails the WAL, builds the snapshot (~1M rows), folds the touched users
+    in through B1 (one launch), publishes registry version 1 and swaps the
+    deployed mips server to it; the folded rows equal the plain path on
+    the card, untouched rows the base, new item rows zero, and the served
+    lists the exact scan (recall@10 >= 0.99, B2 launches). An idle cycle
+    moves nothing; an escalating window retrains in full from the store
+    (20 B1 launches), version 2; a swap back to version 1 answers as
+    before, a missing version 404."""
+    import gc
+    import weakref
+
+    import torch
+
+    from predictionio_tpu_torch.data.api.eventserver import create_event_server
+    from predictionio_tpu_torch.online.foldin import fold_in_als_model
+    from predictionio_tpu_torch.online.loop import RetrainConfig, RetrainLoop
+    from predictionio_tpu_torch.ops import als_gram, mips
+    from predictionio_tpu_torch.tools import cli
+    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+
+    engine_json = os.path.join(repo, "examples", "recommendation", "engine.json")
+    variant_path = store_variant(engine_json, "MLApp", os.path.join(workdir, "ml1m.json"),
+                                 retrieval={"mode": "mips"})
+    mips_params = dict(template_params(repo)[0], retrieval={"mode": "mips"})
+    with fresh_store(workdir, "store") as basedir:
+        key = said(cli_out(["accesskey", "new", "MLApp"]), "Access Key")
+        wal_dir = os.path.join(basedir, "wal")
+        als_gram.gram_rhs.launches = 0
+        mips.mips_block_topk.launches = 0
+        events = create_event_server(host="127.0.0.1", port=0, ingest_mode="wal").start()
+        server, service = cli.build_query_server(variant_path, port=0, device="cuda")
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        econn = http.client.HTTPConnection("127.0.0.1", events.port, timeout=120)
+        qconn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=120)
+        result: dict = {}
+        try:
+            loop = RetrainLoop(load_engine_variant(variant_path),
+                               RetrainConfig(notify_urls=[url]), device="cuda")
+            spans, captured = instrument_loop(loop)
+            base = loop.model
+            users = np.asarray(list(base.user_index))
+            items = np.asarray(base.item_ids)
+
+            # window 1: known users, new users, new items
+            known = rng.choice(users, FOLLOW_USERS, replace=False)
+            window = [rate_event(u, i, s) for u in known
+                      for i, s in zip(rng.choice(items, FOLLOW_EVENTS, replace=False),
+                                      rng.integers(1, 6, FOLLOW_EVENTS))]
+            new_users = [f"follow-u{k}" for k in range(FOLLOW_NEW_USERS)]
+            new_items = [f"follow-i{k}" for k in range(FOLLOW_NEW_ITEMS)]
+            for k, user in enumerate(new_users):
+                rated = [new_items[k % FOLLOW_NEW_ITEMS]] + list(
+                    rng.choice(items, FOLLOW_NEW_EVENTS - 1, replace=False))
+                window += [rate_event(user, i, s) for i, s in
+                           zip(rated, rng.integers(1, 6, FOLLOW_NEW_EVENTS))]
+            batch_ms, post_s, acked = post_event_batches(econn, key, window)
+            wait_flushed(wal_dir, len(window))
+            old_epoch = weakref.ref(service.models[0])
+            memory_before = torch.cuda.memory_allocated()
+            cycle1 = run_cycle(loop, spans, "foldin")
+            swapped = time.perf_counter()
+            gc.collect()
+            memory_after = torch.cuda.memory_allocated()
+            if cycle1["b1_launches"] != 1:
+                raise AssertionError(f"the fold-in cycle made {cycle1['b1_launches']} B1 launches")
+            version = get_status(qconn)["modelVersion"]
+            if version != 1 or old_epoch() is not None:
+                raise AssertionError(f"after the fold-in the server serves {version};"
+                                     f" old epoch released: {old_epoch() is None}")
+            # the folded rows against the plain path on the card
+            delta = captured["delta"]
+            plain = fold_in_als_model(
+                base.als, base.user_index, base.item_ids, base.item_index, delta,
+                dataclasses.replace(loop.algorithm._config(), solver="xla"), device="cuda")
+            folded = loop.model
+            fold_err = float(np.abs(folded.als.user_factors - plain.als.user_factors).max())
+            if not fold_err <= FIT_ATOL:
+                raise AssertionError(f"folded rows differ from the plain path by {fold_err}")
+            snap = delta.snapshot
+            in_window = (np.asarray(snap.column("times")) * 1000.0).astype(np.int64) >= (
+                delta.window_start_ms)
+            uvocab = snap.vocab("users")
+            touched = {uvocab[c] for c in np.unique(np.asarray(snap.column("users"))[in_window])}
+            touched |= delta.touched_user_ids or set()
+            if not set(known) | set(new_users) <= touched:
+                raise AssertionError("a posted user is missing from the fold's window")
+            untouched = np.asarray([r for u, r in base.user_index.items() if u not in touched])
+            if not np.array_equal(folded.als.user_factors[untouched],
+                                  base.als.user_factors[untouched]):
+                raise AssertionError("an untouched user row changed in the fold-in")
+            if folded.als.item_factors[[folded.item_index[i] for i in new_items]].any():
+                raise AssertionError("a new item row is not zero")
+            # served through B2: touched known users and new users
+            queries = [{"user": str(u), "num": 10} for u in known[:FOLLOW_QUERIES]] + [
+                {"user": u, "num": 10} for u in new_users[:FOLLOW_NEW_QUERIES]]
+            before = mips.mips_block_topk.launches
+            served_v1 = [query_version(qconn, q)[0] for q in queries]
+            b2_v1 = mips.mips_block_topk.launches - before
+            recall_v1, identical_v1 = recall_against_scan(mips_params, folded, queries, served_v1)
+            if b2_v1 < 1 or not all(b["itemScores"] for b in served_v1[-FOLLOW_NEW_QUERIES:]):
+                raise AssertionError(f"after the swap: {b2_v1} B2 launches, new users "
+                                     f"{served_v1[-FOLLOW_NEW_QUERIES:]}")
+            v1 = loop.registry.get(1)
+            result.update(
+                wal_events=len(window), wal_batch_p50_ms=statistics.median(batch_ms),
+                wal_events_per_s=len(window) / post_s,
+                foldin=cycle1, touched_users=int(plain.touched_users),
+                new_users=int(plain.new_users), new_items=int(plain.new_items),
+                snapshot_rows=len(snap), first_snapshot_build_s=cycle1["snapshot_s"],
+                registry_blob_bytes=v1.manifest["blob_bytes"],
+                lag_ack_to_swap_s=swapped - acked, loop_lag_s=loop.last_lag_s,
+                foldin_max_abs_err_vs_plain=fold_err, recall_at_10_v1=recall_v1,
+                identical_to_scan_v1=identical_v1, b2_launches_v1=b2_v1,
+                cuda_memory_before_swap=memory_before, cuda_memory_after_swap=memory_after,
+                old_epoch_released=True)
+
+            # an idle cycle: nothing new, nothing moves
+            cursor = loop.cursor.seqno
+            idle = run_cycle(loop, spans, "idle")
+            if loop.cursor.seqno != cursor or get_status(qconn)["modelVersion"] != 1:
+                raise AssertionError("the idle cycle moved the cursor or the served version")
+
+            # window 2: past the touched budget, a full retrain from the store
+            escalate = rng.choice(users, FOLLOW_ESCALATE_USERS, replace=False)
+            window2 = [rate_event(u, i, s) for u in escalate
+                       for i, s in zip(rng.choice(items, FOLLOW_ESCALATE_EVENTS, replace=False),
+                                       rng.integers(1, 6, FOLLOW_ESCALATE_EVENTS))]
+            post_event_batches(econn, key, window2)
+            wait_flushed(wal_dir, len(window) + len(window2))
+            retrain = run_cycle(loop, spans, "full_retrain")
+            if retrain["b1_launches"] != 20 or get_status(qconn)["modelVersion"] != 2:
+                raise AssertionError(f"the full retrain: {retrain}")
+            before = mips.mips_block_topk.launches
+            for q in queries:
+                body, header = query_version(qconn, q)
+                if header != "2" or not body["itemScores"]:
+                    raise AssertionError(f"version 2 answered {header}: {body}")
+            b2_v2 = mips.mips_block_topk.launches - before
+
+            # rollback to version 1, then a version that does not exist
+            status, out, rollback_ms = es_request(qconn, "POST", "/models/swap", {"version": 1})
+            if status != 200 or out["modelVersion"] != 1:
+                raise AssertionError(f"rollback answered {status}: {out}")
+            before = mips.mips_block_topk.launches
+            rolled = [query_version(qconn, q) for q in queries]
+            b2_rollback = mips.mips_block_topk.launches - before
+            if rolled != [(b, "1") for b in served_v1]:
+                raise AssertionError("after the rollback the answers differ from version 1's")
+            missing, out, _ = es_request(qconn, "POST", "/models/swap", {"version": 999})
+            still = query_version(qconn, queries[0])
+            if missing != 404 or still != (served_v1[0], "1"):
+                raise AssertionError(f"a missing version answered {missing}: {out}; {still}")
+            if min(b2_v2, b2_rollback) < 1:
+                raise AssertionError(f"B2 launches after the swaps: {b2_v2}, {b2_rollback}")
+            econn.request("GET", "/metrics")
+            metrics = econn.getresponse().read().decode()
+            fsyncs = [line.split()[-1] for line in metrics.splitlines()
+                      if line.startswith("pio_wal_fsyncs_total")]
+            result.update(
+                wal_fsyncs=float(fsyncs[0]),
+                idle=idle, escalate_events=len(window2), full_retrain=retrain,
+                refresh_s=retrain["snapshot_s"], full_retrain_s=retrain["cycle_s"],
+                b2_launches_v2=b2_v2, rollback_swap_ms=rollback_ms,
+                b2_launches_rollback=b2_rollback, missing_version_status=missing,
+                cycles=dict(loop.cycles))
+        finally:
+            econn.close()
+            qconn.close()
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+            events.stop()
+        result.update(b1_launches=als_gram.gram_rhs.launches,
+                      b2_launches=mips.mips_block_topk.launches)
+    if result["b1_launches"] < 1 or result["b2_launches"] < 1:
+        raise AssertionError(f"the follow path launched B1 {result['b1_launches']} and "
+                             f"B2 {result['b2_launches']} times")
+    emit({"phase": "follow_path", **result})
+    return result
+
+
 # --------------------------------------------------------------------------
 # Neural-CF: kernel B3 (csrc/ncf_score.cu) on the NCF template
 # --------------------------------------------------------------------------
@@ -3005,6 +3320,7 @@ def main(argv: list[str] | None = None) -> int:
         phase_train_verb_and_serve(rng, trained, repo, workdir)
     with tempfile.TemporaryDirectory() as workdir:
         store = phase_store_path(rng, repo, workdir)
+        follow = phase_follow_path(rng, repo, workdir)
     b1_launches = trained["result"]["launches"]["gram_rhs"]
     ratings = trained["ratings"]
     del trained
@@ -3040,6 +3356,7 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": "predictionio_tpu/ops/mips.py:129",
         "launches": serve["launches"]["mips_block_topk"],
         "store_path_launches": store["b2_launches"],
+        "follow_path_launches": follow["b2_launches"],
         "max_abs_err": stage1["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -3066,6 +3383,7 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": "predictionio_tpu/ops/als_gram.py:86",
         "launches": b1_launches,
         "store_path_launches": store["b1_launches"],
+        "follow_path_launches": follow["b1_launches"],
         "max_abs_err": b1_check["max_abs_err"],
         "ms": b1_main["ms"],
         "plain_ms": b1_main["plain_ms"],

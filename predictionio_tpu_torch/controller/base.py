@@ -1,13 +1,13 @@
 """DASE component base classes.
 
 Port of the parts of ``predictionio_tpu/controller/base.py`` that the
-train and deploy paths need: ``Params``, ``SanityCheck``, ``DataSource``
-(``read_training``), ``Preparator``, the ``Algorithm`` contract (train,
-predict, batch_predict, warm_up and the wire serde) and ``Serving``;
-plus ``TrainContext``, the port's small stand-in for the reference's
+train, deploy and continuous-learning paths need: ``Params``,
+``SanityCheck``, ``DataSource`` (``read_training``, ``online_handle``),
+``Preparator``, the ``Algorithm`` contract (train, fold-in, predict,
+batch_predict, warm_up and the wire serde) and ``Serving``; plus
+``TrainContext``, the port's small stand-in for the reference's
 ``RuntimeContext`` on the train path (device, checkpoint directory,
-resume). Evaluation (``read_eval``), fold-in and model sharding are not
-ported.
+resume). Evaluation (``read_eval``) and model sharding are not ported.
 """
 
 from __future__ import annotations
@@ -64,6 +64,14 @@ class DataSource(Component, abc.ABC):
     @abc.abstractmethod
     def read_training(self, ctx): ...
 
+    def online_handle(self):
+        """Describe this datasource's interaction scan for the
+        continuous-learning loop (``pio retrain --follow``): a
+        ``models._streaming.StreamingHandle`` carrying app/channel/
+        event-name/rating-key identity, or None (default) when the
+        datasource cannot be followed online."""
+        return None
+
 
 class Preparator(Component, abc.ABC):
     @abc.abstractmethod
@@ -112,8 +120,20 @@ class TrainContext:
 class Algorithm(Component, abc.ABC):
     """Algorithm contract: train on prepared data, answer queries."""
 
+    supports_fold_in: bool = False
+
     @abc.abstractmethod
     def train(self, ctx: TrainContext, prepared_data): ...
+
+    def fold_in(self, model, delta):
+        """Incrementally absorb a delta window (``online.foldin.
+        FoldinDelta``) into ``model``, returning a NEW model (the swap
+        protocol needs immutability -- never mutate the argument) or None
+        when the window holds nothing to absorb. May raise
+        ``online.foldin.StalenessExceeded`` to demand a full retrain."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement fold_in"
+        )
 
     @abc.abstractmethod
     def predict(self, model, query): ...

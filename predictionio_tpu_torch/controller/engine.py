@@ -2,9 +2,11 @@
 
 Counterpart of ``predictionio_tpu/controller/engine.py``:
 
-- ``EngineParams`` is a copy of the reference's ``from_json_obj`` side:
-  the engine.json parameter block, also rebuilt from what an engine
-  instance records (``workflow/core_workflow.py``).
+- ``EngineParams`` is a copy of the reference's: the engine.json
+  parameter block (``from_json_obj``), also rebuilt from what an engine
+  instance records (``workflow/core_workflow.py``), and written back
+  (``to_json_obj``) into each model-registry manifest
+  (``online/registry.py``).
 - ``Template`` and ``TEMPLATES`` stand where the reference's ``Engine``
   and its ``engineFactory`` callables stand: the port binds each ported
   template's DASE classes and its pickle-free ``save_model`` /
@@ -18,6 +20,9 @@ Counterpart of ``predictionio_tpu/controller/engine.py``:
   ``save_model`` writes, plus ``manifest.json`` naming the template and
   the algorithm. A pickled blob (first byte ``0x80``: one the JAX package
   wrote) is refused with an error and never unpickled.
+  ``load_serving_model`` is what a deploy, a hot swap and the retrain
+  loop share: a blob, deserialized, beside the template's algorithm built
+  with the given params.
 """
 
 from __future__ import annotations
@@ -60,6 +65,17 @@ class EngineParams:
             algorithm_params_list=algorithms,
             serving_params=Params(obj.get("serving", {}).get("params", {})),
         )
+
+    def to_json_obj(self) -> dict[str, Any]:
+        return {
+            "datasource": {"params": dict(self.data_source_params)},
+            "preparator": {"params": dict(self.preparator_params)},
+            "algorithms": [
+                {"name": name, "params": dict(params)}
+                for name, params in self.algorithm_params_list
+            ],
+            "serving": {"params": dict(self.serving_params)},
+        }
 
 
 @dataclass(frozen=True)
@@ -171,3 +187,19 @@ def deserialize_model(template: Template, blob: bytes):
         )
     with zf:
         return template.load_model(zf)
+
+
+def load_serving_model(template: Template, engine_params: EngineParams,
+                       blob: bytes, *, device=None, warm_up: bool = True):
+    """``(algorithm, model)``: the template's algorithm with the params'
+    first algorithm block on ``device`` (``cuda`` unless ``"cpu"``), and
+    the blob's model, its serving state built (``warm_up``: the
+    retrieval index packed, so a swap's first query does not pay it)
+    unless ``warm_up=False``."""
+    algorithm = template.algorithm_class(
+        engine_params.algorithm_params_list[0][1], device=device
+    )
+    model = deserialize_model(template, blob)
+    if warm_up:
+        algorithm.warm_up(model)
+    return algorithm, model

@@ -18,20 +18,33 @@ Wire contract kept:
 
 Default port 7070.
 
-Copy of ``predictionio_tpu/data/api/eventserver.py`` (framework-free)
-with the synchronous ingest path only: every route above, the 50-event
-batch limit, auth, whitelists, channels, stats, plugins and webhooks, one
-storage insert per event on the request thread. The WAL group-commit
-mode (``ingest_mode="wal"``) is ROADMAP.md Queue A item 3 and the
-multi-process frontends (``frontend_workers > 0``) item 4; both raise
-``NotImplementedError``.
+Copy of ``predictionio_tpu/data/api/eventserver.py`` (framework-free):
+every route above, the 50-event batch limit, auth, whitelists, channels,
+stats, plugins and webhooks, in both ingest modes:
+
+- ``sync``: one storage insert per event on the request thread;
+- ``wal`` (``EventService._start_ingest`` / ``shutdown_ingest``,
+  reference ``:142-195``): the group-commit pipeline of
+  ``data/ingest.py`` over ``wal_partitions`` WAL partitions
+  (``data/wal.py``). The un-flushed tail a crash left is replayed into
+  the store at start; an event is acknowledged after its WAL fsync, a
+  batch request rides one group commit, a full queue answers 429 with
+  ``Retry-After``, and ``/metrics`` carries the ``pio_ingest_*`` and
+  ``pio_wal_*`` gauges. ``pio retrain --follow`` tails this WAL
+  (``online/follower.py``).
+
+The multi-process frontends (``frontend_workers > 0``) are ROADMAP.md
+Queue A item 4 and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import json
+import logging
+import math
 import threading
 import time
+from concurrent.futures import TimeoutError as _FutureTimeout
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -41,7 +54,15 @@ from predictionio_tpu_torch.data.event import (
     EventValidationError,
     parse_event_time,
 )
+from predictionio_tpu_torch.data.ingest import (
+    IngestConfig,
+    IngestOverload,
+    IngestPipeline,
+    PartitionedIngestPipeline,
+    replay_partitioned_wal,
+)
 from predictionio_tpu_torch.data.storage.base import AccessKey
+from predictionio_tpu_torch.data.wal import PartitionedWal
 from predictionio_tpu_torch.data import webhooks as webhook_registry
 from predictionio_tpu_torch.utils.http import (
     Request,
@@ -52,6 +73,10 @@ from predictionio_tpu_torch.utils.http import (
 )
 
 DEFAULT_PORT = 7070
+
+#: how long a request thread waits for its group-commit ack before giving up
+#: with a 503 (a stalled storage backend must not hold sockets forever)
+ACK_TIMEOUT_S = 30.0
 
 
 class EventServerPlugin:
@@ -105,7 +130,11 @@ class _Stats:
 
 
 class EventService:
-    """Route handlers bound to the storage registry; server-framework free."""
+    """Route handlers bound to the storage registry; server-framework free.
+
+    ``ingest_mode="wal"`` starts the group-commit pipeline over
+    ``wal_partitions`` partitions under ``$PIO_FS_BASEDIR/wal``, with the
+    reference's default knobs (``data/ingest.IngestConfig``)."""
 
     def __init__(
         self,
@@ -114,14 +143,20 @@ class EventService:
         ingest_mode: str = "sync",
         tracing: bool | None = None,
         trace_sample: float | None = None,
+        wal_partitions: int = 1,
     ):
         check_ingest_mode(ingest_mode)
         self.stats_enabled = stats
         self.stats = _Stats()
         self.plugins = list(plugins or [])
+        self.ingest: PartitionedIngestPipeline | IngestPipeline | None = None
+        self._wal: PartitionedWal | None = None
         self.router, self.metrics = instrumented_router(
-            tracing=tracing, trace_sample=trace_sample,
+            before_scrape=self._before_scrape, tracing=tracing,
+            trace_sample=trace_sample,
         )
+        if ingest_mode == "wal":
+            self._start_ingest(IngestConfig(mode="wal", wal_partitions=wal_partitions))
         r = self.router
         r.add("GET", "/", self.handle_root)
         r.add("POST", "/events.json", self.handle_create_event)
@@ -132,6 +167,87 @@ class EventService:
         r.add("GET", "/stats.json", self.handle_stats)
         r.add("POST", "/webhooks/<connector>.json", self.handle_webhook_post)
         r.add("GET", "/webhooks/<connector>.json", self.handle_webhook_get)
+
+    # -- ingest pipeline lifecycle ------------------------------------------
+    def _start_ingest(self, config: IngestConfig) -> None:
+        """WAL + group-commit mode: replay the un-flushed tail left by a
+        previous crash (exactly-once PER PARTITION -- each stream has its
+        own checkpoint), then start the partition writers. P=1 opens the
+        flat single-log layout."""
+        self._wal = PartitionedWal(
+            config.resolved_wal_dir(),
+            partitions=config.wal_partitions,
+            segment_bytes=config.segment_bytes,
+            fsync_policy=config.fsync_policy,
+        )
+        replayed = replay_partitioned_wal(
+            self._wal, tracer=self.router.tracer
+        )
+        if replayed:
+            logging.getLogger("pio.ingest").warning(
+                "replayed %d WAL record(s) into the event store", replayed
+            )
+        self.ingest = PartitionedIngestPipeline(
+            self._wal,
+            queue_size=config.queue_size,
+            group_commit_ms=config.group_commit_ms,
+            max_batch=config.max_batch,
+            metrics=self.metrics,
+            tracer=self.router.tracer,
+        ).start()
+
+    def shutdown_ingest(self) -> None:
+        """Drain the queue (every accepted event reaches the WAL + store)
+        and close the WAL. Safe to call in sync mode or twice.
+
+        ``self.ingest`` deliberately stays set: handler threads can still be
+        mid-request after the listener closes (daemon handler threads), and a
+        stopped pipeline answers their submits with IngestOverload -> 429
+        rather than an attribute race."""
+        if self.ingest is not None:
+            self.ingest.stop(drain=True)
+        if self._wal is not None:
+            self._wal.close()
+            self._wal = None
+
+    def _before_scrape(self, registry) -> None:
+        ingest = self.ingest
+        if ingest is not None:
+            registry.set_gauge(
+                "pio_ingest_queue_depth",
+                float(ingest.depth()),
+                help="Events parked in the ingest queue awaiting group commit",
+            )
+            partitions = getattr(ingest, "partitions", 1)
+            registry.set_gauge(
+                "pio_ingest_partitions",
+                float(partitions),
+                help="WAL partition count (hash-sharded durability streams)",
+            )
+            if hasattr(ingest, "depth_of"):
+                for k in range(partitions):
+                    registry.set_gauge(
+                        "pio_ingest_partition_depth",
+                        float(ingest.depth_of(k)),
+                        labels={"part": str(k)},
+                        help="Events parked per WAL partition awaiting"
+                        " group commit",
+                    )
+        wal = self._wal
+        if wal is not None:
+            registry.set_counter(
+                "pio_wal_appends_total", float(wal.append_count),
+                help="Records framed into the WAL",
+            )
+            registry.set_counter(
+                "pio_wal_fsyncs_total", float(wal.fsync_count),
+                help="WAL fsync calls (one per group commit under policy"
+                " 'always')",
+            )
+            registry.set_gauge(
+                "pio_wal_last_fsync_seconds", wal.last_fsync_s,
+                help="Duration of the most recent WAL fsync",
+            )
 
     # -- auth ---------------------------------------------------------------
     def _access_key(self, request: Request) -> str | None:
@@ -234,16 +350,56 @@ class EventService:
     def _insert_prepared(
         self, events: list[Event], record: AccessKey, channel_id: int | None
     ) -> list[tuple[int, dict[str, Any]]]:
-        """Commit already-validated events: one storage insert per event
-        on the request thread (the reference's sync mode)."""
-        out = []
+        """Commit already-validated events. Sync mode: one storage insert
+        per event on the request thread. WAL mode: submit ALL of them
+        before waiting, so a batch request rides a single group commit; a
+        full queue yields per-item 429s."""
+        if self.ingest is None:
+            out = []
+            for ev in events:
+                with self.router.tracer.span("storage.insert"):
+                    event_id = storage_registry.get_l_events().insert(
+                        ev, record.app_id, channel_id
+                    )
+                out.append(self._ack(ev, record, channel_id, event_id))
+            return out
+        submitted: list[Any] = []
         for ev in events:
-            with self.router.tracer.span("storage.insert"):
-                event_id = storage_registry.get_l_events().insert(
-                    ev, record.app_id, channel_id
+            try:
+                submitted.append(self.ingest.submit(ev, record.app_id, channel_id))
+            except IngestOverload as exc:
+                submitted.append(exc)
+        results = []
+        # one shared deadline for the whole request: a stalled pipeline must
+        # bound the socket hold at ACK_TIMEOUT_S total, not per item
+        deadline = time.monotonic() + ACK_TIMEOUT_S
+        for ev, fut in zip(events, submitted):
+            if isinstance(fut, IngestOverload):
+                results.append(
+                    (429, {"message": "ingestion queue full, retry later"})
                 )
-            out.append(self._ack(ev, record, channel_id, event_id))
-        return out
+                continue
+            try:
+                event_id = fut.result(
+                    timeout=max(0.0, deadline - time.monotonic())
+                )
+            except _FutureTimeout:
+                results.append(
+                    (503, {"message": "ingestion pipeline stalled, retry later"})
+                )
+                continue
+            except IngestOverload:
+                results.append(
+                    (429, {"message": "ingestion queue full, retry later"})
+                )
+                continue
+            except Exception as exc:
+                results.append(
+                    (500, {"message": f"ingestion failed: {exc}"})
+                )
+                continue
+            results.append(self._ack(ev, record, channel_id, event_id))
+        return results
 
     def _insert_one(
         self, obj: Any, record: AccessKey, channel_id: int | None
@@ -252,6 +408,11 @@ class EventService:
         if not isinstance(prepared, Event):
             return prepared
         return self._insert_prepared([prepared], record, channel_id)[0]
+
+    def _retry_after_headers(self, status: int) -> dict[str, str]:
+        if status != 429 or self.ingest is None:
+            return {}
+        return {"Retry-After": str(max(1, math.ceil(self.ingest.retry_after_s)))}
 
     def handle_create_event(self, request: Request) -> Response:
         try:
@@ -263,7 +424,7 @@ class EventService:
         except json.JSONDecodeError:
             return Response(400, {"message": "malformed JSON body"})
         status, body = self._insert_one(obj, record, channel_id)
-        return Response(status, body)
+        return Response(status, body, headers=self._retry_after_headers(status))
 
     def handle_batch(self, request: Request) -> Response:
         try:
@@ -280,8 +441,9 @@ class EventService:
             return Response(
                 400, {"message": "batch size must be <= 50 events per request"}
             )
-        # two-phase: prepare (reject invalid items individually), insert
-        # the valid ones, then stitch per-item statuses back in request order
+        # two-phase so the whole request rides one group commit in WAL mode:
+        # prepare (reject invalid items individually), submit the valid ones
+        # together, then stitch per-item statuses back in request order
         prepared: list[Event | tuple[int, dict[str, Any]]] = [
             self._prepare(obj, record, channel_id) for obj in objs
         ]
@@ -412,12 +574,7 @@ class _AuthError(Exception):
 
 def check_ingest_mode(ingest_mode: str = "sync", frontend_workers: int = 0) -> None:
     """Refuse what the port's event server does not serve yet."""
-    if ingest_mode == "wal":
-        raise NotImplementedError(
-            "ingest mode 'wal' (the WAL and group commit) is not ported yet:"
-            " ROADMAP.md Queue A item 3; use the default 'sync'"
-        )
-    if ingest_mode != "sync":
+    if ingest_mode not in ("sync", "wal"):
         raise ValueError(f"ingest mode must be sync or wal, got {ingest_mode!r}")
     if frontend_workers > 0:
         raise NotImplementedError(
@@ -434,13 +591,16 @@ def create_event_server(
     ingest_mode: str = "sync",
     tracing: bool | None = None,
     trace_sample: float | None = None,
+    wal_partitions: int = 1,
 ) -> ServiceThread:
     service = EventService(
         stats=stats, plugins=plugins, ingest_mode=ingest_mode,
-        tracing=tracing, trace_sample=trace_sample,
+        tracing=tracing, trace_sample=trace_sample, wal_partitions=wal_partitions,
     )
     server = make_server(service.router, host, port, "pio-eventserver")
-    return ServiceThread(server)
+    # drain the group-commit queue on stop: every acknowledged event reaches
+    # the WAL and the store before the thread reports stopped
+    return ServiceThread(server, on_stop=service.shutdown_ingest)
 
 
 def run_event_server(
@@ -454,22 +614,26 @@ def run_event_server(
     tracing: bool | None = None,
     trace_sample: float | None = None,
     frontend_workers: int = 0,
+    wal_partitions: int = 1,
 ) -> None:
     """Blocking entry point used by ``pio eventserver``."""
     check_ingest_mode(ingest_mode, frontend_workers)
     service = EventService(
         stats=stats, plugins=plugins, ingest_mode=ingest_mode,
         tracing=tracing, trace_sample=trace_sample,
+        wal_partitions=wal_partitions,
     )
     server = make_server(
         service.router, host, port, "pio-eventserver",
         ssl_cert=ssl_cert, ssl_key=ssl_key,
     )
     scheme = "https" if ssl_cert else "http"
+    mode = "wal" if service.ingest is not None else "sync"
+    parts = getattr(service.ingest, "partitions", 1)
     print(
         f"Event Server listening on {scheme}://{host}:{server.server_address[1]}"
-        f" (stats={'on' if stats else 'off'}, ingest=sync,"
-        f" plugins={len(service.plugins)})",
+        f" (stats={'on' if stats else 'off'}, ingest={mode},"
+        f" wal-partitions={parts}, plugins={len(service.plugins)})",
         flush=True,
     )
     try:
@@ -478,3 +642,4 @@ def run_event_server(
         pass
     finally:
         server.server_close()
+        service.shutdown_ingest()

@@ -11,9 +11,7 @@ DAO SQL is written with ``?`` placeholders; the client rewrites them to the
 backend's paramstyle. None of the statements embed a literal ``?``.
 
 Port copy: ``predictionio_tpu/data/storage/sql_common.py``
-(framework-free), verbatim but for ``interaction_digest``'s import of
-``TIME_DIGEST_MOD``, which the port keeps in ``data/store.py`` (the
-snapshot module is not ported), under the port's package name;
+(framework-free), verbatim under the port's package name;
 ``tests/test_torch_imports.py`` holds it to the original.
 """
 
@@ -890,7 +888,7 @@ class SQLLEvents(base.LEvents):
         per-row modulus keeps the sum exact in any dialect's 64-bit
         integer SUM (no bigint overflow / float fallback).
         """
-        from predictionio_tpu_torch.data.store import TIME_DIGEST_MOD
+        from predictionio_tpu_torch.data.snapshot import TIME_DIGEST_MOD
 
         mod_expr = self.c.TIME_MOD_EXPR.format(mod=TIME_DIGEST_MOD)
         sql = [

@@ -4,18 +4,19 @@ Copy of ``predictionio_tpu/data/store.py`` (framework-free numpy):
 
 - ``resolve_app_channel``: appName (+ channel) -> (appId, channelId);
 - ``EventDataset``: the columnar view of a query result, built from
-  events (``from_events``) or from a backend's columnar fast scan
-  (``from_columns``, no Event per row);
+  events (``from_events``), from a backend's columnar fast scan
+  (``from_columns``, no Event per row) or from a training snapshot
+  (``from_snapshot``, ``data/snapshot.py``);
 - ``LEventStore``: blocking serving-time reads by app name (the live
   seen filters of ``models/_streaming.py`` read through it);
-- ``PEventStore``: the training reads, ``find``, ``dataset`` (the
-  columnar scan when the backend has ``scan_interactions`` and the
-  filters allow it, else the row path; a failed fast scan falls back to
-  the row path with a warning, as the reference's does) and
-  ``aggregate_properties``.
-
-Training snapshots (``snapshot_mode`` / ``PIO_SNAPSHOT_MODE`` other than
-``off``) are ROADMAP.md Queue A item 3 and raise ``NotImplementedError``.
+- ``PEventStore``: the training reads, ``find``, ``dataset`` and
+  ``aggregate_properties``. ``dataset`` serves a compatible query from
+  the on-disk training snapshot when ``snapshot_mode`` /
+  ``PIO_SNAPSHOT_MODE`` is ``use`` or ``refresh``; else (or when the
+  snapshot layer fails, with a warning) the columnar scan when the
+  backend has ``scan_interactions`` and the filters allow it, else the
+  row path (a failed fast scan falls back to it with a warning), as the
+  reference's does.
 
 ``read_events_file`` is the port's stand-in for ``pio import`` + the
 store + ``PEventStore.dataset`` over a JSON-lines file in the ``pio
@@ -33,7 +34,6 @@ from __future__ import annotations
 import datetime as _dt
 import json
 import logging
-import os
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -44,12 +44,6 @@ from predictionio_tpu_torch.data.datamap import PropertyMap
 from predictionio_tpu_torch.data.event import Event
 
 logger = logging.getLogger("pio.store")
-
-#: modulus (ms per day) of the per-row event-time checksum of
-#: ``sql_common.interaction_digest`` (copy of
-#: ``predictionio_tpu/data/snapshot.py:75``; the snapshot module itself
-#: is not ported)
-TIME_DIGEST_MOD = 86_400_000
 
 
 class AppNotFoundError(LookupError):
@@ -214,6 +208,29 @@ class EventDataset:
             ratings=ratings,
         )
 
+    @classmethod
+    def from_snapshot(cls, snapshot) -> "EventDataset":
+        """Build from a columnar training snapshot (``data/snapshot``) --
+        zero SQL, zero parsing: the snapshot already holds exactly this
+        class's encoding (full-stream first-appearance vocabularies, -1
+        sentinel targets, float64 epoch times, NaN-for-absent ratings).
+        Columns are copied out of the memmaps so the dataset outlives the
+        snapshot files (a later refresh GCs old generations).
+        """
+        return cls(
+            events=[],
+            entity_id_vocab=list(snapshot.vocab("users")),
+            target_entity_id_vocab=list(snapshot.vocab("items")),
+            event_name_vocab=list(snapshot.vocab("names")),
+            entity_ids=np.asarray(snapshot.column("users")).astype(np.int32),
+            target_entity_ids=np.asarray(snapshot.column("items")).astype(
+                np.int32
+            ),
+            event_names=np.array(snapshot.column("names"), np.int32),
+            event_times=np.array(snapshot.column("times"), np.float64),
+            ratings=np.asarray(snapshot.column("ratings")).astype(np.float32),
+        )
+
 
 class LEventStore:
     """Blocking serving-time event reads, resolved by app name."""
@@ -264,15 +281,6 @@ class LEventStore:
         )
 
 
-def _snapshot_mode(snapshot_mode: str | None) -> str:
-    """The training-snapshot mode the reference's ``snapshot_settings``
-    resolves (explicit argument > ``PIO_SNAPSHOT_MODE`` > off)."""
-    mode = snapshot_mode or os.environ.get("PIO_SNAPSHOT_MODE") or "off"
-    if mode not in ("off", "use", "refresh"):
-        raise ValueError(f"snapshot mode must be off|use|refresh, got {mode!r}")
-    return mode
-
-
 class PEventStore:
     """Training-time bulk reads -> columnar EventDataset."""
 
@@ -309,6 +317,10 @@ class PEventStore:
         {"event_names", "target_entity_type", "start_time", "until_time"}
     )
 
+    #: dataset() filters a training snapshot can key on (time filters are
+    #: excluded: a snapshot's coverage boundary is its own until bound)
+    _SNAPSHOT_FILTERS = frozenset({"event_names", "target_entity_type"})
+
     @staticmethod
     def dataset(
         app_name: str,
@@ -318,16 +330,21 @@ class PEventStore:
         snapshot_dir: str | None = None,
         **kwargs,
     ) -> EventDataset:
-        """Columnar training read: the backend's fast scan when it has
-        one and the filters allow it, else (or when the fast scan fails)
-        the row path. A snapshot mode other than ``off`` raises."""
-        mode = _snapshot_mode(snapshot_mode)
-        if mode != "off":
-            raise NotImplementedError(
-                f"training snapshots (snapshot mode {mode!r}) are not ported"
-                " yet (ROADMAP.md Queue A item 3); unset PIO_SNAPSHOT_MODE"
-            )
+        """Columnar training read. With snapshots enabled (explicit args,
+        ``pio.snapshot_*`` runtime conf via ``pio train``, or the
+        ``PIO_SNAPSHOT_MODE``/``PIO_SNAPSHOT_DIR`` env), a compatible
+        query is served from the on-disk training snapshot: ``use`` mode
+        replays the existing spill as-is (bounded at ITS time coverage --
+        stale-but-fast by contract), ``refresh`` first appends the events
+        since. Everything else falls through to the live scan paths.
+        """
         le = storage_registry.get_l_events()
+        ds = PEventStore._dataset_from_snapshot(
+            le, app_name, rating_key, channel_name,
+            snapshot_mode, snapshot_dir, kwargs,
+        )
+        if ds is not None:
+            return ds
         if (
             hasattr(le, "scan_interactions")
             and set(kwargs) <= PEventStore._FAST_SCAN_FILTERS
@@ -354,6 +371,50 @@ class PEventStore:
             PEventStore.find(app_name, channel_name=channel_name, **kwargs),
             rating_key=rating_key,
         )
+
+    @staticmethod
+    def _dataset_from_snapshot(
+        le, app_name, rating_key, channel_name, snapshot_mode, snapshot_dir,
+        kwargs,
+    ) -> EventDataset | None:
+        """The snapshot-served fast path of :meth:`dataset`, or None when
+        snapshots are off / the query or backend is incompatible / the
+        snapshot layer fails (training must degrade to the scan)."""
+        from predictionio_tpu_torch.data.snapshot import (
+            SnapshotSpec,
+            SnapshotStore,
+            snapshot_settings,
+        )
+
+        mode, root = snapshot_settings(
+            mode=snapshot_mode, snapshot_dir=snapshot_dir
+        )
+        if mode == "off" or not set(kwargs) <= PEventStore._SNAPSHOT_FILTERS:
+            return None
+        if not hasattr(le, "iter_interaction_chunks"):
+            return None
+        try:
+            app_id, channel_id = resolve_app_channel(app_name, channel_name)
+            event_names = kwargs.get("event_names")
+            spec = SnapshotSpec(
+                app_id=app_id,
+                channel_id=channel_id,
+                event_names=tuple(event_names) if event_names else None,
+                rating_key=rating_key,
+                target_entity_type=kwargs.get("target_entity_type", ...),
+            )
+            snap = SnapshotStore(root, spec).ensure(le, mode)
+            if snap is None:
+                return None
+            return EventDataset.from_snapshot(snap)
+        except Exception:
+            logger.warning(
+                "snapshot-served dataset failed for app %r; falling back to"
+                " the live scan",
+                app_name,
+                exc_info=True,
+            )
+            return None
 
     @staticmethod
     def aggregate_properties(

@@ -2,8 +2,11 @@
 
 Port of ``predictionio_tpu/models/recommendation/engine.py``: the
 training half (``RatingsData``, ``RecommendationDataSource``,
-``RecommendationPreparator``, ``ALSAlgorithm.train``) and the serving
-half (``RecommendationModel``, the query side of ``ALSAlgorithm``).
+``RecommendationPreparator``, ``ALSAlgorithm.train``), the serving
+half (``RecommendationModel``, the query side of ``ALSAlgorithm``) and
+the continuous-learning hooks (``RecommendationDataSource.online_handle``,
+``ALSAlgorithm.fold_in``, reference ``:130``, ``:492-530``) that
+``pio retrain --follow`` (``online/loop.py``) runs.
 
 The DataSource reads the event store (``PEventStore.dataset`` of the
 ``appName`` app, the reference's filters), or a JSON-lines events file
@@ -47,7 +50,10 @@ from predictionio_tpu_torch.models._als_common import (
     topk_item_scores,
     warn_misplaced_packing_params,
 )
-from predictionio_tpu_torch.models._streaming import live_seen_indices
+from predictionio_tpu_torch.models._streaming import (
+    build_streaming_handle,
+    live_seen_indices,
+)
 from predictionio_tpu_torch.parallel.als import ALSConfig, ALSModel
 from predictionio_tpu_torch.utils.device import resolve_device
 
@@ -128,6 +134,16 @@ class RecommendationDataSource(DataSource):
             item_ids=ds.target_entity_id_vocab,
             app_name=self.params.get_or("appName", ""),
             event_names=list(event_names),
+        )
+
+    def online_handle(self):
+        """The continuous-learning loop's scan descriptor: same identity
+        (app/channel/event names/rating key) as the training read, so the
+        snapshot the loop refreshes is the one training replays."""
+        return build_streaming_handle(
+            self.params, ["rate", "buy"],
+            empty_message="no rating events found -- check appName and "
+            "eventNames",
         )
 
 
@@ -261,6 +277,49 @@ class ALSAlgorithm(Algorithm):
             )
             if index is not None:
                 index.search(np.zeros((1, model.als.item_factors.shape[1]), np.float32))
+
+    supports_fold_in = True
+
+    def fold_in(self, model: RecommendationModel, delta) -> RecommendationModel | None:
+        """Continuous-learning hook (``pio retrain --follow``): re-solve
+        the delta window's touched user rows against the frozen item
+        factors (``online.foldin``, one B1 launch on ``cuda``), extend
+        vocabularies for new users/items (new items carry zero factors
+        until the next full retrain -- the staleness budget bounds how
+        long that lasts), and absorb the window into a trained-in seen
+        map. Returns a NEW model; the serving swap protocol relies on the
+        old one staying intact."""
+        # imported here: the online package's loop imports the templates
+        from predictionio_tpu_torch.online.foldin import fold_in_als_model
+
+        result = fold_in_als_model(
+            model.als,
+            model.user_index,
+            model.item_ids,
+            model.item_index,
+            delta,
+            self._config(),
+            # the training read scores property-less events 1.0
+            rating_default=1.0,
+            device=self.device,
+        )
+        if result is None:
+            return None
+        seen = model.seen
+        if model.seen_mode == "model" and result.window_pairs is not None:
+            seen = {u: set(s) for u, s in model.seen.items()}
+            for u, i in result.window_pairs.tolist():
+                seen.setdefault(int(u), set()).add(int(i))
+        return RecommendationModel(
+            als=result.als,
+            user_index=result.user_index,
+            item_ids=result.item_ids,
+            item_index=result.item_index,
+            seen=seen,
+            seen_mode=model.seen_mode,
+            app_name=model.app_name,
+            event_names=model.event_names,
+        )
 
     def predict(self, model: RecommendationModel, query) -> dict:
         num = int(query.get("num", 10))

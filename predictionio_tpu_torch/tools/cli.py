@@ -3,11 +3,16 @@
     python -m predictionio_tpu_torch.tools.cli app new MyApp
     python -m predictionio_tpu_torch.tools.cli accesskey new MyApp
     python -m predictionio_tpu_torch.tools.cli import --appid 1 --input events.jsonl
-    python -m predictionio_tpu_torch.tools.cli eventserver --port 7070
+    python -m predictionio_tpu_torch.tools.cli eventserver --port 7070 \\
+        [--ingest-mode sync|wal] [--wal-partitions P]
     python -m predictionio_tpu_torch.tools.cli train --engine-dir ENGINE_DIR \\
-        [--variant engine.json] [--resume] [--device cuda|cpu]
+        [--variant engine.json] [--resume] [--snapshot-mode off|use|refresh] \\
+        [--device cuda|cpu]
     python -m predictionio_tpu_torch.tools.cli deploy --engine-dir ENGINE_DIR \\
-        [--engine-instance-id ID] [--port 8000] [--device cuda|cpu]
+        [--engine-instance-id ID | --model-version N] [--port 8000] \\
+        [--device cuda|cpu]
+    python -m predictionio_tpu_torch.tools.cli retrain --engine-dir ENGINE_DIR \\
+        [--follow] [--notify URL] [--device cuda|cpu]
 
 Storage is configured as the reference's is (``PIO_STORAGE_*``; by
 default sqlite under ``$PIO_FS_BASEDIR``), so both packages may share
@@ -20,6 +25,8 @@ one store.
   ``ENGINE_DIR/engine.json``; ``--engine-json`` is the same flag): the
   template's DataSource reads the store, and the run is recorded as an
   engine instance with its model blob (``workflow/core_workflow.py``).
+  ``--snapshot-mode use|refresh`` serves the read from the on-disk
+  training snapshot (``data/snapshot.py``).
   With ``--events FILE --model-out DIR`` it reads a JSON-lines events
   file instead (the ``pio import`` wire shape) and writes the model
   directory with the template's ``save_model``, recording nothing;
@@ -29,14 +36,24 @@ one store.
   model directory. It warms the template's device state up before it
   answers. The engine.json's algorithm params configure serving (so a
   serving knob such as ``retrieval`` may change after training); the
-  model comes from the instance.
+  model comes from the instance. ``--model-version N`` serves version N
+  of the variant's model registry (``online/registry.py``) and exits with
+  the registry's message when N is missing or corrupt. Every deploy of a
+  variant takes ``POST /models/swap`` to a registry version.
+- ``retrain`` (``online/loop.py``) tails the event server's WAL
+  (``eventserver --ingest-mode wal``), refreshes the training snapshot,
+  folds the touched users into the model (B1 on the card), publishes a
+  registry version and hot-swaps the ``--notify`` servers (default
+  ``http://localhost:8000``; ``--notify ''`` publishes only). One cycle,
+  or with ``--follow`` until interrupted; past the staleness budget it
+  trains in full from the store.
 
 The ported templates are picked by ``engineFactory`` or, without one, by
 the first algorithm's name (``controller/engine.py``): recommendation
 (``als``; B1 in training, B2 with ``"retrieval": {"mode": "mips"}``),
 Neural-CF (``ncf``; B3) and sequence (``sasrec``; B4 and the fused
-backward). ``train`` and ``deploy`` run on the card unless ``--device
-cpu``.
+backward). ``train``, ``deploy`` and ``retrain`` run on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -48,8 +65,9 @@ import shutil
 import sys
 
 from predictionio_tpu_torch.controller.base import TrainContext
-from predictionio_tpu_torch.controller.engine import Template
+from predictionio_tpu_torch.controller.engine import Template, load_serving_model
 from predictionio_tpu_torch.controller.serving import FirstServing
+from predictionio_tpu_torch.online.registry import ModelRegistry, RegistryError
 from predictionio_tpu_torch.tools import app_commands, import_export
 from predictionio_tpu_torch.workflow.core_workflow import (
     WorkflowParams,
@@ -105,22 +123,40 @@ def train(engine_json: str, events_path: str, model_out: str, *,
 
 
 def build_query_server(engine_json: str, model_path: str | None = None, *,
-                       engine_instance_id: str | None = None, ip: str = "127.0.0.1",
+                       engine_instance_id: str | None = None,
+                       model_version: int | None = None, ip: str = "127.0.0.1",
                        port: int = 8000, device: str | None = None):
     """Everything ``deploy`` does short of serving: load (a model
-    directory, or the resolved engine instance's blob), warm up, bind.
-    Returns ``(server, service)``."""
+    directory, the resolved engine instance's blob, or registry version
+    ``model_version``), warm up, bind. The server takes hot swaps to the
+    variant's registry versions, each loaded and warmed up with the
+    engine.json's algorithm params. Returns ``(server, service)``;
+    raises ``RegistryError`` for a missing or corrupt ``model_version``."""
     variant = load_engine_variant(engine_json)
     template = variant.template
-    algorithm = template.algorithm_class(
-        variant.engine_params.algorithm_params_list[0][1], device=device
-    )
-    if model_path is not None:
-        model = template.load_model(model_path)
+    engine_params = variant.engine_params
+    registry = ModelRegistry.for_variant(variant)
+
+    def load_version(entry):
+        algorithm, model = load_serving_model(
+            template, engine_params, entry.load_blob(), device=device
+        )
+        return [algorithm], [model], FirstServing()
+
+    if model_version is not None:
+        algorithms, models, serving = load_version(registry.get(model_version))
     else:
-        _, model = load_instance_model(variant, engine_instance_id)
-    algorithm.warm_up(model)
-    service = QueryService([algorithm], [model], FirstServing())
+        algorithm = template.algorithm_class(
+            engine_params.algorithm_params_list[0][1], device=device
+        )
+        if model_path is not None:
+            model = template.load_model(model_path)
+        else:
+            _, model = load_instance_model(variant, engine_instance_id)
+        algorithm.warm_up(model)
+        algorithms, models, serving = [algorithm], [model], FirstServing()
+    service = QueryService(algorithms, models, serving, registry=registry,
+                           loader=load_version, model_version=model_version)
     return create_query_server(service, ip, port), service
 
 
@@ -160,6 +196,7 @@ def cmd_eventserver(args: argparse.Namespace) -> int:
         plugins=_load_plugins(args.plugin), ingest_mode=args.ingest_mode,
         tracing=False if args.no_tracing else None,
         trace_sample=args.trace_sample, frontend_workers=args.frontend_workers,
+        wal_partitions=args.wal_partitions,
     )
     return 0
 
@@ -173,8 +210,17 @@ def cmd_train(args: argparse.Namespace) -> int:
         print(f"trained a model of {len(model.item_ids)} items into "
               f"{args.model_out} ({args.device})", flush=True)
         return 0
+    variant = load_engine_variant(_variant_path(args))
+    # runtime conf reaches components holding a ctx; the env mirrors it for
+    # ctx-free layers (PEventStore.dataset) in this same process
+    if args.snapshot_mode:
+        variant.runtime_conf["pio.snapshot_mode"] = args.snapshot_mode
+        os.environ["PIO_SNAPSHOT_MODE"] = args.snapshot_mode
+    if args.snapshot_dir:
+        variant.runtime_conf["pio.snapshot_dir"] = args.snapshot_dir
+        os.environ["PIO_SNAPSHOT_DIR"] = args.snapshot_dir
     instance = run_train(
-        load_engine_variant(_variant_path(args)),
+        variant,
         WorkflowParams(batch=args.batch, skip_sanity_check=args.skip_sanity_check,
                        resume=args.resume),
         device=args.device,
@@ -184,10 +230,16 @@ def cmd_train(args: argparse.Namespace) -> int:
 
 
 def cmd_deploy(args: argparse.Namespace) -> int:
-    server, _ = build_query_server(
-        _variant_path(args), args.model, engine_instance_id=args.engine_instance_id,
-        ip=args.ip, port=args.port, device=args.device,
-    )
+    try:
+        server, _ = build_query_server(
+            _variant_path(args), args.model, engine_instance_id=args.engine_instance_id,
+            model_version=args.model_version, ip=args.ip, port=args.port,
+            device=args.device,
+        )
+    except RegistryError as exc:
+        # --model-version names an exact artifact; a missing or corrupt one
+        # must be an actionable error, never a silent fallback deploy
+        raise SystemExit(f"Error: {exc}")
     host, port = server.server_address[:2]
     print(f"serving /queries.json on http://{host}:{port} ({args.device})", flush=True)
     try:
@@ -196,6 +248,45 @@ def cmd_deploy(args: argparse.Namespace) -> int:
         pass
     finally:
         server.server_close()
+    return 0
+
+
+def cmd_retrain(args: argparse.Namespace) -> int:
+    import signal
+
+    from predictionio_tpu_torch.online.foldin import StalenessBudget
+    from predictionio_tpu_torch.online.loop import RetrainConfig, RetrainLoop
+
+    variant = load_engine_variant(_variant_path(args))
+    notify = [u for u in (args.notify or ["http://localhost:8000"]) if u]
+    config = RetrainConfig(
+        interval_s=args.interval,
+        wal_dir=args.wal_dir,
+        registry_dir=args.registry_dir,
+        registry_keep=args.registry_keep,
+        notify_urls=notify,
+        budget=StalenessBudget(
+            max_touched_frac=args.max_touched_frac,
+            max_item_growth_frac=args.max_item_growth_frac,
+        ),
+        max_cycles=args.max_cycles if args.follow else 1,
+        allow_full_retrain=not args.no_full_retrain,
+        scorer_shards=args.scorer_shards,
+    )
+    try:
+        loop = RetrainLoop(variant, config, device=args.device)
+    except (LookupError, ValueError) as exc:
+        raise SystemExit(f"Error: {exc}")
+    signal.signal(signal.SIGTERM, lambda *_: loop.stop())
+    try:
+        counts = loop.run_follow()
+    except KeyboardInterrupt:
+        counts = dict(loop.cycles)
+    print(
+        "Retrain loop finished: "
+        + ", ".join(f"{k}={v}" for k, v in sorted(counts.items()) if v),
+        flush=True,
+    )
     return 0
 
 
@@ -214,7 +305,11 @@ def build_parser() -> argparse.ArgumentParser:
     es.add_argument("--plugin", action="append", default=[], metavar="MODULE:CLASS",
                     help="EventServerPlugin to load (repeatable)")
     es.add_argument("--ingest-mode", choices=("sync", "wal"), default="sync",
-                    help="sync: one storage commit per event (wal is not ported)")
+                    help="sync: one storage commit per event; wal: acknowledge after"
+                    " the WAL's group-commit fsync, flush to storage behind it")
+    es.add_argument("--wal-partitions", type=int, default=1, metavar="P",
+                    help="with --ingest-mode wal: hash-sharded WAL partitions, each"
+                    " with its own writer and fsync stream")
     es.add_argument("--frontend-workers", type=int, default=0, metavar="M",
                     help="multi-process frontends (not ported: 0 only)")
     es.add_argument("--no-tracing", action="store_true",
@@ -229,6 +324,13 @@ def build_parser() -> argparse.ArgumentParser:
     train_p.add_argument("--skip-sanity-check", action="store_true")
     train_p.add_argument("--resume", action="store_true",
                          help="continue a crashed run from its step checkpoints")
+    train_p.add_argument("--snapshot-mode", choices=("off", "use", "refresh"),
+                         default=None,
+                         help="training-snapshot cache: 'use' replays the on-disk"
+                         " columnar spill (building it on first run), 'refresh' first"
+                         " appends events ingested since; default off")
+    train_p.add_argument("--snapshot-dir", default=None,
+                         help="snapshot root (default $PIO_FS_BASEDIR/snapshots)")
     train_p.add_argument("--events", default=None,
                          help="read this JSON-lines events file instead of the store")
     train_p.add_argument("--model-out", default=None,
@@ -241,9 +343,49 @@ def build_parser() -> argparse.ArgumentParser:
                         help="serve this instance (default: the latest COMPLETED)")
     deploy.add_argument("--model", default=None,
                         help="serve this save_model directory instead of an instance")
+    deploy.add_argument("--model-version", type=int, default=None, metavar="N",
+                        help="serve version N of the variant's model registry (as"
+                        " published by `retrain`); a missing or corrupt one fails")
     deploy.add_argument("--ip", default="127.0.0.1")
     deploy.add_argument("--port", type=int, default=8000)
     deploy.set_defaults(func=cmd_deploy)
+
+    retrain = verbs.add_parser(
+        "retrain",
+        help="continuous learning: tail the ingest WAL, fold new events into"
+        " the model, hot-swap running query servers (--follow loops; without"
+        " it one catch-up cycle runs)",
+    )
+    _add_variant_args(retrain)
+    retrain.add_argument("--follow", action="store_true",
+                         help="keep following the WAL until interrupted")
+    retrain.add_argument("--interval", type=float, default=2.0, metavar="SEC",
+                         help="seconds between WAL polls in --follow mode")
+    retrain.add_argument("--notify", action="append", default=[], metavar="URL",
+                         help="query server base URL to hot-swap after each publish"
+                         " (repeatable; default http://localhost:8000; --notify ''"
+                         " for batch mode, where publishing is the boundary)")
+    retrain.add_argument("--wal-dir", default=None,
+                         help="ingest WAL directory to tail (default"
+                         " $PIO_FS_BASEDIR/wal)")
+    retrain.add_argument("--registry-dir", default=None,
+                         help="model registry root (default $PIO_FS_BASEDIR/registry)")
+    retrain.add_argument("--registry-keep", type=int, default=5, metavar="N",
+                         help="retained model versions (each is a rollback target)")
+    retrain.add_argument("--max-touched-frac", type=float, default=0.2, metavar="F",
+                         help="staleness budget: touched-user fraction beyond which a"
+                         " full retrain replaces fold-in")
+    retrain.add_argument("--max-item-growth-frac", type=float, default=0.05,
+                         metavar="F",
+                         help="staleness budget: new-item fraction beyond which a"
+                         " full retrain replaces fold-in")
+    retrain.add_argument("--no-full-retrain", action="store_true",
+                         help="never escalate to a full retrain (keep serving stale)")
+    retrain.add_argument("--max-cycles", type=int, default=0, metavar="N",
+                         help="stop after N cycles (0 = until interrupted)")
+    retrain.add_argument("--scorer-shards", type=int, default=0, metavar="N",
+                         help="per-shard model blobs (not ported: 0 only)")
+    retrain.set_defaults(func=cmd_retrain)
     return parser
 
 

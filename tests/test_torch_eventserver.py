@@ -7,8 +7,9 @@ with each filter, ``GET``/``DELETE`` of one event, webhooks (JSON and
 form), ``/stats.json``, bad keys and malformed bodies -- must give equal
 status codes and bodies; event ids, creation times, trace ids and the
 uptime are masked. Then concurrent posts through the port's
-``ThreadingHTTPServer`` all land, and the ingest modes the port does not
-have raise.
+``ThreadingHTTPServer`` all land; the WAL ingest mode answers as the
+reference's in the same mode, through the service, the server and the
+command line; and the multi-process frontends, not ported, raise.
 """
 
 import datetime as dt
@@ -240,15 +241,112 @@ def test_concurrent_posts_all_land(servers):
 
 def test_unported_ingest_modes_raise():
     es = _mod("predictionio_tpu_torch", "data.api.eventserver")
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        es.EventService(ingest_mode="wal")
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        es.create_event_server(port=0, ingest_mode="wal")
     with pytest.raises(NotImplementedError, match="Queue A item 4"):
         es.run_event_server(port=0, frontend_workers=2)
     with pytest.raises(ValueError, match="sync or wal"):
         es.EventService(ingest_mode="async")
-    from predictionio_tpu_torch.tools import cli
 
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        cli.main(["eventserver", "--port", "0", "--ingest-mode", "wal"])
+
+def _wal_store(pkg, basedir, monkeypatch):
+    """One package's store under ``basedir`` with the app and ``KEY``."""
+    storage = _mod(pkg, "data.storage")
+    base = _mod(pkg, "data.storage.base")
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(basedir))
+    storage.reset()
+    app_id = storage.get_meta_data_apps().insert(base.App(name="ESApp"))
+    storage.get_meta_data_access_keys().insert(base.AccessKey(key=KEY, app_id=app_id))
+    storage.get_l_events().init_channel(app_id)
+    return storage
+
+
+def test_wal_ingest_mode_serves_as_the_reference(tmp_path, monkeypatch):
+    """``ingest_mode="wal"`` through ``EventService`` /
+    ``create_event_server`` (P = 1 and P = 3) and through the command
+    line: every event is acknowledged 201 after the WAL's fsync, lands in
+    the store once, the checkpoint covers every record, ``/metrics``
+    carries the ingest and WAL gauges, the statuses equal the JAX
+    package's in the same mode, and a stopped pipeline answers 429 with
+    ``Retry-After``."""
+    import re
+    import signal
+    import subprocess
+    import sys
+
+    for key in [k for k in os.environ if k.startswith("PIO_STORAGE_")]:
+        monkeypatch.delenv(key)
+    body = [rate(f"u{n % 7}", f"i{n}", 1 + n % 5, n) for n in range(45)]
+    body.insert(3, {"event": "rate"})  # invalid: a 400 inside the batch
+    statuses = {}
+    for partitions in (1, 3):
+        for pkg in PACKAGES:
+            storage = _wal_store(pkg, tmp_path / f"{pkg}-{partitions}", monkeypatch)
+            es = _mod(pkg, "data.api.eventserver")
+            if pkg == "predictionio_tpu":
+                config = _mod(pkg, "data.ingest").IngestConfig(
+                    mode="wal", wal_partitions=partitions)
+                svc = es.create_event_server(host="127.0.0.1", port=0,
+                                             ingest_config=config).start()
+            else:
+                svc = es.create_event_server(host="127.0.0.1", port=0, ingest_mode="wal",
+                                             wal_partitions=partitions).start()
+            url = f"http://127.0.0.1:{svc.port}"
+            try:
+                r = requests.post(f"{url}/batch/events.json", params={"accessKey": KEY},
+                                  json=body, timeout=30)
+                one = requests.post(f"{url}/events.json", params={"accessKey": KEY},
+                                    json=rate("u0", "late", 4, 99), timeout=30)
+                metrics = requests.get(f"{url}/metrics", timeout=30).text
+            finally:
+                svc.stop()
+            statuses[(pkg, partitions)] = ([x["status"] for x in r.json()], one.status_code)
+            assert re.search(r"^pio_wal_fsyncs_total [1-9]", metrics, re.M)
+            assert re.search(rf"^pio_ingest_partitions {partitions}(\.0)?$", metrics, re.M)
+            stored = list(storage.get_l_events().find(app_id=1))
+            assert len(stored) == 46 and len({e.event_id for e in stored}) == 46
+            wal = _mod(pkg, "data.wal")
+            wal_dir = str(tmp_path / f"{pkg}-{partitions}" / "wal")
+            assert wal.partition_count(wal_dir) == partitions
+            assert sum(map(wal.read_checkpoint, wal.partition_dirs(wal_dir))) == 46
+        assert statuses[(PACKAGES[0], partitions)] == statuses[(PACKAGES[1], partitions)]
+    assert statuses[(PACKAGES[1], 1)] == ([201] * 3 + [400] + [201] * 42, 201)
+
+    # a stopped pipeline refuses with 429 + Retry-After, never a hang
+    _wal_store(PACKAGES[1], tmp_path / "stopped", monkeypatch)
+    es = _mod(PACKAGES[1], "data.api.eventserver")
+    http = _mod(PACKAGES[1], "utils.http")
+    service = es.EventService(ingest_mode="wal")
+    service.shutdown_ingest()
+    svc = http.ServiceThread(http.make_server(service.router, "127.0.0.1", 0, "t")).start()
+    try:
+        r = requests.post(f"http://127.0.0.1:{svc.port}/events.json",
+                          params={"accessKey": KEY}, json=rate("u1", "i1", 3, 1), timeout=30)
+    finally:
+        svc.stop()
+    assert r.status_code == 429 and int(r.headers["Retry-After"]) >= 1
+
+    # the command line: `eventserver --ingest-mode wal --wal-partitions 2`
+    basedir = tmp_path / "cli"
+    _wal_store(PACKAGES[1], basedir, monkeypatch)
+    _mod(PACKAGES[1], "data.storage").reset()
+    env = dict(os.environ, PIO_FS_BASEDIR=str(basedir),
+               PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "predictionio_tpu_torch.tools.cli", "eventserver",
+         "--ip", "127.0.0.1", "--port", "0", "--ingest-mode", "wal",
+         "--wal-partitions", "2"],
+        env=env, stdout=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert "ingest=wal" in line and "wal-partitions=2" in line, line
+        url = re.search(r"http://[\d.]+:\d+", line).group(0)
+        r = requests.post(f"{url}/batch/events.json", params={"accessKey": KEY},
+                          json=body[:10], timeout=30)
+        assert [x["status"] for x in r.json()] == [201] * 3 + [400] + [201] * 6
+    finally:
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=60) == 0
+    storage = _mod(PACKAGES[1], "data.storage")
+    storage.reset()
+    assert len(list(storage.get_l_events().find(app_id=1))) == 9
+    storage.reset()
+    _mod(PACKAGES[0], "data.storage").reset()

@@ -327,17 +327,49 @@ def test_remote_backends_raise_and_never_fall_back(stores, tmp_path, monkeypatch
 
 
 @pytest.mark.parametrize("mode", ["use", "refresh"])
-def test_snapshot_modes_raise(stores, tmp_path, monkeypatch, mode):
-    stores("sqlite", "predictionio_tpu_torch", str(tmp_path))
-    _write_store("predictionio_tpu_torch")
-    store = mods("predictionio_tpu_torch")[3]
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        store.PEventStore.dataset("Cross", snapshot_mode=mode)
+def test_snapshot_modes_equal_the_reference(stores, tmp_path, monkeypatch, caplog, mode):
+    """``PEventStore.dataset`` served from a training snapshot: both
+    packages read one sqlite store, each through its own snapshot
+    directory, and answer alike -- the first read (the snapshot built),
+    and after a new event (``use`` replays the stale spill, ``refresh``
+    appends the event), by argument and by ``PIO_SNAPSHOT_MODE``. A
+    failing snapshot layer degrades to the live scan with a warning, as
+    the reference's does."""
+    stores("sqlite", "predictionio_tpu", str(tmp_path))
+    _write_store("predictionio_tpu")
+
+    def read(pkg, **kwargs):
+        ds = mods(pkg)[3].PEventStore.dataset(
+            "Cross", event_names=["rate", "buy"], target_entity_type="item",
+            snapshot_dir=str(tmp_path / f"snap-{pkg}"), **kwargs)
+        return [ds.entity_id_vocab, ds.target_entity_id_vocab, ds.event_name_vocab,
+                ds.entity_ids.tolist(), ds.target_entity_ids.tolist(),
+                ds.event_names.tolist(), ds.event_times.tolist(),
+                np.nan_to_num(ds.ratings, nan=-1).tolist()]
+
+    first = [read(pkg, snapshot_mode=mode) for pkg in PACKAGES]
+    assert first[1] == first[0] and len(first[0][3]) == 8
+    for pkg in PACKAGES:
+        assert any(n.startswith("gen-") for _, dirs, _ in os.walk(tmp_path / f"snap-{pkg}")
+                   for n in dirs)
+    _, _, event_mod, _ = mods("predictionio_tpu")
+    storage = mods("predictionio_tpu")[0]
+    storage.get_l_events().insert(event_mod.Event(
+        event="rate", entity_type="user", entity_id="u9", target_entity_type="item",
+        target_entity_id="i9", properties=event_mod.DataMap({"rating": 2}),
+        event_time=dt.datetime.now(dt.timezone.utc) - dt.timedelta(seconds=1)), 1)
     monkeypatch.setenv("PIO_SNAPSHOT_MODE", mode)
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        store.PEventStore.dataset("Cross", event_names=["rate"])
+    second = [read(pkg) for pkg in PACKAGES]
+    assert second[1] == second[0]
+    assert len(second[0][3]) == (8 if mode == "use" else 9)
+    # a broken snapshot layer: the live scan answers, with a warning
+    snapshot = importlib.import_module("predictionio_tpu_torch.data.snapshot")
+    monkeypatch.setattr(snapshot.SnapshotStore, "ensure",
+                        lambda *a, **k: (_ for _ in ()).throw(OSError("disk gone")))
+    degraded = read("predictionio_tpu_torch")
+    assert "falling back to the live scan" in caplog.text
     monkeypatch.setenv("PIO_SNAPSHOT_MODE", "off")
-    assert len(store.PEventStore.dataset("Cross", event_names=["rate"])) == 4
+    assert degraded == read("predictionio_tpu_torch") and len(degraded[3]) == 9
 
 
 def test_fast_scan_failure_falls_back_to_the_row_path(stores, tmp_path, monkeypatch, caplog):
