@@ -13,7 +13,9 @@ script exits non-zero and prints no result):
    (one ``nvcc`` each, started together) and reports ptxas's summary.
 3. check   -- kernel B2 (``mips_topk.cu``) against its plain torch twin
    on the card, at the serving path's shapes (1,000,000 items x rank 16,
-   512-item tiles, R=16, batches of 8, 16 and 256) plus small cases:
+   512-item tiles, R=16, batches of 8, 16 and 256, and the micro-batcher's
+   buckets of 1, 4, 64 and 128 queries as the search hands them to B2:
+   padded with zero rows to a multiple of 8) plus small cases:
    ties, padding, a ragged catalog; ranks 5, 17, 33 at tiles of 100 and
    1,000 items; exact integer scores with ties within and across the
    kernel's 512-column sub-tiles of an 8,192-item tile; an all-equal
@@ -47,7 +49,32 @@ script exits non-zero and prints no result):
    queries) and a 256-user ``batch_predict``. Launch counts are zeroed
    just before and read just after. Checks: every kernel of the path
    launched, batch_predict equals per-query predict, and recall@10 of
-   the served lists against the exact f32 scan is at least 0.99.
+   the served lists against the exact f32 scan is at least 0.99. The
+   deploy micro-batches (the reference's default): each of these
+   sequential queries is a flush of one.
+   serve_fabric -- serve's saved model under the reference's serving A/B
+   traffic (32 closed-loop keep-alive clients, 960 user queries drawn
+   from ``--seed``, 2% cold users, 24 with a blackList), through four
+   deploys in turn: (b) unbatched (``max_batch_size=1``), one client
+   first: every other answer must equal its bytes; (a) the default
+   micro-batched deploy: B2 at most once per flushed batch (launches at
+   most ``pio_serving_batch_flush_total``, above 0, fewer than the
+   known-user queries), then one client with every query traced, for the
+   span breakdown of a round trip (``query.parse``, ``batch.queue_wait``,
+   ``batch.execute``, ``query.respond``); (c) two ``SO_REUSEPORT``
+   frontend processes before the scorer, async dispatch: B2 in the
+   scorer, at most 2 wakeups per request; (d) the sharded fabric, two
+   scorer shard processes on cuda behind two frontends, on registry
+   version 1 (the model with two per-shard blobs), then ``POST
+   /models/swap`` to version 2 (48 queried users' rows changed): every
+   shard launched B2 (read from its control port's ``/metrics``), holds
+   a CUDA context (its pid among ``nvidia-smi --query-compute-apps``
+   where that lists this process, and CUDA initialised in its
+   ``pio_build_info``), stamps ``x-pio-model-version: 2`` after the
+   swap, and version 2's answers equal an unbatched server's on version
+   2. No answer is a 5xx. Each deploy prints queries/s, p50 and p99, the
+   batch sizes and flush reasons, and its B2 launches, each zeroed just
+   before its traffic and read just after.
 6. train   -- the training path at full width: the template's engine.json
    (rank 16, 10 iterations, lambda 0.1, seed 3, f32, explicit) with
    ``maxEventsPerUser`` 256 on 138,000 users x 27,000 items x 20,000,000
@@ -155,8 +182,10 @@ script exits non-zero and prints no result):
    NCFAlgorithm.train on cuda, epochs cut 5 -> 1. Checks: the step count,
    no NaN, the mean loss of the last 100 steps below the first 100's,
    and fresh pairs of the data's recipe scoring above uniform ones.
-16. serve_ncf -- that model saved, deployed through the ``deploy`` code
-   path on cuda and queried over HTTP (known users, blackList,
+16. serve_ncf -- that model saved, deployed unbatched
+   (``max_batch_size=1``: as in the reference, the micro-batched NCF path
+   scores through the plain batch scorer, so only predict reaches B3)
+   through the ``deploy`` code path on cuda and queried over HTTP (known users, blackList,
    unseenOnly=false, num 20, a cold user) and by a 256-user
    ``batch_predict``. B3 launches counted from 0 before the queries must
    equal the known-user queries; every served list and every batch
@@ -276,6 +305,20 @@ MIPS_WIDE_BATCH, MIPS_WIDE_QUERIES = 256, 64
 #: a per-tile top-R past B2's tensor-core instance (R > 64: the SIMT
 #: passes instance), timed at the serving catalog's B=256
 MIPS_PASSES_TOPK = 128
+#: the micro-batcher's bucket ladder (workflow/microbatch.py): a flushed
+#: batch of b queries pads to the next bucket, and RetrievalIndex.search
+#: pads that to a multiple of 8 rows with zero queries, the rows B2 sees;
+#: 16 is BATCHES' B = 16
+BATCH_BUCKETS = (1, 4, 64, 128)
+
+#: serve_fabric: the reference's serving A/B traffic
+#: (predictionio_tpu/tools/serving_bench.py:1037-1044): 32 closed-loop
+#: keep-alive clients, 960 {"user": u, "num": 10} queries over users drawn
+#: from the seed, about 2% cold users and a few blackList queries; one
+#: client for the span breakdown (at most the tracer's 128 recent traces); version 2 of the fabric's registry
+#: changes FABRIC_SWAP_USERS users' rows
+FABRIC_CLIENTS, FABRIC_QUERIES, FABRIC_COLD, FABRIC_BLACKLIST = 32, 960, 19, 24
+FABRIC_TRACE_QUERIES, FABRIC_SWAP_USERS, FABRIC_SHARDS, FABRIC_WORKERS = 100, 48, 2, 2
 
 #: the training configuration: the template's engine.json (rank 16, 10
 #: iterations, lambda 0.1, seed 3, f32 factors, explicit) on the bench's
@@ -664,6 +707,21 @@ def phase_check_and_time(rng: np.random.Generator) -> dict:
             shapes.append(row)
         del args
         torch.cuda.empty_cache()
+    for bucket in BATCH_BUCKETS:
+        # a flushed batch as the serving path hands it to B2: ``bucket``
+        # queries, then RetrievalIndex.search's zero rows up to a multiple
+        # of 8 (a generator of its own: the later phases keep their data)
+        rows = -(-bucket // 8) * 8
+        queries = np.zeros((rows, RANK), np.float32)
+        queries[:bucket] = np.random.default_rng([7, bucket]).standard_normal((bucket, RANK))
+        args = stage1_inputs(factors, queries, BLOCK_ITEMS)
+        err = compare_stage1(args, BLOCK_TOPK, NUM_ITEMS, exact=False)
+        worst = max(worst, err)
+        row = {**time_stage1(args, BLOCK_TOPK, NUM_ITEMS), "bucket": bucket, "max_abs_err": err}
+        emit({"phase": "time", **row})
+        shapes.append(row)
+        del args
+        torch.cuda.empty_cache()
     wide = []
     for rank, block_items in MIPS_WIDE:
         # a generator of their own: the later phases keep the data they had
@@ -843,6 +901,7 @@ def phase_serve(rng: np.random.Generator, workdir: str) -> dict:
         conn.close()
         server.shutdown()
         server.server_close()
+        service.close()
         thread.join(timeout=30)
     if thread.is_alive():
         raise AssertionError("query server thread did not stop")
@@ -876,6 +935,364 @@ def phase_serve(rng: np.random.Generator, workdir: str) -> dict:
         "identical_to_scan": identical,
     }
     emit({"phase": "serve", **result})
+    return result
+
+
+# --------------------------------------------------------------------------
+# the serving fabric: the micro-batcher, the frontend tier, scorer shards
+# --------------------------------------------------------------------------
+
+
+def fabric_traffic(rng: np.random.Generator) -> list[dict]:
+    """The serving A/B's queries: FABRIC_QUERIES over users drawn from
+    ``rng``, FABRIC_COLD of them cold users and FABRIC_BLACKLIST known
+    users with a 3-item blackList."""
+    queries = [{"user": f"u{u}", "num": 10} for u in rng.integers(0, NUM_USERS, FABRIC_QUERIES)]
+    picks = rng.permutation(FABRIC_QUERIES)
+    for j in picks[:FABRIC_COLD]:
+        queries[j] = {"user": f"cold-{j}", "num": 10}
+    for j in picks[FABRIC_COLD:FABRIC_COLD + FABRIC_BLACKLIST]:
+        queries[j]["blackList"] = [f"i{i}" for i in rng.integers(0, NUM_ITEMS, 3)]
+    return queries
+
+
+def drive(port: int, queries: list[dict], clients: int) -> dict:
+    """``clients`` closed-loop keep-alive clients released together,
+    client k posting queries k, k + clients, ... in turn: each answer's
+    body bytes and ``x-pio-model-version``, queries/s, and the round
+    trips' p50 and p99 in ms (host clock). Raises unless every answer is
+    a 200 (a 5xx among them is named)."""
+    answers = [None] * len(queries)
+    errors = []
+    barrier = threading.Barrier(clients + 1)
+
+    def client(k: int) -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            barrier.wait(timeout=120)
+            for j in range(k, len(queries), clients):
+                t0 = time.perf_counter()
+                conn.request("POST", "/queries.json", body=json.dumps(queries[j]).encode(),
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                body = resp.read()
+                answers[j] = (resp.status, body, resp.getheader("x-pio-model-version"),
+                              (time.perf_counter() - t0) * 1e3)
+        except Exception as exc:  # raised below, with the others
+            errors.append(repr(exc))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True) for k in range(clients)]
+    for t in threads:
+        t.start()
+    barrier.wait(timeout=120)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    seconds = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads) or any(a is None for a in answers):
+        raise AssertionError(f"{len(errors)} clients failed: {errors[:3]}")
+    bad = [(q, a[0], a[1][:200]) for q, a in zip(queries, answers) if a[0] != 200]
+    if bad:
+        raise AssertionError(f"{len(bad)} answers not 200, "
+                             f"{sum(b[1] >= 500 for b in bad)} of them 5xx: {bad[:3]}")
+    ms = [a[3] for a in answers]
+    return {"bodies": [a[1] for a in answers], "versions": [a[2] for a in answers],
+            "ms": ms, "seconds": seconds, "queries_per_s": len(queries) / seconds,
+            "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99))}
+
+
+def load_summary(run: dict) -> dict:
+    return {k: run[k] for k in ("queries_per_s", "p50_ms", "p99_ms", "seconds")}
+
+
+def same_bodies(got: dict, want: dict, what: str) -> None:
+    differ = [j for j, (a, b) in enumerate(zip(got["bodies"], want["bodies"])) if a != b]
+    if differ:
+        raise AssertionError(f"{what}: {len(differ)} of {len(got['bodies'])} bodies "
+                             f"differ from the sequential unbatched server's, first at query "
+                             f"{differ[0]}")
+
+
+def scrape(port: int, path: str = "/metrics") -> dict:
+    """``{series: value}`` of a Prometheus ``GET /metrics`` (a series is
+    the name with its labels)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        text = resp.read().decode()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        raise AssertionError(f"GET {path} answered {resp.status}")
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            series, value = line.rsplit(" ", 1)
+            out[series] = float(value)
+    return out
+
+
+def batch_stats(metrics: dict) -> dict:
+    """Flushes by closing reason, and the real (unpadded) batch size's
+    mean and largest, from ``pio_serving_batch_size`` (the largest as
+    the upper bound of the histogram bucket that holds it)."""
+    reasons = {k.split('reason="', 1)[1].split('"', 1)[0]: v for k, v in metrics.items()
+               if k.startswith("pio_serving_batch_flush_total{")}
+    count = metrics.get("pio_serving_batch_size_count", 0.0)
+    total = metrics.get("pio_serving_batch_size_sum", 0.0)
+    holding = sorted(float(k.split('le="', 1)[1].split('"', 1)[0]) for k, v in metrics.items()
+                     if k.startswith("pio_serving_batch_size_bucket{") and count and v >= count)
+    return {"flushes": sum(reasons.values()), "flush_reasons": reasons,
+            "batch_size_mean": total / count if count else None,
+            "batch_size_max_at_most": holding[0] if holding else None}
+
+
+def span_breakdown(port: int, run: dict) -> dict:
+    """The median ms of each span of the last ``len(run["ms"])`` query
+    traces (every query traced), beside the client's round trip: what a
+    round trip spends outside the root span is the HTTP stack's."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("GET", f"/traces.json?op=queries.json&limit={len(run['ms'])}")
+        traces = json.loads(conn.getresponse().read())["recent"]
+    finally:
+        conn.close()
+    if len(traces) != len(run["ms"]):
+        raise AssertionError(f"{len(traces)} query traces for {len(run['ms'])} queries")
+    per_op: dict = {}
+    for trace in traces:
+        spans: dict = {}
+        for span in trace["spans"]:
+            spans[span["op"]] = spans.get(span["op"], 0.0) + span["durationMs"]
+        for op, ms in spans.items():
+            per_op.setdefault(op, []).append(ms)
+    medians = {op: statistics.median(v) for op, v in per_op.items()}
+    root = medians.get("POST /queries.json")
+    round_trip = statistics.median(run["ms"])
+    return {"traces": len(traces), "round_trip_ms_p50": round_trip, "span_ms_p50": medians,
+            "outside_root_ms": None if root is None else round_trip - root}
+
+
+@contextlib.contextmanager
+def serving(server, service):
+    """``build_query_server``'s pair, served in a thread for the block;
+    then the listener stops and the batcher drains."""
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server.server_address[1]
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("query server thread did not stop")
+
+
+def compute_app_pids() -> set:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return {int(x) for x in out.stdout.split() if x.strip().isdigit()}
+
+
+def phase_serve_fabric(rng: np.random.Generator, workdir: str) -> dict:
+    """serve's saved model (138,000 x 1,000,000 x rank 16, mips) under the
+    reference's serving A/B traffic, through four deploys in turn:
+
+    (b) unbatched (``max_batch_size=1``): one client first, whose answers
+        every other deploy is held to byte for byte, then 32 clients;
+    (a) the default deploy (the micro-batcher: 64 queries, 2 ms, buckets
+        1/4/16/64/128): 32 clients; B2 at most once per flushed batch and
+        fewer times than the known-user queries; then one client with
+        every query traced, for the span breakdown of a round trip;
+    (c) ``frontend_workers=2`` with async dispatch: B2 in the scorer,
+        at most 2 wakeups per request;
+    (d) the sharded fabric (2 scorer shard processes on cuda, 2
+        frontends) on registry version 1 (the same model, with 2
+        per-shard blobs), then ``POST /models/swap`` to version 2
+        (FABRIC_SWAP_USERS of the queried users' rows changed): every
+        shard launches B2 (its control face's ``/metrics``), holds a CUDA
+        context, and stamps version 2; version 2's answers equal an
+        unbatched single-process server's on version 2.
+    Launch counts are zeroed just before each deploy's traffic and read
+    just after it."""
+    import dataclasses as _dc
+
+    from predictionio_tpu_torch.controller.engine import serialize_model
+    from predictionio_tpu_torch.models.recommendation import ALSAlgorithm, load_model
+    from predictionio_tpu_torch.online.registry import ModelRegistry
+    from predictionio_tpu_torch.ops import mips
+    from predictionio_tpu_torch.parallel.als import ALSModel
+    from predictionio_tpu_torch.serving.procserver import FrontendConfig
+    from predictionio_tpu_torch.serving.shardmap import shard_of
+    from predictionio_tpu_torch.tools.cli import build_query_server
+    from predictionio_tpu_torch.workflow.create_server import (
+        create_multiproc_query_server,
+        create_sharded_query_server,
+    )
+    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+
+    t_phase = time.perf_counter()
+    model_dir = os.path.join(workdir, "model")
+    engine_json = os.path.join(workdir, "engine.json")
+    queries = fabric_traffic(rng)
+    known = [q for q in queries if not q["user"].startswith("cold-")]
+    result = {"users": NUM_USERS, "items": NUM_ITEMS, "rank": RANK, "clients": FABRIC_CLIENTS,
+              "queries": len(queries), "known_user_queries": len(known)}
+
+    # (b) the unbatched deploy: the sequential answers, then the load
+    server, service = build_query_server(engine_json, model_dir, port=0, device="cuda",
+                                         batching=unbatched())
+    with serving(server, service) as port:
+        reference = drive(port, queries, 1)
+        mips.mips_block_topk.launches = 0
+        load = drive(port, queries, FABRIC_CLIENTS)
+        launches = mips.mips_block_topk.launches
+        one = drive(port, queries[:FABRIC_TRACE_QUERIES], 1)
+    same_bodies(load, reference, "unbatched, 32 clients")
+    result["unbatched"] = {**load_summary(load), "b2_launches": launches,
+                           "sequential_p50_ms": reference["p50_ms"],
+                           "one_client_p50_ms": one["p50_ms"]}
+
+    # (a) the default deploy: the micro-batcher
+    server, service = build_query_server(engine_json, model_dir, port=0, device="cuda")
+    if not service.batching.enabled:
+        raise AssertionError("the default deploy does not batch")
+    with serving(server, service) as port:
+        mips.mips_block_topk.launches = 0
+        load = drive(port, queries, FABRIC_CLIENTS)
+        launches = mips.mips_block_topk.launches
+        stats = batch_stats(scrape(port))
+        service.router.tracer.sample = 1.0   # every query of the next run traced
+        one = drive(port, queries[:FABRIC_TRACE_QUERIES], 1)
+        spans = span_breakdown(port, one)
+    same_bodies(load, reference, "batched, 32 clients")
+    same_bodies(one, {"bodies": reference["bodies"][:FABRIC_TRACE_QUERIES]}, "batched, 1 client")
+    if not 0 < launches <= stats["flushes"] or launches >= len(known):
+        raise AssertionError(f"batched: {launches} B2 launches for {stats['flushes']} flushes "
+                             f"and {len(known)} known-user queries")
+    result["batched"] = {**load_summary(load), **stats, "b2_launches": launches,
+                         "one_client_p50_ms": one["p50_ms"], "one_client_spans": spans}
+
+    # (c) the multi-process tier: two SO_REUSEPORT frontends, async dispatch
+    handle, service = create_multiproc_query_server(
+        load_engine_variant(engine_json), "127.0.0.1", 0, model_path=model_dir, device="cuda",
+        frontend=FrontendConfig(workers=FABRIC_WORKERS, dispatch="async"))
+    try:
+        handle.start()
+        mips.mips_block_topk.launches = 0
+        load = drive(handle.port, queries, FABRIC_CLIENTS)
+        launches = mips.mips_block_topk.launches
+        metrics = scrape(handle.port)
+    finally:
+        handle.stop()
+        service.close()
+    same_bodies(load, reference, "frontend workers")
+    wakeups = metrics.get("pio_scorer_wakeups_per_request")
+    if launches < 1 or wakeups is None or not wakeups <= 2.0:
+        raise AssertionError(f"frontend workers: {launches} B2 launches in the scorer, "
+                             f"{wakeups} wakeups per request (at most 2 under async dispatch)")
+    result["multiproc"] = {**load_summary(load), **batch_stats(metrics), "b2_launches": launches,
+                           "workers": FABRIC_WORKERS, "dispatch": "async",
+                           "wakeups_per_request": wakeups,
+                           "dispatch_threads": metrics.get("pio_scorer_dispatch_threads")}
+
+    # (d) the sharded fabric on registry versions 1 and 2
+    with fresh_store(workdir, "fabric_store"):
+        variant = load_engine_variant(engine_json)
+        template = variant.template
+        algorithm = ALSAlgorithm(variant.engine_params.algorithm_params_list[0][1], device="cuda")
+        base = load_model(model_dir)
+        factors = base.als.user_factors.copy()
+        changed = rng.choice(sorted({base.user_index[q["user"]] for q in known}),
+                             size=FABRIC_SWAP_USERS, replace=False)
+        factors[changed] = rng.standard_normal((FABRIC_SWAP_USERS, RANK)).astype(np.float32)
+        second = _dc.replace(base, als=ALSModel(user_factors=factors,
+                                                 item_factors=base.als.item_factors))
+        registry = ModelRegistry.for_variant(variant)
+        t0 = time.perf_counter()
+        for model in (base, second):
+            registry.publish(
+                serialize_model(template, model),
+                meta={"source": "chip_smoke", "engine_params": variant.engine_params.to_json_obj()},
+                shard_blobs=[serialize_model(template, algorithm.shard_model(model, k, FABRIC_SHARDS))
+                             for k in range(FABRIC_SHARDS)],
+            )
+        publish_s = time.perf_counter() - t0
+        del base, second, factors
+        v1 = registry.get(1)
+        blob_bytes = {"full": v1.manifest["blob_bytes"],
+                      "shards": [b["bytes"] for b in v1.manifest["shards"]["blobs"]]}
+        fabric = create_sharded_query_server(
+            variant, "127.0.0.1", 0, scorer_shards=FABRIC_SHARDS, model_version=1,
+            device="cuda", frontend=FrontendConfig(workers=FABRIC_WORKERS, spawn_timeout_s=300.0))
+        t0 = time.perf_counter()
+        fabric.start()
+        try:
+            start_s = time.perf_counter() - t0
+            ports = [fabric._shard_port(k) for k in range(FABRIC_SHARDS)]
+            pids = [fabric._shards[k].proc.pid for k in range(FABRIC_SHARDS)]
+            b2 = 'pio_kernel_launches_total{kernel="mips_block_topk"}'
+            before = [scrape(p).get(b2, 0.0) for p in ports]
+            load = drive(fabric.port, queries, FABRIC_CLIENTS)
+            shard_metrics = [scrape(p) for p in ports]
+            shard_launches = [m.get(b2, 0.0) - b for m, b in zip(shard_metrics, before)]
+            listed = compute_app_pids()
+            t0 = time.perf_counter()
+            conn = http.client.HTTPConnection("127.0.0.1", fabric.port, timeout=300)
+            try:
+                conn.request("POST", "/models/swap", body=b"{}",
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                swap = json.loads(resp.read())
+            finally:
+                conn.close()
+            swap_s = time.perf_counter() - t0
+            load2 = drive(fabric.port, queries, FABRIC_CLIENTS)
+        finally:
+            fabric.stop()
+        server, service = build_query_server(engine_json, None, model_version=2, port=0,
+                                             device="cuda", batching=unbatched())
+        with serving(server, service) as port:
+            reference2 = drive(port, queries, 1)
+    same_bodies(load, reference, "sharded fabric, version 1")
+    same_bodies(load2, reference2, "sharded fabric, version 2")
+    owners = {shard_of(q["user"], FABRIC_SHARDS) for q in known}
+    if set(load["versions"]) != {"1"} or set(load2["versions"]) != {"2"} or len(owners) < 2:
+        raise AssertionError(f"fabric versions {set(load['versions'])} then "
+                             f"{set(load2['versions'])} over shards {owners}")
+    if resp.status != 200 or [s.get("modelVersion") for s in swap.get("shards", [])] != [2, 2]:
+        raise AssertionError(f"swap answered {resp.status}: {swap}")
+    if min(shard_launches) < 1:
+        raise AssertionError(f"shard B2 launches {shard_launches}: every shard must launch B2")
+    on_cuda = [any(k.startswith("pio_build_info") and 'backend="cuda"' in k for k in m)
+               for m in shard_metrics]
+    # nvidia-smi lists compute apps by pid; where it sees this process's
+    # pid namespace (this process holds a context too), every shard's pid
+    # must be listed
+    sees_pids = os.getpid() in listed
+    if not all(on_cuda) or (sees_pids and not set(pids) <= listed):
+        raise AssertionError(f"shard pids {pids}, nvidia-smi compute apps {sorted(listed)}, "
+                             f"CUDA initialised in each shard: {on_cuda}")
+    result["sharded"] = {
+        **load_summary(load), "shards": FABRIC_SHARDS, "workers": FABRIC_WORKERS,
+        "start_s": start_s, "publish_s": publish_s, "blob_bytes": blob_bytes,
+        "b2_launches": shard_launches,
+        "shard_batches": [batch_stats(m) for m in shard_metrics],
+        "shard_pids": pids, "nvidia_smi_compute_pids": sorted(listed),
+        "nvidia_smi_sees_pids": sees_pids, "shard_cuda_initialised": on_cuda,
+        "swap_s": swap_s, "swapped_versions": [s["modelVersion"] for s in swap["shards"]],
+        "after_swap": load_summary(load2), "changed_users": FABRIC_SWAP_USERS,
+        "changed_answers": sum(a != b for a, b in zip(reference["bodies"], reference2["bodies"])),
+    }
+    result["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "serve_fabric", **result})
     return result
 
 
@@ -1383,17 +1800,30 @@ def small_events(rng: np.random.Generator, path: str) -> tuple[int, str]:
     return n, f"u{users[0]}"
 
 
+def unbatched():
+    """The unbatched deploy (``max_batch_size=1``: one ``predict`` per
+    request). The NCF deploys take it: with batching on, the reference's
+    ``NCFAlgorithm.batch_predict`` scores through its plain batch scorer
+    and never reaches its Pallas scorer (its ``models/ncf/kernel.py:158-
+    169``), and the port's does the same, so only this path launches B3."""
+    from predictionio_tpu_torch.workflow.microbatch import BatchConfig
+
+    return BatchConfig(max_batch_size=1)
+
+
 def serve_model(engine_json: str, model_dir: str | None, queries: list[dict],
-                times: list | None = None):
+                times: list | None = None, batching=None):
     """Deploy ``model_dir`` (None: the latest COMPLETED engine instance of
     the variant, from the store) through the ``deploy`` code path on cuda
     and POST each query over one kept-alive connection; returns
     ``(responses, deployed model, deploy seconds)``; each round trip's
-    ms goes to ``times`` when given."""
+    ms goes to ``times`` when given. ``batching`` is the deploy's
+    ``BatchConfig`` (default: the micro-batcher's defaults)."""
     from predictionio_tpu_torch.tools.cli import build_query_server
 
     t0 = time.perf_counter()
-    server, service = build_query_server(engine_json, model_dir, port=0, device="cuda")
+    server, service = build_query_server(engine_json, model_dir, port=0, device="cuda",
+                                         batching=batching)
     deploy_s = time.perf_counter() - t0
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -1409,6 +1839,7 @@ def serve_model(engine_json: str, model_dir: str | None, queries: list[dict],
         conn.close()
         server.shutdown()
         server.server_close()
+        service.close()
         thread.join(timeout=30)
     if thread.is_alive():
         raise AssertionError("query server thread did not stop")
@@ -2014,6 +2445,7 @@ def phase_follow_path(rng: np.random.Generator, repo: str, workdir: str) -> dict
             qconn.close()
             server.shutdown()
             server.server_close()
+            service.close()
             thread.join(timeout=30)
             events.stop()
         result.update(b1_launches=als_gram.gram_rhs.launches,
@@ -2366,7 +2798,8 @@ def phase_serve_ncf(rng: np.random.Generator, trained: dict, repo: str, workdir:
     batch = [(qid, {"user": f"u{u}", "num": 10}) for qid, u in enumerate(picked[10:])]
 
     t0 = time.perf_counter()
-    server, service = build_query_server(engine_json, model_dir, port=0, device="cuda")
+    server, service = build_query_server(engine_json, model_dir, port=0, device="cuda",
+                                         batching=unbatched())
     deploy_s = time.perf_counter() - t0
     algo, deployed = service.algorithms[0], service.models[0]
     if not algo.use_kernel:
@@ -2390,6 +2823,7 @@ def phase_serve_ncf(rng: np.random.Generator, trained: dict, repo: str, workdir:
         conn.close()
         server.shutdown()
         server.server_close()
+        service.close()
         thread.join(timeout=30)
     if thread.is_alive():
         raise AssertionError("query server thread did not stop")
@@ -2487,7 +2921,8 @@ def serve_ncf_width(rng: np.random.Generator, seed: int, repo: str, workdir: str
     picked = rng.choice(NCF_WIDE_USERS, size=NCF_WIDE_QUERIES, replace=False)
     queries = [{"user": f"u{u}", "num": 10} for u in picked]
     before = ncf_kernel.ncf_score_all_items.launches     # counts start here
-    served, deployed, deploy_s = serve_model(engine_json, model_dir, queries)
+    served, deployed, deploy_s = serve_model(engine_json, model_dir, queries,
+                                             batching=unbatched())
     launches = ncf_kernel.ncf_score_all_items.launches - before - 1  # less the warm-up's
     if launches != len(queries):
         raise AssertionError(f"{launches} B3 launches for {len(queries)} wide-model queries")
@@ -2527,7 +2962,8 @@ def phase_train_verb_ncf(rng: np.random.Generator, repo: str, workdir: str) -> d
                                  os.path.join(workdir, "ncf_small.json"))
         verb_s = time.perf_counter() - t0
         before = ncf_kernel.ncf_score_all_items.launches
-        served, small, _ = serve_model(variant, None, [{"user": user, "num": 5}])
+        served, small, _ = serve_model(variant, None, [{"user": user, "num": 5}],
+                                       batching=unbatched())
     launches = ncf_kernel.ncf_score_all_items.launches - before
     if len(served[0]["itemScores"]) != 5 or user not in small.user_index or launches < 2:
         raise AssertionError(f"the trained small NCF model answered {served[0]} "
@@ -3092,6 +3528,7 @@ def phase_serve_seq(rng: np.random.Generator, trained: dict, repo: str, workdir:
         conn.close()
         server.shutdown()
         server.server_close()
+        service.close()
         thread.join(timeout=30)
     if thread.is_alive():
         raise AssertionError("query server thread did not stop")
@@ -3311,6 +3748,7 @@ def main(argv: list[str] | None = None) -> int:
     stage1 = phase_check_and_time(rng)
     with tempfile.TemporaryDirectory() as workdir:
         serve = phase_serve(rng, workdir)
+        fabric = phase_serve_fabric(rng, workdir)
     trained = phase_train(rng, repo)
     b1_check = phase_check_b1(rng, trained)
     b1_time = phase_time_b1(rng, trained, b1_check)
@@ -3357,6 +3795,10 @@ def main(argv: list[str] | None = None) -> int:
         "launches": serve["launches"]["mips_block_topk"],
         "store_path_launches": store["b2_launches"],
         "follow_path_launches": follow["b2_launches"],
+        "serve_fabric_launches": {
+            deploy: fabric[deploy]["b2_launches"]
+            for deploy in ("unbatched", "batched", "multiproc", "sharded")},
+        "serve_fabric_flushes": fabric["batched"]["flushes"],
         "max_abs_err": stage1["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -3371,9 +3813,9 @@ def main(argv: list[str] | None = None) -> int:
         "shape": {k: main_shape[k] for k in ("batch", "items", "rank", "block_items",
                                              "block_topk", "instance")},
         "other_shapes": [
-            {k: s[k] for k in ("batch", "rank", "block_items", "block_topk", "instance", "ms",
-                               "ms_r1", "plain_ms", "library_pair_ms", "bound_ms", "bound_by",
-                               "search_recall_at_10") if k in s}
+            {k: s[k] for k in ("batch", "bucket", "rank", "block_items", "block_topk",
+                               "instance", "ms", "ms_r1", "plain_ms", "library_pair_ms",
+                               "bound_ms", "bound_by", "search_recall_at_10") if k in s}
             for s in stage1["shapes"] + stage1["wide_shapes"] if s is not main_shape
         ],
     }, {

@@ -15,7 +15,10 @@ What is ported so far: the ``train`` and ``deploy`` verbs
 (``tools/cli.py``) of three templates, the recommendation template (ALS,
 kernels ``csrc/als_gram.cu`` and ``csrc/mips_topk.cu``), Neural-CF
 (``csrc/ncf_score.cu``) and the sequence template (SASRec,
-``csrc/flash_attention.cu``).
+``csrc/flash_attention.cu``); the event server and the store, continuous
+learning (``online/``), and the serving fabric: the micro-batched query
+server, the multi-process frontend tier and hash-sharded scorer
+processes (``serving/``).
 """
 
 __version__ = "0.1.0"

@@ -4,10 +4,11 @@ Port of the parts of ``predictionio_tpu/controller/base.py`` that the
 train, deploy and continuous-learning paths need: ``Params``,
 ``SanityCheck``, ``DataSource`` (``read_training``, ``online_handle``),
 ``Preparator``, the ``Algorithm`` contract (train, fold-in, predict,
-batch_predict, warm_up and the wire serde) and ``Serving``; plus
-``TrainContext``, the port's small stand-in for the reference's
-``RuntimeContext`` on the train path (device, checkpoint directory,
-resume). Evaluation (``read_eval``) and model sharding are not ported.
+batch_predict, warm_up, shard_model and the wire serde) and ``Serving``
+(``serve``, ``serve_batch``); plus ``TrainContext``, the port's small
+stand-in for the reference's ``RuntimeContext`` on the train path
+(device, checkpoint directory, resume). Evaluation (``read_eval``) is
+not ported.
 """
 
 from __future__ import annotations
@@ -146,6 +147,19 @@ class Algorithm(Component, abc.ABC):
         """Called once at deploy, before the first query: build serving
         caches (device-resident tables) here."""
 
+    def shard_model(self, model, shard: int, num_shards: int):
+        """Restrict ``model`` to the user partition ``serving.shardmap.
+        shard_of(user, num_shards) == shard`` owns, returning a NEW model
+        (the swap protocol needs immutability). Item-side and other
+        replicated state must stay intact: every shard answers userless /
+        item-only queries identically, and a query routed to the owning
+        shard must be answered byte-for-byte as the unsharded model would.
+
+        Default: return the model unchanged (full replication) -- correct
+        for any algorithm, it just forgoes the memory win.
+        """
+        return model
+
     def query_from_json(self, obj: Any) -> Any:
         """Deserialize a /queries.json body. Default: pass the dict through."""
         return obj
@@ -158,3 +172,14 @@ class Algorithm(Component, abc.ABC):
 class Serving(Component, abc.ABC):
     @abc.abstractmethod
     def serve(self, query, predictions: Sequence): ...
+
+    def serve_batch(self, queries: Sequence, predictions: Sequence[Sequence]) -> list:
+        """Combine per-algorithm predictions for a whole micro-batch.
+
+        ``predictions[i]`` holds query ``i``'s per-algorithm predictions
+        (same shape ``serve`` receives). Default: loop ``serve``. Override
+        when the combination itself vectorizes; the query server falls
+        back to per-query ``serve`` if this raises, so an override only
+        needs to handle the all-good path.
+        """
+        return [self.serve(q, preds) for q, preds in zip(queries, predictions)]

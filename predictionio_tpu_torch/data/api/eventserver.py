@@ -33,8 +33,13 @@ stats, plugins and webhooks, in both ingest modes:
   ``pio_wal_*`` gauges. ``pio retrain --follow`` tails this WAL
   (``online/follower.py``).
 
-The multi-process frontends (``frontend_workers > 0``) are ROADMAP.md
-Queue A item 4 and raise ``NotImplementedError``.
+With ``frontend_workers > 0`` (``pio eventserver --frontend-workers M``)
+it runs as the reference's multi-process tier
+(``create_multiproc_event_server``, reference ``:580-726``): M
+``SO_REUSEPORT`` frontend processes (``serving/frontend.py``) parse HTTP
+and forward each request over a shared-memory ring to this process's
+router, through the sync dispatcher pool with 32 requests in flight
+(``serving/procserver.py``).
 """
 
 from __future__ import annotations
@@ -144,6 +149,7 @@ class EventService:
         tracing: bool | None = None,
         trace_sample: float | None = None,
         wal_partitions: int = 1,
+        extra_metrics_snapshots=None,
     ):
         check_ingest_mode(ingest_mode)
         self.stats_enabled = stats
@@ -154,6 +160,7 @@ class EventService:
         self.router, self.metrics = instrumented_router(
             before_scrape=self._before_scrape, tracing=tracing,
             trace_sample=trace_sample,
+            extra_snapshots=extra_metrics_snapshots,
         )
         if ingest_mode == "wal":
             self._start_ingest(IngestConfig(mode="wal", wal_partitions=wal_partitions))
@@ -572,15 +579,10 @@ class _AuthError(Exception):
         self.status = status
 
 
-def check_ingest_mode(ingest_mode: str = "sync", frontend_workers: int = 0) -> None:
-    """Refuse what the port's event server does not serve yet."""
+def check_ingest_mode(ingest_mode: str = "sync") -> None:
+    """Refuse an ingest mode the event server does not have."""
     if ingest_mode not in ("sync", "wal"):
         raise ValueError(f"ingest mode must be sync or wal, got {ingest_mode!r}")
-    if frontend_workers > 0:
-        raise NotImplementedError(
-            "--frontend-workers (the multi-process frontends) is not ported"
-            " yet: ROADMAP.md Queue A item 4; leave it at 0"
-        )
 
 
 def create_event_server(
@@ -603,6 +605,83 @@ def create_event_server(
     return ServiceThread(server, on_stop=service.shutdown_ingest)
 
 
+class MultiprocEventServerHandle:
+    """Lifecycle wrapper for the multi-process event-server tier: M
+    SO_REUSEPORT frontend workers (``ScorerBridge`` is generic over any
+    Router) feeding this process's ingest pipeline through the dispatcher
+    pool. Defined here, NOT in ``workflow/create_server`` -- that module
+    drags in the torch engine stack, which an event server must never
+    import."""
+
+    def __init__(self, bridge, service: EventService):
+        self._bridge = bridge
+        self.service = service
+
+    @property
+    def port(self) -> int | None:
+        return self._bridge.port
+
+    def stop(self) -> None:
+        """Drain frontends FIRST (no new submits can arrive once the
+        workers are gone), then drain the group-commit queues -- the
+        reverse order would strand in-flight requests on a stopped
+        pipeline's 429s mid-drain."""
+        self._bridge.stop()
+        self.service.shutdown_ingest()
+
+
+def create_multiproc_event_server(
+    host: str = "0.0.0.0",
+    port: int = DEFAULT_PORT,
+    stats: bool = False,
+    plugins: list[EventServerPlugin] | None = None,
+    ingest_mode: str = "sync",
+    tracing: bool | None = None,
+    trace_sample: float | None = None,
+    wal_partitions: int = 1,
+    frontend_config=None,
+) -> MultiprocEventServerHandle:
+    """Multi-process event server: frontends parse HTTP and forward over
+    shared-memory rings; this process runs the routes (and, in WAL mode,
+    the WAL partitions). Dispatch is the SYNC pool (``async_query=None``):
+    an ingest request legitimately parks its dispatcher thread on the
+    group-commit future, so ``max_inflight`` is the tier's
+    ingest-concurrency bound.
+
+    The returned handle is started; callers print/wait/stop."""
+    from predictionio_tpu_torch.serving.procserver import (
+        FrontendConfig,
+        ScorerBridge,
+    )
+
+    if frontend_config is None:
+        frontend_config = FrontendConfig(dispatch="sync", max_inflight=32)
+    # late-bound cell: the service's /metrics scrape merges worker
+    # snapshots, but the bridge needs the service's router first
+    bridge_cell: list = []
+
+    def worker_snapshots() -> list[dict]:
+        return bridge_cell[0].metric_snapshots() if bridge_cell else []
+
+    service = EventService(
+        stats=stats, plugins=plugins, ingest_mode=ingest_mode,
+        tracing=tracing, trace_sample=trace_sample,
+        wal_partitions=wal_partitions,
+        extra_metrics_snapshots=worker_snapshots,
+    )
+    bridge = ScorerBridge(
+        service.router, host, port, frontend_config,
+        server_name="pio-eventserver", registry=service.metrics,
+    )
+    bridge_cell.append(bridge)
+    try:
+        bridge.start()
+    except Exception:
+        service.shutdown_ingest()
+        raise
+    return MultiprocEventServerHandle(bridge, service)
+
+
 def run_event_server(
     host: str = "0.0.0.0",
     port: int = DEFAULT_PORT,
@@ -616,8 +695,45 @@ def run_event_server(
     frontend_workers: int = 0,
     wal_partitions: int = 1,
 ) -> None:
-    """Blocking entry point used by ``pio eventserver``."""
-    check_ingest_mode(ingest_mode, frontend_workers)
+    """Blocking entry point used by ``pio eventserver``; with
+    ``frontend_workers`` > 0 the multi-process tier."""
+    check_ingest_mode(ingest_mode)
+    if frontend_workers > 0:
+        if ssl_cert or ssl_key:
+            # TLS terminates in the worker processes or nowhere; the rings
+            # carry parsed frames, not TLS streams
+            raise ValueError(
+                "--frontend-workers does not support --ssl-cert/--ssl-key;"
+                " terminate TLS in front of the frontends"
+            )
+        from predictionio_tpu_torch.serving.procserver import FrontendConfig
+
+        handle = create_multiproc_event_server(
+            host=host, port=port, stats=stats, plugins=plugins,
+            ingest_mode=ingest_mode, tracing=tracing,
+            trace_sample=trace_sample, wal_partitions=wal_partitions,
+            frontend_config=FrontendConfig(
+                workers=frontend_workers, dispatch="sync", max_inflight=32,
+            ),
+        )
+        service = handle.service
+        mode = "wal" if service.ingest is not None else "sync"
+        parts = getattr(service.ingest, "partitions", 1)
+        print(
+            f"Event Server listening on http://{host}:{handle.port}"
+            f" (stats={'on' if stats else 'off'}, ingest={mode},"
+            f" wal-partitions={parts},"
+            f" frontend-workers={frontend_workers},"
+            f" plugins={len(service.plugins)})",
+            flush=True,
+        )
+        try:
+            threading.Event().wait()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            handle.stop()
+        return
     service = EventService(
         stats=stats, plugins=plugins, ingest_mode=ingest_mode,
         tracing=tracing, trace_sample=trace_sample,

@@ -6,7 +6,8 @@ training half (``RatingsData``, ``RecommendationDataSource``,
 half (``RecommendationModel``, the query side of ``ALSAlgorithm``) and
 the continuous-learning hooks (``RecommendationDataSource.online_handle``,
 ``ALSAlgorithm.fold_in``, reference ``:130``, ``:492-530``) that
-``pio retrain --follow`` (``online/loop.py``) runs.
+``pio retrain --follow`` (``online/loop.py``) runs, and the serving
+fabric's ``ALSAlgorithm.shard_model`` (reference ``:438-470``).
 
 The DataSource reads the event store (``PEventStore.dataset`` of the
 ``appName`` app, the reference's filters), or a JSON-lines events file
@@ -279,6 +280,58 @@ class ALSAlgorithm(Algorithm):
                 index.search(np.zeros((1, model.als.item_factors.shape[1]), np.float32))
 
     supports_fold_in = True
+
+    def shard_model(
+        self, model: RecommendationModel, shard: int, num_shards: int
+    ) -> RecommendationModel:
+        """Keep only the user rows ``shardmap.shard_of`` assigns to
+        ``shard`` (reference ``:438-470``); item factors, item vocab, and
+        the norm caches' inputs are replicated untouched.
+
+        Row scoring is per-row (einsum over one user's factor vector, and
+        the retrieval index is built from the item side alone), so
+        compacting the user table cannot change a kept user's scores by a
+        bit. Users filtered OUT of this shard simply miss ``user_index``
+        -- the cold-user path -- which is correct because the frontend
+        routes their queries to the owning shard. A shard's model
+        serializes like any other (``serialize_model``): that is the
+        per-shard blob of a registry version (``online/loop.py``).
+        """
+        if num_shards <= 1:
+            return model
+        from predictionio_tpu_torch.serving.shardmap import shard_of
+
+        # original row order preserved: renumbering must be a pure
+        # compaction, never a reorder
+        by_row = sorted(model.user_index.items(), key=lambda kv: kv[1])
+        kept = [
+            (uid, row) for uid, row in by_row
+            if shard_of(uid, num_shards) == shard
+        ]
+        rank = model.als.user_factors.shape[1]
+        if kept:
+            rows = np.asarray([row for _, row in kept], dtype=np.int64)
+            user_factors = np.ascontiguousarray(model.als.user_factors[rows])
+        else:
+            user_factors = np.empty((0, rank), dtype=model.als.user_factors.dtype)
+        seen = {
+            new_row: model.seen[old_row]
+            for new_row, (_, old_row) in enumerate(kept)
+            if old_row in model.seen
+        }
+        return RecommendationModel(
+            als=ALSModel(
+                user_factors=user_factors,
+                item_factors=model.als.item_factors,
+            ),
+            user_index={uid: new for new, (uid, _) in enumerate(kept)},
+            item_ids=model.item_ids,
+            item_index=model.item_index,
+            seen=seen,
+            seen_mode=model.seen_mode,
+            app_name=model.app_name,
+            event_names=model.event_names,
+        )
 
     def fold_in(self, model: RecommendationModel, delta) -> RecommendationModel | None:
         """Continuous-learning hook (``pio retrain --follow``): re-solve

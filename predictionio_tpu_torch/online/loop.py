@@ -9,9 +9,12 @@ engine instance's blob through ``deserialize_model``, and publishes
 ``run_train`` from the store, on the loop's device. NCF, which has no
 ``fold_in`` hook, escalates every window to it; SASRec's datasource
 describes no interaction scan, so its loop is refused -- as the
-reference's are. Per-shard blobs (``scorer_shards > 1``, the serving
-fabric's swap path) raise ``NotImplementedError``: ROADMAP.md Queue A
-item 4.
+reference's are. ``scorer_shards > 1`` also publishes per-shard blobs
+(``ALSAlgorithm.shard_model``, each through ``serialize_model``) for the
+serving fabric's swap path (``serving/fabric.py``): a fold-in
+re-serializes only the shards that own touched users and carries every
+other shard's bytes forward verbatim; item growth, or a full retrain,
+recomputes every shard.
 
 One iteration (:meth:`RetrainLoop.run_once`):
 
@@ -112,8 +115,10 @@ class RetrainConfig:
     #: escalation switch: False turns StalenessExceeded into a logged skip
     #: (for operators who schedule full retrains out of band)
     allow_full_retrain: bool = True
-    #: per-shard model blobs for the serving fabric: not ported (above 1
-    #: raises, ROADMAP.md Queue A item 4). 0 = full blob only.
+    #: publish per-shard model blobs (the `pio deploy --scorer-shards N`
+    #: fabric's swap path) alongside the full blob; fold-in recomputes
+    #: only the shards whose users were touched and carries the rest of
+    #: the bytes forward verbatim. 0 = full blob only.
     scorer_shards: int = 0
 
 
@@ -124,11 +129,6 @@ class RetrainLoop:
                  device=None):
         self.variant = variant
         self.config = config or RetrainConfig()
-        if self.config.scorer_shards > 1:
-            raise NotImplementedError(
-                "per-shard model blobs (scorer_shards > 1, the serving"
-                " fabric) are not ported yet: ROADMAP.md Queue A item 4"
-            )
         #: fold-ins and full retrains run here: ``cuda`` unless "cpu"
         self.device = resolve_device(device)
         self.template = variant.template
@@ -379,8 +379,13 @@ class RetrainLoop:
 
         self._test_hold()
         blob = serialize_model(self.template, new_model)
+        # shard_blobs must be derived BEFORE publish: untouched shards
+        # reuse the still-latest version's bytes verbatim
+        shard_blobs = self._shard_blobs(new_model, batch.touched_users)
         version = self.registry.publish(
-            blob, meta=self._meta("foldin", batch, snap)
+            blob,
+            meta=self._meta("foldin", batch, snap, model=new_model),
+            shard_blobs=shard_blobs,
         )
         if not self._notify_swap(version.version):
             self._count("swap_failed")
@@ -431,6 +436,7 @@ class RetrainLoop:
         version = self.registry.publish(
             record.models,
             meta=self._meta("train", batch, snap, instance_id=instance.id),
+            shard_blobs=self._shard_blobs(self.model, None),
         )
         if not self._notify_swap(version.version):
             self._count("swap_failed")
@@ -443,8 +449,9 @@ class RetrainLoop:
     # -- plumbing ------------------------------------------------------------
     def _meta(
         self, source: str, batch, snap, instance_id: str | None = None,
+        model=None,
     ) -> dict:
-        return {
+        meta = {
             "source": source,
             "instance_id": instance_id or self.instance.id,
             "engine_params": self.engine_params.to_json_obj(),
@@ -453,6 +460,64 @@ class RetrainLoop:
             "records": batch.records,
             "touched_users": len(batch.touched_users),
         }
+        if self.config.scorer_shards > 1:
+            meta["shard_item_count"] = self._item_count(
+                self.model if model is None else model
+            )
+        return meta
+
+    @staticmethod
+    def _item_count(model) -> int | None:
+        """The model's item-vocabulary size, or None when it exposes
+        none. This is the reuse guard for untouched-shard bytes: fold-in
+        freezes item factors, but it may APPEND zero rows for new items
+        (within the growth budget), and that changes every shard's
+        replicated item side."""
+        factors = getattr(model, "item_factors", None)
+        if factors is None:
+            factors = getattr(getattr(model, "als", None), "item_factors", None)
+        if factors is not None and hasattr(factors, "shape"):
+            return int(factors.shape[0])
+        items = getattr(model, "item_ids", None)
+        return None if items is None else len(items)
+
+    def _shard_blobs(self, model, touched_users) -> list[bytes] | None:
+        """Per-shard serialized blobs for ``registry.publish``. A fold-in
+        recomputes ONLY the shards owning touched users; every other
+        shard's bytes are carried forward verbatim from the still-latest
+        version (same shard count, same item vocabulary) -- the publish
+        cost of a small delta stays proportional to the delta.
+        ``touched_users=None`` recomputes everything (full retrain)."""
+        n = self.config.scorer_shards
+        if n <= 1:
+            return None
+        from predictionio_tpu_torch.serving.shardmap import shard_of
+
+        touched: set[int] | None = None
+        prev = None
+        if touched_users is not None:
+            touched = {shard_of(u, n) for u in touched_users}
+            prev = self.registry.latest()
+            if prev is not None and (
+                prev.shard_count != n
+                or prev.manifest.get("shard_item_count")
+                != self._item_count(model)
+            ):
+                prev = None
+        blobs: list[bytes] = []
+        for k in range(n):
+            if prev is not None and touched is not None and k not in touched:
+                try:
+                    blobs.append(prev.load_blob(shard=k))
+                    continue
+                except Exception:
+                    logger.warning(
+                        "could not reuse shard %d bytes from version %d;"
+                        " recomputing", k, prev.version, exc_info=True,
+                    )
+            sharded = self.algorithm.shard_model(model, k, n)
+            blobs.append(serialize_model(self.template, sharded))
+        return blobs
 
     def _advance(self, parts, snap) -> None:
         """Advance every participating partition's cursor -- each to ITS

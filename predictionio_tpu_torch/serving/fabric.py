@@ -1,0 +1,835 @@
+"""Sharded serving fabric: hash-partitioned scorer shards + supervisor.
+
+``pio deploy --scorer-shards N`` runs this instead of the single-scorer
+multi-process tier. The topology:
+
+- **N scorer shards** (``serving/shard.py``): each a full
+  ``QueryService`` restricted to its hash partition of the user factor
+  table (item-side and replicated state whole), consuming one request
+  ring per frontend worker and exposing its control surface on a
+  loopback port.
+- **M frontend workers** (``serving/frontend.py``): the unchanged
+  ``SO_REUSEPORT`` accept/parse loops, now with ``N+1`` rings each --
+  one per shard plus a CONTROL ring. A query routes by
+  ``shardmap.shard_of(user_id) % N`` to its owning shard's ring; every
+  control route rides the control ring to this supervisor.
+- **The supervisor** (this module, running in the deploy process):
+  creates every ring file and wakeup ONCE (they outlive respawns on
+  both sides), spawns and supervises both tiers, consumes the control
+  rings through an ATTACHED
+  :class:`~predictionio_tpu_torch.serving.procserver.ScorerBridge`, and fans
+  control operations out over the shards' loopback ports.
+
+**The per-shard swap-epoch protocol.** ``POST /models/swap`` resolves
+the target version ONCE (the first shard's answer pins an unversioned
+swap), then fans out serially under one lock. Version skew across shards
+is therefore bounded by a single fan-out -- one swap window -- and each
+response's ``x-pio-model-version`` header remains exact per shard
+because every shard stamps its own epoch. The last fully-resolved target
+becomes the fabric's COMMITTED version: a SIGKILLed shard is respawned
+pinned to it (``--model-version``), so a rejoining shard can never skew
+ahead of (or behind) its siblings by more than that same window.
+
+Failure isolation: a dead shard takes down only its hash partition --
+surviving shards keep answering their users byte-identically, their
+rings and processes untouched. A dead frontend is respawned onto the
+SAME ring files with a bumped ``--rid-base`` generation, so in-flight
+completions addressed to the dead generation are dropped by rid, never
+misdelivered.
+
+Port copy: ``predictionio_tpu/serving/fabric.py`` (framework-free), under
+the port's package name (so it spawns the port's ``serving.shard`` and
+``serving.frontend``), with one addition: ``device`` (default ``cuda``)
+reaches every shard process as ``--device``, so each shard scores on the
+card unless the deploy asked for the CPU. ``tests/test_torch_imports.py``
+holds it to the original, those three lines excepted.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import shutil
+import socket
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import urllib.error
+import urllib.request
+
+from predictionio_tpu_torch.serving import shmring
+from predictionio_tpu_torch.serving.procserver import FrontendConfig, ScorerBridge
+from predictionio_tpu_torch.utils.http import Request, Response, instrumented_router
+
+logger = logging.getLogger("pio.fabric")
+
+#: rid generations are (generation << _RID_GEN_SHIFT): 2**33 ids per
+#: frontend generation before aliasing, far past any drain window
+_RID_GEN_SHIFT = 33
+
+
+class _Shard:
+    def __init__(self, index: int, proc: subprocess.Popen, portfile: str):
+        self.index = index
+        self.proc = proc
+        self.portfile = portfile
+        self.port: int | None = None
+        self.dead = False
+
+
+class _Frontend:
+    def __init__(self, index: int, generation: int, proc: subprocess.Popen):
+        self.index = index
+        self.generation = generation
+        self.proc = proc
+        self.dead = False
+
+
+class ShardFabric:
+    """Deploy-side owner of the sharded serving tier. Same
+    ``start()/stop()/port`` surface as ``MultiprocServiceHandle``."""
+
+    #: consecutive failed respawns of one slot before giving up on it
+    _MAX_RESPAWN_FAILURES = 6
+
+    def __init__(
+        self,
+        variant,
+        host: str = "0.0.0.0",
+        port: int = 8000,
+        num_shards: int = 2,
+        frontend: FrontendConfig | None = None,
+        server_name: str = "pio-queryserver",
+        model_version: int | None = None,
+        instance_id: str | None = None,
+        batch_window_ms: float | None = None,
+        max_batch_size: int | None = None, device: str = "cuda",
+    ):
+        if num_shards < 2:
+            raise ValueError("the sharded fabric needs --scorer-shards >= 2")
+        self.variant = variant
+        self._host = host
+        self._requested_port = port
+        self.num_shards = num_shards
+        self.config = frontend or FrontendConfig()
+        if self.config.workers < 1:
+            raise ValueError("frontend workers must be >= 1")
+        self._server_name = server_name
+        self._requested_model_version = model_version
+        self._requested_instance_id = instance_id
+        self._batch_window_ms = batch_window_ms
+        self._max_batch_size, self._device = max_batch_size, device
+
+        self.port: int | None = None
+        self._reserve: socket.socket | None = None
+        self._dir: str | None = None
+        self._shard_req: list[shmring.Wakeup] = []
+        self._ctl_req: shmring.Wakeup | None = None
+        self._fe_cmp: list[shmring.Wakeup] = []
+        self._fe_stop: list[shmring.Wakeup] = []
+        #: frontend index -> this process's mapping of its control ring
+        self._ctl_rings: list[shmring.RingFile] = []
+        self._shards: list[_Shard] = []
+        self._frontends: list[_Frontend] = []
+        self._bridge: ScorerBridge | None = None
+        self.metrics = None
+        #: guards shard ports/versions, committed version, respawn
+        #: counters, and both process lists against the supervisor
+        self._lock = threading.Lock()
+        #: serializes swap fan-outs end-to-end -- THE skew bound: two
+        #: concurrent swaps cannot interleave shards
+        self._swap_lock = threading.Lock()
+        self._committed: int | None = None
+        self._shard_versions: dict[int, int | None] = {}
+        self._respawns = 0
+        self._fe_respawns = 0
+        self._stopping = False
+        self._stop_lock = threading.Lock()
+        self._stop_requested = threading.Event()
+        self._supervisor: threading.Thread | None = None
+
+    # -- lifecycle ----------------------------------------------------------
+    def start(self) -> "ShardFabric":
+        if not hasattr(socket, "SO_REUSEPORT"):
+            raise RuntimeError(
+                "the sharded fabric needs SO_REUSEPORT (Linux/BSD)"
+            )
+        try:
+            self._reserve = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            self._reserve.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+            self._reserve.bind((self._host, self._requested_port))
+            self.port = self._reserve.getsockname()[1]
+            self._dir = tempfile.mkdtemp(prefix="pio-fabric-")
+            self._pin_startup_version()
+            n, m = self.num_shards, self.config.workers
+            for k in range(n):
+                self._shard_req.append(
+                    shmring.Wakeup.create(self._dir, f"shard-req-{k}")
+                )
+            self._ctl_req = shmring.Wakeup.create(self._dir, "ctl-req")
+            for j in range(m):
+                self._fe_cmp.append(
+                    shmring.Wakeup.create(self._dir, f"cmp-{j}")
+                )
+                self._fe_stop.append(
+                    shmring.Wakeup.create(self._dir, f"stop-{j}")
+                )
+            # every ring file is created ONCE here and reused across
+            # respawns on either side: a surviving process's mmap must
+            # keep pointing at the live inode (RingFile.create's
+            # truncate-and-replace would orphan it)
+            for j in range(m):
+                for k in range(n):
+                    ring = shmring.RingFile.create(
+                        self._ring_path(j, k), self.config.ring_slots,
+                        self.config.slot_bytes, generation=1,
+                    )
+                    ring.close()
+                self._ctl_rings.append(
+                    shmring.RingFile.create(
+                        self._ctl_path(j), self.config.ring_slots,
+                        self.config.slot_bytes, generation=1,
+                    )
+                )
+            for k in range(n):
+                self._shards.append(self._launch_shard(k))
+            self._await_shards(self._shards)
+            for j in range(m):
+                self._frontends.append(self._launch_frontend(j, generation=1))
+            self._await_frontends(self._frontends)
+            self._start_control_bridge()
+        except BaseException:
+            self._teardown(kill=True)
+            raise
+        self._supervisor = threading.Thread(
+            target=self._supervise, name="pio-fabric-supervisor", daemon=True
+        )
+        self._supervisor.start()
+        return self
+
+    def _pin_startup_version(self) -> None:
+        """Resolve the startup epoch ONCE in the fabric so every shard
+        starts on the SAME version even if a publish lands mid-spawn --
+        the swap protocol's skew bound, applied to boot. A plain
+        instance deploy (empty registry, no pin) stays unpinned."""
+        pin = self._requested_model_version
+        if pin is None:
+            try:
+                from predictionio_tpu_torch.online.registry import ModelRegistry
+
+                latest = ModelRegistry.for_variant(self.variant).latest()
+                if latest is not None:
+                    pin = latest.version
+            except Exception:
+                logger.warning(
+                    "could not resolve a startup registry version;"
+                    " shards resolve independently", exc_info=True,
+                )
+        with self._lock:
+            self._committed = pin
+            self._shard_versions = {
+                k: pin for k in range(self.num_shards)
+            }
+        self._startup_version = pin
+
+    def _ring_path(self, frontend: int, shard: int) -> str:
+        return os.path.join(self._dir, f"fe{frontend}-shard{shard}.ring")
+
+    def _ctl_path(self, frontend: int) -> str:
+        return os.path.join(self._dir, f"fe{frontend}-ctl.ring")
+
+    def _child_env(self) -> dict:
+        env = dict(os.environ)
+        # children must resolve this package AND the engine's modules the
+        # way the deploy process does (tests put engines on sys.path)
+        env["PYTHONPATH"] = os.pathsep.join(
+            dict.fromkeys(p for p in sys.path if p)
+        )
+        return env
+
+    def _launch_shard(self, index: int) -> _Shard:
+        portfile = os.path.join(self._dir, f"shard-{index}.port")
+        try:
+            os.unlink(portfile)
+        except OSError:
+            pass
+        cmd = [
+            sys.executable, "-m", "predictionio_tpu_torch.serving.shard",
+            "--variant", self.variant.path,
+            "--shard", str(index),
+            "--num-shards", str(self.num_shards),
+            "--wake-req", self._shard_req[index].spec(),
+            "--portfile", portfile,
+            "--dispatch", self.config.dispatch,
+            "--max-inflight", str(self.config.max_inflight),
+            "--control-threads", str(self.config.control_threads),
+            "--server-name", self._server_name, "--device", self._device,
+        ]
+        for j in range(self.config.workers):
+            cmd += ["--ring", self._ring_path(j, index)]
+        for j in range(self.config.workers):
+            cmd += ["--wake-cmp", self._fe_cmp[j].spec()]
+        with self._lock:
+            pin = self._committed
+        if pin is not None:
+            cmd += ["--model-version", str(pin)]
+        elif self._requested_instance_id:
+            cmd += ["--instance-id", self._requested_instance_id]
+        if self._batch_window_ms is not None:
+            cmd += ["--batch-window-ms", str(self._batch_window_ms)]
+        if self._max_batch_size is not None:
+            cmd += ["--max-batch-size", str(self._max_batch_size)]
+        pass_fds = tuple(
+            fd for w in [self._shard_req[index], *self._fe_cmp]
+            if (fd := w.pass_fd) is not None
+        )
+        log = open(os.path.join(self._dir, f"shard-{index}.log"), "ab")
+        try:
+            proc = subprocess.Popen(
+                cmd, pass_fds=pass_fds, env=self._child_env(),
+                stdout=log, stderr=subprocess.STDOUT,
+            )
+        finally:
+            log.close()
+        logger.info(
+            "scorer shard %d/%d spawned (pid %d, pinned version %s)",
+            index, self.num_shards, proc.pid, pin,
+        )
+        return _Shard(index, proc, portfile)
+
+    def _launch_frontend(self, index: int, generation: int) -> _Frontend:
+        cmd = [
+            sys.executable, "-m", "predictionio_tpu_torch.serving.frontend",
+            "--host", self._host,
+            "--port", str(self.port),
+            "--worker", str(index),
+            "--wake-cmp", self._fe_cmp[index].spec(),
+            "--wake-stop", self._fe_stop[index].spec(),
+            "--server-name", self._server_name,
+            "--stats-flush-s", str(self.config.stats_flush_s),
+            "--rid-base", str(generation << _RID_GEN_SHIFT),
+        ]
+        for k in range(self.num_shards):
+            cmd += [
+                "--ring", self._ring_path(index, k),
+                "--wake-req", self._shard_req[k].spec(),
+            ]
+        cmd += ["--ring", self._ctl_path(index),
+                "--wake-req", self._ctl_req.spec()]
+        pass_fds = tuple(
+            fd for w in [
+                *self._shard_req, self._ctl_req,
+                self._fe_cmp[index], self._fe_stop[index],
+            ]
+            if (fd := w.pass_fd) is not None
+        )
+        log = open(os.path.join(self._dir, f"frontend-{index}.log"), "ab")
+        try:
+            proc = subprocess.Popen(
+                cmd, pass_fds=pass_fds, env=self._child_env(),
+                stdout=log, stderr=subprocess.STDOUT,
+            )
+        finally:
+            log.close()
+        logger.info(
+            "frontend worker %d spawned (pid %d, generation %d)",
+            index, proc.pid, generation,
+        )
+        return _Frontend(index, generation, proc)
+
+    def _log_tail(self, name: str, limit: int = 500) -> str:
+        try:
+            with open(os.path.join(self._dir, f"{name}.log"), "rb") as f:
+                return f.read()[-limit:].decode("utf-8", "replace")
+        except OSError:
+            return ""
+
+    def _await_shards(self, shards: list[_Shard]) -> None:
+        deadline = time.monotonic() + self.config.spawn_timeout_s
+        pending = list(shards)
+        while pending:
+            still = []
+            for s in pending:
+                if os.path.exists(s.portfile):
+                    with open(s.portfile) as f:
+                        s.port = int(f.read().strip())
+                    continue
+                if s.proc.poll() is not None:
+                    raise RuntimeError(
+                        f"scorer shard {s.index} exited"
+                        f" rc={s.proc.returncode} before READY (log:"
+                        f" {self._log_tail(f'shard-{s.index}')!r})"
+                    )
+                still.append(s)
+            pending = still
+            if pending and time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"scorer shard(s) {[s.index for s in pending]} not"
+                    f" READY within {self.config.spawn_timeout_s}s"
+                )
+            if pending:
+                time.sleep(0.02)
+
+    def _await_frontends(self, frontends: list[_Frontend]) -> None:
+        deadline = time.monotonic() + self.config.spawn_timeout_s
+        pending = list(frontends)
+        while pending:
+            pending = [
+                fe for fe in pending
+                if self._ctl_rings[fe.index].state == shmring.STATE_INIT
+            ]
+            if not pending:
+                return
+            for fe in pending:
+                if fe.proc.poll() is not None:
+                    raise RuntimeError(
+                        f"frontend worker {fe.index} exited"
+                        f" rc={fe.proc.returncode} before READY (log:"
+                        f" {self._log_tail(f'frontend-{fe.index}')!r})"
+                    )
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"frontend worker(s) {[fe.index for fe in pending]}"
+                    f" not READY within {self.config.spawn_timeout_s}s"
+                )
+            time.sleep(0.02)
+
+    def _start_control_bridge(self) -> None:
+        router, self.metrics = instrumented_router(
+            before_scrape=self._mirror, tracing=False,
+            extra_snapshots=self._frontend_snapshots,
+        )
+        router.add("GET", "/", self.handle_info)
+        router.add("POST", "/models/swap", self.handle_model_swap)
+        router.add("POST", "/models/lag", self.handle_model_lag)
+        router.add("GET", "/models.json", self.handle_models)
+        router.add("GET", "/reload", self.handle_reload)
+        router.add("POST", "/stop", self.handle_stop)
+        # control traffic only: a small sync dispatcher pool; the
+        # frontends never route queries here
+        ctl_config = FrontendConfig(
+            workers=self.config.workers, dispatch="sync",
+            max_inflight=max(4, self.config.control_threads * 2),
+        )
+        self._bridge = ScorerBridge(
+            router, "", 0, ctl_config,
+            server_name=self._server_name,
+            attach=[
+                (self._ctl_rings[j], self._ctl_req, self._fe_cmp[j])
+                for j in range(self.config.workers)
+            ],
+        )
+        self._bridge.start()
+
+    def stop(self) -> None:
+        with self._stop_lock:
+            self._stop_stopped()
+
+    def _stop_stopped(self) -> None:
+        with self._lock:
+            if self._stopping:
+                return
+            self._stopping = True
+        if self._supervisor is not None:
+            self._supervisor.join(timeout=5.0)
+        # frontends drain FIRST (they wait for in-flight shard answers),
+        # then the shards get SIGTERM with nothing left in flight
+        for wake in self._fe_stop:
+            wake.signal()
+        from predictionio_tpu_torch.serving.frontend import FORWARD_TIMEOUT_S
+
+        # snapshot under the lock: the supervisor swaps list slots on
+        # respawn, and it only just observed _stopping (or is mid-loop)
+        with self._lock:
+            frontends = list(self._frontends)
+            shards = list(self._shards)
+        deadline = time.monotonic() + FORWARD_TIMEOUT_S + 5.0
+        for fe in frontends:
+            timeout = max(deadline - time.monotonic(), 0.1)
+            try:
+                fe.proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                logger.warning(
+                    "frontend worker %d did not drain; killing", fe.index
+                )
+                fe.proc.kill()
+                try:
+                    fe.proc.wait(timeout=5.0)
+                except subprocess.TimeoutExpired:
+                    pass
+        for s in shards:
+            if s.proc.poll() is None:
+                s.proc.terminate()
+        for s in shards:
+            try:
+                s.proc.wait(timeout=15.0)
+            except subprocess.TimeoutExpired:
+                logger.warning(
+                    "scorer shard %d did not drain; killing", s.index
+                )
+                s.proc.kill()
+                try:
+                    s.proc.wait(timeout=5.0)
+                except subprocess.TimeoutExpired:
+                    pass
+        self._teardown()
+
+    def _teardown(self, kill: bool = False) -> None:
+        with self._lock:
+            self._stopping = True
+            procs = [*self._shards, *self._frontends]
+        if kill:
+            for p in procs:
+                if p.proc.poll() is None:
+                    p.proc.kill()
+            for p in procs:
+                try:
+                    p.proc.wait(timeout=5.0)
+                except subprocess.TimeoutExpired:
+                    pass
+        if self._bridge is not None:
+            self._bridge.stop()  # closes ctl rings, ctl_req, fe_cmp wakes
+            self._bridge = None
+        for wake in [*self._shard_req, *self._fe_stop]:
+            wake.close()
+        if self._reserve is not None:
+            self._reserve.close()
+            self._reserve = None
+        if self._dir is not None:
+            shutil.rmtree(self._dir, ignore_errors=True)
+
+    def wait(self) -> None:
+        """Block until ``POST /stop`` arrives (the ``pio undeploy``
+        contract)."""
+        try:
+            self._stop_requested.wait()
+        except KeyboardInterrupt:
+            pass
+
+    # -- shard HTTP fan-out --------------------------------------------------
+    def _shard_port(self, index: int) -> int | None:
+        with self._lock:
+            s = self._shards[index]
+            return None if s.dead else s.port
+
+    def _shard_call(
+        self, index: int, method: str, path: str,
+        body: dict | None = None, timeout: float = 10.0,
+    ) -> tuple[int, dict]:
+        port = self._shard_port(index)
+        if port is None:
+            return 503, {"message": f"shard {index} is down"}
+        data = None if body is None else json.dumps(body).encode("utf-8")
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", data=data, method=method,
+            headers={"Content-Type": "application/json"},
+        )
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as resp:
+                return resp.status, json.loads(resp.read() or b"{}")
+        except urllib.error.HTTPError as exc:
+            try:
+                return exc.code, json.loads(exc.read() or b"{}")
+            except ValueError:
+                return exc.code, {}
+        except Exception as exc:
+            return 503, {"message": f"shard {index} unreachable: {exc}"}
+
+    # -- control handlers ----------------------------------------------------
+    def handle_model_swap(self, request: Request) -> Response:
+        """The PER-SHARD swap-epoch protocol: resolve the target version
+        once, fan out serially under the swap lock. Skew across shards
+        is bounded by this one fan-out (the swap window); the COMMITTED
+        version -- what respawned shards pin to -- moves only here."""
+        try:
+            body = request.json() or {}
+        except json.JSONDecodeError:
+            return Response(400, {"message": "malformed JSON body"})
+        version = body.get("version")
+        if version is not None:
+            try:
+                version = int(version)
+            except (TypeError, ValueError):
+                return Response(400, {"message": f"bad version {version!r}"})
+        lag = body.get("foldinLagSeconds")
+        with self._swap_lock:
+            target = version
+            results = []
+            failures = 0
+            for k in range(self.num_shards):
+                payload: dict = {}
+                if target is not None:
+                    payload["version"] = target
+                if isinstance(lag, (int, float)):
+                    payload["foldinLagSeconds"] = lag
+                status, resp = self._shard_call(
+                    k, "POST", "/models/swap", payload
+                )
+                if status == 200:
+                    swapped = resp.get("modelVersion")
+                    if target is None and swapped is not None:
+                        # an unversioned swap resolves "latest" at the
+                        # FIRST shard; the rest of the fan-out (and any
+                        # respawn) pins that answer, so a publish racing
+                        # the fan-out cannot split the fabric
+                        target = int(swapped)
+                    results.append(
+                        {"shard": k, "status": "swapped",
+                         "modelVersion": swapped}
+                    )
+                    with self._lock:
+                        self._shard_versions[k] = swapped
+                else:
+                    failures += 1
+                    results.append(
+                        {"shard": k, "status": "error", "code": status,
+                         "message": resp.get("message")}
+                    )
+            if target is not None and failures < self.num_shards:
+                with self._lock:
+                    self._committed = target
+        if failures == self.num_shards:
+            return Response(
+                502, {"message": "swap failed on every shard",
+                      "shards": results}
+            )
+        return Response(200, {
+            "status": "swapped" if failures == 0 else "partial",
+            "modelVersion": target,
+            "shards": results,
+        })
+
+    def handle_model_lag(self, request: Request) -> Response:
+        try:
+            body = request.json() or {}
+        except json.JSONDecodeError:
+            return Response(400, {"message": "malformed JSON body"})
+        lag = body.get("foldinLagSeconds")
+        if not isinstance(lag, (int, float)):
+            return Response(400, {"message": "foldinLagSeconds required"})
+        for k in range(self.num_shards):
+            self._shard_call(k, "POST", "/models/lag", body, timeout=5.0)
+        return Response(200, {"status": "ok"})
+
+    def handle_models(self, request: Request) -> Response:
+        versions: list = []
+        for k in range(self.num_shards):
+            status, resp = self._shard_call(k, "GET", "/models.json")
+            if status == 200:
+                versions = resp.get("versions", [])
+                break
+        with self._lock:
+            committed = self._committed
+            per_shard = [
+                {"shard": k, "currentVersion": self._shard_versions.get(k)}
+                for k in range(self.num_shards)
+            ]
+        return Response(200, {
+            "currentVersion": committed,
+            "versions": versions,
+            "shards": per_shard,
+        })
+
+    def handle_info(self, request: Request) -> Response:
+        shards = []
+        engine_instance = None
+        for k in range(self.num_shards):
+            status, resp = self._shard_call(k, "GET", "/", timeout=3.0)
+            if status == 200:
+                if engine_instance is None:
+                    engine_instance = resp.get("engineInstance")
+                shards.append({
+                    "shard": k,
+                    "status": "alive",
+                    "modelVersion": resp.get("modelVersion"),
+                    "queryCount": (resp.get("serverStats") or {}).get(
+                        "queryCount"
+                    ),
+                })
+            else:
+                shards.append({"shard": k, "status": "down"})
+        with self._lock:
+            committed = self._committed
+            respawns = self._respawns
+            fe_respawns = self._fe_respawns
+        body = {
+            "status": "alive",
+            "fabric": {
+                "shards": self.num_shards,
+                "frontendWorkers": self.config.workers,
+                "committedVersion": committed,
+                "shardRespawns": respawns,
+                "frontendRespawns": fe_respawns,
+            },
+            "frontend": {
+                **self.config.describe(),
+                "shards": self.num_shards,
+            },
+            "shards": shards,
+        }
+        if engine_instance is not None:
+            body["engineInstance"] = engine_instance
+        return Response(200, body)
+
+    def handle_reload(self, request: Request) -> Response:
+        results = []
+        for k in range(self.num_shards):
+            status, resp = self._shard_call(k, "GET", "/reload", timeout=60.0)
+            results.append({"shard": k, "code": status, **resp})
+        # /reload re-resolves the latest INSTANCE: the registry epoch is
+        # gone, so respawns must not pin a stale committed version
+        with self._lock:
+            self._committed = None
+            self._shard_versions = {
+                k: None for k in range(self.num_shards)
+            }
+        return Response(200, {"status": "reloaded", "shards": results})
+
+    def handle_stop(self, request: Request) -> Response:
+        self._stop_requested.set()
+        return Response(200, {"status": "stopping"})
+
+    # -- metrics -------------------------------------------------------------
+    def _mirror(self, registry) -> None:
+        with self._lock:
+            versions = dict(self._shard_versions)
+            respawns = self._respawns
+            fe_respawns = self._fe_respawns
+        registry.set_gauge(
+            "pio_scorer_shard_count", float(self.num_shards),
+            help="Scorer shards in the serving fabric",
+        )
+        registry.set_gauge(
+            "pio_frontend_workers", float(self.config.workers),
+            help="Configured frontend worker processes",
+        )
+        registry.set_counter(
+            "pio_shard_respawns_total", float(respawns),
+            help="Scorer shards respawned after unexpected exit",
+        )
+        registry.set_counter(
+            "pio_frontend_respawns_total", float(fe_respawns),
+            help="Frontend workers respawned after unexpected exit",
+        )
+        for k, v in versions.items():
+            if v is not None:
+                registry.set_gauge(
+                    "pio_model_version", float(v), {"shard": str(k)},
+                    help="Registry model version serving, per shard",
+                )
+
+    def _frontend_snapshots(self) -> list[dict]:
+        out = []
+        for ring in self._ctl_rings:
+            try:
+                snap = ring.read_stats()
+            except (ValueError, OSError):
+                continue
+            if snap:
+                out.append(snap)
+        return out
+
+    # -- supervision ---------------------------------------------------------
+    def _supervise(self) -> None:
+        #: slot key -> (consecutive failures, next attempt monotonic)
+        backoff: dict[str, tuple[int, float]] = {}
+        while True:
+            time.sleep(0.2)
+            with self._lock:
+                if self._stopping:
+                    return
+                shards = list(self._shards)
+                frontends = list(self._frontends)
+            for s in shards:
+                if s.proc.poll() is None or s.dead:
+                    continue
+                logger.warning(
+                    "scorer shard %d died (rc=%s); respawning",
+                    s.index, s.proc.returncode,
+                )
+                with self._lock:
+                    s.dead = True
+                backoff.setdefault(f"s{s.index}", (0, time.monotonic()))
+            for fe in frontends:
+                if fe.proc.poll() is None or fe.dead:
+                    continue
+                logger.warning(
+                    "frontend worker %d died (rc=%s); respawning",
+                    fe.index, fe.proc.returncode,
+                )
+                fe.dead = True
+                backoff.setdefault(f"f{fe.index}", (0, time.monotonic()))
+            for key in sorted(backoff):
+                failures, next_try = backoff[key]
+                if time.monotonic() < next_try:
+                    continue
+                ok = (
+                    self._respawn_shard(int(key[1:]))
+                    if key[0] == "s"
+                    else self._respawn_frontend(int(key[1:]))
+                )
+                if ok:
+                    del backoff[key]
+                    continue
+                failures += 1
+                if failures >= self._MAX_RESPAWN_FAILURES:
+                    logger.error(
+                        "giving up on %s after %d failed respawns;"
+                        " the fabric keeps serving on the remaining"
+                        " processes", key, failures,
+                    )
+                    del backoff[key]
+                else:
+                    backoff[key] = (
+                        failures,
+                        time.monotonic() + min(0.5 * 2 ** failures, 30.0),
+                    )
+
+    def _respawn_shard(self, index: int) -> bool:
+        """Respawn one shard pinned to the COMMITTED version: the rejoin
+        rule that keeps a returning shard inside the same swap window as
+        its siblings (its ring files are reused untouched)."""
+        replacement = self._launch_shard(index)
+        try:
+            self._await_shards([replacement])
+        except RuntimeError:
+            logger.exception("respawned scorer shard %d failed", index)
+            replacement.proc.kill()
+            return False
+        with self._lock:
+            if self._stopping:
+                replacement.proc.kill()
+                return True
+            self._shards[index] = replacement
+            self._respawns += 1
+            committed = self._committed
+            self._shard_versions[index] = committed
+        logger.info(
+            "scorer shard %d rejoined at committed version %s",
+            index, committed,
+        )
+        return True
+
+    def _respawn_frontend(self, index: int) -> bool:
+        with self._lock:
+            old = self._frontends[index]
+        # the frontend will set READY on attach; INIT first so the await
+        # below watches a real transition, not the dead worker's carcass
+        self._ctl_rings[index].set_state(shmring.STATE_INIT)
+        replacement = self._launch_frontend(index, old.generation + 1)
+        try:
+            self._await_frontends([replacement])
+        except RuntimeError:
+            logger.exception("respawned frontend worker %d failed", index)
+            replacement.proc.kill()
+            return False
+        with self._lock:
+            if self._stopping:
+                replacement.proc.kill()
+                return True
+            self._frontends[index] = replacement
+            self._fe_respawns += 1
+        return True

@@ -4,15 +4,17 @@
     python -m predictionio_tpu_torch.tools.cli accesskey new MyApp
     python -m predictionio_tpu_torch.tools.cli import --appid 1 --input events.jsonl
     python -m predictionio_tpu_torch.tools.cli eventserver --port 7070 \\
-        [--ingest-mode sync|wal] [--wal-partitions P]
+        [--ingest-mode sync|wal] [--wal-partitions P] [--frontend-workers M]
     python -m predictionio_tpu_torch.tools.cli train --engine-dir ENGINE_DIR \\
         [--variant engine.json] [--resume] [--snapshot-mode off|use|refresh] \\
         [--device cuda|cpu]
     python -m predictionio_tpu_torch.tools.cli deploy --engine-dir ENGINE_DIR \\
         [--engine-instance-id ID | --model-version N] [--port 8000] \\
+        [--batch-window-ms 2 --max-batch-size 64 --batch-buckets 1,4,16,64,128] \\
+        [--frontend-workers N [--dispatch async|sync] | --scorer-shards N] \\
         [--device cuda|cpu]
     python -m predictionio_tpu_torch.tools.cli retrain --engine-dir ENGINE_DIR \\
-        [--follow] [--notify URL] [--device cuda|cpu]
+        [--follow] [--notify URL] [--scorer-shards N] [--device cuda|cpu]
 
 Storage is configured as the reference's is (``PIO_STORAGE_*``; by
 default sqlite under ``$PIO_FS_BASEDIR``), so both packages may share
@@ -39,14 +41,23 @@ one store.
   model comes from the instance. ``--model-version N`` serves version N
   of the variant's model registry (``online/registry.py``) and exits with
   the registry's message when N is missing or corrupt. Every deploy of a
-  variant takes ``POST /models/swap`` to a registry version.
+  variant takes ``POST /models/swap`` to a registry version. Queries go
+  through the micro-batcher (``--batch-window-ms``, ``--max-batch-size``,
+  ``--batch-buckets``; ``--max-batch-size 1`` answers one ``predict`` per
+  request). ``--frontend-workers N`` puts N ``SO_REUSEPORT`` frontend
+  processes before this process's scorer (``serving/procserver.py``);
+  ``--scorer-shards N`` runs the sharded fabric instead: N scorer
+  processes, each holding its hash partition of the user table on
+  ``--device`` (``serving/fabric.py``). The reference's feedback, TLS and
+  tracing flags are the same.
 - ``retrain`` (``online/loop.py``) tails the event server's WAL
   (``eventserver --ingest-mode wal``), refreshes the training snapshot,
   folds the touched users into the model (B1 on the card), publishes a
   registry version and hot-swaps the ``--notify`` servers (default
   ``http://localhost:8000``; ``--notify ''`` publishes only). One cycle,
   or with ``--follow`` until interrupted; past the staleness budget it
-  trains in full from the store.
+  trains in full from the store. ``--scorer-shards N`` also publishes N
+  per-shard blobs for a ``deploy --scorer-shards N`` fabric.
 
 The ported templates are picked by ``engineFactory`` or, without one, by
 the first algorithm's name (``controller/engine.py``): recommendation
@@ -65,25 +76,25 @@ import shutil
 import sys
 
 from predictionio_tpu_torch.controller.base import TrainContext
-from predictionio_tpu_torch.controller.engine import Template, load_serving_model
-from predictionio_tpu_torch.controller.serving import FirstServing
-from predictionio_tpu_torch.online.registry import ModelRegistry, RegistryError
+from predictionio_tpu_torch.controller.engine import Template
+from predictionio_tpu_torch.online.registry import RegistryError
 from predictionio_tpu_torch.tools import app_commands, import_export
 from predictionio_tpu_torch.workflow.core_workflow import (
     WorkflowParams,
     build_components,
-    load_instance_model,
     run_train,
     train_model,
 )
 from predictionio_tpu_torch.workflow.create_server import (
-    QueryService,
+    FeedbackConfig,
     create_query_server,
+    run_query_server,
 )
 from predictionio_tpu_torch.workflow.json_extractor import (
     EngineVariant,
     load_engine_variant,
 )
+from predictionio_tpu_torch.workflow.microbatch import BatchConfig
 
 
 def load_variant(engine_json: str) -> tuple[EngineVariant, Template]:
@@ -125,39 +136,26 @@ def train(engine_json: str, events_path: str, model_out: str, *,
 def build_query_server(engine_json: str, model_path: str | None = None, *,
                        engine_instance_id: str | None = None,
                        model_version: int | None = None, ip: str = "127.0.0.1",
-                       port: int = 8000, device: str | None = None):
-    """Everything ``deploy`` does short of serving: load (a model
-    directory, the resolved engine instance's blob, or registry version
-    ``model_version``), warm up, bind. The server takes hot swaps to the
-    variant's registry versions, each loaded and warmed up with the
-    engine.json's algorithm params. Returns ``(server, service)``;
-    raises ``RegistryError`` for a missing or corrupt ``model_version``."""
-    variant = load_engine_variant(engine_json)
-    template = variant.template
-    engine_params = variant.engine_params
-    registry = ModelRegistry.for_variant(variant)
-
-    def load_version(entry):
-        algorithm, model = load_serving_model(
-            template, engine_params, entry.load_blob(), device=device
-        )
-        return [algorithm], [model], FirstServing()
-
-    if model_version is not None:
-        algorithms, models, serving = load_version(registry.get(model_version))
-    else:
-        algorithm = template.algorithm_class(
-            engine_params.algorithm_params_list[0][1], device=device
-        )
-        if model_path is not None:
-            model = template.load_model(model_path)
-        else:
-            _, model = load_instance_model(variant, engine_instance_id)
-        algorithm.warm_up(model)
-        algorithms, models, serving = [algorithm], [model], FirstServing()
-    service = QueryService(algorithms, models, serving, registry=registry,
-                           loader=load_version, model_version=model_version)
-    return create_query_server(service, ip, port), service
+                       port: int = 8000, device: str | None = None,
+                       batching: BatchConfig | None = None):
+    """Everything single-process ``deploy`` does short of serving: load
+    (a model directory, the resolved engine instance's blob, or registry
+    version ``model_version``), warm up, bind. Queries go through the
+    micro-batcher (``batching``, default ``BatchConfig()``: 64 queries, a
+    2 ms window, buckets 1/4/16/64/128; ``BatchConfig(max_batch_size=1)``
+    answers one ``predict`` per request). The server takes hot swaps to
+    the variant's registry versions, each loaded and warmed up with the
+    engine.json's algorithm params. Returns ``(server, service)``: call
+    ``server.serve_forever()`` to serve, then ``server.shutdown()``,
+    ``server.server_close()`` and ``service.close()`` (which answers every
+    query still in a batch). Raises ``RegistryError`` for a missing or
+    corrupt ``model_version``."""
+    thread, service = create_query_server(
+        load_engine_variant(engine_json), ip, port, device=device,
+        model_path=model_path, instance_id=engine_instance_id,
+        model_version=model_version, batching=batching,
+    )
+    return thread.server, service
 
 
 def _variant_path(args: argparse.Namespace) -> str:
@@ -230,24 +228,76 @@ def cmd_train(args: argparse.Namespace) -> int:
 
 
 def cmd_deploy(args: argparse.Namespace) -> int:
+    feedback = None
+    if args.feedback:
+        feedback = FeedbackConfig(
+            event_server_url=(
+                f"{args.event_server_scheme}://"
+                f"{args.event_server_ip}:{args.event_server_port}"
+            ),
+            access_key=args.accesskey,
+        )
     try:
-        server, _ = build_query_server(
-            _variant_path(args), args.model, engine_instance_id=args.engine_instance_id,
-            model_version=args.model_version, ip=args.ip, port=args.port,
-            device=args.device,
+        buckets = tuple(
+            int(b) for b in args.batch_buckets.split(",") if b.strip()
+        )
+    except ValueError:
+        raise SystemExit(
+            f"Error: --batch-buckets must be comma-separated integers, "
+            f"got {args.batch_buckets!r}"
+        )
+    frontend = None
+    if args.scorer_shards > 1 and (args.ssl_cert or args.ssl_key):
+        raise SystemExit(
+            "Error: --scorer-shards does not support TLS "
+            "(--ssl-cert/--ssl-key); terminate TLS in front of the "
+            "frontend tier or deploy single-process"
+        )
+    if args.frontend_workers > 0:
+        if args.ssl_cert or args.ssl_key:
+            raise SystemExit(
+                "Error: --frontend-workers does not support TLS "
+                "(--ssl-cert/--ssl-key); terminate TLS in front of the "
+                "frontend tier or deploy single-process"
+            )
+        from predictionio_tpu_torch.serving.procserver import FrontendConfig
+
+        frontend = FrontendConfig(
+            workers=args.frontend_workers,
+            ring_slots=args.frontend_ring_slots,
+            max_inflight=args.frontend_max_inflight,
+            dispatch=args.dispatch,
+            pin_cpus=args.pin_cpus,
+        )
+    kw = {"device": args.device}
+    if args.model is not None:
+        kw["model_path"] = args.model
+    try:
+        run_query_server(
+            load_engine_variant(_variant_path(args)),
+            host=args.ip,
+            port=args.port,
+            instance_id=args.engine_instance_id,
+            model_version=args.model_version,
+            feedback=feedback,
+            ssl_cert=args.ssl_cert,
+            ssl_key=args.ssl_key,
+            batching=BatchConfig(
+                max_batch_size=args.max_batch_size,
+                window_ms=args.batch_window_ms,
+                buckets=buckets,
+            ),
+            tracing=False if args.no_tracing else None,
+            trace_sample=args.trace_sample,
+            slow_query_ms=args.slow_query_ms,
+            frontend=frontend,
+            scorer_shards=args.scorer_shards,
+            **kw,
         )
     except RegistryError as exc:
         # --model-version names an exact artifact; a missing or corrupt one
         # must be an actionable error, never a silent fallback deploy
         raise SystemExit(f"Error: {exc}")
-    host, port = server.server_address[:2]
-    print(f"serving /queries.json on http://{host}:{port} ({args.device})", flush=True)
-    try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
-    finally:
-        server.server_close()
     return 0
 
 
@@ -311,7 +361,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="with --ingest-mode wal: hash-sharded WAL partitions, each"
                     " with its own writer and fsync stream")
     es.add_argument("--frontend-workers", type=int, default=0, metavar="M",
-                    help="multi-process frontends (not ported: 0 only)")
+                    help="multi-process tier: M SO_REUSEPORT frontend processes"
+                    " parse HTTP and feed this process's ingest over shared-memory"
+                    " rings (sync dispatch, 32 in flight); 0 serves single-process")
     es.add_argument("--no-tracing", action="store_true",
                     help="disable the span tracer (/traces.json reports enabled=false)")
     es.add_argument("--trace-sample", type=float, default=None, metavar="RATE",
@@ -348,6 +400,85 @@ def build_parser() -> argparse.ArgumentParser:
                         " published by `retrain`); a missing or corrupt one fails")
     deploy.add_argument("--ip", default="127.0.0.1")
     deploy.add_argument("--port", type=int, default=8000)
+    deploy.add_argument("--feedback", action="store_true")
+    deploy.add_argument("--event-server-ip", default="localhost")
+    deploy.add_argument("--event-server-port", type=int, default=7070)
+    deploy.add_argument("--event-server-scheme", default="http",
+                        choices=("http", "https"),
+                        help="https when the event server uses --ssl-cert")
+    deploy.add_argument("--accesskey", default="")
+    deploy.add_argument("--ssl-cert", default=None, help="PEM cert: serve HTTPS")
+    deploy.add_argument("--ssl-key", default=None, help="PEM key (if not in cert)")
+    deploy.add_argument(
+        "--batch-window-ms", type=float, default=2.0,
+        help="micro-batching latency deadline: how long a query may wait "
+        "for batchmates (0 disables batching)",
+    )
+    deploy.add_argument(
+        "--max-batch-size", type=int, default=64,
+        help="micro-batching flush size (1 disables batching)",
+    )
+    deploy.add_argument(
+        "--batch-buckets", default="1,4,16,64,128",
+        help="comma-separated padded batch shapes; a batch pads up to the "
+        "smallest bucket that holds it",
+    )
+    deploy.add_argument(
+        "--frontend-workers", type=int, default=0, metavar="N",
+        help="multi-process serving tier: N SO_REUSEPORT frontend "
+        "processes parse/validate HTTP and feed this process's scorer "
+        "through shared-memory rings; 0 (default) serves single-process",
+    )
+    deploy.add_argument(
+        "--scorer-shards", type=int, default=0, metavar="N",
+        help="sharded serving fabric: hash-partition the user factor"
+        " table across N scorer processes (item-side state replicated),"
+        " each hot-swapping per shard behind the SO_REUSEPORT frontend"
+        " tier; 0/1 (default) serves unsharded. PIO_SHARD_BUDGET_BYTES"
+        " caps the blob a shard may load",
+    )
+    deploy.add_argument(
+        "--frontend-ring-slots", type=int, default=128, metavar="SLOTS",
+        help="per-worker request/completion ring capacity; a full request "
+        "ring answers 429 + Retry-After (scorer backpressure)",
+    )
+    deploy.add_argument(
+        "--frontend-max-inflight", type=int, default=16, metavar="N",
+        help="concurrent requests the scorer admits before letting the "
+        "rings back up (the backpressure horizon and the micro-batcher's "
+        "coalescing ceiling; with --dispatch sync, also the dispatcher "
+        "thread count)",
+    )
+    deploy.add_argument(
+        "--dispatch", choices=("async", "sync"), default="async",
+        help="scorer dispatch model with --frontend-workers: 'async' "
+        "(ring consumer submits straight into the micro-batcher; zero "
+        "dispatcher threads and 2 wakeups on the query path) or 'sync' "
+        "(dispatcher thread pool; also used whenever batching is disabled)",
+    )
+    deploy.add_argument(
+        "--pin-cpus", action=argparse.BooleanOptionalAction,
+        default=os.environ.get("PIO_PIN_CPUS", "") not in ("", "0"),
+        help="sched_setaffinity: pin each frontend worker to one core "
+        "from the top of the affinity set, the scorer keeps the rest "
+        "(default from PIO_PIN_CPUS=1; --no-pin-cpus overrides it); "
+        "needs --frontend-workers and >=2 cores",
+    )
+    deploy.add_argument(
+        "--no-tracing", action="store_true",
+        help="disable the span tracer (/traces.json reports enabled=false)",
+    )
+    deploy.add_argument(
+        "--trace-sample", type=float, default=None, metavar="RATE",
+        help="head-sampling rate (0..1) for headerless root traces;"
+        " requests with a traceparent header always trace (default:"
+        " $PIO_TRACE_SAMPLE or 0.125)",
+    )
+    deploy.add_argument(
+        "--slow-query-ms", type=float, default=None, metavar="MS",
+        help="log one span-summary line for any query trace slower than"
+        " this (off by default)",
+    )
     deploy.set_defaults(func=cmd_deploy)
 
     retrain = verbs.add_parser(
@@ -384,7 +515,11 @@ def build_parser() -> argparse.ArgumentParser:
     retrain.add_argument("--max-cycles", type=int, default=0, metavar="N",
                          help="stop after N cycles (0 = until interrupted)")
     retrain.add_argument("--scorer-shards", type=int, default=0, metavar="N",
-                         help="per-shard model blobs (not ported: 0 only)")
+                         help="publish per-shard model blobs alongside the full blob"
+                         " so a `deploy --scorer-shards N` fabric swaps without"
+                         " loading the full model in one shard; fold-in republishes"
+                         " only the shards whose users were touched (0 = full blob"
+                         " only)")
     retrain.set_defaults(func=cmd_retrain)
     return parser
 

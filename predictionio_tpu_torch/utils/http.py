@@ -6,9 +6,9 @@ external web framework is required. CORS and JSON envelopes are handled
 centrally so every service (event server, query server, dashboard, admin)
 shares behavior.
 
-Copy of ``predictionio_tpu/utils/http.py`` (framework-free) without
-its lean HTTP/1.1 primitives (``RequestParser``, ``build_http_response``):
-they serve the multi-process frontend tier, which is not ported.
+Port copy: ``predictionio_tpu/utils/http.py`` (framework-free), verbatim,
+under the port's package name; ``tests/test_torch_imports.py`` holds it
+to the original.
 """
 
 from __future__ import annotations
@@ -357,6 +357,193 @@ _CORS_HEADERS = {
     "Access-Control-Allow-Methods": "GET, POST, DELETE, OPTIONS",
     "Access-Control-Allow-Headers": "Content-Type, Authorization",
 }
+
+
+# --------------------------------------------------------------------------
+# lean HTTP/1.1 connection primitives (the multi-process frontend loop)
+# --------------------------------------------------------------------------
+#
+# ``BaseHTTPRequestHandler`` costs ~1 ms of python per request (a handler
+# object per REQUEST, header parsing through the email package, per-header
+# send calls). The multi-process frontend workers instead run a
+# single-threaded non-blocking loop over these primitives: ONE incremental
+# parser buffer per connection, byte-exact Content-Length handling, and a
+# single pre-serialized write per response.
+
+MAX_REQUEST_LINE = 8192
+MAX_HEADER_BYTES = 65536
+MAX_HEADER_COUNT = 100
+#: request bodies beyond this 413 at the frontend (queries are KBs; this
+#: exists so a hostile stream cannot balloon the ring spill directory)
+MAX_BODY_BYTES = 32 * 1024 * 1024
+
+_REASONS = {
+    200: "OK", 400: "Bad Request", 404: "Not Found",
+    405: "Method Not Allowed", 413: "Payload Too Large",
+    414: "URI Too Long", 429: "Too Many Requests",
+    431: "Request Header Fields Too Large",
+    500: "Internal Server Error", 501: "Not Implemented",
+    503: "Service Unavailable", 505: "HTTP Version Not Supported",
+}
+
+
+class HTTPParseError(Exception):
+    """Malformed/unsupported inbound HTTP; carries the status to answer
+    with before closing the connection."""
+
+    def __init__(self, status: int, message: str):
+        super().__init__(message)
+        self.status = status
+        self.message = message
+
+
+@dataclass
+class ParsedRequest:
+    """One wire-parsed request (pre-routing; the frontend's unit of work)."""
+
+    method: str
+    target: str               # raw request-target (path + query string)
+    headers: dict[str, str]
+    body: bytes
+    keep_alive: bool
+
+
+def _header(headers: dict[str, str], name: str) -> str | None:
+    lname = name.lower()
+    for k, v in headers.items():
+        if k.lower() == lname:
+            return v
+    return None
+
+
+class RequestParser:
+    """Incremental HTTP/1.1 request parser for a non-blocking loop.
+
+    ``feed()`` appends received bytes; ``next_request()`` returns one
+    complete :class:`ParsedRequest` (pipelined requests come out one per
+    call, in order), ``None`` while more bytes are needed, and raises
+    :class:`HTTPParseError` on anything malformed -- the caller answers
+    with its status and closes. A parsed header block is cached across
+    calls, so a body arriving in many segments never re-parses headers.
+    """
+
+    __slots__ = ("_buf", "_head")
+
+    def __init__(self):
+        self._buf = bytearray()
+        self._head: tuple | None = None  # (method, target, headers, length, keep)
+
+    def feed(self, data: bytes) -> None:
+        self._buf += data
+
+    def buffered(self) -> int:
+        return len(self._buf)
+
+    def next_request(self) -> ParsedRequest | None:
+        if self._head is None:
+            end = self._buf.find(b"\r\n\r\n")
+            if end < 0:
+                if len(self._buf) > MAX_HEADER_BYTES:
+                    raise HTTPParseError(431, "header block too large")
+                return None
+            self._head = self._parse_head(bytes(self._buf[:end]))
+            del self._buf[:end + 4]
+        method, target, headers, length, keep = self._head
+        if len(self._buf) < length:
+            return None
+        body = bytes(self._buf[:length])
+        del self._buf[:length]
+        self._head = None
+        return ParsedRequest(method, target, headers, body, keep)
+
+    @staticmethod
+    def _parse_head(block: bytes) -> tuple:
+        lines = block.decode("latin-1").split("\r\n")
+        parts = lines[0].split()
+        if len(parts) != 3:
+            raise HTTPParseError(400, "malformed request line")
+        method, target, version = parts
+        if len(lines[0]) > MAX_REQUEST_LINE:
+            raise HTTPParseError(414, "request line too long")
+        if version not in ("HTTP/1.1", "HTTP/1.0"):
+            raise HTTPParseError(505, f"unsupported version {version}")
+        if len(lines) - 1 > MAX_HEADER_COUNT:
+            raise HTTPParseError(431, "too many headers")
+        headers: dict[str, str] = {}
+        for line in lines[1:]:
+            if not line:
+                continue
+            key, sep, value = line.partition(":")
+            if not sep or not key.strip():
+                raise HTTPParseError(400, "malformed header line")
+            headers[key.strip()] = value.strip()
+        if _header(headers, "Transfer-Encoding") is not None:
+            # same capability envelope as the single-process server (it
+            # reads Content-Length only); 501 beats silent mis-framing
+            raise HTTPParseError(501, "Transfer-Encoding not supported")
+        raw_length = _header(headers, "Content-Length")
+        try:
+            length = int(raw_length) if raw_length else 0
+        except ValueError:
+            raise HTTPParseError(400, "bad Content-Length")
+        if length < 0:
+            raise HTTPParseError(400, "bad Content-Length")
+        if length > MAX_BODY_BYTES:
+            raise HTTPParseError(413, "request body too large")
+        connection = (_header(headers, "Connection") or "").lower()
+        if version == "HTTP/1.1":
+            keep_alive = connection != "close"
+        else:
+            keep_alive = connection == "keep-alive"
+        return method, target, headers, length, keep_alive
+
+
+#: Date header cache: one strftime per wall-clock second, not per request
+_date_cache: tuple[int, str] = (0, "")
+
+
+def _http_date() -> str:
+    global _date_cache
+    now = int(time.time())
+    if _date_cache[0] != now:
+        _date_cache = (
+            now,
+            time.strftime("%a, %d %b %Y %H:%M:%S GMT", time.gmtime(now)),
+        )
+    return _date_cache[1]
+
+
+def build_http_response(
+    status: int,
+    payload: bytes,
+    content_type: str = "application/json; charset=utf-8",
+    headers: dict[str, str] | None = None,
+    server_name: str = "pio",
+    keep_alive: bool = True,
+) -> bytes:
+    """Serialize one response to a single buffer (headers + body), ready
+    for one non-blocking send -- one segment + NODELAY, the same
+    anti-Nagle contract as ``make_server``'s buffered wfile."""
+    out = [
+        f"HTTP/1.1 {status} {_REASONS.get(status, 'Unknown')}\r\n"
+        f"Server: {server_name}\r\n"
+        f"Date: {_http_date()}\r\n"
+        f"Content-Type: {content_type}\r\n"
+        f"Content-Length: {len(payload)}\r\n"
+    ]
+    for k, v in _CORS_HEADERS.items():
+        out.append(f"{k}: {v}\r\n")
+    for k, v in (headers or {}).items():
+        out.append(f"{k}: {v}\r\n")
+    # explicit in both directions: HTTP/1.0 keep-alive only works if the
+    # server SAYS keep-alive (default is close), and the header is
+    # harmless redundancy for HTTP/1.1 peers
+    out.append(
+        "Connection: keep-alive\r\n" if keep_alive
+        else "Connection: close\r\n"
+    )
+    out.append("\r\n")
+    return "".join(out).encode("latin-1") + payload
 
 
 def make_server(

@@ -1,1 +1,2 @@
-"""Deploy lifecycle of the port (the query server so far)."""
+"""Deploy lifecycle of the port: training runs, the query server and its
+micro-batcher."""

@@ -9,7 +9,8 @@ status codes and bodies; event ids, creation times, trace ids and the
 uptime are masked. Then concurrent posts through the port's
 ``ThreadingHTTPServer`` all land; the WAL ingest mode answers as the
 reference's in the same mode, through the service, the server and the
-command line; and the multi-process frontends, not ported, raise.
+command line; and both refuse TLS at the multi-process frontends
+(``tests/test_torch_fabric.py`` serves through them).
 """
 
 import datetime as dt
@@ -240,9 +241,13 @@ def test_concurrent_posts_all_land(servers):
 
 
 def test_unported_ingest_modes_raise():
+    """What both packages refuse: TLS at the multi-process frontends,
+    and an ingest mode other than sync or wal."""
     es = _mod("predictionio_tpu_torch", "data.api.eventserver")
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        es.run_event_server(port=0, frontend_workers=2)
+    ref = _mod("predictionio_tpu", "data.api.eventserver")
+    for mod in (es, ref):
+        with pytest.raises(ValueError, match="does not support --ssl-cert"):
+            mod.run_event_server(port=0, frontend_workers=2, ssl_cert="cert.pem")
     with pytest.raises(ValueError, match="sync or wal"):
         es.EventService(ingest_mode="async")
 

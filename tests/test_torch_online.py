@@ -625,8 +625,9 @@ def test_deploy_model_version(basedir, capsys):
 
 def test_retrain_command_line(basedir, monkeypatch, capsys):
     """``retrain --notify ''`` (batch mode) runs one cycle through the
-    command line and publishes; without a card and without ``--device
-    cpu`` it raises; per-shard blobs raise naming their ROADMAP item."""
+    command line and publishes; ``--scorer-shards 2`` also publishes two
+    per-shard blobs, each holding its shard's users; without a card and
+    without ``--device cpu`` it raises."""
     engine_json = trained_variant(basedir)
     wal = WriteAheadLog(str(basedir / "wal"))
     ingest_via_wal(wal, "cliuser", "i4")
@@ -638,8 +639,18 @@ def test_retrain_command_line(basedir, monkeypatch, capsys):
     assert latest.version == 1
     model = deserialize_model(load_engine_variant(engine_json).template, latest.load_blob())
     assert "cliuser" in model.user_index
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        cli.main(argv + ["--device", "cpu", "--scorer-shards", "2"])
+    wal = WriteAheadLog(str(basedir / "wal"))
+    ingest_via_wal(wal, "cliuser2", "i5")
+    wal.close()
+    assert cli.main(argv + ["--device", "cpu", "--scorer-shards", "2"]) == 0
+    assert "foldin=1" in capsys.readouterr().out
+    latest = ModelRegistry.for_variant(load_engine_variant(engine_json)).latest()
+    assert latest.version == 2 and latest.shard_count == 2
+    template = load_engine_variant(engine_json).template
+    full = deserialize_model(template, latest.load_blob())
+    owned = [set(deserialize_model(template, latest.load_blob(shard=k)).user_index)
+             for k in range(2)]
+    assert owned[0] | owned[1] == set(full.user_index) and not owned[0] & owned[1]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(argv)
