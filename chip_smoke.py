@@ -86,6 +86,17 @@ script exits non-zero and prints no result):
    from iteration 1 to 2 to 10; a 2-iteration fit through B1 equals the
    unfused "xla" path on the card within 1e-4 (the reference's f32
    solver-parity bar).
+   profile_train -- one more fit of that data with the template's
+   params through ALSAlgorithm.train with ``pio.profile`` in the runtime
+   conf, under ``profile_trace`` (the ``torch.profiler`` Chrome trace
+   ``pio train --profile`` writes, CPU and CUDA activity): the telemetry
+   journal's 10 step lines (wall time, edges/s, achieved GB/s against the
+   bytes model) and, from the trace, per ``als.iteration`` range the
+   device ms of B1 (20 kernels named ``gram_rhs``, gated), of the ridge
+   and solve (kernels launched inside ``als.solve`` ranges) and of the
+   rest, the share of the range the card idled, the busiest other
+   kernels, and the fit's five longest idle gaps with the host calls
+   under each.
 7. check_b1 -- kernel B1 (``als_gram.cu``) against its plain version on
    the two half-step blocks of that fit (138,000 x 200 and 27,000 x 256,
    trained factors), explicit/implicit x f32/bf16, plus small cases:
@@ -150,6 +161,30 @@ script exits non-zero and prints no result):
    seconds, each cycle's tail/fold/publish/swap seconds, the blob bytes,
    the lag from the last ack to the swapped model, the full retrain's
    seconds, the launches and the card memory around the swap.
+   eval_path -- on the same store after follow_path: (a) ``eval
+   --replay --split-frac 0.8 --k 10`` of the mips variant through the
+   CLI: 20 B1 launches (the prefix's 10 iterations), B2 at least twice
+   (the scoring pass and the guard's mips arm), shortlist recall@10 >=
+   0.99; held against the same replay on the card through the plain
+   versions of B1 and B2 (``plain_b1_b2``, no launch of either):
+   the same split and queries, metrics within 1e-4, each ranked list
+   equal up to items whose plain scores lie within rtol = atol = 1e-4,
+   scores within that; (b) ``eval --replay --model-version 2`` (the
+   follow path's full retrain): the registry lineage, B2, the same
+   split; (c) ``batchpredict`` of every user of the latest instance
+   (``{"user": u, "num": 10}``): B2 once a 4,096-query chunk, no error
+   row, 200 rows equal to an unbatched (``max_batch_size=1``) mips
+   deploy's bodies, one ``top --iterations 1 --no-clear`` frame of that
+   deploy; B2 at the 4,096-row chunk held to its plain version and timed
+   beside its bound and ``torch.matmul`` + ``torch.topk``; (d) ``eval
+   --replay`` of ``examples/ncf/engine.json`` (epochs 5 -> 1): every
+   metric, no B3 (the reference's batch path scores without it); (e)
+   ``eval`` of a module the phase writes: an ``Evaluation`` of the
+   sequence template with a hit@10 ``OptionAverageMetric`` over
+   ``examples/sequence/engine.json``'s params (``evalFolds`` 1): a
+   COMPLETED evaluation instance, B4 and the fused backward 2 a training
+   step, B4 also 2 a scoring forward, bestScore above twice the uniform
+   10 / 3,706.
 13. check_b3 -- kernel B3 (``ncf_score.cu``) against its plain version
    on the card at the NCF template's widths (E=32, hidden 64, 32) over
    1,000,000 items for five users (the last one included); over 1, 15,
@@ -1446,6 +1481,161 @@ def phase_train(rng: np.random.Generator, repo: str) -> dict:
             "config": config, "ratings": (users, items, ratings, times)}
 
 
+# --------------------------------------------------------------------------
+# profile_train: the ALS fit under ``pio train --profile``'s trace
+# --------------------------------------------------------------------------
+
+#: idle gaps listed from the profiled fit's trace, and host calls under each
+PROFILE_GAPS, PROFILE_GAP_CALLS = 5, 4
+#: CPU-side events of a torch.profiler Chrome trace that can sit under a gap
+HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver", "python_function")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def merged(intervals: list) -> list:
+    """Sorted, merged ``[start, end]`` intervals."""
+    out = []
+    for start, end in sorted(intervals):
+        if out and start <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], end)
+        else:
+            out.append([start, end])
+    return out
+
+
+def covered(intervals: list, lo: float, hi: float) -> float:
+    """Length of the merged ``intervals`` inside ``[lo, hi]``."""
+    return sum(max(0.0, min(e, hi) - max(s, lo)) for s, e in intervals)
+
+
+def analyse_fit_trace(path: str) -> dict:
+    """A profiled ALS fit's Chrome trace (``workflow/core_workflow.py::
+    profile_trace``; times in microseconds): per ``als.iteration`` range,
+    the device ms of B1 (kernels named ``gram_rhs``), of the ridge and
+    solve (kernels launched inside ``als.solve`` ranges: the ridge's
+    elementwise add, ``torch.linalg.cholesky_ex``, ``cholesky_solve``),
+    of everything else, and the share of the range the card idled; the
+    longest idle gaps of the fit and the host calls under each."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    iters = sorted((e for e in events if e.get("cat") == "user_annotation"
+                    and e.get("name") == "als.iteration"), key=lambda e: e["ts"])
+    solves = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "user_annotation" and e.get("name") == "als.solve"]
+    launches = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    host = [e for e in events if e.get("cat") in HOST_CATS]
+
+    def part(kernel) -> str:
+        if "gram_rhs" in kernel["name"]:
+            return "b1"
+        t = launches.get(kernel.get("args", {}).get("correlation"))
+        if t is not None and any(lo <= t <= hi for lo, hi in solves):
+            return "solve"
+        return "other"
+
+    busy = merged([[e["ts"], e["ts"] + e["dur"]] for e in device])
+    per_iteration, names = [], {}
+    for e in iters:
+        lo, hi = e["ts"], e["ts"] + e["dur"]
+        ms = {"b1": 0.0, "solve": 0.0, "other": 0.0}
+        for k in device:
+            if lo <= k["ts"] < hi:
+                ms[part(k)] += k["dur"] / 1e3
+                if part(k) != "b1":
+                    names[k["name"][:80]] = names.get(k["name"][:80], 0.0) + k["dur"] / 1e3
+        per_iteration.append({
+            "window_ms": e["dur"] / 1e3, "b1_ms": ms["b1"], "solve_ms": ms["solve"],
+            "other_ms": ms["other"], "idle_share": 1.0 - covered(busy, lo, hi) / e["dur"]})
+    gaps = []
+    if iters:
+        lo, hi = iters[0]["ts"], iters[-1]["ts"] + iters[-1]["dur"]
+        inside = [[max(s, lo), min(e, hi)] for s, e in busy if e > lo and s < hi]
+        edges = [lo] + [x for s, e in inside for x in (s, e)] + [hi]
+        gaps = sorted(((edges[i + 1] - edges[i], edges[i]) for i in range(0, len(edges), 2)),
+                      reverse=True)[:PROFILE_GAPS]
+    listed = []
+    for length, start in gaps:
+        end = start + length
+        under = sorted(((min(h["ts"] + h["dur"], end) - max(h["ts"], start), h["name"][:80])
+                        for h in host if h["ts"] < end and h["ts"] + h["dur"] > start),
+                       reverse=True)[:PROFILE_GAP_CALLS]
+        listed.append({"gap_ms": length / 1e3,
+                       "host_calls": [{"name": n, "overlap_ms": o / 1e3} for o, n in under]})
+    return {
+        "b1_kernels": sum(1 for k in device if "gram_rhs" in k["name"]),
+        "iterations": per_iteration,
+        "top_other_kernels_ms": dict(sorted(names.items(), key=lambda kv: -kv[1])[:8]),
+        "longest_idle_gaps": listed,
+    }
+
+
+def phase_profile_train(trained: dict, repo: str, workdir: str) -> dict:
+    """One profiled fit of phase_train's data and template params (10
+    iterations) through ``ALSAlgorithm.train`` with ``pio.profile`` in
+    the runtime conf -- the journal of ``_build_telemetry`` -- under
+    ``profile_trace``, the trace ``pio train --profile`` writes. Gates:
+    10 step lines, 20 B1 kernels in the trace (and 20 launches counted),
+    the trace file present. Prints each iteration's wall time, edges/s
+    and achieved GB/s from the journal and, from the trace, its B1,
+    ridge + solve and other device ms and its idle share, and the fit's
+    longest idle gaps with the host calls under them."""
+    from predictionio_tpu_torch.controller.base import TrainContext
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+    from predictionio_tpu_torch.models.recommendation import ALSAlgorithm, RatingsData
+    from predictionio_tpu_torch.ops import als_gram, mips
+    from predictionio_tpu_torch.workflow.core_workflow import profile_trace
+
+    users, items, ratings, times = trained["ratings"]
+    data = RatingsData(users=users, items=items, ratings=ratings, times=times,
+                       user_ids=[f"u{u}" for u in range(TRAIN_USERS)],
+                       item_ids=[f"i{i}" for i in range(TRAIN_ITEMS)])
+    algo_params, _ = template_params(repo)
+    algorithm = ALSAlgorithm(algo_params, device="cuda")
+    profile_dir = os.path.join(workdir, "pio-profile")
+    ctx = TrainContext(device="cuda", runtime_conf={"pio.profile": profile_dir})
+    als_gram.gram_rhs.launches = 0           # counts start at 0 here
+    mips.mips_block_topk.launches = 0
+    ncf_kernel.ncf_score_all_items.launches = 0
+    zero_flash_counts()
+    t0 = time.perf_counter()
+    with profile_trace(profile_dir, "cuda", "profile_train") as trace_path:
+        algorithm.train(ctx, (data, trained["als_data"]))
+    profiled_s = time.perf_counter() - t0
+    launches = als_gram.gram_rhs.launches    # read here
+    counted = {"gram_rhs": launches, "mips_block_topk": mips.mips_block_topk.launches,
+               "ncf_score_all_items": ncf_kernel.ncf_score_all_items.launches,
+               **flash_counts()}
+    iterations = trained["config"].iterations
+    with open(os.path.join(profile_dir, "als-telemetry.jsonl")) as f:
+        journal = [json.loads(line) for line in f]
+    steps = [line for line in journal if line["event"] == "step"]
+    if len(steps) != iterations or not os.path.exists(trace_path):
+        raise AssertionError(f"{len(steps)} journal steps, trace {trace_path}")
+    t0 = time.perf_counter()
+    trace = analyse_fit_trace(trace_path)
+    analyse_s = time.perf_counter() - t0
+    if trace["b1_kernels"] != 2 * iterations or launches != 2 * iterations:
+        raise AssertionError(f"B1 kernels in the trace {trace['b1_kernels']}, launches "
+                             f"{launches}, expected {2 * iterations}")
+    if len(trace["iterations"]) != iterations:
+        raise AssertionError(f"{len(trace['iterations'])} als.iteration ranges in the trace")
+    result = {
+        "meta": {k: journal[0][k] for k in ("edges", "modeled_bytes_per_iter", "solver",
+                                            "platform", "rank", "iterations")},
+        "journal": [{k: s[k] for k in ("step", "wall_s", "edges_per_sec", "achieved_gbps")}
+                    for s in steps],
+        "wall_s_median": statistics.median(s["wall_s"] for s in steps),
+        "launches": counted,
+        "trace_file_bytes": os.path.getsize(trace_path),
+        "profiled_train_s": profiled_s, "analyse_s": analyse_s, **trace,
+    }
+    emit({"phase": "profile_train", **result})
+    return result
+
+
 def b1_bound(rows: int, pad_len: int, table_rows: int, rank: int,
              itemsize: int) -> tuple[float, str, float, float]:
     """(bound ms, what bounds it, bytes, operations) of one B1 call. Bytes:
@@ -1911,6 +2101,22 @@ def phase_train_verb_and_serve(rng: np.random.Generator, trained: dict, repo: st
 # the store path: app -> event server -> pio import -> sqlite store ->
 # pio train (B1) -> engine instance + model blob -> pio deploy (B2)
 # --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_b1_b2():
+    """Route the ALS fit's half-step (``parallel/als.py::half_step_fn``)
+    and the retrieval index's stage 1 through B1's and B2's plain
+    versions: the comparison path of ``eval_path``'s replay."""
+    from predictionio_tpu_torch.ops import als_gram, mips
+    from predictionio_tpu_torch.parallel import als
+
+    saved = als.gram_rhs, mips.mips_block_topk
+    als.gram_rhs, mips.mips_block_topk = als_gram.gram_rhs_plain, mips.mips_block_topk_plain
+    try:
+        yield
+    finally:
+        als.gram_rhs, mips.mips_block_topk = saved
 
 
 @contextlib.contextmanager
@@ -2454,6 +2660,299 @@ def phase_follow_path(rng: np.random.Generator, repo: str, workdir: str) -> dict
         raise AssertionError(f"the follow path launched B1 {result['b1_launches']} and "
                              f"B2 {result['b2_launches']} times")
     emit({"phase": "follow_path", **result})
+    return result
+
+
+# --------------------------------------------------------------------------
+# eval_path: pio eval --replay, batchpredict, k-fold eval on the store
+# --------------------------------------------------------------------------
+
+#: the replay's split and cutoff (the reference's defaults)
+EVAL_SPLIT_FRAC, EVAL_K = 0.8, 10
+#: scores (and near-ties) compared within rtol = atol = 1e-4
+EVAL_TOL = 1e-4
+#: batchpredict's chunk (workflow/batch_predict.py) and the rows compared
+#: with an unbatched deploy
+BATCH_CHUNK, BATCH_COMPARED = 4096, 200
+#: the sequence k-fold eval's hit@10 must beat uniform (10 / items) by this
+SEQ_EVAL_MARGIN = 2.0
+
+
+def compare_lists(got: list, want: list) -> tuple[float, int]:
+    """``(max |score difference|, near-tie swaps)`` of two ``itemScores``
+    lists; raises unless the scores agree within rtol = atol = EVAL_TOL
+    rank by rank and the items agree except where the two items' scores
+    lie within that tolerance."""
+    if len(got) != len(want):
+        raise AssertionError(f"lists of {len(got)} and {len(want)} items")
+    g = np.array([s["score"] for s in got], np.float64)
+    w = np.array([s["score"] for s in want], np.float64)
+    tol = EVAL_TOL + EVAL_TOL * np.abs(w)
+    if (np.abs(g - w) > tol).any():
+        raise AssertionError(f"scores differ past {EVAL_TOL}: {got} against {want}")
+    swaps = sum(a["item"] != b["item"] for a, b in zip(got, want))
+    return (float(np.abs(g - w).max()) if len(g) else 0.0), swaps
+
+
+def replay_report(args: list[str], responses: bool = False) -> dict:
+    """``eval --replay`` through the port's CLI; its JSON report (with the
+    responses when asked: the CLI's ``run_replay_eval`` is then called
+    with ``include_responses=True``)."""
+    import functools
+
+    from predictionio_tpu_torch.eval import replay
+
+    real = replay.run_replay_eval
+    if responses:
+        replay.run_replay_eval = functools.partial(real, include_responses=True)
+    try:
+        return json.loads(cli_out(["eval", "--replay", *args]))
+    finally:
+        replay.run_replay_eval = real
+
+
+SEQ_EVAL_MODULE = '''\
+"""The sequence template's k-fold evaluation: hit@10 of each user's
+held-out last item (leave-one-out), built of the port's objects."""
+import json
+
+from predictionio_tpu_torch.controller.engine import TEMPLATES, EngineParams
+from predictionio_tpu_torch.controller.metrics import (
+    EngineParamsGenerator,
+    Evaluation,
+    OptionAverageMetric,
+)
+
+
+def hit_at_10(info, query, prediction, actual):
+    got = [s["item"] for s in prediction["itemScores"]][:10]
+    return float(actual[0] in got)
+
+
+EVALUATION = Evaluation(template=TEMPLATES["sequence"],
+                        metric=OptionAverageMetric(score=hit_at_10))
+with open(%r) as f:
+    _obj = json.load(f)
+_obj["datasource"]["params"].update(appName=%r, evalFolds=1)
+GENERATOR = EngineParamsGenerator([EngineParams.from_json_obj(_obj)])
+'''
+
+
+def phase_eval_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
+    """Evaluation and batch predict on store_path's store after
+    follow_path (MovieLens-1M's ratings, the follow path's events,
+    registry versions 1 and 2): (a) ``eval --replay`` of the mips
+    variant, B1 and B2 counted, the guard's recall, held against the same
+    replay through their plain versions on the card; (b) the replay of registry version 2; (c)
+    ``batchpredict`` of every user, 200 rows against an unbatched mips
+    deploy of the instance, one ``top`` frame of that deploy; (d) an NCF
+    replay (epochs 5 -> 1), no B3; (e) ``eval`` of a sequence-template
+    Evaluation module, B4 and the fused backward counted."""
+    import torch
+
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.eval.replay import run_replay_eval
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+    from predictionio_tpu_torch.models.sequence import engine as seq_engine
+    from predictionio_tpu_torch.ops import als_gram, mips
+    from predictionio_tpu_torch.tools import cli
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
+    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+    from predictionio_tpu_torch.workflow.microbatch import BatchConfig
+
+    engine_json = os.path.join(repo, "examples", "recommendation", "engine.json")
+    variant_path = store_variant(engine_json, "MLApp", os.path.join(workdir, "ml1m.json"),
+                                 retrieval={"mode": "mips"})
+    split_args = ["--split-frac", str(EVAL_SPLIT_FRAC), "--k", str(EVAL_K)]
+    result: dict = {}
+    with fresh_store(workdir, "store"):
+        # (a) the replay through the CLI, then the same replay through
+        # the plain versions
+        als_gram.gram_rhs.launches = 0
+        mips.mips_block_topk.launches = 0
+        t0 = time.perf_counter()
+        card = replay_report(["--variant", variant_path, "--device", "cuda", *split_args],
+                             responses=True)
+        replay_s = time.perf_counter() - t0
+        b1, b2 = als_gram.gram_rhs.launches, mips.mips_block_topk.launches
+        guard = card["retrieval_guard"]
+        recall = guard[f"shortlist_recall_at_{EVAL_K}"]
+        if b1 != 20 or b2 < 2 or not recall >= 0.99:
+            raise AssertionError(f"replay: B1 {b1}, B2 {b2}, guard {guard}")
+        # the same replay on the card through the plain versions of B1
+        # and B2: neither kernel launches in it
+        t0 = time.perf_counter()
+        variant = load_engine_variant(variant_path)
+        with plain_b1_b2():
+            plain = run_replay_eval(variant, split_frac=EVAL_SPLIT_FRAC, k=EVAL_K,
+                                    include_responses=True, device="cuda")
+        reference_s = time.perf_counter() - t0
+        if (als_gram.gram_rhs.launches, mips.mips_block_topk.launches) != (b1, b2):
+            raise AssertionError("the plain replay launched B1 or B2")
+        if card["split"] != plain["split"] or card["queries"] != plain["queries"]:
+            raise AssertionError("the card's and the plain replay cut different folds")
+        metric_diff = max(abs(card["metrics"][m] - plain["metrics"][m]) for m in plain["metrics"])
+        if metric_diff > EVAL_TOL:
+            raise AssertionError(f"metrics: {card['metrics']} against {plain['metrics']}")
+        compared = [compare_lists(g["itemScores"], w["itemScores"])
+                    for g, w in zip(card["responses"], plain["responses"])]
+        result["replay"] = {
+            "seconds": replay_s, "b1_launches": b1, "b2_launches": b2,
+            "metrics": card["metrics"], "split": card["split"], "retrieval_guard": guard,
+            "users": len(card["queries"]),
+            "reference": "plain versions on the card", "reference_s": reference_s,
+            "reference_metrics": plain["metrics"], "metric_max_abs_diff": metric_diff,
+            "score_max_abs_diff": max(d for d, _ in compared),
+            "near_tie_swaps": sum(s for _, s in compared),
+        }
+        holdout = card["split"]
+        del card, plain, compared
+
+        # (b) a registry version follow_path published (2: the full retrain)
+        mips.mips_block_topk.launches = 0
+        t0 = time.perf_counter()
+        pinned = replay_report(["--variant", variant_path, "--device", "cuda",
+                                "--model-version", "2", *split_args])
+        pinned_s = time.perf_counter() - t0
+        b2 = mips.mips_block_topk.launches
+        lineage = pinned["model"]
+        if (lineage["source"] != "registry" or lineage["model_version"] != 2 or b2 < 1
+                or pinned["split"] != holdout):
+            raise AssertionError(f"pinned replay: {lineage}, B2 {b2}, split {pinned['split']}")
+        result["pinned"] = {"seconds": pinned_s, "model": lineage, "b2_launches": b2,
+                            "metrics": pinned["metrics"],
+                            "retrieval_guard": pinned["retrieval_guard"]}
+
+        # (c) batchpredict of every user of the latest instance
+        instance, model = load_instance_model(variant)
+        users = sorted(model.user_index, key=model.user_index.get)
+        del model
+        queries = [{"user": u, "num": 10} for u in users]
+        qpath, opath = (os.path.join(workdir, n) for n in ("bp_in.jsonl", "bp_out.jsonl"))
+        with open(qpath, "w") as f:
+            f.writelines(json.dumps(q) + "\n" for q in queries)
+        mips.mips_block_topk.launches = 0
+        t0 = time.perf_counter()
+        said_bp = cli_out(["batchpredict", "--variant", variant_path, "--input", qpath,
+                           "--output", opath, "--device", "cuda"])
+        batch_s = time.perf_counter() - t0
+        b2 = mips.mips_block_topk.launches
+        with open(opath) as f:
+            rows = [json.loads(line) for line in f]
+        errors = sum("error" in r for r in rows)
+        chunks = -(-len(queries) // BATCH_CHUNK)
+        if (len(rows) != len(queries) or errors or b2 != chunks
+                or f"{len(queries)} queries" not in said_bp):
+            raise AssertionError(f"batchpredict: {len(rows)} rows, {errors} errors, B2 {b2}, "
+                                 f"{chunks} chunks")
+        picked = sorted(rng.choice(len(queries), BATCH_COMPARED, replace=False).tolist())
+        server, service = cli.build_query_server(
+            variant_path, port=0, device="cuda", engine_instance_id=instance.id,
+            batching=BatchConfig(max_batch_size=1))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        frame: list = []
+        top_thread = threading.Thread(target=lambda: frame.append(cli_out(
+            ["top", url, "--iterations", "1", "--no-clear", "--interval", "1.0"])))
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=120)
+        try:
+            top_thread.start()
+            time.sleep(0.2)           # top's first poll before the traffic
+            served = [post(conn, queries[i])[0] for i in picked]
+            top_thread.join(timeout=60)
+        finally:
+            conn.close()
+            server.shutdown()
+            server.server_close()
+            service.close()
+            thread.join(timeout=30)
+        unequal = [i for i, body in zip(picked, served) if body != rows[i]["prediction"]]
+        if unequal:
+            raise AssertionError(f"{len(unequal)} batchpredict rows differ from the deploy's "
+                                 f"bodies, first {queries[unequal[0]]}")
+        row = next(line for line in frame[0].splitlines() if line.startswith(url))
+        qps, p50 = row.split()[1:3]
+        result["batchpredict"] = {
+            "seconds": batch_s, "queries": len(queries), "chunks": chunks,
+            "b2_launches": b2, "error_rows": errors, "compared_with_deploy": len(picked),
+            "instance": instance.id, "top_qps": qps, "top_p50_ms": p50,
+        }
+        del rows, served
+        # B2 at the 4,096-row chunk: held to its plain version, timed
+        _, model = load_instance_model(variant)
+        factors = model.als.item_factors
+        chunk = min(BATCH_CHUNK, model.als.user_factors.shape[0] // 8 * 8)
+        args = stage1_inputs(factors, model.als.user_factors[:chunk], BLOCK_ITEMS)
+        err = compare_stage1(args, BLOCK_TOPK, factors.shape[0], exact=False)
+        result["batchpredict"]["b2_chunk"] = {"max_abs_err": err,
+                                              **time_stage1(args, BLOCK_TOPK, factors.shape[0])}
+        del args, model
+        torch.cuda.empty_cache()
+
+        # (d) the NCF template's replay (epochs 5 -> 1): no B3, as in the
+        # reference (batch_predict scores through the plain batch scorer)
+        ncf_path = store_variant(os.path.join(repo, "examples", "ncf", "engine.json"), "MLApp",
+                                 os.path.join(workdir, "ml1m_ncf.json"), epochs=NCF_EPOCHS)
+        ncf_kernel.ncf_score_all_items.launches = 0
+        t0 = time.perf_counter()
+        ncf = replay_report(["--variant", ncf_path, "--device", "cuda", *split_args])
+        ncf_s = time.perf_counter() - t0
+        b3 = ncf_kernel.ncf_score_all_items.launches
+        want = {f"{m}_at_{EVAL_K}" for m in ("hit_rate", "ndcg", "recall")} | {"mrr"}
+        if (set(ncf["metrics"]) != want or any(v is None for v in ncf["metrics"].values())
+                or b3 != 0 or ncf["retrieval_guard"] is not None):
+            raise AssertionError(f"NCF replay: {ncf['metrics']}, B3 {b3}")
+        result["ncf_replay"] = {"seconds": ncf_s, "metrics": ncf["metrics"],
+                                "b3_launches": b3, "epochs": NCF_EPOCHS}
+
+        # (e) k-fold eval of a sequence-template Evaluation module
+        module = os.path.join(workdir, "seq_eval.py")
+        with open(module, "w") as f:
+            f.write(SEQ_EVAL_MODULE % (os.path.join(repo, "examples", "sequence", "engine.json"),
+                                       "MLApp"))
+        trained, forwards = [], []
+        real_train, real_score = seq_engine.train_sasrec, seq_engine.score_next_items_batch
+
+        def counted_train(config, sequences, *a, **kw):
+            trained.append(config.epochs * -(-len(sequences) // config.batch_size))
+            return real_train(config, sequences, *a, **kw)
+
+        def counted_score(net, prefixes):
+            forwards.append(len(prefixes))
+            return real_score(net, prefixes)
+
+        seq_engine.train_sasrec, seq_engine.score_next_items_batch = counted_train, counted_score
+        zero_flash_counts()
+        t0 = time.perf_counter()
+        try:
+            out = cli_out(["eval", "seq_eval.EVALUATION", "seq_eval.GENERATOR",
+                           "--engine-dir", workdir, "--device", "cuda"])
+        finally:
+            seq_engine.train_sasrec, seq_engine.score_next_items_batch = real_train, real_score
+        seq_s = time.perf_counter() - t0
+        counts = flash_counts()
+        recorded = storage.get_meta_data_evaluation_instances().get(
+            said(out, "Evaluation instance ID"))
+        best = json.loads(recorded.evaluator_results_json)["bestScore"]
+        uniform = EVAL_K / STORE_ITEMS
+        steps = sum(trained)
+        if (recorded.status != "COMPLETED" or counts["flash_backward"] != 2 * steps
+                or counts["flash_forward"] != 2 * steps + 2 * len(forwards)
+                or not best > SEQ_EVAL_MARGIN * uniform):
+            raise AssertionError(f"sequence eval: {recorded.status}, {counts}, steps {steps}, "
+                                 f"forwards {len(forwards)}, bestScore {best}")
+        result["sequence_eval"] = {
+            "seconds": seq_s, "status": recorded.status, "best_score_hit_at_10": best,
+            "uniform_hit_at_10": uniform, "steps": steps, "scoring_forwards": len(forwards),
+            "queries": sum(forwards), "launches": counts,
+        }
+    result["b1_launches"] = result["replay"]["b1_launches"]
+    result["b2_launches"] = (result["replay"]["b2_launches"] + result["pinned"]["b2_launches"]
+                             + result["batchpredict"]["b2_launches"])
+    result["b3_launches"] = result["ncf_replay"]["b3_launches"]
+    result["flash_launches"] = result["sequence_eval"]["launches"]
+    emit({"phase": "eval_path", **result})
     return result
 
 
@@ -3675,10 +4174,12 @@ def phase_train_verb_seq(rng: np.random.Generator, repo: str, workdir: str) -> d
     return result
 
 
-def flash_rows(check: dict, timed: dict, train_launches: dict, serve_launches: int) -> list:
+def flash_rows(check: dict, timed: dict, train_launches: dict, serve_launches: int,
+               eval_launches: dict, profile_launches: dict) -> list:
     """The ``{"kernels": [...]}`` rows of B4 and the fused backward: times
     at the training shape, the other timed shapes beside them; launches on the
-    training path (B4 also on the serving path)."""
+    training path (B4 also on the serving path), on the evaluation path
+    and on the profiled fit."""
     main_shape, *other = timed["shapes"]
     rows = []
     for name, source, line, what in (
@@ -3692,6 +4193,8 @@ def flash_rows(check: dict, timed: dict, train_launches: dict, serve_launches: i
             "source": f"predictionio_tpu_torch/csrc/{source}.cu",
             "replaces": f"predictionio_tpu/ops/flash_attention.py:{line}",
             "launches": train_launches[name],
+            "eval_path_launches": eval_launches[name],
+            "profile_train_launches": profile_launches[name],
             "max_abs_err": check["max_abs_err"][name],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -3750,6 +4253,8 @@ def main(argv: list[str] | None = None) -> int:
         serve = phase_serve(rng, workdir)
         fabric = phase_serve_fabric(rng, workdir)
     trained = phase_train(rng, repo)
+    with tempfile.TemporaryDirectory() as workdir:
+        profiled = phase_profile_train(trained, repo, workdir)
     b1_check = phase_check_b1(rng, trained)
     b1_time = phase_time_b1(rng, trained, b1_check)
     emit({"phase": "half_step_transfer", "transfer_s": b1_time["transfer_s"]})
@@ -3759,6 +4264,7 @@ def main(argv: list[str] | None = None) -> int:
     with tempfile.TemporaryDirectory() as workdir:
         store = phase_store_path(rng, repo, workdir)
         follow = phase_follow_path(rng, repo, workdir)
+        evaluated = phase_eval_path(rng, repo, workdir)
     b1_launches = trained["result"]["launches"]["gram_rhs"]
     ratings = trained["ratings"]
     del trained
@@ -3795,6 +4301,12 @@ def main(argv: list[str] | None = None) -> int:
         "launches": serve["launches"]["mips_block_topk"],
         "store_path_launches": store["b2_launches"],
         "follow_path_launches": follow["b2_launches"],
+        "eval_path_launches": {part: evaluated[part]["b2_launches"]
+                               for part in ("replay", "pinned", "batchpredict")},
+        "profile_train_launches": profiled["launches"]["mips_block_topk"],
+        "batchpredict_chunk": {k: evaluated["batchpredict"]["b2_chunk"][k] for k in (
+            "batch", "items", "rank", "block_items", "block_topk", "instance", "ms",
+            "plain_ms", "library_pair_ms", "bound_ms", "bound_by", "max_abs_err")},
         "serve_fabric_launches": {
             deploy: fabric[deploy]["b2_launches"]
             for deploy in ("unbatched", "batched", "multiproc", "sharded")},
@@ -3826,6 +4338,8 @@ def main(argv: list[str] | None = None) -> int:
         "launches": b1_launches,
         "store_path_launches": store["b1_launches"],
         "follow_path_launches": follow["b1_launches"],
+        "eval_path_launches": evaluated["b1_launches"],
+        "profile_train_launches": profiled["launches"]["gram_rhs"],
         "max_abs_err": b1_check["max_abs_err"],
         "ms": b1_main["ms"],
         "plain_ms": b1_main["plain_ms"],
@@ -3848,6 +4362,8 @@ def main(argv: list[str] | None = None) -> int:
         "source": "predictionio_tpu_torch/csrc/ncf_score.cu",
         "replaces": "predictionio_tpu/models/ncf/kernel.py:32",
         "launches": ncf_serve["launches"]["ncf_score_all_items"],
+        "eval_path_launches": evaluated["b3_launches"],
+        "profile_train_launches": profiled["launches"]["ncf_score_all_items"],
         "max_abs_err": b3_check["max_abs_err"],
         "ms": b3_main["ms"],
         "plain_ms": b3_main["plain_ms"],
@@ -3868,7 +4384,8 @@ def main(argv: list[str] | None = None) -> int:
             for s in b3_time["shapes"] if s is not b3_main
         ],
     }] + flash_rows(flash_check, flash_time, seq_trained["result"]["launches"],
-                    seq_serve["launches"]["flash_forward"])})
+                    seq_serve["launches"]["flash_forward"], evaluated["flash_launches"],
+                    profiled["launches"])})
     print(card, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu",

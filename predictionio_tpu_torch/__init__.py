@@ -16,9 +16,12 @@ What is ported so far: the ``train`` and ``deploy`` verbs
 kernels ``csrc/als_gram.cu`` and ``csrc/mips_topk.cu``), Neural-CF
 (``csrc/ncf_score.cu``) and the sequence template (SASRec,
 ``csrc/flash_attention.cu``); the event server and the store, continuous
-learning (``online/``), and the serving fabric: the micro-batched query
+learning (``online/``), the serving fabric: the micro-batched query
 server, the multi-process frontend tier and hash-sharded scorer
-processes (``serving/``).
+processes (``serving/``); and evaluation (``eval/``,
+``controller/metrics.py``: ``pio eval`` and ``pio eval --replay``),
+``pio batchpredict`` and training observability (``obs/``: ``pio train
+--profile``, structured logs, ``pio top``).
 """
 
 __version__ = "0.1.0"

@@ -3,6 +3,7 @@
 from predictionio_tpu_torch.controller.base import (
     Algorithm,
     DataSource,
+    EvalInfo,
     Params,
     Preparator,
     SanityCheck,
@@ -14,6 +15,7 @@ from predictionio_tpu_torch.controller.serving import FirstServing
 __all__ = [
     "Algorithm",
     "DataSource",
+    "EvalInfo",
     "FirstServing",
     "Params",
     "Preparator",

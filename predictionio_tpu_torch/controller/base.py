@@ -1,24 +1,28 @@
 """DASE component base classes.
 
 Port of the parts of ``predictionio_tpu/controller/base.py`` that the
-train, deploy and continuous-learning paths need: ``Params``,
-``SanityCheck``, ``DataSource`` (``read_training``, ``online_handle``),
+train, deploy, continuous-learning and evaluation paths need:
+``Params``, ``EvalInfo``, ``SanityCheck``, ``DataSource``
+(``read_training``, ``online_handle``, ``read_eval``, ``read_replay``),
 ``Preparator``, the ``Algorithm`` contract (train, fold-in, predict,
 batch_predict, warm_up, shard_model and the wire serde) and ``Serving``
 (``serve``, ``serve_batch``); plus ``TrainContext``, the port's small
-stand-in for the reference's ``RuntimeContext`` on the train path
-(device, checkpoint directory, resume). Evaluation (``read_eval``) is
-not ported.
+stand-in for the reference's ``RuntimeContext`` (device, checkpoint
+directory, resume, the runtime conf).
 """
 
 from __future__ import annotations
 
 import abc
 import io
+import logging
 import os
 import zipfile
-from dataclasses import dataclass
+from contextlib import contextmanager
+from dataclasses import dataclass, field
 from typing import Any, Mapping, Sequence
+
+logger = logging.getLogger("pio.torch.controller")
 
 
 def open_model_file(source, name: str):
@@ -43,6 +47,10 @@ class Params(dict):
 
     def get_or(self, name: str, default: Any) -> Any:
         return self.get(name, default)
+
+
+class EvalInfo(Params):
+    """Per-fold metadata returned by ``DataSource.read_eval``."""
 
 
 class Component:
@@ -73,6 +81,25 @@ class DataSource(Component, abc.ABC):
         datasource cannot be followed online."""
         return None
 
+    def read_eval(self, ctx):
+        """k-fold evaluation folds: ``[(training data, EvalInfo, [(query,
+        actual), ...]), ...]``. Default: unsupported."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement read_eval; "
+            "evaluation is unavailable for this engine"
+        )
+
+    def read_replay(self, ctx, spec):
+        """Time-travel replay split (``pio eval --replay``): train on
+        events strictly before the boundary, hold out interactions
+        at-or-after it. ``spec`` is an ``eval.split.SplitSpec``; returns
+        an ``eval.split.ReplayFold`` whose pairs are per-held-out-user
+        ``(query, [actual item ids])``. Default: unsupported."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement read_replay; "
+            "`pio eval --replay` is unavailable for this engine"
+        )
+
 
 class Preparator(Component, abc.ABC):
     @abc.abstractmethod
@@ -95,7 +122,12 @@ class TrainContext:
     (the port trains on one device; NCF refuses an axis above 1).
     ``run_key`` (a train from the store) keys the checkpoints by run, as
     the reference's ``RuntimeContext.checkpoint_manager`` does: an
-    algorithm's go to ``checkpoint_dir/<name>-<run_key>``."""
+    algorithm's go to ``checkpoint_dir/<name>-<run_key>``.
+    ``runtime_conf`` is the variant's runtime conf (``sparkConf`` /
+    ``runtimeConf`` and the verbs' ``pio.*`` keys), as the reference's
+    ``RuntimeContext.runtime_conf``: ``pio.profile`` turns on each
+    trainer's telemetry journal (``journal``), ``pio.snapshot_*`` the
+    replay read's snapshot."""
 
     device: Any = None
     checkpoint_dir: str | None = None
@@ -103,6 +135,7 @@ class TrainContext:
     telemetry: Any = None
     mesh_shape: Any = None
     run_key: str | None = None
+    runtime_conf: dict = field(default_factory=dict)
 
     def checkpoint_manager(self, name: str):
         """The step-checkpoint manager of one algorithm, or None when the
@@ -116,6 +149,44 @@ class TrainContext:
         return CheckpointManager(
             os.path.join(self.checkpoint_dir, key), fresh=not self.resume
         )
+
+    @contextmanager
+    def journal(self, name: str, fields=None):
+        """The telemetry one trainer records into: ``telemetry`` when the
+        caller gave one; else, on a profiled run (``pio.profile`` in
+        ``runtime_conf``), a ``TrainTelemetry`` journal at
+        ``<profile-dir>/<name>-telemetry.jsonl``, closed on exit; else
+        None, so an un-profiled loop pays no per-step device sync.
+        ``fields()`` (called only for a journal) returns its extra
+        ``TrainTelemetry`` arguments (``edges``,
+        ``modeled_bytes_per_iter``, ``meta`` entries beside ``name`` and
+        ``platform``). A journal that cannot be set up is logged and
+        training goes on without it."""
+        if self.telemetry is not None:
+            yield self.telemetry
+            return
+        profile_dir = self.runtime_conf.get("pio.profile")
+        journal = None
+        if profile_dir:
+            try:
+                from predictionio_tpu_torch.obs.telemetry import TrainTelemetry
+                from predictionio_tpu_torch.utils.device import resolve_device
+
+                extra = dict(fields() if fields is not None else {})
+                platform = "cpu" if resolve_device(self.device).type == "cpu" else "gpu"
+                journal = TrainTelemetry(
+                    os.path.join(str(profile_dir), f"{name}-telemetry.jsonl"),
+                    meta={"name": name, "platform": platform, **extra.pop("meta", {})},
+                    **extra,
+                )
+            except Exception:
+                # telemetry must never fail a training run
+                logger.warning("profile telemetry setup failed", exc_info=True)
+        try:
+            yield journal
+        finally:
+            if journal is not None:
+                journal.close()
 
 
 class Algorithm(Component, abc.ABC):

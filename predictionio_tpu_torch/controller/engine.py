@@ -23,6 +23,14 @@ Counterpart of ``predictionio_tpu/controller/engine.py``:
   ``load_serving_model`` is what a deploy, a hot swap and the retrain
   loop share: a blob, deserialized, beside the template's algorithm built
   with the given params.
+- ``evaluate`` is the counterpart of ``Engine.eval`` (reference
+  ``:259-282``) over a ``Template``: the DataSource's ``read_eval``
+  folds, each prepared and trained, every fold's queries scored in one
+  ``batch_predict`` pass (``batch_serve``).
+
+A template serves its engine.json's first algorithm block through
+``FirstServing`` (``first_algorithm``), as every ported template of the
+reference does.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from predictionio_tpu_torch.controller.base import (
     Params,
     Preparator,
 )
+from predictionio_tpu_torch.controller.serving import FirstServing
 from predictionio_tpu_torch.models import ncf, recommendation, sequence
 
 
@@ -196,10 +205,51 @@ def load_serving_model(template: Template, engine_params: EngineParams,
     the blob's model, its serving state built (``warm_up``: the
     retrieval index packed, so a swap's first query does not pay it)
     unless ``warm_up=False``."""
-    algorithm = template.algorithm_class(
-        engine_params.algorithm_params_list[0][1], device=device
-    )
+    algorithm = first_algorithm(template, engine_params, device)
     model = deserialize_model(template, blob)
     if warm_up:
         algorithm.warm_up(model)
     return algorithm, model
+
+
+def first_algorithm(template: Template, engine_params: EngineParams,
+                    device=None) -> Algorithm:
+    """The template's algorithm with the params of ``engine_params``'
+    first block, on ``device``; a block naming another template's
+    algorithm raises."""
+    name, params = engine_params.algorithm_params_list[0]
+    if name != template.algorithm:
+        raise ValueError(
+            f"the {template.name!r} template's algorithm is "
+            f"{template.algorithm!r}, got {name!r}"
+        )
+    return template.algorithm_class(params, device=device)
+
+
+def batch_serve(algorithm: Algorithm, model, queries: list) -> list:
+    """The served answer to each query: one ``batch_predict`` pass over
+    all of them, each prediction through ``FirstServing`` (the live
+    ``/queries.json`` combination)."""
+    serving = FirstServing()
+    indexed = list(enumerate(queries))
+    predictions = dict(algorithm.batch_predict(model, indexed))
+    return [serving.serve(q, [predictions[i]]) for i, q in indexed]
+
+
+def evaluate(template: Template, ctx, engine_params: EngineParams
+             ) -> list[tuple[Any, list[tuple[Any, Any, Any]]]]:
+    """Run the evaluation folds of ``template`` under ``engine_params``
+    on ``ctx.device`` (reference ``Engine.eval``).
+
+    Returns ``[(eval_info, [(query, prediction, actual), ...]), ...]``.
+    """
+    data_source = template.datasource_class(engine_params.data_source_params)
+    preparator = template.preparator_class(engine_params.preparator_params)
+    results = []
+    for training_data, eval_info, qa_pairs in data_source.read_eval(ctx):
+        prepared_data = preparator.prepare(ctx, training_data)
+        algorithm = first_algorithm(template, engine_params, ctx.device)
+        model = algorithm.train(ctx, prepared_data)
+        served = batch_serve(algorithm, model, [q for q, _ in qa_pairs])
+        results.append((eval_info, [(q, p, a) for (q, a), p in zip(qa_pairs, served)]))
+    return results

@@ -9,8 +9,13 @@ retrieval index, the known-user / similar-items scorers and the
 rank+format tail of the ``itemScores`` responses (predict and the
 vectorized batch path must rank identically).
 
-Not ported yet: the profile telemetry journal, the streamed fit
-(``als_fit_streamed``, ``alsFeed: "streamed"``) and multi-device meshes.
+With ``pio train --profile`` (runtime conf ``pio.profile``) the fit
+writes the per-iteration telemetry journal
+``<profile-dir>/<name>-telemetry.jsonl`` (``_telemetry_fields``,
+reference ``:570-611``).
+
+Not ported yet: the streamed fit (``als_fit_streamed``, ``alsFeed:
+"streamed"``) and multi-device meshes (ROADMAP.md Queue A item 8).
 
 Only the stage-1 search runs on the device. Every response score is
 computed on the host with the same ``np.einsum`` row arithmetic as the
@@ -32,6 +37,8 @@ from predictionio_tpu_torch.parallel.als import (
     ALSModel,
     als_fit,
     build_als_data,
+    modeled_bytes_per_iteration,
+    real_edges,
 )
 from predictionio_tpu_torch.utils.device import resolve_device
 
@@ -125,7 +132,11 @@ def fit_with_checkpoint(
     user + add another keeps the count but renumbers rows), so the
     vocabularies themselves are hashed too. A mismatch discards the
     checkpoints and trains fresh with a warning. ``interval`` <= 0
-    disables checkpointing."""
+    disables checkpointing.
+
+    ``ctx.telemetry`` gets each iteration's wall time; without one, a
+    profiled run (``pio.profile`` in ``ctx.runtime_conf``) writes the
+    telemetry journal (``ctx.journal`` with ``_telemetry_fields``)."""
     config = resolve_factor_sharding(config)
     checkpoint = ctx.checkpoint_manager(name) if interval > 0 else None
     init, start_iteration, callback = None, 0, None
@@ -166,19 +177,42 @@ def fit_with_checkpoint(
                 it, {"users": users_np, "items": items_np, "iteration": it}
             )
 
-    model = als_fit(
-        als_data,
-        config,
-        ctx.device,
-        callback=callback,
-        callback_interval=interval,
-        init=init,
-        start_iteration=start_iteration,
-        telemetry=ctx.telemetry,
-    )
+    with ctx.journal(name, lambda: _telemetry_fields(ctx, als_data, config)) as telemetry:
+        model = als_fit(
+            als_data,
+            config,
+            ctx.device,
+            callback=callback,
+            callback_interval=interval,
+            init=init,
+            start_iteration=start_iteration,
+            telemetry=telemetry,
+        )
     if checkpoint is not None:
         checkpoint.close()
     return model
+
+
+def _telemetry_fields(ctx, als_data, config: ALSConfig) -> dict:
+    """The ALS journal's ``TrainTelemetry`` fields (``ctx.journal``):
+    the edge count and the bytes model. ``solver`` is "pallas" when B1
+    runs (on the card, any solver but "xla"), else "xla"; the bytes model
+    counts the fused half-step then."""
+    on_card = resolve_device(ctx.device).type != "cpu"
+    solver = "pallas" if on_card and config.solver != "xla" else "xla"
+    itemsize = 2 if config.dtype == "bfloat16" else 4
+    return {
+        "edges": real_edges(als_data),
+        "modeled_bytes_per_iter": modeled_bytes_per_iteration(
+            als_data, config.rank, itemsize, fused=solver == "pallas"
+        ),
+        "meta": {
+            "rank": config.rank,
+            "solver": solver,
+            "dtype": config.dtype,
+            "iterations": config.iterations,
+        },
+    }
 
 
 def build_seen(users: np.ndarray, items: np.ndarray) -> dict[int, set[int]]:

@@ -17,7 +17,12 @@ The reference's ``_pallas_with_fallback`` and its numpy fallback are not
 ported: a model served on the card launches B3 or raises.
 ``seenFilter: "live"`` reads the user's events from the store per query
 (``models/_streaming.py``), as in ``ALSAlgorithm``: when the model was
-trained so, or the serving engine.json asks for it.
+trained so, or the serving engine.json asks for it. A model trained on
+an evaluation fold (``RatingsData.eval_fold``: ``pio eval``, ``pio eval
+--replay``) keeps the trained-in map instead and never reads live
+(reference ``:230``): the store still holds the fold's held-out events.
+The template shares ``RecommendationDataSource``, so it has its
+``read_eval`` and ``read_replay``.
 """
 
 from __future__ import annotations
@@ -82,6 +87,8 @@ class NCFModel:
     seen_mode: str = "model"
     app_name: str = ""
     event_names: list[str] = None
+    #: trained on an evaluation fold: never filters live (not persisted)
+    eval_fold: bool = False
     _scorers: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     def _cached(self, key, build):
@@ -163,33 +170,41 @@ class NCFAlgorithm(Algorithm):
     def train(self, ctx, data: RatingsData) -> NCFModel:
         config = self._config(data)
         users, items, labels = data.users, data.items, data.ratings
-        if config.implicit:
-            t0 = time.perf_counter()
-            users, items, labels = make_implicit_batches(
-                users, items, data.num_items, config.negatives,
-                np.random.default_rng(config.seed), device=self.device,
-            )
-            if ctx.telemetry is not None:
-                ctx.telemetry.record_phase(
-                    "negative_sampling", time.perf_counter() - t0, int(users.size)
-                )
         checkpoint = (
             ctx.checkpoint_manager("ncf") if self.params.get_or("checkpoint", True) else None
         )
-        state, _ = train_ncf(
-            config, users, items, labels, self.device, checkpoint=checkpoint,
-            mesh_shape=ctx.mesh_shape, telemetry=ctx.telemetry,
-        )
+        with ctx.journal("ncf") as telemetry:
+            if config.implicit:
+                t0 = time.perf_counter()
+                users, items, labels = make_implicit_batches(
+                    users, items, data.num_items, config.negatives,
+                    np.random.default_rng(config.seed), device=self.device,
+                )
+                if telemetry is not None:
+                    telemetry.record_phase(
+                        "negative_sampling", time.perf_counter() - t0, int(users.size)
+                    )
+            state, _ = train_ncf(
+                config, users, items, labels, self.device, checkpoint=checkpoint,
+                mesh_shape=ctx.mesh_shape, telemetry=telemetry,
+            )
+        seen_mode = self.seen_mode
+        if seen_mode == "live" and data.eval_fold:
+            # a live read would -inf every held-out item (they still exist
+            # in the store) and zero eval metrics; fold data carries its
+            # train edges, so the trained-in map is correct there
+            seen_mode = "model"
         return NCFModel(
             state=state,
             user_index={uid: j for j, uid in enumerate(data.user_ids)},
             item_ids=list(data.item_ids),
             item_index={iid: j for j, iid in enumerate(data.item_ids)},
-            seen=build_seen(data.users, data.items) if self.seen_mode == "model" else {},
+            seen=build_seen(data.users, data.items) if seen_mode == "model" else {},
             config=config,
-            seen_mode=self.seen_mode,
+            seen_mode=seen_mode,
             app_name=data.app_name,
             event_names=list(data.event_names),
+            eval_fold=data.eval_fold,
         )
 
     def warm_up(self, model: NCFModel) -> None:
@@ -202,7 +217,7 @@ class NCFAlgorithm(Algorithm):
 
     @staticmethod
     def _seen(model: NCFModel, query, user_idx, cache=None, live=False) -> set[int]:
-        if not live and model.seen_mode != "live":
+        if model.eval_fold or (not live and model.seen_mode != "live"):
             return model.seen.get(user_idx, set())
         return live_seen_indices(model, str(query.get("user")), cache)
 

@@ -6,8 +6,10 @@ training half (``RatingsData``, ``RecommendationDataSource``,
 half (``RecommendationModel``, the query side of ``ALSAlgorithm``) and
 the continuous-learning hooks (``RecommendationDataSource.online_handle``,
 ``ALSAlgorithm.fold_in``, reference ``:130``, ``:492-530``) that
-``pio retrain --follow`` (``online/loop.py``) runs, and the serving
-fabric's ``ALSAlgorithm.shard_model`` (reference ``:438-470``).
+``pio retrain --follow`` (``online/loop.py``) runs, the serving
+fabric's ``ALSAlgorithm.shard_model`` (reference ``:438-470``), and the
+evaluation hooks (reference ``:140-239``): ``read_eval`` (time-ordered
+k-fold) and ``read_replay`` (the ``pio eval --replay`` split).
 
 The DataSource reads the event store (``PEventStore.dataset`` of the
 ``appName`` app, the reference's filters), or a JSON-lines events file
@@ -22,11 +24,15 @@ plus item-based queries ``{"items": [...], "num": k}`` for similarity.
 ``models/_streaming.py``; a model trained so keeps no seen map). A
 query filters live when its model was trained live or the serving
 engine.json asks for it: every model names the app and events a live
-read needs.
+read needs. An evaluation fold's model never filters live (reference
+``:389-399``): a live read would see the fold's held-out events and
+score every actual item -inf, so training on a fold keeps the seen map
+and marks the model ``eval_fold``.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -34,6 +40,7 @@ import numpy as np
 from predictionio_tpu_torch.controller.base import (
     Algorithm,
     DataSource,
+    EvalInfo,
     Preparator,
     SanityCheck,
 )
@@ -58,6 +65,8 @@ from predictionio_tpu_torch.models._streaming import (
 from predictionio_tpu_torch.parallel.als import ALSConfig, ALSModel
 from predictionio_tpu_torch.utils.device import resolve_device
 
+logger = logging.getLogger("pio.torch.recommendation")
+
 
 @dataclass
 class RatingsData(SanityCheck):
@@ -71,6 +80,12 @@ class RatingsData(SanityCheck):
     item_ids: list[str]
     app_name: str = ""
     event_names: list[str] = field(default_factory=list)
+    channel_name: str = None   # non-default channel the data came from
+    #: True for read_eval's and read_replay's fold copies: live seen
+    #: filtering is downgraded to the trained-in map there (the held-out
+    #: events still exist in the store, and a live read would exclude
+    #: every 'actual' item)
+    eval_fold: bool = False
 
     def sanity_check(self) -> None:
         if self.users.size == 0:
@@ -93,9 +108,10 @@ class RecommendationDataSource(DataSource):
 
     Params: ``appName`` (required to read the store), ``eventNames``
     (default ["rate", "buy"]), ``ratingKey`` (property holding the rating;
-    "buy"-style events without it score 1.0). With ``events_path`` the
-    JSON-lines events file is read in place of the store. ``"reader":
-    "streaming"`` (the reference's sharded reader) is not ported.
+    "buy"-style events without it score 1.0), ``evalK``/``evalFolds`` for
+    read_eval. With ``events_path`` the JSON-lines events file is read in
+    place of the store. ``"reader": "streaming"`` (the reference's sharded
+    reader) is not ported.
     """
 
     def __init__(self, params=None, *, events_path: str | None = None):
@@ -107,7 +123,10 @@ class RecommendationDataSource(DataSource):
                 "ported yet: ROADMAP.md Queue A item 8; leave it out"
             )
 
-    def read_training(self, ctx) -> RatingsData:
+    def _read(self, **snapshot) -> RatingsData:
+        """The ratings of the store (``snapshot``: ``snapshot_mode`` /
+        ``snapshot_dir`` for ``PEventStore.dataset``) or of the events
+        file."""
         event_names = self.params.get_or("eventNames", ["rate", "buy"])
         rating_key = self.params.get_or("ratingKey", "rating")
         if self.events_path is None:
@@ -116,6 +135,7 @@ class RecommendationDataSource(DataSource):
                 rating_key=rating_key,
                 event_names=event_names,
                 target_entity_type="item",
+                **snapshot,
             )
         else:
             ds = read_events_file(
@@ -137,6 +157,9 @@ class RecommendationDataSource(DataSource):
             event_names=list(event_names),
         )
 
+    def read_training(self, ctx) -> RatingsData:
+        return self._read()
+
     def online_handle(self):
         """The continuous-learning loop's scan descriptor: same identity
         (app/channel/event names/rating key) as the training read, so the
@@ -146,6 +169,82 @@ class RecommendationDataSource(DataSource):
             empty_message="no rating events found -- check appName and "
             "eventNames",
         )
+
+    @staticmethod
+    def _fold(data: RatingsData, keep: np.ndarray) -> RatingsData:
+        """The ``keep`` rows of ``data`` as an evaluation fold's training
+        data (``eval_fold``)."""
+        return RatingsData(
+            users=data.users[keep],
+            items=data.items[keep],
+            ratings=data.ratings[keep],
+            times=data.times[keep],
+            user_ids=data.user_ids,
+            item_ids=data.item_ids,
+            app_name=data.app_name,
+            event_names=data.event_names,
+            eval_fold=True,
+        )
+
+    def read_eval(self, ctx):
+        """Time-ordered k-fold: hold out each fold's interactions as
+        (query, actual) pairs asking for top-`evalK` recommendations."""
+        data = self._read()
+        folds = self.params.get_or("evalFolds", 3)
+        eval_k = self.params.get_or("evalK", 10)
+        out = []
+        for f in range(folds):
+            test_mask = (np.arange(data.users.size) % folds) == f
+            qa = {}
+            for u, i in zip(data.users[test_mask], data.items[test_mask]):
+                qa.setdefault(u, set()).add(i)
+            pairs = [
+                (
+                    {"user": data.user_ids[u], "num": eval_k},
+                    [data.item_ids[i] for i in items],
+                )
+                for u, items in qa.items()
+            ]
+            out.append((self._fold(data, ~test_mask), EvalInfo(fold=f), pairs))
+        return out
+
+    def _read_replay_source(self, ctx) -> RatingsData:
+        """``_read()``, served from the training snapshot
+        (``data/snapshot.py``) when ``ctx.runtime_conf`` or the
+        environment enables it (``--snapshot-mode use|refresh``): the
+        replay's prefix then trains with zero SQL scans, and reruns
+        against the same generation replay identical bytes. A snapshot
+        miss degrades to the direct store read (``PEventStore.dataset``
+        logs it), never fails the eval."""
+        from predictionio_tpu_torch.data.snapshot import snapshot_settings
+
+        runtime_conf = getattr(ctx, "runtime_conf", None) or {}
+        mode, root = snapshot_settings(runtime_conf)
+        if mode == "off" or self.events_path is not None:
+            return self._read()
+        data = self._read(snapshot_mode=mode, snapshot_dir=root)
+        data.channel_name = self.params.get_or("channelName", None)
+        return data
+
+    def read_replay(self, ctx, spec):
+        """Time-travel replay fold (``pio eval --replay``): train on
+        ratings strictly before the boundary, ask for each held-out
+        user's top-``spec.k`` (cold holdout users -- no training events
+        -- stay in the fold and score as misses). The fold carries
+        ``eval_fold=True`` so a ``seenFilter: "live"`` variant downgrades
+        to the trained-in map, exactly like the k-fold path."""
+        from predictionio_tpu_torch.eval.split import ReplayFold, split_interactions
+
+        data = self._read_replay_source(ctx)
+        cut = split_interactions(data.users, data.items, data.times, spec)
+        pairs = [
+            (
+                {"user": data.user_ids[u], "num": spec.k},
+                [data.item_ids[int(i)] for i in items],
+            )
+            for u, items in cut.holdout.items()
+        ]
+        return ReplayFold(self._fold(data, cut.train_mask), pairs, cut.bounds)
 
 
 class RecommendationPreparator(Preparator):
@@ -184,15 +283,18 @@ class RecommendationModel:
     seen_mode: str = "model"
     app_name: str = ""
     event_names: list[str] = None
+    #: trained on an evaluation fold: never filters live (not persisted)
+    eval_fold: bool = False
 
 
 def _seen_indices(model: RecommendationModel, query, user_idx: int,
                   cache: dict | None = None, live: bool = False) -> set[int]:
     """The user's already-interacted item indices for the unseenOnly
     filter: the trained-in map, or in "live" mode (the model's, or
-    ``live``) the store's events of the query's user (a store error
-    degrades to nothing seen)."""
-    if not live and model.seen_mode != "live":
+    ``live``, unless the model is an evaluation fold's) the store's
+    events of the query's user (a store error degrades to nothing
+    seen)."""
+    if model.eval_fold or (not live and model.seen_mode != "live"):
         return model.seen.get(user_idx, set())
     return live_seen_indices(model, str(query.get("user")), cache)
 
@@ -243,6 +345,18 @@ class ALSAlgorithm(Algorithm):
     def train(self, ctx, prepared) -> RecommendationModel:
         ratings_data, als_data = prepared
         warn_misplaced_packing_params(self.params, "recommendation")
+        seen_mode = self.seen_mode
+        if seen_mode == "live" and ratings_data.eval_fold:
+            # a live read sees the WHOLE store -- including the held-out
+            # test events -- and would score every 'actual' item -inf,
+            # collapsing fold metrics to zero. Evaluation folds carry
+            # their train-edge arrays, so the trained-in map is both
+            # correct and available.
+            logger.info(
+                "seenFilter 'live' downgraded to 'model' for this "
+                "evaluation fold (a live read would exclude held-out items)"
+            )
+            seen_mode = "model"
         model = fit_with_checkpoint(
             ctx,
             als_data,
@@ -259,11 +373,12 @@ class ALSAlgorithm(Algorithm):
             # "live" keeps the serving model O(entities): no seen map
             seen=(
                 build_seen(ratings_data.users, ratings_data.items)
-                if self.seen_mode == "model" else {}
+                if seen_mode == "model" else {}
             ),
-            seen_mode=self.seen_mode,
+            seen_mode=seen_mode,
             app_name=ratings_data.app_name,
             event_names=list(ratings_data.event_names),
+            eval_fold=ratings_data.eval_fold,
         )
 
     def warm_up(self, model: RecommendationModel) -> None:
@@ -373,6 +488,14 @@ class ALSAlgorithm(Algorithm):
             app_name=model.app_name,
             event_names=model.event_names,
         )
+
+    def query_from_json(self, obj):
+        """A query names a ``user`` or ``items`` (``predict``'s two kinds):
+        one that names neither is refused here, before it reaches a batch
+        (``pio batchpredict`` writes it an error row)."""
+        if isinstance(obj, dict) and "user" not in obj and "items" not in obj:
+            raise ValueError("query must contain 'user' or 'items'")
+        return obj
 
     def predict(self, model: RecommendationModel, query) -> dict:
         num = int(query.get("num", 10))

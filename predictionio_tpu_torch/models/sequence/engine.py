@@ -21,7 +21,8 @@ explicit prefix), with ``blackList`` and ``unseenOnly``. Response:
 ``historyMode: "live"`` continues the user's events read from the store
 per query (``models/_streaming.py``) instead of the trained-in history:
 when the model was trained so, or the serving engine.json asks for it.
-Not ported: ``read_eval`` waits with the eval workflow.
+``SequenceDataSource.read_eval`` (reference ``:109-140``) holds out each
+user's last item per fold (leave-one-out) for ``pio eval``.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import numpy as np
 from predictionio_tpu_torch.controller.base import (
     Algorithm,
     DataSource,
+    EvalInfo,
     Preparator,
     SanityCheck,
 )
@@ -101,8 +103,9 @@ class SequenceDataSource(DataSource):
 
     Params: ``appName`` (required to read the store), ``eventNames``
     (default ``["view", "buy", "rate"]``), ``minSeqLen`` (drop shorter
-    histories, default 2). With ``events_path`` the JSON-lines events
-    file is read in place of the store.
+    histories, default 2), ``evalFolds``/``evalK`` for read_eval. With
+    ``events_path`` the JSON-lines events file is read in place of the
+    store.
     """
 
     def __init__(self, params=None, *, events_path: str | None = None):
@@ -129,6 +132,39 @@ class SequenceDataSource(DataSource):
             app_name=self.params.get_or("appName", ""),
             event_names=list(event_names),
         )
+
+    def read_eval(self, ctx):
+        """Leave-one-out per fold: hold out each user's last item as the
+        actual, query on the preceding history (the SASRec protocol)."""
+        data = self.read_training(ctx)
+        folds = self.params.get_or("evalFolds", 1)
+        eval_k = self.params.get_or("evalK", 10)
+        out = []
+        for f in range(folds):
+            train_seqs, pairs, users = [], [], []
+            for uid, seq in zip(data.user_ids, data.sequences):
+                if len(seq) < 3:
+                    train_seqs.append(seq)
+                    users.append(uid)
+                    continue
+                cut = len(seq) - 1 - (f % max(len(seq) - 2, 1))
+                train_seqs.append(seq[:cut])
+                users.append(uid)
+                pairs.append(
+                    (
+                        {"items": [data.item_ids[i] for i in seq[:cut]],
+                         "num": eval_k},
+                        [data.item_ids[seq[cut]]],
+                    )
+                )
+            out.append(
+                (
+                    SequencesData(train_seqs, users, data.item_ids),
+                    EvalInfo(fold=f),
+                    pairs,
+                )
+            )
+        return out
 
 
 @dataclass
@@ -237,8 +273,9 @@ class SASRecAlgorithm(Algorithm):
             seq_parallel=p.get_or("seqParallel", "ring"),
             attention=p.get_or("attention", "auto"),
         )
-        state, _ = train_sasrec(config, prepared.matrix, self.device,
-                                mesh_shape=ctx.mesh_shape, telemetry=ctx.telemetry)
+        with ctx.journal("sasrec") as telemetry:
+            state, _ = train_sasrec(config, prepared.matrix, self.device,
+                                    mesh_shape=ctx.mesh_shape, telemetry=telemetry)
         return SASRecModel(
             state=state,
             config=config,

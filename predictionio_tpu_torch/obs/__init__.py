@@ -1,10 +1,18 @@
-"""Observability substrate of the port: the span tracer.
+"""Observability substrate of the port: tracing, structured logs,
+training telemetry, ``pio top``.
 
-Counterpart of ``predictionio_tpu/obs/__init__.py``: ``obs.trace`` (a
-copy of the reference's low-overhead span tracer, W3C ``traceparent``
-in and out, bounded ring buffers, ``GET /traces.json`` on every service
-router) with the same re-exports. The structured logs, the training
-telemetry journal and ``pio top`` are ROADMAP.md Queue A item 5.
+Counterpart of ``predictionio_tpu/obs/__init__.py``, with the same
+re-exports. Every module is a copy of the reference's (framework-free):
+
+- ``obs.trace``     -- the low-overhead span tracer (W3C ``traceparent``
+  in and out, bounded ring buffers, ``GET /traces.json`` on every
+  service router).
+- ``obs.logs``      -- ``--log-format json``: one JSON object per record,
+  with ``trace_id``/``span_id`` when a span is active.
+- ``obs.telemetry`` -- the per-step training journal behind ``pio train
+  --profile`` (wall time, edges/sec, modeled-bytes achieved GB/s).
+- ``obs.top``       -- the ``pio top`` live terminal view over
+  ``/metrics`` + ``/traces.json``.
 """
 
 from predictionio_tpu_torch.obs.trace import (  # noqa: F401

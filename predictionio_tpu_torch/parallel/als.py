@@ -36,6 +36,7 @@ the scan's.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 
@@ -337,14 +338,23 @@ def half_step_fn(solver: str):
     return gram_rhs_plain if solver == "xla" else gram_rhs
 
 
-def solve_rows(gram_fn, block, opp_full, yty, config: ALSConfig, out_dtype):
+def _no_mark(name: str):
+    return contextlib.nullcontext()
+
+
+def solve_rows(gram_fn, block, opp_full, yty, config: ALSConfig, out_dtype,
+               mark=_no_mark):
     """One bucket's half-step: Gram/rhs of its rows against ``opp_full``
-    ([S + 1, K], zero row last), then the shared tail."""
+    ([S + 1, K], zero row last), then the shared tail. ``mark(name)``
+    names the two parts (``als.gram_rhs``, ``als.solve``) for a profiler
+    trace."""
     idx, val, n_obs = block
-    gram, rhs = gram_fn(idx, val, opp_full, config.alpha, implicit=config.implicit)
-    if config.implicit:
-        return _finish_implicit(gram, rhs, yty, config.reg, config.rank, out_dtype)
-    return _finish_explicit(gram, rhs, n_obs, config.reg, config.rank, out_dtype)
+    with mark("als.gram_rhs"):
+        gram, rhs = gram_fn(idx, val, opp_full, config.alpha, implicit=config.implicit)
+    with mark("als.solve"):
+        if config.implicit:
+            return _finish_implicit(gram, rhs, yty, config.reg, config.rank, out_dtype)
+        return _finish_explicit(gram, rhs, n_obs, config.reg, config.rank, out_dtype)
 
 
 @dataclass
@@ -482,7 +492,9 @@ def als_fit(
 
     ``telemetry`` (any object with ``record_step(iteration, seconds)``)
     gets each iteration's wall time; it synchronizes the device after
-    every iteration, so it is paid only when asked for.
+    every iteration, so it is paid only when asked for, and marks each
+    iteration (``als.iteration``) and each half-step's Gram and solve as
+    ranges for a profiler trace.
     """
     device = resolve_device(device)
     if config.dtype not in _DTYPES:
@@ -517,13 +529,16 @@ def als_fit(
     users = _side_buffer(users0, dtype, device)
     items = _side_buffer(items0, dtype, device)
     zero_yty = torch.zeros((config.rank, config.rank), device=device)
+    # a telemetered run names each iteration and each half-step's Gram and
+    # solve in a profiler trace (``pio train --profile``)
+    mark = torch.profiler.record_function if telemetry is not None else _no_mark
 
     def solve_side(blocks, buf, opp):
         # the global Gram excludes the zero row; phantom rows are zero too
         yty = _factors_yty(opp[:-1]) if config.implicit else zero_yty
         off = 0
         for block in blocks:
-            rows = solve_rows(gram_fn, block, opp, yty, config, dtype)
+            rows = solve_rows(gram_fn, block, opp, yty, config, dtype, mark)
             buf[off : off + rows.shape[0]] = rows
             off += rows.shape[0]
 
@@ -534,12 +549,13 @@ def als_fit(
 
     for it in range(start_iteration, config.iterations):
         t0 = time.perf_counter()
-        solve_side(u_blocks, users, items)
-        solve_side(i_blocks, items, users)
-        if telemetry is not None:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            telemetry.record_step(it, time.perf_counter() - t0)
+        with mark("als.iteration"):
+            solve_side(u_blocks, users, items)
+            solve_side(i_blocks, items, users)
+            if telemetry is not None:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                telemetry.record_step(it, time.perf_counter() - t0)
         if (
             callback is not None
             and (it + 1) % callback_interval == 0

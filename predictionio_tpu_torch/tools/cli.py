@@ -7,7 +7,7 @@
         [--ingest-mode sync|wal] [--wal-partitions P] [--frontend-workers M]
     python -m predictionio_tpu_torch.tools.cli train --engine-dir ENGINE_DIR \\
         [--variant engine.json] [--resume] [--snapshot-mode off|use|refresh] \\
-        [--device cuda|cpu]
+        [--profile [DIR]] [--device cuda|cpu]
     python -m predictionio_tpu_torch.tools.cli deploy --engine-dir ENGINE_DIR \\
         [--engine-instance-id ID | --model-version N] [--port 8000] \\
         [--batch-window-ms 2 --max-batch-size 64 --batch-buckets 1,4,16,64,128] \\
@@ -15,6 +15,15 @@
         [--device cuda|cpu]
     python -m predictionio_tpu_torch.tools.cli retrain --engine-dir ENGINE_DIR \\
         [--follow] [--notify URL] [--scorer-shards N] [--device cuda|cpu]
+    python -m predictionio_tpu_torch.tools.cli eval --replay --engine-dir ENGINE_DIR \\
+        [--split-time ISO | --split-frac F] [--k 10] [--metrics ...] \\
+        [--model-version N] [--no-retrieval-guard] [--device cuda|cpu]
+    python -m predictionio_tpu_torch.tools.cli eval my_eval.EVALUATION \\
+        [my_eval.GENERATOR] --engine-dir DIR [--device cuda|cpu]
+    python -m predictionio_tpu_torch.tools.cli batchpredict --engine-dir ENGINE_DIR \\
+        --input queries.jsonl --output predictions.jsonl \\
+        [--engine-instance-id ID] [--device cuda|cpu]
+    python -m predictionio_tpu_torch.tools.cli top [URL ...] [--iterations N]
 
 Storage is configured as the reference's is (``PIO_STORAGE_*``; by
 default sqlite under ``$PIO_FS_BASEDIR``), so both packages may share
@@ -28,7 +37,10 @@ one store.
   template's DataSource reads the store, and the run is recorded as an
   engine instance with its model blob (``workflow/core_workflow.py``).
   ``--snapshot-mode use|refresh`` serves the read from the on-disk
-  training snapshot (``data/snapshot.py``).
+  training snapshot (``data/snapshot.py``). ``--profile [DIR]`` (default
+  ``ENGINE_DIR/pio-profile``) writes a ``torch.profiler`` Chrome trace of
+  the training call and the telemetry journal (ALS: one line per
+  iteration with edges/sec and achieved GB/s) into DIR.
   With ``--events FILE --model-out DIR`` it reads a JSON-lines events
   file instead (the ``pio import`` wire shape) and writes the model
   directory with the template's ``save_model``, recording nothing;
@@ -58,13 +70,31 @@ one store.
   or with ``--follow`` until interrupted; past the staleness budget it
   trains in full from the store. ``--scorer-shards N`` also publishes N
   per-shard blobs for a ``deploy --scorer-shards N`` fabric.
+- ``eval --replay`` (``eval/replay.py``) cuts the store's timeline,
+  trains on the prefix (or ``--model-version N`` pins a registry
+  version), scores every held-out user in one ``batch_predict`` pass and
+  prints the JSON report with the scan-vs-mips retrieval guard; ``eval
+  EVALUATION [GENERATOR]`` runs a user module's ``Evaluation`` built of
+  the port's ``controller/metrics.py`` over its template's ``read_eval``
+  folds and records an evaluation instance. A bad metric, a malformed
+  split, a template without the hook or a missing registry version
+  exits 2 with a one-line error; an object that is not the port's
+  ``Evaluation`` / ``EngineParamsGenerator`` (one of the JAX package)
+  is refused.
+- ``batchpredict`` (``workflow/batch_predict.py``) scores a JSON-lines
+  query file through an instance's model, 4,096 queries a
+  ``batch_predict`` call.
+- ``top`` (``obs/top.py``) polls servers' ``/metrics`` and
+  ``/traces.json``.
+- ``--log-format json`` on ``eventserver``, ``train``, ``deploy`` and
+  ``retrain`` logs one JSON object per record (``obs/logs.py``).
 
 The ported templates are picked by ``engineFactory`` or, without one, by
 the first algorithm's name (``controller/engine.py``): recommendation
 (``als``; B1 in training, B2 with ``"retrieval": {"mode": "mips"}``),
 Neural-CF (``ncf``; B3) and sequence (``sasrec``; B4 and the fused
-backward). ``train``, ``deploy`` and ``retrain`` run on the card unless
-``--device cpu``.
+backward). ``train``, ``deploy``, ``retrain``, ``eval`` and
+``batchpredict`` run on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -77,6 +107,7 @@ import sys
 
 from predictionio_tpu_torch.controller.base import TrainContext
 from predictionio_tpu_torch.controller.engine import Template
+from predictionio_tpu_torch.obs.logs import add_logging_arguments, configure_logging
 from predictionio_tpu_torch.online.registry import RegistryError
 from predictionio_tpu_torch.tools import app_commands, import_export
 from predictionio_tpu_torch.workflow.core_workflow import (
@@ -125,6 +156,7 @@ def train(engine_json: str, events_path: str, model_out: str, *,
     ctx = TrainContext(
         device=algorithm.device, checkpoint_dir=checkpoint_dir, resume=resume,
         mesh_shape=variant.runtime_conf.get("pio.mesh_shape"),
+        runtime_conf=dict(variant.runtime_conf),
     )
     model = train_model(ctx, datasource, preparator, algorithm)
     template.save_model(model, model_out)
@@ -188,6 +220,7 @@ def _load_plugins(specs: list[str]) -> list:
 def cmd_eventserver(args: argparse.Namespace) -> int:
     from predictionio_tpu_torch.data.api.eventserver import run_event_server
 
+    configure_logging(args.log_format)
     run_event_server(
         host=args.ip, port=args.port, stats=args.stats,
         ssl_cert=args.ssl_cert, ssl_key=args.ssl_key,
@@ -200,23 +233,25 @@ def cmd_eventserver(args: argparse.Namespace) -> int:
 
 
 def cmd_train(args: argparse.Namespace) -> int:
+    configure_logging(args.log_format)
     if args.events is not None:
         if args.model_out is None:
             raise SystemExit("Error: --events needs --model-out")
+        if args.profile:
+            raise SystemExit("Error: --profile traces a train from the store; "
+                             "leave out --events")
         model = train(_variant_path(args), args.events, args.model_out,
                       resume=args.resume, device=args.device)
         print(f"trained a model of {len(model.item_ids)} items into "
               f"{args.model_out} ({args.device})", flush=True)
         return 0
     variant = load_engine_variant(_variant_path(args))
-    # runtime conf reaches components holding a ctx; the env mirrors it for
-    # ctx-free layers (PEventStore.dataset) in this same process
-    if args.snapshot_mode:
-        variant.runtime_conf["pio.snapshot_mode"] = args.snapshot_mode
-        os.environ["PIO_SNAPSHOT_MODE"] = args.snapshot_mode
-    if args.snapshot_dir:
-        variant.runtime_conf["pio.snapshot_dir"] = args.snapshot_dir
-        os.environ["PIO_SNAPSHOT_DIR"] = args.snapshot_dir
+    if args.profile:
+        variant.runtime_conf["pio.profile"] = (
+            os.path.join(args.engine_dir, "pio-profile")
+            if args.profile == "__default__" else args.profile
+        )
+    _snapshot_args(args, variant)
     instance = run_train(
         variant,
         WorkflowParams(batch=args.batch, skip_sanity_check=args.skip_sanity_check,
@@ -228,6 +263,7 @@ def cmd_train(args: argparse.Namespace) -> int:
 
 
 def cmd_deploy(args: argparse.Namespace) -> int:
+    configure_logging(args.log_format)
     feedback = None
     if args.feedback:
         feedback = FeedbackConfig(
@@ -307,6 +343,7 @@ def cmd_retrain(args: argparse.Namespace) -> int:
     from predictionio_tpu_torch.online.foldin import StalenessBudget
     from predictionio_tpu_torch.online.loop import RetrainConfig, RetrainLoop
 
+    configure_logging(args.log_format)
     variant = load_engine_variant(_variant_path(args))
     notify = [u for u in (args.notify or ["http://localhost:8000"]) if u]
     config = RetrainConfig(
@@ -340,6 +377,148 @@ def cmd_retrain(args: argparse.Namespace) -> int:
     return 0
 
 
+def _snapshot_args(args: argparse.Namespace, variant: EngineVariant) -> None:
+    """``--snapshot-mode`` / ``--snapshot-dir`` into the runtime conf,
+    mirrored in the env for ctx-free layers (``PEventStore.dataset``)."""
+    if args.snapshot_mode:
+        variant.runtime_conf["pio.snapshot_mode"] = args.snapshot_mode
+        os.environ["PIO_SNAPSHOT_MODE"] = args.snapshot_mode
+    if args.snapshot_dir:
+        variant.runtime_conf["pio.snapshot_dir"] = args.snapshot_dir
+        os.environ["PIO_SNAPSHOT_DIR"] = args.snapshot_dir
+
+
+def _resolve_dotted(dotted: str, engine_dir: str, want: type):
+    """The ``want`` (the port's ``Evaluation`` or
+    ``EngineParamsGenerator``) a dotted path names, calling it when it is
+    a subclass or a factory function. Anything else -- one of the JAX
+    package's objects among them -- is refused, never adapted."""
+    from predictionio_tpu_torch.workflow.json_extractor import (
+        EngineConfigError,
+        resolve_dotted,
+    )
+
+    try:
+        obj = resolve_dotted(dotted, engine_dir)
+    except EngineConfigError as exc:
+        raise SystemExit(f"Error: {exc}")
+    if not isinstance(obj, want) and (
+        (isinstance(obj, type) and issubclass(obj, want))
+        or (callable(obj) and not isinstance(obj, type))
+    ):
+        obj = obj()
+    if not isinstance(obj, want):
+        kind = type(obj) if not isinstance(obj, type) else obj
+        raise SystemExit(
+            f"Error: {dotted!r} did not yield the port's {want.__name__} (got "
+            f"{kind.__module__}.{kind.__qualname__}); build it from "
+            "predictionio_tpu_torch.controller.metrics"
+        )
+    return obj
+
+
+def _cmd_replay_eval(args: argparse.Namespace) -> int:
+    import json
+
+    from predictionio_tpu_torch.eval.replay import run_replay_eval
+
+    variant = load_engine_variant(_variant_path(args))
+    _snapshot_args(args, variant)
+    try:
+        report = run_replay_eval(
+            variant,
+            split_time=args.split_time,
+            split_frac=args.split_frac,
+            k=args.k,
+            metrics=args.metrics,
+            model_version=args.model_version,
+            registry_dir=args.registry_dir,
+            retrieval_guard=not args.no_retrieval_guard,
+            device=args.device,
+        )
+    except (ValueError, NotImplementedError, RegistryError) as exc:
+        # exit-2 contract: a bad metric name, malformed boundary,
+        # unsupported template, or GC'd pinned version is an actionable
+        # one-liner, never a traceback
+        print(f"Error: {exc}")
+        return 2
+    text = json.dumps(report, indent=2, sort_keys=True)
+    print(text)
+    if args.output_path:
+        with open(args.output_path, "w") as f:
+            f.write(text + "\n")
+        print(f"Results written to {args.output_path}")
+    return 0
+
+
+def cmd_eval(args: argparse.Namespace) -> int:
+    from predictionio_tpu_torch.controller.engine import EngineParams
+    from predictionio_tpu_torch.controller.metrics import (
+        EngineParamsGenerator,
+        Evaluation,
+    )
+    from predictionio_tpu_torch.workflow.core_workflow import run_evaluation
+
+    if args.replay:
+        return _cmd_replay_eval(args)
+    if not args.evaluation:
+        print(
+            "Error: pio eval needs a dotted Evaluation path, or --replay"
+            " for the offline replay harness"
+        )
+        return 2
+    evaluation = _resolve_dotted(args.evaluation, args.engine_dir, Evaluation)
+    if args.paramsgen:
+        generator = _resolve_dotted(args.paramsgen, args.engine_dir,
+                                    EngineParamsGenerator)
+    else:
+        generator = EngineParamsGenerator([EngineParams()])
+    instance = run_evaluation(
+        evaluation,
+        generator,
+        evaluation_class=args.evaluation,
+        generator_class=args.paramsgen or "",
+        device=args.device,
+    )
+    print(instance.evaluator_results)
+    if args.output_path:
+        with open(args.output_path, "w") as f:
+            f.write(instance.evaluator_results_json)
+        print(f"Results written to {args.output_path}")
+    print(f"Evaluation instance ID: {instance.id}")
+    return 0
+
+
+def cmd_batchpredict(args: argparse.Namespace) -> int:
+    from predictionio_tpu_torch.workflow.batch_predict import run_batch_predict
+
+    variant = load_engine_variant(_variant_path(args))
+    try:
+        count = run_batch_predict(
+            variant, args.input, args.output,
+            instance_id=args.engine_instance_id, device=args.device,
+        )
+    except LookupError as exc:
+        raise SystemExit(f"Error: {exc}")
+    print(f"Batch predict completed: {count} queries -> {args.output}")
+    return 0
+
+
+def cmd_top(args: argparse.Namespace) -> int:
+    from predictionio_tpu_torch.obs.top import run_top
+
+    try:
+        run_top(
+            args.urls or ["http://localhost:8000"],
+            interval=args.interval,
+            iterations=args.iterations,
+            clear=not args.no_clear,
+        )
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="predictionio_tpu_torch.tools.cli")
     verbs = parser.add_subparsers(dest="verb", required=True)
@@ -368,6 +547,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="disable the span tracer (/traces.json reports enabled=false)")
     es.add_argument("--trace-sample", type=float, default=None, metavar="RATE",
                     help="head-sampling rate (0..1) for headerless root traces")
+    add_logging_arguments(es)
     es.set_defaults(func=cmd_eventserver)
 
     train_p = verbs.add_parser("train", help="train an engine variant")
@@ -387,6 +567,13 @@ def build_parser() -> argparse.ArgumentParser:
                          help="read this JSON-lines events file instead of the store")
     train_p.add_argument("--model-out", default=None,
                          help="with --events: the model directory to write")
+    train_p.add_argument("--profile", nargs="?", const="__default__", default=None,
+                         metavar="DIR",
+                         help="write a torch.profiler Chrome trace (*.pt.trace.json,"
+                         " Perfetto / chrome://tracing) of the training call AND a"
+                         " per-step telemetry journal (wall time, edges/sec, achieved"
+                         " GB/s) into DIR (default: <engine-dir>/pio-profile)")
+    add_logging_arguments(train_p)
     train_p.set_defaults(func=cmd_train)
 
     deploy = verbs.add_parser("deploy", help="serve /queries.json for a trained engine")
@@ -479,6 +666,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="log one span-summary line for any query trace slower than"
         " this (off by default)",
     )
+    add_logging_arguments(deploy)
     deploy.set_defaults(func=cmd_deploy)
 
     retrain = verbs.add_parser(
@@ -520,7 +708,77 @@ def build_parser() -> argparse.ArgumentParser:
                          " loading the full model in one shard; fold-in republishes"
                          " only the shards whose users were touched (0 = full blob"
                          " only)")
+    add_logging_arguments(retrain)
     retrain.set_defaults(func=cmd_retrain)
+
+    ev = verbs.add_parser(
+        "eval",
+        help="run an evaluation (dotted Evaluation, or --replay for the"
+        " time-travel offline replay harness)",
+    )
+    ev.add_argument("evaluation", nargs="?", default=None,
+                    help="dotted path to an Evaluation object/callable (omit with"
+                    " --replay)")
+    ev.add_argument("paramsgen", nargs="?", default=None,
+                    help="dotted path to an EngineParamsGenerator")
+    _add_variant_args(ev)
+    ev.add_argument("--output-path", default=None, help="also write results JSON here")
+    ev.add_argument("--replay", action="store_true",
+                    help="offline replay evaluation: cut the event timeline at a"
+                    " boundary, train on the prefix (or pin a registry version),"
+                    " score every held-out user in one batched pass, report ranking"
+                    " metrics + the scan-vs-mips retrieval guard as JSON")
+    ev.add_argument("--split-time", default=None, metavar="ISO8601",
+                    help="replay boundary: train < t, holdout >= t (e.g."
+                    " 2024-03-01T00:00:00Z; naive times are UTC)")
+    ev.add_argument("--split-frac", type=float, default=None, metavar="F",
+                    help="replay boundary as a fraction of the time-sorted event"
+                    " stream (0 < F < 1; default 0.8 when --split-time is absent)")
+    ev.add_argument("--k", type=int, default=10,
+                    help="ranking cutoff for metrics and queries (default 10)")
+    ev.add_argument("--metrics", default=None,
+                    help="comma-separated metric names (default: all; the"
+                    " unknown-metric error lists the catalog)")
+    ev.add_argument("--model-version", type=int, default=None, metavar="N",
+                    help="evaluate an exact model-registry version (what `deploy"
+                    " --model-version N` would serve) instead of training on the"
+                    " prefix; the report's model block carries its lineage")
+    ev.add_argument("--registry-dir", default=None,
+                    help="model registry root for --model-version"
+                    " (default $PIO_FS_BASEDIR/registry)")
+    ev.add_argument("--snapshot-mode", choices=("off", "use", "refresh"), default=None,
+                    help="training-snapshot cache for the replay read (same"
+                    " semantics as `train --snapshot-mode`)")
+    ev.add_argument("--snapshot-dir", default=None,
+                    help="snapshot root (default $PIO_FS_BASEDIR/snapshots)")
+    ev.add_argument("--no-retrieval-guard", action="store_true",
+                    help="skip the scan-vs-mips shortlist-recall/identity guard"
+                    " (runs by default when the algorithm has a retrieval surface)")
+    ev.set_defaults(func=cmd_eval)
+
+    bp = verbs.add_parser("batchpredict", help="bulk offline predictions")
+    _add_variant_args(bp)
+    bp.add_argument("--input", required=True, help="JSON-lines query file")
+    bp.add_argument("--output", required=True, help="JSON-lines prediction output")
+    bp.add_argument("--engine-instance-id", default=None,
+                    help="score with this instance (default: the latest COMPLETED)")
+    bp.set_defaults(func=cmd_batchpredict)
+
+    top = verbs.add_parser(
+        "top",
+        help="live service stats: qps, p50/p99, error rate, ingest queue"
+        " depth, batch occupancy, slowest traces (polls /metrics +"
+        " /traces.json)",
+    )
+    top.add_argument("urls", nargs="*", default=["http://localhost:8000"],
+                     help="service base URLs (default: the query server on :8000)")
+    top.add_argument("--interval", type=float, default=2.0,
+                     help="seconds between polls (rates are deltas between polls)")
+    top.add_argument("--iterations", type=int, default=0,
+                     help="stop after N frames (0 = run until interrupted)")
+    top.add_argument("--no-clear", action="store_true",
+                     help="append frames instead of redrawing (log-friendly)")
+    top.set_defaults(func=cmd_top)
     return parser
 
 

@@ -1,9 +1,9 @@
-"""The train workflow and the engine-instance record.
+"""The train and evaluation workflows and their instance records.
 
 Counterpart of ``predictionio_tpu/workflow/core_workflow.py``
-(``run_train`` ``:75-256``, ``resolve_engine_instance`` and
-``engine_params_from_instance`` ``:297-328``), over the port's templates
-(``controller/engine.py``):
+(``run_train`` ``:75-256``, ``run_evaluation`` ``:257-295``,
+``resolve_engine_instance`` and ``engine_params_from_instance``
+``:297-328``), over the port's templates (``controller/engine.py``):
 
 - ``run_train``: the ``pio train`` core. An engine instance is recorded
   RUNNING, then COMPLETED with the model blob in the model repository
@@ -15,15 +15,25 @@ Counterpart of ``predictionio_tpu/workflow/core_workflow.py``
   ``$PIO_FS_BASEDIR/checkpoints/<algorithm>-<run key>`` and are cleared
   once the blob is recorded. ``resume`` reuses the variant's latest
   instance that did not complete, and only when its params equal the
-  run's; otherwise the train starts fresh.
+  run's; otherwise the train starts fresh. With ``pio.profile`` in the
+  runtime conf (``pio train --profile``) training runs under a
+  ``torch.profiler`` trace written into that directory as a Chrome trace
+  (``<instance id>.pt.trace.json``, loadable in Perfetto or
+  ``chrome://tracing``; CPU and CUDA activity on the card, CPU alone on
+  ``device="cpu"``), where the reference opens ``jax.profiler.trace``;
+  each trainer writes its journal beside it (``TrainContext.journal``:
+  ``als-telemetry.jsonl`` a line per iteration, ``ncf-`` and
+  ``sasrec-telemetry.jsonl`` a line per epoch).
+- ``run_evaluation``: the ``pio eval`` core. An evaluation instance is
+  recorded RUNNING, then COMPLETED with the ``MetricEvaluator``
+  leaderboard (text, JSON, HTML), or FAILED when a stage raises.
 - ``resolve_engine_instance``: the latest COMPLETED instance of a
   variant, or an explicit id (what ``deploy`` loads).
 - ``load_instance_model``: that instance's blob, through the template's
   ``load_model``.
 
 Not ported: a multi-process launch (a rank other than 0, ROADMAP.md
-Queue A item 8) and ``pio.profile`` (``pio train --profile``, item 5)
-raise ``NotImplementedError``; evaluation waits with item 5.
+Queue A item 8) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import logging
 import os
 import time
 import traceback
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 
 from predictionio_tpu_torch.controller.base import TrainContext
@@ -49,6 +60,7 @@ from predictionio_tpu_torch.data.storage.base import (
     STATUS_FAILED,
     STATUS_RUNNING,
     EngineInstance,
+    EvaluationInstance,
     Model,
 )
 from predictionio_tpu_torch.obs.trace import global_tracer
@@ -189,11 +201,6 @@ def run_train(
             "a multi-process launch (a rank other than 0) is not ported yet:"
             " ROADMAP.md Queue A item 8"
         )
-    if variant.runtime_conf.get("pio.profile"):
-        raise NotImplementedError(
-            "pio train --profile (pio.profile) is not ported yet: ROADMAP.md"
-            " Queue A item 5"
-        )
     components = build_components(variant, device=device)
     params_jsons = _params_jsons(variant.engine_params)
     run_key = _run_key(variant, params_jsons)
@@ -263,6 +270,7 @@ def _run_train_locked(variant, workflow_params, components, params_jsons, run_ke
         )
         instances.insert(instance)
     instance_id = instance.id
+    profile_dir = variant.runtime_conf.get("pio.profile")
     ctx = TrainContext(
         device=algorithm.device,
         checkpoint_dir=_checkpoint_base(),
@@ -270,11 +278,16 @@ def _run_train_locked(variant, workflow_params, components, params_jsons, run_ke
         telemetry=telemetry,
         mesh_shape=variant.runtime_conf.get("pio.mesh_shape"),
         run_key=run_key,
+        runtime_conf=dict(variant.runtime_conf),
     )
     tracer = global_tracer()
     timings = {} if timings is None else timings
     try:
-        with tracer.span(
+        trace_ctx = (
+            profile_trace(profile_dir, algorithm.device, instance_id)
+            if profile_dir else nullcontext()
+        )
+        with trace_ctx, tracer.span(
             "train.run",
             attrs={"instance": instance_id, "engine": variant.variant_id},
         ):
@@ -301,6 +314,90 @@ def _run_train_locked(variant, workflow_params, components, params_jsons, run_ke
         instance.end_time = _utcnow()
         instances.update(instance)
         logger.error("training FAILED: instance %s\n%s", instance_id, traceback.format_exc())
+        raise
+
+
+def profiler_activities(device) -> list:
+    """``torch.profiler`` activities of a run on ``device``: CPU and CUDA
+    on the card, CPU alone on the CPU (the run's own device, never a
+    probe for a card)."""
+    import torch
+
+    from predictionio_tpu_torch.utils.device import resolve_device
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return activities
+
+
+@contextmanager
+def profile_trace(profile_dir: str, device, name: str):
+    """Run the body under a ``torch.profiler`` trace of ``device``'s
+    activities and write it to ``<profile_dir>/<name>.pt.trace.json``
+    (Chrome trace JSON: Perfetto, ``chrome://tracing``). Yields the
+    trace file's path. The trace is written even when the body raises."""
+    import torch
+
+    os.makedirs(str(profile_dir), exist_ok=True)
+    path = os.path.join(str(profile_dir), f"{name}.pt.trace.json")
+    prof = torch.profiler.profile(activities=profiler_activities(device))
+    prof.start()
+    try:
+        yield path
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(path)
+        logger.info("profiler trace written to %s", path)
+
+
+def run_evaluation(
+    evaluation,
+    generator,
+    evaluation_class: str = "",
+    generator_class: str = "",
+    runtime_conf: dict | None = None,
+    batch: str = "",
+    *,
+    device=None,
+) -> EvaluationInstance:
+    """The `pio eval` core: the ``MetricEvaluator`` grid run of
+    ``evaluation`` (``controller/metrics.py``) over ``generator``'s
+    candidates on ``device`` (``cuda`` unless ``"cpu"``), its leaderboard
+    persisted on an evaluation instance (RUNNING -> COMPLETED, or FAILED
+    when a stage raises)."""
+    from predictionio_tpu_torch.controller.metrics import MetricEvaluator
+    from predictionio_tpu_torch.utils.device import resolve_device
+
+    instances = storage.get_meta_data_evaluation_instances()
+    instance = EvaluationInstance(
+        status=STATUS_RUNNING,
+        start_time=_utcnow(),
+        evaluation_class=evaluation_class,
+        engine_params_generator_class=generator_class,
+        batch=batch,
+        env=_pio_env(),
+    )
+    instance_id = instances.insert(instance)
+    ctx = TrainContext(device=resolve_device(device),
+                       runtime_conf=dict(runtime_conf or {}))
+    try:
+        result = MetricEvaluator(evaluation).run(ctx, generator)
+        metric, extras = evaluation.metric, evaluation.metrics
+        instance.status = STATUS_COMPLETED
+        instance.end_time = _utcnow()
+        instance.evaluator_results = result.leaderboard(metric, extras)
+        instance.evaluator_results_json = result.to_json(metric, extras)
+        instance.evaluator_results_html = (
+            "<pre>" + result.leaderboard(metric, extras) + "</pre>"
+        )
+        instances.update(instance)
+        logger.info("evaluation finished: instance %s", instance_id)
+        return instance
+    except Exception:
+        instance.status = STATUS_FAILED
+        instance.end_time = _utcnow()
+        instances.update(instance)
         raise
 
 

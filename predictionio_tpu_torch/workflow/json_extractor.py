@@ -11,13 +11,17 @@ which would import the JAX package's template. The port never does:
 ``template`` maps the factory path (or, without one, the first
 algorithm's name) to the port's own template
 (``controller/engine.py::template_for``). So ``engineFactory`` may be
-absent here; the reference requires it.
+absent here; the reference requires it. ``resolve_dotted`` (a copy of
+the reference's ``:68-100``) resolves what ``pio eval`` names: a user's
+``Evaluation`` and ``EngineParamsGenerator``.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
+import sys
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -77,3 +81,35 @@ def load_engine_variant(path: str) -> EngineVariant:
         engine_params=EngineParams.from_json_obj(obj),
         runtime_conf=runtime_conf,
     )
+
+
+def resolve_dotted(dotted: str, engine_dir: str | None = None):
+    """The dotted-path resolver (evaluations, params generators): walks
+    nested qualnames, prepends the engine directory to ``sys.path``,
+    raises EngineConfigError on failure."""
+    if engine_dir and engine_dir not in sys.path:
+        sys.path.insert(0, engine_dir)
+    module_path, _, attr_path = dotted.rpartition(".")
+    if not module_path:
+        raise EngineConfigError(f"{dotted!r} must be a dotted module path")
+    # qualnames may nest (Outer.Inner): retry shorter module prefixes
+    probe = module_path
+    while True:
+        try:
+            obj = importlib.import_module(probe)
+            break
+        except ModuleNotFoundError as exc:
+            if "." not in probe:
+                raise EngineConfigError(
+                    f"cannot import module for {dotted!r}: {exc}"
+                ) from exc
+            probe, _, rest = probe.rpartition(".")
+            attr_path = f"{rest}.{attr_path}"
+    for part in attr_path.split("."):
+        try:
+            obj = getattr(obj, part)
+        except AttributeError:
+            raise EngineConfigError(
+                f"{probe!r} has no attribute path {attr_path!r}"
+            ) from None
+    return obj

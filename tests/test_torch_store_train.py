@@ -300,17 +300,27 @@ def test_resume_continues_only_on_equal_params(basedir, tmp_path, monkeypatch):
 
 
 def test_unported_launch_options_raise(basedir, tmp_path):
+    """A multi-process launch raises (Queue A item 8); ``pio.profile``,
+    ported since, trains and writes its trace and journal."""
     basedir(tmp_path)
-    for conf, match in (({"pio.process_id": 1}, "item 8"),
-                        ({"pio.profile": str(tmp_path / "prof")}, "item 5")):
-        engine_json = write_json(tmp_path / "engine.json",
-                                 dict(VARIANT, sparkConf=conf))
-        with pytest.raises(NotImplementedError, match=match):
-            run_train(load_engine_variant(engine_json), device="cpu")
+    engine_json = write_json(tmp_path / "engine.json",
+                             dict(VARIANT, sparkConf={"pio.process_id": 1}))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        run_train(load_engine_variant(engine_json), device="cpu")
     assert storage.get_meta_data_engine_instances().get_all() == []
     engine_json = write_json(tmp_path / "engine.json", VARIANT)
     with pytest.raises(LookupError, match="run `pio train` first"):
         cli.build_query_server(engine_json, port=0, device="cpu")
+    fill_store(storage, App, Event, make_events())
+    profile = tmp_path / "prof"
+    engine_json = write_json(tmp_path / "engine.json",
+                             dict(VARIANT, sparkConf={"pio.profile": str(profile)}))
+    instance = run_train(load_engine_variant(engine_json), device="cpu")
+    assert instance.status == "COMPLETED"
+    assert os.path.exists(profile / f"{instance.id}.pt.trace.json")
+    with open(profile / "als-telemetry.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    assert [line["event"] for line in lines] == ["meta"] + ["step"] * ALGO["numIterations"]
 
 
 def _start(args, env):
