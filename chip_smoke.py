@@ -127,9 +127,11 @@ script exits non-zero and prints no result):
    and ``accesskey new`` through the port's CLI; the event server on
    port 0 in a thread takes 40 batches of 50 and 20 single "view" events,
    reads them back, answers a bad request 400 and a wrong key 401 (p50
-   of a batch's round trip); ``pio import`` of 1,000,209 "rate" events
-   in the quickstart wire shape (MovieLens-1M's size: 6,040 users, 3,706
-   items of squared-uniform popularity, ratings 1-5, one second apart);
+   of a batch's round trip); ``pio import`` of 500,000 "rate" events
+   in the quickstart wire shape (MovieLens-1M's 6,040 users and 3,706
+   items, half of its 1,000,209 ratings: the depth cut that keeps the
+   whole script in its time; squared-uniform popularity, ratings 1-5, one
+   second apart);
    ``pio train`` with ``examples/recommendation/engine.json`` unchanged
    but for its ``appName``: B1 launches, the columnar fast scan served
    the read (its calls counted), a COMPLETED engine instance and its
@@ -146,7 +148,7 @@ script exits non-zero and prints no result):
    new users x 10 (10 new items among them); the instance is deployed
    with ``"retrieval": {"mode": "mips"}``; ``RetrainLoop.run_once``
    (notifying that server) answers "foldin": the WAL tail, the first
-   snapshot build (~1M rows), one B1 launch, registry version 1, the
+   snapshot build (~512,000 rows), one B1 launch, registry version 1, the
    server swapped to it (``GET /``) and the old epoch released. The
    folded rows equal ``fold_in_als_model`` with ``solver="xla"`` on the
    card within 1e-4, untouched rows the base bit for bit, new item rows
@@ -167,9 +169,11 @@ script exits non-zero and prints no result):
    (the scoring pass and the guard's mips arm), shortlist recall@10 >=
    0.99; held against the same replay on the card through the plain
    versions of B1 and B2 (``plain_b1_b2``, no launch of either):
-   the same split and queries, metrics within 1e-4, each ranked list
-   equal up to items whose plain scores lie within rtol = atol = 1e-4,
-   scores within that; (b) ``eval --replay --model-version 2`` (the
+   the same split and queries, each ranked list equal up to items whose
+   plain scores lie within rtol = atol = 1e-4, scores within that;
+   metrics within 1e-4, or further apart only where every user whose
+   held-out items rank differently owes it to a near tie within that
+   tolerance (each such user's two lists printed); (b) ``eval --replay --model-version 2`` (the
    follow path's full retrain): the registry lineage, B2, the same
    split; (c) ``batchpredict`` of every user of the latest instance
    (``{"user": u, "num": 10}``): B2 once a 4,096-query chunk, no error
@@ -185,6 +189,37 @@ script exits non-zero and prints no result):
    COMPLETED evaluation instance, B4 and the fused backward 2 a training
    step, B4 also 2 a scoring forward, bestScore above twice the uniform
    10 / 3,706.
+   templates -- phase 6's 20,000,000 ratings as the templates' events
+   (every rating a "view", the 5-star ones also a "buy"; each item 1-3 of
+   20 categories, from ``--seed``); every kernel's count set to 0 first,
+   B3, B4 and the fused backward still 0 at the end:
+   cooc_check -- ``ops/cooccurrence.py`` on the card against the same
+   code on the CPU at 5,000 users x 2,000 items, self and cross (counts
+   equal, LLR indicators at rtol = atol = 1e-5 up to near-ties); and on
+   the similar-product template's own call below, 256 item rows drawn
+   from ``--seed`` of the card's counts equal to scipy's rows of AᵀA, its
+   LLR indicators within the f32 tolerance of an f64 LLR up to near-ties;
+   the call's stages timed apart on those counts (the products, the
+   LLR with the diagonal drop and the top-k, the top-k alone).
+   train_ecommerce -- ``examples/ecommerce/engine.json`` (plus the 256
+   history cap) through ECommercePreparator -> ECommAlgorithm.train on
+   cuda: 20 B1 launches, implicit; a 2-iteration fit through B1 equals
+   "xla" within 1e-4; one fold-in of 1,000 users with an item ``$set``
+   window: B1 launched, rows within 1e-4 of the "xla" fold, the new
+   category served. serve_ecommerce -- that model deployed scan then
+   mips (user, categories, whiteList, blackList, a cold user's recent
+   views, unseenOnly=false): the rules hold in both, mips launches B2
+   and reaches recall@10 >= 0.99 against the scan over every list, the
+   categories and whiteList ones included (each list's overlap is
+   printed); a 256-user batch_predict equals predict. train_cooc -- ``examples/similarproduct/engine.json`` and
+   ``examples/universal/engine.json`` (plus the cap; "buy" primary,
+   "view" cross) on the same events: per call seconds, peak device bytes
+   and the products' bound; each deployed, item and user queries equal
+   to predict, a 256-query batch_predict equal to predict.
+   store_templates -- a fresh store, ``pio import`` of 3,000 view/buy
+   events, ``pio train`` -> ``pio deploy`` of each of the three
+   engine.jsons; a ``$set`` of ``unavailableItems`` drops the top item
+   from the next e-commerce answer without a retrain.
 13. check_b3 -- kernel B3 (``ncf_score.cu``) against its plain version
    on the card at the NCF template's widths (E=32, hidden 64, 32) over
    1,000,000 items for five users (the last one included); over 1, 15,
@@ -362,12 +397,14 @@ TRAIN_USERS, TRAIN_ITEMS, TRAIN_EDGES, TRAIN_CAP = 138_000, 27_000, 20_000_000, 
 RMSE_SAMPLE = 100_000
 FOLDIN_USERS = 1_000
 SMALL_EVENTS = 3_000
-#: the store path at MovieLens-1M's published size: 1,000,209 ratings by
-#: 6,040 users of 3,706 items, imported through ``pio import``; before it
-#: 40 batches of 50 and 20 single "view" events go through the event
-#: server (outside the template's eventNames, so the training read and
-#: the events file hold the same ratings)
-STORE_EVENTS, STORE_USERS, STORE_ITEMS = 1_000_209, 6_040, 3_706
+#: the store path at MovieLens-1M's width, 6,040 users of 3,706 items,
+#: its depth cut from 1,000,209 ratings to 500,000 to keep the whole
+#: script in its time beside the templates part (the import's rate falls
+#: as the store grows), imported through ``pio import``; before it 40 batches of 50 and 20
+#: single "view" events go through the event server (outside the
+#: template's eventNames, so the training read and the events file hold
+#: the same ratings)
+STORE_EVENTS, STORE_USERS, STORE_ITEMS = 500_000, 6_040, 3_706
 STORE_BATCHES, STORE_BATCH, STORE_SINGLES = 40, 50, 20
 STORE_QUERIES = 10
 #: the follow path on store_path's store: a fold-in window of 600 known
@@ -452,7 +489,14 @@ SEQ_SCORE_TOL = 1e-4
 SEQ_HIT_BATCH = 4096
 
 
+#: the script's start, for each phase line's ``t_s`` (seconds since it)
+STARTED = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also says when it was printed."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -2181,7 +2225,8 @@ def store_train(app_name: str, engine_json: str, events: str, variant_path: str)
 
 
 def store_rate_events(rng: np.random.Generator, path: str):
-    """MovieLens-1M's published size in the quickstart wire shape: users
+    """MovieLens-1M's users and items (``STORE_EVENTS`` of its ratings) in
+    the quickstart wire shape: users
     uniform, items by the squared-uniform popularity of ``small_events``,
     ratings 1-5, one second apart (no time ties). Returns the arrays."""
     n = STORE_EVENTS
@@ -2255,7 +2300,7 @@ def phase_eventserver(rng: np.random.Generator, key: str) -> dict:
 
 
 def phase_store_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
-    """app -> event server -> ``pio import`` of MovieLens-1M's size ->
+    """app -> event server -> ``pio import`` at MovieLens-1M's width ->
     ``pio train`` from the store (B1) -> engine instance and model blob
     -> the same events trained from a file (factors within 1e-4) ->
     ``pio deploy`` of the instance with mips (B2), recall@10 against the
@@ -2479,7 +2524,7 @@ def run_cycle(loop, spans: dict, want: str) -> dict:
 def phase_follow_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
     """Continuous learning on store_path's store: the event server with
     ``ingest_mode="wal"`` takes a fold-in window; ``RetrainLoop.run_once``
-    tails the WAL, builds the snapshot (~1M rows), folds the touched users
+    tails the WAL, builds the snapshot (~512,000 rows), folds the touched users
     in through B1 (one launch), publishes registry version 1 and swaps the
     deployed mips server to it; the folded rows equal the plain path on
     the card, untouched rows the base, new item rows zero, and the served
@@ -2694,6 +2739,40 @@ def compare_lists(got: list, want: list) -> tuple[float, int]:
     return (float(np.abs(g - w).max()) if len(g) else 0.0), swaps
 
 
+def held_out_moves(card: dict, plain: dict, k: int) -> list:
+    """The users whose held-out items rank differently in two replays'
+    top-``k`` lists (the only thing that moves a ranking metric), each
+    with both lists, the items' ranks (None: outside the list) and
+    whether each move is a near tie: in each list the scores between the
+    two ranks (an item outside it at the list's last rank) lie within
+    rtol = atol = EVAL_TOL, the tolerance ``compare_lists`` allows."""
+    moves = []
+    for q, actual, got, want in zip(card["queries"], card["actual"], card["responses"],
+                                    plain["responses"]):
+        lists = [r["itemScores"][:k] for r in (got, want)]
+        ranks = [{s["item"]: r for r, s in enumerate(lst)} for lst in lists]
+        moved = [a for a in actual if ranks[0].get(a) != ranks[1].get(a)]
+        if not moved:
+            continue
+        items = []
+        for a in moved:
+            spread = []
+            for lst in lists:
+                if not lst:
+                    spread.append(False)
+                    continue
+                at = [min(rank.get(a, len(lst) - 1), len(lst) - 1) for rank in ranks]
+                hi, lo = lst[min(at)]["score"], lst[max(at)]["score"]
+                spread.append(hi - lo <= EVAL_TOL + EVAL_TOL * abs(lo))
+            items.append({"item": a, "ranks": [rank.get(a) for rank in ranks],
+                          "near_tie": all(spread)})
+        moves.append({"query": q, "held_out": items,
+                      "card": [[s["item"], s["score"]] for s in lists[0]],
+                      "plain": [[s["item"], s["score"]] for s in lists[1]],
+                      "near_tie": all(i["near_tie"] for i in items)})
+    return moves
+
+
 def replay_report(args: list[str], responses: bool = False) -> dict:
     """``eval --replay`` through the port's CLI; its JSON report (with the
     responses when asked: the CLI's ``run_replay_eval`` is then called
@@ -2740,7 +2819,7 @@ GENERATOR = EngineParamsGenerator([EngineParams.from_json_obj(_obj)])
 
 def phase_eval_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
     """Evaluation and batch predict on store_path's store after
-    follow_path (MovieLens-1M's ratings, the follow path's events,
+    follow_path (store_path's ratings, the follow path's events,
     registry versions 1 and 2): (a) ``eval --replay`` of the mips
     variant, B1 and B2 counted, the guard's recall, held against the same
     replay through their plain versions on the card; (b) the replay of registry version 2; (c)
@@ -2792,10 +2871,17 @@ def phase_eval_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
         if card["split"] != plain["split"] or card["queries"] != plain["queries"]:
             raise AssertionError("the card's and the plain replay cut different folds")
         metric_diff = max(abs(card["metrics"][m] - plain["metrics"][m]) for m in plain["metrics"])
-        if metric_diff > EVAL_TOL:
-            raise AssertionError(f"metrics: {card['metrics']} against {plain['metrics']}")
+        # a held-out item that moves across a near tie moves the metrics
+        # by up to 1/users (past EVAL_TOL): allowed only where every such
+        # move is a near tie by compare_lists' own tolerance
+        moves = held_out_moves(card, plain, EVAL_K)
+        emit({"phase": "eval_path_held_out_moves", "metric_max_abs_diff": metric_diff,
+              "users": len(card["queries"]), "count": len(moves), "moves": moves[:20]})
         compared = [compare_lists(g["itemScores"], w["itemScores"])
                     for g, w in zip(card["responses"], plain["responses"])]
+        if any(not m["near_tie"] for m in moves) or (metric_diff > EVAL_TOL and not moves):
+            raise AssertionError(f"metrics: {card['metrics']} against {plain['metrics']}, "
+                                 f"held-out moves {moves}")
         result["replay"] = {
             "seconds": replay_s, "b1_launches": b1, "b2_launches": b2,
             "metrics": card["metrics"], "split": card["split"], "retrieval_guard": guard,
@@ -2804,9 +2890,10 @@ def phase_eval_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
             "reference_metrics": plain["metrics"], "metric_max_abs_diff": metric_diff,
             "score_max_abs_diff": max(d for d, _ in compared),
             "near_tie_swaps": sum(s for _, s in compared),
+            "held_out_moves": len(moves),
         }
         holdout = card["split"]
-        del card, plain, compared
+        del card, plain, compared, moves
 
         # (b) a registry version follow_path published (2: the full retrain)
         mips.mips_block_topk.launches = 0
@@ -2953,6 +3040,820 @@ def phase_eval_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
     result["b3_launches"] = result["ncf_replay"]["b3_launches"]
     result["flash_launches"] = result["sequence_eval"]["launches"]
     emit({"phase": "eval_path", **result})
+    return result
+
+
+# --------------------------------------------------------------------------
+# the templates: e-commerce (implicit ALS through B1, B2 with
+# mips, the business rules), similar-product and universal (the
+# cooccurrence products and the LLR on the card, plain torch)
+# --------------------------------------------------------------------------
+
+#: each item of the training stand-in gets 1-3 of 20 categories; every
+#: rating is a "view", the 5-star ratings also a "buy"
+TEMPLATE_CATEGORIES, TEMPLATE_MAX_CATEGORIES = 20, 3
+#: cooc_check: the card against the CPU on the first 5,000 users x 2,000
+#: items, and the full-size counts against scipy on 256 item rows
+COOC_CHECK_USERS, COOC_CHECK_ITEMS, COOC_CHECK_ROWS = 5_000, 2_000, 256
+#: the e-commerce fold-in's users, the "sale" items its $set window adds,
+#: the users queried, and the size of every template's batch_predict check
+TEMPLATE_FOLDIN_USERS, TEMPLATE_SALE_ITEMS, TEMPLATE_QUERIES = 1_000, 3, 10
+TEMPLATE_BATCH = 256
+#: store_templates: a small store as the train-verb phases build one
+TEMPLATE_STORE_EVENTS, TEMPLATE_STORE_USERS, TEMPLATE_STORE_ITEMS = 3_000, 300, 200
+TEMPLATE_APP = "ChipShop"
+
+
+def template_events(ratings, rng: np.random.Generator) -> dict:
+    """The training stand-in's ratings as the templates' events: every
+    rating a "view" at its second, the 5-star ones also a "buy" half a
+    second later; each item's categories drawn from ``rng``."""
+    users, items, stars, times = ratings
+    buy = stars == 5
+    counts = rng.integers(1, TEMPLATE_MAX_CATEGORIES + 1, TRAIN_ITEMS)
+    categories = {
+        f"i{i}": [f"cat{c}" for c in sorted(rng.choice(TEMPLATE_CATEGORIES, n, replace=False))]
+        for i, n in enumerate(counts.tolist())
+    }
+    return {
+        "view": (users, items, times),
+        "buy": (users[buy], items[buy], times[buy] + 0.5),
+        "categories": categories,
+        "user_ids": [f"u{u}" for u in range(TRAIN_USERS)],
+        "item_ids": [f"i{i}" for i in range(TRAIN_ITEMS)],
+    }
+
+
+def llr_f64(k11: np.ndarray, row_totals: np.ndarray, col_totals: np.ndarray,
+            total: float) -> np.ndarray:
+    """The G^2 log-likelihood ratio in f64 with numpy's log: the host's
+    reference for the card's f32 LLR."""
+    def xlogx(x):
+        return np.where(x > 0, x * np.log(np.where(x > 0, x, 1.0)), 0.0)
+
+    k12 = np.maximum(row_totals[:, None] - k11, 0.0)
+    k21 = np.maximum(col_totals[None, :] - k11, 0.0)
+    k22 = np.maximum(total - k11 - k12 - k21, 0.0)
+    llr = 2.0 * (xlogx(k11) + xlogx(k12) + xlogx(k21) + xlogx(k22)
+                 + xlogx(k11 + k12 + k21 + k22) - xlogx(k11 + k12) - xlogx(k21 + k22)
+                 - xlogx(k11 + k21) - xlogx(k12 + k22))
+    return np.where(k11 > 0, np.maximum(llr, 0.0), 0.0)
+
+
+def llr_f32_tolerance(total: float) -> float:
+    """How far an f32 LLR may lie from the f64 one: its sum cancels terms
+    as large as N ln N (the grand total's x log x), each rounded to f32;
+    32 ulps of that magnitude (4.0 at N = 138,000)."""
+    return 32.0 * float(np.spacing(np.float32(total * np.log(total))))
+
+
+def compare_indicators(got, want, atol: float, rtol: float = 0.0) -> dict:
+    """Indicator tables ``(indices, values)`` held to ``want``: values
+    within ``atol + rtol * |want|`` position by position; an index may
+    differ only at a near-tie (its value within that tolerance of another
+    value of the row, or of the row's k-th). Returns the max value error
+    and the swapped slots; raises on any other difference."""
+    (gi, gv), (wi, wv) = got, want
+    if gi.shape != wi.shape:
+        raise AssertionError(f"indicator shapes {gi.shape} vs {wi.shape}")
+    wv = wv.astype(np.float64)
+    diff = np.abs(gv.astype(np.float64) - wv)
+    tol = atol + rtol * np.abs(wv)
+    if np.any(diff > tol):
+        raise AssertionError(f"indicator values differ by {float(diff.max())}")
+    swaps = 0
+    for r, c in zip(*np.nonzero(gi != wi)):
+        swaps += 1
+        others = np.delete(wv[r], c)
+        if not (np.any(np.abs(others - wv[r, c]) <= tol[r, c])
+                or abs(wv[r, c] - wv[r, -1]) <= tol[r, c]):
+            raise AssertionError(f"row {r} slot {c}: {gi[r]} vs {wi[r]}, {wv[r]}")
+    for r in range(gi.shape[0]):
+        kth = wv[r, -1]
+        near = atol + rtol * abs(kth)
+        for idx, vals, ref in ((gi[r], gv[r], set(wi[r].tolist())),
+                               (wi[r], wv[r], set(gi[r].tolist()))):
+            for j, v in zip(idx.tolist(), vals.tolist()):
+                if j not in ref and abs(v - kth) > near:
+                    raise AssertionError(f"row {r}: index {j} ({v}) missing from the other")
+    return {"max_abs_err": float(diff.max()) if diff.size else 0.0, "near_tie_swaps": swaps}
+
+
+def host_topk(values: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-row top-k by a stable descending sort (lower index first)."""
+    order = np.argsort(-values, axis=1, kind="stable")[:, :k]
+    vals = np.take_along_axis(values, order, axis=1)
+    return order, np.where(np.isfinite(vals), vals, 0.0)
+
+
+def cooc_bound(rows: int, items_p: int, items_o: int) -> float:
+    """ms of the one-hot products at the f32 rate (TF32 off): 2 flops a
+    (user row, primary item, other item)."""
+    return 2.0 * rows * items_p * items_o / F32_OPS_PER_S * 1e3
+
+
+def phase_cooc_check(ev: dict) -> dict:
+    """``ops/cooccurrence.py`` on the card against the same port code on
+    the CPU at 5,000 users x 2,000 items, self (views) and cross (buys
+    against views): counts equal, LLR indicators at rtol = atol = 1e-5
+    up to near-ties. The full-size half runs on the similar-product
+    template's own call (``full_cooc_check``, in ``train_cooc``)."""
+    import torch
+
+    from predictionio_tpu_torch.ops import cooccurrence as cooc
+    from predictionio_tpu_torch.ops.ragged import pack_padded_csr
+
+    def corner(u, i, t):
+        keep = (u < COOC_CHECK_USERS) & (i < COOC_CHECK_ITEMS)
+        return pack_padded_csr(u[keep], i[keep], np.ones(int(keep.sum()), np.float32),
+                               COOC_CHECK_USERS, COOC_CHECK_ITEMS, times=t[keep],
+                               max_len=TRAIN_CAP)
+
+    views, buys = corner(*ev["view"]), corner(*ev["buy"])
+    result = {}
+    for label, primary, other in (("self", views, None), ("cross", buys, views)):
+        rows = torch.tensor(cooc.distinct_user_counts(primary))
+        cols = torch.tensor(cooc.distinct_user_counts(other if other is not None else primary))
+        out, seconds = {}, {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            counts = cooc.cooccurrence_counts(primary, other, chunk=1024, device=device)
+            idx, vals = cooc.indicators_from_counts(
+                counts, 50, row_totals=rows.to(device), col_totals=cols.to(device),
+                total=float(COOC_CHECK_USERS), drop_diagonal=other is None)
+            out[device] = (counts.cpu().numpy(), idx.cpu().numpy(), vals.cpu().numpy())
+            seconds[device] = time.perf_counter() - t0
+        if not np.array_equal(out["cuda"][0], out["cpu"][0]):
+            raise AssertionError(f"{label} counts differ between the card and the CPU")
+        cmp = compare_indicators(out["cuda"][1:], out["cpu"][1:], TOL, TOL)
+        result[label] = {"pairs": int(out["cpu"][0].sum()), **cmp,
+                         "bit_equal": bool(np.array_equal(out["cuda"][2], out["cpu"][2])),
+                         "card_s": seconds["cuda"], "cpu_s": seconds["cpu"]}
+    return result
+
+
+def full_cooc_check(csr, indicators, llr_totals, rng: np.random.Generator) -> dict:
+    """The full-size half of cooc_check on the similar-product template's
+    own CSR and indicators: the card's counts again (timed), 256 item
+    rows of them equal to scipy's rows of AᵀA exactly, and the
+    template's LLR indicators of those rows held to an f64 LLR up to
+    near-ties within the f32 tolerance. On those counts the call's
+    later stages are timed apart: the LLR with the diagonal drop and the
+    top-k (equal to the call's indicators), and the top-k alone."""
+    import scipy.sparse as sp
+    import torch
+
+    from predictionio_tpu_torch.ops import cooccurrence as cooc
+
+    num = csr.num_cols
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts = cooc.cooccurrence_counts(csr, chunk=4096, device="cuda")
+    torch.cuda.synchronize()
+    counts_s = time.perf_counter() - t0
+    picked = np.sort(rng.choice(num, COOC_CHECK_ROWS, replace=False))
+    card_counts = counts[torch.as_tensor(picked, device="cuda")].cpu().numpy()
+    # the call's stages apart on these counts: the LLR with the diagonal
+    # drop and the top-k (the call's own indicators again), the top-k alone
+    idx, vals = indicators
+    totals_dev = torch.tensor(np.asarray(llr_totals, np.float32), device="cuda")
+    stages = {"counts_s": counts_s}
+    for name, kw in (("llr_topk_s", {"row_totals": totals_dev, "col_totals": totals_dev,
+                                      "total": float(csr.num_rows)}), ("topk_s", {})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = cooc.indicators_from_counts(counts, idx.shape[1], drop_diagonal=True, **kw)
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        if name == "llr_topk_s" and not (np.array_equal(got[0].cpu().numpy(), idx)
+                                         and np.array_equal(got[1].cpu().numpy(), vals)):
+            raise AssertionError("the LLR stage's indicators differ from the call's")
+        del got
+    stages["llr_s"] = stages["llr_topk_s"] - stages["topk_s"]
+    stages["llr_share_of_stages"] = stages["llr_s"] / (counts_s + stages["llr_topk_s"])
+    del counts, totals_dev
+    t0 = time.perf_counter()
+    r, c = np.nonzero((csr.mask > 0) & (csr.indices < num))
+    a = sp.csr_matrix((np.ones(r.size), (r, csr.indices[r, c])),
+                      shape=(csr.indices.shape[0], num))
+    a.sum_duplicates()
+    a.data[:] = 1.0
+    host_counts = (a.tocsc()[:, picked].T.tocsr() @ a).toarray()
+    if not np.array_equal(host_counts, card_counts):
+        bad = np.argwhere(host_counts != card_counts)[:5].tolist()
+        raise AssertionError(f"card counts differ from scipy's at {bad}")
+    totals = np.asarray(llr_totals, np.float64)
+    llr = llr_f64(host_counts, totals[picked], totals, float(csr.num_rows))
+    llr[np.arange(picked.size), picked] = -np.inf
+    tol = llr_f32_tolerance(csr.num_rows)
+    cmp = compare_indicators((idx[picked], vals[picked]), host_topk(llr, idx.shape[1]), tol)
+    return {"users": csr.num_rows, "items": num, "pairs_in_rows": int(host_counts.sum()),
+            "rows_checked": COOC_CHECK_ROWS, "counts_s": counts_s, "stages": stages,
+            "host_check_s": time.perf_counter() - t0, "llr_tolerance": tol, **cmp}
+
+
+class ColumnSnapshot:
+    """The read surface of a training snapshot (``data/snapshot.py``)
+    over given columns: what the retrain loop hands ``fold_in``."""
+
+    def __init__(self, users, items, names, times, uvocab, ivocab, nvocab):
+        self._cols = {"users": users, "items": items, "names": names, "times": times,
+                      "ratings": np.full(users.size, np.nan)}
+        self._vocabs = {"users": uvocab, "items": ivocab, "names": nvocab}
+        self.manifest = {"until_ms": int(times.max() * 1000) + 1}
+
+    def column(self, name):
+        return self._cols[name]
+
+    def vocab(self, which):
+        return self._vocabs[which]
+
+    def __len__(self):
+        return self._cols["users"].size
+
+
+def example_engine(repo: str, template: str) -> dict:
+    with open(os.path.join(repo, "examples", template, "engine.json")) as f:
+        return json.load(f)
+
+
+def shop_store(ev: dict) -> None:
+    """The app the e-commerce model reads live: every item's categories
+    ``$set`` (what the DataSource's category read sees)."""
+    import datetime as _dt
+
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.event import DataMap, Event
+    from predictionio_tpu_torch.data.storage.base import App
+
+    app_id = storage.get_meta_data_apps().insert(App(name=TEMPLATE_APP))
+    le = storage.get_l_events()
+    le.init_channel(app_id)
+    when = _dt.datetime(2015, 1, 1, tzinfo=_dt.timezone.utc)
+    le.batch_insert([
+        Event(event="$set", entity_type="item", entity_id=item,
+              properties=DataMap({"categories": cats}), event_time=when)
+        for item, cats in ev["categories"].items()
+    ], app_id)
+
+
+def shop_event(name: str, etype: str, eid: str, target=None, props=None):
+    """One event for the e-commerce app, now."""
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.event import DataMap, Event
+    from predictionio_tpu_torch.data.store import resolve_app_channel
+
+    app_id, _ = resolve_app_channel(TEMPLATE_APP, None)
+    storage.get_l_events().insert(
+        Event(event=name, entity_type=etype, entity_id=eid,
+              target_entity_type="item" if target else None, target_entity_id=target,
+              properties=DataMap(props or {})), app_id)
+
+
+def phase_train_ecommerce(ev: dict, repo: str, rng: np.random.Generator) -> dict:
+    """``examples/ecommerce/engine.json`` (plus the 256 history cap) on
+    the 24M view/buy events through ECommercePreparator ->
+    ECommAlgorithm.train on cuda: 20 B1 launches counted; a 2-iteration
+    implicit fit through B1 equals "xla" within 1e-4. Then one fold-in of
+    1,000 users (a view each) with a window holding item ``$set`` records
+    ("sale" added to 3 items): B1 launched, the folded rows within 1e-4
+    of the "xla" fold, the category index rebuilt from the store and the
+    new category served."""
+    import torch
+
+    from predictionio_tpu_torch.controller.base import TrainContext
+    from predictionio_tpu_torch.models.ecommerce import (
+        ECommAlgorithm,
+        ECommerceData,
+        ECommercePreparator,
+    )
+    from predictionio_tpu_torch.models.ecommerce.engine import _load_categories
+    from predictionio_tpu_torch.online.foldin import FoldinDelta
+    from predictionio_tpu_torch.ops import als_gram
+    from predictionio_tpu_torch.parallel.als import als_fit
+
+    variant = example_engine(repo, "ecommerce")
+    ds_params = variant["datasource"]["params"]
+    algo_params = variant["algorithms"][0]["params"]
+    vu, vi, vt = ev["view"]
+    bu, bi, bt = ev["buy"]
+    t0 = time.perf_counter()
+    data = ECommerceData(
+        users=np.concatenate([vu, bu]), items=np.concatenate([vi, bi]),
+        weights=np.concatenate([np.ones(vu.size, np.float32),
+                                np.full(bu.size, ds_params["buyWeight"], np.float32)]),
+        times=np.concatenate([vt, bt]), user_ids=ev["user_ids"], item_ids=ev["item_ids"],
+        app_name=TEMPLATE_APP, categories=_load_categories(TEMPLATE_APP),
+    )
+    data.sanity_check()
+    data_s = time.perf_counter() - t0
+    algorithm = ECommAlgorithm(algo_params, device="cuda")
+    steps = StepTimes()
+    ctx = TrainContext(device="cuda", telemetry=steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prepared = ECommercePreparator({"maxEventsPerUser": TRAIN_CAP}).prepare(ctx, data)
+    pack_s = time.perf_counter() - t0
+    als_gram.gram_rhs.launches = 0           # counts start at 0 here
+    t0 = time.perf_counter()
+    model = algorithm.train(ctx, prepared)
+    train_s = time.perf_counter() - t0
+    launches = als_gram.gram_rhs.launches    # read here
+    peak = torch.cuda.max_memory_allocated()
+    config = algorithm._config()
+    if launches != 2 * config.iterations or not config.implicit:
+        raise AssertionError(f"{launches} B1 launches (implicit {config.implicit}), "
+                             f"expected {2 * config.iterations}")
+    for name in ("user_factors", "item_factors"):
+        if not np.isfinite(getattr(model.als, name)).all():
+            raise AssertionError(f"non-finite {name} after training")
+    if set(model.category_items) != {f"cat{c}" for c in range(TEMPLATE_CATEGORIES)}:
+        raise AssertionError(f"category index {sorted(model.category_items)}")
+    _, als_data = prepared
+    two = dataclasses.replace(config, factor_sharding="replicated", iterations=2)
+    fused2 = als_fit(als_data, two, "cuda")
+    xla2 = als_fit(als_data, dataclasses.replace(two, solver="xla"), "cuda")
+    xla_diff = max(float(np.abs(fused2.user_factors - xla2.user_factors).max()),
+                   float(np.abs(fused2.item_factors - xla2.item_factors).max()))
+    if xla_diff > FIT_ATOL:
+        raise AssertionError(f"implicit 2-iteration fit differs from xla by {xla_diff}")
+
+    # the fold-in: 1,000 users' histories and one new view each, after
+    # three items gained the "sale" category in the store
+    picked = np.sort(rng.choice(TRAIN_USERS, TEMPLATE_FOLDIN_USERS, replace=False))
+    hist = np.isin(data.users, picked)
+    start = float(data.times.max()) + 10.0
+    new_items = rng.integers(0, TRAIN_ITEMS, picked.size)
+    snap = ColumnSnapshot(
+        users=np.concatenate([data.users[hist], picked]),
+        items=np.concatenate([data.items[hist], new_items]),
+        names=np.concatenate([(data.weights[hist] > 1).astype(np.int32),
+                              np.zeros(picked.size, np.int32)]),
+        times=np.concatenate([data.times[hist], start + np.arange(picked.size) * 1e-3]),
+        uvocab=ev["user_ids"], ivocab=ev["item_ids"], nvocab=["view", "buy"])
+    sale = [f"i{i}" for i in rng.choice(TRAIN_ITEMS, TEMPLATE_SALE_ITEMS, replace=False)]
+    for item in sale:
+        shop_event("$set", "item", item, props={"categories": ev["categories"][item] + ["sale"]})
+    delta = FoldinDelta(snapshot=snap, window_start_ms=int(start * 1000),
+                        extras={"event_values": {"view": 1.0, "buy": ds_params["buyWeight"]}},
+                        set_entity_types={"item"})
+    als_gram.gram_rhs.launches = 0
+    t0 = time.perf_counter()
+    folded = algorithm.fold_in(model, delta)
+    foldin_s = time.perf_counter() - t0
+    foldin_launches = als_gram.gram_rhs.launches
+    plain = ECommAlgorithm({**algo_params, "alsSolver": "xla"}, device="cuda").fold_in(model, delta)
+    rows = [folded.user_index[f"u{u}"] for u in picked]
+    fold_err = float(np.abs(folded.als.user_factors[rows] - plain.als.user_factors[rows]).max())
+    if foldin_launches < 1 or fold_err > FIT_ATOL:
+        raise AssertionError(f"fold-in: {foldin_launches} B1 launches, {fold_err} from xla")
+    want_sale = sorted(folded.item_index[i] for i in sale)
+    if folded.category_items.get("sale", np.zeros(0)).tolist() != want_sale:
+        raise AssertionError(f"the sale category was not rebuilt: {folded.category_items.get('sale')}")
+    answer = algorithm.predict(folded, {"user": f"u{picked[0]}", "num": 10,
+                                        "categories": ["sale"], "unseenOnly": False})
+    served_sale = {s["item"] for s in answer["itemScores"]}
+    if not served_sale or not served_sale <= set(sale):
+        raise AssertionError(f"the sale category served {answer}")
+    result = {
+        "events": int(data.users.size), "views": int(vu.size), "buys": int(bu.size),
+        "rank": config.rank, "iterations": config.iterations, "alpha": config.alpha,
+        "implicit": config.implicit, "max_events_per_user": TRAIN_CAP,
+        "user_block": list(als_data.by_row.blocks[0].indices.shape),
+        "item_block": list(als_data.by_col.blocks[0].indices.shape),
+        "data_s": data_s, "pack_s": pack_s, "train_s": train_s,
+        "iteration_s_median": statistics.median(steps.seconds),
+        "iterations_s_total": sum(steps.seconds), "peak_device_bytes": peak,
+        "b1_launches": launches, "xla_max_abs_diff_at_2": xla_diff,
+        "foldin": {"users": TEMPLATE_FOLDIN_USERS, "rows": len(snap), "seconds": foldin_s,
+                   "b1_launches": foldin_launches, "max_abs_err_vs_xla": fold_err,
+                   "sale_items_served": sorted(served_sale)},
+    }
+    emit({"phase": "train_ecommerce", **result})
+    return {"result": result, "model": model}
+
+
+def check_rules(body: dict, q: dict, model, anchors=()) -> None:
+    """The e-commerce business rules on a served answer."""
+    got = [s["item"] for s in body["itemScores"]]
+    rows = {model.item_index[i] for i in got}
+    if q.get("categories"):
+        allowed = set()
+        for c in q["categories"]:
+            allowed |= set(model.category_items.get(c, np.zeros(0)).tolist())
+        if not rows <= allowed:
+            raise AssertionError(f"{q}: items outside the categories: {got}")
+    if q.get("whiteList") and not set(got) <= set(q["whiteList"]):
+        raise AssertionError(f"{q}: items outside the whiteList: {got}")
+    if set(got) & set(q.get("blackList") or []):
+        raise AssertionError(f"{q}: blackListed items served: {got}")
+    user_row = model.user_index.get(q["user"])
+    if user_row is not None and q.get("unseenOnly", True) and rows & model.seen.get(user_row, set()):
+        raise AssertionError(f"{q}: seen items served: {got}")
+    if rows & set(anchors):
+        raise AssertionError(f"{q}: the cold user's anchors served: {got}")
+    if not got:
+        raise AssertionError(f"{q}: empty answer")
+
+
+def phase_serve_ecommerce(trained: dict, ev: dict, repo: str, workdir: str,
+                          rng: np.random.Generator) -> dict:
+    """The trained e-commerce model saved and deployed twice through the
+    ``deploy`` code path on cuda, scan then mips: known users, categories,
+    whiteList, blackList, a cold user with recent views (a live read) and
+    ``unseenOnly: false``. The rules hold in both deploys; the mips one
+    launches B2 and reaches recall@10 >= 0.99 against the scan's lists.
+    A 256-user ``batch_predict`` equals per-query ``predict``."""
+    from predictionio_tpu_torch.models.ecommerce import ECommAlgorithm, save_model
+    from predictionio_tpu_torch.ops import mips
+
+    model = trained["model"]
+    model_dir = os.path.join(workdir, "ecommerce_model")
+    t0 = time.perf_counter()
+    save_model(model, model_dir)
+    save_s = time.perf_counter() - t0
+    variant = example_engine(repo, "ecommerce")
+    variant["datasource"]["params"]["appName"] = TEMPLATE_APP
+    algo_params = variant["algorithms"][0]["params"]
+    paths = {}
+    for mode in ("scan", "mips"):
+        v = json.loads(json.dumps(variant))
+        if mode == "mips":
+            v["algorithms"][0]["params"]["retrieval"] = {"mode": "mips"}
+        paths[mode] = os.path.join(workdir, f"ecommerce_{mode}.json")
+        with open(paths[mode], "w") as f:
+            json.dump(v, f)
+    users = [f"u{u}" for u in rng.choice(TRAIN_USERS, TEMPLATE_QUERIES, replace=False)]
+    anchors = [f"i{i}" for i in rng.choice(TRAIN_ITEMS, 5, replace=False)]
+    for item in anchors:
+        shop_event("view", "user", "cold-chip", item)
+    # a whiteList the mips shortlist can answer: 10 of the user's unfiltered
+    # top 30 (scan) among 50 random items
+    top = ECommAlgorithm(algo_params, device="cuda").predict(
+        model, {"user": users[2], "num": 30, "unseenOnly": False})["itemScores"]
+    white = ([s["item"] for s in top[::3]]
+             + [f"i{i}" for i in rng.choice(TRAIN_ITEMS, 50, replace=False)])
+    queries = ([{"user": u, "num": 10} for u in users] + [
+        {"user": users[0], "num": 10, "categories": ["cat3"]},
+        {"user": users[1], "num": 10, "categories": ["cat7", "cat11"]},
+        {"user": users[2], "num": 5, "whiteList": white},
+        {"user": users[3], "num": 10, "blackList": [f"i{i}" for i in range(40)]},
+        {"user": "cold-chip", "num": 10},
+        {"user": users[4], "num": 10, "unseenOnly": False},
+    ])
+    anchor_rows = [model.item_index[i] for i in anchors]
+    out = {}
+    for mode in ("scan", "mips"):
+        times = []
+        mips.mips_block_topk.launches = 0    # counts start at 0 here
+        served, deployed, deploy_s = serve_model(paths[mode], model_dir, queries, times)
+        b2 = mips.mips_block_topk.launches   # read here
+        for q, body in zip(queries, served):
+            check_rules(body, q, deployed, anchor_rows if q["user"] == "cold-chip" else ())
+        out[mode] = {"served": served, "deploy_s": deploy_s, "b2_launches": b2,
+                     "query_ms_p50": statistics.median(times), "query_ms_max": max(times)}
+    if out["mips"]["b2_launches"] < 1 or out["scan"]["b2_launches"] != 0:
+        raise AssertionError(f"B2 launches: scan {out['scan']['b2_launches']}, "
+                             f"mips {out['mips']['b2_launches']}")
+    # recall@10 against the scan over every list, the categories and
+    # whiteList ones included
+    hits = total = identical = 0
+    overlap = []
+    for scan_body, mips_body in zip(out["scan"]["served"], out["mips"]["served"]):
+        want = [s["item"] for s in scan_body["itemScores"]][:10]
+        hit = len(set(want) & {s["item"] for s in mips_body["itemScores"]})
+        identical += scan_body == mips_body
+        overlap.append(f"{hit}/{len(want)}")
+        hits, total = hits + hit, total + len(want)
+    recall = hits / max(total, 1)
+    if recall < 0.99:
+        raise AssertionError(f"e-commerce mips recall@10 {recall} < 0.99 against the scan "
+                             f"(per list {overlap})")
+    # batch_predict of 256 users through the mips algorithm = per-query predict
+    algorithm = ECommAlgorithm({**algo_params, "retrieval": {"mode": "mips"}}, device="cuda")
+    batch_users = rng.choice(TRAIN_USERS, TEMPLATE_BATCH, replace=False)
+    batch = [(k, {"user": f"u{u}", "num": 10}) for k, u in enumerate(batch_users)]
+    mips.mips_block_topk.launches = 0
+    t0 = time.perf_counter()
+    answers = dict(algorithm.batch_predict(deployed, batch))
+    batch_s = time.perf_counter() - t0
+    batch_b2 = mips.mips_block_topk.launches
+    for k, q in batch:
+        if answers[k] != algorithm.predict(deployed, q):
+            raise AssertionError(f"batch_predict differs from predict for {q}")
+    result = {
+        "save_s": save_s, "queries": len(queries),
+        "scan": {k: v for k, v in out["scan"].items() if k != "served"},
+        "mips": {k: v for k, v in out["mips"].items() if k != "served"},
+        "recall_at_10": recall, "recall_lists": len(queries),
+        "overlap_with_scan": overlap, "identical_to_scan": identical,
+        "batch_predict": {"queries": TEMPLATE_BATCH, "seconds": batch_s, "b2_launches": batch_b2},
+    }
+    emit({"phase": "serve_ecommerce", **result})
+    result["b2_launches"] = out["mips"]["b2_launches"] + batch_b2
+    return result
+
+
+@contextlib.contextmanager
+def timed_cooccurrence(module, calls: list, check=None):
+    """Time each ``cooccurrence_indicators`` call of a template module
+    (synced), with its peak device bytes and the products' bound;
+    ``check(primary, result, kwargs)`` runs after each call, untimed."""
+    import torch
+
+    real = module.cooccurrence_indicators
+
+    def timed(primary, other=None, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = real(primary, other, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        o = primary if other is None else other
+        phys = max(primary.indices.shape[0], o.indices.shape[0])
+        chunk = min(kw.get("chunk", 4096), phys)
+        rows = -(-phys // chunk) * chunk
+        calls.append({"rows": rows, "items_p": primary.num_cols, "items_o": o.num_cols,
+                      "seconds": seconds, "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                      "bound_ms": cooc_bound(rows, primary.num_cols, o.num_cols)})
+        if check is not None:
+            check(primary, out, kw)
+        return out
+
+    module.cooccurrence_indicators = timed
+    try:
+        yield calls
+    finally:
+        module.cooccurrence_indicators = real
+
+
+def serve_and_batch(template: str, params: dict, model, workdir: str, queries: list,
+                    batch: list) -> dict:
+    """Save and deploy a cooccurrence model with ``params`` through the
+    ``deploy`` code path on cuda; every served answer equals in-process
+    ``predict``, and a ``batch_predict`` of ``batch`` equals per-query
+    ``predict``."""
+    from predictionio_tpu_torch.controller.engine import TEMPLATES
+
+    tmpl = TEMPLATES[template]
+    model_dir = os.path.join(workdir, f"{template}_model")
+    t0 = time.perf_counter()
+    tmpl.save_model(model, model_dir)
+    save_s = time.perf_counter() - t0
+    engine_json = os.path.join(workdir, f"{template}.json")
+    with open(engine_json, "w") as f:
+        json.dump({"algorithms": [{"name": tmpl.algorithm, "params": params}]}, f)
+    times = []
+    served, deployed, deploy_s = serve_model(engine_json, model_dir, queries, times)
+    algorithm = tmpl.algorithm_class(params, device="cuda")
+    for q, body in zip(queries, served):
+        if body != algorithm.predict(deployed, q):
+            raise AssertionError(f"{template}: served {q} differs from predict")
+    if not all(body["itemScores"] for body in served):
+        raise AssertionError(f"{template}: an empty answer among {served}")
+    t0 = time.perf_counter()
+    answers = dict(algorithm.batch_predict(deployed, batch))
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = {k: algorithm.predict(deployed, q) for k, q in batch}
+    predict_s = time.perf_counter() - t0
+    if answers != single:
+        raise AssertionError(f"{template}: batch_predict differs from predict")
+    return {"save_s": save_s, "deploy_s": deploy_s, "queries": len(queries),
+            "query_ms_p50": statistics.median(times), "query_ms_max": max(times),
+            "batch_queries": len(batch), "batch_s": batch_s, "predict_s": predict_s}
+
+
+def phase_train_cooc(ev: dict, repo: str, workdir: str, rng: np.random.Generator,
+                     small_check: dict) -> dict:
+    """``examples/similarproduct/engine.json`` and ``examples/universal/
+    engine.json`` unchanged, plus the 256 history cap, on the same
+    events (27,000 items; the universal template's primary "buy", cross
+    "view"): each ``cooccurrence_indicators`` call's seconds, peak device
+    bytes and the products' bound; the similar-product call's full-size
+    check (``full_cooc_check``, printed as cooc_check with the small
+    half); then each model deployed and asked item and user queries, and
+    a 256-query ``batch_predict`` held to per-query ``predict``."""
+    import torch
+
+    from predictionio_tpu_torch.controller.base import TrainContext
+    from predictionio_tpu_torch.models.similarproduct import (
+        CooccurrenceAlgorithm,
+        InteractionData,
+    )
+    from predictionio_tpu_torch.models.similarproduct import engine as sp_engine
+    from predictionio_tpu_torch.models.universal import MultiEventData, URAlgorithm
+    from predictionio_tpu_torch.models.universal import engine as ur_engine
+
+    vu, vi, vt = ev["view"]
+    bu, bi, bt = ev["buy"]
+    ctx = TrainContext(device="cuda")
+    users = [f"u{u}" for u in rng.choice(TRAIN_USERS, TEMPLATE_QUERIES, replace=False)]
+    items = [f"i{i}" for i in rng.choice(TRAIN_ITEMS, TEMPLATE_QUERIES, replace=False)]
+    batch_users = rng.choice(TRAIN_USERS, TEMPLATE_BATCH // 2, replace=False)
+    batch_items = rng.choice(TRAIN_ITEMS, TEMPLATE_BATCH // 2, replace=False)
+    result = {}
+
+    sp_params = dict(example_engine(repo, "similarproduct")["algorithms"][0]["params"],
+                     maxEventsPerUser=TRAIN_CAP)
+    data = InteractionData(users=np.concatenate([vu, bu]), items=np.concatenate([vi, bi]),
+                           times=np.concatenate([vt, bt]), user_ids=ev["user_ids"],
+                           item_ids=ev["item_ids"])
+    algorithm = CooccurrenceAlgorithm(sp_params, device="cuda")
+    full = []
+
+    def check(primary, out, kw):
+        full.append(full_cooc_check(primary, out, kw["llr_row_totals"], rng))
+
+    with timed_cooccurrence(sp_engine, [], check) as calls:
+        t0 = time.perf_counter()
+        model = algorithm.train(ctx, data)
+        train_s = time.perf_counter() - t0
+    if model.top_indices.shape != (TRAIN_ITEMS, sp_params["topK"]) or not np.isfinite(
+            model.top_values).all():
+        raise AssertionError(f"similar-product indicators {model.top_indices.shape}")
+    emit({"phase": "cooc_check", "small": small_check, "full": full[0]})
+    queries = ([{"items": [i], "num": 10} for i in items]
+               + [{"user": u, "num": 10} for u in users]
+               + [{"items": items[:3], "num": 10, "blackList": items[3:6]}])
+    batch = ([(k, {"user": f"u{u}", "num": 10}) for k, u in enumerate(batch_users)]
+             + [(TEMPLATE_BATCH + k, {"items": [f"i{i}"], "num": 10})
+                for k, i in enumerate(batch_items)])
+    result["similarproduct"] = {
+        "events": int(data.users.size), "train_s": train_s, "calls": calls,
+        **serve_and_batch("similarproduct", sp_params, model, workdir, queries, batch)}
+    del model, data
+
+    ur_params = dict(example_engine(repo, "universal")["algorithms"][0]["params"],
+                     maxEventsPerUser=TRAIN_CAP)
+    data = MultiEventData(
+        event_names=["buy", "view"], per_event={"buy": ev["buy"], "view": ev["view"]},
+        user_ids=ev["user_ids"], item_ids=ev["item_ids"],
+        item_properties={i: {"categories": c} for i, c in ev["categories"].items()})
+    algorithm = URAlgorithm(ur_params, device="cuda")
+    with timed_cooccurrence(ur_engine, []) as calls:
+        t0 = time.perf_counter()
+        model = algorithm.train(ctx, data)
+        train_s = time.perf_counter() - t0
+    if set(model.indicators) != {"buy", "view"} or len(calls) != 2:
+        raise AssertionError(f"UR indicators {sorted(model.indicators)}, {len(calls)} calls")
+    queries = ([{"user": u, "num": 10} for u in users]
+               + [{"items": [i], "num": 10} for i in items]
+               + [{"user": users[0], "num": 10, "fields": [
+                   {"name": "categories", "values": ["cat2"], "bias": -1}]},
+                  {"user": users[1], "num": 10, "blackList": items, "fields": [
+                      {"name": "categories", "values": ["cat5"], "bias": 3.0}]}])
+    result["universal"] = {
+        "events": int(vu.size + bu.size), "train_s": train_s, "calls": calls,
+        **serve_and_batch("universal", ur_params, model, workdir, queries, batch)}
+    torch.cuda.empty_cache()
+    emit({"phase": "train_cooc", **result})
+    return result
+
+
+def small_template_events(rng: np.random.Generator, path: str) -> None:
+    """A few thousand view/buy events and every item's categories in the
+    ``pio import`` wire shape."""
+    base = 1_700_000_000
+    n = TEMPLATE_STORE_EVENTS
+    users = rng.integers(0, TEMPLATE_STORE_USERS, n)
+    items = (np.minimum(rng.random(n) ** 2.2, 0.999999) * TEMPLATE_STORE_ITEMS).astype(np.int64)
+    buys = rng.random(n) < 0.2
+    with open(path, "w") as f:
+        for i in range(TEMPLATE_STORE_ITEMS):
+            f.write(json.dumps({
+                "event": "$set", "entityType": "item", "entityId": f"i{i}",
+                "properties": {"categories": [f"cat{i % 7}"]},
+                "eventTime": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(base - 1)),
+            }) + "\n")
+        for e in range(n):
+            f.write(json.dumps({
+                "event": "buy" if buys[e] else "view", "entityType": "user",
+                "entityId": f"u{users[e]}", "targetEntityType": "item",
+                "targetEntityId": f"i{items[e]}",
+                "eventTime": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(base + e)),
+            }) + "\n")
+
+
+def phase_store_templates(rng: np.random.Generator, repo: str, workdir: str) -> dict:
+    """A fresh store: ``pio import`` of a few thousand view/buy events,
+    then ``pio train`` -> ``pio deploy`` of each shipped engine.json (the
+    app name set) through the port's CLI on cuda, each answer equal to
+    the instance's model's ``predict``; on the e-commerce deploy a
+    ``$set`` of ``unavailableItems`` drops the top item from the next
+    answer without a retrain."""
+    from predictionio_tpu_torch.controller.engine import TEMPLATES
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.event import DataMap, Event
+    from predictionio_tpu_torch.ops import als_gram
+    from predictionio_tpu_torch.tools.cli import build_query_server
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
+    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+
+    events = os.path.join(workdir, "template_events.jsonl")
+    small_template_events(rng, events)
+    result = {}
+    with fresh_store(workdir, "templates_store"):
+        app_id = said(cli_out(["app", "new", "SmallShop"]), "ID")
+        t0 = time.perf_counter()
+        cli_out(["import", "--appid", app_id, "--input", events])
+        result["import_s"] = time.perf_counter() - t0
+        user = "u1"
+        for template, query in (("ecommerce", {"user": user, "num": 5}),
+                                ("similarproduct", {"items": ["i1"], "num": 5}),
+                                ("universal", {"user": user, "num": 5})):
+            variant_path = store_variant(
+                os.path.join(repo, "examples", template, "engine.json"), "SmallShop",
+                os.path.join(workdir, f"small_{template}.json"))
+            als_gram.gram_rhs.launches = 0   # counts start at 0 here
+            t0 = time.perf_counter()
+            instance = said(cli_out(["train", "--variant", variant_path, "--device", "cuda"]),
+                            "Engine instance ID")
+            train_s = time.perf_counter() - t0
+            b1 = als_gram.gram_rhs.launches  # read here
+            variant = load_engine_variant(variant_path)
+            _, model = load_instance_model(variant, instance)
+            algorithm = TEMPLATES[template].algorithm_class(
+                variant.engine_params.algorithm_params_list[0][1], device="cuda")
+            server, service = build_query_server(variant_path, port=0, device="cuda")
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=120)
+            try:
+                body, ms = post(conn, query)
+                if body != algorithm.predict(model, query) or not body["itemScores"]:
+                    raise AssertionError(f"{template}: deploy answered {body}")
+                entry = {"instance": instance, "train_s": train_s, "b1_launches": b1,
+                         "query_ms": ms, "items": [s["item"] for s in body["itemScores"]]}
+                if template == "ecommerce":
+                    if b1 != 2 * algorithm._config().iterations:
+                        raise AssertionError(f"the e-commerce train launched B1 {b1} times")
+                    top = body["itemScores"][0]["item"]
+                    storage.get_l_events().insert(
+                        Event(event="$set", entity_type="constraint",
+                              entity_id="unavailableItems",
+                              properties=DataMap({"items": [top]})), int(app_id))
+                    after, _ = post(conn, query)
+                    served = [s["item"] for s in after["itemScores"]]
+                    if top in served or not served:
+                        raise AssertionError(f"unavailable {top} still served: {served}")
+                    entry.update(unavailable=top, after=served)
+                result[template] = entry
+            finally:
+                conn.close()
+                server.shutdown()
+                server.server_close()
+                service.close()
+                thread.join(timeout=30)
+    emit({"phase": "store_templates", **result})
+    result["b1_launches"] = result["ecommerce"]["b1_launches"]
+    return result
+
+
+def phase_templates(rng: np.random.Generator, ratings, repo: str, workdir: str) -> dict:
+    """The templates part: cooc_check, train_ecommerce, serve_ecommerce,
+    train_cooc and store_templates. Every kernel's count is set to 0
+    first; B3, B4 and the fused backward must stay at 0 through it."""
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+
+    t0 = time.perf_counter()
+    ev = template_events(ratings, rng)
+    events_s = time.perf_counter() - t0
+    ncf_kernel.ncf_score_all_items.launches = 0
+    zero_flash_counts()
+    seconds = {"events": events_s}
+    t0 = time.perf_counter()
+    small_check = phase_cooc_check(ev)
+    seconds["cooc_check_small"] = time.perf_counter() - t0
+    with fresh_store(workdir, "shop"):
+        shop_store(ev)
+        t0 = time.perf_counter()
+        trained = phase_train_ecommerce(ev, repo, rng)
+        seconds["train_ecommerce"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = phase_serve_ecommerce(trained, ev, repo, workdir, rng)
+        seconds["serve_ecommerce"] = time.perf_counter() - t0
+    ecommerce = trained["result"]
+    del trained
+    t0 = time.perf_counter()
+    phase_train_cooc(ev, repo, workdir, rng, small_check)
+    seconds["train_cooc"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = phase_store_templates(rng, repo, workdir)
+    seconds["store_templates"] = time.perf_counter() - t0
+    others = {"ncf_score_all_items": ncf_kernel.ncf_score_all_items.launches, **flash_counts()}
+    if any(others.values()):
+        raise AssertionError(f"the templates launched other kernels: {others}")
+    result = {
+        "b1_launches": {"train_ecommerce": ecommerce["b1_launches"],
+                        "foldin": ecommerce["foldin"]["b1_launches"],
+                        "store_templates": store["b1_launches"]},
+        "b2_launches": {"serve_ecommerce": served["b2_launches"]},
+        "other_launches": others, "seconds": seconds,
+    }
+    emit({"phase": "templates", **result})
     return result
 
 
@@ -4175,11 +5076,11 @@ def phase_train_verb_seq(rng: np.random.Generator, repo: str, workdir: str) -> d
 
 
 def flash_rows(check: dict, timed: dict, train_launches: dict, serve_launches: int,
-               eval_launches: dict, profile_launches: dict) -> list:
+               eval_launches: dict, profile_launches: dict, template_launches: dict) -> list:
     """The ``{"kernels": [...]}`` rows of B4 and the fused backward: times
     at the training shape, the other timed shapes beside them; launches on the
-    training path (B4 also on the serving path), on the evaluation path
-    and on the profiled fit."""
+    training path (B4 also on the serving path), on the evaluation path,
+    on the profiled fit and on the templates part."""
     main_shape, *other = timed["shapes"]
     rows = []
     for name, source, line, what in (
@@ -4195,6 +5096,7 @@ def flash_rows(check: dict, timed: dict, train_launches: dict, serve_launches: i
             "launches": train_launches[name],
             "eval_path_launches": eval_launches[name],
             "profile_train_launches": profile_launches[name],
+            "templates_launches": template_launches[name],
             "max_abs_err": check["max_abs_err"][name],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -4268,6 +5170,8 @@ def main(argv: list[str] | None = None) -> int:
     b1_launches = trained["result"]["launches"]["gram_rhs"]
     ratings = trained["ratings"]
     del trained
+    with tempfile.TemporaryDirectory() as workdir:
+        templates = phase_templates(rng, ratings, repo, workdir)
 
     b3_check = phase_check_b3(args.seed)
     b3_time = phase_time_b3(args.seed)
@@ -4303,6 +5207,7 @@ def main(argv: list[str] | None = None) -> int:
         "follow_path_launches": follow["b2_launches"],
         "eval_path_launches": {part: evaluated[part]["b2_launches"]
                                for part in ("replay", "pinned", "batchpredict")},
+        "templates_launches": templates["b2_launches"],
         "profile_train_launches": profiled["launches"]["mips_block_topk"],
         "batchpredict_chunk": {k: evaluated["batchpredict"]["b2_chunk"][k] for k in (
             "batch", "items", "rank", "block_items", "block_topk", "instance", "ms",
@@ -4339,6 +5244,7 @@ def main(argv: list[str] | None = None) -> int:
         "store_path_launches": store["b1_launches"],
         "follow_path_launches": follow["b1_launches"],
         "eval_path_launches": evaluated["b1_launches"],
+        "templates_launches": templates["b1_launches"],
         "profile_train_launches": profiled["launches"]["gram_rhs"],
         "max_abs_err": b1_check["max_abs_err"],
         "ms": b1_main["ms"],
@@ -4363,6 +5269,7 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": "predictionio_tpu/models/ncf/kernel.py:32",
         "launches": ncf_serve["launches"]["ncf_score_all_items"],
         "eval_path_launches": evaluated["b3_launches"],
+        "templates_launches": templates["other_launches"]["ncf_score_all_items"],
         "profile_train_launches": profiled["launches"]["ncf_score_all_items"],
         "max_abs_err": b3_check["max_abs_err"],
         "ms": b3_main["ms"],
@@ -4385,7 +5292,7 @@ def main(argv: list[str] | None = None) -> int:
         ],
     }] + flash_rows(flash_check, flash_time, seq_trained["result"]["launches"],
                     seq_serve["launches"]["flash_forward"], evaluated["flash_launches"],
-                    profiled["launches"])})
+                    profiled["launches"], templates["other_launches"])})
     print(card, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu",

@@ -106,6 +106,13 @@ class Preparator(Component, abc.ABC):
     def prepare(self, ctx, training_data): ...
 
 
+class IdentityPreparator(Preparator):
+    """Pass-through preparator (reference IdentityPreparator)."""
+
+    def prepare(self, ctx, training_data):
+        return training_data
+
+
 @dataclass
 class TrainContext:
     """What the train path needs from its caller: the ``device`` the fit

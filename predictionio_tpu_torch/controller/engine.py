@@ -46,11 +46,19 @@ from typing import Any, Callable, Mapping
 from predictionio_tpu_torch.controller.base import (
     Algorithm,
     DataSource,
+    IdentityPreparator,
     Params,
     Preparator,
 )
 from predictionio_tpu_torch.controller.serving import FirstServing
-from predictionio_tpu_torch.models import ncf, recommendation, sequence
+from predictionio_tpu_torch.models import (
+    ecommerce,
+    ncf,
+    recommendation,
+    sequence,
+    similarproduct,
+    universal,
+)
 
 
 @dataclass
@@ -113,6 +121,19 @@ TEMPLATES = {
     "sequence": Template(
         "sequence", "sasrec", sequence.SASRecAlgorithm, sequence.SequencePreparator,
         sequence.save_model, sequence.load_model, sequence.SequenceDataSource,
+    ),
+    "ecommerce": Template(
+        "ecommerce", "ecomm", ecommerce.ECommAlgorithm, ecommerce.ECommercePreparator,
+        ecommerce.save_model, ecommerce.load_model, ecommerce.ECommerceDataSource,
+    ),
+    "similarproduct": Template(
+        "similarproduct", "cooccurrence", similarproduct.CooccurrenceAlgorithm,
+        IdentityPreparator, similarproduct.save_model, similarproduct.load_model,
+        similarproduct.SimilarProductDataSource,
+    ),
+    "universal": Template(
+        "universal", "ur", universal.URAlgorithm, IdentityPreparator,
+        universal.save_model, universal.load_model, universal.URDataSource,
     ),
 }
 

@@ -451,6 +451,18 @@ def read_events(path: str) -> list[Event]:
     return events
 
 
+def read_item_properties(path: str) -> dict[str, PropertyMap]:
+    """item id -> ``PropertyMap`` folded from an events file's item
+    ``$set`` / ``$unset`` / ``$delete`` events in event-time order: what
+    ``PEventStore.aggregate_properties(app, "item")`` answers for a store
+    holding the file."""
+    from predictionio_tpu_torch.data.aggregation import aggregate_properties
+
+    events = [e for e in read_events(path) if e.entity_type == "item"]
+    events.sort(key=lambda e: int(e.event_time.timestamp() * 1000))
+    return aggregate_properties(events)
+
+
 def read_events_file(
     path: str,
     *,

@@ -1,1 +1,2 @@
-"""Engine templates of the port (the recommendation template's serving half so far)."""
+"""Engine templates of the port: recommendation, Neural-CF, sequence,
+e-commerce, similar-product and universal (``controller/engine.py::TEMPLATES``)."""

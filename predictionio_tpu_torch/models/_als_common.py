@@ -30,6 +30,7 @@ import hashlib
 import logging
 
 import numpy as np
+import torch
 
 from predictionio_tpu_torch.ops.mips import RetrievalConfig, RetrievalIndex
 from predictionio_tpu_torch.parallel.als import (
@@ -215,22 +216,31 @@ def _telemetry_fields(ctx, als_data, config: ALSConfig) -> dict:
     }
 
 
+def user_runs(users: np.ndarray, device=None) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """``(order, distinct users, starts, ends)``: the stable sort of
+    ``users`` (``torch.sort`` on ``device``, the host by default: several
+    times numpy's for tens of millions of rows) and each user's run of
+    it, found by one O(n) boundary scan."""
+    order = torch.sort(torch.as_tensor(np.asarray(users), device=resolve_device(device or "cpu")),
+                       stable=True).indices.cpu().numpy()
+    sorted_users = np.asarray(users)[order]
+    starts = np.flatnonzero(np.r_[True, sorted_users[1:] != sorted_users[:-1]])
+    ends = np.append(starts[1:], sorted_users.size)
+    return order, sorted_users[starts], starts, ends
+
+
 def build_seen(users: np.ndarray, items: np.ndarray) -> dict[int, set[int]]:
     """user index -> set of interacted item indices (serving-time filter).
 
-    Sorted-split construction: one stable argsort + one ``np.unique``
-    boundary scan, so interpreter time is O(distinct users), not
-    O(events)."""
+    Sorted-split construction (``user_runs``), so interpreter time is
+    O(distinct users), not O(events)."""
     users = np.asarray(users)
     if users.size == 0:
         return {}
-    order = np.argsort(users, kind="stable")
-    sorted_users = users[order]
-    sorted_items = np.asarray(items)[order]
-    uniq, starts = np.unique(sorted_users, return_index=True)
-    bounds = np.append(starts[1:], sorted_users.size)
+    order, uniq, starts, bounds = user_runs(users)
+    sorted_items = np.asarray(items)[order].tolist()
     return {
-        int(u): set(sorted_items[s:e].tolist())
+        u: set(sorted_items[s:e])
         for u, s, e in zip(uniq.tolist(), starts.tolist(), bounds.tolist())
     }
 
@@ -279,10 +289,27 @@ class Shortlist:
         self.scores = np.array(scores)  # writable copy: filters mutate it
         self.num_items = num_items
 
+    @property
+    def shape(self) -> tuple:
+        """Mimics the dense score vector (``scores.shape[0]``)."""
+        return (self.num_items,)
+
     def __setitem__(self, idx: int, value) -> None:
         pos = int(np.searchsorted(self.indices, idx))
         if pos < self.indices.size and self.indices[pos] == idx:
             self.scores[pos] = value
+
+    def where_allowed(self, allowed: np.ndarray, sentinel=-np.inf) -> "Shortlist":
+        """Apply a dense [num_items] bool mask (whiteList/categories) in
+        O(shortlist); ``num_items`` sentinels (search padding) always mask
+        to ``sentinel``."""
+        valid = self.indices < self.num_items
+        safe = np.minimum(self.indices, max(self.num_items - 1, 0))
+        self.scores = np.where(valid & allowed[safe], self.scores, sentinel)
+        return self
+
+    def copy(self) -> "Shortlist":
+        return Shortlist(self.indices, self.scores, self.num_items)
 
 
 def resolve_retrieval(params) -> RetrievalConfig:

@@ -31,6 +31,13 @@ from predictionio_tpu_torch.controller.base import SanityCheck
 
 logger = logging.getLogger("pio.streaming")
 
+#: what a datasource's ``"reader": "streaming"`` raises until the sharded
+#: reader is ported
+STREAMING_NOT_PORTED = (
+    'datasource "reader": "streaming" (the sharded reader) is not ported '
+    "yet: ROADMAP.md Queue A item 8; leave it out"
+)
+
 
 @dataclass
 class StreamingHandle(SanityCheck):

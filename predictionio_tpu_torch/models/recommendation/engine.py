@@ -59,6 +59,7 @@ from predictionio_tpu_torch.models._als_common import (
     warn_misplaced_packing_params,
 )
 from predictionio_tpu_torch.models._streaming import (
+    STREAMING_NOT_PORTED,
     build_streaming_handle,
     live_seen_indices,
 )
@@ -118,10 +119,7 @@ class RecommendationDataSource(DataSource):
         super().__init__(params)
         self.events_path = events_path
         if self.params.get_or("reader", "materialized") == "streaming":
-            raise NotImplementedError(
-                'datasource "reader": "streaming" (the sharded reader) is not '
-                "ported yet: ROADMAP.md Queue A item 8; leave it out"
-            )
+            raise NotImplementedError(STREAMING_NOT_PORTED)
 
     def _read(self, **snapshot) -> RatingsData:
         """The ratings of the store (``snapshot``: ``snapshot_mode`` /

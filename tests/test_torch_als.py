@@ -87,6 +87,36 @@ def test_build_als_data_is_byte_identical(skewed, buckets):
         )
 
 
+@pytest.mark.parametrize("times_kind", ["random", "ties", "two_sorted_runs", "none"])
+@pytest.mark.parametrize("max_len", [None, 5])
+def test_pack_padded_csr_is_byte_identical(times_kind, max_len):
+    """The port orders entries by two stable sorts where the reference
+    calls ``np.lexsort``: the packed arrays are the same bytes, with ties
+    in the times (input order decides), a log of two presorted runs (as
+    a view log followed by a buy log) and no times."""
+    from predictionio_tpu.ops.ragged import pack_padded_csr as jax_pack
+    from predictionio_tpu_torch.ops.ragged import pack_padded_csr
+
+    rng = np.random.default_rng(5)
+    n_u, n_i, n = 70, 40, 3000
+    users = rng.integers(0, n_u, n)
+    items = rng.integers(0, n_i, n)
+    vals = rng.random(n).astype(np.float32)
+    times = {
+        "random": rng.random(n) * 1e6,
+        "ties": rng.integers(0, 20, n).astype(np.float64),
+        "two_sorted_runs": np.concatenate([np.arange(2000.0), np.sort(rng.random(1000)) * 2000]),
+        "none": None,
+    }[times_kind]
+    a = jax_pack(users, items, vals, n_u, n_i, max_len=max_len, times=times)
+    b = pack_padded_csr(users, items, vals, n_u, n_i, max_len=max_len, times=times)
+    for name in ("indices", "values", "mask"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes(), name
+    assert (a.num_rows, a.num_cols, a.truncated) == (b.num_rows, b.num_cols, b.truncated)
+    assert max_len is None or b.truncated > 0
+
+
 def test_batched_spd_solve_matches_jax():
     rng = np.random.default_rng(2)
     a = rng.normal(size=(50, 8, 8)).astype(np.float32)

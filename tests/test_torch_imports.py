@@ -58,7 +58,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert out.returncode == 0, out.stderr
     count, *walked = out.stdout.split()
     # every module of the slices was walked, not just the package root
-    assert int(count) >= 43
+    assert int(count) >= 53
     for module in ("__init__", "model", "kernel", "engine", "convert"):
         assert f"predictionio_tpu_torch.models.ncf.{module}".removesuffix(".__init__") in walked
     for module in ("models.sequence", "models.sequence.model", "models.sequence.engine",
@@ -67,7 +67,13 @@ def test_port_imports_no_jax_and_no_reference_package():
                    # the evaluation, batch-predict and observability slice
                    "eval", "eval.metrics", "eval.split", "eval.replay",
                    "controller.metrics", "workflow.batch_predict", "obs.logs",
-                   "obs.telemetry", "obs.top"):
+                   "obs.telemetry", "obs.top",
+                   # the e-commerce, similar-product and universal slice
+                   "ops.cooccurrence", "models.ecommerce", "models.ecommerce.engine",
+                   "models.ecommerce.convert", "models.similarproduct",
+                   "models.similarproduct.engine", "models.similarproduct.convert",
+                   "models.universal", "models.universal.engine",
+                   "models.universal.convert"):
         assert f"predictionio_tpu_torch.{module}" in walked
 
 
@@ -97,6 +103,9 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
         build_trainer(engine_json, str(tmp_path / "events.jsonl"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fold_in_users(np.ones((2, 4), np.float32), [0], [1], [5.0], 1, config)
+    for template in ("ecommerce", "similarproduct", "universal"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build_trainer(os.path.join(REPO, "examples", template, "engine.json"))
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("mps")
@@ -328,6 +337,67 @@ WHOLE_DEFS = {
     "obs/telemetry.py": ({"jit_cache_size"},
                          {"TrainTelemetry.record_epoch", "TrainTelemetry.record_phase"}),
 }
+
+
+#: functions and classes copied verbatim into modules that are not copies
+#: as a whole: port module -> qualified names, each equal to the same
+#: name of the same path in the JAX package after the package rename
+VERBATIM_DEFS = {
+    "ops/cooccurrence.py": ["_pad_rows_sentinel", "distinct_user_counts", "top_k_sparsify"],
+    "models/ecommerce/engine.py": [
+        "ECommerceData", "_buy_confidences", "_category_index",
+        "ECommerceDataSource.read_eval", "ECommerceDataSource.read_replay",
+        "ECommercePreparator.prepare", "ECommerceModel",
+        "ECommAlgorithm._unavailable_items", "ECommAlgorithm._recently_viewed",
+        "ECommAlgorithm._seen", "ECommAlgorithm._apply_rules",
+    ],
+    "models/similarproduct/engine.py": [
+        "InteractionData", "SimilarProductDataSource.read_eval",
+        "SimilarProductDataSource.read_replay", "SimilarityModel", "_user_anchor_items",
+        "CooccurrenceAlgorithm._resolve_anchors",
+        "CooccurrenceAlgorithm._anchor_contributions",
+        "CooccurrenceAlgorithm._compact_scores", "CooccurrenceAlgorithm._topk_response",
+        "CooccurrenceAlgorithm.predict", "CooccurrenceAlgorithm.batch_predict",
+    ],
+    "models/universal/engine.py": [
+        "MultiEventData", "URDataSource.read_eval", "URModel", "_invert_indicators",
+        "_user_history", "URAlgorithm._rule_multiplier", "URAlgorithm._predict_impl",
+        "URAlgorithm.predict", "URAlgorithm.batch_predict",
+    ],
+}
+
+
+def _def_sources(source: str) -> dict[str, str]:
+    """Qualified name -> source text (decorators included) of every
+    function and class of ``source``."""
+    lines = source.splitlines()
+    out = {}
+
+    def walk(body, prefix):
+        for node in body:
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                name = prefix + node.name
+                start = min([node.lineno] + [d.lineno for d in node.decorator_list])
+                out[name] = "\n".join(lines[start - 1:node.end_lineno])
+                if isinstance(node, ast.ClassDef):
+                    walk(node.body, name + ".")
+
+    walk(ast.parse(source).body, "")
+    return out
+
+
+@pytest.mark.parametrize("path,name", [
+    (path, name) for path, names in sorted(VERBATIM_DEFS.items()) for name in names])
+def test_verbatim_definitions_equal_their_originals(path, name):
+    """Each listed function or class is its original with
+    ``predictionio_tpu`` renamed to ``predictionio_tpu_torch``, and the
+    port module's docstring names the original module."""
+    with open(os.path.join(REPO, "predictionio_tpu", path)) as f:
+        original = re.sub(r"\bpredictionio_tpu\b", "predictionio_tpu_torch", f.read())
+    with open(os.path.join(REPO, "predictionio_tpu_torch", path)) as f:
+        copy = f.read()
+    assert f"``predictionio_tpu/{path}``" in " ".join(ast.get_docstring(ast.parse(copy)).split())
+    assert _def_sources(copy)[name] == _def_sources(original)[name]
 
 
 def _without_defs(source: str, names: set) -> str:

@@ -387,13 +387,14 @@ def test_template_dispatch(tmp_path):
     by_name.write_text(json.dumps({"algorithms": [{"name": "ncf", "params": params}]}))
     assert cli.load_variant(str(by_name))[1].algorithm == "ncf"
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    for example, name in (("ncf", "ncf"), ("recommendation", "als")):
+    for example, name in (("ncf", "ncf"), ("recommendation", "als"), ("ecommerce", "ecomm"),
+                          ("similarproduct", "cooccurrence"), ("universal", "ur")):
         path = os.path.join(repo, "examples", example, "engine.json")
         assert cli.load_variant(path)[1].algorithm == name
     for bad, match in (
-        ({"engineFactory": "predictionio_tpu.models.ecommerce.engine_factory",
-          "algorithms": [{"name": "ecomm"}]}, "not a ported template"),
-        ({"algorithms": [{"name": "ecomm"}]}, "not a ported template"),
+        ({"engineFactory": "predictionio_tpu.models.classification.engine_factory",
+          "algorithms": [{"name": "naive-bayes"}]}, "not a ported template"),
+        ({"algorithms": [{"name": "naive-bayes"}]}, "not a ported template"),
         ({"engineFactory": "predictionio_tpu.models.ncf.engine_factory",
           "algorithms": [{"name": "als"}]}, "algorithm is 'ncf'"),
     ):
