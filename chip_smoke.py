@@ -220,6 +220,43 @@ script exits non-zero and prints no result):
    events, ``pio train`` -> ``pio deploy`` of each of the three
    engine.jsons; a ``$set`` of ``unavailableItems`` drops the top item
    from the next e-commerce answer without a retrain.
+   classification -- every kernel's count set to 0 first, all five still 0
+   at the end (the part is plain torch, as the reference's is plain jnp):
+   classify_path -- BASELINE config #2 through the verbs in a fresh store:
+   ``pio app new MyApp``, ``pio import`` of 5,574 SMS ``train`` events
+   (747 spam, 4,827 ham: the UCI SMS Spam Collection's counts; 4-30
+   tokens from two Zipf vocabularies of 8,000 words sharing 4,000, from
+   ``--seed``), ``pio train`` of ``examples/classification/engine.json``
+   unchanged (naive-bayes, hashDim 4096) and of a logistic-regression
+   variant (reg 1e-4, 100 L-BFGS updates), each held to the same training
+   on the CPU: Naive Bayes within rtol 1e-6; logistic regression's first
+   10 iterates within rtol 2e-3, atol 2e-4, and its final model by its
+   labels on every message and its loss within 1e-3 (100 updates on
+   separable text part further between any two f32 reduction orders,
+   the reference's own two included; the weights' gap is printed); each
+   deployed, 20 queries over HTTP: bodies equal to ``predict``, labels
+   the CPU model's, Naive Bayes scores within 1e-5; ``pio batchpredict``
+   equal to ``predict``; a 3-fold ``pio eval`` (accuracy
+   ``AverageMetric``, both algorithms) on the card and on the CPU; 10,000
+   users' ``$set`` of three categorical and two numeric attributes
+   trained in properties mode (naive-bayes) and held to the CPU; the
+   same SMS events in an Elasticsearch-fake store (all three
+   repositories) and an HBase-fake event store: ``run_train`` on the
+   card, the blob read back through ``load_serving_model`` from that
+   store, its answers bit-equal to the sqlite store's model's.
+   classify_scale -- the trainers alone at 262,144 messages x hashDim
+   4096 (4.29 GB of f32 on the card): Naive Bayes (held to the CPU at
+   1e-6) and 100 L-BFGS updates (the first 10 iterates held to the
+   CPU's at the bar above): train s, evaluations, host syncs, peak
+   bytes, and one loss-and-gradient evaluation timed beside its bound
+   (two passes over x: 8.59 GB at 3.35 TB/s, 2.56 ms).
+   kmeans_check -- e2's ``kmeans`` on 1,000,000 x 32 points around 64
+   seeded centers, k = 64, 20 iterations: each Lloyd step held to the
+   CPU's step from the same centers (assignments equal but for near
+   ties, the centers of the card's assignment within 1e-4, the cost
+   within 1e-5), the CPU's costs along that path stopping it at the
+   card's iteration; the host k-means++ seconds; a Lloyd step timed
+   beside its bound (2 N D k operations at 67 TFLOP/s, 0.061 ms).
 13. check_b3 -- kernel B3 (``ncf_score.cu``) against its plain version
    on the card at the NCF template's widths (E=32, hidden 64, 32) over
    1,000,000 items for five users (the last one included); over 1, 15,
@@ -3858,6 +3895,661 @@ def phase_templates(rng: np.random.Generator, ratings, repo: str, workdir: str) 
 
 
 # --------------------------------------------------------------------------
+# the classification part: the classification template (Naive Bayes and
+# L-BFGS logistic regression) and e2's k-means, plain torch on the card;
+# none of B1-B6 runs here
+# --------------------------------------------------------------------------
+
+
+SMS_SPAM, SMS_HAM = 747, 4_827  # the UCI SMS Spam Collection's two counts
+SMS_VOCAB = 8_000               # words per class vocabulary
+SMS_SHARED = 4_000              # words the two vocabularies share
+SMS_ZIPF = 1.07                 # Zipf exponent of each vocabulary's ranks
+SMS_TOKENS = (4, 30)            # tokens per message, uniform
+SMS_QUERIES = 20
+CLASSIFY_APP = "MyApp"          # examples/classification/engine.json's appName
+PROPERTY_APP = "PropApp"
+PROPERTY_USERS = 10_000
+#: the reference's bars: Naive Bayes sharded vs single, logistic regression
+#: for a different reduction order (tests/test_classification_template.py)
+NB_RTOL = 1e-6
+LR_RTOL, LR_ATOL = 2e-3, 2e-4
+LR_EARLY = 10                   # the L-BFGS iterates held to the CPU's
+#: 100 updates on separable text part past LR_RTOL/LR_ATOL between any two
+#: reduction orders (the reference's own sharded and single fits too):
+#: the final model is held by its labels and its loss
+LR_LOSS_RTOL = 1e-3
+SERVE_SCORE_TOL = 1e-5
+SCALE_MESSAGES = 262_144
+HASH_DIM = 4_096
+KM_POINTS, KM_DIM, KM_BLOBS, KM_K, KM_ITERATIONS = 1_000_000, 32, 64, 64, 20
+KM_SPREAD = 3.0                 # blob centers ~ N(0, 3^2), points ~ N(center, 1)
+KM_CENTER_ATOL, KM_COST_RTOL = 1e-4, 1e-5
+
+
+def sms_corpus(rng: np.random.Generator, n_spam: int, n_ham: int, texts: bool = True):
+    """Messages of two Zipf vocabularies of ``SMS_VOCAB`` words sharing
+    ``SMS_SHARED``, 4-30 tokens each, in a shuffled order: ``(labels
+    ["spam"|"ham"], word ids per token, tokens per message, the words,
+    texts or None)``."""
+    words = np.array([f"w{i}" for i in range(2 * SMS_VOCAB - SMS_SHARED)])
+    p = np.arange(1, SMS_VOCAB + 1, dtype=np.float64) ** -SMS_ZIPF
+    p /= p.sum()
+    vocab = {"spam": rng.permutation(SMS_VOCAB),
+             "ham": rng.permutation(SMS_VOCAB) + (SMS_VOCAB - SMS_SHARED)}
+    labels = np.array(["spam"] * n_spam + ["ham"] * n_ham)[rng.permutation(n_spam + n_ham)]
+    lengths = rng.integers(SMS_TOKENS[0], SMS_TOKENS[1] + 1, labels.size)
+    ranks = rng.choice(SMS_VOCAB, size=int(lengths.sum()), p=p)
+    is_spam = np.repeat(labels == "spam", lengths)
+    ids = np.where(is_spam, vocab["spam"][ranks], vocab["ham"][ranks])
+    out = None
+    if texts:
+        bounds = np.concatenate([[0], np.cumsum(lengths)])
+        out = [" ".join(words[ids[a:b]]) for a, b in zip(bounds[:-1], bounds[1:])]
+    return labels, ids, lengths, words, out
+
+
+def sms_events(labels, texts, path: str) -> None:
+    """The messages as ``train`` events in the ``pio import`` wire shape,
+    one a second."""
+    base = 1_700_000_000
+    with open(path, "w") as f:
+        for i, (label, text) in enumerate(zip(labels, texts)):
+            f.write(json.dumps({
+                "event": "train", "entityType": "message", "entityId": f"m{i}",
+                "properties": {"text": text, "label": str(label)},
+                "eventTime": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(base + i)),
+            }) + "\n")
+
+
+def property_events(rng: np.random.Generator, path: str) -> list[dict]:
+    """``PROPERTY_USERS`` users' ``$set`` of three categorical and two
+    numeric attributes and their ``plan``; returns the feature dicts of
+    the first 200."""
+    regions, devices, contracts = ["n", "s", "e", "w", "c", "x"], ["ios", "android",
+                                                                 "web", "tv"], ["m", "y", "2y"]
+    base = 1_700_000_000
+    sample = []
+    with open(path, "w") as f:
+        for u in range(PROPERTY_USERS):
+            props = {"region": str(rng.choice(regions)), "device": str(rng.choice(devices)),
+                     "contract": str(rng.choice(contracts)), "age": int(rng.integers(18, 81)),
+                     "minutes": round(float(rng.gamma(2.0, 150.0)), 2)}
+            heavy = props["minutes"] > 300 or props["device"] == "tv"
+            plan = "pro" if heavy and props["contract"] != "m" else (
+                "plus" if heavy or props["age"] < 30 else "basic")
+            if rng.random() < 0.1:
+                plan = str(rng.choice(["basic", "plus", "pro"]))
+            if u < 200:
+                sample.append(dict(props))
+            f.write(json.dumps({
+                "event": "$set", "entityType": "user", "entityId": f"u{u}",
+                "properties": {**props, "plan": plan},
+                "eventTime": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(base + u)),
+            }) + "\n")
+    return sample
+
+
+def within(got, want, rtol: float, atol: float = 0.0) -> bool:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return bool(np.all(np.abs(got - want) <= atol + rtol * np.abs(want)))
+
+
+def classifier_loss(model, x: np.ndarray, y: np.ndarray, reg: float) -> float:
+    """The logistic regression's training loss in f64 on the host."""
+    z = x.astype(np.float64) @ model.inner.weights.astype(np.float64) + model.inner.bias
+    z -= z.max(axis=1, keepdims=True)
+    nll = np.log(np.exp(z).sum(axis=1)) - z[np.arange(y.size), y]
+    return float(nll.mean() + reg * np.sum(model.inner.weights.astype(np.float64) ** 2))
+
+
+@contextlib.contextmanager
+def lbfgs_recorder(into: dict):
+    """Record the L-BFGS run of every logistic-regression train inside
+    the block: its stats and its first ``LR_EARLY`` iterates (host
+    copies)."""
+    from predictionio_tpu_torch.models.classification import engine as cls_engine
+
+    real = cls_engine.train_logistic_regression
+
+    def spy(*args, **kwargs):
+        into["iterates"], into["stats"] = [], {}
+
+        def keep(k, params):
+            if k <= LR_EARLY:
+                into["iterates"].append([p.cpu().numpy().copy() for p in params])
+
+        return real(*args, **kwargs, stats=into["stats"], on_iterate=keep)
+
+    cls_engine.train_logistic_regression = spy
+    try:
+        yield into
+    finally:
+        cls_engine.train_logistic_regression = real
+
+
+def early_iterates_within(card: list, cpu: list) -> list:
+    """Per early iterate, whether ``w`` and ``b`` agree at the bar, and
+    the worst absolute difference."""
+    out = []
+    for k, (a, b) in enumerate(zip(card, cpu), 1):
+        ok = all(within(p, q, LR_RTOL, LR_ATOL) for p, q in zip(a, b))
+        out.append({"iterate": k, "within": ok,
+                    "max_abs": max(float(np.abs(p - q).max()) for p, q in zip(a, b))})
+    return out
+
+
+def compare_classifiers(name: str, card, cpu, x: np.ndarray | None, y: np.ndarray | None,
+                        records: dict, rows: int = 0) -> dict:
+    """The card-trained model against the CPU's: Naive Bayes by
+    ``naive_bayes_within`` (``x`` None: over ``rows`` examples of float
+    attributes); logistic regression by its first
+    iterates, labels and loss (gated) and its weights (printed)."""
+    if name == "logistic_regression":
+        early = early_iterates_within(records["cuda"]["iterates"], records["cpu"]["iterates"])
+        if len(early) != LR_EARLY or not all(e["within"] for e in early):
+            raise AssertionError(f"{name}: early iterates part from the CPU's: {early}")
+        card_labels = card.inner.scores(x).argmax(axis=1)
+        cpu_labels = cpu.inner.scores(x).argmax(axis=1)
+        card_loss, cpu_loss = classifier_loss(card, x, y, 1e-4), classifier_loss(cpu, x, y, 1e-4)
+        if not (card_labels == cpu_labels).all() or abs(card_loss - cpu_loss) > (
+                LR_LOSS_RTOL * cpu_loss):
+            raise AssertionError(f"{name}: card loss {card_loss}, CPU {cpu_loss}; "
+                                 f"{int((card_labels != cpu_labels).sum())} labels differ")
+        return {"early_iterates_max_abs": max(e["max_abs"] for e in early),
+                "loss": card_loss, "cpu_loss": cpu_loss,
+                "train_accuracy": float((card_labels == y).mean()),
+                "weights_max_abs_diff": float(np.abs(card.inner.weights - cpu.inner.weights).max()),
+                "weights_within_bar": within(card.inner.weights, cpu.inner.weights, LR_RTOL, LR_ATOL),
+                "lbfgs": records["cuda"]["stats"], "cpu_lbfgs": records["cpu"]["stats"]}
+    return naive_bayes_within(name, card.inner, cpu.inner, float_rows=0 if x is not None else rows)
+
+
+def naive_bayes_within(name: str, card, cpu, float_rows: int = 0) -> dict:
+    """Naive Bayes on the card against the CPU: each log within ``NB_RTOL``
+    or within ``atol``, the rounding of the difference of two f32 logs
+    (each within an ulp, at most 2^-23 |v|, of the exact one: a log
+    prior such as log(227,000) - log(262,000) cancels to -0.14, where
+    one ulp of its terms is 8e-6 of it). Integer counts sum exactly in
+    f32 in any order; over ``float_rows`` examples of float attributes
+    (properties mode's numeric columns) two orders of a sum of
+    non-negative values also part by ~sqrt(n) roundings."""
+    scale = float(max(np.abs(cpu.log_likelihood).max(), np.abs(cpu.log_prior).max()))
+    atol = 2.0 ** -22 * scale + 2 * np.sqrt(float_rows) * 2.0 ** -24
+    errs = {p: float(np.abs(getattr(card, p) - getattr(cpu, p)).max())
+            for p in ("log_prior", "log_likelihood")}
+    if not all(within(getattr(card, p), getattr(cpu, p), NB_RTOL, atol) for p in errs):
+        raise AssertionError(f"{name}: Naive Bayes differs from the CPU's by {errs}, beyond "
+                             f"rtol {NB_RTOL}, atol {atol}")
+    return {"max_abs_err": max(errs.values()), "atol": atol}
+
+
+def serve_classifier(engine_json: str, queries: list, algorithm, model, cpu_algorithm,
+                     cpu_model, exact: bool) -> dict:
+    """``queries`` over HTTP to a deploy of the engine.json's latest
+    instance on cuda: each body the instance model's ``predict``, each
+    label the CPU model's, scores within ``SERVE_SCORE_TOL`` where
+    ``exact`` (Naive Bayes)."""
+    from predictionio_tpu_torch.tools.cli import build_query_server
+
+    server, service = build_query_server(engine_json, port=0, device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=120)
+    times, worst = [], 0.0
+    try:
+        for q in queries:
+            body, ms = post(conn, q)
+            times.append(ms)
+            want = cpu_algorithm.predict(cpu_model, q)
+            if body != algorithm.predict(model, q) or body["label"] != want["label"]:
+                raise AssertionError(f"served {body} for {q}; CPU model {want}")
+            diff = max(abs(body["scores"][c] - want["scores"][c]) for c in want["scores"])
+            if exact and diff > SERVE_SCORE_TOL:
+                raise AssertionError(f"served scores {body} vs the CPU's {want}")
+            worst = max(worst, diff)
+    finally:
+        conn.close()
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+    return {"queries": len(queries), "query_ms_p50": statistics.median(times),
+            "scores_max_abs_diff": worst}
+
+
+SMS_EVAL_MODULE = '''\
+from predictionio_tpu_torch.controller.engine import TEMPLATES, EngineParams
+from predictionio_tpu_torch.controller.metrics import (
+    AverageMetric, EngineParamsGenerator, Evaluation)
+
+
+def accuracy(info, query, prediction, actual):
+    return 1.0 if prediction["label"] == actual else 0.0
+
+
+EVALUATION = Evaluation(template=TEMPLATES["classification"],
+                        metric=AverageMetric(score=accuracy))
+GENERATOR = EngineParamsGenerator([EngineParams.from_json_obj({
+    "datasource": {"params": {"appName": "%s", "evalFolds": 3}},
+    "algorithms": [{"name": name, "params": params}]})
+    for name, params in (("naive-bayes", {"smoothing": 1.0}),
+                         ("logistic-regression", {"reg": 1e-4, "iterations": 100}))])
+'''
+
+
+@contextlib.contextmanager
+def fake_backend_store(workdir: str, backend: str):
+    """A fresh ``PIO_FS_BASEDIR`` with the Elasticsearch fake serving all
+    three repositories, or the HBase fake the event data (sqlite the
+    rest), for the block; the environment restored after."""
+    from predictionio_tpu_torch.data import storage
+
+    env = {"PIO_FS_BASEDIR": os.path.join(workdir, f"{backend}_store")}
+    if backend == "elasticsearch":
+        for repo in ("METADATA", "EVENTDATA", "MODELDATA"):
+            env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = "ES"
+        env.update(PIO_STORAGE_SOURCES_ES_TYPE="elasticsearch",
+                   PIO_STORAGE_SOURCES_ES_TRANSPORT="fake")
+    else:
+        env.update(PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE="HB",
+                   PIO_STORAGE_SOURCES_HB_TYPE="hbase", PIO_STORAGE_SOURCES_HB_TRANSPORT="fake")
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    storage.reset()
+    try:
+        yield
+    finally:
+        storage.reset()
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def remote_store_check(workdir: str, events_path: str, engine_json: str, queries: list,
+                       want: list) -> dict:
+    """The SMS events in an Elasticsearch-fake store and in an HBase-fake
+    event store: ``run_train`` of naive-bayes on the card, the instance
+    and blob in that store's model repository, ``load_serving_model``
+    of them; every answer bit-equal to ``want`` (the sqlite store's)."""
+    from predictionio_tpu_torch.controller.engine import TEMPLATES, load_serving_model
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.workflow.core_workflow import (
+        engine_params_from_instance,
+        run_train,
+    )
+    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+
+    out = {}
+    for backend in ("elasticsearch", "hbase"):
+        with fake_backend_store(workdir, backend):
+            app_id = said(cli_out(["app", "new", CLASSIFY_APP]), "ID")
+            t0 = time.perf_counter()
+            cli_out(["import", "--appid", app_id, "--input", events_path])
+            import_s = time.perf_counter() - t0
+            events_dao = type(storage.get_l_events()).__module__
+            t0 = time.perf_counter()
+            instance = run_train(load_engine_variant(engine_json), device="cuda")
+            train_s = time.perf_counter() - t0
+            models = storage.get_model_data_models()
+            record = models.get(instance.id)
+            algorithm, model = load_serving_model(
+                TEMPLATES["classification"], engine_params_from_instance(instance),
+                record.models, device="cuda")
+            got = [algorithm.predict(model, q) for q in queries]
+            if got != want:
+                raise AssertionError(f"{backend}: the answers differ from the sqlite store's")
+            out[backend] = {"events_dao": events_dao, "models_dao": type(models).__module__,
+                            "import_s": import_s, "train_s": train_s,
+                            "blob_bytes": len(record.models)}
+    if not out["elasticsearch"]["models_dao"].endswith("elasticsearch.client"):
+        raise AssertionError(f"the ES store's models went to {out['elasticsearch']['models_dao']}")
+    if not out["hbase"]["events_dao"].endswith("hbase.client"):
+        raise AssertionError(f"the HBase store's events went to {out['hbase']['events_dao']}")
+    return out
+
+
+def phase_classify_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
+    """BASELINE config #2 at its size through the verbs: ``pio app new``,
+    ``pio import`` of 5,574 SMS ``train`` events, ``pio train`` of
+    ``examples/classification/engine.json`` unchanged (naive-bayes) and
+    of a logistic-regression variant (reg 1e-4, 100 updates), each
+    held to the same training on the CPU and deployed (20 queries over
+    HTTP); ``pio batchpredict``; a 3-fold ``pio eval`` on the card and
+    on the CPU; properties mode on 10,000 users; the Elasticsearch- and
+    HBase-fake stores."""
+    from predictionio_tpu_torch.controller.base import TrainContext
+    from predictionio_tpu_torch.tools.cli import build_trainer
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model, train_model
+    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+
+    labels, _, _, _, texts = sms_corpus(rng, SMS_SPAM, SMS_HAM)
+    events_path = os.path.join(workdir, "sms_events.jsonl")
+    sms_events(labels, texts, events_path)
+    queries = [{"text": t} for t in sms_corpus(rng, SMS_QUERIES // 4,
+                                               SMS_QUERIES - SMS_QUERIES // 4)[4]]
+    nb_json = os.path.join(repo, "examples", "classification", "engine.json")
+    with open(nb_json) as f:
+        lr_variant = json.load(f)
+    lr_variant["algorithms"] = [{"name": "logistic-regression",
+                                 "params": {"reg": 1e-4, "iterations": 100}}]
+    lr_json = os.path.join(workdir, "classification_lr.json")
+    with open(lr_json, "w") as f:
+        json.dump(lr_variant, f)
+    result = {"messages": int(labels.size), "spam": int((labels == "spam").sum())}
+    with fresh_store(workdir, "classify"):
+        app_id = said(cli_out(["app", "new", CLASSIFY_APP]), "ID")
+        t0 = time.perf_counter()
+        cli_out(["import", "--appid", app_id, "--input", events_path])
+        result["import_s"] = time.perf_counter() - t0
+        for name, engine_json in (("naive_bayes", nb_json), ("logistic_regression", lr_json)):
+            records = {}
+            t0 = time.perf_counter()
+            with lbfgs_recorder(records.setdefault("cuda", {})):
+                instance = said(cli_out(["train", "--engine-json", engine_json,
+                                         "--device", "cuda"]), "Engine instance ID")
+            train_s = time.perf_counter() - t0
+            variant = load_engine_variant(engine_json)
+            _, model = load_instance_model(variant, instance)
+            _, template, datasource, preparator, cpu_algorithm = build_trainer(
+                engine_json, device="cpu")
+            ctx = TrainContext(device="cpu")
+            t0 = time.perf_counter()
+            with lbfgs_recorder(records.setdefault("cpu", {})):
+                cpu_model = train_model(ctx, datasource, preparator, cpu_algorithm)
+            cpu_train_s = time.perf_counter() - t0
+            data = datasource.read_training(ctx)
+            x = model.space.vectorize_records(data.records)
+            y = np.array([model.space.classes.index(l) for l in data.labels])
+            entry = {"instance": instance, "train_s": train_s, "cpu_train_s": cpu_train_s,
+                     **compare_classifiers(name, model, cpu_model, x, y, records)}
+            algorithm = template.algorithm_class(
+                variant.engine_params.algorithm_params_list[0][1], device="cuda")
+            entry["serve"] = serve_classifier(engine_json, queries, algorithm, model,
+                                              cpu_algorithm, cpu_model, name == "naive_bayes")
+            result[name] = entry
+            if name == "naive_bayes":
+                nb_answers = [algorithm.predict(model, q) for q in queries]
+                q_path = os.path.join(workdir, "sms_queries.jsonl")
+                p_path = os.path.join(workdir, "sms_predictions.jsonl")
+                with open(q_path, "w") as f:
+                    f.writelines(json.dumps(q) + "\n" for q in queries)
+                t0 = time.perf_counter()
+                cli_out(["batchpredict", "--engine-json", nb_json, "--input", q_path,
+                         "--output", p_path, "--device", "cuda"])
+                with open(p_path) as f:
+                    rows = [json.loads(line) for line in f]
+                if [r["prediction"] for r in rows] != nb_answers:
+                    raise AssertionError("batchpredict differs from predict")
+                entry["batchpredict"] = {"rows": len(rows), "s": time.perf_counter() - t0}
+        with open(os.path.join(workdir, "sms_eval.py"), "w") as f:
+            f.write(SMS_EVAL_MODULE % CLASSIFY_APP)
+        accuracy = {}
+        for device in ("cuda", "cpu"):
+            out = os.path.join(workdir, f"sms_eval_{device}.json")
+            t0 = time.perf_counter()
+            cli_out(["eval", "sms_eval.EVALUATION", "sms_eval.GENERATOR", "--engine-dir",
+                     workdir, "--device", device, "--output-path", out])
+            with open(out) as f:
+                report = json.load(f)
+            accuracy[device] = {"s": time.perf_counter() - t0,
+                                "naive_bayes": report["results"][0]["score"],
+                                "logistic_regression": report["results"][1]["score"]}
+        if min(accuracy["cuda"]["naive_bayes"], accuracy["cuda"]["logistic_regression"]) < 0.8:
+            raise AssertionError(f"3-fold accuracy {accuracy}")
+        result["eval_3_fold"] = accuracy
+        # properties mode: 10,000 users' $set, naive-bayes
+        prop_path = os.path.join(workdir, "property_events.jsonl")
+        sample = property_events(rng, prop_path)
+        prop_id = said(cli_out(["app", "new", PROPERTY_APP]), "ID")
+        cli_out(["import", "--appid", prop_id, "--input", prop_path])
+        prop_json = os.path.join(workdir, "classification_properties.json")
+        with open(prop_json, "w") as f:
+            json.dump({"engineFactory": lr_variant["engineFactory"], "datasource": {"params": {
+                "appName": PROPERTY_APP, "mode": "properties", "labelField": "plan"}},
+                "algorithms": [{"name": "naive-bayes", "params": {"smoothing": 1.0}}]}, f)
+        t0 = time.perf_counter()
+        instance = said(cli_out(["train", "--engine-json", prop_json, "--device", "cuda"]),
+                        "Engine instance ID")
+        train_s = time.perf_counter() - t0
+        _, model = load_instance_model(load_engine_variant(prop_json), instance)
+        _, _, datasource, preparator, cpu_algorithm = build_trainer(prop_json, device="cpu")
+        ctx = TrainContext(device="cpu")
+        cpu_model = train_model(ctx, datasource, preparator, cpu_algorithm)
+        entry = compare_classifiers("properties", model, cpu_model, None, None, {},
+                                    rows=PROPERTY_USERS)
+        served = [cpu_algorithm.predict(model, {"features": s})["label"] for s in sample]
+        if served != [cpu_algorithm.predict(cpu_model, {"features": s})["label"] for s in sample]:
+            raise AssertionError("properties mode: card and CPU models label users apart")
+        result["properties"] = {"users": PROPERTY_USERS, "train_s": train_s,
+                                "columns": int(model.inner.log_likelihood.shape[1]), **entry}
+    t0 = time.perf_counter()
+    result["remote_stores"] = remote_store_check(workdir, events_path, nb_json, queries,
+                                                 nb_answers)
+    result["remote_stores"]["s"] = time.perf_counter() - t0
+    emit({"phase": "classify_path", **result})
+    return result
+
+
+def scale_corpus(rng: np.random.Generator, n: int):
+    """``n`` messages of ``sms_corpus``'s recipe (spam at the public
+    corpus's share) hashed straight into a dense ``[n, HASH_DIM]`` f32
+    count matrix (what ``hashing_vectorize`` makes of their texts, held
+    to it on the first 256), and the labels (1 spam)."""
+    from predictionio_tpu_torch.ops.features import hash_token, hashing_vectorize
+
+    n_spam = round(n * SMS_SPAM / (SMS_SPAM + SMS_HAM))
+    labels, ids, lengths, words, _ = sms_corpus(rng, n_spam, n - n_spam, texts=False)
+    columns = np.array([hash_token(w, HASH_DIM) for w in words], np.int64)[ids]
+    x = np.zeros((n, HASH_DIM), np.float32)
+    np.add.at(x, (np.repeat(np.arange(n), lengths), columns), 1.0)
+    head = int(lengths[:256].sum())
+    bounds = np.concatenate([[0], np.cumsum(lengths[:256])])
+    texts = [" ".join(words[ids[:head][a:b]]) for a, b in zip(bounds[:-1], bounds[1:])]
+    if not np.array_equal(hashing_vectorize(texts, HASH_DIM), x[:256]):
+        raise AssertionError("the hashed matrix is not hashing_vectorize's")
+    return x, (labels == "spam").astype(np.int64)
+
+
+def phase_classify_scale(rng: np.random.Generator) -> dict:
+    """The trainers alone at 262,144 messages x hashDim 4096 (4.29 GB of
+    f32 on the card): Naive Bayes and 100 L-BFGS updates of logistic
+    regression, beside the CPU (Naive Bayes by ``naive_bayes_within``; the first
+    ``LR_EARLY`` iterates at the reference's bar); s per loss-and-
+    gradient evaluation beside its bytes bound."""
+    import torch
+
+    from predictionio_tpu_torch.ops import classify
+
+    t0 = time.perf_counter()
+    x, y = scale_corpus(rng, SCALE_MESSAGES)
+    result = {"messages": SCALE_MESSAGES, "hash_dim": HASH_DIM, "x_bytes": x.nbytes,
+              "data_s": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    xd = torch.from_numpy(x).cuda()
+    yd = torch.from_numpy(y).cuda()
+    torch.cuda.synchronize()
+    result["upload_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nb = classify.train_naive_bayes(xd, yd, 2, device="cuda")
+    result["naive_bayes_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nb_cpu = classify.train_naive_bayes(torch.from_numpy(x), y, 2, device="cpu")
+    result["naive_bayes_cpu_s"] = time.perf_counter() - t0
+    result["naive_bayes"] = naive_bayes_within("classify_scale", nb, nb_cpu)
+    iterates = {"cuda": [], "cpu": []}
+
+    def keep(into):
+        return lambda k, p: into.append([t.cpu().numpy().copy() for t in p]) if k <= LR_EARLY else None
+
+    stats = {}
+    t0 = time.perf_counter()
+    lr = classify.train_logistic_regression(xd, yd, 2, device="cuda", stats=stats,
+                                            on_iterate=keep(iterates["cuda"]))
+    result["logistic_regression_train_s"] = time.perf_counter() - t0
+    result["lbfgs"] = stats
+    result["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    classify.train_logistic_regression(torch.from_numpy(x), y, 2, iterations=LR_EARLY,
+                                       device="cpu", on_iterate=keep(iterates["cpu"]))
+    result["logistic_regression_cpu_s_10_updates"] = time.perf_counter() - t0
+    early = early_iterates_within(iterates["cuda"], iterates["cpu"])
+    if not all(e["within"] for e in early):
+        raise AssertionError(f"classify_scale: early iterates part from the CPU's: {early}")
+    result["early_iterates_max_abs"] = max(e["max_abs"] for e in early)
+    value_and_grad = classify.logistic_value_and_grad(xd, yd, 1e-4)
+    params = [torch.from_numpy(lr.weights).cuda(), torch.from_numpy(lr.bias).cuda()]
+    ms = cuda_ms(lambda: value_and_grad(params), runs=10, warmup=2)
+    bytes_moved = 2 * x.nbytes + 2 * (lr.weights.nbytes + lr.bias.nbytes)
+    ops = 2 * (2 * SCALE_MESSAGES * HASH_DIM * 2)
+    bound = max(bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    result["evaluation"] = {
+        "ms": ms, "bound_ms": bound,
+        "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations",
+        "train_s_per_evaluation": result["logistic_regression_train_s"] / stats["evaluations"]}
+    accuracy = float((lr.scores(x[:20_000]).argmax(axis=1) == y[:20_000]).mean())
+    result["train_accuracy_first_20000"] = accuracy
+    del xd, yd, x
+    torch.cuda.empty_cache()
+    emit({"phase": "classify_scale", **result})
+    return result
+
+
+def km_blobs(rng: np.random.Generator) -> np.ndarray:
+    """``KM_POINTS`` points of ``KM_DIM`` around ``KM_BLOBS`` seeded centers."""
+    centers = rng.normal(0.0, KM_SPREAD, (KM_BLOBS, KM_DIM)).astype(np.float32)
+    which = rng.integers(0, KM_BLOBS, KM_POINTS)
+    return centers[which] + rng.standard_normal((KM_POINTS, KM_DIM), dtype=np.float32)
+
+
+def phase_kmeans_check(rng: np.random.Generator, seed: int) -> dict:
+    """e2's ``kmeans`` on the card (k-means++ on the host, the Lloyd steps
+    in torch): every step held to the CPU's step from the same centers
+    -- assignments equal but for near ties (the two distances within f32
+    rounding of each other), centers of the card's assignment within
+    ``KM_CENTER_ATOL``, cost within ``KM_COST_RTOL`` -- and the CPU's
+    costs along that path stop it at the card's iteration. A Lloyd step
+    timed beside its bound."""
+    import torch
+
+    from predictionio_tpu_torch.models import e2
+    from predictionio_tpu_torch.ops import kmeans as port_kmeans
+
+    x = km_blobs(rng)
+    steps, timings = [], {}
+    real, real_init = port_kmeans.lloyd_step, port_kmeans._kmeanspp_init
+
+    def recorded(xs, centers):
+        new, assign, cost = real(xs, centers)
+        steps.append((centers.cpu(), new.cpu(), assign.cpu(), float(cost)))
+        return new, assign, cost
+
+    def timed_init(*args):
+        t0 = time.perf_counter()
+        out = real_init(*args)
+        timings["init_s"] = time.perf_counter() - t0
+        return out
+
+    port_kmeans.lloyd_step, port_kmeans._kmeanspp_init = recorded, timed_init
+    try:
+        t0 = time.perf_counter()
+        model = e2.kmeans(x, k=KM_K, iterations=KM_ITERATIONS, seed=seed, device="cuda")
+        fit_s = time.perf_counter() - t0
+    finally:
+        port_kmeans.lloyd_step, port_kmeans._kmeanspp_init = real, real_init
+    xc = torch.from_numpy(x)
+    ties, center_err, cost_err, cpu_costs = 0, 0.0, 0.0, []
+    for centers, new, assign, cost in steps:
+        cpu_new, cpu_assign, cpu_cost = real(xc, centers)
+        cpu_costs.append(float(cpu_cost))
+        moved = torch.nonzero(cpu_assign != assign).flatten()
+        if moved.numel():
+            pts = xc[moved].double()
+            da = ((pts - centers[assign[moved]].double()) ** 2).sum(1)
+            db = ((pts - centers[cpu_assign[moved]].double()) ** 2).sum(1)
+            scale = (pts * pts).sum(1) + 2 * pts.norm(dim=1) * centers.double().norm(dim=1).max() + (
+                centers.double() ** 2).sum(1).max()
+            if bool(((da - db).abs() > 2.0 ** -20 * scale).any()):
+                raise AssertionError(f"kmeans: {moved.numel()} points assigned apart, not ties")
+            ties += moved.numel()
+        onehot = torch.nn.functional.one_hot(assign, KM_K).float()
+        counts = onehot.sum(0)[:, None]
+        from_card = torch.where(counts > 0, (onehot.T @ xc) / counts.clamp(min=1.0), centers)
+        center_err = max(center_err, float((from_card - new).abs().max()))
+        cost_err = max(cost_err, abs(cost - float(cpu_cost)) / float(cpu_cost))
+    if center_err > KM_CENTER_ATOL or cost_err > KM_COST_RTOL:
+        raise AssertionError(f"kmeans: centers {center_err}, cost {cost_err} from the CPU's")
+    stop = 0
+    for stop, cost in enumerate(cpu_costs[:-1], 1):  # the last entry is the final pass
+        if stop > 1 and cpu_costs[stop - 2] - cost <= 1e-4 * abs(cpu_costs[stop - 2]):
+            break
+    if stop != model.iterations_run or abs(cpu_costs[-1] - model.cost) > KM_COST_RTOL * model.cost:
+        raise AssertionError(f"kmeans: the CPU's costs stop at {stop}, the card at "
+                             f"{model.iterations_run}")
+    xd = torch.from_numpy(x).cuda()
+    cd = torch.from_numpy(model.centers).cuda()
+    ms = cuda_ms(lambda: real(xd, cd), runs=10, warmup=2)
+    ops = 2 * KM_POINTS * KM_DIM * KM_K + KM_POINTS * KM_DIM  # distances; the sums
+    bytes_moved = x.nbytes + model.centers.nbytes * 2 + KM_POINTS * 8 + 4
+    result = {
+        "points": KM_POINTS, "dim": KM_DIM, "k": KM_K, "iterations_run": model.iterations_run,
+        "cost": model.cost, "fit_s": fit_s, "kmeanspp_s": timings["init_s"],
+        "lloyd_s": fit_s - timings["init_s"], "steps": len(steps), "near_tie_moves": ties,
+        "center_max_abs_err": center_err, "cost_max_rel_err": cost_err,
+        "lloyd_step": {"ms": ms, "bound_ms": max(ops / F32_OPS_PER_S,
+                                                 bytes_moved / HBM_BYTES_PER_S) * 1e3,
+                       "bound_by": "operations" if ops / F32_OPS_PER_S >= bytes_moved /
+                       HBM_BYTES_PER_S else "bytes"},
+    }
+    del xd
+    emit({"phase": "kmeans_check", **result})
+    return result
+
+
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+    from predictionio_tpu_torch.ops import als_gram, mips
+
+    return {"mips_block_topk": mips.mips_block_topk.launches,
+            "gram_rhs": als_gram.gram_rhs.launches,
+            "ncf_score_all_items": ncf_kernel.ncf_score_all_items.launches, **flash_counts()}
+
+
+def phase_classification(rng: np.random.Generator, seed: int, repo: str, workdir: str) -> dict:
+    """The classification part: classify_path, classify_scale and
+    kmeans_check. Every kernel's count is set to 0 first; none of B1-B6
+    may launch in it."""
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+    from predictionio_tpu_torch.ops import als_gram, mips
+
+    als_gram.gram_rhs.launches = 0           # counts start at 0 here
+    mips.mips_block_topk.launches = 0
+    ncf_kernel.ncf_score_all_items.launches = 0
+    zero_flash_counts()
+    seconds = {}
+    t0 = time.perf_counter()
+    phase_classify_path(rng, repo, workdir)
+    seconds["classify_path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_classify_scale(rng)
+    seconds["classify_scale"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_kmeans_check(rng, seed)
+    seconds["kmeans_check"] = time.perf_counter() - t0
+    launches = kernel_counts()                # read here
+    if any(launches.values()):
+        raise AssertionError(f"the classification part launched kernels: {launches}")
+    result = {"launches": launches, "seconds": seconds}
+    emit({"phase": "classification", **result})
+    return result
+
+
+# --------------------------------------------------------------------------
 # Neural-CF: kernel B3 (csrc/ncf_score.cu) on the NCF template
 # --------------------------------------------------------------------------
 
@@ -5172,6 +5864,8 @@ def main(argv: list[str] | None = None) -> int:
     del trained
     with tempfile.TemporaryDirectory() as workdir:
         templates = phase_templates(rng, ratings, repo, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        classification = phase_classification(rng, args.seed, repo, workdir)
 
     b3_check = phase_check_b3(args.seed)
     b3_time = phase_time_b3(args.seed)
@@ -5197,7 +5891,7 @@ def main(argv: list[str] | None = None) -> int:
     b1_main = next(s for s in b1_time["shapes"]
                    if s["side"] == "users" and s["dtype"] == "float32")
     b3_main = next(s for s in b3_time["shapes"] if s["items"] == NCF_SERVE_ITEMS)
-    emit({"kernels": [{
+    rows = [{
         "name": "mips_block_topk",
         "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/mips_topk.cu",
@@ -5292,7 +5986,10 @@ def main(argv: list[str] | None = None) -> int:
         ],
     }] + flash_rows(flash_check, flash_time, seq_trained["result"]["launches"],
                     seq_serve["launches"]["flash_forward"], evaluated["flash_launches"],
-                    profiled["launches"], templates["other_launches"])})
+                    profiled["launches"], templates["other_launches"])
+    for row in rows:
+        row["classification_launches"] = classification["launches"][row["name"]]
+    emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu",

@@ -9,20 +9,22 @@ Counterpart of ``predictionio_tpu/controller/engine.py``:
   (``online/registry.py``).
 - ``Template`` and ``TEMPLATES`` stand where the reference's ``Engine``
   and its ``engineFactory`` callables stand: the port binds each ported
-  template's DASE classes and its pickle-free ``save_model`` /
-  ``load_model`` here, and ``template_for`` maps an ``engineFactory``
-  path of the JAX package (or, without one, the first algorithm's name)
-  to it. No factory is ever imported.
+  template's DASE classes, its ``algorithm_class_map`` (engine.json
+  algorithm name -> class; classification has two) and its pickle-free
+  ``save_model`` / ``load_model`` here, and ``template_for`` maps an
+  ``engineFactory`` path of the JAX package (or, without one, the first
+  algorithm's name) to it, bound to the engine.json's first algorithm
+  (``Template.bind``). No factory is ever imported.
 - ``serialize_model`` / ``deserialize_model`` are the counterpart of
   ``Engine.serialize_models`` / ``prepare_deploy`` (reference
   ``:154-234``). The reference pickles its models; the port's blob is a
   stored (uncompressed) zip of exactly the files the template's
   ``save_model`` writes, plus ``manifest.json`` naming the template and
-  the algorithm. A pickled blob (first byte ``0x80``: one the JAX package
-  wrote) is refused with an error and never unpickled.
+  the algorithm that trained it. A pickled blob (first byte ``0x80``: one
+  the JAX package wrote) is refused with an error and never unpickled.
   ``load_serving_model`` is what a deploy, a hot swap and the retrain
-  loop share: a blob, deserialized, beside the template's algorithm built
-  with the given params.
+  loop share: a blob, deserialized, beside the class that trained it
+  (the manifest's algorithm) built with the given params.
 - ``evaluate`` is the counterpart of ``Engine.eval`` (reference
   ``:259-282``) over a ``Template``: the DataSource's ``read_eval``
   folds, each prepared and trained, every fold's queries scored in one
@@ -40,7 +42,7 @@ import json
 import os
 import tempfile
 import zipfile
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Mapping
 
 from predictionio_tpu_torch.controller.base import (
@@ -52,6 +54,7 @@ from predictionio_tpu_torch.controller.base import (
 )
 from predictionio_tpu_torch.controller.serving import FirstServing
 from predictionio_tpu_torch.models import (
+    classification,
     ecommerce,
     ncf,
     recommendation,
@@ -97,52 +100,76 @@ class EngineParams:
 
 @dataclass(frozen=True)
 class Template:
-    """What the verbs need of one ported template."""
+    """What the verbs need of one ported template, bound to one of its
+    algorithms (``algorithm``: the engine.json's first algorithm name,
+    by default the first of ``algorithms``)."""
 
     name: str                           # TEMPLATES key, recorded in the blob
-    algorithm: str                      # the engine.json algorithm name
-    algorithm_class: type[Algorithm]
+    algorithms: Mapping[str, type[Algorithm]]  # engine.json name -> class
     preparator_class: type[Preparator]
     save_model: Callable
     load_model: Callable                # a directory path or an open ZipFile
     datasource_class: type[DataSource]  # reads the store, or ``events_path=``
+    algorithm: str = ""                 # the bound algorithm name
+
+    def __post_init__(self):
+        if not self.algorithm:
+            object.__setattr__(self, "algorithm", next(iter(self.algorithms)))
+
+    @property
+    def algorithm_class(self) -> type[Algorithm]:
+        return self.algorithms[self.algorithm]
+
+    def bind(self, algorithm: str) -> "Template":
+        """This template bound to ``algorithm``, one of its names."""
+        if algorithm not in self.algorithms:
+            raise ValueError(
+                f"the {self.name!r} template's algorithm is "
+                f"{' or '.join(map(repr, self.algorithms))}, got {algorithm!r}"
+            )
+        return self if algorithm == self.algorithm else replace(self, algorithm=algorithm)
 
 
 TEMPLATES = {
     "recommendation": Template(
-        "recommendation", "als", recommendation.ALSAlgorithm,
+        "recommendation", {"als": recommendation.ALSAlgorithm},
         recommendation.RecommendationPreparator, recommendation.save_model,
         recommendation.load_model, recommendation.RecommendationDataSource,
     ),
     "ncf": Template(
-        "ncf", "ncf", ncf.NCFAlgorithm, ncf.NCFPreparator, ncf.save_model,
+        "ncf", {"ncf": ncf.NCFAlgorithm}, ncf.NCFPreparator, ncf.save_model,
         ncf.load_model, recommendation.RecommendationDataSource,
     ),
     "sequence": Template(
-        "sequence", "sasrec", sequence.SASRecAlgorithm, sequence.SequencePreparator,
+        "sequence", {"sasrec": sequence.SASRecAlgorithm}, sequence.SequencePreparator,
         sequence.save_model, sequence.load_model, sequence.SequenceDataSource,
     ),
     "ecommerce": Template(
-        "ecommerce", "ecomm", ecommerce.ECommAlgorithm, ecommerce.ECommercePreparator,
+        "ecommerce", {"ecomm": ecommerce.ECommAlgorithm}, ecommerce.ECommercePreparator,
         ecommerce.save_model, ecommerce.load_model, ecommerce.ECommerceDataSource,
     ),
     "similarproduct": Template(
-        "similarproduct", "cooccurrence", similarproduct.CooccurrenceAlgorithm,
+        "similarproduct", {"cooccurrence": similarproduct.CooccurrenceAlgorithm},
         IdentityPreparator, similarproduct.save_model, similarproduct.load_model,
         similarproduct.SimilarProductDataSource,
     ),
     "universal": Template(
-        "universal", "ur", universal.URAlgorithm, IdentityPreparator,
+        "universal", {"ur": universal.URAlgorithm}, IdentityPreparator,
         universal.save_model, universal.load_model, universal.URDataSource,
+    ),
+    "classification": Template(
+        "classification", classification.ALGORITHMS,
+        classification.ClassificationPreparator, classification.save_model,
+        classification.load_model, classification.ClassificationDataSource,
     ),
 }
 
 
 def template_for(engine_factory: str, algorithm_name: str) -> Template:
-    """The template of an engine.json: by ``engineFactory``
-    (``predictionio_tpu.models.<template>.engine_factory``) when it names
-    one, else by the first algorithm's name, which must be the
-    template's."""
+    """The template of an engine.json, bound to its first algorithm: by
+    ``engineFactory`` (``predictionio_tpu.models.<template>.
+    engine_factory``) when it names one, else the template one of whose
+    algorithms is the first algorithm's name."""
     if engine_factory:
         parts = engine_factory.split(".")
         key = parts[-2] if len(parts) >= 2 and parts[-1] == "engine_factory" else None
@@ -153,17 +180,14 @@ def template_for(engine_factory: str, algorithm_name: str) -> Template:
             )
         template = TEMPLATES[key]
     else:
-        template = next((t for t in TEMPLATES.values() if t.algorithm == algorithm_name), None)
+        template = next(
+            (t for t in TEMPLATES.values() if algorithm_name in t.algorithms), None)
         if template is None:
             raise ValueError(
                 f"algorithm {algorithm_name!r} is not a ported template's; the port "
-                f"serves {sorted(t.algorithm for t in TEMPLATES.values())}"
+                f"serves {sorted(a for t in TEMPLATES.values() for a in t.algorithms)}"
             )
-    if algorithm_name != template.algorithm:
-        raise ValueError(
-            f"the template's algorithm is {template.algorithm!r}, got {algorithm_name!r}"
-        )
-    return template
+    return template.bind(algorithm_name)
 
 
 MANIFEST = "manifest.json"
@@ -191,10 +215,10 @@ def serialize_model(template: Template, model) -> bytes:
     return buf.getvalue()
 
 
-def deserialize_model(template: Template, blob: bytes):
-    """``template.load_model`` straight off the blob (no temporary
-    directory); raises ``ModelBlobError`` for a pickled blob, a blob of
-    another template, or one that is not the port's."""
+def _open_blob(template: Template, blob: bytes) -> tuple[zipfile.ZipFile, dict]:
+    """The blob's zip and manifest; raises ``ModelBlobError`` for a
+    pickled blob, a blob of another template or of an algorithm the
+    template does not have, or one that is not the port's."""
     if blob[:1] == b"\x80":
         raise ModelBlobError(
             "this model blob is a pickle, written by the JAX package "
@@ -215,19 +239,35 @@ def deserialize_model(template: Template, blob: bytes):
             f"the blob holds a {manifest.get('template')!r} model; the engine.json "
             f"names the {template.name!r} template"
         )
+    if manifest.get("algorithm") not in template.algorithms:
+        raise ModelBlobError(
+            f"the blob was trained by {manifest.get('algorithm')!r}, not an algorithm "
+            f"of the {template.name!r} template ({sorted(template.algorithms)})"
+        )
+    return zf, manifest
+
+
+def deserialize_model(template: Template, blob: bytes):
+    """``template.load_model`` straight off the blob (no temporary
+    directory); raises ``ModelBlobError`` as ``_open_blob`` does."""
+    zf, _ = _open_blob(template, blob)
     with zf:
         return template.load_model(zf)
 
 
 def load_serving_model(template: Template, engine_params: EngineParams,
                        blob: bytes, *, device=None, warm_up: bool = True):
-    """``(algorithm, model)``: the template's algorithm with the params'
-    first algorithm block on ``device`` (``cuda`` unless ``"cpu"``), and
+    """``(algorithm, model)``: the class that trained the blob (its
+    manifest's algorithm) with ``engine_params``' first algorithm block,
+    which must name it, on ``device`` (``cuda`` unless ``"cpu"``), and
     the blob's model, its serving state built (``warm_up``: the
     retrieval index packed, so a swap's first query does not pay it)
     unless ``warm_up=False``."""
-    algorithm = first_algorithm(template, engine_params, device)
-    model = deserialize_model(template, blob)
+    zf, manifest = _open_blob(template, blob)
+    with zf:
+        trained = template.bind(manifest["algorithm"])
+        algorithm = first_algorithm(trained, engine_params, device)
+        model = trained.load_model(zf)
     if warm_up:
         algorithm.warm_up(model)
     return algorithm, model
@@ -236,8 +276,8 @@ def load_serving_model(template: Template, engine_params: EngineParams,
 def first_algorithm(template: Template, engine_params: EngineParams,
                     device=None) -> Algorithm:
     """The template's algorithm with the params of ``engine_params``'
-    first block, on ``device``; a block naming another template's
-    algorithm raises."""
+    first block, on ``device``; a block naming another algorithm than
+    the one the template is bound to raises."""
     name, params = engine_params.algorithm_params_list[0]
     if name != template.algorithm:
         raise ValueError(
@@ -264,6 +304,7 @@ def evaluate(template: Template, ctx, engine_params: EngineParams
 
     Returns ``[(eval_info, [(query, prediction, actual), ...]), ...]``.
     """
+    template = template.bind(engine_params.algorithm_params_list[0][0])
     data_source = template.datasource_class(engine_params.data_source_params)
     preparator = template.preparator_class(engine_params.preparator_params)
     results = []

@@ -1,20 +1,21 @@
-"""Storage registry: env-configured, pluggable backend discovery.
+"""Copy of ``predictionio_tpu/data/storage/__init__.py``, the package renamed.
 
-Copy of ``predictionio_tpu/data/storage/__init__.py`` (framework-free).
-The configuration plane is the reference's, so one environment points
-both packages at one store:
+Storage registry: env-configured, pluggable backend discovery.
+
+Behavioral model: reference ``data/.../storage/Storage.scala`` (apache/
+predictionio layout, unverified -- SURVEY.md section 2.2 #6). Configuration
+plane is identical:
 
 - ``PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA,MODELDATA}_{NAME,SOURCE}``
 - ``PIO_STORAGE_SOURCES_<SOURCE>_{TYPE,PATH,...}``
 
+Where the reference discovers backends by JVM reflection on a class-name
+convention, we resolve ``TYPE`` through an explicit registry dict (extensible
+via :func:`register_backend`) and import the backend module lazily.
+
 Defaults (no env set): a sqlite file under ``$PIO_FS_BASEDIR`` (default
-``~/.pio_store``) backs all three repositories. The port has the
-``sqlite``, ``memory`` and ``localfs`` backends. The remote types the
-reference also registers (``postgres``, ``mysql``, ``jdbc``,
-``elasticsearch``, ``hbase``, ``s3``, ``hdfs``) raise
-``NotImplementedError`` when a repository resolves to one: they are
-ROADMAP.md Queue A item 6, and nothing falls back to sqlite in their
-place.
+``~/.pio_store``) backs all three repositories -- zero-config dev bring-up,
+the parity role of the reference's PGSQL quickstart path.
 """
 
 from __future__ import annotations
@@ -41,12 +42,16 @@ _BACKENDS: dict[str, str] = {
     "sqlite": "predictionio_tpu_torch.data.storage.sqlite",
     "memory": "predictionio_tpu_torch.data.storage.memory",
     "localfs": "predictionio_tpu_torch.data.storage.localfs",
+    "postgres": "predictionio_tpu_torch.data.storage.postgres",
+    "mysql": "predictionio_tpu_torch.data.storage.mysql",
+    "elasticsearch": "predictionio_tpu_torch.data.storage.elasticsearch",
+    "hbase": "predictionio_tpu_torch.data.storage.hbase",
+    # reference TYPE name for the scalikejdbc module; URL scheme picks
+    # postgres vs mysql (postgres when absent)
+    "jdbc": "predictionio_tpu_torch.data.storage.jdbc",
+    "s3": "predictionio_tpu_torch.data.storage.s3",
+    "hdfs": "predictionio_tpu_torch.data.storage.hdfs",
 }
-
-#: TYPE values of the reference's remote backends, not ported yet
-UNPORTED_BACKENDS = frozenset(
-    {"postgres", "mysql", "jdbc", "elasticsearch", "hbase", "s3", "hdfs"}
-)
 
 _REPOS = ("METADATA", "EVENTDATA", "MODELDATA")
 
@@ -101,12 +106,6 @@ class _Registry:
         with self._lock:
             if source not in self._clients:
                 type_name, config = self._source_config(source)
-                if type_name in UNPORTED_BACKENDS and type_name not in _BACKENDS:
-                    raise NotImplementedError(
-                        f"storage type {type_name!r} (source {source!r}) is not"
-                        " ported yet: the remote backends are ROADMAP.md Queue A"
-                        " item 6; use sqlite, memory or localfs"
-                    )
                 if type_name not in _BACKENDS:
                     raise StorageError(
                         f"unknown storage type {type_name!r}"

@@ -94,10 +94,11 @@ the first algorithm's name (``controller/engine.py``): recommendation
 (``als``; B1 in training, B2 with ``"retrieval": {"mode": "mips"}``),
 Neural-CF (``ncf``; B3), sequence (``sasrec``; B4 and the fused
 backward), e-commerce (``ecomm``; implicit ALS through B1, B2 with mips,
-the business rules on the host), similar-product (``cooccurrence``) and
-universal (``ur``; the cooccurrence products and the LLR on the card).
-``train``, ``deploy``, ``retrain``, ``eval`` and ``batchpredict`` run on
-the card unless ``--device cpu``.
+the business rules on the host), similar-product (``cooccurrence``),
+universal (``ur``; the cooccurrence products and the LLR on the card) and
+classification (``naive-bayes`` or ``logistic-regression``: trained on
+the card, served on the host). ``train``, ``deploy``, ``retrain``,
+``eval`` and ``batchpredict`` run on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations

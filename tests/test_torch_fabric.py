@@ -428,12 +428,15 @@ def test_retrain_shard_blobs_carry_untouched_shards_verbatim(basedir):  # noqa: 
     users = sorted(loop.model.user_index)
     by_shard = {k: [u for u in users if shard_of(u, 2) == k] for k in range(2)}
     wal = WriteAheadLog(str(basedir / "wal"))
+    # each event a second old: one stamped in the loop's own millisecond
+    # counts as future-dated and defers its cycle
+    past = lambda: dt.datetime.now(dt.timezone.utc) - dt.timedelta(seconds=1)  # noqa: E731
     try:
-        ingest_via_wal(wal, by_shard[0][0], "i1")
+        ingest_via_wal(wal, by_shard[0][0], "i1", event_time=past())
         assert loop.run_once() == "foldin"
-        ingest_via_wal(wal, by_shard[1][0], "i2")
+        ingest_via_wal(wal, by_shard[1][0], "i2", event_time=past())
         assert loop.run_once() == "foldin"
-        ingest_via_wal(wal, by_shard[1][1], "brand-new-item")
+        ingest_via_wal(wal, by_shard[1][1], "brand-new-item", event_time=past())
         assert loop.run_once() == "foldin"
     finally:
         wal.close()

@@ -73,7 +73,17 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "models.ecommerce.convert", "models.similarproduct",
                    "models.similarproduct.engine", "models.similarproduct.convert",
                    "models.universal", "models.universal.engine",
-                   "models.universal.convert"):
+                   "models.universal.convert",
+                   # the classification and e2 slice, and the remote backends
+                   "ops.features", "ops.lbfgs", "ops.classify", "ops.kmeans", "models.e2",
+                   "models.classification", "models.classification.engine",
+                   "models.classification.convert", "data.storage.postgres",
+                   "data.storage.postgres.client", "data.storage.mysql",
+                   "data.storage.mysql.client", "data.storage.jdbc",
+                   "data.storage.elasticsearch", "data.storage.elasticsearch.client",
+                   "data.storage.elasticsearch.transport", "data.storage.hbase",
+                   "data.storage.hbase.client", "data.storage.hbase.transport",
+                   "data.storage.s3", "data.storage.hdfs"):
         assert f"predictionio_tpu_torch.{module}" in walked
 
 
@@ -103,9 +113,20 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
         build_trainer(engine_json, str(tmp_path / "events.jsonl"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fold_in_users(np.ones((2, 4), np.float32), [0], [1], [5.0], 1, config)
-    for template in ("ecommerce", "similarproduct", "universal"):
+    for template in ("ecommerce", "similarproduct", "universal", "classification"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build_trainer(os.path.join(REPO, "examples", template, "engine.json"))
+    from predictionio_tpu_torch.models import e2
+    from predictionio_tpu_torch.ops import classify
+
+    x, y = np.ones((4, 3), np.float32), np.array([0, 1, 0, 1])
+    for train in (classify.train_naive_bayes, classify.train_logistic_regression):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train(x, y, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        e2.kmeans(x, k=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        e2.categorical_naive_bayes([{"a": "x"}, {"a": "y"}], ["p", "q"])
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("mps")
@@ -284,6 +305,20 @@ VERBATIM = {
     "data/storage/sqlite/__init__.py": set(),
     "data/storage/memory.py": set(),
     "data/storage/localfs.py": set(),
+    "data/storage/__init__.py": set(),
+    "data/storage/postgres/__init__.py": set(),
+    "data/storage/postgres/client.py": set(),
+    "data/storage/mysql/__init__.py": set(),
+    "data/storage/mysql/client.py": set(),
+    "data/storage/jdbc/__init__.py": set(),
+    "data/storage/elasticsearch/__init__.py": set(),
+    "data/storage/elasticsearch/client.py": set(),
+    "data/storage/elasticsearch/transport.py": set(),
+    "data/storage/hbase/__init__.py": set(),
+    "data/storage/hbase/client.py": set(),
+    "data/storage/hbase/transport.py": set(),
+    "data/storage/s3.py": set(),
+    "data/storage/hdfs.py": set(),
     "data/aggregation.py": set(),
     "data/datamap.py": set(),
     "data/event.py": set(),
@@ -303,6 +338,7 @@ VERBATIM = {
         "    # torch gets imported); zero out a superseded series so dashboards see",
     )},
     "workflow/microbatch.py": set(),
+    "ops/features.py": set(),
     "serving/__init__.py": set(),
     "serving/shardmap.py": set(),
     # a counter store in one 8-byte write: pack_into zeroes the field first
@@ -358,6 +394,14 @@ VERBATIM_DEFS = {
         "CooccurrenceAlgorithm._anchor_contributions",
         "CooccurrenceAlgorithm._compact_scores", "CooccurrenceAlgorithm._topk_response",
         "CooccurrenceAlgorithm.predict", "CooccurrenceAlgorithm.batch_predict",
+    ],
+    "ops/classify.py": ["NaiveBayesModel", "LogisticRegressionModel"],
+    "ops/kmeans.py": ["_kmeanspp_init", "KMeansModel"],
+    "models/e2.py": ["CategoricalNBModel", "MarkovChain", "cross_validation_folds"],
+    "models/classification/engine.py": [
+        "LabeledRecords", "ClassificationDataSource.read_training",
+        "ClassificationDataSource.read_eval", "FeatureSpace",
+        "ClassificationPreparator", "ClassifierModel", "_ClassifierBase.predict",
     ],
     "models/universal/engine.py": [
         "MultiEventData", "URDataSource.read_eval", "URModel", "_invert_indicators",

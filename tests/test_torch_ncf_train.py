@@ -388,13 +388,16 @@ def test_template_dispatch(tmp_path):
     assert cli.load_variant(str(by_name))[1].algorithm == "ncf"
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for example, name in (("ncf", "ncf"), ("recommendation", "als"), ("ecommerce", "ecomm"),
-                          ("similarproduct", "cooccurrence"), ("universal", "ur")):
+                          ("similarproduct", "cooccurrence"), ("universal", "ur"),
+                          ("classification", "naive-bayes")):
         path = os.path.join(repo, "examples", example, "engine.json")
         assert cli.load_variant(path)[1].algorithm == name
     for bad, match in (
-        ({"engineFactory": "predictionio_tpu.models.classification.engine_factory",
-          "algorithms": [{"name": "naive-bayes"}]}, "not a ported template"),
-        ({"algorithms": [{"name": "naive-bayes"}]}, "not a ported template"),
+        # the test suite's own engine (tests/fake_engine.py), which no
+        # template of the port stands for
+        ({"engineFactory": "fake_engine.engine_factory",
+          "algorithms": [{"name": "mean"}]}, "not a ported template"),
+        ({"algorithms": [{"name": "mean"}]}, "not a ported template"),
         ({"engineFactory": "predictionio_tpu.models.ncf.engine_factory",
           "algorithms": [{"name": "als"}]}, "algorithm is 'ncf'"),
     ):

@@ -1,19 +1,23 @@
 """The port's storage layer against the JAX package's, on the CPU.
 
 The port keeps its own copy of the storage registry, the DAO contracts,
-the SQL DAOs and the sqlite, memory and localfs backends. Here one script
-of DAO operations runs through each package's registry, each in its own
-``PIO_FS_BASEDIR``, and every answer must be equal. Then each package
-reads the sqlite store the other wrote (one on-disk format), ``pio
-import``/``export`` round trips agree, and what the port does not have
-yet raises.
+the SQL DAOs and every backend (sqlite, memory, localfs and the remote
+ones). Here one script of DAO operations runs through each package's
+registry, each in its own ``PIO_FS_BASEDIR`` (Elasticsearch and HBase on
+their in-memory fake transports), and every answer must be equal. Then
+each package reads the store the other wrote (one on-disk format for
+sqlite, one wire format for the fakes), ``pio import``/``export`` round
+trips agree, and every remote ``TYPE`` resolves to its backend as the
+reference's does, never to sqlite.
 """
 
 import dataclasses
 import datetime as dt
 import importlib
+import itertools
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -25,6 +29,9 @@ BACKENDS = {
     "sqlite": {},
     "memory": {"METADATA": "MEM", "EVENTDATA": "MEM", "MODELDATA": "MEM"},
     "localfs": {"MODELDATA": "FS"},
+    "elasticsearch": {"METADATA": "ES", "EVENTDATA": "ES", "MODELDATA": "ES"},
+    # the reference's hbase module stores events only: sqlite keeps the rest
+    "hbase": {"EVENTDATA": "HB"},
 }
 
 
@@ -50,6 +57,13 @@ def stores(tmp_path, monkeypatch):
         monkeypatch.setenv("PIO_STORAGE_SOURCES_MEM_TYPE", "memory")
         monkeypatch.setenv("PIO_STORAGE_SOURCES_FS_TYPE", "localfs")
         monkeypatch.setenv("PIO_STORAGE_SOURCES_FS_PATH", os.path.join(base, "blobs"))
+        for source, type_name in (("ES", "elasticsearch"), ("HB", "hbase")):
+            monkeypatch.setenv(f"PIO_STORAGE_SOURCES_{source}_TYPE", type_name)
+            monkeypatch.setenv(f"PIO_STORAGE_SOURCES_{source}_TRANSPORT", "fake")
+        if backend == "hbase":  # row keys end in a random suffix: count instead
+            counter = itertools.count()
+            monkeypatch.setattr(importlib.import_module(f"{pkg}.data.storage.hbase.client"),
+                                "new_suffix", lambda: f"{next(counter):016x}")
         for p in PACKAGES:
             mods(p)[0].reset()
 
@@ -102,6 +116,25 @@ def _events(event_mod):
     out.append(Event(event="$delete", entity_type="item", entity_id="i2",
                      event_time=T0 + dt.timedelta(hours=4), event_id="s4", creation_time=T0))
     return out
+
+
+def attempt(fn, *args, **kwargs):
+    """``fn``'s answer, or the error it raised (a backend may refuse an
+    operation, as the Elasticsearch fake refuses a model id with a
+    slash: the reference's refusal is then the answer to equal)."""
+    try:
+        return fn(*args, **kwargs)
+    except Exception as exc:  # the outcome compared, not a failure
+        return ("raised", type(exc).__name__, str(exc))
+
+
+def optional(dao, name, *args, **kwargs):
+    """An optional capability of an events DAO (the columnar scan the
+    SQL and Elasticsearch backends have, HBase's has not): its answer,
+    or ``"absent"``."""
+    if not hasattr(dao, name):
+        return "absent"
+    return getattr(dao, name)(*args, **kwargs)
 
 
 def dao_script(pkg: str) -> list:
@@ -165,8 +198,8 @@ def dao_script(pkg: str) -> list:
 
     models = storage.get_model_data_models()
     models.insert(base.Model(id="ei0", models=b"\x00blob\xff"))
-    models.insert(base.Model(id="x/odd id", models=b"two"))
-    out += [models.get("ei0"), models.get("x/odd id"), models.get("nope")]
+    out.append(attempt(models.insert, base.Model(id="x/odd id", models=b"two")))
+    out += [models.get("ei0"), attempt(models.get, "x/odd id"), models.get("nope")]
     models.delete("ei0")
     out.append(models.get("ei0"))
 
@@ -191,11 +224,12 @@ def dao_script(pkg: str) -> list:
         out.append([e.event_id for e in le.find(a1, **kwargs)])
     out.append(le.aggregate_properties(a1, "item"))
     out.append(le.aggregate_properties(a1, "item", required=["size"]))
-    scan = le.scan_interactions(a1, event_names=["rate", "buy", "view"],
-                                target_entity_type="item")
-    out += [scan, le.count_interactions(a1, event_names=["rate"]),
-            le.interaction_digest(a1, target_entity_type="item")]
-    out.append([len(c[0]) for c in le.iter_interaction_chunks(a1, chunk_rows=4)])
+    scan = optional(le, "scan_interactions", a1, event_names=["rate", "buy", "view"],
+                    target_entity_type="item")
+    out += [scan, optional(le, "count_interactions", a1, event_names=["rate"]),
+            optional(le, "interaction_digest", a1, target_entity_type="item")]
+    chunks = optional(le, "iter_interaction_chunks", a1, chunk_rows=4)
+    out.append(chunks if chunks == "absent" else [len(c[0]) for c in chunks])
     out += [le.remove_channel(a1, c1), list(le.find(a1, channel_id=c1))]
     return [_norm(x) for x in out]
 
@@ -239,15 +273,29 @@ def _read_store(pkg: str) -> list:
     ]
 
 
+#: the fake transport of each remote backend's events
+FAKE_SOURCES = {"elasticsearch": "ES", "hbase": "HB"}
+
+
+@pytest.mark.parametrize("backend", ["sqlite", *sorted(FAKE_SOURCES)])
 @pytest.mark.parametrize("writer", PACKAGES)
-def test_each_package_reads_the_store_the_other_wrote(stores, tmp_path, writer):
+def test_each_package_reads_the_store_the_other_wrote(stores, tmp_path, writer, backend):
     """One on-disk format: the same sqlite store, written by ``writer``,
-    reads the same through both packages."""
-    stores("sqlite", writer, str(tmp_path))
+    reads the same through both packages. One wire format: each
+    package's Elasticsearch or HBase client reads the same through the
+    fake server (transport) the writer's client wrote to."""
+    stores(backend, writer, str(tmp_path))
     _write_store(writer)
+    shared = None
+    if backend in FAKE_SOURCES:
+        shared = mods(writer)[0]._registry.client_for_source(FAKE_SOURCES[backend]).transport
     for p in PACKAGES:
         mods(p)[0].reset()
-    reads = [_read_store(pkg) for pkg in PACKAGES]
+    reads = []
+    for pkg in PACKAGES:
+        if shared is not None:
+            mods(pkg)[0]._registry.client_for_source(FAKE_SOURCES[backend]).transport = shared
+        reads.append(_read_store(pkg))
     assert reads[1] == reads[0]
     assert len(reads[0][0]) == 16 and reads[0][2][0]  # both paths saw data
 
@@ -310,20 +358,81 @@ def test_parquet_without_pyarrow_raises_the_reference_message(monkeypatch):
         _cli("predictionio_tpu_torch")._pyarrow()
 
 
-@pytest.mark.parametrize("kind", sorted(["postgres", "mysql", "jdbc", "elasticsearch",
-                                         "hbase", "s3", "hdfs"]))
-def test_remote_backends_raise_and_never_fall_back(stores, tmp_path, monkeypatch, kind):
-    storage, *_ = mods("predictionio_tpu_torch")
-    stores("sqlite", "predictionio_tpu_torch", str(tmp_path))
-    monkeypatch.setenv("PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE", "REMOTE")
-    monkeypatch.setenv("PIO_STORAGE_SOURCES_REMOTE_TYPE", kind)
+#: remote TYPE -> (repository it serves here, its source's extra properties)
+REMOTE = {
+    "postgres": ("EVENTDATA", {}),
+    "mysql": ("EVENTDATA", {}),
+    "jdbc": ("EVENTDATA", {"URL": "jdbc:mysql://localhost/pio"}),
+    "elasticsearch": ("EVENTDATA", {"TRANSPORT": "fake"}),
+    "hbase": ("EVENTDATA", {"TRANSPORT": "fake"}),
+    "s3": ("MODELDATA", {"BUCKET_NAME": "pio-models"}),
+    "hdfs": ("MODELDATA", {"TRANSPORT": "fake"}),
+}
+GETTERS = {"EVENTDATA": "get_l_events", "MODELDATA": "get_model_data_models"}
+
+
+def _remote_outcome(pkg, getter):
+    """What the repository resolves to: its DAO's class, or the error."""
+    storage = mods(pkg)[0]
     storage.reset()
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        storage.get_l_events()
-    assert storage.get_meta_data_apps().get_all() == []  # sqlite serves the rest
-    assert [f for f in storage.verify_all_data_objects() if "Queue A item 6" in f] == [
-        f"event data: {f.split(': ', 1)[1]}" for f in storage.verify_all_data_objects()
-    ]
+    try:
+        dao = getattr(storage, getter)()
+    except Exception as exc:  # the outcome compared, not a failure
+        return ("raised", type(exc).__name__, str(exc))
+    return ("dao", type(dao).__module__.removeprefix(pkg), type(dao).__name__)
+
+
+@pytest.mark.parametrize("kind", sorted(REMOTE))
+def test_each_remote_type_resolves_to_its_backend_as_the_reference(
+        stores, tmp_path, monkeypatch, kind):
+    """Every remote ``TYPE`` reaches the port's copy of its backend: a DAO
+    of that backend's module, or, with its driver missing (psycopg2,
+    pymysql, boto3 are blocked here), the reference's own error. Both
+    packages answer alike, and the repository never lands on sqlite."""
+    import builtins
+
+    real_import = builtins.__import__
+
+    def no_drivers(name, *args, **kwargs):
+        if name.split(".")[0] in ("psycopg2", "pymysql", "MySQLdb", "boto3"):
+            raise ImportError(f"No module named {name!r}")
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_drivers)
+    repo, props = REMOTE[kind]
+    outcomes = {}
+    for pkg in PACKAGES:
+        stores("sqlite", pkg, str(tmp_path / pkg))
+        monkeypatch.setenv(f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE", "REMOTE")
+        monkeypatch.setenv("PIO_STORAGE_SOURCES_REMOTE_TYPE", kind)
+        for key, value in props.items():
+            monkeypatch.setenv(f"PIO_STORAGE_SOURCES_REMOTE_{key}", value)
+        outcomes[pkg] = _remote_outcome(pkg, GETTERS[repo])
+        assert mods(pkg)[0].get_meta_data_apps().get_all() == []  # sqlite serves the rest
+    got = outcomes["predictionio_tpu_torch"]
+    assert got == outcomes["predictionio_tpu"]
+    assert "NotImplementedError" not in got and "Sqlite" not in got[2]
+    if got[0] == "dao":
+        backend = "mysql" if kind == "jdbc" else kind
+        assert got[1].startswith(f".data.storage.{backend}"), got
+    else:
+        assert got[1] == "RuntimeError" and re.search("psycopg2|PyMySQL|boto3", got[2]), got
+
+
+def test_unknown_type_raises_and_never_falls_back(stores, tmp_path, monkeypatch):
+    """A ``TYPE`` no backend registers raises the reference's error; the
+    repository is not served by sqlite in its place."""
+    outcomes = {}
+    for pkg in PACKAGES:
+        stores("sqlite", pkg, str(tmp_path / pkg))
+        monkeypatch.setenv("PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE", "REMOTE")
+        monkeypatch.setenv("PIO_STORAGE_SOURCES_REMOTE_TYPE", "cassandra")
+        outcomes[pkg] = _remote_outcome(pkg, "get_l_events")
+        failures = mods(pkg)[0].verify_all_data_objects()
+        assert [f.split(":")[0] for f in failures] == ["event data"]
+    assert outcomes["predictionio_tpu_torch"] == outcomes["predictionio_tpu"]
+    assert outcomes["predictionio_tpu_torch"][:2] == ("raised", "StorageError")
+    assert "unknown storage type 'cassandra'" in outcomes["predictionio_tpu_torch"][2]
 
 
 @pytest.mark.parametrize("mode", ["use", "refresh"])
