@@ -220,6 +220,36 @@ script exits non-zero and prints no result):
    events, ``pio train`` -> ``pio deploy`` of each of the three
    engine.jsons; a ``$set`` of ``unavailableItems`` drops the top item
    from the next e-commerce answer without a retrain.
+   stream_path -- streamed ALS epochs and the streaming reader; B1 and B2
+   counts set to 0 before each drive and read after it, B3, B4 and the
+   fused backward still 0 at the end: stream_fit -- phase 6's
+   20,000,000 ratings through ``array_coo_chunks`` ->
+   ``build_streamed_als_data`` into a block store under the work dir (32
+   MB blocks: 9 user and 2 item blocks at the 256 cap), fitted by
+   ``als_fit_streamed`` with the template's params (pinned staging
+   buffers, the copy stream): factors within 1e-4 of phase 6's resident
+   fit, B1 launches = blocks x 10, the measured host -> device block
+   bytes equal to ``stream_bytes_per_half_step``'s model, at most two
+   blocks in flight, recall@10 of 256 users' mips lists (B2) against the
+   exact scan of the streamed model >= 0.99; it prints the store's build
+   seconds and bytes on disk, s/iteration beside phase 6's, the achieved
+   host -> device GB/s beside one pinned copy of the largest block timed
+   alone, and the host's peak resident-set growth during the fit; then
+   a fit with a device budget of the whole store: the iterations after
+   the first ship no block and the factors are the streamed fit's bit for
+   bit. stream_pio -- on a copy of store_path's store taken before
+   follow_path (its live-filter "buy" deleted again), ``pio train
+   --snapshot-mode refresh --als-feed streamed`` of the recommendation
+   engine.json with ``"reader": "streaming"``: B1 once per block of the
+   snapshot's block store a half-step, factors within 1e-4 of
+   store_path's materialized instance; ``pio deploy`` of it with mips
+   and ``seenFilter: "live"``: B2, every list the materialized model's
+   up to near-ties (``compare_lists``); then on store_templates' store
+   the e-commerce (``--als-feed streamed``), similar-product and
+   universal engine.jsons with ``"reader": "streaming"`` through ``pio
+   train`` and deployed: the e-commerce factors within 1e-4 of the
+   materialized instance's, the indicators equal bit for bit, every
+   answer equal to the materialized twin's ``predict``.
    classification -- every kernel's count set to 0 first, all five still 0
    at the end (the part is plain torch, as the reference's is plain jnp):
    classify_path -- BASELINE config #2 through the verbs in a fresh store:
@@ -379,6 +409,7 @@ import dataclasses
 import http.client
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2399,6 +2430,7 @@ def phase_store_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
         if recorded is None or recorded.status != "COMPLETED" or blob is None:
             raise AssertionError(f"instance {instance.id}: {recorded}, blob {blob is not None}")
         result.update(fast_scan_rows=fast_scans, b1_launches=b1_launches,
+                      instance_id=instance.id,
                       instance_status=recorded.status, blob_bytes=len(blob.models),
                       train_verb_s=train_verb_s,
                       **{k: timings[k] for k in ("read_s", "prepare_s", "train_s", "persist_s")})
@@ -3891,6 +3923,388 @@ def phase_templates(rng: np.random.Generator, ratings, repo: str, workdir: str) 
         "other_launches": others, "seconds": seconds,
     }
     emit({"phase": "templates", **result})
+    # store_templates' materialized instances: the stream path's twins
+    result["store_instances"] = {t: store[t]["instance"]
+                                 for t in ("ecommerce", "similarproduct", "universal")}
+    return result
+
+
+# --------------------------------------------------------------------------
+# the stream path: streamed ALS epochs through B1 (``alsFeed: "streamed"``)
+# and the templates' streaming reader (``"reader": "streaming"``)
+# --------------------------------------------------------------------------
+
+#: users of the streamed fit whose mips top-10 (B2) is held to its scan
+STREAM_RECALL_USERS = 256
+#: CUDA-event runs of the pinned copy of the largest block, timed alone
+STREAM_COPY_RUNS = 10
+
+
+class RssPeak:
+    """The process's resident set (``/proc/self/statm``) over a block,
+    sampled every 2 ms by a thread: ``growth`` is the peak less the
+    resident set at entry."""
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self) -> "RssPeak":
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+        self.growth = self.peak - self.start
+
+
+def store_blocks(store) -> int:
+    return len(store.by_row.specs) + len(store.by_col.specs)
+
+
+def phase_stream_fit(ratings, resident: dict, repo: str, workdir: str, seed: int) -> dict:
+    """(a) The ALS training cell's 20M ratings packed into a block store
+    (``array_coo_chunks`` -> ``build_streamed_als_data``, 32 MB blocks)
+    and fitted by ``als_fit_streamed`` through B1 with the template's
+    params: factors within 1e-4 of phase 6's resident fit, B1 once per
+    block a half-step, the measured host -> device bytes the model's, at
+    most two blocks in flight, recall@10 of B2's lists against the exact
+    scan of the streamed model; then the same fit with a device budget
+    over the whole store: after the first iteration no block ships, the
+    factors the same."""
+    import torch
+
+    from predictionio_tpu_torch.models._als_common import score_known_user, topk_order
+    from predictionio_tpu_torch.models.recommendation import ALSAlgorithm
+    from predictionio_tpu_torch.ops import als_gram, mips
+    from predictionio_tpu_torch.ops.mips import RetrievalConfig
+    from predictionio_tpu_torch.parallel.als import als_fit_streamed
+    from predictionio_tpu_torch.parallel.reader import array_coo_chunks
+    from predictionio_tpu_torch.parallel.stream import (
+        StreamStats,
+        build_streamed_als_data,
+        stream_bytes_per_half_step,
+    )
+
+    users, items, values, times = ratings
+    algo_params, _ = template_params(repo)
+    config = dataclasses.replace(ALSAlgorithm(algo_params, device="cuda")._config(),
+                                 max_len=TRAIN_CAP, factor_sharding="replicated")
+    t0 = time.perf_counter()
+    store = build_streamed_als_data(array_coo_chunks(users, items, values, times),
+                                    TRAIN_USERS, TRAIN_ITEMS, config,
+                                    os.path.join(workdir, "ml20m_blocks"))
+    build_s = time.perf_counter() - t0
+    disk_bytes = sum(os.path.getsize(os.path.join(store.directory, f))
+                     for f in os.listdir(store.directory))
+    blocks = store_blocks(store)
+    per_iteration = 2 * stream_bytes_per_half_step(store, config.implicit)
+
+    torch.cuda.synchronize()
+    stats, steps = StreamStats(), StepTimes()
+    als_gram.gram_rhs.launches = 0           # counts start at 0 here
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        model = als_fit_streamed(store, config, "cuda", telemetry=steps, stats=stats)
+        fit_s = time.perf_counter() - t0
+    b1 = als_gram.gram_rhs.launches          # read here
+    err = max(float(np.abs(model.user_factors - resident["user_factors"]).max()),
+              float(np.abs(model.item_factors - resident["item_factors"]).max()))
+    if b1 != blocks * config.iterations:
+        raise AssertionError(f"{b1} B1 launches for {blocks} blocks x {config.iterations}")
+    if not err <= FIT_ATOL:
+        raise AssertionError(f"streamed factors differ from the resident fit's by {err}")
+    if stats.h2d_block_bytes != round(per_iteration * config.iterations):
+        raise AssertionError(f"{stats.h2d_block_bytes} block bytes shipped, the model "
+                             f"says {per_iteration * config.iterations}")
+    if stats.max_inflight_blocks > 2:
+        raise AssertionError(f"{stats.max_inflight_blocks} blocks in flight")
+
+    # B2 over the streamed model: its top-10 against its exact scan
+    retrieval = RetrievalConfig(mode="mips")
+    picked = np.random.default_rng(seed).choice(TRAIN_USERS, STREAM_RECALL_USERS,
+                                                replace=False)
+    mips.mips_block_topk.launches = 0
+    hits = 0
+    for u in picked.tolist():
+        short = score_known_user(model, u, retrieval, device="cuda")
+        got = set(short.indices[topk_order(short.scores, 10)].tolist())
+        hits += len(got & set(topk_order(model.score_items_for_user(u), 10).tolist()))
+    b2 = mips.mips_block_topk.launches
+    recall = hits / (10 * len(picked))
+    if recall < 0.99 or b2 < 1:
+        raise AssertionError(f"recall@10 {recall} with {b2} B2 launches")
+
+    # one pinned copy of the largest block's size, timed alone
+    largest = max(s.idx_bytes() + s.val_bytes() + (0 if config.implicit else s.nobs_bytes())
+                  for side in (store.by_row, store.by_col) for s in side.specs)
+    host = torch.empty(largest, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(largest, dtype=torch.uint8, device="cuda")
+    copy_ms = cuda_ms(lambda: dev.copy_(host, non_blocking=True), runs=STREAM_COPY_RUNS)
+    del host, dev
+
+    # a device budget holding the whole store: only the first iteration ships
+    pinned_stats = StreamStats()
+    t0 = time.perf_counter()
+    pinned = als_fit_streamed(store, config, "cuda", stats=pinned_stats,
+                              device_budget_bytes=round(per_iteration))
+    pinned_fit_s = time.perf_counter() - t0
+    if pinned_stats.h2d_block_bytes != round(per_iteration) or (
+            pinned_stats.blocks_pinned != blocks * (config.iterations - 1)):
+        raise AssertionError(f"the pinned fit shipped {pinned_stats}")
+    if not (np.array_equal(pinned.user_factors, model.user_factors)
+            and np.array_equal(pinned.item_factors, model.item_factors)):
+        raise AssertionError("the pinned fit's factors differ from the streamed fit's")
+    del pinned
+    torch.cuda.empty_cache()
+
+    result = {
+        "users": TRAIN_USERS, "items": TRAIN_ITEMS, "edges": TRAIN_EDGES,
+        "rank": config.rank, "iterations": config.iterations,
+        "store_build_s": build_s, "store_disk_bytes": disk_bytes,
+        "spill_s": store.manifest["spill_seconds"], "pack_s": store.manifest["pack_seconds"],
+        "blocks": {"users": [[s.rows, s.pad_len] for s in store.by_row.specs],
+                   "items": [[s.rows, s.pad_len] for s in store.by_col.specs]},
+        "fit_s": fit_s, "b1_launches": b1, "factors_max_abs_err_vs_resident": err,
+        "iteration_s": steps.seconds,
+        "iteration_s_median": statistics.median(steps.seconds),
+        "resident_iteration_s_median": resident["iteration_s_median"],
+        "stats": dataclasses.asdict(stats),
+        "modeled_block_bytes": per_iteration * config.iterations,
+        "h2d_gb_per_s": stats.h2d_block_bytes / fit_s / 1e9,
+        "largest_block_bytes": largest, "pinned_copy_ms": copy_ms,
+        "pinned_copy_gb_per_s": largest / copy_ms / 1e6,
+        "host_rss_growth_bytes": rss.growth, "host_rss_start_bytes": rss.start,
+        "recall_at_10": recall, "recall_users": len(picked), "b2_launches": b2,
+        "budget": {"fit_s": pinned_fit_s, "stats": dataclasses.asdict(pinned_stats),
+                   "factors_equal": True},
+    }
+    emit({"phase": "stream_fit", **result})
+    return result
+
+
+def streaming_variant(src: str, app_name: str, path: str, **algorithm_params) -> str:
+    """``store_variant`` with the datasource's ``"reader": "streaming"``."""
+    store_variant(src, app_name, path, **algorithm_params)
+    with open(path) as f:
+        variant = json.load(f)
+    variant["datasource"]["params"]["reader"] = "streaming"
+    with open(path, "w") as f:
+        json.dump(variant, f)
+    return path
+
+
+def snapshot_blocks(basedir: str) -> int:
+    """Blocks of the block stores under ``basedir``'s training snapshots."""
+    import glob
+
+    total = 0
+    for path in glob.glob(os.path.join(basedir, "snapshots", "*", "gen-*", "blocks",
+                                       "blocks-*", "manifest.json")):
+        with open(path) as f:
+            manifest = json.load(f)
+        total += len(manifest["u"]["specs"]) + len(manifest["i"]["specs"])
+    return total
+
+
+def phase_stream_pio(repo: str, stream_root: str, store: dict, templates: dict,
+                     templates_workdir: str, seed: int) -> dict:
+    """(b) Through ``pio``: on a copy of store_path's store (its 500,000
+    ratings, the live-filter check's "buy" taken back out), ``pio train
+    --snapshot-mode refresh --als-feed streamed`` of the recommendation
+    engine.json with ``"reader": "streaming"``: the snapshot's block store
+    fitted through B1, factors within 1e-4 of store_path's materialized
+    instance; ``pio deploy`` of it with mips (B2) and the live seen filter,
+    each list the materialized model's up to near-ties. Then on
+    store_templates' store the e-commerce (``--als-feed streamed``: B1 per
+    block), similar-product and universal engine.jsons with ``"reader":
+    "streaming"``: each model equal to its materialized twin of
+    store_templates (the factors within 1e-4, the indicators bit for
+    bit), each deploy's answers equal dicts to the twin's."""
+    from predictionio_tpu_torch.controller.engine import TEMPLATES
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.models.recommendation import ALSAlgorithm
+    from predictionio_tpu_torch.ops import als_gram, mips
+    from predictionio_tpu_torch.tools.cli import build_query_server
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
+    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+
+    result = {}
+    engine_json = os.path.join(repo, "examples", "recommendation", "engine.json")
+    with fresh_store(stream_root, "ml_store") as basedir:
+        app_id = storage.get_meta_data_apps().get_by_name("MLApp").id
+        le = storage.get_l_events()
+        buys = list(le.find(app_id=app_id, event_names=["buy"]))
+        if len(buys) != 1 or not le.delete(buys[0].event_id, app_id):
+            raise AssertionError(f"store_path's store holds {len(buys)} buy events")
+        variant_path = streaming_variant(engine_json, "MLApp",
+                                         os.path.join(stream_root, "ml1m_streaming.json"),
+                                         retrieval={"mode": "mips"}, seenFilter="live")
+        als_gram.gram_rhs.launches = 0       # counts start at 0 here
+        t0 = time.perf_counter()
+        out = cli_out(["train", "--variant", variant_path, "--device", "cuda",
+                       "--snapshot-mode", "refresh", "--als-feed", "streamed"])
+        train_s = time.perf_counter() - t0
+        b1 = als_gram.gram_rhs.launches      # read here
+        instance = said(out, "Engine instance ID")
+        variant = load_engine_variant(variant_path)
+        _, streamed = load_instance_model(variant, instance)
+        _, materialized = load_instance_model(variant, store["instance_id"])
+        blocks = snapshot_blocks(basedir)
+        iterations = variant.engine_params.algorithm_params_list[0][1].get_or(
+            "numIterations", 10)
+        if b1 != blocks * iterations or blocks < 2:
+            raise AssertionError(f"{b1} B1 launches for {blocks} blocks x {iterations}")
+        if streamed.user_index != materialized.user_index or (
+                streamed.item_ids != materialized.item_ids):
+            raise AssertionError("the streamed and materialized trains encode differently")
+        err = max(float(np.abs(streamed.als.user_factors
+                               - materialized.als.user_factors).max()),
+                  float(np.abs(streamed.als.item_factors
+                               - materialized.als.item_factors).max()))
+        if not err <= FIT_ATOL or streamed.seen_mode != "live" or streamed.seen:
+            raise AssertionError(f"streamed model: factors {err} apart, seen filter "
+                                 f"{streamed.seen_mode}")
+        picked = np.random.default_rng(seed).choice(STORE_USERS, size=STORE_QUERIES,
+                                                    replace=False)
+        queries = [{"user": f"u{u}", "num": 10} for u in picked] + [
+            {"user": "cold-user", "num": 10}]
+        query_ms = []
+        mips.mips_block_topk.launches = 0
+        served, _, deploy_s = serve_model(variant_path, None, queries, query_ms)
+        b2 = mips.mips_block_topk.launches
+        algorithm = ALSAlgorithm(variant.engine_params.algorithm_params_list[0][1],
+                                 device="cuda")
+        algorithm.warm_up(materialized)
+        diffs, swaps = [], 0
+        for q, body in zip(queries, served):
+            d, s = compare_lists(body["itemScores"], algorithm.predict(
+                materialized, q)["itemScores"])
+            diffs.append(d)
+            swaps += s
+        if b2 < 1 or served[-1] != {"itemScores": []}:
+            raise AssertionError(f"the streamed deploy: {b2} B2 launches, cold {served[-1]}")
+        result["recommendation"] = {
+            "events": STORE_EVENTS, "train_s": train_s, "b1_launches": b1,
+            "blocks": blocks, "factors_max_abs_err_vs_materialized": err,
+            "deploy_s": deploy_s, "query_p50_ms": statistics.median(query_ms[:-1]),
+            "b2_launches": b2, "list_max_abs_diff": max(diffs), "near_tie_swaps": swaps,
+        }
+
+    user = "u1"
+    with fresh_store(templates_workdir, "templates_store") as basedir:
+        for template, queries in (
+                ("ecommerce", [{"user": user, "num": 5}, {"user": "u7", "num": 8}]),
+                ("similarproduct", [{"items": ["i1"], "num": 5}, {"user": user, "num": 5}]),
+                ("universal", [{"user": user, "num": 5}, {"items": ["i3"], "num": 5}])):
+            variant_path = streaming_variant(
+                os.path.join(repo, "examples", template, "engine.json"), "SmallShop",
+                os.path.join(templates_workdir, f"stream_{template}.json"))
+            args = ["train", "--variant", variant_path, "--device", "cuda",
+                    "--snapshot-mode", "refresh"]
+            if template == "ecommerce":
+                args += ["--als-feed", "streamed"]
+            before = snapshot_blocks(basedir)
+            als_gram.gram_rhs.launches = 0   # counts start at 0 here
+            t0 = time.perf_counter()
+            instance = said(cli_out(args), "Engine instance ID")
+            train_s = time.perf_counter() - t0
+            b1 = als_gram.gram_rhs.launches  # read here
+            variant = load_engine_variant(variant_path)
+            _, model = load_instance_model(variant, instance)
+            _, twin = load_instance_model(variant, templates["store_instances"][template])
+            params = variant.engine_params.algorithm_params_list[0][1]
+            algorithm = TEMPLATES[template].algorithm_class(params, device="cuda")
+            entry = {"train_s": train_s, "b1_launches": b1}
+            if template == "ecommerce":
+                blocks = snapshot_blocks(basedir) - before
+                if b1 != blocks * algorithm._config().iterations or blocks < 2:
+                    raise AssertionError(f"e-commerce: {b1} B1 launches, {blocks} blocks")
+                if model.user_index != twin.user_index or model.item_ids != twin.item_ids:
+                    raise AssertionError("e-commerce: the vocabularies differ")
+                err = max(float(np.abs(model.als.user_factors - twin.als.user_factors).max()),
+                          float(np.abs(model.als.item_factors - twin.als.item_factors).max()))
+                if not err <= FIT_ATOL or model.seen_mode != "live":
+                    raise AssertionError(f"e-commerce: factors {err} apart")
+                entry.update(blocks=blocks, factors_max_abs_err=err, factors_equal=bool(
+                    np.array_equal(model.als.user_factors, twin.als.user_factors)
+                    and np.array_equal(model.als.item_factors, twin.als.item_factors)))
+            elif template == "similarproduct":
+                if model.item_ids != twin.item_ids or not (
+                        np.array_equal(model.top_indices, twin.top_indices)
+                        and np.array_equal(model.top_values, twin.top_values)):
+                    raise AssertionError("similar-product: the indicators differ")
+                entry["indicators_equal"] = True
+            else:
+                by_id = lambda m, name: {
+                    m.item_ids[j]: sorted((m.item_ids[p], v) for p, v in pairs)
+                    for j, pairs in m.indicators[name].items()}
+                if set(model.indicators) != set(twin.indicators) or any(
+                        by_id(model, n) != by_id(twin, n) for n in twin.indicators):
+                    raise AssertionError("universal: the indicators differ")
+                entry["indicators_equal"] = True
+            server, service = build_query_server(variant_path, port=0, device="cuda")
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
+                                              timeout=120)
+            try:
+                for q in queries:
+                    body, _ = post(conn, q)
+                    if body != algorithm.predict(twin, q):
+                        raise AssertionError(f"{template} {q}: the streamed deploy answered "
+                                             f"{body}, its materialized twin "
+                                             f"{algorithm.predict(twin, q)}")
+            finally:
+                conn.close()
+                server.shutdown()
+                server.server_close()
+                service.close()
+                thread.join(timeout=30)
+            entry["queries"] = len(queries)
+            result[template] = entry
+    emit({"phase": "stream_pio", **result})
+    return result
+
+
+def phase_stream_path(ratings, resident: dict, store: dict, templates: dict, repo: str,
+                      workdir: str, stream_root: str, seed: int) -> dict:
+    """The stream path: (a) stream_fit, (b) stream_pio, drawing from their
+    own generators of ``seed`` (the later phases' draws stay as they
+    were). B1 and B2 counts are set to 0 before each drive and read
+    after it; B3, B4 and the fused backward stay 0."""
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+
+    ncf_kernel.ncf_score_all_items.launches = 0
+    zero_flash_counts()
+    t0 = time.perf_counter()
+    fit = phase_stream_fit(ratings, resident, repo, workdir, seed)
+    seconds = {"stream_fit": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    pio = phase_stream_pio(repo, stream_root, store, templates, workdir, seed + 1)
+    seconds["stream_pio"] = time.perf_counter() - t0
+    others = {"ncf_score_all_items": ncf_kernel.ncf_score_all_items.launches, **flash_counts()}
+    if any(others.values()):
+        raise AssertionError(f"the stream path launched other kernels: {others}")
+    result = {
+        "b1_launches": {"fit": fit["b1_launches"],
+                        "pio_recommendation": pio["recommendation"]["b1_launches"],
+                        "pio_ecommerce": pio["ecommerce"]["b1_launches"]},
+        "b2_launches": {"fit_recall": fit["b2_launches"],
+                        "pio_deploy": pio["recommendation"]["b2_launches"]},
+        "other_launches": others, "seconds": seconds,
+    }
+    emit({"phase": "stream_path", **result})
     return result
 
 
@@ -5855,15 +6269,26 @@ def main(argv: list[str] | None = None) -> int:
     phase_foldin(rng, trained)
     with tempfile.TemporaryDirectory() as workdir:
         phase_train_verb_and_serve(rng, trained, repo, workdir)
+    stream_root = tempfile.TemporaryDirectory()
     with tempfile.TemporaryDirectory() as workdir:
         store = phase_store_path(rng, repo, workdir)
+        # store_path's store as it stands, for the stream path's twin train
+        shutil.copytree(os.path.join(workdir, "store"),
+                        os.path.join(stream_root.name, "ml_store"))
         follow = phase_follow_path(rng, repo, workdir)
         evaluated = phase_eval_path(rng, repo, workdir)
     b1_launches = trained["result"]["launches"]["gram_rhs"]
     ratings = trained["ratings"]
+    resident = {"user_factors": trained["model"].als.user_factors,
+                "item_factors": trained["model"].als.item_factors,
+                "iteration_s_median": trained["result"]["iteration_s_median"]}
     del trained
     with tempfile.TemporaryDirectory() as workdir:
         templates = phase_templates(rng, ratings, repo, workdir)
+        streamed = phase_stream_path(ratings, resident, store, templates, repo, workdir,
+                                     stream_root.name, args.seed)
+    stream_root.cleanup()
+    del resident
     with tempfile.TemporaryDirectory() as workdir:
         classification = phase_classification(rng, args.seed, repo, workdir)
 
@@ -5903,6 +6328,7 @@ def main(argv: list[str] | None = None) -> int:
                                for part in ("replay", "pinned", "batchpredict")},
         "templates_launches": templates["b2_launches"],
         "profile_train_launches": profiled["launches"]["mips_block_topk"],
+        "stream_path_launches": streamed["b2_launches"],
         "batchpredict_chunk": {k: evaluated["batchpredict"]["b2_chunk"][k] for k in (
             "batch", "items", "rank", "block_items", "block_topk", "instance", "ms",
             "plain_ms", "library_pair_ms", "bound_ms", "bound_by", "max_abs_err")},
@@ -5940,6 +6366,7 @@ def main(argv: list[str] | None = None) -> int:
         "eval_path_launches": evaluated["b1_launches"],
         "templates_launches": templates["b1_launches"],
         "profile_train_launches": profiled["launches"]["gram_rhs"],
+        "stream_path_launches": streamed["b1_launches"],
         "max_abs_err": b1_check["max_abs_err"],
         "ms": b1_main["ms"],
         "plain_ms": b1_main["plain_ms"],
@@ -5989,6 +6416,7 @@ def main(argv: list[str] | None = None) -> int:
                     profiled["launches"], templates["other_launches"])
     for row in rows:
         row["classification_launches"] = classification["launches"][row["name"]]
+        row.setdefault("stream_path_launches", streamed["other_launches"].get(row["name"]))
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {

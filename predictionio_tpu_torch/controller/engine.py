@@ -198,6 +198,13 @@ class ModelBlobError(ValueError):
     """A model blob the port cannot deploy."""
 
 
+def _blob_entry(name: str) -> zipfile.ZipInfo:
+    """A blob's zip entry, stamped with zip's epoch: a blob is a function
+    of its model alone, never of the clock (a registry version's shard
+    blobs equal its full blob byte for byte)."""
+    return zipfile.ZipInfo(name, date_time=(1980, 1, 1, 0, 0, 0))
+
+
 def serialize_model(template: Template, model) -> bytes:
     """The model blob of one trained model: ``template.save_model``'s
     files, stored uncompressed, and ``manifest.json``."""
@@ -206,12 +213,13 @@ def serialize_model(template: Template, model) -> bytes:
         names = sorted(os.listdir(tmp))
         buf = io.BytesIO()
         with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as zf:
-            zf.writestr(MANIFEST, json.dumps({
+            zf.writestr(_blob_entry(MANIFEST), json.dumps({
                 "format": BLOB_FORMAT, "version": 1, "template": template.name,
                 "algorithm": template.algorithm, "files": names,
             }))
             for name in names:
-                zf.write(os.path.join(tmp, name), name)
+                with open(os.path.join(tmp, name), "rb") as f:
+                    zf.writestr(_blob_entry(name), f.read())
     return buf.getvalue()
 
 

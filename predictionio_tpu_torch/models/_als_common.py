@@ -2,8 +2,10 @@
 
 Port of ``predictionio_tpu/models/_als_common.py``. The training half:
 CSR packing from the preparator's params (``prepare_als_data``), the
-warning for packing knobs put in the algorithm block, and ``als_fit``
-wrapped in fingerprinted step checkpoints (``fit_with_checkpoint``). The
+warning for packing knobs put in the algorithm block, and the fit
+wrapped in fingerprinted step checkpoints (``fit_with_checkpoint``:
+``als_fit`` over resident blocks, ``als_fit_streamed`` over the block
+store the streaming reader packs with ``alsFeed: "streamed"``). The
 serving half: the seen-items map, the mips ``Shortlist`` view and its
 retrieval index, the known-user / similar-items scorers and the
 rank+format tail of the ``itemScores`` responses (predict and the
@@ -12,10 +14,8 @@ vectorized batch path must rank identically).
 With ``pio train --profile`` (runtime conf ``pio.profile``) the fit
 writes the per-iteration telemetry journal
 ``<profile-dir>/<name>-telemetry.jsonl`` (``_telemetry_fields``,
-reference ``:570-611``).
-
-Not ported yet: the streamed fit (``als_fit_streamed``, ``alsFeed:
-"streamed"``) and multi-device meshes (ROADMAP.md Queue A item 8).
+reference ``:570-611``); a streamed fit's journal ends with a ``stream``
+record of its ``StreamStats``.
 
 Only the stage-1 search runs on the device. Every response score is
 computed on the host with the same ``np.einsum`` row arithmetic as the
@@ -26,6 +26,7 @@ whenever the shortlist holds the true top-k.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import logging
 
@@ -37,6 +38,7 @@ from predictionio_tpu_torch.parallel.als import (
     ALSConfig,
     ALSModel,
     als_fit,
+    als_fit_streamed,
     build_als_data,
     modeled_bytes_per_iteration,
     real_edges,
@@ -59,15 +61,21 @@ def prepare_als_data(
     """Pack COO interactions into padded CSR blocks per the preparator's
     params: ``maxEventsPerUser`` (history cap, most recent kept) and
     ``buckets`` (length-bucketed packing, default 1). One card: rows pad
-    to multiples of 8."""
-    feed = params.get_or("alsFeed", "resident")
-    if feed == "streamed":
-        raise NotImplementedError(
-            'alsFeed "streamed" trains from an on-disk block store, which '
-            'the port does not have yet; use "resident"'
+    to multiples of 8.
+
+    The feed (``alsFeed``, or ``pio train --als-feed`` through
+    ``ctx.runtime_conf``) is resolved here too, so a bad value fails the
+    build. These arrays are already in host memory, so ``"streamed"``
+    packs them resident, as the reference's materialized read does: the
+    block store is the streaming reader's (``"reader": "streaming"``)."""
+    from predictionio_tpu_torch.models._streaming import resolve_als_feed
+
+    if resolve_als_feed(params, getattr(ctx, "runtime_conf", None)) == "streamed":
+        logger.info(
+            'alsFeed "streamed": the materialized reader holds the edges in '
+            'host arrays, so they pack resident; "reader": "streaming" trains '
+            "from the block store"
         )
-    if feed != "resident":
-        raise ValueError(f"alsFeed must be 'resident' or 'streamed', got {feed!r}")
     config = ALSConfig(
         max_len=params.get_or("maxEventsPerUser", None),
         buckets=params.get_or("buckets", 1),
@@ -137,7 +145,12 @@ def fit_with_checkpoint(
 
     ``ctx.telemetry`` gets each iteration's wall time; without one, a
     profiled run (``pio.profile`` in ``ctx.runtime_conf``) writes the
-    telemetry journal (``ctx.journal`` with ``_telemetry_fields``)."""
+    telemetry journal (``ctx.journal`` with ``_telemetry_fields``).
+
+    A ``parallel.stream.StreamedALSData`` (the streaming reader's block
+    store) trains through ``als_fit_streamed`` with the same checkpoints
+    and callback (reference ``:539-546``); the journal then closes with
+    the fit's ``StreamStats``."""
     config = resolve_factor_sharding(config)
     checkpoint = ctx.checkpoint_manager(name) if interval > 0 else None
     init, start_iteration, callback = None, 0, None
@@ -178,8 +191,13 @@ def fit_with_checkpoint(
                 it, {"users": users_np, "items": items_np, "iteration": it}
             )
 
+    from predictionio_tpu_torch.parallel.stream import StreamedALSData, StreamStats
+
+    streamed = isinstance(als_data, StreamedALSData)
+    stats = StreamStats() if streamed else None
     with ctx.journal(name, lambda: _telemetry_fields(ctx, als_data, config)) as telemetry:
-        model = als_fit(
+        fit = functools.partial(als_fit_streamed, stats=stats) if streamed else als_fit
+        model = fit(
             als_data,
             config,
             ctx.device,
@@ -189,6 +207,13 @@ def fit_with_checkpoint(
             start_iteration=start_iteration,
             telemetry=telemetry,
         )
+        if streamed and hasattr(telemetry, "record_stream"):
+            telemetry.record_stream({
+                **dataclasses.asdict(stats),
+                "bytes_per_half_step": stats.bytes_per_half_step,
+                "blocks": sum(len(s.specs) for s in (als_data.by_row, als_data.by_col)),
+                "directory": als_data.directory,
+            })
     if checkpoint is not None:
         checkpoint.close()
     return model

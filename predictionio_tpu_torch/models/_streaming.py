@@ -1,24 +1,30 @@
-"""The templates' scan descriptor and serving-time live event-store lookups.
+"""The templates' streaming reader: the scan descriptor, its sources and
+the serving-time live event-store lookups.
 
-Copy of ``predictionio_tpu/models/_streaming.py:23-169``
-(framework-free):
+Port of ``predictionio_tpu/models/_streaming.py`` (framework-free but for
+the world-size probe):
 
 - ``StreamingHandle``, ``build_streaming_handle`` and
   ``streaming_handle_or_none`` (``:23-117``): where and what a template
   scans (app, channel, event names, rating key), pinned at an exclusive
-  ``until_time``. ``DataSource.online_handle`` builds one for the
-  continuous-learning loop (``online/loop.py``), which keys its snapshot
-  and WAL filter on it. ``streaming_handle_or_none`` is the opt-in gate
-  of the sharded reader (``"reader": "streaming"``); the port's
-  DataSources refuse that reader (ROADMAP.md Queue A item 8), so the
-  gate has no caller until that item lands.
+  ``until_time``. ``streaming_handle_or_none`` is the DataSources' opt-in
+  gate (``"reader": "streaming"``); ``DataSource.online_handle`` builds
+  one for the continuous-learning loop (``online/loop.py``), which keys
+  its snapshot and WAL filter on it.
 - ``live_target_events`` and ``live_seen_indices`` (``:118-169``): a
   query reads the user's item-target events from the store (through
   ``LEventStore``), so events ingested after training filter at once
   and the model stays O(entities). They serve ``seenFilter: "live"``
-  (ALS, NCF) and ``historyMode: "live"`` (SASRec).
-
-The rest of that module, the streaming sharded reader, is item 8.
+  (ALS, NCF, e-commerce) and ``historyMode: "live"`` (SASRec), and the
+  streamed models' user histories.
+- ``:172-427``: the handle's chunk sources (``streaming_coo_source``,
+  ``streaming_multi_event_sources``: a training snapshot's memmap replay
+  under ``--snapshot-mode use|refresh``, else the bounded store scan),
+  ``snapshot_ratings_arrays``, the ALS feed (``resolve_als_feed``:
+  ``pio train --als-feed`` over the preparator's ``alsFeed``) and the
+  shared ALS build (``build_streaming_als``). One process on one card:
+  ``_agree_until_time`` has no other process to agree with, and a world
+  size above 1 raises (ROADMAP.md Queue A item 8).
 """
 
 from __future__ import annotations
@@ -30,14 +36,6 @@ from dataclasses import dataclass, field
 from predictionio_tpu_torch.controller.base import SanityCheck
 
 logger = logging.getLogger("pio.streaming")
-
-#: what a datasource's ``"reader": "streaming"`` raises until the sharded
-#: reader is ported
-STREAMING_NOT_PORTED = (
-    'datasource "reader": "streaming" (the sharded reader) is not ported '
-    "yet: ROADMAP.md Queue A item 8; leave it out"
-)
-
 
 @dataclass
 class StreamingHandle(SanityCheck):
@@ -124,6 +122,18 @@ def streaming_handle_or_none(
     )
 
 
+def refuse_streaming_file(params, events_path: str | None) -> None:
+    """A DataSource reading a JSON-lines events file (``pio train
+    --events``) has no chunked store scan to stream, so it refuses
+    ``"reader": "streaming"`` with ``ValueError``."""
+    if events_path is not None and params.get_or("reader", "materialized") == "streaming":
+        raise ValueError(
+            '"reader": "streaming" streams the event store\'s chunked scan; an '
+            "events file is read whole. `pio import` it and train from the "
+            'store, or leave "reader" out'
+        )
+
+
 def live_target_events(model, user: str) -> list:
     """The query user's item-target events, read live from the store.
 
@@ -176,3 +186,211 @@ def live_seen_indices(model, user: str, cache: dict | None = None) -> set[int]:
     if cache is not None:
         cache[key] = out
     return out
+
+
+def _agree_until_time(handle: StreamingHandle) -> None:
+    """Multi-process launches adopt rank 0's captured scan bound, so
+    every process scans the same prefix (reference ``:172-210``). One
+    process agrees with itself; a world size above 1 raises."""
+    from predictionio_tpu_torch.parallel.als import refuse_multi_gpu
+
+    refuse_multi_gpu()
+
+
+def _snapshot_for_handle(handle: StreamingHandle, runtime_conf):
+    """The handle's ready training snapshot, or None (mode off, backend
+    without the columnar scan, or any snapshot-layer failure -- training
+    must degrade to the direct scan, never die on a cache)."""
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.data.snapshot import (
+        SnapshotSpec,
+        SnapshotStore,
+        snapshot_settings,
+    )
+
+    mode, root = snapshot_settings(runtime_conf)
+    if mode == "off":
+        return None
+    le = storage.get_l_events()
+    spec = SnapshotSpec(
+        app_id=handle.app_id,
+        channel_id=handle.channel_id,
+        event_names=tuple(handle.event_names) if handle.event_names else None,
+        rating_key=handle.rating_key,
+    )
+    try:
+        return SnapshotStore(root, spec).ensure(
+            le,
+            mode,
+            until_time=getattr(handle, "until_time", None),
+            chunk_rows=handle.chunk_rows,
+        )
+    except Exception:
+        logger.warning(
+            "training snapshot unavailable for app %r; falling back to the"
+            " direct store scan",
+            handle.app_name,
+            exc_info=True,
+        )
+        return None
+
+
+def snapshot_ratings_arrays(handle: StreamingHandle, runtime_conf=None):
+    """Materialized COO arrays replayed from the handle's ready snapshot
+    generation, or None when snapshots are off/unavailable.
+
+    Returns ``(users, items, ratings, times, user_ids, item_ids)`` --
+    the exact shape a datasource's materialized ``_read`` produces, but
+    served from the PR-3 memmap columns: a replay evaluation under
+    ``--snapshot-mode use`` trains its prefix with zero SQL scans, and a
+    second run replays the same pinned generation bit-for-bit.
+    """
+    import numpy as np
+
+    snap = _snapshot_for_handle(handle, runtime_conf)
+    if snap is None:
+        return None
+    from predictionio_tpu_torch.parallel.reader import snapshot_coo_chunks
+
+    source, users_enc, items_enc = snapshot_coo_chunks(
+        snap, chunk_rows=handle.chunk_rows
+    )
+    chunks = list(source())
+    if chunks:
+        users = np.concatenate([c[0] for c in chunks])
+        items = np.concatenate([c[1] for c in chunks])
+        ratings = np.concatenate([c[2] for c in chunks])
+        times = np.concatenate([c[3] for c in chunks])
+    else:
+        users = np.empty(0, np.int64)
+        items = np.empty(0, np.int64)
+        ratings = np.empty(0, np.float32)
+        times = np.empty(0, np.float64)
+    return users, items, ratings, times, list(users_enc.ids), list(items_enc.ids)
+
+
+def streaming_coo_source(
+    handle: StreamingHandle,
+    runtime_conf=None,
+    event_values: dict[str, float] | None = None,
+):
+    """(source, users_enc, items_enc) for a handle: snapshot-served memmap
+    replay when ``--snapshot-mode`` enables it, else the bounded store
+    scan. Both yield bit-identical chunk streams over the same prefix."""
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.parallel.reader import (
+        snapshot_coo_chunks,
+        store_coo_chunks,
+    )
+
+    _agree_until_time(handle)
+    snap = _snapshot_for_handle(handle, runtime_conf)
+    if snap is not None:
+        return snapshot_coo_chunks(
+            snap, chunk_rows=handle.chunk_rows, event_values=event_values
+        )
+    return store_coo_chunks(
+        storage.get_l_events(),
+        handle.app_id,
+        channel_id=handle.channel_id,
+        event_names=handle.event_names,
+        rating_key=handle.rating_key,
+        chunk_rows=handle.chunk_rows,
+        event_values=event_values,
+        until_time=getattr(handle, "until_time", None),
+    )
+
+
+def streaming_multi_event_sources(handle: StreamingHandle, runtime_conf=None):
+    """Per-event-type sources over one shared universe (the UR build):
+    snapshot replay when enabled, else the bounded multi-type store scan.
+    Returns ``(sources, users_enc, items_enc, universe_ready)`` --
+    ``universe_ready`` is True when the encoders are already complete
+    (snapshot replay), letting the caller skip the priming scan."""
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.parallel.reader import (
+        snapshot_multi_event_chunks,
+        store_multi_event_chunks,
+    )
+
+    _agree_until_time(handle)
+    snap = _snapshot_for_handle(handle, runtime_conf)
+    if snap is not None:
+        sources, users_enc, items_enc = snapshot_multi_event_chunks(
+            snap, handle.event_names, chunk_rows=handle.chunk_rows
+        )
+        return sources, users_enc, items_enc, True
+    sources, users_enc, items_enc = store_multi_event_chunks(
+        storage.get_l_events(),
+        handle.app_id,
+        handle.event_names,
+        channel_id=handle.channel_id,
+        chunk_rows=handle.chunk_rows,
+        until_time=getattr(handle, "until_time", None),
+    )
+    return sources, users_enc, items_enc, False
+
+
+def resolve_als_feed(preparator_params, runtime_conf=None) -> str:
+    """The ALS feed mode: ``pio train --als-feed`` (runtime conf
+    ``pio.als_feed``) overrides the engine's ``alsFeed`` preparator param;
+    default ``resident`` (device-resident edge arrays, the pre-PR-10
+    path). ``streamed`` packs a disk block store and trains through
+    ALX device-resident epochs (``als_fit_streamed``)."""
+    conf = runtime_conf or {}
+    feed = (
+        conf.get("pio.als_feed")
+        or preparator_params.get_or("alsFeed", "resident")
+    )
+    if feed not in ("resident", "streamed"):
+        raise ValueError(
+            f"alsFeed must be 'resident' or 'streamed', got {feed!r}"
+        )
+    return feed
+
+
+def build_streaming_als(handle: StreamingHandle, preparator_params, mesh=None,
+                        event_values: dict[str, float] | None = None,
+                        runtime_conf=None):
+    """The shared streaming ALS build of both ALS templates: the chunked
+    store scan (or the snapshot's memmap replay) packed by the
+    retention-bounded reader. Returns ``(users_enc, items_enc,
+    als_data)``. ``runtime_conf`` carries ``pio.snapshot_mode`` /
+    ``pio.snapshot_dir`` and ``pio.als_feed``.
+
+    With ``alsFeed: streamed`` (or ``pio train --als-feed streamed``) and
+    a ready snapshot, ``als_data`` is a ``parallel.stream.StreamedALSData``
+    block store packed from the snapshot's columns under its generation's
+    ``blocks/`` directory (``reader.snapshot_streamed_als_data``), which
+    ``fit_with_checkpoint`` trains through ``als_fit_streamed``. Without a
+    snapshot the streamed feed falls back to the resident pack with a
+    warning: the feed tunes memory and must never fail a train. ``mesh``
+    must be None (one card)."""
+    from predictionio_tpu_torch.parallel.als import ALSConfig
+    from predictionio_tpu_torch.parallel.reader import (
+        build_als_data_sharded,
+        snapshot_streamed_als_data,
+    )
+
+    config = ALSConfig(
+        max_len=preparator_params.get_or("maxEventsPerUser", None),
+        buckets=preparator_params.get_or("buckets", 1),
+    )
+    if resolve_als_feed(preparator_params, runtime_conf) == "streamed":
+        _agree_until_time(handle)
+        snap = _snapshot_for_handle(handle, runtime_conf)
+        if snap is not None:
+            return snapshot_streamed_als_data(
+                snap, config, mesh=mesh,
+                chunk_rows=handle.chunk_rows,
+                event_values=event_values,
+            )
+        logger.warning(
+            "alsFeed 'streamed' needs a training snapshot (--snapshot-mode"
+            " use|refresh); falling back to the resident feed"
+        )
+    source, users_enc, items_enc = streaming_coo_source(
+        handle, runtime_conf=runtime_conf, event_values=event_values
+    )
+    als_data = build_als_data_sharded(source, None, None, config, mesh)
+    return users_enc, items_enc, als_data

@@ -21,8 +21,12 @@ the category index rebuilt when the window holds item ``$set`` records.
 
 The DataSource reads the store, or a JSON-lines events file when built
 with ``events_path=`` (categories then from the file's item ``$set``
-events). ``"reader": "streaming"`` (the sharded reader) raises
-``NotImplementedError``: ROADMAP.md Queue A item 8.
+events). With ``"reader": "streaming"`` it returns a ``StreamingHandle``
+carrying the buy-weighted confidences, and the Preparator streams the
+store (reference ``:249-290``) through ``models/_streaming.py::
+build_streaming_als`` (the block store and ``als_fit_streamed`` under
+``alsFeed: "streamed"``); the model then keeps no seen map and filters
+live.
 
 Query contract:
 ``{"user": "u1", "num": 4, "categories": [...], "whiteList": [...],
@@ -65,9 +69,10 @@ from predictionio_tpu_torch.models._als_common import (
     warn_misplaced_packing_params,
 )
 from predictionio_tpu_torch.models._streaming import (
-    STREAMING_NOT_PORTED,
     StreamingHandle,
     build_streaming_handle,
+    refuse_streaming_file,
+    streaming_handle_or_none,
 )
 from predictionio_tpu_torch.parallel.als import ALSConfig, ALSModel
 from predictionio_tpu_torch.utils.device import resolve_device
@@ -146,8 +151,7 @@ class ECommerceDataSource(DataSource):
     def __init__(self, params=None, *, events_path: str | None = None):
         super().__init__(params)
         self.events_path = events_path
-        if self.params.get_or("reader", "materialized") == "streaming":
-            raise NotImplementedError(STREAMING_NOT_PORTED)
+        refuse_streaming_file(self.params, events_path)
 
     def _read(self) -> ECommerceData:
         event_names = self.params.get_or("eventNames", ["view", "buy"])
@@ -189,6 +193,17 @@ class ECommerceDataSource(DataSource):
         )
 
     def read_training(self, ctx):
+        handle = streaming_handle_or_none(
+            self.params, ["view", "buy"],
+            empty_message="no view/buy events found -- check appName",
+        )
+        if handle is not None:
+            # DATASOURCE knobs the streaming build needs (DASE keeps
+            # per-component params separate)
+            handle.extras["event_values"] = _buy_confidences(
+                self.params, handle.event_names
+            )
+            return handle
         return self._read()
 
     def online_handle(self):
@@ -261,7 +276,9 @@ class ECommerceDataSource(DataSource):
 
 class ECommercePreparator(Preparator):
     """Packs interactions into padded CSR blocks (``maxEventsPerUser``,
-    ``buckets``)."""
+    ``buckets``, ``alsFeed``). A StreamingHandle (datasource ``"reader":
+    "streaming"``) routes through the streaming reader with the
+    buy-weighted confidences applied per event type in the stream."""
 
     def prepare(self, ctx, data):
         if isinstance(data, StreamingHandle):
@@ -278,8 +295,33 @@ class ECommercePreparator(Preparator):
         )
         return data, als_data
 
-    def _prepare_streaming(self, ctx, src):
-        raise NotImplementedError(STREAMING_NOT_PORTED)
+    def _prepare_streaming(self, ctx, src: StreamingHandle):
+        from predictionio_tpu_torch.models._streaming import build_streaming_als
+
+        # the DATASOURCE's confidence scheme, applied in-stream (it rides
+        # the handle: preparator params are a different DASE component)
+        event_values = src.extras.get("event_values") or {
+            n: 1.0 for n in src.event_names
+        }
+        users_enc, items_enc, als_data = build_streaming_als(
+            src, self.params, event_values=event_values,
+            runtime_conf=getattr(ctx, "runtime_conf", None),
+        )
+        categories = _load_categories(src.app_name, src.channel_name)
+        data = ECommerceData(
+            users=np.empty(0, np.int64),
+            items=np.empty(0, np.int64),
+            weights=np.empty(0, np.float32),
+            times=np.empty(0, np.float64),
+            user_ids=users_enc.ids,
+            item_ids=items_enc.ids,
+            app_name=src.app_name,
+            categories=categories,
+            channel_name=src.channel_name,
+            event_names=list(src.event_names),
+            streamed=True,
+        )
+        return data, als_data
 
 
 @dataclass
@@ -351,6 +393,8 @@ class ECommAlgorithm(Algorithm):
             interval=self.params.get_or("checkpointInterval", 5),
             name="ecomm-als",
         )
+        # a streamed build has no edge arrays: the seen filter reads live
+        streamed = getattr(data, "streamed", False)
         item_index = {iid: j for j, iid in enumerate(data.item_ids)}
         return ECommerceModel(
             als=model,
@@ -358,9 +402,10 @@ class ECommAlgorithm(Algorithm):
             user_index={uid: k for k, uid in enumerate(data.user_ids)},
             item_ids=list(data.item_ids),
             item_index=item_index,
-            seen=build_seen(data.users, data.items),
+            seen={} if streamed else build_seen(data.users, data.items),
             category_items=_category_index(data.categories, item_index),
             similar_events=self.params.get_or("similarEvents", ["view"]),
+            seen_mode="live" if streamed else "model",
             channel_name=getattr(data, "channel_name", None),
             event_names=getattr(data, "event_names", None),
         )

@@ -64,6 +64,18 @@ class NCFPreparator(Preparator):
     """NCF consumes the COO directly; no CSR packing needed."""
 
     def prepare(self, ctx, training_data: RatingsData) -> RatingsData:
+        from predictionio_tpu_torch.models._streaming import StreamingHandle
+
+        if isinstance(training_data, StreamingHandle):
+            # NCF shares RecommendationDataSource, whose '"reader":
+            # "streaming"' mode hands back a handle with no edge arrays;
+            # NCF's SGD needs the materialized COO (reference
+            # models/ncf/engine.py:46-55)
+            raise ValueError(
+                "the NCF template does not support the streaming sharded "
+                'reader; remove "reader": "streaming" from the datasource '
+                "params (NCF training consumes the materialized COO arrays)"
+            )
         return training_data
 
 

@@ -28,6 +28,16 @@ read needs. An evaluation fold's model never filters live (reference
 ``:389-399``): a live read would see the fold's held-out events and
 score every actual item -inf, so training on a fold keeps the seen map
 and marks the model ``eval_fold``.
+
+``"reader": "streaming"`` (reference ``:95-130``, ``:263-290``): the
+DataSource returns a ``StreamingHandle``, and the Preparator streams the
+store's chunked scan (or, under ``--snapshot-mode use|refresh``, the
+training snapshot's memmaps) through ``models/_streaming.py::
+build_streaming_als``; with ``alsFeed: "streamed"`` (or ``pio train
+--als-feed streamed``) and a snapshot it packs the on-disk block store
+that ``als_fit_streamed`` trains from, one B1 launch per block of each
+half-step. A streamed model keeps no seen map: ``seenFilter`` defaults
+to ``"live"`` there, and ``"model"`` raises.
 """
 
 from __future__ import annotations
@@ -59,9 +69,11 @@ from predictionio_tpu_torch.models._als_common import (
     warn_misplaced_packing_params,
 )
 from predictionio_tpu_torch.models._streaming import (
-    STREAMING_NOT_PORTED,
+    StreamingHandle,
     build_streaming_handle,
     live_seen_indices,
+    refuse_streaming_file,
+    streaming_handle_or_none,
 )
 from predictionio_tpu_torch.parallel.als import ALSConfig, ALSModel
 from predictionio_tpu_torch.utils.device import resolve_device
@@ -81,6 +93,9 @@ class RatingsData(SanityCheck):
     item_ids: list[str]
     app_name: str = ""
     event_names: list[str] = field(default_factory=list)
+    #: True when built by the streaming reader: the edge arrays are empty
+    #: (only the vocabularies are materialized)
+    streamed: bool = False
     channel_name: str = None   # non-default channel the data came from
     #: True for read_eval's and read_replay's fold copies: live seen
     #: filtering is downgraded to the trained-in map there (the held-out
@@ -104,6 +119,11 @@ class RatingsData(SanityCheck):
         return len(self.item_ids)
 
 
+#: the streaming reader's training handle (``models/_streaming.py``): the
+#: preparator streams the chunked scan; requires seenFilter "live"
+StreamingRatings = StreamingHandle
+
+
 class RecommendationDataSource(DataSource):
     """Reads rating-like events into COO form.
 
@@ -111,15 +131,15 @@ class RecommendationDataSource(DataSource):
     (default ["rate", "buy"]), ``ratingKey`` (property holding the rating;
     "buy"-style events without it score 1.0), ``evalK``/``evalFolds`` for
     read_eval. With ``events_path`` the JSON-lines events file is read in
-    place of the store. ``"reader": "streaming"`` (the reference's sharded
-    reader) is not ported.
+    place of the store. ``"reader": "streaming"`` switches read_training
+    to the streaming reader (``StreamingRatings``); it scans the store,
+    so it refuses an events file.
     """
 
     def __init__(self, params=None, *, events_path: str | None = None):
         super().__init__(params)
         self.events_path = events_path
-        if self.params.get_or("reader", "materialized") == "streaming":
-            raise NotImplementedError(STREAMING_NOT_PORTED)
+        refuse_streaming_file(self.params, events_path)
 
     def _read(self, **snapshot) -> RatingsData:
         """The ratings of the store (``snapshot``: ``snapshot_mode`` /
@@ -155,8 +175,13 @@ class RecommendationDataSource(DataSource):
             event_names=list(event_names),
         )
 
-    def read_training(self, ctx) -> RatingsData:
-        return self._read()
+    def read_training(self, ctx):
+        handle = streaming_handle_or_none(
+            self.params, ["rate", "buy"],
+            empty_message="no rating events found -- check appName and "
+            "eventNames",
+        )
+        return handle if handle is not None else self._read()
 
     def online_handle(self):
         """The continuous-learning loop's scan descriptor: same identity
@@ -249,9 +274,13 @@ class RecommendationPreparator(Preparator):
     """Packs COO ratings into padded CSR blocks.
 
     Preparator params: ``buckets`` (length-bucketed packing),
-    ``maxEventsPerUser`` (history cap, most recent kept)."""
+    ``maxEventsPerUser`` (history cap, most recent kept), ``alsFeed``
+    (``"resident"`` or ``"streamed"``). A ``StreamingRatings`` handle
+    routes through the streaming reader instead of host arrays."""
 
-    def prepare(self, ctx, training_data: RatingsData):
+    def prepare(self, ctx, training_data):
+        if isinstance(training_data, StreamingRatings):
+            return self._prepare_streaming(ctx, training_data)
         als_data = prepare_als_data(
             ctx,
             self.params,
@@ -263,6 +292,27 @@ class RecommendationPreparator(Preparator):
             times=training_data.times,
         )
         return training_data, als_data
+
+    def _prepare_streaming(self, ctx, src: StreamingRatings):
+        from predictionio_tpu_torch.models._streaming import build_streaming_als
+
+        users_enc, items_enc, als_data = build_streaming_als(
+            src, self.params, runtime_conf=getattr(ctx, "runtime_conf", None)
+        )
+        # the vocabularies come from the scan; the edge arrays stay empty
+        ratings_like = RatingsData(
+            users=np.empty(0, np.int64),
+            items=np.empty(0, np.int64),
+            ratings=np.empty(0, np.float32),
+            times=np.empty(0, np.float64),
+            user_ids=users_enc.ids,
+            item_ids=items_enc.ids,
+            app_name=src.app_name,
+            event_names=list(src.event_names),
+            streamed=True,
+            channel_name=src.channel_name,
+        )
+        return ratings_like, als_data
 
 
 @dataclass
@@ -283,6 +333,8 @@ class RecommendationModel:
     event_names: list[str] = None
     #: trained on an evaluation fold: never filters live (not persisted)
     eval_fold: bool = False
+    #: the channel a live read scans (a streamed build's)
+    channel_name: str = None
 
 
 def _seen_indices(model: RecommendationModel, query, user_idx: int,
@@ -316,8 +368,9 @@ class ALSAlgorithm(Algorithm):
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
         self.device = resolve_device(device)
-        self.seen_mode = self.params.get_or("seenFilter", "model")
-        if self.seen_mode not in ("model", "live"):
+        #: None: "model", or "live" for a streamed build
+        self.seen_mode = self.params.get_or("seenFilter", None)
+        if self.seen_mode not in (None, "model", "live"):
             raise ValueError(
                 f"seenFilter must be 'model' or 'live', got {self.seen_mode!r}"
             )
@@ -343,7 +396,13 @@ class ALSAlgorithm(Algorithm):
     def train(self, ctx, prepared) -> RecommendationModel:
         ratings_data, als_data = prepared
         warn_misplaced_packing_params(self.params, "recommendation")
-        seen_mode = self.seen_mode
+        streamed = ratings_data.streamed
+        seen_mode = self.seen_mode or ("live" if streamed else "model")
+        if streamed and seen_mode == "model":
+            raise ValueError(
+                "the streaming reader materializes no edges, so there is "
+                'no O(edges) seen map to train in; use "seenFilter": "live"'
+            )
         if seen_mode == "live" and ratings_data.eval_fold:
             # a live read sees the WHOLE store -- including the held-out
             # test events -- and would score every 'actual' item -inf,
@@ -377,6 +436,8 @@ class ALSAlgorithm(Algorithm):
             app_name=ratings_data.app_name,
             event_names=list(ratings_data.event_names),
             eval_fold=ratings_data.eval_fold,
+            # a streamed build on a non-default channel reads that channel
+            channel_name=ratings_data.channel_name,
         )
 
     def warm_up(self, model: RecommendationModel) -> None:
@@ -444,6 +505,7 @@ class ALSAlgorithm(Algorithm):
             seen_mode=model.seen_mode,
             app_name=model.app_name,
             event_names=model.event_names,
+            channel_name=model.channel_name,
         )
 
     def fold_in(self, model: RecommendationModel, delta) -> RecommendationModel | None:
@@ -485,6 +547,7 @@ class ALSAlgorithm(Algorithm):
             seen_mode=model.seen_mode,
             app_name=model.app_name,
             event_names=model.event_names,
+            channel_name=model.channel_name,
         )
 
     def query_from_json(self, obj):

@@ -11,8 +11,12 @@ one-hot products, the LLR and the per-row top-k on the card, only the
 is host numpy and copied.
 
 The DataSource reads the store, or a JSON-lines events file when built
-with ``events_path=``. ``"reader": "streaming"`` (the sharded reader)
-raises ``NotImplementedError``: ROADMAP.md Queue A item 8. A model's
+with ``events_path=``. With ``"reader": "streaming"`` it returns a
+``StreamingHandle``, and ``train`` (reference ``:209-228``) builds the
+user-rows CSR through ``parallel/reader.py::build_cooc_csr_sharded``
+(one process: the whole padded layout) and the LLR totals through
+``distinct_user_counts_sharded``; the indicators equal the materialized
+build's, and user-anchored queries read the store live. A model's
 ``user_history`` is built in one sorted pass (the reference walks the
 events in Python); the map is the same.
 
@@ -41,8 +45,10 @@ from predictionio_tpu_torch.models._als_common import (
     user_runs,
 )
 from predictionio_tpu_torch.models._streaming import (
-    STREAMING_NOT_PORTED,
+    StreamingHandle,
     live_target_events,
+    refuse_streaming_file,
+    streaming_handle_or_none,
 )
 from predictionio_tpu_torch.ops.cooccurrence import (
     cooccurrence_indicators,
@@ -88,8 +94,7 @@ class SimilarProductDataSource(DataSource):
     def __init__(self, params=None, *, events_path: str | None = None):
         super().__init__(params)
         self.events_path = events_path
-        if self.params.get_or("reader", "materialized") == "streaming":
-            raise NotImplementedError(STREAMING_NOT_PORTED)
+        refuse_streaming_file(self.params, events_path)
 
     def _read(self) -> InteractionData:
         event_names = self.params.get_or("eventNames", ["view", "buy"])
@@ -113,7 +118,11 @@ class SimilarProductDataSource(DataSource):
         )
 
     def read_training(self, ctx):
-        return self._read()
+        handle = streaming_handle_or_none(
+            self.params, ["view", "buy"],
+            empty_message="no interaction events found",
+        )
+        return handle if handle is not None else self._read()
 
     def read_eval(self, ctx):
         """Hold out each user's most recent interaction; query with the rest."""
@@ -241,25 +250,46 @@ class CooccurrenceAlgorithm(Algorithm):
 
     def train(self, ctx, data) -> SimilarityModel:
         chunk = self.params.get_or("chunk", 4096)
-        csr = pack_padded_csr(
-            data.users,
-            data.items,
-            np.ones(data.users.size, dtype=np.float32),
-            num_rows=len(data.user_ids),
-            num_cols=len(data.item_ids),
-            times=data.times,
-            max_len=self.params.get_or("maxEventsPerUser", None),
-        )
+        streamed = isinstance(data, StreamingHandle)
+        if streamed:
+            from predictionio_tpu_torch.models._streaming import streaming_coo_source
+            from predictionio_tpu_torch.parallel.reader import (
+                build_cooc_csr_sharded,
+                distinct_user_counts_sharded,
+            )
+
+            source, users_enc, items_enc = streaming_coo_source(
+                data, runtime_conf=getattr(ctx, "runtime_conf", None)
+            )
+            csr = build_cooc_csr_sharded(
+                source, None, None,
+                max_len=self.params.get_or("maxEventsPerUser", None),
+                chunk=chunk,
+            )
+            user_ids, item_ids = users_enc.ids, items_enc.ids
+            totals_fn = lambda: distinct_user_counts_sharded(csr)
+        else:
+            csr = pack_padded_csr(
+                data.users,
+                data.items,
+                np.ones(data.users.size, dtype=np.float32),
+                num_rows=len(data.user_ids),
+                num_cols=len(data.item_ids),
+                times=data.times,
+                max_len=self.params.get_or("maxEventsPerUser", None),
+            )
+            user_ids, item_ids = data.user_ids, data.item_ids
+            totals_fn = lambda: distinct_user_counts(csr)
         # fused cooc -> (LLR) -> top-k on the device; the self-cooccurrence
         # diagonal (= per-item distinct-user counts) comes from the O(nnz)
         # host pass, so the [items, items] matrix never leaves the device
         llr_kwargs = {}
         if self.params.get_or("llr", True):
-            totals = distinct_user_counts(csr)
+            totals = totals_fn()
             llr_kwargs = dict(
                 llr_row_totals=totals,
                 llr_col_totals=totals,
-                total=len(data.user_ids),
+                total=len(user_ids),
             )
         idx, vals = cooccurrence_indicators(
             csr,
@@ -268,6 +298,19 @@ class CooccurrenceAlgorithm(Algorithm):
             device=self.device,
             **llr_kwargs,
         )
+        if streamed:
+            # no O(edges) history map exists; user queries read the store
+            return SimilarityModel(
+                item_ids=list(item_ids),
+                item_index={iid: j for j, iid in enumerate(item_ids)},
+                top_indices=np.asarray(idx),
+                top_values=np.asarray(vals),
+                user_history={},
+                history_mode="live",
+                app_name=data.app_name,
+                channel_name=data.channel_name,
+                event_names=list(data.event_names),
+            )
         return SimilarityModel(
             item_ids=list(data.item_ids),
             item_index={iid: j for j, iid in enumerate(data.item_ids)},

@@ -14,10 +14,15 @@ the host; that side (``URModel`` through ``batch_predict``, reference
 
 The DataSource reads the store (``PEventStore.find`` and the item
 ``$set`` aggregate), or a JSON-lines events file when built with
-``events_path=``. ``"reader": "streaming"`` (the sharded reader) raises
-``NotImplementedError``: ROADMAP.md Queue A item 8. The per-user
-histories are built in one sorted pass per event type (the reference
-walks the events in Python); the map is the same.
+``events_path=``. With ``"reader": "streaming"`` it returns a
+``StreamingHandle``, and ``train`` (reference ``:270-345``) streams one
+source per event type over one shared user and item universe
+(``streaming_multi_event_sources``, primed by ``universe_pass`` unless a
+snapshot replay fixed it), each type's user-rows CSR through
+``build_cooc_csr_sharded``; the model reads user histories live. The
+per-user histories of a materialized build are built in one sorted pass
+per event type (the reference walks the events in Python); the map is
+the same.
 
 Query contract: ``{"user": "u1", "num": 4, "blackList": [...],
 "fields": [{"name": "category", "values": ["books"], "bias": -1}]}``
@@ -45,9 +50,10 @@ from predictionio_tpu_torch.data.store import (
 )
 from predictionio_tpu_torch.models._als_common import topk_order
 from predictionio_tpu_torch.models._streaming import (
-    STREAMING_NOT_PORTED,
     StreamingHandle,
     live_target_events,
+    refuse_streaming_file,
+    streaming_handle_or_none,
 )
 from predictionio_tpu_torch.models.similarproduct.engine import user_histories
 from predictionio_tpu_torch.ops.cooccurrence import (
@@ -84,8 +90,7 @@ class URDataSource(DataSource):
     def __init__(self, params=None, *, events_path: str | None = None):
         super().__init__(params)
         self.events_path = events_path
-        if self.params.get_or("reader", "materialized") == "streaming":
-            raise NotImplementedError(STREAMING_NOT_PORTED)
+        refuse_streaming_file(self.params, events_path)
 
     def _read(self) -> MultiEventData:
         event_names = self.params.get_or("eventNames", ["buy", "view"])
@@ -138,7 +143,14 @@ class URDataSource(DataSource):
         )
 
     def read_training(self, ctx):
-        return self._read()
+        handle = streaming_handle_or_none(
+            self.params, ["buy", "view"], probe_primary_only=True
+        )
+        if handle is not None:
+            handle.empty_message = (
+                f"no events of primary type {handle.event_names[0]!r} found"
+            )
+        return handle if handle is not None else self._read()
 
     def read_eval(self, ctx):
         """Hold out each user's most recent PRIMARY interaction."""
@@ -289,7 +301,85 @@ class URAlgorithm(Algorithm):
         )
 
     def _train_streaming(self, ctx, src) -> URModel:
-        raise NotImplementedError(STREAMING_NOT_PORTED)
+        """Every event type's CSR through the streaming reader over ONE
+        shared entity universe (the per-type sources' shared encoders);
+        the indicators equal the materialized build's. Costs 1 + 2 *
+        len(event_names) scans (or memmap replays) -- bounded memory is
+        the trade."""
+        from predictionio_tpu_torch.models._streaming import (
+            streaming_multi_event_sources,
+        )
+        from predictionio_tpu_torch.parallel.reader import (
+            build_cooc_csr_sharded,
+            distinct_user_counts_sharded,
+            universe_pass,
+        )
+
+        max_len = self.params.get_or("maxEventsPerUser", None)
+        chunk = self.params.get_or("chunk", 4096)
+        top_k = self.params.get_or("topK", 50)
+        sources, users_enc, items_enc, universe_ready = (
+            streaming_multi_event_sources(
+                src, runtime_conf=getattr(ctx, "runtime_conf", None)
+            )
+        )
+        if not universe_ready:
+            # fix the shared universe before any build (a snapshot replay
+            # comes back with the encoders already complete)
+            universe_pass(sources)
+        n_users, n_items = len(users_enc.ids), len(items_enc.ids)
+
+        primary = src.event_names[0]
+        primary_csr = build_cooc_csr_sharded(
+            sources[primary], n_users, n_items, max_len=max_len, chunk=chunk,
+        )
+        primary_counts = distinct_user_counts_sharded(primary_csr)
+        indicators = {}
+        for name in src.event_names:
+            is_primary = name == primary
+            csr = (
+                primary_csr if is_primary
+                else build_cooc_csr_sharded(
+                    sources[name], n_users, n_items, max_len=max_len, chunk=chunk,
+                )
+            )
+            if csr.global_edges == 0 and not is_primary:
+                continue
+            col_counts = (
+                primary_counts if is_primary
+                else distinct_user_counts_sharded(csr)
+            )
+            indicators[name] = _invert_indicators(
+                *cooccurrence_indicators(
+                    primary_csr,
+                    None if is_primary else csr,
+                    top_k=top_k,
+                    llr_row_totals=primary_counts,
+                    llr_col_totals=col_counts,
+                    total=n_users,
+                    drop_diagonal=is_primary,
+                    chunk=chunk,
+                    device=self.device,
+                )
+            )
+        item_props = {
+            iid: pm.to_dict()
+            for iid, pm in PEventStore.aggregate_properties(
+                src.app_name, entity_type="item",
+                channel_name=src.channel_name,
+            ).items()
+        }
+        return URModel(
+            event_names=list(src.event_names),
+            item_ids=list(items_enc.ids),
+            item_index={iid: j for j, iid in enumerate(items_enc.ids)},
+            indicators=indicators,
+            user_history={},
+            item_properties=item_props,
+            history_mode="live",
+            app_name=src.app_name,
+            channel_name=src.channel_name,
+        )
 
     @staticmethod
     def _rule_multiplier(model: URModel, rule, cache: dict | None) -> np.ndarray:

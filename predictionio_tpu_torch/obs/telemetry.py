@@ -13,7 +13,8 @@ carry no ``recompile_count``, as the reference's do when that function
 returns None; and ``TrainTelemetry`` also takes the port's
 ``TrainContext.telemetry`` calls of the minibatch trainers,
 ``record_epoch`` (a ``step`` record per epoch) and ``record_phase`` (a
-``phase`` record).
+``phase`` record), and the streamed ALS fit's ``record_stream`` (a
+``stream`` record of its host -> device traffic).
 """
 
 from __future__ import annotations
@@ -103,6 +104,14 @@ class TrainTelemetry:
             "wall_s": round(float(wall_s), 6),
             "rows": int(rows),
         }
+        self._write(obj)
+        return obj
+
+    def record_stream(self, stats: dict) -> dict:
+        """A streamed fit's host -> device traffic
+        (``parallel.stream.StreamStats`` as a dict) as a ``stream``
+        record, after its step records."""
+        obj = {"event": "stream", **stats}
         self._write(obj)
         return obj
 

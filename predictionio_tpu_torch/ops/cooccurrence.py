@@ -19,8 +19,11 @@ Departures from the reference, none of which changes a value:
 
 - One device, so the reference's ``shard_map`` over the mesh's ``data``
   axis and its ``psum`` collapse to the single accumulator. A
-  ``ShardedPaddedCSR`` (the reference's ``parallel/reader.py``) raises
-  ``NotImplementedError``: ROADMAP.md Queue A item 8.
+  ``ShardedPaddedCSR`` (``parallel/reader.py``, the streaming reader's
+  CSR) is taken as the reference takes it (``:171-194``): its layout
+  held to ``cooc_global_rows`` and never mixed with a full CSR; at one
+  process its ``local`` block is the whole padded layout, so it goes up
+  as it is.
 - The LLR, the diagonal drop and the per-row top-k run over row blocks of
   the accumulator (``indicators_from_counts``): the reference's
   whole-matrix temporaries (``k12``, ``k21``, ``k22``, four ``_xlogx``
@@ -45,15 +48,6 @@ from predictionio_tpu_torch.utils.device import resolve_device
 BLOCK_ELEMENTS = 1 << 26
 
 
-def _refuse_sharded(*csrs) -> None:
-    for csr in csrs:
-        if csr is not None and not isinstance(csr, PaddedCSR):
-            raise NotImplementedError(
-                f"{type(csr).__name__}: the sharded reader's CSR is not ported "
-                "yet (ROADMAP.md Queue A item 8); pass a PaddedCSR"
-            )
-
-
 def _dense_onehot(indices: torch.Tensor, mask: torch.Tensor, num_cols: int) -> torch.Tensor:
     """Binarized dense ``[rows, num_cols]`` from padded-CSR rows: a
     scatter-add, then clamped to 1 (a user's duplicate pairs count once),
@@ -70,7 +64,6 @@ def _dense_onehot(indices: torch.Tensor, mask: torch.Tensor, num_cols: int) -> t
 def _normalize(primary: PaddedCSR, other: PaddedCSR | None) -> PaddedCSR:
     """Shared preamble of the entry points: resolve self-cooccurrence and
     validate the shared user universe."""
-    _refuse_sharded(primary, other)
     other = other if other is not None else primary
     if primary.num_rows != other.num_rows:
         raise ValueError(
@@ -98,16 +91,40 @@ def cooccurrence_counts(
     on ``device``: the CSRs go up once, then fixed ``chunk``-user blocks
     are scattered to one-hot rows and their products accumulated (the
     reference's ``lax.scan`` body). The user rows pad to a whole number of
-    chunks with sentinel rows."""
+    chunks with sentinel rows; a ``ShardedPaddedCSR`` pair comes padded
+    so by ``build_cooc_csr_sharded`` for the same ``chunk``, or raises."""
+    from predictionio_tpu_torch.parallel.reader import ShardedPaddedCSR, cooc_global_rows
+
     device = resolve_device(device)
     other = _normalize(primary, other)
-    phys_rows = max(primary.indices.shape[0], other.indices.shape[0])
-    chunk = max(1, min(chunk, phys_rows))
-    rows = -(-phys_rows // chunk) * chunk
+    sharded = isinstance(primary, ShardedPaddedCSR)
+    if sharded != isinstance(other, ShardedPaddedCSR):
+        raise ValueError(
+            "mixing a sharded-reader CSR with a full host CSR is not "
+            "supported: build both sides sharded (or neither)"
+        )
+    if sharded:
+        rows = primary.global_rows
+        expect = cooc_global_rows(primary.num_rows, None, chunk)
+        if rows != expect or other.global_rows != rows:
+            raise ValueError(
+                f"sharded CSR was built for a different mesh/chunk layout "
+                f"(rows {rows}/{other.global_rows}, this call expects "
+                f"{expect}); rebuild with build_cooc_csr_sharded(mesh=..., "
+                f"chunk={chunk})"
+            )
+        chunk = max(1, min(chunk, rows))
+    else:
+        phys_rows = max(primary.indices.shape[0], other.indices.shape[0])
+        chunk = max(1, min(chunk, phys_rows))
+        rows = -(-phys_rows // chunk) * chunk
     self_cooc = other is primary
 
     def upload(csr):
-        idx, msk = _pad_rows_sentinel(csr, rows)
+        if sharded:  # one process: the local rows are all ``rows`` rows
+            idx, msk = csr.local.indices, csr.local.mask
+        else:
+            idx, msk = _pad_rows_sentinel(csr, rows)
         return (torch.from_numpy(np.ascontiguousarray(idx)).to(device),
                 torch.from_numpy(np.ascontiguousarray(msk)).to(device))
 

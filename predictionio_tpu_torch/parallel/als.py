@@ -21,7 +21,13 @@ Port of ``predictionio_tpu/parallel/als.py`` for a single device:
   in place: it never reads that side, so the update is exact, and no
   per-iteration concatenation or zero-row append is needed.
 
-Multi-device factor sharding (``factor_sharding="model"``) is not ported.
+``als_fit_streamed`` runs the same half-steps over a ``parallel.stream``
+block store (``alsFeed: "streamed"``): both factor tables stay on the
+device and the padded-CSR blocks stream in from disk, two pinned host
+staging buffers and a copy stream overlapping block N+1's copy with
+block N's B1 launch and solve. Multi-device factor sharding
+(``factor_sharding="model"``), a mesh and several processes are not
+ported (``refuse_multi_gpu``: ROADMAP.md Queue A item 8).
 
 Explicit objective:  sum_obs (r - u.v)^2 + lam * (|U|^2 + |V|^2)
 Implicit objective (Hu-Koren-Volinsky): confidence c = 1 + alpha*r on
@@ -90,6 +96,12 @@ class BucketedCSR:
     slot_of: np.ndarray  # int64 [num_rows]: original row id -> factor slot
     num_rows: int        # real (original) row count
     total_slots: int     # sum of the blocks' padded row counts
+    #: set by the sharded reader (``parallel.reader``): the global padded
+    #: row count of each bucket; at one process each block's own height.
+    #: None = built by ``build_als_data``
+    global_rows: tuple[int, ...] | None = None
+    #: edges this process retained after the reader's partitioned scan
+    retained_edges: int = 0
 
     @property
     def truncated(self) -> int:
@@ -299,6 +311,37 @@ def build_als_data(
     return ALSData(by_row=by_row, by_col=by_col)
 
 
+#: what a mesh, model-sharded factors or a second process raise
+MULTI_GPU_NOT_PORTED = (
+    "is not ported yet: ROADMAP.md Queue A item 8 (multi-GPU); the port "
+    "trains in one process on one card"
+)
+
+
+def world_size() -> int:
+    """The ``torch.distributed`` world size, 1 when no group is up."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def refuse_multi_gpu(mesh=None, model_shards: int = 1) -> None:
+    """One process on one card, or ``NotImplementedError``: a device
+    ``mesh``, a model axis above 1 and a world size above 1 wait on the
+    multi-GPU half of ROADMAP.md Queue A item 8."""
+    if mesh is not None:
+        raise NotImplementedError(f"a device mesh {MULTI_GPU_NOT_PORTED} (mesh=None)")
+    if model_shards > 1:
+        raise NotImplementedError(
+            f"model_shards={model_shards} (model-sharded factors) {MULTI_GPU_NOT_PORTED}"
+        )
+    if world_size() > 1:
+        raise NotImplementedError(
+            f"a world size of {world_size()} processes {MULTI_GPU_NOT_PORTED}"
+        )
+
+
 def _eye(rank: int, device) -> torch.Tensor:
     return torch.eye(rank, dtype=torch.float32, device=device)
 
@@ -403,21 +446,34 @@ class ALSModel:
         return np.einsum("ik,k->i", self.item_factors, v) / np.maximum(norms, 1e-12)
 
 
+def _block_shapes(side) -> list[tuple[int, int]]:
+    """``(rows, pad_len)`` of each block of a resident side
+    (``BucketedCSR``) or of a streamed one (``parallel.stream.
+    StreamedSide``)."""
+    specs = getattr(side, "specs", None)
+    if specs is not None:
+        return [(s.rows, s.pad_len) for s in specs]
+    return [tuple(b.indices.shape) for b in side.blocks]
+
+
 def modeled_bytes_per_iteration(
-    data: ALSData, rank: int, itemsize: int, fused: bool
+    data, rank: int, itemsize: int, fused: bool
 ) -> float:
     """Device bytes one full ALS iteration moves through its half-step
     tails (``ops.als_gram.half_step_bytes`` summed over both sides'
-    buckets)."""
+    buckets, or their streamed blocks)."""
     return sum(
-        half_step_bytes(*block.indices.shape, rank, itemsize, fused)
+        half_step_bytes(rows, pad_len, rank, itemsize, fused)
         for side in (data.by_row, data.by_col)
-        for block in side.blocks
+        for rows, pad_len in _block_shapes(side)
     )
 
 
-def real_edges(data: ALSData) -> int:
-    """Real (unpadded) observations -- the edges/sec denominator."""
+def real_edges(data) -> int:
+    """Real (unpadded) observations -- the edges/sec denominator (a
+    block store's manifest counts them)."""
+    if hasattr(data.by_row, "specs"):
+        return int(data.by_row.real_edges)
     return int(sum(b.mask.sum() for b in data.by_row.blocks))
 
 
@@ -565,6 +621,281 @@ def als_fit(
 
     # the serving model is always f32 on the host (the dtype knob is a
     # TRAINING layout)
+    return ALSModel(
+        user_factors=to_host(users, data.by_row),
+        item_factors=to_host(items, data.by_col),
+    )
+
+
+# --------------------------------------------------------------------------
+# streamed epochs over a block store (ALX, arxiv 2112.02194)
+# --------------------------------------------------------------------------
+
+
+def _check_block_layout(data) -> None:
+    """Every block of a store must tile its side's factor table in whole
+    multiples of the store's row multiple (8 x its data axis), inside the
+    table: B1 writes each block's solved rows at ``spec.offset``."""
+    rm = int(data.row_multiple)
+    for side in (data.by_row, data.by_col):
+        for spec in side.specs:
+            if spec.rows % rm or spec.pad_len % 8:
+                raise ValueError(
+                    f"streamed block {side.name}-{spec.index:05d} is {spec.rows} x "
+                    f"{spec.pad_len}: rows must shard evenly over the store's data "
+                    f"axis (row multiple {rm}) and the padded length be a multiple "
+                    "of 8; rebuild the block store"
+                )
+            if spec.offset < 0 or spec.offset + spec.rows > side.total_slots:
+                raise ValueError(
+                    f"streamed block {side.name}-{spec.index:05d} covers rows "
+                    f"{spec.offset}..{spec.offset + spec.rows} of a "
+                    f"{side.total_slots}-slot table; rebuild the block store"
+                )
+
+
+@dataclass
+class _Block:
+    """One block on the fit's device: indices, values (None: the spec's
+    constant, made on the device), n_obs (None in implicit mode), and
+    the copy's event (None on the CPU)."""
+
+    idx: torch.Tensor
+    val: torch.Tensor | None
+    nobs: torch.Tensor | None
+    event: object = None
+
+
+class _BlockFeeder:
+    """Host -> device feed of one fit's blocks.
+
+    Two staging buffers, each sized to the largest block, take every
+    block's files by ``readinto`` (``StreamedSide.load_block_into``). On
+    the card they are pinned, and each block's copy runs ``non_blocking``
+    on a side stream: ``prefetch_blocks`` loads and ships block N+1 while
+    the compute stream runs block N, and the compute stream waits on the
+    copy's event before B1 reads the block. A staging buffer is refilled
+    only after its last copy's event completed, and the device tensors,
+    allocated on the side stream, are recorded on the compute stream, so
+    the caching allocator reuses their memory only after B1 and the solve
+    read them. Blocks pinned under ``device_budget_bytes`` are their own
+    allocations (on the CPU, copies of the staging buffer)."""
+
+    def __init__(self, data, device, implicit: bool, stats, budget: int):
+        from predictionio_tpu_torch.parallel.stream import FeedAccounting
+
+        self.device = device
+        self.implicit = implicit
+        self.stats = stats
+        self.accounting = FeedAccounting()
+        self.pinned: dict = {}
+        self.budget_left = int(budget)
+        self.cuda = device.type == "cuda"
+        cap = max(
+            s.idx_bytes() + s.val_bytes() + (0 if implicit else s.nobs_bytes())
+            for side in (data.by_row, data.by_col) for s in side.specs
+        )
+        if self.cuda:
+            self.staging = [torch.empty(cap, dtype=torch.uint8, pin_memory=True)
+                            for _ in range(2)]
+            self.views = [t.numpy() for t in self.staging]
+            self.copy_stream = torch.cuda.Stream(device)
+        else:
+            self.views = [np.empty(cap, dtype=np.uint8) for _ in range(2)]
+        self.copied: list = [None, None]
+        self.slot = 0
+
+    def _device_view(self, k: int, host: np.ndarray | None):
+        """The pinned staging tensor's slice under a numpy view of it."""
+        if host is None:
+            return None
+        off = host.ctypes.data - self.views[k].ctypes.data
+        flat = self.staging[k][off:off + host.nbytes]
+        return flat.view(torch.int32 if host.dtype == np.int32 else torch.float32).view(
+            host.shape)
+
+    def _load(self, side, opp_slots: int, spec) -> tuple[_Block, int]:
+        """Block ``spec`` read into the next staging buffer and shipped:
+        ``(block, bytes moved)``."""
+        k = self.slot
+        self.slot ^= 1
+        if self.copied[k] is not None:
+            self.copied[k].synchronize()  # the buffer's last copy has landed
+        idx, val, nobs = side.load_block_into(spec, self.views[k], with_nobs=not self.implicit)
+        # B1 does not bounds-check: a torn or foreign store stops here
+        if int(idx.view(np.uint32).max()) > opp_slots:
+            raise ValueError(
+                f"block {side.name}-{spec.index:05d} of {side.directory} indexes past "
+                f"the opposite side's {opp_slots} slots: a torn or foreign block store"
+            )
+        host = (idx, val, nobs)
+        moved = sum(a.nbytes for a in host if a is not None)
+        keep = self.budget_left >= moved
+        if self.cuda:
+            compute = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self.copy_stream):
+                dev = [None if a is None else
+                       self._device_view(k, a).to(self.device, non_blocking=True)
+                       for a in host]
+                event = torch.cuda.Event()
+                event.record(self.copy_stream)
+            for t in dev:
+                if t is not None:
+                    t.record_stream(compute)
+            self.copied[k] = event
+        else:
+            event = None
+            dev = [None if a is None else torch.from_numpy(a.copy() if keep else a)
+                   for a in host]
+        return _Block(dev[0], dev[1], dev[2], event), moved
+
+    def feed(self, side, name: str, opp_slots: int):
+        """``(spec, _Block)`` of every block of ``side``, one ahead of the
+        consumer; blocks pinned on the device are taken from there."""
+        from predictionio_tpu_torch.parallel.stream import prefetch_blocks
+
+        acquired: set = set()
+
+        def produce(spec):
+            hit = self.pinned.get((name, spec.index))
+            if hit is not None:
+                self.stats.blocks_pinned += 1
+                return hit
+            self.accounting.acquire()
+            acquired.add(spec.index)
+            block, moved = self._load(side, opp_slots, spec)
+            self.stats.h2d_block_bytes += moved
+            if block.val is None:
+                self.stats.h2d_scalar_bytes += 4  # the constant rides torch.full
+            self.stats.blocks_streamed += 1
+            if self.budget_left >= moved:
+                self.pinned[(name, spec.index)] = block
+                self.budget_left -= moved
+                self.stats.pinned_bytes += moved
+            return block
+
+        def consumed(spec) -> None:
+            if spec.index in acquired:
+                acquired.discard(spec.index)
+                self.accounting.release()
+
+        return prefetch_blocks(side.specs, produce, consumed)
+
+    def ready(self, spec, block: _Block) -> tuple:
+        """The block's ``(indices, values, n_obs)`` for the compute
+        stream, after its copy: a uniform-value block's values made with
+        ``torch.full`` on the device (its value stream never shipped)."""
+        if block.event is not None:
+            torch.cuda.current_stream(self.device).wait_event(block.event)
+        val = block.val
+        if val is None:
+            val = torch.full(tuple(block.idx.shape), float(spec.const),
+                             dtype=torch.float32, device=block.idx.device)
+        return block.idx, val, block.nobs
+
+
+def als_fit_streamed(
+    data,
+    config: ALSConfig,
+    device=None,
+    callback=None,
+    callback_interval: int = 1,
+    init: tuple[np.ndarray, np.ndarray] | None = None,
+    start_iteration: int = 0,
+    telemetry=None,
+    device_budget_bytes: int = 0,
+    stats=None,
+) -> ALSModel:
+    """``als_fit`` as ALX device-resident epochs over a block store
+    (``parallel.stream.StreamedALSData``; reference
+    ``parallel/als.py:1217``).
+
+    Both factor tables go on ``device`` once, as ``[S + 1, K]`` buffers
+    with the zero row last, and stay there. Each half-step computes the
+    opposite side's YtY once (implicit mode), then per block runs
+    ``solve_rows`` (B1 through ``ops.als_gram.gram_rhs``, then the batched
+    solve) and writes the rows into the side's buffer at ``spec.offset``.
+    The blocks stream from disk through ``_BlockFeeder`` one ahead of
+    the compute (at most two host blocks alive); a uniform-value block
+    ships no values and implicit mode no n_obs. Peak host memory is
+    O(block): the edge ceiling is the disk, not twice the RAM.
+
+    The arithmetic per row is ``als_fit``'s, so at equal block shapes the
+    factors equal the resident fit's; a bucket cut into smaller blocks
+    changes only the solve's batch sizes. ``callback``, ``init``,
+    ``start_iteration`` and ``telemetry`` behave as in ``als_fit``.
+    ``device_budget_bytes`` > 0 keeps streamed blocks on the device, in
+    first-seen order until the budget runs out, so later iterations ship
+    only the rest. ``stats`` (``parallel.stream.StreamStats``) receives
+    the measured host -> device traffic.
+
+    ``factor_sharding="model"`` and a world size above 1 raise
+    ``NotImplementedError`` (ROADMAP.md Queue A item 8)."""
+    from predictionio_tpu_torch.parallel.stream import StreamStats
+
+    device = resolve_device(device)
+    if config.dtype not in _DTYPES:
+        raise ValueError(
+            f"ALSConfig.dtype must be 'float32' or 'bfloat16', got"
+            f" {config.dtype!r}"
+        )
+    if config.factor_sharding not in ("replicated", "model"):
+        raise ValueError(
+            "ALSConfig.factor_sharding must be 'replicated' or 'model', "
+            f"got {config.factor_sharding!r}"
+        )
+    if config.factor_sharding == "model":
+        raise NotImplementedError(
+            f"factor_sharding='model' (ALX factor sharding) {MULTI_GPU_NOT_PORTED}; "
+            "use 'replicated'"
+        )
+    refuse_multi_gpu()
+    _check_block_layout(data)
+    gram_fn = half_step_fn(config.solver)
+    dtype = _DTYPES[config.dtype]
+    stats = stats if stats is not None else StreamStats()
+
+    if init is not None:
+        users0 = _scatter_side_init(data.by_row, init[0])
+        items0 = _scatter_side_init(data.by_col, init[1])
+    else:
+        users0 = _initial_side_factors(data.by_row, config.rank, config.seed)
+        items0 = _initial_side_factors(data.by_col, config.rank, config.seed + 1)
+    users = _side_buffer(users0, dtype, device)
+    items = _side_buffer(items0, dtype, device)
+    del users0, items0
+    zero_yty = torch.zeros((config.rank, config.rank), device=device)
+    mark = torch.profiler.record_function if telemetry is not None else _no_mark
+    feeder = _BlockFeeder(data, device, bool(config.implicit), stats, device_budget_bytes)
+
+    def solve_side(side, name: str, buf, opp):
+        yty = _factors_yty(opp[:-1]) if config.implicit else zero_yty
+        for spec, block in feeder.feed(side, name, opp.shape[0] - 1):
+            rows = solve_rows(gram_fn, feeder.ready(spec, block), opp, yty, config,
+                              dtype, mark)
+            buf[spec.offset:spec.offset + spec.rows] = rows
+        stats.half_steps += 1
+
+    def to_host(buf, side) -> np.ndarray:
+        return buf[:-1].to(torch.float32).cpu().numpy()[side.slot_of]
+
+    for it in range(start_iteration, config.iterations):
+        t0 = time.perf_counter()
+        with mark("als.iteration"):
+            solve_side(data.by_row, "u", users, items)
+            solve_side(data.by_col, "i", items, users)
+            if telemetry is not None:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                telemetry.record_step(it, time.perf_counter() - t0)
+        if (
+            callback is not None
+            and (it + 1) % callback_interval == 0
+            and it + 1 < config.iterations
+        ):
+            callback(it, to_host(users, data.by_row), to_host(items, data.by_col))
+
+    stats.max_inflight_blocks = feeder.accounting.max_live
     return ALSModel(
         user_factors=to_host(users, data.by_row),
         item_factors=to_host(items, data.by_col),

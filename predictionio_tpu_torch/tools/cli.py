@@ -7,7 +7,7 @@
         [--ingest-mode sync|wal] [--wal-partitions P] [--frontend-workers M]
     python -m predictionio_tpu_torch.tools.cli train --engine-dir ENGINE_DIR \\
         [--variant engine.json] [--resume] [--snapshot-mode off|use|refresh] \\
-        [--profile [DIR]] [--device cuda|cpu]
+        [--als-feed resident|streamed] [--profile [DIR]] [--device cuda|cpu]
     python -m predictionio_tpu_torch.tools.cli deploy --engine-dir ENGINE_DIR \\
         [--engine-instance-id ID | --model-version N] [--port 8000] \\
         [--batch-window-ms 2 --max-batch-size 64 --batch-buckets 1,4,16,64,128] \\
@@ -37,7 +37,12 @@ one store.
   template's DataSource reads the store, and the run is recorded as an
   engine instance with its model blob (``workflow/core_workflow.py``).
   ``--snapshot-mode use|refresh`` serves the read from the on-disk
-  training snapshot (``data/snapshot.py``). ``--profile [DIR]`` (default
+  training snapshot (``data/snapshot.py``). ``--als-feed
+  resident|streamed`` (runtime conf ``pio.als_feed``) overrides the
+  engine.json's ``alsFeed``: with ``"reader": "streaming"`` and a
+  snapshot, ``streamed`` packs the snapshot into an on-disk block store
+  (the generation's ``blocks/`` directory) and trains through
+  ``als_fit_streamed``, one B1 launch per block. ``--profile [DIR]`` (default
   ``ENGINE_DIR/pio-profile``) writes a ``torch.profiler`` Chrome trace of
   the training call and the telemetry journal (ALS: one line per
   iteration with edges/sec and achieved GB/s) into DIR.
@@ -150,12 +155,16 @@ def build_trainer(engine_json: str, events_path: str | None = None, *,
 
 
 def train(engine_json: str, events_path: str, model_out: str, *,
-          resume: bool = False, device: str | None = None):
+          resume: bool = False, device: str | None = None,
+          als_feed: str | None = None):
     """``train --events FILE --model-out DIR``: read the file, prepare,
-    fit, save the model directory; returns the trained model."""
+    fit, save the model directory; returns the trained model.
+    ``als_feed`` sets ``pio.als_feed`` (``--als-feed``)."""
     variant, template, datasource, preparator, algorithm = build_trainer(
         engine_json, events_path, device=device
     )
+    if als_feed:
+        variant.runtime_conf["pio.als_feed"] = als_feed
     checkpoint_dir = os.path.join(model_out, "checkpoints")
     ctx = TrainContext(
         device=algorithm.device, checkpoint_dir=checkpoint_dir, resume=resume,
@@ -245,7 +254,7 @@ def cmd_train(args: argparse.Namespace) -> int:
             raise SystemExit("Error: --profile traces a train from the store; "
                              "leave out --events")
         model = train(_variant_path(args), args.events, args.model_out,
-                      resume=args.resume, device=args.device)
+                      resume=args.resume, device=args.device, als_feed=args.als_feed)
         print(f"trained a model of {len(model.item_ids)} items into "
               f"{args.model_out} ({args.device})", flush=True)
         return 0
@@ -255,6 +264,8 @@ def cmd_train(args: argparse.Namespace) -> int:
             os.path.join(args.engine_dir, "pio-profile")
             if args.profile == "__default__" else args.profile
         )
+    if args.als_feed:
+        variant.runtime_conf["pio.als_feed"] = args.als_feed
     _snapshot_args(args, variant)
     instance = run_train(
         variant,
@@ -567,6 +578,12 @@ def build_parser() -> argparse.ArgumentParser:
                          " appends events ingested since; default off")
     train_p.add_argument("--snapshot-dir", default=None,
                          help="snapshot root (default $PIO_FS_BASEDIR/snapshots)")
+    train_p.add_argument("--als-feed", choices=("resident", "streamed"), default=None,
+                         help="how ALS reads its training data: 'resident' packs"
+                         " host arrays, 'streamed' (with \"reader\": \"streaming\" and"
+                         " --snapshot-mode use|refresh) trains from an on-disk block"
+                         " store with bounded host memory. Overrides the engine.json"
+                         " alsFeed param for this run")
     train_p.add_argument("--events", default=None,
                          help="read this JSON-lines events file instead of the store")
     train_p.add_argument("--model-out", default=None,

@@ -232,15 +232,43 @@ def test_validation_errors_are_the_reference_s(case):
 
 
 def test_a_sharded_reader_csr_is_not_ported():
-    class ShardedPaddedCSR:  # the sharded reader's type, by name
-        num_rows = 8
+    """The streaming reader's ``ShardedPaddedCSR`` is taken (one process:
+    its local block is the whole padded layout): self and cross, counts
+    equal the full CSR's and the JAX package's over its own one-device
+    sharded CSR, indicators too; a layout built for another ``chunk`` and
+    a sharded CSR beside a full one are refused with the reference's
+    messages; a mesh still raises (ROADMAP.md Queue A item 8)."""
+    from predictionio_tpu.parallel import reader as jax_reader
+    from predictionio_tpu.parallel.mesh import local_mesh
+    from predictionio_tpu_torch.parallel import reader
 
-    _, ta, _, _ = pair(users=8, items=4)
-    for call in (lambda: cooc.cooccurrence(ShardedPaddedCSR(), device="cpu"),
-                 lambda: cooc.cooccurrence_indicators(ta, ShardedPaddedCSR(), top_k=2,
-                                                      device="cpu")):
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            call()
+    ja, ta, jb, tb = pair(users=61, items=13)
+    u, i = interactions(5, 61, 13, 0.3, duplicates=7)
+    ones = np.ones(u.size, np.float32)
+    got = reader.build_cooc_csr_sharded(reader.array_coo_chunks(u, i, ones), 61, 13, chunk=16)
+    want = jax_reader.build_cooc_csr_sharded(jax_reader.array_coo_chunks(u, i, ones), 61, 13,
+                                             local_mesh(1, 1), chunk=16)
+    np.testing.assert_array_equal(cooc.cooccurrence(got, chunk=16, device="cpu"),
+                                  cooc.cooccurrence(ta, chunk=16, device="cpu"))
+    np.testing.assert_array_equal(
+        cooc.cooccurrence(got, chunk=16, device="cpu"),
+        np.asarray(jax_cooc.cooccurrence(want, mesh=local_mesh(1, 1), chunk=16)))
+    totals = reader.distinct_user_counts_sharded(got)
+    np.testing.assert_array_equal(totals, cooc.distinct_user_counts(ta))
+    kwargs = dict(top_k=5, llr_row_totals=totals, llr_col_totals=totals, total=61, chunk=16)
+    idx_s, val_s = cooc.cooccurrence_indicators(got, device="cpu", **kwargs)
+    idx_f, val_f = cooc.cooccurrence_indicators(ta, device="cpu", **kwargs)
+    np.testing.assert_array_equal(idx_s, idx_f)
+    np.testing.assert_array_equal(val_s, val_f)
+    with pytest.raises(ValueError) as want_err:
+        jax_cooc.cooccurrence(want, mesh=local_mesh(1, 1), chunk=3)
+    with pytest.raises(ValueError) as got_err:
+        cooc.cooccurrence(got, chunk=3, device="cpu")
+    assert "rebuild" in str(got_err.value) and "rebuild" in str(want_err.value)
+    with pytest.raises(ValueError, match="mixing a sharded-reader CSR"):
+        cooc.cooccurrence_indicators(ta, got, top_k=2, chunk=16, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        reader.build_cooc_csr_sharded(reader.array_coo_chunks(u, i, ones), 61, 13, object())
 
 
 def test_default_device_without_cuda_raises(monkeypatch):

@@ -465,8 +465,27 @@ def test_evaluation_folds_equal_the_reference(shop):
 
 
 def test_what_is_not_ported_raises(shop, monkeypatch):
+    """``"reader": "streaming"`` is ported: the DataSource hands the
+    reference's handle, the buy-weighted confidences riding it (the
+    streamed model against the reference: ``test_torch_streaming_templates.
+    py``); a second process still raises (ROADMAP.md Queue A item 8), and
+    so does the algorithm without a card."""
+    from predictionio_tpu_torch.models._streaming import StreamingHandle
+    from predictionio_tpu_torch.parallel import als as torch_als
+
+    shop.use("jax")
+    want = JaxECommerceDataSource(
+        Params({"appName": APP, "reader": "streaming"})).read_training(RuntimeContext())
+    shop.use("port")
+    handle = ECommerceDataSource(
+        Params({"appName": APP, "reader": "streaming"})).read_training(None)
+    assert isinstance(handle, StreamingHandle)
+    assert (handle.app_id, handle.event_names, handle.extras) == (
+        want.app_id, want.event_names, want.extras)
+    assert handle.extras["event_values"] == {"view": 1.0, "buy": 2.0}
+    monkeypatch.setattr(torch_als, "world_size", lambda: 2)
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        ECommerceDataSource(Params({"appName": APP, "reader": "streaming"}))
+        ECommercePreparator(Params({})).prepare(TrainContext(device="cpu"), handle)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ECommAlgorithm(Params(ALGO))

@@ -83,7 +83,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "data.storage.elasticsearch", "data.storage.elasticsearch.client",
                    "data.storage.elasticsearch.transport", "data.storage.hbase",
                    "data.storage.hbase.client", "data.storage.hbase.transport",
-                   "data.storage.s3", "data.storage.hdfs"):
+                   "data.storage.s3", "data.storage.hdfs",
+                   # the streamed epochs and the streaming reader
+                   "parallel.stream", "parallel.reader"):
         assert f"predictionio_tpu_torch.{module}" in walked
 
 
@@ -331,6 +333,9 @@ VERBATIM = {
     "data/wal.py": set(),
     "data/ingest.py": set(),
     "data/snapshot.py": set(),
+    # the block store: the planner, the layout key, the manifest and the
+    # transfer models, plus load_block_into (WHOLE_DEFS)
+    "parallel/stream.py": set(),
     "online/registry.py": set(),
     "online/follower.py": set(),
     "utils/http.py": {(
@@ -353,7 +358,8 @@ VERBATIM = {
     "eval/split.py": set(),
     "obs/logs.py": set(),
     "obs/top.py": set(),
-    # less jit_cache_size, plus record_epoch and record_phase (WHOLE_DEFS)
+    # less jit_cache_size, plus record_epoch, record_phase and record_stream
+    # (WHOLE_DEFS)
     "obs/telemetry.py": set(),
     # the device pass-through to every shard process
     "serving/fabric.py": {
@@ -371,7 +377,9 @@ VERBATIM = {
 #: functions of their own: (qualified names dropped, qualified names added)
 WHOLE_DEFS = {
     "obs/telemetry.py": ({"jit_cache_size"},
-                         {"TrainTelemetry.record_epoch", "TrainTelemetry.record_phase"}),
+                         {"TrainTelemetry.record_epoch", "TrainTelemetry.record_phase",
+                          "TrainTelemetry.record_stream"}),
+    "parallel/stream.py": (set(), {"StreamedSide.load_block_into"}),
 }
 
 
@@ -380,6 +388,17 @@ WHOLE_DEFS = {
 #: name of the same path in the JAX package after the package rename
 VERBATIM_DEFS = {
     "ops/cooccurrence.py": ["_pad_rows_sentinel", "distinct_user_counts", "top_k_sparsify"],
+    "parallel/reader.py": [
+        "IncrementalEncoder", "store_coo_chunks", "store_multi_event_chunks",
+        "_kept_user_remap", "_prefilled", "snapshot_coo_chunks", "snapshot_multi_event_chunks",
+        "universe_pass", "_SideAccumulator", "_grow_bincount", "ShardedPaddedCSR",
+        "array_coo_chunks",
+    ],
+    "models/_streaming.py": [
+        "streaming_handle_or_none", "live_target_events", "live_seen_indices",
+        "snapshot_ratings_arrays", "streaming_coo_source", "streaming_multi_event_sources",
+        "resolve_als_feed",
+    ],
     "models/ecommerce/engine.py": [
         "ECommerceData", "_buy_confidences", "_category_index",
         "ECommerceDataSource.read_eval", "ECommerceDataSource.read_replay",

@@ -255,10 +255,33 @@ def test_model_round_trips(stores, template, tmp_path):
                                              ["a", "b", "c"], {})
 
 
-def test_what_is_not_ported_raises(monkeypatch):
-    for source in (similarproduct.SimilarProductDataSource, universal.URDataSource):
+def test_what_is_not_ported_raises(stores, monkeypatch):
+    """``"reader": "streaming"`` is ported: each DataSource hands the
+    reference's handle (the streamed models against the reference:
+    ``test_torch_streaming_templates.py``); a second process still raises
+    (ROADMAP.md Queue A item 8), and so does each algorithm without a
+    card."""
+    from predictionio_tpu_torch.models._streaming import StreamingHandle
+    from predictionio_tpu_torch.parallel import als as torch_als
+
+    for name, source, jax_source in (
+            ("cooccurrence", similarproduct.SimilarProductDataSource,
+             JaxSimilarProductDataSource),
+            ("ur", universal.URDataSource, JaxURDataSource)):
+        params = dict(engine_obj(name)["datasource"]["params"], reader="streaming")
+        stores("jax")
+        want = jax_source(Params(params)).read_training(RuntimeContext())
+        stores("port")
+        handle = source(Params(params)).read_training(None)
+        assert isinstance(handle, StreamingHandle)
+        for field in ("app_id", "event_names", "probe_event_names", "empty_message"):
+            assert getattr(handle, field) == getattr(want, field), field
+        monkeypatch.setattr(torch_als, "world_size", lambda: 2)
+        algo = TEMPLATES["similarproduct" if name == "cooccurrence" else "universal"] \
+            .algorithm_class(Params({"chunk": 8}), device="cpu")
         with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            source(Params({"appName": APP, "reader": "streaming"}))
+            algo.train(TrainContext(device="cpu"), handle)
+        monkeypatch.undo()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for algorithm in (similarproduct.CooccurrenceAlgorithm, universal.URAlgorithm):
         with pytest.raises(RuntimeError, match="CUDA is not available"):

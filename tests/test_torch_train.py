@@ -282,12 +282,29 @@ def test_checkpoint_manager_round_trip(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
+    """An events file has no chunked store scan, so ``"reader":
+    "streaming"`` (the streaming reader of the store, ported) refuses it;
+    ``alsFeed: "streamed"`` on the file's materialized read -- the engine
+    param or ``train --als-feed`` -- packs resident, as the reference's
+    materialized read does, to the default feed's factors; a feed that is
+    neither raises."""
     events = write_jsonl(tmp_path / "events.jsonl", make_events(users=4))
-    for section, params, match in (
-        ("datasource", {"appName": "MovieApp", "reader": "streaming"}, "streaming"),
-        ("preparator", {"alsFeed": "streamed"}, "streamed"),
-    ):
-        variant = dict(VARIANT, **{section: {"params": params}})
-        engine_json = write_engine_json(tmp_path / "engine.json", variant)
-        with pytest.raises(NotImplementedError, match=match):
-            cli.train(engine_json, events, str(tmp_path / "m"), device="cpu")
+    variant = dict(VARIANT, datasource={"params": {"appName": "MovieApp",
+                                                   "reader": "streaming"}})
+    engine_json = write_engine_json(tmp_path / "engine.json", variant)
+    with pytest.raises(ValueError, match="events file is read whole"):
+        cli.train(engine_json, events, str(tmp_path / "m"), device="cpu")
+    base = cli.train(write_engine_json(tmp_path / "engine.json", VARIANT), events,
+                     str(tmp_path / "m0"), device="cpu")
+    for n, (feed, als_feed) in enumerate((("streamed", None), (None, "streamed"))):
+        prep = dict(VARIANT["preparator"]["params"], **({"alsFeed": feed} if feed else {}))
+        engine_json = write_engine_json(tmp_path / "engine.json",
+                                        dict(VARIANT, preparator={"params": prep}))
+        model = cli.train(engine_json, events, str(tmp_path / f"m{n + 1}"), device="cpu",
+                          als_feed=als_feed)
+        np.testing.assert_array_equal(model.als.user_factors, base.als.user_factors)
+        np.testing.assert_array_equal(model.als.item_factors, base.als.item_factors)
+    engine_json = write_engine_json(tmp_path / "engine.json", dict(
+        VARIANT, preparator={"params": {"alsFeed": "sideways"}}))
+    with pytest.raises(ValueError, match="alsFeed"):
+        cli.train(engine_json, events, str(tmp_path / "m"), device="cpu")
