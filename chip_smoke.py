@@ -127,11 +127,11 @@ script exits non-zero and prints no result):
    and ``accesskey new`` through the port's CLI; the event server on
    port 0 in a thread takes 40 batches of 50 and 20 single "view" events,
    reads them back, answers a bad request 400 and a wrong key 401 (p50
-   of a batch's round trip); ``pio import`` of 500,000 "rate" events
+   of a batch's round trip); ``pio import`` of 250,000 "rate" events
    in the quickstart wire shape (MovieLens-1M's 6,040 users and 3,706
-   items, half of its 1,000,209 ratings: the depth cut that keeps the
-   whole script in its time; squared-uniform popularity, ratings 1-5, one
-   second apart);
+   items, a quarter of its 1,000,209 ratings: the depth cut that keeps
+   the whole script in its time; squared-uniform popularity, ratings 1-5,
+   one second apart);
    ``pio train`` with ``examples/recommendation/engine.json`` unchanged
    but for its ``appName``: B1 launches, the columnar fast scan served
    the read (its calls counted), a COMPLETED engine instance and its
@@ -250,6 +250,32 @@ script exits non-zero and prints no result):
    train`` and deployed: the e-commerce factors within 1e-4 of the
    materialized instance's, the indicators equal bit for bit, every
    answer equal to the materialized twin's ``predict``.
+   dist_train -- multi-process ALS training on ``torch.distributed``:
+   the recommendation engine.json (the 256 cap, mips, ``seenFilter:
+   "live"``) on phase 6's 20M ratings as ``pio train``'s core
+   (``run_train``) in ranks this script starts as ``chip_smoke.py
+   --dist-worker`` under the launch contract's env: (a) one rank in
+   an NCCL group, mesh [1, 1]; (b) two ranks sharing the card (gloo, which takes
+   the card's tensors and copies them through host memory itself), [2,
+   1], data-sharded rows;
+   (c) two ranks, [1, 2], ALX model-sharded factors through B1 on each
+   rank's slice of the table; (c) again as ``pio train --snapshot-mode
+   refresh --als-feed streamed`` itself, run in two ranks on stream_pio's
+   copy of store_path's store with ``"reader": "streaming"`` (the ranks
+   agree on rank 0's scan bound, rank 0 readies the snapshot and the
+   mesh's block store first, each rank reads its rows of every block).
+   Each launch: B1 launched on every rank (counted from 0 in the rank),
+   each rank's backend and collective counts printed (none in the
+   one-rank launch, where every collective is the identity: no NCCL
+   collective runs on one card), one new COMPLETED instance recorded by
+   rank 0, the blob's factors within 1e-4 of the one-process fit of the
+   same data (the resident fit of the same packing; for the streamed
+   launch store_path's materialized instance), and the blob deployed
+   with mips answering 16 queries with exactly 16 + 2 B2 launches (the
+   warm-up searches the dot and the cosine index once each), each list
+   the one-process model's up to near ties. Two ranks on one card
+   measure correctness and overhead, not scaling. B3, B4 and the fused
+   backward stay 0.
    classification -- every kernel's count set to 0 first, all five still 0
    at the end (the part is plain torch, as the reference's is plain jnp):
    classify_path -- BASELINE config #2 through the verbs in a fresh store:
@@ -466,13 +492,14 @@ RMSE_SAMPLE = 100_000
 FOLDIN_USERS = 1_000
 SMALL_EVENTS = 3_000
 #: the store path at MovieLens-1M's width, 6,040 users of 3,706 items,
-#: its depth cut from 1,000,209 ratings to 500,000 to keep the whole
-#: script in its time beside the templates part (the import's rate falls
-#: as the store grows), imported through ``pio import``; before it 40 batches of 50 and 20
+#: its depth cut from 1,000,209 ratings to 500,000 beside the templates
+#: part, then to 250,000 beside the dist_train part, to keep the whole
+#: script in its time (the import's rate falls as the store grows),
+#: imported through ``pio import``; before it 40 batches of 50 and 20
 #: single "view" events go through the event server (outside the
 #: template's eventNames, so the training read and the events file hold
 #: the same ratings)
-STORE_EVENTS, STORE_USERS, STORE_ITEMS = 500_000, 6_040, 3_706
+STORE_EVENTS, STORE_USERS, STORE_ITEMS = 250_000, 6_040, 3_706
 STORE_BATCHES, STORE_BATCH, STORE_SINGLES = 40, 50, 20
 STORE_QUERIES = 10
 #: the follow path on store_path's store: a fold-in window of 600 known
@@ -2114,18 +2141,20 @@ def unbatched():
 
 
 def serve_model(engine_json: str, model_dir: str | None, queries: list[dict],
-                times: list | None = None, batching=None):
+                times: list | None = None, batching=None, instance_id: str | None = None):
     """Deploy ``model_dir`` (None: the latest COMPLETED engine instance of
     the variant, from the store) through the ``deploy`` code path on cuda
     and POST each query over one kept-alive connection; returns
     ``(responses, deployed model, deploy seconds)``; each round trip's
     ms goes to ``times`` when given. ``batching`` is the deploy's
-    ``BatchConfig`` (default: the micro-batcher's defaults)."""
+    ``BatchConfig`` (default: the micro-batcher's defaults);
+    ``instance_id`` names the engine instance to deploy instead of the
+    latest."""
     from predictionio_tpu_torch.tools.cli import build_query_server
 
     t0 = time.perf_counter()
     server, service = build_query_server(engine_json, model_dir, port=0, device="cuda",
-                                         batching=batching)
+                                         batching=batching, engine_instance_id=instance_id)
     deploy_s = time.perf_counter() - t0
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -4119,7 +4148,7 @@ def snapshot_blocks(basedir: str) -> int:
 
 def phase_stream_pio(repo: str, stream_root: str, store: dict, templates: dict,
                      templates_workdir: str, seed: int) -> dict:
-    """(b) Through ``pio``: on a copy of store_path's store (its 500,000
+    """(b) Through ``pio``: on a copy of store_path's store (its 250,000
     ratings, the live-filter check's "buy" taken back out), ``pio train
     --snapshot-mode refresh --als-feed streamed`` of the recommendation
     engine.json with ``"reader": "streaming"``: the snapshot's block store
@@ -4305,6 +4334,297 @@ def phase_stream_path(ratings, resident: dict, store: dict, templates: dict, rep
         "other_launches": others, "seconds": seconds,
     }
     emit({"phase": "stream_path", **result})
+    return result
+
+
+# --------------------------------------------------------------------------
+# dist_train: the multi-process ALS training path on torch.distributed
+# (``pio train`` under the launch contract; one card, so two ranks share it)
+# --------------------------------------------------------------------------
+
+#: (name, pio.mesh_shape, feed) of each launch: (a) one rank over NCCL,
+#: (b) two ranks sharing the card, data-sharded rows and replicated
+#: factors, (c) two ranks, ALX model-sharded factors through B1, and (c)
+#: again as ``pio train --als-feed streamed`` of the streaming reader
+DIST_LAUNCHES = (("a_nccl_1x1", [1, 1], "resident"), ("b_data_2x1", [2, 1], "resident"),
+                 ("c_model_1x2", [1, 2], "resident"), ("c_model_1x2_streamed", [1, 2], "streamed"))
+#: queries each launch's deploy answers through B2
+DIST_QUERIES = 16
+#: B2 launches of a deploy's warm-up: one search of each retrieval index
+#: (dot for user scoring, cosine for similar items)
+WARM_UP_SEARCHES = 2
+#: seconds a launch may take before every rank is killed
+DIST_TIMEOUT_S = 300
+
+
+def dist_worker(spec: dict) -> int:
+    """One rank of a ``dist_train`` launch (``chip_smoke.py --dist-worker
+    SPEC``; the launch contract's ``PIO_*`` env names the rank). With
+    ``spec["argv"]``: the port's command line, ``pio SPEC["argv"]`` (the
+    streamed launch's ``train``, on the store ``PIO_FS_BASEDIR`` names).
+    Else ``pio train``'s core (``run_train``) of ``spec["variant"]`` on
+    cuda, the 20M ratings (memory-mapped from ``spec["arrays"]``)
+    standing where the events reader's would. Writes the rank's B1
+    launches, the instance it recorded, its backend, collective counts
+    and seconds to ``spec["out"]``-RANK.json."""
+    from predictionio_tpu_torch.ops import als_gram
+    from predictionio_tpu_torch.parallel import mesh as mesh_lib
+    from predictionio_tpu_torch.parallel.distributed import distributed_info
+
+    rank = int(os.environ["PIO_PROCESS_ID"])
+    timings = {}
+    als_gram.gram_rhs.launches = 0           # counts start at 0 here
+    t0 = time.perf_counter()
+    if spec.get("argv"):
+        out = cli_out(spec["argv"])
+        b1 = als_gram.gram_rhs.launches      # read here
+        wall_s = time.perf_counter() - t0
+        instance_id = said(out, "Engine instance ID") if rank == 0 else None
+        if rank != 0 and "Training completed on rank" not in out:
+            raise AssertionError(f"rank {rank} said {out}")
+        status = "COMPLETED" if rank == 0 else None
+    else:
+        from predictionio_tpu_torch.controller.engine import TEMPLATES
+        from predictionio_tpu_torch.models import recommendation as rec
+        from predictionio_tpu_torch.workflow.core_workflow import run_train
+        from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+
+        users, items, ratings, times = (
+            np.load(os.path.join(spec["arrays"], f"{n}.npy"), mmap_mode="r")
+            for n in ("users", "items", "ratings", "times"))
+
+        def read_training(self, ctx):
+            return rec.RatingsData(
+                users=np.asarray(users), items=np.asarray(items),
+                ratings=np.asarray(ratings), times=np.asarray(times),
+                user_ids=[f"u{u}" for u in range(TRAIN_USERS)],
+                item_ids=[f"i{i}" for i in range(TRAIN_ITEMS)], app_name=spec["app"],
+                event_names=["rate", "buy"])
+
+        TEMPLATES["recommendation"].datasource_class.read_training = read_training
+        instance = run_train(load_engine_variant(spec["variant"]), device="cuda",
+                             timings=timings)
+        b1 = als_gram.gram_rhs.launches      # read here
+        wall_s = time.perf_counter() - t0
+        instance_id, status = instance.id, instance.status
+    with open(f"{spec['out']}-{rank}.json", "w") as f:
+        json.dump({"rank": rank, "b1_launches": b1, "instance_id": instance_id,
+                   "status": status, "distributed": distributed_info(),
+                   "collectives": mesh_lib.collective_counts(), "timings": timings,
+                   "run_train_s": wall_s}, f)
+    return 0
+
+
+def run_launch(spec: dict, n: int) -> tuple[list[dict], float]:
+    """``n`` ranks of ``dist_worker`` under the launch contract (a fresh
+    coordinator port on this host), all killed past ``DIST_TIMEOUT_S``;
+    each must exit 0. Returns their reports and the launch's seconds."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PIO_COORDINATOR=f"127.0.0.1:{port}", PIO_NUM_PROCESSES=str(n))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-worker",
+                               json.dumps(spec)], env=dict(env, PIO_PROCESS_ID=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(n)]
+    try:
+        outs = [p.communicate(timeout=DIST_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    seconds = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} of {spec['name']} exited {p.returncode}:\n"
+                                 f"{out[-6000:]}")
+    reports = []
+    for r in range(n):
+        with open(f"{spec['out']}-{r}.json") as f:
+            reports.append(json.load(f))
+    return reports, seconds
+
+
+def phase_dist_train(ratings, resident: dict, store: dict, repo: str, workdir: str,
+                     stream_root: str, seed: int) -> dict:
+    """dist_train: each of ``DIST_LAUNCHES`` under the launch contract's
+    env. The three resident launches: the recommendation template's
+    shipped engine.json (with the 256-event history cap of phase 6,
+    ``retrieval`` mips and ``seenFilter: "live"``, so the blob holds no
+    20M-edge seen map) on the 20M ratings, run as ``pio train``'s core,
+    each in a store of its own; the reference is the one-process
+    resident fit with the same packing (``num_shards`` x
+    ``model_shards`` = 1: phase 6's fit; = 2: one fit here, through B1).
+    The streamed launch: ``pio train --snapshot-mode refresh --als-feed
+    streamed`` of stream_pio's variant (``"reader": "streaming"``) on
+    stream_pio's copy of store_path's store, so the ranks agree on one
+    scan bound, rank 0 readies the snapshot and the mesh's block store
+    before rank 1 loads them, and the model-sharded streamed fit runs;
+    the reference is store_path's materialized instance, as for
+    stream_pio's one-process streamed train. Per launch: each rank's B1
+    launches (counted from 0 in the rank, above 0 on every rank), its
+    backend and collective counts (none in the one-rank launch: a
+    collective there is the identity); rank 0 alone recorded the one
+    new COMPLETED instance; the blob's factors within ``FIT_ATOL`` of
+    the reference; the blob deployed with mips answers ``DIST_QUERIES``
+    queries, B2 launched exactly once per query and once per warm-up
+    search (counted from 0 before the deploy), each list the reference
+    model's up to near ties (``compare_lists``). Two ranks on one card
+    measure correctness and overhead, not scaling."""
+    import torch
+
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.models.recommendation import ALSAlgorithm
+    from predictionio_tpu_torch.ops import als_gram, mips
+    from predictionio_tpu_torch.parallel.als import ALSConfig, ALSModel, als_fit, build_als_data
+    from predictionio_tpu_torch.parallel.distributed import BACKEND_RULE
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
+    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+
+    users, items, values, times = ratings
+    arrays = os.path.join(workdir, "dist_arrays")
+    os.makedirs(arrays, exist_ok=True)
+    for name, a in (("users", users), ("items", items), ("ratings", values),
+                    ("times", times)):
+        np.save(os.path.join(arrays, f"{name}.npy"), a)
+    algo_params, prep_params = template_params(repo)
+    config = dataclasses.replace(ALSAlgorithm(algo_params, device="cuda")._config(),
+                                 max_len=TRAIN_CAP, factor_sharding="replicated")
+    # the one-process fit of the two-rank packing (8 x 2-row multiples)
+    t0 = time.perf_counter()
+    als_gram.gram_rhs.launches = 0
+    paired = als_fit(build_als_data(users, items, values, TRAIN_USERS, TRAIN_ITEMS, config,
+                                    times=times, num_shards=2), config, "cuda")
+    reference_s = time.perf_counter() - t0
+    references = {1: (resident["user_factors"], resident["item_factors"]),
+                  2: (paired.user_factors, paired.item_factors)}
+    rng = np.random.default_rng(seed)
+    picked = rng.choice(TRAIN_USERS, DIST_QUERIES, replace=False)
+    train_queries = [{"user": f"u{u}", "num": 10} for u in picked.tolist()]
+    picked = rng.choice(STORE_USERS, DIST_QUERIES, replace=False)
+    store_queries = [{"user": f"u{u}", "num": 10} for u in picked.tolist()]
+    engine_json = os.path.join(repo, "examples", "recommendation", "engine.json")
+    result = {"backend_rule": BACKEND_RULE, "reference_fit_s": reference_s,
+              "reference_b1_launches": als_gram.gram_rhs.launches, "launches": {}}
+    for name, shape, feed in DIST_LAUNCHES:
+        n = shape[0] * shape[1]
+        streamed = feed == "streamed"
+        spec = {"name": name, "out": os.path.join(workdir, f"dist_{name}")}
+        with (fresh_store(stream_root, "ml_store") if streamed
+              else fresh_store(workdir, f"dist_{name}")):
+            variant_path = os.path.join(workdir, f"dist_{name}.json")
+            if streamed:
+                streaming_variant(engine_json, "MLApp", variant_path,
+                                  retrieval={"mode": "mips"}, seenFilter="live")
+                spec["argv"] = ["train", "--variant", variant_path, "--device", "cuda",
+                                "--snapshot-mode", "refresh", "--als-feed", "streamed"]
+                queries = store_queries
+            else:
+                cli_out(["app", "new", "DistApp"])  # an empty app: live seen lookups find it
+                store_variant(engine_json, "DistApp", variant_path,
+                              retrieval={"mode": "mips"}, seenFilter="live")
+                spec.update(variant=variant_path, arrays=arrays, app="DistApp")
+                queries = train_queries
+            with open(variant_path) as f:
+                variant = json.load(f)
+            if not streamed:
+                variant["preparator"]["params"] = dict(prep_params)
+            variant["sparkConf"] = {"pio.mesh_shape": shape}
+            with open(variant_path, "w") as f:
+                json.dump(variant, f)
+            before = {i.id for i in storage.get_meta_data_engine_instances().get_all()}
+            reports, launch_s = run_launch(spec, n)
+            b1 = [r["b1_launches"] for r in reports]
+            if min(b1) < 1 or len(set(b1)) != 1:
+                raise AssertionError(f"{name}: B1 launches per rank {b1}")
+            backends = [r["distributed"]["backend"] for r in reports]
+            if backends != ["nccl" if n == 1 else "gloo"] * n:
+                raise AssertionError(f"{name}: backends {backends}")
+            collectives = [r["collectives"] for r in reports]
+            if n == 1 and collectives != [{}]:
+                raise AssertionError(f"{name}: one rank issued collectives {collectives}")
+            ids = [r["instance_id"] for r in reports]
+            storage.reset()
+            recorded = [(i.id, i.status)
+                        for i in storage.get_meta_data_engine_instances().get_all()
+                        if i.id not in before]
+            if ids[1:] != [None] * (n - 1) or recorded != [(ids[0], "COMPLETED")]:
+                raise AssertionError(f"{name}: new instances {recorded}, ranks said {ids}")
+            loaded = load_engine_variant(variant_path)
+            _, model = load_instance_model(loaded, ids[0])
+            if streamed:
+                _, reference = load_instance_model(loaded, store["instance_id"])
+                if (model.user_index != reference.user_index
+                        or model.item_ids != reference.item_ids):
+                    raise AssertionError(f"{name}: the vocabularies differ")
+                want_u, want_i = reference.als.user_factors, reference.als.item_factors
+            else:
+                want_u, want_i = references[n]
+            err = max(float(np.abs(model.als.user_factors - want_u).max()),
+                      float(np.abs(model.als.item_factors - want_i).max()))
+            if not err <= FIT_ATOL:
+                raise AssertionError(f"{name}: factors {err} from the one-process fit")
+            query_ms = []
+            mips.mips_block_topk.launches = 0    # counts start at 0 here
+            served, deployed, deploy_s = serve_model(variant_path, None, queries, query_ms,
+                                                     instance_id=ids[0])
+            b2 = mips.mips_block_topk.launches   # read here
+            algorithm = ALSAlgorithm(loaded.engine_params.algorithm_params_list[0][1],
+                                     device="cuda")
+            one_process = (reference if streamed
+                           else dataclasses.replace(deployed, als=ALSModel(want_u, want_i)))
+            algorithm.warm_up(one_process)
+            diffs, swaps = [], 0
+            for q, body in zip(queries, served):
+                d, s = compare_lists(body["itemScores"], algorithm.predict(
+                    one_process, q)["itemScores"])
+                diffs.append(d)
+                swaps += s
+            if b2 != WARM_UP_SEARCHES + len(queries) or any(
+                    not body["itemScores"] for body in served):
+                raise AssertionError(f"{name}: {b2} B2 launches, answers {served}")
+            result["launches"][name] = {
+                "mesh_shape": shape, "feed": feed, "ranks": n, "launch_s": launch_s,
+                "events": STORE_EVENTS if streamed else TRAIN_EDGES,
+                "backends": backends, "b1_launches": b1, "collectives": collectives,
+                "timings": [r["timings"] for r in reports],
+                "run_train_s": [r["run_train_s"] for r in reports],
+                "factors_max_abs_err": err, "b2_launches": b2, "deploy_s": deploy_s,
+                "query_p50_ms": statistics.median(query_ms),
+                "list_max_abs_diff": max(diffs), "near_tie_swaps": swaps,
+            }
+            emit({"phase": "dist_train_launch", "name": name, **result["launches"][name]})
+        del model, deployed, one_process
+        torch.cuda.empty_cache()
+    emit({"phase": "dist_train", **{k: v for k, v in result.items() if k != "launches"},
+          "launch_s": {k: v["launch_s"] for k, v in result["launches"].items()}})
+    return result
+
+
+def phase_dist_train_path(ratings, resident: dict, store: dict, repo: str, workdir: str,
+                          stream_root: str, seed: int) -> dict:
+    """dist_train with the parent's counts of the other kernels set to 0
+    before and read after (B3, B4 and the fused backward stay 0); B1's
+    launches per launch and rank, B2's per launch, for the kernels line."""
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+
+    ncf_kernel.ncf_score_all_items.launches = 0
+    zero_flash_counts()
+    t0 = time.perf_counter()
+    dist = phase_dist_train(ratings, resident, store, repo, workdir, stream_root, seed)
+    others = {"ncf_score_all_items": ncf_kernel.ncf_score_all_items.launches, **flash_counts()}
+    if any(others.values()):
+        raise AssertionError(f"the dist_train path launched other kernels: {others}")
+    result = {
+        "b1_launches": {name: run["b1_launches"] for name, run in dist["launches"].items()},
+        "b2_launches": {name: run["b2_launches"] for name, run in dist["launches"].items()},
+        "other_launches": others, "seconds": time.perf_counter() - t0,
+    }
+    emit({"phase": "dist_train_path", **result})
     return result
 
 
@@ -6229,7 +6549,10 @@ def flash_rows(check: dict, timed: dict, train_launches: dict, serve_launches: i
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--dist-worker", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    if args.dist_worker is not None:
+        return dist_worker(json.loads(args.dist_worker))
 
     import torch
 
@@ -6287,6 +6610,9 @@ def main(argv: list[str] | None = None) -> int:
         templates = phase_templates(rng, ratings, repo, workdir)
         streamed = phase_stream_path(ratings, resident, store, templates, repo, workdir,
                                      stream_root.name, args.seed)
+    with tempfile.TemporaryDirectory() as workdir:
+        dist = phase_dist_train_path(ratings, resident, store, repo, workdir,
+                                     stream_root.name, args.seed)
     stream_root.cleanup()
     del resident
     with tempfile.TemporaryDirectory() as workdir:
@@ -6329,6 +6655,7 @@ def main(argv: list[str] | None = None) -> int:
         "templates_launches": templates["b2_launches"],
         "profile_train_launches": profiled["launches"]["mips_block_topk"],
         "stream_path_launches": streamed["b2_launches"],
+        "dist_train_launches": dist["b2_launches"],
         "batchpredict_chunk": {k: evaluated["batchpredict"]["b2_chunk"][k] for k in (
             "batch", "items", "rank", "block_items", "block_topk", "instance", "ms",
             "plain_ms", "library_pair_ms", "bound_ms", "bound_by", "max_abs_err")},
@@ -6367,6 +6694,7 @@ def main(argv: list[str] | None = None) -> int:
         "templates_launches": templates["b1_launches"],
         "profile_train_launches": profiled["launches"]["gram_rhs"],
         "stream_path_launches": streamed["b1_launches"],
+        "dist_train_launches": dist["b1_launches"],
         "max_abs_err": b1_check["max_abs_err"],
         "ms": b1_main["ms"],
         "plain_ms": b1_main["plain_ms"],
@@ -6417,6 +6745,7 @@ def main(argv: list[str] | None = None) -> int:
     for row in rows:
         row["classification_launches"] = classification["launches"][row["name"]]
         row.setdefault("stream_path_launches", streamed["other_launches"].get(row["name"]))
+        row.setdefault("dist_train_launches", dist["other_launches"].get(row["name"]))
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {

@@ -8,7 +8,9 @@ train, deploy, continuous-learning and evaluation paths need:
 batch_predict, warm_up, shard_model and the wire serde) and ``Serving``
 (``serve``, ``serve_batch``); plus ``TrainContext``, the port's small
 stand-in for the reference's ``RuntimeContext`` (device, checkpoint
-directory, resume, the runtime conf).
+directory, resume, the runtime conf, and the training mesh, built
+lazily from the runtime conf as the reference's ``:101-130`` does), and
+``mesh_or_none`` (the reference's ``TPUAlgorithm.mesh_or_none``).
 """
 
 from __future__ import annotations
@@ -134,7 +136,9 @@ class TrainContext:
     ``runtimeConf`` and the verbs' ``pio.*`` keys), as the reference's
     ``RuntimeContext.runtime_conf``: ``pio.profile`` turns on each
     trainer's telemetry journal (``journal``), ``pio.snapshot_*`` the
-    replay read's snapshot."""
+    replay read's snapshot, and the launch keys (``pio.coordinator``,
+    ``pio.num_processes``, ``pio.process_id``, else the ``PIO_*`` env)
+    with ``pio.mesh_shape`` / ``pio.mesh_axes`` the ``mesh``."""
 
     device: Any = None
     checkpoint_dir: str | None = None
@@ -143,12 +147,49 @@ class TrainContext:
     mesh_shape: Any = None
     run_key: str | None = None
     runtime_conf: dict = field(default_factory=dict)
+    _mesh: Any = field(default=None, init=False, repr=False, compare=False)
+
+    @property
+    def mesh(self):
+        """The training mesh (``parallel.mesh.Mesh``), built on first use:
+        joins the launch's process group (``init_distributed``; none
+        without a coordinator), then lays ``pio.mesh_shape`` (default
+        ``[-1, 1]``: every rank on ``data``; ``mesh_shape`` when set) over
+        ``pio.mesh_axes`` (default ``("data", "model")``) on this
+        context's device. One process gets a 1 x 1 mesh. A failure
+        raises: a launch never degrades to one process."""
+        if self._mesh is None:
+            from predictionio_tpu_torch.parallel.distributed import (
+                build_mesh,
+                init_distributed,
+            )
+
+            conf = self.runtime_conf
+            maybe_int = lambda v: None if v is None else int(v)
+            init_distributed(
+                coordinator=conf.get("pio.coordinator"),
+                num_processes=maybe_int(conf.get("pio.num_processes")),
+                process_id=maybe_int(conf.get("pio.process_id")),
+                device=self.device,
+            )
+            shape = self.mesh_shape if self.mesh_shape is not None else conf.get(
+                "pio.mesh_shape", [-1, 1])
+            self._mesh = build_mesh(
+                list(shape), tuple(conf.get("pio.mesh_axes", ("data", "model"))),
+                dcn_mesh_shape=conf.get("pio.dcn_mesh_shape"), device=self.device,
+            )
+        return self._mesh
 
     def checkpoint_manager(self, name: str):
         """The step-checkpoint manager of one algorithm, or None when the
-        context has no checkpoint directory. A non-resume run discards
-        whatever an earlier run left under the name."""
-        if self.checkpoint_dir is None:
+        context has no checkpoint directory or this process is not rank 0
+        of a multi-process launch (``workflow.checkpoint.owns_checkpoints``:
+        a second writer on the key would corrupt rank 0's steps). A
+        non-resume run discards whatever an earlier run left under the
+        name."""
+        from predictionio_tpu_torch.workflow.checkpoint import owns_checkpoints
+
+        if self.checkpoint_dir is None or not owns_checkpoints(self.runtime_conf):
             return None
         from predictionio_tpu_torch.workflow.checkpoint import CheckpointManager
 
@@ -196,10 +237,25 @@ class TrainContext:
                 journal.close()
 
 
+def mesh_or_none(ctx):
+    """``ctx.mesh``, or None for a context without one (a caller passing
+    no context, or an object that is not a ``TrainContext``). Unlike the
+    reference's, a mesh that fails to build raises: a misconfigured
+    launch must not quietly train each rank alone."""
+    if getattr(type(ctx), "mesh", None) is None:
+        return None
+    return ctx.mesh
+
+
 class Algorithm(Component, abc.ABC):
-    """Algorithm contract: train on prepared data, answer queries."""
+    """Algorithm contract: train on prepared data, answer queries.
+
+    ``trains_on_mesh``: ``train`` spreads over ``ctx.mesh``, so a
+    multi-process launch may train it (the ALS and cooccurrence
+    templates); a launch of any other raises (ROADMAP.md slice 20)."""
 
     supports_fold_in: bool = False
+    trains_on_mesh: bool = False
 
     @abc.abstractmethod
     def train(self, ctx: TrainContext, prepared_data): ...

@@ -60,8 +60,11 @@ def prepare_als_data(
 ):
     """Pack COO interactions into padded CSR blocks per the preparator's
     params: ``maxEventsPerUser`` (history cap, most recent kept) and
-    ``buckets`` (length-bucketed packing, default 1). One card: rows pad
-    to multiples of 8.
+    ``buckets`` (length-bucketed packing, default 1), sized for ctx's
+    mesh (reference ``:39-67``): rows pad to multiples of 8 * data axis *
+    model axis, so a model axis above 1 makes the blocks ready for the
+    model-sharded fit ``resolve_factor_sharding`` then selects. One
+    process (a 1 x 1 mesh): multiples of 8.
 
     The feed (``alsFeed``, or ``pio train --als-feed`` through
     ``ctx.runtime_conf``) is resolved here too, so a bad value fails the
@@ -76,12 +79,17 @@ def prepare_als_data(
             'host arrays, so they pack resident; "reader": "streaming" trains '
             "from the block store"
         )
+    from predictionio_tpu_torch.controller.base import mesh_or_none
+
     config = ALSConfig(
         max_len=params.get_or("maxEventsPerUser", None),
         buckets=params.get_or("buckets", 1),
     )
+    mesh = mesh_or_none(ctx)
     return build_als_data(
-        users, items, values, num_users, num_items, config, times=times
+        users, items, values, num_users, num_items, config, times=times,
+        num_shards=mesh.shape.get("data", 1) if mesh is not None else 1,
+        model_shards=mesh.shape.get("model", 1) if mesh is not None else 1,
     )
 
 
@@ -104,14 +112,22 @@ def warn_misplaced_packing_params(algo_params, template: str) -> None:
         )
 
 
-def resolve_factor_sharding(config: ALSConfig) -> ALSConfig:
-    """Resolve ``factor_sharding="auto"``: the reference picks "model"
-    when its mesh has a model axis, and one card has none, so "auto" is
-    "replicated" here. Explicit values pass through (``als_fit`` refuses
-    "model")."""
+def resolve_factor_sharding(config: ALSConfig, mesh=None) -> ALSConfig:
+    """Resolve ``factor_sharding="auto"`` against the actual mesh
+    (reference ``:109-127``).
+
+    On a pure-ALS template a model axis > 1 has exactly one use -- ALX
+    factor sharding -- so "auto" (the template default) selects it
+    whenever ``pio.mesh_shape`` configures such an axis, and plain data
+    parallelism otherwise. Explicit "replicated"/"model" pass through to
+    the library untouched (als_fit validates them).
+    """
     if config.factor_sharding != "auto":
         return config
-    return dataclasses.replace(config, factor_sharding="replicated")
+    model = mesh.shape.get("model", 1) if mesh is not None else 1
+    return dataclasses.replace(
+        config, factor_sharding="model" if model > 1 else "replicated"
+    )
 
 
 def _vocab_hash(ids: list[str]) -> str:
@@ -131,9 +147,13 @@ def fit_with_checkpoint(
     item_ids: list[str],
     interval: int,
     name: str = "als",
+    mesh=None,
 ) -> ALSModel:
-    """``als_fit`` on ``ctx.device`` wrapped in fingerprinted step
-    checkpoints (``ctx.checkpoint_manager``).
+    """``als_fit`` on ``ctx.device`` (over ``mesh``, the training mesh,
+    when given) wrapped in fingerprinted step checkpoints
+    (``ctx.checkpoint_manager``: in a multi-process launch rank 0 alone
+    owns the checkpoint directory, and the other ranks join the fit's
+    gathers at each checkpoint without writing).
 
     Checkpointed factors are only meaningful against the id vocabularies
     they were trained on: events that changed between crash and resume
@@ -151,7 +171,7 @@ def fit_with_checkpoint(
     store) trains through ``als_fit_streamed`` with the same checkpoints
     and callback (reference ``:539-546``); the journal then closes with
     the fit's ``StreamStats``."""
-    config = resolve_factor_sharding(config)
+    config = resolve_factor_sharding(config, mesh)
     checkpoint = ctx.checkpoint_manager(name) if interval > 0 else None
     init, start_iteration, callback = None, 0, None
     if checkpoint is not None:
@@ -191,6 +211,19 @@ def fit_with_checkpoint(
                 it, {"users": users_np, "items": items_np, "iteration": it}
             )
 
+    if mesh is not None and mesh.size > 1:
+        # rank 0 alone reads the checkpoints: every rank resumes from its
+        # step, or the ranks' iteration counts (and collectives) diverge
+        from predictionio_tpu_torch.parallel.mesh import broadcast_int, broadcast_rows
+
+        start_iteration = broadcast_int(mesh, start_iteration)
+        if start_iteration > 0:
+            shapes = ((len(user_ids), config.rank), (len(item_ids), config.rank))
+            init = tuple(
+                broadcast_rows(mesh, torch.from_numpy(np.array(init[k], np.float32))
+                               if init is not None else torch.empty(shapes[k])).numpy()
+                for k in range(2))
+
     from predictionio_tpu_torch.parallel.stream import StreamedALSData, StreamStats
 
     streamed = isinstance(als_data, StreamedALSData)
@@ -206,6 +239,7 @@ def fit_with_checkpoint(
             init=init,
             start_iteration=start_iteration,
             telemetry=telemetry,
+            mesh=mesh,
         )
         if streamed and hasattr(telemetry, "record_stream"):
             telemetry.record_stream({

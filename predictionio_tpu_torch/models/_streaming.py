@@ -1,8 +1,7 @@
 """The templates' streaming reader: the scan descriptor, its sources and
 the serving-time live event-store lookups.
 
-Port of ``predictionio_tpu/models/_streaming.py`` (framework-free but for
-the world-size probe):
+Port of ``predictionio_tpu/models/_streaming.py``:
 
 - ``StreamingHandle``, ``build_streaming_handle`` and
   ``streaming_handle_or_none`` (``:23-117``): where and what a template
@@ -22,9 +21,12 @@ the world-size probe):
   under ``--snapshot-mode use|refresh``, else the bounded store scan),
   ``snapshot_ratings_arrays``, the ALS feed (``resolve_als_feed``:
   ``pio train --als-feed`` over the preparator's ``alsFeed``) and the
-  shared ALS build (``build_streaming_als``). One process on one card:
-  ``_agree_until_time`` has no other process to agree with, and a world
-  size above 1 raises (ROADMAP.md Queue A item 8).
+  shared ALS build (``build_streaming_als``, which packs for the
+  training mesh). In a multi-process launch every rank adopts rank 0's
+  scan bound (``_agree_until_time``), rank 0 readies the training
+  snapshot before the others load it, and all ranks read the snapshot
+  or all scan the store (``_snapshot_for_handle``); a failed agreement
+  fails the run.
 """
 
 from __future__ import annotations
@@ -189,18 +191,59 @@ def live_seen_indices(model, user: str, cache: dict | None = None) -> set[int]:
 
 
 def _agree_until_time(handle: StreamingHandle) -> None:
-    """Multi-process launches adopt rank 0's captured scan bound, so
-    every process scans the same prefix (reference ``:172-210``). One
-    process agrees with itself; a world size above 1 raises."""
-    from predictionio_tpu_torch.parallel.als import refuse_multi_gpu
+    """Multi-process launches: adopt rank 0's captured scan bound
+    (reference ``:172-210``).
 
-    refuse_multi_gpu()
+    Each process captures ``until_time`` at its own handle creation, so
+    wall-clock skew between launches would bound their scans differently
+    -- exactly the divergent-layout bug the bound exists to kill. The
+    bound is broadcast as integer microseconds and reconstructed with
+    integer arithmetic, so every process derives a bit-identical datetime
+    (and therefore an identical ``event_time_ms`` cutoff). Unlike the
+    reference, a failed broadcast raises: ranks scanning different
+    prefixes would train different layouts."""
+    from predictionio_tpu_torch.parallel.mesh import broadcast_int, world_mesh
+
+    until = getattr(handle, "until_time", None)
+    world = world_mesh()
+    if until is None or world.size == 1:
+        return
+    agreed_us = broadcast_int(world, int(until.timestamp() * 1e6))
+    # EVERY rank adopts the reconstructed value -- rank 0 included:
+    # int(timestamp()*1e6) can truncate 1us below the original datetime
+    handle.until_time = _dt.datetime.fromtimestamp(
+        agreed_us // 10**6, tz=_dt.timezone.utc
+    ) + _dt.timedelta(microseconds=agreed_us % 10**6)
 
 
 def _snapshot_for_handle(handle: StreamingHandle, runtime_conf):
     """The handle's ready training snapshot, or None (mode off, backend
     without the columnar scan, or any snapshot-layer failure -- training
-    must degrade to the direct scan, never die on a cache)."""
+    must degrade to the direct scan, never die on a cache).
+
+    In a multi-process launch rank 0 readies the snapshot (``refresh``
+    builds a generation once), then the others load it (``use``), and
+    the snapshot serves only if it served every rank: the ranks must read
+    one stream, not some the snapshot and some the store."""
+    from predictionio_tpu_torch.parallel.mesh import all_reduce_min, barrier, world_mesh
+
+    world = world_mesh()
+    if world.size == 1:
+        return _ensure_snapshot(handle, runtime_conf)
+    snap = _ensure_snapshot(handle, runtime_conf) if world.rank == 0 else None
+    barrier(world)  # rank 0's snapshot is ready before the others look
+    if world.rank != 0:
+        from predictionio_tpu_torch.data.snapshot import snapshot_settings
+
+        conf = dict(runtime_conf or {})
+        if snapshot_settings(conf)[0] == "refresh":
+            conf["pio.snapshot_mode"] = "use"
+        snap = _ensure_snapshot(handle, conf)
+    return snap if all_reduce_min(world, snap is not None) else None
+
+
+def _ensure_snapshot(handle: StreamingHandle, runtime_conf):
+    """One process's ``SnapshotStore.ensure`` for the handle, or None."""
     from predictionio_tpu_torch.data import storage
     from predictionio_tpu_torch.data.snapshot import (
         SnapshotSpec,
@@ -365,7 +408,8 @@ def build_streaming_als(handle: StreamingHandle, preparator_params, mesh=None,
     ``fit_with_checkpoint`` trains through ``als_fit_streamed``. Without a
     snapshot the streamed feed falls back to the resident pack with a
     warning: the feed tunes memory and must never fail a train. ``mesh``
-    must be None (one card)."""
+    (the training mesh, None for one process) lays both out for its data
+    and model axes."""
     from predictionio_tpu_torch.parallel.als import ALSConfig
     from predictionio_tpu_torch.parallel.reader import (
         build_als_data_sharded,
@@ -382,6 +426,7 @@ def build_streaming_als(handle: StreamingHandle, preparator_params, mesh=None,
         if snap is not None:
             return snapshot_streamed_als_data(
                 snap, config, mesh=mesh,
+                model_shards=mesh.shape.get("model", 1) if mesh is not None else 1,
                 chunk_rows=handle.chunk_rows,
                 event_values=event_values,
             )
@@ -392,5 +437,8 @@ def build_streaming_als(handle: StreamingHandle, preparator_params, mesh=None,
     source, users_enc, items_enc = streaming_coo_source(
         handle, runtime_conf=runtime_conf, event_values=event_values
     )
-    als_data = build_als_data_sharded(source, None, None, config, mesh)
+    als_data = build_als_data_sharded(
+        source, None, None, config, mesh,
+        model_shards=mesh.shape.get("model", 1) if mesh is not None else 1,
+    )
     return users_enc, items_enc, als_data

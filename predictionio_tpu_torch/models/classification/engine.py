@@ -14,8 +14,8 @@ or entity properties (one-hot categories and numeric columns).
 - ``NaiveBayesAlgorithm.train`` and ``LogisticRegressionAlgorithm.train``
   run ``ops/classify.py`` on ``device`` (``cuda`` unless the caller names
   ``"cpu"``; without a card and without that request construction
-  raises). A ``pio.mesh_shape`` axis above 1 raises (ROADMAP.md Queue A
-  item 8), where the reference shards the examples over its mesh.
+  raises). A ``pio.mesh_shape`` axis above 1 raises (ROADMAP.md slice
+  20), where the reference shards the examples over its mesh.
 - ``predict`` is copied and serves on the host, as the reference's does
   (``model.inner.scores`` is numpy): one [1, D] x [D, C] product per
   query gains nothing on the card.

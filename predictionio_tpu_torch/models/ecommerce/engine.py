@@ -47,6 +47,7 @@ from predictionio_tpu_torch.controller.base import (
     EvalInfo,
     Preparator,
     SanityCheck,
+    mesh_or_none,
 )
 from predictionio_tpu_torch.data.store import (
     LEventStore,
@@ -304,7 +305,7 @@ class ECommercePreparator(Preparator):
             n: 1.0 for n in src.event_names
         }
         users_enc, items_enc, als_data = build_streaming_als(
-            src, self.params, event_values=event_values,
+            src, self.params, mesh_or_none(ctx), event_values=event_values,
             runtime_conf=getattr(ctx, "runtime_conf", None),
         )
         categories = _load_categories(src.app_name, src.channel_name)
@@ -359,6 +360,8 @@ class ECommAlgorithm(Algorithm):
     explicit CPU request construction raises.
     """
 
+    trains_on_mesh = True
+
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
         self.device = resolve_device(device)
@@ -392,6 +395,7 @@ class ECommAlgorithm(Algorithm):
             item_ids=data.item_ids,
             interval=self.params.get_or("checkpointInterval", 5),
             name="ecomm-als",
+            mesh=mesh_or_none(ctx),
         )
         # a streamed build has no edge arrays: the seen filter reads live
         streamed = getattr(data, "streamed", False)

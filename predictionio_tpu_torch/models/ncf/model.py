@@ -177,7 +177,7 @@ def train_ncf(
         raise NotImplementedError(
             f"pio.mesh_shape {list(mesh_shape)} spreads NCF training over "
             "several devices (data or model axis above 1), which the port "
-            "does not do yet; use [-1, 1]"
+            "does not do yet (ROADMAP.md slice 20); use [-1, 1]"
         )
     device = resolve_device(device)
     model = init_model(config)

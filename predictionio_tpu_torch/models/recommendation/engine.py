@@ -53,6 +53,7 @@ from predictionio_tpu_torch.controller.base import (
     EvalInfo,
     Preparator,
     SanityCheck,
+    mesh_or_none,
 )
 from predictionio_tpu_torch.data.store import PEventStore, read_events_file
 from predictionio_tpu_torch.models._als_common import (
@@ -297,7 +298,8 @@ class RecommendationPreparator(Preparator):
         from predictionio_tpu_torch.models._streaming import build_streaming_als
 
         users_enc, items_enc, als_data = build_streaming_als(
-            src, self.params, runtime_conf=getattr(ctx, "runtime_conf", None)
+            src, self.params, mesh_or_none(ctx),
+            runtime_conf=getattr(ctx, "runtime_conf", None),
         )
         # the vocabularies come from the scan; the edge arrays stay empty
         ratings_like = RatingsData(
@@ -365,6 +367,8 @@ class ALSAlgorithm(Algorithm):
     request construction raises.
     """
 
+    trains_on_mesh = True
+
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
         self.device = resolve_device(device)
@@ -421,6 +425,7 @@ class ALSAlgorithm(Algorithm):
             user_ids=ratings_data.user_ids,
             item_ids=ratings_data.item_ids,
             interval=self.params.get_or("checkpointInterval", 5),
+            mesh=mesh_or_none(ctx),
         )
         return RecommendationModel(
             als=model,

@@ -240,7 +240,7 @@ def train_sasrec(
         raise NotImplementedError(
             f"pio.mesh_shape {list(mesh_shape)} spreads SASRec training over "
             "several devices (data or seq axis above 1), which the port does "
-            "not do yet; use [-1, 1]"
+            "not do yet (ROADMAP.md slice 20); use [-1, 1]"
         )
     device = resolve_device(device)
     net = init_model(config)

@@ -14,9 +14,11 @@ The DataSource reads the store, or a JSON-lines events file when built
 with ``events_path=``. With ``"reader": "streaming"`` it returns a
 ``StreamingHandle``, and ``train`` (reference ``:209-228``) builds the
 user-rows CSR through ``parallel/reader.py::build_cooc_csr_sharded``
-(one process: the whole padded layout) and the LLR totals through
-``distinct_user_counts_sharded``; the indicators equal the materialized
-build's, and user-anchored queries read the store live. A model's
+over the training mesh (each rank its data shard of the user rows; one
+process: the whole padded layout), the LLR totals through
+``distinct_user_counts_sharded`` and the counts summed over the mesh's
+data axis; the indicators equal the materialized build's, and
+user-anchored queries read the store live. A model's
 ``user_history`` is built in one sorted pass (the reference walks the
 events in Python); the map is the same.
 
@@ -36,6 +38,7 @@ from predictionio_tpu_torch.controller.base import (
     DataSource,
     EvalInfo,
     SanityCheck,
+    mesh_or_none,
 )
 from predictionio_tpu_torch.data.store import PEventStore, read_events_file
 from predictionio_tpu_torch.models._als_common import (
@@ -242,6 +245,8 @@ class CooccurrenceAlgorithm(Algorithm):
     construction raises.
     """
 
+    trains_on_mesh = True
+
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
         self.device = resolve_device(device)
@@ -258,16 +263,17 @@ class CooccurrenceAlgorithm(Algorithm):
                 distinct_user_counts_sharded,
             )
 
+            mesh = mesh_or_none(ctx)  # user rows sharded over data, summed
             source, users_enc, items_enc = streaming_coo_source(
                 data, runtime_conf=getattr(ctx, "runtime_conf", None)
             )
             csr = build_cooc_csr_sharded(
-                source, None, None,
+                source, None, None, mesh,
                 max_len=self.params.get_or("maxEventsPerUser", None),
                 chunk=chunk,
             )
             user_ids, item_ids = users_enc.ids, items_enc.ids
-            totals_fn = lambda: distinct_user_counts_sharded(csr)
+            totals_fn = lambda: distinct_user_counts_sharded(csr, mesh)
         else:
             csr = pack_padded_csr(
                 data.users,
@@ -280,6 +286,7 @@ class CooccurrenceAlgorithm(Algorithm):
             )
             user_ids, item_ids = data.user_ids, data.item_ids
             totals_fn = lambda: distinct_user_counts(csr)
+            mesh = None
         # fused cooc -> (LLR) -> top-k on the device; the self-cooccurrence
         # diagonal (= per-item distinct-user counts) comes from the O(nnz)
         # host pass, so the [items, items] matrix never leaves the device
@@ -296,6 +303,7 @@ class CooccurrenceAlgorithm(Algorithm):
             top_k=self.params.get_or("topK", 50),
             chunk=chunk,
             device=self.device,
+            mesh=mesh,
             **llr_kwargs,
         )
         if streamed:

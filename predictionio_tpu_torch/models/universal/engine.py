@@ -42,6 +42,7 @@ from predictionio_tpu_torch.controller.base import (
     DataSource,
     EvalInfo,
     SanityCheck,
+    mesh_or_none,
 )
 from predictionio_tpu_torch.data.store import (
     PEventStore,
@@ -240,6 +241,8 @@ class URAlgorithm(Algorithm):
     request construction raises.
     """
 
+    trains_on_mesh = True
+
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
         self.device = resolve_device(device)
@@ -330,24 +333,27 @@ class URAlgorithm(Algorithm):
         n_users, n_items = len(users_enc.ids), len(items_enc.ids)
 
         primary = src.event_names[0]
+        mesh = mesh_or_none(ctx)  # user rows sharded over data, summed
         primary_csr = build_cooc_csr_sharded(
-            sources[primary], n_users, n_items, max_len=max_len, chunk=chunk,
+            sources[primary], n_users, n_items, mesh, max_len=max_len, chunk=chunk,
         )
-        primary_counts = distinct_user_counts_sharded(primary_csr)
+        primary_counts = distinct_user_counts_sharded(primary_csr, mesh)
         indicators = {}
         for name in src.event_names:
             is_primary = name == primary
             csr = (
                 primary_csr if is_primary
                 else build_cooc_csr_sharded(
-                    sources[name], n_users, n_items, max_len=max_len, chunk=chunk,
+                    sources[name], n_users, n_items, mesh, max_len=max_len, chunk=chunk,
                 )
             )
             if csr.global_edges == 0 and not is_primary:
+                # GLOBAL emptiness (from the counts pass): every rank takes
+                # the same branch around the collectives below
                 continue
             col_counts = (
                 primary_counts if is_primary
-                else distinct_user_counts_sharded(csr)
+                else distinct_user_counts_sharded(csr, mesh)
             )
             indicators[name] = _invert_indicators(
                 *cooccurrence_indicators(
@@ -360,6 +366,7 @@ class URAlgorithm(Algorithm):
                     drop_diagonal=is_primary,
                     chunk=chunk,
                     device=self.device,
+                    mesh=mesh,
                 )
             )
         item_props = {

@@ -102,6 +102,19 @@ def gram_rhs_plain(
     ``alsSolver: "xla"`` path."""
     _check(indices, values, factors)
     g = factors[indices.long()].to(torch.float32)          # [R, L, K]
+    return gathered_products(g, values, alpha, implicit=implicit)
+
+
+def gathered_products(
+    g: torch.Tensor,
+    values: torch.Tensor,
+    alpha: float = 0.0,
+    *,
+    implicit: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Gram and rhs of already gathered f32 rows ``g [R, L, K]``
+    (``gram_rhs_plain`` after its gather; the model-sharded "xla"
+    half-step gathers its local hits and reduce-scatters them first)."""
     if implicit:
         w = values * alpha
         gram = torch.bmm((g * w.unsqueeze(-1)).transpose(1, 2), g)

@@ -20,7 +20,7 @@ raise):
 Without a mesh the reference's ``shard_examples`` weighs every example
 1, so its weighted means and masked counts are plain ones here. A
 ``mesh`` spreads training over several devices, which the port does not
-do yet: it raises (ROADMAP.md Queue A item 8). The model dataclasses are
+do yet: it raises (ROADMAP.md slice 20). The model dataclasses are
 host numpy and copied.
 """
 
@@ -37,7 +37,8 @@ from predictionio_tpu_torch.utils.device import resolve_device
 
 MESH_NOT_PORTED = (
     "a device mesh spreads training over several devices, which the port "
-    "does not do yet (ROADMAP.md Queue A item 8); train on one device"
+    "does not do yet for the classifiers and k-means (ROADMAP.md slice 20); "
+    "train on one device"
 )
 
 

@@ -17,13 +17,15 @@ exact: the counts equal the reference's bit for bit.
 
 Departures from the reference, none of which changes a value:
 
-- One device, so the reference's ``shard_map`` over the mesh's ``data``
-  axis and its ``psum`` collapse to the single accumulator. A
-  ``ShardedPaddedCSR`` (``parallel/reader.py``, the streaming reader's
-  CSR) is taken as the reference takes it (``:171-194``): its layout
-  held to ``cooc_global_rows`` and never mixed with a full CSR; at one
-  process its ``local`` block is the whole padded layout, so it goes up
-  as it is.
+- The reference's ``shard_map`` over the mesh's ``data`` axis and its
+  ``psum``: a ``ShardedPaddedCSR`` (``parallel/reader.py``, the
+  streaming reader's CSR) is taken as the reference takes it
+  (``:171-194``), its layout held to ``cooc_global_rows`` for ``mesh``
+  and never mixed with a full CSR. Each rank accumulates its own user
+  rows (its ``local`` block, already padded to whole chunks), and over a
+  mesh an all-reduce over ``data`` sums the accumulators (counts below
+  2^24, so the f32 sum is exact and equals one process's). Without a
+  mesh a full CSR or the one-process sharded CSR goes up as it is.
 - The LLR, the diagonal drop and the per-row top-k run over row blocks of
   the accumulator (``indicators_from_counts``): the reference's
   whole-matrix temporaries (``k12``, ``k21``, ``k22``, four ``_xlogx``
@@ -86,16 +88,19 @@ def cooccurrence_counts(
     other: PaddedCSR | None = None,
     chunk: int = 4096,
     device=None,
+    mesh=None,
 ) -> torch.Tensor:
     """``A_primaryᵀ @ A_other`` as an ``[items_p, items_o]`` f32 tensor
     on ``device``: the CSRs go up once, then fixed ``chunk``-user blocks
     are scattered to one-hot rows and their products accumulated (the
     reference's ``lax.scan`` body). The user rows pad to a whole number of
     chunks with sentinel rows; a ``ShardedPaddedCSR`` pair comes padded
-    so by ``build_cooc_csr_sharded`` for the same ``chunk``, or raises."""
+    so by ``build_cooc_csr_sharded`` for the same ``chunk`` and ``mesh``,
+    or raises; over a mesh each rank accumulates its rows and the
+    accumulators are summed over ``data``."""
     from predictionio_tpu_torch.parallel.reader import ShardedPaddedCSR, cooc_global_rows
 
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     other = _normalize(primary, other)
     sharded = isinstance(primary, ShardedPaddedCSR)
     if sharded != isinstance(other, ShardedPaddedCSR):
@@ -105,7 +110,7 @@ def cooccurrence_counts(
         )
     if sharded:
         rows = primary.global_rows
-        expect = cooc_global_rows(primary.num_rows, None, chunk)
+        expect = cooc_global_rows(primary.num_rows, mesh, chunk)
         if rows != expect or other.global_rows != rows:
             raise ValueError(
                 f"sharded CSR was built for a different mesh/chunk layout "
@@ -113,7 +118,9 @@ def cooccurrence_counts(
                 f"{expect}); rebuild with build_cooc_csr_sharded(mesh=..., "
                 f"chunk={chunk})"
             )
-        chunk = max(1, min(chunk, rows))
+        local_rows = primary.row_hi - primary.row_lo
+        chunk = max(1, min(chunk, local_rows))
+        rows = local_rows
     else:
         phys_rows = max(primary.indices.shape[0], other.indices.shape[0])
         chunk = max(1, min(chunk, phys_rows))
@@ -121,7 +128,7 @@ def cooccurrence_counts(
     self_cooc = other is primary
 
     def upload(csr):
-        if sharded:  # one process: the local rows are all ``rows`` rows
+        if sharded:  # this rank's rows, padded to whole chunks by the reader
             idx, msk = csr.local.indices, csr.local.mask
         else:
             idx, msk = _pad_rows_sentinel(csr, rows)
@@ -137,6 +144,10 @@ def cooccurrence_counts(
         b = a if self_cooc else _dense_onehot(
             idx_o[start:stop], msk_o[start:stop], other.num_cols)
         acc.addmm_(a.t(), b)
+    if sharded and mesh is not None:
+        from predictionio_tpu_torch.parallel.mesh import all_reduce_sum
+
+        acc = all_reduce_sum(mesh, ("data",), acc)
     return acc
 
 
@@ -145,12 +156,13 @@ def cooccurrence(
     other: PaddedCSR | None = None,
     chunk: int = 4096,
     device=None,
+    mesh=None,
 ) -> np.ndarray:
     """``A_primaryᵀ @ A_other`` over shared user rows -> [items_p, items_o].
 
     ``other=None`` means self-cooccurrence. Both CSRs must be row-indexed
     by the same user universe (same ``num_rows``)."""
-    return _run_cooc(primary, _normalize(primary, other), chunk, device)
+    return _run_cooc(primary, _normalize(primary, other), chunk, device, mesh=mesh)
 
 
 #: the f32 coefficients of the reference's log (Cephes ``logf``)
@@ -266,13 +278,15 @@ def _run_cooc(
     total: float = 0.0,
     row_totals=None,
     col_totals=None,
+    mesh=None,
 ):
-    """Accumulate on ``device``, then fetch: ``top_k == 0`` returns the
+    """Accumulate on ``device`` (over ``mesh``: summed over its ranks),
+    then fetch: ``top_k == 0`` returns the
     raw accumulator, otherwise the (optionally LLR-weighted) per-row
     top-k indicators, so the ``[items, items]`` matrix never reaches the
     host."""
-    device = resolve_device(device)
-    acc = cooccurrence_counts(primary, other, chunk, device)
+    device = mesh.device if mesh is not None else resolve_device(device)
+    acc = cooccurrence_counts(primary, other, chunk, device, mesh=mesh)
     if top_k == 0:
         return acc.cpu().numpy()
     to_dev = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
@@ -326,8 +340,10 @@ def cooccurrence_indicators(
     drop_diagonal: bool | None = None,
     chunk: int = 4096,
     device=None,
+    mesh=None,
 ):
-    """Fused cooc -> (optional LLR) -> per-row top-k, on ``device``.
+    """Fused cooc -> (optional LLR) -> per-row top-k, on ``device``
+    (``mesh``: the sharded reader's CSRs, summed over the data axis).
 
     Returns ``(indices [items_p, k], values [items_p, k])`` like
     :func:`top_k_sparsify`. Providing ``llr_row_totals``/``llr_col_totals``
@@ -354,6 +370,7 @@ def cooccurrence_indicators(
         total=float(total or 0.0),
         row_totals=llr_row_totals,
         col_totals=llr_col_totals,
+        mesh=mesh,
     )
     return np.asarray(idx), np.asarray(vals)
 

@@ -18,7 +18,7 @@ The reference pads the rows with zero-weight rows to a multiple of
 ``8 x`` its mesh's data axis; those rows count nothing, so without a
 mesh the port leaves them out (``tests/test_torch_e2.py`` holds a fit
 of 1,001 rows to the reference's padded one). A ``mesh`` raises
-(ROADMAP.md Queue A item 8). ``x`` is uploaded once per fit; each Lloyd
+(ROADMAP.md slice 20). ``x`` is uploaded once per fit; each Lloyd
 iteration syncs once, for its cost.
 """
 

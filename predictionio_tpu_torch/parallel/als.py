@@ -1,6 +1,6 @@
-"""Alternating Least Squares on one card.
+"""Alternating Least Squares on the card, in one process or several.
 
-Port of ``predictionio_tpu/parallel/als.py`` for a single device:
+Port of ``predictionio_tpu/parallel/als.py``:
 
 - interactions live as padded CSR blocks (``ops.ragged``), optionally
   LENGTH-BUCKETED per side (``_plan_buckets``): each side's entities are
@@ -21,13 +21,37 @@ Port of ``predictionio_tpu/parallel/als.py`` for a single device:
   in place: it never reads that side, so the update is exact, and no
   per-iteration concatenation or zero-row append is needed.
 
+Over a ``parallel.mesh.Mesh`` of ``torch.distributed`` ranks (``mesh=``;
+one rank per process, reference ``:583-790``) every bucket's rows shard
+over the ``data`` axis (``_Sharding``):
+
+- ``factor_sharding="replicated"``: every rank holds both whole tables.
+  It solves its data shard of each bucket through B1 and the batched
+  solve, and an ``all_gather`` over ``data`` rebuilds the bucket's rows
+  on every rank.
+- ``factor_sharding="model"`` (ALX): each rank holds its ``model``-axis
+  slice ``[S/m, K]`` of both tables, plus a zero row
+  (``_sharded_block_body``, reference ``:490``). With ``solver`` "auto"
+  or "pallas" the bucket's indices remap to the slice's local rows, the
+  out-of-slice ones (the padding sentinel among them) to the trailing
+  zero row; B1 runs on the local ``[S/m + 1, K]`` table, and a
+  reduce-scatter over ``model`` sums the partial Gram/rhs and hands each
+  rank its ``rows/m`` slice to solve. With "xla" the local hits are
+  gathered and the ``[rows, L, K]`` gather is reduce-scattered before
+  the products. An ``all_gather`` over the mesh then hands each rank the
+  bucket's solved rows, of which it keeps its slice. Implicit mode's YtY
+  is the sum over ``model`` of the slices' Grams.
+
+A process group that fails, or a collective that fails, raises: nothing
+falls back to one process or to a plain kernel. With no mesh (or a 1 x 1
+one) the collectives are the identity and the fit is the one-card fit.
+
 ``als_fit_streamed`` runs the same half-steps over a ``parallel.stream``
 block store (``alsFeed: "streamed"``): both factor tables stay on the
 device and the padded-CSR blocks stream in from disk, two pinned host
 staging buffers and a copy stream overlapping block N+1's copy with
-block N's B1 launch and solve. Multi-device factor sharding
-(``factor_sharding="model"``), a mesh and several processes are not
-ported (``refuse_multi_gpu``: ROADMAP.md Queue A item 8).
+block N's B1 launch and solve. Over a mesh each rank reads only its data
+shard's rows of each block.
 
 Explicit objective:  sum_obs (r - u.v)^2 + lam * (|U|^2 + |V|^2)
 Implicit objective (Hu-Koren-Volinsky): confidence c = 1 + alpha*r on
@@ -49,9 +73,21 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from predictionio_tpu_torch.ops.als_gram import gram_rhs, gram_rhs_plain, half_step_bytes
+from predictionio_tpu_torch.ops.als_gram import (
+    gathered_products,
+    gram_rhs,
+    gram_rhs_plain,
+    half_step_bytes,
+)
 from predictionio_tpu_torch.ops.linalg import batched_spd_solve
 from predictionio_tpu_torch.ops.ragged import PaddedCSR, pack_padded_csr, round_up
+from predictionio_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_rows,
+    all_reduce_max,
+    all_reduce_sum,
+    reduce_scatter_rows,
+)
 from predictionio_tpu_torch.utils.device import resolve_device
 
 
@@ -66,9 +102,13 @@ class ALSConfig:
     max_len: int | None = None  # per-row history cap
     dtype: str = "float32"     # factor dtype; Grams always accumulate f32
     buckets: int = 1           # length buckets per side (1 = single block)
-    #: "replicated": one device holds both factor tables. "model" (ALX
-    #: factor sharding over several devices) is not ported and raises.
-    #: The template's "auto" resolves to "replicated" on one card.
+    #: "replicated": every rank holds both factor tables. "model": ALX
+    #: block model-parallelism -- factors shard over the mesh's ``model``
+    #: axis, each rank gathers only its local hits, and a reduce-scatter
+    #: over ``model`` completes the sum; per-rank factor memory drops to
+    #: total_slots/model_axis rows. Requires build_als_data(model_shards=m).
+    #: The templates' "auto" picks "model" on a mesh whose model axis is
+    #: above 1.
     factor_sharding: str = "replicated"
     #: half-step tail: "auto" and "pallas" run the fused gather->Gram
     #: kernel (``ops.als_gram.gram_rhs``: CUDA on the card, its plain
@@ -277,8 +317,10 @@ def build_als_data(
     """Pack COO interactions into both (bucketed) CSR orientations.
 
     Every bucket's row count is padded to a multiple of 8 * num_shards *
-    model_shards (the reference's shard arithmetic; one card uses 1 and
-    1). With ``config.buckets == 1`` the layout is the single-block one.
+    model_shards, so each data shard is equal and, with
+    ``factor_sharding="model"``, splits evenly again over the model
+    axis; one card uses 1 and 1. With ``config.buckets == 1`` the layout
+    is the single-block one.
     """
     users = np.asarray(users, dtype=np.int64)
     items = np.asarray(items, dtype=np.int64)
@@ -309,37 +351,6 @@ def build_als_data(
         plan_u.total_slots, plan_u.slot_of, config.max_len, rm,
     )
     return ALSData(by_row=by_row, by_col=by_col)
-
-
-#: what a mesh, model-sharded factors or a second process raise
-MULTI_GPU_NOT_PORTED = (
-    "is not ported yet: ROADMAP.md Queue A item 8 (multi-GPU); the port "
-    "trains in one process on one card"
-)
-
-
-def world_size() -> int:
-    """The ``torch.distributed`` world size, 1 when no group is up."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
-
-
-def refuse_multi_gpu(mesh=None, model_shards: int = 1) -> None:
-    """One process on one card, or ``NotImplementedError``: a device
-    ``mesh``, a model axis above 1 and a world size above 1 wait on the
-    multi-GPU half of ROADMAP.md Queue A item 8."""
-    if mesh is not None:
-        raise NotImplementedError(f"a device mesh {MULTI_GPU_NOT_PORTED} (mesh=None)")
-    if model_shards > 1:
-        raise NotImplementedError(
-            f"model_shards={model_shards} (model-sharded factors) {MULTI_GPU_NOT_PORTED}"
-        )
-    if world_size() > 1:
-        raise NotImplementedError(
-            f"a world size of {world_size()} processes {MULTI_GPU_NOT_PORTED}"
-        )
 
 
 def _eye(rank: int, device) -> torch.Tensor:
@@ -398,6 +409,143 @@ def solve_rows(gram_fn, block, opp_full, yty, config: ALSConfig, out_dtype,
         if config.implicit:
             return _finish_implicit(gram, rhs, yty, config.reg, config.rank, out_dtype)
         return _finish_explicit(gram, rhs, n_obs, config.reg, config.rank, out_dtype)
+
+
+def _sharded_block_body(gram_fn, block, opp_local, yty, config: ALSConfig, out_dtype,
+                        sharding: "_Sharding", mark=_no_mark):
+    """One bucket's half-step with MODEL-SHARDED factors (reference
+    ``parallel/als.py:490``): ``block`` holds this rank's data shard of
+    the bucket's rows, ``opp_local`` its ``[S/m + 1, K]`` slice of the
+    opposite table (zero row last), ``sharding`` the fit's. Returns this
+    rank's ``rows/m`` slice of the shard's solved rows; in mesh order the
+    slices are the bucket's rows.
+
+    The fused kernel (``gram_fn`` is ``gram_rhs``): indices inside the
+    slice remap to its local rows, every other one (the padding sentinel
+    too, which lies outside every slice) to the local zero row -- the
+    reference's ``safe = where(hit, loc, s_m)`` -- so B1 accumulates the
+    slice's partial Gram/rhs, and a reduce-scatter over ``model`` sums
+    the partials and hands each rank its rows. The unfused path
+    (``gram_rhs_plain``, ``solver="xla"``) gathers the local hits, zero
+    elsewhere, reduce-scatters the ``[rows, L, K]`` gather (each entry is
+    nonzero on one slice only, so the sum is exact) and takes the
+    products of its rows."""
+    idx, val, n_obs = block
+    m, mi = sharding.m, sharding.mi
+    s_m = opp_local.shape[0] - 1
+    rows = idx.shape[0] // m
+    loc = idx.long() - mi * s_m
+    hit = (loc >= 0) & (loc < s_m)
+    with mark("als.gram_rhs"):
+        if gram_fn is gram_rhs:
+            safe = torch.where(hit, loc, s_m).to(torch.int32)
+            gram, rhs = gram_fn(safe, val, opp_local, config.alpha, implicit=config.implicit)
+            gram, rhs = sharding.model_sum(gram), sharding.model_sum(rhs)
+        else:
+            g = opp_local[loc.clamp(0, s_m - 1)].to(torch.float32) * hit.unsqueeze(-1)
+            g = sharding.model_sum(g)
+            gram, rhs = gathered_products(g, val[mi * rows:(mi + 1) * rows], config.alpha,
+                                          implicit=config.implicit)
+    with mark("als.solve"):
+        if config.implicit:
+            return _finish_implicit(gram, rhs, yty, config.reg, config.rank, out_dtype)
+        n_s = n_obs[mi * rows:(mi + 1) * rows]
+        return _finish_explicit(gram, rhs, n_s, config.reg, config.rank, out_dtype)
+
+
+class _Sharding:
+    """Where a fit's rows and factors live on ``mesh`` (None: one rank).
+
+    ``d``/``di`` and ``m``/``mi`` are the data and model axes' sizes and
+    this rank's positions. A block of ``R`` rows gives this rank its data
+    shard's rows ``local_rows(R)``; ``table`` is this rank's buffer of a
+    side (the whole ``[S + 1, K]``, or with ``model`` its ``[S/m + 1,
+    K]`` slice, zero row last); ``solve`` runs one block's half-step and
+    returns the block's solved rows, gathered from every rank that holds
+    a part; ``write`` keeps what of them lies in this rank's table;
+    ``to_host`` gathers a whole side (a collective when ``model``)."""
+
+    def __init__(self, mesh: Mesh | None, factor_sharding: str):
+        self.mesh = mesh
+        self.d = mesh.axis_size("data") if mesh is not None else 1
+        self.di = mesh.axis_index("data") if mesh is not None else 0
+        self.m = mesh.axis_size("model") if mesh is not None else 1
+        self.mi = mesh.axis_index("model") if mesh is not None else 0
+        self.model = factor_sharding == "model"
+        self.ranks = mesh.size if mesh is not None else 1
+
+    def check(self, side, name: str, rows_per_block) -> None:
+        """The reference's divisibility guarantee (``:987-1008``)."""
+        if self.model:
+            if side.total_slots % self.m or any(r % (self.d * self.m) for r in rows_per_block):
+                raise ValueError(
+                    f"factor_sharding='model' needs every {name} bucket's padded rows "
+                    f"divisible by data*model = {self.d}*{self.m}; build the data with "
+                    f"build_als_data(..., num_shards={self.d}, model_shards={self.m})"
+                )
+        elif any(r % self.d for r in rows_per_block):
+            raise ValueError(
+                f"every {name} bucket's padded rows must shard evenly over the "
+                f"{self.d}-way data axis; build the data with "
+                f"build_als_data(..., num_shards={self.d})"
+            )
+
+    def local_rows(self, rows: int) -> tuple[int, int]:
+        per = rows // self.d
+        return self.di * per, (self.di + 1) * per
+
+    def table(self, slot_factors: np.ndarray, dtype, device) -> torch.Tensor:
+        if self.model:
+            s_m = slot_factors.shape[0] // self.m
+            slot_factors = slot_factors[self.mi * s_m:(self.mi + 1) * s_m]
+        return _side_buffer(slot_factors, dtype, device)
+
+    def model_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every model rank's ``x``, this rank's ``1/m`` of its
+        rows (the reduce-scatter over ``model``)."""
+        return reduce_scatter_rows(self.mesh, ("model",), x) if self.m > 1 else x
+
+    def yty(self, opp: torch.Tensor) -> torch.Tensor:
+        g = _factors_yty(opp[:-1])
+        return all_reduce_sum(self.mesh, ("model",), g) if self.model and self.m > 1 else g
+
+    def solve(self, gram_fn, block, opp, yty, config: ALSConfig, dtype, mark) -> torch.Tensor:
+        if self.model:
+            rows = _sharded_block_body(gram_fn, block, opp, yty, config, dtype, self, mark)
+            axes = ("data", "model")
+        else:
+            rows = solve_rows(gram_fn, block, opp, yty, config, dtype, mark)
+            axes = ("data",)
+        if self.ranks == 1:
+            return rows
+        # f32 on the wire: bf16 rows round-trip exactly
+        return all_gather_rows(self.mesh, axes, rows.to(torch.float32))
+
+    def write(self, buf: torch.Tensor, offset: int, rows: torch.Tensor) -> None:
+        if not self.model:
+            buf[offset:offset + rows.shape[0]] = rows
+            return
+        s_m = buf.shape[0] - 1
+        lo = max(offset, self.mi * s_m)
+        hi = min(offset + rows.shape[0], (self.mi + 1) * s_m)
+        if lo < hi:
+            buf[lo - self.mi * s_m:hi - self.mi * s_m] = rows[lo - offset:hi - offset]
+
+    def to_host(self, buf: torch.Tensor, side) -> np.ndarray:
+        """A side's f32 factors in original entity order (the dtype knob
+        is a training layout: checkpoints and serving stay f32)."""
+        full = buf[:-1].to(torch.float32)
+        if self.model and self.m > 1:
+            full = all_gather_rows(self.mesh, ("model",), full)
+        return full.cpu().numpy()[side.slot_of]
+
+    def any_rank(self, flag: bool) -> bool:
+        """``flag`` on some rank: the ranks take a collective branch
+        together (a rank-0-only checkpoint callback must not leave the
+        others out of the gathers it needs)."""
+        if self.ranks == 1:
+            return flag
+        return bool(all_reduce_max(self.mesh, int(flag)))
 
 
 @dataclass
@@ -523,6 +671,55 @@ def _side_buffer(slot_factors: np.ndarray, dtype, device) -> torch.Tensor:
     return torch.from_numpy(host.astype(np.float32)).to(device=device, dtype=dtype)
 
 
+def _fit_device(mesh: Mesh | None, device) -> torch.device:
+    """The fit's device: the mesh's when one is given (a ``device`` of
+    another kind is refused), else ``resolve_device(device)``."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and resolve_device(device).type != mesh.device.type:
+        raise ValueError(f"the mesh runs on {mesh.device}; a fit on {device} cannot use it")
+    return mesh.device
+
+
+def _check_config(config: ALSConfig) -> None:
+    if config.dtype not in _DTYPES:
+        # e.g. an integer dtype would truncate the N(0, 1/sqrt(K)) init to
+        # all zeros -- a fixed point of the update
+        raise ValueError(
+            f"ALSConfig.dtype must be 'float32' or 'bfloat16', got"
+            f" {config.dtype!r}"
+        )
+    if config.factor_sharding not in ("replicated", "model"):
+        raise ValueError(
+            "ALSConfig.factor_sharding must be 'replicated' or 'model', "
+            f"got {config.factor_sharding!r} (the template resolves 'auto')"
+        )
+
+
+def _local_blocks(side: BucketedCSR, sharding: _Sharding, device) -> list[tuple]:
+    """``(offset, rows, (indices, values, n_obs))`` of each bucket: its
+    first slot, its global row count and this rank's data shard of it on
+    the device. Sides built by the sharded reader (``global_rows`` set)
+    already hold only this rank's rows."""
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    out, off = [], 0
+    for b, block in enumerate(side.blocks):
+        rows = block.indices.shape[0] if side.global_rows is None else side.global_rows[b]
+        if side.global_rows is None:
+            lo, hi = sharding.local_rows(rows)
+            idx, val, mask = block.indices[lo:hi], block.values[lo:hi], block.mask[lo:hi]
+        elif block.indices.shape[0] * sharding.d != rows:
+            raise ValueError(
+                f"a sharded reader block of {block.indices.shape[0]} rows is not the "
+                f"{sharding.d}-way data shard of {rows}; build it with this mesh"
+            )
+        else:
+            idx, val, mask = block.indices, block.values, block.mask
+        out.append((off, rows, (put(idx), put(val), put(mask.sum(axis=1)))))
+        off += rows
+    return out
+
+
 def als_fit(
     data: ALSData,
     config: ALSConfig,
@@ -532,18 +729,28 @@ def als_fit(
     init: tuple[np.ndarray, np.ndarray] | None = None,
     start_iteration: int = 0,
     telemetry=None,
+    *,
+    mesh: Mesh | None = None,
 ) -> ALSModel:
     """Run ALS for ``config.iterations``; returns host-side f32 factors in
     original entity order.
 
-    ``device`` is ``cuda`` unless the caller names ``"cpu"``.
+    ``device`` is ``cuda`` unless the caller names ``"cpu"``; with a
+    ``mesh`` (``parallel.mesh.Mesh``, reference ``:896``) the fit runs on
+    every rank of it, on the mesh's device, each rank solving its data
+    shard of each bucket (``_Sharding``), and every rank returns the
+    whole model. ``data`` is ``build_als_data``'s (every rank packed the
+    same edges; it takes its rows) or the sharded reader's (this rank's
+    rows only); either way packed with ``num_shards`` = the data axis and,
+    for ``factor_sharding="model"``, ``model_shards`` = the model axis.
     ``callback(iteration, user_factors, item_factors)`` runs every
     ``callback_interval`` iterations (skipping the final one, whose result
     als_fit returns anyway) with HOST numpy copies in ORIGINAL entity
-    order (the checkpointing hook). ``init``/``start_iteration`` resume
-    from checkpointed factors (original order): the remaining iterations
-    run, which is exact for ALS (each iteration depends only on the
-    previous factors). Factors are stored in ``config.dtype`` (f32 or
+    order (the checkpointing hook; on a mesh the ranks gather the copies
+    together when any rank has a callback). ``init``/``start_iteration``
+    resume from checkpointed factors (original order): the remaining
+    iterations run, which is exact for ALS (each iteration depends only on
+    the previous factors). Factors are stored in ``config.dtype`` (f32 or
     bf16) on the device; Gram and solve run in f32.
 
     ``telemetry`` (any object with ``record_step(iteration, seconds)``)
@@ -552,26 +759,14 @@ def als_fit(
     iteration (``als.iteration``) and each half-step's Gram and solve as
     ranges for a profiler trace.
     """
-    device = resolve_device(device)
-    if config.dtype not in _DTYPES:
-        # e.g. an integer dtype would truncate the N(0, 1/sqrt(K)) init to
-        # all zeros -- a fixed point of the update
-        raise ValueError(
-            f"ALSConfig.dtype must be 'float32' or 'bfloat16', got"
-            f" {config.dtype!r}"
-        )
-    if config.factor_sharding == "model":
-        raise NotImplementedError(
-            "factor_sharding='model' shards factors over several devices, "
-            "which the port does not do yet; use 'replicated'"
-        )
-    if config.factor_sharding != "replicated":
-        raise ValueError(
-            "ALSConfig.factor_sharding must be 'replicated' or 'model', "
-            f"got {config.factor_sharding!r} (the template resolves 'auto')"
-        )
+    device = _fit_device(mesh, device)
+    _check_config(config)
     gram_fn = half_step_fn(config.solver)
     dtype = _DTYPES[config.dtype]
+    sharding = _Sharding(mesh, config.factor_sharding)
+    for side, name in ((data.by_row, "user"), (data.by_col, "item")):
+        sharding.check(side, name, side.global_rows or
+                       [b.indices.shape[0] for b in side.blocks])
 
     if init is not None:
         users0 = _scatter_side_init(data.by_row, init[0])
@@ -580,28 +775,22 @@ def als_fit(
         users0 = _initial_side_factors(data.by_row, config.rank, config.seed)
         items0 = _initial_side_factors(data.by_col, config.rank, config.seed + 1)
 
-    u_blocks = device_blocks(data.by_row, device)
-    i_blocks = device_blocks(data.by_col, device)
-    users = _side_buffer(users0, dtype, device)
-    items = _side_buffer(items0, dtype, device)
+    u_blocks = _local_blocks(data.by_row, sharding, device)
+    i_blocks = _local_blocks(data.by_col, sharding, device)
+    users = sharding.table(users0, dtype, device)
+    items = sharding.table(items0, dtype, device)
     zero_yty = torch.zeros((config.rank, config.rank), device=device)
     # a telemetered run names each iteration and each half-step's Gram and
     # solve in a profiler trace (``pio train --profile``)
     mark = torch.profiler.record_function if telemetry is not None else _no_mark
+    host_copies = sharding.any_rank(callback is not None)
 
     def solve_side(blocks, buf, opp):
         # the global Gram excludes the zero row; phantom rows are zero too
-        yty = _factors_yty(opp[:-1]) if config.implicit else zero_yty
-        off = 0
-        for block in blocks:
-            rows = solve_rows(gram_fn, block, opp, yty, config, dtype, mark)
-            buf[off : off + rows.shape[0]] = rows
-            off += rows.shape[0]
-
-    def to_host(buf, side: BucketedCSR) -> np.ndarray:
-        # f32 on the host regardless of the device dtype: checkpoints and
-        # serving stay dtype-stable across bf16 runs
-        return buf[:-1].to(torch.float32).cpu().numpy()[side.slot_of]
+        yty = sharding.yty(opp) if config.implicit else zero_yty
+        for off, rows, block in blocks:
+            sharding.write(buf, off, sharding.solve(gram_fn, block, opp, yty, config,
+                                                    dtype, mark))
 
     for it in range(start_iteration, config.iterations):
         t0 = time.perf_counter()
@@ -613,17 +802,18 @@ def als_fit(
                     torch.cuda.synchronize(device)
                 telemetry.record_step(it, time.perf_counter() - t0)
         if (
-            callback is not None
+            host_copies
             and (it + 1) % callback_interval == 0
             and it + 1 < config.iterations
         ):
-            callback(it, to_host(users, data.by_row), to_host(items, data.by_col))
+            u_host = sharding.to_host(users, data.by_row)
+            i_host = sharding.to_host(items, data.by_col)
+            if callback is not None:
+                callback(it, u_host, i_host)
 
-    # the serving model is always f32 on the host (the dtype knob is a
-    # TRAINING layout)
     return ALSModel(
-        user_factors=to_host(users, data.by_row),
-        item_factors=to_host(items, data.by_col),
+        user_factors=sharding.to_host(users, data.by_row),
+        item_factors=sharding.to_host(items, data.by_col),
     )
 
 
@@ -632,10 +822,12 @@ def als_fit(
 # --------------------------------------------------------------------------
 
 
-def _check_block_layout(data) -> None:
+def _check_block_layout(data, sharding: _Sharding) -> None:
     """Every block of a store must tile its side's factor table in whole
-    multiples of the store's row multiple (8 x its data axis), inside the
-    table: B1 writes each block's solved rows at ``spec.offset``."""
+    multiples of the store's row multiple (8 x its data axis, x its model
+    axis), inside the table: B1 writes each block's solved rows at
+    ``spec.offset``. Over a mesh every block shards evenly over its data
+    axis (and the model axis too, with ``factor_sharding="model"``)."""
     rm = int(data.row_multiple)
     for side in (data.by_row, data.by_col):
         for spec in side.specs:
@@ -652,6 +844,14 @@ def _check_block_layout(data) -> None:
                     f"{spec.offset}..{spec.offset + spec.rows} of a "
                     f"{side.total_slots}-slot table; rebuild the block store"
                 )
+        try:
+            sharding.check(side, {"u": "user", "i": "item"}[side.name],
+                           [spec.rows for spec in side.specs])
+        except ValueError as exc:
+            raise ValueError(
+                f"{exc}; for a block store: build_streamed_als_data(..., "
+                f"num_shards={sharding.d}, model_shards={sharding.m if sharding.model else 1})"
+            ) from None
 
 
 @dataclass
@@ -667,7 +867,9 @@ class _Block:
 
 
 class _BlockFeeder:
-    """Host -> device feed of one fit's blocks.
+    """Host -> device feed of one fit's blocks (over a mesh: this rank's
+    data shard of each block's rows, read from the block's files at
+    their offset).
 
     Two staging buffers, each sized to the largest block, take every
     block's files by ``readinto`` (``StreamedSide.load_block_into``). On
@@ -681,20 +883,23 @@ class _BlockFeeder:
     read them. Blocks pinned under ``device_budget_bytes`` are their own
     allocations (on the CPU, copies of the staging buffer)."""
 
-    def __init__(self, data, device, implicit: bool, stats, budget: int):
+    def __init__(self, data, device, implicit: bool, stats, budget: int,
+                 sharding: _Sharding):
         from predictionio_tpu_torch.parallel.stream import FeedAccounting
 
         self.device = device
         self.implicit = implicit
         self.stats = stats
+        self.sharding = sharding
         self.accounting = FeedAccounting()
         self.pinned: dict = {}
         self.budget_left = int(budget)
         self.cuda = device.type == "cuda"
+        # this rank's rows of a block: its data shard (1/d of each stream)
         cap = max(
             s.idx_bytes() + s.val_bytes() + (0 if implicit else s.nobs_bytes())
             for side in (data.by_row, data.by_col) for s in side.specs
-        )
+        ) // sharding.d
         if self.cuda:
             self.staging = [torch.empty(cap, dtype=torch.uint8, pin_memory=True)
                             for _ in range(2)]
@@ -721,7 +926,8 @@ class _BlockFeeder:
         self.slot ^= 1
         if self.copied[k] is not None:
             self.copied[k].synchronize()  # the buffer's last copy has landed
-        idx, val, nobs = side.load_block_into(spec, self.views[k], with_nobs=not self.implicit)
+        idx, val, nobs = side.load_block_into(spec, self.views[k], with_nobs=not self.implicit,
+                                              rows=self.sharding.local_rows(spec.rows))
         # B1 does not bounds-check: a torn or foreign store stops here
         if int(idx.view(np.uint32).max()) > opp_slots:
             raise ValueError(
@@ -805,20 +1011,31 @@ def als_fit_streamed(
     telemetry=None,
     device_budget_bytes: int = 0,
     stats=None,
+    *,
+    mesh: Mesh | None = None,
 ) -> ALSModel:
     """``als_fit`` as ALX device-resident epochs over a block store
     (``parallel.stream.StreamedALSData``; reference
     ``parallel/als.py:1217``).
 
     Both factor tables go on ``device`` once, as ``[S + 1, K]`` buffers
-    with the zero row last, and stay there. Each half-step computes the
-    opposite side's YtY once (implicit mode), then per block runs
-    ``solve_rows`` (B1 through ``ops.als_gram.gram_rhs``, then the batched
-    solve) and writes the rows into the side's buffer at ``spec.offset``.
-    The blocks stream from disk through ``_BlockFeeder`` one ahead of
-    the compute (at most two host blocks alive); a uniform-value block
-    ships no values and implicit mode no n_obs. Peak host memory is
-    O(block): the edge ceiling is the disk, not twice the RAM.
+    with the zero row last (with ``factor_sharding="model"`` each rank's
+    ``[S/m + 1, K]`` slices), and stay there. Each half-step computes the
+    opposite side's YtY once (implicit mode), then per block runs B1 and
+    the batched solve (``_Sharding.solve``: ``solve_rows``, or over a
+    model axis ``_sharded_block_body``) and writes the rows into the
+    side's buffer at ``spec.offset``. The blocks stream from disk through
+    ``_BlockFeeder`` one ahead of the compute (at most two host blocks
+    alive); a uniform-value block ships no values and implicit mode no
+    n_obs. Peak host memory is O(block): the edge ceiling is the disk,
+    not twice the RAM.
+
+    Over a ``mesh`` (the reference runs its streamed fit in one process
+    over a device mesh; here each rank is a process) every rank reads
+    only its data shard's rows of each block from the shared store, and
+    the block's solved rows are gathered as in ``als_fit``; the store
+    must be built with ``num_shards`` = the data axis (and
+    ``model_shards`` = the model axis for ``factor_sharding="model"``).
 
     The arithmetic per row is ``als_fit``'s, so at equal block shapes the
     factors equal the resident fit's; a bucket cut into smaller blocks
@@ -827,30 +1044,13 @@ def als_fit_streamed(
     ``device_budget_bytes`` > 0 keeps streamed blocks on the device, in
     first-seen order until the budget runs out, so later iterations ship
     only the rest. ``stats`` (``parallel.stream.StreamStats``) receives
-    the measured host -> device traffic.
-
-    ``factor_sharding="model"`` and a world size above 1 raise
-    ``NotImplementedError`` (ROADMAP.md Queue A item 8)."""
+    the measured host -> device traffic of this rank."""
     from predictionio_tpu_torch.parallel.stream import StreamStats
 
-    device = resolve_device(device)
-    if config.dtype not in _DTYPES:
-        raise ValueError(
-            f"ALSConfig.dtype must be 'float32' or 'bfloat16', got"
-            f" {config.dtype!r}"
-        )
-    if config.factor_sharding not in ("replicated", "model"):
-        raise ValueError(
-            "ALSConfig.factor_sharding must be 'replicated' or 'model', "
-            f"got {config.factor_sharding!r}"
-        )
-    if config.factor_sharding == "model":
-        raise NotImplementedError(
-            f"factor_sharding='model' (ALX factor sharding) {MULTI_GPU_NOT_PORTED}; "
-            "use 'replicated'"
-        )
-    refuse_multi_gpu()
-    _check_block_layout(data)
+    device = _fit_device(mesh, device)
+    _check_config(config)
+    sharding = _Sharding(mesh, config.factor_sharding)
+    _check_block_layout(data, sharding)
     gram_fn = half_step_fn(config.solver)
     dtype = _DTYPES[config.dtype]
     stats = stats if stats is not None else StreamStats()
@@ -861,42 +1061,44 @@ def als_fit_streamed(
     else:
         users0 = _initial_side_factors(data.by_row, config.rank, config.seed)
         items0 = _initial_side_factors(data.by_col, config.rank, config.seed + 1)
-    users = _side_buffer(users0, dtype, device)
-    items = _side_buffer(items0, dtype, device)
+    users = sharding.table(users0, dtype, device)
+    items = sharding.table(items0, dtype, device)
     del users0, items0
     zero_yty = torch.zeros((config.rank, config.rank), device=device)
     mark = torch.profiler.record_function if telemetry is not None else _no_mark
-    feeder = _BlockFeeder(data, device, bool(config.implicit), stats, device_budget_bytes)
+    feeder = _BlockFeeder(data, device, bool(config.implicit), stats, device_budget_bytes,
+                          sharding)
+    host_copies = sharding.any_rank(callback is not None)
 
-    def solve_side(side, name: str, buf, opp):
-        yty = _factors_yty(opp[:-1]) if config.implicit else zero_yty
-        for spec, block in feeder.feed(side, name, opp.shape[0] - 1):
-            rows = solve_rows(gram_fn, feeder.ready(spec, block), opp, yty, config,
-                              dtype, mark)
-            buf[spec.offset:spec.offset + spec.rows] = rows
+    def solve_side(side, name: str, buf, opp, opp_slots: int):
+        yty = sharding.yty(opp) if config.implicit else zero_yty
+        for spec, block in feeder.feed(side, name, opp_slots):
+            rows = sharding.solve(gram_fn, feeder.ready(spec, block), opp, yty, config,
+                                  dtype, mark)
+            sharding.write(buf, spec.offset, rows)
         stats.half_steps += 1
-
-    def to_host(buf, side) -> np.ndarray:
-        return buf[:-1].to(torch.float32).cpu().numpy()[side.slot_of]
 
     for it in range(start_iteration, config.iterations):
         t0 = time.perf_counter()
         with mark("als.iteration"):
-            solve_side(data.by_row, "u", users, items)
-            solve_side(data.by_col, "i", items, users)
+            solve_side(data.by_row, "u", users, items, data.by_col.total_slots)
+            solve_side(data.by_col, "i", items, users, data.by_row.total_slots)
             if telemetry is not None:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 telemetry.record_step(it, time.perf_counter() - t0)
         if (
-            callback is not None
+            host_copies
             and (it + 1) % callback_interval == 0
             and it + 1 < config.iterations
         ):
-            callback(it, to_host(users, data.by_row), to_host(items, data.by_col))
+            u_host = sharding.to_host(users, data.by_row)
+            i_host = sharding.to_host(items, data.by_col)
+            if callback is not None:
+                callback(it, u_host, i_host)
 
     stats.max_inflight_blocks = feeder.accounting.max_live
     return ALSModel(
-        user_factors=to_host(users, data.by_row),
-        item_factors=to_host(items, data.by_col),
+        user_factors=sharding.to_host(users, data.by_row),
+        item_factors=sharding.to_host(items, data.by_col),
     )

@@ -1,4 +1,4 @@
-"""The sharded host-side event reader, for one process on one card.
+"""The sharded host-side event reader, in one process or across several.
 
 Port of ``predictionio_tpu/parallel/reader.py``. The default ALS pack
 (``build_als_data``) holds the whole edge set in host arrays; this module
@@ -20,15 +20,18 @@ is the scaling path the templates' ``"reader": "streaming"`` takes:
    store of ``parallel.stream``, under the snapshot generation's
    ``blocks/`` directory by default, for ``als_fit_streamed``.
 
-The port runs one process on one card: where the reference reads a
-``mesh``, the port takes ``mesh=None``, its data axis is 1 and this
-process's rows are all rows, so a retained edge set is the whole one. A
-mesh, a model axis above 1 or a second ``torch.distributed`` process
-raises ``NotImplementedError`` (ROADMAP.md Queue A item 8); the
-signatures are the reference's, so the multi-GPU half fills in those
-branches only. The chunk sources, the encoders and ``ShardedPaddedCSR``
-are copies (``tests/test_torch_imports.py`` holds them to the
-originals).
+Over a ``parallel.mesh.Mesh`` of ``torch.distributed`` ranks every rank
+scans the same stream and derives the same plans; each retains only its
+``data``-axis shard of each bucket (``_local_row_range``: rank ``i`` of
+``d`` keeps rows ``[i * n / d, (i + 1) * n / d)``), and ``als_fit``
+takes the blocks as that rank's rows. ``mesh=None`` is one process: its
+rows are all rows. The cooccurrence CSR shards its user rows the same
+way, and ``distinct_user_counts_sharded`` sums the per-item counts over
+the data axis. ``snapshot_streamed_als_data`` packs the block store once
+for the mesh (rank 0 first; the others then find it built) with the
+mesh's shard counts. The chunk sources, the encoders and
+``ShardedPaddedCSR`` are copies (``tests/test_torch_imports.py`` holds
+them to the originals).
 """
 
 from __future__ import annotations
@@ -46,8 +49,8 @@ from predictionio_tpu_torch.parallel.als import (
     BucketedCSR,
     _BucketPlan,
     _plan_buckets,
-    refuse_multi_gpu,
 )
+from predictionio_tpu_torch.parallel.mesh import all_reduce_sum, barrier
 
 #: a chunk is (users, items, values, times-or-None), integer-encoded
 Chunk = tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray | None]
@@ -354,28 +357,38 @@ def snapshot_streamed_als_data(
     snapshot's GC reaps a stale block cache with its generation. Returns
     ``(users_enc, items_enc, StreamedALSData)`` with the encoders
     pre-filled as ``snapshot_coo_chunks`` fills them; feed the data to
-    ``parallel.als.als_fit_streamed``. ``mesh`` must be None and
-    ``model_shards`` 1 (one card)."""
+    ``parallel.als.als_fit_streamed``. Over a ``mesh`` the store is laid
+    out for its data axis and ``model_shards``; the mesh's rank 0 builds
+    it, and the other ranks, past a barrier, load it (a rank on another
+    host builds its own identical copy)."""
     from predictionio_tpu_torch.data.snapshot import snapshot_block_dir
     from predictionio_tpu_torch.parallel.stream import (
         DEFAULT_BLOCK_BYTES,
         build_streamed_als_data,
     )
 
-    refuse_multi_gpu(mesh, model_shards)
     source, users_enc, items_enc = snapshot_coo_chunks(
         snapshot, chunk_rows, default_value, event_values
     )
-    data = build_streamed_als_data(
-        source,
-        len(users_enc.vocab),
-        len(items_enc.vocab),
-        config,
-        cache_dir or snapshot_block_dir(snapshot),
-        block_rows=block_rows,
-        block_bytes=block_bytes or DEFAULT_BLOCK_BYTES,
-    )
-    return users_enc, items_enc, data
+
+    def build():
+        return build_streamed_als_data(
+            source,
+            len(users_enc.vocab),
+            len(items_enc.vocab),
+            config,
+            cache_dir or snapshot_block_dir(snapshot),
+            num_shards=int(mesh.shape["data"]) if mesh is not None else 1,
+            model_shards=model_shards,
+            block_rows=block_rows,
+            block_bytes=block_bytes or DEFAULT_BLOCK_BYTES,
+        )
+
+    if mesh is None or mesh.size == 1:
+        return users_enc, items_enc, build()
+    data = build() if mesh.rank == 0 else None
+    barrier(mesh)
+    return users_enc, items_enc, data if data is not None else build()
 
 
 def universe_pass(sources: dict[str, ChunkSource]) -> None:
@@ -390,10 +403,16 @@ def universe_pass(sources: dict[str, ChunkSource]) -> None:
 
 
 def _local_row_range(mesh, nrows: int) -> tuple[int, int]:
-    """This process's contiguous ``[lo, hi)`` slice of a row-sharded
-    dimension: one process on one card holds every row."""
-    refuse_multi_gpu(mesh)
-    return 0, nrows
+    """This process's contiguous ``[lo, hi)`` slice of a dimension
+    row-sharded over the mesh's ``data`` axis (the reference reads it off
+    the sharding; a rank here is one device): ``None`` holds every row."""
+    if mesh is None:
+        return 0, nrows
+    d, i = int(mesh.shape["data"]), mesh.axis_index("data")
+    if nrows % d:
+        raise ValueError(f"{nrows} rows do not shard over the {d}-way data axis")
+    per = nrows // d
+    return i * per, (i + 1) * per
 
 
 @dataclass
@@ -442,15 +461,15 @@ def build_als_data_sharded(
     mesh=None,
     model_shards: int = 1,
 ) -> ALSData:
-    """Two-pass, retention-bounded ALSData; ``mesh`` None is one process
-    on one card, whose rows are all rows.
+    """Two-pass, retention-bounded ALSData for ``mesh`` (None: one
+    process, whose rows are all rows).
 
-    Equivalent layout to ``build_als_data`` (same bucket plans, same slot
-    maps, same padded lengths) but each process keeps only the edges its
-    data-axis shard needs, per side. Feed the result straight to
-    ``als_fit``; the ``global_rows`` marker routes device placement
-    through make_array_from_process_local_data in the reference; at one
-    process it equals each block's own height.
+    Equivalent layout to ``build_als_data(..., num_shards=data axis,
+    model_shards)`` (same bucket plans, same slot maps, same padded
+    lengths) but each process keeps only the edges its data-axis shard
+    needs, per side. Feed the result straight to ``als_fit`` with the
+    same mesh; ``global_rows`` holds each bucket's global padded row
+    count, of which each block is this rank's share.
 
     ``num_users``/``num_items`` may be None: the store-backed path cannot
     know the distinct-entity counts before the first scan (the encoders
@@ -459,8 +478,8 @@ def build_als_data_sharded(
     given, they are lower-bounded by the stream (ids beyond them grow the
     arrays rather than crashing the bincount).
     """
-    refuse_multi_gpu(mesh, model_shards)
-    rm = 8
+    d = int(mesh.shape["data"]) if mesh is not None else 1
+    rm = 8 * d * max(model_shards, 1)
     nb = max(int(config.buckets), 1)
 
     # -- pass 1: per-entity counts (O(entities) memory) --------------------
@@ -562,12 +581,11 @@ class ShardedPaddedCSR:
 
 def cooc_global_rows(num_users: int, mesh, chunk: int) -> int:
     """The global padded row count of the sharded cooccurrence layout:
-    ``ops.cooccurrence``'s chunking, where each device scans the same
+    ``ops.cooccurrence``'s chunking, where each rank scans the same
     number of ``chunk``-row blocks, so rows = data * ceil(per_device /
-    chunk_eff) * chunk_eff. One card: data = 1. Builder and runner must
-    agree, so this is THE shared definition."""
-    refuse_multi_gpu(mesh)
-    data_size = 1
+    chunk_eff) * chunk_eff (``mesh`` None: data = 1). Builder and runner
+    must agree, so this is THE shared definition."""
+    data_size = int(mesh.shape["data"]) if mesh is not None else 1
     phys = max(round_up(num_users, 8), 8)
     per_device = -(-phys // data_size)
     chunk_eff = max(1, min(chunk, per_device))
@@ -651,15 +669,21 @@ def build_cooc_csr_sharded(
     )
 
 
-def distinct_user_counts_sharded(s: ShardedPaddedCSR) -> np.ndarray:
+def distinct_user_counts_sharded(s: ShardedPaddedCSR, mesh=None) -> np.ndarray:
     """Global per-item distinct-user counts from process-local rows.
-    User rows partition across processes, so the counts are additive;
-    one process holds every row, so its local counts are the global
-    ones (``ops.cooccurrence.distinct_user_counts`` of the full CSR)."""
+    User rows partition over the mesh's data axis, so the counts are
+    additive: the local counts summed over ``data`` reproduce
+    ``ops.cooccurrence.distinct_user_counts`` of the global CSR exactly
+    (``mesh`` None: the local counts are the global ones)."""
+    import torch
+
     from predictionio_tpu_torch.ops.cooccurrence import distinct_user_counts
 
-    refuse_multi_gpu()
-    return distinct_user_counts(s.local)
+    local = distinct_user_counts(s.local)
+    if mesh is None or mesh.axis_size("data") == 1:
+        return local
+    total = all_reduce_sum(mesh, ("data",), torch.from_numpy(local.astype(np.float64)))
+    return total.numpy().astype(np.float32)
 
 
 def array_coo_chunks(

@@ -30,9 +30,10 @@ A block whose real entries all carry one value stores no value file (the
 fit materializes ``full(const)`` on the device): padding slots gather the
 appended zero factor row, so their value is never read.
 
-``load_block_into`` reads a block straight into a caller's buffer (a
-numpy view of a pinned host tensor): the fit's two staging buffers take
-every block without a second host copy. ``prefetch_blocks`` drives
+``load_block_into`` reads a block, or a range of its rows, straight into
+a caller's buffer (a numpy view of a pinned host tensor): the fit's two
+staging buffers take every block without a second host copy, and a rank
+of a mesh reads only its data shard's rows. ``prefetch_blocks`` drives
 ``produce`` one block ahead of the consumer, and ``FeedAccounting``
 counts the host blocks alive at once (at most two).
 """
@@ -139,35 +140,42 @@ class StreamedSide:
         return idx, val, nobs
 
     def load_block_into(
-        self, spec: BlockSpec, buffer: np.ndarray, with_nobs: bool = True
+        self, spec: BlockSpec, buffer: np.ndarray, with_nobs: bool = True,
+        rows: tuple[int, int] | None = None,
     ) -> tuple[np.ndarray, np.ndarray | None, np.ndarray | None]:
         """``load_block``, read with ``readinto`` into ``buffer`` (a flat
         ``uint8`` array of at least ``idx_bytes + val_bytes + nobs_bytes``,
         e.g. a numpy view of a pinned host tensor): no second host copy.
-        Returns views of ``buffer``: ``(indices, values or None when const,
-        n_obs or None without ``with_nobs``)``. A file shorter than its
-        spec (a torn store) raises ``OSError``."""
+        ``rows=(lo, hi)`` reads only those rows of the block (a rank's
+        data shard of it), from their offset in each file. Returns views
+        of ``buffer``: ``(indices, values or None when const, n_obs or
+        None without ``with_nobs``)``. A file shorter than its spec (a
+        torn store) raises ``OSError``."""
+        lo, hi = (0, spec.rows) if rows is None else rows
+        n = hi - lo
+        row_bytes = spec.pad_len * 4
         views = []
         off = 0
-        for kind, dtype, nbytes, shape in (
-            ("idx", np.int32, spec.idx_bytes(), (spec.rows, spec.pad_len)),
-            ("val", np.float32, spec.val_bytes(), (spec.rows, spec.pad_len)),
-            ("nob", np.float32, spec.nobs_bytes() if with_nobs else 0,
-             (spec.rows,)),
+        for kind, dtype, start, nbytes, shape in (
+            ("idx", np.int32, lo * row_bytes, n * row_bytes, (n, spec.pad_len)),
+            ("val", np.float32, lo * row_bytes,
+             0 if spec.const is not None else n * row_bytes, (n, spec.pad_len)),
+            ("nob", np.float32, lo * 4, n * 4 if with_nobs else 0, (n,)),
         ):
             if nbytes == 0:
                 views.append(None)
                 continue
             target = buffer[off:off + nbytes]
             with open(self._path(spec, kind), "rb", buffering=0) as f:
+                f.seek(start)
                 got = 0
                 while got < nbytes:
-                    n = f.readinto(memoryview(target)[got:])
-                    if not n:
+                    k = f.readinto(memoryview(target)[got:])
+                    if not k:
                         raise OSError(
                             f"{self._path(spec, kind)}: {got} of {nbytes} bytes"
                         )
-                    got += n
+                    got += k
             views.append(target.view(dtype).reshape(shape))
             off += nbytes
         return views[0], views[1], views[2]

@@ -118,6 +118,7 @@ from predictionio_tpu_torch.controller.base import TrainContext
 from predictionio_tpu_torch.controller.engine import Template
 from predictionio_tpu_torch.obs.logs import add_logging_arguments, configure_logging
 from predictionio_tpu_torch.online.registry import RegistryError
+from predictionio_tpu_torch.parallel.distributed import launch_process_id
 from predictionio_tpu_torch.tools import app_commands, import_export
 from predictionio_tpu_torch.workflow.core_workflow import (
     WorkflowParams,
@@ -156,15 +157,20 @@ def build_trainer(engine_json: str, events_path: str | None = None, *,
 
 def train(engine_json: str, events_path: str, model_out: str, *,
           resume: bool = False, device: str | None = None,
-          als_feed: str | None = None):
+          als_feed: str | None = None, launch: dict | None = None):
     """``train --events FILE --model-out DIR``: read the file, prepare,
     fit, save the model directory; returns the trained model.
-    ``als_feed`` sets ``pio.als_feed`` (``--als-feed``)."""
+    ``als_feed`` sets ``pio.als_feed`` (``--als-feed``); ``launch`` the
+    ``pio.*`` launch keys (``_launch_conf``). In a multi-process launch
+    every rank reads the file and trains, and rank 0 alone writes the
+    checkpoints and the model directory."""
     variant, template, datasource, preparator, algorithm = build_trainer(
         engine_json, events_path, device=device
     )
     if als_feed:
         variant.runtime_conf["pio.als_feed"] = als_feed
+    variant.runtime_conf.update(launch or {})
+    primary = launch_process_id(variant.runtime_conf) == 0
     checkpoint_dir = os.path.join(model_out, "checkpoints")
     ctx = TrainContext(
         device=algorithm.device, checkpoint_dir=checkpoint_dir, resume=resume,
@@ -172,9 +178,10 @@ def train(engine_json: str, events_path: str, model_out: str, *,
         runtime_conf=dict(variant.runtime_conf),
     )
     model = train_model(ctx, datasource, preparator, algorithm)
-    template.save_model(model, model_out)
-    # a completed train's checkpoints must not be resumable into a later one
-    shutil.rmtree(checkpoint_dir, ignore_errors=True)
+    if primary:
+        template.save_model(model, model_out)
+        # a completed train's checkpoints must not be resumable into a later one
+        shutil.rmtree(checkpoint_dir, ignore_errors=True)
     return model
 
 
@@ -245,6 +252,19 @@ def cmd_eventserver(args: argparse.Namespace) -> int:
     return 0
 
 
+def _launch_conf(args: argparse.Namespace) -> dict:
+    """The ``pio.*`` launch keys the train flags set (``--coordinator``,
+    ``--num-processes``, ``--process-id``); unset flags leave the
+    engine.json's ``sparkConf`` and the ``PIO_*`` env to speak."""
+    conf = {}
+    for key, value in (("pio.coordinator", args.coordinator),
+                       ("pio.num_processes", args.num_processes),
+                       ("pio.process_id", args.process_id)):
+        if value is not None:
+            conf[key] = value
+    return conf
+
+
 def cmd_train(args: argparse.Namespace) -> int:
     configure_logging(args.log_format)
     if args.events is not None:
@@ -254,11 +274,13 @@ def cmd_train(args: argparse.Namespace) -> int:
             raise SystemExit("Error: --profile traces a train from the store; "
                              "leave out --events")
         model = train(_variant_path(args), args.events, args.model_out,
-                      resume=args.resume, device=args.device, als_feed=args.als_feed)
+                      resume=args.resume, device=args.device, als_feed=args.als_feed,
+                      launch=_launch_conf(args))
         print(f"trained a model of {len(model.item_ids)} items into "
               f"{args.model_out} ({args.device})", flush=True)
         return 0
     variant = load_engine_variant(_variant_path(args))
+    variant.runtime_conf.update(_launch_conf(args))
     if args.profile:
         variant.runtime_conf["pio.profile"] = (
             os.path.join(args.engine_dir, "pio-profile")
@@ -273,6 +295,10 @@ def cmd_train(args: argparse.Namespace) -> int:
                        resume=args.resume),
         device=args.device,
     )
+    if launch_process_id(variant.runtime_conf) != 0:
+        print(f"Training completed on rank {launch_process_id(variant.runtime_conf)}; "
+              "rank 0 records the engine instance.", flush=True)
+        return 0
     print(f"Training completed. Engine instance ID: {instance.id}", flush=True)
     return 0
 
@@ -594,6 +620,16 @@ def build_parser() -> argparse.ArgumentParser:
                          " Perfetto / chrome://tracing) of the training call AND a"
                          " per-step telemetry journal (wall time, edges/sec, achieved"
                          " GB/s) into DIR (default: <engine-dir>/pio-profile)")
+    train_p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                         help="multi-process launch: rank 0's rendezvous address"
+                         " (else pio.coordinator in sparkConf, else $PIO_COORDINATOR)")
+    train_p.add_argument("--num-processes", type=int, default=None, metavar="N",
+                         help="multi-process launch: ranks in all (else"
+                         " pio.num_processes, else $PIO_NUM_PROCESSES)")
+    train_p.add_argument("--process-id", type=int, default=None, metavar="R",
+                         help="multi-process launch: this process's rank (else"
+                         " pio.process_id, else $PIO_PROCESS_ID); rank 0 records"
+                         " the instance and writes the model")
     add_logging_arguments(train_p)
     train_p.set_defaults(func=cmd_train)
 

@@ -19,6 +19,12 @@ write orbax checkpoints of the JAX package.
 checkpoints by run key under ``$PIO_FS_BASEDIR/checkpoints``
 (``<algorithm>-<run key>``), holds the run key's lock while it trains,
 and clears them once the model blob is recorded.
+
+In a multi-process launch rank 0 alone owns the checkpoints, the run
+lock and the blob (``owns_checkpoints``, the reference's
+``workflow/context.py:89-97``): ranks on one host share
+``$PIO_FS_BASEDIR``, and a second writer on a key would corrupt the
+first's steps.
 """
 
 from __future__ import annotations
@@ -33,6 +39,15 @@ import numpy as np
 
 _STEP = re.compile(r"^step_(\d+)\.npz$")
 KEEP_STEPS = 3  # newest steps kept on disk; older ones are deleted on save
+
+
+def owns_checkpoints(runtime_conf=None) -> bool:
+    """Whether this process writes step checkpoints: rank 0 of a launch
+    (``parallel.distributed.launch_process_id``), or a process on its
+    own."""
+    from predictionio_tpu_torch.parallel.distributed import launch_process_id
+
+    return launch_process_id(runtime_conf) == 0
 
 
 def _checkpoint_base(base_dir: str | None = None) -> str:

@@ -32,8 +32,13 @@ Counterpart of ``predictionio_tpu/workflow/core_workflow.py``
 - ``load_instance_model``: that instance's blob, through the template's
   ``load_model``.
 
-Not ported: a multi-process launch (a rank other than 0, ROADMAP.md
-Queue A item 8) raises ``NotImplementedError``.
+A multi-process launch (``PIO_COORDINATOR`` / ``PIO_NUM_PROCESSES`` /
+``PIO_PROCESS_ID`` on every process, or the ``pio.*`` keys, reference
+``:104-124``): every rank runs ``pio train`` and joins every collective
+of the fit, and rank 0 alone takes the run lock and writes the engine
+instance, the step checkpoints and the model blob. Another rank trains,
+persists nothing, and returns an unrecorded COMPLETED instance. The
+launch-scoped keys never reach the persisted runtime conf or env.
 """
 
 from __future__ import annotations
@@ -64,6 +69,12 @@ from predictionio_tpu_torch.data.storage.base import (
     Model,
 )
 from predictionio_tpu_torch.obs.trace import global_tracer
+from predictionio_tpu_torch.parallel.distributed import (
+    LAUNCH_SCOPED_ENV,
+    launch_num_processes,
+    launch_process_id,
+    strip_launch_conf,
+)
 from predictionio_tpu_torch.workflow.checkpoint import (
     RunLock,
     _checkpoint_base,
@@ -72,12 +83,6 @@ from predictionio_tpu_torch.workflow.checkpoint import (
 from predictionio_tpu_torch.workflow.json_extractor import EngineVariant
 
 logger = logging.getLogger("pio.workflow")
-
-#: launch-scoped runtime conf keys and env vars (copies of
-#: ``predictionio_tpu/parallel/distributed.py:41-42``): never persisted
-LAUNCH_SCOPED_KEYS = ("pio.coordinator", "pio.num_processes", "pio.process_id")
-LAUNCH_SCOPED_ENV = ("PIO_COORDINATOR", "PIO_NUM_PROCESSES", "PIO_PROCESS_ID")
-
 
 @dataclass
 class WorkflowParams:
@@ -102,18 +107,6 @@ def _pio_env() -> dict[str, str]:
         for k, v in os.environ.items()
         if k.startswith("PIO_") and k not in LAUNCH_SCOPED_ENV
     }
-
-
-def _strip_launch_conf(runtime_conf: dict | None) -> dict:
-    return {
-        k: v for k, v in (runtime_conf or {}).items() if k not in LAUNCH_SCOPED_KEYS
-    }
-
-
-def _launch_process_id(runtime_conf: dict) -> int:
-    if runtime_conf.get("pio.process_id") is not None:
-        return int(runtime_conf["pio.process_id"])
-    return int(os.environ.get("PIO_PROCESS_ID", "0") or 0)
 
 
 def _run_key(variant: EngineVariant, params_jsons: tuple[str, ...]) -> str:
@@ -160,11 +153,25 @@ def build_components(variant: EngineVariant, *, device=None, events_path: str | 
     return template, datasource, preparator, algorithm
 
 
+def refuse_unported_launch(runtime_conf: dict, algorithm) -> None:
+    """A multi-process launch of an algorithm that does not train over the
+    mesh (``Algorithm.trains_on_mesh``: NCF, SASRec, the classifiers)
+    raises, rather than train the whole model on every rank."""
+    n = launch_num_processes(runtime_conf)
+    if n > 1 and not getattr(algorithm, "trains_on_mesh", False):
+        raise NotImplementedError(
+            f"a {n}-process launch of {type(algorithm).__name__} is not ported yet "
+            "(its mesh is ROADMAP.md slice 20); train it in one process"
+        )
+
+
 def train_model(ctx: TrainContext, datasource, preparator, algorithm, *,
                 skip_sanity_check: bool = False, timings: dict | None = None):
     """Read -> sanity check -> prepare -> ``Algorithm.train``; the stage
     seconds land in ``timings`` (``read_s``, ``prepare_s``, ``train_s``)
-    when given."""
+    when given. A multi-process launch of an algorithm that does not
+    train over the mesh raises first (``refuse_unported_launch``)."""
+    refuse_unported_launch(getattr(ctx, "runtime_conf", None) or {}, algorithm)
     t0 = time.perf_counter()
     data = datasource.read_training(ctx)
     if not skip_sanity_check:
@@ -196,12 +203,31 @@ def run_train(
     ``persist_s`` seconds of the run.
     """
     workflow_params = workflow_params or WorkflowParams()
-    if _launch_process_id(variant.runtime_conf) != 0:
-        raise NotImplementedError(
-            "a multi-process launch (a rank other than 0) is not ported yet:"
-            " ROADMAP.md Queue A item 8"
-        )
     components = build_components(variant, device=device)
+    if launch_process_id(variant.runtime_conf) != 0:
+        # multi-process launch, non-primary rank: run the training compute
+        # (every rank must take part in the collectives) but own NO
+        # persistence side effects -- no run lock (ranks on one host share
+        # PIO_FS_BASEDIR), no instance row, no step checkpoints, no model
+        # blob. Rank 0 is the system of record.
+        template, datasource, preparator, algorithm = components
+        ctx = TrainContext(
+            device=algorithm.device, resume=workflow_params.resume,
+            telemetry=telemetry, mesh_shape=variant.runtime_conf.get("pio.mesh_shape"),
+            runtime_conf=dict(variant.runtime_conf),
+        )
+        start = _utcnow()
+        train_model(ctx, datasource, preparator, algorithm,
+                    skip_sanity_check=workflow_params.skip_sanity_check, timings=timings)
+        return EngineInstance(
+            status=STATUS_COMPLETED,
+            start_time=start,
+            end_time=_utcnow(),
+            engine_id=variant.variant_id,
+            engine_version=variant.engine_version,
+            engine_variant=variant.path,
+            engine_factory=variant.engine_factory,
+        )
     params_jsons = _params_jsons(variant.engine_params)
     run_key = _run_key(variant, params_jsons)
     # serialize trains sharing this run_key: a second identical train would
@@ -262,7 +288,7 @@ def _run_train_locked(variant, workflow_params, components, params_jsons, run_ke
             engine_factory=variant.engine_factory,
             batch=workflow_params.batch,
             env=_pio_env(),
-            runtime_conf=_strip_launch_conf(variant.runtime_conf),
+            runtime_conf=strip_launch_conf(variant.runtime_conf),
             data_source_params=ds_json,
             preparator_params=prep_json,
             algorithms_params=algorithms_params_json,

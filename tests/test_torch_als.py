@@ -211,10 +211,27 @@ def test_telemetry_gets_every_iteration(synthetic):
 
 
 def test_als_fit_refuses_what_it_does_not_do(synthetic):
+    """``factor_sharding="model"`` without a mesh is the 1 x 1 mesh's
+    model-sharded fit: the replicated fit bit for bit, and JAX's
+    model-sharded fit on ``local_mesh(1, 1)`` within the f32 bar (the
+    multi-rank cases: ``tests/test_torch_als_sharded.py``). A bad dtype,
+    solver or sharding still raises."""
+    from predictionio_tpu.parallel.mesh import local_mesh
+
     n_u, n_i, uu, ii, rr = synthetic
     data = als.build_als_data(uu, ii, rr, n_u, n_i, als.ALSConfig(rank=6))
-    with pytest.raises(NotImplementedError, match="model"):
-        als.als_fit(data, als.ALSConfig(rank=6, factor_sharding="model"), device="cpu")
+    kw = dict(rank=6, iterations=2, reg=0.01, seed=1)
+    model = als.als_fit(data, als.ALSConfig(factor_sharding="model", **kw), device="cpu")
+    plain = als.als_fit(data, als.ALSConfig(**kw), device="cpu")
+    np.testing.assert_array_equal(model.user_factors, plain.user_factors)
+    np.testing.assert_array_equal(model.item_factors, plain.item_factors)
+    j_cfg = jax_als.ALSConfig(factor_sharding="model", **kw)
+    want = jax_als.als_fit(jax_als.build_als_data(uu, ii, rr, n_u, n_i, j_cfg), j_cfg,
+                           local_mesh(1, 1))
+    np.testing.assert_allclose(model.user_factors, want.user_factors, atol=1e-4)
+    np.testing.assert_allclose(model.item_factors, want.item_factors, atol=1e-4)
+    with pytest.raises(ValueError, match="factor_sharding"):
+        als.als_fit(data, als.ALSConfig(rank=6, factor_sharding="rows"), device="cpu")
     with pytest.raises(ValueError, match="dtype"):
         als.als_fit(data, als.ALSConfig(rank=6, dtype="int8"), device="cpu")
     with pytest.raises(ValueError, match="solver"):

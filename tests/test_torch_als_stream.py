@@ -39,6 +39,7 @@ from predictionio_tpu_torch.parallel.als import (
     als_fit_streamed,
     build_als_data,
 )
+from predictionio_tpu_torch.parallel.mesh import local_mesh as local_mesh_torch
 from predictionio_tpu_torch.parallel.reader import array_coo_chunks
 from predictionio_tpu_torch.parallel.stream import (
     StreamStats,
@@ -453,11 +454,15 @@ class TestStreamedEpochEndToEnd:
                 als_fit_streamed(bad, cfg, "cpu")
             with pytest.raises(ValueError, match="dtype"):
                 als_fit_streamed(sd, dataclasses.replace(cfg, dtype="int8"), "cpu")
-            with pytest.raises(NotImplementedError, match="Queue A item 8"):
-                als_fit_streamed(sd, dataclasses.replace(cfg, factor_sharding="model"), "cpu")
-            monkeypatch.setattr(als, "world_size", lambda: 2)
-            with pytest.raises(NotImplementedError, match="Queue A item 8"):
-                als_fit_streamed(sd, cfg, "cpu")
+            # the 1 x 1 mesh's model-sharded streamed fit is the replicated
+            # one bit for bit (several ranks: tests/test_torch_als_sharded.py)
+            model = als_fit_streamed(sd, dataclasses.replace(cfg, factor_sharding="model"),
+                                     "cpu")
+            _assert_bit_identical(full, model)
+            one = local_mesh_torch(device="cpu")
+            _assert_bit_identical(full, als_fit_streamed(sd, cfg, mesh=one))
+            with pytest.raises(ValueError, match="factor_sharding"):
+                als_fit_streamed(sd, dataclasses.replace(cfg, factor_sharding="rows"), "cpu")
 
     def test_default_device_without_cuda_raises(self, synthetic, monkeypatch):
         n_u, n_i, uu, ii, rr, tt = synthetic

@@ -218,7 +218,7 @@ def test_naive_bayes_refuses_negative_features_and_a_mesh():
         classify.train_naive_bayes(x, y, 2, device="cpu")
     assert str(got.value) == str(want.value)
     for train in (classify.train_naive_bayes, classify.train_logistic_regression):
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        with pytest.raises(NotImplementedError, match="slice 20"):
             train(np.abs(x), y, 2, mesh=object(), device="cpu")
 
 
@@ -336,7 +336,7 @@ def test_a_mesh_is_refused(stores):
     prepared = template.preparator_class(ep.preparator_params).prepare(None, data)
     for name in ("naive-bayes", "logistic-regression"):
         algo = template.bind(name).algorithm_class(Params({}), device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        with pytest.raises(NotImplementedError, match="slice 20"):
             algo.train(TrainContext(device="cpu", mesh_shape=[2, 1]), prepared)
     model = template.algorithm_class(Params({}), device="cpu").train(
         TrainContext(device="cpu", mesh_shape=[-1, 1]), prepared)

@@ -237,7 +237,8 @@ def test_a_sharded_reader_csr_is_not_ported():
     equal the full CSR's and the JAX package's over its own one-device
     sharded CSR, indicators too; a layout built for another ``chunk`` and
     a sharded CSR beside a full one are refused with the reference's
-    messages; a mesh still raises (ROADMAP.md Queue A item 8)."""
+    messages; over a 1 x 1 mesh the same (several ranks:
+    ``test_torch_sharded_reader.py``)."""
     from predictionio_tpu.parallel import reader as jax_reader
     from predictionio_tpu.parallel.mesh import local_mesh
     from predictionio_tpu_torch.parallel import reader
@@ -267,8 +268,17 @@ def test_a_sharded_reader_csr_is_not_ported():
     assert "rebuild" in str(got_err.value) and "rebuild" in str(want_err.value)
     with pytest.raises(ValueError, match="mixing a sharded-reader CSR"):
         cooc.cooccurrence_indicators(ta, got, top_k=2, chunk=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        reader.build_cooc_csr_sharded(reader.array_coo_chunks(u, i, ones), 61, 13, object())
+    # over a mesh (one process: 1 x 1) the same CSR, counts and indicators
+    from predictionio_tpu_torch.parallel.mesh import local_mesh as torch_mesh
+
+    one = torch_mesh(device="cpu")
+    on_mesh = reader.build_cooc_csr_sharded(reader.array_coo_chunks(u, i, ones), 61, 13, one,
+                                            chunk=16)
+    np.testing.assert_array_equal(on_mesh.local.indices, want.local.indices)
+    np.testing.assert_array_equal(reader.distinct_user_counts_sharded(on_mesh, one), totals)
+    idx_m, val_m = cooc.cooccurrence_indicators(on_mesh, mesh=one, **kwargs)
+    np.testing.assert_array_equal(idx_m, idx_f)
+    np.testing.assert_array_equal(val_m, val_f)
 
 
 def test_default_device_without_cuda_raises(monkeypatch):

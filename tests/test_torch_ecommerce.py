@@ -468,10 +468,14 @@ def test_what_is_not_ported_raises(shop, monkeypatch):
     """``"reader": "streaming"`` is ported: the DataSource hands the
     reference's handle, the buy-weighted confidences riding it (the
     streamed model against the reference: ``test_torch_streaming_templates.
-    py``); a second process still raises (ROADMAP.md Queue A item 8), and
-    so does the algorithm without a card."""
+    py``), and the preparator packs it for the context's mesh as the
+    reference packs it for its own (a 1 x 1 mesh in one process; several
+    ranks: ``test_torch_store_train.py``'s launch). The algorithm
+    without a card still raises."""
+    from predictionio_tpu.models.ecommerce.engine import (
+        ECommercePreparator as JaxECommercePreparator,
+    )
     from predictionio_tpu_torch.models._streaming import StreamingHandle
-    from predictionio_tpu_torch.parallel import als as torch_als
 
     shop.use("jax")
     want = JaxECommerceDataSource(
@@ -483,9 +487,18 @@ def test_what_is_not_ported_raises(shop, monkeypatch):
     assert (handle.app_id, handle.event_names, handle.extras) == (
         want.app_id, want.event_names, want.extras)
     assert handle.extras["event_values"] == {"view": 1.0, "buy": 2.0}
-    monkeypatch.setattr(torch_als, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        ECommercePreparator(Params({})).prepare(TrainContext(device="cpu"), handle)
+    ctx = TrainContext(device="cpu")
+    _, got = ECommercePreparator(Params({"buckets": 2})).prepare(ctx, handle)
+    assert ctx.mesh.shape == {"data": 1, "model": 1}
+    shop.use("jax")
+    _, want_als = JaxECommercePreparator(Params({"buckets": 2})).prepare(
+        RuntimeContext({"pio.mesh_shape": [1, 1]}), want)
+    for g_side, w_side in ((got.by_row, want_als.by_row), (got.by_col, want_als.by_col)):
+        np.testing.assert_array_equal(g_side.slot_of, w_side.slot_of)
+        assert g_side.global_rows == w_side.global_rows
+        for gb, wb in zip(g_side.blocks, w_side.blocks, strict=True):
+            for name in ("indices", "values", "mask"):
+                np.testing.assert_array_equal(getattr(gb, name), getattr(wb, name))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ECommAlgorithm(Params(ALGO))

@@ -85,7 +85,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                    "data.storage.hbase.client", "data.storage.hbase.transport",
                    "data.storage.s3", "data.storage.hdfs",
                    # the streamed epochs and the streaming reader
-                   "parallel.stream", "parallel.reader"):
+                   "parallel.stream", "parallel.reader",
+                   # multi-process training on torch.distributed
+                   "parallel.distributed", "parallel.mesh"):
         assert f"predictionio_tpu_torch.{module}" in walked
 
 

@@ -14,8 +14,12 @@ path's counts and indicators, also over chunk spans that are not
 8-aligned, and the empty stream, a layout built for another ``chunk``
 and a sharded CSR mixed with a full one are refused; a snapshot packs
 into the same block store as the JAX package's under the generation's
-``blocks/`` directory. A mesh, a model axis above 1 or a second process
-raises ``NotImplementedError`` (ROADMAP.md Queue A item 8).
+``blocks/`` directory, also laid out for a mesh's axes. Across gloo
+processes (the ports of the reference's two-process tests): each rank
+retains about its half of the edges and the fit over the mesh equals
+the one-process full build's and JAX's; the sharded cooccurrence's
+per-rank CSRs, summed counts and indicators equal the one-process full
+path's.
 """
 
 import datetime as dt
@@ -42,7 +46,7 @@ from predictionio_tpu_torch.ops.cooccurrence import (
     distinct_user_counts,
 )
 from predictionio_tpu_torch.ops.ragged import pack_padded_csr
-from predictionio_tpu_torch.parallel import als, reader
+from predictionio_tpu_torch.parallel import reader
 from predictionio_tpu_torch.parallel.als import ALSConfig, als_fit, build_als_data
 from predictionio_tpu_torch.parallel.reader import (
     array_coo_chunks,
@@ -154,19 +158,36 @@ class TestSingleProcessEquivalence:
         assert grown.by_row.num_rows == int(uu.max()) + 1
         assert grown.by_col.num_rows == int(ii.max()) + 1
 
-    def test_mesh_model_axis_and_world_size_raise(self, monkeypatch):
+    def test_mesh_model_axis_and_world_size_raise(self):
+        """Over the port's 1 x 1 mesh (one process) with a model axis's
+        packing, the reader, the cooccurrence layout and its row range
+        equal the JAX package's on ``local_mesh(1, 1)``; the layout
+        arithmetic of wider meshes (``cooc_global_rows``) equals the
+        reference's too. Several processes: the two-process tests below."""
+        from predictionio_tpu_torch.parallel.mesh import local_mesh as torch_mesh
+
         n_u, n_i, uu, ii, rr, tt = _coo(n_e=200)
-        cfg = ALSConfig(rank=4)
-        source = array_coo_chunks(uu, ii, rr, tt)
-        for call in (lambda: build_als_data_sharded(source, n_u, n_i, cfg, object()),
-                     lambda: build_als_data_sharded(source, n_u, n_i, cfg, model_shards=2),
-                     lambda: build_cooc_csr_sharded(source, n_u, n_i, object()),
-                     lambda: reader.cooc_global_rows(n_u, object(), 8)):
-            with pytest.raises(NotImplementedError, match="Queue A item 8"):
-                call()
-        monkeypatch.setattr(als, "world_size", lambda: 4)
-        with pytest.raises(NotImplementedError, match="world size of 4"):
-            build_als_data_sharded(source, n_u, n_i, cfg)
+        cfg = ALSConfig(rank=4, buckets=2)
+        one = torch_mesh(device="cpu")
+        got = build_als_data_sharded(array_coo_chunks(uu, ii, rr, tt), n_u, n_i, cfg, one,
+                                     model_shards=2)
+        want = jax_reader.build_als_data_sharded(
+            jax_reader.array_coo_chunks(uu, ii, rr, tt), n_u, n_i,
+            jax_als.ALSConfig(rank=4, buckets=2), local_mesh(1, 1), model_shards=2)
+        _assert_same_als_data(got, want)
+        assert got.by_row.global_rows == want.by_row.global_rows
+        assert all(r % 16 == 0 for r in got.by_row.global_rows)
+        ones = np.ones(len(uu), np.float32)
+        s = build_cooc_csr_sharded(array_coo_chunks(uu, ii, ones), n_u, n_i, one, chunk=8)
+        w = jax_reader.build_cooc_csr_sharded(jax_reader.array_coo_chunks(uu, ii, ones),
+                                              n_u, n_i, local_mesh(1, 1), chunk=8)
+        assert (s.global_rows, s.row_lo, s.row_hi) == (w.global_rows, w.row_lo, w.row_hi)
+        np.testing.assert_array_equal(s.local.indices, w.local.indices)
+        for d in (1, 2, 4, 8):
+            for n, chunk in ((n_u, 8), (37, 16), (1, 4096)):
+                assert reader.cooc_global_rows(n, local_mesh(d, 1), chunk) == \
+                    jax_reader.cooc_global_rows(n, local_mesh(d, 1), chunk)
+        assert reader._local_row_range(None, 48) == reader._local_row_range(one, 48) == (0, 48)
 
 
 class TestStoreChunkScan:
@@ -284,8 +305,24 @@ class TestSnapshotBlockStore:
                 with open(os.path.join(want.directory, name), "rb") as f, open(
                         os.path.join(got.directory, name), "rb") as g:
                     assert g.read() == f.read(), name
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            reader.snapshot_streamed_als_data(snap, ALSConfig(**cfg_kw), mesh=object())
+        # over a mesh: laid out for its data axis and model_shards, as the
+        # reference's (the port's one process: a 1 x 1 mesh)
+        from predictionio_tpu_torch.parallel.mesh import local_mesh as torch_mesh
+
+        _, _, got = reader.snapshot_streamed_als_data(
+            snap, ALSConfig(**cfg_kw), mesh=torch_mesh(device="cpu"), model_shards=2,
+            block_rows=16)
+        use("jax")
+        _, _, want = jax_reader.snapshot_streamed_als_data(
+            jax_snap, jax_als.ALSConfig(**cfg_kw), mesh=local_mesh(1, 1), model_shards=2,
+            block_rows=16)
+        assert got.row_multiple == want.row_multiple == 16
+        assert os.path.basename(got.directory) == os.path.basename(want.directory)
+        for name in sorted(os.listdir(want.directory)):
+            if name.endswith(".bin"):
+                with open(os.path.join(want.directory, name), "rb") as f, open(
+                        os.path.join(got.directory, name), "rb") as g:
+                    assert g.read() == f.read(), name
 
 
 class TestShardedCooccurrence:
@@ -363,3 +400,133 @@ class TestShardedCooccurrence:
             cooccurrence(s, chunk=4096, device="cpu")  # 104 rows, not 105
         with pytest.raises(ValueError, match="mixing"):
             cooccurrence(s, pack_padded_csr(uu, ii, vv, 100, 10), chunk=3, device="cpu")
+
+
+_READER_WORKER = """
+import sys
+import numpy as np
+from predictionio_tpu_torch.parallel.distributed import init_distributed, build_mesh
+from predictionio_tpu_torch.parallel.als import ALSConfig, als_fit
+from predictionio_tpu_torch.parallel.reader import array_coo_chunks, build_als_data_sharded
+
+assert init_distributed(device="cpu")
+mesh = build_mesh([2, 1], ("data", "model"), device="cpu")
+rng = np.random.default_rng(17)
+n_e = 3000
+uu = rng.integers(0, 96, size=n_e)
+ii = rng.integers(0, 40, size=n_e)
+rr = rng.integers(1, 6, size=n_e).astype(np.float32)
+cfg = ALSConfig(rank=4, iterations=4, reg=0.05, seed=2, buckets=2)
+data = build_als_data_sharded(array_coo_chunks(uu, ii, rr, chunk_rows=512), 96, 40, cfg, mesh)
+# THE memory-scaling assertion: this process retained about half the
+# edge set per side, never the whole thing
+for side in (data.by_row, data.by_col):
+    assert 0.3 * n_e < side.retained_edges < 0.7 * n_e, side.retained_edges
+model = als_fit(data, cfg, mesh=mesh)
+np.savez(sys.argv[1] + f"-{mesh.rank}.npz", users=model.user_factors, items=model.item_factors,
+         retained=np.array([data.by_row.retained_edges, data.by_col.retained_edges]),
+         **{f"u_idx{b}": block.indices for b, block in enumerate(data.by_row.blocks)})
+print("OK", flush=True)
+"""
+
+
+def test_two_process_sharded_reader_matches_single_process(tmp_path):
+    """Two gloo processes on a 2 x 1 mesh: each retains only ~its half of
+    the edges (asserted inside the workers), its blocks are its rows of
+    the full build's, and the factors equal a one-process full-build
+    train (1e-5) and JAX's on a 2 x 1 mesh of virtual devices (1e-4)."""
+    from predictionio_tpu.parallel.reader import array_coo_chunks as jax_chunks
+    from test_torch_distributed import run_workers
+
+    out = str(tmp_path / "factors")
+    run_workers(_READER_WORKER, n=2, args=(out,))
+    rng = np.random.default_rng(17)
+    n_e = 3000
+    uu = rng.integers(0, 96, size=n_e)
+    ii = rng.integers(0, 40, size=n_e)
+    rr = rng.integers(1, 6, size=n_e).astype(np.float32)
+    kw = dict(rank=4, iterations=4, reg=0.05, seed=2, buckets=2)
+    full = build_als_data(uu, ii, rr, 96, 40, ALSConfig(**kw), num_shards=2)
+    one = als_fit(full, ALSConfig(**kw), "cpu")
+    ref = jax_als.als_fit(
+        jax_reader.build_als_data_sharded(jax_chunks(uu, ii, rr, chunk_rows=512), 96, 40,
+                                          jax_als.ALSConfig(**kw), local_mesh(2, 1)),
+        jax_als.ALSConfig(**kw), local_mesh(2, 1))
+    got = [np.load(f"{out}-{r}.npz") for r in range(2)]
+    assert sum(int(g["retained"][0]) for g in got) == n_e
+    for rank, g in enumerate(got):
+        assert (g["retained"] < 0.7 * n_e).all()
+        for b, block in enumerate(full.by_row.blocks):
+            half = block.indices.shape[0] // 2
+            np.testing.assert_array_equal(g[f"u_idx{b}"],
+                                          block.indices[rank * half:(rank + 1) * half])
+        np.testing.assert_array_equal(g["users"], got[0]["users"])
+    np.testing.assert_allclose(got[0]["users"], one.user_factors, atol=1e-5)
+    np.testing.assert_allclose(got[0]["items"], one.item_factors, atol=1e-5)
+    np.testing.assert_allclose(got[0]["users"], ref.user_factors, atol=1e-4)
+    np.testing.assert_allclose(got[0]["items"], ref.item_factors, atol=1e-4)
+
+
+_COOC_WORKER = """
+import sys
+import numpy as np
+from predictionio_tpu_torch.parallel.distributed import init_distributed, build_mesh
+from predictionio_tpu_torch.ops.cooccurrence import cooccurrence, cooccurrence_indicators
+from predictionio_tpu_torch.parallel.reader import (
+    array_coo_chunks, build_cooc_csr_sharded, distinct_user_counts_sharded)
+
+assert init_distributed(device="cpu")
+mesh = build_mesh([2, 1], ("data", "model"), device="cpu")
+rng = np.random.default_rng(23)
+n_u, n_i, n_e = 400, 30, 5000
+uu = rng.integers(0, n_u, n_e)
+ii = rng.integers(0, n_i, n_e)
+vv = np.ones(n_e, np.float32)
+s = build_cooc_csr_sharded(array_coo_chunks(uu, ii, vv, chunk_rows=600), n_u, n_i, mesh,
+                           chunk=32)
+assert s.retained_edges < 0.7 * n_e, s.retained_edges
+counts = distinct_user_counts_sharded(s, mesh)
+idx, vals = cooccurrence_indicators(s, top_k=8, llr_row_totals=counts,
+                                    llr_col_totals=counts, total=n_u, chunk=32, mesh=mesh)
+raw = cooccurrence(s, chunk=32, mesh=mesh)
+np.savez(sys.argv[1] + f"-{mesh.rank}.npz", idx=idx, vals=vals, counts=counts, raw=raw,
+         retained=np.array([s.retained_edges]), lo=np.array([s.row_lo, s.row_hi]))
+print("OK", flush=True)
+"""
+
+
+def test_two_process_sharded_cooccurrence(tmp_path):
+    """The sharded cooccurrence across two gloo processes: each rank
+    retains its half of the user rows, the distinct-user counts sum over
+    the data axis, and the raw counts, the LLR indicators and the counts
+    equal the one-process full path's (and the JAX package's on a 2 x 1
+    mesh) bit for bit."""
+    from predictionio_tpu.ops import cooccurrence as jax_cooc
+    from test_torch_distributed import run_workers
+
+    out = str(tmp_path / "cooc")
+    run_workers(_COOC_WORKER, n=2, args=(out,))
+    rng = np.random.default_rng(23)
+    n_u, n_i, n_e = 400, 30, 5000
+    uu = rng.integers(0, n_u, n_e)
+    ii = rng.integers(0, n_i, n_e)
+    vv = np.ones(n_e, np.float32)
+    full = pack_padded_csr(uu, ii, vv, n_u, n_i)
+    counts = distinct_user_counts(full)
+    idx_f, val_f = cooccurrence_indicators(
+        full, top_k=8, llr_row_totals=counts, llr_col_totals=counts, total=n_u,
+        chunk=32, device="cpu")
+    idx_j, val_j = jax_cooc.cooccurrence_indicators(
+        full, top_k=8, llr_row_totals=counts, llr_col_totals=counts, total=n_u,
+        mesh=local_mesh(2, 1), chunk=32)
+    got = [np.load(f"{out}-{r}.npz") for r in range(2)]
+    assert sum(int(g["retained"][0]) for g in got) == n_e
+    assert [tuple(g["lo"]) for g in got] == [(0, 224), (224, 448)]
+    for g in got:
+        assert g["retained"][0] < 0.7 * n_e
+        np.testing.assert_array_equal(g["counts"], counts)
+        np.testing.assert_array_equal(g["raw"], cooccurrence(full, chunk=32, device="cpu"))
+        np.testing.assert_array_equal(g["idx"], idx_f)
+        np.testing.assert_array_equal(g["vals"], val_f)
+        np.testing.assert_array_equal(g["idx"], np.asarray(idx_j))
+        np.testing.assert_allclose(g["vals"], np.asarray(val_j), atol=1e-4)

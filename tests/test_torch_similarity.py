@@ -257,12 +257,17 @@ def test_model_round_trips(stores, template, tmp_path):
 
 def test_what_is_not_ported_raises(stores, monkeypatch):
     """``"reader": "streaming"`` is ported: each DataSource hands the
-    reference's handle (the streamed models against the reference:
-    ``test_torch_streaming_templates.py``); a second process still raises
-    (ROADMAP.md Queue A item 8), and so does each algorithm without a
-    card."""
+    reference's handle, and each algorithm trains it over the context's
+    mesh (one process: 1 x 1) into the indicators the reference's
+    algorithm trains over its own (the streamed models in depth:
+    ``test_torch_streaming_templates.py``; several ranks:
+    ``test_torch_sharded_reader.py``). Each algorithm without a card
+    still raises."""
+    from predictionio_tpu.models.similarproduct.engine import (
+        CooccurrenceAlgorithm as JaxCooccurrenceAlgorithm,
+    )
+    from predictionio_tpu.models.universal.engine import URAlgorithm as JaxURAlgorithm
     from predictionio_tpu_torch.models._streaming import StreamingHandle
-    from predictionio_tpu_torch.parallel import als as torch_als
 
     for name, source, jax_source in (
             ("cooccurrence", similarproduct.SimilarProductDataSource,
@@ -276,12 +281,23 @@ def test_what_is_not_ported_raises(stores, monkeypatch):
         assert isinstance(handle, StreamingHandle)
         for field in ("app_id", "event_names", "probe_event_names", "empty_message"):
             assert getattr(handle, field) == getattr(want, field), field
-        monkeypatch.setattr(torch_als, "world_size", lambda: 2)
         algo = TEMPLATES["similarproduct" if name == "cooccurrence" else "universal"] \
             .algorithm_class(Params({"chunk": 8}), device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            algo.train(TrainContext(device="cpu"), handle)
-        monkeypatch.undo()
+        model = algo.train(TrainContext(device="cpu"), handle)
+        stores("jax")
+        jax_algo = (JaxCooccurrenceAlgorithm if name == "cooccurrence" else JaxURAlgorithm)(
+            Params({"chunk": 8}))
+        want_model = jax_algo.train(RuntimeContext({"pio.mesh_shape": [1, 1]}), want)
+        assert model.item_ids == want_model.item_ids
+        if name == "cooccurrence":
+            np.testing.assert_array_equal(model.top_indices, np.asarray(want_model.top_indices))
+            np.testing.assert_allclose(model.top_values, np.asarray(want_model.top_values),
+                                       atol=1e-4)
+        else:
+            assert set(model.indicators) == set(want_model.indicators)
+            for kind, rows in want_model.indicators.items():
+                assert {j: [p for p, _ in v] for j, v in model.indicators[kind].items()} == \
+                    {j: [p for p, _ in v] for j, v in rows.items()}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for algorithm in (similarproduct.CooccurrenceAlgorithm, universal.URAlgorithm):
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -15,6 +15,7 @@ walk -- ``app new`` -> ``/batch/events.json`` -> ``import`` -> ``train``
 """
 
 import datetime as dt
+import glob
 import http.client
 import json
 import os
@@ -300,18 +301,30 @@ def test_resume_continues_only_on_equal_params(basedir, tmp_path, monkeypatch):
 
 
 def test_unported_launch_options_raise(basedir, tmp_path):
-    """A multi-process launch raises (Queue A item 8); ``pio.profile``,
-    ported since, trains and writes its trace and journal."""
+    """A rank other than 0 of a launch trains but persists nothing: no
+    run lock, no instance row, no blob, no checkpoints (alone, without a
+    coordinator, its mesh is 1 x 1); a multi-process launch of a
+    template that does not train over the mesh (NCF) still raises
+    (ROADMAP.md slice 20); ``pio.profile``, ported since, trains and
+    writes its trace and journal."""
     basedir(tmp_path)
-    engine_json = write_json(tmp_path / "engine.json",
-                             dict(VARIANT, sparkConf={"pio.process_id": 1}))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        run_train(load_engine_variant(engine_json), device="cpu")
+    fill_store(storage, App, Event, make_events())
+    engine_json = write_json(tmp_path / "engine.json", dict(
+        VARIANT, sparkConf={"pio.process_id": 1},
+        algorithms=[{"name": "als", "params": dict(ALGO, checkpointInterval=1)}]))
+    rank1 = run_train(load_engine_variant(engine_json), device="cpu")
+    assert rank1.status == "COMPLETED" and rank1.id is None
     assert storage.get_meta_data_engine_instances().get_all() == []
+    assert not os.path.exists(torch_checkpoint._checkpoint_base())
+    with open(os.path.join(REPO, "examples", "ncf", "engine.json")) as f:
+        ncf = json.load(f)
+    ncf["datasource"]["params"]["appName"] = "StoreApp"
+    ncf["sparkConf"] = {"pio.num_processes": 2, "pio.process_id": 1}
+    with pytest.raises(NotImplementedError, match="slice 20"):
+        run_train(load_engine_variant(write_json(tmp_path / "ncf.json", ncf)), device="cpu")
     engine_json = write_json(tmp_path / "engine.json", VARIANT)
     with pytest.raises(LookupError, match="run `pio train` first"):
         cli.build_query_server(engine_json, port=0, device="cpu")
-    fill_store(storage, App, Event, make_events())
     profile = tmp_path / "prof"
     engine_json = write_json(tmp_path / "engine.json",
                              dict(VARIANT, sparkConf={"pio.profile": str(profile)}))
@@ -321,6 +334,121 @@ def test_unported_launch_options_raise(basedir, tmp_path):
     with open(profile / "als-telemetry.jsonl") as f:
         lines = [json.loads(line) for line in f]
     assert [line["event"] for line in lines] == ["meta"] + ["step"] * ALGO["numIterations"]
+
+
+def test_two_process_cli_train_records_one_instance(basedir, tmp_path):
+    """The launch on the CPU: two ``tools/cli.py train`` processes on one
+    sqlite store under the env contract (``PIO_COORDINATOR`` /
+    ``PIO_NUM_PROCESSES`` / ``PIO_PROCESS_ID``), a 1 x 2 mesh (ALX
+    model-sharded factors, checkpoints every 2 iterations on rank 0).
+    Exactly one COMPLETED instance is recorded, with one blob; rank 1
+    prints its rank and writes neither a blob nor a checkpoint; the
+    launch-scoped keys reach neither the persisted runtime conf nor its
+    env; and the deployed answers equal a one-process train's."""
+    from test_torch_distributed import free_port
+
+    base = basedir(tmp_path / "store")
+    fill_store(storage, App, Event, make_events())
+    algo = dict(ALGO, checkpointInterval=2)
+    launch = write_json(tmp_path / "launch.json", dict(
+        VARIANT, algorithms=[{"name": "als", "params": algo}],
+        sparkConf={"pio.mesh_shape": [1, 2], "pio.num_processes": 2}))
+    instance_id = _two_process_train(base, launch)
+    recorded = storage.get_meta_data_engine_instances().get_all()
+    assert [(i.id, i.status) for i in recorded] == [(instance_id, "COMPLETED")]
+    assert recorded[0].runtime_conf == {"pio.mesh_shape": [1, 2]}
+    assert not any(k in recorded[0].env for k in ("PIO_COORDINATOR", "PIO_PROCESS_ID"))
+    models = storage.get_model_data_models()
+    assert models.get(instance_id) is not None
+    checkpoints = torch_checkpoint._checkpoint_base()
+    assert not os.path.exists(checkpoints) or os.listdir(checkpoints) == []
+
+    one = write_json(tmp_path / "one.json", dict(
+        VARIANT, id="store-rec-one", algorithms=[{"name": "als", "params": algo}]))
+    single = run_train(load_engine_variant(one), device="cpu")
+    queries = [{"user": f"u{u}", "num": 6} for u in range(0, 30, 3)]
+    got = _serve(launch, queries, engine_instance_id=instance_id)
+    want = _serve(one, queries, engine_instance_id=single.id)
+    for (g_status, g), (w_status, w) in zip(got, want):
+        assert g_status == w_status == 200
+        assert [e["item"] for e in g["itemScores"]] == [e["item"] for e in w["itemScores"]]
+        np.testing.assert_allclose([e["score"] for e in g["itemScores"]],
+                                   [e["score"] for e in w["itemScores"]], atol=1e-4)
+
+
+def _two_process_train(base: str, variant: str, *flags: str) -> str:
+    """``tools/cli.py train --variant VARIANT --device cpu FLAGS`` in two
+    processes on the store at ``base``, under the launch contract's env
+    (a fresh coordinator port), both killed past the timeout. Both exit
+    0, rank 1 says it trained and records nothing; returns the instance
+    id rank 0 printed."""
+    from test_torch_distributed import free_port
+
+    env = dict(os.environ, PYTHONPATH=REPO, PIO_FS_BASEDIR=base, OMP_NUM_THREADS="1",
+               PIO_COORDINATOR=f"127.0.0.1:{free_port()}")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "predictionio_tpu_torch.tools.cli", "train", "--variant",
+         variant, "--device", "cpu", *flags], env=dict(env, PIO_PROCESS_ID=str(rank)),
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert "Training completed on rank 1" in outs[1] and "Engine instance ID" not in outs[1]
+    storage.reset()
+    return outs[0].split("Engine instance ID:")[1].split()[0]
+
+
+def test_two_process_streaming_reader_train_matches_one_process(basedir, tmp_path):
+    """The streaming reader's multi-rank half through the command line:
+    two ``train --snapshot-mode refresh --als-feed streamed`` processes of
+    a ``"reader": "streaming"`` variant on a 1 x 2 mesh. The ranks agree
+    on rank 0's scan bound, rank 0 readies the snapshot before rank 1
+    loads it, the block store is laid out for the mesh (rank 0 builds it,
+    rank 1 reads its rows of every block), and the model-sharded streamed
+    fit runs. One COMPLETED instance is recorded; its factors are within
+    1e-4 of a one-process streamed train's of the same store, and the
+    deployed answers equal it."""
+    base = basedir(tmp_path / "store")
+    fill_store(storage, App, Event, make_events())
+    streaming = dict(VARIANT["datasource"]["params"], reader="streaming")
+    launch = write_json(tmp_path / "launch.json", dict(
+        VARIANT, datasource={"params": streaming},
+        sparkConf={"pio.mesh_shape": [1, 2], "pio.num_processes": 2}))
+    flags = ("--snapshot-mode", "refresh", "--als-feed", "streamed")
+    instance_id = _two_process_train(base, launch, *flags)
+    recorded = storage.get_meta_data_engine_instances().get_all()
+    assert [(i.id, i.status) for i in recorded] == [(instance_id, "COMPLETED")]
+    stores = lambda: sorted(glob.glob(os.path.join(
+        base, "**", "gen-*", "blocks", "blocks-*", "manifest.json"), recursive=True))
+    assert len(stores()) == 1  # one block store, built by rank 0, read by both
+
+    one = write_json(tmp_path / "one.json", dict(
+        VARIANT, id="store-rec-one", datasource={"params": streaming}))
+    assert cli.main(["train", "--variant", one, "--device", "cpu", *flags]) == 0
+    storage.reset()
+    single = [i for i in storage.get_meta_data_engine_instances().get_all()
+              if i.id != instance_id]
+    assert [i.status for i in single] == ["COMPLETED"]
+    assert len(stores()) == 2  # the one-process packing is a store of its own
+    _, got = load_instance_model(load_engine_variant(launch), instance_id)
+    _, want = load_instance_model(load_engine_variant(one), single[0].id)
+    assert got.user_index == want.user_index and got.item_ids == want.item_ids
+    np.testing.assert_allclose(got.als.user_factors, want.als.user_factors, atol=1e-4)
+    np.testing.assert_allclose(got.als.item_factors, want.als.item_factors, atol=1e-4)
+    queries = [{"user": f"u{u}", "num": 6} for u in range(0, 30, 3)]
+    got_answers = _serve(launch, queries, engine_instance_id=instance_id)
+    want_answers = _serve(one, queries, engine_instance_id=single[0].id)
+    for (g_status, g), (w_status, w) in zip(got_answers, want_answers):
+        assert g_status == w_status == 200
+        assert [e["item"] for e in g["itemScores"]] == [e["item"] for e in w["itemScores"]]
+        np.testing.assert_allclose([e["score"] for e in g["itemScores"]],
+                                   [e["score"] for e in w["itemScores"]], atol=1e-4)
 
 
 def _start(args, env):
