@@ -252,7 +252,8 @@ script exits non-zero and prints no result):
    answer equal to the materialized twin's ``predict``.
    dist_train -- multi-process ALS training on ``torch.distributed``:
    the recommendation engine.json (the 256 cap, mips, ``seenFilter:
-   "live"``) on phase 6's 20M ratings as ``pio train``'s core
+   "live"``) on the first 5,000,000 of phase 6's ratings (cut from all
+   20M beside dist_models) as ``pio train``'s core
    (``run_train``) in ranks this script starts as ``chip_smoke.py
    --dist-worker`` under the launch contract's env: (a) one rank in
    an NCCL group, mesh [1, 1]; (b) two ranks sharing the card (gloo, which takes
@@ -276,6 +277,42 @@ script exits non-zero and prints no result):
    the one-process model's up to near ties. Two ranks on one card
    measure correctness and overhead, not scaling. B3, B4 and the fused
    backward stay 0.
+   dist_models -- multi-process NCF and SASRec training, the same way
+   (``pio train``'s core in ``--dist-worker`` ranks, two ranks sharing
+   the card over gloo, each launch a store of its own):
+   ``examples/ncf/engine.json`` (widths unchanged, checkpoint on; epochs
+   5 -> 1 on the first 125,000 of phase 6's ratings, the full 138,000 x
+   27,000 tables, 153 steps) as (a) [2, 1], the batch over ``data``, and
+   (b) [1, 2], the params and Adam's moments over ``model``;
+   ``examples/sequence/engine.json`` (``("data", "seq")``, widths
+   unchanged; epochs 10 -> 1 on the first 25,600 of seq_data's packed
+   sequences, 100 steps) as (c) [2, 1], flash per rank, (d) [1, 2]
+   ring attention (the reference's ring body is plain: B4 launches 0 in
+   training) and (e) [1, 2] Ulysses (flash at one head per rank). The
+   reference of each template: its one-process ``Algorithm.train`` on
+   the card from the same seeded init over the same examples; for a
+   launch with a data axis, that run with each batch cut as the axis
+   cuts it and the shards' gradients summed (``split_reference``: Adam
+   turns the rounding of half-batch products into lr-sized steps where
+   a ReLU input or a sparse row's gradient sits near 0, so the unsplit
+   run's trajectory is printed beside, not gated). Each launch: the
+   first 20 step losses of every rank within 1e-4 of the reference's,
+   rank 0's blob's params within 1e-3 element by element (the seq-split
+   launches (d) and (e), which have no one-process twin of their
+   position-split gradient sums: leaf by leaf, every leaf within 1e-3
+   but the item table within 1e-2, a bar the control -- the one-process
+   run over another batch order -- must lie past; and so of each other;
+   the RMS printed),
+   B4 and the fused backward 2 a step on every rank in (c) and (e) and 0
+   in (d), B3 0 in training; each rank's backend, launch seconds, train
+   seconds and collectives printed (the ring's point-to-point sends
+   staged through the host: gloo refuses CUDA tensors there, 5 a
+   block a step; Ulysses 8 all-to-alls and a gather); the blob deployed
+   unbatched: NCF 10 known users, B3 once each and once in the warm-up;
+   SASRec 10 users, B4 2 a forward (the warm-up's included); every list
+   the reference model's (scored through the plain versions) up to near
+   ties (scores within 1e-3). Two ranks on one card measure correctness
+   and overhead, not scaling.
    classification -- every kernel's count set to 0 first, all five still 0
    at the end (the part is plain torch, as the reference's is plain jnp):
    classify_path -- BASELINE config #2 through the verbs in a fresh store:
@@ -341,8 +378,9 @@ script exits non-zero and prints no result):
    the wrapper's host work, during which the card idles.
 15. train_ncf -- the NCF training path: ``examples/ncf/engine.json``
    (E=32, hidden 64, 32, batch 4096, lr 0.01, implicit, 4 negatives) on
-   phase 6's 20,000,000 ratings, through NCFPreparator ->
-   NCFAlgorithm.train on cuda, epochs cut 5 -> 1. Checks: the step count,
+   the first 2,500,000 of phase 6's ratings (the full 138,000 x 27,000
+   tables), through NCFPreparator -> NCFAlgorithm.train on cuda, epochs
+   cut 5 -> 1. Checks: the step count,
    no NaN, the mean loss of the last 100 steps below the first 100's,
    and fresh pairs of the data's recipe scoring above uniform ones.
 16. serve_ncf -- that model saved, deployed unbatched
@@ -368,8 +406,9 @@ script exits non-zero and prints no result):
    packed by SequencePreparator to [138,000, 64].
 19. check_flash -- kernel B4 (``flash_attention.cu``) and the fused
    backward (``flash_backward.cu``) against their plain versions on the
-   card: the training shape (B=256, H=2, T=64, D=16) with the packed
-   rows' masks, with random right padding and with left padding; T in
+   card: the training shape (B=256, H=2, T=64, D=16) and Ulysses' local
+   shape on dist_models' [1, 2] mesh (H=1 over the whole T) with the
+   packed rows' masks, with random right padding and with left padding; T in
    {1, 65, 200, 1024} x D in {8, 16, 32, 64}, causal and not, each with a
    fully-masked batch row and left-padded rows (T above 64 takes the
    fused kernel's atomic dq path); D in {24, 128, 136, 256} at T in {64,
@@ -398,8 +437,8 @@ script exits non-zero and prints no result):
    kernels), with the CUDA-event time of one call beside: at these sizes
    the host's launch overhead, which events count, is larger than the
    kernels.
-21. train_seq -- ``examples/sequence/engine.json`` unchanged (E=32, 2
-   heads, 2 blocks, ffn 64, maxLen 64, batch 256, lr 1e-3, 10 epochs)
+21. train_seq -- ``examples/sequence/engine.json`` (E=32, 2 heads, 2
+   blocks, ffn 64, maxLen 64, batch 256, lr 1e-3; epochs cut 10 -> 3)
    through SASRecAlgorithm.train on cuda. Flash counts are zeroed just
    before and read just after: B4 and the fused backward must each be
    2 x steps. Checks: no
@@ -552,12 +591,20 @@ NCF_ODD = ((3001, 8, (16, 8)), (3001, 5, (12, 7)), (2049, 64, (128, 64)), (2049,
            (1003, 5, (130, 9)), (1003, 100, (8, 70)), (517, 3, (1, 1)), (3001, 40, (300, 130)),
            (2047, 100, (200, 70)), (255, 64, (256, 128)), (256, 64, (256, 128)),
            (257, 64, (256, 128)), (300, 8, (60_000, 8)))
-NCF_EPOCHS = 1          # the one cut of the NCF training phase: 5 -> 1
+NCF_EPOCHS = 1          # the NCF training phase's cuts: epochs 5 -> 1, and
+#: its ratings: the first 2,500,000 of the 20M (cut from all 20M to keep
+#: the script in its limit beside the dist_models part)
+NCF_TRAIN_RATINGS = 2_500_000
+#: the SASRec training phase's cut, for the same reason: epochs 10 -> 3
+SEQ_TRAIN_EPOCHS = 3
 NCF_HOLDOUT = 100_000
 
 #: the flash-attention checks and timings: the sequence template's
 #: training shape (batch 256, 2 heads of 16, maxLen 64) and a long one
 SEQ_TRAIN_SHAPE = (256, 2, 64, 16)      # B, H, T, D
+#: Ulysses' local attention on dist_models' [1, 2] ("data", "seq") mesh:
+#: the training shape after the all-to-all, at H / 2 heads over the whole T
+SEQ_ULYSSES_SHAPE = (256, 1, 64, 16)
 SEQ_LONG_SHAPE = (16, 2, 1024, 16)
 #: timed besides: the training shape at head dim 24 (zero-padded to 32 by
 #: the wrappers, the copies timed with the call) and the long one at 128
@@ -2821,18 +2868,18 @@ BATCH_CHUNK, BATCH_COMPARED = 4096, 200
 SEQ_EVAL_MARGIN = 2.0
 
 
-def compare_lists(got: list, want: list) -> tuple[float, int]:
+def compare_lists(got: list, want: list, tol: float = EVAL_TOL) -> tuple[float, int]:
     """``(max |score difference|, near-tie swaps)`` of two ``itemScores``
-    lists; raises unless the scores agree within rtol = atol = EVAL_TOL
+    lists; raises unless the scores agree within rtol = atol = ``tol``
     rank by rank and the items agree except where the two items' scores
     lie within that tolerance."""
     if len(got) != len(want):
         raise AssertionError(f"lists of {len(got)} and {len(want)} items")
     g = np.array([s["score"] for s in got], np.float64)
     w = np.array([s["score"] for s in want], np.float64)
-    tol = EVAL_TOL + EVAL_TOL * np.abs(w)
-    if (np.abs(g - w) > tol).any():
-        raise AssertionError(f"scores differ past {EVAL_TOL}: {got} against {want}")
+    bound = tol + tol * np.abs(w)
+    if (np.abs(g - w) > bound).any():
+        raise AssertionError(f"scores differ past {tol}: {got} against {want}")
     swaps = sum(a["item"] != b["item"] for a, b in zip(got, want))
     return (float(np.abs(g - w).max()) if len(g) else 0.0), swaps
 
@@ -4350,6 +4397,10 @@ DIST_LAUNCHES = (("a_nccl_1x1", [1, 1], "resident"), ("b_data_2x1", [2, 1], "res
                  ("c_model_1x2", [1, 2], "resident"), ("c_model_1x2_streamed", [1, 2], "streamed"))
 #: queries each launch's deploy answers through B2
 DIST_QUERIES = 16
+#: the resident launches' depth cut: the first 5,000,000 of phase 6's 20M
+#: ratings (cut from all 20M to keep the script in its limit beside the
+#: dist_models part)
+DIST_ALS_RATINGS = 5_000_000
 #: B2 launches of a deploy's warm-up: one search of each retrieval index
 #: (dot for user scoring, cosine for similar items)
 WARM_UP_SEARCHES = 2
@@ -4358,22 +4409,29 @@ DIST_TIMEOUT_S = 300
 
 
 def dist_worker(spec: dict) -> int:
-    """One rank of a ``dist_train`` launch (``chip_smoke.py --dist-worker
-    SPEC``; the launch contract's ``PIO_*`` env names the rank). With
-    ``spec["argv"]``: the port's command line, ``pio SPEC["argv"]`` (the
-    streamed launch's ``train``, on the store ``PIO_FS_BASEDIR`` names).
-    Else ``pio train``'s core (``run_train``) of ``spec["variant"]`` on
-    cuda, the 20M ratings (memory-mapped from ``spec["arrays"]``)
-    standing where the events reader's would. Writes the rank's B1
-    launches, the instance it recorded, its backend, collective counts
-    and seconds to ``spec["out"]``-RANK.json."""
+    """One rank of a ``dist_train`` or ``dist_models`` launch
+    (``chip_smoke.py --dist-worker SPEC``; the launch contract's ``PIO_*``
+    env names the rank). With ``spec["argv"]``: the port's command line,
+    ``pio SPEC["argv"]`` (the streamed launch's ``train``, on the store
+    ``PIO_FS_BASEDIR`` names). Else ``pio train``'s core (``run_train``)
+    of ``spec["variant"]`` on cuda, the data memory-mapped from
+    ``spec["arrays"]`` standing where the events reader's would: for
+    ``spec["template"]`` "recommendation" (the default) and "ncf" the
+    ratings, for "sequence" the packed sequences. Writes the rank's
+    kernel launches (each counted from 0 here), the instance it
+    recorded, its backend, collective counts and seconds, and for the
+    neural templates its step count and first ``DIST_LOSS_STEPS``
+    losses, to ``spec["out"]``-RANK.json."""
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
     from predictionio_tpu_torch.ops import als_gram
     from predictionio_tpu_torch.parallel import mesh as mesh_lib
     from predictionio_tpu_torch.parallel.distributed import distributed_info
 
     rank = int(os.environ["PIO_PROCESS_ID"])
-    timings = {}
+    timings, log = {}, None
     als_gram.gram_rhs.launches = 0           # counts start at 0 here
+    ncf_kernel.ncf_score_all_items.launches = 0
+    zero_flash_counts()
     t0 = time.perf_counter()
     if spec.get("argv"):
         out = cli_out(spec["argv"])
@@ -4389,29 +4447,44 @@ def dist_worker(spec: dict) -> int:
         from predictionio_tpu_torch.workflow.core_workflow import run_train
         from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 
-        users, items, ratings, times = (
-            np.load(os.path.join(spec["arrays"], f"{n}.npy"), mmap_mode="r")
-            for n in ("users", "items", "ratings", "times"))
+        template = spec.get("template", "recommendation")
+        if template == "sequence":
+            matrix = np.load(os.path.join(spec["arrays"], "sequences.npy"))
 
-        def read_training(self, ctx):
-            return rec.RatingsData(
-                users=np.asarray(users), items=np.asarray(items),
-                ratings=np.asarray(ratings), times=np.asarray(times),
-                user_ids=[f"u{u}" for u in range(TRAIN_USERS)],
-                item_ids=[f"i{i}" for i in range(TRAIN_ITEMS)], app_name=spec["app"],
-                event_names=["rate", "buy"])
+            def read_training(self, ctx):
+                return sequence_rows_data(matrix, spec["app"])
+        else:
+            users, items, ratings, times = (
+                np.load(os.path.join(spec["arrays"], f"{n}.npy"), mmap_mode="r")
+                for n in ("users", "items", "ratings", "times"))
 
-        TEMPLATES["recommendation"].datasource_class.read_training = read_training
+            def read_training(self, ctx):
+                return rec.RatingsData(
+                    users=np.asarray(users), items=np.asarray(items),
+                    ratings=np.asarray(ratings), times=np.asarray(times),
+                    user_ids=[f"u{u}" for u in range(TRAIN_USERS)],
+                    item_ids=[f"i{i}" for i in range(TRAIN_ITEMS)], app_name=spec["app"],
+                    event_names=["rate", "buy"])
+
+        TEMPLATES[template].datasource_class.read_training = read_training
+        # the neural trainers report every step's loss (ALS journals iterations)
+        log = None if template == "recommendation" else EpochLog()
         instance = run_train(load_engine_variant(spec["variant"]), device="cuda",
-                             timings=timings)
+                             telemetry=log, timings=timings)
         b1 = als_gram.gram_rhs.launches      # read here
         wall_s = time.perf_counter() - t0
         instance_id, status = instance.id, instance.status
+    report = {"rank": rank, "b1_launches": b1,
+              "b3_launches": ncf_kernel.ncf_score_all_items.launches,
+              "flash_launches": flash_counts(), "instance_id": instance_id,
+              "status": status, "distributed": distributed_info(),
+              "collectives": mesh_lib.collective_counts(), "timings": timings,
+              "run_train_s": wall_s}
+    if log is not None:
+        report.update(steps=len(log.losses), losses=log.losses[:DIST_LOSS_STEPS],
+                      epoch_s=log.seconds)
     with open(f"{spec['out']}-{rank}.json", "w") as f:
-        json.dump({"rank": rank, "b1_launches": b1, "instance_id": instance_id,
-                   "status": status, "distributed": distributed_info(),
-                   "collectives": mesh_lib.collective_counts(), "timings": timings,
-                   "run_train_s": wall_s}, f)
+        json.dump(report, f)
     return 0
 
 
@@ -4449,16 +4522,16 @@ def run_launch(spec: dict, n: int) -> tuple[list[dict], float]:
     return reports, seconds
 
 
-def phase_dist_train(ratings, resident: dict, store: dict, repo: str, workdir: str,
-                     stream_root: str, seed: int) -> dict:
+def phase_dist_train(ratings, store: dict, repo: str, workdir: str, stream_root: str,
+                     seed: int) -> dict:
     """dist_train: each of ``DIST_LAUNCHES`` under the launch contract's
     env. The three resident launches: the recommendation template's
     shipped engine.json (with the 256-event history cap of phase 6,
     ``retrieval`` mips and ``seenFilter: "live"``, so the blob holds no
-    20M-edge seen map) on the 20M ratings, run as ``pio train``'s core,
-    each in a store of its own; the reference is the one-process
-    resident fit with the same packing (``num_shards`` x
-    ``model_shards`` = 1: phase 6's fit; = 2: one fit here, through B1).
+    seen map) on the first ``DIST_ALS_RATINGS`` of phase 6's ratings, run
+    as ``pio train``'s core, each in a store of its own; the reference is
+    the one-process resident fit with the same packing (``num_shards`` x
+    ``model_shards`` = 1 and 2: a fit each here, through B1).
     The streamed launch: ``pio train --snapshot-mode refresh --als-feed
     streamed`` of stream_pio's variant (``"reader": "streaming"``) on
     stream_pio's copy of store_path's store, so the ranks agree on one
@@ -4485,7 +4558,7 @@ def phase_dist_train(ratings, resident: dict, store: dict, repo: str, workdir: s
     from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
     from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 
-    users, items, values, times = ratings
+    users, items, values, times = (a[:DIST_ALS_RATINGS] for a in ratings)
     arrays = os.path.join(workdir, "dist_arrays")
     os.makedirs(arrays, exist_ok=True)
     for name, a in (("users", users), ("items", items), ("ratings", values),
@@ -4494,14 +4567,16 @@ def phase_dist_train(ratings, resident: dict, store: dict, repo: str, workdir: s
     algo_params, prep_params = template_params(repo)
     config = dataclasses.replace(ALSAlgorithm(algo_params, device="cuda")._config(),
                                  max_len=TRAIN_CAP, factor_sharding="replicated")
-    # the one-process fit of the two-rank packing (8 x 2-row multiples)
+    # the one-process fits of the one- and two-rank packings (the latter
+    # in 8 x 2-row multiples)
     t0 = time.perf_counter()
     als_gram.gram_rhs.launches = 0
-    paired = als_fit(build_als_data(users, items, values, TRAIN_USERS, TRAIN_ITEMS, config,
-                                    times=times, num_shards=2), config, "cuda")
+    references = {}
+    for shards in (1, 2):
+        fit = als_fit(build_als_data(users, items, values, TRAIN_USERS, TRAIN_ITEMS, config,
+                                     times=times, num_shards=shards), config, "cuda")
+        references[shards] = (fit.user_factors, fit.item_factors)
     reference_s = time.perf_counter() - t0
-    references = {1: (resident["user_factors"], resident["item_factors"]),
-                  2: (paired.user_factors, paired.item_factors)}
     rng = np.random.default_rng(seed)
     picked = rng.choice(TRAIN_USERS, DIST_QUERIES, replace=False)
     train_queries = [{"user": f"u{u}", "num": 10} for u in picked.tolist()]
@@ -4589,7 +4664,7 @@ def phase_dist_train(ratings, resident: dict, store: dict, repo: str, workdir: s
                 raise AssertionError(f"{name}: {b2} B2 launches, answers {served}")
             result["launches"][name] = {
                 "mesh_shape": shape, "feed": feed, "ranks": n, "launch_s": launch_s,
-                "events": STORE_EVENTS if streamed else TRAIN_EDGES,
+                "events": STORE_EVENTS if streamed else DIST_ALS_RATINGS,
                 "backends": backends, "b1_launches": b1, "collectives": collectives,
                 "timings": [r["timings"] for r in reports],
                 "run_train_s": [r["run_train_s"] for r in reports],
@@ -4605,7 +4680,7 @@ def phase_dist_train(ratings, resident: dict, store: dict, repo: str, workdir: s
     return result
 
 
-def phase_dist_train_path(ratings, resident: dict, store: dict, repo: str, workdir: str,
+def phase_dist_train_path(ratings, store: dict, repo: str, workdir: str,
                           stream_root: str, seed: int) -> dict:
     """dist_train with the parent's counts of the other kernels set to 0
     before and read after (B3, B4 and the fused backward stay 0); B1's
@@ -4615,7 +4690,7 @@ def phase_dist_train_path(ratings, resident: dict, store: dict, repo: str, workd
     ncf_kernel.ncf_score_all_items.launches = 0
     zero_flash_counts()
     t0 = time.perf_counter()
-    dist = phase_dist_train(ratings, resident, store, repo, workdir, stream_root, seed)
+    dist = phase_dist_train(ratings, store, repo, workdir, stream_root, seed)
     others = {"ncf_score_all_items": ncf_kernel.ncf_score_all_items.launches, **flash_counts()}
     if any(others.values()):
         raise AssertionError(f"the dist_train path launched other kernels: {others}")
@@ -4625,6 +4700,464 @@ def phase_dist_train_path(ratings, resident: dict, store: dict, repo: str, workd
         "other_launches": others, "seconds": time.perf_counter() - t0,
     }
     emit({"phase": "dist_train_path", **result})
+    return result
+
+
+# --------------------------------------------------------------------------
+# dist_models: multi-process NCF and SASRec training on torch.distributed
+# (``pio train`` under the launch contract; two ranks share the one card)
+# --------------------------------------------------------------------------
+
+#: (name, template, pio.mesh_shape, seqParallel) of each launch: NCF (a)
+#: data-sharded, (b) model-sharded; SASRec over ("data", "seq"): (c)
+#: data-sharded, flash per rank, (d) ring attention, (e) Ulysses
+DIST_MODEL_LAUNCHES = (("a_ncf_data_2x1", "ncf", [2, 1], None),
+                       ("b_ncf_model_1x2", "ncf", [1, 2], None),
+                       ("c_seq_data_2x1", "sequence", [2, 1], "ring"),
+                       ("d_seq_ring_1x2", "sequence", [1, 2], "ring"),
+                       ("e_seq_ulysses_1x2", "sequence", [1, 2], "ulysses"))
+#: the depth cuts: the first ratings of phase 6's 20M (NCF, epochs 5 -> 1)
+#: and the first packed sequences of seq_data's 138,000 (SASRec, 10 -> 1)
+DIST_NCF_RATINGS = 125_000
+DIST_SEQ_ROWS = 25_600
+#: the first step losses held to the one-process reference, and the bars
+DIST_LOSS_STEPS = 20
+DIST_LOSS_TOL = 1e-4
+DIST_PARAM_TOL = 1e-3
+#: a seq-sharded launch has no one-process twin of its arithmetic (each
+#: rank reduces the position-local layers' gradients over its T/s
+#: positions, then one all-reduce sums the ranks'), and Adam carries the
+#: rounding of those sums into lr-sized steps of the elements whose
+#: gradient is near 0. Its params are held to the one-process run, and the
+#: ring's and Ulysses' to each other, leaf by leaf in max abs: every leaf
+#: at DIST_PARAM_TOL but the item table, whose sparse rows drift furthest,
+#: at DIST_SEQ_ITEM_TOL. That bar lies between the sound launches' largest
+#: reading and the control's (the one-process run over another batch
+#: order, DIST_SEQ_CONTROL_SEED), and the script checks that it does.
+DIST_SEQ_ITEM_LEAF = "item_embed.weight"
+DIST_SEQ_ITEM_TOL = 1e-2
+DIST_SEQ_CONTROL_SEED = 1
+#: known users each deploy answers, and the bar on their scores
+DIST_MODEL_QUERIES = 10
+DIST_LIST_TOL = 1e-3
+
+
+def sequence_rows_data(matrix: np.ndarray, app: str):
+    """The packed ``[N, maxLen]`` rows (ids + 1, 0 = padding) as the
+    sequence DataSource's ``SequencesData`` (users ``s0`` ...): the
+    preparator packs them back to the same rows."""
+    from predictionio_tpu_torch.models.sequence import SequencesData
+
+    return SequencesData([row[row > 0].astype(np.int64) - 1 for row in matrix],
+                         [f"s{r}" for r in range(matrix.shape[0])],
+                         [f"i{i}" for i in range(TRAIN_ITEMS)], app_name=app,
+                         event_names=["view", "buy", "rate"])
+
+
+def neural_reference(template: str, params: dict, data) -> dict:
+    """The one-process train of ``template`` on the card from the same
+    seeded init over the same examples: ``Algorithm.train`` (the
+    negatives sampled alike for NCF), every step's loss, the state, the
+    seconds, and its kernel launches."""
+    from predictionio_tpu_torch.controller.base import TrainContext
+    from predictionio_tpu_torch.models.ncf import NCFAlgorithm
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+    from predictionio_tpu_torch.models.sequence import SASRecAlgorithm, SequencePreparator
+
+    log = EpochLog()
+    ctx = TrainContext(device="cuda", telemetry=log)
+    before = {**flash_counts(), "ncf_score_all_items": ncf_kernel.ncf_score_all_items.launches}
+    t0 = time.perf_counter()
+    if template == "ncf":
+        model = NCFAlgorithm(params, device="cuda").train(ctx, data)
+    else:
+        prepared = SequencePreparator({"maxLen": params.get("maxLen", 64)}).prepare(ctx, data)
+        model = SASRecAlgorithm(params, device="cuda").train(ctx, prepared)
+    seconds = time.perf_counter() - t0
+    after = {**flash_counts(), "ncf_score_all_items": ncf_kernel.ncf_score_all_items.launches}
+    return {"state": model.state, "config": model.config, "losses": log.losses,
+            "train_s": seconds, "launches": {k: after[k] - before[k] for k in after}}
+
+
+def split_reference(template: str, params: dict, data, config, dp: int,
+                    order_seed: int | None = None) -> dict:
+    """``neural_reference``'s one-process train with each batch cut as a
+    ``dp``-way data axis cuts it (to a multiple of ``dp``; skipped below
+    it) and its ``dp`` shards' gradients summed before each Adam step:
+    the data-sharded launch's arithmetic (each shard's products at the
+    shard's shape, then one sum) without its collectives. Adam turns the
+    rounding of half-batch products into lr-sized steps wherever it
+    flips a ReLU or cancels a sparse row's gradient, so a data-sharded
+    launch is held to this run, and its gap to the unsplit one printed.
+    ``order_seed`` draws the batch order from another seed (the init
+    stays ``config.seed``'s): the seq-sharded gates' control."""
+    import torch
+    import torch.nn.functional as F
+
+    from predictionio_tpu_torch.models.ncf.model import init_model as ncf_init
+    from predictionio_tpu_torch.models.ncf.model import make_implicit_batches
+    from predictionio_tpu_torch.models.sequence import SequencePreparator
+    from predictionio_tpu_torch.models.sequence.model import init_model as seq_init
+    from predictionio_tpu_torch.models.sequence.model import logits
+
+    if template == "ncf":
+        u, i, y = data.users, data.items, data.ratings
+        if config.implicit:
+            u, i, y = make_implicit_batches(u, i, config.num_items, config.negatives,
+                                            np.random.default_rng(config.seed), device="cuda")
+        net = ncf_init(config)
+        rows_of = [torch.as_tensor(np.asarray(a, dt), device="cuda")
+                   for a, dt in ((u, np.int64), (i, np.int64), (y, np.float32))]
+    else:
+        matrix = SequencePreparator({"maxLen": config.max_len}).prepare(None, data).matrix
+        inputs = torch.as_tensor(np.asarray(matrix, np.int64), device="cuda")
+        targets = torch.zeros_like(inputs)
+        targets[:, :-1] = inputs[:, 1:]
+        net = seq_init(config)
+        rows_of = [inputs, targets]
+    net.to("cuda").train()
+    optimizer = torch.optim.Adam(net.parameters(), lr=config.learning_rate,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    n = rows_of[0].shape[0]
+    np_rng = np.random.default_rng(config.seed if order_seed is None else order_seed)
+    losses = []
+    for _ in range(config.epochs):
+        order = torch.as_tensor(np_rng.permutation(n), device="cuda")
+        for start in range(0, n, config.batch_size):
+            take = order[start:start + config.batch_size]
+            per = take.numel() // dp
+            if not per:
+                continue
+            optimizer.zero_grad(set_to_none=True)
+            if template == "ncf":
+                scale = per * dp
+            else:
+                scale = (rows_of[1][take[:per * dp]] > 0).sum().clamp_min(1)
+            total = 0.0
+            for r in range(dp):
+                shard = take[r * per:(r + 1) * per]
+                if template == "ncf":
+                    out = net(rows_of[0][shard], rows_of[1][shard])
+                    y = rows_of[2][shard]
+                    part = (F.binary_cross_entropy_with_logits(out, y, reduction="sum")
+                            if config.implicit else ((out - y) ** 2).sum())
+                else:
+                    out = logits(net, net(rows_of[0][shard]))
+                    part = F.cross_entropy(out.reshape(-1, out.shape[-1]),
+                                           rows_of[1][shard].reshape(-1), ignore_index=0,
+                                           reduction="sum")
+                part = part / scale
+                part.backward()
+                total = total + part.detach()
+            optimizer.step()
+            losses.append(total)
+    return {"state": {k: v.detach().to("cpu", copy=True) for k, v in net.state_dict().items()},
+            "losses": torch.stack(losses).tolist()}
+
+
+def leaf_gaps(got: dict, want: dict) -> dict:
+    """Max abs gap of each leaf of two state dicts (arrays or tensors)."""
+    return {k: float(np.abs(np.asarray(got[k]) - np.asarray(want[k])).max()) for k in want}
+
+
+def check_seq_leaves(what: str, gaps: dict) -> None:
+    """A seq-sharded launch's leaf gaps (``leaf_gaps``) against the bars:
+    ``DIST_SEQ_ITEM_TOL`` for the item table, ``DIST_PARAM_TOL`` for
+    every other leaf."""
+    over = {k: g for k, g in gaps.items()
+            if not g <= (DIST_SEQ_ITEM_TOL if k == DIST_SEQ_ITEM_LEAF else DIST_PARAM_TOL)}
+    if over:
+        raise AssertionError(f"{what}: leaves past their bars {over} (item table "
+                             f"{DIST_SEQ_ITEM_TOL}, the others {DIST_PARAM_TOL})")
+
+
+def phase_dist_models(ratings, seq: dict, repo: str, workdir: str, seed: int) -> dict:
+    """dist_models: each of ``DIST_MODEL_LAUNCHES`` under the launch
+    contract's env, ``pio train``'s core of the template's engine.json
+    (epochs cut to 1, ``pio.mesh_shape`` per launch) in a store of its
+    own; the reference is ``neural_reference``. Per launch: every rank's
+    steps and first ``DIST_LOSS_STEPS`` losses against the reference's
+    (within ``DIST_LOSS_TOL``), the kernel launches of every rank (B3 0;
+    B4 and the fused backward 2 a step where the attention runs flash,
+    0 in the ring's training), its backend and collectives (the ring's
+    and Ulysses' counts exact); rank 0 alone recorded the one new
+    COMPLETED instance; the blob's params within ``DIST_PARAM_TOL`` of the
+    reference's (a seq-sharded launch's leaf by leaf, ``check_seq_leaves``,
+    beside the control's reading, and the ring's and Ulysses' likewise
+    to each other); the blob deployed unbatched answers
+    ``DIST_MODEL_QUERIES`` known users (B3 once a query and once in the
+    warm-up; B4 2 a forward, the warm-up's included), each list the
+    reference model's (scored through the plain versions) up to near
+    ties. Two ranks on one card measure correctness and overhead, not
+    scaling."""
+    import torch
+
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.models.ncf import NCFAlgorithm
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+    from predictionio_tpu_torch.models.recommendation import RatingsData
+    from predictionio_tpu_torch.models.sequence import SASRecAlgorithm
+    from predictionio_tpu_torch.parallel.distributed import BACKEND_RULE
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
+    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+
+    users, items, values, times = (a[:DIST_NCF_RATINGS] for a in ratings)
+    matrix = np.ascontiguousarray(seq["prepared"].matrix[:DIST_SEQ_ROWS])
+    arrays = os.path.join(workdir, "dist_model_arrays")
+    os.makedirs(arrays, exist_ok=True)
+    for name, a in (("users", users), ("items", items), ("ratings", values),
+                    ("times", times), ("sequences", matrix)):
+        np.save(os.path.join(arrays, f"{name}.npy"), a)
+    engines = {"ncf": ncf_engine(repo)[0], "sequence": sequence_engine(repo)[0]}
+    params, data = {}, {}
+    for template, path in engines.items():
+        with open(path) as f:
+            params[template] = dict(json.load(f)["algorithms"][0]["params"], epochs=1)
+    data["ncf"] = RatingsData(users=users, items=items, ratings=values, times=times,
+                              user_ids=[f"u{u}" for u in range(TRAIN_USERS)],
+                              item_ids=[f"i{i}" for i in range(TRAIN_ITEMS)],
+                              app_name="DistApp", event_names=["rate", "buy"])
+    data["sequence"] = sequence_rows_data(matrix, "DistApp")
+    references = {t: neural_reference(t, params[t], data[t]) for t in engines}
+    # the control of the seq-sharded gates: the one-process SASRec run
+    # from the same init over another batch order; its item-table gap
+    # must lie past DIST_SEQ_ITEM_TOL, or that bar could not see such a run
+    t0 = time.perf_counter()
+    before = flash_counts()
+    control = split_reference("sequence", params["sequence"], data["sequence"],
+                              references["sequence"]["config"], 1,
+                              order_seed=DIST_SEQ_CONTROL_SEED)
+    control_gaps = leaf_gaps(control["state"], references["sequence"]["state"])
+    control_result = {"order_seed": DIST_SEQ_CONTROL_SEED, "leaf_max_abs_err": control_gaps,
+                      "train_s": time.perf_counter() - t0,
+                      "launches": {k: n - before[k] for k, n in flash_counts().items()}}
+    emit({"phase": "dist_models_control", **control_result})
+    if not control_gaps[DIST_SEQ_ITEM_LEAF] > DIST_SEQ_ITEM_TOL:
+        raise AssertionError(f"the control's item table is {control_gaps[DIST_SEQ_ITEM_LEAF]} "
+                             f"from the reference's, within the bar {DIST_SEQ_ITEM_TOL}")
+    rng = np.random.default_rng(seed)
+    queries = {
+        "ncf": [{"user": f"u{u}", "num": 10} for u in
+                rng.choice(np.unique(users), DIST_MODEL_QUERIES, replace=False).tolist()],
+        "sequence": [{"user": f"s{r}", "num": 10} for r in
+                     rng.choice(DIST_SEQ_ROWS, DIST_MODEL_QUERIES, replace=False).tolist()],
+    }
+    result = {"backend_rule": BACKEND_RULE, "launches": {}, "control": control_result,
+              "reference": {t: {"steps": len(r["losses"]), "train_s": r["train_s"],
+                                "launches": r["launches"]} for t, r in references.items()}}
+    splits, seq_split_states = {}, {}
+    for name, template, shape, seq_parallel in DIST_MODEL_LAUNCHES:
+        n = shape[0] * shape[1]
+        unsplit = references[template]
+        reference = unsplit
+        if shape[0] > 1:
+            key = (template, shape[0])
+            if key not in splits:
+                t0 = time.perf_counter()
+                before = {**flash_counts(),
+                          "ncf_score_all_items": ncf_kernel.ncf_score_all_items.launches}
+                splits[key] = split_reference(template, params[template], data[template],
+                                              unsplit["config"], shape[0])
+                splits[key]["train_s"] = time.perf_counter() - t0
+                splits[key]["launches"] = {
+                    k: v - before[k] for k, v in {
+                        **flash_counts(),
+                        "ncf_score_all_items": ncf_kernel.ncf_score_all_items.launches}.items()}
+            reference = splits[key]
+        spec = {"name": name, "template": template, "arrays": arrays, "app": "DistApp",
+                "out": os.path.join(workdir, f"dist_{name}")}
+        with fresh_store(workdir, f"dist_{name}"):
+            cli_out(["app", "new", "DistApp"])
+            variant_path = os.path.join(workdir, f"dist_{name}.json")
+            with open(engines[template]) as f:
+                variant = json.load(f)
+            variant["datasource"]["params"]["appName"] = "DistApp"
+            algo = variant["algorithms"][0]["params"]
+            algo["epochs"] = 1
+            if seq_parallel is not None:
+                algo["seqParallel"] = seq_parallel
+            variant["sparkConf"] = dict(variant["sparkConf"], **{"pio.mesh_shape": shape})
+            with open(variant_path, "w") as f:
+                json.dump(variant, f)
+            spec["variant"] = variant_path
+            before = {i.id for i in storage.get_meta_data_engine_instances().get_all()}
+            reports, launch_s = run_launch(spec, n)
+            backends = [r["distributed"]["backend"] for r in reports]
+            if backends != ["gloo"] * n:
+                raise AssertionError(f"{name}: backends {backends}")
+            steps = [r["steps"] for r in reports]
+            if steps != [len(reference["losses"])] * n:
+                raise AssertionError(f"{name}: steps per rank {steps}, reference "
+                                     f"{len(reference['losses'])}")
+            want_losses = np.asarray(reference["losses"][:DIST_LOSS_STEPS])
+            loss_err = max(float(np.abs(np.asarray(r["losses"]) - want_losses).max())
+                           for r in reports)
+            if not loss_err <= DIST_LOSS_TOL:
+                raise AssertionError(f"{name}: first losses {loss_err} from the reference's")
+            flash = [r["flash_launches"] for r in reports]
+            b3 = [r["b3_launches"] for r in reports]
+            blocks = int(algo.get("numBlocks", 2))
+            per_rank = (0 if template == "ncf" or seq_parallel == "ring" and shape[1] > 1
+                        else blocks * steps[0])
+            if any(f != {k: per_rank for k in FLASH_KERNELS} for f in flash) or any(b3):
+                raise AssertionError(f"{name}: flash launches {flash}, B3 {b3}, "
+                                     f"expected {per_rank} flash a rank")
+            collectives = [r["collectives"] for r in reports]
+            hops = blocks * steps[0]  # attention calls a rank
+            exact = {"d_seq_ring_1x2": {"gloo:ppermute": 5 * hops,
+                                        "gloo:staged_ppermute": 5 * hops},
+                     "e_seq_ulysses_1x2": {"gloo:all_to_all": 8 * hops,
+                                           "gloo:all_gather": hops}}.get(name, {})
+            for c in collectives:
+                if any(c.get(k, 0) != v for k, v in exact.items()):
+                    raise AssertionError(f"{name}: collectives {c}, expected {exact}")
+            ids = [r["instance_id"] for r in reports]
+            storage.reset()
+            recorded = [(i.id, i.status)
+                        for i in storage.get_meta_data_engine_instances().get_all()
+                        if i.id not in before]
+            if ids[1:] != [None] * (n - 1) or recorded != [(ids[0], "COMPLETED")]:
+                raise AssertionError(f"{name}: new instances {recorded}, ranks said {ids}")
+            loaded = load_engine_variant(variant_path)
+            _, model = load_instance_model(loaded, ids[0])
+            gaps = {k: np.abs(np.asarray(model.state[k]) - reference["state"][k].numpy())
+                    for k in reference["state"]}
+            worst = max(gaps, key=lambda k: float(gaps[k].max()))
+            param_err = float(gaps[worst].max())
+            param_detail = {
+                "worst": worst, "worst_index": np.unravel_index(
+                    int(gaps[worst].argmax()), gaps[worst].shape),
+                "over_1e-4": {k: int((g > 1e-4).sum()) for k, g in gaps.items()
+                              if (g > 1e-4).any()},
+                "rms": float(np.sqrt(sum(float((g ** 2).sum()) for g in gaps.values())
+                                     / sum(g.size for g in gaps.values()))),
+            }
+            param_detail["worst_index"] = [int(x) for x in param_detail["worst_index"]]
+            param_detail["leaf_max_abs_err"] = {k: float(g.max()) for k, g in gaps.items()}
+            if template == "sequence" and shape[1] > 1:
+                seq_split_states[name] = model.state
+                check_seq_leaves(name, param_detail["leaf_max_abs_err"])
+            elif not param_err <= DIST_PARAM_TOL:
+                raise AssertionError(f"{name}: params {param_err} from the reference's")
+            unsplit_err = max(float(np.abs(np.asarray(model.state[k]) -
+                                           unsplit["state"][k].numpy()).max())
+                              for k in unsplit["state"])
+            unsplit_loss_err = max(float(np.abs(
+                np.asarray(r["losses"]) - np.asarray(unsplit["losses"][:DIST_LOSS_STEPS])).max())
+                for r in reports)
+            query_ms = []
+            before = {"ncf_score_all_items": ncf_kernel.ncf_score_all_items.launches,
+                      **flash_counts()}
+            served, deployed, deploy_s = serve_model(variant_path, None, queries[template],
+                                                     query_ms, batching=unbatched(),
+                                                     instance_id=ids[0])
+            deploy_launches = {k: v - before[k] for k, v in {
+                "ncf_score_all_items": ncf_kernel.ncf_score_all_items.launches,
+                **flash_counts()}.items()}
+            want = ({"ncf_score_all_items": DIST_MODEL_QUERIES + 1, "flash_forward": 0,
+                     "flash_backward": 0} if template == "ncf" else
+                    {"ncf_score_all_items": 0, "flash_forward": blocks * (DIST_MODEL_QUERIES + 1),
+                     "flash_backward": 0})
+            if deploy_launches != want or any(not b["itemScores"] for b in served):
+                raise AssertionError(f"{name}: deploy launches {deploy_launches}, expected "
+                                     f"{want}; answers {served}")
+            # the reference's lists through the plain versions: no launch
+            algo_params = dict(loaded.engine_params.algorithm_params_list[0][1])
+            if template == "ncf":
+                algorithm = NCFAlgorithm(dict(algo_params, usePallas=False), device="cuda")
+            else:
+                algorithm = SASRecAlgorithm(algo_params, device="cuda")
+            one_process = dataclasses.replace(deployed, state=reference["state"])
+            diffs, swaps = [], 0
+            with plain_flash():
+                want_lists = [algorithm.predict(one_process, q)["itemScores"]
+                              for q in queries[template]]
+            for body, want_list in zip(served, want_lists):
+                d, sw = compare_lists(body["itemScores"], want_list, tol=DIST_LIST_TOL)
+                diffs.append(d)
+                swaps += sw
+            result["launches"][name] = {
+                "template": template, "mesh_shape": shape, "seq_parallel": seq_parallel,
+                "ranks": n, "launch_s": launch_s, "backends": backends, "steps": steps[0],
+                "timings": [r["timings"] for r in reports],
+                "run_train_s": [r["run_train_s"] for r in reports],
+                "epoch_s": [r["epoch_s"] for r in reports],
+                "collectives": collectives, "flash_launches": flash, "b3_launches": b3,
+                "reference": "split" if reference is not unsplit else "one_process",
+                "first_losses_max_abs_err": loss_err, "params_max_abs_err": param_err,
+                "params_gap": param_detail,
+                "one_process_first_losses_max_abs_err": unsplit_loss_err,
+                "one_process_params_max_abs_err": unsplit_err,
+                "deploy_launches": deploy_launches, "deploy_s": deploy_s,
+                "query_p50_ms": statistics.median(query_ms),
+                "list_max_abs_diff": max(diffs), "near_tie_swaps": swaps,
+            }
+            emit({"phase": "dist_models_launch", "name": name, **result["launches"][name]})
+        del model, deployed, one_process
+        torch.cuda.empty_cache()
+    if len(seq_split_states) == 2:
+        ring, ulysses = seq_split_states.values()
+        gaps = [np.abs(np.asarray(ring[k]) - np.asarray(ulysses[k])) for k in ring]
+        rms = float(np.sqrt(sum(float((g ** 2).sum()) for g in gaps) / sum(g.size for g in gaps)))
+        leaves = leaf_gaps(ulysses, ring)
+        result["ring_vs_ulysses_params"] = {"max_abs_err": max(leaves.values()), "rms": rms,
+                                            "leaf_max_abs_err": leaves}
+        check_seq_leaves("ring against Ulysses", leaves)
+    result["split_reference"] = {f"{t}_split_{dp}": {"steps": len(r["losses"]),
+                                                     "train_s": r["train_s"],
+                                                     "launches": r["launches"]}
+                                 for (t, dp), r in splits.items()}
+    emit({"phase": "dist_models", "backend_rule": BACKEND_RULE,
+          "reference": result["reference"], "split_reference": result["split_reference"],
+          "ring_vs_ulysses_params": result.get("ring_vs_ulysses_params"),
+          "control": control_result,
+          "launch_s": {k: v["launch_s"] for k, v in result["launches"].items()}})
+    return result
+
+
+def phase_dist_models_path(ratings, seq: dict, repo: str, workdir: str, seed: int) -> dict:
+    """dist_models with this process's counts of every kernel set to 0
+    before and read after: B1 and B2 stay 0, and B3, B4 and the fused
+    backward launch only in the references' training and the deploys
+    (their sum); each kernel's launches per launch and rank beside them,
+    for the kernels line."""
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+    from predictionio_tpu_torch.ops import als_gram, mips
+
+    counters = {"gram_rhs": als_gram.gram_rhs, "mips_block_topk": mips.mips_block_topk,
+                "ncf_score_all_items": ncf_kernel.ncf_score_all_items}
+    for fn in counters.values():
+        fn.launches = 0
+    zero_flash_counts()
+    t0 = time.perf_counter()
+    dist = phase_dist_models(ratings, seq, repo, workdir, seed)
+    here = {**{k: fn.launches for k, fn in counters.items()}, **flash_counts()}
+    launches = {}
+    for kernel in here:
+        ranks = {}
+        for name, run in dist["launches"].items():
+            if kernel == "ncf_score_all_items":
+                ranks[name] = run["b3_launches"]
+            elif kernel in FLASH_KERNELS:
+                ranks[name] = [f[kernel] for f in run["flash_launches"]]
+            else:
+                ranks[name] = [0] * run["ranks"]
+        launches[kernel] = {
+            "ranks_training": ranks,
+            "deploys": {name: run["deploy_launches"].get(kernel, 0)
+                        for name, run in dist["launches"].items()},
+            "references": {t: r["launches"].get(kernel, 0)
+                           for t, r in {**dist["reference"], **dist["split_reference"],
+                                        "sequence_control": dist["control"]}.items()},
+            "this_process": here[kernel],
+        }
+        accounted = (sum(launches[kernel]["deploys"].values())
+                     + sum(launches[kernel]["references"].values()))
+        if here[kernel] != accounted:
+            raise AssertionError(f"{kernel}: {here[kernel]} launches in this process, "
+                                 f"{accounted} in the references and deploys")
+    result = {"launches": launches, "seconds": time.perf_counter() - t0}
+    emit({"phase": "dist_models_path", **result})
     return result
 
 
@@ -5496,8 +6029,9 @@ def heldout_pairs(rng: np.random.Generator, n: int):
 def phase_train_ncf(rng: np.random.Generator, ratings, repo: str) -> dict:
     """The NCF training path at full width: the template's engine.json
     (E=32, hidden 64, 32, batch 4096, lr 0.01, implicit, 4 negatives) on
-    the ALS phase's 20M ratings, through NCFPreparator ->
-    NCFAlgorithm.train on cuda; one cut, epochs 5 -> 1."""
+    the first ``NCF_TRAIN_RATINGS`` of the ALS phase's 20M ratings (the
+    full tables), through NCFPreparator -> NCFAlgorithm.train on cuda;
+    epochs cut 5 -> 1."""
     import torch
 
     from predictionio_tpu_torch.controller.base import TrainContext
@@ -5505,7 +6039,7 @@ def phase_train_ncf(rng: np.random.Generator, ratings, repo: str) -> dict:
     from predictionio_tpu_torch.models.ncf.model import NeuMF
     from predictionio_tpu_torch.models.recommendation import RatingsData
 
-    users, items, values, times = ratings
+    users, items, values, times = (a[:NCF_TRAIN_RATINGS] for a in ratings)
     data = RatingsData(
         users=users, items=items, ratings=values, times=times,
         user_ids=[f"u{u}" for u in range(TRAIN_USERS)],
@@ -5929,8 +6463,9 @@ def compare_flash(q, k, v, mask, do, causal: bool, dead_rows=()) -> dict:
 
 def phase_check_flash(seed: int, seq: dict) -> dict:
     """B4 and the fused backward against their plain versions on the card:
-    the training shape with the packed rows' own masks, with random right
-    padding (serving's prefixes) and with left padding; every listed
+    the training shape and Ulysses' local shape (``SEQ_ULYSSES_SHAPE``)
+    with the packed rows' own masks, with random right padding
+    (serving's prefixes) and with left padding; every listed
     T x D, causal and not, with a fully-masked batch row and left-padded
     rows; head dims 24 and 136 (padded), 128 and 256 at T 64 and 1024,
     and 512 at T 200; then 20 SASRec steps at embedDim 48 / 2 heads (D =
@@ -5953,15 +6488,16 @@ def phase_check_flash(seed: int, seq: dict) -> dict:
     }
     worst: dict = {}
     cases = 0
-    for name, (mask, dead) in masks.items():
-        for causal in (True, False):
-            errs = compare_flash(*flash_inputs(gen, b, h, t, d, mask), causal,
-                                 dead if causal else ())
-            cases += 1
-            emit({"phase": "check_flash", "case": name, "shape": [b, t, h, d],
-                  "causal": causal, "max_abs_err": errs})
-            for k, e in errs.items():
-                worst[k] = max(worst.get(k, 0.0), e)
+    for heads, tag in ((h, ""), (SEQ_ULYSSES_SHAPE[1], "_ulysses_local")):
+        for name, (mask, dead) in masks.items():
+            for causal in (True, False):
+                errs = compare_flash(*flash_inputs(gen, b, heads, t, d, mask), causal,
+                                     dead if causal else ())
+                cases += 1
+                emit({"phase": "check_flash", "case": name + tag, "shape": [b, t, heads, d],
+                      "causal": causal, "max_abs_err": errs})
+                for k, e in errs.items():
+                    worst[k] = max(worst.get(k, 0.0), e)
     for t in FLASH_CHECK_T:
         for d in FLASH_CHECK_D:
             pads = (0, t // 3, t)  # batch row 2: every key masked
@@ -6183,7 +6719,8 @@ def hit_at_10(model, held_out: np.ndarray) -> float:
 
 def phase_train_seq(seq: dict) -> dict:
     """The sequence template's training path at full width: the packed
-    20M-event sequences through SASRecAlgorithm.train on cuda, B4 and the
+    20M-event sequences (epochs cut to ``SEQ_TRAIN_EPOCHS``) through
+    SASRecAlgorithm.train on cuda, B4 and the
     fused backward counted; then the quality and kernel-against-plain
     checks."""
     import torch
@@ -6193,7 +6730,8 @@ def phase_train_seq(seq: dict) -> dict:
     from predictionio_tpu_torch.models.sequence.model import train_sasrec
 
     variant, prepared = seq["variant"], seq["prepared"]
-    algorithm = SASRecAlgorithm(variant["algorithms"][0]["params"], device="cuda")
+    algorithm = SASRecAlgorithm(dict(variant["algorithms"][0]["params"],
+                                     epochs=SEQ_TRAIN_EPOCHS), device="cuda")
     log = EpochLog()
     ctx = TrainContext(device="cuda", telemetry=log,
                        mesh_shape=variant["sparkConf"]["pio.mesh_shape"])
@@ -6611,10 +7149,13 @@ def main(argv: list[str] | None = None) -> int:
         streamed = phase_stream_path(ratings, resident, store, templates, repo, workdir,
                                      stream_root.name, args.seed)
     with tempfile.TemporaryDirectory() as workdir:
-        dist = phase_dist_train_path(ratings, resident, store, repo, workdir,
+        dist = phase_dist_train_path(ratings, store, repo, workdir,
                                      stream_root.name, args.seed)
     stream_root.cleanup()
     del resident
+    seq = phase_seq_data(ratings, repo)
+    with tempfile.TemporaryDirectory() as workdir:
+        dist_models = phase_dist_models_path(ratings, seq, repo, workdir, args.seed)
     with tempfile.TemporaryDirectory() as workdir:
         classification = phase_classification(rng, args.seed, repo, workdir)
 
@@ -6627,7 +7168,6 @@ def main(argv: list[str] | None = None) -> int:
         phase_train_verb_ncf(rng, repo, workdir)
     del ncf_trained
 
-    seq = phase_seq_data(ratings, repo)
     del ratings
     flash_check = phase_check_flash(args.seed, seq)
     flash_time = phase_time_flash(args.seed, seq)
@@ -6746,6 +7286,7 @@ def main(argv: list[str] | None = None) -> int:
         row["classification_launches"] = classification["launches"][row["name"]]
         row.setdefault("stream_path_launches", streamed["other_launches"].get(row["name"]))
         row.setdefault("dist_train_launches", dist["other_launches"].get(row["name"]))
+        row["dist_models_launches"] = dist_models["launches"][row["name"]]
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {

@@ -128,7 +128,7 @@ class TrainContext:
     examples they produce or permute (``record_phase(name, seconds,
     rows)``).
     ``mesh_shape`` is the engine.json's ``sparkConf["pio.mesh_shape"]``
-    (the port trains on one device; NCF refuses an axis above 1).
+    (the classifiers, which train on one device, refuse an axis above 1).
     ``run_key`` (a train from the store) keys the checkpoints by run, as
     the reference's ``RuntimeContext.checkpoint_manager`` does: an
     algorithm's go to ``checkpoint_dir/<name>-<run_key>``.
@@ -251,8 +251,9 @@ class Algorithm(Component, abc.ABC):
     """Algorithm contract: train on prepared data, answer queries.
 
     ``trains_on_mesh``: ``train`` spreads over ``ctx.mesh``, so a
-    multi-process launch may train it (the ALS and cooccurrence
-    templates); a launch of any other raises (ROADMAP.md slice 20)."""
+    multi-process launch may train it (the ALS, cooccurrence, NCF and
+    sequence templates); a launch of any other (the classifiers) raises
+    (ROADMAP.md slice 20)."""
 
     supports_fold_in: bool = False
     trains_on_mesh: bool = False

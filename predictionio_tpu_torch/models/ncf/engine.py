@@ -7,7 +7,9 @@ the recommendation template: ``{"user": "u1", "num": 4}`` ->
 - ``NCFPreparator`` hands the COO ratings on unchanged.
 - ``NCFAlgorithm.train`` samples negatives (implicit mode), trains
   ``train_ncf`` on the algorithm's device with per-epoch checkpoints,
-  and keeps the seen map.
+  over ``ctx.mesh`` in a multi-process launch (batch over ``data``,
+  params over ``model``; every rank returns the gathered full params, and
+  rank 0 persists them), and keeps the seen map.
 - ``predict`` scores every item through ``NCFModel.scorer``: kernel B3
   when ``usePallas`` is on (the default on ``cuda``), else the batch
   scorer at a bucket of one. ``batch_predict`` scores chunks of known
@@ -33,7 +35,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from predictionio_tpu_torch.controller.base import Algorithm, Preparator
+from predictionio_tpu_torch.controller.base import Algorithm, Preparator, mesh_or_none
 from predictionio_tpu_torch.models._als_common import (
     build_seen,
     partition_user_queries,
@@ -154,6 +156,8 @@ class NCFAlgorithm(Algorithm):
     unless the caller names ``"cpu"``; without a card and without an
     explicit CPU request construction raises."""
 
+    trains_on_mesh = True
+
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
         self.device = resolve_device(device)
@@ -182,6 +186,9 @@ class NCFAlgorithm(Algorithm):
     def train(self, ctx, data: RatingsData) -> NCFModel:
         config = self._config(data)
         users, items, labels = data.users, data.items, data.ratings
+        # the mesh first: a rank's card is set when it joins the launch
+        mesh = mesh_or_none(ctx)
+        device = mesh.device if mesh is not None and mesh.size > 1 else self.device
         checkpoint = (
             ctx.checkpoint_manager("ncf") if self.params.get_or("checkpoint", True) else None
         )
@@ -190,7 +197,7 @@ class NCFAlgorithm(Algorithm):
                 t0 = time.perf_counter()
                 users, items, labels = make_implicit_batches(
                     users, items, data.num_items, config.negatives,
-                    np.random.default_rng(config.seed), device=self.device,
+                    np.random.default_rng(config.seed), device=device,
                 )
                 if telemetry is not None:
                     telemetry.record_phase(
@@ -198,7 +205,7 @@ class NCFAlgorithm(Algorithm):
                     )
             state, _ = train_ncf(
                 config, users, items, labels, self.device, checkpoint=checkpoint,
-                mesh_shape=ctx.mesh_shape, telemetry=telemetry,
+                mesh=mesh, telemetry=telemetry,
             )
         seen_mode = self.seen_mode
         if seen_mode == "live" and data.eval_fold:

@@ -1,4 +1,4 @@
-"""NeuMF model and its training loop on one card.
+"""NeuMF model and its training loop on the card or a mesh of ranks.
 
 Port of ``predictionio_tpu/models/ncf/model.py``:
 
@@ -16,10 +16,17 @@ Port of ``predictionio_tpu/models/ncf/model.py``:
   ``[in, out]``, a ``Linear.weight`` ``[out, in]``.
 - ``make_implicit_batches``: the reference's sampled negatives, byte for
   byte, with the collision test vectorized.
+- ``param_shardings``: the reference's tensor-parallel rule on a state
+  dict: an embedding table, or a dense weight, whose flax trailing dim
+  (the embedding dim; a kernel's ``out``, a ``Linear.weight``'s rows)
+  divides the ``model`` axis is sharded on it, everything else is
+  replicated. ``shard_state`` / ``unshard_state`` cut a full state dict
+  into a rank's shards and gather them back.
 - ``train_ncf``: Adam over the reference's epoch permutations and batch
   slicing, a checkpoint of the params and Adam's moments every epoch,
-  and resume from the latest one. The model-axis tensor parallelism of
-  ``param_shardings`` is not ported: the port trains on one device.
+  and resume from the latest one; on a mesh of several ranks the batch
+  shards over ``data`` and the params (and Adam's moments) over
+  ``model`` (``_MeshTrainer``).
 """
 
 from __future__ import annotations
@@ -34,7 +41,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from predictionio_tpu_torch.models._flax_init import embed_normal_, f32, lecun_normal_
+from predictionio_tpu_torch.parallel import mesh as mesh_lib
 from predictionio_tpu_torch.utils.device import resolve_device
+
+#: the embedding tables of a ``NeuMF`` (every other 2-D weight is a dense layer's)
+EMBEDDINGS = ("gmf_user", "gmf_item", "mlp_user", "mlp_item")
 
 
 @dataclass
@@ -131,6 +142,176 @@ def config_from_state(state: Mapping[str, torch.Tensor], **fields) -> NCFConfig:
     )
 
 
+def param_shardings(mesh, state: Mapping[str, torch.Tensor]) -> dict[str, int | None]:
+    """The reference's ``param_shardings`` on a ``NeuMF`` state dict: per
+    name, the dim sharded over the mesh's ``model`` axis, or None
+    (replicated). An embedding table ``[vocab, E]`` shards its embedding
+    dim (``P(None, "model")``); a dense layer's ``Linear.weight`` ``[out,
+    in]`` is flax's kernel ``[in, out]`` transposed, so its shard is rows of
+    ``out``. A tensor that is not 2-D, or whose trailing flax dim does not
+    divide over the axis (the ``[*, 1]`` output head), is replicated."""
+    model_size = mesh.axis_size("model") if mesh is not None else 1
+    out = {}
+    for name, t in state.items():
+        dim = 1 if name.split(".")[0] in EMBEDDINGS else 0  # flax's trailing dim
+        shardable = t.dim() == 2 and model_size > 1 and t.shape[dim] % model_size == 0
+        out[name] = dim if shardable else None
+    return out
+
+
+def shard_state(state: Mapping[str, torch.Tensor], mesh) -> dict[str, torch.Tensor]:
+    """This rank's shards of a full ``NeuMF`` state dict (host tensors),
+    as ``param_shardings`` lays them over the mesh's ``model`` axis."""
+    layout = param_shardings(mesh, state)
+    m, i = mesh.axis_size("model"), mesh.axis_index("model")
+    local = {}
+    for name, t in state.items():
+        t = torch.as_tensor(t)
+        dim = layout[name]
+        if dim is not None:
+            per = t.shape[dim] // m
+            t = t.narrow(dim, i * per, per)
+        local[name] = t.contiguous().clone()
+    return local
+
+
+def unshard_state(local: Mapping[str, torch.Tensor], mesh,
+                  layout: Mapping[str, int | None]) -> dict[str, torch.Tensor]:
+    """The full state dict of every rank's shards (``layout``, the full
+    state's ``param_shardings``): one all-gather over ``model`` per sharded
+    tensor, which every rank of the axis joins."""
+    return {name: mesh_lib.all_gather(mesh, "model", t.detach(), layout[name])
+            if layout[name] is not None else t.detach() for name, t in local.items()}
+
+
+class _MeshTrainer:
+    """One rank's share of the reference's sharded NCF step: the params
+    and Adam's moments it holds (``shard_state``), its forward over them,
+    the gradient reduction and the step.
+
+    The forward computes the reference's function: an embedding table
+    sharded over ``model`` is looked up on the local columns and the
+    ``[B, E/m]`` rows all-gathered into ``[B, E]``; a sharded dense
+    weight is all-gathered whole (``parallel.mesh.gather_shards``, whose
+    backward reduce-scatters the gradient). A rank's loss is its data
+    shard's summed loss over the whole batch's examples and over the
+    ranks that hold the same data shard, so the ranks' losses sum to the
+    reference's mean: the reduce-scatters over ``model``, then one
+    all-reduce over ``data`` for the sharded params' gradients and one
+    over every axis for the replicated params' (with the loss), give
+    each rank the gradient of its shards."""
+
+    def __init__(self, config: NCFConfig, full_state: Mapping[str, torch.Tensor], mesh):
+        self.config, self.mesh = config, mesh
+        self.layout = param_shardings(mesh, full_state)
+        self.params = {name: t.to(mesh.device).requires_grad_()
+                       for name, t in shard_state(full_state, mesh).items()}
+        self.optimizer = torch.optim.Adam(
+            self.params.values(), lr=config.learning_rate, betas=(0.9, 0.999), eps=1e-8
+        )
+        self.sharded = [p for n, p in self.params.items() if self.layout[n] is not None]
+        self.replicated = [p for n, p in self.params.items() if self.layout[n] is None]
+        self.replicas = mesh.size // mesh.axis_size("data")
+
+    def _table(self, name: str, ids: torch.Tensor) -> torch.Tensor:
+        rows = F.embedding(ids, self.params[f"{name}.weight"])
+        if self.layout[f"{name}.weight"] is None:
+            return rows
+        return mesh_lib.gather_shards(self.mesh, "model", rows, dim=-1)
+
+    def _dense(self, name: str, h: torch.Tensor) -> torch.Tensor:
+        w = self.params[f"{name}.weight"]
+        if self.layout[f"{name}.weight"] is not None:
+            w = mesh_lib.gather_shards(self.mesh, "model", w, dim=0)
+        return F.linear(h, w, self.params[f"{name}.bias"])
+
+    def forward(self, users: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+        gmf = self._table("gmf_user", users) * self._table("gmf_item", items)
+        h = torch.cat([self._table("mlp_user", users), self._table("mlp_item", items)], dim=-1)
+        for i in range(len(self.config.hidden)):
+            h = F.relu(self._dense(f"mlp_{i}", h))
+        return self._dense("out", torch.cat([gmf, h], dim=-1))[..., 0]
+
+    def step(self, users, items, labels, batch_examples: int) -> torch.Tensor:
+        """One Adam step on this rank's data shard of a batch of
+        ``batch_examples``; returns the batch's loss (every rank's sum)."""
+        logits = self.forward(users, items)
+        if self.config.implicit:
+            total = F.binary_cross_entropy_with_logits(logits, labels, reduction="sum")
+        else:
+            total = ((logits - labels) ** 2).sum()
+        loss = total / (batch_examples * self.replicas)
+        self.optimizer.zero_grad(set_to_none=False)
+        loss.backward()
+        mesh = self.mesh
+        if self.sharded:
+            other = tuple(a for a in mesh.axis_names if a != "model")
+            mesh_lib.all_reduce_grads(mesh, other, self.sharded)
+        total = mesh_lib.all_reduce_grads(mesh, mesh.axis_names, self.replicated,
+                                          loss.detach())[0]
+        self.optimizer.step()
+        return total
+
+    def full_state(self) -> dict[str, torch.Tensor]:
+        """The full params on every rank (host tensors; all-gathers)."""
+        full = unshard_state(self.params, self.mesh, self.layout)
+        return {n: t.to("cpu", copy=True) for n, t in full.items()}
+
+    def epoch_state(self, epoch: int) -> dict:
+        """The checkpoint of ``_epoch_state``'s names at full shapes: every
+        rank joins the gathers."""
+        state: dict = {"epoch": epoch}
+        for name, t in self.full_state().items():
+            state[f"param.{name}"] = t.numpy()
+        for slot in ("exp_avg", "exp_avg_sq"):
+            local = {n: self.optimizer.state[p][slot] if p in self.optimizer.state
+                     else torch.zeros_like(p) for n, p in self.params.items()}
+            for name, t in unshard_state(local, self.mesh, self.layout).items():
+                state[f"{slot}.{name}"] = t.cpu().numpy()
+        first = next(iter(self.params.values()))
+        state["adam_step"] = (int(self.optimizer.state[first]["step"])
+                              if first in self.optimizer.state else 0)
+        return state
+
+    def restore(self, restored: Mapping) -> None:
+        """Take this rank's shards of a full checkpoint (every rank holds it)."""
+        params = shard_state({n: torch.from_numpy(restored[f"param.{n}"]) for n in self.params},
+                             self.mesh)
+        moments = {slot: shard_state({n: torch.from_numpy(restored[f"{slot}.{n}"])
+                                      for n in self.params}, self.mesh)
+                   for slot in ("exp_avg", "exp_avg_sq")}
+        with torch.no_grad():
+            for name, p in self.params.items():
+                p.copy_(params[name])
+                self.optimizer.state[p] = {
+                    "step": torch.tensor(float(restored["adam_step"])),
+                    "exp_avg": moments["exp_avg"][name].to(p.device),
+                    "exp_avg_sq": moments["exp_avg_sq"][name].to(p.device),
+                }
+
+
+def _agree_on_checkpoints(mesh, checkpoint, template: dict):
+    """``(any rank checkpoints, the restored full state or None)``, the
+    same on every rank: only rank 0 holds a manager, so the ranks agree
+    (an all-reduce) whether any does, and a resume broadcasts rank 0's
+    checkpoint, array by array, to ranks that pass ``template``'s shapes."""
+    any_checkpoint = mesh_lib.all_reduce_max(mesh, int(checkpoint is not None)) > 0
+    latest = checkpoint.latest_step() if checkpoint is not None else None
+    latest = mesh_lib.broadcast_int(mesh, -1 if latest is None else latest)
+    if latest < 0:
+        return any_checkpoint, None
+    restored = checkpoint.restore(template) if mesh.rank == 0 else template
+    out = {}
+    for key, value in template.items():
+        if isinstance(value, np.ndarray):
+            got = mesh_lib.broadcast_rows(mesh, torch.from_numpy(np.ascontiguousarray(
+                restored[key], np.float32)))
+            out[key] = got.numpy()
+        else:
+            out[key] = mesh_lib.broadcast_int(mesh, int(restored[key]))
+    return any_checkpoint, out
+
+
 def train_ncf(
     config: NCFConfig,
     users: np.ndarray,
@@ -140,7 +321,7 @@ def train_ncf(
     checkpoint=None,
     log_every: int = 0,
     init_state: Mapping[str, torch.Tensor] | None = None,
-    mesh_shape=None,
+    mesh=None,
     telemetry=None,
 ):
     """Full training loop on ``device`` (``cuda`` unless ``"cpu"`` is
@@ -163,8 +344,17 @@ def train_ncf(
     an uninterrupted one; the reference's resume reuses the first
     permutations instead.
 
-    ``mesh_shape`` is the engine's ``pio.mesh_shape``: one device, so an
-    axis above 1 (the reference's data or model parallelism) raises.
+    ``mesh`` (``parallel.mesh.Mesh``, the engine's ``ctx.mesh``): with
+    more than one rank, training runs on ``mesh.device`` as the
+    reference's on its mesh: every rank initializes the same weights and
+    draws the same permutations; a batch smaller than the ``data`` axis
+    is skipped, a larger one cut to a multiple of it, and this rank
+    steps on rows ``[i B/d, (i + 1) B/d)`` for its ``data`` position
+    ``i`` over its ``model`` shards (``_MeshTrainer``). Only rank 0 holds
+    a ``checkpoint``: the ranks agree whether any does, every rank then
+    joins the per-epoch gathers (rank 0 writes), and a resume broadcasts
+    rank 0's epoch and state. Every rank returns the full params. None or
+    a 1 x 1 mesh is the one-device loop.
 
     ``telemetry`` (any object with ``record_epoch(epoch, seconds,
     losses)`` and ``record_phase(name, seconds, rows)``) gets each
@@ -173,38 +363,44 @@ def train_ncf(
     host seconds of each epoch's permutation of the ``rows`` examples
     (part of the epoch's time).
     """
-    if mesh_shape is not None and any(int(a) > 1 for a in mesh_shape):
-        raise NotImplementedError(
-            f"pio.mesh_shape {list(mesh_shape)} spreads NCF training over "
-            "several devices (data or model axis above 1), which the port "
-            "does not do yet (ROADMAP.md slice 20); use [-1, 1]"
-        )
-    device = resolve_device(device)
+    sharded = mesh is not None and mesh.size > 1
+    device = mesh.device if sharded else resolve_device(device)
     model = init_model(config)
     if init_state is not None:
         model.load_state_dict({k: torch.as_tensor(v) for k, v in init_state.items()})
-    model.to(device)
-    named = dict(model.named_parameters())
-    optimizer = torch.optim.Adam(
-        named.values(), lr=config.learning_rate, betas=(0.9, 0.999), eps=1e-8
-    )
     n = int(np.asarray(users).size)
     np_rng = np.random.default_rng(config.seed)
     start_epoch = 0
-    latest = checkpoint.latest_step() if checkpoint is not None else None
-    if latest is not None:
-        restored = checkpoint.restore(_state_template(named))
-        with torch.no_grad():
+    dp = mesh.axis_size("data") if sharded else 1
+    if sharded:
+        trainer = _MeshTrainer(config, model.state_dict(), mesh)
+        named = trainer.params
+        any_checkpoint, restored = _agree_on_checkpoints(
+            mesh, checkpoint, _state_template(dict(model.named_parameters())))
+    else:
+        model.to(device)
+        named = dict(model.named_parameters())
+        optimizer = torch.optim.Adam(
+            named.values(), lr=config.learning_rate, betas=(0.9, 0.999), eps=1e-8
+        )
+        any_checkpoint = checkpoint is not None
+        latest = checkpoint.latest_step() if checkpoint is not None else None
+        restored = None if latest is None else checkpoint.restore(_state_template(named))
+    if restored is not None:
+        if sharded:
+            trainer.restore(restored)
+        else:
+            with torch.no_grad():
+                for name, p in named.items():
+                    p.copy_(torch.from_numpy(restored[f"param.{name}"]))
+            # Adam's moments too: zeroed moments after a resume would spike
+            # the first updates
             for name, p in named.items():
-                p.copy_(torch.from_numpy(restored[f"param.{name}"]))
-        # Adam's moments too: zeroed moments after a resume would spike
-        # the first updates
-        for name, p in named.items():
-            optimizer.state[p] = {
-                "step": torch.tensor(float(restored["adam_step"])),
-                "exp_avg": torch.from_numpy(restored[f"exp_avg.{name}"]).to(device),
-                "exp_avg_sq": torch.from_numpy(restored[f"exp_avg_sq.{name}"]).to(device),
-            }
+                optimizer.state[p] = {
+                    "step": torch.tensor(float(restored["adam_step"])),
+                    "exp_avg": torch.from_numpy(restored[f"exp_avg.{name}"]).to(device),
+                    "exp_avg_sq": torch.from_numpy(restored[f"exp_avg_sq.{name}"]).to(device),
+                }
         start_epoch = int(restored["epoch"]) + 1
         for _ in range(start_epoch):
             np_rng.permutation(n)
@@ -223,30 +419,47 @@ def train_ncf(
         order = torch.as_tensor(permutation, device=device)
         for start in range(0, n, config.batch_size):
             take = order[start : start + config.batch_size]
-            logits = model(u_d[take], i_d[take])
-            y = y_d[take]
-            if config.implicit:
-                loss = F.binary_cross_entropy_with_logits(logits, y)
+            if sharded:
+                per = take.numel() // dp
+                if not per:
+                    continue
+                rows = take[mesh.axis_index("data") * per:(mesh.axis_index("data") + 1) * per]
+                loss = trainer.step(u_d[rows], i_d[rows], y_d[rows], per * dp)
             else:
-                loss = ((logits - y) ** 2).mean()
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            optimizer.step()
+                logits = model(u_d[take], i_d[take])
+                y = y_d[take]
+                if config.implicit:
+                    loss = F.binary_cross_entropy_with_logits(logits, y)
+                else:
+                    loss = ((logits - y) ** 2).mean()
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                optimizer.step()
+                loss = loss.detach()
             step += 1
             if log_every and step % log_every == 0:
-                logged.append(loss.detach())
+                logged.append(loss)
             if telemetry is not None:
-                epoch_losses.append(loss.detach())
+                epoch_losses.append(loss)
         if telemetry is not None:
             read = torch.stack(epoch_losses).tolist() if epoch_losses else []
             telemetry.record_epoch(epoch, time.perf_counter() - t0, read)
-        if checkpoint is not None:
-            checkpoint.save(epoch, _epoch_state(named, optimizer, epoch))
-    if start_epoch < config.epochs and step == 0:
-        raise ValueError(
-            f"no training steps ran: {n} example(s) cannot fill even one batch"
-        )
+        if any_checkpoint:
+            # on a mesh the gathers are collectives every rank joins
+            state = (trainer.epoch_state(epoch) if sharded
+                     else _epoch_state(named, optimizer, epoch))
+            if checkpoint is not None:
+                checkpoint.save(epoch, state)
+    if start_epoch < config.epochs:
+        if sharded:
+            mesh_lib.check_steps_ran(step, n, dp, "example")
+        elif step == 0:
+            raise ValueError(
+                f"no training steps ran: {n} example(s) cannot fill even one batch"
+            )
     losses = torch.stack(logged).tolist() if logged else []
+    if sharded:
+        return trainer.full_state(), losses
     state = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
     return state, losses
 

@@ -14,7 +14,10 @@ explicit prefix), with ``blackList`` and ``unseenOnly``. Response:
 - ``SequencePreparator`` left-truncates to ``maxLen``, right-pads and
   shifts ids by one (0 = padding).
 - ``SASRecAlgorithm.train`` runs ``train_sasrec`` on the algorithm's
-  device (the flash kernels B4-B6 on ``cuda``); ``predict`` and
+  device (the flash kernels B4-B6 on ``cuda``), over ``ctx.mesh`` in a
+  multi-process launch (``pio.mesh_axes`` ``["data", "seq"]``: batch and
+  sequence sharded, ``seqParallel`` ring or Ulysses); rank 0's full
+  params are the model it persists, as every rank's are; ``predict`` and
   ``batch_predict`` score through the model's network on that device, B4
   in every transformer block.
 
@@ -38,6 +41,7 @@ from predictionio_tpu_torch.controller.base import (
     EvalInfo,
     Preparator,
     SanityCheck,
+    mesh_or_none,
 )
 from predictionio_tpu_torch.data.store import PEventStore, read_events_file
 from predictionio_tpu_torch.models._als_common import score_buffer_rows, topk_item_scores
@@ -229,15 +233,18 @@ class SASRecModel:
 
 class SASRecAlgorithm(Algorithm):
     """Params: embedDim, numHeads, numBlocks, ffnDim, dropout, learningRate,
-    batchSize, epochs, seed, maxLen (must match the preparator's),
-    seqParallel (kept in the config; one device runs no sequence
-    parallelism), attention ("auto" | "flash" | "plain") and historyMode
+    batchSize, epochs, seed, maxLen (must match the preparator's and
+    divide over the mesh's ``seq`` axis), seqParallel ("ring" or
+    "ulysses": the attention across ranks when the mesh has a ``seq``
+    axis above 1), attention ("auto" | "flash" | "plain") and historyMode
     ("model", or "live": a query continues the user's events read from
     the store, and the model keeps no histories).
 
     ``device`` is where training runs and the network serves: ``cuda``
     unless the caller names ``"cpu"``; without a card and without an
     explicit CPU request construction raises."""
+
+    trains_on_mesh = True
 
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
@@ -273,9 +280,10 @@ class SASRecAlgorithm(Algorithm):
             seq_parallel=p.get_or("seqParallel", "ring"),
             attention=p.get_or("attention", "auto"),
         )
+        mesh = mesh_or_none(ctx)
         with ctx.journal("sasrec") as telemetry:
-            state, _ = train_sasrec(config, prepared.matrix, self.device,
-                                    mesh_shape=ctx.mesh_shape, telemetry=telemetry)
+            state, _ = train_sasrec(config, prepared.matrix, self.device, mesh=mesh,
+                                    telemetry=telemetry)
         return SASRecModel(
             state=state,
             config=config,

@@ -1,4 +1,4 @@
-"""Self-attentive sequential recommender (SASRec-style) on one card.
+"""Self-attentive sequential recommender (SASRec-style) on the card or a mesh of ranks.
 
 Port of ``predictionio_tpu/models/sequence/model.py``:
 
@@ -11,16 +11,26 @@ Port of ``predictionio_tpu/models/sequence/model.py``:
   ``attention``: ``"auto"`` is the flash kernels (``ops/flash_attention``,
   B4 forward, the fused backward) on ``cuda`` and ``plain_attention`` on the
   CPU, as the reference is flash on the TPU and plain elsewhere;
-  ``"flash"`` and ``"plain"`` force one.
+  ``"flash"`` and ``"plain"`` force one. With a mesh whose ``seq`` axis is
+  above 1, each rank holds a ``T/s`` block of every sequence and the
+  attention runs ``seq_parallel``: ``"ring"`` (``parallel/ring_attention``,
+  plain torch as the reference's body) or ``"ulysses"``
+  (``parallel/ulysses``: the flash kernels, or ``plain_attention``, at
+  ``H/s`` heads over the full sequence); the position embeddings start
+  at the block's global offset.
 - The tied output head (``logits``) and the scorer are ``torch.matmul``:
   the reference computes them outside Pallas too.
 - ``sequence_loss``: the masked next-item cross-entropy of
   ``make_train_step``, the padding id 0 inside the softmax as in optax.
 - ``train_sasrec``: Adam (lr, 0.9, 0.999, 1e-8) over the reference's
   ``np.random.default_rng(seed)`` permutations and batch slicing, the
-  short last batch kept (the reference keeps it at one data shard).
-  One device: a ``pio.mesh_shape`` axis above 1 (the reference's data or
-  ring/Ulysses sequence parallelism) raises.
+  short last batch kept (the reference keeps it at one data shard). On a
+  mesh of several ranks (``parallel.mesh.Mesh``, axes ``data`` and
+  ``seq``): each rank takes its ``(data, seq)`` block of every batch (cut
+  to a multiple of the data axis), the loss is the masked sum over the
+  rank's block divided by the whole batch's target count, and one
+  all-reduce over the mesh sums the gradients (and the loss) before a
+  replicated Adam step.
 - ``params_from_flax``: the JAX package's params tree as a state dict
   (a flax ``Dense`` kernel is ``[in, out]``, a ``Linear.weight``
   ``[out, in]``).
@@ -41,7 +51,9 @@ from torch import nn
 
 from predictionio_tpu_torch.models._flax_init import embed_normal_, f32, lecun_normal_
 from predictionio_tpu_torch.ops.flash_attention import flash_attention
-from predictionio_tpu_torch.parallel.ring_attention import plain_attention
+from predictionio_tpu_torch.parallel.mesh import all_reduce_grads, check_steps_ran
+from predictionio_tpu_torch.parallel.ring_attention import plain_attention, ring_attention
+from predictionio_tpu_torch.parallel.ulysses import ulysses_attention
 from predictionio_tpu_torch.utils.device import resolve_device
 
 
@@ -85,11 +97,14 @@ class SASRecConfig:
 
 
 class _MultiHeadSelfAttention(nn.Module):
-    """Causal multi-head self-attention over the key-validity mask."""
+    """Causal multi-head self-attention over the key-validity mask: ring
+    attention or Ulysses when ``mesh`` has a ``seq`` axis above 1, else
+    the flash kernels or ``plain_attention``."""
 
-    def __init__(self, config: SASRecConfig):
+    def __init__(self, config: SASRecConfig, mesh=None):
         super().__init__()
         self.config = config
+        self.mesh = mesh
         d = config.embed_dim
         self.qkv = nn.Linear(d, 3 * d, bias=False)
         self.proj = nn.Linear(d, d, bias=False)
@@ -103,7 +118,17 @@ class _MultiHeadSelfAttention(nn.Module):
         use_flash = c.attention == "flash" or (
             c.attention == "auto" and x.device.type == "cuda"
         )
-        if use_flash:
+        mesh = self.mesh
+        if mesh is not None and mesh.axis_size("seq") > 1:
+            if c.seq_parallel == "ulysses":
+                # full sequences per rank: the flash kernels are its local attention
+                out = ulysses_attention(q, k, v, mesh, axis_name="seq", causal=True,
+                                        mask=pad_mask, use_flash=use_flash)
+            else:
+                # the ring IS the online softmax across blocks (plain torch)
+                out = ring_attention(q, k, v, mesh, axis_name="seq", causal=True,
+                                     mask=pad_mask)
+        elif use_flash:
             out = flash_attention(q, k, v, pad_mask, causal=True)
         else:
             out = plain_attention(q, k, v, causal=True, mask=pad_mask)
@@ -111,15 +136,20 @@ class _MultiHeadSelfAttention(nn.Module):
 
 
 class SASRec(nn.Module):
-    def __init__(self, config: SASRecConfig, generator: torch.Generator | None = None):
+    """``mesh``: the training mesh; with a ``seq`` axis above 1 ``forward``
+    takes this rank's ``[B, T/s]`` block of the sequences."""
+
+    def __init__(self, config: SASRecConfig, generator: torch.Generator | None = None,
+                 mesh=None):
         super().__init__()
         c = self.config = config
+        self.mesh = mesh
         e = c.embed_dim
         self.item_embed = nn.Embedding(c.vocab, e)
         self.pos_embed = nn.Embedding(c.max_len, e)
         for i in range(c.num_blocks):
             setattr(self, f"ln_att_{i}", nn.LayerNorm(e, eps=1e-6))
-            setattr(self, f"att_{i}", _MultiHeadSelfAttention(c))
+            setattr(self, f"att_{i}", _MultiHeadSelfAttention(c, mesh))
             setattr(self, f"ln_ffn_{i}", nn.LayerNorm(e, eps=1e-6))
             setattr(self, f"ffn_in_{i}", nn.Linear(e, c.ffn_dim))
             setattr(self, f"ffn_out_{i}", nn.Linear(c.ffn_dim, e))
@@ -147,7 +177,10 @@ class SASRec(nn.Module):
         c = self.config
         pad_mask = seq > 0
         x = self.item_embed(seq) * (c.embed_dim ** 0.5)
-        x = self._dropout(x + self.pos_embed.weight[: seq.shape[1]][None])
+        t = seq.shape[1]
+        # a seq-sharded block's positions start at its global offset
+        start = self.mesh.axis_index("seq") * t if self.mesh is not None else 0
+        x = self._dropout(x + self.pos_embed.weight[start:start + t][None])
         for i in range(c.num_blocks):
             a = getattr(self, f"ln_att_{i}")(x)
             x = x + self._dropout(getattr(self, f"att_{i}")(a, pad_mask))
@@ -172,9 +205,10 @@ def sequence_loss(net: SASRec, seq: torch.Tensor, target: torch.Tensor) -> torch
     return ce / (target > 0).sum().clamp_min(1)
 
 
-def init_model(config: SASRecConfig) -> SASRec:
-    """A ``SASRec`` initialized on the host from ``config.seed``."""
-    return SASRec(config, torch.Generator().manual_seed(config.seed))
+def init_model(config: SASRecConfig, mesh=None) -> SASRec:
+    """A ``SASRec`` initialized on the host from ``config.seed`` (the same
+    weights on every rank of a mesh)."""
+    return SASRec(config, torch.Generator().manual_seed(config.seed), mesh)
 
 
 def params_from_flax(tree: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
@@ -213,7 +247,7 @@ def train_sasrec(
     device=None,
     log_every: int = 0,
     init_state: Mapping[str, torch.Tensor] | None = None,
-    mesh_shape=None,
+    mesh=None,
     telemetry=None,
 ):
     """Train on next-item prediction on ``device`` (``cuda`` unless
@@ -230,20 +264,21 @@ def train_sasrec(
     the same weights. ``telemetry`` (any object with
     ``record_epoch(epoch, seconds, losses)``) gets each epoch's wall time,
     the device synced, and every step's loss of the epoch.
-    ``mesh_shape`` is the engine's ``pio.mesh_shape``: one device, so an
-    axis above 1 raises.
+
+    ``mesh`` (``parallel.mesh.Mesh``, the engine's ``ctx.mesh``): with
+    more than one rank, training runs on ``mesh.device`` over
+    ``_train_on_mesh`` (the reference's ``train_sasrec`` on its mesh);
+    None or a 1 x 1 mesh is the one-device loop.
     """
     t = sequences.shape[1]
     if t != config.max_len:
         raise ValueError(f"sequences padded to {t}, config.max_len={config.max_len}")
-    if mesh_shape is not None and any(int(a) > 1 for a in mesh_shape):
-        raise NotImplementedError(
-            f"pio.mesh_shape {list(mesh_shape)} spreads SASRec training over "
-            "several devices (data or seq axis above 1), which the port does "
-            "not do yet (ROADMAP.md slice 20); use [-1, 1]"
-        )
-    device = resolve_device(device)
-    net = init_model(config)
+    sp = mesh.axis_size("seq") if mesh is not None else 1
+    if t % sp:
+        raise ValueError(f"max_len={t} must divide over seq axis size {sp}")
+    sharded = mesh is not None and mesh.size > 1
+    device = mesh.device if sharded else resolve_device(device)
+    net = init_model(config, mesh if sharded else None)
     if init_state is not None:
         net.load_state_dict({k: torch.as_tensor(v) for k, v in init_state.items()})
     net.to(device).train()
@@ -255,6 +290,9 @@ def train_sasrec(
     targets[:, :-1] = inputs[:, 1:]
     np_rng = np.random.default_rng(config.seed)
     n = inputs.shape[0]
+    if sharded:
+        return _train_on_mesh(config, net, optimizer, inputs, targets, np_rng, mesh,
+                              log_every, telemetry)
     step = 0
     logged: list[torch.Tensor] = []
     for epoch in range(config.epochs):
@@ -279,9 +317,67 @@ def train_sasrec(
         raise ValueError(
             f"no training steps ran: {n} sequence(s) cannot fill even one batch"
         )
-    losses = torch.stack(logged).tolist() if logged else []
-    state = {k: v.detach().to("cpu", copy=True) for k, v in net.state_dict().items()}
-    return state, losses
+    return _host_state(net), torch.stack(logged).tolist() if logged else []
+
+
+def _host_state(net: nn.Module) -> dict[str, torch.Tensor]:
+    return {k: v.detach().to("cpu", copy=True) for k, v in net.state_dict().items()}
+
+
+def _train_on_mesh(config, net, optimizer, inputs, targets, np_rng, mesh, log_every,
+                   telemetry):
+    """The reference's sharded loop on one rank of ``mesh``: every rank
+    holds every sequence and draws the same permutation; a batch is cut
+    to a multiple of the ``data`` axis (skipped when that leaves nothing)
+    and this rank takes rows ``[i B/d, (i + 1) B/d)`` for its ``data``
+    position ``i`` and columns ``[j T/s, (j + 1) T/s)`` for its ``seq``
+    position ``j``. Its loss is the masked cross-entropy summed over its
+    block over the whole batch's target count (known to every rank, which
+    holds the batch: the all-reduce of the per-rank counts), divided by
+    the ranks that hold the same block (a ``model`` axis, which SASRec
+    does not shard over); the ranks' losses then sum to the reference's
+    masked mean. One all-reduce over every axis sums the gradients and
+    the losses; Adam steps on every rank alike."""
+    dp, sp = mesh.axis_size("data"), mesh.axis_size("seq")
+    di, si = mesh.axis_index("data"), mesh.axis_index("seq")
+    replicas = mesh.size // (dp * sp)
+    t_local = inputs.shape[1] // sp
+    params = list(net.parameters())
+    n = inputs.shape[0]
+    step = 0
+    logged: list[torch.Tensor] = []
+    for epoch in range(config.epochs):
+        t0 = time.perf_counter()
+        epoch_losses: list[torch.Tensor] = []
+        order = torch.as_tensor(np_rng.permutation(n), device=inputs.device)
+        for start in range(0, n, config.batch_size):
+            take = order[start : start + config.batch_size]
+            per = take.numel() // dp
+            if not per:
+                continue
+            count = (targets[take[: per * dp]] > 0).sum().clamp_min(1)
+            rows = take[di * per:(di + 1) * per]
+            cols = slice(si * t_local, (si + 1) * t_local)
+            tgt = targets[rows][:, cols]
+            out = logits(net, net(inputs[rows][:, cols]))
+            ce = F.cross_entropy(out.reshape(-1, out.shape[-1]), tgt.reshape(-1),
+                                 ignore_index=0, reduction="sum")
+            loss = ce / (count * replicas)
+            optimizer.zero_grad(set_to_none=False)
+            loss.backward()
+            total = all_reduce_grads(mesh, mesh.axis_names, params, loss.detach())[0]
+            optimizer.step()
+            step += 1
+            if log_every and step % log_every == 0:
+                logged.append(total)
+            if telemetry is not None:
+                epoch_losses.append(total)
+        if telemetry is not None:
+            read = torch.stack(epoch_losses).tolist() if epoch_losses else []
+            telemetry.record_epoch(epoch, time.perf_counter() - t0, read)
+    if config.epochs:
+        check_steps_ran(step, n, dp, "sequence")
+    return _host_state(net), torch.stack(logged).tolist() if logged else []
 
 
 def pack_prefixes(prefixes, max_len: int) -> tuple[np.ndarray, np.ndarray]:

@@ -16,7 +16,16 @@ The collectives the ALS half-steps use (reference: ``jax.lax`` inside
 axes, rows concatenated in mesh order), ``reduce_scatter_rows``
 (``psum_scatter(..., tiled=True)``) and ``all_reduce_sum`` (``psum``).
 They run over the axis's subgroup, or over the whole mesh for a tuple of
-every axis. The transport is the group's backend:
+every axis. The sequence-parallel attention and NCF's model-axis shards
+add three along one axis (``jax.lax`` inside ``shard_map``, where JAX
+differentiates them; here ``torch.autograd.Function``s): ``all_to_all``
+(tiled, one ``all_to_all_single``; its backward swaps the two axes),
+``ppermute`` (a ring shift over the axis's subgroup, one
+``batch_isend_irecv``; its backward shifts back) and ``all_gather``
+along a dim (``gather_shards`` is its differentiable form, whose
+backward reduce-scatters); ``all_reduce_grads`` sums a trainer's
+gradients (and its loss) in one all-reduce. The transport is the
+group's backend:
 
 - NCCL takes the tensors where they are (on this rank's card); a host
   tensor goes to the card for the call and comes back (NCCL refuses host
@@ -24,9 +33,13 @@ every axis. The transport is the group's backend:
 - gloo, what ranks sharing one card use
   (``parallel.distributed.BACKEND_RULE``), takes the card's tensors as
   they are: torch 2.11's gloo does all-gather, reduce-scatter,
-  all-reduce and broadcast on CUDA tensors (probed on an H100), copying
-  them through host memory itself, so nothing is staged here. The
-  kernels and the solves still run on the card.
+  all-reduce, broadcast and ``all_to_all_single`` on CUDA tensors
+  (probed on an H100), copying them through host memory itself. Its
+  point-to-point sends refuse CUDA tensors ("Bad address"), so
+  ``ppermute`` (``GLOO_HOST_ONLY``) copies them to the host for the call
+  and back, counted as ``"gloo:staged_ppermute"``. Its list
+  ``all_to_all`` is missing; the single-tensor form is used. The
+  kernels and all the arithmetic stay on the card.
 
 The launch-wide agreements (the streaming reader's scan bound and
 snapshot, the resume step and factors of a checkpointed fit) run over
@@ -43,8 +56,9 @@ Each collective that crosses ranks adds one to ``CALLS["backend:name"]``
 row shards), ``put_global`` (this rank's slice of a host array every
 rank holds), ``shard_rows`` (zero-padded to the axis size, then this
 rank's slice) and ``check_steps_ran`` follow the reference.
-``seq_parallel_shard_map`` raises ``NotImplementedError`` (ROADMAP.md
-slice 20).
+``seq_parallel_shard_map`` is the reference's ``shard_map`` specs as a
+per-rank contract (each rank runs the body on its ``(data, seq)``
+blocks).
 """
 
 from __future__ import annotations
@@ -77,6 +91,9 @@ class Mesh:
     device: torch.device
     backend: str | None = None
     groups: dict = field(default_factory=dict, repr=False)
+    #: per axis of size above 1, the process ranks of this rank's subgroup
+    #: in axis order (a point-to-point peer is named by its process rank)
+    group_ranks: dict = field(default_factory=dict, repr=False)
 
     @classmethod
     def build(cls, axes: tuple[str, ...], sizes: tuple[int, ...], device,
@@ -88,18 +105,19 @@ class Mesh:
         rank = dist.get_rank() if backend is not None else 0
         grid = np.arange(world).reshape(sizes)
         coords = tuple(int(c) for c in np.unravel_index(rank, sizes))
-        groups = {}
+        groups, group_ranks = {}, {}
         for a, axis in enumerate(axes):
             if sizes[a] == 1:
                 continue
             # the ranks along ``axis``, one line per setting of the others
             lines = np.moveaxis(grid, a, -1).reshape(-1, sizes[a])
             for line in lines:
-                group = dist.new_group([int(r) for r in line])
-                if rank in line:
-                    groups[axis] = group
+                members = [int(r) for r in line]
+                group = dist.new_group(members)
+                if rank in members:
+                    groups[axis], group_ranks[axis] = group, members
         return cls(tuple(axes), tuple(int(s) for s in sizes), coords,
-                   torch.device(device), backend, groups)
+                   torch.device(device), backend, groups, group_ranks)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -146,7 +164,8 @@ def world_mesh() -> Mesh:
         return Mesh(("world",), (1,), (0,), torch.device("cpu"))
     return Mesh(("world",), (info["world_size"],), (info["rank"],),
                 torch.device(info["device"]), info["backend"],
-                {"world": torch.distributed.group.WORLD})
+                {"world": torch.distributed.group.WORLD},
+                {"world": list(range(info["world_size"]))})
 
 
 def local_mesh(data: int | None = None, model: int = 1, device=None) -> Mesh:
@@ -174,13 +193,23 @@ def require_axes(mesh: Mesh, axes, what: str) -> None:
         )
 
 
+#: collectives gloo does not take CUDA tensors for (probed on an H100,
+#: torch 2.11): ``_transport`` stages their tensors through host memory
+#: itself and counts each staging as ``"gloo:staged_<name>"``
+GLOO_HOST_ONLY = frozenset({"ppermute"})
+
+
 def _transport(mesh: Mesh, name: str, tensors: list[torch.Tensor]) -> tuple[list, object]:
     """The tensors as the group's backend takes them (NCCL: on the rank's
-    card) and where results go back; counts the call."""
+    card; gloo: as they are, or on the host for ``GLOO_HOST_ONLY``) and
+    where results go back; counts the call."""
     CALLS[f"{mesh.backend}:{name}"] += 1
     home = tensors[0].device
     if mesh.backend == "nccl" and home.type == "cpu":
         return [t.to(mesh.device) for t in tensors], home
+    if mesh.backend == "gloo" and home.type == "cuda" and name in GLOO_HOST_ONLY:
+        CALLS[f"gloo:staged_{name}"] += 1
+        return [t.cpu() for t in tensors], home
     return list(tensors), home
 
 
@@ -219,6 +248,19 @@ def all_reduce_sum(mesh: Mesh, axes: tuple[str, ...], x: torch.Tensor) -> torch.
     (y,), home = _transport(mesh, "all_reduce", [x.clone()])
     torch.distributed.all_reduce(y, group=group)
     return y.to(home)
+
+
+def all_reduce_grads(mesh: Mesh, axes: tuple[str, ...], params, *extra) -> torch.Tensor:
+    """Sum every param's ``.grad`` and the scalars ``extra`` along ``axes``
+    in one all-reduce; the gradients are replaced in place and the summed
+    ``extra`` returned."""
+    flat = torch.cat([p.grad.reshape(-1) for p in params] + [x.reshape(1) for x in extra])
+    flat = all_reduce_sum(mesh, axes, flat)
+    at = 0
+    for p in params:
+        p.grad.copy_(flat[at:at + p.numel()].view_as(p))
+        at += p.numel()
+    return flat[at:]
 
 
 def all_reduce_max(mesh: Mesh, value: int) -> int:
@@ -315,10 +357,150 @@ def check_steps_ran(steps: int, n_examples: int, data_axis_size: int, what: str)
         )
 
 
-def seq_parallel_shard_map(body, mesh: Mesh, axis_name: str, check_vma: bool = True):
-    """Sequence-parallel attention (ring attention, Ulysses) over a mesh
-    axis is not ported yet: ROADMAP.md slice 20."""
-    raise NotImplementedError(
-        "sequence-parallel attention over a mesh axis is not ported yet: "
-        "ROADMAP.md slice 20"
-    )
+def _as_bytes(x: torch.Tensor) -> torch.Tensor:
+    """A bool tensor as uint8 (what every backend moves); others as they are."""
+    return x.to(torch.uint8) if x.dtype == torch.bool else x
+
+
+def all_gather(mesh: Mesh, axis: str, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis``, concatenated in axis order on
+    ``dim`` (``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``); bool
+    tensors travel as uint8."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    moved = _as_bytes(x).movedim(dim, 0).contiguous()
+    got = all_gather_rows(mesh, (axis,), moved).movedim(0, dim)
+    return got.to(x.dtype)
+
+
+def _all_to_all(mesh: Mesh, axis: str, x: torch.Tensor, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
+    group, n = mesh._group((axis,))
+    if x.shape[split_axis] % n:
+        raise ValueError(
+            f"all_to_all: dim {split_axis} of {tuple(x.shape)} does not split over "
+            f"the {n}-way {axis} axis"
+        )
+    stacked = torch.stack(_as_bytes(x).chunk(n, dim=split_axis)).contiguous()
+    (y,), home = _transport(mesh, "all_to_all", [stacked])
+    out = torch.empty_like(y)
+    torch.distributed.all_to_all_single(out, y, group=group)
+    return torch.cat(out.to(home).unbind(0), dim=concat_axis).to(x.dtype)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all``; its transpose, the backward, swaps the two axes."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_axis, concat_axis):
+        ctx.args = (mesh, axis, split_axis, concat_axis)
+        return _all_to_all(mesh, axis, x, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_axis, concat_axis = ctx.args
+        return _all_to_all(mesh, axis, g, concat_axis, split_axis), None, None, None, None
+
+
+def all_to_all(mesh: Mesh, axis: str, x: torch.Tensor, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``:
+    ``x`` cut into as many chunks along ``split_axis`` as ``axis`` has
+    ranks, chunk ``j`` sent to the ``j``-th rank, the received chunks
+    concatenated along ``concat_axis`` in axis order (one
+    ``all_to_all_single``). Differentiable: the gradient takes the
+    all-to-all with the two axes swapped."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    split_axis, concat_axis = split_axis % x.dim(), concat_axis % x.dim()
+    return _AllToAll.apply(x, mesh, axis, split_axis, concat_axis)
+
+
+def _shift(mesh: Mesh, axis: str, x: torch.Tensor, offset: int) -> torch.Tensor:
+    group, n = mesh._group((axis,))
+    ranks, me = mesh.group_ranks[axis], mesh.axis_index(axis)
+    (y,), home = _transport(mesh, "ppermute", [_as_bytes(x).contiguous()])
+    out = torch.empty_like(y)
+    dist = torch.distributed
+    ops = [dist.P2POp(dist.isend, y, ranks[(me + offset) % n], group),
+           dist.P2POp(dist.irecv, out, ranks[(me - offset) % n], group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out.to(home).to(x.dtype)
+
+
+class _Shift(torch.autograd.Function):
+    """``ppermute`` by ``offset``; the backward shifts back by ``-offset``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, offset):
+        ctx.args = (mesh, axis, offset)
+        return _shift(mesh, axis, x, offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, offset = ctx.args
+        return _shift(mesh, axis, g, -offset), None, None, None
+
+
+def ppermute(mesh: Mesh, axis: str, x: torch.Tensor, offset: int = 1) -> torch.Tensor:
+    """The ring shift ``jax.lax.ppermute(x, axis, [(j, (j + offset) % n)])``:
+    the ``j``-th rank of ``axis`` sends ``x`` to rank ``j + offset`` and
+    returns what rank ``j - offset`` sent (one ``batch_isend_irecv`` over
+    the axis's subgroup, peers named by process rank). Differentiable:
+    the gradient takes the shift back."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    return _Shift.apply(x, mesh, axis, offset)
+
+
+def _reduce_scatter(mesh: Mesh, axis: str, x: torch.Tensor, dim: int) -> torch.Tensor:
+    moved = x.movedim(dim, 0).contiguous()
+    return reduce_scatter_rows(mesh, (axis,), moved).movedim(0, dim)
+
+
+class _GatherShards(torch.autograd.Function):
+    """``all_gather`` along ``dim``; the backward reduce-scatters it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return all_gather(mesh, axis, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return _reduce_scatter(mesh, axis, g, dim), None, None, None
+
+
+def gather_shards(mesh: Mesh, axis: str, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The full tensor of ``x``'s shards along ``axis`` (``all_gather``
+    on ``dim``), differentiable: the gradient is the reduce-scatter of
+    every rank's gradient of the full tensor, this rank's chunk of the
+    sum. Each rank's loss is its share of the mesh's loss, so the sum
+    over the axis is the gradient of the whole."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    return _GatherShards.apply(x, mesh, axis, dim % x.dim())
+
+
+def seq_parallel_shard_map(body, mesh: Mesh, axis_name: str):
+    """The reference's ``shard_map`` specs for the sequence-parallel
+    attention strategies, as a per-rank contract: ``fn(q, k, v, mask)``
+    runs ``body`` on this rank's blocks, q, k, v ``[B/d, T/s, H, D]`` (the
+    batch over ``data`` when the mesh has that axis, the sequence over
+    ``axis_name``) and the key mask ``[B/d, T/s]``. ``require_axes``
+    fails first, with the reference's text, on a mesh without
+    ``axis_name``."""
+    require_axes(mesh, (axis_name,), "seq_parallel_shard_map")
+
+    def fn(q, k, v, mask):
+        if k.shape != q.shape or v.shape != q.shape or tuple(mask.shape) != tuple(q.shape[:2]):
+            raise ValueError(
+                f"seq_parallel_shard_map: q, k, v {tuple(q.shape)}, {tuple(k.shape)}, "
+                f"{tuple(v.shape)} and mask {tuple(mask.shape)} are not one rank's "
+                "[B, T, H, D] / [B, T] blocks"
+            )
+        return body(q, k, v, mask)
+
+    return fn

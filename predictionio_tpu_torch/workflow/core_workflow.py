@@ -155,13 +155,13 @@ def build_components(variant: EngineVariant, *, device=None, events_path: str | 
 
 def refuse_unported_launch(runtime_conf: dict, algorithm) -> None:
     """A multi-process launch of an algorithm that does not train over the
-    mesh (``Algorithm.trains_on_mesh``: NCF, SASRec, the classifiers)
-    raises, rather than train the whole model on every rank."""
+    mesh (``Algorithm.trains_on_mesh``: the classifiers) raises, rather
+    than train the whole model on every rank."""
     n = launch_num_processes(runtime_conf)
     if n > 1 and not getattr(algorithm, "trains_on_mesh", False):
         raise NotImplementedError(
             f"a {n}-process launch of {type(algorithm).__name__} is not ported yet "
-            "(its mesh is ROADMAP.md slice 20); train it in one process"
+            "(the classifiers' mesh is ROADMAP.md slice 20); train it in one process"
         )
 
 

@@ -4,7 +4,8 @@
 In one process: the launch helpers equal the reference's, the default
 mesh is 1 x 1 and its collectives are the identity, and the shapes the
 port refuses raise (more ranks than the launch has, a rank left out,
-``dcn_mesh_shape``, sequence-parallel attention). Across processes:
+``dcn_mesh_shape``; sequence-parallel attention on a mesh without the
+axis, with the reference's text). Across processes:
 ``run_workers`` launches gloo workers of the port under the launch
 contract (``PIO_COORDINATOR`` / ``PIO_NUM_PROCESSES`` / ``PIO_PROCESS_ID``)
 with a timeout that kills every worker, and the collectives, the mesh's
@@ -17,6 +18,7 @@ virtual devices within 1e-4 (the reference's own two-process test allows
 the one-process port's).
 """
 
+import inspect
 import os
 import socket
 import subprocess
@@ -213,13 +215,17 @@ def test_mesh_refusals():
 
 
 def test_dcn_mesh_shape_raises():
-    """Hybrid multi-slice meshes wait for slice 20, as does sequence
-    parallelism over a mesh axis."""
+    """Hybrid multi-slice meshes wait for slice 20; sequence parallelism
+    over an axis the mesh does not bind fails first with the reference's
+    unbound-axis error."""
     with pytest.raises(NotImplementedError, match="slice 20"):
         distributed.build_mesh([-1, 1], ("data", "model"), dcn_mesh_shape=[1, 1],
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 20"):
+    with pytest.raises(ValueError, match="not bound by this mesh") as got:
         mesh.seq_parallel_shard_map(None, mesh.local_mesh(device="cpu"), "seq")
+    with pytest.raises(ValueError) as want:
+        jax_mesh.seq_parallel_shard_map(None, jax_mesh.local_mesh(1, 1), "seq")
+    assert str(got.value) == str(want.value)
 
 
 _COLLECTIVES = """
@@ -289,8 +295,30 @@ if d * m > 1:
         assert "every rank trains" in str(exc)
     else:
         raise AssertionError("a mesh leaving ranks out built")
+# all_to_all over model (tiled): rank j's chunk i goes to rank i, concatenated in
+# axis order; its gradient is the all-to-all back
+x = (torch.arange(2.0 * m, device=on).reshape(m, 2) + 100 * mi).requires_grad_()
+got = M.all_to_all(mesh, "model", x, split_axis=0, concat_axis=1)
+want = torch.tensor([[100.0 * j + 2 * mi, 100.0 * j + 2 * mi + 1] for j in range(m)],
+                    device=on).reshape(1, 2 * m)
+assert torch.equal(got, want), (got, want)
+(got * got.detach()).sum().backward()
+assert torch.equal(x.grad, x.detach()), x.grad
+# ppermute: the ring shift j -> j + 1 over model; its gradient shifts back
+x = torch.full((3,), float(mi), device=on, requires_grad=True)
+got = M.ppermute(mesh, "model", x)
+assert torch.equal(got, torch.full((3,), float((mi - 1) % m), device=on)), got
+(got * got.detach()).sum().backward()
+assert torch.equal(x.grad, x.detach()), x.grad
+# the mask's all_gather along a dim, bool in and out
+mask = torch.tensor([[True, bool(mi % 2)]], device=on)
+got = M.all_gather(mesh, "model", mask, dim=1)
+assert got.dtype == torch.bool, got
+assert got.tolist() == [sum(([True, bool(j % 2)] for j in range(m)), [])], got
 calls = M.collective_counts()  # only collectives that crossed ranks count
 assert calls and all(k.startswith(backend + ":") for k in calls), calls
+staged = calls.get("gloo:staged_ppermute", 0)  # gloo's sends take host tensors only
+assert staged == (1 + 1 if backend == "gloo" and on.type == "cuda" and m > 1 else 0), calls
 assert calls.get(backend + ":reduce_scatter", 0) == (1 if m > 1 else 0), calls
 assert calls[backend + ":broadcast"] == 4, calls
 distributed.shutdown_distributed()
@@ -389,15 +417,69 @@ print("OK", flush=True)
 """
 
 
+_MODELS_CARD_WORKER = """
+import sys
+import numpy as np
+from predictionio_tpu_torch.models.ncf.model import NCFConfig, train_ncf
+from predictionio_tpu_torch.models.sequence.model import SASRecConfig, train_sasrec
+from predictionio_tpu_torch.ops import flash_attention as fa
+from predictionio_tpu_torch.parallel import mesh as M
+from predictionio_tpu_torch.parallel.distributed import build_mesh, init_distributed
+
+out, d, s = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+assert init_distributed(device="cuda")
+seqs, ncf_data, seq_kw, ncf_kw = card_models_inputs()
+mesh = build_mesh([d, s], ("data", "seq"))
+fa.flash_forward.launches = fa.flash_backward.launches = 0
+seq_state, seq_losses = train_sasrec(SASRecConfig(**seq_kw), seqs, log_every=1, mesh=mesh)
+steps = len(seq_losses)
+# Ulysses' local attention is B4 and the fused backward, at H / s heads
+assert fa.flash_forward.launches == fa.flash_backward.launches == steps, \\
+    (fa.flash_forward.launches, fa.flash_backward.launches)
+ncf_mesh = build_mesh([d, s], ("data", "model"))
+ncf_state, ncf_losses = train_ncf(NCFConfig(**ncf_kw), *ncf_data, log_every=1, mesh=ncf_mesh)
+calls = M.collective_counts()
+assert calls and all(k.startswith("nccl:") for k in calls), calls
+assert calls["nccl:all_to_all"] == 8 * steps and calls["nccl:reduce_scatter"] > 0, calls
+np.savez(out + f"-{mesh.rank}.npz", seq_losses=np.asarray(seq_losses),
+         ncf_losses=np.asarray(ncf_losses),
+         **{"seq." + k: v.numpy() for k, v in seq_state.items()},
+         **{"ncf." + k: v.numpy() for k, v in ncf_state.items()})
+print("OK", flush=True)
+"""
+
+
+def card_models_inputs():
+    """The card test's SASRec sequences and NCF examples, from fixed
+    seeds, and their configs (one block of two heads: Ulysses over a
+    2-way ``seq`` axis puts one head on a rank)."""
+    rng = np.random.default_rng(9)
+    seqs = np.zeros((128, 32), np.int64)
+    for row in seqs:
+        length = rng.integers(2, 33)
+        row[:length] = rng.integers(1, 201, size=length)
+    users, items = rng.integers(0, 500, 6000), rng.integers(0, 300, 6000)
+    labels = rng.integers(1, 6, 6000).astype(np.float32)
+    seq_kw = dict(num_items=200, max_len=32, embed_dim=32, num_heads=2, num_blocks=1,
+                  ffn_dim=64, batch_size=64, epochs=1, seed=4, seq_parallel="ulysses")
+    ncf_kw = dict(num_users=500, num_items=300, embed_dim=16, hidden=(32, 16),
+                  batch_size=2048, epochs=1, seed=4)
+    return seqs, (users, items, labels), seq_kw, ncf_kw
+
+
 @pytest.mark.cuda
 def test_nccl_collectives_and_fit_across_cards(tmp_path):
     """On two or more cards, a rank a card, so the backend is NCCL: the
     collectives of the gloo test above give the same answers (host
     tensors lifted onto the card for the call and back, the launch-wide
-    agreements included), and a fit over a 2 x 2 mesh (1 x 2 on two or
-    three cards) through B1 on every card, model-sharded where the mesh
-    has a model axis, equals the one-process fit of the same packing on
-    one card within 1e-4 on every rank."""
+    agreements, ``all_to_all`` and ``ppermute`` included), and a fit over
+    a 2 x 2 mesh (1 x 2 on two or three cards) through B1 on every card,
+    model-sharded where the mesh has a model axis, equals the
+    one-process fit of the same packing on one card within 1e-4 on every
+    rank. On the same mesh shape, SASRec's Ulysses steps (``("data",
+    "seq")``, B4 and the fused backward on every card) and NCF's steps
+    (``("data", "model")``) equal one card's within 1e-4: losses and
+    params."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards")
     from predictionio_tpu_torch import _kernels
@@ -418,3 +500,21 @@ def test_nccl_collectives_and_fit_across_cards(tmp_path):
         got = np.load(f"{out}-{rank}.npz")
         np.testing.assert_allclose(got["users"], one.user_factors, atol=1e-4)
         np.testing.assert_allclose(got["items"], one.item_factors, atol=1e-4)
+    from predictionio_tpu_torch.models.ncf.model import NCFConfig, train_ncf
+    from predictionio_tpu_torch.models.sequence.model import SASRecConfig, train_sasrec
+
+    models = str(tmp_path / "models")
+    # the workers import no test module (JAX stays out of them): the inputs' source
+    source = "import numpy as np\n" + inspect.getsource(card_models_inputs) + _MODELS_CARD_WORKER
+    run_workers(source, n=d * m, args=(models, d, m), timeout=300)
+    seqs, ncf_data, seq_kw, ncf_kw = card_models_inputs()
+    seq_state, seq_losses = train_sasrec(SASRecConfig(**seq_kw), seqs, "cuda", log_every=1)
+    ncf_state, ncf_losses = train_ncf(NCFConfig(**ncf_kw), *ncf_data, "cuda", log_every=1)
+    for rank in range(d * m):
+        got = np.load(f"{models}-{rank}.npz")
+        np.testing.assert_allclose(got["seq_losses"], seq_losses, atol=1e-4)
+        np.testing.assert_allclose(got["ncf_losses"], ncf_losses, atol=1e-4)
+        for prefix, state in (("seq.", seq_state), ("ncf.", ncf_state)):
+            for name, want in state.items():
+                np.testing.assert_allclose(got[prefix + name], want.numpy(), atol=1e-4,
+                                           err_msg=prefix + name)

@@ -58,7 +58,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert out.returncode == 0, out.stderr
     count, *walked = out.stdout.split()
     # every module of the slices was walked, not just the package root
-    assert int(count) >= 53
+    assert int(count) >= 54
     for module in ("__init__", "model", "kernel", "engine", "convert"):
         assert f"predictionio_tpu_torch.models.ncf.{module}".removesuffix(".__init__") in walked
     for module in ("models.sequence", "models.sequence.model", "models.sequence.engine",
@@ -87,7 +87,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                    # the streamed epochs and the streaming reader
                    "parallel.stream", "parallel.reader",
                    # multi-process training on torch.distributed
-                   "parallel.distributed", "parallel.mesh"):
+                   "parallel.distributed", "parallel.mesh",
+                   # the neural templates across ranks
+                   "parallel.ulysses"):
         assert f"predictionio_tpu_torch.{module}" in walked
 
 

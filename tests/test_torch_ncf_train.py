@@ -134,8 +134,13 @@ def test_telemetry_sees_every_step_and_unported_options_raise():
     assert len(every) == 14 and logged == every[2::3]
     assert [(name, rows) for name, _, rows in log.phases] == [("permutation", 700)] * 2
     assert all(s >= 0 for _, s, _ in log.phases)
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
-        train_ncf(config, users, items, labels, "cpu", mesh_shape=[-1, 2])
+    # a model axis in one process is refused, never trained as one device
+    with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
+        NCFAlgorithm({}, device="cpu").train(
+            TrainContext(device="cpu", mesh_shape=[-1, 2]),
+            RatingsData(users=users, items=items, ratings=labels, times=None,
+                        user_ids=[f"u{u}" for u in range(30)],
+                        item_ids=[f"i{i}" for i in range(20)]))
     assert NCFAlgorithm({"seenFilter": "live"}, device="cpu").seen_mode == "live"
     with pytest.raises(ValueError, match="seenFilter"):
         NCFAlgorithm({"seenFilter": "sometimes"}, device="cpu")
@@ -408,7 +413,7 @@ def test_template_dispatch(tmp_path):
     events = write_events(tmp_path / "e.jsonl", clique_events(users=4))
     sharded = write_engine_json(tmp_path / "m.json", params,
                                 sparkConf={"pio.mesh_shape": [1, 2]})
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
+    with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
         cli.train(sharded, events, str(tmp_path / "out"), device="cpu")
 
 

@@ -39,6 +39,7 @@ from predictionio_tpu_torch.models.sequence.model import (
     params_from_flax,
     train_sasrec,
 )
+from predictionio_tpu_torch.parallel.mesh import Mesh as TorchMesh
 from predictionio_tpu_torch.tools import cli
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -100,10 +101,14 @@ def test_telemetry_and_unported_options_raise():
     assert len(every) == 6 and logged == every[1::2]
     with pytest.raises(ValueError, match="max_len"):
         train_sasrec(config, sequences(t=6), "cpu")
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
-        train_sasrec(config, sequences(), "cpu", mesh_shape=[1, 2])
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
-        train_sasrec(config, sequences(), "cpu", mesh_shape=[2, 1])
+    # a mesh is never quietly one process: one process cannot build [1, 2]
+    with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
+        TrainContext(device="cpu", mesh_shape=[1, 2],
+                     runtime_conf={"pio.mesh_axes": ["data", "seq"]}).mesh
+    # max_len must divide over the seq axis (the reference's text)
+    seq3 = TorchMesh(("data", "seq"), (1, 3), (0, 0), torch.device("cpu"))
+    with pytest.raises(ValueError, match="max_len=8 must divide over seq axis size 3"):
+        train_sasrec(config, sequences(), "cpu", mesh=seq3)
     assert SASRecAlgorithm({"historyMode": "live"}, device="cpu").history_mode == "live"
     with pytest.raises(ValueError, match="historyMode"):
         SASRecAlgorithm({"historyMode": "sometimes"}, device="cpu")
@@ -278,15 +283,17 @@ def test_template_dispatch_and_unported_settings(tmp_path):
     events = write_events(tmp_path / "e.jsonl", users=4)
     with open(SEQUENCE_JSON) as f:
         variant = json.load(f)
-    for change, error in (({"sparkConf": {"pio.mesh_shape": [1, 2]}}, NotImplementedError),
+    # a [1, 2] mesh in one process is refused, never trained as one device
+    for change, match in (({"sparkConf": dict(variant["sparkConf"], **{"pio.mesh_shape": [1, 2]})},
+                           "needs 2 ranks, have 1"),
                           ({"algorithms": [{"name": "sasrec",
                                             "params": {"historyMode": "sometimes"}}]},
-                           ValueError),
+                           "historyMode"),
                           ({"algorithms": [{"name": "sasrec", "params": {"maxLen": 32}}]},
-                           ValueError)):
+                           "maxLen")):
         path = tmp_path / "bad.json"
         path.write_text(json.dumps(dict(variant, **change)))
-        with pytest.raises(error):
+        with pytest.raises(ValueError, match=match):
             cli.train(str(path), events, str(tmp_path / "out"), device="cpu")
 
 

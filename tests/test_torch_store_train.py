@@ -304,9 +304,9 @@ def test_unported_launch_options_raise(basedir, tmp_path):
     """A rank other than 0 of a launch trains but persists nothing: no
     run lock, no instance row, no blob, no checkpoints (alone, without a
     coordinator, its mesh is 1 x 1); a multi-process launch of a
-    template that does not train over the mesh (NCF) still raises
-    (ROADMAP.md slice 20); ``pio.profile``, ported since, trains and
-    writes its trace and journal."""
+    template that does not train over the mesh (the classifiers) still
+    raises (ROADMAP.md slice 20); ``pio.profile``, ported since, trains
+    and writes its trace and journal."""
     basedir(tmp_path)
     fill_store(storage, App, Event, make_events())
     engine_json = write_json(tmp_path / "engine.json", dict(
@@ -316,12 +316,13 @@ def test_unported_launch_options_raise(basedir, tmp_path):
     assert rank1.status == "COMPLETED" and rank1.id is None
     assert storage.get_meta_data_engine_instances().get_all() == []
     assert not os.path.exists(torch_checkpoint._checkpoint_base())
-    with open(os.path.join(REPO, "examples", "ncf", "engine.json")) as f:
-        ncf = json.load(f)
-    ncf["datasource"]["params"]["appName"] = "StoreApp"
-    ncf["sparkConf"] = {"pio.num_processes": 2, "pio.process_id": 1}
+    with open(os.path.join(REPO, "examples", "classification", "engine.json")) as f:
+        classify = json.load(f)
+    classify["datasource"]["params"]["appName"] = "StoreApp"
+    classify["sparkConf"] = {"pio.num_processes": 2, "pio.process_id": 1}
     with pytest.raises(NotImplementedError, match="slice 20"):
-        run_train(load_engine_variant(write_json(tmp_path / "ncf.json", ncf)), device="cpu")
+        run_train(load_engine_variant(write_json(tmp_path / "classify.json", classify)),
+                  device="cpu")
     engine_json = write_json(tmp_path / "engine.json", VARIANT)
     with pytest.raises(LookupError, match="run `pio train` first"):
         cli.build_query_server(engine_json, port=0, device="cpu")
@@ -374,6 +375,60 @@ def test_two_process_cli_train_records_one_instance(basedir, tmp_path):
         assert [e["item"] for e in g["itemScores"]] == [e["item"] for e in w["itemScores"]]
         np.testing.assert_allclose([e["score"] for e in g["itemScores"]],
                                    [e["score"] for e in w["itemScores"]], atol=1e-4)
+
+
+#: the neural templates' shipped engine.jsons, cut to this store's size
+NEURAL = {
+    "ncf": {"embedDim": 8, "hidden": [16, 8], "epochs": 2, "batchSize": 32,
+            "learningRate": 0.01, "seed": 1},
+    "sequence": {"embedDim": 8, "numHeads": 2, "numBlocks": 1, "ffnDim": 16, "epochs": 2,
+                 "batchSize": 8, "learningRate": 0.01, "seed": 1},
+}
+
+
+@pytest.mark.parametrize("template,shape,seq_parallel", [
+    ("ncf", [2, 1], None), ("ncf", [1, 2], None), ("sequence", [2, 1], "ring"),
+    ("sequence", [1, 2], "ring"), ("sequence", [1, 2], "ulysses")])
+def test_two_process_cli_train_of_the_neural_templates(basedir, tmp_path, template, shape,
+                                                       seq_parallel):
+    """``examples/ncf/engine.json`` (batch over ``data`` or params over
+    ``model``) and ``examples/sequence/engine.json`` (its ``("data",
+    "seq")`` axes; ring attention or Ulysses over ``seq``) trained by two
+    ``tools/cli.py train`` processes on one store: one COMPLETED
+    instance, recorded by rank 0; its params within 1e-4 of a one-process
+    train's of the same store and engine.json, and the deployed answers
+    the same items with scores within 1e-4."""
+    base = basedir(tmp_path / "store")
+    fill_store(storage, App, Event, make_events())
+    with open(os.path.join(REPO, "examples", template, "engine.json")) as f:
+        variant = json.load(f)
+    variant["datasource"]["params"]["appName"] = "StoreApp"
+    algorithm = variant["algorithms"][0]
+    algorithm["params"] = dict(algorithm["params"], **NEURAL[template])
+    if template == "sequence":
+        variant["preparator"]["params"]["maxLen"] = 8
+        algorithm["params"]["seqParallel"] = seq_parallel
+    one = write_json(tmp_path / "one.json", variant)
+    variant["sparkConf"] = dict(variant["sparkConf"], **{"pio.mesh_shape": shape,
+                                                          "pio.num_processes": 2})
+    launch = write_json(tmp_path / "launch.json", variant)
+    instance_id = _two_process_train(base, launch)
+    recorded = storage.get_meta_data_engine_instances().get_all()
+    assert [(i.id, i.status) for i in recorded] == [(instance_id, "COMPLETED")]
+    single = run_train(load_engine_variant(one), device="cpu")
+    _, got = load_instance_model(load_engine_variant(launch), instance_id)
+    _, want = load_instance_model(load_engine_variant(one), single.id)
+    assert got.state.keys() == want.state.keys()
+    for name in want.state:
+        np.testing.assert_allclose(got.state[name], want.state[name], atol=1e-4, err_msg=name)
+    queries = [{"user": f"u{u}", "num": 6} for u in range(0, 30, 3)]
+    got_answers = _serve(launch, queries, engine_instance_id=instance_id)
+    want_answers = _serve(one, queries, engine_instance_id=single.id)
+    for (g_status, g), (w_status, w) in zip(got_answers, want_answers):
+        assert g_status == w_status == 200 and g["itemScores"]
+        np.testing.assert_allclose([e["score"] for e in g["itemScores"]],
+                                   [e["score"] for e in w["itemScores"]], atol=1e-4)
+        assert [e["item"] for e in g["itemScores"]] == [e["item"] for e in w["itemScores"]]
 
 
 def _two_process_train(base: str, variant: str, *flags: str) -> str:
