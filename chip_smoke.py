@@ -10,7 +10,13 @@ script exits non-zero and prints no result):
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    gives them.
 2. build   -- compiles every kernel of ``predictionio_tpu_torch/csrc``
-   (one ``nvcc`` each, started together) and reports ptxas's summary.
+   (one ``nvcc`` each, started together) and reports ptxas's summary;
+   then the native host packer (``predictionio_tpu_torch/native``, g++),
+   timed. Every part below counts its packs by route (``pack_routes``
+   lines: each count set to 0 before the part, read after it) and fails
+   where one took the numpy route, which only ``PIO_NATIVE=0`` asks for;
+   the launches of dist_train, dist_models and dist_classify report
+   their ranks' routes, held the same way.
 3. check   -- kernel B2 (``mips_topk.cu``) against its plain torch twin
    on the card, at the serving path's shapes (1,000,000 items x rank 16,
    512-item tiles, R=16, batches of 8, 16 and 256, and the micro-batcher's
@@ -81,7 +87,11 @@ script exits non-zero and prints no result):
    ratings made from ``--seed`` by the bench's MovieLens-20M recipe,
    through RecommendationPreparator -> ALSAlgorithm.train on cuda, the
    generated arrays standing where the events reader's would. B1 launch
-   counts are zeroed just before and read just after (20 expected).
+   counts are zeroed just before and read just after (20 expected);
+   ``pack_s``, the preparator's pack on the native route.
+   pack_compare -- one pack of those 20M ratings (the user side, its
+   256 cap by time) on each route, the native packer and ``PIO_NATIVE=0``'s
+   numpy path, each timed, the two equal byte for byte.
    Checks: no NaN; the training RMSE on 100,000 sampled ratings falls
    from iteration 1 to 2 to 10; a 2-iteration fit through B1 equals the
    unfused "xla" path on the card within 1e-4 (the reference's f32
@@ -189,7 +199,9 @@ script exits non-zero and prints no result):
    COMPLETED evaluation instance, B4 and the fused backward 2 a training
    step, B4 also 2 a scoring forward, bestScore above twice the uniform
    10 / 3,706.
-   templates -- phase 6's 20,000,000 ratings as the templates' events
+   templates -- the first 10,000,000 of phase 6's 20,000,000 ratings (a
+   depth cut that keeps the script in its limit beside dist_classify) as
+   the templates' events
    (every rating a "view", the 5-star ones also a "buy"; each item 1-3 of
    20 categories, from ``--seed``); every kernel's count set to 0 first,
    B3, B4 and the fused backward still 0 at the end:
@@ -350,6 +362,27 @@ script exits non-zero and prints no result):
    within 1e-5), the CPU's costs along that path stopping it at the
    card's iteration; the host k-means++ seconds; a Lloyd step timed
    beside its bound (2 N D k operations at 67 TFLOP/s, 0.061 ms).
+   dist_classify -- the classifiers and k-means over the ``data`` axis:
+   one launch of two ``--dist-worker`` ranks sharing the card over gloo,
+   every count of B1-B6 set to 0 before it and still 0 after it (here
+   and in each rank). Each rank runs ``pio train -- --mesh-shape 2,1
+   --dcn-mesh-shape 1,1`` of classify_path's logistic-regression variant
+   (5,574 messages, hashDim 4096, 100 updates) and of its Naive Bayes
+   engine.json on classify_path's store, then e2's ``kmeans`` of
+   kmeans_check's 1,000,000 x 32 points, k = 64, over a ``[2, 1]`` mesh
+   with ``dcn_mesh_shape [1, 1]``. Gates: every mesh a rank built is
+   ``{"data": 2, "model": 1}`` from ``dcn_mesh_shape [1, 1]``, gloo
+   all-reduces on both ranks, rank 0 alone records the two COMPLETED
+   instances; logistic regression's first 10 iterates within rtol 2e-3,
+   atol 2e-4 of the one-process card fit's (rank 1's equal to rank
+   0's), the blob's labels on every message the one-process model's and
+   its loss within 1e-3, the blob deployed and 20 queries over HTTP
+   answered with the one-process model's labels; Naive Bayes within
+   rtol 1e-6 of the one-process card model; k-means centers within
+   1e-4 of the one-process card fit's, the same ``iterations_run``, the
+   cost within 1e-5. Each rank's train seconds and collective counts
+   printed. Two ranks on one card measure correctness and overhead,
+   not scaling.
 13. check_b3 -- kernel B3 (``ncf_score.cu``) against its plain version
    on the card at the NCF template's widths (E=32, hidden 64, 32) over
    1,000,000 items for five users (the last one included); over 1, 15,
@@ -1572,7 +1605,7 @@ def phase_train(rng: np.random.Generator, repo: str) -> dict:
         RatingsData,
         RecommendationPreparator,
     )
-    from predictionio_tpu_torch.ops import als_gram
+    from predictionio_tpu_torch.ops import als_gram, ragged
     from predictionio_tpu_torch.parallel.als import ALSModel, als_fit
 
     t0 = time.perf_counter()
@@ -1592,9 +1625,11 @@ def phase_train(rng: np.random.Generator, repo: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     als_gram.gram_rhs.launches = 0           # counts start at 0 here
+    ragged.PACK_ROUTES.clear()
     t0 = time.perf_counter()
     prepared = RecommendationPreparator(prep_params).prepare(ctx, data)
     pack_s = time.perf_counter() - t0
+    pack_routes = ragged.pack_routes()
     t0 = time.perf_counter()
     model = algorithm.train(ctx, prepared)
     train_s = time.perf_counter() - t0
@@ -1647,7 +1682,8 @@ def phase_train(rng: np.random.Generator, repo: str) -> dict:
         "user_block": list(als_data.by_row.blocks[0].indices.shape),
         "item_block": list(als_data.by_col.blocks[0].indices.shape),
         "truncated": als_data.by_col.truncated + als_data.by_row.truncated,
-        "generate_s": generate_s, "pack_s": pack_s, "train_s": train_s,
+        "generate_s": generate_s, "pack_s": pack_s, "pack_routes": pack_routes,
+        "train_s": train_s,
         "fit_s": fit_s,
         "refit_identical": bool(
             np.array_equal(refit.user_factors, model.als.user_factors)
@@ -1665,6 +1701,66 @@ def phase_train(rng: np.random.Generator, repo: str) -> dict:
     emit({"phase": "train", **result})
     return {"result": result, "model": model, "als_data": als_data,
             "config": config, "ratings": (users, items, ratings, times)}
+
+
+def phase_pack_compare(ratings) -> dict:
+    """One pack of the train part's 20M ratings (the user side: its
+    256-event cap, each user's latest by time) on each route: the native
+    packer, then the numpy path ``PIO_NATIVE=0`` asks for, each timed,
+    the two held equal byte for byte."""
+    from predictionio_tpu_torch.ops import ragged
+
+    users, items, values, times = ratings
+    args, kwargs = (users, items, values, TRAIN_USERS, TRAIN_ITEMS), {
+        "max_len": TRAIN_CAP, "times": times}
+    before = ragged.pack_routes()
+    t0 = time.perf_counter()
+    native_pack = ragged.pack_padded_csr(*args, **kwargs)
+    native_s = time.perf_counter() - t0
+    asked = os.environ.get("PIO_NATIVE")
+    os.environ["PIO_NATIVE"] = "0"
+    try:
+        t0 = time.perf_counter()
+        numpy_pack = ragged.pack_padded_csr(*args, **kwargs)
+        numpy_s = time.perf_counter() - t0
+    finally:
+        if asked is None:
+            os.environ.pop("PIO_NATIVE")
+        else:
+            os.environ["PIO_NATIVE"] = asked
+    routes = {k: v - before[k] for k, v in ragged.pack_routes().items()}
+    if routes != {"native": 1, "numpy": 1}:
+        raise AssertionError(f"pack_compare: routes {routes}")
+    for name in ("indices", "values", "mask"):
+        if getattr(native_pack, name).tobytes() != getattr(numpy_pack, name).tobytes():
+            raise AssertionError(f"pack_compare: the routes' {name} differ")
+    if native_pack.truncated != numpy_pack.truncated:
+        raise AssertionError("pack_compare: the routes truncate apart")
+    result = {"ratings": int(users.size), "shape": list(native_pack.indices.shape),
+              "truncated": native_pack.truncated, "native_s": native_s, "numpy_s": numpy_s,
+              "bytes_equal": True}
+    emit({"phase": "pack_compare", **result})
+    return result
+
+
+#: each part's packs by route (``pack_routes_of``)
+PACKS: dict = {}
+
+
+@contextlib.contextmanager
+def pack_routes_of(part: str):
+    """Count the packs of the block, ``part`` of the script, by route:
+    every count set to 0 first, read at the end, printed. A pack on the
+    numpy route fails the part unless ``PIO_NATIVE=0`` asked for it."""
+    from predictionio_tpu_torch import native
+    from predictionio_tpu_torch.ops import ragged
+
+    ragged.PACK_ROUTES.clear()
+    yield
+    PACKS[part] = routes = ragged.pack_routes()
+    emit({"phase": "pack_routes", "part": part, **routes})
+    if routes["numpy"] and native.enabled():
+        raise AssertionError(f"{part}: {routes['numpy']} packs took the numpy route")
 
 
 # --------------------------------------------------------------------------
@@ -3197,6 +3293,10 @@ def phase_eval_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
 #: each item of the training stand-in gets 1-3 of 20 categories; every
 #: rating is a "view", the 5-star ratings also a "buy"
 TEMPLATE_CATEGORIES, TEMPLATE_MAX_CATEGORIES = 20, 3
+#: the templates part's depth cut: the first 10,000,000 of phase 6's 20M
+#: ratings (all 20M before; cut to keep the script in its limit beside the
+#: dist_classify part)
+TEMPLATE_RATINGS = 10_000_000
 #: cooc_check: the card against the CPU on the first 5,000 users x 2,000
 #: items, and the full-size counts against scipy on 256 item rows
 COOC_CHECK_USERS, COOC_CHECK_ITEMS, COOC_CHECK_ROWS = 5_000, 2_000, 256
@@ -3964,7 +4064,7 @@ def phase_templates(rng: np.random.Generator, ratings, repo: str, workdir: str) 
     from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
 
     t0 = time.perf_counter()
-    ev = template_events(ratings, rng)
+    ev = template_events(tuple(a[:TEMPLATE_RATINGS] for a in ratings), rng)
     events_s = time.perf_counter() - t0
     ncf_kernel.ncf_score_all_items.launches = 0
     zero_flash_counts()
@@ -4422,8 +4522,10 @@ def dist_worker(spec: dict) -> int:
     recorded, its backend, collective counts and seconds, and for the
     neural templates its step count and first ``DIST_LOSS_STEPS``
     losses, to ``spec["out"]``-RANK.json."""
+    if spec.get("template") == "classification":
+        return classify_worker(spec)
     from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
-    from predictionio_tpu_torch.ops import als_gram
+    from predictionio_tpu_torch.ops import als_gram, ragged
     from predictionio_tpu_torch.parallel import mesh as mesh_lib
     from predictionio_tpu_torch.parallel.distributed import distributed_info
 
@@ -4479,7 +4581,7 @@ def dist_worker(spec: dict) -> int:
               "flash_launches": flash_counts(), "instance_id": instance_id,
               "status": status, "distributed": distributed_info(),
               "collectives": mesh_lib.collective_counts(), "timings": timings,
-              "run_train_s": wall_s}
+              "run_train_s": wall_s, "pack_routes": ragged.pack_routes()}
     if log is not None:
         report.update(steps=len(log.losses), losses=log.losses[:DIST_LOSS_STEPS],
                       epoch_s=log.seconds)
@@ -4491,8 +4593,11 @@ def dist_worker(spec: dict) -> int:
 def run_launch(spec: dict, n: int) -> tuple[list[dict], float]:
     """``n`` ranks of ``dist_worker`` under the launch contract (a fresh
     coordinator port on this host), all killed past ``DIST_TIMEOUT_S``;
-    each must exit 0. Returns their reports and the launch's seconds."""
+    each must exit 0 and pack on the native route only. Returns their
+    reports and the launch's seconds."""
     import socket
+
+    from predictionio_tpu_torch import native
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -4519,6 +4624,9 @@ def run_launch(spec: dict, n: int) -> tuple[list[dict], float]:
     for r in range(n):
         with open(f"{spec['out']}-{r}.json") as f:
             reports.append(json.load(f))
+        if reports[-1]["pack_routes"]["numpy"] and native.enabled():
+            raise AssertionError(f"rank {r} of {spec['name']} packed on the numpy route: "
+                                 f"{reports[-1]['pack_routes']}")
     return reports, seconds
 
 
@@ -4668,6 +4776,7 @@ def phase_dist_train(ratings, store: dict, repo: str, workdir: str, stream_root:
                 "backends": backends, "b1_launches": b1, "collectives": collectives,
                 "timings": [r["timings"] for r in reports],
                 "run_train_s": [r["run_train_s"] for r in reports],
+                "pack_routes": [r["pack_routes"] for r in reports],
                 "factors_max_abs_err": err, "b2_launches": b2, "deploy_s": deploy_s,
                 "query_p50_ms": statistics.median(query_ms),
                 "list_max_abs_diff": max(diffs), "near_tie_swaps": swaps,
@@ -5352,14 +5461,15 @@ def naive_bayes_within(name: str, card, cpu, float_rows: int = 0) -> dict:
 
 
 def serve_classifier(engine_json: str, queries: list, algorithm, model, cpu_algorithm,
-                     cpu_model, exact: bool) -> dict:
+                     cpu_model, exact: bool, instance_id: str | None = None) -> dict:
     """``queries`` over HTTP to a deploy of the engine.json's latest
-    instance on cuda: each body the instance model's ``predict``, each
-    label the CPU model's, scores within ``SERVE_SCORE_TOL`` where
-    ``exact`` (Naive Bayes)."""
+    instance (or ``instance_id``) on cuda: each body the instance model's
+    ``predict``, each label the CPU model's, scores within
+    ``SERVE_SCORE_TOL`` where ``exact`` (Naive Bayes)."""
     from predictionio_tpu_torch.tools.cli import build_query_server
 
-    server, service = build_query_server(engine_json, port=0, device="cuda")
+    server, service = build_query_server(engine_json, port=0, device="cuda",
+                                         engine_instance_id=instance_id)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=120)
@@ -5506,6 +5616,8 @@ def phase_classify_path(rng: np.random.Generator, repo: str, workdir: str) -> di
     with open(lr_json, "w") as f:
         json.dump(lr_variant, f)
     result = {"messages": int(labels.size), "spam": int((labels == "spam").sum())}
+    # what dist_classify holds its launch to: the one-process card fits
+    handoff = {"queries": queries, "nb_json": nb_json, "lr_json": lr_json}
     with fresh_store(workdir, "classify"):
         app_id = said(cli_out(["app", "new", CLASSIFY_APP]), "ID")
         t0 = time.perf_counter()
@@ -5537,6 +5649,8 @@ def phase_classify_path(rng: np.random.Generator, repo: str, workdir: str) -> di
             entry["serve"] = serve_classifier(engine_json, queries, algorithm, model,
                                               cpu_algorithm, cpu_model, name == "naive_bayes")
             result[name] = entry
+            handoff[name] = {"model": model, "algorithm": algorithm, "x": x, "y": y,
+                             "iterates": records["cuda"].get("iterates")}
             if name == "naive_bayes":
                 nb_answers = [algorithm.predict(model, q) for q in queries]
                 q_path = os.path.join(workdir, "sms_queries.jsonl")
@@ -5597,7 +5711,7 @@ def phase_classify_path(rng: np.random.Generator, repo: str, workdir: str) -> di
                                                  nb_answers)
     result["remote_stores"]["s"] = time.perf_counter() - t0
     emit({"phase": "classify_path", **result})
-    return result
+    return result, handoff
 
 
 def scale_corpus(rng: np.random.Generator, n: int):
@@ -5668,10 +5782,13 @@ def phase_classify_scale(rng: np.random.Generator) -> dict:
     if not all(e["within"] for e in early):
         raise AssertionError(f"classify_scale: early iterates part from the CPU's: {early}")
     result["early_iterates_max_abs"] = max(e["max_abs"] for e in early)
-    value_and_grad = classify.logistic_value_and_grad(xd, yd, 1e-4)
+    value_and_grad = classify.logistic_value_and_grad(
+        classify.example_mesh(None, "cuda"), xd, yd,
+        torch.ones(SCALE_MESSAGES, device="cuda"), 1e-4)
     params = [torch.from_numpy(lr.weights).cuda(), torch.from_numpy(lr.bias).cuda()]
     ms = cuda_ms(lambda: value_and_grad(params), runs=10, warmup=2)
-    bytes_moved = 2 * x.nbytes + 2 * (lr.weights.nbytes + lr.bias.nbytes)
+    bytes_moved = (2 * x.nbytes + 2 * (lr.weights.nbytes + lr.bias.nbytes)
+                   + 4 * SCALE_MESSAGES)  # the unit weights
     ops = 2 * (2 * SCALE_MESSAGES * HASH_DIM * 2)
     bound = max(bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
     result["evaluation"] = {
@@ -5691,6 +5808,52 @@ def km_blobs(rng: np.random.Generator) -> np.ndarray:
     centers = rng.normal(0.0, KM_SPREAD, (KM_BLOBS, KM_DIM)).astype(np.float32)
     which = rng.integers(0, KM_BLOBS, KM_POINTS)
     return centers[which] + rng.standard_normal((KM_POINTS, KM_DIM), dtype=np.float32)
+
+
+def lloyd_steps_within(what: str, steps, x, reference, iterations_run: int,
+                       final_cost: float) -> tuple[int, float, float]:
+    """Each recorded Lloyd step ``(input centers, new centers, assignment,
+    cost)`` of a fit on ``x`` held to ``reference(x, centers)``, the step
+    from the same input centers on ``x``'s device: assignments equal but
+    for near ties (the two distances within f32 rounding of each other),
+    the centers of the recorded assignment within ``KM_CENTER_ATOL`` of
+    the recorded ones, the cost within ``KM_COST_RTOL``; and the
+    reference's costs along that path stop it at ``iterations_run`` with
+    the final pass's cost within ``KM_COST_RTOL`` of ``final_cost``.
+    Returns the near-tie moves and the largest center and cost errors."""
+    import torch
+
+    xc = x.cpu()
+    ties, center_err, cost_err, ref_costs = 0, 0.0, 0.0, []
+    for centers, new, assign, cost in steps:
+        _, ref_assign, ref_cost = reference(x, centers.to(x.device))
+        ref_assign = ref_assign.cpu()
+        ref_costs.append(float(ref_cost))
+        moved = torch.nonzero(ref_assign != assign).flatten()
+        if moved.numel():
+            pts = xc[moved].double()
+            da = ((pts - centers[assign[moved]].double()) ** 2).sum(1)
+            db = ((pts - centers[ref_assign[moved]].double()) ** 2).sum(1)
+            scale = (pts * pts).sum(1) + 2 * pts.norm(dim=1) * centers.double().norm(dim=1).max() + (
+                centers.double() ** 2).sum(1).max()
+            if bool(((da - db).abs() > 2.0 ** -20 * scale).any()):
+                raise AssertionError(f"{what}: {moved.numel()} points assigned apart, not ties")
+            ties += moved.numel()
+        onehot = torch.nn.functional.one_hot(assign, centers.shape[0]).float()
+        counts = onehot.sum(0)[:, None]
+        from_assign = torch.where(counts > 0, (onehot.T @ xc) / counts.clamp(min=1.0), centers)
+        center_err = max(center_err, float((from_assign - new).abs().max()))
+        cost_err = max(cost_err, abs(cost - float(ref_cost)) / float(ref_cost))
+    if center_err > KM_CENTER_ATOL or cost_err > KM_COST_RTOL:
+        raise AssertionError(f"{what}: centers {center_err}, cost {cost_err} from the reference's")
+    stop = 0
+    for stop, cost in enumerate(ref_costs[:-1], 1):  # the last entry is the final pass
+        if stop > 1 and ref_costs[stop - 2] - cost <= 1e-4 * abs(ref_costs[stop - 2]):
+            break
+    if stop != iterations_run or abs(ref_costs[-1] - final_cost) > KM_COST_RTOL * final_cost:
+        raise AssertionError(f"{what}: the reference's costs stop at {stop}, the fit at "
+                             f"{iterations_run}")
+    return ties, center_err, cost_err
 
 
 def phase_kmeans_check(rng: np.random.Generator, seed: int) -> dict:
@@ -5728,35 +5891,8 @@ def phase_kmeans_check(rng: np.random.Generator, seed: int) -> dict:
         fit_s = time.perf_counter() - t0
     finally:
         port_kmeans.lloyd_step, port_kmeans._kmeanspp_init = real, real_init
-    xc = torch.from_numpy(x)
-    ties, center_err, cost_err, cpu_costs = 0, 0.0, 0.0, []
-    for centers, new, assign, cost in steps:
-        cpu_new, cpu_assign, cpu_cost = real(xc, centers)
-        cpu_costs.append(float(cpu_cost))
-        moved = torch.nonzero(cpu_assign != assign).flatten()
-        if moved.numel():
-            pts = xc[moved].double()
-            da = ((pts - centers[assign[moved]].double()) ** 2).sum(1)
-            db = ((pts - centers[cpu_assign[moved]].double()) ** 2).sum(1)
-            scale = (pts * pts).sum(1) + 2 * pts.norm(dim=1) * centers.double().norm(dim=1).max() + (
-                centers.double() ** 2).sum(1).max()
-            if bool(((da - db).abs() > 2.0 ** -20 * scale).any()):
-                raise AssertionError(f"kmeans: {moved.numel()} points assigned apart, not ties")
-            ties += moved.numel()
-        onehot = torch.nn.functional.one_hot(assign, KM_K).float()
-        counts = onehot.sum(0)[:, None]
-        from_card = torch.where(counts > 0, (onehot.T @ xc) / counts.clamp(min=1.0), centers)
-        center_err = max(center_err, float((from_card - new).abs().max()))
-        cost_err = max(cost_err, abs(cost - float(cpu_cost)) / float(cpu_cost))
-    if center_err > KM_CENTER_ATOL or cost_err > KM_COST_RTOL:
-        raise AssertionError(f"kmeans: centers {center_err}, cost {cost_err} from the CPU's")
-    stop = 0
-    for stop, cost in enumerate(cpu_costs[:-1], 1):  # the last entry is the final pass
-        if stop > 1 and cpu_costs[stop - 2] - cost <= 1e-4 * abs(cpu_costs[stop - 2]):
-            break
-    if stop != model.iterations_run or abs(cpu_costs[-1] - model.cost) > KM_COST_RTOL * model.cost:
-        raise AssertionError(f"kmeans: the CPU's costs stop at {stop}, the card at "
-                             f"{model.iterations_run}")
+    ties, center_err, cost_err = lloyd_steps_within(
+        "kmeans", steps, torch.from_numpy(x), real, model.iterations_run, model.cost)
     xd = torch.from_numpy(x).cuda()
     cd = torch.from_numpy(model.centers).cuda()
     ms = cuda_ms(lambda: real(xd, cd), runs=10, warmup=2)
@@ -5774,7 +5910,7 @@ def phase_kmeans_check(rng: np.random.Generator, seed: int) -> dict:
     }
     del xd
     emit({"phase": "kmeans_check", **result})
-    return result
+    return result, x, model
 
 
 def kernel_counts() -> dict:
@@ -5800,19 +5936,280 @@ def phase_classification(rng: np.random.Generator, seed: int, repo: str, workdir
     zero_flash_counts()
     seconds = {}
     t0 = time.perf_counter()
-    phase_classify_path(rng, repo, workdir)
+    _, handoff = phase_classify_path(rng, repo, workdir)
     seconds["classify_path"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_classify_scale(rng)
     seconds["classify_scale"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    phase_kmeans_check(rng, seed)
+    _, handoff["km_points"], handoff["kmeans"] = phase_kmeans_check(rng, seed)
     seconds["kmeans_check"] = time.perf_counter() - t0
     launches = kernel_counts()                # read here
     if any(launches.values()):
         raise AssertionError(f"the classification part launched kernels: {launches}")
     result = {"launches": launches, "seconds": seconds}
     emit({"phase": "classification", **result})
+    return {**result, "handoff": handoff}
+
+
+# --------------------------------------------------------------------------
+# dist_classify: the classifiers and k-means over the data axis of a
+# two-rank launch (the ranks share the card over gloo)
+# --------------------------------------------------------------------------
+
+#: the launch's pio.mesh_shape and pio.dcn_mesh_shape, given to ``pio
+#: train`` after ``--``
+DIST_CLASSIFY_MESH, DIST_CLASSIFY_DCN = [2, 1], [1, 1]
+DIST_CLASSIFY_PASSTHROUGH = ["--", "--mesh-shape", "2,1", "--dcn-mesh-shape", "1,1"]
+#: the launch's second k-means fit: the first 100,003 of kmeans_check's
+#: points, which 8 x 2 = 16 does not divide, so the ranks' zero-weight pad
+#: rows run on the card
+KM_PAD_POINTS = 100_003
+
+
+def classify_worker(spec: dict) -> int:
+    """One rank of the dist_classify launch: ``pio train -- --mesh-shape
+    2,1 --dcn-mesh-shape 1,1`` of ``spec["lr_json"]`` (its L-BFGS run
+    recorded: stats and the first ``LR_EARLY`` iterates) and of
+    ``spec["nb_json"]`` on the store ``PIO_FS_BASEDIR`` names, then e2's
+    ``kmeans`` of ``spec["km_points"]`` and of their first
+    ``KM_PAD_POINTS`` over the same mesh, every Lloyd step recorded (its
+    input and new centers and cost; the rank's assignment to
+    -RANK-assign.npz). Every mesh the
+    rank built is recorded (``build_mesh`` wrapped). Writes the rank's
+    seconds, instance ids, meshes, collective counts, kernel launches
+    (each counted from 0 here) and pack routes to ``spec["out"]``-RANK.json,
+    its iterates and centers to -RANK.npz."""
+    from predictionio_tpu_torch.models import e2
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+    from predictionio_tpu_torch.ops import als_gram, mips, ragged
+    from predictionio_tpu_torch.ops import kmeans as port_kmeans
+    from predictionio_tpu_torch.parallel import distributed as dist_lib
+    from predictionio_tpu_torch.parallel import mesh as mesh_lib
+
+    rank = int(os.environ["PIO_PROCESS_ID"])
+    als_gram.gram_rhs.launches = 0           # counts start at 0 here
+    mips.mips_block_topk.launches = 0
+    ncf_kernel.ncf_score_all_items.launches = 0
+    zero_flash_counts()
+    meshes, real_build = [], dist_lib.build_mesh
+
+    def recorded(shape, axes, dcn_mesh_shape=None, device=None):
+        mesh = real_build(shape, axes, dcn_mesh_shape=dcn_mesh_shape, device=device)
+        meshes.append({"mesh_shape": list(shape), "dcn_mesh_shape": dcn_mesh_shape,
+                       "shape": mesh.shape, "grid": mesh.grid.tolist()})
+        return mesh
+
+    dist_lib.build_mesh = recorded
+    report, arrays = {"rank": rank, "trains": {}}, {}
+    for name, engine_json in (("logistic_regression", spec["lr_json"]),
+                              ("naive_bayes", spec["nb_json"])):
+        records = {}
+        t0 = time.perf_counter()
+        with lbfgs_recorder(records):
+            out = cli_out(["train", "--engine-json", engine_json, "--device", "cuda",
+                           *DIST_CLASSIFY_PASSTHROUGH])
+        entry = {"train_s": time.perf_counter() - t0,
+                 "instance_id": said(out, "Engine instance ID") if rank == 0 else None}
+        if rank != 0 and "Training completed on rank" not in out:
+            raise AssertionError(f"rank {rank} said {out}")
+        if records:
+            entry["lbfgs"] = records["stats"]
+            for k, (w, b) in enumerate(records["iterates"], 1):
+                arrays[f"w{k}"], arrays[f"b{k}"] = w, b
+        report["trains"][name] = entry
+    x = np.load(spec["km_points"])
+    mesh = dist_lib.build_mesh(DIST_CLASSIFY_MESH, ("data", "model"),
+                               dcn_mesh_shape=DIST_CLASSIFY_DCN, device="cuda")
+    real_step, steps, assigns = port_kmeans.lloyd_step, [], {}
+
+    def recorded(xs, centers, weights=None, step_mesh=None):
+        new, assign, cost = real_step(xs, centers, weights, step_mesh)
+        steps.append((centers.cpu().numpy(), new.cpu().numpy(),
+                      assign.cpu().numpy().astype(np.int32), float(cost)))
+        return new, assign, cost
+
+    port_kmeans.lloyd_step = recorded
+    try:
+        for key, points in (("kmeans", x), ("kmeans_pad", x[:KM_PAD_POINTS])):
+            steps.clear()
+            t0 = time.perf_counter()
+            km = e2.kmeans(points, k=KM_K, iterations=KM_ITERATIONS, seed=spec["seed"],
+                           mesh=mesh)
+            report[key] = {"fit_s": time.perf_counter() - t0, "cost": km.cost,
+                           "iterations_run": km.iterations_run,
+                           "step_costs": [cost for *_, cost in steps]}
+            arrays[f"{key}_centers"] = km.centers
+            for i, (centers, new, assign, _) in enumerate(steps):
+                arrays[f"{key}_in{i}"], arrays[f"{key}_new{i}"] = centers, new
+                assigns[f"{key}_{i}"] = assign  # this rank's rows
+    finally:
+        port_kmeans.lloyd_step = real_step
+    dist_lib.build_mesh = real_build
+    report.update(meshes=meshes, distributed=dist_lib.distributed_info(),
+                  collectives=mesh_lib.collective_counts(), launches=kernel_counts(),
+                  pack_routes=ragged.pack_routes())
+    np.savez(f"{spec['out']}-{rank}.npz", **arrays)
+    np.savez(f"{spec['out']}-{rank}-assign.npz", **assigns)
+    with open(f"{spec['out']}-{rank}.json", "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def phase_dist_classify(handoff: dict, workdir: str, seed: int) -> dict:
+    """dist_classify: one launch of two ranks (``classify_worker``) on
+    classify_path's store. Gates: both ranks over gloo on a ``[2, 1]``
+    mesh built with ``dcn_mesh_shape [1, 1]`` (every mesh they built),
+    all-reduces on both, no kernel launched; rank 0 alone recorded the
+    two COMPLETED instances. Logistic regression (100 updates on 5,574
+    messages): rank 0's first ``LR_EARLY`` iterates within ``LR_RTOL`` /
+    ``LR_ATOL`` of the one-process card fit's (rank 1's equal rank
+    0's), the blob's labels on every message the one-process model's and
+    its loss within ``LR_LOSS_RTOL``; the blob deployed, ``SMS_QUERIES``
+    queries over HTTP answered with the one-process model's labels.
+    Naive Bayes: the blob within ``NB_RTOL`` of the one-process card
+    model (``naive_bayes_within``). k-means (kmeans_check's points and
+    seed, and their first ``KM_PAD_POINTS``, whose pad rows the ranks
+    weigh 0): both ranks' centers equal; every Lloyd step of the ranks
+    held to the one-process step on the card from the same input centers
+    (``lloyd_steps_within``: the pad rows count nothing); the same
+    ``iterations_run`` as the one-process card fit and the cost within
+    ``KM_COST_RTOL``; the centers within ``KM_CENTER_ATOL`` of that fit's
+    for the 1M points, whose paths stay together, and reported for the
+    padded fit, whose one-process path parts from the ranks' at a near
+    tie (``trajectory_moves``: per step, the points the two fits assign
+    apart). Two ranks on one card measure correctness and
+    overhead, not scaling."""
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
+    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+
+    points = os.path.join(workdir, "km_points.npy")
+    np.save(points, handoff["km_points"])
+    spec = {"name": "dist_classify", "template": "classification",
+            "out": os.path.join(workdir, "dist_classify"), "lr_json": handoff["lr_json"],
+            "nb_json": handoff["nb_json"], "km_points": points, "seed": seed}
+    with fresh_store(workdir, "classify"):
+        before = {i.id for i in storage.get_meta_data_engine_instances().get_all()}
+        reports, launch_s = run_launch(spec, 2)
+        storage.reset()
+        recorded = sorted((i.id, i.status)
+                          for i in storage.get_meta_data_engine_instances().get_all()
+                          if i.id not in before)
+        ids = {name: [r["trains"][name]["instance_id"] for r in reports]
+               for name in ("logistic_regression", "naive_bayes")}
+        if (any(v[1] is not None for v in ids.values())
+                or recorded != sorted((v[0], "COMPLETED") for v in ids.values())):
+            raise AssertionError(f"dist_classify: new instances {recorded}, ranks said {ids}")
+        for r in reports:
+            if r["distributed"]["backend"] != "gloo" or r["distributed"]["world_size"] != 2:
+                raise AssertionError(f"dist_classify: rank {r['rank']} {r['distributed']}")
+            if len(r["meshes"]) != 3 or any(
+                    m["shape"] != {"data": 2, "model": 1}
+                    or m["dcn_mesh_shape"] != DIST_CLASSIFY_DCN for m in r["meshes"]):
+                raise AssertionError(f"dist_classify: rank {r['rank']} meshes {r['meshes']}")
+            if not r["collectives"].get("gloo:all_reduce") or any(r["launches"].values()):
+                raise AssertionError(f"dist_classify: rank {r['rank']} collectives "
+                                     f"{r['collectives']}, launches {r['launches']}")
+        arrays = [np.load(f"{spec['out']}-{r}.npz") for r in range(2)]
+        for key in arrays[0].files:
+            if not np.array_equal(arrays[0][key], arrays[1][key]):
+                raise AssertionError(f"dist_classify: the ranks' {key} differ")
+        result = {"mesh_shape": DIST_CLASSIFY_MESH, "dcn_mesh_shape": DIST_CLASSIFY_DCN,
+                  "launch_s": launch_s, "backends": [r["distributed"]["backend"]
+                                                    for r in reports],
+                  "meshes": reports[0]["meshes"],
+                  "collectives": [r["collectives"] for r in reports],
+                  "train_s": {name: [r["trains"][name]["train_s"] for r in reports]
+                              for name in ids},
+                  "kmeans_fit_s": [[r[key]["fit_s"] for key in ("kmeans", "kmeans_pad")]
+                                   for r in reports],
+                  "pack_routes": [r["pack_routes"] for r in reports]}
+        # logistic regression: rank 0's blob against the one-process card fit
+        one = handoff["logistic_regression"]
+        lr_json = handoff["lr_json"]
+        _, model = load_instance_model(load_engine_variant(lr_json), ids["logistic_regression"][0])
+        records = {"cuda": {"iterates": [[arrays[0][f"w{k}"], arrays[0][f"b{k}"]]
+                                         for k in range(1, LR_EARLY + 1)],
+                            "stats": reports[0]["trains"]["logistic_regression"]["lbfgs"]},
+                   "cpu": {"iterates": one["iterates"], "stats": None}}
+        lr = compare_classifiers("logistic_regression", model, one["model"], one["x"],
+                                 one["y"], records)
+        lr.pop("cpu_lbfgs")
+        lr["serve"] = serve_classifier(lr_json, handoff["queries"], one["algorithm"], model,
+                                       one["algorithm"], one["model"], False,
+                                       instance_id=ids["logistic_regression"][0])
+        result["logistic_regression"] = lr
+        _, nb = load_instance_model(load_engine_variant(handoff["nb_json"]),
+                                    ids["naive_bayes"][0])
+        result["naive_bayes"] = naive_bayes_within("dist_naive_bayes", nb.inner,
+                                                   handoff["naive_bayes"]["model"].inner)
+    import torch
+
+    from predictionio_tpu_torch.models import e2
+    from predictionio_tpu_torch.ops import kmeans as port_kmeans
+
+    real_step, one_assign = port_kmeans.lloyd_step, []
+
+    def recorded(xs, centers, *rest):
+        new, assign, cost = real_step(xs, centers, *rest)
+        one_assign.append(assign.cpu())
+        return new, assign, cost
+
+    port_kmeans.lloyd_step = recorded
+    try:
+        pad_one = e2.kmeans(handoff["km_points"][:KM_PAD_POINTS], k=KM_K,
+                            iterations=KM_ITERATIONS, seed=seed, device="cuda")
+    finally:
+        port_kmeans.lloyd_step = real_step
+    assigns = [np.load(f"{spec['out']}-{r}-assign.npz") for r in range(2)]
+    for key, points, km_one in (("kmeans", handoff["km_points"], handoff["kmeans"]),
+                                ("kmeans_pad", handoff["km_points"][:KM_PAD_POINTS], pad_one)):
+        km, n = reports[0][key], points.shape[0]
+        steps = [(torch.from_numpy(arrays[0][f"{key}_in{i}"]),
+                  torch.from_numpy(arrays[0][f"{key}_new{i}"]),
+                  torch.from_numpy(np.concatenate([a[f"{key}_{i}"] for a in assigns])[:n]).long(),
+                  cost) for i, cost in enumerate(km["step_costs"])]
+        ties, step_center_err, step_cost_err = lloyd_steps_within(
+            f"dist_classify {key}", steps, torch.from_numpy(points).cuda(), real_step,
+            km["iterations_run"], km["cost"])
+        center_err = float(np.abs(arrays[0][f"{key}_centers"] - km_one.centers).max())
+        cost_err = abs(km["cost"] - km_one.cost) / km_one.cost
+        # the padded fit is held step by step: its one-process twin's path
+        # parts from the ranks' at a near tie (trajectory_moves)
+        gated_centers = center_err if key == "kmeans" else 0.0
+        if (km["iterations_run"] != km_one.iterations_run or gated_centers > KM_CENTER_ATOL
+                or cost_err > KM_COST_RTOL):
+            raise AssertionError(f"dist_classify {key}: {km['iterations_run']} iterations "
+                                 f"against {km_one.iterations_run}, centers {center_err}, "
+                                 f"cost {cost_err} from one process")
+        result[key] = {"points": n, "iterations_run": km["iterations_run"], "cost": km["cost"],
+                       "center_max_abs_err": center_err, "cost_rel_err": cost_err,
+                       "step_center_max_abs_err": step_center_err,
+                       "step_cost_max_rel_err": step_cost_err, "step_near_tie_moves": ties}
+    result["kmeans_pad"]["trajectory_moves"] = [
+        int((one_assign[i] != s[2]).sum()) for i, s in enumerate(steps[:len(one_assign)])]
+    emit({"phase": "dist_classify", **result})
+    return result
+
+
+def phase_dist_classify_path(handoff: dict, workdir: str, seed: int) -> dict:
+    """dist_classify with every kernel's count set to 0 before and read
+    after: none of B1-B6 launches in it, here or in a rank."""
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+    from predictionio_tpu_torch.ops import als_gram, mips
+
+    als_gram.gram_rhs.launches = 0           # counts start at 0 here
+    mips.mips_block_topk.launches = 0
+    ncf_kernel.ncf_score_all_items.launches = 0
+    zero_flash_counts()
+    t0 = time.perf_counter()
+    phase_dist_classify(handoff, workdir, seed)
+    launches = kernel_counts()                # read here
+    if any(launches.values()):
+        raise AssertionError(f"the dist_classify part launched kernels: {launches}")
+    result = {"launches": launches, "seconds": time.perf_counter() - t0}
+    emit({"phase": "dist_classify_path", **result})
     return result
 
 
@@ -7103,7 +7500,7 @@ def main(argv: list[str] | None = None) -> int:
     emit({"phase": "device", "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    from predictionio_tpu_torch import _kernels
+    from predictionio_tpu_torch import _kernels, native
     from predictionio_tpu_torch.utils.device import resolve_device
 
     resolve_device("cuda")  # TF32 off for the plain versions' products too
@@ -7113,25 +7510,32 @@ def main(argv: list[str] | None = None) -> int:
         line.strip() for log in _kernels.build_logs.values() for line in log.splitlines()
         if any(x in line for x in ("registers", "spill", "entry function"))
     ]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.load()  # the host packer (g++); a failed build raises
+    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
+          "native_packer_s": time.perf_counter() - t0})
 
     repo = os.path.dirname(os.path.abspath(__file__))
     rng = np.random.default_rng(args.seed)
     stage1 = phase_check_and_time(rng)
-    with tempfile.TemporaryDirectory() as workdir:
+    with pack_routes_of("serve"), tempfile.TemporaryDirectory() as workdir:
         serve = phase_serve(rng, workdir)
         fabric = phase_serve_fabric(rng, workdir)
-    trained = phase_train(rng, repo)
-    with tempfile.TemporaryDirectory() as workdir:
-        profiled = phase_profile_train(trained, repo, workdir)
-    b1_check = phase_check_b1(rng, trained)
-    b1_time = phase_time_b1(rng, trained, b1_check)
-    emit({"phase": "half_step_transfer", "transfer_s": b1_time["transfer_s"]})
-    phase_foldin(rng, trained)
-    with tempfile.TemporaryDirectory() as workdir:
-        phase_train_verb_and_serve(rng, trained, repo, workdir)
+    with pack_routes_of("train"):
+        trained = phase_train(rng, repo)
+    phase_pack_compare(trained["ratings"])
+    with pack_routes_of("train_checks"):
+        with tempfile.TemporaryDirectory() as workdir:
+            profiled = phase_profile_train(trained, repo, workdir)
+        b1_check = phase_check_b1(rng, trained)
+        b1_time = phase_time_b1(rng, trained, b1_check)
+        emit({"phase": "half_step_transfer", "transfer_s": b1_time["transfer_s"]})
+        phase_foldin(rng, trained)
+        with tempfile.TemporaryDirectory() as workdir:
+            phase_train_verb_and_serve(rng, trained, repo, workdir)
     stream_root = tempfile.TemporaryDirectory()
-    with tempfile.TemporaryDirectory() as workdir:
+    with pack_routes_of("store_follow_eval"), tempfile.TemporaryDirectory() as workdir:
         store = phase_store_path(rng, repo, workdir)
         # store_path's store as it stands, for the stream path's twin train
         shutil.copytree(os.path.join(workdir, "store"),
@@ -7144,38 +7548,44 @@ def main(argv: list[str] | None = None) -> int:
                 "item_factors": trained["model"].als.item_factors,
                 "iteration_s_median": trained["result"]["iteration_s_median"]}
     del trained
-    with tempfile.TemporaryDirectory() as workdir:
+    with pack_routes_of("templates_stream"), tempfile.TemporaryDirectory() as workdir:
         templates = phase_templates(rng, ratings, repo, workdir)
         streamed = phase_stream_path(ratings, resident, store, templates, repo, workdir,
                                      stream_root.name, args.seed)
-    with tempfile.TemporaryDirectory() as workdir:
+    with pack_routes_of("dist_train"), tempfile.TemporaryDirectory() as workdir:
         dist = phase_dist_train_path(ratings, store, repo, workdir,
                                      stream_root.name, args.seed)
     stream_root.cleanup()
     del resident
-    seq = phase_seq_data(ratings, repo)
-    with tempfile.TemporaryDirectory() as workdir:
-        dist_models = phase_dist_models_path(ratings, seq, repo, workdir, args.seed)
-    with tempfile.TemporaryDirectory() as workdir:
+    with pack_routes_of("dist_models"):
+        seq = phase_seq_data(ratings, repo)
+        with tempfile.TemporaryDirectory() as workdir:
+            dist_models = phase_dist_models_path(ratings, seq, repo, workdir, args.seed)
+    with pack_routes_of("classification"), tempfile.TemporaryDirectory() as workdir:
         classification = phase_classification(rng, args.seed, repo, workdir)
+        dist_classify = phase_dist_classify_path(classification.pop("handoff"), workdir,
+                                                 args.seed)
 
-    b3_check = phase_check_b3(args.seed)
-    b3_time = phase_time_b3(args.seed)
-    ncf_trained = phase_train_ncf(rng, ratings, repo)
-    with tempfile.TemporaryDirectory() as workdir:
-        ncf_serve = phase_serve_ncf(rng, ncf_trained, repo, workdir)
-        phase_serve_ncf_wide(rng, args.seed, repo, workdir)
-        phase_train_verb_ncf(rng, repo, workdir)
-    del ncf_trained
+    with pack_routes_of("ncf"):
+        b3_check = phase_check_b3(args.seed)
+        b3_time = phase_time_b3(args.seed)
+        ncf_trained = phase_train_ncf(rng, ratings, repo)
+        with tempfile.TemporaryDirectory() as workdir:
+            ncf_serve = phase_serve_ncf(rng, ncf_trained, repo, workdir)
+            phase_serve_ncf_wide(rng, args.seed, repo, workdir)
+            phase_train_verb_ncf(rng, repo, workdir)
+        del ncf_trained
 
     del ratings
-    flash_check = phase_check_flash(args.seed, seq)
-    flash_time = phase_time_flash(args.seed, seq)
-    seq_trained = phase_train_seq(seq)
-    with tempfile.TemporaryDirectory() as workdir:
-        seq_serve = phase_serve_seq(rng, seq_trained, repo, workdir)
-        phase_serve_seq_wide(args.seed, repo, workdir)
-        phase_train_verb_seq(rng, repo, workdir)
+    with pack_routes_of("sequence"):
+        flash_check = phase_check_flash(args.seed, seq)
+        flash_time = phase_time_flash(args.seed, seq)
+        seq_trained = phase_train_seq(seq)
+        with tempfile.TemporaryDirectory() as workdir:
+            seq_serve = phase_serve_seq(rng, seq_trained, repo, workdir)
+            phase_serve_seq_wide(args.seed, repo, workdir)
+            phase_train_verb_seq(rng, repo, workdir)
+    emit({"phase": "packs", "parts": PACKS})
 
     main_shape = next(s for s in stage1["shapes"]
                       if s["batch"] == 256 and s["block_topk"] == BLOCK_TOPK)
@@ -7287,6 +7697,7 @@ def main(argv: list[str] | None = None) -> int:
         row.setdefault("stream_path_launches", streamed["other_launches"].get(row["name"]))
         row.setdefault("dist_train_launches", dist["other_launches"].get(row["name"]))
         row["dist_models_launches"] = dist_models["launches"][row["name"]]
+        row["dist_classify_launches"] = dist_classify["launches"][row["name"]]
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {

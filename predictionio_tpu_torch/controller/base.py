@@ -127,8 +127,7 @@ class TrainContext:
     seconds of NCF's negative sampling and epoch permutations with the
     examples they produce or permute (``record_phase(name, seconds,
     rows)``).
-    ``mesh_shape`` is the engine.json's ``sparkConf["pio.mesh_shape"]``
-    (the classifiers, which train on one device, refuse an axis above 1).
+    ``mesh_shape`` is the engine.json's ``sparkConf["pio.mesh_shape"]``.
     ``run_key`` (a train from the store) keys the checkpoints by run, as
     the reference's ``RuntimeContext.checkpoint_manager`` does: an
     algorithm's go to ``checkpoint_dir/<name>-<run_key>``.
@@ -138,7 +137,8 @@ class TrainContext:
     trainer's telemetry journal (``journal``), ``pio.snapshot_*`` the
     replay read's snapshot, and the launch keys (``pio.coordinator``,
     ``pio.num_processes``, ``pio.process_id``, else the ``PIO_*`` env)
-    with ``pio.mesh_shape`` / ``pio.mesh_axes`` the ``mesh``."""
+    with ``pio.mesh_shape`` / ``pio.mesh_axes`` / ``pio.dcn_mesh_shape``
+    the ``mesh``."""
 
     device: Any = None
     checkpoint_dir: str | None = None
@@ -156,7 +156,8 @@ class TrainContext:
         without a coordinator), then lays ``pio.mesh_shape`` (default
         ``[-1, 1]``: every rank on ``data``; ``mesh_shape`` when set) over
         ``pio.mesh_axes`` (default ``("data", "model")``) on this
-        context's device. One process gets a 1 x 1 mesh. A failure
+        context's device, a hybrid mesh across hosts with
+        ``pio.dcn_mesh_shape``. One process gets a 1 x 1 mesh. A failure
         raises: a launch never degrades to one process."""
         if self._mesh is None:
             from predictionio_tpu_torch.parallel.distributed import (
@@ -248,15 +249,9 @@ def mesh_or_none(ctx):
 
 
 class Algorithm(Component, abc.ABC):
-    """Algorithm contract: train on prepared data, answer queries.
-
-    ``trains_on_mesh``: ``train`` spreads over ``ctx.mesh``, so a
-    multi-process launch may train it (the ALS, cooccurrence, NCF and
-    sequence templates); a launch of any other (the classifiers) raises
-    (ROADMAP.md slice 20)."""
+    """Algorithm contract: train on prepared data, answer queries."""
 
     supports_fold_in: bool = False
-    trains_on_mesh: bool = False
 
     @abc.abstractmethod
     def train(self, ctx: TrainContext, prepared_data): ...

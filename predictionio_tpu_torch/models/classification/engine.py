@@ -14,8 +14,9 @@ or entity properties (one-hot categories and numeric columns).
 - ``NaiveBayesAlgorithm.train`` and ``LogisticRegressionAlgorithm.train``
   run ``ops/classify.py`` on ``device`` (``cuda`` unless the caller names
   ``"cpu"``; without a card and without that request construction
-  raises). A ``pio.mesh_shape`` axis above 1 raises (ROADMAP.md slice
-  20), where the reference shards the examples over its mesh.
+  raises), over ``ctx.mesh`` as the reference's do: the examples
+  data-parallel over its ``data`` axis, so each rank of a multi-process
+  ``pio train`` trains its share; rank 0 persists the model.
 - ``predict`` is copied and serves on the host, as the reference's does
   (``model.inner.scores`` is numpy): one [1, D] x [D, C] product per
   query gains nothing on the card.
@@ -36,14 +37,11 @@ from predictionio_tpu_torch.controller.base import (
     EvalInfo,
     Preparator,
     SanityCheck,
+    mesh_or_none,
 )
 from predictionio_tpu_torch.data.aggregation import aggregate_properties
 from predictionio_tpu_torch.data.store import PEventStore, read_events
-from predictionio_tpu_torch.ops.classify import (
-    MESH_NOT_PORTED,
-    train_logistic_regression,
-    train_naive_bayes,
-)
+from predictionio_tpu_torch.ops.classify import train_logistic_regression, train_naive_bayes
 from predictionio_tpu_torch.ops.features import (
     BinaryVectorizer,
     NumericVectorizer,
@@ -217,19 +215,11 @@ class ClassifierModel:
 
 
 class _ClassifierBase(Algorithm):
-    """Trains on ``device``; serves on the host."""
+    """Trains on ``device`` over ``ctx.mesh``; serves on the host."""
 
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
         self.device = resolve_device(device)
-
-    @staticmethod
-    def _one_device(ctx) -> None:
-        """The reference trains data-parallel over a mesh; the port on
-        one device: a ``pio.mesh_shape`` axis above 1 raises."""
-        shape = getattr(ctx, "mesh_shape", None)
-        if shape is not None and any(int(a) > 1 for a in shape):
-            raise NotImplementedError(f"pio.mesh_shape {list(shape)}: {MESH_NOT_PORTED}")
 
     def predict(self, model: ClassifierModel, query) -> dict:
         if "text" in query:
@@ -260,12 +250,12 @@ class NaiveBayesAlgorithm(_ClassifierBase):
 
     def train(self, ctx, prepared) -> ClassifierModel:
         space, x, y = prepared
-        self._one_device(ctx)
         model = train_naive_bayes(
             x,
             y,
             len(space.classes),
             smoothing=self.params.get_or("smoothing", 1.0),
+            mesh=mesh_or_none(ctx),  # dp over examples
             device=self.device,
         )
         return ClassifierModel(space=space, inner=model)
@@ -277,7 +267,6 @@ class LogisticRegressionAlgorithm(_ClassifierBase):
 
     def train(self, ctx, prepared) -> ClassifierModel:
         space, x, y = prepared
-        self._one_device(ctx)
         model = train_logistic_regression(
             x,
             y,
@@ -285,6 +274,7 @@ class LogisticRegressionAlgorithm(_ClassifierBase):
             reg=self.params.get_or("reg", 1e-4),
             iterations=self.params.get_or("iterations", 100),
             learning_rate=self.params.get_or("learningRate", 0.1),
+            mesh=mesh_or_none(ctx),  # dp over examples
             device=self.device,
         )
         return ClassifierModel(space=space, inner=model)

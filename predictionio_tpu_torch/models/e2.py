@@ -8,7 +8,8 @@ Port of ``predictionio_tpu/models/e2.py``:
   ``"cpu"``);
 - ``MarkovChain``: the first-order transition model (host numpy, copied);
 - ``cross_validation_folds``: the k-fold splitter (copied);
-- ``kmeans``: ``ops/kmeans.py::kmeans_fit``, the Lloyd step on the card.
+- ``kmeans``: ``ops/kmeans.py::kmeans_fit``, the Lloyd step on the card
+  (with a ``mesh``, the rows over its ``data`` axis).
 
 ``CategoricalNBModel`` is copied; it serves on the host.
 """

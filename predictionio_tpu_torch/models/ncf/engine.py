@@ -156,8 +156,6 @@ class NCFAlgorithm(Algorithm):
     unless the caller names ``"cpu"``; without a card and without an
     explicit CPU request construction raises."""
 
-    trains_on_mesh = True
-
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
         self.device = resolve_device(device)

@@ -244,8 +244,6 @@ class SASRecAlgorithm(Algorithm):
     unless the caller names ``"cpu"``; without a card and without an
     explicit CPU request construction raises."""
 
-    trains_on_mesh = True
-
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
         self.device = resolve_device(device)

@@ -245,8 +245,6 @@ class CooccurrenceAlgorithm(Algorithm):
     construction raises.
     """
 
-    trains_on_mesh = True
-
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
         self.device = resolve_device(device)

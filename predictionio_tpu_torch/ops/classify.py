@@ -9,19 +9,32 @@ raise):
 - ``train_naive_bayes``: the count matrix is one product
   ``onehot(y).T @ x``; the smoothed log prior and log likelihood follow
   elementwise in float32.
-- ``train_logistic_regression``: full-batch ``mean CE(x @ w + b, y) +
-  reg * |w|^2`` minimised by ``ops/lbfgs.py``, the port of the
+- ``train_logistic_regression``: full-batch ``sum(CE(x @ w + b, y) * w)
+  / sum(w) + reg * |w|^2`` minimised by ``ops/lbfgs.py``, the port of the
   ``optax.lbfgs()`` the reference calls. ``x`` is uploaded once per call;
   every evaluation is two passes over it on the device (the logits, the
   weight gradient). ``learning_rate`` is accepted and unused, as on the
   reference's L-BFGS branch (its Adam branch serves only optax versions
   without ``lbfgs`` and is not ported).
 
-Without a mesh the reference's ``shard_examples`` weighs every example
-1, so its weighted means and masked counts are plain ones here. A
-``mesh`` spreads training over several devices, which the port does not
-do yet: it raises (ROADMAP.md slice 20). The model dataclasses are
-host numpy and copied.
+Both trainers take one path, the reference's: ``shard_examples`` puts
+the examples over the ``data`` axis of the ``mesh`` when that axis is
+above 1 (each rank holds its rows, zero-weight pad rows making ``n``
+divide the axis), else every example at weight 1 on ``device`` over a
+1-rank ``data`` mesh, whose ``all_reduce_sum`` is the identity. One
+``all_reduce_sum`` over ``("data",)`` joins the ranks' sums:
+
+- Naive Bayes: the weighted counts, class counts and ``w.sum()`` in one
+  all-reduce;
+- logistic regression: each evaluation's weighted NLL sum, its gradient
+  and ``w.sum()`` in one all-reduce; the ``reg`` term and its gradient
+  are added once, after it. Every rank then sees the same bits and takes
+  the same line-search decisions; the final parameters' checksum must
+  agree along the axis (``check_replicas_agree``) or the fit raises.
+
+The parameters are replicated; a ``model`` axis above 1 repeats the work
+on each model rank, as the reference's ``P("data")`` replication does.
+The model dataclasses are host numpy and copied.
 """
 
 from __future__ import annotations
@@ -33,19 +46,36 @@ import torch
 import torch.nn.functional as F
 
 from predictionio_tpu_torch.ops.lbfgs import lbfgs_minimize
+from predictionio_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_rows,
+    all_reduce_sum,
+    shard_examples,
+)
 from predictionio_tpu_torch.utils.device import resolve_device
 
-MESH_NOT_PORTED = (
-    "a device mesh spreads training over several devices, which the port "
-    "does not do yet for the classifiers and k-means (ROADMAP.md slice 20); "
-    "train on one device"
-)
+
+def data_mesh(mesh):
+    """``mesh`` when its ``data`` axis spreads examples (above 1), else
+    None: the trainer runs as on one device."""
+    return mesh if mesh is not None and mesh.axis_size("data") > 1 else None
 
 
-def refuse_mesh(mesh) -> None:
-    """Raise for a mesh: the port trains on one device."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+def example_mesh(mesh, device) -> Mesh:
+    """The mesh the trainers spread examples over: ``mesh`` when its
+    ``data`` axis is above 1, else a 1-rank ``data`` mesh on ``device``."""
+    return data_mesh(mesh) or Mesh(("data",), (1,), (0,), resolve_device(device))
+
+
+def check_replicas_agree(mesh, params, what: str) -> None:
+    """Raise unless every rank of the ``data`` axis holds the same bits
+    in ``params`` (a position-weighted checksum of their int32 views,
+    gathered along the axis)."""
+    bits = torch.cat([p.detach().reshape(-1) for p in params]).view(torch.int32).to(torch.int64)
+    checksum = (bits * torch.arange(1, bits.numel() + 1, device=bits.device)).sum()
+    sums = all_gather_rows(mesh, ("data",), checksum.reshape(1)).tolist()
+    if len(set(sums)) != 1:
+        raise RuntimeError(f"{what}: the data axis's replicas parted (checksums {sums})")
 
 
 def to_device(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -75,22 +105,22 @@ def train_naive_bayes(
     *,
     device=None,
 ) -> NaiveBayesModel:
-    """Multinomial NB on ``device``: the count matrix is one product."""
-    refuse_mesh(mesh)
-    dev = resolve_device(device)
-    x = to_device(x, torch.float32, dev)
+    """Multinomial NB on ``device`` (a spreading ``mesh``: its ranks'
+    devices): the count matrix is one product."""
     # multinomial NB is defined over counts; negative features would poison
     # the log with NaNs (the reference rejects them the same way)
-    if bool((x < 0).any()):
+    if bool((torch.as_tensor(x) < 0).any()):
         raise ValueError(
             "NaiveBayes requires non-negative features (multinomial counts);"
             " use logistic-regression for signed features"
         )
-    y = to_device(y, torch.long, dev)
-    onehot = F.one_hot(y, num_classes).to(x.dtype)                   # [n, C]
-    counts = onehot.T @ x                                            # [C, D]
-    class_counts = onehot.sum(dim=0)                                 # [C]
-    total = torch.tensor(float(x.shape[0]), dtype=x.dtype, device=dev)
+    x, y, w, mesh = shard_examples(example_mesh(mesh, device), x, y)
+    onehot = F.one_hot(y.long(), num_classes).to(x.dtype) * w[:, None]  # pad rows: 0
+    c, d = onehot.shape[1], x.shape[1]
+    summed = all_reduce_sum(mesh, ("data",), torch.cat([
+        (onehot.T @ x).reshape(-1), onehot.sum(dim=0), w.sum().reshape(1)]))
+    counts = summed[:c * d].view(c, d)
+    class_counts, total = summed[c * d:-1], summed[-1]
     log_prior = torch.log(class_counts + smoothing) - torch.log(
         total + num_classes * smoothing
     )
@@ -110,20 +140,31 @@ class LogisticRegressionModel:
         return e / e.sum(axis=-1, keepdims=True)
 
 
-def logistic_value_and_grad(x: torch.Tensor, y: torch.Tensor, reg: float):
-    """``value_and_grad([w, b])``: ``mean CE(x @ w + b, y) + reg * |w|^2``
-    (the reference's loss; ``F.cross_entropy`` is the same log-softmax
-    CE as ``optax.softmax_cross_entropy_with_integer_labels``) as a 0-d
-    tensor, and its gradient ``[dw, db]``, on ``x``'s device. One call
-    reads ``x`` twice: the logits, and the weight gradient."""
+def logistic_value_and_grad(mesh, x: torch.Tensor, y: torch.Tensor,
+                            weights: torch.Tensor, reg: float):
+    """``value_and_grad([w, b])`` over the ``data`` axis: the reference's
+    ``sum(nll * w) / sum(w) + reg * |w|^2`` (``F.cross_entropy`` is the
+    same log-softmax CE as ``optax.softmax_cross_entropy_with_integer_labels``)
+    as a 0-d tensor, and its gradient ``[dw, db]``. Each rank computes its
+    rows' weighted NLL sum and its gradient (two passes over ``x``: the
+    logits, the weight gradient); one all-reduce carries them and
+    ``sum(w)``; the ``reg`` term and its gradient are added after it,
+    once."""
+    total_w = weights.sum().reshape(1)
 
     def value_and_grad(params):
         w, b = (p.detach().requires_grad_() for p in params)
         with torch.enable_grad():
-            nll = F.cross_entropy(x @ w + b, y)
-            value = nll + reg * (w ** 2).sum()
-            grads = torch.autograd.grad(value, (w, b))
-        return value.detach(), list(grads)
+            nll = F.cross_entropy(x @ w + b, y, reduction="none")
+            nll_sum = (nll * weights).sum()
+            gw, gb = torch.autograd.grad(nll_sum, (w, b))
+        summed = all_reduce_sum(mesh, ("data",), torch.cat([
+            gw.reshape(-1), gb, nll_sum.detach().reshape(1), total_w]))
+        w, total = w.detach(), summed[-1]
+        value = summed[-2] / total + reg * (w ** 2).sum()
+        grads = [summed[:w.numel()].view_as(w) / total + 2.0 * reg * w,
+                 summed[w.numel():-2] / total]
+        return value, grads
 
     return value_and_grad
 
@@ -141,23 +182,23 @@ def train_logistic_regression(
     stats: dict | None = None,
     on_iterate=None,
 ) -> LogisticRegressionModel:
-    """Full-batch multinomial logistic regression on ``device`` through
-    L-BFGS, from zero weights, ``iterations`` updates.
+    """Full-batch multinomial logistic regression on ``device`` (a
+    spreading ``mesh``: its ranks' devices, the examples over ``data``)
+    through L-BFGS, from zero weights, ``iterations`` updates.
 
     ``stats`` (a dict) receives ``ops/lbfgs.py``'s ``LBFGSStats``
     fields; ``on_iterate(k, [w, b])`` sees the device parameters after
     update ``k``."""
     del learning_rate  # the L-BFGS line search sets every step
-    refuse_mesh(mesh)
-    dev = resolve_device(device)
-    x = to_device(x, torch.float32, dev)
-    y = to_device(y, torch.long, dev)
+    x, y, weights, mesh = shard_examples(example_mesh(mesh, device), x, y)
+    dev = mesh.device
+    value_and_grad = logistic_value_and_grad(mesh, x, y.long(), weights, reg)
     init = [
         torch.zeros((x.shape[1], num_classes), dtype=torch.float32, device=dev),
         torch.zeros((num_classes,), dtype=torch.float32, device=dev),
     ]
-    (w, b), run = lbfgs_minimize(logistic_value_and_grad(x, y, reg), init, iterations,
-                                 on_iterate=on_iterate)
+    (w, b), run = lbfgs_minimize(value_and_grad, init, iterations, on_iterate=on_iterate)
+    check_replicas_agree(mesh, (w, b), "logistic regression")
     if stats is not None:
         stats.update(asdict(run))
     return LogisticRegressionModel(w.cpu().numpy(), b.cpu().numpy())

@@ -2,19 +2,35 @@
 
 Copy of ``predictionio_tpu/ops/ragged.py``: COO interaction triples
 become padded CSR blocks of static shape, the layout the ALS half-step
-kernel (``ops/als_gram``) gathers from. Only the numpy path is kept; the
-reference's native C++ packer produces the same arrays (its own tests
-hold the two equal) and only packs faster on the host. One departure:
-the (row, time) order comes from two stable sorts (``_row_time_order``)
-instead of ``np.lexsort``; the permutation is the same.
+kernel (``ops/als_gram``) gathers from. As in the reference, the native
+C++ packer (``predictionio_tpu_torch/native``: a row-bucket counting
+sort) runs first, and the numpy path takes what it does not: the
+``PIO_NATIVE=0`` knob, integer times at 2^53 or beyond, input it
+rejects. A failed build of the native library raises
+(``native.NativeBuildError``) instead of falling back. ``PACK_ROUTES``
+counts each pack by route (``"native"`` / ``"numpy"``; an empty input
+packs neither way). One departure on the numpy path: the (row, time)
+order comes from two stable sorts (``_row_time_order``) instead of
+``np.lexsort``; the permutation is the same.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from predictionio_tpu_torch import native
+
+#: packs so far, by route: "native" (the C++ packer) or "numpy"
+PACK_ROUTES: Counter = Counter()
+
+
+def pack_routes() -> dict:
+    """``{"native": packs, "numpy": packs}`` so far."""
+    return {"native": PACK_ROUTES["native"], "numpy": PACK_ROUTES["numpy"]}
 
 
 @dataclass
@@ -112,6 +128,17 @@ def pack_padded_csr(
     values = np.zeros((padded_rows, length), dtype=np.float32)
     mask = np.zeros((padded_rows, length), dtype=np.float32)
 
+    # the native pack: a row-bucket counting sort, O(n) against two sorts
+    truncated = native.pack_padded_csr_native(
+        rows, cols, vals, times, num_rows, length, padded_rows, num_cols,
+        indices, values, mask,
+    )
+    if truncated is not None:
+        PACK_ROUTES["native"] += 1
+        return PaddedCSR(indices=indices, values=values, mask=mask, num_rows=num_rows,
+                         num_cols=num_cols, truncated=truncated)
+
+    PACK_ROUTES["numpy"] += 1
     order = _row_time_order(rows, None if times is None else np.asarray(times))
     rows, cols, vals = rows[order], cols[order], vals[order]
 

@@ -26,8 +26,13 @@ in a ``torch.distributed`` process group:
   ranks as the reference's ``_resolve_wildcard`` does. A shape needing
   more ranks than the launch has raises; so does one leaving a rank out
   (an idle rank would hang its peers' collectives). ``dcn_mesh_shape``
-  (multi-slice hybrid meshes) raises ``NotImplementedError``: ROADMAP.md
-  slice 20.
+  builds the reference's hybrid mesh (``hybrid_rank_grid``): the global
+  axis sizes are the elementwise product of the two shapes, and each
+  granule's ranks form a block of the grid. The granule is the host (the
+  ranks ``init_distributed`` found under one ``socket.gethostname()``),
+  where the reference takes the slice, or the process on platforms
+  without slices; the bad shapes raise the reference's texts, a rank
+  standing for its "device".
 - ``host_local_batch``: each rank passes the rows it loaded and gets
   them back as its shard, on its device; the row counts must agree
   along the sharded axis.
@@ -84,14 +89,6 @@ def launch_process_id(runtime_conf=None) -> int:
     return int(os.environ.get("PIO_PROCESS_ID", "0") or 0)
 
 
-def launch_num_processes(runtime_conf=None) -> int:
-    """The launch's process count under the launcher contract
-    (``pio.num_processes``, else ``PIO_NUM_PROCESSES``), 1 standalone."""
-    if runtime_conf and runtime_conf.get("pio.num_processes") is not None:
-        return int(runtime_conf["pio.num_processes"])
-    return int(os.environ.get("PIO_NUM_PROCESSES", "1") or 1)
-
-
 def strip_launch_conf(runtime_conf: dict | None) -> dict:
     """Drop launch-scoped keys before persisting runtime conf."""
     return {
@@ -110,8 +107,8 @@ def world_size() -> int:
 
 def distributed_info() -> dict | None:
     """``{"backend", "rule", "rank", "world_size", "local_rank",
-    "local_size", "device"}`` of the group ``init_distributed`` brought
-    up, or None."""
+    "local_size", "device", "hosts"}`` of the group ``init_distributed``
+    brought up (``hosts``: each rank's host name), or None."""
     return None if _INFO is None else dict(_INFO)
 
 
@@ -195,7 +192,7 @@ def init_distributed(
     _INFO = {
         "backend": backend, "rule": BACKEND_RULE, "rank": process_id,
         "world_size": num_processes, "local_rank": local_rank,
-        "local_size": local_size, "device": str(dev),
+        "local_size": local_size, "device": str(dev), "hosts": hosts,
     }
     logger.info(
         "distributed runtime up: process %d/%d via tcp://%s on %s, backend %s (%s)",
@@ -223,22 +220,25 @@ def build_mesh(
 
     ``mesh_shape`` lists each axis's size; one ``-1`` entry absorbs the
     remaining ranks. Rank ``r`` sits at the row-major coordinates of ``r``
-    (the reference's process-contiguous device order). ``device`` is
-    this rank's device when no group is up (``init_distributed`` chose it
-    otherwise)."""
+    (the reference's process-contiguous device order). ``dcn_mesh_shape``,
+    when given, is the per-axis factor across hosts: ``mesh_shape`` is
+    then each host's shape and the ranks lie as ``hybrid_rank_grid`` lays
+    them. ``device`` is this rank's device when no group is up
+    (``init_distributed`` chose it otherwise)."""
     from predictionio_tpu_torch.parallel.mesh import Mesh
 
-    if dcn_mesh_shape is not None:
-        raise NotImplementedError(
-            "dcn_mesh_shape (a hybrid mesh across slices) is not ported yet: "
-            "ROADMAP.md slice 20"
-        )
     if len(mesh_shape) != len(axes):
         raise ValueError(
             f"mesh_shape {mesh_shape} and mesh_axes {axes} have different ranks"
         )
     world = world_size()
-    resolved = _resolve_wildcard(mesh_shape, world)
+    grid = None
+    if dcn_mesh_shape is not None:
+        hosts = _INFO["hosts"] if _INFO is not None else [socket.gethostname()]
+        grid = hybrid_layout(mesh_shape, axes, dcn_mesh_shape, hosts)
+        resolved = list(grid.shape)
+    else:
+        resolved = _resolve_wildcard(mesh_shape, world)
     total = _prod(resolved)
     if total > world:
         raise ValueError(
@@ -260,9 +260,74 @@ def build_mesh(
 
         dev = resolve_device(device)  # one process: the caller's device as named
     mesh = Mesh.build(tuple(axes), tuple(resolved), dev,
-                      None if _INFO is None else _INFO["backend"])
-    logger.info("mesh: %s over %d rank(s) on %s", dict(zip(axes, resolved)), total, dev)
+                      None if _INFO is None else _INFO["backend"], grid)
+    logger.info("mesh: %s over %d rank(s) on %s%s", dict(zip(axes, resolved)), total, dev,
+                "" if grid is None else f", hybrid (dcn {list(dcn_mesh_shape)})")
     return mesh
+
+
+def hybrid_layout(mesh_shape: list[int], axes: tuple[str, ...], dcn_mesh_shape: list[int],
+                  hosts: list[str]):
+    """The rank grid of the hybrid mesh ``mesh_shape`` x ``dcn_mesh_shape``
+    over a launch whose rank ``r`` runs on ``hosts[r]``: the reference's
+    checks (``predictionio_tpu/parallel/distributed.py:144-182``, a rank
+    for each device, with its texts), then ``hybrid_rank_grid``."""
+    if len(dcn_mesh_shape) != len(axes):
+        raise ValueError(
+            f"dcn_mesh_shape {dcn_mesh_shape} and mesh_axes {axes} have "
+            "different ranks"
+        )
+    world = len(hosts)
+    dcn_total = _prod(dcn_mesh_shape)
+    if world % dcn_total:
+        raise ValueError(
+            f"dcn_mesh_shape {dcn_mesh_shape} (product {dcn_total}) does "
+            f"not divide the {world}-device fleet"
+        )
+    resolved = _resolve_wildcard(mesh_shape, world // dcn_total)
+    total = _prod(resolved) * dcn_total
+    if total != world:
+        raise ValueError(
+            f"mesh shape {resolved} x dcn {dcn_mesh_shape} covers {total} "
+            f"device(s) but the fleet has {world}; a hybrid mesh "
+            "must use every device (use -1 wildcards to auto-fill)"
+        )
+    return hybrid_rank_grid(resolved, dcn_mesh_shape, hosts)
+
+
+def hybrid_rank_grid(mesh_shape: list[int], dcn_mesh_shape: list[int], hosts: list[str]):
+    """``jax.experimental.mesh_utils.create_hybrid_device_mesh(mesh_shape,
+    dcn_mesh_shape, process_is_granule=True)`` over ranks, with the host
+    as the granule: the ranks grouped by ``hosts[r]``, the groups in
+    order of their lowest rank and each group's ranks in rank order; each
+    group reshaped to ``mesh_shape``, the groups laid out over
+    ``dcn_mesh_shape``, the blocks joined (``np.block``). Process 0 lands
+    at position 0. Raises the reference's errors for a host count other
+    than the DCN product and a host whose ranks do not fill
+    ``mesh_shape``."""
+    import numpy as np
+
+    granules: dict[str, list[int]] = {}
+    for rank, host in enumerate(hosts):
+        granules.setdefault(host, []).append(rank)
+    ordered = list(granules.values())
+    if _prod(dcn_mesh_shape) != len(ordered):
+        raise ValueError(
+            f"Number of slices {len(ordered)} must equal the product of "
+            f"dcn_mesh_shape {dcn_mesh_shape}"
+        )
+    shape = tuple(int(s) for s in mesh_shape)
+    per_granule = []
+    for ranks in ordered:
+        if _prod(shape) != len(ranks):
+            raise ValueError(
+                f"Number of devices {len(ranks)} must equal the product "
+                f"of mesh_shape {shape}"
+            )
+        per_granule.append(np.array(ranks).reshape(shape))
+    granule_mesh = np.arange(len(ordered)).reshape(dcn_mesh_shape)
+    blocks = np.vectorize(lambda i: per_granule[i], otypes=[object])(granule_mesh)
+    return np.block(blocks.tolist())
 
 
 def host_local_batch(mesh, axis: str, local_arrays):

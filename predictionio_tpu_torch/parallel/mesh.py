@@ -5,11 +5,19 @@ axes ``("data", "model")``; batch-parallel arrays shard their leading dim
 over ``data``, model-parallel factor blocks over ``model``. A JAX mesh is
 a grid of devices in one program; here each point of the grid is one
 rank (one process, one device), and ``Mesh`` holds the axis names, the
-shape, this rank's coordinates and one process subgroup per axis (the
-ranks that differ only along it). Every rank builds every subgroup in
-the same order, as ``torch.distributed.new_group`` requires. A 1 x 1
-mesh (one process, no group) has no subgroups, and each collective is
-then the identity, so the single-process paths run as they always did.
+shape, the rank grid (the process rank at each mesh position), this
+rank's coordinates and one process subgroup per axis (the ranks that
+differ only along it). Every rank builds every subgroup in the same
+order, as ``torch.distributed.new_group`` requires. A 1 x 1 mesh (one
+process, no group) has no subgroups, and each collective is then the
+identity, so the single-process paths run as they always did.
+
+The grid need not be row-major: a hybrid mesh (``build_mesh``'s
+``dcn_mesh_shape``) lays each host's ranks out as a block. A process
+group numbers its members by process rank, not by mesh position, so
+every collective that orders rows or chunks (``all_gather_rows``,
+``reduce_scatter_rows``, ``all_to_all``) maps between the two itself:
+rows and chunks go in mesh order whatever the grid.
 
 The collectives the ALS half-steps use (reference: ``jax.lax`` inside
 ``shard_map``): ``all_gather_rows`` (``all_gather`` over one or more
@@ -53,9 +61,10 @@ Each collective that crosses ranks adds one to ``CALLS["backend:name"]``
 ``chip_smoke.py``'s dist_train part prints per rank.
 
 ``local_mesh``, ``require_axes``, ``fetch_global`` (the all-gather of
-row shards), ``put_global`` (this rank's slice of a host array every
-rank holds), ``shard_rows`` (zero-padded to the axis size, then this
-rank's slice) and ``check_steps_ran`` follow the reference.
+row shards), ``put_global`` (this rank's slice of an array every rank
+holds), ``shard_rows`` (zero-padded to the axis size, then this
+rank's slice), ``shard_examples`` (``shard_rows`` with zero-weight pad
+rows) and ``check_steps_ran`` follow the reference.
 ``seq_parallel_shard_map`` is the reference's ``shard_map`` specs as a
 per-rank contract (each rank runs the body on its ``(data, seq)``
 blocks).
@@ -83,7 +92,8 @@ class Mesh:
     """A ``(data, model)``-style grid of ranks: ``axis_names``, ``sizes``,
     this rank's ``coords``, its ``device`` and, per axis of size above 1,
     the process subgroup along it (``groups``). ``backend`` is the
-    group's (None without a process group)."""
+    group's (None without a process group); ``grid`` the process rank at
+    each mesh position (default row-major)."""
 
     axis_names: tuple[str, ...]
     sizes: tuple[int, ...]
@@ -94,17 +104,26 @@ class Mesh:
     #: per axis of size above 1, the process ranks of this rank's subgroup
     #: in axis order (a point-to-point peer is named by its process rank)
     group_ranks: dict = field(default_factory=dict, repr=False)
+    grid: np.ndarray | None = field(default=None, repr=False)
+
+    def __post_init__(self):
+        if self.grid is None:
+            self.grid = np.arange(self.size).reshape(self.sizes)
 
     @classmethod
     def build(cls, axes: tuple[str, ...], sizes: tuple[int, ...], device,
-              backend: str | None) -> "Mesh":
-        """The mesh of this rank (row-major coordinates of its rank); the
-        subgroups are made on every rank in one order."""
+              backend: str | None, grid=None) -> "Mesh":
+        """The mesh of this rank over ``grid`` (the process rank at each
+        position; default row-major, rank ``r`` at the row-major
+        coordinates of ``r``); the subgroups are made on every rank in
+        one order."""
         dist = torch.distributed
         world = dist.get_world_size() if backend is not None else 1
         rank = dist.get_rank() if backend is not None else 0
-        grid = np.arange(world).reshape(sizes)
-        coords = tuple(int(c) for c in np.unravel_index(rank, sizes))
+        grid = (np.arange(world) if grid is None else np.asarray(grid)).reshape(sizes)
+        if sorted(grid.ravel().tolist()) != list(range(world)):
+            raise ValueError(f"rank grid {grid.tolist()} does not hold each of {world} ranks once")
+        coords = tuple(int(c) for c in np.argwhere(grid == rank)[0])
         groups, group_ranks = {}, {}
         for a, axis in enumerate(axes):
             if sizes[a] == 1:
@@ -117,7 +136,7 @@ class Mesh:
                 if rank in members:
                     groups[axis], group_ranks[axis] = group, members
         return cls(tuple(axes), tuple(int(s) for s in sizes), coords,
-                   torch.device(device), backend, groups, group_ranks)
+                   torch.device(device), backend, groups, group_ranks, grid)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -129,7 +148,9 @@ class Mesh:
 
     @property
     def rank(self) -> int:
-        """This rank's position in the mesh (row-major): its process rank."""
+        """This rank's position in the mesh (row-major over its
+        coordinates). It is the process rank only on a row-major grid;
+        process 0 is at position 0 of every grid ``build_mesh`` makes."""
         return int(np.ravel_multi_index(self.coords, self.sizes))
 
     def axis_size(self, axis: str) -> int:
@@ -139,17 +160,35 @@ class Mesh:
         return self.coords[self.axis_names.index(axis)] if axis in self.axis_names else 0
 
     def _group(self, axes: tuple[str, ...]):
-        """``(process group, ranks)`` of a collective over ``axes``: the
-        axis's subgroup, the whole group for every axis of size above 1,
-        or ``(None, 1)`` when only this rank takes part."""
+        """``(process group, members)`` of a collective over ``axes``: the
+        axis's subgroup, or the whole group for every axis of size above
+        1, with its members' process ranks in mesh order; ``(None,
+        [rank])`` when only this rank takes part."""
         live = tuple(a for a in self.axis_names if a in axes and self.axis_size(a) > 1)
         if not live:
-            return None, 1
+            return None, [None]
         if len(live) == 1:
-            return self.groups[live[0]], self.axis_size(live[0])
+            return self.groups[live[0]], self.group_ranks[live[0]]
         if set(live) != {a for a in self.axis_names if self.axis_size(a) > 1}:
             raise ValueError(f"a collective over {axes} of a {self.shape} mesh")
-        return torch.distributed.group.WORLD, self.size
+        return torch.distributed.group.WORLD, [int(r) for r in self.grid.ravel()]
+
+
+def _group_order(members: list[int]) -> list[int] | None:
+    """For each mesh position of ``members`` (process ranks in mesh
+    order), its rank in the process group, which numbers its members in
+    ascending process rank; None where the two orders agree."""
+    ranked = sorted(members)
+    order = [ranked.index(m) for m in members]
+    return None if order == list(range(len(members))) else order
+
+
+def _inverse(order: list[int]) -> list[int]:
+    """The mesh position of each group rank (``order`` inverted)."""
+    inv = [0] * len(order)
+    for position, group_rank in enumerate(order):
+        inv[group_rank] = position
+    return inv
 
 
 def world_mesh() -> Mesh:
@@ -216,12 +255,17 @@ def _transport(mesh: Mesh, name: str, tensors: list[torch.Tensor]) -> tuple[list
 def all_gather_rows(mesh: Mesh, axes: tuple[str, ...], local: torch.Tensor) -> torch.Tensor:
     """Every rank's ``local`` rows along ``axes``, concatenated in mesh
     order on dim 0 (``jax.lax.all_gather(..., tiled=True)``)."""
-    group, n = mesh._group(axes)
+    group, members = mesh._group(axes)
     if group is None:
         return local
+    n = len(members)
     (x,), home = _transport(mesh, "all_gather", [local.contiguous()])
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
     torch.distributed.all_gather_into_tensor(out, x, group=group)
+    order = _group_order(members)
+    if order is not None:  # the chunks came in group-rank order
+        out = out.unflatten(0, (n, x.shape[0]))[torch.tensor(order, device=out.device)]
+        out = out.flatten(0, 1)
     return out.to(home)
 
 
@@ -229,14 +273,19 @@ def reduce_scatter_rows(mesh: Mesh, axes: tuple[str, ...], x: torch.Tensor) -> t
     """The sum of every rank's ``x`` along ``axes``, split on dim 0 into
     as many chunks as ranks; this rank keeps the chunk of its position
     (``jax.lax.psum_scatter(..., scatter_dimension=0, tiled=True)``)."""
-    group, n = mesh._group(axes)
+    group, members = mesh._group(axes)
     if group is None:
         return x
+    n = len(members)
     if x.shape[0] % n:
         raise ValueError(f"{x.shape[0]} rows do not split over {n} ranks")
     (y,), home = _transport(mesh, "reduce_scatter", [x.contiguous()])
     out = torch.empty((y.shape[0] // n,) + tuple(y.shape[1:]), dtype=y.dtype, device=y.device)
-    torch.distributed.reduce_scatter(out, list(y.chunk(n)), group=group)
+    chunks = list(y.chunk(n))  # chunk p for mesh position p
+    order = _group_order(members)
+    if order is not None:      # the list goes out in group-rank order
+        chunks = [chunks[p] for p in _inverse(order)]
+    torch.distributed.reduce_scatter(out, chunks, group=group)
     return out.to(home)
 
 
@@ -313,36 +362,61 @@ def fetch_global(mesh: Mesh, local: torch.Tensor, axis: str = "data") -> np.ndar
 
 
 def put_global(mesh: Mesh, a, axis: str | None = "data") -> torch.Tensor:
-    """This rank's slice of a host array every rank holds IN FULL (each
-    read the same event store / initialized from the same seed), on
-    ``mesh.device``: rows ``[i * n / s, (i + 1) * n / s)`` for position
-    ``i`` of ``s`` along ``axis``; ``axis=None`` places the whole array
-    (replicated)."""
-    host = np.ascontiguousarray(a)
+    """This rank's slice of an array every rank holds IN FULL (each read
+    the same event store / initialized from the same seed; host numpy or
+    a tensor, sliced where it lies), on ``mesh.device``: rows ``[i * n /
+    s, (i + 1) * n / s)`` for position ``i`` of ``s`` along ``axis``;
+    ``axis=None`` places the whole array (replicated)."""
+    full = a if isinstance(a, torch.Tensor) else np.ascontiguousarray(a)
     if axis is not None:
         require_axes(mesh, (axis,), "put_global")
         s, i = mesh.axis_size(axis), mesh.axis_index(axis)
-        if host.shape[0] % s:
-            raise ValueError(f"{host.shape[0]} rows do not shard over the {s}-way {axis} axis")
-        per = host.shape[0] // s
-        host = host[i * per:(i + 1) * per]
-    return torch.from_numpy(np.ascontiguousarray(host)).to(mesh.device)
+        if full.shape[0] % s:
+            raise ValueError(f"{full.shape[0]} rows do not shard over the {s}-way {axis} axis")
+        per = full.shape[0] // s
+        full = full[i * per:(i + 1) * per]
+    if isinstance(full, torch.Tensor):
+        return full.to(mesh.device)
+    return torch.from_numpy(np.ascontiguousarray(full)).to(mesh.device)
 
 
 def shard_rows(mesh: Mesh, *arrays, axis: str = "data"):
-    """Pad rows to the axis size, then this rank's slice of each."""
+    """Pad rows (zeros) to the axis size, then this rank's slice of each
+    (host numpy or tensors, as ``put_global`` takes them)."""
     require_axes(mesh, (axis,), "shard_rows")
     n_shards = mesh.axis_size(axis)
     out = []
     for arr in arrays:
-        arr = np.asarray(arr)
+        arr = arr if isinstance(arr, torch.Tensor) else np.asarray(arr)
         rows = arr.shape[0]
         padded = -(-rows // n_shards) * n_shards
-        if padded != rows:
+        if padded != rows and isinstance(arr, torch.Tensor):
+            arr = torch.cat([arr, arr.new_zeros((padded - rows,) + tuple(arr.shape[1:]))])
+        elif padded != rows:
             pad_width = [(0, padded - rows)] + [(0, 0)] * (arr.ndim - 1)
             arr = np.pad(arr, pad_width)
         out.append(put_global(mesh, arr, axis))
     return out[0] if len(out) == 1 else tuple(out)
+
+
+def shard_examples(mesh: Mesh | None, x, y):
+    """The full-batch trainers' data-parallel entry (Naive Bayes,
+    logistic regression): ``(x, y, w, mesh)``, this rank's rows of the
+    examples over ``data`` (f32 ``x``, ``y`` as given; host numpy or
+    tensors) on ``mesh.device`` with their weights ``w``, zero for the
+    pad rows that make ``n`` divide the axis (so weighted means and
+    masked counts stay exact). With no mesh, or a mesh without a
+    ``data`` axis, the host arrays and unit weights, and ``mesh`` comes
+    back None: the run is unsharded."""
+    n = x.shape[0] if isinstance(x, torch.Tensor) else np.asarray(x).shape[0]
+    weights = np.ones(n, dtype=np.float32)
+    if mesh is not None and "data" not in mesh.axis_names:
+        mesh = None
+    if mesh is None:
+        return np.asarray(x), np.asarray(y), weights, None
+    x = x.to(torch.float32) if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+    x_t, y_t, w_t = shard_rows(mesh, x, y, weights)
+    return x_t, y_t, w_t, mesh
 
 
 def check_steps_ran(steps: int, n_examples: int, data_axis_size: int, what: str):
@@ -375,17 +449,24 @@ def all_gather(mesh: Mesh, axis: str, x: torch.Tensor, dim: int = 0) -> torch.Te
 
 def _all_to_all(mesh: Mesh, axis: str, x: torch.Tensor, split_axis: int,
                 concat_axis: int) -> torch.Tensor:
-    group, n = mesh._group((axis,))
+    group, members = mesh._group((axis,))
+    n = len(members)
     if x.shape[split_axis] % n:
         raise ValueError(
             f"all_to_all: dim {split_axis} of {tuple(x.shape)} does not split over "
             f"the {n}-way {axis} axis"
         )
-    stacked = torch.stack(_as_bytes(x).chunk(n, dim=split_axis)).contiguous()
-    (y,), home = _transport(mesh, "all_to_all", [stacked])
+    chunks = _as_bytes(x).chunk(n, dim=split_axis)  # chunk p to mesh position p
+    order = _group_order(members)
+    if order is not None:  # sent and received in group-rank order
+        chunks = [chunks[p] for p in _inverse(order)]
+    (y,), home = _transport(mesh, "all_to_all", [torch.stack(chunks).contiguous()])
     out = torch.empty_like(y)
     torch.distributed.all_to_all_single(out, y, group=group)
-    return torch.cat(out.to(home).unbind(0), dim=concat_axis).to(x.dtype)
+    got = out.to(home).unbind(0)
+    if order is not None:
+        got = [got[g] for g in order]
+    return torch.cat(got, dim=concat_axis).to(x.dtype)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -417,8 +498,8 @@ def all_to_all(mesh: Mesh, axis: str, x: torch.Tensor, split_axis: int,
 
 
 def _shift(mesh: Mesh, axis: str, x: torch.Tensor, offset: int) -> torch.Tensor:
-    group, n = mesh._group((axis,))
-    ranks, me = mesh.group_ranks[axis], mesh.axis_index(axis)
+    group, ranks = mesh._group((axis,))
+    n, me = len(ranks), mesh.axis_index(axis)
     (y,), home = _transport(mesh, "ppermute", [_as_bytes(x).contiguous()])
     out = torch.empty_like(y)
     dist = torch.distributed

@@ -252,11 +252,40 @@ def cmd_eventserver(args: argparse.Namespace) -> int:
     return 0
 
 
-def _launch_conf(args: argparse.Namespace) -> dict:
-    """The ``pio.*`` launch keys the train flags set (``--coordinator``,
-    ``--num-processes``, ``--process-id``); unset flags leave the
-    engine.json's ``sparkConf`` and the ``PIO_*`` env to speak."""
+def _parse_passthrough(tokens: list[str]) -> dict:
+    """``-- --mesh-shape 2,4 --key value`` -> runtime conf entries (the
+    reference's ``tools/engine_commands.py::_parse_passthrough``): each
+    ``--key value`` becomes ``pio.key`` (dashes to underscores), a flag
+    without a value ``"true"``; ``mesh_shape`` and ``dcn_mesh_shape``
+    are lists of ints, ``mesh_axes`` a list of names."""
     conf = {}
+    i = 0
+    while i < len(tokens):
+        tok = tokens[i]
+        if tok.startswith("--"):
+            key = tok[2:].replace("-", "_")
+            if i + 1 < len(tokens) and not tokens[i + 1].startswith("--"):
+                value = tokens[i + 1]
+                i += 1
+            else:
+                value = "true"
+            if key in ("mesh_shape", "dcn_mesh_shape"):
+                conf[f"pio.{key}"] = [int(x) for x in value.split(",")]
+            elif key == "mesh_axes":
+                conf["pio.mesh_axes"] = value.split(",")
+            else:
+                conf[f"pio.{key}"] = value
+        i += 1
+    return conf
+
+
+def _launch_conf(args: argparse.Namespace) -> dict:
+    """The runtime conf a train's command line sets: the entries after
+    ``--`` (``_parse_passthrough``), then the ``pio.*`` launch keys of
+    the train flags (``--coordinator``, ``--num-processes``,
+    ``--process-id``); unset flags leave the engine.json's ``sparkConf``
+    and the ``PIO_*`` env to speak."""
+    conf = _parse_passthrough(args.passthrough)
     for key, value in (("pio.coordinator", args.coordinator),
                        ("pio.num_processes", args.num_processes),
                        ("pio.process_id", args.process_id)):
@@ -631,6 +660,9 @@ def build_parser() -> argparse.ArgumentParser:
                          " pio.process_id, else $PIO_PROCESS_ID); rank 0 records"
                          " the instance and writes the model")
     add_logging_arguments(train_p)
+    train_p.add_argument("passthrough", nargs="*",
+                         help="runtime conf after --, e.g. -- --mesh-shape 2,1"
+                         " --dcn-mesh-shape 1,1 --mesh-axes data,model")
     train_p.set_defaults(func=cmd_train)
 
     deploy = verbs.add_parser("deploy", help="serve /queries.json for a trained engine")

@@ -71,7 +71,6 @@ from predictionio_tpu_torch.data.storage.base import (
 from predictionio_tpu_torch.obs.trace import global_tracer
 from predictionio_tpu_torch.parallel.distributed import (
     LAUNCH_SCOPED_ENV,
-    launch_num_processes,
     launch_process_id,
     strip_launch_conf,
 )
@@ -153,25 +152,11 @@ def build_components(variant: EngineVariant, *, device=None, events_path: str | 
     return template, datasource, preparator, algorithm
 
 
-def refuse_unported_launch(runtime_conf: dict, algorithm) -> None:
-    """A multi-process launch of an algorithm that does not train over the
-    mesh (``Algorithm.trains_on_mesh``: the classifiers) raises, rather
-    than train the whole model on every rank."""
-    n = launch_num_processes(runtime_conf)
-    if n > 1 and not getattr(algorithm, "trains_on_mesh", False):
-        raise NotImplementedError(
-            f"a {n}-process launch of {type(algorithm).__name__} is not ported yet "
-            "(the classifiers' mesh is ROADMAP.md slice 20); train it in one process"
-        )
-
-
 def train_model(ctx: TrainContext, datasource, preparator, algorithm, *,
                 skip_sanity_check: bool = False, timings: dict | None = None):
     """Read -> sanity check -> prepare -> ``Algorithm.train``; the stage
     seconds land in ``timings`` (``read_s``, ``prepare_s``, ``train_s``)
-    when given. A multi-process launch of an algorithm that does not
-    train over the mesh raises first (``refuse_unported_launch``)."""
-    refuse_unported_launch(getattr(ctx, "runtime_conf", None) or {}, algorithm)
+    when given."""
     t0 = time.perf_counter()
     data = datasource.read_training(ctx)
     if not skip_sanity_check:

@@ -58,6 +58,7 @@ from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage.base import App
 from predictionio_tpu_torch.models import classification
 from predictionio_tpu_torch.ops import classify, features
+from predictionio_tpu_torch.parallel.mesh import local_mesh
 from predictionio_tpu_torch.tools import cli
 from predictionio_tpu_torch.workflow.core_workflow import load_instance_model, run_evaluation
 from test_torch_store_train import _serve, basedir, fill_store, write_json  # noqa: F401
@@ -217,9 +218,16 @@ def test_naive_bayes_refuses_negative_features_and_a_mesh():
     with pytest.raises(ValueError) as got:
         classify.train_naive_bayes(x, y, 2, device="cpu")
     assert str(got.value) == str(want.value)
+    # a mesh of one rank along data trains as one device does (the
+    # sharded fits are test_torch_classify_mesh.py's)
+    one = local_mesh(device="cpu")
+    with pytest.raises(ValueError) as on_mesh:
+        classify.train_naive_bayes(x, y, 2, mesh=one, device="cpu")
+    assert str(on_mesh.value) == str(want.value)
     for train in (classify.train_naive_bayes, classify.train_logistic_regression):
-        with pytest.raises(NotImplementedError, match="slice 20"):
-            train(np.abs(x), y, 2, mesh=object(), device="cpu")
+        got, alone = (train(np.abs(x), y, 2, mesh=m, device="cpu") for m in (one, None))
+        for name, value in vars(got).items():
+            np.testing.assert_array_equal(value, getattr(alone, name))
 
 
 @pytest.mark.parametrize("case", ["separable-60", "ragged-40", "sms-100"])
@@ -336,7 +344,8 @@ def test_a_mesh_is_refused(stores):
     prepared = template.preparator_class(ep.preparator_params).prepare(None, data)
     for name in ("naive-bayes", "logistic-regression"):
         algo = template.bind(name).algorithm_class(Params({}), device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 20"):
+        # two ranks along data: a launch of one process cannot fill it
+        with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
             algo.train(TrainContext(device="cpu", mesh_shape=[2, 1]), prepared)
     model = template.algorithm_class(Params({}), device="cpu").train(
         TrainContext(device="cpu", mesh_shape=[-1, 1]), prepared)

@@ -3,9 +3,9 @@
 
 In one process: the launch helpers equal the reference's, the default
 mesh is 1 x 1 and its collectives are the identity, and the shapes the
-port refuses raise (more ranks than the launch has, a rank left out,
-``dcn_mesh_shape``; sequence-parallel attention on a mesh without the
-axis, with the reference's text). Across processes:
+port refuses raise (more ranks than the launch has, a rank left out;
+sequence-parallel attention on a mesh without the axis, with the
+reference's text; the hybrid meshes are ``test_torch_hybrid_mesh.py``'s). Across processes:
 ``run_workers`` launches gloo workers of the port under the launch
 contract (``PIO_COORDINATOR`` / ``PIO_NUM_PROCESSES`` / ``PIO_PROCESS_ID``)
 with a timeout that kills every worker, and the collectives, the mesh's
@@ -86,8 +86,6 @@ def test_launch_helpers_equal_the_reference(monkeypatch):
     monkeypatch.setenv("PIO_PROCESS_ID", "3")
     monkeypatch.setenv("PIO_NUM_PROCESSES", "4")
     assert distributed.launch_process_id() == jax_distributed.launch_process_id() == 3
-    assert distributed.launch_num_processes() == 4
-    assert distributed.launch_num_processes({"pio.num_processes": 2}) == 2
     for shape, n in (([-1, 1], 8), ([2, -1], 8), ([4, 2], 8), ([-1, 3], 2)):
         assert distributed._resolve_wildcard(shape, n) == \
             jax_distributed._resolve_wildcard(shape, n)
@@ -214,13 +212,9 @@ def test_mesh_refusals():
     mesh.check_steps_ran(1, 3, 8, "rating")
 
 
-def test_dcn_mesh_shape_raises():
-    """Hybrid multi-slice meshes wait for slice 20; sequence parallelism
-    over an axis the mesh does not bind fails first with the reference's
-    unbound-axis error."""
-    with pytest.raises(NotImplementedError, match="slice 20"):
-        distributed.build_mesh([-1, 1], ("data", "model"), dcn_mesh_shape=[1, 1],
-                               device="cpu")
+def test_seq_parallel_needs_a_bound_seq_axis():
+    """Sequence parallelism over an axis the mesh does not bind fails
+    first with the reference's unbound-axis error."""
     with pytest.raises(ValueError, match="not bound by this mesh") as got:
         mesh.seq_parallel_shard_map(None, mesh.local_mesh(device="cpu"), "seq")
     with pytest.raises(ValueError) as want:

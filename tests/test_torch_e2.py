@@ -7,7 +7,7 @@ must be equal and the cost within ``rtol=1e-5``. The cases are the
 reference's own (``tests/test_services_and_e2.py:106-177``: blobs, more
 than one step, the cost of the returned centers, duplicate data,
 validation), plus a row count the reference pads (its zero-weight rows,
-which the port leaves out). ``MarkovChain``, ``cross_validation_folds``
+which the port leaves out at data 1). ``MarkovChain``, ``cross_validation_folds``
 and ``categorical_naive_bayes`` must equal the reference's.
 """
 
@@ -18,6 +18,7 @@ import torch
 from predictionio_tpu.models import e2 as jax_e2
 from predictionio_tpu_torch.models import e2
 from predictionio_tpu_torch.ops import kmeans as port_kmeans
+from predictionio_tpu_torch.parallel.mesh import local_mesh
 
 
 def blobs(seed, centers, per, scale):
@@ -81,8 +82,14 @@ def test_kmeans_refuses_what_the_reference_refuses():
         with pytest.raises(ValueError) as got:
             e2.kmeans(**kwargs, device="cpu")
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="slice 20"):
-        e2.kmeans(np.zeros((8, 2), np.float32), k=2, mesh=object(), device="cpu")
+    # a mesh of one rank along data fits as one device does (the sharded
+    # fits are test_torch_classify_mesh.py's)
+    x, k, iterations, seed = CASES["padded-1001"]
+    got = e2.kmeans(x, k=k, iterations=iterations, seed=seed, mesh=local_mesh(device="cpu"),
+                    device="cpu")
+    alone = e2.kmeans(x, k=k, iterations=iterations, seed=seed, device="cpu")
+    np.testing.assert_array_equal(got.centers, alone.centers)
+    assert (got.cost, got.iterations_run) == (alone.cost, alone.iterations_run)
 
 
 def test_lloyd_step_keeps_an_empty_cluster_and_breaks_ties_first():

@@ -89,7 +89,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                    # multi-process training on torch.distributed
                    "parallel.distributed", "parallel.mesh",
                    # the neural templates across ranks
-                   "parallel.ulysses"):
+                   "parallel.ulysses",
+                   # the native host packer
+                   "native"):
         assert f"predictionio_tpu_torch.{module}" in walked
 
 

@@ -303,10 +303,9 @@ def test_resume_continues_only_on_equal_params(basedir, tmp_path, monkeypatch):
 def test_unported_launch_options_raise(basedir, tmp_path):
     """A rank other than 0 of a launch trains but persists nothing: no
     run lock, no instance row, no blob, no checkpoints (alone, without a
-    coordinator, its mesh is 1 x 1); a multi-process launch of a
-    template that does not train over the mesh (the classifiers) still
-    raises (ROADMAP.md slice 20); ``pio.profile``, ported since, trains
-    and writes its trace and journal."""
+    coordinator, its mesh is 1 x 1), the classifiers' as the ALS
+    template's; ``pio.profile``, ported since, trains and writes its
+    trace and journal."""
     basedir(tmp_path)
     fill_store(storage, App, Event, make_events())
     engine_json = write_json(tmp_path / "engine.json", dict(
@@ -318,11 +317,19 @@ def test_unported_launch_options_raise(basedir, tmp_path):
     assert not os.path.exists(torch_checkpoint._checkpoint_base())
     with open(os.path.join(REPO, "examples", "classification", "engine.json")) as f:
         classify = json.load(f)
-    classify["datasource"]["params"]["appName"] = "StoreApp"
+    fill_store(storage, App, Event, [
+        {"event": "train", "entityType": "message", "entityId": f"m{i}",
+         "properties": {"text": text, "label": label},
+         "eventTime": f"2024-05-01T00:00:{i:02d}Z", "eventId": f"sms{i:03d}"}
+        for i, (text, label) in enumerate([("win cash now", "spam"), ("free prize", "spam"),
+                                           ("see you at lunch", "ham"),
+                                           ("meeting at noon", "ham")])], app_name="SmsApp")
+    classify["datasource"]["params"]["appName"] = "SmsApp"
     classify["sparkConf"] = {"pio.num_processes": 2, "pio.process_id": 1}
-    with pytest.raises(NotImplementedError, match="slice 20"):
-        run_train(load_engine_variant(write_json(tmp_path / "classify.json", classify)),
-                  device="cpu")
+    rank1 = run_train(load_engine_variant(write_json(tmp_path / "classify.json", classify)),
+                      device="cpu")
+    assert rank1.status == "COMPLETED" and rank1.id is None
+    assert storage.get_meta_data_engine_instances().get_all() == []
     engine_json = write_json(tmp_path / "engine.json", VARIANT)
     with pytest.raises(LookupError, match="run `pio train` first"):
         cli.build_query_server(engine_json, port=0, device="cpu")
