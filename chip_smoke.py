@@ -199,6 +199,25 @@ script exits non-zero and prints no result):
    COMPLETED evaluation instance, B4 and the fused backward 2 a training
    step, B4 also 2 a scoring forward, bestScore above twice the uniform
    10 / 3,706.
+   quickstart -- the README's Quickstart on the same store after
+   eval_path, through the port's console and client SDK, every verb a
+   ``python -m predictionio_tpu_torch.tools.cli`` process but ``train``:
+   ``status`` (``Accelerator: cuda x1 (NAME)``, storage OK), ``version``,
+   ``template list``, ``template get recommendation`` with mips set in
+   its engine.json, ``build``, ``start-all`` (event server, dashboard,
+   admin server as daemons on free ports); ``EventClient`` posts 300
+   ratings of existing items by a new user (20 singly, the rest with
+   ``create_batch``) and round-trips one more event (``get``, ``find``,
+   ``delete``); ``train`` through ``cli.main`` in this process (20 B1
+   launches); ``deploy`` (B2 read from the deployed process's
+   ``/metrics``, above 0); ``EngineClient`` queries 15 known users and
+   the new one, recall@10 >= 0.99 against the exact scan; the
+   dashboard lists the new COMPLETED instance and eval_path's
+   evaluation, the admin server MLApp; ``run`` of a ``pypio`` script
+   (every event of the store, a model blob round trip); ``undeploy``
+   (the deploy process exits 0) and ``stop-all`` (no daemon left). Any
+   verb that exits non-zero fails the phase; its line carries each
+   step's seconds and the launch counts.
    templates -- the first 10,000,000 of phase 6's 20,000,000 ratings (a
    depth cut that keeps the script in its limit beside dist_classify) as
    the templates' events
@@ -3285,6 +3304,304 @@ def phase_eval_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# quickstart: the README's Quickstart through the port's console and SDK
+# --------------------------------------------------------------------------
+
+#: the quickstart's new user rates this many existing items through the
+#: event server: QUICKSTART_SINGLES one POST each, the rest in batches of
+#: STORE_BATCH; then 15 known users and the new one are queried
+QUICKSTART_RATINGS, QUICKSTART_SINGLES, QUICKSTART_QUERIES = 300, 20, 16
+QUICKSTART_USER = "u-quickstart"
+#: pypio's round trip in ``pio run``: prints one JSON line
+QUICKSTART_SCRIPT = """\
+import json
+from predictionio_tpu_torch import pypio
+
+pypio.init()
+events = pypio.find_events("MLApp")
+blob_id = pypio.save_model({"factors": [1.0, 2.0], "note": "quickstart"})
+print("PYPIO " + json.dumps({"events": len(events), "blob_id": blob_id,
+                             "loaded": pypio.load_model(blob_id)}))
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_http(url: str, proc=None, timeout_s: float = 180.0) -> None:
+    """Poll ``url`` until it answers below 500; fails if ``proc`` exits."""
+    import urllib.request
+
+    deadline = time.time() + timeout_s
+    last = None
+    while time.time() < deadline:
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"{url}: its server exited {proc.returncode}")
+        try:
+            with urllib.request.urlopen(url, timeout=5) as resp:
+                if resp.status < 500:
+                    return
+        except Exception as exc:
+            last = exc
+        time.sleep(0.25)
+    raise AssertionError(f"{url} never answered: {last}")
+
+
+def pid_gone(pid: int) -> bool:
+    """The process has exited (no /proc entry, or a zombie)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except OSError:
+        return True
+
+
+def expected_accelerator() -> str:
+    import torch
+
+    return (f"Accelerator: cuda x{torch.cuda.device_count()} "
+            f"({torch.cuda.get_device_name(0)})")
+
+
+def phase_quickstart(repo: str, workdir: str) -> dict:
+    """The README's Quickstart on store_path's store as follow_path and
+    eval_path left it, every verb a ``python -m
+    predictionio_tpu_torch.tools.cli`` process but ``train``: ``status``
+    (the card and storage OK), ``version``, ``template list``, ``template
+    get recommendation DIR --app-name MLApp``, ``"retrieval": {"mode":
+    "mips"}`` set in DIR/engine.json, ``build``, ``start-all`` (the event
+    server, dashboard and admin server as daemons on free ports);
+    ``EventClient`` posts a new user's ratings of existing items (singly
+    and in batches) and round-trips one more event (``get``, ``find``,
+    ``delete``); ``train --engine-dir DIR`` through ``cli.main`` in this
+    process (B1's counter read: 20 launches, rank 16 x 10 iterations);
+    ``deploy`` (B2, read from the deployed process's ``/metrics``);
+    ``EngineClient`` queries 15 known users and the new one, held to
+    the exact scan (recall@10 >= 0.99); the dashboard's engine-instance
+    page lists the new COMPLETED instance and its evaluation list
+    eval_path's; the admin server lists MLApp; ``run`` of a ``pypio``
+    script (every event of the store, a model blob round trip);
+    ``undeploy`` (the deploy process exits) and ``stop-all`` (no daemon
+    left). Any verb exiting non-zero fails the phase."""
+    from predictionio_tpu_torch.client import EngineClient, EventClient, PIOServerError
+    from predictionio_tpu_torch.data import storage
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+    from predictionio_tpu_torch.ops import als_gram, mips
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
+    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+
+    engine_dir = os.path.join(workdir, "quickstart")
+    started_at = time.perf_counter()
+    seconds: dict = {}
+    procs: list = []
+    daemons: dict = {}
+    with fresh_store(workdir, "store") as basedir:
+        env = dict(os.environ, PIO_FS_BASEDIR=basedir, PYTHONPATH=repo)
+
+        def pio(step: str, *argv: str) -> str:
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", "predictionio_tpu_torch.tools.cli",
+                                  *argv], env=env, cwd=repo, capture_output=True, text=True,
+                                 timeout=600)
+            seconds[step] = time.perf_counter() - t0
+            if out.returncode != 0:
+                raise AssertionError(f"pio {' '.join(argv)} exited {out.returncode}: "
+                                     f"{out.stdout[-2000:]} {out.stderr[-4000:]}")
+            return out.stdout
+
+        try:
+            status = pio("status", "status")
+            if expected_accelerator() not in status.splitlines() or (
+                    "Storage check OK" not in status):
+                raise AssertionError(f"status said: {status}")
+            accelerator = next(line for line in status.splitlines()
+                               if line.startswith("Accelerator:"))
+            version = pio("version", "version").strip()
+            listed = pio("template_list", "template", "list")
+            if "recommendation" not in listed:
+                raise AssertionError(f"template list: {listed}")
+            pio("template_get", "template", "get", "recommendation", engine_dir,
+                "--app-name", "MLApp")
+            engine_json = os.path.join(engine_dir, "engine.json")
+            with open(engine_json) as f:
+                variant = json.load(f)
+            variant["algorithms"][0]["params"]["retrieval"] = {"mode": "mips"}
+            with open(engine_json, "w") as f:
+                json.dump(variant, f, indent=2)
+            if "Build finished" not in pio("build", "build", "--engine-dir", engine_dir):
+                raise AssertionError("build did not finish")
+
+            ports = {"eventserver": free_port(), "dashboard": free_port(),
+                     "adminserver": free_port()}
+            started = pio("start_all", "start-all", "--event-server-port",
+                          str(ports["eventserver"]), "--dashboard-port",
+                          str(ports["dashboard"]), "--admin-port", str(ports["adminserver"]))
+            pid_dir = os.path.join(basedir, "pids", "predictionio_tpu_torch")
+            for service in ports:
+                with open(os.path.join(pid_dir, f"{service}.pid")) as f:
+                    daemons[service] = int(f.read())
+            if started.count("started") != 3:
+                raise AssertionError(f"start-all said: {started}")
+            t0 = time.perf_counter()
+            for port in ports.values():
+                wait_http(f"http://127.0.0.1:{port}/")
+            seconds["daemons_up"] = time.perf_counter() - t0
+
+            # the SDK: a new user's ratings of existing items, then one
+            # more event round-tripped
+            app_id = storage.get_meta_data_apps().get_by_name("MLApp").id
+            before = storage.get_l_events().count_interactions(app_id)
+            key = storage.get_meta_data_access_keys().get_by_app_id(app_id)[0].key
+            events = EventClient(f"http://127.0.0.1:{ports['eventserver']}", access_key=key,
+                                 timeout=60)
+            t0 = time.perf_counter()
+            stars = np.random.default_rng(QUICKSTART_RATINGS).integers(1, 6, QUICKSTART_RATINGS)
+            rated = [{"event": "rate", "entityType": "user", "entityId": QUICKSTART_USER,
+                      "targetEntityType": "item", "targetEntityId": f"i{i}",
+                      "properties": {"rating": int(stars[i])}}
+                     for i in range(QUICKSTART_RATINGS)]
+            for e in rated[:QUICKSTART_SINGLES]:
+                events.create(event=e["event"], entity_type=e["entityType"],
+                              entity_id=e["entityId"], target_entity_type="item",
+                              target_entity_id=e["targetEntityId"], properties=e["properties"])
+            for i in range(QUICKSTART_SINGLES, QUICKSTART_RATINGS, STORE_BATCH):
+                statuses = events.create_batch(rated[i:i + STORE_BATCH])
+                if [s["status"] for s in statuses] != [201] * len(rated[i:i + STORE_BATCH]):
+                    raise AssertionError(f"create_batch answered {statuses}")
+            probe = events.create(event="view", entity_type="user", entity_id=QUICKSTART_USER,
+                                  target_entity_type="item", target_entity_id="i0")
+            got = events.get(probe)
+            found = events.find(entityType="user", entityId=QUICKSTART_USER, limit=-1)
+            events.delete(probe)
+            try:
+                events.get(probe)
+                gone = None
+            except PIOServerError as exc:
+                gone = exc.status
+            if (got["event"], gone, len(found)) != ("view", 404, QUICKSTART_RATINGS + 1):
+                raise AssertionError(f"round trip: {got}, {gone}, {len(found)} found")
+            seconds["sdk_events"] = time.perf_counter() - t0
+            after = storage.get_l_events().count_interactions(app_id)
+            if after != before + QUICKSTART_RATINGS:
+                raise AssertionError(f"store holds {after} events, want {before} + "
+                                     f"{QUICKSTART_RATINGS}")
+
+            # train in this process: B1's counter
+            als_gram.gram_rhs.launches = 0
+            mips.mips_block_topk.launches = 0
+            ncf_kernel.ncf_score_all_items.launches = 0
+            zero_flash_counts()
+            t0 = time.perf_counter()
+            trained = cli_out(["train", "--engine-dir", engine_dir, "--device", "cuda"])
+            seconds["train"] = time.perf_counter() - t0
+            counts = kernel_counts()
+            instance_id = said(trained, "Engine instance ID")
+            if counts["gram_rhs"] != 20:
+                raise AssertionError(f"train launched B1 {counts['gram_rhs']} times, want 20")
+
+            deploy_port = free_port()
+            t0 = time.perf_counter()
+            deploy = subprocess.Popen(
+                [sys.executable, "-m", "predictionio_tpu_torch.tools.cli", "deploy",
+                 "--engine-dir", engine_dir, "--ip", "127.0.0.1", "--port", str(deploy_port),
+                 "--device", "cuda"],
+                env=env, cwd=repo, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+            procs.append(deploy)
+            wait_http(f"http://127.0.0.1:{deploy_port}/", deploy)
+            seconds["deploy"] = time.perf_counter() - t0
+            _, model = load_instance_model(load_engine_variant(engine_json), instance_id)
+            known = [u for u in model.user_index if u != QUICKSTART_USER]
+            picked = np.random.default_rng(QUICKSTART_QUERIES).choice(
+                len(known), QUICKSTART_QUERIES - 1, replace=False)
+            queries = [{"user": known[i], "num": 10} for i in sorted(picked)] + [
+                {"user": QUICKSTART_USER, "num": 10}]
+            engine = EngineClient(f"http://127.0.0.1:{deploy_port}", timeout=120)
+            t0 = time.perf_counter()
+            served = [engine.query(q) for q in queries]
+            seconds["queries"] = time.perf_counter() - t0
+            mips_params = dict(variant["algorithms"][0]["params"])
+            recall, identical = recall_against_scan(mips_params, model, queries, served)
+            metrics = scrape(deploy_port)
+            b2 = metrics.get('pio_kernel_launches_total{kernel="mips_block_topk"}', 0.0)
+            if not b2 > 0:
+                raise AssertionError(f"the deployed process never launched B2: {b2}")
+            counts["mips_block_topk"] = int(b2)
+
+            # the dashboard and the admin server, as daemons
+            import urllib.request
+
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{ports['dashboard']}/engine_instances", timeout=60) as r:
+                page = r.read().decode()
+            row = next((r for r in page.split("<tr>") if instance_id[:12] in r), "")
+            if "COMPLETED" not in row:
+                raise AssertionError(f"the dashboard does not list {instance_id}: {page[:2000]}")
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{ports['dashboard']}/evaluation_instances.json",
+                    timeout=60) as r:
+                evaluations = json.loads(r.read())
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{ports['adminserver']}/cmd/app", timeout=60) as r:
+                apps = json.loads(r.read())
+            if not [a for a in apps if a["name"] == "MLApp" and a["id"] == app_id]:
+                raise AssertionError(f"the admin server lists {apps}")
+            if not [e for e in evaluations if e["status"] == "COMPLETED"]:
+                raise AssertionError(f"the dashboard lists no evaluation: {evaluations}")
+
+            # pio run of a pypio script
+            script = os.path.join(engine_dir, "quickstart_pypio.py")
+            with open(script, "w") as f:
+                f.write(QUICKSTART_SCRIPT)
+            ran = pio("run", "run", "--engine-dir", engine_dir, script)
+            line = json.loads(next(l for l in ran.splitlines() if l.startswith("PYPIO "))[6:])
+            if line["events"] != after or line["loaded"] != {"factors": [1.0, 2.0],
+                                                             "note": "quickstart"}:
+                raise AssertionError(f"pypio: {line}, want {after} events")
+
+            if "Engine server stopping." not in pio("undeploy", "undeploy", "--ip",
+                                                    "127.0.0.1", "--port", str(deploy_port)):
+                raise AssertionError("undeploy did not stop the server")
+            t0 = time.perf_counter()
+            deploy_rc = deploy.wait(timeout=120)
+            seconds["deploy_exit"] = time.perf_counter() - t0
+            if deploy_rc != 0:
+                raise AssertionError(f"the deploy process exited {deploy_rc}: "
+                                     f"{deploy.stderr.read()[-4000:]}")
+            stopped = pio("stop_all", "stop-all")
+            deadline = time.time() + 60
+            while time.time() < deadline and not all(map(pid_gone, daemons.values())):
+                time.sleep(0.2)
+            alive = {s: p for s, p in daemons.items() if not pid_gone(p)}
+            if stopped.count("stopped") != 3 or alive or os.listdir(pid_dir):
+                raise AssertionError(f"stop-all said {stopped}; alive {alive}, pidfiles "
+                                     f"{os.listdir(pid_dir)}")
+            daemons.clear()
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=30)
+            for pid in daemons.values():
+                if not pid_gone(pid):
+                    with contextlib.suppress(OSError):
+                        os.kill(pid, 9)
+    result = {
+        "accelerator": accelerator, "version": version, "instance_id": instance_id,
+        "events_before": before, "events_after": after, "ratings_posted": QUICKSTART_RATINGS,
+        "queries": len(queries), "recall_at_10": recall, "identical_to_scan": identical,
+        "launches": counts, "pypio_events": line["events"],
+        "seconds": seconds, "phase_s": time.perf_counter() - started_at,
+    }
+    emit({"phase": "quickstart", **result})
+    return result
+
+
+# --------------------------------------------------------------------------
 # the templates: e-commerce (implicit ALS through B1, B2 with
 # mips, the business rules), similar-product and universal (the
 # cooccurrence products and the LLR on the card, plain torch)
@@ -4595,14 +4912,10 @@ def run_launch(spec: dict, n: int) -> tuple[list[dict], float]:
     coordinator port on this host), all killed past ``DIST_TIMEOUT_S``;
     each must exit 0 and pack on the native route only. Returns their
     reports and the launch's seconds."""
-    import socket
-
     from predictionio_tpu_torch import native
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    env = dict(os.environ, PIO_COORDINATOR=f"127.0.0.1:{port}", PIO_NUM_PROCESSES=str(n))
+    env = dict(os.environ, PIO_COORDINATOR=f"127.0.0.1:{free_port()}",
+               PIO_NUM_PROCESSES=str(n))
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-worker",
                                json.dumps(spec)], env=dict(env, PIO_PROCESS_ID=str(r)),
@@ -7542,6 +7855,7 @@ def main(argv: list[str] | None = None) -> int:
                         os.path.join(stream_root.name, "ml_store"))
         follow = phase_follow_path(rng, repo, workdir)
         evaluated = phase_eval_path(rng, repo, workdir)
+        quickstart = phase_quickstart(repo, workdir)
     b1_launches = trained["result"]["launches"]["gram_rhs"]
     ratings = trained["ratings"]
     resident = {"user_factors": trained["model"].als.user_factors,
@@ -7698,6 +8012,7 @@ def main(argv: list[str] | None = None) -> int:
         row.setdefault("dist_train_launches", dist["other_launches"].get(row["name"]))
         row["dist_models_launches"] = dist_models["launches"][row["name"]]
         row["dist_classify_launches"] = dist_classify["launches"][row["name"]]
+        row["quickstart_launches"] = quickstart["launches"][row["name"]]
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {

@@ -86,7 +86,14 @@ logger = logging.getLogger("pio.workflow")
 @dataclass
 class WorkflowParams:
     """Train-workflow knobs (the reference's ``WorkflowParams`` fields
-    that train uses)."""
+    that train uses).
+
+    Departure: the reference keeps ``WorkflowParams`` beside
+    ``RuntimeContext`` in ``predictionio_tpu/workflow/context.py``, which
+    the port does not have. The rest of ``RuntimeContext`` (the device,
+    the mesh, the checkpoints, the runtime conf) is the port's
+    ``TrainContext`` (``controller/base.py``); ``pio shell`` preloads
+    both."""
 
     batch: str = ""
     skip_sanity_check: bool = False

@@ -91,7 +91,12 @@ def test_port_imports_no_jax_and_no_reference_package():
                    # the neural templates across ranks
                    "parallel.ulysses",
                    # the native host packer
-                   "native"):
+                   "native",
+                   # the console and the client SDK
+                   "client", "pypio", "tools.commands", "tools.engine_commands",
+                   "tools.server_commands", "tools.build_commands",
+                   "tools.daemon_commands", "tools.top_command", "tools.adminserver",
+                   "tools.dashboard", "tools.shell"):
         assert f"predictionio_tpu_torch.{module}" in walked
 
 
@@ -368,6 +373,12 @@ VERBATIM = {
     # (WHOLE_DEFS)
     "obs/telemetry.py": set(),
     # the device pass-through to every shard process
+    "client.py": set(),
+    "pypio.py": set(),
+    "tools/commands.py": set(),
+    "tools/top_command.py": set(),
+    "tools/adminserver.py": set(),
+    "tools/dashboard.py": set(),
     "serving/fabric.py": {
         ("        max_batch_size: int | None = None,",
          '        max_batch_size: int | None = None, device: str = "cuda",'),
@@ -421,6 +432,13 @@ VERBATIM_DEFS = {
         "CooccurrenceAlgorithm.predict", "CooccurrenceAlgorithm.batch_predict",
     ],
     "ops/classify.py": ["NaiveBayesModel", "LogisticRegressionModel"],
+    "tools/engine_commands.py": ["cmd_undeploy"],
+    "tools/server_commands.py": ["load_plugins", "cmd_dashboard", "cmd_adminserver",
+                                 "cmd_shell"],
+    "tools/build_commands.py": ["register", "_check_template_json", "cmd_run",
+                                "_examples_root", "cmd_template_list", "cmd_template_get"],
+    "tools/daemon_commands.py": ["register", "_base_dir", "_read_pid", "_spawn",
+                                 "cmd_start_all", "cmd_stop_all"],
     "ops/kmeans.py": ["_kmeanspp_init", "KMeansModel"],
     "models/e2.py": ["CategoricalNBModel", "MarkovChain", "cross_validation_folds"],
     "models/classification/engine.py": [
