@@ -513,6 +513,23 @@ script exits non-zero and prints no result):
    the plain path's on the card up to near-ties.
 23. train_verb_seq -- the same with the sequence engine.json (B4 and the
    fused backward train it, B4 serves it).
+24. bench_tools -- the port's six ``tools/*_bench.py`` tools through
+   their main ``run_*`` on the card, each with B1's and B2's counts set
+   to 0 just before and read just after, one line each (the report, its
+   seconds, the launches, the card's name and power limit):
+   ingest_bench ``run_ab`` (32 x 50 events, sync vs WAL group commit;
+   the SIGKILL crash cycle: 0 lost, 0 duplicated, an idempotent second
+   replay); train_bench ``run_ab`` at 200,000 events (cut from 2,000,000:
+   the host populate) with the refresh identity bit for bit;
+   eval_bench at its defaults and at 2,048 items (recall@10 and
+   identity 1.0, B1 in both, B2 in the wide run: 192 items are their
+   own shortlist); als_stream_bench ``run_ab`` at rank 16 over 1,500,000
+   edges (streamed factors equivalent to resident ones, B1 in each
+   arm); retrain_bench ``run_ab`` (no load error, every probe visible,
+   B1 in both arms); serving_bench ``run_ab("recommendation")`` (rank 64
+   over 100,000 items, 32 clients x 960 requests, batching off and on:
+   no failure, the responses identical or equivalent, QPS and p50/p99
+   printed).
 
 Then one line ``{"kernels": [...]}``, the card's line again and, last,
 ``{"ok": true, "device": {...}}``.
@@ -7794,6 +7811,183 @@ def flash_rows(check: dict, timed: dict, train_launches: dict, serve_launches: i
     return rows
 
 
+# --------------------------------------------------------------------------
+# bench_tools: the six tools/*_bench.py tools of the port on the card
+# --------------------------------------------------------------------------
+
+#: train_bench's depth cut: 200,000 events of its 2,000,000 (the sqlite
+#: populate runs on the host at ~15,000 events/s; the refresh identity
+#: keeps its 200,000)
+BENCH_TRAIN_EVENTS = 200_000
+#: eval_bench past its defaults: at 192 items the catalog is the 512-item
+#: shortlist and the guard's mips arm skips stage 1 (B2), as in the
+#: reference; 2,048 items (4 genres of 512) put B2 on the guard's path
+BENCH_EVAL_WIDE = {"events": 16_000, "users": 320, "items": 2_048}
+
+
+@contextlib.contextmanager
+def counted_calls(module, name: str, key, into: dict):
+    """Wrap ``module.name`` so each call adds its B1 and B2 launches to
+    ``into[key(args, kwargs)]``; the wrapped function runs as it was."""
+    from predictionio_tpu_torch.ops import als_gram, mips
+
+    original = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        b1, b2 = als_gram.gram_rhs.launches, mips.mips_block_topk.launches
+        try:
+            return original(*args, **kwargs)
+        finally:
+            tally = into.setdefault(key(args, kwargs), {"b1": 0, "b2": 0})
+            tally["b1"] += als_gram.gram_rhs.launches - b1
+            tally["b2"] += mips.mips_block_topk.launches - b2
+
+    setattr(module, name, wrapper)
+    try:
+        yield into
+    finally:
+        setattr(module, name, original)
+
+
+def bench_tool(name: str, card: str, run, split=None) -> dict:
+    """One tool's run with B1's and B2's counts set to 0 just before and
+    read just after; ``split`` (module, function name, key) also counts
+    B1 by each key of that function's calls (``b1_arms``). Prints the
+    tool's line and returns it."""
+    from predictionio_tpu_torch.ops import als_gram, mips
+
+    arms: dict = {}
+    als_gram.gram_rhs.launches = mips.mips_block_topk.launches = 0
+    t0 = time.perf_counter()
+    with counted_calls(*split, arms) if split else contextlib.nullcontext():
+        report = run()
+    line = {"phase": "bench_tools", "tool": name, "seconds": time.perf_counter() - t0,
+            "b1_launches": als_gram.gram_rhs.launches,
+            "b2_launches": mips.mips_block_topk.launches, "nvidia_smi": card,
+            "report": report}
+    if split:
+        line["b1_arms"] = {key: tally["b1"] for key, tally in arms.items()}
+    emit(line)
+    return line
+
+
+def phase_bench_tools(card: str, workdir: str) -> dict:
+    """The port's six ``tools/*_bench.py`` tools, each through its main
+    ``run_*`` on the card at the tool's own widths (``train_bench``'s
+    events cut to ``BENCH_TRAIN_EVENTS``), each gated by the reference's
+    own checks:
+
+    - ingest_bench ``run_ab`` (32 clients x 50 events, sync vs WAL group
+      commit): every event stored in both arms, and the SIGKILL crash
+      cycle 0 lost, 0 duplicated, 0 misrouted, the second replay a no-op;
+    - train_bench ``run_ab``: both extraction passes see every edge, and
+      the refreshed snapshot's CSR equals the cold rebuild bit for bit;
+    - eval_bench ``run_eval_quality`` at its defaults and at
+      ``BENCH_EVAL_WIDE``: recall@10 and response identity of the
+      scan-vs-mips guard 1.0 in both, B1 > 0 in both, B2 > 0 in the wide
+      run (at the defaults the catalog is its own shortlist);
+    - als_stream_bench ``run_ab`` at rank 16 and 1,500,000 edges:
+      streamed factors equal to the resident ones (its
+      ``factors_equivalent``), B1 in each arm (``als_fit_streamed``
+      counted apart: ``b1_arms``, the rest is the resident arm's);
+    - retrain_bench ``run_ab``: no load or ingest error, no probe timed
+      out, B1 in the fold-in arm and in the full-retrain arm;
+    - serving_bench ``run_ab("recommendation")`` (rank 64, 100,000 items,
+      32 clients x 960 requests): no failed request, responses identical
+      or equivalent across batching off and on, B1 > 0 (the training).
+    Each tool's line carries its report, its seconds, its B1 and B2
+    launches and the card's name and power limit."""
+    from predictionio_tpu_torch.parallel import als
+    from predictionio_tpu_torch.tools import (
+        als_stream_bench,
+        eval_bench,
+        ingest_bench,
+        retrain_bench,
+        serving_bench,
+        train_bench,
+    )
+
+    started = time.perf_counter()
+    tools: dict = {}
+
+    line = bench_tool("ingest_bench", card, lambda: ingest_bench.run_ab(
+        workdir=os.path.join(workdir, "ingest")))
+    rep, crash = line["report"], line["report"]["crash_cycle"]
+    total = rep["clients"] * rep["events_per_client"]
+    if (rep["sync"]["stored"] != total or rep["wal"]["stored"] != total
+            or rep["sync"]["failures"] or rep["wal"]["failures"]):
+        raise AssertionError(f"ingest_bench stored or failed: {rep}")
+    if (crash["lost"] or crash["duplicated"] or crash["misrouted"]
+            or crash["second_replay_records"] or crash["second_replay_delta"]
+            or not crash["exactly_once"] or crash["acked"] < 200):
+        raise AssertionError(f"ingest_bench crash cycle: {crash}")
+    tools["ingest_bench"] = line
+
+    line = bench_tool("train_bench", card, lambda: train_bench.run_ab(
+        events=BENCH_TRAIN_EVENTS, workdir=os.path.join(workdir, "train")))
+    rep = line["report"]
+    if not (rep["edges_match"] and rep["cold"]["edges"] == BENCH_TRAIN_EVENTS
+            and rep["refresh_identity"]["bit_identical"]):
+        raise AssertionError(f"train_bench: {rep}")
+    tools["train_bench"] = line
+
+    for label, kwargs in (("eval_bench", {}), ("eval_bench_wide", BENCH_EVAL_WIDE)):
+        line = bench_tool(label, card, lambda: eval_bench.run_eval_quality(
+            workdir=os.path.join(workdir, label), **kwargs))
+        rep = line["report"]
+        if (rep["mips_recall_at_10"] != 1.0 or rep["response_identity_rate"] != 1.0
+                or not line["b1_launches"] or rep["holdout_users"] <= 0):
+            raise AssertionError(f"{label}: {line}")
+        tools[label] = line
+    if not tools["eval_bench_wide"]["b2_launches"]:
+        raise AssertionError("eval_bench: the guard's mips arm never launched B2 past "
+                             f"the shortlist: {tools['eval_bench_wide']}")
+
+    line = bench_tool("als_stream_bench", card, lambda: als_stream_bench.run_ab(
+        edges=1_500_000, rank=16), split=(als, "als_fit_streamed", lambda a, k: "streamed"))
+    rep = line["report"]
+    streamed = line["b1_arms"].get("streamed", 0)
+    if not (rep["factors_equivalent"] and streamed > 0
+            and line["b1_launches"] - streamed > 0):
+        raise AssertionError(f"als_stream_bench: B1 in each arm, equal factors: {line}")
+    tools["als_stream_bench"] = line
+
+    line = bench_tool("retrain_bench", card, lambda: retrain_bench.run_ab(
+        workdir=os.path.join(workdir, "retrain")),
+        split=(retrain_bench, "_measure_arm", lambda a, k: a[0]))
+    rep = line["report"]
+    for arm in ("foldin", "full_retrain"):
+        if (rep[arm]["load_errors"] or rep[arm]["ingest_load_errors"]
+                or rep[arm]["timeouts"] or not rep[arm]["load_requests"]):
+            raise AssertionError(f"retrain_bench {arm}: {rep[arm]}")
+    if not (line["b1_arms"].get("fold", 0) > 0 and line["b1_arms"].get("full", 0) > 0
+            and rep["foldin"]["cycles"]["foldin"] > 0
+            and rep["full_retrain"]["cycles"]["full_retrain"] > 0):
+        raise AssertionError(f"retrain_bench: B1 or cycles missing: {line}")
+    tools["retrain_bench"] = line
+
+    line = bench_tool("serving_bench", card, lambda: serving_bench.run_ab(
+        "recommendation", concurrency=32, requests=960))
+    rep = line["report"]
+    for arm in ("batching_off", "batching_on"):
+        if rep[arm]["failures"] or rep[arm]["requests_ok"] != 960:
+            raise AssertionError(f"serving_bench {arm}: {rep[arm]}")
+    if not ((rep["responses_identical"] or rep["responses_equivalent"])
+            and rep["items"] == 100_000 and line["b1_launches"]):
+        raise AssertionError(f"serving_bench: {line}")
+    tools["serving_bench"] = line
+
+    result = {"seconds": {name: t["seconds"] for name, t in tools.items()},
+              "b1_launches": {name: t["b1_launches"] for name, t in tools.items()},
+              "b2_launches": {name: t["b2_launches"] for name, t in tools.items()},
+              "serving": {arm: {k: tools["serving_bench"]["report"][arm][k]
+                                for k in ("qps", "p50_ms", "p99_ms")}
+                          for arm in ("batching_off", "batching_on")},
+              "nvidia_smi": card, "phase_s": time.perf_counter() - started}
+    emit({"phase": "bench_tools_summary", **result})
+    return result
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -7899,6 +8093,8 @@ def main(argv: list[str] | None = None) -> int:
             seq_serve = phase_serve_seq(rng, seq_trained, repo, workdir)
             phase_serve_seq_wide(args.seed, repo, workdir)
             phase_train_verb_seq(rng, repo, workdir)
+    with pack_routes_of("bench_tools"), tempfile.TemporaryDirectory() as workdir:
+        bench = phase_bench_tools(card, workdir)
     emit({"phase": "packs", "parts": PACKS})
 
     main_shape = next(s for s in stage1["shapes"]
@@ -7920,6 +8116,7 @@ def main(argv: list[str] | None = None) -> int:
         "profile_train_launches": profiled["launches"]["mips_block_topk"],
         "stream_path_launches": streamed["b2_launches"],
         "dist_train_launches": dist["b2_launches"],
+        "bench_tools_launches": bench["b2_launches"],
         "batchpredict_chunk": {k: evaluated["batchpredict"]["b2_chunk"][k] for k in (
             "batch", "items", "rank", "block_items", "block_topk", "instance", "ms",
             "plain_ms", "library_pair_ms", "bound_ms", "bound_by", "max_abs_err")},
@@ -7959,6 +8156,7 @@ def main(argv: list[str] | None = None) -> int:
         "profile_train_launches": profiled["launches"]["gram_rhs"],
         "stream_path_launches": streamed["b1_launches"],
         "dist_train_launches": dist["b1_launches"],
+        "bench_tools_launches": bench["b1_launches"],
         "max_abs_err": b1_check["max_abs_err"],
         "ms": b1_main["ms"],
         "plain_ms": b1_main["plain_ms"],

@@ -168,10 +168,13 @@ TEMPLATES = {
 def template_for(engine_factory: str, algorithm_name: str) -> Template:
     """The template of an engine.json, bound to its first algorithm: by
     ``engineFactory`` (``predictionio_tpu.models.<template>.
-    engine_factory``) when it names one, else the template one of whose
-    algorithms is the first algorithm's name."""
+    engine_factory``, or the module path ``...<template>.engine.
+    engine_factory`` the reference resolves too) when it names one, else
+    the template one of whose algorithms is the first algorithm's name."""
     if engine_factory:
         parts = engine_factory.split(".")
+        if len(parts) >= 3 and parts[-2:] == ["engine", "engine_factory"]:
+            parts = parts[:-2] + parts[-1:]
         key = parts[-2] if len(parts) >= 2 and parts[-1] == "engine_factory" else None
         if key not in TEMPLATES:
             raise ValueError(

@@ -137,9 +137,12 @@ class _Stats:
 class EventService:
     """Route handlers bound to the storage registry; server-framework free.
 
-    ``ingest_mode="wal"`` starts the group-commit pipeline over
-    ``wal_partitions`` partitions under ``$PIO_FS_BASEDIR/wal``, with the
-    reference's default knobs (``data/ingest.IngestConfig``)."""
+    ``ingest_config`` (``data/ingest.IngestConfig``, the reference's
+    ``pio eventserver`` knobs) with ``mode="wal"`` starts the group-commit
+    pipeline; without one, ``ingest_mode="wal"`` starts it over
+    ``wal_partitions`` partitions under ``$PIO_FS_BASEDIR/wal`` with the
+    reference's default knobs. ``slow_commit_ms`` logs one span summary
+    for each group commit slower than it (reference ``:137-141``)."""
 
     def __init__(
         self,
@@ -150,8 +153,12 @@ class EventService:
         trace_sample: float | None = None,
         wal_partitions: int = 1,
         extra_metrics_snapshots=None,
+        ingest_config: IngestConfig | None = None,
+        slow_commit_ms: float | None = None,
     ):
-        check_ingest_mode(ingest_mode)
+        if ingest_config is None:
+            ingest_config = IngestConfig(mode=ingest_mode, wal_partitions=wal_partitions)
+        check_ingest_mode(ingest_config.mode)
         self.stats_enabled = stats
         self.stats = _Stats()
         self.plugins = list(plugins or [])
@@ -162,8 +169,13 @@ class EventService:
             trace_sample=trace_sample,
             extra_snapshots=extra_metrics_snapshots,
         )
-        if ingest_mode == "wal":
-            self._start_ingest(IngestConfig(mode="wal", wal_partitions=wal_partitions))
+        if slow_commit_ms is not None:
+            # one summary line per group commit over the threshold
+            self.router.tracer.set_slow_threshold(
+                "ingest.commit", slow_commit_ms / 1000.0
+            )
+        if ingest_config.mode == "wal":
+            self._start_ingest(ingest_config)
         r = self.router
         r.add("GET", "/", self.handle_root)
         r.add("POST", "/events.json", self.handle_create_event)
@@ -594,10 +606,13 @@ def create_event_server(
     tracing: bool | None = None,
     trace_sample: float | None = None,
     wal_partitions: int = 1,
+    ingest_config: IngestConfig | None = None,
+    slow_commit_ms: float | None = None,
 ) -> ServiceThread:
     service = EventService(
         stats=stats, plugins=plugins, ingest_mode=ingest_mode,
         tracing=tracing, trace_sample=trace_sample, wal_partitions=wal_partitions,
+        ingest_config=ingest_config, slow_commit_ms=slow_commit_ms,
     )
     server = make_server(service.router, host, port, "pio-eventserver")
     # drain the group-commit queue on stop: every acknowledged event reaches
@@ -635,10 +650,10 @@ def create_multiproc_event_server(
     port: int = DEFAULT_PORT,
     stats: bool = False,
     plugins: list[EventServerPlugin] | None = None,
-    ingest_mode: str = "sync",
+    ingest_config: IngestConfig | None = None,
     tracing: bool | None = None,
     trace_sample: float | None = None,
-    wal_partitions: int = 1,
+    slow_commit_ms: float | None = None,
     frontend_config=None,
 ) -> MultiprocEventServerHandle:
     """Multi-process event server: frontends parse HTTP and forward over
@@ -664,9 +679,9 @@ def create_multiproc_event_server(
         return bridge_cell[0].metric_snapshots() if bridge_cell else []
 
     service = EventService(
-        stats=stats, plugins=plugins, ingest_mode=ingest_mode,
+        stats=stats, plugins=plugins, ingest_config=ingest_config,
         tracing=tracing, trace_sample=trace_sample,
-        wal_partitions=wal_partitions,
+        slow_commit_ms=slow_commit_ms,
         extra_metrics_snapshots=worker_snapshots,
     )
     bridge = ScorerBridge(
@@ -689,15 +704,14 @@ def run_event_server(
     ssl_cert: str | None = None,
     ssl_key: str | None = None,
     plugins: list[EventServerPlugin] | None = None,
-    ingest_mode: str = "sync",
+    ingest_config: IngestConfig | None = None,
     tracing: bool | None = None,
     trace_sample: float | None = None,
+    slow_commit_ms: float | None = None,
     frontend_workers: int = 0,
-    wal_partitions: int = 1,
 ) -> None:
     """Blocking entry point used by ``pio eventserver``; with
     ``frontend_workers`` > 0 the multi-process tier."""
-    check_ingest_mode(ingest_mode)
     if frontend_workers > 0:
         if ssl_cert or ssl_key:
             # TLS terminates in the worker processes or nowhere; the rings
@@ -710,8 +724,8 @@ def run_event_server(
 
         handle = create_multiproc_event_server(
             host=host, port=port, stats=stats, plugins=plugins,
-            ingest_mode=ingest_mode, tracing=tracing,
-            trace_sample=trace_sample, wal_partitions=wal_partitions,
+            ingest_config=ingest_config, tracing=tracing,
+            trace_sample=trace_sample, slow_commit_ms=slow_commit_ms,
             frontend_config=FrontendConfig(
                 workers=frontend_workers, dispatch="sync", max_inflight=32,
             ),
@@ -735,9 +749,9 @@ def run_event_server(
             handle.stop()
         return
     service = EventService(
-        stats=stats, plugins=plugins, ingest_mode=ingest_mode,
+        stats=stats, plugins=plugins, ingest_config=ingest_config,
         tracing=tracing, trace_sample=trace_sample,
-        wal_partitions=wal_partitions,
+        slow_commit_ms=slow_commit_ms,
     )
     server = make_server(
         service.router, host, port, "pio-eventserver",

@@ -130,6 +130,19 @@ def resolve_factor_sharding(config: ALSConfig, mesh=None) -> ALSConfig:
     )
 
 
+def resolve_solver_override(config: ALSConfig, ctx) -> ALSConfig:
+    """Apply the run-scoped ``pio.als_solver`` conf (``pio train
+    --als-solver``, reference ``:91-106``) over the engine.json
+    ``alsSolver`` param: the operator's choice wins over the variant
+    file. "xla" trains through ``gram_rhs_plain``, "auto" and "pallas"
+    through B1 (``parallel/als.py::half_step_fn`` validates the value)."""
+    solver = getattr(ctx, "runtime_conf", None) or {}
+    solver = solver.get("pio.als_solver")
+    if not solver:
+        return config
+    return dataclasses.replace(config, solver=str(solver))
+
+
 def _vocab_hash(ids: list[str]) -> str:
     h = hashlib.sha256()
     for s in ids:
@@ -172,6 +185,7 @@ def fit_with_checkpoint(
     and callback (reference ``:539-546``); the journal then closes with
     the fit's ``StreamStats``."""
     config = resolve_factor_sharding(config, mesh)
+    config = resolve_solver_override(config, ctx)
     checkpoint = ctx.checkpoint_manager(name) if interval > 0 else None
     init, start_iteration, callback = None, 0, None
     if checkpoint is not None:

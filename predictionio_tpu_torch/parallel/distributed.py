@@ -202,11 +202,19 @@ def init_distributed(
 
 
 def shutdown_distributed() -> None:
-    """Leave the process group (tests and the end of a worker)."""
+    """Leave the process group (tests and the end of a worker), then drop
+    the meshes' subgroup handles and collect them while the interpreter
+    is whole (``parallel/mesh.py::release_subgroups``)."""
     global _INFO
+    import gc
+
+    from predictionio_tpu_torch.parallel.mesh import release_subgroups
+
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+        release_subgroups()
+        gc.collect()
     _INFO = None
 
 

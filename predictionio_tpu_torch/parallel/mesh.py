@@ -72,6 +72,7 @@ blocks).
 
 from __future__ import annotations
 
+import weakref
 from collections import Counter
 from dataclasses import dataclass, field
 
@@ -109,6 +110,8 @@ class Mesh:
     def __post_init__(self):
         if self.grid is None:
             self.grid = np.arange(self.size).reshape(self.sizes)
+        if self.groups:
+            _MESHES_WITH_GROUPS.append(weakref.ref(self))
 
     @classmethod
     def build(cls, axes: tuple[str, ...], sizes: tuple[int, ...], device,
@@ -172,6 +175,23 @@ class Mesh:
         if set(live) != {a for a in self.axis_names if self.axis_size(a) > 1}:
             raise ValueError(f"a collective over {axes} of a {self.shape} mesh")
         return torch.distributed.group.WORLD, [int(r) for r in self.grid.ravel()]
+
+
+#: every mesh holding process groups, weakly: ``release_subgroups`` drops them
+_MESHES_WITH_GROUPS: list = []
+
+
+def release_subgroups() -> None:
+    """Drop every mesh's process-group handles (``parallel/distributed.py::
+    shutdown_distributed``, after the process group is destroyed). A
+    group a live mesh still held at interpreter exit was torn down with
+    the C++ statics and could abort the process after its work was done
+    (SIGABRT, "terminate called without an active exception")."""
+    for ref in _MESHES_WITH_GROUPS:
+        mesh = ref()
+        if mesh is not None:
+            mesh.groups.clear()
+    _MESHES_WITH_GROUPS.clear()
 
 
 def _group_order(members: list[int]) -> list[int] | None:

@@ -1,0 +1,390 @@
+"""A/B + scaling bench for device-resident streamed ALS epochs.
+
+Two entry points:
+
+- :func:`run_ab` -- resident (``build_als_data`` + ``als_fit``) vs
+  streamed (``parallel.stream`` block store + ``als_fit_streamed``) at an
+  equal sub-20M shape: edges/sec per arm, factor identity/equivalence,
+  and the transfer axis -- measured host->device bytes per half-step vs
+  the stream model vs the re-ship baseline (both sides' CSR + both factor
+  tables per half-step, the structure a non-resident epoch pays). Wired
+  into ``bench.py`` as secondary metric #14 ``als_stream``
+  (``PIO_BENCH_ALS_FEED=resident|streamed`` pins one arm).
+
+- :func:`run_scale` -- the >=20M-cap lift: a chunked synthetic generator
+  (O(chunk) host memory, deterministic per-chunk seeds) feeds the block
+  store and one streamed epoch runs at any edge count that fits on DISK,
+  not in RAM. Reports edges/sec, peak RSS, and the measured transfer
+  ratio. ``python -m predictionio_tpu_torch.tools.als_stream_bench --edges
+  100000000`` is the 100M-edge acceptance run; anything at that scale is
+  kept OUT of tier-1 (the pytest ``slow`` marker on its test stand-in).
+
+Synthetic distribution matches ``bench.py``'s ML-20M generator: uniform
+users, zipf-ish item popularity, per-user history capped at 256.
+
+Port of ``predictionio_tpu/tools/als_stream_bench.py``, the reference's
+code under the port's package name, on ``device`` (``cuda`` unless
+"cpu"; no card and no "cpu" raises before any work): both arms train
+through B1 (``ops/als_gram.py::gram_rhs``, ``solver="auto"``) in one
+process (``mesh=None``, the reference's 1 x 1 mesh). The fits return
+host factors; ``_sync`` also waits for the card before a timer is read.
+``main`` runs on the card unless ``--device cpu``, and
+``PIO_BENCH_ALS_FEED=resident|streamed`` sets its ``--feed`` default.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import resource
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+RANK = 16
+
+
+def chunked_synthetic_source(
+    n_edges: int,
+    n_users: int,
+    n_items: int,
+    seed: int = 0,
+    chunk_rows: int = 1 << 20,
+    implicit: bool = True,
+):
+    """Deterministic ``ChunkSource`` over the bench's synthetic
+    distribution. Each chunk draws from its own per-index stream, so any
+    edge count generates with O(chunk) host memory and two passes see the
+    identical stream. ``implicit`` emits all-ones values (the uniform
+    stream that triggers the block store's value elision); otherwise 1..5
+    ratings ride along."""
+
+    def source():
+        for lo in range(0, n_edges, chunk_rows):
+            n = min(chunk_rows, n_edges - lo)
+            rng = np.random.default_rng((seed << 20) + lo // chunk_rows)
+            users = rng.integers(0, n_users, size=n, dtype=np.int64)
+            items = (
+                np.minimum(rng.random(n) ** 2.2, 0.999999) * n_items
+            ).astype(np.int64)
+            if implicit:
+                vals = np.ones(n, np.float32)
+            else:
+                vals = rng.integers(1, 6, size=n).astype(np.float32)
+            yield users, items, vals, None
+
+    return source
+
+
+def _materialize(source):
+    us, its, vs = [], [], []
+    for uu, ii, vv, _tt in source():
+        us.append(uu)
+        its.append(ii)
+        vs.append(vv)
+    return np.concatenate(us), np.concatenate(its), np.concatenate(vs)
+
+
+def _sync(model, device) -> None:
+    # als_fit/als_fit_streamed return HOST factors: the fetch is the sync;
+    # the card is drained too, so no timer reads an unfinished launch
+    float(model.user_factors[0, 0])
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(device)
+
+
+def _config(rank: int, iterations: int, implicit: bool, buckets: int,
+            max_len: int):
+    from predictionio_tpu_torch.parallel.als import ALSConfig
+
+    return ALSConfig(
+        rank=rank, iterations=iterations, reg=0.05, alpha=10.0,
+        implicit=implicit, max_len=max_len, buckets=buckets, solver="auto",
+    )
+
+
+def peak_rss_mb() -> float:
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+
+
+def run_ab(
+    edges: int = 1_500_000,
+    users: int = 40_000,
+    items: int = 8_000,
+    rank: int = RANK,
+    iterations: int = 3,
+    implicit: bool = True,
+    buckets: int = 2,
+    max_len: int = 256,
+    feed: str = "both",
+    cache_dir: str | None = None,
+    device_budget_bytes: int = 0,
+    device=None,
+) -> dict:
+    """Equal-shape resident-vs-streamed A/B; see the module docstring."""
+    from predictionio_tpu_torch.parallel.als import (
+        als_fit,
+        als_fit_streamed,
+        build_als_data,
+    )
+    from predictionio_tpu_torch.utils.device import resolve_device
+    from predictionio_tpu_torch.parallel.stream import (
+        StreamStats,
+        build_streamed_als_data,
+        reship_bytes_per_half_step,
+        stream_bytes_per_half_step,
+    )
+
+    device = resolve_device(device)
+    source = chunked_synthetic_source(edges, users, items, implicit=implicit)
+    cfg = _config(rank, iterations, implicit, buckets, max_len)
+    itemsize = 2 if cfg.dtype == "bfloat16" else 4
+    rep: dict = {
+        "edges": edges, "users": users, "items": items, "rank": rank,
+        "iterations": iterations, "implicit": implicit, "feed": feed,
+    }
+
+    tmp_ctx = None
+    if cache_dir is None:
+        tmp_ctx = tempfile.TemporaryDirectory(prefix="pio-als-stream-")
+        cache_dir = tmp_ctx.name
+    try:
+        resident_model = None
+        if feed in ("both", "resident"):
+            uu, ii, vv = _materialize(source)
+            t0 = time.perf_counter()
+            data = build_als_data(uu, ii, vv, users, items, cfg)
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            resident_model = als_fit(data, cfg, device)
+            _sync(resident_model, device)
+            fit_s = time.perf_counter() - t0
+            real = data.by_row.retained_edges or int(
+                sum(b.mask.sum() for b in data.by_row.blocks)
+            )
+            rep["resident"] = {
+                "build_seconds": round(build_s, 3),
+                "fit_seconds": round(fit_s, 3),
+                "sec_per_iter": round(fit_s / iterations, 4),
+                "edges_per_sec": round(real * iterations / fit_s, 1),
+                "reship_bytes_per_half_step": reship_bytes_per_half_step(
+                    data, rank, itemsize
+                ),
+            }
+            del uu, ii, vv
+
+        if feed in ("both", "streamed"):
+            t0 = time.perf_counter()
+            sd = build_streamed_als_data(
+                source, users, items, cfg, cache_dir
+            )
+            build_s = time.perf_counter() - t0
+            stats = StreamStats()
+            t0 = time.perf_counter()
+            streamed_model = als_fit_streamed(
+                sd, cfg, device, stats=stats,
+                device_budget_bytes=device_budget_bytes,
+            )
+            _sync(streamed_model, device)
+            fit_s = time.perf_counter() - t0
+            reship = reship_bytes_per_half_step(sd, rank, itemsize)
+            rep["streamed"] = {
+                "build_seconds": round(build_s, 3),
+                "fit_seconds": round(fit_s, 3),
+                "sec_per_iter": round(fit_s / iterations, 4),
+                "edges_per_sec": round(
+                    sd.real_edges * iterations / fit_s, 1
+                ),
+                "h2d_bytes_per_half_step": stats.bytes_per_half_step,
+                "h2d_modeled_bytes_per_half_step": stream_bytes_per_half_step(
+                    sd, implicit
+                ),
+                "reship_bytes_per_half_step": reship,
+                "reship_ratio": round(
+                    reship / max(stats.bytes_per_half_step, 1.0), 2
+                ),
+                "blocks": len(sd.by_row.specs) + len(sd.by_col.specs),
+                "blocks_pinned": stats.blocks_pinned,
+                "max_inflight_blocks": stats.max_inflight_blocks,
+            }
+            if resident_model is not None:
+                rep["factors_identical"] = bool(
+                    np.array_equal(
+                        resident_model.user_factors,
+                        streamed_model.user_factors,
+                    )
+                    and np.array_equal(
+                        resident_model.item_factors,
+                        streamed_model.item_factors,
+                    )
+                )
+                rep["factors_equivalent"] = bool(
+                    np.allclose(
+                        resident_model.user_factors,
+                        streamed_model.user_factors,
+                        atol=5e-4, rtol=1e-3,
+                    )
+                )
+        if "resident" in rep and "streamed" in rep:
+            rep["streamed_vs_resident_eps"] = round(
+                rep["streamed"]["edges_per_sec"]
+                / max(rep["resident"]["edges_per_sec"], 1e-9),
+                3,
+            )
+    finally:
+        if tmp_ctx is not None:
+            tmp_ctx.cleanup()
+    return rep
+
+
+def run_scale(
+    edges: int = 100_000_000,
+    users: int | None = None,
+    items: int | None = None,
+    rank: int = RANK,
+    iterations: int = 1,
+    buckets: int = 4,
+    max_len: int = 256,
+    cache_dir: str | None = None,
+    device_budget_bytes: int = 0,
+    keep_cache: bool = False,
+    device=None,
+) -> dict:
+    """One streamed epoch at ``edges`` scale (implicit all-ones synthetic,
+    ML-20M-shaped entity ratios). Host memory stays O(block): the edge
+    set exists only on disk, as spill then packed blocks."""
+    from predictionio_tpu_torch.parallel.als import als_fit_streamed
+    from predictionio_tpu_torch.utils.device import resolve_device
+    from predictionio_tpu_torch.parallel.stream import (
+        StreamStats,
+        build_streamed_als_data,
+        reship_bytes_per_half_step,
+        stream_bytes_per_half_step,
+    )
+
+    device = resolve_device(device)
+    # ML-20M entity ratios scaled with the edge count (the bench's
+    # full-scale shape at 20M edges; sqrt scaling like bench.py)
+    scale = max(edges / 20_000_000, 1e-9)
+    users = users or int(138_000 * max(scale, 1) ** 0.5)
+    items = items or int(27_000 * max(scale, 1) ** 0.5)
+    cfg = _config(rank, iterations, True, buckets, max_len)
+    source = chunked_synthetic_source(edges, users, items, implicit=True)
+
+    tmp_ctx = None
+    if cache_dir is None:
+        tmp_ctx = tempfile.TemporaryDirectory(prefix="pio-als-scale-")
+        cache_dir = tmp_ctx.name
+    try:
+        rss0 = peak_rss_mb()
+        t0 = time.perf_counter()
+        sd = build_streamed_als_data(source, users, items, cfg, cache_dir)
+        build_s = time.perf_counter() - t0
+        stats = StreamStats()
+        t0 = time.perf_counter()
+        model = als_fit_streamed(
+            sd, cfg, device, stats=stats,
+            device_budget_bytes=device_budget_bytes,
+        )
+        _sync(model, device)
+        fit_s = time.perf_counter() - t0
+        itemsize = 2 if cfg.dtype == "bfloat16" else 4
+        reship = reship_bytes_per_half_step(sd, rank, itemsize)
+        store_bytes = sum(
+            s.idx_bytes() + s.val_bytes() + s.nobs_bytes()
+            for side in (sd.by_row, sd.by_col) for s in side.specs
+        )
+        block_bytes = max(
+            s.idx_bytes() + s.val_bytes() + s.nobs_bytes()
+            for side in (sd.by_row, sd.by_col) for s in side.specs
+        )
+        return {
+            "edges": edges,
+            "users": users,
+            "items": items,
+            "real_edges": sd.real_edges,
+            "iterations": iterations,
+            "build_seconds": round(build_s, 2),
+            "spill_seconds": sd.manifest.get("spill_seconds"),
+            "pack_seconds": sd.manifest.get("pack_seconds"),
+            "fit_seconds": round(fit_s, 2),
+            "sec_per_iter": round(fit_s / iterations, 3),
+            "edges_per_sec": round(sd.real_edges * iterations / fit_s, 1),
+            "blocks": len(sd.by_row.specs) + len(sd.by_col.specs),
+            "block_bytes_max": block_bytes,
+            "store_bytes": store_bytes,
+            "h2d_bytes_per_half_step": stats.bytes_per_half_step,
+            "h2d_modeled_bytes_per_half_step": stream_bytes_per_half_step(
+                sd, True
+            ),
+            "reship_bytes_per_half_step": reship,
+            "reship_ratio": round(
+                reship / max(stats.bytes_per_half_step, 1.0), 2
+            ),
+            "max_inflight_blocks": stats.max_inflight_blocks,
+            "peak_rss_mb": round(peak_rss_mb(), 1),
+            "peak_rss_mb_before": round(rss0, 1),
+        }
+    finally:
+        if tmp_ctx is not None and not keep_cache:
+            tmp_ctx.cleanup()
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--edges", type=int, default=1_500_000)
+    p.add_argument("--users", type=int, default=None)
+    p.add_argument("--items", type=int, default=None)
+    p.add_argument("--rank", type=int, default=RANK)
+    p.add_argument("--iterations", type=int, default=2)
+    p.add_argument("--buckets", type=int, default=2)
+    p.add_argument("--max-len", type=int, default=256)
+    p.add_argument("--budget-bytes", type=int, default=0,
+                   help="device pin budget for streamed blocks")
+    p.add_argument("--cache-dir", default=None)
+    p.add_argument(
+        "--feed", choices=("both", "resident", "streamed", "scale"),
+        default=os.environ.get("PIO_BENCH_ALS_FEED", "both"),
+        help="'scale' runs the streaming-only big-edge mode (lifts the "
+        "resident path's memory cap)",
+    )
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = p.parse_args(argv)
+    if args.feed == "scale" or args.edges > 20_000_000:
+        rep = run_scale(
+            edges=args.edges,
+            users=args.users,
+            items=args.items,
+            rank=args.rank,
+            iterations=args.iterations,
+            buckets=args.buckets,
+            max_len=args.max_len,
+            cache_dir=args.cache_dir,
+            device_budget_bytes=args.budget_bytes,
+            device=args.device,
+        )
+    else:
+        rep = run_ab(
+            edges=args.edges,
+            users=args.users or 40_000,
+            items=args.items or 8_000,
+            rank=args.rank,
+            iterations=args.iterations,
+            buckets=args.buckets,
+            max_len=args.max_len,
+            feed=args.feed,
+            cache_dir=args.cache_dir,
+            device_budget_bytes=args.budget_bytes,
+            device=args.device,
+        )
+    print(json.dumps(rep, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

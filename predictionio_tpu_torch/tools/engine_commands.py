@@ -13,7 +13,10 @@ port's workflow in-process:
   engine.json's ``alsFeed``: with ``"reader": "streaming"`` and a
   snapshot, ``streamed`` packs the snapshot into an on-disk block store
   (the generation's ``blocks/`` directory) and trains through
-  ``als_fit_streamed``, one B1 launch per block. ``--profile [DIR]`` (default
+  ``als_fit_streamed``, one B1 launch per block. ``--als-solver
+  auto|xla|pallas`` (runtime conf ``pio.als_solver``) overrides the
+  engine.json's ``alsSolver``: ``xla`` trains through the unfused plain
+  half-step, ``auto`` and ``pallas`` through B1. ``--profile [DIR]`` (default
   ``ENGINE_DIR/pio-profile``) writes a ``torch.profiler`` Chrome trace of
   the training call and the telemetry journal (ALS: one line per
   iteration with edges/sec and achieved GB/s) into DIR.
@@ -71,8 +74,7 @@ the card unless ``--device cpu``; without a card they raise. Each verb
 imports the workflow (and so torch) when it runs, not when the console
 starts: the console's other verbs and its daemons start without torch. The
 reference's ``check`` verb (``pio check``, its ``analysis/`` package) is
-not ported yet and is not registered here. The reference's
-``--als-solver`` is not a flag of the port: its B1 is the one half-step.
+not ported yet and is not registered here.
 """
 
 from __future__ import annotations
@@ -103,6 +105,12 @@ def register(sub: argparse._SubParsersAction) -> None:
                          " appends events ingested since; default off")
     train_p.add_argument("--snapshot-dir", default=None,
                          help="snapshot root (default $PIO_FS_BASEDIR/snapshots)")
+    train_p.add_argument("--als-solver", choices=("auto", "xla", "pallas"), default=None,
+                         help="ALS half-step tail: 'pallas' and 'auto' = the fused"
+                         " gather->Gram/rhs kernel (B1, csrc/als_gram.cu) on the card,"
+                         " 'xla' = the unfused gather + batched products"
+                         " (gram_rhs_plain). Overrides the engine.json alsSolver"
+                         " param for this run")
     train_p.add_argument("--als-feed", choices=("resident", "streamed"), default=None,
                          help="how ALS reads its training data: 'resident' packs"
                          " host arrays, 'streamed' (with \"reader\": \"streaming\" and"
@@ -355,10 +363,12 @@ def build_trainer(engine_json: str, events_path: str | None = None, *,
 
 def train(engine_json: str, events_path: str, model_out: str, *,
           resume: bool = False, device: str | None = None,
-          als_feed: str | None = None, launch: dict | None = None):
+          als_feed: str | None = None, launch: dict | None = None,
+          als_solver: str | None = None):
     """``train --events FILE --model-out DIR``: read the file, prepare,
     fit, save the model directory; returns the trained model.
-    ``als_feed`` sets ``pio.als_feed`` (``--als-feed``); ``launch`` the
+    ``als_feed`` sets ``pio.als_feed`` (``--als-feed``), ``als_solver``
+    ``pio.als_solver`` (``--als-solver``); ``launch`` the
     ``pio.*`` launch keys (``_launch_conf``). In a multi-process launch
     every rank reads the file and trains, and rank 0 alone writes the
     checkpoints and the model directory."""
@@ -371,6 +381,8 @@ def train(engine_json: str, events_path: str, model_out: str, *,
     )
     if als_feed:
         variant.runtime_conf["pio.als_feed"] = als_feed
+    if als_solver:
+        variant.runtime_conf["pio.als_solver"] = als_solver
     variant.runtime_conf.update(launch or {})
     primary = launch_process_id(variant.runtime_conf) == 0
     checkpoint_dir = os.path.join(model_out, "checkpoints")
@@ -484,7 +496,7 @@ def cmd_train(args: argparse.Namespace) -> int:
                              "leave out --events")
         model = train(_variant_path(args), args.events, args.model_out,
                       resume=args.resume, device=args.device, als_feed=args.als_feed,
-                      launch=_launch_conf(args))
+                      launch=_launch_conf(args), als_solver=args.als_solver)
         print(f"trained a model of {len(model.item_ids)} items into "
               f"{args.model_out} ({args.device})", flush=True)
         return 0
@@ -495,6 +507,8 @@ def cmd_train(args: argparse.Namespace) -> int:
             os.path.join(args.engine_dir, "pio-profile")
             if args.profile == "__default__" else args.profile
         )
+    if args.als_solver:
+        variant.runtime_conf["pio.als_solver"] = args.als_solver
     if args.als_feed:
         variant.runtime_conf["pio.als_feed"] = args.als_feed
     _snapshot_args(args, variant)

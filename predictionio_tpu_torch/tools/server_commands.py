@@ -2,13 +2,14 @@
 
 Port of ``predictionio_tpu/tools/server_commands.py``. ``load_plugins``,
 ``cmd_dashboard``, ``cmd_adminserver`` and ``cmd_shell`` are the
-reference's; ``eventserver`` runs the port's event server
-(``data/api/eventserver.py``) with the flags it takes: ``--ingest-mode
-sync|wal``, ``--wal-partitions P``, ``--frontend-workers M``, TLS,
-plugins and tracing. The reference's ``--ingest-queue-size``,
-``--group-commit-ms``, ``--fsync-policy``, ``--wal-dir`` and
-``--slow-commit-ms`` are not flags of the port's event server: its WAL
-ingest runs the reference's defaults (``data/ingest.py::IngestConfig``).
+reference's, and so is ``cmd_eventserver``: ``eventserver`` runs the
+port's event server (``data/api/eventserver.py``) with the reference's
+flags, defaults and choices: ``--ingest-mode sync|wal``, the WAL knobs
+``--ingest-queue-size``, ``--group-commit-ms``, ``--fsync-policy``,
+``--wal-dir`` and ``--wal-partitions`` (into
+``data/ingest.py::IngestConfig``), ``--slow-commit-ms`` (one span summary
+for each slower group commit), ``--frontend-workers M``, TLS, plugins and
+tracing.
 """
 
 from __future__ import annotations
@@ -30,6 +31,14 @@ def register(sub: argparse._SubParsersAction) -> None:
     es.add_argument("--ingest-mode", choices=("sync", "wal"), default="sync",
                     help="sync: one storage commit per event; wal: acknowledge after"
                     " the WAL's group-commit fsync, flush to storage behind it")
+    es.add_argument("--ingest-queue-size", type=int, default=2048,
+                    help="bounded ingest queue; a full queue returns 429 (wal mode)")
+    es.add_argument("--group-commit-ms", type=float, default=5.0,
+                    help="max wait to grow a commit batch (wal mode)")
+    es.add_argument("--fsync-policy", choices=("always", "interval", "never"),
+                    default="always", help="WAL durability vs throughput trade-off")
+    es.add_argument("--wal-dir", default=None,
+                    help="WAL directory (default $PIO_FS_BASEDIR/wal)")
     es.add_argument("--wal-partitions", type=int, default=1, metavar="P",
                     help="with --ingest-mode wal: hash-sharded WAL partitions, each"
                     " with its own writer and fsync stream")
@@ -41,6 +50,9 @@ def register(sub: argparse._SubParsersAction) -> None:
                     help="disable the span tracer (/traces.json reports enabled=false)")
     es.add_argument("--trace-sample", type=float, default=None, metavar="RATE",
                     help="head-sampling rate (0..1) for headerless root traces")
+    es.add_argument("--slow-commit-ms", type=float, default=None, metavar="MS",
+                    help="log one span-summary line for any group commit slower than"
+                    " this (off by default)")
     add_logging_arguments(es)
     es.set_defaults(func=cmd_eventserver)
 
@@ -79,16 +91,26 @@ def load_plugins(specs: list[str]) -> list:
 
 def cmd_eventserver(args: argparse.Namespace) -> int:
     from predictionio_tpu_torch.data.api.eventserver import run_event_server
+    from predictionio_tpu_torch.data.ingest import IngestConfig
     from predictionio_tpu_torch.obs.logs import configure_logging
 
     configure_logging(args.log_format)
     run_event_server(
         host=args.ip, port=args.port, stats=args.stats,
         ssl_cert=args.ssl_cert, ssl_key=args.ssl_key,
-        plugins=load_plugins(args.plugin), ingest_mode=args.ingest_mode,
+        plugins=load_plugins(args.plugin),
+        ingest_config=IngestConfig(
+            mode=args.ingest_mode,
+            queue_size=args.ingest_queue_size,
+            group_commit_ms=args.group_commit_ms,
+            fsync_policy=args.fsync_policy,
+            wal_dir=args.wal_dir,
+            wal_partitions=args.wal_partitions,
+        ),
         tracing=False if args.no_tracing else None,
-        trace_sample=args.trace_sample, frontend_workers=args.frontend_workers,
-        wal_partitions=args.wal_partitions,
+        trace_sample=args.trace_sample,
+        slow_commit_ms=args.slow_commit_ms,
+        frontend_workers=args.frontend_workers,
     )
     return 0
 

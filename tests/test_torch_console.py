@@ -417,3 +417,144 @@ def test_every_reference_verb_is_answered_but_check():
         return set(action.choices)
 
     assert verbs(cli.build_parser()) == verbs(jax_cli.build_parser()) - {"check"}
+
+
+# -- the eventserver's WAL flags and train's --als-solver --------------------
+
+WAL_FLAGS = ("ingest_mode", "ingest_queue_size", "group_commit_ms", "fsync_policy",
+             "wal_dir", "wal_partitions", "slow_commit_ms")
+
+
+def _option(parser, verb: str, flag: str):
+    """The ``argparse`` action of ``verb``'s ``flag``."""
+    import argparse
+
+    action = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
+    return next(a for a in action.choices[verb]._actions if flag in a.option_strings)
+
+
+@pytest.mark.parametrize("flag", ["--ingest-mode", "--ingest-queue-size", "--group-commit-ms",
+                                  "--fsync-policy", "--wal-dir", "--wal-partitions",
+                                  "--slow-commit-ms"])
+def test_eventserver_flags_equal_the_reference(flag):
+    """Each WAL flag of the reference's ``pio eventserver`` is the port's,
+    with the same default, type and choices."""
+    want = _option(jax_cli.build_parser(), "eventserver", flag)
+    got = _option(cli.build_parser(), "eventserver", flag)
+    assert (got.default, got.type, got.choices) == (want.default, want.type, want.choices)
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--ingest-mode", "wal", "--ingest-queue-size", "64", "--group-commit-ms", "1.5",
+     "--fsync-policy", "interval", "--wal-dir", "/tmp/w", "--wal-partitions", "4",
+     "--slow-commit-ms", "25"],
+    ["--ingest-mode", "wal", "--fsync-policy", "never"],
+])
+def test_eventserver_flags_reach_the_ingest_config_as_the_references(argv, monkeypatch):
+    """Both packages' ``cmd_eventserver`` hand ``run_event_server`` the
+    same ``IngestConfig`` and ``slow_commit_ms`` for the same command
+    line (the server itself is patched out)."""
+    import dataclasses
+
+    from predictionio_tpu.data.api import eventserver as jax_es
+    from predictionio_tpu_torch.data.api import eventserver as es
+
+    seen = {}
+    for name, module, console in (("jax", jax_es, jax_cli), ("port", es, cli)):
+        monkeypatch.setattr(module, "run_event_server",
+                            lambda name=name, **kw: seen.__setitem__(name, kw))
+        args = console.build_parser().parse_args(["eventserver", *argv])
+        assert args.func(args) == 0
+    want, got = seen["jax"], seen["port"]
+    assert dataclasses.asdict(got.pop("ingest_config")) == dataclasses.asdict(
+        want.pop("ingest_config"))
+    assert got == want
+
+
+def test_slow_commit_ms_sets_the_commit_threshold(tmp_path, monkeypatch):
+    """``--slow-commit-ms`` becomes the tracer's ``ingest.commit``
+    threshold in seconds, as in the reference, on a WAL event server
+    built from an ``IngestConfig``."""
+    from predictionio_tpu_torch.data.api.eventserver import EventService
+    from predictionio_tpu_torch.data.ingest import IngestConfig
+
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path))
+    storage.reset()
+    service = EventService(ingest_config=IngestConfig(mode="wal", group_commit_ms=1.0,
+                                                       wal_dir=str(tmp_path / "wal")),
+                           slow_commit_ms=25.0)
+    try:
+        assert service.router.tracer._slow_log_threshold("ingest.commit") == 0.025
+        assert service.ingest is not None and service._wal.partitions == 1
+        assert os.path.isdir(tmp_path / "wal")
+    finally:
+        service.shutdown_ingest()
+        storage.reset()
+
+
+def test_train_als_solver_flag_equals_the_reference():
+    want = _option(jax_cli.build_parser(), "train", "--als-solver")
+    got = _option(cli.build_parser(), "train", "--als-solver")
+    assert (got.default, got.choices) == (want.default, want.choices) == (
+        None, ("auto", "xla", "pallas"))
+
+
+@pytest.mark.parametrize("solver,fused", [(None, True), ("auto", True), ("pallas", True),
+                                          ("xla", False)])
+def test_train_als_solver_picks_the_half_step(solver, fused, tmp_path, monkeypatch):
+    """``train --als-solver`` reaches the fit as ``pio.als_solver``
+    (``models/_als_common.py::resolve_solver_override``): "xla" trains
+    through ``gram_rhs_plain``, "auto", "pallas" and no flag through the
+    B1 wrapper ``gram_rhs`` (the calls are counted by spies on the names
+    ``parallel/als.py::half_step_fn`` returns)."""
+    from predictionio_tpu_torch.parallel import als
+
+    calls = {"gram_rhs": 0, "gram_rhs_plain": 0}
+    for name in calls:
+        original = getattr(als, name)
+
+        def spy(*args, _name=name, _original=original, **kwargs):
+            calls[_name] += 1
+            return _original(*args, **kwargs)
+
+        monkeypatch.setattr(als, name, spy)
+    events = tmp_path / "events.jsonl"
+    with open(events, "w") as f:
+        for k in range(200):
+            f.write(json.dumps({"event": "rate", "entityType": "user", "entityId": f"u{k % 17}",
+                                "targetEntityType": "item", "targetEntityId": f"i{k % 11}",
+                                "properties": {"rating": float(k % 5 + 1)}}) + "\n")
+    engine_json = os.path.join(os.path.dirname(os.path.dirname(__file__)), "examples",
+                               "recommendation", "engine.json")
+    argv = ["train", "--engine-json", engine_json, "--events", str(events), "--model-out",
+            str(tmp_path / "model"), "--device", "cpu"]
+    assert cli.main(argv + (["--als-solver", solver] if solver else [])) == 0
+    if fused:
+        assert calls["gram_rhs"] > 0 and calls["gram_rhs_plain"] == 0, calls
+    else:
+        assert calls["gram_rhs"] == 0 and calls["gram_rhs_plain"] > 0, calls
+
+
+def test_train_from_the_store_sets_pio_als_solver(stores, monkeypatch, tmp_path):
+    """From the store, ``--als-solver`` lands in the variant's runtime
+    conf as the reference's ``pio.als_solver`` (``run_train`` patched
+    out: the fit reads it as the file path above does)."""
+    from predictionio_tpu_torch.workflow import core_workflow
+
+    stores("store")
+    seen = {}
+
+    class _Instance:
+        id = "instance"
+
+    def run_train(variant, params, device=None):
+        seen.update(variant.runtime_conf)
+        return _Instance()
+
+    monkeypatch.setattr(core_workflow, "run_train", run_train)
+    engine_dir = os.path.join(os.path.dirname(os.path.dirname(__file__)), "examples",
+                              "recommendation")
+    assert cli.main(["train", "--engine-dir", engine_dir, "--device", "cpu",
+                     "--als-solver", "xla"]) == 0
+    assert seen["pio.als_solver"] == "xla"
