@@ -17,6 +17,16 @@ script exits non-zero and prints no result):
    where one took the numpy route, which only ``PIO_NATIVE=0`` asks for;
    the launches of dist_train, dist_models and dist_classify report
    their ranks' routes, held the same way.
+   pio_check -- on the host, before any kernel runs: the port's static
+   analysis (``predictionio_tpu_torch/analysis/``) over
+   ``predictionio_tpu_torch/`` through the console, ``python3 -m
+   predictionio_tpu_torch.tools.cli check --format json`` (under ``-X
+   importtime``) and ``check --self-check``, each a process of its own,
+   and a third process timing the sweep by rule family (parse, package
+   index, C, R, P). Its line prints both exit codes (0), the findings,
+   suppressed and stale counts (unsuppressed 0, stale 0), the seconds,
+   whether the check process imported torch or jax (it must not), and
+   every kernel's count, set to 0 before and read after (all 0).
 3. check   -- kernel B2 (``mips_topk.cu``) against its plain torch twin
    on the card, at the serving path's shapes (1,000,000 items x rank 16,
    512-item tiles, R=16, batches of 8, 16 and 256, and the micro-batcher's
@@ -283,8 +293,9 @@ script exits non-zero and prints no result):
    answer equal to the materialized twin's ``predict``.
    dist_train -- multi-process ALS training on ``torch.distributed``:
    the recommendation engine.json (the 256 cap, mips, ``seenFilter:
-   "live"``) on the first 5,000,000 of phase 6's ratings (cut from all
-   20M beside dist_models) as ``pio train``'s core
+   "live"``) on the first 2,500,000 of phase 6's ratings (cut from all
+   20M to 5,000,000 beside dist_models, then to 2,500,000 beside the
+   pio_check phase) as ``pio train``'s core
    (``run_train``) in ranks this script starts as ``chip_smoke.py
    --dist-worker`` under the launch contract's env: (a) one rank in
    an NCCL group, mesh [1, 1]; (b) two ranks sharing the card (gloo, which takes
@@ -312,12 +323,14 @@ script exits non-zero and prints no result):
    (``pio train``'s core in ``--dist-worker`` ranks, two ranks sharing
    the card over gloo, each launch a store of its own):
    ``examples/ncf/engine.json`` (widths unchanged, checkpoint on; epochs
-   5 -> 1 on the first 125,000 of phase 6's ratings, the full 138,000 x
-   27,000 tables, 153 steps) as (a) [2, 1], the batch over ``data``, and
+   5 -> 1 on the first 62,500 of phase 6's ratings (125,000 before the
+   pio_check phase), the full 138,000 x 27,000 tables, 77 steps) as (a)
+   [2, 1], the batch over ``data``, and
    (b) [1, 2], the params and Adam's moments over ``model``;
    ``examples/sequence/engine.json`` (``("data", "seq")``, widths
-   unchanged; epochs 10 -> 1 on the first 25,600 of seq_data's packed
-   sequences, 100 steps) as (c) [2, 1], flash per rank, (d) [1, 2]
+   unchanged; epochs 10 -> 1 on the first 12,800 of seq_data's packed
+   sequences, 50 steps; 25,600 before the pio_check phase) as (c) [2, 1],
+   flash per rank, (d) [1, 2]
    ring attention (the reference's ring body is plain: B4 launches 0 in
    training) and (e) [1, 2] Ulysses (flash at one head per rank). The
    reference of each template: its one-process ``Algorithm.train`` on
@@ -430,9 +443,10 @@ script exits non-zero and prints no result):
    the wrapper's host work, during which the card idles.
 15. train_ncf -- the NCF training path: ``examples/ncf/engine.json``
    (E=32, hidden 64, 32, batch 4096, lr 0.01, implicit, 4 negatives) on
-   the first 2,500,000 of phase 6's ratings (the full 138,000 x 27,000
-   tables), through NCFPreparator -> NCFAlgorithm.train on cuda, epochs
-   cut 5 -> 1. Checks: the step count,
+   the first 1,000,000 of phase 6's ratings (2,500,000 before the
+   pio_check phase; the full 138,000 x 27,000 tables), through
+   NCFPreparator -> NCFAlgorithm.train on cuda, epochs cut 5 -> 1.
+   Checks: the step count,
    no NaN, the mean loss of the last 100 steps below the first 100's,
    and fresh pairs of the data's recipe scoring above uniform ones.
 16. serve_ncf -- that model saved, deployed unbatched
@@ -490,7 +504,8 @@ script exits non-zero and prints no result):
    the host's launch overhead, which events count, is larger than the
    kernels.
 21. train_seq -- ``examples/sequence/engine.json`` (E=32, 2 heads, 2
-   blocks, ffn 64, maxLen 64, batch 256, lr 1e-3; epochs cut 10 -> 3)
+   blocks, ffn 64, maxLen 64, batch 256, lr 1e-3; epochs cut 10 -> 1,
+   3 before the pio_check phase)
    through SASRecAlgorithm.train on cuda. Flash counts are zeroed just
    before and read just after: B4 and the fused backward must each be
    2 x steps. Checks: no
@@ -519,15 +534,17 @@ script exits non-zero and prints no result):
    seconds, the launches, the card's name and power limit):
    ingest_bench ``run_ab`` (32 x 50 events, sync vs WAL group commit;
    the SIGKILL crash cycle: 0 lost, 0 duplicated, an idempotent second
-   replay); train_bench ``run_ab`` at 200,000 events (cut from 2,000,000:
-   the host populate) with the refresh identity bit for bit;
+   replay); train_bench ``run_ab`` at 100,000 events (cut from 2,000,000:
+   the host populate; 200,000 before the pio_check phase) with the
+   refresh identity bit for bit on 100,000 (its 200,000 before);
    eval_bench at its defaults and at 2,048 items (recall@10 and
    identity 1.0, B1 in both, B2 in the wide run: 192 items are their
    own shortlist); als_stream_bench ``run_ab`` at rank 16 over 1,500,000
    edges (streamed factors equivalent to resident ones, B1 in each
    arm); retrain_bench ``run_ab`` (no load error, every probe visible,
    B1 in both arms); serving_bench ``run_ab("recommendation")`` (rank 64
-   over 100,000 items, 32 clients x 960 requests, batching off and on:
+   over 100,000 items, 32 clients x 480 requests, cut from the tool's
+   960 beside the pio_check phase, batching off and on:
    no failure, the responses identical or equivalent, QPS and p50/p99
    printed).
 
@@ -661,11 +678,13 @@ NCF_ODD = ((3001, 8, (16, 8)), (3001, 5, (12, 7)), (2049, 64, (128, 64)), (2049,
            (2047, 100, (200, 70)), (255, 64, (256, 128)), (256, 64, (256, 128)),
            (257, 64, (256, 128)), (300, 8, (60_000, 8)))
 NCF_EPOCHS = 1          # the NCF training phase's cuts: epochs 5 -> 1, and
-#: its ratings: the first 2,500,000 of the 20M (cut from all 20M to keep
-#: the script in its limit beside the dist_models part)
-NCF_TRAIN_RATINGS = 2_500_000
-#: the SASRec training phase's cut, for the same reason: epochs 10 -> 3
-SEQ_TRAIN_EPOCHS = 3
+#: its ratings: the first 1,000,000 of the 20M (cut from all 20M beside the
+#: dist_models part, to 2,500,000, then beside the pio_check phase, to keep
+#: the script in its limit on the card's slower hosts)
+NCF_TRAIN_RATINGS = 1_000_000
+#: the SASRec training phase's cut, for the same reasons: epochs 10 -> 3,
+#: then 3 -> 1
+SEQ_TRAIN_EPOCHS = 1
 NCF_HOLDOUT = 100_000
 
 #: the flash-attention checks and timings: the sequence template's
@@ -4831,10 +4850,11 @@ DIST_LAUNCHES = (("a_nccl_1x1", [1, 1], "resident"), ("b_data_2x1", [2, 1], "res
                  ("c_model_1x2", [1, 2], "resident"), ("c_model_1x2_streamed", [1, 2], "streamed"))
 #: queries each launch's deploy answers through B2
 DIST_QUERIES = 16
-#: the resident launches' depth cut: the first 5,000,000 of phase 6's 20M
-#: ratings (cut from all 20M to keep the script in its limit beside the
-#: dist_models part)
-DIST_ALS_RATINGS = 5_000_000
+#: the resident launches' depth cut: the first 2,500,000 of phase 6's 20M
+#: ratings (cut from all 20M to 5,000,000 beside the dist_models part,
+#: then to 2,500,000 beside the pio_check phase, to keep the script in its
+#: limit on the card's slower hosts)
+DIST_ALS_RATINGS = 2_500_000
 #: B2 launches of a deploy's warm-up: one search of each retrieval index
 #: (dot for user scoring, cosine for similar items)
 WARM_UP_SEARCHES = 2
@@ -5155,10 +5175,11 @@ DIST_MODEL_LAUNCHES = (("a_ncf_data_2x1", "ncf", [2, 1], None),
                        ("c_seq_data_2x1", "sequence", [2, 1], "ring"),
                        ("d_seq_ring_1x2", "sequence", [1, 2], "ring"),
                        ("e_seq_ulysses_1x2", "sequence", [1, 2], "ulysses"))
-#: the depth cuts: the first ratings of phase 6's 20M (NCF, epochs 5 -> 1)
-#: and the first packed sequences of seq_data's 138,000 (SASRec, 10 -> 1)
-DIST_NCF_RATINGS = 125_000
-DIST_SEQ_ROWS = 25_600
+#: the depth cuts: the first ratings of phase 6's 20M (NCF, epochs 5 -> 1;
+#: 125,000 before the pio_check phase) and the first packed sequences of
+#: seq_data's 138,000 (SASRec, 10 -> 1; 25,600 before the pio_check phase)
+DIST_NCF_RATINGS = 62_500
+DIST_SEQ_ROWS = 12_800
 #: the first step losses held to the one-process reference, and the bars
 DIST_LOSS_STEPS = 20
 DIST_LOSS_TOL = 1e-4
@@ -7815,10 +7836,13 @@ def flash_rows(check: dict, timed: dict, train_launches: dict, serve_launches: i
 # bench_tools: the six tools/*_bench.py tools of the port on the card
 # --------------------------------------------------------------------------
 
-#: train_bench's depth cut: 200,000 events of its 2,000,000 (the sqlite
-#: populate runs on the host at ~15,000 events/s; the refresh identity
-#: keeps its 200,000)
-BENCH_TRAIN_EVENTS = 200_000
+#: train_bench's depth cut: 100,000 events of its 2,000,000, and of the
+#: refresh identity's 200,000 (the sqlite populates run on the host at
+#: ~15,000 events/s; 200,000 and the identity's own before the pio_check
+#: phase)
+BENCH_TRAIN_EVENTS = 100_000
+#: serving_bench's depth cut: 480 requests of its 960 a client pool
+BENCH_SERVING_REQUESTS = 480
 #: eval_bench past its defaults: at 192 items the catalog is the 512-item
 #: shortlist and the guard's mips arm skips stage 1 (B2), as in the
 #: reference; 2,048 items (4 genres of 512) put B2 on the guard's path
@@ -7893,7 +7917,7 @@ def phase_bench_tools(card: str, workdir: str) -> dict:
     - retrain_bench ``run_ab``: no load or ingest error, no probe timed
       out, B1 in the fold-in arm and in the full-retrain arm;
     - serving_bench ``run_ab("recommendation")`` (rank 64, 100,000 items,
-      32 clients x 960 requests): no failed request, responses identical
+      32 clients x ``BENCH_SERVING_REQUESTS``): no failed request, responses identical
       or equivalent across batching off and on, B1 > 0 (the training).
     Each tool's line carries its report, its seconds, its B1 and B2
     launches and the card's name and power limit."""
@@ -7924,7 +7948,8 @@ def phase_bench_tools(card: str, workdir: str) -> dict:
     tools["ingest_bench"] = line
 
     line = bench_tool("train_bench", card, lambda: train_bench.run_ab(
-        events=BENCH_TRAIN_EVENTS, workdir=os.path.join(workdir, "train")))
+        events=BENCH_TRAIN_EVENTS, identity_events=BENCH_TRAIN_EVENTS,
+        workdir=os.path.join(workdir, "train")))
     rep = line["report"]
     if not (rep["edges_match"] and rep["cold"]["edges"] == BENCH_TRAIN_EVENTS
             and rep["refresh_identity"]["bit_identical"]):
@@ -7967,10 +7992,10 @@ def phase_bench_tools(card: str, workdir: str) -> dict:
     tools["retrain_bench"] = line
 
     line = bench_tool("serving_bench", card, lambda: serving_bench.run_ab(
-        "recommendation", concurrency=32, requests=960))
+        "recommendation", concurrency=32, requests=BENCH_SERVING_REQUESTS))
     rep = line["report"]
     for arm in ("batching_off", "batching_on"):
-        if rep[arm]["failures"] or rep[arm]["requests_ok"] != 960:
+        if rep[arm]["failures"] or rep[arm]["requests_ok"] != BENCH_SERVING_REQUESTS:
             raise AssertionError(f"serving_bench {arm}: {rep[arm]}")
     if not ((rep["responses_identical"] or rep["responses_equivalent"])
             and rep["items"] == 100_000 and line["b1_launches"]):
@@ -7986,6 +8011,98 @@ def phase_bench_tools(card: str, workdir: str) -> dict:
               "nvidia_smi": card, "phase_s": time.perf_counter() - started}
     emit({"phase": "bench_tools_summary", **result})
     return result
+
+
+#: the check phase's subprocesses' time limit (each sweeps the package)
+CHECK_TIMEOUT_S = 300
+
+
+def check_process(repo: str, args: list[str], importtime: bool = False) -> dict:
+    """One ``python3 [-X importtime] -m predictionio_tpu_torch.tools.cli
+    ARGS`` process from the checkout's root: its exit code, standard
+    output, wall seconds and, under ``-X importtime``, the top-level
+    modules it imported (read off its standard error)."""
+    cmd = [sys.executable, *(["-X", "importtime"] if importtime else []),
+           "-m", "predictionio_tpu_torch.tools.cli", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                          timeout=CHECK_TIMEOUT_S)
+    out = {"rc": proc.returncode, "stdout": proc.stdout,
+           "seconds": time.perf_counter() - t0}
+    if importtime:
+        out["imported"] = {
+            line.rsplit("|", 1)[-1].strip().split(".")[0]
+            for line in proc.stderr.splitlines() if line.startswith("import time:")}
+    if proc.returncode != 0:
+        out["stderr"] = proc.stderr[-4000:]
+    return out
+
+
+def phase_check(card: str, repo: str) -> dict:
+    """``pio check`` on the port, on the host: the static analysis
+    (``predictionio_tpu_torch/analysis/``) sweeps ``predictionio_tpu_torch/``
+    on this machine's Python and its ``ast``, through the console a user
+    calls. ``check --format json`` runs under ``-X importtime`` (its
+    imports are the evidence that the verb loads neither torch nor jax)
+    and ``check --self-check`` after it, each a process of its own; a
+    third process times the sweep by rule family
+    (``check_paths(timings=...)``: parse, package index, C, R, P). Every
+    kernel's count is set to 0 before and read after: the path launches
+    none. Gated: both exit 0, no unsuppressed finding, no stale baseline
+    entry, torch and jax never imported."""
+    started = time.perf_counter()
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+    from predictionio_tpu_torch.ops import als_gram, mips
+
+    als_gram.gram_rhs.launches = mips.mips_block_topk.launches = 0
+    ncf_kernel.ncf_score_all_items.launches = 0
+    zero_flash_counts()
+    report = check_process(repo, ["check", "--format", "json"], importtime=True)
+    self_check = check_process(repo, ["check", "--self-check"])
+    timed = subprocess.run(
+        [sys.executable, "-c",
+         "import json, time\n"
+         "from predictionio_tpu_torch.analysis.engine import check_paths\n"
+         "t = {}\n"
+         "t0 = time.perf_counter()\n"
+         "n = len(check_paths(timings=t))\n"
+         "t['sweep_s'] = time.perf_counter() - t0\n"
+         "print(json.dumps({'findings': n, **t}))\n"],
+        cwd=repo, capture_output=True, text=True, timeout=CHECK_TIMEOUT_S)
+    launches = kernel_counts()
+    for what, run in (("check", report), ("check --self-check", self_check)):
+        if run["rc"] != 0:
+            raise AssertionError(f"pio {what} exited {run['rc']}: "
+                                 f"{run['stdout'][-4000:]} {run.get('stderr', '')}")
+    if timed.returncode != 0:
+        raise AssertionError(f"the timed sweep failed: {timed.stderr[-4000:]}")
+    doc = json.loads(report["stdout"])
+    timings = json.loads(timed.stdout.strip().splitlines()[-1])
+    heavy = sorted(report["imported"] & {"torch", "jax", "jaxlib", "triton"})
+    line = {"phase": "pio_check", "rc": report["rc"], "self_check_rc": self_check["rc"],
+            "self_check": self_check["stdout"].strip().splitlines()[-1],
+            "findings": doc["analysis_findings_total"],
+            "suppressed": len(doc["suppressed"]), "stale": len(doc["stale_baseline"]),
+            "check_s": report["seconds"], "self_check_s": self_check["seconds"],
+            "sweep_s": timings["sweep_s"], "raw_findings": timings["findings"],
+            "timings_s": {"parse": timings["parse"], "index": timings["index"],
+                          **timings["families"]},
+            "torch_imported": "torch" in report["imported"],
+            "jax_imported": "jax" in report["imported"],
+            "launches": launches, "nvidia_smi": card,
+            "phase_s": time.perf_counter() - started}
+    emit(line)
+    if doc["analysis_findings_total"] or doc["stale_baseline"] or doc["findings"]:
+        raise AssertionError(f"pio check: unsuppressed or stale: {doc['findings']} "
+                             f"{doc['stale_baseline']}")
+    if timings["findings"] != len(doc["suppressed"]):
+        raise AssertionError(f"the timed sweep found {timings['findings']}, the check "
+                             f"{len(doc['suppressed'])}")
+    if heavy:
+        raise AssertionError(f"pio check imported {heavy}")
+    if any(launches.values()):
+        raise AssertionError(f"pio check launched a kernel: {launches}")
+    return line
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -8024,6 +8141,7 @@ def main(argv: list[str] | None = None) -> int:
           "native_packer_s": time.perf_counter() - t0})
 
     repo = os.path.dirname(os.path.abspath(__file__))
+    phase_check(card, repo)
     rng = np.random.default_rng(args.seed)
     stage1 = phase_check_and_time(rng)
     with pack_routes_of("serve"), tempfile.TemporaryDirectory() as workdir:

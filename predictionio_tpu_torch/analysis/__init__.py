@@ -1,0 +1,72 @@
+"""``pio check`` on the port: interprocedural concurrency, resource and
+cross-process protocol lint of ``predictionio_tpu_torch/``.
+
+Port of ``predictionio_tpu/analysis/``. The analyzer is stdlib-only and
+never imports the package it analyzes (no ``torch``, no ``jax``). It
+carries the reference's C, R and P families; the J family
+(``rules_jax``) and the S family (``rules_sharding`` over ``meshflow``)
+lint ``jax.jit``, ``shard_map``, ``PartitionSpec``, donation and
+``pallas_call`` sites, which the port has none of, so they are not
+carried and ``--rules J004`` exits 2 with the catalog of known rules.
+
+Rule families (catalog with incidents: ``docs/static_analysis_torch.md``;
+``pio check --explain RULE`` prints any entry):
+
+- **C-series** (``rules_concurrency``): built on the phase-2 whole-
+  package core -- call graph (``callgraph``), thread-role inference
+  (``threadroles``), lockset dataflow (``locksets``), shared via
+  ``packageindex``. Lock-order cycles over call paths (C001), blocking
+  I/O under caller-held locks (C002), fork-after-threads (C004),
+  blocking calls reachable from flusher callbacks / event loops (C005),
+  and the Eraser-style lockset race detector (C006, which replaced
+  C003's allowlisted per-module walk).
+- **R-series** (``rules_resources``): exception-path resource-lifecycle
+  analysis on the phase-3 flowgraph layer (``flowgraph``): per-function
+  CFGs with explicit exception edges and a must-release obligation
+  domain, credited interprocedurally through the call graph. Permits/
+  locks/fds leaked on exception paths (R001), spans neither finished
+  nor detached (R002), tmp+fsync+rename / checkpoint-ordering
+  durability violations (R003), obligations that die with no owner
+  (R004).
+- **P-series** (``rules_protocol``): cross-process protocol ordering on
+  the phase-5 protocolflow layer (``protocols``): a declared table of
+  each protocol's commit/publication/advance points, classified per call
+  site and credited transitively over the call graph, plus per-module
+  ``__main__`` process roles stitched through ring/portfile/notify
+  edges. Ack reachable before its covering commit (P001), cursor
+  advance before the consumer obligation completes (P002), unguarded
+  cross-process version reads (P003), shard/partition moduli bypassing
+  ``utils/stablehash`` (P004), handshake renames without covering fsync
+  and READY files consumed without CRC verify (P005).
+  ``pio check --protocol-report`` renders the same layer as the
+  commit/publish/advance site inventory.
+
+``analysis/baseline.json`` suppresses accepted findings (with mandatory
+justifications; P entries additionally name the runtime test covering
+the accepted risk); the tier-1 gate in ``tests/test_torch_analysis.py``
+asserts zero unsuppressed findings over the port. ``analysis/lockwatch.py``
+and ``analysis/leakwatch.py`` are the runtime companions, wrapping only
+what ``predictionio_tpu_torch`` modules build: lockwatch validates C001
+against actual acquisition orders and records held locksets for C006's
+evidence; leakwatch watches span lifecycles and package semaphore
+balances so an R-series leak a test provokes fails that test with the
+site named. Under this repo's pytest the reference's watches already
+cover the port's locks and semaphores, so the port's test files install
+only the port's span watch (``leakwatch.install(semaphores=False)``).
+"""
+
+from predictionio_tpu_torch.analysis.engine import (  # noqa: F401
+    Finding,
+    all_rules,
+    apply_baseline,
+    changed_files,
+    check_paths,
+    explain,
+    load_baseline,
+    parse_files,
+    parse_source,
+    render_rule_table,
+    run_cli,
+    self_check,
+    update_docs,
+)

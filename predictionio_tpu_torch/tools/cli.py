@@ -24,7 +24,11 @@ Port of ``predictionio_tpu/tools/cli.py``: ``version``, ``status`` and
   (``tools/build_commands.py``); ``start-all`` / ``stop-all``
   (``tools/daemon_commands.py``); ``top`` (``tools/top_command.py``).
 
-The reference's ``check`` (static analysis) is not ported yet.
+- ``check`` (``tools/engine_commands.py``): the port's static analysis,
+  ``predictionio_tpu_torch/analysis/``, over ``predictionio_tpu_torch/``
+  (the C, R and P rule families; catalog
+  ``docs/static_analysis_torch.md``). Like the reference's it imports
+  nothing of the package it analyzes, so it runs without torch.
 
 Storage is configured as the reference's is (``PIO_STORAGE_*``; by
 default sqlite under ``$PIO_FS_BASEDIR``), so both packages may share

@@ -2,7 +2,8 @@
 
 Copy of ``predictionio_tpu/tools/commands.py``: each verb module of the
 port registers its verbs here, one module for each of the reference's.
-The reference's ``check`` (its ``analysis/`` package) is not ported yet.
+``check`` is registered with the engine verbs, as in the reference, over
+the port's ``analysis/`` package.
 """
 
 from __future__ import annotations

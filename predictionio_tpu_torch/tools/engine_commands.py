@@ -72,9 +72,18 @@ port's workflow in-process:
 ``train``, ``deploy``, ``retrain``, ``eval`` and ``batchpredict`` run on
 the card unless ``--device cpu``; without a card they raise. Each verb
 imports the workflow (and so torch) when it runs, not when the console
-starts: the console's other verbs and its daemons start without torch. The
-reference's ``check`` verb (``pio check``, its ``analysis/`` package) is
-not ported yet and is not registered here.
+starts: the console's other verbs and its daemons start without torch.
+
+- ``check`` (``pio check``) runs the port's static analysis,
+  ``predictionio_tpu_torch/analysis/``, with the reference's flags
+  (``analysis/engine.py::add_check_arguments``): the C, R and P rule
+  families over ``predictionio_tpu_torch/`` with the port's baseline,
+  ``--changed`` for the pre-commit hook (``tools/precommit.py``),
+  ``--self-check``, ``--explain RULE``, ``--protocol-report`` and SARIF
+  output. The reference's J and S families and ``--mesh-report`` lint
+  JAX sites the port has none of: a J or S id exits 2 with the catalog
+  of known rules, and ``--mesh-report`` exits 2. The analyzer imports
+  neither torch nor jax.
 """
 
 from __future__ import annotations
@@ -329,6 +338,18 @@ def register(sub: argparse._SubParsersAction) -> None:
                     help="skip the scan-vs-mips shortlist-recall/identity guard"
                     " (runs by default when the algorithm has a retrieval surface)")
     ev.set_defaults(func=cmd_eval)
+
+    from predictionio_tpu_torch.analysis.engine import add_check_arguments
+
+    check = sub.add_parser(
+        "check",
+        help="static analysis of the port: interprocedural concurrency, "
+        "resource and cross-process protocol lint (thread roles, locksets, "
+        "race detection; rule catalog: docs/static_analysis_torch.md, or "
+        "--explain RULE)",
+    )
+    add_check_arguments(check)
+    check.set_defaults(func=cmd_check)
 
     bp = sub.add_parser("batchpredict", help="bulk offline predictions")
     _add_variant_args(bp)
@@ -762,6 +783,12 @@ def cmd_eval(args: argparse.Namespace) -> int:
         print(f"Results written to {args.output_path}")
     print(f"Evaluation instance ID: {instance.id}")
     return 0
+
+
+def cmd_check(args: argparse.Namespace) -> int:
+    from predictionio_tpu_torch.analysis.engine import run_with_args
+
+    return run_with_args(args)
 
 
 def cmd_batchpredict(args: argparse.Namespace) -> int:

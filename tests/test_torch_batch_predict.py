@@ -28,6 +28,7 @@ from predictionio_tpu_torch.workflow.core_workflow import run_train
 from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 from test_torch_eval import ALS, same_ranking, stores, variant_obj  # noqa: F401
 from test_torch_store_train import _serve, basedir, write_json  # noqa: F401
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 QUERIES = (
     [{"user": f"u{u}", "num": 10} for u in range(0, 120, 3)]

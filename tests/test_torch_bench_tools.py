@@ -35,6 +35,7 @@ import torch
 
 from predictionio_tpu.data import storage as jax_storage
 from predictionio_tpu_torch.data import storage
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = ("ingest_bench", "train_bench", "eval_bench", "als_stream_bench", "retrain_bench",

@@ -45,6 +45,7 @@ from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 from test_torch_classification import HAM, QUERIES, SPAM, sms_events
 from test_torch_distributed import run_workers
 from test_torch_store_train import _two_process_train, basedir, fill_store, write_json  # noqa: F401
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NB_RTOL = 1e-6

@@ -15,6 +15,7 @@ import os
 import threading
 
 import pytest
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 PACKAGES = ("predictionio_tpu", "predictionio_tpu_torch")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

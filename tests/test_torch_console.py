@@ -35,6 +35,7 @@ from predictionio_tpu_torch.data.storage import base
 from predictionio_tpu_torch.tools import cli
 from predictionio_tpu_torch.tools.adminserver import create_admin_server
 from predictionio_tpu_torch.tools.dashboard import create_dashboard
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 TEMPLATES = ["classification", "ecommerce", "ncf", "recommendation", "sequence",
              "similarproduct", "universal"]
@@ -410,13 +411,24 @@ def test_shell_preloads_the_ports_counterparts(monkeypatch, capsys):
 
 
 def test_every_reference_verb_is_answered_but_check():
+    """Every verb of the reference's console is answered, ``check``
+    included now that the port carries its analyzer
+    (``predictionio_tpu_torch/analysis/``), and ``check`` takes the
+    reference's flags with the same defaults."""
+    import argparse
+
     def verbs(parser):
-        import argparse
-
         action = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
-        return set(action.choices)
+        return action.choices
 
-    assert verbs(cli.build_parser()) == verbs(jax_cli.build_parser()) - {"check"}
+    ours, theirs = verbs(cli.build_parser()), verbs(jax_cli.build_parser())
+    assert set(ours) == set(theirs)
+
+    def flags(sub):
+        return {(tuple(a.option_strings), a.dest, a.default, a.nargs)
+                for a in sub._actions if not isinstance(a, argparse._HelpAction)}
+
+    assert flags(ours["check"]) == flags(theirs["check"])
 
 
 # -- the eventserver's WAL flags and train's --als-solver --------------------

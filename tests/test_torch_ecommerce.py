@@ -55,6 +55,7 @@ from predictionio_tpu_torch.models.ecommerce import (
 from predictionio_tpu_torch.models.recommendation.convert import seen_arrays
 from predictionio_tpu_torch.online import foldin
 from test_torch_store_train import basedir, fill_store  # noqa: F401
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 APP = "ShopApp"
 ALGO = {"rank": 8, "numIterations": 8, "seed": 3, "lambda": 0.05, "alpha": 10.0,

@@ -74,6 +74,7 @@ from predictionio_tpu_torch.tools import cli
 from predictionio_tpu_torch.workflow.core_workflow import run_evaluation
 from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 from test_torch_store_train import basedir, fill_store, write_json  # noqa: F401
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 APP = "ReplayApp"
 #: a catalog past 512 items: the mips arm's stage 1 (B2's plain twin) runs

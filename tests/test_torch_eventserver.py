@@ -22,6 +22,7 @@ import urllib.parse
 
 import pytest
 import requests
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 PACKAGES = ("predictionio_tpu", "predictionio_tpu_torch")
 KEY, LIMITED_KEY = "key-all", "key-rate-only"

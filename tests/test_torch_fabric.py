@@ -77,6 +77,7 @@ from predictionio_tpu_torch.workflow.create_server import (
 from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 from predictionio_tpu_torch.workflow.microbatch import BatchConfig
 from test_torch_online import basedir, ingest_via_wal, new_loop, trained_variant  # noqa: F401
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 RETRIEVAL = {"mode": "mips", "shortlist": 32, "blockItems": 64, "blockTopk": 16}
 USERS, ITEMS, RANK = 96, 300, 8
@@ -285,6 +286,38 @@ def test_ring_counters_read_whole_across_processes(tmp_path):
             consumer.wait(timeout=WAIT_S)
         ring.close()
     assert (sent, rises, full) == (n, 0, 0)
+
+
+def test_a_respawned_ring_starts_zeroed_under_its_new_generation(tmp_path):
+    """The risk ``pio check`` accepts at ``RingFile.create`` (R003: its
+    rename has no fsync before it): the ring file is scratch, not state.
+    A worker killed with messages in both rings, published stats, a
+    STATE_READY header and a ``.tmp`` carcass beside its file is respawned
+    over the same path under generation 2: the new file reads zeroed --
+    nothing pending, no stats, the init state -- and the dead worker's
+    mapping, still open, writes into the orphaned inode, never into it."""
+    path = str(tmp_path / "w0.ring")
+    dead = shmring.RingFile.create(path, 4, 128, generation=1)
+    dead.requests.push({"q": 1}, b"body")
+    dead.completions.push({"r": 1})
+    dead.write_stats({"served": 7})
+    dead.set_state(shmring.STATE_READY)
+    with open(f"{path}.tmp", "wb") as f:
+        f.write(b"\xff" * 64)
+    fresh = shmring.RingFile.create(path, 4, 128, generation=2)
+    seen = shmring.RingFile.attach(path)
+    try:
+        dead.requests.push({"q": 2})
+        assert (seen.generation, seen.state) == (2, shmring.STATE_INIT)
+        assert seen.requests.pending() == seen.completions.pending() == 0
+        assert seen.requests.pop() is None and seen.read_stats() is None
+        assert not os.path.exists(f"{path}.tmp")
+        fresh.requests.push({"q": 3})
+        assert seen.requests.pop() == ({"q": 3}, b"")
+        assert dead.requests.pending() == 2
+    finally:
+        for ring in (seen, fresh, dead):
+            ring.close()
 
 
 @pytest.mark.parametrize("dispatch", ["async", "sync"])

@@ -17,6 +17,7 @@ from predictionio_tpu_torch.data.storage.hdfs import (
     StorageClient,
     WebHDFSTransport,
 )
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 
 class TestHDFSModelsFake:

@@ -536,3 +536,62 @@ def test_verbatim_copies_equal_their_originals(path):
     changed = {(a, b) for a, b in zip(want_body, got_body) if a != b}
     assert changed == VERBATIM[path]
 
+
+
+_ANALYZER_PROBE = r"""
+import importlib, pkgutil, sys
+
+for name in ("torch", "jax", "numpy"):
+    sys.modules[name] = None  # any import of them raises ImportError
+import predictionio_tpu_torch.analysis as pkg
+
+names = [pkg.__name__] + [
+    m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+] + ["predictionio_tpu_torch.tools.precommit"]
+for name in names:
+    importlib.import_module(name)
+from predictionio_tpu_torch.tools.cli import build_parser
+
+build_parser()  # the console, the check verb's flags included
+leaked = sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("torch", "jax", "jaxlib", "numpy", "triton", "predictionio_tpu")
+    and sys.modules[m] is not None
+)
+assert not leaked, leaked
+print(len(names), " ".join(names))
+"""
+
+
+def test_the_analyzer_imports_neither_torch_nor_the_reference():
+    """``pio check`` analyzes the package without importing it: every
+    module of ``predictionio_tpu_torch/analysis/``, the pre-commit entry
+    and the console's parser import in a fresh interpreter where torch,
+    jax and numpy cannot be imported, and no analyzer source names them
+    at any depth."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", _ANALYZER_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    count, *walked = out.stdout.split()
+    for module in ("astutil", "callgraph", "threadroles", "locksets", "packageindex",
+                   "flowgraph", "protocols", "engine", "rules_concurrency",
+                   "rules_resources", "rules_protocol", "lockwatch", "leakwatch",
+                   "__main__"):
+        assert f"predictionio_tpu_torch.analysis.{module}" in walked
+    assert int(count) == 16
+    analyzer = os.path.join(REPO, "predictionio_tpu_torch", "analysis")
+    for name in sorted(os.listdir(analyzer)):
+        if name.endswith(".py"):
+            with open(os.path.join(analyzer, name)) as f:
+                tree = ast.parse(f.read())
+            imported = {alias.name.split(".")[0] for node in ast.walk(tree)
+                        if isinstance(node, ast.Import) for alias in node.names}
+            imported |= {node.module.split(".")[0] for node in ast.walk(tree)
+                         if isinstance(node, ast.ImportFrom) and node.level == 0
+                         and node.module}
+            assert not imported & {"torch", "jax", "numpy", "triton"}, name
+            assert imported - {"__future__"} <= set(sys.stdlib_module_names) | {
+                "predictionio_tpu_torch"}, (name, imported)

@@ -53,6 +53,7 @@ from predictionio_tpu_torch.workflow.create_server import (
 from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 from predictionio_tpu_torch.workflow.microbatch import BatchConfig
 from test_torch_online import basedir, trained_variant  # noqa: F401
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 RETRIEVAL = {"mode": "mips", "shortlist": 32, "blockItems": 64, "blockTopk": 16}
 USERS, ITEMS, RANK = 24, 300, 16

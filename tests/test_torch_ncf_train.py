@@ -53,6 +53,7 @@ from predictionio_tpu_torch.models.ncf.model import (
 from predictionio_tpu_torch.models.recommendation import RatingsData
 from predictionio_tpu_torch.tools import cli
 from predictionio_tpu_torch.workflow.checkpoint import CheckpointManager
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 ALGO = {"embedDim": 8, "hidden": [16, 8], "epochs": 6, "batchSize": 32,
         "learningRate": 0.02, "seed": 1}

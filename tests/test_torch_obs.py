@@ -38,6 +38,7 @@ from predictionio_tpu_torch.workflow.core_workflow import run_train
 from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 from test_torch_eval import ALS, stores, variant_obj  # noqa: F401
 from test_torch_store_train import basedir, write_json  # noqa: F401
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 
 def journal(path) -> list[dict]:

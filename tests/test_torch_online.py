@@ -67,6 +67,7 @@ from predictionio_tpu_torch.parallel.als import ALSConfig, ALSModel
 from predictionio_tpu_torch.tools import cli
 from predictionio_tpu_torch.workflow.core_workflow import run_train
 from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 ATOL = 1e-4
 APP = "OnlineApp"

@@ -31,6 +31,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 USERS, ITEMS, PER_USER = 50, 700, 30

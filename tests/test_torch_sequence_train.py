@@ -41,6 +41,7 @@ from predictionio_tpu_torch.models.sequence.model import (
 )
 from predictionio_tpu_torch.parallel.mesh import Mesh as TorchMesh
 from predictionio_tpu_torch.tools import cli
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEQUENCE_JSON = os.path.join(REPO, "examples", "sequence", "engine.json")

@@ -22,6 +22,7 @@ from predictionio_tpu.models.recommendation.engine import (
 from predictionio_tpu.parallel.als import ALSModel as JaxALSModel
 from predictionio_tpu_torch.models.recommendation import model_from_arrays, save_model
 from predictionio_tpu_torch.tools.cli import build_query_server
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 RETRIEVAL = {"mode": "mips", "shortlist": 32, "blockItems": 64, "blockTopk": 16}
 

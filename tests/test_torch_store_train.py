@@ -55,6 +55,7 @@ from predictionio_tpu_torch.workflow.core_workflow import (
     run_train,
 )
 from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ALGO = {"rank": 8, "numIterations": 6, "lambda": 0.05, "seed": 3,

@@ -31,6 +31,7 @@ from predictionio_tpu_torch.models import _als_common as torch_common
 from predictionio_tpu_torch.models.recommendation import ALSAlgorithm, load_model
 from predictionio_tpu_torch.tools import cli
 from predictionio_tpu_torch.workflow import checkpoint as torch_checkpoint
+from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 ALGO = {"rank": 8, "numIterations": 6, "lambda": 0.05, "seed": 3,
         "implicitPrefs": False, "checkpointInterval": 1}

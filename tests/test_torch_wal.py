@@ -177,3 +177,46 @@ def test_followers_poll_alike(tmp_path, partitions):
         cursor = _mod(reader, "online.follower").TailCursor(path)
         assert (cursor.seqno, cursor.until_ms, cursor.snapshot_rows) == (45, 1234, 7)
     assert polls(PACKAGES[0], path) == polls(PACKAGES[1], path)
+
+
+@pytest.mark.parametrize("damage", ["lost", "emptied", "cut short"])
+def test_a_lost_or_torn_checkpoint_only_lengthens_the_replay(tmp_path, monkeypatch,
+                                                            damage):
+    """The risk ``pio check`` accepts at ``WriteAheadLog.checkpoint``
+    (R003: its rename has no fsync before it). A checkpoint that a crash
+    lost, emptied or cut short ("40" -> "4") makes the next startup replay
+    start at the oldest retained record, re-delivering records the store
+    already holds -- never losing one: the store ends with every event
+    once, and the replay re-derives the checkpoint."""
+    port = PACKAGES[1]
+    wal_mod, ingest = _mod(port, "data.wal"), _mod(port, "data.ingest")
+    directory = str(tmp_path / "wal")
+    pending = write_log(port, directory, 1)
+    checkpoint = wal_mod.read_checkpoint(directory)
+    oldest = wal_mod.oldest_seqno(directory)
+    assert (checkpoint, len(pending[0])) == (40, 20) and 1 < oldest <= checkpoint
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path / "store"))
+    storage = _mod(port, "data.storage")
+    storage.reset()
+    try:
+        l_events = storage.get_l_events()
+        l_events.init_channel(1)
+        # the storage flush the checkpoint stood for (P = 1: event k is seqno k + 1)
+        l_events.insert_batch([(e, 1, None) for e in _events(port)[:checkpoint]])
+        path = os.path.join(directory, "wal.ckpt")
+        if damage == "lost":
+            os.remove(path)
+        else:
+            with open(path, "w") as f:
+                f.write("" if damage == "emptied" else str(checkpoint)[:-1])
+        wal = wal_mod.PartitionedWal(directory)
+        try:
+            replayed = ingest.replay_partitioned_wal(wal)
+        finally:
+            wal.close()
+        assert replayed == 60 - oldest + 1 > len(pending[0])
+        stored = sorted(e.to_json_obj()["eventId"] for e in l_events.find(app_id=1))
+        assert stored == [f"ev{k:04d}" for k in range(60)]
+        assert wal_mod.read_checkpoint(directory) == 60
+    finally:
+        storage.reset()
