@@ -228,6 +228,23 @@ script exits non-zero and prints no result):
    (the deploy process exits 0) and ``stop-all`` (no daemon left). Any
    verb that exits non-zero fails the phase; its line carries each
    step's seconds and the launch counts.
+   dase_engine -- a user's engine module on the same store after
+   quickstart, written against ``predictionio_tpu_torch.controller``
+   into an engine directory whose engine.json names its
+   ``engineFactory``: the recommendation datasource, a preparator that
+   gives ALS's CSR and NCF's COO, two algorithm blocks (``ALSAlgorithm``
+   with ``examples/recommendation/engine.json``'s params and mips,
+   ``NCFAlgorithm`` with ``examples/ncf/engine.json``'s, epochs 5 -> 1),
+   each a subclass taking its half, and a Serving that answers both
+   predictions by name. ``pio train`` through ``cli.main`` in this
+   process (B1 above 0), ``pio deploy --max-batch-size 1`` as a process
+   (batching off, so every known-user query runs B3), 16 known users'
+   queries, ``/reload`` and one more query, B2 and B3 read from the
+   deployed process's ``/metrics`` (B2 above 0, B3 at least 16), each
+   part's items equal and scores within 1e-5 of what ``ALSAlgorithm``
+   and ``NCFAlgorithm`` answer in this process from the instance's
+   models, ``pio undeploy`` (the process exits 0). Its line carries the
+   launch counts, the largest score gaps and each step's seconds.
    templates -- the first 10,000,000 of phase 6's 20,000,000 ratings (a
    depth cut that keeps the script in its limit beside dist_classify) as
    the templates' events
@@ -293,9 +310,10 @@ script exits non-zero and prints no result):
    answer equal to the materialized twin's ``predict``.
    dist_train -- multi-process ALS training on ``torch.distributed``:
    the recommendation engine.json (the 256 cap, mips, ``seenFilter:
-   "live"``) on the first 2,500,000 of phase 6's ratings (cut from all
-   20M to 5,000,000 beside dist_models, then to 2,500,000 beside the
-   pio_check phase) as ``pio train``'s core
+   "live"``) on the first 1,250,000 of phase 6's ratings (cut from all
+   20M to 5,000,000 beside dist_models, to 2,500,000 beside the
+   pio_check phase, then to 1,250,000 beside dase_engine) as ``pio
+   train``'s core
    (``run_train``) in ranks this script starts as ``chip_smoke.py
    --dist-worker`` under the launch contract's env: (a) one rank in
    an NCCL group, mesh [1, 1]; (b) two ranks sharing the card (gloo, which takes
@@ -379,7 +397,7 @@ script exits non-zero and prints no result):
    trained in properties mode (naive-bayes) and held to the CPU; the
    same SMS events in an Elasticsearch-fake store (all three
    repositories) and an HBase-fake event store: ``run_train`` on the
-   card, the blob read back through ``load_serving_model`` from that
+   card, the blob read back through ``Engine.prepare_deploy`` from that
    store, its answers bit-equal to the sqlite store's model's.
    classify_scale -- the trainers alone at 262,144 messages x hashDim
    4096 (4.29 GB of f32 on the card): Naive Bayes (held to the CPU at
@@ -534,9 +552,10 @@ script exits non-zero and prints no result):
    seconds, the launches, the card's name and power limit):
    ingest_bench ``run_ab`` (32 x 50 events, sync vs WAL group commit;
    the SIGKILL crash cycle: 0 lost, 0 duplicated, an idempotent second
-   replay); train_bench ``run_ab`` at 100,000 events (cut from 2,000,000:
-   the host populate; 200,000 before the pio_check phase) with the
-   refresh identity bit for bit on 100,000 (its 200,000 before);
+   replay); train_bench ``run_ab`` at 50,000 events (cut from 2,000,000:
+   the host populate; 200,000 before the pio_check phase, 100,000 before
+   dase_engine) with the refresh identity bit for bit on 50,000 (its
+   200,000 before);
    eval_bench at its defaults and at 2,048 items (recall@10 and
    identity 1.0, B1 in both, B2 in the wide run: 192 items are their
    own shortlist); als_stream_bench ``run_ab`` at rank 16 over 1,500,000
@@ -1433,7 +1452,6 @@ def phase_serve_fabric(rng: np.random.Generator, workdir: str) -> dict:
     just after it."""
     import dataclasses as _dc
 
-    from predictionio_tpu_torch.controller.engine import serialize_model
     from predictionio_tpu_torch.models.recommendation import ALSAlgorithm, load_model
     from predictionio_tpu_torch.online.registry import ModelRegistry
     from predictionio_tpu_torch.ops import mips
@@ -1445,7 +1463,7 @@ def phase_serve_fabric(rng: np.random.Generator, workdir: str) -> dict:
         create_multiproc_query_server,
         create_sharded_query_server,
     )
-    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+    from predictionio_tpu_torch.workflow.json_extractor import build_engine, load_engine_variant
 
     t_phase = time.perf_counter()
     model_dir = os.path.join(workdir, "model")
@@ -1515,8 +1533,12 @@ def phase_serve_fabric(rng: np.random.Generator, workdir: str) -> dict:
     # (d) the sharded fabric on registry versions 1 and 2
     with fresh_store(workdir, "fabric_store"):
         variant = load_engine_variant(engine_json)
-        template = variant.template
+        engine = build_engine(variant)
         algorithm = ALSAlgorithm(variant.engine_params.algorithm_params_list[0][1], device="cuda")
+
+        def blob_of(model):
+            return engine.serialize_models(None, variant.engine_params, "", [model])
+
         base = load_model(model_dir)
         factors = base.als.user_factors.copy()
         changed = rng.choice(sorted({base.user_index[q["user"]] for q in known}),
@@ -1528,9 +1550,9 @@ def phase_serve_fabric(rng: np.random.Generator, workdir: str) -> dict:
         t0 = time.perf_counter()
         for model in (base, second):
             registry.publish(
-                serialize_model(template, model),
+                blob_of(model),
                 meta={"source": "chip_smoke", "engine_params": variant.engine_params.to_json_obj()},
-                shard_blobs=[serialize_model(template, algorithm.shard_model(model, k, FABRIC_SHARDS))
+                shard_blobs=[blob_of(algorithm.shard_model(model, k, FABRIC_SHARDS))
                              for k in range(FABRIC_SHARDS)],
             )
         publish_s = time.perf_counter() - t0
@@ -2605,7 +2627,7 @@ def phase_store_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
     from predictionio_tpu_torch.data.storage import sql_common
     from predictionio_tpu_torch.ops import als_gram, mips
     from predictionio_tpu_torch.tools import cli
-    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model, run_train
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_models, run_train
     from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 
     engine_json = os.path.join(repo, "examples", "recommendation", "engine.json")
@@ -2660,7 +2682,8 @@ def phase_store_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
                       instance_id=instance.id,
                       instance_status=recorded.status, blob_bytes=len(blob.models),
                       train_verb_s=train_verb_s,
-                      **{k: timings[k] for k in ("read_s", "prepare_s", "train_s", "persist_s")})
+                      read_s=timings["read"], prepare_s=timings["prepare"],
+                      train_s=timings["train[als]"], persist_s=timings["persist"])
 
         # the same events through the events-file stand-in (no time ties,
         # so both reads encode alike): factors within the f32 bar
@@ -2668,7 +2691,7 @@ def phase_store_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
         file_model = cli.train(variant_path, events, os.path.join(workdir, "ml1m_file"),
                                device="cuda")
         result["file_train_s"] = time.perf_counter() - t0
-        _, store_model = load_instance_model(load_engine_variant(variant_path))
+        _, [store_model] = load_instance_models(load_engine_variant(variant_path))
         if store_model.user_index != file_model.user_index or (
                 store_model.item_ids != file_model.item_ids):
             raise AssertionError("the store and the file encode users or items differently")
@@ -2789,13 +2812,13 @@ def instrument_loop(loop) -> tuple[dict, dict]:
     loop.snapshots.ensure = timed("snapshot_s", loop.snapshots.ensure)
     loop.registry.publish = timed("publish_s", loop.registry.publish)
     loop._notify_swap = timed("swap_s", loop._notify_swap)
-    fold = loop.algorithm.fold_in
+    fold = loop.algorithms[0].fold_in
 
     def spy(model, delta):
         captured.update(base=model, delta=delta)
         return fold(model, delta)
 
-    loop.algorithm.fold_in = timed("fold_s", spy)
+    loop.algorithms[0].fold_in = timed("fold_s", spy)
     return spans, captured
 
 
@@ -2861,7 +2884,7 @@ def phase_follow_path(rng: np.random.Generator, repo: str, workdir: str) -> dict
             loop = RetrainLoop(load_engine_variant(variant_path),
                                RetrainConfig(notify_urls=[url]), device="cuda")
             spans, captured = instrument_loop(loop)
-            base = loop.model
+            base = loop.models[0]
             users = np.asarray(list(base.user_index))
             items = np.asarray(base.item_ids)
 
@@ -2895,8 +2918,8 @@ def phase_follow_path(rng: np.random.Generator, repo: str, workdir: str) -> dict
             delta = captured["delta"]
             plain = fold_in_als_model(
                 base.als, base.user_index, base.item_ids, base.item_index, delta,
-                dataclasses.replace(loop.algorithm._config(), solver="xla"), device="cuda")
-            folded = loop.model
+                dataclasses.replace(loop.algorithms[0]._config(), solver="xla"), device="cuda")
+            folded = loop.models[0]
             fold_err = float(np.abs(folded.als.user_factors - plain.als.user_factors).max())
             if not fold_err <= FIT_ATOL:
                 raise AssertionError(f"folded rows differ from the plain path by {fold_err}")
@@ -3091,12 +3114,13 @@ SEQ_EVAL_MODULE = '''\
 held-out last item (leave-one-out), built of the port's objects."""
 import json
 
-from predictionio_tpu_torch.controller.engine import TEMPLATES, EngineParams
+from predictionio_tpu_torch.controller.engine import EngineParams
 from predictionio_tpu_torch.controller.metrics import (
     EngineParamsGenerator,
     Evaluation,
     OptionAverageMetric,
 )
+from predictionio_tpu_torch.models.sequence import engine_factory
 
 
 def hit_at_10(info, query, prediction, actual):
@@ -3104,7 +3128,7 @@ def hit_at_10(info, query, prediction, actual):
     return float(actual[0] in got)
 
 
-EVALUATION = Evaluation(template=TEMPLATES["sequence"],
+EVALUATION = Evaluation(engine=engine_factory(),
                         metric=OptionAverageMetric(score=hit_at_10))
 with open(%r) as f:
     _obj = json.load(f)
@@ -3131,7 +3155,7 @@ def phase_eval_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
     from predictionio_tpu_torch.models.sequence import engine as seq_engine
     from predictionio_tpu_torch.ops import als_gram, mips
     from predictionio_tpu_torch.tools import cli
-    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_models
     from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
     from predictionio_tpu_torch.workflow.microbatch import BatchConfig
 
@@ -3207,7 +3231,7 @@ def phase_eval_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
                             "retrieval_guard": pinned["retrieval_guard"]}
 
         # (c) batchpredict of every user of the latest instance
-        instance, model = load_instance_model(variant)
+        instance, [model] = load_instance_models(variant)
         users = sorted(model.user_index, key=model.user_index.get)
         del model
         queries = [{"user": u, "num": 10} for u in users]
@@ -3263,7 +3287,7 @@ def phase_eval_path(rng: np.random.Generator, repo: str, workdir: str) -> dict:
         }
         del rows, served
         # B2 at the 4,096-row chunk: held to its plain version, timed
-        _, model = load_instance_model(variant)
+        _, [model] = load_instance_models(variant)
         factors = model.als.item_factors
         chunk = min(BATCH_CHUNK, model.als.user_factors.shape[0] // 8 * 8)
         args = stage1_inputs(factors, model.als.user_factors[:chunk], BLOCK_ITEMS)
@@ -3428,7 +3452,7 @@ def phase_quickstart(repo: str, workdir: str) -> dict:
     from predictionio_tpu_torch.data import storage
     from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
     from predictionio_tpu_torch.ops import als_gram, mips
-    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_models
     from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 
     engine_dir = os.path.join(workdir, "quickstart")
@@ -3550,7 +3574,7 @@ def phase_quickstart(repo: str, workdir: str) -> dict:
             procs.append(deploy)
             wait_http(f"http://127.0.0.1:{deploy_port}/", deploy)
             seconds["deploy"] = time.perf_counter() - t0
-            _, model = load_instance_model(load_engine_variant(engine_json), instance_id)
+            _, [model] = load_instance_models(load_engine_variant(engine_json), instance_id)
             known = [u for u in model.user_index if u != QUICKSTART_USER]
             picked = np.random.default_rng(QUICKSTART_QUERIES).choice(
                 len(known), QUICKSTART_QUERIES - 1, replace=False)
@@ -3634,6 +3658,217 @@ def phase_quickstart(repo: str, workdir: str) -> dict:
         "seconds": seconds, "phase_s": time.perf_counter() - started_at,
     }
     emit({"phase": "quickstart", **result})
+    return result
+
+
+# --------------------------------------------------------------------------
+# the DASE engine: a user's engine module through the console, two
+# algorithm blocks (ALS with mips, NCF) combined by the user's Serving
+# --------------------------------------------------------------------------
+
+#: the user engine module the dase_engine phase writes, against the
+#: port's controller: the recommendation datasource, a preparator giving
+#: ALS's CSR and NCF's COO, each template's algorithm behind a subclass
+#: that takes its half, and a Serving that returns both predictions
+DASE_MODULE = "chip_dase_engine"
+DASE_ENGINE = '''\
+"""ALS and NCF over one datasource, both predictions served by name."""
+
+from predictionio_tpu_torch.controller import Engine, Preparator, Serving
+from predictionio_tpu_torch.models.ncf.engine import NCFAlgorithm, NCFPreparator
+from predictionio_tpu_torch.models.recommendation.engine import (
+    ALSAlgorithm,
+    RecommendationDataSource,
+    RecommendationPreparator,
+)
+
+
+class BothPreparator(Preparator):
+    """ALS's CSR and NCF's COO of the same ratings."""
+
+    def prepare(self, ctx, training_data):
+        return (RecommendationPreparator(self.params).prepare(ctx, training_data),
+                NCFPreparator(self.params).prepare(ctx, training_data))
+
+
+class UserALS(ALSAlgorithm):
+    def train(self, ctx, prepared_data):
+        return super().train(ctx, prepared_data[0])
+
+
+class UserNCF(NCFAlgorithm):
+    def train(self, ctx, prepared_data):
+        return super().train(ctx, prepared_data[1])
+
+
+class ByName(Serving):
+    def serve(self, query, predictions):
+        return {"als": predictions[0], "ncf": predictions[1]}
+
+
+def engine_factory():
+    return Engine(RecommendationDataSource, BothPreparator,
+                  {"als": UserALS, "ncf": UserNCF}, ByName)
+'''
+#: known users queried in the deployed process (each a B3 launch)
+DASE_QUERIES = 16
+#: the phase's depth cut: NCF's epochs 5 -> 1 (examples/ncf/engine.json)
+DASE_NCF_EPOCHS = 1
+#: a served score against the single-template algorithm's in process
+DASE_SCORE_TOL = 1e-5
+
+
+def dase_engine_json(repo: str, engine_dir: str) -> tuple[str, dict, dict]:
+    """The user engine's engine.json in ``engine_dir``: the params of
+    ``examples/recommendation/engine.json`` (with ``"retrieval": {"mode":
+    "mips"}``) and ``examples/ncf/engine.json`` (epochs cut), on
+    store_path's MLApp. Returns its path and the two algorithms' params."""
+    rec, ncf = (json.load(open(os.path.join(repo, "examples", t, "engine.json")))
+                for t in ("recommendation", "ncf"))
+    als_params = dict(rec["algorithms"][0]["params"], retrieval={"mode": "mips"})
+    ncf_params = dict(ncf["algorithms"][0]["params"], epochs=DASE_NCF_EPOCHS)
+    os.makedirs(engine_dir, exist_ok=True)
+    with open(os.path.join(engine_dir, f"{DASE_MODULE}.py"), "w") as f:
+        f.write(DASE_ENGINE)
+    path = os.path.join(engine_dir, "engine.json")
+    with open(path, "w") as f:
+        json.dump({"id": "dase-engine", "engineFactory": f"{DASE_MODULE}.engine_factory",
+                   "datasource": {"params": dict(rec["datasource"]["params"],
+                                                 appName="MLApp")},
+                   "algorithms": [{"name": "als", "params": als_params},
+                                  {"name": "ncf", "params": ncf_params}],
+                   "sparkConf": rec["sparkConf"]}, f)
+    return path, als_params, ncf_params
+
+
+def same_scores(got: dict, want: dict, what: str) -> float:
+    """The same items in order, scores within ``DASE_SCORE_TOL``; returns
+    the largest score gap."""
+    if [s["item"] for s in got["itemScores"]] != [s["item"] for s in want["itemScores"]]:
+        raise AssertionError(f"{what}: served {got}, the algorithm answers {want}")
+    gaps = [abs(a["score"] - b["score"]) for a, b in zip(got["itemScores"],
+                                                        want["itemScores"])]
+    if gaps and max(gaps) > DASE_SCORE_TOL:
+        raise AssertionError(f"{what}: scores {max(gaps)} apart")
+    return max(gaps, default=0.0)
+
+
+def phase_dase_engine(repo: str, workdir: str) -> dict:
+    """A user engine module (``DASE_ENGINE``) in an engine directory, its
+    engine.json naming ``chip_dase_engine.engine_factory``, on
+    store_path's store as quickstart left it: ``pio train --engine-dir``
+    through ``cli.main`` in this process (B1's counter read: both blocks
+    trained, one instance, one blob), ``pio deploy`` as a process with
+    batching off (``--max-batch-size 1``: every known-user query runs
+    NCF's unbatched predict, one B3 launch, and ALS's mips search, B2),
+    16 known users' queries, ``GET /reload`` and one more query, B2 and
+    B3 read from the deployed process's ``/metrics``, ``pio undeploy``
+    (the process exits). Each answer is ``{"als": ..., "ncf": ...}``, each
+    part the items and scores (within ``DASE_SCORE_TOL``) that
+    ``ALSAlgorithm`` and ``NCFAlgorithm`` with the engine.json's params
+    answer in this process from the blob's models
+    (``load_instance_models``)."""
+    from predictionio_tpu_torch.models.ncf import NCFAlgorithm
+    from predictionio_tpu_torch.models.ncf import kernel as ncf_kernel
+    from predictionio_tpu_torch.models.recommendation import ALSAlgorithm
+    from predictionio_tpu_torch.ops import als_gram, mips
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_models
+    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+
+    started_at = time.perf_counter()
+    seconds: dict = {}
+    engine_dir = os.path.join(workdir, "dase_engine")
+    engine_json, als_params, ncf_params = dase_engine_json(repo, engine_dir)
+    deploy = None
+    with fresh_store(workdir, "store") as basedir:
+        env = dict(os.environ, PIO_FS_BASEDIR=basedir, PYTHONPATH=repo)
+        try:
+            als_gram.gram_rhs.launches = 0
+            mips.mips_block_topk.launches = 0
+            ncf_kernel.ncf_score_all_items.launches = 0
+            zero_flash_counts()
+            t0 = time.perf_counter()
+            trained = cli_out(["train", "--engine-dir", engine_dir, "--device", "cuda"])
+            seconds["train"] = time.perf_counter() - t0
+            counts = kernel_counts()
+            instance_id = said(trained, "Engine instance ID")
+            if counts["gram_rhs"] < 1:
+                raise AssertionError("the user engine's train never launched B1")
+
+            port = free_port()
+            t0 = time.perf_counter()
+            deploy = subprocess.Popen(
+                [sys.executable, "-m", "predictionio_tpu_torch.tools.cli", "deploy",
+                 "--engine-dir", engine_dir, "--ip", "127.0.0.1", "--port", str(port),
+                 "--device", "cuda", "--max-batch-size", "1"],
+                env=env, cwd=repo, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True)
+            wait_http(f"http://127.0.0.1:{port}/", deploy)
+            seconds["deploy"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            _, (als_model, ncf_model) = load_instance_models(
+                load_engine_variant(engine_json), instance_id, device="cuda")
+            known = sorted(set(als_model.user_index) & set(ncf_model.user_index))
+            picked = np.random.default_rng(DASE_QUERIES).choice(
+                len(known), DASE_QUERIES, replace=False)
+            queries = [{"user": known[i], "num": 10} for i in sorted(picked)]
+            seconds["load_models"] = time.perf_counter() - t0
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            try:
+                t0 = time.perf_counter()
+                served = [post(conn, q)[0] for q in queries]
+                seconds["queries"] = time.perf_counter() - t0
+                conn.request("GET", "/reload")
+                reload_resp = conn.getresponse()
+                reloaded = json.loads(reload_resp.read())
+                if reload_resp.status != 200 or reloaded["engineInstanceId"] != instance_id:
+                    raise AssertionError(f"/reload answered {reload_resp.status}: {reloaded}")
+                after_reload = post(conn, queries[0])[0]
+            finally:
+                conn.close()
+            if after_reload != served[0]:
+                raise AssertionError(f"after /reload {after_reload} != {served[0]}")
+            metrics = scrape(port)
+            counts["mips_block_topk"] = int(metrics.get(
+                'pio_kernel_launches_total{kernel="mips_block_topk"}', 0.0))
+            counts["ncf_score_all_items"] = int(metrics.get(
+                'pio_kernel_launches_total{kernel="ncf_score_all_items"}', 0.0))
+            if counts["mips_block_topk"] < 1:
+                raise AssertionError("the deployed user engine never launched B2")
+            if counts["ncf_score_all_items"] < DASE_QUERIES:
+                raise AssertionError(f"the deployed user engine launched B3 "
+                                     f"{counts['ncf_score_all_items']} times for "
+                                     f"{DASE_QUERIES} queries")
+
+            als = ALSAlgorithm(als_params, device="cuda")
+            ncf = NCFAlgorithm(ncf_params, device="cuda")
+            gaps = {"als": 0.0, "ncf": 0.0}
+            for q, body in zip(queries, served):
+                if set(body) != {"als", "ncf"} or not body["ncf"]["itemScores"]:
+                    raise AssertionError(f"{q}: served {body}")
+                gaps["als"] = max(gaps["als"], same_scores(
+                    body["als"], als.predict(als_model, q), f"als {q}"))
+                gaps["ncf"] = max(gaps["ncf"], same_scores(
+                    body["ncf"], ncf.predict(ncf_model, q), f"ncf {q}"))
+
+            if "Engine server stopping." not in cli_out(
+                    ["undeploy", "--ip", "127.0.0.1", "--port", str(port)]):
+                raise AssertionError("undeploy did not stop the server")
+            if deploy.wait(timeout=120) != 0:
+                raise AssertionError(f"the deploy process exited {deploy.returncode}: "
+                                     f"{deploy.stderr.read()[-4000:]}")
+            if not pid_gone(deploy.pid):
+                raise AssertionError("the deploy process is still there")
+        finally:
+            if deploy is not None and deploy.poll() is None:
+                deploy.kill()
+                deploy.wait(timeout=30)
+    result = {"instance_id": instance_id, "queries": len(queries),
+              "launches": counts, "max_score_gap": gaps,
+              "ncf_epochs": DASE_NCF_EPOCHS, "seconds": seconds,
+              "phase_s": time.perf_counter() - started_at}
+    emit({"phase": "dase_engine", **result})
     return result
 
 
@@ -4187,25 +4422,30 @@ def timed_cooccurrence(module, calls: list, check=None):
         module.cooccurrence_indicators = real
 
 
+def template_algorithm(template: str):
+    """``(name, class)`` of a ported template's one algorithm."""
+    from predictionio_tpu_torch.workflow.json_extractor import template_engine
+
+    return next(iter(template_engine(template).algorithm_class_map.items()))
+
+
 def serve_and_batch(template: str, params: dict, model, workdir: str, queries: list,
                     batch: list) -> dict:
     """Save and deploy a cooccurrence model with ``params`` through the
     ``deploy`` code path on cuda; every served answer equals in-process
     ``predict``, and a ``batch_predict`` of ``batch`` equals per-query
     ``predict``."""
-    from predictionio_tpu_torch.controller.engine import TEMPLATES
-
-    tmpl = TEMPLATES[template]
+    name, cls = template_algorithm(template)
     model_dir = os.path.join(workdir, f"{template}_model")
     t0 = time.perf_counter()
-    tmpl.save_model(model, model_dir)
+    cls.model_files.save(model, model_dir)
     save_s = time.perf_counter() - t0
     engine_json = os.path.join(workdir, f"{template}.json")
     with open(engine_json, "w") as f:
-        json.dump({"algorithms": [{"name": tmpl.algorithm, "params": params}]}, f)
+        json.dump({"algorithms": [{"name": name, "params": params}]}, f)
     times = []
     served, deployed, deploy_s = serve_model(engine_json, model_dir, queries, times)
-    algorithm = tmpl.algorithm_class(params, device="cuda")
+    algorithm = cls(params, device="cuda")
     for q, body in zip(queries, served):
         if body != algorithm.predict(deployed, q):
             raise AssertionError(f"{template}: served {q} differs from predict")
@@ -4342,12 +4582,11 @@ def phase_store_templates(rng: np.random.Generator, repo: str, workdir: str) -> 
     the instance's model's ``predict``; on the e-commerce deploy a
     ``$set`` of ``unavailableItems`` drops the top item from the next
     answer without a retrain."""
-    from predictionio_tpu_torch.controller.engine import TEMPLATES
     from predictionio_tpu_torch.data import storage
     from predictionio_tpu_torch.data.event import DataMap, Event
     from predictionio_tpu_torch.ops import als_gram
     from predictionio_tpu_torch.tools.cli import build_query_server
-    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_models
     from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 
     events = os.path.join(workdir, "template_events.jsonl")
@@ -4372,8 +4611,8 @@ def phase_store_templates(rng: np.random.Generator, repo: str, workdir: str) -> 
             train_s = time.perf_counter() - t0
             b1 = als_gram.gram_rhs.launches  # read here
             variant = load_engine_variant(variant_path)
-            _, model = load_instance_model(variant, instance)
-            algorithm = TEMPLATES[template].algorithm_class(
+            _, [model] = load_instance_models(variant, instance)
+            algorithm = template_algorithm(template)[1](
                 variant.engine_params.algorithm_params_list[0][1], device="cuda")
             server, service = build_query_server(variant_path, port=0, device="cuda")
             thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -4660,12 +4899,11 @@ def phase_stream_pio(repo: str, stream_root: str, store: dict, templates: dict,
     "streaming"``: each model equal to its materialized twin of
     store_templates (the factors within 1e-4, the indicators bit for
     bit), each deploy's answers equal dicts to the twin's."""
-    from predictionio_tpu_torch.controller.engine import TEMPLATES
     from predictionio_tpu_torch.data import storage
     from predictionio_tpu_torch.models.recommendation import ALSAlgorithm
     from predictionio_tpu_torch.ops import als_gram, mips
     from predictionio_tpu_torch.tools.cli import build_query_server
-    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_models
     from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 
     result = {}
@@ -4687,8 +4925,8 @@ def phase_stream_pio(repo: str, stream_root: str, store: dict, templates: dict,
         b1 = als_gram.gram_rhs.launches      # read here
         instance = said(out, "Engine instance ID")
         variant = load_engine_variant(variant_path)
-        _, streamed = load_instance_model(variant, instance)
-        _, materialized = load_instance_model(variant, store["instance_id"])
+        _, [streamed] = load_instance_models(variant, instance)
+        _, [materialized] = load_instance_models(variant, store["instance_id"])
         blocks = snapshot_blocks(basedir)
         iterations = variant.engine_params.algorithm_params_list[0][1].get_or(
             "numIterations", 10)
@@ -4750,10 +4988,10 @@ def phase_stream_pio(repo: str, stream_root: str, store: dict, templates: dict,
             train_s = time.perf_counter() - t0
             b1 = als_gram.gram_rhs.launches  # read here
             variant = load_engine_variant(variant_path)
-            _, model = load_instance_model(variant, instance)
-            _, twin = load_instance_model(variant, templates["store_instances"][template])
+            _, [model] = load_instance_models(variant, instance)
+            _, [twin] = load_instance_models(variant, templates["store_instances"][template])
             params = variant.engine_params.algorithm_params_list[0][1]
-            algorithm = TEMPLATES[template].algorithm_class(params, device="cuda")
+            algorithm = template_algorithm(template)[1](params, device="cuda")
             entry = {"train_s": train_s, "b1_launches": b1}
             if template == "ecommerce":
                 blocks = snapshot_blocks(basedir) - before
@@ -4850,11 +5088,12 @@ DIST_LAUNCHES = (("a_nccl_1x1", [1, 1], "resident"), ("b_data_2x1", [2, 1], "res
                  ("c_model_1x2", [1, 2], "resident"), ("c_model_1x2_streamed", [1, 2], "streamed"))
 #: queries each launch's deploy answers through B2
 DIST_QUERIES = 16
-#: the resident launches' depth cut: the first 2,500,000 of phase 6's 20M
+#: the resident launches' depth cut: the first 1,250,000 of phase 6's 20M
 #: ratings (cut from all 20M to 5,000,000 beside the dist_models part,
-#: then to 2,500,000 beside the pio_check phase, to keep the script in its
-#: limit on the card's slower hosts)
-DIST_ALS_RATINGS = 2_500_000
+#: to 2,500,000 beside the pio_check phase, then to 1,250,000 beside the
+#: dase_engine phase, to keep the script in its limit on the card's
+#: slower hosts)
+DIST_ALS_RATINGS = 1_250_000
 #: B2 launches of a deploy's warm-up: one search of each retrieval index
 #: (dot for user scoring, cosine for similar items)
 WARM_UP_SEARCHES = 2
@@ -4898,10 +5137,12 @@ def dist_worker(spec: dict) -> int:
             raise AssertionError(f"rank {rank} said {out}")
         status = "COMPLETED" if rank == 0 else None
     else:
-        from predictionio_tpu_torch.controller.engine import TEMPLATES
         from predictionio_tpu_torch.models import recommendation as rec
         from predictionio_tpu_torch.workflow.core_workflow import run_train
-        from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+        from predictionio_tpu_torch.workflow.json_extractor import (
+            load_engine_variant,
+            template_engine,
+        )
 
         template = spec.get("template", "recommendation")
         if template == "sequence":
@@ -4922,7 +5163,7 @@ def dist_worker(spec: dict) -> int:
                     item_ids=[f"i{i}" for i in range(TRAIN_ITEMS)], app_name=spec["app"],
                     event_names=["rate", "buy"])
 
-        TEMPLATES[template].datasource_class.read_training = read_training
+        template_engine(template).data_source_class.read_training = read_training
         # the neural trainers report every step's loss (ALS journals iterations)
         log = None if template == "recommendation" else EpochLog()
         instance = run_train(load_engine_variant(spec["variant"]), device="cuda",
@@ -5013,7 +5254,7 @@ def phase_dist_train(ratings, store: dict, repo: str, workdir: str, stream_root:
     from predictionio_tpu_torch.ops import als_gram, mips
     from predictionio_tpu_torch.parallel.als import ALSConfig, ALSModel, als_fit, build_als_data
     from predictionio_tpu_torch.parallel.distributed import BACKEND_RULE
-    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_models
     from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 
     users, items, values, times = (a[:DIST_ALS_RATINGS] for a in ratings)
@@ -5088,9 +5329,9 @@ def phase_dist_train(ratings, store: dict, repo: str, workdir: str, stream_root:
             if ids[1:] != [None] * (n - 1) or recorded != [(ids[0], "COMPLETED")]:
                 raise AssertionError(f"{name}: new instances {recorded}, ranks said {ids}")
             loaded = load_engine_variant(variant_path)
-            _, model = load_instance_model(loaded, ids[0])
+            _, [model] = load_instance_models(loaded, ids[0])
             if streamed:
-                _, reference = load_instance_model(loaded, store["instance_id"])
+                _, [reference] = load_instance_models(loaded, store["instance_id"])
                 if (model.user_index != reference.user_index
                         or model.item_ids != reference.item_ids):
                     raise AssertionError(f"{name}: the vocabularies differ")
@@ -5358,7 +5599,7 @@ def phase_dist_models(ratings, seq: dict, repo: str, workdir: str, seed: int) ->
     from predictionio_tpu_torch.models.recommendation import RatingsData
     from predictionio_tpu_torch.models.sequence import SASRecAlgorithm
     from predictionio_tpu_torch.parallel.distributed import BACKEND_RULE
-    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_models
     from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 
     users, items, values, times = (a[:DIST_NCF_RATINGS] for a in ratings)
@@ -5479,7 +5720,7 @@ def phase_dist_models(ratings, seq: dict, repo: str, workdir: str, seed: int) ->
             if ids[1:] != [None] * (n - 1) or recorded != [(ids[0], "COMPLETED")]:
                 raise AssertionError(f"{name}: new instances {recorded}, ranks said {ids}")
             loaded = load_engine_variant(variant_path)
-            _, model = load_instance_model(loaded, ids[0])
+            _, [model] = load_instance_models(loaded, ids[0])
             gaps = {k: np.abs(np.asarray(model.state[k]) - reference["state"][k].numpy())
                     for k in reference["state"]}
             worst = max(gaps, key=lambda k: float(gaps[k].max()))
@@ -5847,16 +6088,17 @@ def serve_classifier(engine_json: str, queries: list, algorithm, model, cpu_algo
 
 
 SMS_EVAL_MODULE = '''\
-from predictionio_tpu_torch.controller.engine import TEMPLATES, EngineParams
+from predictionio_tpu_torch.controller.engine import EngineParams
 from predictionio_tpu_torch.controller.metrics import (
     AverageMetric, EngineParamsGenerator, Evaluation)
+from predictionio_tpu_torch.models.classification import engine_factory
 
 
 def accuracy(info, query, prediction, actual):
     return 1.0 if prediction["label"] == actual else 0.0
 
 
-EVALUATION = Evaluation(template=TEMPLATES["classification"],
+EVALUATION = Evaluation(engine=engine_factory(),
                         metric=AverageMetric(score=accuracy))
 GENERATOR = EngineParamsGenerator([EngineParams.from_json_obj({
     "datasource": {"params": {"appName": "%s", "evalFolds": 3}},
@@ -5900,15 +6142,18 @@ def remote_store_check(workdir: str, events_path: str, engine_json: str, queries
                        want: list) -> dict:
     """The SMS events in an Elasticsearch-fake store and in an HBase-fake
     event store: ``run_train`` of naive-bayes on the card, the instance
-    and blob in that store's model repository, ``load_serving_model``
+    and blob in that store's model repository, ``Engine.prepare_deploy``
     of them; every answer bit-equal to ``want`` (the sqlite store's)."""
-    from predictionio_tpu_torch.controller.engine import TEMPLATES, load_serving_model
+    from predictionio_tpu_torch.controller.base import TrainContext
     from predictionio_tpu_torch.data import storage
     from predictionio_tpu_torch.workflow.core_workflow import (
         engine_params_from_instance,
         run_train,
     )
-    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+    from predictionio_tpu_torch.workflow.json_extractor import (
+        load_engine_variant,
+        template_engine,
+    )
 
     out = {}
     for backend in ("elasticsearch", "hbase"):
@@ -5923,9 +6168,11 @@ def remote_store_check(workdir: str, events_path: str, engine_json: str, queries
             train_s = time.perf_counter() - t0
             models = storage.get_model_data_models()
             record = models.get(instance.id)
-            algorithm, model = load_serving_model(
-                TEMPLATES["classification"], engine_params_from_instance(instance),
-                record.models, device="cuda")
+            engine, params = template_engine("classification"), engine_params_from_instance(
+                instance)
+            [model] = engine.prepare_deploy(TrainContext(device="cuda"), params, instance.id,
+                                            record.models)
+            [algorithm] = engine._algorithms(params, "cuda")
             got = [algorithm.predict(model, q) for q in queries]
             if got != want:
                 raise AssertionError(f"{backend}: the answers differ from the sqlite store's")
@@ -5949,9 +6196,8 @@ def phase_classify_path(rng: np.random.Generator, repo: str, workdir: str) -> di
     on the CPU; properties mode on 10,000 users; the Elasticsearch- and
     HBase-fake stores."""
     from predictionio_tpu_torch.controller.base import TrainContext
-    from predictionio_tpu_torch.tools.cli import build_trainer
-    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model, train_model
-    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+    from predictionio_tpu_torch.tools.cli import load_variant
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_models
 
     labels, _, _, _, texts = sms_corpus(rng, SMS_SPAM, SMS_HAM)
     events_path = os.path.join(workdir, "sms_events.jsonl")
@@ -5981,22 +6227,20 @@ def phase_classify_path(rng: np.random.Generator, repo: str, workdir: str) -> di
                 instance = said(cli_out(["train", "--engine-json", engine_json,
                                          "--device", "cuda"]), "Engine instance ID")
             train_s = time.perf_counter() - t0
-            variant = load_engine_variant(engine_json)
-            _, model = load_instance_model(variant, instance)
-            _, template, datasource, preparator, cpu_algorithm = build_trainer(
-                engine_json, device="cpu")
+            variant, engine = load_variant(engine_json)
+            _, [model] = load_instance_models(variant, instance)
+            [cpu_algorithm] = engine._algorithms(variant.engine_params, "cpu")
             ctx = TrainContext(device="cpu")
             t0 = time.perf_counter()
             with lbfgs_recorder(records.setdefault("cpu", {})):
-                cpu_model = train_model(ctx, datasource, preparator, cpu_algorithm)
+                [cpu_model] = engine.train(ctx, variant.engine_params)
             cpu_train_s = time.perf_counter() - t0
-            data = datasource.read_training(ctx)
+            data = engine.data_source(variant.engine_params).read_training(ctx)
             x = model.space.vectorize_records(data.records)
             y = np.array([model.space.classes.index(l) for l in data.labels])
             entry = {"instance": instance, "train_s": train_s, "cpu_train_s": cpu_train_s,
                      **compare_classifiers(name, model, cpu_model, x, y, records)}
-            algorithm = template.algorithm_class(
-                variant.engine_params.algorithm_params_list[0][1], device="cuda")
+            [algorithm] = engine._algorithms(variant.engine_params, "cuda")
             entry["serve"] = serve_classifier(engine_json, queries, algorithm, model,
                                               cpu_algorithm, cpu_model, name == "naive_bayes")
             result[name] = entry
@@ -6046,10 +6290,10 @@ def phase_classify_path(rng: np.random.Generator, repo: str, workdir: str) -> di
         instance = said(cli_out(["train", "--engine-json", prop_json, "--device", "cuda"]),
                         "Engine instance ID")
         train_s = time.perf_counter() - t0
-        _, model = load_instance_model(load_engine_variant(prop_json), instance)
-        _, _, datasource, preparator, cpu_algorithm = build_trainer(prop_json, device="cpu")
-        ctx = TrainContext(device="cpu")
-        cpu_model = train_model(ctx, datasource, preparator, cpu_algorithm)
+        prop_variant, engine = load_variant(prop_json)
+        _, [model] = load_instance_models(prop_variant, instance)
+        [cpu_algorithm] = engine._algorithms(prop_variant.engine_params, "cpu")
+        [cpu_model] = engine.train(TrainContext(device="cpu"), prop_variant.engine_params)
         entry = compare_classifiers("properties", model, cpu_model, None, None, {},
                                     rows=PROPERTY_USERS)
         served = [cpu_algorithm.predict(model, {"features": s})["label"] for s in sample]
@@ -6432,7 +6676,7 @@ def phase_dist_classify(handoff: dict, workdir: str, seed: int) -> dict:
     apart). Two ranks on one card measure correctness and
     overhead, not scaling."""
     from predictionio_tpu_torch.data import storage
-    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_models
     from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 
     points = os.path.join(workdir, "km_points.npy")
@@ -6479,7 +6723,7 @@ def phase_dist_classify(handoff: dict, workdir: str, seed: int) -> dict:
         # logistic regression: rank 0's blob against the one-process card fit
         one = handoff["logistic_regression"]
         lr_json = handoff["lr_json"]
-        _, model = load_instance_model(load_engine_variant(lr_json), ids["logistic_regression"][0])
+        _, [model] = load_instance_models(load_engine_variant(lr_json), ids["logistic_regression"][0])
         records = {"cuda": {"iterates": [[arrays[0][f"w{k}"], arrays[0][f"b{k}"]]
                                          for k in range(1, LR_EARLY + 1)],
                             "stats": reports[0]["trains"]["logistic_regression"]["lbfgs"]},
@@ -6491,7 +6735,7 @@ def phase_dist_classify(handoff: dict, workdir: str, seed: int) -> dict:
                                        one["algorithm"], one["model"], False,
                                        instance_id=ids["logistic_regression"][0])
         result["logistic_regression"] = lr
-        _, nb = load_instance_model(load_engine_variant(handoff["nb_json"]),
+        _, [nb] = load_instance_models(load_engine_variant(handoff["nb_json"]),
                                     ids["naive_bayes"][0])
         result["naive_bayes"] = naive_bayes_within("dist_naive_bayes", nb.inner,
                                                    handoff["naive_bayes"]["model"].inner)
@@ -7836,11 +8080,11 @@ def flash_rows(check: dict, timed: dict, train_launches: dict, serve_launches: i
 # bench_tools: the six tools/*_bench.py tools of the port on the card
 # --------------------------------------------------------------------------
 
-#: train_bench's depth cut: 100,000 events of its 2,000,000, and of the
+#: train_bench's depth cut: 50,000 events of its 2,000,000, and of the
 #: refresh identity's 200,000 (the sqlite populates run on the host at
 #: ~15,000 events/s; 200,000 and the identity's own before the pio_check
-#: phase)
-BENCH_TRAIN_EVENTS = 100_000
+#: phase, 100,000 before the dase_engine phase)
+BENCH_TRAIN_EVENTS = 50_000
 #: serving_bench's depth cut: 480 requests of its 960 a client pool
 BENCH_SERVING_REQUESTS = 480
 #: eval_bench past its defaults: at 192 items the catalog is the 512-item
@@ -8168,6 +8412,7 @@ def main(argv: list[str] | None = None) -> int:
         follow = phase_follow_path(rng, repo, workdir)
         evaluated = phase_eval_path(rng, repo, workdir)
         quickstart = phase_quickstart(repo, workdir)
+        dase = phase_dase_engine(repo, workdir)
     b1_launches = trained["result"]["launches"]["gram_rhs"]
     ratings = trained["ratings"]
     resident = {"user_factors": trained["model"].als.user_factors,
@@ -8329,6 +8574,7 @@ def main(argv: list[str] | None = None) -> int:
         row["dist_models_launches"] = dist_models["launches"][row["name"]]
         row["dist_classify_launches"] = dist_classify["launches"][row["name"]]
         row["quickstart_launches"] = quickstart["launches"][row["name"]]
+        row["dase_engine_launches"] = dase["launches"][row["name"]]
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {

@@ -1,21 +1,31 @@
 """DASE component base classes.
 
-Port of the parts of ``predictionio_tpu/controller/base.py`` that the
-train, deploy, continuous-learning and evaluation paths need:
-``Params``, ``EvalInfo``, ``SanityCheck``, ``DataSource``
+Port of ``predictionio_tpu/controller/base.py``: ``Params``,
+``EmptyParams``, ``EvalInfo``, ``SanityCheck``, ``DataSource``
 (``read_training``, ``online_handle``, ``read_eval``, ``read_replay``),
-``Preparator``, the ``Algorithm`` contract (train, fold-in, predict,
-batch_predict, warm_up, shard_model and the wire serde) and ``Serving``
-(``serve``, ``serve_batch``); plus ``TrainContext``, the port's small
-stand-in for the reference's ``RuntimeContext`` (device, checkpoint
-directory, resume, the runtime conf, and the training mesh, built
-lazily from the runtime conf as the reference's ``:101-130`` does), and
-``mesh_or_none`` (the reference's ``TPUAlgorithm.mesh_or_none``).
+``Preparator``, ``IdentityPreparator``, the ``Algorithm`` contract
+(train, fold-in, predict, batch_predict, warm_up, shard_model, the wire
+serde and ``persist_model``), ``TPUAlgorithm``, ``Serving`` (``serve``,
+``serve_batch``), ``PersistentModel``, ``EngineFactory`` and
+``component_name``. What the port adds:
+
+- ``TrainContext``, its stand-in for the reference's ``RuntimeContext``
+  (device, checkpoint directory, resume, the runtime conf, stage
+  timings, and the training mesh, built lazily from the runtime conf as
+  the reference's ``:101-130`` does);
+- ``mesh_or_none`` (``TPUAlgorithm.mesh_or_none``), which raises where
+  the reference logs and trains unsharded;
+- an explicit ``device`` on every ``Algorithm`` (``cuda`` unless
+  ``"cpu"``, resolved by the algorithms that use it);
+- ``ModelFiles``, an algorithm's pickle-free model files, and
+  ``open_model_file``, which reads one of them from a directory or from
+  a model blob (``controller/engine.py``).
 """
 
 from __future__ import annotations
 
 import abc
+import importlib
 import io
 import logging
 import os
@@ -27,14 +37,41 @@ from typing import Any, Mapping, Sequence
 logger = logging.getLogger("pio.torch.controller")
 
 
+@dataclass(frozen=True)
+class BlobFolder:
+    """One algorithm's files inside a model blob: the blob's open zip and
+    the prefix of their entry names (``controller/engine.py``)."""
+
+    zip: zipfile.ZipFile
+    prefix: str
+
+
 def open_model_file(source, name: str):
     """One file of a saved model, opened for binary reading: ``source``
-    is the directory a template's ``save_model`` wrote, or an open
-    ``zipfile.ZipFile`` of a model blob (``controller/engine.py``), read
-    without unpacking it to disk."""
-    if isinstance(source, zipfile.ZipFile):
-        return io.BytesIO(source.read(name))
+    is the directory a template's ``save_model`` wrote, or a
+    ``BlobFolder`` of a model blob, read without unpacking it to disk."""
+    if isinstance(source, BlobFolder):
+        return io.BytesIO(source.zip.read(source.prefix + name))
     return open(os.path.join(source, name), "rb")
+
+
+@dataclass(frozen=True)
+class ModelFiles:
+    """An algorithm's pickle-free model persistence: ``module`` (a
+    template's ``convert``) has ``save_model(model, directory)``, which
+    writes the model's files, and ``load_model(source)``, which reads
+    them back from that directory or a blob (``open_model_file``);
+    ``template`` names their layout in a blob's manifest. The module is
+    imported at first use: it imports the template's ``engine``."""
+
+    template: str
+    module: str
+
+    def save(self, model, directory: str) -> None:
+        importlib.import_module(self.module).save_model(model, directory)
+
+    def load(self, source):
+        return importlib.import_module(self.module).load_model(source)
 
 
 class Params(dict):
@@ -49,6 +86,10 @@ class Params(dict):
 
     def get_or(self, name: str, default: Any) -> Any:
         return self.get(name, default)
+
+
+class EmptyParams(Params):
+    pass
 
 
 class EvalInfo(Params):
@@ -138,7 +179,9 @@ class TrainContext:
     replay read's snapshot, and the launch keys (``pio.coordinator``,
     ``pio.num_processes``, ``pio.process_id``, else the ``PIO_*`` env)
     with ``pio.mesh_shape`` / ``pio.mesh_axes`` / ``pio.dcn_mesh_shape``
-    the ``mesh``."""
+    the ``mesh``. ``timings`` receives ``Engine.train``'s stage seconds
+    (``read``, ``prepare``, ``train[<algorithm>]``), as the reference's
+    ``RuntimeContext.timings``."""
 
     device: Any = None
     checkpoint_dir: str | None = None
@@ -147,6 +190,7 @@ class TrainContext:
     mesh_shape: Any = None
     run_key: str | None = None
     runtime_conf: dict = field(default_factory=dict)
+    timings: dict = field(default_factory=dict)
     _mesh: Any = field(default=None, init=False, repr=False, compare=False)
 
     @property
@@ -249,9 +293,25 @@ def mesh_or_none(ctx):
 
 
 class Algorithm(Component, abc.ABC):
-    """Algorithm contract: train on prepared data, answer queries."""
+    """Algorithm contract: train on prepared data, answer queries.
 
+    ``persist_model = False`` opts into retrain-on-deploy (the reference's
+    PAlgorithm-without-persistence path). ``device`` is where the
+    algorithm computes (``cuda`` unless ``"cpu"``); ``model_files``
+    (a ``ModelFiles``) gives its models pickle-free files in the blob.
+    """
+
+    persist_model: bool = True
+
+    #: True when :meth:`fold_in` is implemented -- the continuous-learning
+    #: loop escalates to a full retrain for algorithms that are not
     supports_fold_in: bool = False
+
+    model_files: ModelFiles | None = None
+
+    def __init__(self, params: Mapping[str, Any] | None = None, *, device=None):
+        super().__init__(params)
+        self.device = device
 
     @abc.abstractmethod
     def train(self, ctx: TrainContext, prepared_data): ...
@@ -299,6 +359,13 @@ class Algorithm(Component, abc.ABC):
         return prediction
 
 
+class TPUAlgorithm(Algorithm):
+    """Marker base for algorithms whose train() runs on the device mesh
+    (reference ``TPUAlgorithm``); ``ctx.mesh`` is the launch's mesh."""
+
+    mesh_or_none = staticmethod(mesh_or_none)
+
+
 class Serving(Component, abc.ABC):
     @abc.abstractmethod
     def serve(self, query, predictions: Sequence): ...
@@ -313,3 +380,32 @@ class Serving(Component, abc.ABC):
         needs to handle the all-good path.
         """
         return [self.serve(q, preds) for q, preds in zip(queries, predictions)]
+
+
+class PersistentModel(abc.ABC):
+    """User-managed model persistence (reference PersistentModel[+Loader]).
+
+    ``save`` returns True if the model was persisted; returning False falls
+    back to the pickled-blob path. ``load`` is a classmethod resolved on
+    deploy.
+    """
+
+    @abc.abstractmethod
+    def save(self, instance_id: str, params: Params) -> bool: ...
+
+    @classmethod
+    @abc.abstractmethod
+    def load(cls, instance_id: str, params: Params) -> "PersistentModel": ...
+
+
+class EngineFactory:
+    """Engines are built by factory callables named in engine.json
+    (``engineFactory``); subclassing this class is optional sugar."""
+
+    def apply(self):  # pragma: no cover - template-defined
+        raise NotImplementedError
+
+
+def component_name(obj: Any) -> str:
+    cls = obj if isinstance(obj, type) else type(obj)
+    return f"{cls.__module__}.{cls.__qualname__}"

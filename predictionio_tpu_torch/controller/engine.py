@@ -1,67 +1,72 @@
-"""Engine parameters, the ported templates, and the model blob.
+"""Engine: the central class tying DASE components + params together.
 
-Counterpart of ``predictionio_tpu/controller/engine.py``:
+Port of ``predictionio_tpu/controller/engine.py``. ``EngineParams`` is a
+copy of the reference's: the engine.json parameter block
+(``from_json_obj``), also rebuilt from what an engine instance records
+(``workflow/core_workflow.py``), and written back (``to_json_obj``) into
+each model-registry manifest (``online/registry.py``). ``Engine`` binds
+a DataSource, a Preparator, an algorithm map (engine.json algorithm name
+-> class) and a Serving class; an ``engineFactory`` returns one
+(``workflow/json_extractor.py::build_engine``; each ported template's is
+``models/<template>/engine.py::engine_factory``). Its ``train``,
+``serialize_models``, ``prepare_deploy``, ``shard_models`` and ``eval``
+are the reference's, with these differences:
 
-- ``EngineParams`` is a copy of the reference's: the engine.json
-  parameter block (``from_json_obj``), also rebuilt from what an engine
-  instance records (``workflow/core_workflow.py``), and written back
-  (``to_json_obj``) into each model-registry manifest
-  (``online/registry.py``).
-- ``Template`` and ``TEMPLATES`` stand where the reference's ``Engine``
-  and its ``engineFactory`` callables stand: the port binds each ported
-  template's DASE classes, its ``algorithm_class_map`` (engine.json
-  algorithm name -> class; classification has two) and its pickle-free
-  ``save_model`` / ``load_model`` here, and ``template_for`` maps an
-  ``engineFactory`` path of the JAX package (or, without one, the first
-  algorithm's name) to it, bound to the engine.json's first algorithm
-  (``Template.bind``). No factory is ever imported.
-- ``serialize_model`` / ``deserialize_model`` are the counterpart of
-  ``Engine.serialize_models`` / ``prepare_deploy`` (reference
-  ``:154-234``). The reference pickles its models; the port's blob is a
-  stored (uncompressed) zip of exactly the files the template's
-  ``save_model`` writes, plus ``manifest.json`` naming the template and
-  the algorithm that trained it. A pickled blob (first byte ``0x80``: one
-  the JAX package wrote) is refused with an error and never unpickled.
-  ``load_serving_model`` is what a deploy, a hot swap and the retrain
-  loop share: a blob, deserialized, beside the class that trained it
-  (the manifest's algorithm) built with the given params.
-- ``evaluate`` is the counterpart of ``Engine.eval`` (reference
-  ``:259-282``) over a ``Template``: the DataSource's ``read_eval``
-  folds, each prepared and trained, every fold's queries scored in one
-  ``batch_predict`` pass (``batch_serve``).
-
-A template serves its engine.json's first algorithm block through
-``FirstServing`` (``first_algorithm``), as every ported template of the
-reference does.
+- Algorithms are built on an explicit device, ``ctx.device`` (``cuda``
+  unless ``"cpu"``): ``Algorithm(params, device=...)``. ``train`` reads
+  a JSON-lines events file instead of the store when given
+  ``events_path``, through the DataSource's ``events_path=``.
+- The model blob is a stored (uncompressed) zip, not a pickle.
+  ``manifest.json`` names each algorithm block's entry, chosen by the
+  reference's matrix: ``persistent`` (a ``PersistentModel`` that saved
+  itself; the entry names its class), ``retrain`` (``persist_model =
+  False``: retrained at deploy), ``files`` (an algorithm with
+  ``model_files``: the files its ``save_model`` writes, under the
+  entry's folder) or else ``pickle`` (the model pickled by the port into
+  ``<i>/model.pkl`` of the zip). A blob of one ``files`` entry keeps the
+  layout of the port's first blobs (manifest version 1: the files at the
+  zip's root), byte for byte; any other is version 2. A bare pickle
+  (first byte ``0x80``: a blob the JAX package wrote) is refused and
+  never unpickled, and so is a ``pickle`` entry for an algorithm whose
+  class has ``model_files``. ``prepare_deploy`` also reads a model
+  directory (``deploy --model DIR``): one block's files, as its
+  ``model_files`` wrote them.
+- ``prepare_deploy`` lets a ``warm_up`` failure propagate (the reference
+  logs it and serves on): a deploy that cannot build its serving state
+  on the device fails instead of serving from another one. ``warm_up=
+  False`` skips it for callers that do not serve (batch predict, the
+  retrain loop).
+- ``eval`` is the reference's; each fold's queries go through every
+  algorithm's ``batch_predict`` in one pass.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import logging
 import os
+import pickle
 import tempfile
+import time
 import zipfile
-from dataclasses import dataclass, field, replace
-from typing import Any, Callable, Mapping
+from dataclasses import dataclass, field
+from typing import Any, Mapping, Sequence, Type
 
 from predictionio_tpu_torch.controller.base import (
     Algorithm,
+    BlobFolder,
     DataSource,
-    IdentityPreparator,
     Params,
+    PersistentModel,
     Preparator,
+    SanityCheck,
+    Serving,
+    component_name,
 )
 from predictionio_tpu_torch.controller.serving import FirstServing
-from predictionio_tpu_torch.models import (
-    classification,
-    ecommerce,
-    ncf,
-    recommendation,
-    sequence,
-    similarproduct,
-    universal,
-)
+
+logger = logging.getLogger("pio.engine")
 
 
 @dataclass
@@ -98,101 +103,6 @@ class EngineParams:
         }
 
 
-@dataclass(frozen=True)
-class Template:
-    """What the verbs need of one ported template, bound to one of its
-    algorithms (``algorithm``: the engine.json's first algorithm name,
-    by default the first of ``algorithms``)."""
-
-    name: str                           # TEMPLATES key, recorded in the blob
-    algorithms: Mapping[str, type[Algorithm]]  # engine.json name -> class
-    preparator_class: type[Preparator]
-    save_model: Callable
-    load_model: Callable                # a directory path or an open ZipFile
-    datasource_class: type[DataSource]  # reads the store, or ``events_path=``
-    algorithm: str = ""                 # the bound algorithm name
-
-    def __post_init__(self):
-        if not self.algorithm:
-            object.__setattr__(self, "algorithm", next(iter(self.algorithms)))
-
-    @property
-    def algorithm_class(self) -> type[Algorithm]:
-        return self.algorithms[self.algorithm]
-
-    def bind(self, algorithm: str) -> "Template":
-        """This template bound to ``algorithm``, one of its names."""
-        if algorithm not in self.algorithms:
-            raise ValueError(
-                f"the {self.name!r} template's algorithm is "
-                f"{' or '.join(map(repr, self.algorithms))}, got {algorithm!r}"
-            )
-        return self if algorithm == self.algorithm else replace(self, algorithm=algorithm)
-
-
-TEMPLATES = {
-    "recommendation": Template(
-        "recommendation", {"als": recommendation.ALSAlgorithm},
-        recommendation.RecommendationPreparator, recommendation.save_model,
-        recommendation.load_model, recommendation.RecommendationDataSource,
-    ),
-    "ncf": Template(
-        "ncf", {"ncf": ncf.NCFAlgorithm}, ncf.NCFPreparator, ncf.save_model,
-        ncf.load_model, recommendation.RecommendationDataSource,
-    ),
-    "sequence": Template(
-        "sequence", {"sasrec": sequence.SASRecAlgorithm}, sequence.SequencePreparator,
-        sequence.save_model, sequence.load_model, sequence.SequenceDataSource,
-    ),
-    "ecommerce": Template(
-        "ecommerce", {"ecomm": ecommerce.ECommAlgorithm}, ecommerce.ECommercePreparator,
-        ecommerce.save_model, ecommerce.load_model, ecommerce.ECommerceDataSource,
-    ),
-    "similarproduct": Template(
-        "similarproduct", {"cooccurrence": similarproduct.CooccurrenceAlgorithm},
-        IdentityPreparator, similarproduct.save_model, similarproduct.load_model,
-        similarproduct.SimilarProductDataSource,
-    ),
-    "universal": Template(
-        "universal", {"ur": universal.URAlgorithm}, IdentityPreparator,
-        universal.save_model, universal.load_model, universal.URDataSource,
-    ),
-    "classification": Template(
-        "classification", classification.ALGORITHMS,
-        classification.ClassificationPreparator, classification.save_model,
-        classification.load_model, classification.ClassificationDataSource,
-    ),
-}
-
-
-def template_for(engine_factory: str, algorithm_name: str) -> Template:
-    """The template of an engine.json, bound to its first algorithm: by
-    ``engineFactory`` (``predictionio_tpu.models.<template>.
-    engine_factory``, or the module path ``...<template>.engine.
-    engine_factory`` the reference resolves too) when it names one, else
-    the template one of whose algorithms is the first algorithm's name."""
-    if engine_factory:
-        parts = engine_factory.split(".")
-        if len(parts) >= 3 and parts[-2:] == ["engine", "engine_factory"]:
-            parts = parts[:-2] + parts[-1:]
-        key = parts[-2] if len(parts) >= 2 and parts[-1] == "engine_factory" else None
-        if key not in TEMPLATES:
-            raise ValueError(
-                f"engineFactory {engine_factory!r} is not a ported template; the "
-                f"port serves {sorted(TEMPLATES)}"
-            )
-        template = TEMPLATES[key]
-    else:
-        template = next(
-            (t for t in TEMPLATES.values() if algorithm_name in t.algorithms), None)
-        if template is None:
-            raise ValueError(
-                f"algorithm {algorithm_name!r} is not a ported template's; the port "
-                f"serves {sorted(a for t in TEMPLATES.values() for a in t.algorithms)}"
-            )
-    return template.bind(algorithm_name)
-
-
 MANIFEST = "manifest.json"
 BLOB_FORMAT = "predictionio_tpu_torch.model-zip"
 
@@ -201,39 +111,321 @@ class ModelBlobError(ValueError):
     """A model blob the port cannot deploy."""
 
 
+class Engine:
+    """Binds DASE component classes; instantiates them per run with params."""
+
+    def __init__(
+        self,
+        data_source_class: Type[DataSource],
+        preparator_class: Type[Preparator],
+        algorithm_class_map: Mapping[str, Type[Algorithm]],
+        serving_class: Type[Serving] = FirstServing,
+    ):
+        self.data_source_class = data_source_class
+        self.preparator_class = preparator_class
+        self.algorithm_class_map = dict(algorithm_class_map)
+        self.serving_class = serving_class
+
+    # -- construction helpers ----------------------------------------------
+    def _algorithm_classes(self, engine_params: EngineParams) -> list[Type[Algorithm]]:
+        classes = []
+        for name, _ in engine_params.algorithm_params_list:
+            if name not in self.algorithm_class_map:
+                raise KeyError(
+                    f"algorithm {name!r} not registered in engine"
+                    f" (available: {sorted(self.algorithm_class_map)})"
+                )
+            classes.append(self.algorithm_class_map[name])
+        if not classes:
+            raise ValueError("engine_params names no algorithms")
+        return classes
+
+    def _algorithms(self, engine_params: EngineParams, device=None) -> list[Algorithm]:
+        """Every algorithm block's class with its params, on ``device``
+        (``cuda`` unless ``"cpu"``)."""
+        return [
+            cls(params, device=device)
+            for cls, (_, params) in zip(
+                self._algorithm_classes(engine_params), engine_params.algorithm_params_list
+            )
+        ]
+
+    def serving(self, engine_params: EngineParams) -> Serving:
+        return self.serving_class(engine_params.serving_params)
+
+    def data_source(self, engine_params: EngineParams,
+                    events_path: str | None = None) -> DataSource:
+        """The DataSource with its params; it reads ``events_path`` (a
+        JSON-lines events file) instead of the store when given."""
+        if events_path is None:
+            return self.data_source_class(engine_params.data_source_params)
+        return self.data_source_class(
+            engine_params.data_source_params, events_path=events_path
+        )
+
+    @staticmethod
+    def _maybe_sanity_check(stage: str, obj: Any, skip: bool) -> None:
+        if not skip and isinstance(obj, SanityCheck):
+            logger.info("sanity check: %s", stage)
+            obj.sanity_check()
+
+    # -- train --------------------------------------------------------------
+    def train(
+        self,
+        ctx,
+        engine_params: EngineParams,
+        skip_sanity_check: bool = False,
+        *,
+        events_path: str | None = None,
+    ) -> list[Any]:
+        """D -> P -> every algorithm block's ``train`` on ``ctx.device``;
+        returns the models in block order. The stage seconds land in
+        ``ctx.timings`` (``read``, ``prepare``, ``train[<name>]``)."""
+        timings = getattr(ctx, "timings", {})
+
+        t0 = time.perf_counter()
+        data_source = self.data_source(engine_params, events_path)
+        training_data = data_source.read_training(ctx)
+        timings["read"] = time.perf_counter() - t0
+        self._maybe_sanity_check("training data", training_data, skip_sanity_check)
+
+        t0 = time.perf_counter()
+        preparator = self.preparator_class(engine_params.preparator_params)
+        prepared_data = preparator.prepare(ctx, training_data)
+        timings["prepare"] = time.perf_counter() - t0
+        self._maybe_sanity_check("prepared data", prepared_data, skip_sanity_check)
+
+        models = []
+        for algorithm, (name, _) in zip(
+            self._algorithms(engine_params, getattr(ctx, "device", None)),
+            engine_params.algorithm_params_list,
+        ):
+            logger.info("training algorithm %r (%s)", name, component_name(algorithm))
+            t0 = time.perf_counter()
+            model = algorithm.train(ctx, prepared_data)
+            timings[f"train[{name}]"] = time.perf_counter() - t0
+            self._maybe_sanity_check(f"model[{name}]", model, skip_sanity_check)
+            models.append(model)
+        if timings:
+            logger.info(
+                "stage timings: %s",
+                ", ".join(f"{k}={v:.3f}s" for k, v in timings.items()),
+            )
+        return models
+
+    # -- serialization + deploy rehydration ---------------------------------
+    def serialize_models(
+        self, ctx, engine_params: EngineParams, instance_id: str, models: Sequence[Any]
+    ) -> bytes:
+        """Encode the per-algorithm persistence choice into one blob."""
+        entries, files = [], []
+        for i, (model, cls, (name, params)) in enumerate(zip(
+            models, self._algorithm_classes(engine_params),
+            engine_params.algorithm_params_list,
+        )):
+            if isinstance(model, PersistentModel) and model.save(instance_id, params):
+                entries.append({"algorithm": name, "kind": "persistent",
+                                "class": component_name(model)})
+            elif not cls.persist_model:
+                entries.append({"algorithm": name, "kind": "retrain"})
+            elif cls.model_files is not None:
+                written = _model_files(cls, model)
+                entries.append({"algorithm": name, "kind": "files",
+                                "template": cls.model_files.template,
+                                "files": sorted(written)})
+                files += [(f"{i}/{n}", written[n]) for n in sorted(written)]
+            else:
+                entries.append({"algorithm": name, "kind": "pickle",
+                                "file": f"{i}/model.pkl"})
+                files.append((f"{i}/model.pkl",
+                              pickle.dumps(model, protocol=pickle.HIGHEST_PROTOCOL)))
+        if len(entries) == 1 and entries[0]["kind"] == "files":
+            # the port's first layout: one algorithm's files at the root
+            manifest = {"format": BLOB_FORMAT, "version": 1,
+                        "template": entries[0]["template"],
+                        "algorithm": entries[0]["algorithm"],
+                        "files": entries[0]["files"]}
+            files = [(name.partition("/")[2], data) for name, data in files]
+        else:
+            manifest = {"format": BLOB_FORMAT, "version": 2, "algorithms": entries}
+        buf = io.BytesIO()
+        with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as zf:
+            zf.writestr(_blob_entry(MANIFEST), json.dumps(manifest))
+            for name, data in files:
+                zf.writestr(_blob_entry(name), data)
+        return buf.getvalue()
+
+    def prepare_deploy(
+        self,
+        ctx,
+        engine_params: EngineParams,
+        instance_id: str,
+        model_blob: bytes | str | None,
+        shard: int | None = None,
+        num_shards: int = 1,
+        *,
+        warm_up: bool = True,
+    ) -> list[Any]:
+        """Rehydrate per-algorithm models for serving (reference semantics:
+        PersistentModelLoader -> load; the blob's files or pickle ->
+        deserialize; persist_model=False -> retrain now, on
+        ``ctx.device``). ``model_blob`` may also be the path of a model
+        directory: the files of the one algorithm block, which has
+        ``model_files``. With ``shard``/``num_shards`` set, the
+        rehydrated models are partitioned through :meth:`shard_models`
+        BEFORE warm-up, so serving caches are built against the shard's
+        slice, never the full table. Raises ``ModelBlobError`` for a
+        blob this engine cannot deploy, and whatever ``warm_up``
+        raises."""
+        classes = self._algorithm_classes(engine_params)
+        device = getattr(ctx, "device", None)
+        if isinstance(model_blob, str):
+            if len(classes) != 1:
+                raise ModelBlobError(
+                    f"a model directory holds the files of one algorithm block;"
+                    f" engine_params names {len(classes)}"
+                )
+            entries = [{"kind": "files", "template": None, "source": model_blob,
+                        "algorithm": engine_params.algorithm_params_list[0][0]}]
+        elif model_blob:
+            entries = _open_blob(model_blob)
+        else:
+            entries = [{"kind": "retrain"}] * len(classes)
+        if len(entries) != len(classes):
+            raise ModelBlobError(
+                f"model blob has {len(entries)} entries but engine_params names"
+                f" {len(classes)} algorithms -- retrain required"
+            )
+        retrained: list[Any] | None = None
+        models = []
+        for i, (entry, cls, (name, params)) in enumerate(
+            zip(entries, classes, engine_params.algorithm_params_list)
+        ):
+            kind = entry["kind"]
+            files = cls.model_files
+            held = entry.get("template")  # None for a model directory
+            if kind == "files" and (files is None or held not in (None, files.template)):
+                raise ModelBlobError(
+                    (f"the blob holds a {held!r} model" if held
+                     else f"{entry['source']} is a model directory")
+                    + f"; algorithm {name!r} ({component_name(cls)}) reads "
+                    + (f"{files.template!r} models" if files else "no model files")
+                )
+            if kind == "pickle" and files is not None:
+                raise ModelBlobError(
+                    f"the blob pickles algorithm {name!r}'s model, but"
+                    f" {component_name(cls)} saves model files; the port"
+                    " unpickles only a model whose class has no model_files"
+                )
+            if kind != "retrain" and entry["algorithm"] != name:
+                if entry["algorithm"] not in self.algorithm_class_map:
+                    raise ModelBlobError(
+                        f"the blob was trained by {entry['algorithm']!r}, not an"
+                        f" algorithm of this engine ({sorted(self.algorithm_class_map)})"
+                    )
+                raise ModelBlobError(
+                    f"the blob's algorithm {i} is {entry['algorithm']!r}, got {name!r}"
+                )
+            if kind == "persistent":
+                models.append(_resolve_class(entry["class"]).load(instance_id, params))
+            elif kind == "files":
+                models.append(files.load(entry["source"]))
+            elif kind == "pickle":
+                models.append(pickle.loads(entry["source"].zip.read(entry["file"])))
+            elif kind == "retrain":
+                if retrained is None:
+                    logger.info("retrain-on-deploy: running engine.train")
+                    retrained = self.train(ctx, engine_params, skip_sanity_check=True)
+                models.append(retrained[i])
+            else:  # pragma: no cover - corrupted blob
+                raise ModelBlobError(f"unknown model persistence kind {kind!r}")
+        if shard is not None and num_shards > 1:
+            models = self.shard_models(engine_params, models, shard, num_shards, device)
+        if warm_up:
+            # serving caches (device-resident scorers, retrieval indexes)
+            # build at deploy time, not on the unlucky first query; a
+            # failure here fails the deploy
+            for algorithm, model in zip(self._algorithms(engine_params, device), models):
+                algorithm.warm_up(model)
+        return models
+
+    def shard_models(
+        self,
+        engine_params: EngineParams,
+        models: Sequence[Any],
+        shard: int,
+        num_shards: int,
+        device=None,
+    ) -> list[Any]:
+        """Per-algorithm :meth:`Algorithm.shard_model` over rehydrated
+        models -- the deploy-side fallback when a registry generation has
+        no per-shard blobs, and the publish-side partition step when the
+        continuous-learning loop writes them. The algorithms are built on
+        ``device`` (``cuda`` unless ``"cpu"``)."""
+        if num_shards <= 1:
+            return list(models)
+        if not (0 <= shard < num_shards):
+            raise ValueError(
+                f"shard {shard} out of range for num_shards={num_shards}"
+            )
+        return [
+            algorithm.shard_model(model, shard, num_shards)
+            for algorithm, model in zip(self._algorithms(engine_params, device), models)
+        ]
+
+    # -- eval ---------------------------------------------------------------
+    def eval(
+        self, ctx, engine_params: EngineParams
+    ) -> list[tuple[Any, list[tuple[Any, Any, Any]]]]:
+        """Run evaluation folds on ``ctx.device``.
+
+        Returns ``[(eval_info, [(query, prediction, actual), ...]), ...]``.
+        """
+        data_source = self.data_source_class(engine_params.data_source_params)
+        preparator = self.preparator_class(engine_params.preparator_params)
+        serving = self.serving(engine_params)
+        folds = data_source.read_eval(ctx)
+        results = []
+        for training_data, eval_info, qa_pairs in folds:
+            prepared_data = preparator.prepare(ctx, training_data)
+            algorithms = self._algorithms(engine_params, getattr(ctx, "device", None))
+            models = [a.train(ctx, prepared_data) for a in algorithms]
+            indexed = list(enumerate(q for q, _ in qa_pairs))
+            per_algo = [dict(a.batch_predict(m, indexed)) for a, m in zip(algorithms, models)]
+            triples = []
+            for qid, (query, actual) in enumerate(qa_pairs):
+                predictions = [pa[qid] for pa in per_algo]
+                triples.append((query, serving.serve(query, predictions), actual))
+            results.append((eval_info, triples))
+        return results
+
+
 def _blob_entry(name: str) -> zipfile.ZipInfo:
     """A blob's zip entry, stamped with zip's epoch: a blob is a function
-    of its model alone, never of the clock (a registry version's shard
+    of its models alone, never of the clock (a registry version's shard
     blobs equal its full blob byte for byte)."""
     return zipfile.ZipInfo(name, date_time=(1980, 1, 1, 0, 0, 0))
 
 
-def serialize_model(template: Template, model) -> bytes:
-    """The model blob of one trained model: ``template.save_model``'s
-    files, stored uncompressed, and ``manifest.json``."""
+def _model_files(cls: Type[Algorithm], model) -> dict[str, bytes]:
+    """The files ``cls.model_files`` writes for ``model``, by name."""
     with tempfile.TemporaryDirectory(prefix="pio-model-") as tmp:
-        template.save_model(model, tmp)
-        names = sorted(os.listdir(tmp))
-        buf = io.BytesIO()
-        with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as zf:
-            zf.writestr(_blob_entry(MANIFEST), json.dumps({
-                "format": BLOB_FORMAT, "version": 1, "template": template.name,
-                "algorithm": template.algorithm, "files": names,
-            }))
-            for name in names:
-                with open(os.path.join(tmp, name), "rb") as f:
-                    zf.writestr(_blob_entry(name), f.read())
-    return buf.getvalue()
+        cls.model_files.save(model, tmp)
+        out = {}
+        for name in os.listdir(tmp):
+            with open(os.path.join(tmp, name), "rb") as f:
+                out[name] = f.read()
+    return out
 
 
-def _open_blob(template: Template, blob: bytes) -> tuple[zipfile.ZipFile, dict]:
-    """The blob's zip and manifest; raises ``ModelBlobError`` for a
-    pickled blob, a blob of another template or of an algorithm the
-    template does not have, or one that is not the port's."""
+def _open_blob(blob: bytes) -> list[dict]:
+    """The blob's entries, one per algorithm block, each with its
+    ``source``: the ``BlobFolder`` of its files in the blob's zip; raises
+    ``ModelBlobError`` for a bare pickle or a blob that is not the port's."""
     if blob[:1] == b"\x80":
         raise ModelBlobError(
-            "this model blob is a pickle, written by the JAX package "
-            "(predictionio_tpu); the port never unpickles a blob. Retrain it "
+            "this model blob is a bare pickle, written by the JAX package "
+            "(predictionio_tpu); the port never unpickles a bare blob. Retrain it "
             "with the port's `train`, or carry its weights across with the "
             "template's convert.py (model_from_arrays / model_from_flax) and "
             "deploy the directory with --model"
@@ -245,84 +437,16 @@ def _open_blob(template: Template, blob: bytes) -> tuple[zipfile.ZipFile, dict]:
         raise ModelBlobError(f"not a model blob of the port: {exc}") from None
     if manifest.get("format") != BLOB_FORMAT:
         raise ModelBlobError(f"unknown model blob format {manifest.get('format')!r}")
-    if manifest.get("template") != template.name:
-        raise ModelBlobError(
-            f"the blob holds a {manifest.get('template')!r} model; the engine.json "
-            f"names the {template.name!r} template"
-        )
-    if manifest.get("algorithm") not in template.algorithms:
-        raise ModelBlobError(
-            f"the blob was trained by {manifest.get('algorithm')!r}, not an algorithm "
-            f"of the {template.name!r} template ({sorted(template.algorithms)})"
-        )
-    return zf, manifest
+    if manifest.get("version") == 1:
+        return [{"kind": "files", "algorithm": manifest.get("algorithm"),
+                 "template": manifest.get("template"), "source": BlobFolder(zf, "")}]
+    if manifest.get("version") != 2:
+        raise ModelBlobError(f"unknown model blob version {manifest.get('version')!r}")
+    return [dict(e, source=BlobFolder(zf, f"{i}/"))
+            for i, e in enumerate(manifest["algorithms"])]
 
 
-def deserialize_model(template: Template, blob: bytes):
-    """``template.load_model`` straight off the blob (no temporary
-    directory); raises ``ModelBlobError`` as ``_open_blob`` does."""
-    zf, _ = _open_blob(template, blob)
-    with zf:
-        return template.load_model(zf)
+def _resolve_class(dotted: str):
+    from predictionio_tpu_torch.workflow.json_extractor import resolve_dotted
 
-
-def load_serving_model(template: Template, engine_params: EngineParams,
-                       blob: bytes, *, device=None, warm_up: bool = True):
-    """``(algorithm, model)``: the class that trained the blob (its
-    manifest's algorithm) with ``engine_params``' first algorithm block,
-    which must name it, on ``device`` (``cuda`` unless ``"cpu"``), and
-    the blob's model, its serving state built (``warm_up``: the
-    retrieval index packed, so a swap's first query does not pay it)
-    unless ``warm_up=False``."""
-    zf, manifest = _open_blob(template, blob)
-    with zf:
-        trained = template.bind(manifest["algorithm"])
-        algorithm = first_algorithm(trained, engine_params, device)
-        model = trained.load_model(zf)
-    if warm_up:
-        algorithm.warm_up(model)
-    return algorithm, model
-
-
-def first_algorithm(template: Template, engine_params: EngineParams,
-                    device=None) -> Algorithm:
-    """The template's algorithm with the params of ``engine_params``'
-    first block, on ``device``; a block naming another algorithm than
-    the one the template is bound to raises."""
-    name, params = engine_params.algorithm_params_list[0]
-    if name != template.algorithm:
-        raise ValueError(
-            f"the {template.name!r} template's algorithm is "
-            f"{template.algorithm!r}, got {name!r}"
-        )
-    return template.algorithm_class(params, device=device)
-
-
-def batch_serve(algorithm: Algorithm, model, queries: list) -> list:
-    """The served answer to each query: one ``batch_predict`` pass over
-    all of them, each prediction through ``FirstServing`` (the live
-    ``/queries.json`` combination)."""
-    serving = FirstServing()
-    indexed = list(enumerate(queries))
-    predictions = dict(algorithm.batch_predict(model, indexed))
-    return [serving.serve(q, [predictions[i]]) for i, q in indexed]
-
-
-def evaluate(template: Template, ctx, engine_params: EngineParams
-             ) -> list[tuple[Any, list[tuple[Any, Any, Any]]]]:
-    """Run the evaluation folds of ``template`` under ``engine_params``
-    on ``ctx.device`` (reference ``Engine.eval``).
-
-    Returns ``[(eval_info, [(query, prediction, actual), ...]), ...]``.
-    """
-    template = template.bind(engine_params.algorithm_params_list[0][0])
-    data_source = template.datasource_class(engine_params.data_source_params)
-    preparator = template.preparator_class(engine_params.preparator_params)
-    results = []
-    for training_data, eval_info, qa_pairs in data_source.read_eval(ctx):
-        prepared_data = preparator.prepare(ctx, training_data)
-        algorithm = first_algorithm(template, engine_params, ctx.device)
-        model = algorithm.train(ctx, prepared_data)
-        served = batch_serve(algorithm, model, [q for q, _ in qa_pairs])
-        results.append((eval_info, [(q, p, a) for (q, a), p in zip(qa_pairs, served)]))
-    return results
+    return resolve_dotted(dotted)

@@ -3,11 +3,10 @@
 Port of ``predictionio_tpu/controller/metrics.py`` (framework-free):
 ``Metric`` with ``calculate``; the Average/OptionAverage/Stdev/Sum/Zero
 combinators; ``Evaluation``, ``EngineParamsGenerator`` and the
-``MetricEvaluator`` that runs an EngineParams grid and prints a
-leaderboard. The one departure: an ``Evaluation`` binds the port's
-``Template`` (``controller/engine.py``), not an ``Engine``, and each
-candidate runs through ``controller/engine.py::evaluate`` (the
-counterpart of ``Engine.eval``).
+``MetricEvaluator`` that runs an EngineParams grid through
+``Engine.eval`` and prints a leaderboard. The one departure: a candidate
+that is not the port's ``EngineParams`` (one of the JAX package's) is
+refused.
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Sequence
 
-from predictionio_tpu_torch.controller.engine import EngineParams, Template, evaluate
+from predictionio_tpu_torch.controller.engine import Engine, EngineParams
 
 
 class Metric(abc.ABC):
@@ -104,15 +103,13 @@ class ZeroMetric(Metric):
 
 @dataclass
 class Evaluation:
-    """Binds a template to metrics (reference Evaluation, whose ``engine``
-    is an ``Engine``; the port's templates are ``controller/engine.py``'s
-    ``Template`` objects, e.g. ``TEMPLATES["sequence"]``).
+    """Binds an engine to metrics (reference Evaluation).
 
     ``metric`` drives parameter selection; ``metrics`` (optional extras) are
     reported alongside.
     """
 
-    template: Template
+    engine: Engine
     metric: Metric
     metrics: list[Metric] = field(default_factory=list)
 
@@ -166,7 +163,7 @@ class MetricEvaluatorResult:
 
 
 class MetricEvaluator:
-    """Runs the template over each candidate EngineParams and ranks by
+    """Runs the engine over each candidate EngineParams and ranks by
     metric (reference MetricEvaluator + NameParamsEvaluator role).
     ``ctx`` is a ``TrainContext``: its device is where every fold
     trains and scores."""
@@ -187,7 +184,7 @@ class MetricEvaluator:
                     f"candidate {i} is a {type(engine_params).__module__}."
                     f"{type(engine_params).__name__}, not the port's EngineParams"
                 )
-            per_fold = evaluate(self.evaluation.template, ctx, engine_params)
+            per_fold = self.evaluation.engine.eval(ctx, engine_params)
             score = metric.calculate(per_fold)
             extra_scores = [m.calculate(per_fold) for m in extras]
             results.append((engine_params, score, extra_scores))

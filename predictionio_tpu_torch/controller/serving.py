@@ -1,5 +1,6 @@
-"""Stock serving combinator (port of ``controller/serving.py::FirstServing``,
-with its ``serve_batch`` for the micro-batched query path)."""
+"""Stock serving combinators: a copy of
+``predictionio_tpu/controller/serving.py`` (``FirstServing``, with its
+``serve_batch`` for the micro-batched query path, and ``AverageServing``)."""
 
 from __future__ import annotations
 
@@ -22,3 +23,27 @@ class FirstServing(Serving):
         if any(not p for p in predictions):
             raise ValueError("FirstServing received no predictions")
         return [p[0] for p in predictions]
+
+
+class AverageServing(Serving):
+    """Average numeric predictions across algorithms.
+
+    Works on plain numbers or on dicts with a numeric field per key.
+    """
+
+    def serve(self, query, predictions: Sequence):
+        if not predictions:
+            raise ValueError("AverageServing received no predictions")
+        first = predictions[0]
+        if isinstance(first, (int, float)):
+            return sum(predictions) / len(predictions)
+        if isinstance(first, dict):
+            keys = set(first)
+            out = {}
+            for k in keys:
+                values = [p[k] for p in predictions if isinstance(p.get(k), (int, float))]
+                out[k] = sum(values) / len(values) if values else first[k]
+            return out
+        raise TypeError(
+            f"AverageServing cannot average predictions of type {type(first).__name__}"
+        )

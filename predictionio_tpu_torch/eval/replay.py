@@ -1,24 +1,23 @@
 """Offline replay evaluation: the `pio eval --replay` core.
 
-Port of ``predictionio_tpu/eval/replay.py`` over the port's templates
-(``controller/engine.py::Template``). Replays a time-bounded event
-prefix through the DASE hooks: the datasource's ``read_replay`` cuts
-the timeline (train ``< t``, holdout ``>= t`` -- ``eval.split``), the
-algorithm trains on the prefix (or a pinned registry generation is
-rehydrated instead), EVERY held-out user is scored through the
-template's vectorized ``batch_predict`` in one pass (B2 on the card
-with ``retrieval: {"mode": "mips"}``; the engine.json's first algorithm
-block, served through ``FirstServing``, as a deploy serves it), and the
-ranked lists reduce to hit-rate@k / NDCG@k / MRR / recall@k
-(``eval.metrics``). The fold's
+Port of ``predictionio_tpu/eval/replay.py`` over the variant's
+``Engine``. Replays a time-bounded event prefix through the DASE hooks:
+the datasource's ``read_replay`` cuts the timeline (train ``< t``,
+holdout ``>= t`` -- ``eval.split``), every algorithm block trains on the
+prefix (or a pinned registry generation is rehydrated instead,
+``Engine.prepare_deploy``), EVERY held-out user is scored through each
+algorithm's vectorized ``batch_predict`` in one pass (B2 on the card
+with ``retrieval: {"mode": "mips"}``) and combined by the engine's
+Serving, as a deploy serves it (``_serve_all``), and the ranked lists
+reduce to hit-rate@k / NDCG@k / MRR / recall@k (``eval.metrics``). The fold's
 training data carries the ``eval_fold`` flag, so a ``seenFilter:
 "live"`` variant keeps the trained-in seen map, exactly as the k-fold
 evaluator does.
 
 The report also carries the standing retrieval guard: the scan and mips
-arms re-rank the same split with the same model, reporting shortlist
-recall@k and the response byte-identity rate -- the accuracy trip-wire
-for every speed change to B2.
+arms of the first algorithm re-rank the same split with its model,
+reporting shortlist recall@k and the response byte-identity rate -- the
+accuracy trip-wire for every speed change to B2.
 
 Everything runs on ``device`` (``cuda`` unless ``"cpu"``).
 """
@@ -30,17 +29,27 @@ import logging
 from typing import Any
 
 from predictionio_tpu_torch.controller.base import TrainContext
-from predictionio_tpu_torch.controller.engine import (
-    EngineParams,
-    batch_serve,
-    first_algorithm,
-    load_serving_model,
-)
+from predictionio_tpu_torch.controller.engine import EngineParams
 from predictionio_tpu_torch.eval.metrics import ranking_metrics, select_metrics
 from predictionio_tpu_torch.eval.split import ReplayFold, SplitSpec
 from predictionio_tpu_torch.utils.device import resolve_device
+from predictionio_tpu_torch.workflow.json_extractor import build_engine
 
 logger = logging.getLogger("pio.eval")
+
+
+def _serve_all(engine, engine_params, algorithms, models, queries):
+    """One batched pass: every algorithm's ``batch_predict`` over the
+    whole holdout, combined per query by the engine's Serving component
+    (the exact live /queries.json combination step)."""
+    serving = engine.serving(engine_params)
+    indexed = list(enumerate(queries))
+    per_algo = [
+        dict(a.batch_predict(m, indexed)) for a, m in zip(algorithms, models)
+    ]
+    return [
+        serving.serve(q, [pa[qid] for pa in per_algo]) for qid, q in indexed
+    ]
 
 
 def _ranked_ids(response: Any, k: int) -> list[str]:
@@ -51,9 +60,9 @@ def _ranked_ids(response: Any, k: int) -> list[str]:
     return [s["item"] for s in response.get("itemScores") or []][:k]
 
 
-def _load_registry_models(template, variant, model_version, registry_dir, device):
+def _load_registry_models(engine, variant, ctx, model_version, registry_dir):
     """Rehydrate a pinned registry generation -- the `pio deploy
-    --model-version` resolution path (``load_serving_model``), so eval
+    --model-version` resolution path (``Engine.prepare_deploy``), so eval
     lineage names the exact bytes a rollback would serve. Raises
     ``RegistryError`` verbatim on a missing/GC'd/corrupt version, and
     ``ModelBlobError`` on a blob the port does not deploy (a pickle of
@@ -75,7 +84,7 @@ def _load_registry_models(template, variant, model_version, registry_dir, device
             resolve_engine_instance(variant, entry.instance_id or None)
         )
     )
-    algorithm, model = load_serving_model(template, engine_params, blob, device=device)
+    models = engine.prepare_deploy(ctx, engine_params, entry.instance_id or "", blob)
     lineage = {
         "source": "registry",
         "model_version": entry.version,
@@ -83,25 +92,27 @@ def _load_registry_models(template, variant, model_version, registry_dir, device
         "instance_id": entry.instance_id or None,
         "registry_dir": registry.dir,
     }
-    return engine_params, algorithm, model, lineage
+    return engine_params, models, lineage
 
 
-def _retrieval_guard(template, engine_params, model, queries, k, device) -> dict | None:
+def _retrieval_guard(engine, engine_params, model, queries, k, device) -> dict | None:
     """Scan-vs-mips A/B on the SAME model and split: shortlist recall@k
     (overlap of the mips top-k with the scan top-k) and the response
     byte-identity rate. None when the primary algorithm has no
     retrieval surface (e.g. NCF's MLP scorer)."""
-    _, algo_params = engine_params.algorithm_params_list[0]
+    algo_name, algo_params = engine_params.algorithm_params_list[0]
+    algo_cls = engine.algorithm_class_map[algo_name]
     arms, shortlist = {}, None
     for mode in ("scan", "mips"):
         params = dict(algo_params)
         retrieval = dict(params.get("retrieval") or {})
         retrieval["mode"] = mode
         params["retrieval"] = retrieval
-        arm_algo = template.algorithm_class(params, device=device)
+        arm_algo = algo_cls(params, device=device)
         if not hasattr(arm_algo, "_retrieval"):
             return None
-        arms[mode] = batch_serve(arm_algo, model, queries)
+        predicted = dict(arm_algo.batch_predict(model, list(enumerate(queries))))
+        arms[mode] = [predicted[qid] for qid in range(len(queries))]
         if mode == "mips":
             shortlist = int(arm_algo._retrieval.shortlist)
     overlaps, identical, compared = [], 0, 0
@@ -140,6 +151,7 @@ def run_replay_eval(
     retrieval_guard: bool = True,
     include_responses: bool = False,
     device=None,
+    engine=None,
 ) -> dict:
     """Run one replay evaluation on ``device``; returns the JSON-able
     report.
@@ -161,38 +173,39 @@ def run_replay_eval(
         split_frac = 0.8
     spec = SplitSpec(split_time=split_time, split_frac=split_frac, k=int(k))
     spec.validate()
-    template = variant.template
+    engine = engine or build_engine(variant)
     engine_params = variant.engine_params
     device = resolve_device(device)
     ctx = TrainContext(device=device, runtime_conf=dict(variant.runtime_conf),
                        mesh_shape=variant.runtime_conf.get("pio.mesh_shape"))
 
-    data_source = template.datasource_class(engine_params.data_source_params)
+    data_source = engine.data_source_class(engine_params.data_source_params)
     fold: ReplayFold = data_source.read_replay(ctx, spec)
     pairs = fold.pairs
 
     if model_version is not None:
-        engine_params, algorithm, model, lineage = _load_registry_models(
-            template, variant, model_version, registry_dir, device
+        engine_params, models, lineage = _load_registry_models(
+            engine, variant, ctx, model_version, registry_dir
         )
+        algorithms = engine._algorithms(engine_params, device)
     else:
-        fold.train_data.sanity_check()
-        preparator = template.preparator_class(engine_params.preparator_params)
+        engine._maybe_sanity_check("replay training data", fold.train_data, False)
+        preparator = engine.preparator_class(engine_params.preparator_params)
         prepared = preparator.prepare(ctx, fold.train_data)
-        algorithm = first_algorithm(template, engine_params, device)
-        model = algorithm.train(ctx, prepared)
+        algorithms = engine._algorithms(engine_params, device)
+        models = [a.train(ctx, prepared) for a in algorithms]
         lineage = {"source": "replay-train", "model_version": None,
                    "instance_id": None}
 
     queries = [q for q, _ in pairs]
-    responses = batch_serve(algorithm, model, queries)
+    responses = _serve_all(engine, engine_params, algorithms, models, queries)
     predicted = [_ranked_ids(r, spec.k) for r in responses]
     actual = [a for _, a in pairs]
     values = ranking_metrics(predicted, actual, spec.k, names)
 
     guard = None
     if retrieval_guard:
-        guard = _retrieval_guard(template, engine_params, model, queries, spec.k, device)
+        guard = _retrieval_guard(engine, engine_params, models[0], queries, spec.k, device)
 
     def _key(name: str) -> str:
         return "mrr" if name == "mrr" else f"{name}_at_{spec.k}"

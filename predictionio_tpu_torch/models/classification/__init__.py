@@ -21,6 +21,7 @@ from predictionio_tpu_torch.models.classification.engine import (
     FeatureSpace,
     LogisticRegressionAlgorithm,
     NaiveBayesAlgorithm,
+    engine_factory,
 )
 
 __all__ = [
@@ -31,6 +32,7 @@ __all__ = [
     "FeatureSpace",
     "LogisticRegressionAlgorithm",
     "NaiveBayesAlgorithm",
+    "engine_factory",
     "from_reference",
     "load_model",
     "save_model",

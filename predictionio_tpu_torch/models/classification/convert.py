@@ -90,8 +90,8 @@ def save_model(model: ClassifierModel, path: str) -> None:
 
 
 def load_model(path) -> ClassifierModel:
-    """Read a model written by ``save_model``: its directory, or an open
-    ``zipfile.ZipFile`` of a model blob."""
+    """Read a model written by ``save_model``: its directory, or its
+    folder in a model blob (``controller.base.BlobFolder``)."""
     with open_model_file(path, "classifier.json") as f:
         meta = json.load(f)
     with open_model_file(path, "arrays.npz") as f, np.load(f, allow_pickle=False) as z:

@@ -35,10 +35,13 @@ from predictionio_tpu_torch.controller.base import (
     Algorithm,
     DataSource,
     EvalInfo,
+    ModelFiles,
     Preparator,
     SanityCheck,
     mesh_or_none,
 )
+from predictionio_tpu_torch.controller.engine import Engine
+from predictionio_tpu_torch.controller.serving import FirstServing
 from predictionio_tpu_torch.data.aggregation import aggregate_properties
 from predictionio_tpu_torch.data.store import PEventStore, read_events
 from predictionio_tpu_torch.ops.classify import train_logistic_regression, train_naive_bayes
@@ -217,6 +220,9 @@ class ClassifierModel:
 class _ClassifierBase(Algorithm):
     """Trains on ``device`` over ``ctx.mesh``; serves on the host."""
 
+    model_files = ModelFiles(
+        "classification", "predictionio_tpu_torch.models.classification.convert")
+
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
         self.device = resolve_device(device)
@@ -286,3 +292,12 @@ ALGORITHMS = {
     "naive-bayes": NaiveBayesAlgorithm,
     "logistic-regression": LogisticRegressionAlgorithm,
 }
+
+
+def engine_factory() -> Engine:
+    return Engine(
+        data_source_class=ClassificationDataSource,
+        preparator_class=ClassificationPreparator,
+        algorithm_class_map=ALGORITHMS,
+        serving_class=FirstServing,
+    )

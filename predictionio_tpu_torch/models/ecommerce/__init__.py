@@ -16,6 +16,7 @@ from predictionio_tpu_torch.models.ecommerce.engine import (
     ECommerceDataSource,
     ECommerceModel,
     ECommercePreparator,
+    engine_factory,
 )
 
 __all__ = [
@@ -24,6 +25,7 @@ __all__ = [
     "ECommerceDataSource",
     "ECommerceModel",
     "ECommercePreparator",
+    "engine_factory",
     "load_model",
     "model_from_arrays",
     "save_model",

@@ -120,8 +120,8 @@ def save_model(model: ECommerceModel, path: str) -> None:
 
 
 def load_model(path: str) -> ECommerceModel:
-    """Read a model written by ``save_model``: its directory, or an open
-    ``zipfile.ZipFile`` of a model blob."""
+    """Read a model written by ``save_model``: its directory, or its
+    folder in a model blob (``controller.base.BlobFolder``)."""
     with open_model_file(path, "factors.npz") as f, np.load(f, allow_pickle=False) as z:
         arrays = {name: z[name] for name in z.files}
     with open_model_file(path, "vocab.json") as f:

@@ -45,10 +45,13 @@ from predictionio_tpu_torch.controller.base import (
     Algorithm,
     DataSource,
     EvalInfo,
+    ModelFiles,
     Preparator,
     SanityCheck,
     mesh_or_none,
 )
+from predictionio_tpu_torch.controller.engine import Engine
+from predictionio_tpu_torch.controller.serving import FirstServing
 from predictionio_tpu_torch.data.store import (
     LEventStore,
     PEventStore,
@@ -359,6 +362,8 @@ class ECommAlgorithm(Algorithm):
     unless the caller names ``"cpu"``; without a card and without an
     explicit CPU request construction raises.
     """
+
+    model_files = ModelFiles("ecommerce", "predictionio_tpu_torch.models.ecommerce.convert")
 
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
@@ -680,3 +685,12 @@ class ECommAlgorithm(Algorithm):
                     )
                 )
         return out
+
+
+def engine_factory() -> Engine:
+    return Engine(
+        data_source_class=ECommerceDataSource,
+        preparator_class=ECommercePreparator,
+        algorithm_class_map={"ecomm": ECommAlgorithm},
+        serving_class=FirstServing,
+    )

@@ -18,12 +18,14 @@ from predictionio_tpu_torch.models.ncf.engine import (
     NCFAlgorithm,
     NCFModel,
     NCFPreparator,
+    engine_factory,
 )
 
 __all__ = [
     "NCFAlgorithm",
     "NCFModel",
     "NCFPreparator",
+    "engine_factory",
     "load_model",
     "model_from_flax",
     "model_from_state",

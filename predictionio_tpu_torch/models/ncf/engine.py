@@ -35,7 +35,14 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from predictionio_tpu_torch.controller.base import Algorithm, Preparator, mesh_or_none
+from predictionio_tpu_torch.controller.base import (
+    Algorithm,
+    ModelFiles,
+    Preparator,
+    mesh_or_none,
+)
+from predictionio_tpu_torch.controller.engine import Engine
+from predictionio_tpu_torch.controller.serving import FirstServing
 from predictionio_tpu_torch.models._als_common import (
     build_seen,
     partition_user_queries,
@@ -53,7 +60,10 @@ from predictionio_tpu_torch.models.ncf.model import (
     make_implicit_batches,
     train_ncf,
 )
-from predictionio_tpu_torch.models.recommendation.engine import RatingsData
+from predictionio_tpu_torch.models.recommendation.engine import (
+    RatingsData,
+    RecommendationDataSource,
+)
 from predictionio_tpu_torch.utils.device import resolve_device
 
 #: guards first-query scorer construction across serving threads
@@ -155,6 +165,8 @@ class NCFAlgorithm(Algorithm):
     ``device`` is where training runs and the scorers live: ``cuda``
     unless the caller names ``"cpu"``; without a card and without an
     explicit CPU request construction raises."""
+
+    model_files = ModelFiles("ncf", "predictionio_tpu_torch.models.ncf.convert")
 
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
@@ -286,3 +298,12 @@ class NCFAlgorithm(Algorithm):
                 )
         out.extend((qid, self.predict(model, q)) for qid, q in fallback)
         return out
+
+
+def engine_factory() -> Engine:
+    return Engine(
+        data_source_class=RecommendationDataSource,
+        preparator_class=NCFPreparator,
+        algorithm_class_map={"ncf": NCFAlgorithm},
+        serving_class=FirstServing,
+    )

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.models.ncf.model import mlp_depth
+from predictionio_tpu_torch.ops.launches import counted
 from predictionio_tpu_torch.utils.device import resolve_device
 
 
@@ -107,6 +108,7 @@ def ncf_score_plain(
                  kernels, biases, out_kernel, out_bias)[0]
 
 
+@counted
 def ncf_score_all_items(
     gmf_items: torch.Tensor,
     mlp_items: torch.Tensor,
@@ -160,11 +162,6 @@ def ncf_score_all_items(
     _kernels.check(status, "ncf_score launch")
     ncf_score_all_items.launches += 1
     return out
-
-
-#: kernel launches since the last reset (``chip_smoke.py`` reads it to
-#: show the serving path went through the kernel)
-ncf_score_all_items.launches = 0
 
 
 def head_tensors(state: Mapping[str, torch.Tensor], num_items: int, device):

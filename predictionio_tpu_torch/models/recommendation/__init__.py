@@ -17,6 +17,7 @@ from predictionio_tpu_torch.models.recommendation.engine import (
     RecommendationDataSource,
     RecommendationModel,
     RecommendationPreparator,
+    engine_factory,
 )
 
 __all__ = [
@@ -25,6 +26,7 @@ __all__ = [
     "RecommendationDataSource",
     "RecommendationModel",
     "RecommendationPreparator",
+    "engine_factory",
     "load_model",
     "model_from_arrays",
     "save_model",

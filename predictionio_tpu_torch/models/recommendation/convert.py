@@ -118,8 +118,8 @@ def save_model(model: RecommendationModel, path: str) -> None:
 
 
 def load_model(path: str) -> RecommendationModel:
-    """Read a model written by ``save_model``: its directory, or an open
-    ``zipfile.ZipFile`` of a model blob."""
+    """Read a model written by ``save_model``: its directory, or its
+    folder in a model blob (``controller.base.BlobFolder``)."""
     with open_model_file(path, "factors.npz") as f, np.load(f, allow_pickle=False) as z:
         arrays = {name: z[name] for name in z.files}
     with open_model_file(path, "vocab.json") as f:

@@ -51,10 +51,13 @@ from predictionio_tpu_torch.controller.base import (
     Algorithm,
     DataSource,
     EvalInfo,
+    ModelFiles,
     Preparator,
     SanityCheck,
     mesh_or_none,
 )
+from predictionio_tpu_torch.controller.engine import Engine
+from predictionio_tpu_torch.controller.serving import FirstServing
 from predictionio_tpu_torch.data.store import PEventStore, read_events_file
 from predictionio_tpu_torch.models._als_common import (
     batch_score_known_users,
@@ -367,6 +370,9 @@ class ALSAlgorithm(Algorithm):
     request construction raises.
     """
 
+    model_files = ModelFiles(
+        "recommendation", "predictionio_tpu_torch.models.recommendation.convert")
+
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
         self.device = resolve_device(device)
@@ -471,7 +477,7 @@ class ALSAlgorithm(Algorithm):
         bit. Users filtered OUT of this shard simply miss ``user_index``
         -- the cold-user path -- which is correct because the frontend
         routes their queries to the owning shard. A shard's model
-        serializes like any other (``serialize_model``): that is the
+        serializes like any other (``Engine.serialize_models``): that is the
         per-shard blob of a registry version (``online/loop.py``).
         """
         if num_shards <= 1:
@@ -635,3 +641,12 @@ class ALSAlgorithm(Algorithm):
         for idx in anchors:
             sims[idx] = -np.inf
         return topk_item_scores(model.item_ids, sims, num)
+
+
+def engine_factory() -> Engine:
+    return Engine(
+        data_source_class=RecommendationDataSource,
+        preparator_class=RecommendationPreparator,
+        algorithm_class_map={"als": ALSAlgorithm},
+        serving_class=FirstServing,
+    )

@@ -20,6 +20,7 @@ from predictionio_tpu_torch.models.sequence.engine import (
     SequenceDataSource,
     SequencePreparator,
     SequencesData,
+    engine_factory,
 )
 from predictionio_tpu_torch.models.sequence.model import (
     SASRec,
@@ -36,6 +37,7 @@ __all__ = [
     "SequenceDataSource",
     "SequencePreparator",
     "SequencesData",
+    "engine_factory",
     "load_model",
     "model_from_flax",
     "model_from_state",

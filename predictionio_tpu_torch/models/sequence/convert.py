@@ -87,8 +87,8 @@ def save_model(model: SASRecModel, path: str) -> None:
 
 
 def load_model(path: str) -> SASRecModel:
-    """Read a model written by ``save_model``: its directory, or an open
-    ``zipfile.ZipFile`` of a model blob."""
+    """Read a model written by ``save_model``: its directory, or its
+    folder in a model blob (``controller.base.BlobFolder``)."""
     with open_model_file(path, "params.npz") as f, np.load(f, allow_pickle=False) as z:
         arrays = {name: z[name] for name in z.files}
     with open_model_file(path, "model.json") as f:

@@ -39,10 +39,13 @@ from predictionio_tpu_torch.controller.base import (
     Algorithm,
     DataSource,
     EvalInfo,
+    ModelFiles,
     Preparator,
     SanityCheck,
     mesh_or_none,
 )
+from predictionio_tpu_torch.controller.engine import Engine
+from predictionio_tpu_torch.controller.serving import FirstServing
 from predictionio_tpu_torch.data.store import PEventStore, read_events_file
 from predictionio_tpu_torch.models._als_common import score_buffer_rows, topk_item_scores
 from predictionio_tpu_torch.models._streaming import live_target_events
@@ -244,6 +247,8 @@ class SASRecAlgorithm(Algorithm):
     unless the caller names ``"cpu"``; without a card and without an
     explicit CPU request construction raises."""
 
+    model_files = ModelFiles("sequence", "predictionio_tpu_torch.models.sequence.convert")
+
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
         self.device = resolve_device(device)
@@ -381,3 +386,12 @@ class SASRecAlgorithm(Algorithm):
                 )
         out.extend((qid, self.predict(model, q)) for qid, q in fallback)
         return out
+
+
+def engine_factory() -> Engine:
+    return Engine(
+        data_source_class=SequenceDataSource,
+        preparator_class=SequencePreparator,
+        algorithm_class_map={"sasrec": SASRecAlgorithm},
+        serving_class=FirstServing,
+    )

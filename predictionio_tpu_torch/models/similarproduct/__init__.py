@@ -14,8 +14,9 @@ from predictionio_tpu_torch.models.similarproduct.convert import (
 from predictionio_tpu_torch.models.similarproduct.engine import (
     CooccurrenceAlgorithm,
     InteractionData,
-    SimilarityModel,
     SimilarProductDataSource,
+    SimilarityModel,
+    engine_factory,
 )
 
 __all__ = [
@@ -23,6 +24,7 @@ __all__ = [
     "InteractionData",
     "SimilarProductDataSource",
     "SimilarityModel",
+    "engine_factory",
     "load_model",
     "model_from_arrays",
     "save_model",

@@ -37,9 +37,13 @@ from predictionio_tpu_torch.controller.base import (
     Algorithm,
     DataSource,
     EvalInfo,
+    IdentityPreparator,
+    ModelFiles,
     SanityCheck,
     mesh_or_none,
 )
+from predictionio_tpu_torch.controller.engine import Engine
+from predictionio_tpu_torch.controller.serving import FirstServing
 from predictionio_tpu_torch.data.store import PEventStore, read_events_file
 from predictionio_tpu_torch.models._als_common import (
     Shortlist,
@@ -244,6 +248,9 @@ class CooccurrenceAlgorithm(Algorithm):
     names ``"cpu"``; without a card and without an explicit CPU request
     construction raises.
     """
+
+    model_files = ModelFiles(
+        "similarproduct", "predictionio_tpu_torch.models.similarproduct.convert")
 
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
@@ -482,3 +489,12 @@ class CooccurrenceAlgorithm(Algorithm):
                 for row, (qid, q, anchors) in enumerate(part)
             )
         return out
+
+
+def engine_factory() -> Engine:
+    return Engine(
+        data_source_class=SimilarProductDataSource,
+        preparator_class=IdentityPreparator,
+        algorithm_class_map={"cooccurrence": CooccurrenceAlgorithm},
+        serving_class=FirstServing,
+    )

@@ -16,6 +16,7 @@ from predictionio_tpu_torch.models.universal.engine import (
     URAlgorithm,
     URDataSource,
     URModel,
+    engine_factory,
 )
 
 __all__ = [
@@ -23,6 +24,7 @@ __all__ = [
     "URAlgorithm",
     "URDataSource",
     "URModel",
+    "engine_factory",
     "load_model",
     "model_from_arrays",
     "save_model",

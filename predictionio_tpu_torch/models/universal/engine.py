@@ -41,9 +41,13 @@ from predictionio_tpu_torch.controller.base import (
     Algorithm,
     DataSource,
     EvalInfo,
+    IdentityPreparator,
+    ModelFiles,
     SanityCheck,
     mesh_or_none,
 )
+from predictionio_tpu_torch.controller.engine import Engine
+from predictionio_tpu_torch.controller.serving import FirstServing
 from predictionio_tpu_torch.data.store import (
     PEventStore,
     read_events,
@@ -240,6 +244,8 @@ class URAlgorithm(Algorithm):
     caller names ``"cpu"``; without a card and without an explicit CPU
     request construction raises.
     """
+
+    model_files = ModelFiles("universal", "predictionio_tpu_torch.models.universal.convert")
 
     def __init__(self, params=None, *, device=None):
         super().__init__(params)
@@ -494,3 +500,12 @@ class URAlgorithm(Algorithm):
             (qid, self._predict_impl(model, q, rule_cache, history_memo))
             for qid, q in queries
         ]
+
+
+def engine_factory() -> Engine:
+    return Engine(
+        data_source_class=URDataSource,
+        preparator_class=IdentityPreparator,
+        algorithm_class_map={"ur": URAlgorithm},
+        serving_class=FirstServing,
+    )

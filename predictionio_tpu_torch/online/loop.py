@@ -1,20 +1,21 @@
 """The ``pio retrain --follow`` cycle: tail -> refresh -> fold-in -> swap.
 
-Port of ``predictionio_tpu/online/loop.py`` over the port's templates
-(``controller/engine.py``): the loop holds the template's algorithm and
-its model, rehydrated from the registry's latest version or from the
-engine instance's blob through ``deserialize_model``, and publishes
-``serialize_model``'s pickle-free zip. Its fold-in launches B1 once on
-``cuda`` (``online/foldin.py``); an escalated full retrain is the port's
-``run_train`` from the store, on the loop's device. NCF, which has no
-``fold_in`` hook, escalates every window to it; SASRec's datasource
-describes no interaction scan, so its loop is refused -- as the
-reference's are. ``scorer_shards > 1`` also publishes per-shard blobs
-(``ALSAlgorithm.shard_model``, each through ``serialize_model``) for the
-serving fabric's swap path (``serving/fabric.py``): a fold-in
-re-serializes only the shards that own touched users and carries every
-other shard's bytes forward verbatim; item growth, or a full retrain,
-recomputes every shard.
+Port of ``predictionio_tpu/online/loop.py`` over the variant's
+``Engine``: the loop holds the engine's algorithms and their models,
+rehydrated from the registry's latest version or from the engine
+instance's blob through ``Engine.prepare_deploy``, and publishes
+``Engine.serialize_models``' pickle-free zip. Each algorithm folds in
+(``fold_in``; ALS's launches B1 once on ``cuda``, ``online/foldin.py``);
+a window that an algorithm without the hook would have to absorb
+escalates to a full retrain, the port's ``run_train`` from the store on
+the loop's device. NCF, which has no ``fold_in`` hook, escalates every
+window; SASRec's datasource describes no interaction scan, so its loop
+is refused -- as the reference's are. ``scorer_shards > 1`` also
+publishes per-shard blobs (``Engine.shard_models``, each through
+``serialize_models``) for the serving fabric's swap path
+(``serving/fabric.py``): a fold-in re-serializes only the shards that
+own touched users and carries every other shard's bytes forward
+verbatim; item growth, or a full retrain, recomputes every shard.
 
 One iteration (:meth:`RetrainLoop.run_once`):
 
@@ -27,7 +28,7 @@ One iteration (:meth:`RetrainLoop.run_once`):
    (``data/snapshot`` exactness rules apply: late/deleted rows force a
    rebuild, which fold-in tolerates because it maps entities by STRING id
    and re-solves from full history).
-3. **fold-in** -- the algorithm's ``fold_in`` hook re-solves the touched
+3. **fold-in** -- each algorithm's ``fold_in`` hook re-solves the touched
    user rows against frozen item factors (``online.foldin``); the
    staleness budget escalates to a FULL ``run_train`` when the delta
    outgrew the approximation.
@@ -62,11 +63,8 @@ import time
 import urllib.request
 from dataclasses import dataclass, field
 
-from predictionio_tpu_torch.controller.engine import (
-    EngineParams,
-    load_serving_model,
-    serialize_model,
-)
+from predictionio_tpu_torch.controller.base import TrainContext
+from predictionio_tpu_torch.controller.engine import EngineParams
 from predictionio_tpu_torch.data import storage
 from predictionio_tpu_torch.data.snapshot import (
     SnapshotSpec,
@@ -92,6 +90,7 @@ from predictionio_tpu_torch.workflow.core_workflow import (
     resolve_engine_instance,
     run_train,
 )
+from predictionio_tpu_torch.workflow.json_extractor import build_engine
 
 logger = logging.getLogger("pio.online.loop")
 
@@ -126,12 +125,12 @@ class RetrainLoop:
     """Owns the follower cursor, the base model state, and the cycle."""
 
     def __init__(self, variant, config: RetrainConfig | None = None, *,
-                 device=None):
+                 device=None, engine=None):
         self.variant = variant
         self.config = config or RetrainConfig()
         #: fold-ins and full retrains run here: ``cuda`` unless "cpu"
         self.device = resolve_device(device)
-        self.template = variant.template
+        self.engine = engine or build_engine(variant)
         self.registry = ModelRegistry.for_variant(
             variant,
             registry_dir=self.config.registry_dir,
@@ -160,13 +159,15 @@ class RetrainLoop:
             blob = record.models
             base_until_ms = ts_ms(self.instance.start_time)
             self.current_version = None
+        self.ctx = TrainContext(device=self.device,
+                                runtime_conf=dict(self.instance.runtime_conf or {}))
         # the loop folds, it does not serve: no serving state is built
-        self.algorithm, self.model = load_serving_model(
-            self.template, self.engine_params, blob, device=self.device,
-            warm_up=False,
+        self.models = self.engine.prepare_deploy(
+            self.ctx, self.engine_params, self.instance.id, blob, warm_up=False
         )
+        self.algorithms = self.engine._algorithms(self.engine_params, self.device)
 
-        data_source = self.template.datasource_class(
+        data_source = self.engine.data_source_class(
             self.engine_params.data_source_params
         )
         self.handle = data_source.online_handle()
@@ -363,34 +364,50 @@ class RetrainLoop:
             set_entity_types=set(batch.touched_set_types) or None,
         )
         try:
-            if not self.algorithm.supports_fold_in:
+            if not all(
+                getattr(a, "supports_fold_in", False) for a in self.algorithms
+            ):
                 raise StalenessExceeded(
-                    "algorithm without a fold_in hook: "
-                    + type(self.algorithm).__name__
+                    "algorithm(s) without a fold_in hook: "
+                    + ", ".join(
+                        type(a).__name__
+                        for a in self.algorithms
+                        if not getattr(a, "supports_fold_in", False)
+                    )
                 )
-            new_model = self.algorithm.fold_in(self.model, delta)
+            new_models = []
+            any_change = False
+            for algorithm, model in zip(self.algorithms, self.models):
+                folded = algorithm.fold_in(model, delta)
+                if folded is None:
+                    new_models.append(model)
+                else:
+                    any_change = True
+                    new_models.append(folded)
         except StalenessExceeded as exc:
             return self._full_retrain(ready + idle_live, merged, snap, str(exc))
-        if new_model is None:
+        if not any_change:
             # e.g. the window's records carried no scorable interaction
             self._maybe_advance(ready + idle_live, snap)
             self._count("noop")
             return "noop"
 
         self._test_hold()
-        blob = serialize_model(self.template, new_model)
+        blob = self.engine.serialize_models(
+            self.ctx, self.engine_params, self.instance.id, new_models
+        )
         # shard_blobs must be derived BEFORE publish: untouched shards
         # reuse the still-latest version's bytes verbatim
-        shard_blobs = self._shard_blobs(new_model, batch.touched_users)
+        shard_blobs = self._shard_blobs(new_models, batch.touched_users)
         version = self.registry.publish(
             blob,
-            meta=self._meta("foldin", batch, snap, model=new_model),
+            meta=self._meta("foldin", batch, snap, models=new_models),
             shard_blobs=shard_blobs,
         )
         if not self._notify_swap(version.version):
             self._count("swap_failed")
             return "swap_failed"  # cursor stays; next cycle re-folds
-        self.model = new_model
+        self.models = new_models
         self.current_version = version.version
         self._maybe_advance(ready + idle_live, snap)
         self._count("foldin")
@@ -411,7 +428,7 @@ class RetrainLoop:
             self._count("noop")
             return "noop"
         logger.info("escalating to full retrain: %s", reason)
-        instance = run_train(self.variant, device=self.device)
+        instance = run_train(self.variant, device=self.device, engine=self.engine)
         record = storage.get_model_data_models().get(instance.id)
         if record is None:
             # every template ships SOME blob (even retrain-on-deploy marks);
@@ -429,14 +446,14 @@ class RetrainLoop:
         # edited engine.json since the loop's base was published, and the
         # manifest/rehydration must describe the model actually trained
         self.engine_params = engine_params_from_instance(instance)
-        self.algorithm, self.model = load_serving_model(
-            self.template, self.engine_params, record.models,
-            device=self.device, warm_up=False,
+        self.algorithms = self.engine._algorithms(self.engine_params, self.device)
+        self.models = self.engine.prepare_deploy(
+            self.ctx, self.engine_params, instance.id, record.models, warm_up=False
         )
         version = self.registry.publish(
             record.models,
             meta=self._meta("train", batch, snap, instance_id=instance.id),
-            shard_blobs=self._shard_blobs(self.model, None),
+            shard_blobs=self._shard_blobs(self.models, None),
         )
         if not self._notify_swap(version.version):
             self._count("swap_failed")
@@ -449,7 +466,7 @@ class RetrainLoop:
     # -- plumbing ------------------------------------------------------------
     def _meta(
         self, source: str, batch, snap, instance_id: str | None = None,
-        model=None,
+        models=None,
     ) -> dict:
         meta = {
             "source": source,
@@ -462,26 +479,35 @@ class RetrainLoop:
         }
         if self.config.scorer_shards > 1:
             meta["shard_item_count"] = self._item_count(
-                self.model if model is None else model
+                self.models if models is None else models
             )
         return meta
 
     @staticmethod
-    def _item_count(model) -> int | None:
-        """The model's item-vocabulary size, or None when it exposes
-        none. This is the reuse guard for untouched-shard bytes: fold-in
-        freezes item factors, but it may APPEND zero rows for new items
-        (within the growth budget), and that changes every shard's
-        replicated item side."""
-        factors = getattr(model, "item_factors", None)
-        if factors is None:
-            factors = getattr(getattr(model, "als", None), "item_factors", None)
-        if factors is not None and hasattr(factors, "shape"):
-            return int(factors.shape[0])
-        items = getattr(model, "item_ids", None)
-        return None if items is None else len(items)
+    def _item_count(models) -> int | None:
+        """Item-vocabulary size across the models, or None when any model
+        does not expose one. This is the reuse guard for untouched-shard
+        bytes: fold-in freezes item factors, but it may APPEND zero rows
+        for new items (within the growth budget), and that changes every
+        shard's replicated item side."""
+        counts = []
+        for model in models:
+            factors = getattr(model, "item_factors", None)
+            if factors is None:
+                factors = getattr(
+                    getattr(model, "als", None), "item_factors", None
+                )
+            if factors is not None and hasattr(factors, "shape"):
+                counts.append(int(factors.shape[0]))
+                continue
+            items = getattr(model, "item_ids", None)
+            if items is not None:
+                counts.append(len(items))
+                continue
+            return None
+        return sum(counts) if counts else None
 
-    def _shard_blobs(self, model, touched_users) -> list[bytes] | None:
+    def _shard_blobs(self, models, touched_users) -> list[bytes] | None:
         """Per-shard serialized blobs for ``registry.publish``. A fold-in
         recomputes ONLY the shards owning touched users; every other
         shard's bytes are carried forward verbatim from the still-latest
@@ -501,7 +527,7 @@ class RetrainLoop:
             if prev is not None and (
                 prev.shard_count != n
                 or prev.manifest.get("shard_item_count")
-                != self._item_count(model)
+                != self._item_count(models)
             ):
                 prev = None
         blobs: list[bytes] = []
@@ -515,8 +541,14 @@ class RetrainLoop:
                         "could not reuse shard %d bytes from version %d;"
                         " recomputing", k, prev.version, exc_info=True,
                     )
-            sharded = self.algorithm.shard_model(model, k, n)
-            blobs.append(serialize_model(self.template, sharded))
+            sharded = self.engine.shard_models(
+                self.engine_params, models, k, n, self.device
+            )
+            blobs.append(
+                self.engine.serialize_models(
+                    self.ctx, self.engine_params, self.instance.id, sharded
+                )
+            )
         return blobs
 
     def _advance(self, parts, snap) -> None:

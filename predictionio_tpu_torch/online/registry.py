@@ -23,11 +23,10 @@ the newest N generations (every retained version is a rollback target --
 
 The directory layout and the manifest are the reference's, so each
 package's ``ModelRegistry`` lists and CRC-checks the other's versions.
-The blob inside is the port's pickle-free model zip
-(``controller/engine.py::serialize_model``), not the reference's pickle:
-a version one package published is not loadable by the other's
-templates (the port refuses a pickled blob, the reference cannot
-unpickle a zip).
+The blob inside is the port's model zip (``controller/engine.py::
+Engine.serialize_models``), not the reference's pickle: a version one
+package published is not loadable by the other's engines (the port
+refuses a pickled blob, the reference cannot unpickle a zip).
 
 Port copy: ``predictionio_tpu/online/registry.py`` (framework-free), verbatim
 under the port's package name; ``tests/test_torch_imports.py`` holds

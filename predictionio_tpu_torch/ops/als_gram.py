@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from predictionio_tpu_torch import _kernels
+from predictionio_tpu_torch.ops.launches import counted
 
 #: the padded length must be a multiple of this (``pack_padded_csr``'s
 #: ``len_multiple``; the reference's chunk picker needs it too)
@@ -125,6 +126,7 @@ def gathered_products(
     return gram, rhs
 
 
+@counted
 def gram_rhs(
     indices: torch.Tensor,
     values: torch.Tensor,
@@ -170,11 +172,6 @@ def gram_rhs(
     _kernels.check(status, "als_gram_rhs launch")
     gram_rhs.launches += 1
     return gram, rhs
-
-
-#: kernel launches since the last reset (``chip_smoke.py`` reads it to
-#: show the training path went through the kernel)
-gram_rhs.launches = 0
 
 
 def half_step_bytes(

@@ -39,6 +39,8 @@ from __future__ import annotations
 
 import torch
 
+from predictionio_tpu_torch.ops.launches import counted
+
 #: the reference's finite masked score (keeps exp() NaN-free)
 NEG = -1e30
 
@@ -209,6 +211,7 @@ def _call(fn: str, *args, source: str = "flash_attention") -> None:
     _kernels.check(getattr(lib, fn)(*args, stream), fn)
 
 
+@counted
 def flash_forward(q, k, v, mask=None, causal=True, sm_scale=None):
     """``flash_forward_plain``'s ``(out, lse)``. CUDA tensors launch kernel
     B4 (counted in ``flash_forward.launches``; a head dim it is not built
@@ -248,6 +251,7 @@ def _backward_operands(q, full: dict, rows: dict) -> list:
     return checked
 
 
+@counted
 def flash_backward(q, k, v, mask, do, out, lse, causal=True, sm_scale=None):
     """``flash_backward_plain``'s ``(dq, dk, dv)`` from the forward's
     ``out`` and ``lse`` and the gradient ``do``. CUDA tensors launch the
@@ -275,12 +279,6 @@ def flash_backward(q, k, v, mask, do, out, lse, causal=True, sm_scale=None):
                   b, t, h, d, sb, st, _scale(d, sm_scale), int(causal), source="flash_backward")
         flash_backward.launches += 1
     return dq, dk, dv
-
-
-#: kernel launches since the last reset (``chip_smoke.py`` reads them to
-#: show the training and serving paths went through the kernels)
-flash_forward.launches = 0
-flash_backward.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -28,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.ops.launches import counted
 from predictionio_tpu_torch.ops.quantize import BLOCK_ITEMS, pack_int8_blockwise
 from predictionio_tpu_torch.utils.device import resolve_device
 
@@ -132,6 +133,7 @@ def mips_block_topk_plain(
     return scores.reshape(b, nb * block_topk), idx.reshape(b, nb * block_topk)
 
 
+@counted
 def mips_block_topk(
     queries: torch.Tensor,
     q_table: torch.Tensor,
@@ -185,11 +187,6 @@ def mips_block_topk(
     _kernels.check(status, "mips_block_topk launch")
     mips_block_topk.launches += 1
     return scores.reshape(b, nb * block_topk), idx.reshape(b, nb * block_topk)
-
-
-#: kernel launches since the last reset (``chip_smoke.py`` reads it to
-#: show the served path went through the kernel)
-mips_block_topk.launches = 0
 
 
 def _search_program(

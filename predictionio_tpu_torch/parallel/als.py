@@ -578,6 +578,9 @@ class ALSModel:
         # re-rank (_als_common._host_rerank) reproduce these scores bitwise
         return np.einsum("ik,k->i", self.item_factors, self.user_factors[user_index])
 
+    def score_users_for_item(self, item_index: int) -> np.ndarray:
+        return self.user_factors @ self.item_factors[item_index]
+
     @property
     def item_norms(self) -> np.ndarray:
         if self._item_norms is None:

@@ -2,12 +2,11 @@
 
 Port of ``predictionio_tpu/tools/build_commands.py``. ``build`` checks
 ``template.json``'s minimum pio version (a warning, as the reference's)
-and validates the engine directory through the port's own resolution:
-engine.json parses (``workflow/json_extractor.py``) and names a ported
-template whose algorithms it lists (``controller/engine.py::
-template_for``); ``--clean`` drops stale bytecode caches first. The
-reference imports and constructs the engine factory instead; the port
-never imports the JAX package's templates.
+and validates the engine directory as the reference's does: engine.json
+parses and its ``engineFactory``, imported from the engine directory,
+builds the port's ``Engine`` (``workflow/json_extractor.py::
+build_engine``; a factory of the JAX package's templates resolves to the
+port's own); ``--clean`` drops stale bytecode caches first.
 
 ``run`` runs a python script or module with the engine directory on
 ``sys.path`` (the reference's "run a main class with the pio classpath").
@@ -91,6 +90,7 @@ def _check_template_json(engine_dir: str) -> str | None:
 def cmd_build(args: argparse.Namespace) -> int:
     from predictionio_tpu_torch.workflow.json_extractor import (
         EngineConfigError,
+        build_engine,
         load_engine_variant,
     )
 
@@ -113,15 +113,13 @@ def cmd_build(args: argparse.Namespace) -> int:
     variant_path = args.variant or os.path.join(engine_dir, "engine.json")
     try:
         variant = load_engine_variant(variant_path)
-        template = variant.template
-        for name, _params in variant.engine_params.algorithm_params_list:
-            template.bind(name)
-    except (EngineConfigError, ValueError) as exc:
+        engine = build_engine(variant)
+    except EngineConfigError as exc:
         print(f"Error: {exc}")
         return 1
     if args.verbose:
         print(f"Engine factory: {variant.engine_factory}")
-        print(f"Template: {template.name}")
+        print(f"Engine: {type(engine).__name__}")
         for name, _params in variant.engine_params.algorithm_params_list:
             print(f"  algorithm: {name}")
     print("Build finished: engine is importable and engine.json is valid.")

@@ -44,7 +44,7 @@ fallback: without a card ``train``, ``deploy``, ``retrain``, ``eval``
 and ``batchpredict`` raise unless ``--device cpu`` is given, and
 ``status`` says so.
 
-``load_variant``, ``build_trainer``, ``train``, ``build_query_server``,
+``load_variant``, ``train``, ``build_query_server``,
 ``_parse_passthrough`` and ``_launch_conf`` live in
 ``tools/engine_commands.py`` and are importable from here too.
 """
@@ -59,7 +59,6 @@ from predictionio_tpu_torch.tools.engine_commands import (  # noqa: F401
     _launch_conf,
     _parse_passthrough,
     build_query_server,
-    build_trainer,
     load_variant,
     train,
 )

@@ -4,9 +4,12 @@ Port of ``predictionio_tpu/tools/engine_commands.py``. The verbs call the
 port's workflow in-process:
 
 - ``train`` reads the variant (``--variant``, default
-  ``ENGINE_DIR/engine.json``; ``--engine-json`` is the same flag): the
-  template's DataSource reads the store, and the run is recorded as an
-  engine instance with its model blob (``workflow/core_workflow.py``).
+  ``ENGINE_DIR/engine.json``; ``--engine-json`` is the same flag) and
+  builds its engine (``engineFactory``, resolved from the engine
+  directory): the DataSource reads the store, every algorithm block
+  trains, and the run is recorded as an engine instance with its model
+  blob (``workflow/core_workflow.py``); ``--skip-sanity-check`` skips
+  the engine's sanity checks.
   ``--snapshot-mode use|refresh`` serves the read from the on-disk
   training snapshot (``data/snapshot.py``). ``--als-feed
   resident|streamed`` (runtime conf ``pio.als_feed``) overrides the
@@ -20,16 +23,20 @@ port's workflow in-process:
   ``ENGINE_DIR/pio-profile``) writes a ``torch.profiler`` Chrome trace of
   the training call and the telemetry journal (ALS: one line per
   iteration with edges/sec and achieved GB/s) into DIR.
-  With ``--events FILE --model-out DIR`` it reads a JSON-lines events
-  file instead (the ``pio import`` wire shape) and writes the model
-  directory with the template's ``save_model``, recording nothing;
+  With ``--events FILE --model-out DIR`` (an engine of one algorithm
+  block with ``model_files``, as every ported template's) it reads a
+  JSON-lines events file instead (the ``pio import`` wire shape) and
+  writes the model directory with the algorithm's ``save_model``,
+  recording nothing;
   its checkpoints go to ``DIR/checkpoints`` while it runs. The entries
   after ``--`` and ``--coordinator`` / ``--num-processes`` /
   ``--process-id`` set the multi-process launch (``_launch_conf``).
 - ``deploy`` serves the latest COMPLETED instance of the variant (or
   ``--engine-instance-id``), loading its blob, or with ``--model DIR`` a
-  model directory. It warms the template's device state up before it
-  answers. The engine.json's algorithm params configure serving (so a
+  model directory. It warms every algorithm's device state up before it
+  answers (``Engine.prepare_deploy``; a retrain-on-deploy algorithm
+  trains then), and combines the algorithms' predictions through the
+  engine's Serving. The engine.json's algorithm params configure serving (so a
   serving knob such as ``retrieval`` may change after training); the
   model comes from the instance. ``--model-version N`` serves version N
   of the variant's model registry (``online/registry.py``) and exits with
@@ -59,15 +66,15 @@ port's workflow in-process:
   version), scores every held-out user in one ``batch_predict`` pass and
   prints the JSON report with the scan-vs-mips retrieval guard; ``eval
   EVALUATION [GENERATOR]`` runs a user module's ``Evaluation`` built of
-  the port's ``controller/metrics.py`` over its template's ``read_eval``
-  folds and records an evaluation instance. A bad metric, a malformed
+  the port's ``controller/metrics.py`` over its engine's ``read_eval``
+  folds (``Engine.eval``) and records an evaluation instance. A bad metric, a malformed
   split, a template without the hook or a missing registry version
   exits 2 with a one-line error; an object that is not the port's
   ``Evaluation`` / ``EngineParamsGenerator`` (one of the JAX package)
   is refused.
 - ``batchpredict`` (``workflow/batch_predict.py``) scores a JSON-lines
-  query file through an instance's model, 4,096 queries a
-  ``batch_predict`` call.
+  query file through an instance's models, 4,096 queries a
+  ``batch_predict`` call of each algorithm, combined by the Serving.
 
 ``train``, ``deploy``, ``retrain``, ``eval`` and ``batchpredict`` run on
 the card unless ``--device cpu``; without a card they raise. Each verb
@@ -96,7 +103,7 @@ from typing import TYPE_CHECKING
 from predictionio_tpu_torch.obs.logs import add_logging_arguments, configure_logging
 
 if TYPE_CHECKING:
-    from predictionio_tpu_torch.controller.engine import Template
+    from predictionio_tpu_torch.controller.engine import Engine
     from predictionio_tpu_torch.workflow.json_extractor import EngineVariant
     from predictionio_tpu_torch.workflow.microbatch import BatchConfig
 
@@ -360,26 +367,15 @@ def register(sub: argparse._SubParsersAction) -> None:
     bp.set_defaults(func=cmd_batchpredict)
 
 
-def load_variant(engine_json: str) -> tuple[EngineVariant, Template]:
-    """The parsed engine.json and its template."""
-    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+def load_variant(engine_json: str) -> tuple[EngineVariant, Engine]:
+    """The parsed engine.json and its engine (``build_engine``)."""
+    from predictionio_tpu_torch.workflow.json_extractor import (
+        build_engine,
+        load_engine_variant,
+    )
 
     variant = load_engine_variant(engine_json)
-    return variant, variant.template
-
-
-def build_trainer(engine_json: str, events_path: str | None = None, *,
-                  device: str | None = None):
-    """The engine.json, read once, and its template's train-path
-    components: ``(variant, template, datasource, preparator,
-    algorithm)``; the DataSource reads ``events_path``, or the store
-    without one. The algorithm resolves the device, so without a card
-    and without ``device="cpu"`` this raises."""
-    from predictionio_tpu_torch.workflow.core_workflow import build_components
-    from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
-
-    variant = load_engine_variant(engine_json)
-    return (variant, *build_components(variant, device=device, events_path=events_path))
+    return variant, build_engine(variant)
 
 
 def train(engine_json: str, events_path: str, model_out: str, *,
@@ -387,19 +383,27 @@ def train(engine_json: str, events_path: str, model_out: str, *,
           als_feed: str | None = None, launch: dict | None = None,
           als_solver: str | None = None):
     """``train --events FILE --model-out DIR``: read the file, prepare,
-    fit, save the model directory; returns the trained model.
-    ``als_feed`` sets ``pio.als_feed`` (``--als-feed``), ``als_solver``
-    ``pio.als_solver`` (``--als-solver``); ``launch`` the
-    ``pio.*`` launch keys (``_launch_conf``). In a multi-process launch
-    every rank reads the file and trains, and rank 0 alone writes the
-    checkpoints and the model directory."""
+    fit (``Engine.train``), save the model directory with the algorithm's
+    ``model_files``; returns the trained model. The engine has one
+    algorithm block, whose class has ``model_files``. ``als_feed`` sets
+    ``pio.als_feed`` (``--als-feed``), ``als_solver`` ``pio.als_solver``
+    (``--als-solver``); ``launch`` the ``pio.*`` launch keys
+    (``_launch_conf``). In a multi-process launch every rank reads the
+    file and trains, and rank 0 alone writes the checkpoints and the
+    model directory."""
     from predictionio_tpu_torch.controller.base import TrainContext
     from predictionio_tpu_torch.parallel.distributed import launch_process_id
-    from predictionio_tpu_torch.workflow.core_workflow import train_model
+    from predictionio_tpu_torch.utils.device import resolve_device
 
-    variant, template, datasource, preparator, algorithm = build_trainer(
-        engine_json, events_path, device=device
-    )
+    variant, engine = load_variant(engine_json)
+    classes = engine._algorithm_classes(variant.engine_params)
+    if len(classes) != 1 or classes[0].model_files is None:
+        raise ValueError(
+            "--model-out writes the model files of one algorithm block that has "
+            f"them; {engine_json} names {[c.__name__ for c in classes]}. Train from "
+            "the store instead"
+        )
+    cls = classes[0]
     if als_feed:
         variant.runtime_conf["pio.als_feed"] = als_feed
     if als_solver:
@@ -408,13 +412,13 @@ def train(engine_json: str, events_path: str, model_out: str, *,
     primary = launch_process_id(variant.runtime_conf) == 0
     checkpoint_dir = os.path.join(model_out, "checkpoints")
     ctx = TrainContext(
-        device=algorithm.device, checkpoint_dir=checkpoint_dir, resume=resume,
+        device=resolve_device(device), checkpoint_dir=checkpoint_dir, resume=resume,
         mesh_shape=variant.runtime_conf.get("pio.mesh_shape"),
         runtime_conf=dict(variant.runtime_conf),
     )
-    model = train_model(ctx, datasource, preparator, algorithm)
+    [model] = engine.train(ctx, variant.engine_params, events_path=events_path)
     if primary:
-        template.save_model(model, model_out)
+        cls.model_files.save(model, model_out)
         # a completed train's checkpoints must not be resumable into a later one
         shutil.rmtree(checkpoint_dir, ignore_errors=True)
     return model

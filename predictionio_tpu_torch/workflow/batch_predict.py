@@ -3,12 +3,12 @@
 Port of ``predictionio_tpu/workflow/batch_predict.py`` (``pio
 batchpredict``): JSON-lines queries in, JSON-lines predictions out,
 through the deployed-equivalent model chain of an engine instance (the
-latest COMPLETED one of the variant, or ``instance_id``): its blob
-(``controller/engine.py::load_serving_model``) with the params it was
-trained with. Queries go through the template's ``batch_predict`` in
-chunks of 4,096 (on the card, one B2 launch a chunk for the known users
-of a mips model, and none besides: the model is not warmed up), each
-served through ``FirstServing``.
+latest COMPLETED one of the variant, or ``instance_id``): its models
+(``Engine.prepare_deploy`` of its blob, with the params it was trained
+with). Queries go through every algorithm's ``batch_predict`` in chunks
+of 4,096 (on the card, one B2 launch a chunk for the known users of a
+mips model, and none besides: the models are not warmed up), and each
+query's predictions through the engine's Serving.
 
 A chunk that raises is rescored one query at a time, and the trigger is
 logged (reference ``:72-96``: one malformed query must not discard its
@@ -24,15 +24,15 @@ from __future__ import annotations
 import json
 import logging
 
-from predictionio_tpu_torch.controller.engine import load_serving_model
-from predictionio_tpu_torch.controller.serving import FirstServing
+from predictionio_tpu_torch.controller.base import TrainContext
 from predictionio_tpu_torch.data import storage
 from predictionio_tpu_torch.data.storage.base import STATUS_COMPLETED
+from predictionio_tpu_torch.utils.device import resolve_device
 from predictionio_tpu_torch.workflow.core_workflow import (
     engine_params_from_instance,
     resolve_engine_instance,
 )
-from predictionio_tpu_torch.workflow.json_extractor import EngineVariant
+from predictionio_tpu_torch.workflow.json_extractor import EngineVariant, build_engine
 
 logger = logging.getLogger("pio.batchpredict")
 
@@ -51,7 +51,7 @@ def run_batch_predict(
 ) -> int:
     """Score every JSON-lines query in ``input_path`` on ``device``
     (``cuda`` unless ``"cpu"``); returns the count of rows written."""
-    template = variant.template
+    engine = build_engine(variant)
     instance = resolve_engine_instance(variant, instance_id)
     if instance.status != STATUS_COMPLETED:
         raise LookupError(
@@ -61,25 +61,28 @@ def run_batch_predict(
     blob = storage.get_model_data_models().get(instance.id)
     if blob is None:
         raise LookupError(f"engine instance {instance.id!r} has no model blob")
+    ctx = TrainContext(device=resolve_device(device),
+                       runtime_conf=dict(instance.runtime_conf or {}))
     # no warm-up: the first chunk builds the serving state (a deploy's
     # warm-up search only spares its first query the wait)
-    algorithm, model = load_serving_model(
-        template, engine_params, blob.models, device=device, warm_up=False
-    )
-    serving = FirstServing()
+    models = engine.prepare_deploy(ctx, engine_params, instance.id, blob.models,
+                                   warm_up=False)
+    algorithms = engine._algorithms(engine_params, ctx.device)
+    serving = engine.serving(engine_params)
 
     count = 0
     with open(input_path) as fin, open(output_path, "w") as fout:
 
         def score_one(obj) -> dict:
             try:
-                query = algorithm.query_from_json(obj)
+                queries = [a.query_from_json(obj) for a in algorithms]
             except Exception as exc:
                 return {"query": obj, "error": str(exc)}
             # a failure past the query's own check is not the query's:
             # it fails the run
-            result = serving.serve(query, [algorithm.predict(model, query)])
-            return {"query": obj, "prediction": algorithm.result_to_json(result)}
+            predictions = [a.predict(m, q) for a, m, q in zip(algorithms, models, queries)]
+            result = serving.serve(queries[0], predictions)
+            return {"query": obj, "prediction": algorithms[0].result_to_json(result)}
 
         def flush(chunk_objs: list) -> None:
             nonlocal count
@@ -89,14 +92,14 @@ def run_batch_predict(
             # (ALS scores a chunk's known users in one search) gets its
             # batch shape
             try:
-                queries = [
-                    (i, algorithm.query_from_json(obj))
-                    for i, obj in enumerate(chunk_objs)
-                ]
-                results = dict(algorithm.batch_predict(model, queries))
+                per_algo, typed = [], None
+                for a, m in zip(algorithms, models):
+                    queries = [(i, a.query_from_json(obj)) for i, obj in enumerate(chunk_objs)]
+                    typed = typed or queries
+                    per_algo.append(dict(a.batch_predict(m, queries)))
                 rows = [
-                    {"query": obj, "prediction": algorithm.result_to_json(
-                        serving.serve(queries[i][1], [results[i]]))}
+                    {"query": obj, "prediction": algorithms[0].result_to_json(
+                        serving.serve(typed[i][1], [results[i] for results in per_algo]))}
                     for i, obj in enumerate(chunk_objs)
                 ]
             except Exception:

@@ -3,11 +3,15 @@
 Counterpart of ``predictionio_tpu/workflow/core_workflow.py``
 (``run_train`` ``:75-256``, ``run_evaluation`` ``:257-295``,
 ``resolve_engine_instance`` and ``engine_params_from_instance``
-``:297-328``), over the port's templates (``controller/engine.py``):
+``:297-328``), over the variant's ``Engine`` (``workflow/json_extractor.py
+::build_engine``):
 
 - ``run_train``: the ``pio train`` core. An engine instance is recorded
-  RUNNING, then COMPLETED with the model blob in the model repository
-  (``Models``, keyed by the instance id), or FAILED when a stage raises.
+  RUNNING; ``Engine.train`` trains every algorithm block (the sanity
+  checks run unless ``skip_sanity_check``), and the instance is recorded
+  COMPLETED with ``Engine.serialize_models``' blob in the model
+  repository (``Models``, keyed by the instance id), or FAILED when a
+  stage raises.
   The instance holds what the reference's holds: the variant's identity,
   its params as JSON, the ``PIO_*`` environment and the runtime conf.
   Trains of one run key (variant + full params) are serialized by a
@@ -29,8 +33,8 @@ Counterpart of ``predictionio_tpu/workflow/core_workflow.py``
   leaderboard (text, JSON, HTML), or FAILED when a stage raises.
 - ``resolve_engine_instance``: the latest COMPLETED instance of a
   variant, or an explicit id (what ``deploy`` loads).
-- ``load_instance_model``: that instance's blob, through the template's
-  ``load_model``.
+- ``load_instance_models``: that instance's models, rehydrated from its
+  blob through ``Engine.prepare_deploy``.
 
 A multi-process launch (``PIO_COORDINATOR`` / ``PIO_NUM_PROCESSES`` /
 ``PIO_PROCESS_ID`` on every process, or the ``pio.*`` keys, reference
@@ -54,11 +58,7 @@ from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 
 from predictionio_tpu_torch.controller.base import TrainContext
-from predictionio_tpu_torch.controller.engine import (
-    EngineParams,
-    deserialize_model,
-    serialize_model,
-)
+from predictionio_tpu_torch.controller.engine import Engine, EngineParams
 from predictionio_tpu_torch.data import storage
 from predictionio_tpu_torch.data.storage.base import (
     STATUS_COMPLETED,
@@ -79,7 +79,7 @@ from predictionio_tpu_torch.workflow.checkpoint import (
     _checkpoint_base,
     clear_run_checkpoints,
 )
-from predictionio_tpu_torch.workflow.json_extractor import EngineVariant
+from predictionio_tpu_torch.workflow.json_extractor import EngineVariant, build_engine
 
 logger = logging.getLogger("pio.workflow")
 
@@ -141,43 +141,6 @@ def _params_jsons(engine_params: EngineParams) -> tuple[str, str, str, str]:
     )
 
 
-def build_components(variant: EngineVariant, *, device=None, events_path: str | None = None):
-    """``(template, datasource, preparator, algorithm)`` of the variant:
-    the template's classes with the engine.json's params, the first
-    algorithm's. The DataSource reads the store, or ``events_path`` when
-    given. The algorithm resolves the device, so without a card and
-    without ``device="cpu"`` this raises."""
-    template = variant.template
-    params = variant.engine_params
-    algorithm = template.algorithm_class(
-        params.algorithm_params_list[0][1], device=device
-    )
-    datasource = template.datasource_class(
-        params.data_source_params, events_path=events_path
-    )
-    preparator = template.preparator_class(params.preparator_params)
-    return template, datasource, preparator, algorithm
-
-
-def train_model(ctx: TrainContext, datasource, preparator, algorithm, *,
-                skip_sanity_check: bool = False, timings: dict | None = None):
-    """Read -> sanity check -> prepare -> ``Algorithm.train``; the stage
-    seconds land in ``timings`` (``read_s``, ``prepare_s``, ``train_s``)
-    when given."""
-    t0 = time.perf_counter()
-    data = datasource.read_training(ctx)
-    if not skip_sanity_check:
-        data.sanity_check()
-    t1 = time.perf_counter()
-    prepared = preparator.prepare(ctx, data)
-    t2 = time.perf_counter()
-    model = algorithm.train(ctx, prepared)
-    if timings is not None:
-        timings.update(read_s=t1 - t0, prepare_s=t2 - t1,
-                       train_s=time.perf_counter() - t2)
-    return model
-
-
 def run_train(
     variant: EngineVariant,
     workflow_params: WorkflowParams | None = None,
@@ -185,32 +148,38 @@ def run_train(
     device=None,
     telemetry=None,
     timings: dict | None = None,
+    engine: Engine | None = None,
 ) -> EngineInstance:
     """The `pio train` core: returns the COMPLETED EngineInstance.
 
     Raises after recording FAILED status if any stage throws. ``device``
-    is where training runs (``cuda`` unless ``"cpu"``); ``telemetry`` is
-    handed to the algorithm (``TrainContext``); ``timings`` (a dict) is
-    filled with the ``read_s``, ``prepare_s``, ``train_s`` and
-    ``persist_s`` seconds of the run.
+    is where training runs (``cuda`` unless ``"cpu"``; without a card
+    and without ``"cpu"`` this raises before anything is recorded);
+    ``telemetry`` is handed to the algorithms (``TrainContext``);
+    ``timings`` (a dict) is filled with ``Engine.train``'s stage seconds
+    and ``persist``; ``engine`` defaults to the variant's
+    (``build_engine``).
     """
+    from predictionio_tpu_torch.utils.device import resolve_device
+
     workflow_params = workflow_params or WorkflowParams()
-    components = build_components(variant, device=device)
+    engine = engine or build_engine(variant)
+    device = resolve_device(device)
+    ctx = TrainContext(
+        device=device, resume=workflow_params.resume, telemetry=telemetry,
+        mesh_shape=variant.runtime_conf.get("pio.mesh_shape"),
+        runtime_conf=dict(variant.runtime_conf),
+        timings={} if timings is None else timings,
+    )
     if launch_process_id(variant.runtime_conf) != 0:
         # multi-process launch, non-primary rank: run the training compute
         # (every rank must take part in the collectives) but own NO
         # persistence side effects -- no run lock (ranks on one host share
         # PIO_FS_BASEDIR), no instance row, no step checkpoints, no model
         # blob. Rank 0 is the system of record.
-        template, datasource, preparator, algorithm = components
-        ctx = TrainContext(
-            device=algorithm.device, resume=workflow_params.resume,
-            telemetry=telemetry, mesh_shape=variant.runtime_conf.get("pio.mesh_shape"),
-            runtime_conf=dict(variant.runtime_conf),
-        )
         start = _utcnow()
-        train_model(ctx, datasource, preparator, algorithm,
-                    skip_sanity_check=workflow_params.skip_sanity_check, timings=timings)
+        engine.train(ctx, variant.engine_params,
+                     skip_sanity_check=workflow_params.skip_sanity_check)
         return EngineInstance(
             status=STATUS_COMPLETED,
             start_time=start,
@@ -228,16 +197,14 @@ def run_train(
     run_lock = RunLock(run_key).acquire()
     try:
         return _run_train_locked(
-            variant, workflow_params, components, params_jsons, run_key,
-            telemetry, timings,
+            variant, workflow_params, engine, ctx, params_jsons, run_key,
         )
     finally:
         run_lock.release()
 
 
-def _run_train_locked(variant, workflow_params, components, params_jsons, run_key,
-                      telemetry, timings) -> EngineInstance:
-    template, datasource, preparator, algorithm = components
+def _run_train_locked(variant, workflow_params, engine, ctx, params_jsons,
+                      run_key) -> EngineInstance:
     instances = storage.get_meta_data_engine_instances()
     ds_json, prep_json, algorithms_params_json, serving_json = params_jsons
     instance = None
@@ -289,36 +256,28 @@ def _run_train_locked(variant, workflow_params, components, params_jsons, run_ke
         instances.insert(instance)
     instance_id = instance.id
     profile_dir = variant.runtime_conf.get("pio.profile")
-    ctx = TrainContext(
-        device=algorithm.device,
-        checkpoint_dir=_checkpoint_base(),
-        resume=resume,
-        telemetry=telemetry,
-        mesh_shape=variant.runtime_conf.get("pio.mesh_shape"),
-        run_key=run_key,
-        runtime_conf=dict(variant.runtime_conf),
-    )
+    ctx.checkpoint_dir = _checkpoint_base()
+    ctx.resume = resume
+    ctx.run_key = run_key
     tracer = global_tracer()
-    timings = {} if timings is None else timings
     try:
         trace_ctx = (
-            profile_trace(profile_dir, algorithm.device, instance_id)
+            profile_trace(profile_dir, ctx.device, instance_id)
             if profile_dir else nullcontext()
         )
         with trace_ctx, tracer.span(
             "train.run",
             attrs={"instance": instance_id, "engine": variant.variant_id},
         ):
-            model = train_model(
-                ctx, datasource, preparator, algorithm,
-                skip_sanity_check=workflow_params.skip_sanity_check, timings=timings,
+            models = engine.train(
+                ctx, variant.engine_params,
+                skip_sanity_check=workflow_params.skip_sanity_check,
             )
         t0 = time.perf_counter()
         with tracer.span("train.persist", attrs={"instance": instance_id}):
-            storage.get_model_data_models().insert(
-                Model(id=instance_id, models=serialize_model(template, model))
-            )
-        timings["persist_s"] = time.perf_counter() - t0
+            blob = engine.serialize_models(ctx, variant.engine_params, instance_id, models)
+            storage.get_model_data_models().insert(Model(id=instance_id, models=blob))
+        ctx.timings["persist"] = time.perf_counter() - t0
         instance.status = STATUS_COMPLETED
         instance.end_time = _utcnow()
         instances.update(instance)
@@ -453,9 +412,12 @@ def engine_params_from_instance(instance: EngineInstance) -> EngineParams:
     )
 
 
-def load_instance_model(variant: EngineVariant, instance_id: str | None = None):
-    """``(instance, model)``: the resolved instance and its model, read
-    from the model repository through the variant's template."""
+def load_instance_models(variant: EngineVariant, instance_id: str | None = None, *,
+                         device=None):
+    """``(instance, models)``: the resolved instance and its models, one
+    per algorithm block, rehydrated from the model repository's blob by
+    ``Engine.prepare_deploy`` with the params the instance recorded (no
+    warm-up; a retrain-on-deploy entry trains on ``device``)."""
     instance = resolve_engine_instance(variant, instance_id)
     if instance.status != STATUS_COMPLETED:
         raise LookupError(
@@ -464,4 +426,10 @@ def load_instance_model(variant: EngineVariant, instance_id: str | None = None):
     record = storage.get_model_data_models().get(instance.id)
     if record is None:
         raise LookupError(f"engine instance {instance.id!r} has no model blob")
-    return instance, deserialize_model(variant.template, record.models)
+    ctx = TrainContext(device=device, runtime_conf=dict(instance.runtime_conf or {}))
+    models = build_engine(variant).prepare_deploy(
+        ctx, engine_params_from_instance(instance), instance.id, record.models,
+        warm_up=False,
+    )
+    return instance, models
+

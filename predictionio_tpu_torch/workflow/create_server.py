@@ -1,14 +1,18 @@
 """Query server of the port: the reference's ``QueryService`` on its router.
 
-Port of ``predictionio_tpu/workflow/create_server.py`` over the port's
-templates (``controller/engine.py``), on ``utils/http.py``'s
-``instrumented_router`` and ``make_server``:
+Port of ``predictionio_tpu/workflow/create_server.py`` over the variant's
+``Engine`` (``workflow/json_extractor.py::build_engine``), on
+``utils/http.py``'s ``instrumented_router`` and ``make_server``. An
+epoch is the engine's algorithms, their models (``Engine.prepare_deploy``:
+rehydrated from a blob, retrained at deploy for ``persist_model =
+False``, partitioned for a shard, warmed up) and its Serving:
 
-- ``POST /queries.json``: JSON query -> ``predict`` -> ``serving.serve``
-  -> JSON result (+ ``prId`` with feedback on), through the micro-batcher
+- ``POST /queries.json``: JSON query -> every algorithm's ``predict`` ->
+  ``serving.serve`` -> JSON result (+ ``prId`` with feedback on), through the micro-batcher
   by default (``workflow/microbatch.py``: at most 64 queries, a 2 ms
   window, buckets 1/4/16/64/128). Concurrent queries become one
-  ``batch_predict``; on the recommendation template with ``"retrieval":
+  ``batch_predict`` of each algorithm and one ``serve_batch``; on the
+  recommendation template with ``"retrieval":
   {"mode": "mips"}`` that is one B2 launch per flushed batch of known
   users. Bodies are byte-identical to the unbatched path
   (``max_batch_size=1`` or ``window_ms=0``), which answers one
@@ -21,7 +25,7 @@ templates (``controller/engine.py``), on ``utils/http.py``'s
   server (``FeedbackConfig``), the async fast path of the multi-process
   tier (``submit_query_async``), the per-shard memory budget
   (``PIO_SHARD_BUDGET_BYTES``) and the shard identity of the sharded
-  fabric (``shard`` / ``num_shards``: ``ALSAlgorithm.shard_model``, or a
+  fabric (``shard`` / ``num_shards``: ``Engine.shard_models``, or a
   registry version's per-shard blob);
 - ``create_query_server``, ``create_multiproc_query_server`` (the
   ``SO_REUSEPORT`` frontend tier, ``serving/procserver.py``),
@@ -32,11 +36,15 @@ What the port keeps of its own: an explicit ``device`` (``cuda`` unless
 the caller names ``"cpu"``; with no card and no such request the load
 raises -- the reference's fallback to the host backend is not copied),
 the engine.json's algorithm params for serving (so a serving knob such as
-``retrieval`` may change after training), and three loaders: a model
-directory (``model_path``), an engine instance's blob, or a registry
-version (``model_version``). ``/metrics`` also carries B2's launch count
-in this process (``pio_kernel_launches_total{kernel="mips_block_topk"}``),
-which is how a shard process's launches are read from outside it.
+``retrieval`` may change after training; each blob entry must name the
+block it serves), and three loaders: a model directory (``model_path``,
+one algorithm block with ``model_files``), an engine instance's blob, or
+a registry version (``model_version``). A ``warm_up`` that raises fails
+the load (the reference logs it and serves on). ``/metrics`` also
+carries the launch count of every kernel wrapper this process imported
+(``pio_kernel_launches_total{kernel="mips_block_topk"}``, ...:
+``ops/launches.py``), which is how a deployed or shard process's
+launches are read from outside it.
 """
 
 from __future__ import annotations
@@ -51,14 +59,13 @@ from concurrent.futures import TimeoutError as _FutureTimeout
 from dataclasses import dataclass
 from typing import Any
 
-from predictionio_tpu_torch.controller.engine import deserialize_model
-from predictionio_tpu_torch.controller.serving import FirstServing
+from predictionio_tpu_torch.controller.base import TrainContext
 from predictionio_tpu_torch.obs.trace import (
     NULL_SPAN,
     SAMPLED_OUT_ROOT,
     format_traceparent,
 )
-from predictionio_tpu_torch.ops import mips
+from predictionio_tpu_torch.ops import launches
 from predictionio_tpu_torch.utils.http import (
     Request,
     Response,
@@ -71,8 +78,9 @@ from predictionio_tpu_torch.workflow.microbatch import (
     BatcherStopped,
     MicroBatcher,
 )
+from predictionio_tpu_torch.utils.device import resolve_device
 from predictionio_tpu_torch.workflow.core_workflow import resolve_engine_instance
-from predictionio_tpu_torch.workflow.json_extractor import EngineVariant
+from predictionio_tpu_torch.workflow.json_extractor import EngineVariant, build_engine
 
 logger = logging.getLogger("pio.server")
 
@@ -108,7 +116,8 @@ class QueryService:
     unless ``"cpu"``). The initial epoch comes from ``model_version`` (a
     registry version), else ``model_path`` (a ``save_model`` directory),
     else the engine instance ``instance_id`` (default: the variant's
-    latest COMPLETED one)."""
+    latest COMPLETED one). ``engine`` defaults to the variant's
+    (``build_engine``)."""
 
     def __init__(
         self,
@@ -127,10 +136,11 @@ class QueryService:
         registry=None,
         shard: int | None = None,
         num_shards: int = 1,
+        engine=None,
     ):
         self.variant = variant
-        self.template = variant.template
-        self.device = device
+        self.engine = engine or build_engine(variant)
+        self.device = resolve_device(device)
         self.model_path = model_path
         self.requested_instance_id = instance_id
         self.requested_model_version = model_version
@@ -239,13 +249,13 @@ class QueryService:
                     help="Seconds of ingested events not yet reflected in"
                     " the serving model (pushed by pio retrain --follow)",
                 )
-            registry.set_counter(
-                "pio_kernel_launches_total",
-                float(mips.mips_block_topk.launches),
-                {"kernel": "mips_block_topk"},
-                help="Launches of the MIPS stage-1 kernel (B2) by its"
-                " wrapper in this process (0 on the CPU)",
-            )
+            for name, wrapper in sorted(launches.KERNELS.items()):
+                registry.set_counter(
+                    "pio_kernel_launches_total", float(wrapper.launches),
+                    {"kernel": name},
+                    help="Launches of each hand-written kernel by its"
+                    " wrapper in this process (0 on the CPU)",
+                )
             stats_fn = self.scorer_stats
             if stats_fn is not None:
                 try:
@@ -357,20 +367,24 @@ class QueryService:
                 " (scorer_shards on the retrain loop) or raise the budget"
             )
 
-    def _serving_epoch(self, model, shard_filter: int | None):
-        """``(algorithms, models, serving)`` of one epoch: the template's
-        algorithm with the engine.json's params on ``device``, ``model``
-        restricted to partition ``shard_filter`` (``shard_model``) when
-        one is given, its serving state built (``warm_up``: the retrieval
-        index packed and searched once, so no query pays it)."""
+    def _serving_epoch(self, instance_id: str, source: bytes | str,
+                       shard_filter: int | None):
+        """``(algorithms, models, serving)`` of one epoch: the engine's
+        algorithms with the engine.json's params on ``device``, the
+        models of ``source`` (a blob, or the ``model_path`` directory)
+        restricted to partition ``shard_filter`` when one is given, their
+        serving state built (``warm_up``: the retrieval index packed and
+        searched once, so no query pays it), and the engine's Serving;
+        all through ``Engine.prepare_deploy``."""
         engine_params = self.variant.engine_params
-        algorithm = self.template.algorithm_class(
-            engine_params.algorithm_params_list[0][1], device=self.device
+        ctx = TrainContext(device=self.device,
+                           runtime_conf=dict(self.variant.runtime_conf))
+        models = self.engine.prepare_deploy(
+            ctx, engine_params, instance_id, source,
+            shard=shard_filter, num_shards=self.num_shards,
         )
-        if shard_filter is not None:
-            model = algorithm.shard_model(model, shard_filter, self.num_shards)
-        algorithm.warm_up(model)
-        return [algorithm], [model], FirstServing()
+        algorithms = self.engine._algorithms(engine_params, self.device)
+        return algorithms, models, self.engine.serving(engine_params)
 
     def _load_models(self) -> None:
         from predictionio_tpu_torch.data import storage
@@ -384,8 +398,7 @@ class QueryService:
             self._swap_to_version(self.requested_model_version)
             return
         if self.model_path is not None:
-            instance = None
-            model = self.template.load_model(self.model_path)
+            instance, source = None, self.model_path
         else:
             instance = resolve_engine_instance(
                 self.variant, self.requested_instance_id
@@ -400,11 +413,11 @@ class QueryService:
                 raise LookupError(
                     f"engine instance {instance.id!r} has no model blob"
                 )
-            blob = blob_record.models
-            self._enforce_shard_budget(len(blob), f"instance {instance.id} blob")
-            model = deserialize_model(self.template, blob)
+            source = blob_record.models
+            self._enforce_shard_budget(len(source), f"instance {instance.id} blob")
         algorithms, models, serving = self._serving_epoch(
-            model, self.shard if self.num_shards > 1 else None
+            "" if instance is None else instance.id, source,
+            self.shard if self.num_shards > 1 else None,
         )
         with self._lock:
             self.instance = instance
@@ -466,7 +479,7 @@ class QueryService:
         # a per-shard blob holds the shard's own compacted model: it
         # rehydrates like a full one, with no further filter
         algorithms, models, serving = self._serving_epoch(
-            deserialize_model(self.template, blob), shard_filter
+            entry.instance_id or "", blob, shard_filter
         )
         engine_params = self.variant.engine_params
         instance = None

@@ -2828,23 +2828,19 @@ def _test_defined(path: str, name: str) -> bool:
 
 
 def test_port_baseline_carries_the_references_entries():
-    """The port's 35 entries are the reference's keys on the port's paths,
-    but for ``RetrainLoop.model``, which takes the place of the
-    reference's ``algorithms`` and ``models`` (the port's loop holds one
-    algorithm and one model). Each justification cites the port's file;
-    each P, R001 and R003 entry names a port test that exists."""
+    """The port's 36 entries are the reference's keys on the port's paths
+    (the loop holds the engine's ``algorithms`` and ``models``, as the
+    reference's does). Each justification cites the port's file; each P,
+    R001 and R003 entry names a port test that exists."""
     from predictionio_tpu.analysis.engine import load_baseline as jax_load
 
     ours = load_baseline()
     keys = {(e["rule"], e["path"], e["symbol"]) for e in ours}
-    assert len(ours) == len(keys) == 35
+    assert len(ours) == len(keys) == 36
     carried = {(r, p.replace("predictionio_tpu/", "predictionio_tpu_torch/", 1), s)
                for r, p, s in ((e["rule"], e["path"], e["symbol"]) for e in jax_load())
                if r[0] not in "JS"}
-    loop = "predictionio_tpu_torch/online/loop.py"
-    gone = {("C006", loop, "RetrainLoop.algorithms"), ("C006", loop, "RetrainLoop.models")}
-    assert gone <= carried
-    assert keys == (carried - gone) | {("C006", loop, "RetrainLoop.model")}
+    assert keys == carried
     for e in ours:
         assert e["path"] in e["justification"], e
         cited = _cited_tests(e["justification"])

@@ -123,12 +123,12 @@ def test_each_tool_has_the_references_functions_and_names_it(name):
 
 
 def test_engine_factories_resolve_to_the_ports_templates():
-    from predictionio_tpu_torch.controller.engine import template_for
+    from predictionio_tpu_torch.workflow.json_extractor import resolve_engine_factory
 
     serving = port("serving_bench")
-    assert {n: template_for(s["factory"], s["algorithms"][0]["name"]).name
-            for n, s in serving.AB_ENGINES.items()} == {"recommendation": "recommendation",
-                                                        "ncf": "ncf"}
+    assert {n: resolve_engine_factory(s["factory"]).__module__
+            for n, s in serving.AB_ENGINES.items()} == {
+        n: f"predictionio_tpu_torch.models.{n}.engine" for n in ("recommendation", "ncf")}
     assert serving.AB_ENGINES["ncf"]["algorithms"][0]["params"]["usePallas"] is False
     assert {n: {k: v for k, v in s.items() if k != "factory"}
             for n, s in serving.AB_ENGINES.items()} == {

@@ -39,15 +39,7 @@ from predictionio_tpu.ops import features as jax_features
 from predictionio_tpu.workflow.context import RuntimeContext
 from predictionio_tpu.workflow.core_workflow import run_evaluation as jax_run_evaluation
 from predictionio_tpu_torch.controller.base import Params, TrainContext
-from predictionio_tpu_torch.controller.engine import (
-    TEMPLATES,
-    EngineParams,
-    ModelBlobError,
-    deserialize_model,
-    load_serving_model,
-    serialize_model,
-    template_for,
-)
+from predictionio_tpu_torch.controller.engine import EngineParams, ModelBlobError
 from predictionio_tpu_torch.controller.metrics import (
     AverageMetric,
     EngineParamsGenerator,
@@ -60,8 +52,16 @@ from predictionio_tpu_torch.models import classification
 from predictionio_tpu_torch.ops import classify, features
 from predictionio_tpu_torch.parallel.mesh import local_mesh
 from predictionio_tpu_torch.tools import cli
-from predictionio_tpu_torch.workflow.core_workflow import load_instance_model, run_evaluation
-from test_torch_store_train import _serve, basedir, fill_store, write_json  # noqa: F401
+from predictionio_tpu_torch.workflow.core_workflow import load_instance_models, run_evaluation
+from predictionio_tpu_torch.workflow.json_extractor import build_engine, load_engine_variant
+from test_torch_store_train import (  # noqa: F401
+    _serve,
+    basedir,
+    fill_store,
+    one_blob,
+    one_model,
+    write_json,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NB_RTOL = 1e-6
@@ -135,13 +135,10 @@ def both_trained(stores, algo: str, app: str = "SmsApp", **params):
     jax_algo = engine._algorithms(jax_params)[0]
     stores("port")
     ep = EngineParams.from_json_obj(engine_obj(algo, app, **params))
-    template = TEMPLATES["classification"].bind(algo)
+    engine = classification.engine_factory()
     ctx = TrainContext(device="cpu")
-    data = template.datasource_class(ep.data_source_params).read_training(ctx)
-    data.sanity_check()
-    prepared = template.preparator_class(ep.preparator_params).prepare(ctx, data)
-    port_algo = template.algorithm_class(ep.algorithm_params_list[0][1], device="cpu")
-    return jax_algo, jax_model, port_algo, port_algo.train(ctx, prepared)
+    port_model = engine.train(ctx, ep)[0]
+    return jax_algo, jax_model, engine._algorithms(ep, "cpu")[0], port_model
 
 
 def assert_models_equal(got, want):
@@ -293,9 +290,9 @@ def test_properties_mode_logistic_regression_within_the_references_own_spread(st
     jax_algo, jax_model, algo_, model = both_trained(stores, "logistic-regression", "PropApp")
     ctx = TrainContext(device="cpu")
     ep = EngineParams.from_json_obj(engine_obj("logistic-regression", "PropApp"))
-    template = TEMPLATES["classification"]
-    data = template.datasource_class(ep.data_source_params).read_training(ctx)
-    _, x, y = template.preparator_class(ep.preparator_params).prepare(ctx, data)
+    engine = classification.engine_factory()
+    data = engine.data_source_class(ep.data_source_params).read_training(ctx)
+    _, x, y = engine.preparator_class(ep.preparator_params).prepare(ctx, data)
     single = jax_classify.train_logistic_regression(x, y, 2)
     sharded = jax_classify.train_logistic_regression(x, y, 2, mesh=local_mesh(8, 1))
     spread = np.abs(sharded.weights - single.weights).max()
@@ -327,7 +324,7 @@ def test_eval_accuracy_equals_the_reference(stores, algo):
         JaxGenerator([JaxEngineParams.from_json_obj(engine_obj(algo, iterations=60))]))
     stores("port")
     got = run_evaluation(
-        Evaluation(template=TEMPLATES["classification"], metric=AverageMetric(score=accuracy)),
+        Evaluation(engine=classification.engine_factory(), metric=AverageMetric(score=accuracy)),
         EngineParamsGenerator([EngineParams.from_json_obj(engine_obj(algo, iterations=60))]),
         device="cpu")
     got_score = json.loads(got.evaluator_results_json)["bestScore"]
@@ -338,16 +335,16 @@ def test_eval_accuracy_equals_the_reference(stores, algo):
 
 def test_a_mesh_is_refused(stores):
     stores("port")
-    template = TEMPLATES["classification"]
+    engine = classification.engine_factory()
     ep = EngineParams.from_json_obj(engine_obj("naive-bayes"))
-    data = template.datasource_class(ep.data_source_params).read_training(None)
-    prepared = template.preparator_class(ep.preparator_params).prepare(None, data)
+    data = engine.data_source_class(ep.data_source_params).read_training(None)
+    prepared = engine.preparator_class(ep.preparator_params).prepare(None, data)
     for name in ("naive-bayes", "logistic-regression"):
-        algo = template.bind(name).algorithm_class(Params({}), device="cpu")
+        algo = engine.algorithm_class_map[name](Params({}), device="cpu")
         # two ranks along data: a launch of one process cannot fill it
         with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
             algo.train(TrainContext(device="cpu", mesh_shape=[2, 1]), prepared)
-    model = template.algorithm_class(Params({}), device="cpu").train(
+    model = engine.algorithm_class_map["naive-bayes"](Params({}), device="cpu").train(
         TrainContext(device="cpu", mesh_shape=[-1, 1]), prepared)
     assert model.space.classes == ["ham", "spam"]
 
@@ -363,10 +360,11 @@ def test_a_reference_model_carried_across_serves_the_same(stores, algo, app, tmp
     carried = classification.from_reference(jax_model)
     queries = QUERIES if app == "SmsApp" else [{"features": {"voice": 1, "sms": 0}},
                                               {"features": {"region": "e"}}]
-    template = TEMPLATES["classification"].bind(algo)
-    template.save_model(carried, str(tmp_path / "m"))
-    for model in (carried, template.load_model(str(tmp_path / "m")),
-                  deserialize_model(template, serialize_model(template, carried))):
+    files = classification.engine_factory().algorithm_class_map[algo].model_files
+    files.save(carried, str(tmp_path / "m"))
+    for model in (carried, files.load(str(tmp_path / "m")),
+                  one_model("classification", one_blob("classification", carried, algo),
+                            algo)):
         for q in queries:
             assert algo_.predict(model, q) == jax_algo.predict(jax_model, q)
 
@@ -374,18 +372,20 @@ def test_a_reference_model_carried_across_serves_the_same(stores, algo, app, tmp
 def test_the_blob_keeps_the_algorithm_class(stores):
     """A logistic-regression blob serves through the class that trained
     it; engine params naming the other algorithm, or a blob naming an
-    algorithm the template lacks, are refused."""
+    algorithm the engine lacks, are refused."""
     _, _, _, model = both_trained(stores, "logistic-regression", iterations=10)
-    template = TEMPLATES["classification"]
-    assert template.algorithm == "naive-bayes"  # bound to the first by default
-    blob = serialize_model(template.bind("logistic-regression"), model)
+    engine = classification.engine_factory()
+    assert list(engine.algorithm_class_map) == ["naive-bayes", "logistic-regression"]
+    blob = one_blob("classification", model, "logistic-regression")
     lr_params = EngineParams.from_json_obj(engine_obj("logistic-regression"))
-    algorithm, loaded = load_serving_model(template, lr_params, blob, device="cpu")
-    assert type(algorithm) is classification.LogisticRegressionAlgorithm
+    ctx = TrainContext(device="cpu")
+    [loaded] = engine.prepare_deploy(ctx, lr_params, "", blob)
+    assert type(engine._algorithms(lr_params, "cpu")[0]) is (
+        classification.LogisticRegressionAlgorithm)
     np.testing.assert_array_equal(loaded.inner.weights, model.inner.weights)
     with pytest.raises(ValueError, match="'logistic-regression', got 'naive-bayes'"):
-        load_serving_model(template, EngineParams.from_json_obj(engine_obj("naive-bayes")),
-                           blob, device="cpu")
+        engine.prepare_deploy(ctx, EngineParams.from_json_obj(engine_obj("naive-bayes")),
+                              "", blob)
     import io
     import zipfile
 
@@ -397,11 +397,13 @@ def test_the_blob_keeps_the_algorithm_class(stores):
                 data = data.replace(b'"logistic-regression"', b'"svm"')
             dst.writestr(name, data)
     with pytest.raises(ModelBlobError, match="trained by 'svm'"):
-        deserialize_model(template, buf.getvalue())
-    assert template_for("", "logistic-regression").algorithm_class is (
-        classification.LogisticRegressionAlgorithm)
-    with pytest.raises(ValueError, match="'naive-bayes' or 'logistic-regression'"):
-        template.bind("svm")
+        engine.prepare_deploy(ctx, lr_params, "", buf.getvalue())
+    no_factory = write_json(stores("port") + "/engine.json",
+                            {"algorithms": [{"name": "logistic-regression"}]})
+    assert build_engine(load_engine_variant(no_factory)).algorithm_class_map[
+        "logistic-regression"] is classification.LogisticRegressionAlgorithm
+    with pytest.raises(KeyError, match="'svm' not registered in engine"):
+        engine._algorithms(EngineParams.from_json_obj(engine_obj("svm")), "cpu")
 
 
 @pytest.mark.parametrize("algo", ["naive-bayes", "logistic-regression"])
@@ -421,11 +423,11 @@ def test_engine_json_trains_deploys_and_batch_predicts_through_the_cli(
         engine_json = write_json(tmp_path / "engine.json", obj)
     assert cli.main(["train", "--engine-json", engine_json, "--device", "cpu"]) == 0
     assert "Engine instance ID" in capsys.readouterr().out
-    variant, template = cli.load_variant(engine_json)
-    assert template.name == "classification" and template.algorithm == algo
-    _, model = load_instance_model(variant)
-    algorithm = template.algorithm_class(Params(variant.engine_params.algorithm_params_list[0][1]),
-                                         device="cpu")
+    variant, engine = cli.load_variant(engine_json)
+    assert engine.algorithm_class_map == classification.ALGORITHMS
+    assert variant.engine_params.algorithm_params_list[0][0] == algo
+    _, [model] = load_instance_models(variant)
+    [algorithm] = engine._algorithms(variant.engine_params, "cpu")
     answers = _serve(engine_json, QUERIES)
     assert [status for status, _ in answers] == [200] * len(QUERIES)
     assert [body for _, body in answers] == [algorithm.predict(model, q) for q in QUERIES]
@@ -452,9 +454,8 @@ def test_properties_mode_trains_from_a_file_as_from_the_store(basedir, tmp_path)
     events_path = tmp_path / "events.jsonl"
     events_path.write_text("".join(json.dumps(e) + "\n" for e in events))
     from_file = cli.train(engine_json, str(events_path), str(tmp_path / "model"), device="cpu")
-    ctx = TrainContext(device="cpu")
-    _, datasource, preparator, algorithm = cli.build_trainer(engine_json, device="cpu")[1:]
-    from_store = algorithm.train(ctx, preparator.prepare(ctx, datasource.read_training(ctx)))
+    variant, engine = cli.load_variant(engine_json)
+    [from_store] = engine.train(TrainContext(device="cpu"), variant.engine_params)
     assert_models_equal(from_file, from_store)
     np.testing.assert_array_equal(from_file.inner.log_likelihood,
                                   from_store.inner.log_likelihood)
@@ -466,12 +467,13 @@ def test_the_cli_eval_of_a_user_module(basedir, tmp_path, capsys):  # noqa: F811
     basedir(tmp_path / "store")
     fill_store(storage, App, Event, sms_events(), app_name="SmsApp")
     (tmp_path / "sms_eval.py").write_text(
-        "from predictionio_tpu_torch.controller.engine import TEMPLATES, EngineParams\n"
+        "from predictionio_tpu_torch.controller.engine import EngineParams\n"
+        "from predictionio_tpu_torch.models.classification import engine_factory\n"
         "from predictionio_tpu_torch.controller.metrics import (\n"
         "    AverageMetric, EngineParamsGenerator, Evaluation)\n"
         "def accuracy(info, q, p, a):\n"
         "    return 1.0 if p['label'] == a else 0.0\n"
-        "EVALUATION = Evaluation(template=TEMPLATES['classification'],\n"
+        "EVALUATION = Evaluation(engine=engine_factory(),\n"
         "                        metric=AverageMetric(score=accuracy))\n"
         "def generator():\n"
         "    return EngineParamsGenerator([EngineParams.from_json_obj({\n"

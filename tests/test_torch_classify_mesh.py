@@ -40,7 +40,7 @@ from predictionio_tpu_torch.data import storage
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage.base import App
 from predictionio_tpu_torch.models.classification.engine import NaiveBayesAlgorithm
-from predictionio_tpu_torch.workflow.core_workflow import load_instance_model, run_train
+from predictionio_tpu_torch.workflow.core_workflow import load_instance_models, run_train
 from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 from test_torch_classification import HAM, QUERIES, SPAM, sms_events
 from test_torch_distributed import run_workers
@@ -238,8 +238,8 @@ def test_two_process_pio_train_serves_the_one_process_labels(basedir, tmp_path, 
     assert [(i.id, i.status) for i in recorded] == [(instance_id, "COMPLETED")]
     assert recorded[0].runtime_conf == {"pio.mesh_shape": [2, 1], "pio.dcn_mesh_shape": [1, 1]}
     single = run_train(load_engine_variant(one), device="cpu")
-    _, model = load_instance_model(load_engine_variant(launch), instance_id)
-    _, want = load_instance_model(load_engine_variant(one), single.id)
+    _, [model] = load_instance_models(load_engine_variant(launch), instance_id)
+    _, [want] = load_instance_models(load_engine_variant(one), single.id)
     algorithm = NaiveBayesAlgorithm(device="cpu")  # predict reads only the model
     queries = QUERIES + [{"text": t} for t in SPAM + HAM]
     for q in queries:

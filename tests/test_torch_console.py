@@ -127,9 +127,9 @@ def test_build_of_a_valid_engine_equals_the_reference(template, tmp_path, capsys
     want, got = both(capsys, "build", "--engine-dir", str(engine_dir), "--clean")
     assert got == want
     assert got == (0, "Build finished: engine is importable and engine.json is valid.\n")
-    code = cli.main(["build", "--engine-dir", str(engine_dir), "--verbose"])
-    out = capsys.readouterr().out
-    assert code == 0 and f"Template: {template}" in out
+    want, got = both(capsys, "build", "--engine-dir", str(engine_dir), "--verbose")
+    assert got == want
+    assert got[0] == 0 and "Engine: Engine\n" in got[1]
 
 
 def test_build_template_json_version_gate_equals_the_reference(tmp_path, capsys):
@@ -163,16 +163,36 @@ def test_build_of_an_invalid_engine_fails_as_the_reference(engine_json, tmp_path
     assert out.count("\n") == want.count("\n") == 1
 
 
-def test_build_refuses_an_algorithm_of_another_template(tmp_path, capsys):
+def test_build_refuses_an_algorithm_of_another_template(stores, tmp_path, capsys):
+    """An engine.json naming an algorithm its engine lacks builds, as the
+    reference's does (``build`` imports the factory and constructs the
+    engine); its ``train`` then fails in both packages with the
+    reference's error for an unregistered algorithm."""
     engine_dir = tmp_path / "engine"
     assert cli.main(["template", "get", "recommendation", str(engine_dir)]) == 0
     variant = json.loads((engine_dir / "engine.json").read_text())
     variant["algorithms"].append({"name": "ncf", "params": {}})
     (engine_dir / "engine.json").write_text(json.dumps(variant))
     capsys.readouterr()
-    assert cli.main(["build", "--engine-dir", str(engine_dir)]) == 1
-    assert "Error: the 'recommendation' template's algorithm is 'als'" in (
-        capsys.readouterr().out)
+    want, got = both(capsys, "build", "--engine-dir", str(engine_dir))
+    assert got == want
+    assert got == (0, "Build finished: engine is importable and engine.json is valid.\n")
+    from predictionio_tpu.data.event import Event as JaxEvent
+    from predictionio_tpu_torch.data.event import Event
+    from test_torch_store_train import fill_store, make_events
+
+    errors = []
+    for name, main, registry, base_mod, event in (
+            ("jax", jax_cli.main, jax_storage, jax_base, JaxEvent),
+            ("port", cli.main, storage, base, Event)):
+        stores(name)
+        fill_store(registry, base_mod.App, event, make_events(users=4), app_name="MyApp")
+        with pytest.raises(KeyError) as raised:
+            main(["train", "--engine-dir", str(engine_dir), "--device", "cpu"]
+                 if name == "port" else ["train", "--engine-dir", str(engine_dir)])
+        errors.append(str(raised.value))
+    assert errors[0] == errors[1]
+    assert "algorithm 'ncf' not registered in engine (available: ['als'])" in errors[1]
 
 
 @pytest.mark.parametrize("argv", [["hello"], ["--epochs", "5"]])

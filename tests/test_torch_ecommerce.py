@@ -35,11 +35,6 @@ from predictionio_tpu.models.ecommerce.engine import (
 from predictionio_tpu.online import foldin as jax_foldin
 from predictionio_tpu.workflow.context import RuntimeContext
 from predictionio_tpu_torch.controller.base import Params, TrainContext
-from predictionio_tpu_torch.controller.engine import (
-    TEMPLATES,
-    deserialize_model,
-    serialize_model,
-)
 from predictionio_tpu_torch.data import storage
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage.base import App
@@ -54,7 +49,7 @@ from predictionio_tpu_torch.models.ecommerce import (
 )
 from predictionio_tpu_torch.models.recommendation.convert import seen_arrays
 from predictionio_tpu_torch.online import foldin
-from test_torch_store_train import basedir, fill_store  # noqa: F401
+from test_torch_store_train import basedir, fill_store, one_blob, one_model  # noqa: F401
 from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 APP = "ShopApp"
@@ -391,20 +386,20 @@ def test_retrain_loop_hands_the_fold_its_confidences_and_set_types(shop, tmp_pat
                        RetrainConfig(notify_urls=[], wal_dir=str(tmp_path / "wal"),
                                      scorer_shards=2), device="cpu")
     captured = {}
-    fold = loop.algorithm.fold_in
+    fold = loop.algorithms[0].fold_in
 
     def spy(model, delta):
         captured["delta"] = delta
         return fold(model, delta)
 
-    loop.algorithm.fold_in = spy
+    loop.algorithms[0].fold_in = spy
     assert loop.run_once() == "foldin"
     delta = captured["delta"]
     assert delta.extras["event_values"] == {"view": 1.0, "buy": 3.0}
     assert "item" in delta.set_entity_types
-    np.testing.assert_array_equal(loop.model.category_items["new"],
-                                  [loop.model.item_index["c4"]])
-    answer = loop.algorithm.predict(loop.model, {"user": "g0u0", "num": 4,
+    np.testing.assert_array_equal(loop.models[0].category_items["new"],
+                                  [loop.models[0].item_index["c4"]])
+    answer = loop.algorithms[0].predict(loop.models[0], {"user": "g0u0", "num": 4,
                                                  "categories": ["new"], "unseenOnly": False})
     assert [s["item"] for s in answer["itemScores"]] == ["c4"]
     version = loop.registry.latest()
@@ -419,9 +414,8 @@ def test_model_round_trips(shop, tmp_path):
     _, jax_model = jax_train(shop)
     model = carry(jax_model)
     save_model(model, str(tmp_path / "m"))
-    template = TEMPLATES["ecommerce"]
     for loaded in (load_model(str(tmp_path / "m")),
-                   deserialize_model(template, serialize_model(template, model))):
+                   one_model("ecommerce", one_blob("ecommerce", model))):
         for f in dataclasses.fields(model):
             a, b = getattr(loaded, f.name), getattr(model, f.name)
             if f.name == "als":

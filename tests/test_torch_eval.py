@@ -55,7 +55,7 @@ from predictionio_tpu.workflow.json_extractor import (
     load_engine_variant as jax_load_variant,
 )
 from predictionio_tpu_torch.controller.base import TrainContext
-from predictionio_tpu_torch.controller.engine import TEMPLATES, EngineParams
+from predictionio_tpu_torch.controller.engine import EngineParams
 from predictionio_tpu_torch.controller.metrics import (
     EngineParamsGenerator,
     Evaluation,
@@ -68,6 +68,7 @@ from predictionio_tpu_torch.eval import metrics, split
 from predictionio_tpu_torch.eval.replay import run_replay_eval
 from predictionio_tpu_torch.models.ncf import model as ncf_model
 from predictionio_tpu_torch.models.ncf.model import params_from_flax
+from predictionio_tpu_torch.models import recommendation
 from predictionio_tpu_torch.models.recommendation import RecommendationDataSource
 from predictionio_tpu_torch.models.sequence import SequenceDataSource
 from predictionio_tpu_torch.tools import cli
@@ -364,18 +365,20 @@ def test_replay_of_a_registry_version(stores, tmp_path):
     """A pinned registry version (published by the port's loop format)
     scores the same holdout; the lineage names it; a JAX-package
     version (a pickle) is refused as a deploy refuses it."""
-    from predictionio_tpu_torch.controller.engine import serialize_model
     from predictionio_tpu_torch.online.registry import ModelRegistry
-    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model, run_train
+    from predictionio_tpu_torch.workflow.json_extractor import build_engine
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_models, run_train
 
     engine_json = write_json(tmp_path / "engine.json", variant_obj(**ALS))
     stores("port")
     variant = load_engine_variant(engine_json)
     instance = run_train(variant, device="cpu")
-    _, model = load_instance_model(variant)
+    _, [model] = load_instance_models(variant)
     registry = ModelRegistry.for_variant(variant, registry_dir=str(tmp_path / "reg"))
     params = variant.engine_params.to_json_obj()
-    entry = registry.publish(serialize_model(variant.template, model),
+    blob = build_engine(variant).serialize_models(None, variant.engine_params,
+                                                  instance.id, [model])
+    entry = registry.publish(blob,
                              {"source": "train", "instance_id": instance.id,
                               "engine_params": params})
     pinned = run_replay_eval(variant, model_version=entry.version,
@@ -420,7 +423,7 @@ def test_kfold_evaluation_equals_the_reference(stores):
         runtime_conf={"pio.mesh_shape": [1, 1]})
     stores("port")
     got = run_evaluation(
-        Evaluation(template=TEMPLATES["recommendation"],
+        Evaluation(engine=recommendation.engine_factory(),
                    metric=OptionAverageMetric(score=precision)),
         EngineParamsGenerator([EngineParams.from_json_obj(c) for c in candidates]),
         evaluation_class="tests.precision", device="cpu")
@@ -440,7 +443,7 @@ def test_kfold_evaluation_equals_the_reference(stores):
 
 def test_failed_evaluation_is_recorded(stores):
     stores("port")
-    evaluation = Evaluation(template=TEMPLATES["recommendation"],
+    evaluation = Evaluation(engine=recommendation.engine_factory(),
                             metric=OptionAverageMetric(score=precision))
     bad = EngineParamsGenerator([EngineParams.from_json_obj(
         {"datasource": {"params": {"appName": "NoSuchApp"}},
@@ -517,13 +520,14 @@ def test_cli_dotted_evaluation(stores, tmp_path, capsys):
     port's objects; one built of the JAX package's is refused."""
     stores("port")
     (tmp_path / "my_eval.py").write_text(
-        "from predictionio_tpu_torch.controller.engine import TEMPLATES, EngineParams\n"
+        "from predictionio_tpu_torch.controller.engine import EngineParams\n"
+        "from predictionio_tpu_torch.models.recommendation import engine_factory\n"
         "from predictionio_tpu_torch.controller.metrics import (\n"
         "    EngineParamsGenerator, Evaluation, OptionAverageMetric)\n"
         "def hit(info, q, p, a):\n"
         "    got = [s['item'] for s in p['itemScores']]\n"
         "    return float(bool(set(got) & set(a))) if got else None\n"
-        "EVALUATION = Evaluation(template=TEMPLATES['recommendation'],\n"
+        "EVALUATION = Evaluation(engine=engine_factory(),\n"
         "                        metric=OptionAverageMetric(score=hit))\n"
         f"PARAMS = {{'datasource': {{'params': {{'appName': '{APP}', 'evalFolds': 2}}}},\n"
         f"          'algorithms': [{{'name': 'als', 'params': {dict(ALS, retrieval={})!r}}}]}}\n"
@@ -560,7 +564,7 @@ def test_the_verbs_default_to_the_card(port_variant, tmp_path, monkeypatch, caps
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["eval", "--replay", "--variant", port_variant])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        run_evaluation(Evaluation(template=TEMPLATES["recommendation"],
+        run_evaluation(Evaluation(engine=recommendation.engine_factory(),
                                   metric=OptionAverageMetric(score=precision)),
                        EngineParamsGenerator([EngineParams()]))
     queries = tmp_path / "q.jsonl"

@@ -58,7 +58,6 @@ from predictionio_tpu.models.recommendation.engine import (
 from predictionio_tpu.parallel.als import ALSModel as JaxALSModel
 from predictionio_tpu.serving import shmring as jax_shmring
 from predictionio_tpu_torch.controller.base import Params
-from predictionio_tpu_torch.controller.engine import deserialize_model, serialize_model
 from predictionio_tpu_torch.data import storage
 from predictionio_tpu_torch.data.wal import WriteAheadLog
 from predictionio_tpu_torch.models.recommendation import ALSAlgorithm, model_from_arrays
@@ -77,6 +76,7 @@ from predictionio_tpu_torch.workflow.create_server import (
 from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 from predictionio_tpu_torch.workflow.microbatch import BatchConfig
 from test_torch_online import basedir, ingest_via_wal, new_loop, trained_variant  # noqa: F401
+from test_torch_store_train import one_blob, one_model
 from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 RETRIEVAL = {"mode": "mips", "shortlist": 32, "blockItems": 64, "blockTopk": 16}
@@ -121,9 +121,9 @@ def published(basedir):  # noqa: F811
     for factors in (uf, uf2):
         full = model(factors, itf, seen_u, seen_i)
         registry.publish(
-            serialize_model(variant.template, full),
+            one_blob("recommendation", full),
             meta={"source": "test", "engine_params": variant.engine_params.to_json_obj()},
-            shard_blobs=[serialize_model(variant.template, algorithm.shard_model(full, k, 2))
+            shard_blobs=[one_blob("recommendation", algorithm.shard_model(full, k, 2))
                          for k in range(2)],
         )
     return str(engine_json), variant, registry
@@ -441,24 +441,17 @@ def test_shard_model_equals_the_reference():
                 q = {"user": uid, "num": 7}
                 assert algorithm.predict(ours, q) == algorithm.predict(port_model, q)
             # a shard's model survives its blob (the registry's per-shard file)
-            back = deserialize_model(
-                load_template(), serialize_model(load_template(), ours))
+            back = one_model("recommendation", one_blob("recommendation", ours))
             assert back.user_index == ours.user_index and back.seen == ours.seen
             np.testing.assert_array_equal(back.als.user_factors, ours.als.user_factors)
         assert covered == set(port_model.user_index)
-
-
-def load_template():
-    from predictionio_tpu_torch.controller.engine import TEMPLATES
-
-    return TEMPLATES["recommendation"]
 
 
 def test_retrain_shard_blobs_carry_untouched_shards_verbatim(basedir):  # noqa: F811
     engine_json = trained_variant(basedir)
     loop = new_loop(engine_json, basedir, scorer_shards=2,
                     budget=StalenessBudget(max_item_growth_frac=1.0))
-    users = sorted(loop.model.user_index)
+    users = sorted(loop.models[0].user_index)
     by_shard = {k: [u for u in users if shard_of(u, 2) == k] for k in range(2)}
     wal = WriteAheadLog(str(basedir / "wal"))
     # each event a second old: one stamped in the loop's own millisecond
@@ -480,12 +473,11 @@ def test_retrain_shard_blobs_carry_untouched_shards_verbatim(basedir):  # noqa: 
     assert v2.load_blob(shard=0) == v1.load_blob(shard=0)
     assert v2.load_blob(shard=1) != v1.load_blob(shard=1)
     # the catalog grew in v3: every shard is recomputed
-    template = load_engine_variant(engine_json).template
     for k in range(2):
-        shard_model = deserialize_model(template, v3.load_blob(shard=k))
+        shard_model = one_model("recommendation", v3.load_blob(shard=k))
         assert "brand-new-item" in shard_model.item_index
         assert set(shard_model.user_index) == set(by_shard[k])
-    whole = deserialize_model(template, v3.load_blob())
+    whole = one_model("recommendation", v3.load_blob())
     assert whole.item_ids == shard_model.item_ids
 
 

@@ -100,14 +100,58 @@ def test_port_imports_no_jax_and_no_reference_package():
         assert f"predictionio_tpu_torch.{module}" in walked
 
 
-def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
+_RESOLVE_EXAMPLES = r"""
+import glob, importlib.abc, os, sys
+
+class RefuseReference(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "predictionio_tpu":
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, RefuseReference())
+sys.modules["jax"] = None
+from predictionio_tpu_torch.controller.engine import Engine
+from predictionio_tpu_torch.workflow.json_extractor import build_engine, load_engine_variant
+
+paths = sorted(glob.glob(os.path.join("examples", "*", "engine.json")))
+for path in paths:
+    variant = load_engine_variant(path)
+    assert variant.engine_factory.startswith("predictionio_tpu."), path
+    engine = build_engine(variant)
+    assert isinstance(engine, Engine), path
+    names = [name for name, _ in variant.engine_params.algorithm_params_list]
+    assert set(names) <= set(engine.algorithm_class_map), (path, names)
+    assert type(engine).__module__ == "predictionio_tpu_torch.controller.engine"
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "predictionio_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print(len(paths))
+"""
+
+
+def test_the_example_engine_factories_resolve_without_the_reference():
+    """Every ``examples/*/engine.json`` names a factory of the JAX
+    package's templates; building it gives the port's ``Engine`` of the
+    port's template, and neither ``jax`` nor ``predictionio_tpu`` is
+    imported on the way."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", _RESOLVE_EXAMPLES], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) == 7
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
     import numpy as np
 
     from predictionio_tpu_torch.models.recommendation import ALSAlgorithm
     from predictionio_tpu_torch.online.foldin import fold_in_users
     from predictionio_tpu_torch.ops.mips import RetrievalConfig, RetrievalIndex
     from predictionio_tpu_torch.parallel.als import ALSConfig, als_fit, build_als_data
-    from predictionio_tpu_torch.tools.cli import build_trainer
+    from predictionio_tpu_torch.tools.cli import load_variant
     from predictionio_tpu_torch.utils.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -122,13 +166,15 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         als_fit(data, config)
     engine_json = os.path.join(REPO, "examples", "recommendation", "engine.json")
+    variant, engine = load_variant(engine_json)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        build_trainer(engine_json, str(tmp_path / "events.jsonl"))
+        engine._algorithms(variant.engine_params)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fold_in_users(np.ones((2, 4), np.float32), [0], [1], [5.0], 1, config)
     for template in ("ecommerce", "similarproduct", "universal", "classification"):
+        variant, engine = load_variant(os.path.join(REPO, "examples", template, "engine.json"))
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            build_trainer(os.path.join(REPO, "examples", template, "engine.json"))
+            engine._algorithms(variant.engine_params)
     from predictionio_tpu_torch.models import e2
     from predictionio_tpu_torch.ops import classify
 
@@ -432,10 +478,16 @@ VERBATIM_DEFS = {
         "CooccurrenceAlgorithm.predict", "CooccurrenceAlgorithm.batch_predict",
     ],
     "ops/classify.py": ["NaiveBayesModel", "LogisticRegressionModel"],
+    "controller/base.py": ["EmptyParams", "PersistentModel", "EngineFactory",
+                           "component_name"],
+    "controller/serving.py": ["FirstServing", "AverageServing"],
+    "controller/engine.py": ["EngineParams", "Engine.serving", "Engine._maybe_sanity_check"],
+    "workflow/json_extractor.py": ["resolve_dotted"],
+    "parallel/als.py": ["ALSModel.score_items_for_user", "ALSModel.score_users_for_item"],
     "tools/engine_commands.py": ["cmd_undeploy"],
     "tools/server_commands.py": ["load_plugins", "cmd_dashboard", "cmd_adminserver",
                                  "cmd_shell"],
-    "tools/build_commands.py": ["register", "_check_template_json", "cmd_run",
+    "tools/build_commands.py": ["register", "_check_template_json", "cmd_build", "cmd_run",
                                 "_examples_root", "cmd_template_list", "cmd_template_get"],
     "tools/daemon_commands.py": ["register", "_base_dir", "_read_pid", "_spawn",
                                  "cmd_start_all", "cmd_stop_all"],

@@ -385,32 +385,64 @@ def test_train_then_deploy_verbs_serve_ncf(tmp_path, implicit):
 
 
 def test_template_dispatch(tmp_path):
+    """Each engine.json resolves to the engine the reference builds (the
+    same algorithm names), and where the reference fails, or builds an
+    engine of its own package, the port refuses."""
+    from predictionio_tpu.workflow.json_extractor import build_engine as jax_build_engine
+    from predictionio_tpu.workflow.json_extractor import (
+        load_engine_variant as jax_load_engine_variant,
+    )
+    from predictionio_tpu_torch.controller.engine import EngineParams as PortEngineParams
+    from predictionio_tpu_torch.workflow.json_extractor import EngineConfigError
+
+    def reference(path):
+        return jax_build_engine(jax_load_engine_variant(str(path)))
+
     params = dict(ALGO)
     by_factory = write_engine_json(tmp_path / "a.json", params)
-    _, template = cli.load_variant(by_factory)
-    assert template.algorithm == "ncf"
+    _, engine = cli.load_variant(by_factory)
+    assert list(engine.algorithm_class_map) == list(
+        reference(by_factory).algorithm_class_map) == ["ncf"]
     by_name = tmp_path / "b.json"
     by_name.write_text(json.dumps({"algorithms": [{"name": "ncf", "params": params}]}))
-    assert cli.load_variant(str(by_name))[1].algorithm == "ncf"
+    assert list(cli.load_variant(str(by_name))[1].algorithm_class_map) == ["ncf"]
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for example, name in (("ncf", "ncf"), ("recommendation", "als"), ("ecommerce", "ecomm"),
                           ("similarproduct", "cooccurrence"), ("universal", "ur"),
                           ("classification", "naive-bayes")):
         path = os.path.join(repo, "examples", example, "engine.json")
-        assert cli.load_variant(path)[1].algorithm == name
-    for bad, match in (
-        # the test suite's own engine (tests/fake_engine.py), which no
-        # template of the port stands for
-        ({"engineFactory": "fake_engine.engine_factory",
-          "algorithms": [{"name": "mean"}]}, "not a ported template"),
-        ({"algorithms": [{"name": "mean"}]}, "not a ported template"),
-        ({"engineFactory": "predictionio_tpu.models.ncf.engine_factory",
-          "algorithms": [{"name": "als"}]}, "algorithm is 'ncf'"),
-    ):
-        path = tmp_path / "bad.json"
-        path.write_text(json.dumps(bad))
-        with pytest.raises(ValueError, match=match):
-            cli.load_variant(str(path))
+        got = cli.load_variant(path)[1].algorithm_class_map
+        assert name in got and list(got) == list(reference(path).algorithm_class_map)
+    # the test suite's own engine (tests/fake_engine.py) is the JAX
+    # package's: the reference builds it, the port names both classes
+    fake = tmp_path / "fake.json"
+    fake.write_text(json.dumps({"engineFactory": "fake_engine.engine_factory",
+                                "algorithms": [{"name": "mean"}]}))
+    jax_engine = reference(fake)
+    with pytest.raises(EngineConfigError) as refused:
+        cli.load_variant(str(fake))
+    cls = type(jax_engine)
+    assert f"{cls.__module__}.{cls.__qualname__}" in str(refused.value)
+    assert "predictionio_tpu_torch.controller.engine.Engine" in str(refused.value)
+    # no engineFactory: the reference refuses the file, the port finds no
+    # template with the algorithm
+    nameless = tmp_path / "nameless.json"
+    nameless.write_text(json.dumps({"algorithms": [{"name": "mean"}]}))
+    for load in (reference, lambda path: cli.load_variant(str(path))):
+        with pytest.raises(ValueError, match="engineFactory"):
+            load(nameless)
+    # an algorithm the engine lacks: both engines refuse it alike
+    other = {"engineFactory": "predictionio_tpu.models.ncf.engine_factory",
+             "algorithms": [{"name": "als"}]}
+    wrong = tmp_path / "bad.json"
+    wrong.write_text(json.dumps(other))
+    with pytest.raises(KeyError) as want:
+        reference(wrong)._algorithms(EngineParams.from_json_obj(other))
+    with pytest.raises(KeyError) as got:
+        cli.load_variant(str(wrong))[1]._algorithms(PortEngineParams.from_json_obj(other),
+                                                    "cpu")
+    assert str(got.value) == str(want.value)
+    assert "algorithm 'als' not registered in engine (available: ['ncf'])" in str(got.value)
     events = write_events(tmp_path / "e.jsonl", clique_events(users=4))
     sharded = write_engine_json(tmp_path / "m.json", params,
                                 sparkConf={"pio.mesh_shape": [1, 2]})
@@ -418,14 +450,15 @@ def test_template_dispatch(tmp_path):
         cli.train(sharded, events, str(tmp_path / "out"), device="cpu")
 
 
-def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
+def test_default_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         NCFAlgorithm({})
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     engine_json = os.path.join(repo, "examples", "ncf", "engine.json")
+    variant, engine = cli.load_variant(engine_json)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli.build_trainer(engine_json, str(tmp_path / "events.jsonl"))
+        engine._algorithms(variant.engine_params)
     users, items, labels = ratings()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_ncf(NCFConfig(num_users=30, num_items=20), users, items, labels)

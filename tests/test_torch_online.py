@@ -52,7 +52,6 @@ from predictionio_tpu.workflow.json_extractor import (
     load_engine_variant as jax_load_engine_variant,
 )
 from predictionio_tpu_torch.controller.base import Params
-from predictionio_tpu_torch.controller.engine import deserialize_model, serialize_model
 from predictionio_tpu_torch.data import storage
 from predictionio_tpu_torch.data.event import DataMap, Event
 from predictionio_tpu_torch.data.ingest import wal_payload
@@ -68,6 +67,7 @@ from predictionio_tpu_torch.tools import cli
 from predictionio_tpu_torch.workflow.core_workflow import run_train
 from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
+from test_torch_store_train import one_blob, one_model
 
 ATOL = 1e-4
 APP = "OnlineApp"
@@ -378,13 +378,13 @@ def test_retrain_loop_end_to_end(basedir):
         while read_checkpoint(str(basedir / "wal")) < 5 and time.time() < deadline:
             time.sleep(0.02)
         captured = {}
-        fold = loop.algorithm.fold_in
+        fold = loop.algorithms[0].fold_in
 
         def spy(model, delta):
             captured.update(model=model, delta=delta)
             return fold(model, delta)
 
-        loop.algorithm.fold_in = spy
+        loop.algorithms[0].fold_in = spy
         assert loop.run_once() == "foldin"
         assert loop.cursor.seqno == 5 and loop.current_version == 1
         assert served.version() == 1
@@ -392,7 +392,7 @@ def test_retrain_loop_end_to_end(basedir):
         assert (v1.version, v1.source, v1.manifest["records"]) == (1, "foldin", 5)
         # the fold equals the reference's on the same snapshot and base
         base, delta = captured["model"], captured["delta"]
-        config = loop.algorithm._config()
+        config = loop.algorithms[0]._config()
         jax_out = jax_foldin.fold_in_als_model(
             JaxALSModel(user_factors=base.als.user_factors,
                         item_factors=base.als.item_factors),
@@ -401,9 +401,9 @@ def test_retrain_loop_end_to_end(basedir):
                                    touched_user_ids=delta.touched_user_ids),
             JaxALSConfig(rank=config.rank, reg=config.reg, alpha=config.alpha,
                          implicit=config.implicit, solver="pallas"))
-        np.testing.assert_allclose(loop.model.als.user_factors, jax_out.als.user_factors,
+        np.testing.assert_allclose(loop.models[0].als.user_factors, jax_out.als.user_factors,
                                    atol=ATOL, rtol=0)
-        assert loop.model.user_index == jax_out.user_index
+        assert loop.models[0].user_index == jax_out.user_index
         # the swapped server answers as the folded model
         algorithm = ALSAlgorithm(Params(ALGO), device="cpu")
         queries = [{"user": "fresh", "num": 4}, {"user": "u1", "num": 3},
@@ -412,7 +412,7 @@ def test_retrain_loop_end_to_end(basedir):
         for q in queries:
             status, header, body = served.post("/queries.json", q)
             assert (status, header) == (200, "1")
-            assert body == algorithm.predict(loop.model, q)
+            assert body == algorithm.predict(loop.models[0], q)
             v1_answers.append(body)
         assert v1_answers[0]["itemScores"]
         # idle: nothing new, nothing moves
@@ -469,8 +469,8 @@ def test_loop_edges(basedir, monkeypatch):
 
     seqno = ingest_via_wal(wal, "crashuser", "i2")
     folded = {}
-    fold = loop.algorithm.fold_in
-    loop.algorithm.fold_in = lambda m, d: folded.setdefault("model", fold(m, d))
+    fold = loop.algorithms[0].fold_in
+    loop.algorithms[0].fold_in = lambda m, d: folded.setdefault("model", fold(m, d))
     monkeypatch.setattr(loop, "_test_hold",
                         lambda: (_ for _ in ()).throw(RuntimeError("killed")))
     with pytest.raises(RuntimeError, match="killed"):
@@ -479,9 +479,9 @@ def test_loop_edges(basedir, monkeypatch):
     assert new_loop(engine_json, basedir).cursor.seqno < seqno
     replay = new_loop(engine_json, basedir)
     assert replay.run_once() == "foldin" and replay.cursor.seqno == seqno
-    np.testing.assert_array_equal(replay.model.als.user_factors,
+    np.testing.assert_array_equal(replay.models[0].als.user_factors,
                                   folded["model"].als.user_factors)
-    assert replay.model.user_index == folded["model"].user_index
+    assert replay.models[0].user_index == folded["model"].user_index
     wal.close()
 
     # a GC gap: the oldest retained record is newer than the cursor
@@ -519,13 +519,13 @@ def test_failed_partition_is_isolated(basedir, monkeypatch):
     assert [c.seqno for c in loop.cursors] == [seqnos[0], 0]
     # the held partition's records are in this publish only because the
     # SQL-exact snapshot already holds them; its change detection replays
-    assert users[0] in loop.model.user_index
+    assert users[0] in loop.models[0].user_index
     assert loop.cycles["part_failures"] == 1
     generation = loop.registry.latest().version
     monkeypatch.delenv("PIO_ONLINE_TEST_FAIL_PART")
     assert loop.run_once() == "foldin"
     assert [c.seqno for c in loop.cursors] == [seqnos[0], seqnos[1]]
-    assert users[1] in loop.model.user_index
+    assert users[1] in loop.models[0].user_index
     assert loop.registry.latest().version > generation
     # a restarted follower reads both cursors and finds nothing pending
     restarted = new_loop(engine_json, basedir)
@@ -536,17 +536,17 @@ def test_failed_partition_is_isolated(basedir, monkeypatch):
 def _publish_scaled_versions(engine_json, scales):
     """One registry version per scale of the trained model's user
     factors (distinct answers per version), and the expected answers."""
-    from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_models
 
     variant = load_engine_variant(engine_json)
-    _, model = load_instance_model(variant)
+    _, [model] = load_instance_models(variant)
     registry = ModelRegistry.for_variant(variant)
     algorithm = ALSAlgorithm(Params(ALGO), device="cpu")
     expected = {}
     for scale in scales:
         scaled = dataclasses.replace(model, als=ALSModel(
             user_factors=model.als.user_factors * scale, item_factors=model.als.item_factors))
-        v = registry.publish(serialize_model(variant.template, scaled), meta={
+        v = registry.publish(one_blob("recommendation", scaled), meta={
             "source": "test", "engine_params": variant.engine_params.to_json_obj()})
         expected[v.version] = {u: algorithm.predict(scaled, {"user": u, "num": 3})
                                for u in ("u0", "u1", "u2", "u3")}
@@ -638,7 +638,7 @@ def test_retrain_command_line(basedir, monkeypatch, capsys):
     assert "foldin=1" in capsys.readouterr().out
     latest = ModelRegistry.for_variant(load_engine_variant(engine_json)).latest()
     assert latest.version == 1
-    model = deserialize_model(load_engine_variant(engine_json).template, latest.load_blob())
+    model = one_model("recommendation", latest.load_blob())
     assert "cliuser" in model.user_index
     wal = WriteAheadLog(str(basedir / "wal"))
     ingest_via_wal(wal, "cliuser2", "i5")
@@ -647,9 +647,8 @@ def test_retrain_command_line(basedir, monkeypatch, capsys):
     assert "foldin=1" in capsys.readouterr().out
     latest = ModelRegistry.for_variant(load_engine_variant(engine_json)).latest()
     assert latest.version == 2 and latest.shard_count == 2
-    template = load_engine_variant(engine_json).template
-    full = deserialize_model(template, latest.load_blob())
-    owned = [set(deserialize_model(template, latest.load_blob(shard=k)).user_index)
+    full = one_model("recommendation", latest.load_blob())
+    owned = [set(one_model("recommendation", latest.load_blob(shard=k)).user_index)
              for k in range(2)]
     assert owned[0] | owned[1] == set(full.user_index) and not owned[0] & owned[1]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -668,9 +667,9 @@ def test_templates_without_a_fold_in_hook(basedir):
     seqno = ingest_via_wal(wal, "ncfuser", "i2")
     wal.close()
     loop = new_loop(ncf_json, basedir)
-    assert not loop.algorithm.supports_fold_in
+    assert not loop.algorithms[0].supports_fold_in
     assert loop.run_once() == "full_retrain" and loop.cursor.seqno == seqno
-    assert "ncfuser" in loop.model.user_index
+    assert "ncfuser" in loop.models[0].user_index
     assert loop.registry.latest().source == "train"
     seq_json = str(basedir / "engine-sasrec.json")
     with open(seq_json, "w") as f:
@@ -704,23 +703,23 @@ def test_loop_fold_in_launches_b1_once_on_card(basedir):
     loop = RetrainLoop(load_engine_variant(engine_json),
                        RetrainConfig(wal_dir=str(basedir / "wal")), device="cuda")
     captured = {}
-    fold = loop.algorithm.fold_in
+    fold = loop.algorithms[0].fold_in
 
     def spy(model, delta):
         captured["delta"] = delta
         return fold(model, delta)
 
-    loop.algorithm.fold_in = spy
+    loop.algorithms[0].fold_in = spy
     before = als_gram.gram_rhs.launches
     assert loop.run_once() == "foldin"
     assert als_gram.gram_rhs.launches == before + 1
     xla = foldin.fold_in_als_model(
-        ALSModel(user_factors=loop.model.als.user_factors,
-                 item_factors=loop.model.als.item_factors),
-        loop.model.user_index, loop.model.item_ids, loop.model.item_index,
-        captured["delta"], dataclasses.replace(loop.algorithm._config(), solver="xla"),
+        ALSModel(user_factors=loop.models[0].als.user_factors,
+                 item_factors=loop.models[0].als.item_factors),
+        loop.models[0].user_index, loop.models[0].item_ids, loop.models[0].item_index,
+        captured["delta"], dataclasses.replace(loop.algorithms[0]._config(), solver="xla"),
         device="cuda")
-    np.testing.assert_allclose(loop.model.als.user_factors, xla.als.user_factors,
+    np.testing.assert_allclose(loop.models[0].als.user_factors, xla.als.user_factors,
                                atol=ATOL, rtol=0)
 
 

@@ -277,10 +277,10 @@ def test_train_then_deploy_verbs_serve_the_sequence_template(tmp_path):
 
 
 def test_template_dispatch_and_unported_settings(tmp_path):
-    assert cli.load_variant(SEQUENCE_JSON)[1].algorithm == "sasrec"
+    assert list(cli.load_variant(SEQUENCE_JSON)[1].algorithm_class_map) == ["sasrec"]
     by_name = tmp_path / "b.json"
     by_name.write_text(json.dumps({"algorithms": [{"name": "sasrec", "params": {}}]}))
-    assert cli.load_variant(str(by_name))[1].datasource_class is SequenceDataSource
+    assert cli.load_variant(str(by_name))[1].data_source_class is SequenceDataSource
     events = write_events(tmp_path / "e.jsonl", users=4)
     with open(SEQUENCE_JSON) as f:
         variant = json.load(f)
@@ -298,12 +298,13 @@ def test_template_dispatch_and_unported_settings(tmp_path):
             cli.train(str(path), events, str(tmp_path / "out"), device="cpu")
 
 
-def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
+def test_default_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         SASRecAlgorithm({})
+    variant, engine = cli.load_variant(SEQUENCE_JSON)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli.build_trainer(SEQUENCE_JSON, str(tmp_path / "events.jsonl"))
+        engine._algorithms(variant.engine_params)
     config = SASRecConfig(num_items=12, max_len=8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_sasrec(config, sequences())

@@ -38,19 +38,21 @@ from predictionio_tpu.models.universal import engine_factory as jax_ur_factory
 from predictionio_tpu.models.universal.engine import URDataSource as JaxURDataSource
 from predictionio_tpu.workflow.context import RuntimeContext
 from predictionio_tpu_torch.controller.base import Params, TrainContext
-from predictionio_tpu_torch.controller.engine import (
-    TEMPLATES,
-    deserialize_model,
-    serialize_model,
-)
 from predictionio_tpu_torch.data import storage
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage.base import App
 from predictionio_tpu_torch.eval.split import SplitSpec
 from predictionio_tpu_torch.models import similarproduct, universal
 from predictionio_tpu_torch.tools import cli
-from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
-from test_torch_store_train import _serve, basedir, fill_store  # noqa: F401
+from predictionio_tpu_torch.workflow.core_workflow import load_instance_models
+from predictionio_tpu_torch.workflow.json_extractor import template_engine
+from test_torch_store_train import (  # noqa: F401
+    _serve,
+    basedir,
+    fill_store,
+    one_blob,
+    one_model,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 APP = "Shop"
@@ -110,12 +112,13 @@ def both_trained(stores, name: str, **params):
     jax_model = engine.train(RuntimeContext(), jax_params)[0]
     jax_algo = engine._algorithms(jax_params)[0]
     stores("port")
-    template = TEMPLATES["similarproduct" if name == "cooccurrence" else "universal"]
+    engine = template_engine("similarproduct" if name == "cooccurrence" else "universal")
     obj = engine_obj(name, **params)
     ctx = TrainContext(device="cpu")
-    data = template.datasource_class(Params(obj["datasource"]["params"])).read_training(ctx)
-    algo = template.algorithm_class(Params(obj["algorithms"][0]["params"]), device="cpu")
-    return jax_algo, jax_model, algo, algo.train(ctx, template.preparator_class().prepare(
+    data = engine.data_source_class(Params(obj["datasource"]["params"])).read_training(ctx)
+    algo = engine.algorithm_class_map[name](Params(obj["algorithms"][0]["params"]),
+                                            device="cpu")
+    return jax_algo, jax_model, algo, algo.train(ctx, engine.preparator_class().prepare(
         ctx, data))
 
 
@@ -236,10 +239,10 @@ def test_evaluation_pairs_equal_the_reference(stores):
 def test_model_round_trips(stores, template, tmp_path):
     name = "cooccurrence" if template == "similarproduct" else "ur"
     _, _, algo, model = both_trained(stores, name)
-    module = TEMPLATES[template]
-    module.save_model(model, str(tmp_path / "m"))
-    for loaded in (module.load_model(str(tmp_path / "m")),
-                   deserialize_model(module, serialize_model(module, model))):
+    files = type(algo).model_files
+    files.save(model, str(tmp_path / "m"))
+    for loaded in (files.load(str(tmp_path / "m")),
+                   one_model(template, one_blob(template, model))):
         for f in dataclasses.fields(model):
             a, b = getattr(loaded, f.name), getattr(model, f.name)
             if isinstance(b, np.ndarray):
@@ -281,8 +284,8 @@ def test_what_is_not_ported_raises(stores, monkeypatch):
         assert isinstance(handle, StreamingHandle)
         for field in ("app_id", "event_names", "probe_event_names", "empty_message"):
             assert getattr(handle, field) == getattr(want, field), field
-        algo = TEMPLATES["similarproduct" if name == "cooccurrence" else "universal"] \
-            .algorithm_class(Params({"chunk": 8}), device="cpu")
+        algo = template_engine("similarproduct" if name == "cooccurrence" else "universal") \
+            .algorithm_class_map[name](Params({"chunk": 8}), device="cpu")
         model = algo.train(TrainContext(device="cpu"), handle)
         stores("jax")
         jax_algo = (JaxCooccurrenceAlgorithm if name == "cooccurrence" else JaxURAlgorithm)(
@@ -326,11 +329,10 @@ def test_shipped_engine_json_trains_and_deploys_through_the_cli(basedir, tmp_pat
     engine_json = os.path.join(REPO, "examples", template, "engine.json")
     assert cli.main(["train", "--engine-json", engine_json, "--device", "cpu"]) == 0
     assert "Engine instance ID" in capsys.readouterr().out
-    variant, tmpl = cli.load_variant(engine_json)
-    assert tmpl is TEMPLATES[template]
-    _, model = load_instance_model(variant)
-    algo = tmpl.algorithm_class(Params(variant.engine_params.algorithm_params_list[0][1]),
-                                device="cpu")
+    variant, engine = cli.load_variant(engine_json)
+    assert engine.algorithm_class_map == template_engine(template).algorithm_class_map
+    _, [model] = load_instance_models(variant)
+    [algo] = engine._algorithms(variant.engine_params, "cpu")
     answers = _serve(engine_json, queries)
     assert [status for status, _ in answers] == [200] * len(queries)
     assert [body for _, body in answers] == [algo.predict(model, q) for q in queries]

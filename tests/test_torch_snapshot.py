@@ -142,9 +142,9 @@ def test_train_from_the_snapshot_equals_the_live_scan(shared_store, tmp_path,
     """``pio train --snapshot-mode MODE`` (the port's command line) builds
     a generation and trains the same factors, bit for bit, as a train
     from the live scan."""
-    from predictionio_tpu_torch.controller.engine import deserialize_model
     from predictionio_tpu_torch.data import storage
     from predictionio_tpu_torch.tools import cli
+    from predictionio_tpu_torch.workflow.core_workflow import load_instance_models
     from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
 
     add, _ = shared_store
@@ -167,8 +167,7 @@ def test_train_from_the_snapshot_equals_the_live_scan(shared_store, tmp_path,
         variant = load_engine_variant(str(engine_json))
         instance = storage.get_meta_data_engine_instances().get_latest_completed(
             variant.variant_id, variant.engine_version, variant.path)
-        model = deserialize_model(variant.template,
-                                  storage.get_model_data_models().get(instance.id).models)
+        _, [model] = load_instance_models(variant, instance.id, device="cpu")
         factors.append((model.als.user_factors, model.als.item_factors, model.item_ids))
     assert os.environ["PIO_SNAPSHOT_MODE"] == mode
     assert any(n.startswith("gen-") for _, dirs, _ in os.walk(tmp_path / "s") for n in dirs)

@@ -17,11 +17,13 @@ walk -- ``app new`` -> ``/batch/events.json`` -> ``import`` -> ``train``
 import datetime as dt
 import glob
 import http.client
+import io
 import json
 import os
 import pickle
 import subprocess
 import sys
+import zipfile
 
 import numpy as np
 import pytest
@@ -36,11 +38,8 @@ from predictionio_tpu.workflow.core_workflow import run_train as jax_run_train
 from predictionio_tpu.workflow.json_extractor import (
     load_engine_variant as jax_load_engine_variant,
 )
-from predictionio_tpu_torch.controller.engine import (
-    TEMPLATES,
-    ModelBlobError,
-    deserialize_model,
-)
+from predictionio_tpu_torch.controller.base import TrainContext
+from predictionio_tpu_torch.controller.engine import EngineParams, ModelBlobError
 from predictionio_tpu_torch.data import storage
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.data.storage.base import App
@@ -51,13 +50,35 @@ from predictionio_tpu_torch.workflow import checkpoint as torch_checkpoint
 from predictionio_tpu_torch.workflow.core_workflow import (
     WorkflowParams,
     engine_params_from_instance,
-    load_instance_model,
+    load_instance_models,
     run_train,
 )
-from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant, template_engine
 from test_torch_leakwatch import port_span_watch, port_span_watch_session  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def one_algorithm(template: str, algorithm: str | None = None) -> EngineParams:
+    """Engine params of one block of ``algorithm`` (default: the
+    template's first) with empty params."""
+    name = algorithm or next(iter(template_engine(template).algorithm_class_map))
+    return EngineParams.from_json_obj({"algorithms": [{"name": name, "params": {}}]})
+
+
+def one_blob(template: str, model, algorithm: str | None = None) -> bytes:
+    """The blob ``Engine.serialize_models`` writes for one model."""
+    return template_engine(template).serialize_models(
+        None, one_algorithm(template, algorithm), "", [model])
+
+
+def one_model(template: str, blob: bytes, algorithm: str | None = None):
+    """The one model of ``blob``, rehydrated by the template's engine on
+    the CPU without a warm-up."""
+    [model] = template_engine(template).prepare_deploy(
+        TrainContext(device="cpu"), one_algorithm(template, algorithm), "", blob,
+        warm_up=False)
+    return model
 ALGO = {"rank": 8, "numIterations": 6, "lambda": 0.05, "seed": 3,
         "implicitPrefs": False, "checkpointInterval": 0}
 VARIANT = {
@@ -168,7 +189,7 @@ def test_train_from_the_store_matches_the_jax_run_train(basedir, tmp_path, monke
     timings = {}
     instance = run_train(load_engine_variant(engine_json), WorkflowParams(batch="b1"),
                          device="cpu", timings=timings)
-    assert set(timings) == {"read_s", "prepare_s", "train_s", "persist_s"}
+    assert set(timings) == {"read", "prepare", "train[als]", "persist"}
     recorded = storage.get_meta_data_engine_instances().get(instance.id)
     for name in INSTANCE_FIELDS:
         assert getattr(recorded, name) == getattr(jax_instance, name), name
@@ -180,7 +201,7 @@ def test_train_from_the_store_matches_the_jax_run_train(basedir, tmp_path, monke
 
     blob = storage.get_model_data_models().get(instance.id).models
     assert blob[:2] == b"PK"  # a zip, not a pickle
-    model = deserialize_model(TEMPLATES["recommendation"], blob)
+    model = one_model("recommendation", blob)
     assert model.user_index == jax_model.user_index
     assert model.item_ids == jax_model.item_ids
     assert model.seen == jax_model.seen
@@ -208,25 +229,109 @@ def test_train_from_the_store_matches_the_jax_run_train(basedir, tmp_path, monke
     with pytest.raises(ModelBlobError, match="pickle, written by the JAX package"):
         cli.build_query_server(engine_json, port=0, device="cpu")
     with pytest.raises(ModelBlobError, match="Retrain it"):
-        deserialize_model(TEMPLATES["recommendation"], jax_blob)
+        one_model("recommendation", jax_blob)
 
 
 def test_a_pickled_or_foreign_blob_is_refused():
-    template = TEMPLATES["recommendation"]
     with pytest.raises(ModelBlobError, match="never unpickles"):
-        deserialize_model(template, pickle.dumps([("pickle", b"x")]))
+        one_model("recommendation", pickle.dumps([("pickle", b"x")]))
     with pytest.raises(ModelBlobError, match="not a model blob"):
-        deserialize_model(template, b"PK-not-a-zip")
-    from predictionio_tpu_torch.controller.engine import serialize_model
+        one_model("recommendation", b"PK-not-a-zip")
     from predictionio_tpu_torch.models.recommendation import model_from_arrays
 
     model = model_from_arrays(np.ones((2, 3), np.float32), np.ones((4, 3), np.float32),
                               ["a", "b"], ["w", "x", "y", "z"], [0, 1], [2, 3])
-    blob = serialize_model(template, model)
+    blob = one_blob("recommendation", model)
     with pytest.raises(ModelBlobError, match="'recommendation' model"):
-        deserialize_model(TEMPLATES["ncf"], blob)
-    back = deserialize_model(template, blob)
+        one_model("ncf", blob)
+    back = one_model("recommendation", blob)
     assert back.seen == model.seen and back.item_ids == model.item_ids
+    # a pickle entry for an algorithm that saves model files: refused
+    # before its bytes (no pickle at all) are read
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as zf:
+        zf.writestr("manifest.json", json.dumps({
+            "format": "predictionio_tpu_torch.model-zip", "version": 2,
+            "algorithms": [{"algorithm": "als", "kind": "pickle", "file": "0/model.pkl"}]}))
+        zf.writestr("0/model.pkl", b"not a pickle")
+    with pytest.raises(ModelBlobError, match="pickles algorithm 'als'.*saves model files"):
+        one_model("recommendation", buf.getvalue())
+
+
+#: a model blob of the recommendation template as the port wrote it before
+#: engines (manifest version 1: the files at the zip's root), of
+#: ``_v1_model()``
+V1_BLOB = (
+    "UEsDBBQAAAAAAAAAIQAruAPWlgAAAJYAAAANAAAAbWFuaWZlc3QuanNvbnsiZm9ybWF0IjogInByZWRpY3Rpb25p"
+    "b190cHVfdG9yY2gubW9kZWwtemlwIiwgInZlcnNpb24iOiAxLCAidGVtcGxhdGUiOiAicmVjb21tZW5kYXRpb24i"
+    "LCAiYWxnb3JpdGhtIjogImFscyIsICJmaWxlcyI6IFsiZmFjdG9ycy5ucHoiLCAidm9jYWIuanNvbiJdfVBLAwQU"
+    "AAAAAAAAACEAnpC6gnYEAAB2BAAACwAAAGZhY3RvcnMubnB6UEsDBC0AAAAAAAAAIQAKnACk//////////8QABQA"
+    "dXNlcl9mYWN0b3JzLm5weQEAEACYAAAAAAAAAJgAAAAAAAAAk05VTVBZAQB2AHsnZGVzY3InOiAnPGY0JywgJ2Zv"
+    "cnRyYW5fb3JkZXInOiBGYWxzZSwgJ3NoYXBlJzogKDIsIDMpLCB9ICAgICAgICAgICAgICAgICAgICAgICAgICAg"
+    "ICAgICAgICAgICAgICAgICAgICAgICAgICAgICAgIAoAAAAAAACAPgAAAD8AAEA/AACAPwAAoD9QSwMELQAAAAAA"
+    "AAAhAAE+2ur//////////xAAFABpdGVtX2ZhY3RvcnMubnB5AQAQALAAAAAAAAAAsAAAAAAAAACTTlVNUFkBAHYA"
+    "eydkZXNjcic6ICc8ZjQnLCAnZm9ydHJhbl9vcmRlcic6IEZhbHNlLCAnc2hhcGUnOiAoNCwgMyksIH0gICAgICAg"
+    "ICAgICAgICAgICAgICAgICAgICAgICAgICAgICAgICAgICAgICAgICAgICAgICAgICAgCgAAAAAAAAA+AACAPgAA"
+    "wD4AAAA/AAAgPwAAQD8AAGA/AACAPwAAkD8AAKA/AACwP1BLAwQtAAAAAAAAACEAfmr7yf//////////DgAUAHNl"
+    "ZW5fdXNlcnMubnB5AQAQAJAAAAAAAAAAkAAAAAAAAACTTlVNUFkBAHYAeydkZXNjcic6ICc8aTgnLCAnZm9ydHJh"
+    "bl9vcmRlcic6IEZhbHNlLCAnc2hhcGUnOiAoMiwpLCB9ICAgICAgICAgICAgICAgICAgICAgICAgICAgICAgICAg"
+    "ICAgICAgICAgICAgICAgICAgICAgICAgICAgCgAAAAAAAAAAAQAAAAAAAABQSwMELQAAAAAAAAAhAGBIfgz/////"
+    "/////w4AFABzZWVuX2l0ZW1zLm5weQEAEACQAAAAAAAAAJAAAAAAAAAAk05VTVBZAQB2AHsnZGVzY3InOiAnPGk4"
+    "JywgJ2ZvcnRyYW5fb3JkZXInOiBGYWxzZSwgJ3NoYXBlJzogKDIsKSwgfSAgICAgICAgICAgICAgICAgICAgICAg"
+    "ICAgICAgICAgICAgICAgICAgICAgICAgICAgICAgICAgICAgIAoCAAAAAAAAAAMAAAAAAAAAUEsBAi0DLQAAAAAA"
+    "AAAhAAqcAKSYAAAAmAAAABAAAAAAAAAAAAAAAIABAAAAAHVzZXJfZmFjdG9ycy5ucHlQSwECLQMtAAAAAAAAACEA"
+    "AT7a6rAAAACwAAAAEAAAAAAAAAAAAAAAgAHaAAAAaXRlbV9mYWN0b3JzLm5weVBLAQItAy0AAAAAAAAAIQB+avvJ"
+    "kAAAAJAAAAAOAAAAAAAAAAAAAACAAcwBAABzZWVuX3VzZXJzLm5weVBLAQItAy0AAAAAAAAAIQBgSH4MkAAAAJAA"
+    "AAAOAAAAAAAAAAAAAACAAZwCAABzZWVuX2l0ZW1zLm5weVBLBQYAAAAABAAEAPQAAABsAwAAAABQSwMEFAAAAAAA"
+    "AAAhAEWvWx+LAAAAiwAAAAoAAAB2b2NhYi5qc29ueyJ1c2VyX2lkcyI6IFsiYSIsICJiIl0sICJpdGVtX2lkcyI6"
+    "IFsidyIsICJ4IiwgInkiLCAieiJdLCAic2Vlbl9tb2RlIjogIm1vZGVsIiwgImFwcF9uYW1lIjogIiIsICJldmVu"
+    "dF9uYW1lcyI6IG51bGwsICJjaGFubmVsX25hbWUiOiBudWxsfVBLAQIUAxQAAAAAAAAAIQAruAPWlgAAAJYAAAAN"
+    "AAAAAAAAAAAAAACAAQAAAABtYW5pZmVzdC5qc29uUEsBAhQDFAAAAAAAAAAhAJ6QuoJ2BAAAdgQAAAsAAAAAAAAA"
+    "AAAAAIABwQAAAGZhY3RvcnMubnB6UEsBAhQDFAAAAAAAAAAhAEWvWx+LAAAAiwAAAAoAAAAAAAAAAAAAAIABYAUA"
+    "AHZvY2FiLmpzb25QSwUGAAAAAAMAAwCsAAAAEwYAAAAA"
+)
+
+
+def _v1_model():
+    from predictionio_tpu_torch.models.recommendation import model_from_arrays
+
+    return model_from_arrays(np.arange(6, dtype=np.float32).reshape(2, 3) / 4,
+                             np.arange(12, dtype=np.float32).reshape(4, 3) / 8,
+                             ["a", "b"], ["w", "x", "y", "z"], [0, 1], [2, 3])
+
+
+def test_a_version_1_blob_deploys_and_one_algorithm_writes_its_bytes(basedir, tmp_path):
+    """A blob of an earlier port still deploys, in process and through
+    ``deploy``; a one-algorithm template engine writes it byte for byte."""
+    import base64
+
+    blob = base64.b64decode(V1_BLOB)
+    want = _v1_model()
+    assert one_blob("recommendation", want) == blob
+    got = one_model("recommendation", blob)
+    np.testing.assert_array_equal(got.als.user_factors, want.als.user_factors)
+    np.testing.assert_array_equal(got.als.item_factors, want.als.item_factors)
+    assert (got.user_index, got.item_ids, got.seen) == (
+        want.user_index, want.item_ids, want.seen)
+    # recorded as an instance's blob, the deploy serves it
+    from predictionio_tpu_torch.data.storage.base import EngineInstance, Model
+
+    basedir(tmp_path / "store")
+    engine_json = write_json(tmp_path / "engine.json", VARIANT)
+    variant = load_engine_variant(engine_json)
+    instances = storage.get_meta_data_engine_instances()
+    now = dt.datetime.now(dt.timezone.utc)
+    instance_id = instances.insert(EngineInstance(
+        status="COMPLETED", start_time=now, end_time=now, engine_id=variant.variant_id,
+        engine_version=variant.engine_version, engine_variant=variant.path,
+        engine_factory=variant.engine_factory, data_source_params="{}",
+        preparator_params="{}", serving_params="{}",
+        algorithms_params=json.dumps([{"name": "als", "params": {}}])))
+    storage.get_model_data_models().insert(Model(id=instance_id, models=blob))
+    query = {"user": "a", "num": 2, "unseenOnly": False}
+    [(status, body)] = _serve(engine_json, [query])
+    algorithm = ALSAlgorithm(VARIANT["algorithms"][0]["params"], device="cpu")
+    assert status == 200 and body == algorithm.predict(want, query)
 
 
 class _Killed(RuntimeError):
@@ -263,7 +368,7 @@ def test_resume_continues_only_on_equal_params(basedir, tmp_path, monkeypatch):
         {"name": "als", "params": dict(ALGO, checkpointInterval=1)}])
     engine_json = write_json(tmp_path / "engine.json", variant)
     straight = run_train(load_engine_variant(engine_json), device="cpu")
-    _, straight_model = load_instance_model(load_engine_variant(engine_json), straight.id)
+    _, [straight_model] = load_instance_models(load_engine_variant(engine_json), straight.id)
 
     with monkeypatch.context() as m:
         _die_after(m, 3)
@@ -281,7 +386,7 @@ def test_resume_continues_only_on_equal_params(basedir, tmp_path, monkeypatch):
     assert starts == [4]  # the step after the last checkpoint
     assert not [d for d in os.listdir(os.path.join(base, "checkpoints"))
                 if d.startswith("als-")]
-    _, model = load_instance_model(load_engine_variant(engine_json))
+    _, [model] = load_instance_models(load_engine_variant(engine_json))
     np.testing.assert_array_equal(model.als.user_factors, straight_model.als.user_factors)
     np.testing.assert_array_equal(model.als.item_factors, straight_model.als.item_factors)
 
@@ -424,8 +529,8 @@ def test_two_process_cli_train_of_the_neural_templates(basedir, tmp_path, templa
     recorded = storage.get_meta_data_engine_instances().get_all()
     assert [(i.id, i.status) for i in recorded] == [(instance_id, "COMPLETED")]
     single = run_train(load_engine_variant(one), device="cpu")
-    _, got = load_instance_model(load_engine_variant(launch), instance_id)
-    _, want = load_instance_model(load_engine_variant(one), single.id)
+    _, [got] = load_instance_models(load_engine_variant(launch), instance_id)
+    _, [want] = load_instance_models(load_engine_variant(one), single.id)
     assert got.state.keys() == want.state.keys()
     for name in want.state:
         np.testing.assert_allclose(got.state[name], want.state[name], atol=1e-4, err_msg=name)
@@ -499,8 +604,8 @@ def test_two_process_streaming_reader_train_matches_one_process(basedir, tmp_pat
               if i.id != instance_id]
     assert [i.status for i in single] == ["COMPLETED"]
     assert len(stores()) == 2  # the one-process packing is a store of its own
-    _, got = load_instance_model(load_engine_variant(launch), instance_id)
-    _, want = load_instance_model(load_engine_variant(one), single[0].id)
+    _, [got] = load_instance_models(load_engine_variant(launch), instance_id)
+    _, [want] = load_instance_models(load_engine_variant(one), single[0].id)
     assert got.user_index == want.user_index and got.item_ids == want.item_ids
     np.testing.assert_allclose(got.als.user_factors, want.als.user_factors, atol=1e-4)
     np.testing.assert_allclose(got.als.item_factors, want.als.item_factors, atol=1e-4)
@@ -556,7 +661,7 @@ def test_the_cli_walks_app_events_import_train_deploy(basedir, tmp_path, capsys)
     write_json(engine_dir / "engine.json", variant)
     assert cli.main(["train", "--engine-dir", str(engine_dir), "--device", "cpu"]) == 0
     instance_id = capsys.readouterr().out.split("Engine instance ID: ")[1].split()[0]
-    _, model = load_instance_model(load_engine_variant(str(engine_dir / "engine.json")))
+    _, [model] = load_instance_models(load_engine_variant(str(engine_dir / "engine.json")))
     assert len(model.user_index) == 16
 
     deploy, port = _start(["deploy", "--engine-dir", str(engine_dir), "--device", "cpu",

@@ -38,21 +38,26 @@ from predictionio_tpu.models.similarproduct import engine_factory as jax_sp_fact
 from predictionio_tpu.models.universal import engine_factory as jax_ur_factory
 from predictionio_tpu.workflow.context import RuntimeContext
 from predictionio_tpu_torch.controller.base import Params, TrainContext
-from predictionio_tpu_torch.controller.engine import TEMPLATES
 from predictionio_tpu_torch.data import storage
 from predictionio_tpu_torch.data.event import DataMap, Event
 from predictionio_tpu_torch.data.storage.base import App
 from predictionio_tpu_torch.models import _streaming
 from predictionio_tpu_torch.models.recommendation import (
+    ALSAlgorithm,
     RecommendationDataSource,
 )
 from predictionio_tpu_torch.parallel import reader as torch_reader
 from predictionio_tpu_torch.tools import cli
-from predictionio_tpu_torch.workflow.core_workflow import load_instance_model
-from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant
+from predictionio_tpu_torch.workflow.core_workflow import load_instance_models
+from predictionio_tpu_torch.workflow.json_extractor import load_engine_variant, template_engine
 from test_torch_ecommerce import shop_events
 from test_torch_similarity import clique_events
-from test_torch_store_train import _serve, basedir, fill_store, make_events  # noqa: F401
+from test_torch_store_train import (  # noqa: F401
+    _serve,
+    basedir,
+    fill_store,
+    make_events,
+)
 
 ATOL = 1e-4
 TOL = 1e-5
@@ -86,13 +91,14 @@ def two_stores(basedir, tmp_path):  # noqa: F811
 
 def port_train(template: str, obj: dict, runtime_conf=None):
     """(algorithm, model, prepared data) of the port's engine on its store."""
-    tmpl = TEMPLATES[template]
+    engine = template_engine(template)
     ctx = TrainContext(device="cpu", runtime_conf=dict(runtime_conf or {}))
-    data = tmpl.datasource_class(Params(obj["datasource"]["params"])).read_training(ctx)
+    data = engine.data_source_class(Params(obj["datasource"]["params"])).read_training(ctx)
     data.sanity_check()
-    prepared = tmpl.preparator_class(Params(obj.get("preparator", {}).get("params", {}))) \
+    prepared = engine.preparator_class(Params(obj.get("preparator", {}).get("params", {}))) \
         .prepare(ctx, data)
-    algo = tmpl.algorithm_class(Params(obj["algorithms"][0]["params"]), device="cpu")
+    name, params = obj["algorithms"][0]["name"], obj["algorithms"][0]["params"]
+    algo = engine.algorithm_class_map[name](Params(params), device="cpu")
     return algo, algo.train(ctx, prepared), prepared
 
 
@@ -148,7 +154,7 @@ def test_recommendation_streaming_reader_equals_the_reference(two_stores):
     assert_factors_close(got.als, want.als)
     m_algo, materialized, _ = port_train("recommendation", REC)
     assert_factors_equal(got.als, materialized.als)
-    live_algo = TEMPLATES["recommendation"].algorithm_class(
+    live_algo = ALSAlgorithm(
         Params({**REC_ALGO, "seenFilter": "live"}), device="cpu")
     for q in REC_QUERIES:
         assert algo.predict(got, q) == live_algo.predict(materialized, q) == (
@@ -245,12 +251,12 @@ def test_pio_train_als_feed_streamed_and_deploy(two_stores, tmp_path, capsys, mo
     stream = records[-1]
     assert stream["half_steps"] == 12 and stream["h2d_block_bytes"] > 0
     assert stream["max_inflight_blocks"] <= 2
-    _, model = load_instance_model(load_engine_variant(engine_json))
+    _, [model] = load_instance_models(load_engine_variant(engine_json))
     assert model.seen_mode == "live"
     materialized_obj = {**REC, "preparator": {"params": {"maxEventsPerUser": 12}}}
     _, materialized, _ = port_train("recommendation", materialized_obj)
     assert_factors_equal(model.als, materialized.als)
-    live_algo = TEMPLATES["recommendation"].algorithm_class(
+    live_algo = ALSAlgorithm(
         Params({**REC_ALGO, "seenFilter": "live"}), device="cpu")
     served = _serve(engine_json, REC_QUERIES)
     assert [status for status, _ in served] == [200] * len(REC_QUERIES)
